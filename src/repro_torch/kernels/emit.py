@@ -1,0 +1,216 @@
+"""Wrapper of the hand-written CUDA ``swc`` kernel (port of
+``repro.kernels.emit.fused_stencil_pallas`` at depth 1).
+
+:func:`fused_stencil_swc` checks its operands against the plan, uploads
+the operator set's tap table (once per operator set and device), and
+launches ``csrc/fused_stencil.cu`` on PyTorch's current stream. A CPU
+tensor goes to the plain version (``ref.fused_stencil`` with the φ's
+``torch_fn``); a CUDA tensor goes to the kernel, or the wrapper raises —
+there is no fallback from one to the other.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from repro_torch import dtype_name
+from repro_torch.core.stencil import OperatorSet
+from repro_torch.kernels import build
+from repro_torch.kernels import ref
+from repro_torch.kernels.phi import DevicePhi
+from repro_torch.kernels.plan import StencilPlan
+
+KERNEL = "fused_stencil"  # csrc/fused_stencil.cu
+GEOM_LEN = 35  # G_LEN of fused_stencil.cu
+
+TapTable = tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def tap_table(ops: OperatorSet) -> TapTable:
+    """The operator set flattened for the kernel, on the CPU.
+
+    Returns ``(offsets, coeffs, starts)``: int32 (n_taps, 3) offsets as
+    (dz, dy, dx) — rank 1/2 offsets padded with leading zeros — float64
+    coefficients (cast to the field dtype in the kernel), and int32
+    (n_ops + 1,) start index of each operator's taps. Taps keep each
+    operator's own order, the reference's accumulation order.
+    """
+    offsets, coeffs, starts = [], [], [0]
+    lead = (0,) * (3 - ops.ndim)
+    for spec in ops.ops:
+        for off, c in zip(spec.offsets, spec.coeffs):
+            offsets.append(lead + tuple(off))
+            coeffs.append(c)
+        starts.append(len(coeffs))
+    return (
+        torch.from_numpy(np.asarray(offsets, dtype=np.int32).reshape(-1, 3)),
+        torch.from_numpy(np.asarray(coeffs, dtype=np.float64)),
+        torch.from_numpy(np.asarray(starts, dtype=np.int32)),
+    )
+
+
+@functools.lru_cache(maxsize=64)
+def device_tap_table(ops: OperatorSet, device: torch.device) -> TapTable:
+    """:func:`tap_table` uploaded to ``device``, cached per (ops, device)."""
+    return tuple(t.to(device) for t in tap_table(ops))
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    """Build/load the kernel library and declare its C signatures."""
+    lib = build.load(KERNEL)
+    vp = ctypes.c_void_p
+    lib.repro_fused_stencil.argtypes = [
+        vp, vp, vp, vp, vp, vp,
+        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_double),
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, vp,
+    ]
+    lib.repro_fused_stencil.restype = ctypes.c_int
+    lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.repro_cuda_error_string.restype = ctypes.c_char_p
+    lib.repro_geometry_len.argtypes = []
+    lib.repro_geometry_len.restype = ctypes.c_int
+    if lib.repro_geometry_len() != GEOM_LEN:
+        raise RuntimeError("fused_stencil.cu geometry layout changed")
+    return lib
+
+
+def _rank3(t: tuple[int, ...], fill: int) -> list[int]:
+    return [fill] * (3 - len(t)) + list(t)
+
+
+def geometry(plan: StencilPlan, slots: list[int]) -> np.ndarray:
+    """The kernel's int geometry array (``GeomIndex`` of the source):
+    ranks 1/2 lifted to rank 3 with unit extents and zero radii."""
+    padded = tuple(n + 2 * r for n, r in zip(plan.interior, plan.radii))
+    g = [plan.n_f, plan.n_out, plan.n_aux]
+    g += _rank3(plan.interior, 1) + _rank3(padded, 1)
+    g += _rank3(plan.radii, 0) + _rank3(plan.block, 1)
+    g += [plan.unroll, plan.n_ops, plan.n_taps, len(slots)]
+    g += slots + [0] * (GEOM_LEN - len(g) - len(slots))
+    return np.asarray(g, dtype=np.int32)
+
+
+def _check(f_padded, ops, phi, plan, aux, taps) -> None:
+    rank = plan.rank
+    if ops.ndim != rank or ops.radius_per_axis() != plan.radii:
+        raise ValueError("operator set does not match the plan")
+    if (plan.n_ops, plan.n_taps) != (ops.n_s, ops.taps_per_point):
+        raise ValueError("plan was made for another tap table")
+    padded = tuple(n + 2 * r for n, r in zip(plan.interior, plan.radii))
+    if tuple(f_padded.shape) != (plan.n_f,) + padded:
+        raise ValueError(
+            f"f_padded shape {tuple(f_padded.shape)} != plan's "
+            f"{(plan.n_f,) + padded}"
+        )
+    if dtype_name(f_padded.dtype) != plan.dtype:
+        raise ValueError(f"dtype {f_padded.dtype} != plan's {plan.dtype}")
+    has_aux = aux is not None
+    if has_aux != bool(plan.n_aux) or has_aux != phi.needs_aux:
+        raise ValueError("aux operand does not match plan.n_aux and φ")
+    if aux is not None:
+        if tuple(aux.shape) != (plan.n_aux,) + plan.interior:
+            raise ValueError(
+                f"aux shape {tuple(aux.shape)} != "
+                f"{(plan.n_aux,) + plan.interior}"
+            )
+        if aux.dtype != f_padded.dtype or aux.device != f_padded.device:
+            raise ValueError("aux must match f_padded's dtype and device")
+    if phi.n_out(plan.n_f) != plan.n_out:
+        raise ValueError(
+            f"{phi.kind} writes {phi.n_out(plan.n_f)} rows, plan has "
+            f"n_out={plan.n_out}"
+        )
+    if phi.kind != "select" and (plan.n_f, plan.n_aux) not in (
+        (8, 0), (8, 8)
+    ):
+        raise ValueError(f"{phi.kind} needs 8 fields (and 8 aux rows)")
+    if plan.threads > phi.max_threads:
+        raise ValueError(
+            f"{phi.kind} keeps its derivative values in registers and "
+            f"takes tiles of at most {phi.max_threads} points; tile "
+            f"{plan.block} has {plan.threads}"
+        )
+    missing = [n for n in phi.operators if n not in ops.names]
+    if missing:
+        raise ValueError(f"φ reads operators {missing} not in the set")
+    if taps is not None:
+        if any(t.device != f_padded.device for t in taps):
+            raise ValueError(
+                f"the tap table is on {taps[0].device}, the fields on "
+                f"{f_padded.device}: move the op with .to(device)"
+            )
+        if taps[1].dtype != torch.float64:
+            raise ValueError(
+                "tap coefficients must stay float64 (the kernel casts "
+                "them to the field dtype); move an op with .to(device) "
+                "only"
+            )
+
+
+def fused_stencil_swc(
+    f_padded: torch.Tensor,
+    ops: OperatorSet,
+    phi: DevicePhi,
+    plan: StencilPlan,
+    *,
+    aux: torch.Tensor | None = None,
+    taps: TapTable | None = None,
+) -> torch.Tensor:
+    """Fused φ(A·B) for one ``swc`` plan: (n_f, *(n + 2r)) → (n_out, *n).
+
+    ``aux`` (n_aux, *n) is forwarded to φ (the MHD fused RK axpy).
+    ``taps`` is the operator set's :func:`tap_table` on ``f_padded``'s
+    device (a module's buffers); ``None`` uses the per-device cache.
+    Each kernel launch adds one to ``fused_stencil_swc.launches``.
+    """
+    if not isinstance(phi, DevicePhi):
+        raise ValueError(
+            "strategy='swc' runs a compiled CUDA kernel and needs a "
+            "DevicePhi (repro_torch.kernels.phi); for an arbitrary φ "
+            "callable use strategy='hwc'"
+        )
+    _check(f_padded, ops, phi, plan, aux, taps)
+    if f_padded.device.type == "cpu":
+        return ref.fused_stencil(f_padded, ops, phi.torch_fn, aux=aux)
+    if f_padded.device.type != "cuda":
+        raise ValueError(f"unsupported device {f_padded.device}")
+    if not f_padded.is_contiguous() or (
+        aux is not None and not aux.is_contiguous()
+    ):
+        raise ValueError("f_padded and aux must be contiguous")
+    if taps is None:
+        taps = device_tap_table(ops, f_padded.device)
+    offsets, coeffs, starts = taps
+    slots = [ops.names.index(n) for n in phi.operators]
+    geom = geometry(plan, slots)
+    params = np.asarray(phi.params, dtype=np.float64)
+    out = torch.empty(
+        (plan.n_out,) + plan.interior, dtype=f_padded.dtype,
+        device=f_padded.device,
+    )
+    lib = _lib()
+    err = lib.repro_fused_stencil(
+        f_padded.data_ptr(),
+        None if aux is None else aux.data_ptr(),
+        out.data_ptr(),
+        offsets.data_ptr(), coeffs.data_ptr(), starts.data_ptr(),
+        geom.ctypes.data_as(ctypes.POINTER(ctypes.c_int)),
+        params.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+        len(params), phi.kind_id, int(plan.dtype == "float64"),
+        f_padded.device.index or 0,
+        torch.cuda.current_stream(f_padded.device).cuda_stream,
+    )
+    if err:
+        raise RuntimeError(
+            f"fused_stencil kernel launch failed: CUDA error {err} "
+            f"({lib.repro_cuda_error_string(err).decode()})"
+        )
+    fused_stencil_swc.launches += 1
+    return out
+
+
+fused_stencil_swc.launches = 0

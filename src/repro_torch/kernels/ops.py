@@ -1,0 +1,103 @@
+"""Dispatch of a fused stencil call to its regime (port of
+``repro.kernels.ops.fused_stencil_nd``/``plan_for_nd``).
+
+``hwc`` goes to the plain PyTorch version (``ref``), ``swc`` to the CUDA
+kernel through :class:`~repro_torch.kernels.plan.StencilPlan` and
+``emit.fused_stencil_swc``. Every reference option whose kernel is not
+ported yet raises ``NotImplementedError`` naming its ROADMAP item.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from repro_torch import dtype_name
+from repro_torch.core.stencil import OperatorSet
+from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.emit import TapTable, fused_stencil_swc
+from repro_torch.kernels.phi import DevicePhi
+from repro_torch.kernels.plan import MAX_THREADS, StencilPlan, plan_stencil
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet: ROADMAP {item}")
+
+
+def fused_stencil_nd(
+    f_padded: torch.Tensor,
+    ops: OperatorSet,
+    phi: Callable[..., torch.Tensor],
+    n_out: int,
+    *,
+    aux: torch.Tensor | None = None,
+    strategy: str = "swc",
+    block: tuple[int, ...] | None = None,
+    unroll: int = 1,
+    fuse_steps: int = 1,
+    taps: TapTable | None = None,
+) -> torch.Tensor:
+    """Fused φ(A·B) over a padded (n_f, *spatial) domain of rank 1-3
+    (paper Eq. 9).
+
+    ``strategy``: ``"hwc"`` (plain PyTorch; ``fuse_steps > 1`` applies
+    the op that many times on a ``radius * fuse_steps``-padded stack)
+    or ``"swc"`` (the CUDA kernel; ``phi`` must be a
+    :class:`~repro_torch.kernels.phi.DevicePhi`). ``block`` is a
+    rank-length tile or ``None`` for the per-rank default.
+    """
+    if f_padded.ndim == ops.ndim + 2:
+        raise _not_ported("the ensemble batch axis", "B5 (_fused_batched)")
+    if strategy == "hwc":
+        if fuse_steps == 1:
+            return _ref.fused_stencil(f_padded, ops, phi, aux=aux)
+        return _ref.fused_stencil_steps(
+            f_padded, ops, phi, fuse_steps, aux=aux
+        )
+    plan = plan_for_nd(
+        ops, tuple(f_padded.shape), n_out,
+        aux_shape=None if aux is None else tuple(aux.shape),
+        strategy=strategy, block=block, dtype=dtype_name(f_padded.dtype),
+        unroll=unroll, fuse_steps=fuse_steps,
+        max_threads=_max_threads_of(phi),
+    )
+    return fused_stencil_swc(f_padded, ops, phi, plan, aux=aux, taps=taps)
+
+
+def plan_for_nd(
+    ops: OperatorSet,
+    padded_shape: tuple[int, ...],
+    n_out: int,
+    *,
+    aux_shape: tuple[int, ...] | None = None,
+    strategy: str = "swc",
+    block: tuple[int, ...] | None = None,
+    dtype: str = "float32",
+    unroll: int = 1,
+    fuse_steps: int = 1,
+    max_threads: int = MAX_THREADS,
+) -> StencilPlan | None:
+    """The :class:`StencilPlan` a :func:`fused_stencil_nd` call with these
+    arguments launches; ``None`` for ``strategy="hwc"``. ``max_threads``
+    (the φ kind's limit) bounds the default tile."""
+    if strategy == "hwc":
+        return None
+    if block == "auto":
+        raise _not_ported("block='auto' (the tuner)", "A9")
+    if fuse_steps != 1:
+        raise _not_ported(
+            "temporal fusion (fuse_steps > 1) on the kernel",
+            "B2 (_kernel_temporal)",
+        )
+    if len(padded_shape) == ops.ndim + 2:
+        raise _not_ported("the ensemble batch axis", "B5 (_fused_batched)")
+    n_aux = 0 if aux_shape is None else aux_shape[0]
+    return plan_stencil(
+        ops, padded_shape, n_out, strategy=strategy, block=block,
+        dtype=dtype, n_aux=n_aux, unroll=unroll, max_threads=max_threads,
+    )
+
+
+def _max_threads_of(phi) -> int:
+    """Tile-size limit of the kernel that runs ``phi``."""
+    return phi.max_threads if isinstance(phi, DevicePhi) else MAX_THREADS
