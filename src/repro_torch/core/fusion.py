@@ -15,11 +15,13 @@ A fused stencil operation is the paper's chain φ(γ(ψ(f))) (Sec. 3.3):
   ============  =========  =================================================
   ``hwc``        1, 2, 3   plain PyTorch: residency left to the caches; any
                            φ callable; ``fuse_steps > 1`` by repetition
-  ``swc``        1, 2, 3   the hand-written CUDA kernel: one field's halo
+  ``swc``        1, 2, 3   the hand-written CUDA kernels: one field's halo
                            window staged in shared memory at a time, all
                            operator values in registers, φ compiled in —
                            φ must be a :class:`~repro_torch.kernels.phi.
-                           DevicePhi`
+                           DevicePhi`; ``fuse_steps > 1`` runs all sweeps
+                           in one launch, the intermediate fields in
+                           shared memory
   ============  =========  =================================================
 
 The operator set's tap table is a buffer of the module, so ``.to(device)``
@@ -34,12 +36,13 @@ from typing import Callable, Mapping, Union
 import torch
 from torch import nn
 
+from repro_torch import resolve_device
 from repro_torch.core import boundary
 from repro_torch.core.stencil import OperatorSet
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import plan as kplan
 from repro_torch.kernels.emit import device_tap_table
-from repro_torch.kernels.phi import DevicePhi
+from repro_torch.kernels.phi import phi_sequence
 
 Phi = Callable[[Mapping[str, torch.Tensor]], torch.Tensor]
 PhiLike = Union[Phi, tuple]
@@ -56,18 +59,20 @@ class FusedStencilOp(nn.Module):
         ops: the :class:`~repro_torch.core.stencil.OperatorSet` (γ).
         phi: point-wise map from ``{op_name: (n_f, *spatial)}`` (plus an
             optional aux tensor) to the (n_out, *spatial) update; a
-            :class:`~repro_torch.kernels.phi.DevicePhi` for ``swc``; for
-            ``hwc`` at depth > 1 it may be a sequence of per-step maps.
+            :class:`~repro_torch.kernels.phi.DevicePhi` for ``swc``; at
+            depth > 1 it may be a sequence of per-step maps (on ``swc``
+            DevicePhis of one kind).
         n_out: number of output fields φ produces.
         boundary_mode: ψ — how ghost cells are filled ("periodic", …);
             scalar or one mode per spatial axis.
         strategy: ``"hwc"`` or ``"swc"`` (see the module docstring).
         block: rank-length tile (x last) or None (per-rank default).
-        fuse_steps: applications per call (``hwc`` only until the
-            temporal kernel, ROADMAP B2, lands).
+        fuse_steps: applications per call (on ``swc`` one launch of
+            the temporal kernel; periodic boundaries only).
         boundary_weights: not ported yet (must be False).
-        device: where the tap-table buffers live (``None``: CPU, as for
-            any new module; move with ``.to(device)``).
+        device: where the tap-table buffers live (``None``: the card,
+            raising without one; pass ``"cpu"`` for the plain path;
+            move with ``.to(device)``).
 
     Raises:
         ValueError: on an invalid strategy, boundary mode, block,
@@ -101,7 +106,7 @@ class FusedStencilOp(nn.Module):
         self.block = None if block is None else tuple(block)
         self.fuse_steps = fuse_steps
         self._validate(boundary_weights)
-        device = torch.device("cpu" if device is None else device)
+        device = resolve_device(device)
         offsets, coeffs, starts = device_tap_table(ops, device)
         self.register_buffer("tap_offsets", offsets)
         self.register_buffer("tap_coeffs", coeffs)
@@ -132,11 +137,6 @@ class FusedStencilOp(nn.Module):
                 f"fuse_steps must be >= 1, got {self.fuse_steps}"
             )
         if self.fuse_steps > 1:
-            if self.strategy == "swc":
-                raise NotImplementedError(
-                    "temporal fusion on the kernel (fuse_steps > 1, "
-                    "strategy='swc') is not ported yet: ROADMAP B2"
-                )
             if any(m != "periodic" for m in modes):
                 raise ValueError(
                     "temporal fusion requires boundary_mode='periodic' "
@@ -152,13 +152,8 @@ class FusedStencilOp(nn.Module):
                 f"phi sequence has {len(self.phi)} entries for "
                 f"fuse_steps={self.fuse_steps}"
             )
-        if self.strategy == "swc" and not isinstance(self.phi, DevicePhi):
-            raise ValueError(
-                "strategy='swc' runs the compiled CUDA kernel, which "
-                "cannot call a Python φ: pass a DevicePhi "
-                "(repro_torch.kernels.phi), or use strategy='hwc' for an "
-                "arbitrary φ callable"
-            )
+        if self.strategy == "swc":
+            phi_sequence(self.phi, self.fuse_steps)  # DevicePhis, one kind
 
     @property
     def radius_per_axis(self) -> tuple[int, ...]:
@@ -174,12 +169,13 @@ class FusedStencilOp(nn.Module):
         self, f_padded: torch.Tensor, aux: torch.Tensor | None = None
     ) -> torch.Tensor:
         """Apply to an already-padded field stack (``radius *
-        fuse_steps`` ghost cells per axis). ``aux`` (n_aux, *interior)
-        is forwarded to φ (the fused RK axpy carry)."""
+        fuse_steps`` ghost cells per axis). ``aux`` (n_aux, *interior),
+        padded by ``radius * (fuse_steps - 1)``, is forwarded to φ (the
+        fused RK axpy carry)."""
         if self.strategy == "swc":
             return kops.fused_stencil_nd(
                 f_padded, self.ops, self.phi, self.n_out, aux=aux,
-                strategy="swc", block=self.block,
+                strategy="swc", block=self.block, fuse_steps=self.fuse_steps,
                 taps=(self.tap_offsets, self.tap_coeffs, self.tap_starts),
             )
         return kops.fused_stencil_nd(

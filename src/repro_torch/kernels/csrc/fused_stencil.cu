@@ -41,53 +41,14 @@
 #include <cuda_runtime.h>
 
 #include "phi_mhd.cuh"
+#include "stencil_common.cuh"
 
 namespace {
 
-constexpr int KIND_SELECT = 0;
-constexpr int KIND_MHD_RHS = 1;
-constexpr int KIND_MHD_SUBSTEP = 2;
-constexpr int MAX_SLOTS = 16;
-constexpr int MAX_PARAMS = 16;
-
-// Host-side int layout of the geometry array (emit.py builds it).
-enum GeomIndex {
-  G_NF, G_NOUT, G_NAUX,
-  G_N0, G_N1, G_N2,  // interior extents (z, y, x)
-  G_P0, G_P1, G_P2,  // padded extents
-  G_R0, G_R1, G_R2,  // radii
-  G_T0, G_T1, G_T2,  // tile
-  G_UNROLL, G_NOPS, G_NTAPS, G_NSLOTS,
-  G_SLOT0,  // MAX_SLOTS operator indices follow
-  G_LEN = G_SLOT0 + MAX_SLOTS
-};
-
-struct Geometry {
-  int n_f, n_out, n_aux;
-  int n[3];  // interior (z, y, x)
-  int p[3];  // padded (z, y, x)
-  int r[3];  // radii
-  int t[3];  // tile = blockDim (z, y, x)
-  int unroll;
-  int n_ops, n_taps, n_slots;
-  int slot[MAX_SLOTS];  // operator index read by each phi slot
-  double prm[MAX_PARAMS];
-};
-
-// One tap in shared memory: coefficient (in the field type) and its
-// linear offset in the staged window, read together in one load.
-template <typename T>
-struct __align__(2 * sizeof(T)) Tap {
-  T coef;
-  int offset;
-};
+using namespace stencil;
 
 __host__ __device__ inline int window_x(const Geometry& g) {
   return g.t[2] * g.unroll + 2 * g.r[2];
-}
-
-__host__ __device__ inline size_t round_up16(size_t n) {
-  return (n + 15) / 16 * 16;
 }
 
 // Shared-memory layout: two window buffers (each padded to 16 bytes) |
@@ -135,37 +96,13 @@ __device__ __forceinline__ void stage_async(const T* __restrict__ src,
   __pipeline_commit();
 }
 
-// Wait until the oldest staged window has landed for the whole block;
-// with `next_in_flight` one younger copy may stay outstanding.
-__device__ __forceinline__ void wait_staged(bool next_in_flight) {
-  if (next_in_flight) {
-    __pipeline_wait_prior(1);
-  } else {
-    __pipeline_wait_prior(0);
-  }
-  __syncthreads();
-}
-
-// One operator at one point: taps [b, e) of the table, in order.
-template <typename T>
-__device__ __forceinline__ T apply_op(const T* __restrict__ win,
-                                      const Tap<T>* __restrict__ taps, int b,
-                                      int e, int center) {
-  T acc = T(0);
-#pragma unroll 4
-  for (int t = b; t < e; ++t) {
-    const Tap<T> tap = taps[t];
-    acc += tap.coef * win[center + tap.offset];
-  }
-  return acc;
-}
-
 template <typename T, int KIND>
 __global__ void __launch_bounds__(KIND == KIND_SELECT ? 1024 : 256)
     fused_stencil_kernel(const T* __restrict__ f, const T* __restrict__ aux,
                          T* __restrict__ out, const int* __restrict__ tap_off,
                          const double* __restrict__ tap_coef,
-                         const int* __restrict__ op_start, const Geometry g) {
+                         const int* __restrict__ op_start,
+                         const __grid_constant__ Geometry g) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int wz = g.t[0] + 2 * g.r[0];
   const int wy = g.t[1] + 2 * g.r[1];
@@ -229,7 +166,7 @@ __global__ void __launch_bounds__(KIND == KIND_SELECT ? 1024 : 256)
     // MHD: 80 derivative values per point live in registers, so sub-tiles
     // run one after another (restaging the fields) rather than holding
     // unroll x 80 values.
-    const mhd::Consts<T> c(g.prm);
+    const mhd::Consts<T> c(g.prm[0]);
     for (int u = 0; u < g.unroll; ++u) {
       const int du = u * g.t[2];
       T d[mhd::N_SLOTS][mhd::N_FIELDS];
@@ -257,9 +194,9 @@ __global__ void __launch_bounds__(KIND == KIND_SELECT ? 1024 : 256)
         for (int k = 0; k < mhd::N_FIELDS; ++k) out[k * ofield + pt] = rhs[k];
       } else {
         // Fused RK axpy (repro/physics/mhd.py:284-290), aux = w.
-        const T alpha = T(g.prm[mhd::P_ALPHA]);
-        const T beta = T(g.prm[mhd::P_BETA]);
-        const T dt = T(g.prm[mhd::P_DT]);
+        const T alpha = T(g.prm[0][mhd::P_ALPHA]);
+        const T beta = T(g.prm[0][mhd::P_BETA]);
+        const T dt = T(g.prm[0][mhd::P_DT]);
 #pragma unroll
         for (int k = 0; k < mhd::N_FIELDS; ++k) {
           const T w = alpha * aux[k * ofield + pt] + dt * rhs[k];
@@ -308,24 +245,9 @@ int repro_fused_stencil(const void* f, const void* aux, void* out,
                         int is_double, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
-  if (n_params > MAX_PARAMS || geom[G_NSLOTS] > MAX_SLOTS)
+  Geometry g;
+  if (!read_geometry(geom, params, n_params, g) || g.fuse_steps != 1)
     return int(cudaErrorInvalidValue);
-  Geometry g{};
-  g.n_f = geom[G_NF];
-  g.n_out = geom[G_NOUT];
-  g.n_aux = geom[G_NAUX];
-  for (int a = 0; a < 3; ++a) {
-    g.n[a] = geom[G_N0 + a];
-    g.p[a] = geom[G_P0 + a];
-    g.r[a] = geom[G_R0 + a];
-    g.t[a] = geom[G_T0 + a];
-  }
-  g.unroll = geom[G_UNROLL];
-  g.n_ops = geom[G_NOPS];
-  g.n_taps = geom[G_NTAPS];
-  g.n_slots = geom[G_NSLOTS];
-  for (int s = 0; s < g.n_slots; ++s) g.slot[s] = geom[G_SLOT0 + s];
-  for (int i = 0; i < n_params; ++i) g.prm[i] = params[i];
 
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (kind * 2 + (is_double ? 1 : 0)) {
@@ -356,6 +278,15 @@ const char* repro_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-int repro_geometry_len(void) { return G_LEN; }
+// Shared memory one block of this kernel uses for `geom` (the plan's
+// StencilPlan.smem_bytes must equal it).
+long long repro_fused_stencil_smem_bytes(const int* geom, int is_double) {
+  Geometry g;
+  if (!read_geometry(geom, nullptr, 0, g)) return -1;
+  return is_double ? (long long)smem_bytes<double>(g)
+                   : (long long)smem_bytes<float>(g);
+}
+
+int repro_fused_stencil_geometry_len(void) { return G_LEN; }
 
 }  // extern "C"

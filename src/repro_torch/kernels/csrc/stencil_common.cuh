@@ -1,0 +1,117 @@
+// What the fused-stencil kernels share: fused_stencil.cu (depth 1) and
+// fused_stencil_temporal.cu (depth > 1). The geometry the wrapper
+// (repro_torch/kernels/emit.py) hands over, its host-side reading, the
+// tap table kept in shared memory, and one operator evaluated at one
+// point.
+#pragma once
+
+#include <cuda_pipeline.h>
+#include <cuda_runtime.h>
+
+namespace stencil {
+
+constexpr int KIND_SELECT = 0;
+constexpr int KIND_MHD_RHS = 1;
+constexpr int KIND_MHD_SUBSTEP = 2;
+constexpr int MAX_SLOTS = 16;
+constexpr int MAX_PARAMS = 16;
+constexpr int MAX_FUSE = 8;  // sweeps per launch (rows of Geometry::prm)
+
+// Host-side int layout of the geometry array (emit.py:geometry builds it).
+enum GeomIndex {
+  G_NF, G_NOUT, G_NAUX,
+  G_N0, G_N1, G_N2,  // interior extents (z, y, x)
+  G_P0, G_P1, G_P2,  // padded extents
+  G_R0, G_R1, G_R2,  // radii
+  G_T0, G_T1, G_T2,  // tile
+  G_UNROLL, G_NOPS, G_NTAPS, G_NSLOTS,
+  G_FUSE,  // sweeps per launch
+  G_NBUF,  // staged window buffers (1 or 2)
+  G_NTHR,  // threads per block (depth > 1; depth 1 runs one per tile point)
+  G_SLOT0,  // MAX_SLOTS operator indices follow
+  G_LEN = G_SLOT0 + MAX_SLOTS
+};
+
+struct Geometry {
+  int n_f, n_out, n_aux;
+  int n[3];  // interior (z, y, x)
+  int p[3];  // padded (z, y, x)
+  int r[3];  // radii
+  int t[3];  // tile (z, y, x)
+  int unroll;
+  int n_ops, n_taps, n_slots;
+  int fuse_steps;
+  int n_buf;
+  int n_thr;
+  int slot[MAX_SLOTS];  // operator index read by each phi slot
+  double prm[MAX_FUSE][MAX_PARAMS];  // phi parameters, one row per sweep
+};
+
+// Fill `g` from the wrapper's int array and its fuse_steps x n_params
+// parameter rows; false when a count exceeds the kernel's arrays.
+inline bool read_geometry(const int* geom, const double* params,
+                          int n_params, Geometry& g) {
+  if (n_params > MAX_PARAMS || geom[G_NSLOTS] > MAX_SLOTS ||
+      geom[G_FUSE] < 1 || geom[G_FUSE] > MAX_FUSE)
+    return false;
+  g = Geometry{};
+  g.n_f = geom[G_NF];
+  g.n_out = geom[G_NOUT];
+  g.n_aux = geom[G_NAUX];
+  for (int a = 0; a < 3; ++a) {
+    g.n[a] = geom[G_N0 + a];
+    g.p[a] = geom[G_P0 + a];
+    g.r[a] = geom[G_R0 + a];
+    g.t[a] = geom[G_T0 + a];
+  }
+  g.unroll = geom[G_UNROLL];
+  g.n_ops = geom[G_NOPS];
+  g.n_taps = geom[G_NTAPS];
+  g.n_slots = geom[G_NSLOTS];
+  g.fuse_steps = geom[G_FUSE];
+  g.n_buf = geom[G_NBUF];
+  g.n_thr = geom[G_NTHR];
+  for (int s = 0; s < g.n_slots; ++s) g.slot[s] = geom[G_SLOT0 + s];
+  for (int s = 0; s < g.fuse_steps; ++s)
+    for (int i = 0; i < n_params; ++i) g.prm[s][i] = params[s * n_params + i];
+  return true;
+}
+
+// One tap in shared memory: coefficient (in the field type) and its
+// linear offset in the staged buffer, read together in one load.
+template <typename T>
+struct __align__(2 * sizeof(T)) Tap {
+  T coef;
+  int offset;
+};
+
+__host__ __device__ inline size_t round_up16(size_t n) {
+  return (n + 15) / 16 * 16;
+}
+
+// Wait until the oldest staged window has landed for the whole block;
+// with `next_in_flight` one younger copy may stay outstanding.
+__device__ __forceinline__ void wait_staged(bool next_in_flight) {
+  if (next_in_flight) {
+    __pipeline_wait_prior(1);
+  } else {
+    __pipeline_wait_prior(0);
+  }
+  __syncthreads();
+}
+
+// One operator at one point: taps [b, e) of the table, in order.
+template <typename T>
+__device__ __forceinline__ T apply_op(const T* __restrict__ win,
+                                      const Tap<T>* __restrict__ taps, int b,
+                                      int e, int center) {
+  T acc = T(0);
+#pragma unroll 4
+  for (int t = b; t < e; ++t) {
+    const Tap<T> tap = taps[t];
+    acc += tap.coef * win[center + tap.offset];
+  }
+  return acc;
+}
+
+}  // namespace stencil

@@ -1,15 +1,18 @@
-"""Wrapper of the hand-written CUDA ``swc`` kernel (port of
-``repro.kernels.emit.fused_stencil_pallas`` at depth 1).
+"""Wrapper of the hand-written CUDA ``swc`` kernels (port of
+``repro.kernels.emit.fused_stencil_pallas``).
 
 :func:`fused_stencil_swc` checks its operands against the plan, uploads
 the operator set's tap table (once per operator set and device), and
-launches ``csrc/fused_stencil.cu`` on PyTorch's current stream. A CPU
-tensor goes to the plain version (``ref.fused_stencil`` with the φ's
-``torch_fn``); a CUDA tensor goes to the kernel, or the wrapper raises —
-there is no fallback from one to the other.
+launches on PyTorch's current stream ``csrc/fused_stencil.cu`` at depth
+1 or ``csrc/fused_stencil_temporal.cu`` at depth > 1. A CPU tensor goes
+to the plain version (``ref.fused_stencil`` or, at depth > 1,
+``ref.fused_stencil_steps``, with the φs' ``torch_fn``); a CUDA tensor
+goes to the kernel, or the wrapper raises — there is no fallback from
+one to the other.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -20,11 +23,12 @@ from repro_torch import dtype_name
 from repro_torch.core.stencil import OperatorSet
 from repro_torch.kernels import build
 from repro_torch.kernels import ref
-from repro_torch.kernels.phi import DevicePhi
+from repro_torch.kernels.phi import DevicePhi, phi_sequence
 from repro_torch.kernels.plan import StencilPlan
 
-KERNEL = "fused_stencil"  # csrc/fused_stencil.cu
-GEOM_LEN = 35  # G_LEN of fused_stencil.cu
+KERNEL = "fused_stencil"  # csrc/fused_stencil.cu, depth 1
+TEMPORAL_KERNEL = "fused_stencil_temporal"  # csrc/fused_stencil_temporal.cu
+GEOM_LEN = 38  # G_LEN of csrc/stencil_common.cuh
 
 TapTable = tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -58,38 +62,75 @@ def device_tap_table(ops: OperatorSet, device: torch.device) -> TapTable:
     return tuple(t.to(device) for t in tap_table(ops))
 
 
+def kernel_name(plan: StencilPlan) -> str:
+    """The ``csrc`` source whose kernel runs ``plan``."""
+    return KERNEL if plan.fuse_steps == 1 else TEMPORAL_KERNEL
+
+
 @functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    """Build/load the kernel library and declare its C signatures."""
-    lib = build.load(KERNEL)
+def _lib(name: str) -> ctypes.CDLL:
+    """Build/load the library of ``csrc/<name>.cu`` and declare its C
+    signatures: ``repro_<name>`` (the launch),
+    ``repro_<name>_smem_bytes``, ``repro_<name>_geometry_len``."""
+    lib = build.load(name)
     vp = ctypes.c_void_p
-    lib.repro_fused_stencil.argtypes = [
+    launch = getattr(lib, f"repro_{name}")
+    launch.argtypes = [
         vp, vp, vp, vp, vp, vp,
         ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_double),
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, vp,
     ]
-    lib.repro_fused_stencil.restype = ctypes.c_int
+    launch.restype = ctypes.c_int
+    smem = getattr(lib, f"repro_{name}_smem_bytes")
+    smem.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+    smem.restype = ctypes.c_longlong
     lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
-    lib.repro_geometry_len.argtypes = []
-    lib.repro_geometry_len.restype = ctypes.c_int
-    if lib.repro_geometry_len() != GEOM_LEN:
-        raise RuntimeError("fused_stencil.cu geometry layout changed")
+    geometry_len = getattr(lib, f"repro_{name}_geometry_len")
+    geometry_len.argtypes = []
+    geometry_len.restype = ctypes.c_int
+    if geometry_len() != GEOM_LEN:
+        raise RuntimeError(f"{name}.cu geometry layout changed")
     return lib
+
+
+def _int_ptr(geom: np.ndarray):
+    return geom.ctypes.data_as(ctypes.POINTER(ctypes.c_int))
+
+
+def kernel_smem_bytes(plan: StencilPlan) -> int:
+    """Shared memory per block by the kernel's own layout for ``plan``
+    (needs the built library; ``plan.smem_bytes`` must equal it)."""
+    name = kernel_name(plan)
+    fn = getattr(_lib(name), f"repro_{name}_smem_bytes")
+    return int(fn(_int_ptr(geometry(plan, [0])), int(plan.dtype == "float64")))
 
 
 def _rank3(t: tuple[int, ...], fill: int) -> list[int]:
     return [fill] * (3 - len(t)) + list(t)
 
 
+def _padded(plan: StencilPlan) -> tuple[int, ...]:
+    return tuple(n + 2 * h for n, h in zip(plan.interior, plan.halo))
+
+
+def _aux_shape(plan: StencilPlan) -> tuple[int, ...]:
+    """(n_aux, *interior), widened by r(S-1) per side at depth S > 1."""
+    return (plan.n_aux,) + tuple(
+        n + 2 * r * (plan.fuse_steps - 1)
+        for n, r in zip(plan.interior, plan.radii)
+    )
+
+
 def geometry(plan: StencilPlan, slots: list[int]) -> np.ndarray:
-    """The kernel's int geometry array (``GeomIndex`` of the source):
-    ranks 1/2 lifted to rank 3 with unit extents and zero radii."""
-    padded = tuple(n + 2 * r for n, r in zip(plan.interior, plan.radii))
+    """The kernel's int geometry array (``GeomIndex`` of
+    ``csrc/stencil_common.cuh``): ranks 1/2 lifted to rank 3 with unit
+    extents and zero radii."""
     g = [plan.n_f, plan.n_out, plan.n_aux]
-    g += _rank3(plan.interior, 1) + _rank3(padded, 1)
+    g += _rank3(plan.interior, 1) + _rank3(_padded(plan), 1)
     g += _rank3(plan.radii, 0) + _rank3(plan.block, 1)
     g += [plan.unroll, plan.n_ops, plan.n_taps, len(slots)]
+    g += [plan.fuse_steps, plan.stage_buffers, plan.threads]
     g += slots + [0] * (GEOM_LEN - len(g) - len(slots))
     return np.asarray(g, dtype=np.int32)
 
@@ -100,7 +141,7 @@ def _check(f_padded, ops, phi, plan, aux, taps) -> None:
         raise ValueError("operator set does not match the plan")
     if (plan.n_ops, plan.n_taps) != (ops.n_s, ops.taps_per_point):
         raise ValueError("plan was made for another tap table")
-    padded = tuple(n + 2 * r for n, r in zip(plan.interior, plan.radii))
+    padded = _padded(plan)
     if tuple(f_padded.shape) != (plan.n_f,) + padded:
         raise ValueError(
             f"f_padded shape {tuple(f_padded.shape)} != plan's "
@@ -112,10 +153,9 @@ def _check(f_padded, ops, phi, plan, aux, taps) -> None:
     if has_aux != bool(plan.n_aux) or has_aux != phi.needs_aux:
         raise ValueError("aux operand does not match plan.n_aux and φ")
     if aux is not None:
-        if tuple(aux.shape) != (plan.n_aux,) + plan.interior:
+        if tuple(aux.shape) != _aux_shape(plan):
             raise ValueError(
-                f"aux shape {tuple(aux.shape)} != "
-                f"{(plan.n_aux,) + plan.interior}"
+                f"aux shape {tuple(aux.shape)} != {_aux_shape(plan)}"
             )
         if aux.dtype != f_padded.dtype or aux.device != f_padded.device:
             raise ValueError("aux must match f_padded's dtype and device")
@@ -154,28 +194,33 @@ def _check(f_padded, ops, phi, plan, aux, taps) -> None:
 def fused_stencil_swc(
     f_padded: torch.Tensor,
     ops: OperatorSet,
-    phi: DevicePhi,
+    phi: DevicePhi | tuple[DevicePhi, ...],
     plan: StencilPlan,
     *,
     aux: torch.Tensor | None = None,
     taps: TapTable | None = None,
 ) -> torch.Tensor:
-    """Fused φ(A·B) for one ``swc`` plan: (n_f, *(n + 2r)) → (n_out, *n).
+    """Fused φ(A·B) for one ``swc`` plan of depth S = ``plan.fuse_steps``:
+    (n_f, *(n + 2rS)) → (n_out, *n), S sweeps per launch.
 
-    ``aux`` (n_aux, *n) is forwarded to φ (the MHD fused RK axpy).
+    ``phi`` is one :class:`DevicePhi` or, at depth S, a sequence of S
+    (one per sweep, :func:`~repro_torch.kernels.phi.phi_sequence`).
+    ``aux`` (n_aux, *(n + 2r(S-1))) is forwarded to φ (the MHD fused RK
+    axpy); at depth > 1 its rows are carried from sweep to sweep.
     ``taps`` is the operator set's :func:`tap_table` on ``f_padded``'s
     device (a module's buffers); ``None`` uses the per-device cache.
-    Each kernel launch adds one to ``fused_stencil_swc.launches``.
+    Each kernel launch adds one to ``fused_stencil_swc.launches`` and
+    to ``fused_stencil_swc.launches_by_depth[S]``.
     """
-    if not isinstance(phi, DevicePhi):
-        raise ValueError(
-            "strategy='swc' runs a compiled CUDA kernel and needs a "
-            "DevicePhi (repro_torch.kernels.phi); for an arbitrary φ "
-            "callable use strategy='hwc'"
-        )
-    _check(f_padded, ops, phi, plan, aux, taps)
+    phis = phi_sequence(phi, plan.fuse_steps)
+    _check(f_padded, ops, phis[0], plan, aux, taps)
     if f_padded.device.type == "cpu":
-        return ref.fused_stencil(f_padded, ops, phi.torch_fn, aux=aux)
+        if plan.fuse_steps == 1:
+            return ref.fused_stencil(f_padded, ops, phis[0].torch_fn, aux=aux)
+        return ref.fused_stencil_steps(
+            f_padded, ops, [p.torch_fn for p in phis], plan.fuse_steps,
+            aux=aux,
+        )
     if f_padded.device.type != "cuda":
         raise ValueError(f"unsupported device {f_padded.device}")
     if not f_padded.is_contiguous() or (
@@ -185,32 +230,42 @@ def fused_stencil_swc(
     if taps is None:
         taps = device_tap_table(ops, f_padded.device)
     offsets, coeffs, starts = taps
-    slots = [ops.names.index(n) for n in phi.operators]
+    slots = [ops.names.index(n) for n in phis[0].operators]
     geom = geometry(plan, slots)
-    params = np.asarray(phi.params, dtype=np.float64)
+    # One row of φ parameters per sweep.
+    params = np.asarray([p.params for p in phis], dtype=np.float64)
     out = torch.empty(
         (plan.n_out,) + plan.interior, dtype=f_padded.dtype,
         device=f_padded.device,
     )
-    lib = _lib()
-    err = lib.repro_fused_stencil(
+    name = kernel_name(plan)
+    lib = _lib(name)
+    err = getattr(lib, f"repro_{name}")(
         f_padded.data_ptr(),
         None if aux is None else aux.data_ptr(),
         out.data_ptr(),
         offsets.data_ptr(), coeffs.data_ptr(), starts.data_ptr(),
-        geom.ctypes.data_as(ctypes.POINTER(ctypes.c_int)),
+        _int_ptr(geom),
         params.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
-        len(params), phi.kind_id, int(plan.dtype == "float64"),
+        params.shape[1], phis[0].kind_id, int(plan.dtype == "float64"),
         f_padded.device.index or 0,
         torch.cuda.current_stream(f_padded.device).cuda_stream,
     )
     if err:
         raise RuntimeError(
-            f"fused_stencil kernel launch failed: CUDA error {err} "
+            f"{name} kernel launch failed: CUDA error {err} "
             f"({lib.repro_cuda_error_string(err).decode()})"
         )
     fused_stencil_swc.launches += 1
+    fused_stencil_swc.launches_by_depth[plan.fuse_steps] += 1
     return out
 
 
 fused_stencil_swc.launches = 0
+fused_stencil_swc.launches_by_depth = collections.Counter()
+
+
+def reset_launch_counts() -> None:
+    """Zero ``fused_stencil_swc.launches`` and its per-depth counts."""
+    fused_stencil_swc.launches = 0
+    fused_stencil_swc.launches_by_depth.clear()

@@ -40,11 +40,16 @@ def fused_stencil_nd(
     """Fused φ(A·B) over a padded (n_f, *spatial) domain of rank 1-3
     (paper Eq. 9).
 
-    ``strategy``: ``"hwc"`` (plain PyTorch; ``fuse_steps > 1`` applies
-    the op that many times on a ``radius * fuse_steps``-padded stack)
-    or ``"swc"`` (the CUDA kernel; ``phi`` must be a
-    :class:`~repro_torch.kernels.phi.DevicePhi`). ``block`` is a
-    rank-length tile or ``None`` for the per-rank default.
+    ``strategy``: ``"hwc"`` (plain PyTorch) or ``"swc"`` (the CUDA
+    kernels; ``phi`` must be a :class:`~repro_torch.kernels.phi.
+    DevicePhi`). ``block`` is a rank-length tile or ``None`` for the
+    per-rank default.
+
+    ``fuse_steps`` is the temporal depth: ``f_padded`` is padded by
+    ``radius * fuse_steps`` (and ``aux``, if any, by ``radius *
+    (fuse_steps - 1)``), the op is applied that many times in one call
+    (one launch on ``swc``), and ``phi`` may be a sequence of per-step
+    maps (of one ``DevicePhi`` kind on ``swc``).
     """
     if f_padded.ndim == ops.ndim + 2:
         raise _not_ported("the ensemble batch axis", "B5 (_fused_batched)")
@@ -84,20 +89,19 @@ def plan_for_nd(
         return None
     if block == "auto":
         raise _not_ported("block='auto' (the tuner)", "A9")
-    if fuse_steps != 1:
-        raise _not_ported(
-            "temporal fusion (fuse_steps > 1) on the kernel",
-            "B2 (_kernel_temporal)",
-        )
     if len(padded_shape) == ops.ndim + 2:
         raise _not_ported("the ensemble batch axis", "B5 (_fused_batched)")
     n_aux = 0 if aux_shape is None else aux_shape[0]
     return plan_stencil(
         ops, padded_shape, n_out, strategy=strategy, block=block,
-        dtype=dtype, n_aux=n_aux, unroll=unroll, max_threads=max_threads,
+        dtype=dtype, n_aux=n_aux, unroll=unroll, fuse_steps=fuse_steps,
+        max_threads=max_threads,
     )
 
 
 def _max_threads_of(phi) -> int:
-    """Tile-size limit of the kernel that runs ``phi``."""
+    """Threads-per-block limit of the kernel that runs ``phi`` (or the
+    first φ of a per-step sequence)."""
+    if isinstance(phi, (tuple, list)) and phi:
+        phi = phi[0]
     return phi.max_threads if isinstance(phi, DevicePhi) else MAX_THREADS

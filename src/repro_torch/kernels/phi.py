@@ -22,6 +22,10 @@ Kinds (``csrc/fused_stencil.cu`` switches on :data:`KIND_IDS`):
 MHD parameters are laid out as :data:`MHD_PARAM_NAMES`: the
 ``MHDParams`` fields in declaration order, the derived ``lnT0``, then
 α, β and Δt (zero for ``mhd_rhs``).
+
+At temporal depth S > 1 a launch takes one φ per sweep
+(:func:`phi_sequence`): all of one kind and one operator list, their
+parameters free to differ (the RK3 substeps' α and β).
 """
 from __future__ import annotations
 
@@ -43,6 +47,12 @@ MHD_PARAM_NAMES = (
 )
 MAX_PARAMS = 16  # kernel-side parameter array length
 MAX_SLOTS = 16  # kernel-side operator slot array length
+
+NEEDS_DEVICE_PHI = (
+    "strategy='swc' runs a compiled CUDA kernel, which cannot call a "
+    "Python φ: pass a DevicePhi (repro_torch.kernels.phi), or use "
+    "strategy='hwc' for an arbitrary φ callable"
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,3 +118,28 @@ def select_phi(name: str) -> DevicePhi:
     """φ(d) = d[name]: each field's output is one operator of the set
     (forward-Euler diffusion with the merged stencil of Eq. 7)."""
     return DevicePhi("select", (), lambda d: d[name], (name,))
+
+
+def phi_sequence(phi, n_steps: int) -> tuple[DevicePhi, ...]:
+    """The φ of each of ``n_steps`` sweeps of one launch: one
+    :class:`DevicePhi` repeated, or a sequence of ``n_steps`` of them
+    sharing one kind and one operator list (parameters may differ).
+
+    Raises:
+        ValueError: for a bare callable, a sequence of the wrong length,
+            or sweeps of different kinds or operator lists.
+    """
+    phis = tuple(phi) if isinstance(phi, (tuple, list)) else (phi,) * n_steps
+    if not all(isinstance(p, DevicePhi) for p in phis):
+        raise ValueError(NEEDS_DEVICE_PHI)
+    if len(phis) != n_steps:
+        raise ValueError(
+            f"got {len(phis)} φs for {n_steps} fused sweeps"
+        )
+    if len({(p.kind, p.operators) for p in phis}) > 1:
+        raise ValueError(
+            "the sweeps of one launch run one compiled φ: every DevicePhi "
+            "of the sequence needs the same kind and operators, got "
+            f"{[(p.kind, p.operators) for p in phis]}"
+        )
+    return phis

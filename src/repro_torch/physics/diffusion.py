@@ -4,7 +4,8 @@
 Forward-Euler time integration folds into a SINGLE merged stencil
 g = c^(1) + Δt·α·c^(2) (paper Eqs. 5-7): one stencil application per
 step, any dimensionality, any even accuracy order. On the card each
-step is one launch of the fused-stencil kernel with the ``select`` φ.
+step is one launch of the fused-stencil kernel with the ``select`` φ,
+or ``fuse_steps`` steps are one launch of the temporal kernel.
 """
 from __future__ import annotations
 
@@ -64,8 +65,9 @@ class DiffusionProblem:
         """One forward-Euler step as a fused op (φ selects the merged
         "step" operator). ``strategy="swc"`` runs the CUDA kernel at any
         rank; ``block`` is a rank-length tile or None for the default;
-        ``fuse_steps > 1`` (``hwc`` only) advances that many steps per
-        call. ``device`` (the card by default) holds the op's tap table."""
+        ``fuse_steps > 1`` advances that many steps per call (on
+        ``swc`` in one launch of the temporal kernel). ``device`` (the
+        card by default) holds the op's tap table."""
         device = resolve_device(device)
         spec = dataclasses.replace(self.merged_stencil(), name="step")
         return FusedStencilOp(
@@ -130,9 +132,9 @@ def simulate(
     """Run ``n_steps`` of forward-Euler diffusion with the fused engine
     on ``device`` (the card unless the caller asks for the CPU).
 
-    ``fuse_steps > 1`` advances that many steps per call (``hwc``; a
-    remainder is finished at shallower depth so the step count stays
-    exact)."""
+    ``fuse_steps > 1`` advances that many steps per call (on ``swc``
+    one temporal-kernel launch; a remainder is finished at shallower
+    depth so the step count stays exact)."""
     device = resolve_device(device)
     if not isinstance(f0, torch.Tensor):
         f0 = torch.from_numpy(np.array(f0))

@@ -268,7 +268,8 @@ class MHDSolver:
     ``device`` defaults to the card (raising without one); pass
     ``device="cpu"`` for the plain PyTorch path. ``block`` is the
     kernel tile: the MHD kernel keeps 80 derivative values per point in
-    registers, so a tile holds at most 256 points.
+    registers, so a tile holds at most 256 points (the temporal pair's
+    planner halves it further until its shared memory fits).
     """
 
     shape: tuple[int, int, int]
@@ -277,16 +278,14 @@ class MHDSolver:
     strategy: str = "hwc"
     block: tuple[int, int, int] | None = (1, 8, 32)
     fuse_rk_axpy: bool = False  # beyond-paper: fold the RK update into φ
-    # Temporal fusion of RK3 substeps 1+2 needs the temporal kernel.
+    # Temporal fusion of the RK3 substeps: substeps 1+2 run as ONE
+    # depth-2 launch (per-substep φ, the w carry kept in shared memory),
+    # substep 3 as a depth-1 fused-axpy launch — two launches per RK3
+    # step instead of three. Implies the fused-axpy formulation.
     fuse_rk_pairs: bool = False
     device: str | torch.device | None = None
 
     def __post_init__(self):
-        if self.fuse_rk_pairs:
-            raise NotImplementedError(
-                "fuse_rk_pairs needs the temporal kernel "
-                "(_kernel_temporal), not ported yet: ROADMAP B2"
-            )
         object.__setattr__(self, "device", resolve_device(self.device))
 
     @property
@@ -297,7 +296,10 @@ class MHDSolver:
     def operator_set(self) -> OperatorSet:
         return derivative_operator_set(3, self.accuracy, self.spacing)
 
-    def _op(self, phi: DevicePhi, n_out: int) -> FusedStencilOp:
+    def _op(
+        self, phi: DevicePhi | tuple[DevicePhi, ...], n_out: int,
+        fuse_steps: int = 1,
+    ) -> FusedStencilOp:
         return FusedStencilOp(
             ops=self.operator_set,
             phi=phi,
@@ -305,6 +307,7 @@ class MHDSolver:
             boundary_mode="periodic",
             strategy=self.strategy,
             block=self.block,
+            fuse_steps=fuse_steps,
             device=self.device,
         )
 
@@ -315,6 +318,16 @@ class MHDSolver:
         """One kernel running one fused-axpy RK substep."""
         phi = mhd_substep_device_phi(self.params, alpha, beta, float(dt))
         return self._op(phi, 2 * N_FIELDS)
+
+    def _fused_pair_op(self, dt) -> FusedStencilOp:
+        """RK3 substeps 1+2 as ONE depth-2 launch: the two substeps' φs
+        applied back to back on one staged tile, the intermediate (f, w)
+        never reaching device memory."""
+        phis = tuple(
+            mhd_substep_device_phi(self.params, a, b, float(dt))
+            for a, b in zip(RK3_ALPHA[:2], RK3_BETA[:2])
+        )
+        return self._op(phis, 2 * N_FIELDS, fuse_steps=2)
 
     def _check_fields(self, f: torch.Tensor) -> None:
         if f.device != self.device:
@@ -333,8 +346,15 @@ class MHDSolver:
 
     def step(self, f: torch.Tensor, dt) -> torch.Tensor:
         """One full RK3 step: three fused substeps (paper Sec. 3.3),
-        three kernel launches in either mode."""
+        three kernel launches, or two with ``fuse_rk_pairs``."""
         self._check_fields(f)
+        if self.fuse_rk_pairs:
+            out = self._fused_pair_op(dt)(f, aux=torch.zeros_like(f))
+            f, w = out[:N_FIELDS], out[N_FIELDS:]
+            out = self._fused_substep_op(RK3_ALPHA[2], RK3_BETA[2], dt)(
+                f, aux=w
+            )
+            return out[:N_FIELDS]
         if self.fuse_rk_axpy:
             w = torch.zeros_like(f)
             for a, b in zip(RK3_ALPHA, RK3_BETA):

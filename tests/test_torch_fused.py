@@ -184,12 +184,19 @@ def test_geometry_layout():
     plan = plan_for_nd(ops, (8, 22, 70), 8, block=(4, 16), unroll=2)
     g = emit.geometry(plan, [0, 3])
     assert len(g) == emit.GEOM_LEN and g.dtype == np.int32
-    # n_f n_out n_aux | interior | padded | radii | tile | u ops taps slots
-    assert g[:20].tolist() == [
+    # n_f n_out n_aux | interior | padded | radii | tile | u ops taps
+    # n_slots | fuse_steps stage_buffers threads | slots
+    assert g[:23].tolist() == [
         8, 8, 0, 1, 16, 64, 1, 22, 70, 0, 3, 3, 1, 4, 16, 2,
-        ops.n_s, ops.taps_per_point, 2, 0,
+        ops.n_s, ops.taps_per_point, 2, 1, 2, 64, 0,
     ]
-    assert g[20] == 3 and not g[21:].any()
+    assert g[23] == 3 and not g[24:].any()
+    # At depth 2 the padded extents widen by 2r per side and the
+    # fuse_steps / stage_buffers / threads entries follow the plan.
+    deep = plan_for_nd(ops, (8, 28, 76), 8, block=(4, 16), fuse_steps=2)
+    g = emit.geometry(deep, [0])
+    assert g[3:9].tolist() == [1, 16, 64, 1, 28, 76]
+    assert g[19:22].tolist() == [2, deep.stage_buffers, deep.threads]
 
 
 def test_wrapper_checks_operands():
@@ -243,17 +250,20 @@ def test_not_ported_options_raise():
         (dict(strategy="swc_stream"), "B3"),
         (dict(strategy="tc"), "B4"),
         (dict(block="auto"), "A9"),
-        (dict(fuse_steps=2), "B2"),
     ):
         with pytest.raises(NotImplementedError, match=item):
             fused_stencil_nd(fp, ops, select_phi("val"), 1, **kw)
     with pytest.raises(NotImplementedError, match="B5"):
         fused_stencil_nd(fp[None], ops, select_phi("val"), 1)
+    # Temporal fusion (B2) is ported: depth 2 consumes 2r of the pad.
+    out = fused_stencil_nd(fp, ops, select_phi("val"), 1, fuse_steps=2)
+    assert out.shape == (1, 6, 6)
 
 
 def test_module_moves_and_guards_tap_table():
     ops = ts.derivative_operator_set(1, 2)
-    op = FusedStencilOp(ops, select_phi("dxx"), 1, strategy="swc")
+    op = FusedStencilOp(ops, select_phi("dxx"), 1, strategy="swc",
+                        device="cpu")
     assert op.tap_coeffs.dtype == torch.float64
     assert {n for n, _ in op.named_buffers()} == {
         "tap_offsets", "tap_coeffs", "tap_starts",

@@ -152,8 +152,10 @@ def test_mhd_equilibrium_and_guards():
     assert float(solver.rhs(torch.zeros(8, 8, 8, 8)).abs().max()) < 1e-12
     with pytest.raises(ValueError, match="fields"):
         solver.rhs(torch.zeros(8, 8, 8, 6))
-    with pytest.raises(NotImplementedError, match="B2"):
-        tm.MHDSolver((8, 8, 8), fuse_rk_pairs=True, device=CPU)
+    # fuse_rk_pairs (B2) is ported: it runs, and keeps the equilibrium.
+    pairs = tm.MHDSolver((8, 8, 8), strategy="swc", fuse_rk_pairs=True,
+                         device=CPU)
+    assert float(pairs.step(torch.zeros(8, 8, 8, 8), 1e-3).abs().max()) < 1e-12
     assert len(tm.MHDParams().device_params()) == 15
 
 
@@ -218,5 +220,5 @@ def test_converted_state_drives_the_same_rhs():
     params = convert.mhd_params_from_dict(dataclasses.asdict(jsol.params))
     ft = convert.fields_from_numpy(f, device=CPU)
     op = FusedStencilOp(tops, tm.mhd_rhs_device_phi(params), 8,
-                        strategy="swc", block=(1, 4, 12))
+                        strategy="swc", block=(1, 4, 12), device=CPU)
     assert _rel(op(ft).numpy(), want) <= TOL["float64"]

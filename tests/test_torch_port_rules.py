@@ -78,8 +78,12 @@ def test_port_sources_name_no_jax_or_reference_import():
 def test_entry_points_need_the_card_unless_asked_for_cpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")
+    from repro_torch.kernels.phi import select_phi
+
     p = DiffusionProblem((8,))
+    ops = derivative_operator_set(1, 2)
     calls = (
+        lambda: FusedStencilOp(ops, select_phi("val"), 1, strategy="swc"),
         lambda: MHDSolver((4, 4, 4)),
         lambda: MHDSolver((4, 4, 4), device="cuda"),
         lambda: p.init_field(),
@@ -98,7 +102,8 @@ def test_swc_refuses_a_bare_callable():
     ops = derivative_operator_set(1, 2)
     with pytest.raises(ValueError, match="strategy='hwc'"):
         FusedStencilOp(ops, lambda d: d["val"], 1, strategy="swc")
-    FusedStencilOp(ops, lambda d: d["val"], 1, strategy="hwc")  # fine there
+    FusedStencilOp(ops, lambda d: d["val"], 1, strategy="hwc",
+                   device="cpu")  # fine there
 
 
 @pytest.mark.parametrize(
