@@ -17,22 +17,30 @@ Phases (each raises on failure; none is caught):
    diffusion at ranks 1-3, the MHD RHS and fused RK substep on a cube
    and a non-cubic box; the temporal kernel against
    ``ref.fused_stencil_steps`` — diffusion at depth 2 and 3, ranks 1-3,
-   two selected fields, and the MHD pair (two RK3 substep φs, aux w).
+   two selected fields, and the MHD pair (two RK3 substep φs, aux w);
+   the stream kernel (``swc_stream``) against ``ref.fused_stencil`` /
+   ``ref.fused_stencil_steps`` — diffusion at ranks 2 and 3, depth 1-3,
+   on stream extents of many chunks and x extents off the default tile,
+   two selected fields at depth 2, the MHD RHS on a cube and a
+   non-cubic box, and stream axes cut into segments.
 3. Main path at full size, through the entry points a user calls, with
-   the launch counters (total and per depth) zeroed just before and
-   read just after each run: MHD 256³ f32 RK3 with the fused axpy (3
-   launches per step), plain (3 per step) and ``fuse_rk_pairs`` (one
-   depth-2 and one depth-1 launch per step); 3-D diffusion at 512³ at
-   depth 1, 2 and 3 (and 7 steps at depth 3: a depth-1 remainder); an
-   f64 Fourier mode checked against its exact discrete and analytic
-   decay.
+   the launch counters (total, per depth and per kernel) zeroed just
+   before and read just after each run: MHD 256³ f32 RK3 with the fused
+   axpy (3 launches per step), plain (3 per step), ``fuse_rk_pairs``
+   (one depth-2 and one depth-1 launch per step) and plain on
+   ``swc_stream`` (3 stream launches per step; the fused-axpy forms
+   must raise there); 3-D diffusion at 512³ at depth 1, 2 and 3 (and 7
+   steps at depth 3: a depth-1 remainder) on ``swc`` and on
+   ``swc_stream``, 2-D diffusion at 8192² on ``swc_stream``, each held
+   to ``swc`` at depth 1; an f64 Fourier mode checked against its exact
+   discrete and analytic decay.
 4. Times (CUDA events, median after warm-up) of each kernel, its plain
    version and, for diffusion, ``F.conv{1,2,3}d`` with the merged
    stencil as a dense weight (S calls at depth S); the bound is
    max(bytes / memory rate, FLOPs / non-tensor rate) from the card's
-   data sheet. Temporal rows also print the tile, its shared memory,
-   the modelled bytes per step and the redundant work
-   (``repro_torch.core.trafficmodel``).
+   data sheet. Temporal and stream rows also print the tile, its shared
+   memory, the modelled bytes per step (``swc`` and ``swc_stream``) and
+   the redundant work (``repro_torch.core.trafficmodel``).
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without a card it exits non-zero and
@@ -53,6 +61,9 @@ KERNEL_SOURCE = "src/repro_torch/kernels/csrc/fused_stencil.cu"
 REPLACES = "src/repro/kernels/emit.py:207"  # _kernel_pipelined (+ _block_derivs :73)
 TEMPORAL_SOURCE = "src/repro_torch/kernels/csrc/fused_stencil_temporal.cu"
 TEMPORAL_REPLACES = "src/repro/kernels/emit.py:271"  # _kernel_temporal (+ _temporal_sweeps :242)
+STREAM_SOURCE = "src/repro_torch/kernels/csrc/fused_stencil_stream.cu"
+STREAM_REPLACES = "src/repro/kernels/emit.py:585"  # _kernel_stream (via _fused_stream :687)
+STREAM = "fused_stencil_stream"
 TOL = {"float32": 1e-5, "float64": 1e-12}
 
 # Data-sheet rates: (memory B/s, non-tensor f32 FLOP/s, non-tensor f64 FLOP/s).
@@ -118,25 +129,30 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
 
 
 def diffusion_case(shape, dtype, device, block=None, unroll=1, seed=0,
-                   fuse_steps=1):
+                   fuse_steps=1, strategy="swc", segments=None):
     """(f_padded, ops, phi, plan, aux) of ``fuse_steps`` diffusion
-    steps in one launch."""
+    steps in one launch; ``segments`` overrides the stream planner's."""
+    import dataclasses
+
     from repro_torch.core.boundary import pad
     from repro_torch.kernels.ops import plan_for_nd
     from repro_torch.physics.diffusion import DiffusionProblem
 
     prob = DiffusionProblem(shape)
-    op = prob.step_op("swc", block=block, fuse_steps=fuse_steps,
+    op = prob.step_op(strategy, block=block, fuse_steps=fuse_steps,
                       device=device)
     f = prob.init_field(seed, device=device, dtype=dtype)
     fp = pad(f, [r * fuse_steps for r in op.radius_per_axis], "periodic",
              spatial_axes=range(1, f.ndim))
-    plan = plan_for_nd(op.ops, tuple(fp.shape), 1, block=block,
-                       dtype=dtype, unroll=unroll, fuse_steps=fuse_steps)
+    plan = plan_for_nd(op.ops, tuple(fp.shape), 1, strategy=strategy,
+                       block=block, dtype=dtype, unroll=unroll,
+                       fuse_steps=fuse_steps)
+    if segments is not None:
+        plan = dataclasses.replace(plan, segments=segments)
     return fp, op.ops, op.phi, plan, None
 
 
-def select_case(shape, dtype, device, fuse_steps, seed=0):
+def select_case(shape, dtype, device, fuse_steps, seed=0, strategy="swc"):
     """Two random fields through the whole order-6 derivative set, φ
     selecting ``dxx``: the select kind with more than one field."""
     import torch
@@ -150,12 +166,13 @@ def select_case(shape, dtype, device, fuse_steps, seed=0):
     padded = (2,) + tuple(n + 6 * fuse_steps for n in shape)
     fp = torch.rand(padded, generator=g, dtype=torch.float64).to(
         device=device, dtype=getattr(torch, dtype))
-    plan = plan_for_nd(ops, padded, 2, dtype=dtype, fuse_steps=fuse_steps)
+    plan = plan_for_nd(ops, padded, 2, strategy=strategy, dtype=dtype,
+                       fuse_steps=fuse_steps)
     return fp, ops, select_phi("dxx"), plan, None
 
 
 def mhd_case(shape, dtype, device, substep, block=(1, 8, 32), unroll=1,
-             smooth=True, seed=0):
+             smooth=True, seed=0, strategy="swc"):
     """(f_padded, ops, phi, plan, aux) of one MHD RHS or RK substep."""
     import torch
 
@@ -183,7 +200,8 @@ def mhd_case(shape, dtype, device, substep, block=(1, 8, 32), unroll=1,
     plan = plan_for_nd(
         ops, tuple(fp.shape), phi.n_out(8),
         aux_shape=None if aux is None else tuple(aux.shape),
-        block=block, dtype=dtype, unroll=unroll,
+        strategy=strategy, block=block, dtype=dtype, unroll=unroll,
+        max_threads=phi.max_threads,
     )
     return fp, ops, phi, plan, aux
 
@@ -262,8 +280,9 @@ def compare(label, case, dtype):
             f"{label}: plan.smem_bytes {plan.smem_bytes} != the kernel's "
             f"layout {layout}")
     got = emit.fused_stencil_swc(fp, ops, phi, plan, aux=aux)
+    seg = f" seg{plan.segments}" if plan.segments > 1 else ""
     return check(f"{label} {dtype} S{plan.fuse_steps} tile{plan.block}"
-                 f"u{plan.unroll} {plan.smem_bytes}B", got, plain(case),
+                 f"u{plan.unroll}{seg} {plan.smem_bytes}B", got, plain(case),
                  dtype)
 
 
@@ -322,12 +341,35 @@ def phase_parity(dev):
                     mhd_pair_case(shape, dtype, dev), dtype)
         compare("mhd_rhs twice (48, 64, 80)",
                 mhd_rhs_twice_case((48, 64, 80), dtype, dev), dtype)
+    print("  -- stream kernel (swc_stream) vs ref.fused_stencil[_steps]")
+    for dtype in ("float32", "float64"):
+        for depth in (1, 2, 3):
+            # Many chunks along the stream axis; x off the default tile
+            # (120 = 4 x 30, 400 = 8 x 50).
+            for shape in ((512, 400), (64, 96, 120)):
+                compare(f"stream diffusion {shape}",
+                        diffusion_case(shape, dtype, dev, fuse_steps=depth,
+                                       strategy="swc_stream"), dtype)
+        compare("stream select dxx, 2 fields (48, 64, 80)",
+                select_case((48, 64, 80), dtype, dev, 2,
+                            strategy="swc_stream"), dtype)
+        for shape in ((64, 64, 64), (48, 64, 80)):
+            compare(f"stream mhd_rhs {shape}",
+                    mhd_case(shape, dtype, dev, False,
+                             strategy="swc_stream"), dtype)
+        for shape, depth, seg in (((1024, 96), 1, 4), ((192, 64, 120), 2, 4),
+                                  ((256, 64, 64), 1, 8)):
+            compare(f"stream diffusion {shape} in segments",
+                    diffusion_case(shape, dtype, dev, fuse_steps=depth,
+                                   strategy="swc_stream", segments=seg),
+                    dtype)
 
 
-def counted(fn):
+def counted(fn, kernel=None):
     """(fn(), host seconds, launches by depth), the launch counters set
     to 0 just before and read just after, the card synchronised at both
-    ends."""
+    ends. With ``kernel``, every launch must have gone to that kernel
+    (the per-kernel count)."""
     import torch
 
     from repro_torch.kernels import emit
@@ -339,8 +381,14 @@ def counted(fn):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     by_depth = dict(emit.fused_stencil_swc.launches_by_depth)
-    if emit.fused_stencil_swc.launches != sum(by_depth.values()):
-        raise AssertionError("launch total and per-depth counts disagree")
+    by_kernel = dict(emit.fused_stencil_swc.launches_by_kernel)
+    total = emit.fused_stencil_swc.launches
+    if total != sum(by_depth.values()) or total != sum(by_kernel.values()):
+        raise AssertionError("launch total and per-depth/kernel counts "
+                             "disagree")
+    if kernel is not None and by_kernel != {kernel: total}:
+        raise AssertionError(f"launches by kernel {by_kernel}, want all "
+                             f"{total} on {kernel}")
     return out, wall, by_depth
 
 
@@ -380,12 +428,43 @@ def phase_main_path(dev):
         print(f"  MHD 256^3 f32 RK3 {form or 'plain'}: {n_steps} steps "
               f"dt={dt:.4e}, launches by depth {by_depth}, "
               f"{1e3 * wall / n_steps:.2f} ms/step (host clock)")
-    for kind in ("mhd_rhs", "mhd pair"):
+    solver = MHDSolver((256,) * 3, strategy="swc_stream", device=dev)
+    f0 = solver.init_fields(seed=0, dtype="float32")
+    dt = float(solver.cfl_dt(f0))
+    solver.step(f0, dt)
+
+    def run_stream():
+        f = f0
+        for _ in range(n_steps):
+            f = solver.step(f, dt)
+        return f
+
+    f, wall, by_depth = counted(run_stream, kernel=STREAM)
+    if by_depth != {1: 3 * n_steps}:
+        raise AssertionError(f"mhd stream: launches {by_depth}")
+    if f.shape != (8, 256, 256, 256) or not bool(torch.isfinite(f).all()):
+        raise AssertionError("mhd stream: bad MHD state")
+    launches["stream mhd_rhs"] = by_depth[1]
+    results["mhd_rhs stream"] = f
+    print(f"  MHD 256^3 f32 RK3 plain on swc_stream: {n_steps} steps, "
+          f"{by_depth[1]} stream launches, {1e3 * wall / n_steps:.2f} "
+          "ms/step (host clock)")
+    for kind in ("mhd_rhs", "mhd pair", "mhd_rhs stream"):
         _, rel = rel_err(results[kind], results["mhd_substep"])
         print(f"  {kind} vs fused-axpy RK3 after {n_steps} steps: "
               f"rel {rel:.3e}")
         if rel > 1e-5:
             raise AssertionError(f"{kind}: the RK3 forms disagree")
+    del results, f
+    for form in ("fuse_rk_axpy", "fuse_rk_pairs"):
+        solver = MHDSolver((64,) * 3, strategy="swc_stream", device=dev,
+                           **{form: True})
+        try:
+            solver.step(solver.init_fields(dtype="float32"), 1e-3)
+        except ValueError as err:
+            print(f"  MHD swc_stream with {form}: ValueError ({err})")
+        else:
+            raise AssertionError(f"swc_stream with {form} did not raise")
 
     prob = DiffusionProblem((512,) * 3)
     f0 = prob.init_field(seed=0, device=dev)
@@ -398,25 +477,54 @@ def phase_main_path(dev):
         raise AssertionError("diffusion: bad state")
     print(f"  diffusion 512^3 f32: 5 steps, launches by depth {by_depth}, "
           f"{1e3 * wall / 5:.2f} ms/step (host clock)")
-    base = {n: simulate(prob, f0, n, strategy="swc", device=dev)
-            for n in (6, 7)}
-    for depth, n, want in ((2, 6, {2: 3}), (3, 6, {3: 2}),
-                           (3, 7, {3: 2, 1: 1})):
+    base = {5: out}
+    base.update({n: simulate(prob, f0, n, strategy="swc", device=dev)
+                 for n in (6, 7)})
+    del out
+    for strategy, depth, n, want in (
+        ("swc", 2, 6, {2: 3}), ("swc", 3, 6, {3: 2}),
+        ("swc", 3, 7, {3: 2, 1: 1}),
+        ("swc_stream", 1, 5, {1: 5}), ("swc_stream", 2, 6, {2: 3}),
+        ("swc_stream", 3, 6, {3: 2}), ("swc_stream", 3, 7, {3: 2, 1: 1}),
+    ):
+        stream = strategy == "swc_stream"
         out, wall, by_depth = counted(
-            lambda: simulate(prob, f0, n, strategy="swc", fuse_steps=depth,
-                             device=dev))
+            lambda: simulate(prob, f0, n, strategy=strategy,
+                             fuse_steps=depth, device=dev),
+            kernel=STREAM if stream else None)
         if by_depth != want:
             raise AssertionError(
-                f"diffusion fuse_steps={depth}, {n} steps: launches "
-                f"{by_depth}, want {want}")
-        if n == 6:
-            launches[f"select S={depth}"] = by_depth[depth]
+                f"diffusion {strategy} fuse_steps={depth}, {n} steps: "
+                f"launches {by_depth}, want {want}")
+        if n != 7:
+            key = "stream select" if stream else "select"
+            launches[f"{key} S={depth}"] = by_depth[depth]
         _, rel = rel_err(out, base[n])
-        print(f"  diffusion 512^3 f32 fuse_steps={depth}: {n} steps, "
-              f"launches by depth {by_depth}, {1e3 * wall / n:.2f} ms/step "
-              f"(host clock); vs depth 1 rel {rel:.3e}")
+        print(f"  diffusion 512^3 f32 {strategy} fuse_steps={depth}: {n} "
+              f"steps, launches by depth {by_depth}, "
+              f"{1e3 * wall / n:.2f} ms/step (host clock); vs swc depth 1 "
+              f"rel {rel:.3e}")
         if rel > 1e-5 or not bool(torch.isfinite(out).all()):
-            raise AssertionError("fused diffusion disagrees with depth 1")
+            raise AssertionError(f"{strategy} diffusion at depth {depth} "
+                                 "disagrees with swc depth 1")
+    del base, out, f0
+
+    prob = DiffusionProblem((8192, 8192))
+    f0 = prob.init_field(seed=0, device=dev)
+    want = simulate(prob, f0, 5, strategy="swc", device=dev)
+    out, wall, by_depth = counted(
+        lambda: simulate(prob, f0, 5, strategy="swc_stream", device=dev),
+        kernel=STREAM)
+    if by_depth != {1: 5}:
+        raise AssertionError(f"diffusion 8192^2 stream: launches {by_depth}")
+    launches["stream select 8192^2"] = by_depth[1]
+    _, rel = rel_err(out, want)
+    print(f"  diffusion 8192^2 f32 swc_stream (y-stream): 5 steps, "
+          f"launches by depth {by_depth}, {1e3 * wall / 5:.2f} ms/step "
+          f"(host clock); vs swc rel {rel:.3e}")
+    if rel > 1e-5 or not bool(torch.isfinite(out).all()):
+        raise AssertionError("y-stream diffusion disagrees with swc")
+    del want, out, f0
 
     prob = DiffusionProblem((64, 64, 64), safety=0.05)
     k, n = (1, 1, 2), 60
@@ -444,6 +552,7 @@ def phase_times(dev, smi, launches):
     from repro_torch.core.trafficmodel import (
         stencil_hbm_bytes_per_step,
         stencil_redundant_compute_fraction,
+        stencil_stream_hbm_bytes_per_step,
     )
     from repro_torch.kernels.emit import fused_stencil_swc
     from repro_torch.physics import mhd
@@ -486,12 +595,22 @@ def phase_times(dev, smi, launches):
         t_bytes = nbytes / bw * 1e3
         t_ops = flops / (f32_rate if item == 4 else f64_rate) * 1e3
         bound = max(t_bytes, t_ops)
+        stream = plan.stream_axis is not None
+        if stream:
+            name_, source, replaces = (f"{STREAM}[{kind}, S={depth}]",
+                                       STREAM_SOURCE, STREAM_REPLACES)
+        elif depth == 1:
+            name_, source, replaces = (f"fused_stencil_swc[{kind}]",
+                                       KERNEL_SOURCE, REPLACES)
+        else:
+            name_, source, replaces = (
+                f"fused_stencil_temporal[{kind}, S={depth}]",
+                TEMPORAL_SOURCE, TEMPORAL_REPLACES)
         r = {
-            "name": (f"fused_stencil_swc[{kind}]" if depth == 1 else
-                     f"fused_stencil_temporal[{kind}, S={depth}]"),
+            "name": name_,
             "route": "cuda",
-            "source": KERNEL_SOURCE if depth == 1 else TEMPORAL_SOURCE,
-            "replaces": REPLACES if depth == 1 else TEMPORAL_REPLACES,
+            "source": source,
+            "replaces": replaces,
             "launches": launches[main] if main else 0,
             "max_abs_err": err,
             "ms": ms,
@@ -505,7 +624,23 @@ def phase_times(dev, smi, launches):
               f"({r['bound_by']})  library "
               f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}  "
               f"max|err| {err:.3e}  {bound / ms:.1%} of bound")
-        if depth > 1:
+        if stream:
+            model = dict(domain=plan.interior, block=plan.block,
+                         radii=plan.radii, n_f=plan.n_f, n_out=plan.n_out,
+                         itemsize=item, fuse_steps=depth)
+            walk = stencil_stream_hbm_bytes_per_step(
+                **model, segments=plan.segments)
+            one = stencil_stream_hbm_bytes_per_step(**model)
+            swc = stencil_hbm_bytes_per_step(**model)
+            redundant = stencil_redundant_compute_fraction(
+                plan.block, plan.radii, depth)
+            print(f"    stream S={depth}: {ms / depth:.4f} ms per step; "
+                  f"chunk and cross tile {plan.block}, {plan.segments} "
+                  f"segment(s), {plan.threads} threads, {plan.smem_bytes} B "
+                  f"shared; modelled {walk:.6e} B/step (one walk "
+                  f"{one:.6e}; swc at this tile {swc:.6e}), redundant work "
+                  f"{redundant:.4f}")
+        elif depth > 1:
             traffic = [
                 stencil_hbm_bytes_per_step(
                     plan.interior, plan.block, plan.radii, plan.n_f,
@@ -593,6 +728,33 @@ def phase_times(dev, smi, launches):
                   f"{3 * substep_ms['mhd_substep']:.4f} ms")
         del case
         torch.cuda.empty_cache()
+
+    print("  -- stream kernel (swc_stream)")
+    for depth in (1, 2, 3):
+        case = diffusion_case((512,) * 3, "float32", dev, fuse_steps=depth,
+                              strategy="swc_stream")
+        row(f"stream diffusion 512^3 S={depth}", "select", case, "float32",
+            0, conv_of(case), main=f"stream select S={depth}")
+        del case
+    case = diffusion_case((8192, 8192), "float32", dev, strategy="swc_stream")
+    row("stream diffusion (8192, 8192)", "select y-stream", case, "float32",
+        0, conv_of(case), main="stream select 8192^2")
+    del case
+    case = diffusion_case((256,) * 3, "float64", dev, strategy="swc_stream")
+    row("stream diffusion 256^3", "select", case, "float64", 0,
+        conv_of(case))
+    del case
+    case = mhd_case((256,) * 3, "float32", dev, False, smooth=False,
+                    strategy="swc_stream")
+    row("stream MHD mhd_rhs 256^3", "mhd_rhs", case, "float32",
+        mhd.RHS_PHI_FLOPS, main="stream mhd_rhs", reps=5, plain_reps=2)
+    del case
+    case = mhd_case((128,) * 3, "float64", dev, False, smooth=False,
+                    strategy="swc_stream")
+    row("stream MHD mhd_rhs 128^3", "mhd_rhs", case, "float64",
+        mhd.RHS_PHI_FLOPS, reps=5, plain_reps=2)
+    del case
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -606,6 +768,7 @@ def main(argv: list[str]) -> int:
     import repro_torch
 
     dev = repro_torch.default_device()
+    t0 = time.perf_counter()
     smi = phase_card()
     print(smi)
     phase_parity(dev)
@@ -613,6 +776,7 @@ def main(argv: list[str]) -> int:
         return 0
     launches = phase_main_path(dev)
     rows = phase_times(dev, smi, launches)
+    print(f"chip_smoke: all phases in {time.perf_counter() - t0:.1f} s")
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({

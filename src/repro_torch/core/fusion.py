@@ -22,6 +22,13 @@ A fused stencil operation is the paper's chain φ(γ(ψ(f))) (Sec. 3.3):
                            DevicePhi`; ``fuse_steps > 1`` runs all sweeps
                            in one launch, the intermediate fields in
                            shared memory
+  ``swc_stream``   2, 3   the CUDA kernel that walks the slowest axis (z at
+                           rank 3, y at rank 2) chunk by chunk: all fields'
+                           working set resident in shared memory, the
+                           halo planes carried from chunk to chunk, the
+                           next chunk copied in while this one computes
+                           (paper Fig. 5b); a DevicePhi, no aux; composes
+                           with ``fuse_steps``
   ============  =========  =================================================
 
 The operator set's tap table is a buffer of the module, so ``.to(device)``
@@ -47,7 +54,8 @@ from repro_torch.kernels.phi import phi_sequence
 Phi = Callable[[Mapping[str, torch.Tensor]], torch.Tensor]
 PhiLike = Union[Phi, tuple]
 
-STRATEGIES = ("hwc", "swc")
+STRATEGIES = ("hwc", "swc", "swc_stream")
+DEVICE_STRATEGIES = ("swc", "swc_stream")  # the CUDA kernels
 # Reference strategies not ported yet → ROADMAP item.
 NOT_PORTED = {**kplan.NOT_PORTED, "auto": "A9 (cross-strategy tuning)"}
 
@@ -59,16 +67,20 @@ class FusedStencilOp(nn.Module):
         ops: the :class:`~repro_torch.core.stencil.OperatorSet` (γ).
         phi: point-wise map from ``{op_name: (n_f, *spatial)}`` (plus an
             optional aux tensor) to the (n_out, *spatial) update; a
-            :class:`~repro_torch.kernels.phi.DevicePhi` for ``swc``; at
-            depth > 1 it may be a sequence of per-step maps (on ``swc``
-            DevicePhis of one kind).
+            :class:`~repro_torch.kernels.phi.DevicePhi` for ``swc`` and
+            ``swc_stream``; at depth > 1 it may be a sequence of
+            per-step maps (on the CUDA strategies DevicePhis of one
+            kind).
         n_out: number of output fields φ produces.
         boundary_mode: ψ — how ghost cells are filled ("periodic", …);
             scalar or one mode per spatial axis.
-        strategy: ``"hwc"`` or ``"swc"`` (see the module docstring).
-        block: rank-length tile (x last) or None (per-rank default).
+        strategy: ``"hwc"``, ``"swc"`` or ``"swc_stream"`` (see the
+            module docstring).
+        block: rank-length tile (x last) or None (per-rank default); on
+            ``swc_stream`` ``block[0]`` is the chunk of the walk.
         fuse_steps: applications per call (on ``swc`` one launch of
-            the temporal kernel; periodic boundaries only).
+            the temporal kernel, on ``swc_stream`` one launch of the
+            stream kernel; periodic boundaries only).
         boundary_weights: not ported yet (must be False).
         device: where the tap-table buffers live (``None``: the card,
             raising without one; pass ``"cpu"`` for the plain path;
@@ -76,8 +88,9 @@ class FusedStencilOp(nn.Module):
 
     Raises:
         ValueError: on an invalid strategy, boundary mode, block,
-            depth, or a φ the chosen regime cannot run (``swc`` with a
-            bare callable).
+            depth, a φ the chosen regime cannot run (``swc`` or
+            ``swc_stream`` with a bare callable), or ``swc_stream`` on a
+            rank-1 set.
         NotImplementedError: for a reference option not ported yet.
     """
 
@@ -122,6 +135,12 @@ class FusedStencilOp(nn.Module):
             raise ValueError(
                 f"strategy {self.strategy!r} not in {STRATEGIES}"
             )
+        if self.strategy == "swc_stream" and self.ops.ndim < 2:
+            raise ValueError(
+                "swc_stream walks the slowest axis of a 2-D or 3-D "
+                f"operator set; got ndim={self.ops.ndim} — use "
+                "strategy='swc'"
+            )
         modes = self.boundary_modes  # validates names and count
         if boundary_weights:
             raise NotImplementedError(
@@ -152,7 +171,7 @@ class FusedStencilOp(nn.Module):
                 f"phi sequence has {len(self.phi)} entries for "
                 f"fuse_steps={self.fuse_steps}"
             )
-        if self.strategy == "swc":
+        if self.strategy in DEVICE_STRATEGIES:
             phi_sequence(self.phi, self.fuse_steps)  # DevicePhis, one kind
 
     @property
@@ -172,10 +191,11 @@ class FusedStencilOp(nn.Module):
         fuse_steps`` ghost cells per axis). ``aux`` (n_aux, *interior),
         padded by ``radius * (fuse_steps - 1)``, is forwarded to φ (the
         fused RK axpy carry)."""
-        if self.strategy == "swc":
+        if self.strategy in DEVICE_STRATEGIES:
             return kops.fused_stencil_nd(
                 f_padded, self.ops, self.phi, self.n_out, aux=aux,
-                strategy="swc", block=self.block, fuse_steps=self.fuse_steps,
+                strategy=self.strategy, block=self.block,
+                fuse_steps=self.fuse_steps,
                 taps=(self.tap_offsets, self.tap_coeffs, self.tap_starts),
             )
         return kops.fused_stencil_nd(

@@ -49,27 +49,11 @@
 
 #include "phi_mhd.cuh"
 #include "stencil_common.cuh"
+#include "stencil_sweep.cuh"
 
 namespace {
 
 using namespace stencil;
-
-// Extents (z, y, x) of a box of points.
-struct Box {
-  int z, y, x;
-  __host__ __device__ int size() const { return z * y * x; }
-};
-
-struct Point {
-  int z, y, x;
-};
-
-// Sweep s's region, tile + 2r(S-1-s); s = -1 is the staged window.
-__host__ __device__ inline Box region(const Geometry& g, int s) {
-  const int m = g.fuse_steps - 1 - s;
-  return {g.t[0] + 2 * g.r[0] * m, g.t[1] + 2 * g.r[1] * m,
-          g.t[2] + 2 * g.r[2] * m};
-}
 
 // Byte offsets of the shared-memory layout: n_buf staged windows |
 // mid[0], mid[1] (all n_f fields of the sweeps s = 0, 2, ... and
@@ -103,92 +87,6 @@ __host__ __device__ inline Layout layout(const Geometry& g) {
   off += size_t(g.n_ops + 1) * sizeof(int);
   L.total = off;
   return L;
-}
-
-__device__ __forceinline__ Point unflatten(int p, const Box& b) {
-  const int plane = b.y * b.x;
-  const int z = p / plane;
-  const int rest = p - z * plane;
-  const int y = rest / b.x;
-  return {z, y, rest - y * b.x};
-}
-
-// Index of point q shifted by (dz, dy, dx) in a buffer of extents b.
-__device__ __forceinline__ int index_in(const Point& q, int dz, int dy,
-                                        int dx, const Box& b) {
-  return ((q.z + dz) * b.y + q.y + dy) * b.x + q.x + dx;
-}
-
-// Start copying one field's window w into shared memory with cp.async:
-// rows of the window go to groups of up to 32 threads, each row's x to
-// the threads of its group, so neighbouring threads read neighbouring
-// addresses and no element passes through a register.
-template <typename T>
-__device__ __forceinline__ void stage_window(const T* __restrict__ src,
-                                             T* __restrict__ win,
-                                             const Box& w, long long psz,
-                                             long long psy, int tid,
-                                             int nthr) {
-  const int lanes = nthr < 32 ? nthr : 32;
-  const int groups = nthr / lanes;
-  const int grp = tid / lanes;
-  const int lane = tid - grp * lanes;
-  if (grp < groups) {
-    for (int row = grp; row < w.z * w.y; row += groups) {
-      const int z = row / w.y;
-      const int y = row - z * w.y;
-      const T* s = src + z * psz + y * psy;
-      T* d = win + row * w.x;
-      for (int x = lane; x < w.x; x += lanes)
-        __pipeline_memcpy_async(d + x, s + x, sizeof(T));
-    }
-  }
-  __pipeline_commit();
-}
-
-// Point every tap at its neighbour in a buffer of extents b.
-template <typename T>
-__device__ __forceinline__ void set_tap_offsets(Tap<T>* taps,
-                                                const int* __restrict__ off,
-                                                int n_taps, const Box& b,
-                                                int tid, int nthr) {
-  __syncthreads();  // no thread reads the previous offsets any more
-  for (int i = tid; i < n_taps; i += nthr)
-    taps[i].offset = (off[3 * i] * b.y + off[3 * i + 1]) * b.x + off[3 * i + 2];
-  __syncthreads();
-}
-
-// One sweep's MHD phi constants.
-template <typename T>
-struct SweepPhi {
-  mhd::Consts<T> c;
-  T alpha, beta, dt;
-  __device__ explicit SweepPhi(const double* p)
-      : c(p),
-        alpha(T(p[mhd::P_ALPHA])),
-        beta(T(p[mhd::P_BETA])),
-        dt(T(p[mhd::P_DT])) {}
-};
-
-// phi of the MHD kinds at one point, row by row into store(j, value):
-// the RHS (mhd_rhs), or f' = f + beta w' and w' = alpha w + dt rhs with
-// w = aux[k * aux_stride] (mhd_substep, repro/physics/mhd.py:284-290).
-template <typename T, int KIND, typename Store>
-__device__ __forceinline__ void mhd_phi(
-    const T (&d)[mhd::N_SLOTS][mhd::N_FIELDS], const SweepPhi<T>& ph,
-    const T* aux, long long aux_stride, Store store) {
-  T rhs[mhd::N_FIELDS];
-  mhd::rhs<T>(d, ph.c, rhs);
-#pragma unroll
-  for (int k = 0; k < mhd::N_FIELDS; ++k) {
-    if constexpr (KIND == KIND_MHD_RHS) {
-      store(k, rhs[k]);
-    } else {
-      const T w = ph.alpha * aux[k * aux_stride] + ph.dt * rhs[k];
-      store(k, d[mhd::VAL][k] + ph.beta * w);
-      store(mhd::N_FIELDS + k, w);
-    }
-  }
 }
 
 // One block per SM is what the shared memory allows at the planner's
@@ -335,39 +233,11 @@ __global__ void __launch_bounds__(KIND == KIND_SELECT ? 1024 : 256, 1)
   // shared memory.
   for (int s = 1; s < S; ++s) {
     const Box src = region(g, s - 1);
-    const Box rb = region(g, s);
     set_tap_offsets(taps, tap_off, g.n_taps, src, tid, nthr);
-    const T* fin = mid(s - 1);
-    if constexpr (KIND == KIND_SELECT) {
-      const int b = start[g.slot[0]], e = start[g.slot[0] + 1];
-      for (int i = tid; i < g.n_f * rb.size(); i += nthr) {
-        const int k = i / rb.size();
-        const int p = i - k * rb.size();
-        const Point q = unflatten(p, rb);
-        store(s, k, q, p,
-              apply_op(fin + k * src.size(), taps, b, e,
-                       index_in(q, g.r[0], g.r[1], g.r[2], src)));
-      }
-    } else {
-      const SweepPhi<T> ph(g.prm[s]);
-      const T* cin = carry(s - 1);
-      for (int p = tid; p < rb.size(); p += nthr) {
-        const Point q = unflatten(p, rb);
-        const int center = index_in(q, g.r[0], g.r[1], g.r[2], src);
-        T d[mhd::N_SLOTS][mhd::N_FIELDS];
-#pragma unroll
-        for (int k = 0; k < mhd::N_FIELDS; ++k) {
-#pragma unroll
-          for (int sl = 0; sl < mhd::N_SLOTS; ++sl) {
-            const int op = g.slot[sl];
-            d[sl][k] = apply_op(fin + k * src.size(), taps, start[op],
-                                start[op + 1], center);
-          }
-        }
-        mhd_phi<T, KIND>(d, ph, cin + p, rb.size(),
-                         [&](int j, T v) { store(s, j, q, p, v); });
-      }
-    }
+    sweep<T, KIND>(
+        g, mid(s - 1), src, region(g, s), taps, start, g.prm[s], carry(s - 1),
+        [&](int j, const Point& q, int p, T v) { store(s, j, q, p, v); }, tid,
+        nthr);
   }
 }
 

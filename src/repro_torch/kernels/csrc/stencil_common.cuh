@@ -1,5 +1,6 @@
-// What the fused-stencil kernels share: fused_stencil.cu (depth 1) and
-// fused_stencil_temporal.cu (depth > 1). The geometry the wrapper
+// What the fused-stencil kernels share: fused_stencil.cu (depth 1),
+// fused_stencil_temporal.cu (depth > 1) and fused_stencil_stream.cu
+// (swc_stream). The geometry the wrapper
 // (repro_torch/kernels/emit.py) hands over, its host-side reading, the
 // tap table kept in shared memory, and one operator evaluated at one
 // point.
@@ -28,6 +29,7 @@ enum GeomIndex {
   G_FUSE,  // sweeps per launch
   G_NBUF,  // staged window buffers (1 or 2)
   G_NTHR,  // threads per block (depth > 1; depth 1 runs one per tile point)
+  G_NSEG,  // swc_stream: segments the stream axis is cut into
   G_SLOT0,  // MAX_SLOTS operator indices follow
   G_LEN = G_SLOT0 + MAX_SLOTS
 };
@@ -43,6 +45,7 @@ struct Geometry {
   int fuse_steps;
   int n_buf;
   int n_thr;
+  int n_seg;
   int slot[MAX_SLOTS];  // operator index read by each phi slot
   double prm[MAX_FUSE][MAX_PARAMS];  // phi parameters, one row per sweep
 };
@@ -71,6 +74,7 @@ inline bool read_geometry(const int* geom, const double* params,
   g.fuse_steps = geom[G_FUSE];
   g.n_buf = geom[G_NBUF];
   g.n_thr = geom[G_NTHR];
+  g.n_seg = geom[G_NSEG];
   for (int s = 0; s < g.n_slots; ++s) g.slot[s] = geom[G_SLOT0 + s];
   for (int s = 0; s < g.fuse_steps; ++s)
     for (int i = 0; i < n_params; ++i) g.prm[s][i] = params[s * n_params + i];

@@ -1,14 +1,17 @@
-"""Wrapper of the hand-written CUDA ``swc`` kernels (port of
-``repro.kernels.emit.fused_stencil_pallas``).
+"""Wrapper of the hand-written CUDA ``swc`` and ``swc_stream`` kernels
+(port of ``repro.kernels.emit.fused_stencil_pallas`` and
+``_fused_stream``).
 
 :func:`fused_stencil_swc` checks its operands against the plan, uploads
 the operator set's tap table (once per operator set and device), and
-launches on PyTorch's current stream ``csrc/fused_stencil.cu`` at depth
-1 or ``csrc/fused_stencil_temporal.cu`` at depth > 1. A CPU tensor goes
-to the plain version (``ref.fused_stencil`` or, at depth > 1,
-``ref.fused_stencil_steps``, with the φs' ``torch_fn``); a CUDA tensor
-goes to the kernel, or the wrapper raises — there is no fallback from
-one to the other.
+launches on PyTorch's current stream the plan's kernel
+(:func:`kernel_name`): ``csrc/fused_stencil.cu`` for ``swc`` at depth 1,
+``csrc/fused_stencil_temporal.cu`` for ``swc`` at depth > 1,
+``csrc/fused_stencil_stream.cu`` for ``swc_stream`` at any depth. A CPU
+tensor goes to the plain version (``ref.fused_stencil`` or, at depth
+> 1, ``ref.fused_stencil_steps``, with the φs' ``torch_fn``); a CUDA
+tensor goes to the kernel, or the wrapper raises — there is no fallback
+from one to the other, nor from one kernel to another.
 """
 from __future__ import annotations
 
@@ -28,7 +31,8 @@ from repro_torch.kernels.plan import StencilPlan
 
 KERNEL = "fused_stencil"  # csrc/fused_stencil.cu, depth 1
 TEMPORAL_KERNEL = "fused_stencil_temporal"  # csrc/fused_stencil_temporal.cu
-GEOM_LEN = 38  # G_LEN of csrc/stencil_common.cuh
+STREAM_KERNEL = "fused_stencil_stream"  # csrc/fused_stencil_stream.cu
+GEOM_LEN = 39  # G_LEN of csrc/stencil_common.cuh
 
 TapTable = tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -64,6 +68,8 @@ def device_tap_table(ops: OperatorSet, device: torch.device) -> TapTable:
 
 def kernel_name(plan: StencilPlan) -> str:
     """The ``csrc`` source whose kernel runs ``plan``."""
+    if plan.stream_axis is not None:
+        return STREAM_KERNEL
     return KERNEL if plan.fuse_steps == 1 else TEMPORAL_KERNEL
 
 
@@ -106,7 +112,12 @@ def kernel_smem_bytes(plan: StencilPlan) -> int:
     return int(fn(_int_ptr(geometry(plan, [0])), int(plan.dtype == "float64")))
 
 
-def _rank3(t: tuple[int, ...], fill: int) -> list[int]:
+def _rank3(t: tuple[int, ...], fill: int, stream: bool = False) -> list[int]:
+    """``t`` lifted to rank 3: leading ``fill``s, or at rank 2 on
+    ``swc_stream`` ``fill`` inserted as y, so the stream axis stays the
+    kernel's z."""
+    if stream and len(t) == 2:
+        return [t[0], fill, t[1]]
     return [fill] * (3 - len(t)) + list(t)
 
 
@@ -125,12 +136,16 @@ def _aux_shape(plan: StencilPlan) -> tuple[int, ...]:
 def geometry(plan: StencilPlan, slots: list[int]) -> np.ndarray:
     """The kernel's int geometry array (``GeomIndex`` of
     ``csrc/stencil_common.cuh``): ranks 1/2 lifted to rank 3 with unit
-    extents and zero radii."""
+    extents and zero radii — leading, or on ``swc_stream`` at rank 2 as
+    y, the stream axis (y) becoming the kernel's z. The tap table's
+    rank-2 offsets (0, dy, dx) need no change for that: with a y extent
+    of 1 they land on the linear offset of (dy, 0, dx)."""
+    st = plan.stream_axis is not None
     g = [plan.n_f, plan.n_out, plan.n_aux]
-    g += _rank3(plan.interior, 1) + _rank3(_padded(plan), 1)
-    g += _rank3(plan.radii, 0) + _rank3(plan.block, 1)
+    g += _rank3(plan.interior, 1, st) + _rank3(_padded(plan), 1, st)
+    g += _rank3(plan.radii, 0, st) + _rank3(plan.block, 1, st)
     g += [plan.unroll, plan.n_ops, plan.n_taps, len(slots)]
-    g += [plan.fuse_steps, plan.stage_buffers, plan.threads]
+    g += [plan.fuse_steps, plan.stage_buffers, plan.threads, plan.segments]
     g += slots + [0] * (GEOM_LEN - len(g) - len(slots))
     return np.asarray(g, dtype=np.int32)
 
@@ -209,8 +224,9 @@ def fused_stencil_swc(
     axpy); at depth > 1 its rows are carried from sweep to sweep.
     ``taps`` is the operator set's :func:`tap_table` on ``f_padded``'s
     device (a module's buffers); ``None`` uses the per-device cache.
-    Each kernel launch adds one to ``fused_stencil_swc.launches`` and
-    to ``fused_stencil_swc.launches_by_depth[S]``.
+    Each kernel launch adds one to ``fused_stencil_swc.launches``, to
+    ``fused_stencil_swc.launches_by_depth[S]`` and to
+    ``fused_stencil_swc.launches_by_kernel[kernel_name(plan)]``.
     """
     phis = phi_sequence(phi, plan.fuse_steps)
     _check(f_padded, ops, phis[0], plan, aux, taps)
@@ -258,14 +274,18 @@ def fused_stencil_swc(
         )
     fused_stencil_swc.launches += 1
     fused_stencil_swc.launches_by_depth[plan.fuse_steps] += 1
+    fused_stencil_swc.launches_by_kernel[name] += 1
     return out
 
 
 fused_stencil_swc.launches = 0
 fused_stencil_swc.launches_by_depth = collections.Counter()
+fused_stencil_swc.launches_by_kernel = collections.Counter()
 
 
 def reset_launch_counts() -> None:
-    """Zero ``fused_stencil_swc.launches`` and its per-depth counts."""
+    """Zero ``fused_stencil_swc.launches`` and its per-depth and
+    per-kernel counts."""
     fused_stencil_swc.launches = 0
     fused_stencil_swc.launches_by_depth.clear()
+    fused_stencil_swc.launches_by_kernel.clear()

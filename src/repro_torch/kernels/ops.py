@@ -1,8 +1,9 @@
 """Dispatch of a fused stencil call to its regime (port of
 ``repro.kernels.ops.fused_stencil_nd``/``plan_for_nd``).
 
-``hwc`` goes to the plain PyTorch version (``ref``), ``swc`` to the CUDA
-kernel through :class:`~repro_torch.kernels.plan.StencilPlan` and
+``hwc`` goes to the plain PyTorch version (``ref``); ``swc`` and
+``swc_stream`` go to their CUDA kernels through
+:class:`~repro_torch.kernels.plan.StencilPlan` and
 ``emit.fused_stencil_swc``. Every reference option whose kernel is not
 ported yet raises ``NotImplementedError`` naming its ROADMAP item.
 """
@@ -40,10 +41,15 @@ def fused_stencil_nd(
     """Fused φ(A·B) over a padded (n_f, *spatial) domain of rank 1-3
     (paper Eq. 9).
 
-    ``strategy``: ``"hwc"`` (plain PyTorch) or ``"swc"`` (the CUDA
-    kernels; ``phi`` must be a :class:`~repro_torch.kernels.phi.
-    DevicePhi`). ``block`` is a rank-length tile or ``None`` for the
-    per-rank default.
+    ``strategy``: ``"hwc"`` (plain PyTorch), ``"swc"`` (the CUDA
+    kernels) or ``"swc_stream"`` (the CUDA kernel that walks the slowest
+    axis — z at rank 3, y at rank 2 — carrying its halo planes from chunk
+    to chunk; ranks 2 and 3, no aux, no unroll); on the CUDA strategies
+    ``phi`` must be a :class:`~repro_torch.kernels.phi.DevicePhi`.
+    ``block`` is a rank-length tile or ``None`` for the per-rank
+    default; on ``swc_stream`` ``block[0]`` is the chunk (planes per
+    step of the walk) and ``block[1:]`` the cross-stream tile, and the
+    planner shrinks both until the working set fits shared memory.
 
     ``fuse_steps`` is the temporal depth: ``f_padded`` is padded by
     ``radius * fuse_steps`` (and ``aux``, if any, by ``radius *

@@ -8,7 +8,7 @@ kind reads (in the kernel's slot order), and ``torch_fn`` — the same
 map in plain PyTorch, used on CPU tensors and as the plain version the
 kernel is held against.
 
-Kinds (``csrc/fused_stencil.cu`` switches on :data:`KIND_IDS`):
+Kinds (the kernels in ``csrc/`` switch on :data:`KIND_IDS`):
 
 * ``select`` — output row k = operator ``operators[0]`` applied to
   field k (diffusion's ``lambda d: d["step"]``); no parameters.
@@ -49,8 +49,9 @@ MAX_PARAMS = 16  # kernel-side parameter array length
 MAX_SLOTS = 16  # kernel-side operator slot array length
 
 NEEDS_DEVICE_PHI = (
-    "strategy='swc' runs a compiled CUDA kernel, which cannot call a "
-    "Python φ: pass a DevicePhi (repro_torch.kernels.phi), or use "
+    "strategy='swc' or 'swc_stream' runs a compiled CUDA kernel, which "
+    "cannot call a Python φ: pass a DevicePhi (repro_torch.kernels.phi), "
+    "or use "
     "strategy='hwc' for an arbitrary φ callable"
 )
 

@@ -1,11 +1,21 @@
 """StencilPlan — the lowering contract between the fusion engine and the
-CUDA ``swc`` kernel (port of ``repro.kernels.plan`` for ``strategy="swc"``).
+CUDA kernels (port of ``repro.kernels.plan`` for ``strategy="swc"`` and
+``"swc_stream"``).
 
 A plan captures what the kernel launch needs: rank, tile (at depth 1
-one CUDA thread per output point of a tile; at depth > 1 the φ kind's
-thread count, looping over each sweep's points), element-wise unroll
-along x, temporal depth, halo radii, field/output/aux counts, dtype,
-and the size of the tap table the block stages beside its halo window.
+one CUDA thread per output point of a tile; at depth > 1 and on
+``swc_stream`` the φ kind's thread count, looping over each sweep's
+points), element-wise unroll along x, temporal depth, halo radii,
+field/output/aux counts, dtype, the size of the tap table the block
+stages beside its halo window and, on ``swc_stream``, the segments the
+stream axis is cut into.
+
+``swc_stream`` (paper Fig. 5b) walks the slowest axis (z at rank 3, y
+at rank 2): ``block[0]`` is the chunk τ₀ (planes per step of the walk)
+and ``block[1:]`` the cross-stream tile one block owns, as in the
+reference. Its rules are the reference's: ranks 2 and 3 only, no aux,
+no unroll, and at depth S > 1 a stream extent of at least ``2·r₀·S +
+τ₀`` (the carried halo plus one chunk).
 
 Array-axis convention (matches ``repro_torch.core.stencil``): spatial
 axes are ordered slowest→fastest, x always last and contiguous; tiles
@@ -18,6 +28,9 @@ since the kernel stages fields one at a time; at temporal depth S > 1
 also every intermediate sweep's fields (:func:`temporal_smem_bytes`) —
 must fit the 227 KB of shared memory a block can use. At depth S the
 halo is ``radii * S`` and the planner halves a tile that does not fit.
+A stream block keeps every field's working set resident
+(:func:`stream_smem_bytes`); its planner halves the chunk, then the
+cross tile, until it fits.
 """
 from __future__ import annotations
 
@@ -26,12 +39,11 @@ from typing import Sequence
 
 from repro_torch.core.stencil import OperatorSet
 
-STRATEGIES = ("swc",)
+STRATEGIES = ("swc", "swc_stream")
 
 # Strategies of the reference that have no Hopper kernel yet, with the
 # ROADMAP queue item that ports each.
 NOT_PORTED = {
-    "swc_stream": "B3 (_kernel_stream, slowest-axis streaming)",
     "tc": "B4 (_kernel_tc, banded contractions on the tensor cores)",
 }
 
@@ -45,11 +57,28 @@ DEFAULT_BLOCKS: dict[int, tuple[int, ...]] = {
     3: (4, 8, 32),
 }
 
+# swc_stream's default (chunk, *cross tile): its threads loop over a
+# chunk's points, so the thread limit does not bound the chunk τ₀; a long
+# chunk spreads each chunk's fixed cost (barriers, the landing and carry
+# copies, the wait for the next chunk) and, at depth > 1, its recomputed
+# z margin over more outputs. The fit halves τ₀ to what shared memory
+# holds.
+DEFAULT_STREAM_BLOCKS: dict[int, tuple[int, ...]] = {
+    2: (64, 64),
+    3: (16, 8, 32),
+}
+
 MAX_THREADS = 1024  # CUDA threads per block
 ONE_WARP = 32  # the smallest tile the temporal planner shrinks to
 MAX_FUSE_STEPS = 8  # sweeps per launch (rows of the kernels' parameter table)
 MAX_TILE_Z = 64  # blockDim.z limit
 SMEM_PER_BLOCK = 232_448  # 227 KB: the most shared memory one Hopper block can use
+# swc_stream cuts its stream axis into segments until the grid has
+# MIN_STREAM_BLOCKS blocks (two for each of an H100's 132 SMs), keeping
+# each segment at least STREAM_SEGMENT_HALOS times its carried halo long
+# (the extra halo reads stay under 1/8 of a column's).
+MIN_STREAM_BLOCKS = 2 * 132
+STREAM_SEGMENT_HALOS = 8
 
 ITEMSIZE = {"float32": 4, "float64": 8}
 
@@ -119,6 +148,32 @@ def temporal_smem_bytes(
     return total + n_taps * 2 * itemsize + (n_ops + 1) * 4
 
 
+def stream_smem_bytes(
+    block: Sequence[int],
+    radii: Sequence[int],
+    fuse_steps: int,
+    *,
+    n_f: int,
+    itemsize: int,
+    n_taps: int,
+    n_ops: int,
+) -> int:
+    """Shared memory of one block of ``csrc/fused_stencil_stream.cu``
+    (its ``layout``), each buffer padded to 16 B: the working set (all
+    n_f fields of τ₀ + 2h₀ planes of the cross window, h = r·S); the
+    prefetch buffer (n_f fields of τ₀ planes); from depth 2 all n_f
+    fields of sweep 0's and, from depth 3, sweep 1's region; the tap
+    table (coefficient and int32 offset, aligned to twice the itemsize)
+    and the int32 operator starts."""
+    window = tuple(t + 2 * r * fuse_steps for t, r in zip(block, radii))
+    total = _round16(n_f * _prod(window) * itemsize)
+    total += _round16(n_f * block[0] * _prod(window[1:]) * itemsize)
+    regions = sweep_regions(block, radii, fuse_steps)
+    for i in range(min(2, fuse_steps - 1)):
+        total += _round16(n_f * _prod(regions[i]) * itemsize)
+    return total + n_taps * 2 * itemsize + (n_ops + 1) * 4
+
+
 def largest_divisor_leq(n: int, cap: int) -> int:
     """Largest divisor of ``n`` that is ≤ ``cap`` (≥ 1)."""
     for t in range(min(cap, n), 0, -1):
@@ -136,6 +191,10 @@ class StencilPlan:
     extent a block covers is ``block[-1] * unroll``. ``fuse_steps`` is
     the temporal depth: S sweeps per launch on a tile staged with a
     ``radii * S`` halo (``csrc/fused_stencil_temporal.cu`` for S > 1).
+    On ``swc_stream`` (``csrc/fused_stencil_stream.cu``, any depth)
+    ``block[0]`` is the chunk τ₀ of the walk along axis 0 and
+    ``segments`` the pieces that axis is cut into, one block each per
+    cross tile (the reference walks it whole: ``segments=1``).
 
     Raises:
         ValueError: from ``__post_init__`` for any inconsistent
@@ -143,13 +202,16 @@ class StencilPlan:
             tile over the thread limit, a depth beyond
             ``MAX_FUSE_STEPS``, ``unroll > 1`` or a map that is not a
             self-map (``n_out != n_f + n_aux``) at depth > 1, or a
-            staged working set over the shared-memory limit.
+            staged working set over the shared-memory limit; on
+            ``swc_stream`` also rank 1, aux, ``unroll > 1``, a stream
+            extent shorter than the carried halo plus one chunk at
+            depth > 1, and segments that do not divide the chunks.
         NotImplementedError: for a strategy of the reference whose
             kernel is not ported yet.
     """
 
     rank: int
-    strategy: str  # "swc"
+    strategy: str  # "swc" or "swc_stream"
     block: tuple[int, ...]  # rank-length tile, x last
     radii: tuple[int, ...]  # halo width per axis
     interior: tuple[int, ...]  # unpadded spatial extents
@@ -163,6 +225,7 @@ class StencilPlan:
     n_taps: int = 0  # taps in the tap table (all operators)
     fuse_steps: int = 1  # temporal depth: sweeps per launch
     max_threads: int = MAX_THREADS  # the φ kind's threads per block
+    segments: int = 1  # swc_stream: pieces of the stream axis
 
     def __post_init__(self) -> None:
         if self.strategy in NOT_PORTED:
@@ -174,6 +237,15 @@ class StencilPlan:
             raise ValueError(
                 f"strategy {self.strategy!r} not in {STRATEGIES}"
             )
+        stream = self.strategy == "swc_stream"
+        if stream and self.rank == 1:
+            raise ValueError(
+                "swc_stream walks the slowest spatial axis chunk by chunk "
+                "under a fixed cross-stream tile, so it needs rank 2 "
+                "(y-stream) or 3 (z-stream); at rank 1 use strategy='swc'"
+            )
+        if stream and self.n_aux:
+            raise ValueError("aux inputs: use strategy='swc'")
         if self.accuracy < 0 or self.accuracy % 2:
             raise ValueError(
                 "accuracy must be 0 (unknown) or a positive even "
@@ -197,6 +269,8 @@ class StencilPlan:
                 )
         if self.unroll < 1:
             raise ValueError(f"unroll must be >= 1, got {self.unroll}")
+        if stream and self.unroll != 1:
+            raise ValueError("swc_stream does not support unroll > 1")
         if not 1 <= self.max_threads <= MAX_THREADS:
             raise ValueError(
                 f"max_threads must be in 1..{MAX_THREADS}, got "
@@ -221,6 +295,17 @@ class StencilPlan:
                     f"n_f={self.n_f}, n_aux={self.n_aux}) so each "
                     "in-kernel sweep can feed the next"
                 )
+            carried = 2 * self.radii[0] * self.fuse_steps
+            if stream and self.interior[0] < carried + self.block[0]:
+                raise ValueError(
+                    "swc_stream at fuse_steps > 1 carries 2·r·fuse_steps "
+                    f"= {carried} halo planes along the stream axis, which "
+                    "must hold them plus one chunk "
+                    f"(block[0]={self.block[0]}): extent "
+                    f"{self.interior[0]} < {carried + self.block[0]} — "
+                    "shrink fuse_steps or block[0], grow the domain, or "
+                    "use strategy='swc'"
+                )
         step = self.x_step
         for a in range(self.rank):
             t = self.block[a] if a < self.rank - 1 else step
@@ -229,20 +314,27 @@ class StencilPlan:
                     f"axis {a} extent {self.interior[a]} not divisible "
                     f"by tile {t}"
                 )
+        if self.segments < 1 or self.n_chunks % self.segments:
+            raise ValueError(
+                f"segments {self.segments} must be >= 1 and divide the "
+                f"{self.n_chunks} chunks of the stream axis"
+            )
+        if self.segments > 1 and not stream:
+            raise ValueError("segments cut the stream axis of swc_stream")
         if self.threads > MAX_THREADS:
             raise ValueError(
                 f"tile {self.block} has {self.threads} points, one CUDA "
                 f"thread each; a block holds at most {MAX_THREADS}"
             )
-        if self.rank == 3 and self.block[0] > MAX_TILE_Z:
+        if self.rank == 3 and not stream and self.block[0] > MAX_TILE_Z:
             raise ValueError(
                 f"tile z extent {self.block[0]} exceeds blockDim.z "
                 f"limit {MAX_TILE_Z}"
             )
         if self.smem_bytes > SMEM_PER_BLOCK:
             raise ValueError(
-                f"staged working set {self.smem_bytes} B (one field's "
-                f"halo window {self.window}, the intermediate sweeps and "
+                f"staged working set {self.smem_bytes} B (the halo "
+                f"window {self.window}, the intermediate sweeps and "
                 "the tap table) exceeds "
                 f"the {SMEM_PER_BLOCK} B of shared memory a Hopper block "
                 "can use — shrink the tile"
@@ -254,13 +346,25 @@ class StencilPlan:
         return self.block[-1] * self.unroll
 
     @property
+    def stream_axis(self) -> int | None:
+        """Array axis the ``swc_stream`` kernel walks (0: z at rank 3,
+        y at rank 2), or None for other strategies."""
+        return 0 if self.strategy == "swc_stream" else None
+
+    @property
+    def n_chunks(self) -> int:
+        """Chunks of τ₀ planes along axis 0 (the walk of swc_stream)."""
+        return self.interior[0] // self.block[0]
+
+    @property
     def threads(self) -> int:
-        """CUDA threads per block. Depth 1: one per point of one
-        sub-tile. Depth > 1: ``max_threads`` (the φ kind's limit), at
-        most the points of sweep 0's region — the threads loop over
-        each sweep's points, so a tile shrunk to fit shared memory keeps
-        a full block."""
-        if self.fuse_steps == 1:
+        """CUDA threads per block. Depth 1 on ``swc``: one per point of
+        one sub-tile. Depth > 1, and ``swc_stream`` at any depth:
+        ``max_threads`` (the φ kind's limit), at most the points of
+        sweep 0's region (of one chunk) — the threads loop over each
+        sweep's points, so a tile shrunk to fit shared memory keeps a
+        full block."""
+        if self.fuse_steps == 1 and self.stream_axis is None:
             return _prod(self.block)
         region = sweep_regions(self.block, self.radii, self.fuse_steps)[0]
         return min(self.max_threads, _prod(region))
@@ -294,7 +398,10 @@ class StencilPlan:
     def stage_buffers(self) -> int:
         """Window buffers the kernel stages fields into: two (the next
         field lands while this one is read) at depth 1, and at depth
-        > 1 when there is a next field and two windows fit; else one."""
+        > 1 when there is a next field and two windows fit; else one.
+        ``swc_stream``: its one prefetch buffer of τ₀ planes."""
+        if self.stream_axis is not None:
+            return 1
         if self.fuse_steps == 1:
             return 2
         if self.n_f > 1 and self._temporal_bytes(2) <= SMEM_PER_BLOCK:
@@ -316,7 +423,14 @@ class StencilPlan:
         (each padded to 16 B; the next field lands while this one is
         read), the tap table (coefficient in the field dtype and int32
         window offset, aligned to twice the itemsize) and the int32
-        operator start table. Depth > 1: :func:`temporal_smem_bytes`."""
+        operator start table. Depth > 1: :func:`temporal_smem_bytes`.
+        ``swc_stream``: :func:`stream_smem_bytes`."""
+        if self.stream_axis is not None:
+            return stream_smem_bytes(
+                self.block, self.radii, self.fuse_steps, n_f=self.n_f,
+                itemsize=ITEMSIZE.get(self.dtype, 8), n_taps=self.n_taps,
+                n_ops=self.n_ops,
+            )
         if self.fuse_steps > 1:
             return self._temporal_bytes(self.stage_buffers)
         itemsize = ITEMSIZE.get(self.dtype, 8)
@@ -345,7 +459,7 @@ def plan_stencil(
     radius of ghost cells per in-kernel sweep). ``block`` may be
     ``None`` (per-rank Hopper default, its slower axes halved until it
     holds at most ``max_threads`` points — the limit of the φ kind's
-    kernel), an int (rank-1 shorthand), or a tuple; a tuple longer than
+    kernel; on ``swc_stream`` ``DEFAULT_STREAM_BLOCKS``), an int (rank-1 shorthand), or a tuple; a tuple longer than
     the rank keeps its trailing entries (x last), and each axis is
     clamped to the largest divisor of the interior extent, so
     non-divisible domains shrink the tile instead of failing. If no
@@ -354,6 +468,16 @@ def plan_stencil(
     along its slowest axis of extent > 1 (x last, each axis again
     clamped to a divisor), down to one warp; if even that does not
     fit, this raises ``ValueError``.
+
+    ``swc_stream``: at depth > 1 the chunk ``block[0]`` is clamped to
+    leave room for the carried halo (a smaller divisor of the stream
+    extent, as the reference's planner does); a working set that does
+    not fit shared memory halves the chunk, then the cross tile's
+    slowest axis, down to one chunk plane and a one-warp cross tile,
+    then raises ``ValueError``. The plan's ``segments`` cut the stream
+    axis into pieces walked by separate blocks: the fewest that give
+    ``MIN_STREAM_BLOCKS`` blocks while each piece stays
+    ``STREAM_SEGMENT_HALOS`` carried halos long.
     """
     rank = ops.ndim
     if accuracy is None:
@@ -374,7 +498,9 @@ def plan_stencil(
             f"{radii} at fuse_steps={fuse_steps}"
         )
 
-    if block is None:
+    if block is None and strategy == "swc_stream" and rank > 1:
+        block = DEFAULT_STREAM_BLOCKS[rank]
+    elif block is None:
         block = default_block(rank, max_threads)
     if isinstance(block, int):
         block = (block,)
@@ -390,6 +516,13 @@ def plan_stencil(
     clamped = [
         largest_divisor_leq(interior[a], block[a]) for a in range(rank - 1)
     ]
+    stream = strategy == "swc_stream" and rank > 1 and not n_aux
+    if stream and fuse_steps > 1:
+        # Leave room for the carried halo (2·r·S planes) plus one chunk;
+        # when no chunk fits, StencilPlan raises with the bound.
+        cap = interior[0] - 2 * radii[0] * fuse_steps
+        if cap >= 1:
+            clamped[0] = largest_divisor_leq(interior[0], min(clamped[0], cap))
     nx = interior[-1]
     if unroll > 1 and nx % unroll == 0:
         tx = largest_divisor_leq(nx // unroll, block[-1])
@@ -397,10 +530,18 @@ def plan_stencil(
         unroll = 1
         tx = largest_divisor_leq(nx, block[-1])
     clamped.append(tx)
-    if fuse_steps > 1:
+    itemsize = ITEMSIZE.get(str(dtype), 8)
+    segments = 1
+    if stream and unroll == 1:
+        clamped = _fit_stream(
+            clamped, interior, radii, fuse_steps, n_f=padded_shape[0],
+            itemsize=itemsize, n_taps=ops.taps_per_point, n_ops=ops.n_s,
+        )
+        segments = _stream_segments(clamped, interior, radii, fuse_steps)
+    elif fuse_steps > 1 and strategy != "swc_stream":
         clamped = _fit_temporal(
             clamped, interior, radii, fuse_steps, n_f=padded_shape[0],
-            n_aux=int(n_aux), itemsize=ITEMSIZE.get(str(dtype), 8),
+            n_aux=int(n_aux), itemsize=itemsize,
             n_taps=ops.taps_per_point, n_ops=ops.n_s,
         )
 
@@ -420,6 +561,7 @@ def plan_stencil(
         n_taps=ops.taps_per_point,
         fuse_steps=int(fuse_steps),
         max_threads=int(max_threads),
+        segments=segments,
     )
 
 
@@ -443,3 +585,46 @@ def _fit_temporal(tile, interior, radii, fuse_steps, **layout) -> list[int]:
             )
         a = next(i for i, t in enumerate(tile) if t > 1)
         tile[a] = largest_divisor_leq(interior[a], tile[a] // 2)
+
+
+def _fit_stream(tile, interior, radii, fuse_steps, **layout) -> list[int]:
+    """Halve the chunk ``tile[0]``, then the cross tile's slowest axis of
+    extent > 1 (x last; each clamped to a divisor of the interior),
+    until the stream layout fits shared memory; raise once one plane
+    of a one-warp cross tile does not."""
+    tile = list(tile)
+    while True:
+        need = stream_smem_bytes(tile, radii, fuse_steps, **layout)
+        if need <= SMEM_PER_BLOCK:
+            return tile
+        if tile[0] > 1:
+            tile[0] = largest_divisor_leq(interior[0], tile[0] // 2)
+            continue
+        if _prod(tile[1:]) <= ONE_WARP:
+            raise ValueError(
+                f"no swc_stream tile fits shared memory at fuse_steps="
+                f"{fuse_steps}: chunk and cross tile {tuple(tile)} need "
+                f"{need} B of the {SMEM_PER_BLOCK} B a Hopper block can use "
+                "(one plane of a one-warp cross tile is the smallest the "
+                "planner tries) — use strategy='swc'"
+            )
+        a = next(i for i, t in enumerate(tile) if i > 0 and t > 1)
+        tile[a] = largest_divisor_leq(interior[a], tile[a] // 2)
+
+
+def _stream_segments(tile, interior, radii, fuse_steps) -> int:
+    """The fewest pieces of the stream axis (a divisor of its chunks)
+    that give the grid ``MIN_STREAM_BLOCKS`` blocks, each piece at least
+    ``STREAM_SEGMENT_HALOS`` carried halos long; 1 when the cross tiles
+    alone suffice."""
+    n_chunks = interior[0] // tile[0]
+    cross = _prod(n // t for n, t in zip(interior[1:], tile[1:]))
+    longest = max(1, STREAM_SEGMENT_HALOS * 2 * radii[0] * fuse_steps)
+    best = 1
+    for seg in range(1, n_chunks + 1):
+        if n_chunks % seg or interior[0] // seg < longest:
+            continue
+        best = seg
+        if cross * seg >= MIN_STREAM_BLOCKS:
+            break
+    return best

@@ -5,7 +5,9 @@ Forward-Euler time integration folds into a SINGLE merged stencil
 g = c^(1) + Δt·α·c^(2) (paper Eqs. 5-7): one stencil application per
 step, any dimensionality, any even accuracy order. On the card each
 step is one launch of the fused-stencil kernel with the ``select`` φ,
-or ``fuse_steps`` steps are one launch of the temporal kernel.
+or ``fuse_steps`` steps are one launch of the temporal kernel; with
+``strategy="swc_stream"`` (ranks 2 and 3) one launch of the stream
+kernel per call at any depth.
 """
 from __future__ import annotations
 
@@ -64,10 +66,14 @@ class DiffusionProblem:
     ) -> FusedStencilOp:
         """One forward-Euler step as a fused op (φ selects the merged
         "step" operator). ``strategy="swc"`` runs the CUDA kernel at any
-        rank; ``block`` is a rank-length tile or None for the default;
-        ``fuse_steps > 1`` advances that many steps per call (on
-        ``swc`` in one launch of the temporal kernel). ``device`` (the
-        card by default) holds the op's tap table."""
+        rank, ``strategy="swc_stream"`` the explicit-streaming kernel
+        (2-D/3-D: it walks the slowest axis, carrying its halo planes);
+        ``block`` is a rank-length tile or None for the default (on
+        ``swc_stream`` ``block[0]`` is the chunk of the walk);
+        ``fuse_steps > 1`` advances that many steps per call (one
+        launch, of the temporal kernel on ``swc``, of the stream kernel
+        on ``swc_stream``). ``device`` (the card by default) holds the
+        op's tap table."""
         device = resolve_device(device)
         spec = dataclasses.replace(self.merged_stencil(), name="step")
         return FusedStencilOp(
@@ -133,8 +139,9 @@ def simulate(
     on ``device`` (the card unless the caller asks for the CPU).
 
     ``fuse_steps > 1`` advances that many steps per call (on ``swc``
-    one temporal-kernel launch; a remainder is finished at shallower
-    depth so the step count stays exact)."""
+    one temporal-kernel launch, on ``swc_stream`` one stream-kernel
+    launch; a remainder is finished at shallower depth with the same
+    strategy, so the step count stays exact)."""
     device = resolve_device(device)
     if not isinstance(f0, torch.Tensor):
         f0 = torch.from_numpy(np.array(f0))

@@ -270,6 +270,14 @@ class MHDSolver:
     kernel tile: the MHD kernel keeps 80 derivative values per point in
     registers, so a tile holds at most 256 points (the temporal pair's
     planner halves it further until its shared memory fits).
+
+    ``strategy="swc_stream"`` runs the plain RK3 form through the
+    stream kernel (``rhs_op``, three launches per step; ``block[0]`` is
+    the chunk of the walk along z, the planner halves the cross tile in
+    f64 until all 8 fields' working set fits shared memory). The
+    fused-axpy forms (``fuse_rk_axpy``, ``fuse_rk_pairs``) hand φ the
+    carry as aux, which ``swc_stream`` refuses with ``ValueError``, as
+    the reference does.
     """
 
     shape: tuple[int, int, int]

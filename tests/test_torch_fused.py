@@ -185,12 +185,12 @@ def test_geometry_layout():
     g = emit.geometry(plan, [0, 3])
     assert len(g) == emit.GEOM_LEN and g.dtype == np.int32
     # n_f n_out n_aux | interior | padded | radii | tile | u ops taps
-    # n_slots | fuse_steps stage_buffers threads | slots
-    assert g[:23].tolist() == [
+    # n_slots | fuse_steps stage_buffers threads segments | slots
+    assert g[:24].tolist() == [
         8, 8, 0, 1, 16, 64, 1, 22, 70, 0, 3, 3, 1, 4, 16, 2,
-        ops.n_s, ops.taps_per_point, 2, 1, 2, 64, 0,
+        ops.n_s, ops.taps_per_point, 2, 1, 2, 64, 1, 0,
     ]
-    assert g[23] == 3 and not g[24:].any()
+    assert g[24] == 3 and not g[25:].any()
     # At depth 2 the padded extents widen by 2r per side and the
     # fuse_steps / stage_buffers / threads entries follow the plan.
     deep = plan_for_nd(ops, (8, 28, 76), 8, block=(4, 16), fuse_steps=2)
@@ -247,7 +247,6 @@ def test_not_ported_options_raise():
     ops = ts.derivative_operator_set(2, 2)
     fp = torch.zeros(1, 10, 10)
     for kw, item in (
-        (dict(strategy="swc_stream"), "B3"),
         (dict(strategy="tc"), "B4"),
         (dict(block="auto"), "A9"),
     ):
@@ -258,6 +257,13 @@ def test_not_ported_options_raise():
     # Temporal fusion (B2) is ported: depth 2 consumes 2r of the pad.
     out = fused_stencil_nd(fp, ops, select_phi("val"), 1, fuse_steps=2)
     assert out.shape == (1, 6, 6)
+    # Streaming (B3) is ported for ranks 2 and 3; rank 1 names 'swc'.
+    out = fused_stencil_nd(fp, ops, select_phi("val"), 1,
+                           strategy="swc_stream")
+    assert out.shape == (1, 8, 8)
+    with pytest.raises(ValueError, match="strategy='swc'"):
+        fused_stencil_nd(torch.zeros(1, 10), ts.derivative_operator_set(1, 2),
+                         select_phi("val"), 1, strategy="swc_stream")
 
 
 def test_module_moves_and_guards_tap_table():

@@ -109,7 +109,7 @@ def test_swc_refuses_a_bare_callable():
 @pytest.mark.parametrize(
     "kw,item",
     [
-        (dict(strategy="swc_stream"), "B3"),
+        (dict(fuse_steps="auto"), "A9"),
         (dict(strategy="tc"), "B4"),
         (dict(strategy="auto"), "A9"),
         (dict(block="auto"), "A9"),

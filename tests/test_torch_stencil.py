@@ -99,9 +99,12 @@ def test_plan_rejects_what_hopper_cannot_hold():
         )
     with pytest.raises(ValueError, match="thread"):
         tplan.plan_stencil(ops, shape, 8, block=(4, 16, 32))
-    for strategy in ("swc_stream", "tc"):
-        with pytest.raises(NotImplementedError, match="ROADMAP B"):
-            tplan.plan_stencil(ops, shape, 8, strategy=strategy)
+    with pytest.raises(NotImplementedError, match="ROADMAP B4"):
+        tplan.plan_stencil(ops, shape, 8, strategy="tc")
+    # swc_stream (B3) is ported, for ranks 2 and 3 only.
+    with pytest.raises(ValueError, match="strategy='swc'"):
+        tplan.plan_stencil(ts.derivative_operator_set(1, 6), (1, 70), 1,
+                           strategy="swc_stream")
     with pytest.raises(ValueError, match="dtype"):
         tplan.plan_stencil(ops, shape, 8, dtype="bfloat16")
 
