@@ -22,7 +22,12 @@ Phases (each raises on failure; none is caught):
    ``ref.fused_stencil_steps`` — diffusion at ranks 2 and 3, depth 1-3,
    on stream extents of many chunks and x extents off the default tile,
    two selected fields at depth 2, the MHD RHS on a cube and a
-   non-cubic box, and stream axes cut into segments.
+   non-cubic box, and stream axes cut into segments. Then the ensemble
+   batch (B5, the member as an outer grid index of each kernel): B1 at
+   B = 1, 3, 8 on ranks 1-3, B2 at depth 2 and 3, B3 at ranks 2-3 and
+   depth 1-2 (a cut stream among them), the MHD RHS and fused substep
+   with aux at B = 2, in f32 and f64, each against the batched plain
+   version and each member against the unbatched launch on it, exactly.
 3. Main path at full size, through the entry points a user calls, with
    the launch counters (total, per depth and per kernel) zeroed just
    before and read just after each run: MHD 256³ f32 RK3 with the fused
@@ -33,14 +38,27 @@ Phases (each raises on failure; none is caught):
    steps at depth 3: a depth-1 remainder) on ``swc`` and on
    ``swc_stream``, 2-D diffusion at 8192² on ``swc_stream``, each held
    to ``swc`` at depth 1; an f64 Fourier mode checked against its exact
-   discrete and analytic decay.
+   discrete and analytic decay. Then ensemble serving
+   (``repro_torch.launch.serve_sim.SimServer`` at its defaults: order 2,
+   alpha 1, f32) on ``swc`` and on ``swc_stream``: after a warm-up batch
+   of 8 per bucket, 16 requests of 8 steps alternating between 256³ and
+   4096² members, batches of 8; every request ``ok`` on the strategy asked
+   for, 8 launches of that strategy's kernel per batch, each request
+   held to its per-member plain version on the card.
 4. Times (CUDA events, median after warm-up) of each kernel, its plain
    version and, for diffusion, ``F.conv{1,2,3}d`` with the merged
    stencil as a dense weight (S calls at depth S); the bound is
    max(bytes / memory rate, FLOPs / non-tensor rate) from the card's
    data sheet. Temporal and stream rows also print the tile, its shared
    memory, the modelled bytes per step (``swc`` and ``swc_stream``) and
-   the redundant work (``repro_torch.core.trafficmodel``).
+   the redundant work (``repro_torch.core.trafficmodel``). Batched rows
+   (B members in one launch) also time B unbatched launches of the same
+   members in the same call (on ``swc_stream`` each cut into the
+   segments the planner gives one member); their library is ``conv{2,3}d``
+   with N = B.
+   The serve phase's batches (order 2, B = 8, 256³ and 4096², on
+   ``swc`` and ``swc_stream``) get rows of their own, each carrying its
+   bucket's launch count from the serve phase.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without a card it exits non-zero and
@@ -64,6 +82,7 @@ TEMPORAL_REPLACES = "src/repro/kernels/emit.py:271"  # _kernel_temporal (+ _temp
 STREAM_SOURCE = "src/repro_torch/kernels/csrc/fused_stencil_stream.cu"
 STREAM_REPLACES = "src/repro/kernels/emit.py:585"  # _kernel_stream (via _fused_stream :687)
 STREAM = "fused_stencil_stream"
+BATCH_REPLACES = "src/repro/kernels/emit.py:345"  # _fused_batched (+ _member_phi :318)
 TOL = {"float32": 1e-5, "float64": 1e-12}
 
 # Data-sheet rates: (memory B/s, non-tensor f32 FLOP/s, non-tensor f64 FLOP/s).
@@ -129,21 +148,31 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
 
 
 def diffusion_case(shape, dtype, device, block=None, unroll=1, seed=0,
-                   fuse_steps=1, strategy="swc", segments=None):
+                   fuse_steps=1, strategy="swc", segments=None, batch=None,
+                   accuracy=6):
     """(f_padded, ops, phi, plan, aux) of ``fuse_steps`` diffusion
-    steps in one launch; ``segments`` overrides the stream planner's."""
+    steps of order ``accuracy`` in one launch; ``segments`` overrides
+    the stream planner's;
+    ``batch`` members (seeds ``seed``, ``seed + 1``, ...) make a
+    (batch, 1, *padded) ensemble."""
     import dataclasses
+
+    import torch
 
     from repro_torch.core.boundary import pad
     from repro_torch.kernels.ops import plan_for_nd
     from repro_torch.physics.diffusion import DiffusionProblem
 
-    prob = DiffusionProblem(shape)
+    prob = DiffusionProblem(shape, accuracy=accuracy)
     op = prob.step_op(strategy, block=block, fuse_steps=fuse_steps,
                       device=device)
-    f = prob.init_field(seed, device=device, dtype=dtype)
+    if batch is None:
+        f = prob.init_field(seed, device=device, dtype=dtype)
+    else:
+        f = torch.stack([prob.init_field(seed + m, device=device, dtype=dtype)
+                         for m in range(batch)])
     fp = pad(f, [r * fuse_steps for r in op.radius_per_axis], "periodic",
-             spatial_axes=range(1, f.ndim))
+             spatial_axes=range(f.ndim - len(shape), f.ndim))
     plan = plan_for_nd(op.ops, tuple(fp.shape), 1, strategy=strategy,
                        block=block, dtype=dtype, unroll=unroll,
                        fuse_steps=fuse_steps)
@@ -152,9 +181,11 @@ def diffusion_case(shape, dtype, device, block=None, unroll=1, seed=0,
     return fp, op.ops, op.phi, plan, None
 
 
-def select_case(shape, dtype, device, fuse_steps, seed=0, strategy="swc"):
+def select_case(shape, dtype, device, fuse_steps, seed=0, strategy="swc",
+                batch=None):
     """Two random fields through the whole order-6 derivative set, φ
-    selecting ``dxx``: the select kind with more than one field."""
+    selecting ``dxx``: the select kind with more than one field
+    (``batch`` members of them, when given)."""
     import torch
 
     from repro_torch.core.stencil import derivative_operator_set
@@ -163,7 +194,8 @@ def select_case(shape, dtype, device, fuse_steps, seed=0, strategy="swc"):
 
     ops = derivative_operator_set(len(shape), 6, 0.3)
     g = torch.Generator(device="cpu").manual_seed(seed)
-    padded = (2,) + tuple(n + 6 * fuse_steps for n in shape)
+    lead = () if batch is None else (batch,)
+    padded = lead + (2,) + tuple(n + 6 * fuse_steps for n in shape)
     fp = torch.rand(padded, generator=g, dtype=torch.float64).to(
         device=device, dtype=getattr(torch, dtype))
     plan = plan_for_nd(ops, padded, 2, strategy=strategy, dtype=dtype,
@@ -172,8 +204,10 @@ def select_case(shape, dtype, device, fuse_steps, seed=0, strategy="swc"):
 
 
 def mhd_case(shape, dtype, device, substep, block=(1, 8, 32), unroll=1,
-             smooth=True, seed=0, strategy="swc"):
-    """(f_padded, ops, phi, plan, aux) of one MHD RHS or RK substep."""
+             smooth=True, seed=0, strategy="swc", batch=None):
+    """(f_padded, ops, phi, plan, aux) of one MHD RHS or RK substep;
+    ``batch`` members (seeds ``seed``, ``seed + 1``, ...) make an
+    ensemble, aux then (batch, 8, *shape)."""
     import torch
 
     from repro_torch.core.boundary import pad
@@ -181,14 +215,18 @@ def mhd_case(shape, dtype, device, substep, block=(1, 8, 32), unroll=1,
     from repro_torch.physics import mhd
 
     solver = mhd.MHDSolver(tuple(shape), strategy="swc", device=device)
-    if smooth:
-        f = solver.init_smooth(seed, amplitude=1e-2, dtype=dtype)
+    init = solver.init_smooth if smooth else solver.init_fields
+    kw = dict(amplitude=1e-2) if smooth else {}
+    if batch is None:
+        f = init(seed, dtype=dtype, **kw)
     else:
-        f = solver.init_fields(seed, dtype=dtype)
+        f = torch.stack([init(seed + m, dtype=dtype, **kw)
+                         for m in range(batch)])
     ops = solver.operator_set
-    fp = pad(f, ops.radius_per_axis(), "periodic", spatial_axes=(1, 2, 3))
+    fp = pad(f, ops.radius_per_axis(), "periodic",
+             spatial_axes=range(f.ndim - 3, f.ndim))
     if substep:
-        dt = float(solver.cfl_dt(f))
+        dt = float(solver.cfl_dt(f if batch is None else f[0]))
         phi = mhd.mhd_substep_device_phi(
             solver.params, mhd.RK3_ALPHA[1], mhd.RK3_BETA[1], dt
         )
@@ -264,10 +302,12 @@ def plain(case):
 
     fp, ops, phi, plan, aux = case
     phis = phi_sequence(phi, plan.fuse_steps)
+    batched = fp.ndim == plan.rank + 2
     if plan.fuse_steps == 1:
-        return ref.fused_stencil(fp, ops, phis[0].torch_fn, aux=aux)
-    return ref.fused_stencil_steps(
-        fp, ops, [p.torch_fn for p in phis], plan.fuse_steps, aux=aux)
+        fn = ref.fused_stencil_batched if batched else ref.fused_stencil
+        return fn(fp, ops, phis[0].torch_fn, aux=aux)
+    fn = ref.fused_stencil_steps_batched if batched else ref.fused_stencil_steps
+    return fn(fp, ops, [p.torch_fn for p in phis], plan.fuse_steps, aux=aux)
 
 
 def compare(label, case, dtype):
@@ -281,9 +321,33 @@ def compare(label, case, dtype):
             f"layout {layout}")
     got = emit.fused_stencil_swc(fp, ops, phi, plan, aux=aux)
     seg = f" seg{plan.segments}" if plan.segments > 1 else ""
-    return check(f"{label} {dtype} S{plan.fuse_steps} tile{plan.block}"
-                 f"u{plan.unroll}{seg} {plan.smem_bytes}B", got, plain(case),
-                 dtype)
+    check(f"{label} {dtype} S{plan.fuse_steps} tile{plan.block}"
+          f"u{plan.unroll}{seg} {plan.smem_bytes}B", got, plain(case), dtype)
+    return got
+
+
+def compare_batched(label, case, dtype):
+    """A batched case against the batched plain version, and each member
+    against the unbatched launch on that member: equal bit for bit, since
+    its block runs the unbatched body on the same values."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.kernels import emit
+
+    fp, ops, phi, plan, aux = case
+    got = compare(f"{label} B={plan.batch} gz{plan.grid_z}", case, dtype)
+    solo = dataclasses.replace(plan, batch=1)
+    for m in range(plan.batch):
+        one = emit.fused_stencil_swc(fp[m], ops, phi, solo,
+                                     aux=None if aux is None else aux[m])
+        if not torch.equal(got[m], one):
+            diff = float((got[m] - one).abs().max())
+            raise AssertionError(f"{label}: member {m} of the batched launch "
+                                 f"differs from its unbatched launch by {diff}")
+    print(f"    each of {plan.batch} member(s) equals its unbatched launch "
+          "exactly")
 
 
 def phase_card():
@@ -363,6 +427,36 @@ def phase_parity(dev):
                     diffusion_case(shape, dtype, dev, fuse_steps=depth,
                                    strategy="swc_stream", segments=seg),
                     dtype)
+    print("  -- ensemble batch (B5): batched kernel vs batched plain version, "
+          "each member vs its unbatched launch")
+    for dtype in ("float32", "float64"):
+        for batch in (1, 3, 8) if dtype == "float32" else (3,):
+            for shape in ((65536,), (512, 384), (64, 96, 128)):
+                compare_batched(f"diffusion {shape}",
+                                diffusion_case(shape, dtype, dev, batch=batch),
+                                dtype)
+        for depth in (2, 3):
+            compare_batched("diffusion (64, 96, 128)",
+                            diffusion_case((64, 96, 128), dtype, dev,
+                                           fuse_steps=depth, batch=3), dtype)
+        compare_batched("select dxx, 2 fields (48, 64, 80)",
+                        select_case((48, 64, 80), dtype, dev, 2, batch=3),
+                        dtype)
+        for depth in (1, 2):
+            for shape in ((512, 400), (64, 96, 120)):
+                compare_batched(f"stream diffusion {shape}",
+                                diffusion_case(shape, dtype, dev,
+                                               fuse_steps=depth, batch=3,
+                                               strategy="swc_stream"), dtype)
+        compare_batched("stream diffusion (1024, 96) in segments",
+                        diffusion_case((1024, 96), dtype, dev, batch=3,
+                                       strategy="swc_stream", segments=4),
+                        dtype)
+        for substep in (False, True):
+            name = "mhd_substep" if substep else "mhd_rhs"
+            compare_batched(f"{name} (64, 64, 64)",
+                            mhd_case((64,) * 3, dtype, dev, substep, batch=2),
+                            dtype)
 
 
 def counted(fn, kernel=None):
@@ -545,7 +639,82 @@ def phase_main_path(dev):
     return launches
 
 
+SERVE_SHAPES = [(256, 256, 256), (4096, 4096)]
+SERVE_REQUESTS, SERVE_STEPS, SERVE_BATCH = 16, 8, 8
+
+
+def phase_serve(dev, launches):
+    """Ensemble serving through ``SimServer`` on each CUDA strategy: a
+    warm-up queue of the same size (so the allocator holds full-batch
+    blocks), then the 16-request queue with the launch counters zeroed
+    just before and read just after, per batch."""
+    import collections
+
+    import torch
+
+    from repro_torch.kernels import emit
+    from repro_torch.launch.serve_sim import SimServer, check_parity, demo_queue
+
+    print("== phase 3b: ensemble serving (SimServer at its defaults, f32)")
+    for strategy, kernel in (("swc", "fused_stencil"), ("swc_stream", STREAM)):
+        server = SimServer(strategy=strategy, max_batch=SERVE_BATCH,
+                           device=dev)
+        server.serve(demo_queue(SERVE_SHAPES, SERVE_STEPS, SERVE_REQUESTS,
+                                seed=1, device=dev))  # warm-up
+        queue = demo_queue(SERVE_SHAPES, SERVE_STEPS, SERVE_REQUESTS,
+                           device=dev)
+        by_id = {r.req_id: r for r in queue.snapshot()}
+        warm = len(server.reports)
+        marks = []  # per-kernel launch counts at each batch's start
+        server.batch_hook = lambda index, reqs: marks.append(
+            collections.Counter(emit.fused_stencil_swc.launches_by_kernel))
+        server.request_status.clear()
+        torch.cuda.synchronize()
+        emit.reset_launch_counts()
+        t0 = time.perf_counter()
+        results = server.serve(queue)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        marks.append(collections.Counter(
+            emit.fused_stencil_swc.launches_by_kernel))
+        reports = server.reports[warm:]
+        statuses = {rid: server.request_status.get(rid) for rid in by_id}
+        if set(statuses.values()) != {"ok"} or server.error_reports:
+            raise AssertionError(f"serve {strategy}: statuses {statuses}, "
+                                 f"errors {server.error_reports}")
+        if [r.strategy for r in reports] != [strategy] * len(reports):
+            raise AssertionError(f"serve {strategy}: batches ran "
+                                 f"{[r.strategy for r in reports]}")
+        per_batch = [dict(b - a) for a, b in zip(marks, marks[1:])]
+        if len(reports) != SERVE_REQUESTS // SERVE_BATCH or per_batch != [
+            {kernel: SERVE_STEPS}
+        ] * len(reports):
+            raise AssertionError(f"serve {strategy}: launches per batch "
+                                 f"{per_batch} in {len(reports)} batches")
+        err = check_parity(server, by_id, results)
+        for r, n in zip(reports, per_batch):  # per bucket: its timed row
+            key = f"serve {strategy} {'x'.join(map(str, r.key[0]))}"
+            launches[key] = launches.get(key, 0) + sum(n.values())
+        member_steps = sum(r.batch for r in reports) * SERVE_STEPS
+        print(f"  {strategy}: {len(results)}/{SERVE_REQUESTS} requests ok in "
+              f"{len(reports)} batches of {SERVE_BATCH} "
+              f"({', '.join('x'.join(map(str, r.key[0])) for r in reports)}), "
+              f"{wall:.4f} s, {member_steps / wall:.1f} member-steps/s "
+              "(host clock)")
+        for r, n in zip(reports, per_batch):
+            print(f"    batch {'x'.join(map(str, r.key[0]))}: "
+                  f"{r.seconds:.6f} s, "
+                  f"{r.seconds / (r.batch * SERVE_STEPS) * 1e3:.4f} ms per "
+                  f"member-step, launches {n}")
+        print(f"    vs per-member plain version on the card: max|err| "
+              f"{err:.3e} (tol 1e-5 of each bucket's largest |value|)")
+        del server, results, queue, by_id
+        torch.cuda.empty_cache()
+
+
 def phase_times(dev, smi, launches):
+    import dataclasses
+
     import torch
     import torch.nn.functional as F
 
@@ -555,6 +724,7 @@ def phase_times(dev, smi, launches):
         stencil_stream_hbm_bytes_per_step,
     )
     from repro_torch.kernels.emit import fused_stencil_swc
+    from repro_torch.kernels.plan import _stream_segments
     from repro_torch.physics import mhd
 
     print("== phase 4: times (CUDA events, median)")
@@ -571,6 +741,7 @@ def phase_times(dev, smi, launches):
         fp, ops, phi, plan, aux = case
         depth = plan.fuse_steps
         item = fp.element_size()
+        batch = plan.batch if fp.ndim == plan.rank + 2 else 0
         got = fused_stencil_swc(fp, ops, phi, plan, aux=aux)
         want = plain(case)
         err, rel = rel_err(got, want)
@@ -579,6 +750,17 @@ def phase_times(dev, smi, launches):
         del want
         ms = time_ms(lambda: fused_stencil_swc(fp, ops, phi, plan, aux=aux),
                      reps)
+        if batch:  # the same members, one unbatched launch each, cut
+            # into the stream segments the planner gives one member
+            solo = dataclasses.replace(plan, batch=1)
+            if plan.stream_axis is not None:
+                solo = dataclasses.replace(solo, segments=_stream_segments(
+                    plan.block, plan.interior, plan.radii, depth))
+            members = [(fp[m], None if aux is None else aux[m])
+                       for m in range(batch)]
+            solo_ms = time_ms(lambda: [
+                fused_stencil_swc(f, ops, phi, solo, aux=a) for f, a in members
+            ], reps)
         plain_ms = time_ms(lambda: plain(case), plain_reps, warmup=1)
         lib_ms = None
         if library is not None:
@@ -586,7 +768,7 @@ def phase_times(dev, smi, launches):
             lerr, _ = rel_err(lib_out.reshape(got.shape), got)
             lib_ms = time_ms(library, reps)
             print(f"    library conv vs kernel max|err| {lerr:.3e}")
-        points = 1
+        points = max(batch, 1)
         for n_ in plan.interior:
             points *= n_
         nbytes = (fp.numel() + got.numel()
@@ -597,15 +779,19 @@ def phase_times(dev, smi, launches):
         bound = max(t_bytes, t_ops)
         stream = plan.stream_axis is not None
         if stream:
-            name_, source, replaces = (f"{STREAM}[{kind}, S={depth}]",
+            name_, source, replaces = (f"{STREAM}[{kind}, S={depth}",
                                        STREAM_SOURCE, STREAM_REPLACES)
         elif depth == 1:
-            name_, source, replaces = (f"fused_stencil_swc[{kind}]",
+            name_, source, replaces = (f"fused_stencil_swc[{kind}",
                                        KERNEL_SOURCE, REPLACES)
         else:
             name_, source, replaces = (
-                f"fused_stencil_temporal[{kind}, S={depth}]",
+                f"fused_stencil_temporal[{kind}, S={depth}",
                 TEMPORAL_SOURCE, TEMPORAL_REPLACES)
+        if batch:
+            name_, replaces = f"{name_}, B={batch}]", BATCH_REPLACES
+        else:
+            name_ += "]"
         r = {
             "name": name_,
             "route": "cuda",
@@ -624,7 +810,13 @@ def phase_times(dev, smi, launches):
               f"({r['bound_by']})  library "
               f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}  "
               f"max|err| {err:.3e}  {bound / ms:.1%} of bound")
-        if stream:
+        if batch:
+            print(f"    {batch} members in one launch (grid z {plan.grid_z}, "
+                  f"{plan.segments} segment(s)): {ms:.4f} ms; {batch} "
+                  f"unbatched launches ({solo.segments} segment(s) each): "
+                  f"{solo_ms:.4f} ms ({ms / batch:.4f} against "
+                  f"{solo_ms / batch:.4f} ms per member)")
+        elif stream:
             model = dict(domain=plan.interior, block=plan.block,
                          radii=plan.radii, n_f=plan.n_f, n_out=plan.n_out,
                          itemsize=item, fuse_steps=depth)
@@ -668,7 +860,7 @@ def phase_times(dev, smi, launches):
             w[tuple(o + r for o, r in zip(off, rad))] = c
         w = w.to(device=fp.device, dtype=fp.dtype)[None, None]
         conv = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}[plan.rank]
-        x = fp[None]
+        x = fp if fp.ndim == plan.rank + 2 else fp[None]  # N = B
 
         def run():  # one valid convolution per fused step
             y = x
@@ -755,6 +947,31 @@ def phase_times(dev, smi, launches):
         mhd.RHS_PHI_FLOPS, reps=5, plain_reps=2)
     del case
     torch.cuda.empty_cache()
+
+    print("  -- ensemble batch (B5): B members in one launch")
+    for label, kw in (("B1", dict()), ("B3 S=1", dict(strategy="swc_stream")),
+                      ("B2 S=2", dict(fuse_steps=2))):
+        case = diffusion_case((256,) * 3, "float32", dev, batch=8, **kw)
+        row(f"diffusion 256^3 B=8, {label}", "select", case, "float32", 0,
+            conv_of(case))
+        del case
+    # The serve phase's own launches: order 2 (its default), one bucket
+    # each, with that bucket's launch count from phase 3b.
+    for strategy in ("swc", "swc_stream"):
+        for shape in SERVE_SHAPES:
+            bucket = "x".join(map(str, shape))
+            case = diffusion_case(shape, "float32", dev, batch=SERVE_BATCH,
+                                  accuracy=2, strategy=strategy)
+            row(f"serve {bucket} B={SERVE_BATCH}, {strategy}",
+                f"serve {bucket}", case, "float32", 0, conv_of(case),
+                main=f"serve {strategy} {bucket}")
+            del case
+        torch.cuda.empty_cache()
+    case = mhd_case((128,) * 3, "float32", dev, False, smooth=False, batch=4)
+    row("MHD mhd_rhs 128^3 B=4, B1", "mhd_rhs", case, "float32",
+        mhd.RHS_PHI_FLOPS, reps=5, plain_reps=2)
+    del case
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -775,6 +992,7 @@ def main(argv: list[str]) -> int:
     if "--quick" in argv:
         return 0
     launches = phase_main_path(dev)
+    phase_serve(dev, launches)
     rows = phase_times(dev, smi, launches)
     print(f"chip_smoke: all phases in {time.perf_counter() - t0:.1f} s")
     print(smi)

@@ -61,7 +61,9 @@ NOT_PORTED = {**kplan.NOT_PORTED, "auto": "A9 (cross-strategy tuning)"}
 
 
 class FusedStencilOp(nn.Module):
-    """One fused update step over an (n_f, *spatial) field stack.
+    """One fused update step over an (n_f, *spatial) field stack, or a
+    (batch, n_f, *spatial) ensemble of them (one launch for all members
+    on the CUDA strategies).
 
     Args:
         ops: the :class:`~repro_torch.core.stencil.OperatorSet` (γ).
@@ -190,7 +192,9 @@ class FusedStencilOp(nn.Module):
         """Apply to an already-padded field stack (``radius *
         fuse_steps`` ghost cells per axis). ``aux`` (n_aux, *interior),
         padded by ``radius * (fuse_steps - 1)``, is forwarded to φ (the
-        fused RK axpy carry)."""
+        fused RK axpy carry). A batched (batch, n_f, *padded) stack, and
+        its (batch, n_aux, …) aux, pass through as they are: the
+        dispatch detects the member axis by rank."""
         if self.strategy in DEVICE_STRATEGIES:
             return kops.fused_stencil_nd(
                 f_padded, self.ops, self.phi, self.n_out, aux=aux,
@@ -207,23 +211,29 @@ class FusedStencilOp(nn.Module):
         self, f: torch.Tensor, aux: torch.Tensor | None = None
     ) -> torch.Tensor:
         """ψ then φ(A·B): pad with the boundary function and apply,
-        advancing ``fuse_steps`` steps per call."""
-        if f.ndim != self.ops.ndim + 1:
-            raise NotImplementedError(
-                "only an (n_f, *spatial) stack is ported; the ensemble "
-                "batch axis is ROADMAP B5"
+        advancing ``fuse_steps`` steps per call.
+
+        ``f`` is (n_f, *spatial), or (batch, n_f, *spatial) for an
+        ensemble: the member axis is detected by rank, only the spatial
+        axes are padded, and ``aux`` then carries the same leading
+        axis."""
+        lead = 2 if kplan.is_ensemble(self.ops.ndim, f.ndim) else 1
+        if f.ndim != self.ops.ndim + lead:
+            raise ValueError(
+                f"f must be (n_f, *spatial) or (batch, n_f, *spatial) with "
+                f"{self.ops.ndim} spatial axes, got shape {tuple(f.shape)}"
             )
         depth = self.fuse_steps
         rads = self.radius_per_axis
         modes = self.boundary_modes
         fp = boundary.pad(
             f, [r * depth for r in rads], modes,
-            spatial_axes=range(1, f.ndim),
+            spatial_axes=range(lead, f.ndim),
         )
         if aux is not None and depth > 1:
             aux = boundary.pad(
                 aux, [r * (depth - 1) for r in rads], modes,
-                spatial_axes=range(1, aux.ndim),
+                spatial_axes=range(lead, aux.ndim),
             )
         return self.apply_padded(fp, aux=aux)
 

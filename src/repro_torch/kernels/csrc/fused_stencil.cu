@@ -25,6 +25,16 @@
 // emit.py:92). Ranks 1 and 2 run as rank 3 with unit leading extents and
 // zero radii.
 //
+// Ensemble batch (B5: the TPU's _fused_batched, emit.py:345, with
+// _member_phi, line 318). The reference flattens B members onto the
+// field axis so all B x n_f fields share one staged window; here the
+// member is an outer grid index instead (blockIdx.z = member x z tiles
+// + z tile), so shared memory per block stays one member's. A block
+// adds member x n_f, n_aux and n_out fields to its field, aux and
+// output offsets (64-bit) and runs the unbatched body, so member m of a
+// batched launch is the unbatched launch on member m, bit for bit, and
+// B members cost one launch.
+//
 // Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32 / 34 TFLOP/s f64
 // outside the tensor cores): diffusion (one field, 19 taps at order 6)
 // moves 8 B per point in f32 and is bound by bytes; the MHD RHS (2,368
@@ -131,14 +141,24 @@ __global__ void __launch_bounds__(KIND == KIND_SELECT ? 1024 : 256)
   const long long osy = g.n[2];
   const long long osz = osy * g.n[1];
   const long long ofield = osz * g.n[0];
+  // The member this block serves (blockIdx.z = member x z tiles + z):
+  // its field, aux and output start member x n_f, n_aux and n_out
+  // fields in. The offsets join the origins below: moving the
+  // __restrict__ pointers themselves instead made the diffusion kernel
+  // measurably slower on the card (PERF.md, section 6).
+  const MemberZ mz = member_z(g);
+  const long long member = mz.member;
   // The tile's origin in the interior is its window's origin in the
   // padded field (the window reaches r further on every side).
-  const long long z0 = (long long)blockIdx.z * g.t[0];
+  const long long z0 = (long long)mz.z * g.t[0];
   const long long y0 = (long long)blockIdx.y * g.t[1];
   const long long x0 = (long long)blockIdx.x * g.t[2] * g.unroll;
-  const long long porigin = z0 * psz + y0 * psy + x0;
-  const long long opoint = (z0 + threadIdx.z) * osz +
-                           (y0 + threadIdx.y) * osy + x0 + threadIdx.x;
+  const long long porigin =
+      member * g.n_f * pfield + z0 * psz + y0 * psy + x0;
+  const long long point = (z0 + threadIdx.z) * osz +
+                          (y0 + threadIdx.y) * osy + x0 + threadIdx.x;
+  const long long opoint = member * g.n_out * ofield + point;
+  const long long apoint = member * g.n_aux * ofield + point;
   const int center = ((threadIdx.z + g.r[0]) * wy + threadIdx.y + g.r[1]) * wx +
                      threadIdx.x + g.r[2];
 
@@ -199,7 +219,7 @@ __global__ void __launch_bounds__(KIND == KIND_SELECT ? 1024 : 256)
         const T dt = T(g.prm[0][mhd::P_DT]);
 #pragma unroll
         for (int k = 0; k < mhd::N_FIELDS; ++k) {
-          const T w = alpha * aux[k * ofield + pt] + dt * rhs[k];
+          const T w = alpha * aux[k * ofield + apoint + du] + dt * rhs[k];
           out[k * ofield + pt] = d[mhd::VAL][k] + beta * w;
           out[(mhd::N_FIELDS + k) * ofield + pt] = w;
         }
@@ -211,7 +231,7 @@ __global__ void __launch_bounds__(KIND == KIND_SELECT ? 1024 : 256)
 template <typename T, int KIND>
 cudaError_t launch(const void* f, const void* aux, void* out,
                    const void* tap_off, const void* tap_coef,
-                   const void* op_start, const Geometry& g,
+                   const void* op_start, Geometry g,
                    cudaStream_t stream) {
   const size_t smem = smem_bytes<T>(g);
   auto kernel = fused_stencil_kernel<T, KIND>;
@@ -220,9 +240,10 @@ cudaError_t launch(const void* f, const void* aux, void* out,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
     if (err != cudaSuccess) return err;
   }
+  unsigned gz;
+  if (!fold_members(g, g.n[0] / g.t[0], gz)) return cudaErrorInvalidValue;
   const dim3 block(g.t[2], g.t[1], g.t[0]);
-  const dim3 grid(g.n[2] / (g.t[2] * g.unroll), g.n[1] / g.t[1],
-                  g.n[0] / g.t[0]);
+  const dim3 grid(g.n[2] / (g.t[2] * g.unroll), g.n[1] / g.t[1], gz);
   kernel<<<grid, block, smem, stream>>>(
       static_cast<const T*>(f), static_cast<const T*>(aux),
       static_cast<T*>(out), static_cast<const int*>(tap_off),

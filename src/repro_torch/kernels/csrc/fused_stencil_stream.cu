@@ -48,6 +48,16 @@
 // extent (the wrapper lifts (Y, X) to (Y, 1, X)); with y of extent 1 a
 // tap's (0, dy, dx) lands on the same linear offset as (dy, 0, dx).
 //
+// Ensemble batch (B5: the TPU's _fused_batched, emit.py:345, with
+// _member_phi, line 318). The reference flattens B members onto the
+// field axis so all B x n_f fields share one staged window; here the
+// member is an outer grid index instead (blockIdx.z = member x segments
+// + segment), so shared memory per block stays one member's. A block
+// adds member x n_f and n_out fields to its field and output offsets
+// (64-bit) and runs the unbatched walk, so member m of a batched launch
+// is the unbatched launch on member m, bit for bit, and B members cost
+// one launch.
+//
 // Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32 / 34 TFLOP/s f64
 // outside the tensor cores): diffusion is bound by bytes; streaming
 // reads each plane of a column once (plus the cross-axis halo), where
@@ -145,13 +155,20 @@ __global__ void __launch_bounds__(KIND == KIND_SELECT ? 1024 : 256, 1)
   const long long osy = g.n[2];
   const long long osz = osy * g.n[1];
   const long long ofield = osz * g.n[0];
+  // The member this block serves (blockIdx.z = member x segments +
+  // segment): its field and output start member x n_f and n_out fields
+  // in (the offsets join the origins, the pointers stay as passed: see
+  // fused_stencil.cu).
+  const MemberZ mz = member_z(g);
+  const long long member = mz.member;
+  const long long obase = member * g.n_out * ofield;
   // The tile's cross origin in the interior is its window's origin in the
   // padded field; chunk c's window starts at padded plane c * tau0.
   const long long y0 = (long long)blockIdx.y * g.t[1];
   const long long x0 = (long long)blockIdx.x * g.t[2];
-  const T* column = f + y0 * psy + x0;
+  const T* column = f + member * g.n_f * pfield + y0 * psy + x0;
   const int chunks = g.n[0] / (g.t[0] * g.n_seg);
-  const int first = blockIdx.z * chunks;
+  const int first = mz.z * chunks;
   const int last = first + chunks;
 
   // Copy planes [z0, z0 + b.z) of every field's column into dst.
@@ -191,8 +208,8 @@ __global__ void __launch_bounds__(KIND == KIND_SELECT ? 1024 : 256, 1)
         sweep<T, KIND>(
             g, fin, src, rb, taps, start, g.prm[s], nullptr,
             [&](int j, const Point& q, int, T v) {
-              out[j * ofield + (zc + q.z) * osz + (y0 + q.y) * osy + x0 +
-                  q.x] = v;
+              out[obase + j * ofield + (zc + q.z) * osz + (y0 + q.y) * osy +
+                  x0 + q.x] = v;
             },
             tid, nthr);
       } else {
@@ -225,7 +242,7 @@ __global__ void __launch_bounds__(KIND == KIND_SELECT ? 1024 : 256, 1)
 template <typename T, int KIND>
 cudaError_t launch(const void* f, void* out, const void* tap_off,
                    const void* tap_coef, const void* op_start,
-                   const Geometry& g, cudaStream_t stream) {
+                   Geometry g, cudaStream_t stream) {
   const size_t smem = layout<T>(g).total;
   auto kernel = stream_kernel<T, KIND>;
   if (smem > 48 * 1024) {
@@ -233,8 +250,10 @@ cudaError_t launch(const void* f, void* out, const void* tap_off,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
     if (err != cudaSuccess) return err;
   }
+  unsigned gz;
+  if (!fold_members(g, g.n_seg, gz)) return cudaErrorInvalidValue;
   const dim3 block(g.n_thr);
-  const dim3 grid(g.n[2] / g.t[2], g.n[1] / g.t[1], g.n_seg);
+  const dim3 grid(g.n[2] / g.t[2], g.n[1] / g.t[1], gz);
   kernel<<<grid, block, smem, stream>>>(
       static_cast<const T*>(f), static_cast<T*>(out),
       static_cast<const int*>(tap_off), static_cast<const double*>(tap_coef),

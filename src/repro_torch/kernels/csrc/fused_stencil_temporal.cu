@@ -32,6 +32,16 @@
 // reads. Coefficients are cast to the field type before the multiply and
 // taps are summed in table order, as the plain version does.
 //
+// Ensemble batch (B5: the TPU's _fused_batched, emit.py:345, with
+// _member_phi, line 318). The reference flattens B members onto the
+// field axis so all B x n_f fields share one staged window; here the
+// member is an outer grid index instead (blockIdx.z = member x z tiles
+// + z tile), so shared memory per block stays one member's. A block
+// adds member x n_f, n_aux and n_out fields to its field, aux and
+// output offsets (64-bit) and runs the unbatched body, so member m of a
+// batched launch is the unbatched launch on member m, bit for bit, and
+// B members cost one launch.
+//
 // Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32 / 34 TFLOP/s f64
 // outside the tensor cores): diffusion is bound by bytes, and S sweeps
 // per launch divide its device-memory traffic per step by about S; what
@@ -134,19 +144,29 @@ __global__ void __launch_bounds__(KIND == KIND_SELECT ? 1024 : 256, 1)
   const long long asy = g.n[2] + 2 * g.r[2] * (S - 1);
   const long long asz = asy * (g.n[1] + 2 * g.r[1] * (S - 1));
   const long long afield = asz * (g.n[0] + 2 * g.r[0] * (S - 1));
+  // The member this block serves (blockIdx.z = member x z tiles + z):
+  // its field, aux and output start member x n_f, n_aux and n_out
+  // fields in (the offsets join the origins, the pointers stay as
+  // passed: see fused_stencil.cu).
+  const MemberZ mz = member_z(g);
+  const long long member = mz.member;
+  const long long obase = member * g.n_out * ofield;
+  const long long abase = member * g.n_aux * afield;
   // The tile's origin in the interior is the origin of its window in the
   // padded field and of its sweep-0 region in the padded aux.
-  const long long z0 = (long long)blockIdx.z * g.t[0];
+  const long long z0 = (long long)mz.z * g.t[0];
   const long long y0 = (long long)blockIdx.y * g.t[1];
   const long long x0 = (long long)blockIdx.x * g.t[2];
-  const long long porigin = z0 * psz + y0 * psy + x0;
+  const long long porigin =
+      member * g.n_f * pfield + z0 * psz + y0 * psy + x0;
 
   // Row j of sweep s's phi at point q (index p of region s): the output
   // after the last sweep, else the next sweep's fields or, cut by r,
   // its carry.
   auto store = [&](int s, int j, const Point& q, int p, T v) {
     if (s == S - 1) {
-      out[j * ofield + (z0 + q.z) * osz + (y0 + q.y) * osy + x0 + q.x] = v;
+      out[obase + j * ofield + (z0 + q.z) * osz + (y0 + q.y) * osy + x0 +
+          q.x] = v;
     } else if (j < g.n_f) {
       mid(s)[j * region(g, s).size() + p] = v;
     } else {
@@ -221,7 +241,8 @@ __global__ void __launch_bounds__(KIND == KIND_SELECT ? 1024 : 256, 1)
       }
       if (live) {
         const T* a = KIND == KIND_MHD_SUBSTEP
-                         ? aux + (z0 + q.z) * asz + (y0 + q.y) * asy + x0 + q.x
+                         ? aux + abase + (z0 + q.z) * asz + (y0 + q.y) * asy +
+                               x0 + q.x
                          : nullptr;
         mhd_phi<T, KIND>(d, ph, a, afield,
                          [&](int j, T v) { store(0, j, q, p, v); });
@@ -244,7 +265,7 @@ __global__ void __launch_bounds__(KIND == KIND_SELECT ? 1024 : 256, 1)
 template <typename T, int KIND>
 cudaError_t launch(const void* f, const void* aux, void* out,
                    const void* tap_off, const void* tap_coef,
-                   const void* op_start, const Geometry& g,
+                   const void* op_start, Geometry g,
                    cudaStream_t stream) {
   const size_t smem = layout<T>(g).total;
   auto kernel = temporal_kernel<T, KIND>;
@@ -253,8 +274,10 @@ cudaError_t launch(const void* f, const void* aux, void* out,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
     if (err != cudaSuccess) return err;
   }
+  unsigned gz;
+  if (!fold_members(g, g.n[0] / g.t[0], gz)) return cudaErrorInvalidValue;
   const dim3 block(g.n_thr);
-  const dim3 grid(g.n[2] / g.t[2], g.n[1] / g.t[1], g.n[0] / g.t[0]);
+  const dim3 grid(g.n[2] / g.t[2], g.n[1] / g.t[1], gz);
   kernel<<<grid, block, smem, stream>>>(
       static_cast<const T*>(f), static_cast<const T*>(aux),
       static_cast<T*>(out), static_cast<const int*>(tap_off),

@@ -30,6 +30,7 @@ enum GeomIndex {
   G_NBUF,  // staged window buffers (1 or 2)
   G_NTHR,  // threads per block (depth > 1; depth 1 runs one per tile point)
   G_NSEG,  // swc_stream: segments the stream axis is cut into
+  G_NB,    // ensemble members (the outer part of blockIdx.z)
   G_SLOT0,  // MAX_SLOTS operator indices follow
   G_LEN = G_SLOT0 + MAX_SLOTS
 };
@@ -46,6 +47,9 @@ struct Geometry {
   int n_buf;
   int n_thr;
   int n_seg;
+  int n_b;
+  int per_member;  // blocks along z per member (set by fold_members)
+  unsigned long long member_mul;  // ceil(2^32 / per_member)
   int slot[MAX_SLOTS];  // operator index read by each phi slot
   double prm[MAX_FUSE][MAX_PARAMS];  // phi parameters, one row per sweep
 };
@@ -75,10 +79,41 @@ inline bool read_geometry(const int* geom, const double* params,
   g.n_buf = geom[G_NBUF];
   g.n_thr = geom[G_NTHR];
   g.n_seg = geom[G_NSEG];
+  g.n_b = geom[G_NB];
   for (int s = 0; s < g.n_slots; ++s) g.slot[s] = geom[G_SLOT0 + s];
   for (int s = 0; s < g.fuse_steps; ++s)
     for (int i = 0; i < n_params; ++i) g.prm[s][i] = params[s * n_params + i];
   return true;
+}
+
+// Ensemble members: every kernel folds the member into blockIdx.z as
+// member * per_member + z, per_member being its z tiles (or, streaming,
+// its segments), so one block serves one member and runs the unbatched
+// body on that member's field, aux and output.
+struct MemberZ {
+  int member;  // the ensemble member this block serves
+  int z;       // the block's z index within that member
+};
+
+// Host: set the grid's z extent (members x per_member, within CUDA's
+// 65,535) and the multiplier that splits blockIdx.z back on the card.
+inline bool fold_members(Geometry& g, int per_member, unsigned& grid_z) {
+  const long long n = (long long)g.n_b * per_member;
+  if (g.n_b < 1 || per_member < 1 || n > 65535) return false;
+  g.per_member = per_member;
+  g.member_mul = ((1ull << 32) + per_member - 1) / per_member;
+  grid_z = unsigned(n);
+  return true;
+}
+
+// blockIdx.z / per_member without an integer division (some twenty
+// instructions at the start of every block, short blocks included):
+// with z, per_member < 2^16, z * per_member < 2^32, so
+// floor(z * ceil(2^32 / per_member) / 2^32) is the quotient exactly.
+__device__ __forceinline__ MemberZ member_z(const Geometry& g) {
+  const unsigned z = blockIdx.z;
+  const int m = int((z * g.member_mul) >> 32);
+  return {m, int(z) - m * g.per_member};
 }
 
 // One tap in shared memory: coefficient (in the field type) and its

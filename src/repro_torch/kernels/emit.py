@@ -9,9 +9,15 @@ launches on PyTorch's current stream the plan's kernel
 ``csrc/fused_stencil_temporal.cu`` for ``swc`` at depth > 1,
 ``csrc/fused_stencil_stream.cu`` for ``swc_stream`` at any depth. A CPU
 tensor goes to the plain version (``ref.fused_stencil`` or, at depth
-> 1, ``ref.fused_stencil_steps``, with the φs' ``torch_fn``); a CUDA
-tensor goes to the kernel, or the wrapper raises — there is no fallback
-from one to the other, nor from one kernel to another.
+> 1, ``ref.fused_stencil_steps``, with the φs' ``torch_fn``; their
+``_batched`` forms for an ensemble); a CUDA tensor goes to the kernel,
+or the wrapper raises — there is no fallback from one to the other, nor
+from one kernel to another.
+
+An ensemble operand (batch, n_f, *padded) (port of ``_fused_batched``,
+the TPU kernel B5) is one launch of the same kernel with the member as
+an outer grid index: each block serves one member
+(``StencilPlan.batch``, ``grid_z``).
 """
 from __future__ import annotations
 
@@ -27,12 +33,12 @@ from repro_torch.core.stencil import OperatorSet
 from repro_torch.kernels import build
 from repro_torch.kernels import ref
 from repro_torch.kernels.phi import DevicePhi, phi_sequence
-from repro_torch.kernels.plan import StencilPlan
+from repro_torch.kernels.plan import StencilPlan, is_ensemble
 
 KERNEL = "fused_stencil"  # csrc/fused_stencil.cu, depth 1
 TEMPORAL_KERNEL = "fused_stencil_temporal"  # csrc/fused_stencil_temporal.cu
 STREAM_KERNEL = "fused_stencil_stream"  # csrc/fused_stencil_stream.cu
-GEOM_LEN = 39  # G_LEN of csrc/stencil_common.cuh
+GEOM_LEN = 40  # G_LEN of csrc/stencil_common.cuh
 
 TapTable = tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -146,6 +152,7 @@ def geometry(plan: StencilPlan, slots: list[int]) -> np.ndarray:
     g += _rank3(plan.radii, 0, st) + _rank3(plan.block, 1, st)
     g += [plan.unroll, plan.n_ops, plan.n_taps, len(slots)]
     g += [plan.fuse_steps, plan.stage_buffers, plan.threads, plan.segments]
+    g += [plan.batch]
     g += slots + [0] * (GEOM_LEN - len(g) - len(slots))
     return np.asarray(g, dtype=np.int32)
 
@@ -156,11 +163,17 @@ def _check(f_padded, ops, phi, plan, aux, taps) -> None:
         raise ValueError("operator set does not match the plan")
     if (plan.n_ops, plan.n_taps) != (ops.n_s, ops.taps_per_point):
         raise ValueError("plan was made for another tap table")
+    lead = (plan.batch,) if is_ensemble(plan.rank, f_padded.ndim) else ()
+    if not lead and plan.batch > 1:
+        raise ValueError(
+            f"plan serves {plan.batch} members: the operand must be "
+            f"(batch, n_f, *padded), got shape {tuple(f_padded.shape)}"
+        )
     padded = _padded(plan)
-    if tuple(f_padded.shape) != (plan.n_f,) + padded:
+    if tuple(f_padded.shape) != lead + (plan.n_f,) + padded:
         raise ValueError(
             f"f_padded shape {tuple(f_padded.shape)} != plan's "
-            f"{(plan.n_f,) + padded}"
+            f"{lead + (plan.n_f,) + padded}"
         )
     if dtype_name(f_padded.dtype) != plan.dtype:
         raise ValueError(f"dtype {f_padded.dtype} != plan's {plan.dtype}")
@@ -168,9 +181,9 @@ def _check(f_padded, ops, phi, plan, aux, taps) -> None:
     if has_aux != bool(plan.n_aux) or has_aux != phi.needs_aux:
         raise ValueError("aux operand does not match plan.n_aux and φ")
     if aux is not None:
-        if tuple(aux.shape) != _aux_shape(plan):
+        if tuple(aux.shape) != lead + _aux_shape(plan):
             raise ValueError(
-                f"aux shape {tuple(aux.shape)} != {_aux_shape(plan)}"
+                f"aux shape {tuple(aux.shape)} != {lead + _aux_shape(plan)}"
             )
         if aux.dtype != f_padded.dtype or aux.device != f_padded.device:
             raise ValueError("aux must match f_padded's dtype and device")
@@ -216,7 +229,9 @@ def fused_stencil_swc(
     taps: TapTable | None = None,
 ) -> torch.Tensor:
     """Fused φ(A·B) for one ``swc`` plan of depth S = ``plan.fuse_steps``:
-    (n_f, *(n + 2rS)) → (n_out, *n), S sweeps per launch.
+    (n_f, *(n + 2rS)) → (n_out, *n), S sweeps per launch; an ensemble
+    (batch, n_f, *(n + 2rS)) → (batch, n_out, *n) in one launch too, aux
+    then carrying the same leading axis.
 
     ``phi`` is one :class:`DevicePhi` or, at depth S, a sequence of S
     (one per sweep, :func:`~repro_torch.kernels.phi.phi_sequence`).
@@ -224,16 +239,23 @@ def fused_stencil_swc(
     axpy); at depth > 1 its rows are carried from sweep to sweep.
     ``taps`` is the operator set's :func:`tap_table` on ``f_padded``'s
     device (a module's buffers); ``None`` uses the per-device cache.
-    Each kernel launch adds one to ``fused_stencil_swc.launches``, to
+    Each kernel launch (one per call, whatever the batch) adds one to
+    ``fused_stencil_swc.launches``, to
     ``fused_stencil_swc.launches_by_depth[S]`` and to
     ``fused_stencil_swc.launches_by_kernel[kernel_name(plan)]``.
     """
     phis = phi_sequence(phi, plan.fuse_steps)
     _check(f_padded, ops, phis[0], plan, aux, taps)
+    batched = is_ensemble(plan.rank, f_padded.ndim)
     if f_padded.device.type == "cpu":
         if plan.fuse_steps == 1:
-            return ref.fused_stencil(f_padded, ops, phis[0].torch_fn, aux=aux)
-        return ref.fused_stencil_steps(
+            fn = ref.fused_stencil_batched if batched else ref.fused_stencil
+            return fn(f_padded, ops, phis[0].torch_fn, aux=aux)
+        fn = (
+            ref.fused_stencil_steps_batched if batched
+            else ref.fused_stencil_steps
+        )
+        return fn(
             f_padded, ops, [p.torch_fn for p in phis], plan.fuse_steps,
             aux=aux,
         )
@@ -251,7 +273,8 @@ def fused_stencil_swc(
     # One row of φ parameters per sweep.
     params = np.asarray([p.params for p in phis], dtype=np.float64)
     out = torch.empty(
-        (plan.n_out,) + plan.interior, dtype=f_padded.dtype,
+        (plan.batch,) * batched + (plan.n_out,) + plan.interior,
+        dtype=f_padded.dtype,
         device=f_padded.device,
     )
     name = kernel_name(plan)

@@ -18,7 +18,12 @@ from repro_torch.core.stencil import OperatorSet
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.emit import TapTable, fused_stencil_swc
 from repro_torch.kernels.phi import DevicePhi
-from repro_torch.kernels.plan import MAX_THREADS, StencilPlan, plan_stencil
+from repro_torch.kernels.plan import (
+    MAX_THREADS,
+    StencilPlan,
+    is_ensemble,
+    plan_stencil,
+)
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -56,10 +61,20 @@ def fused_stencil_nd(
     (fuse_steps - 1)``), the op is applied that many times in one call
     (one launch on ``swc``), and ``phi`` may be a sequence of per-step
     maps (of one ``DevicePhi`` kind on ``swc``).
+
+    An ensemble operand is detected by rank: ``f_padded`` of shape
+    (batch, n_f, *spatial_padded), ``ops.ndim + 2`` axes, goes through
+    one launch of the same kernel with the member as an outer grid index
+    (``hwc``: the batched plain versions); ``aux`` then carries the same
+    leading axis. Returns (batch, n_out, *interior).
     """
-    if f_padded.ndim == ops.ndim + 2:
-        raise _not_ported("the ensemble batch axis", "B5 (_fused_batched)")
     if strategy == "hwc":
+        if is_ensemble(ops.ndim, f_padded.ndim):
+            if fuse_steps == 1:
+                return _ref.fused_stencil_batched(f_padded, ops, phi, aux=aux)
+            return _ref.fused_stencil_steps_batched(
+                f_padded, ops, phi, fuse_steps, aux=aux
+            )
         if fuse_steps == 1:
             return _ref.fused_stencil(f_padded, ops, phi, aux=aux)
         return _ref.fused_stencil_steps(
@@ -90,14 +105,16 @@ def plan_for_nd(
 ) -> StencilPlan | None:
     """The :class:`StencilPlan` a :func:`fused_stencil_nd` call with these
     arguments launches; ``None`` for ``strategy="hwc"``. ``max_threads``
-    (the φ kind's limit) bounds the default tile."""
+    (the φ kind's limit) bounds the default tile. A (batch, n_f,
+    *padded) shape plans a batched launch; ``aux_shape`` then has the
+    leading member axis too."""
     if strategy == "hwc":
         return None
     if block == "auto":
         raise _not_ported("block='auto' (the tuner)", "A9")
-    if len(padded_shape) == ops.ndim + 2:
-        raise _not_ported("the ensemble batch axis", "B5 (_fused_batched)")
-    n_aux = 0 if aux_shape is None else aux_shape[0]
+    n_aux = 0
+    if aux_shape is not None:
+        n_aux = aux_shape[1 if is_ensemble(ops.ndim, len(padded_shape)) else 0]
     return plan_stencil(
         ops, padded_shape, n_out, strategy=strategy, block=block,
         dtype=dtype, n_aux=n_aux, unroll=unroll, fuse_steps=fuse_steps,

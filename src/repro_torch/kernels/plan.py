@@ -31,6 +31,13 @@ halo is ``radii * S`` and the planner halves a tile that does not fit.
 A stream block keeps every field's working set resident
 (:func:`stream_smem_bytes`); its planner halves the chunk, then the
 cross tile, until it fits.
+
+``batch`` is the ensemble's member count (port of the reference's
+``StencilPlan.batch``): every kernel takes the member as an outer grid
+index folded into ``blockIdx.z`` (members × z tiles, or members ×
+stream segments), one block serving one member, so a batched launch
+needs no more shared memory per block than a single member's; the
+member count only multiplies the grid.
 """
 from __future__ import annotations
 
@@ -79,6 +86,7 @@ SMEM_PER_BLOCK = 232_448  # 227 KB: the most shared memory one Hopper block can 
 # (the extra halo reads stay under 1/8 of a column's).
 MIN_STREAM_BLOCKS = 2 * 132
 STREAM_SEGMENT_HALOS = 8
+MAX_GRID_Z = 65_535  # gridDim.z limit: members x z tiles (or segments)
 
 ITEMSIZE = {"float32": 4, "float64": 8}
 
@@ -195,6 +203,9 @@ class StencilPlan:
     ``block[0]`` is the chunk τ₀ of the walk along axis 0 and
     ``segments`` the pieces that axis is cut into, one block each per
     cross tile (the reference walks it whole: ``segments=1``).
+    ``batch`` is the number of ensemble members one launch serves, each
+    block serving one member (the member is the outer part of
+    ``blockIdx.z``, :attr:`grid_z`).
 
     Raises:
         ValueError: from ``__post_init__`` for any inconsistent
@@ -205,7 +216,10 @@ class StencilPlan:
             staged working set over the shared-memory limit; on
             ``swc_stream`` also rank 1, aux, ``unroll > 1``, a stream
             extent shorter than the carried halo plus one chunk at
-            depth > 1, and segments that do not divide the chunks.
+            depth > 1, and segments that do not divide the chunks; a
+            batch below 1, aux with ``batch > 1`` at depth > 1 (as the
+            reference), and a grid whose members × z tiles (or × stream
+            segments) exceed the ``MAX_GRID_Z`` blocks CUDA allows.
         NotImplementedError: for a strategy of the reference whose
             kernel is not ported yet.
     """
@@ -226,6 +240,7 @@ class StencilPlan:
     fuse_steps: int = 1  # temporal depth: sweeps per launch
     max_threads: int = MAX_THREADS  # the φ kind's threads per block
     segments: int = 1  # swc_stream: pieces of the stream axis
+    batch: int = 1  # ensemble members per launch
 
     def __post_init__(self) -> None:
         if self.strategy in NOT_PORTED:
@@ -253,6 +268,8 @@ class StencilPlan:
             )
         if self.rank not in (1, 2, 3):
             raise ValueError(f"rank must be 1, 2 or 3, got {self.rank}")
+        if self.batch < 1:
+            raise ValueError(f"batch must be >= 1, got {self.batch}")
         if self.dtype not in ITEMSIZE:
             raise ValueError(
                 f"dtype {self.dtype!r} not in {tuple(ITEMSIZE)} (bfloat16 "
@@ -280,6 +297,12 @@ class StencilPlan:
             raise ValueError(
                 f"fuse_steps must be in 1..{MAX_FUSE_STEPS}, got "
                 f"{self.fuse_steps}"
+            )
+        if self.batch > 1 and self.n_aux and self.fuse_steps > 1:
+            raise ValueError(
+                "batched temporal fusion with aux carries is not "
+                "supported (the reference's rule) — use batch=1 or "
+                "fuse_steps=1 with aux inputs"
             )
         if self.fuse_steps > 1:
             if self.unroll != 1:
@@ -321,6 +344,13 @@ class StencilPlan:
             )
         if self.segments > 1 and not stream:
             raise ValueError("segments cut the stream axis of swc_stream")
+        if self.grid_z > MAX_GRID_Z:
+            raise ValueError(
+                f"{self.batch} members x {self.grid_z // self.batch} "
+                f"{'stream segments' if stream else 'z tiles'} = "
+                f"{self.grid_z} blocks along gridDim.z, over CUDA's "
+                f"{MAX_GRID_Z} — serve the ensemble in smaller batches"
+            )
         if self.threads > MAX_THREADS:
             raise ValueError(
                 f"tile {self.block} has {self.threads} points, one CUDA "
@@ -350,6 +380,20 @@ class StencilPlan:
         """Array axis the ``swc_stream`` kernel walks (0: z at rank 3,
         y at rank 2), or None for other strategies."""
         return 0 if self.strategy == "swc_stream" else None
+
+    @property
+    def grid_z(self) -> int:
+        """Blocks along ``gridDim.z``: the members times the z tiles (1
+        below rank 3, where the kernels lift the tile to rank 3 with
+        unit leading extents) or, on ``swc_stream``, times the
+        segments."""
+        if self.stream_axis is not None:
+            per_member = self.segments
+        elif self.rank == 3:
+            per_member = self.interior[0] // self.block[0]
+        else:
+            per_member = 1
+        return self.batch * per_member
 
     @property
     def n_chunks(self) -> int:
@@ -451,12 +495,17 @@ def plan_stencil(
     fuse_steps: int = 1,
     accuracy: int | None = None,
     max_threads: int = MAX_THREADS,
+    batch: int | None = None,
 ) -> StencilPlan:
     """Lower a fused-stencil problem to a :class:`StencilPlan`.
 
     ``padded_shape`` is the (n_f, *spatial_padded) operand shape, each
     spatial axis padded by ``ops.radius_per_axis() * fuse_steps`` (one
-    radius of ghost cells per in-kernel sweep). ``block`` may be
+    radius of ghost cells per in-kernel sweep), or the batched (batch,
+    n_f, *spatial_padded) shape of an ensemble operand: a leading extent
+    beyond rank + 1 axes is read as the batch. An explicit ``batch``
+    must agree with a batched shape (and turns a rank + 1 shape into a
+    plan for a B-member launch), as in the reference. ``block`` may be
     ``None`` (per-rank Hopper default, its slower axes halved until it
     holds at most ``max_threads`` points — the limit of the φ kind's
     kernel; on ``swc_stream`` ``DEFAULT_STREAM_BLOCKS``), an int (rank-1 shorthand), or a tuple; a tuple longer than
@@ -477,17 +526,30 @@ def plan_stencil(
     then raises ``ValueError``. The plan's ``segments`` cut the stream
     axis into pieces walked by separate blocks: the fewest that give
     ``MIN_STREAM_BLOCKS`` blocks while each piece stays
-    ``STREAM_SEGMENT_HALOS`` carried halos long.
+    ``STREAM_SEGMENT_HALOS`` carried halos long, the members counted
+    among the blocks.
     """
     rank = ops.ndim
     if accuracy is None:
         accuracy = ops.accuracy
     radii = ops.radius_per_axis()
     padded_shape = tuple(int(n) for n in padded_shape)
+    if is_ensemble(rank, len(padded_shape)):
+        shape_batch = padded_shape[0]
+        if batch is not None and int(batch) != shape_batch:
+            raise ValueError(
+                f"explicit batch={batch} disagrees with the batched "
+                f"operand shape {padded_shape} (leading extent "
+                f"{shape_batch})"
+            )
+        batch = shape_batch
+        padded_shape = padded_shape[1:]
+    elif batch is None:
+        batch = 1
     if len(padded_shape) != rank + 1:
         raise ValueError(
-            f"padded operand must be (n_f, *spatial) with {rank} spatial "
-            f"dims, got shape {padded_shape}"
+            f"padded operand must be (n_f, *spatial) or (batch, n_f, "
+            f"*spatial) with {rank} spatial dims, got shape {padded_shape}"
         )
     interior = tuple(
         padded_shape[1 + a] - 2 * radii[a] * fuse_steps for a in range(rank)
@@ -537,7 +599,9 @@ def plan_stencil(
             clamped, interior, radii, fuse_steps, n_f=padded_shape[0],
             itemsize=itemsize, n_taps=ops.taps_per_point, n_ops=ops.n_s,
         )
-        segments = _stream_segments(clamped, interior, radii, fuse_steps)
+        segments = _stream_segments(
+            clamped, interior, radii, fuse_steps, int(batch)
+        )
     elif fuse_steps > 1 and strategy != "swc_stream":
         clamped = _fit_temporal(
             clamped, interior, radii, fuse_steps, n_f=padded_shape[0],
@@ -562,6 +626,7 @@ def plan_stencil(
         fuse_steps=int(fuse_steps),
         max_threads=int(max_threads),
         segments=segments,
+        batch=int(batch),
     )
 
 
@@ -612,13 +677,25 @@ def _fit_stream(tile, interior, radii, fuse_steps, **layout) -> list[int]:
         tile[a] = largest_divisor_leq(interior[a], tile[a] // 2)
 
 
-def _stream_segments(tile, interior, radii, fuse_steps) -> int:
+def is_ensemble(rank: int, ndim: int) -> bool:
+    """Whether an operand of ``ndim`` axes over a rank-``rank`` domain is
+    an ensemble stack (batch, n_f, *spatial) rather than (n_f,
+    *spatial): detected by rank, as in the reference. The planner, the
+    ops, ``FusedStencilOp`` and the kernel wrappers all ask this one
+    rule."""
+    return ndim == rank + 2
+
+
+def _stream_segments(tile, interior, radii, fuse_steps, batch=1) -> int:
     """The fewest pieces of the stream axis (a divisor of its chunks)
     that give the grid ``MIN_STREAM_BLOCKS`` blocks, each piece at least
     ``STREAM_SEGMENT_HALOS`` carried halos long; 1 when the cross tiles
-    alone suffice."""
+    alone suffice. The block count includes the member axis (``batch``
+    members × cross tiles × segments): a batch that already fills the
+    card is not cut, since every segment re-reads its 2h₀ leading
+    planes."""
     n_chunks = interior[0] // tile[0]
-    cross = _prod(n // t for n, t in zip(interior[1:], tile[1:]))
+    cross = batch * _prod(n // t for n, t in zip(interior[1:], tile[1:]))
     longest = max(1, STREAM_SEGMENT_HALOS * 2 * radii[0] * fuse_steps)
     best = 1
     for seg in range(1, n_chunks + 1):

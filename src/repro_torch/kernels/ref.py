@@ -107,3 +107,44 @@ def fused_stencil_steps(
                 )
             ]
     return out
+
+
+def fused_stencil_batched(
+    f_padded: torch.Tensor,
+    ops: OperatorSet,
+    phi: Callable[..., torch.Tensor],
+    aux: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Batched (ensemble) plain version: :func:`fused_stencil` on each
+    member of a leading member axis.
+
+    ``f_padded``: (batch, n_f, *spatial_padded); ``aux`` (if given):
+    (batch, n_aux, *spatial). Returns (batch, n_out, *interior). This is
+    the oracle the batched kernels are held against: member m of the
+    batched output is the single-member path applied to member m alone.
+    """
+    return torch.stack([
+        fused_stencil(
+            f_padded[m], ops, phi, aux=None if aux is None else aux[m]
+        )
+        for m in range(f_padded.shape[0])
+    ])
+
+
+def fused_stencil_steps_batched(
+    f_padded: torch.Tensor,
+    ops: OperatorSet,
+    phi,
+    n_steps: int,
+    aux: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Batched sequential reference for temporal fusion:
+    :func:`fused_stencil_steps` on each member (see
+    :func:`fused_stencil_batched` for the operand convention)."""
+    return torch.stack([
+        fused_stencil_steps(
+            f_padded[m], ops, phi, n_steps,
+            aux=None if aux is None else aux[m],
+        )
+        for m in range(f_padded.shape[0])
+    ])

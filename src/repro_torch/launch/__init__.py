@@ -1,0 +1,2 @@
+"""Entry points of the port beyond the solvers: the ensemble serving
+loop (``repro_torch.launch.serve_sim``)."""

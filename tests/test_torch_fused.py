@@ -185,12 +185,16 @@ def test_geometry_layout():
     g = emit.geometry(plan, [0, 3])
     assert len(g) == emit.GEOM_LEN and g.dtype == np.int32
     # n_f n_out n_aux | interior | padded | radii | tile | u ops taps
-    # n_slots | fuse_steps stage_buffers threads segments | slots
-    assert g[:24].tolist() == [
+    # n_slots | fuse_steps stage_buffers threads segments | members |
+    # slots
+    assert g[:25].tolist() == [
         8, 8, 0, 1, 16, 64, 1, 22, 70, 0, 3, 3, 1, 4, 16, 2,
-        ops.n_s, ops.taps_per_point, 2, 1, 2, 64, 1, 0,
+        ops.n_s, ops.taps_per_point, 2, 1, 2, 64, 1, 1, 0,
     ]
-    assert g[24] == 3 and not g[25:].any()
+    assert g[25] == 3 and not g[26:].any()
+    # A batched operand's members follow the segments.
+    batched = plan_for_nd(ops, (5, 8, 22, 70), 8, block=(4, 16), unroll=2)
+    assert emit.geometry(batched, [0, 3])[23] == 5
     # At depth 2 the padded extents widen by 2r per side and the
     # fuse_steps / stage_buffers / threads entries follow the plan.
     deep = plan_for_nd(ops, (8, 28, 76), 8, block=(4, 16), fuse_steps=2)
@@ -252,8 +256,9 @@ def test_not_ported_options_raise():
     ):
         with pytest.raises(NotImplementedError, match=item):
             fused_stencil_nd(fp, ops, select_phi("val"), 1, **kw)
-    with pytest.raises(NotImplementedError, match="B5"):
-        fused_stencil_nd(fp[None], ops, select_phi("val"), 1)
+    # The ensemble batch axis (B5) is ported: a leading member axis.
+    out = fused_stencil_nd(fp[None], ops, select_phi("val"), 1)
+    assert out.shape == (1, 1, 8, 8)
     # Temporal fusion (B2) is ported: depth 2 consumes 2r of the pad.
     out = fused_stencil_nd(fp, ops, select_phi("val"), 1, fuse_steps=2)
     assert out.shape == (1, 6, 6)

@@ -98,6 +98,21 @@ def test_entry_points_need_the_card_unless_asked_for_cpu():
     assert simulate(p, p.init_field(device="cpu"), 1, device="cpu").shape == (1, 8)
 
 
+def test_server_needs_the_card_unless_asked_for_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    from repro_torch.launch.serve_sim import SimServer, demo_queue
+
+    for call in (
+        lambda: SimServer(),
+        lambda: SimServer(device="cuda"),
+        lambda: demo_queue([(8, 16)], 1, 1),
+    ):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert SimServer(device="cpu").device == torch.device("cpu")
+
+
 def test_swc_refuses_a_bare_callable():
     ops = derivative_operator_set(1, 2)
     with pytest.raises(ValueError, match="strategy='hwc'"):
