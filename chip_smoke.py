@@ -28,6 +28,13 @@ Phases (each raises on failure; none is caught):
    depth 1-2 (a cut stream among them), the MHD RHS and fused substep
    with aux at B = 2, in f32 and f64, each against the batched plain
    version and each member against the unbatched launch on it, exactly.
+   Then bf16 in the depth-1 kernel (B1b: ranks 1-3, two selected fields,
+   B = 3; tolerance 2e-2) and the tc kernel (B4, ``fused_stencil_tc``)
+   against ``ref.fused_stencil_tc[_steps]``: diffusion at ranks 1-3 in
+   f32 and bf16 at depth 1 and 2, on tiles whose last 8-wide segment is
+   ragged, two selected fields, B = 3 (each member equal to its
+   unbatched launch), and the MHD RHS, fused substep (aux) and pair on
+   a cube and a non-cubic box, the RHS and substep also at B = 3.
 3. Main path at full size, through the entry points a user calls, with
    the launch counters (total, per depth and per kernel) zeroed just
    before and read just after each run: MHD 256³ f32 RK3 with the fused
@@ -45,6 +52,14 @@ Phases (each raises on failure; none is caught):
    4096² members, batches of 8; every request ``ok`` on the strategy asked
    for, 8 launches of that strategy's kernel per batch, each request
    held to its per-member plain version on the card.
+   The tc phase (``strategy="tc"``): MHD 256³ f32 plain and fused-axpy
+   RK3 (3 ``fused_stencil_tc`` launches per step) and ``fuse_rk_pairs``
+   at 128³ (one depth-2 and one depth-1 launch per step), each held to
+   ``swc``; diffusion 512³ f32 at depth 1 and 2, bf16 at depth 1 (and
+   bf16 on ``swc``, B1b, held to the plain bf16 version), 8192² and
+   2^26 f32, each held to f32 ``swc``. The serve phase also runs
+   ``SimServer(strategy="tc")``: 8 ``fused_stencil_tc`` launches per
+   batch.
 4. Times (CUDA events, median after warm-up) of each kernel, its plain
    version and, for diffusion, ``F.conv{1,2,3}d`` with the merged
    stencil as a dense weight (S calls at depth S); the bound is
@@ -57,8 +72,14 @@ Phases (each raises on failure; none is caught):
    segments the planner gives one member); their library is ``conv{2,3}d``
    with N = B.
    The serve phase's batches (order 2, B = 8, 256³ and 4096², on
-   ``swc`` and ``swc_stream``) get rows of their own, each carrying its
-   bucket's launch count from the serve phase.
+   ``swc``, ``swc_stream`` and ``tc``) get rows of their own, each
+   carrying its bucket's launch count from the serve phase. tc rows
+   (diffusion 512³ f32 S=1, 2 and bf16, 8192², 2^26; MHD RHS and substep
+   256³, pair 128³) take their bound at the route's tensor-core rate
+   (989 TFLOP/s bf16 MMA; 67 TFLOP/s f64 MMA for f32 fields) and print
+   the banded multiply-adds the MMAs issue beside the taps' own
+   (``plan.tc_issued_macs``); the bf16 rows time ``conv*d`` in bf16.
+   Each phase prints its seconds.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without a card it exits non-zero and
@@ -83,7 +104,13 @@ STREAM_SOURCE = "src/repro_torch/kernels/csrc/fused_stencil_stream.cu"
 STREAM_REPLACES = "src/repro/kernels/emit.py:585"  # _kernel_stream (via _fused_stream :687)
 STREAM = "fused_stencil_stream"
 BATCH_REPLACES = "src/repro/kernels/emit.py:345"  # _fused_batched (+ _member_phi :318)
-TOL = {"float32": 1e-5, "float64": 1e-12}
+TC_SOURCE = "src/repro_torch/kernels/csrc/fused_stencil_tc.cu"
+TC_REPLACES = "src/repro/kernels/emit.py:233"  # _kernel_tc (+ _block_derivs_tc :153)
+TC = "fused_stencil_tc"
+TOL = {"float32": 1e-5, "float64": 1e-12, "bfloat16": 2e-2}
+# Tensor-core rates of the tc routes (data sheet, SXM): bf16 MMA; the
+# f32 fields contract on the f64 MMA.
+TC_RATES = {"bfloat16": 989e12, "float32": 67e12}
 
 # Data-sheet rates: (memory B/s, non-tensor f32 FLOP/s, non-tensor f64 FLOP/s).
 CARD_RATES = {
@@ -108,7 +135,11 @@ def run(cmd: list[str]) -> str:
 
 
 def rel_err(a, b) -> tuple[float, float]:
-    """(max |a - b|, that over max |b|)."""
+    """(max |a - b|, that over max |b|), bf16 compared in f32."""
+    import torch
+
+    if a.dtype == torch.bfloat16 or b.dtype == torch.bfloat16:
+        a, b = a.float(), b.float()
     diff = float((a - b).abs().max())
     return diff, diff / max(float(b.abs().max()), 1e-300)
 
@@ -239,13 +270,13 @@ def mhd_case(shape, dtype, device, substep, block=(1, 8, 32), unroll=1,
         ops, tuple(fp.shape), phi.n_out(8),
         aux_shape=None if aux is None else tuple(aux.shape),
         strategy=strategy, block=block, dtype=dtype, unroll=unroll,
-        max_threads=phi.max_threads,
+        max_threads=phi.max_threads, n_slots=len(phi.operators),
     )
     return fp, ops, phi, plan, aux
 
 
 def mhd_pair_case(shape, dtype, device, substeps=(1, 2), block=(1, 8, 32),
-                  smooth=True, seed=0):
+                  smooth=True, seed=0, strategy="swc"):
     """(f_padded, ops, phis, plan, aux) of two fused-axpy RK3 substeps
     in one depth-2 launch, aux = w. Substeps (1, 2), both with α ≠ 0,
     read the staged w in both sweeps; the solver's pair is (0, 1)."""
@@ -273,8 +304,8 @@ def mhd_pair_case(shape, dtype, device, substeps=(1, 2), block=(1, 8, 32),
          ).to(device=device, dtype=f.dtype)
     aux = pad(w, 3, "periodic", spatial_axes=(1, 2, 3))
     plan = plan_for_nd(ops, tuple(fp.shape), 16, aux_shape=tuple(aux.shape),
-                       block=block, dtype=dtype, fuse_steps=2,
-                       max_threads=256)
+                       strategy=strategy, block=block, dtype=dtype,
+                       fuse_steps=2, max_threads=256, n_slots=10)
     return fp, ops, phis, plan, aux
 
 
@@ -303,11 +334,13 @@ def plain(case):
     fp, ops, phi, plan, aux = case
     phis = phi_sequence(phi, plan.fuse_steps)
     batched = fp.ndim == plan.rank + 2
+    tc = plan.strategy == "tc"
     if plan.fuse_steps == 1:
         fn = ref.fused_stencil_batched if batched else ref.fused_stencil
-        return fn(fp, ops, phis[0].torch_fn, aux=aux)
+        return fn(fp, ops, phis[0].torch_fn, aux=aux, tc=tc)
     fn = ref.fused_stencil_steps_batched if batched else ref.fused_stencil_steps
-    return fn(fp, ops, [p.torch_fn for p in phis], plan.fuse_steps, aux=aux)
+    return fn(fp, ops, [p.torch_fn for p in phis], plan.fuse_steps, aux=aux,
+              tc=tc)
 
 
 def compare(label, case, dtype):
@@ -457,6 +490,47 @@ def phase_parity(dev):
             compare_batched(f"{name} (64, 64, 64)",
                             mhd_case((64,) * 3, dtype, dev, substep, batch=2),
                             dtype)
+    print("  -- bf16 in the depth-1 kernel (B1b) vs ref.fused_stencil in bf16")
+    for shape in ((65536,), (512, 384), (64, 96, 128)):
+        compare(f"diffusion {shape}", diffusion_case(shape, "bfloat16", dev),
+                "bfloat16")
+    compare("select dxx, 2 fields (48, 64, 80)",
+            select_case((48, 64, 80), "bfloat16", dev, 1), "bfloat16")
+    compare_batched("diffusion (64, 96, 128)",
+                    diffusion_case((64, 96, 128), "bfloat16", dev, batch=3),
+                    "bfloat16")
+    print("  -- tc kernel vs ref.fused_stencil_tc[_steps] (f32 on the f64 "
+          "MMA, bf16 on the bf16 MMA)")
+    for dtype in ("float32", "bfloat16"):
+        for depth in (1, 2):
+            # Tiles off the 8-wide segment: x tiles 2002 (of 30030), 50
+            # (of 400) and 30 (of 120), so the last segment is ragged.
+            for shape in ((65536,), (30030,), (512, 400), (64, 96, 120)):
+                compare(f"tc diffusion {shape}",
+                        diffusion_case(shape, dtype, dev, fuse_steps=depth,
+                                       strategy="tc"), dtype)
+            compare("tc select dxx, 2 fields (48, 64, 80)",
+                    select_case((48, 64, 80), dtype, dev, depth,
+                                strategy="tc"), dtype)
+            for shape in ((65536,), (512, 384), (64, 96, 128)):
+                compare_batched(f"tc diffusion {shape}",
+                                diffusion_case(shape, dtype, dev, batch=3,
+                                               fuse_steps=depth,
+                                               strategy="tc"), dtype)
+    for shape in ((64, 64, 64), (48, 64, 80)):
+        for substep in (False, True):
+            name = "mhd_substep" if substep else "mhd_rhs"
+            compare(f"tc {name} {shape}",
+                    mhd_case(shape, "float32", dev, substep, strategy="tc"),
+                    "float32")
+        compare(f"tc mhd_substep pair {shape}",
+                mhd_pair_case(shape, "float32", dev, strategy="tc"),
+                "float32")
+    for substep in (False, True):
+        name = "mhd_substep" if substep else "mhd_rhs"
+        compare_batched(f"tc {name} (64, 64, 64)",
+                        mhd_case((64,) * 3, "float32", dev, substep, batch=3,
+                                 strategy="tc"), "float32")
 
 
 def counted(fn, kernel=None):
@@ -639,6 +713,101 @@ def phase_main_path(dev):
     return launches
 
 
+def phase_main_path_tc(dev, launches):
+    """The tensor-core regime (``strategy="tc"``) and bf16 through the
+    entry points: MHD in three RK3 forms, diffusion at depth 1 and 2, in
+    bf16 (and bf16 on ``swc``: B1b), and at ranks 2 and 1, each held to
+    its ``swc`` counterpart."""
+    import torch
+
+    from repro_torch.physics.diffusion import DiffusionProblem, simulate
+    from repro_torch.physics.mhd import MHDSolver
+
+    print("== phase 3 (tc): the tensor-core regime and bf16 on the main path")
+    n_steps = 3
+    for kind, n, form, want in (
+        ("tc mhd_substep", 256, dict(fuse_rk_axpy=True), {1: 3 * n_steps}),
+        ("tc mhd_rhs", 256, {}, {1: 3 * n_steps}),
+        ("tc mhd pair", 128, dict(fuse_rk_pairs=True),
+         {2: n_steps, 1: n_steps}),
+    ):
+        solver = MHDSolver((n,) * 3, strategy="tc", device=dev, **form)
+        swc = MHDSolver((n,) * 3, strategy="swc", device=dev, **form)
+        f0 = solver.init_fields(seed=0, dtype="float32")
+        dt = float(solver.cfl_dt(f0))
+        solver.step(f0, dt)  # warm-up
+
+        def run(solver=solver):
+            f = f0
+            for _ in range(n_steps):
+                f = solver.step(f, dt)
+            return f
+
+        f, wall, by_depth = counted(run, kernel=TC)
+        if by_depth != want:
+            raise AssertionError(f"{kind}: launches {by_depth}, want {want}")
+        if f.shape != (8, n, n, n) or not bool(torch.isfinite(f).all()):
+            raise AssertionError(f"{kind}: bad MHD state")
+        _, rel = rel_err(f, run(swc))
+        launches[kind] = by_depth.get(2, by_depth[1])
+        print(f"  MHD {n}^3 f32 RK3 on tc {form or 'plain'}: {n_steps} steps, "
+              f"launches by depth {by_depth} (all {TC}), "
+              f"{1e3 * wall / n_steps:.2f} ms/step (host clock); vs swc "
+              f"rel {rel:.3e}")
+        if rel > 1e-5:
+            raise AssertionError(f"{kind}: tc and swc disagree")
+        del f, solver, swc
+        torch.cuda.empty_cache()
+
+    for shape, cases in (
+        ((512,) * 3, (("tc", 1, 5, "float32", "tc select S=1"),
+                      ("tc", 2, 6, "float32", "tc select S=2"),
+                      ("tc", 1, 5, "bfloat16", "tc select bf16"),
+                      ("swc", 1, 5, "bfloat16", "select bf16"))),
+        ((8192, 8192), (("tc", 1, 5, "float32", "tc select 8192^2"),)),
+        ((1 << 26,), (("tc", 1, 5, "float32", "tc select 2^26"),)),
+    ):
+        prob = DiffusionProblem(shape)
+        f0 = prob.init_field(seed=0, device=dev)
+        base = {n: simulate(prob, f0, n, strategy="swc", device=dev)
+                for n in {c[2] for c in cases}}
+        for strategy, depth, n, dtype, key in cases:
+            kernel = TC if strategy == "tc" else "fused_stencil"
+            fd = f0.to(getattr(torch, dtype))
+            out, wall, by_depth = counted(
+                lambda: simulate(prob, fd, n, strategy=strategy,
+                                 fuse_steps=depth, device=dev),
+                kernel=kernel)
+            if by_depth != {depth: n // depth}:
+                raise AssertionError(f"diffusion {shape} {strategy} {dtype} "
+                                     f"S={depth}: launches {by_depth}")
+            if out.dtype != fd.dtype or not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"diffusion {shape} {key}: bad state")
+            launches[key] = by_depth[depth]
+            _, rel = rel_err(out, base[n])
+            # bf16 on swc rounds every tap in bf16 (the reference's VPU
+            # path), so its n steps are held to the plain bf16 version;
+            # tc accumulates in f32 and is held to f32, as the
+            # reference's tests/test_tc.py holds it.
+            versus = ("swc f32 depth 1", rel)
+            if strategy == "swc":
+                plain_out = simulate(prob, fd, n, strategy="hwc", device=dev)
+                versus = ("the plain bf16 version", rel_err(out, plain_out)[1])
+                del plain_out
+            print(f"  diffusion {'x'.join(map(str, shape))} {dtype} "
+                  f"{strategy} fuse_steps={depth}: {n} steps, launches by "
+                  f"depth {by_depth} (all {kernel}), {1e3 * wall / n:.2f} "
+                  f"ms/step (host clock); vs swc f32 depth 1 rel {rel:.3e}"
+                  + (f", vs {versus[0]} rel {versus[1]:.3e}"
+                     if strategy == "swc" else ""))
+            if versus[1] > TOL[dtype]:
+                raise AssertionError(f"diffusion {key} disagrees with "
+                                     f"{versus[0]}")
+            del out, fd
+        del base, f0
+        torch.cuda.empty_cache()
+
+
 SERVE_SHAPES = [(256, 256, 256), (4096, 4096)]
 SERVE_REQUESTS, SERVE_STEPS, SERVE_BATCH = 16, 8, 8
 
@@ -656,7 +825,8 @@ def phase_serve(dev, launches):
     from repro_torch.launch.serve_sim import SimServer, check_parity, demo_queue
 
     print("== phase 3b: ensemble serving (SimServer at its defaults, f32)")
-    for strategy, kernel in (("swc", "fused_stencil"), ("swc_stream", STREAM)):
+    for strategy, kernel in (("swc", "fused_stencil"), ("swc_stream", STREAM),
+                             ("tc", TC)):
         server = SimServer(strategy=strategy, max_batch=SERVE_BATCH,
                            device=dev)
         server.serve(demo_queue(SERVE_SHAPES, SERVE_STEPS, SERVE_REQUESTS,
@@ -724,7 +894,8 @@ def phase_times(dev, smi, launches):
         stencil_stream_hbm_bytes_per_step,
     )
     from repro_torch.kernels.emit import fused_stencil_swc
-    from repro_torch.kernels.plan import _stream_segments
+    from repro_torch.kernels.phi import phi_sequence
+    from repro_torch.kernels.plan import _stream_segments, tc_issued_macs
     from repro_torch.physics import mhd
 
     print("== phase 4: times (CUDA events, median)")
@@ -764,9 +935,16 @@ def phase_times(dev, smi, launches):
         plain_ms = time_ms(lambda: plain(case), plain_reps, warmup=1)
         lib_ms = None
         if library is not None:
+            t = time.perf_counter()
             lib_out = library()
+            torch.cuda.synchronize()
+            slow = time.perf_counter() - t > 0.05  # e.g. conv3d at 512^3
             lerr, _ = rel_err(lib_out.reshape(got.shape), got)
-            lib_ms = time_ms(library, reps)
+            del lib_out
+            # A library call of tens of ms or more is timed over 3 calls
+            # after one warm-up, which keeps the run within its budget.
+            lib_ms = time_ms(library, 3 if slow else reps,
+                             warmup=1 if slow else 2)
             print(f"    library conv vs kernel max|err| {lerr:.3e}")
         points = max(batch, 1)
         for n_ in plan.interior:
@@ -775,15 +953,32 @@ def phase_times(dev, smi, launches):
                   + (0 if aux is None else aux.numel())) * item
         flops = depth * (ops.flops_per_point(plan.n_f) + phi_flops) * points
         t_bytes = nbytes / bw * 1e3
-        t_ops = flops / (f32_rate if item == 4 else f64_rate) * 1e3
+        tc = plan.strategy == "tc"
+        if tc:  # the tensor-core route's rate (bf16 MMA, or f64 MMA)
+            rate = TC_RATES[dtype]
+        else:  # outside the tensor cores; bf16 counted at the f32 rate
+            rate = f64_rate if item == 8 else f32_rate
+        t_ops = flops / rate * 1e3
         bound = max(t_bytes, t_ops)
         stream = plan.stream_axis is not None
-        if stream:
+        if tc:
+            issued, needed = tc_issued_macs(plan, ops, phi_sequence(
+                phi, depth)[0].operators)
+            name_, source, replaces = (f"{TC}[{kind}, S={depth}, {dtype}",
+                                       TC_SOURCE, TC_REPLACES)
+            print(f"    tc: tile {plan.block}, {plan.threads} threads, "
+                  f"{plan.smem_bytes} B shared, {plan.stage_buffers} window "
+                  f"buffer(s); banded MACs issued {issued:.6e} against "
+                  f"{needed:.6e} for the multi-tap groups' taps "
+                  f"({issued / needed:.3f}x)")
+        elif stream:
             name_, source, replaces = (f"{STREAM}[{kind}, S={depth}",
                                        STREAM_SOURCE, STREAM_REPLACES)
         elif depth == 1:
             name_, source, replaces = (f"fused_stencil_swc[{kind}",
                                        KERNEL_SOURCE, REPLACES)
+            if item == 2:
+                name_ += ", bf16"
         else:
             name_, source, replaces = (
                 f"fused_stencil_temporal[{kind}, S={depth}",
@@ -816,7 +1011,7 @@ def phase_times(dev, smi, launches):
                   f"unbatched launches ({solo.segments} segment(s) each): "
                   f"{solo_ms:.4f} ms ({ms / batch:.4f} against "
                   f"{solo_ms / batch:.4f} ms per member)")
-        elif stream:
+        elif stream and not tc:
             model = dict(domain=plan.interior, block=plan.block,
                          radii=plan.radii, n_f=plan.n_f, n_out=plan.n_out,
                          itemsize=item, fuse_steps=depth)
@@ -832,7 +1027,7 @@ def phase_times(dev, smi, launches):
                   f"shared; modelled {walk:.6e} B/step (one walk "
                   f"{one:.6e}; swc at this tile {swc:.6e}), redundant work "
                   f"{redundant:.4f}")
-        elif depth > 1:
+        elif depth > 1 and not tc:
             traffic = [
                 stencil_hbm_bytes_per_step(
                     plan.interior, plan.block, plan.radii, plan.n_f,
@@ -972,6 +1167,47 @@ def phase_times(dev, smi, launches):
         mhd.RHS_PHI_FLOPS, reps=5, plain_reps=2)
     del case
     torch.cuda.empty_cache()
+
+    print("  -- tc kernel (tensor cores) and bf16 in B1 (B1b)")
+    for shape, depth, dtype, strategy, main in (
+        ((512,) * 3, 1, "float32", "tc", "tc select S=1"),
+        ((512,) * 3, 2, "float32", "tc", "tc select S=2"),
+        ((512,) * 3, 1, "bfloat16", "tc", "tc select bf16"),
+        ((512,) * 3, 1, "bfloat16", "swc", "select bf16"),
+        ((8192, 8192), 1, "float32", "tc", "tc select 8192^2"),
+        ((1 << 26,), 1, "float32", "tc", "tc select 2^26"),
+    ):
+        case = diffusion_case(shape, dtype, dev, fuse_steps=depth,
+                              strategy=strategy)
+        kind = "select" if len(shape) == 3 else (
+            f"select {'x'.join(map(str, shape))}")
+        row(f"{strategy} diffusion {shape} S={depth}", kind, case, dtype,
+            0, conv_of(case), main=main)
+        del case
+    torch.cuda.empty_cache()
+    for substep, kind, flops in (
+        (True, "mhd_substep", mhd.SUBSTEP_PHI_FLOPS),
+        (False, "mhd_rhs", mhd.RHS_PHI_FLOPS),
+    ):
+        case = mhd_case((256,) * 3, "float32", dev, substep, smooth=False,
+                        strategy="tc")
+        row(f"tc MHD {kind} 256^3", kind, case, "float32", flops,
+            main=f"tc {kind}", reps=5, plain_reps=2)
+        del case
+        torch.cuda.empty_cache()
+    case = mhd_pair_case((128,) * 3, "float32", dev, substeps=(0, 1),
+                         smooth=False, strategy="tc")
+    row("tc MHD pair 128^3", "mhd_substep", case, "float32",
+        mhd.SUBSTEP_PHI_FLOPS, main="tc mhd pair", reps=3, plain_reps=1)
+    del case
+    for shape in SERVE_SHAPES:
+        bucket = "x".join(map(str, shape))
+        case = diffusion_case(shape, "float32", dev, batch=SERVE_BATCH,
+                              accuracy=2, strategy="tc")
+        row(f"serve {bucket} B={SERVE_BATCH}, tc", f"serve {bucket}", case,
+            "float32", 0, conv_of(case), main=f"serve tc {bucket}")
+        del case
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -986,14 +1222,26 @@ def main(argv: list[str]) -> int:
 
     dev = repro_torch.default_device()
     t0 = time.perf_counter()
-    smi = phase_card()
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t
+        print(f"  [{name}: {seconds[name]:.1f} s]")
+        return out
+
+    smi = timed("phase 1", phase_card)
     print(smi)
-    phase_parity(dev)
+    timed("phase 2", phase_parity, dev)
     if "--quick" in argv:
         return 0
-    launches = phase_main_path(dev)
-    phase_serve(dev, launches)
-    rows = phase_times(dev, smi, launches)
+    launches = timed("phase 3", phase_main_path, dev)
+    timed("phase 3 (tc)", phase_main_path_tc, dev, launches)
+    timed("phase 3b", phase_serve, dev, launches)
+    rows = timed("phase 4", phase_times, dev, smi, launches)
+    print("chip_smoke: seconds by phase "
+          + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     print(f"chip_smoke: all phases in {time.perf_counter() - t0:.1f} s")
     print(smi)
     print(json.dumps({"kernels": rows}))

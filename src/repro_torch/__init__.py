@@ -19,6 +19,7 @@ import torch
 DTYPES: dict[str, torch.dtype] = {
     "float32": torch.float32,
     "float64": torch.float64,
+    "bfloat16": torch.bfloat16,
 }
 
 
@@ -48,7 +49,8 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
 
 
 def as_dtype(dtype: str | torch.dtype) -> torch.dtype:
-    """``"float32"``/``"float64"`` (or the torch dtype itself) → dtype."""
+    """``"float32"``/``"float64"``/``"bfloat16"`` (or the torch dtype
+    itself) → dtype."""
     if isinstance(dtype, torch.dtype):
         if dtype not in DTYPES.values():
             raise ValueError(f"unsupported dtype {dtype}; want {list(DTYPES)}")

@@ -65,7 +65,14 @@ def fields_from_numpy(
 ) -> torch.Tensor:
     """A field stack (any array-like, e.g. ``np.asarray`` of a jax array)
     as a tensor on ``device`` (the card by default), in ``dtype`` (the
-    array's own when None)."""
-    t = torch.from_numpy(np.array(a))  # a writable, contiguous copy
+    array's own when None). A bfloat16 array (numpy's ml_dtypes type,
+    which torch cannot read) crosses exactly through float32."""
+    arr = np.asarray(a)
+    bf16 = arr.dtype.name == "bfloat16"
+    if bf16:
+        arr = np.asarray(arr, np.float32)  # every bf16 value is an f32
+    t = torch.from_numpy(np.array(arr))  # a writable, contiguous copy
+    if bf16:
+        t = t.to(torch.bfloat16)
     dt = as_dtype(dtype) if dtype is not None else t.dtype
     return t.to(device=resolve_device(device), dtype=dt)

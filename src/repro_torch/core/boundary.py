@@ -43,9 +43,14 @@ def _normalize_modes(
     return modes
 
 
-def _ghost_index(n: int, r: int, mode: str) -> torch.Tensor:
-    """Source index of every padded position ``-r .. n + r - 1``."""
-    i = torch.arange(-r, n + r)
+def _ghost_index(
+    n: int, r: int, mode: str, device: torch.device | None = None
+) -> torch.Tensor:
+    """Source index of every padded position ``-r .. n + r - 1``, built
+    on ``device``: the map is as long as the axis (512 MB of int64 at
+    2^26 points), too large to build on the host and copy at every
+    pad."""
+    i = torch.arange(-r, n + r, device=device)
     if mode == "periodic":
         return i % n
     if mode == "neumann":
@@ -69,7 +74,7 @@ def _pad_axis(
         shape[axis] = r
         ghost = torch.full(shape, value, dtype=f.dtype, device=f.device)
         return torch.cat([ghost, f, ghost], dim=axis)
-    idx = _ghost_index(f.shape[axis], r, mode).to(f.device)
+    idx = _ghost_index(f.shape[axis], r, mode, f.device)
     return torch.index_select(f, axis, idx)
 
 

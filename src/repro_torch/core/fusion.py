@@ -29,6 +29,12 @@ A fused stencil operation is the paper's chain φ(γ(ψ(f))) (Sec. 3.3):
                            next chunk copied in while this one computes
                            (paper Fig. 5b); a DevicePhi, no aux; composes
                            with ``fuse_steps``
+  ``tc``         1, 2, 3   the CUDA kernel whose derivatives are banded
+                           contractions on the tensor cores (float32 or
+                           bfloat16, f32 accumulation, as the reference's
+                           ``_block_derivs_tc``); a DevicePhi; composes
+                           with ``fuse_steps``, batch and aux, one launch
+                           per call at any depth
   ============  =========  =================================================
 
 The operator set's tap table is a buffer of the module, so ``.to(device)``
@@ -54,8 +60,8 @@ from repro_torch.kernels.phi import phi_sequence
 Phi = Callable[[Mapping[str, torch.Tensor]], torch.Tensor]
 PhiLike = Union[Phi, tuple]
 
-STRATEGIES = ("hwc", "swc", "swc_stream")
-DEVICE_STRATEGIES = ("swc", "swc_stream")  # the CUDA kernels
+STRATEGIES = ("hwc", "swc", "swc_stream", "tc")
+DEVICE_STRATEGIES = ("swc", "swc_stream", "tc")  # the CUDA kernels
 # Reference strategies not ported yet → ROADMAP item.
 NOT_PORTED = {**kplan.NOT_PORTED, "auto": "A9 (cross-strategy tuning)"}
 
@@ -69,20 +75,21 @@ class FusedStencilOp(nn.Module):
         ops: the :class:`~repro_torch.core.stencil.OperatorSet` (γ).
         phi: point-wise map from ``{op_name: (n_f, *spatial)}`` (plus an
             optional aux tensor) to the (n_out, *spatial) update; a
-            :class:`~repro_torch.kernels.phi.DevicePhi` for ``swc`` and
-            ``swc_stream``; at depth > 1 it may be a sequence of
+            :class:`~repro_torch.kernels.phi.DevicePhi` for ``swc``,
+            ``swc_stream`` and ``tc``; at depth > 1 it may be a sequence of
             per-step maps (on the CUDA strategies DevicePhis of one
             kind).
         n_out: number of output fields φ produces.
         boundary_mode: ψ — how ghost cells are filled ("periodic", …);
             scalar or one mode per spatial axis.
-        strategy: ``"hwc"``, ``"swc"`` or ``"swc_stream"`` (see the
-            module docstring).
+        strategy: ``"hwc"``, ``"swc"``, ``"swc_stream"`` or ``"tc"``
+            (see the module docstring).
         block: rank-length tile (x last) or None (per-rank default); on
             ``swc_stream`` ``block[0]`` is the chunk of the walk.
         fuse_steps: applications per call (on ``swc`` one launch of
             the temporal kernel, on ``swc_stream`` one launch of the
-            stream kernel; periodic boundaries only).
+            stream kernel, on ``tc`` one launch of the tc kernel;
+            periodic boundaries only).
         boundary_weights: not ported yet (must be False).
         device: where the tap-table buffers live (``None``: the card,
             raising without one; pass ``"cpu"`` for the plain path;
@@ -90,9 +97,8 @@ class FusedStencilOp(nn.Module):
 
     Raises:
         ValueError: on an invalid strategy, boundary mode, block,
-            depth, a φ the chosen regime cannot run (``swc`` or
-            ``swc_stream`` with a bare callable), or ``swc_stream`` on a
-            rank-1 set.
+            depth, a φ the chosen regime cannot run (a CUDA strategy
+            with a bare callable), or ``swc_stream`` on a rank-1 set.
         NotImplementedError: for a reference option not ported yet.
     """
 

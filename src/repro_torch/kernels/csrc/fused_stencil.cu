@@ -35,6 +35,13 @@
 // batched launch is the unbatched launch on member m, bit for bit, and
 // B members cost one launch.
 //
+// bf16 (the select kind only; B1b). The reference's VPU path casts each
+// coefficient to bf16 and rounds every product and every sum to bf16;
+// apply_op's bf16 form does the same (bf16_mul/bf16_add: the operation
+// in f32, then one rounding, never contracted into an FMA). cp.async
+// takes no 2-byte copy, so a bf16 window is staged through registers
+// (copy_async).
+//
 // Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32 / 34 TFLOP/s f64
 // outside the tensor cores): diffusion (one field, 19 taps at order 6)
 // moves 8 B per point in f32 and is bound by bytes; the MHD RHS (2,368
@@ -101,7 +108,7 @@ __device__ __forceinline__ void stage_async(const T* __restrict__ src,
     const T* s = src + z * psz + y * psy;
     T* w = win + row * wx;
     for (int x = threadIdx.x; x < wx; x += blockDim.x)
-      __pipeline_memcpy_async(w + x, s + x, sizeof(T));
+      copy_async(w + x, s + x);
   }
   __pipeline_commit();
 }
@@ -128,7 +135,7 @@ __global__ void __launch_bounds__(KIND == KIND_SELECT ? 1024 : 256)
       threadIdx.x + blockDim.x * (threadIdx.y + blockDim.y * threadIdx.z);
   const int nthr = blockDim.x * blockDim.y * blockDim.z;
   for (int i = tid; i < g.n_taps; i += nthr) {
-    taps[i].coef = static_cast<T>(tap_coef[i]);  // cast before the multiply
+    taps[i].coef = cast_coef<T>(tap_coef[i]);  // cast before the multiply
     taps[i].offset = (tap_off[3 * i] * wy + tap_off[3 * i + 1]) * wx +
                      tap_off[3 * i + 2];
   }
@@ -263,7 +270,7 @@ int repro_fused_stencil(const void* f, const void* aux, void* out,
                         const void* tap_off, const void* tap_coef,
                         const void* op_start, const int* geom,
                         const double* params, int n_params, int kind,
-                        int is_double, int device, void* stream) {
+                        int dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
   Geometry g;
@@ -271,23 +278,26 @@ int repro_fused_stencil(const void* f, const void* aux, void* out,
     return int(cudaErrorInvalidValue);
 
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (kind * 2 + (is_double ? 1 : 0)) {
-    case KIND_SELECT * 2:
+  switch (kind * 3 + dtype) {
+    case KIND_SELECT * 3 + DTYPE_F32:
       return int(launch<float, KIND_SELECT>(f, aux, out, tap_off, tap_coef,
                                             op_start, g, st));
-    case KIND_SELECT * 2 + 1:
+    case KIND_SELECT * 3 + DTYPE_F64:
       return int(launch<double, KIND_SELECT>(f, aux, out, tap_off, tap_coef,
                                              op_start, g, st));
-    case KIND_MHD_RHS * 2:
+    case KIND_SELECT * 3 + DTYPE_BF16:  // B1b: the select kind in bf16
+      return int(launch<__nv_bfloat16, KIND_SELECT>(
+          f, aux, out, tap_off, tap_coef, op_start, g, st));
+    case KIND_MHD_RHS * 3 + DTYPE_F32:
       return int(launch<float, KIND_MHD_RHS>(f, aux, out, tap_off, tap_coef,
                                              op_start, g, st));
-    case KIND_MHD_RHS * 2 + 1:
+    case KIND_MHD_RHS * 3 + DTYPE_F64:
       return int(launch<double, KIND_MHD_RHS>(f, aux, out, tap_off, tap_coef,
                                               op_start, g, st));
-    case KIND_MHD_SUBSTEP * 2:
+    case KIND_MHD_SUBSTEP * 3 + DTYPE_F32:
       return int(launch<float, KIND_MHD_SUBSTEP>(f, aux, out, tap_off,
                                                  tap_coef, op_start, g, st));
-    case KIND_MHD_SUBSTEP * 2 + 1:
+    case KIND_MHD_SUBSTEP * 3 + DTYPE_F64:
       return int(launch<double, KIND_MHD_SUBSTEP>(f, aux, out, tap_off,
                                                   tap_coef, op_start, g, st));
     default:
@@ -301,11 +311,15 @@ const char* repro_cuda_error_string(int err) {
 
 // Shared memory one block of this kernel uses for `geom` (the plan's
 // StencilPlan.smem_bytes must equal it).
-long long repro_fused_stencil_smem_bytes(const int* geom, int is_double) {
+long long repro_fused_stencil_smem_bytes(const int* geom, int dtype) {
   Geometry g;
   if (!read_geometry(geom, nullptr, 0, g)) return -1;
-  return is_double ? (long long)smem_bytes<double>(g)
-                   : (long long)smem_bytes<float>(g);
+  switch (dtype) {
+    case DTYPE_F32: return (long long)smem_bytes<float>(g);
+    case DTYPE_F64: return (long long)smem_bytes<double>(g);
+    case DTYPE_BF16: return (long long)smem_bytes<__nv_bfloat16>(g);
+    default: return -1;
+  }
 }
 
 int repro_fused_stencil_geometry_len(void) { return G_LEN; }

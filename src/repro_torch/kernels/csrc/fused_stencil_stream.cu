@@ -142,6 +142,7 @@ __global__ void __launch_bounds__(KIND == KIND_SELECT ? 1024 : 256, 1)
   Tap<T>* taps = reinterpret_cast<Tap<T>*>(smem_raw + L.taps);
   int* start = reinterpret_cast<int*>(smem_raw + L.starts);
 
+  using Eval = ScalarEval<T, KIND == KIND_SELECT>;
   const int tid = threadIdx.x;
   const int nthr = blockDim.x;
   for (int i = tid; i < g.n_taps; i += nthr)
@@ -206,7 +207,7 @@ __global__ void __launch_bounds__(KIND == KIND_SELECT ? 1024 : 256, 1)
       const T* fin = s == 0 ? work : mid(s - 1);
       if (s == S - 1) {
         sweep<T, KIND>(
-            g, fin, src, rb, taps, start, g.prm[s], nullptr,
+            g, fin, src, rb, Eval(g, taps, start), g.prm[s], nullptr,
             [&](int j, const Point& q, int, T v) {
               out[obase + j * ofield + (zc + q.z) * osz + (y0 + q.y) * osy +
                   x0 + q.x] = v;
@@ -215,7 +216,7 @@ __global__ void __launch_bounds__(KIND == KIND_SELECT ? 1024 : 256, 1)
       } else {
         T* next = mid(s);
         sweep<T, KIND>(
-            g, fin, src, rb, taps, start, g.prm[s], nullptr,
+            g, fin, src, rb, Eval(g, taps, start), g.prm[s], nullptr,
             [&](int j, const Point&, int p, T v) {
               next[j * rb.size() + p] = v;
             },
@@ -273,7 +274,7 @@ int repro_fused_stencil_stream(const void* f, const void* aux, void* out,
                                const void* tap_off, const void* tap_coef,
                                const void* op_start, const int* geom,
                                const double* params, int n_params, int kind,
-                               int is_double, int device, void* stream) {
+                               int dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
   Geometry g;
@@ -285,7 +286,9 @@ int repro_fused_stencil_stream(const void* f, const void* aux, void* out,
     return int(cudaErrorInvalidValue);
 
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (kind * 2 + (is_double ? 1 : 0)) {
+  if (dtype != DTYPE_F32 && dtype != DTYPE_F64)  // bf16 waits for B3c
+    return int(cudaErrorInvalidValue);
+  switch (kind * 2 + (dtype == DTYPE_F64 ? 1 : 0)) {
     case KIND_SELECT * 2:
       return int(launch<float, KIND_SELECT>(f, out, tap_off, tap_coef,
                                             op_start, g, st));
@@ -310,10 +313,11 @@ const char* repro_cuda_error_string(int err) {
 // Shared memory one block of this kernel uses for `geom` (the plan's
 // StencilPlan.smem_bytes must equal it).
 long long repro_fused_stencil_stream_smem_bytes(const int* geom,
-                                                int is_double) {
+                                                int dtype) {
   Geometry g;
   if (!read_geometry(geom, nullptr, 0, g)) return -1;
-  return is_double ? (long long)layout<double>(g).total
+  if (dtype != DTYPE_F32 && dtype != DTYPE_F64) return -1;
+  return dtype == DTYPE_F64 ? (long long)layout<double>(g).total
                    : (long long)layout<float>(g).total;
 }
 

@@ -6,6 +6,7 @@
 // point.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
@@ -17,6 +18,11 @@ constexpr int KIND_MHD_SUBSTEP = 2;
 constexpr int MAX_SLOTS = 16;
 constexpr int MAX_PARAMS = 16;
 constexpr int MAX_FUSE = 8;  // sweeps per launch (rows of Geometry::prm)
+
+// Element types the wrappers hand over (emit.py:dtype_code).
+constexpr int DTYPE_F32 = 0;
+constexpr int DTYPE_F64 = 1;
+constexpr int DTYPE_BF16 = 2;
 
 // Host-side int layout of the geometry array (emit.py:geometry builds it).
 enum GeomIndex {
@@ -116,6 +122,18 @@ __device__ __forceinline__ MemberZ member_z(const Geometry& g) {
   return {m, int(z) - m * g.per_member};
 }
 
+// A tap coefficient (double on the host) in the field type, cast before
+// the multiply as the reference does; bf16 goes through float, as
+// PyTorch's own conversion of a Python float does.
+template <typename T>
+__device__ inline T cast_coef(double c) {
+  return static_cast<T>(c);
+}
+template <>
+__device__ inline __nv_bfloat16 cast_coef<__nv_bfloat16>(double c) {
+  return __float2bfloat16(static_cast<float>(c));
+}
+
 // One tap in shared memory: coefficient (in the field type) and its
 // linear offset in the staged buffer, read together in one load.
 template <typename T>
@@ -151,6 +169,48 @@ __device__ __forceinline__ T apply_op(const T* __restrict__ win,
     acc += tap.coef * win[center + tap.offset];
   }
   return acc;
+}
+
+// bf16 products and sums as PyTorch's and XLA's elementwise bf16
+// arithmetic rounds them: the operation in f32 (exact for a product of
+// two bf16 values), then one rounding to bf16. __fmul_rn/__fadd_rn are
+// never contracted into an FMA, which a bf16 mul/add pair may be.
+__device__ __forceinline__ __nv_bfloat16 bf16_mul(__nv_bfloat16 a,
+                                                  __nv_bfloat16 b) {
+  return __float2bfloat16_rn(
+      __fmul_rn(__bfloat162float(a), __bfloat162float(b)));
+}
+__device__ __forceinline__ __nv_bfloat16 bf16_add(__nv_bfloat16 a,
+                                                  __nv_bfloat16 b) {
+  return __float2bfloat16_rn(
+      __fadd_rn(__bfloat162float(a), __bfloat162float(b)));
+}
+
+// bf16: every product and every sum rounded to bf16, in table order.
+template <>
+__device__ __forceinline__ __nv_bfloat16 apply_op(
+    const __nv_bfloat16* __restrict__ win,
+    const Tap<__nv_bfloat16>* __restrict__ taps, int b, int e, int center) {
+  __nv_bfloat16 acc = __float2bfloat16(0.0f);
+#pragma unroll 4
+  for (int t = b; t < e; ++t) {
+    const Tap<__nv_bfloat16> tap = taps[t];
+    acc = bf16_add(acc, bf16_mul(tap.coef, win[center + tap.offset]));
+  }
+  return acc;
+}
+
+// Start an asynchronous copy of one element into shared memory:
+// cp.async for 4- and 8-byte types; cp.async takes no 2-byte copy, so
+// bf16 elements are copied through a register (the wait before their
+// first read synchronises the block all the same).
+template <typename T>
+__device__ __forceinline__ void copy_async(T* dst, const T* src) {
+  if constexpr (sizeof(T) >= 4) {
+    __pipeline_memcpy_async(dst, src, sizeof(T));
+  } else {
+    *dst = *src;
+  }
 }
 
 }  // namespace stencil

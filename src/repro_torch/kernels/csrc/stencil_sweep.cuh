@@ -1,10 +1,11 @@
 // The sweep machinery the kernels with a 1-D block share:
-// fused_stencil_temporal.cu (depth > 1) and fused_stencil_stream.cu
-// (swc_stream, any depth). Boxes of points and the regions of the fused
-// sweeps, cp.async staging of a box of rows, tap offsets for the buffer a
-// sweep reads, and one sweep (every operator on every field of a buffer
-// in shared memory, then phi) over a region, its threads looping over the
-// region's points.
+// fused_stencil_temporal.cu (depth > 1), fused_stencil_stream.cu
+// (swc_stream, any depth) and fused_stencil_tc.cu (tc, any depth). Boxes
+// of points and the regions of the fused sweeps, cp.async staging of a
+// box of rows, tap offsets for the buffer a sweep reads, the tap-table
+// derivative evaluator, and one sweep (every operator on every field of
+// a buffer in shared memory, then phi) over a region, its threads
+// looping over the region's points, templated on the evaluator.
 #pragma once
 
 #include <cuda_pipeline.h>
@@ -67,7 +68,7 @@ __device__ __forceinline__ void stage_window(const T* __restrict__ src,
       const T* s = src + z * psz + y * psy;
       T* d = win + row * w.x;
       for (int x = lane; x < w.x; x += lanes)
-        __pipeline_memcpy_async(d + x, s + x, sizeof(T));
+        copy_async(d + x, s + x);
     }
   }
   __pipeline_commit();
@@ -118,36 +119,119 @@ __device__ __forceinline__ void mhd_phi(
   }
 }
 
+// A derivative evaluator: how a sweep gets the value of operator slot
+// `sl` of one field at one point. Two exist: ScalarEval (below: the
+// tap table, point by point, for swc) and TcEval (fused_stencil_tc.cu:
+// banded contractions on the tensor cores, for tc). An evaluator with
+// kCooperative set first computes a box of points with the whole block
+// (prepare), then hands out values by the point's index in that box
+// (value), and wants the block to have read them before the next
+// prepare (done); set_source runs before a sweep that reads a buffer of
+// new extents.
+// kSelect (the select kind, which reads slot 0 only) holds slot 0's tap
+// range in registers; the MHD kinds look each slot's range up in shared
+// memory, which keeps two registers free in their register-bound loops.
+template <typename T, bool kSelect>
+struct ScalarEval {
+  static constexpr bool kCooperative = false;
+  Tap<T>* taps;
+  const int* start;
+  const int* tap_off;
+  int n_taps;
+  int b0 = 0, e0 = 0;  // slot 0's taps (kSelect)
+
+  // Its shared memory: the tap table and the int32 operator starts.
+  __host__ __device__ static size_t smem_bytes(const Geometry& g) {
+    return size_t(g.n_taps) * sizeof(Tap<T>) +
+           size_t(g.n_ops + 1) * sizeof(int);
+  }
+
+  // Copy the tap table (coefficients cast to T before any multiply) and
+  // the operator starts into `smem`.
+  __device__ ScalarEval(const Geometry& g, unsigned char* smem,
+                        const int* off, const double* coef,
+                        const int* op_start, int tid, int nthr)
+      : taps(reinterpret_cast<Tap<T>*>(smem)),
+        start(reinterpret_cast<int*>(smem +
+                                     size_t(g.n_taps) * sizeof(Tap<T>))),
+        tap_off(off),
+        n_taps(g.n_taps) {
+    if constexpr (kSelect) {
+      b0 = op_start[g.slot[0]];
+      e0 = op_start[g.slot[0] + 1];
+    }
+    for (int i = tid; i < g.n_taps; i += nthr)
+      taps[i].coef = cast_coef<T>(coef[i]);  // cast before the multiply
+    int* st = reinterpret_cast<int*>(smem + size_t(g.n_taps) * sizeof(Tap<T>));
+    for (int i = tid; i <= g.n_ops; i += nthr) st[i] = op_start[i];
+  }
+  // Over a tap table and operator starts already in shared memory.
+  __device__ ScalarEval(const Geometry& g, Tap<T>* t, const int* s)
+      : taps(t), start(s), tap_off(nullptr), n_taps(0) {
+    if constexpr (kSelect) {
+      b0 = s[g.slot[0]];
+      e0 = s[g.slot[0] + 1];
+    }
+  }
+
+  __device__ void set_source(const Box& src, int tid, int nthr) const {
+    set_tap_offsets(taps, tap_off, n_taps, src, tid, nthr);
+  }
+  __device__ void prepare(const Geometry&, const T*, const Box&, const Box&,
+                          int, int, int, int, int) const {}
+  __device__ void done() const {}
+  __device__ T value(const Geometry& g, int sl, const T* fld, int center,
+                     int) const {
+    if constexpr (kSelect) {
+      return apply_op(fld, taps, b0, e0, center);
+    } else {
+      const int op = g.slot[sl];
+      return apply_op(fld, taps, start[op], start[op + 1], center);
+    }
+  }
+};
+
 // One sweep from shared memory: every operator phi reads, on each of the
 // n_f fields of `fin` (field k at fin + k * src.size(), extents src, one
 // radius wider than rb on every side), at every point of region rb, then
 // phi with the parameter row `prm`; row j of phi at point q (index p of
 // rb) goes to store(j, q, p, value). `cin` is the mhd_substep carry, one
-// row of rb.size() per field. The taps must point into a buffer of
-// extents src (set_tap_offsets).
+// row of rb.size() per field. The evaluator must have been pointed at a
+// buffer of extents src (set_source).
 // - select: each output row reads one field, so the threads loop over
-//   (field, point) pairs.
+//   (field, point) pairs (a cooperative evaluator: field by field).
 // - MHD: phi reads 10 operators x 8 fields per point, kept in registers;
-//   the threads loop over points.
-template <typename T, int KIND, typename Store>
+//   the threads loop over points (a cooperative evaluator: in batches of
+//   one point per thread, each batch's planes evaluated field by field).
+template <typename T, int KIND, class Eval, typename Store>
 __device__ __forceinline__ void sweep(const Geometry& g,
                                       const T* __restrict__ fin,
                                       const Box& src, const Box& rb,
-                                      const Tap<T>* __restrict__ taps,
-                                      const int* __restrict__ start,
-                                      const double* prm, const T* cin,
-                                      Store store, int tid, int nthr) {
-  if constexpr (KIND == KIND_SELECT) {
-    const int b = start[g.slot[0]], e = start[g.slot[0] + 1];
+                                      const Eval& ev, const double* prm,
+                                      const T* cin, Store store, int tid,
+                                      int nthr) {
+  if constexpr (KIND == KIND_SELECT && !Eval::kCooperative) {
     for (int i = tid; i < g.n_f * rb.size(); i += nthr) {
       const int k = i / rb.size();
       const int p = i - k * rb.size();
       const Point q = unflatten(p, rb);
       store(k, q, p,
-            apply_op(fin + k * src.size(), taps, b, e,
-                     index_in(q, g.r[0], g.r[1], g.r[2], src)));
+            ev.value(g, 0, fin + k * src.size(),
+                     index_in(q, g.r[0], g.r[1], g.r[2], src), p));
     }
-  } else {
+  } else if constexpr (KIND == KIND_SELECT) {
+    for (int k = 0; k < g.n_f; ++k) {
+      const T* fk = fin + k * src.size();
+      ev.prepare(g, fk, src, rb, 0, rb.z - 1, 0, tid, nthr);
+      for (int p = tid; p < rb.size(); p += nthr) {
+        const Point q = unflatten(p, rb);
+        store(k, q, p,
+              ev.value(g, 0, fk, index_in(q, g.r[0], g.r[1], g.r[2], src),
+                       p));
+      }
+      ev.done();
+    }
+  } else if constexpr (!Eval::kCooperative) {
     const SweepPhi<T> ph(prm);
     for (int p = tid; p < rb.size(); p += nthr) {
       const Point q = unflatten(p, rb);
@@ -156,15 +240,39 @@ __device__ __forceinline__ void sweep(const Geometry& g,
 #pragma unroll
       for (int k = 0; k < mhd::N_FIELDS; ++k) {
 #pragma unroll
-        for (int sl = 0; sl < mhd::N_SLOTS; ++sl) {
-          const int op = g.slot[sl];
-          d[sl][k] = apply_op(fin + k * src.size(), taps, start[op],
-                              start[op + 1], center);
-        }
+        for (int sl = 0; sl < mhd::N_SLOTS; ++sl)
+          d[sl][k] = ev.value(g, sl, fin + k * src.size(), center, p);
       }
       const T* a = KIND == KIND_MHD_SUBSTEP ? cin + p : nullptr;
       mhd_phi<T, KIND>(d, ph, a, rb.size(),
                        [&](int j, T v) { store(j, q, p, v); });
+    }
+  } else {
+    const SweepPhi<T> ph(prm);
+    const int plane = rb.y * rb.x;
+    for (int p0 = 0; p0 < rb.size(); p0 += nthr) {
+      const int p = p0 + tid;
+      const bool live = p < rb.size();
+      const Point q = unflatten(live ? p : p0, rb);
+      const int zlo = p0 / plane;
+      const int zhi = (min(p0 + nthr, rb.size()) - 1) / plane;
+      const int center = index_in(q, g.r[0], g.r[1], g.r[2], src);
+      const int local = (live ? p : p0) - zlo * plane;
+      T d[mhd::N_SLOTS][mhd::N_FIELDS];
+#pragma unroll
+      for (int k = 0; k < mhd::N_FIELDS; ++k) {
+        const T* fk = fin + k * src.size();
+        ev.prepare(g, fk, src, rb, zlo, zhi, 0, tid, nthr);
+#pragma unroll
+        for (int sl = 0; sl < mhd::N_SLOTS; ++sl)
+          d[sl][k] = ev.value(g, sl, fk, center, local);
+        ev.done();
+      }
+      if (live) {
+        const T* a = KIND == KIND_MHD_SUBSTEP ? cin + p : nullptr;
+        mhd_phi<T, KIND>(d, ph, a, rb.size(),
+                         [&](int j, T v) { store(j, q, p, v); });
+      }
     }
   }
 }

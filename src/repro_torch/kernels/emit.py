@@ -1,5 +1,5 @@
-"""Wrapper of the hand-written CUDA ``swc`` and ``swc_stream`` kernels
-(port of ``repro.kernels.emit.fused_stencil_pallas`` and
+"""Wrapper of the hand-written CUDA ``swc``, ``swc_stream`` and ``tc``
+kernels (port of ``repro.kernels.emit.fused_stencil_pallas`` and
 ``_fused_stream``).
 
 :func:`fused_stencil_swc` checks its operands against the plan, uploads
@@ -7,12 +7,15 @@ the operator set's tap table (once per operator set and device), and
 launches on PyTorch's current stream the plan's kernel
 (:func:`kernel_name`): ``csrc/fused_stencil.cu`` for ``swc`` at depth 1,
 ``csrc/fused_stencil_temporal.cu`` for ``swc`` at depth > 1,
-``csrc/fused_stencil_stream.cu`` for ``swc_stream`` at any depth. A CPU
-tensor goes to the plain version (``ref.fused_stencil`` or, at depth
-> 1, ``ref.fused_stencil_steps``, with the φs' ``torch_fn``; their
-``_batched`` forms for an ensemble); a CUDA tensor goes to the kernel,
-or the wrapper raises — there is no fallback from one to the other, nor
-from one kernel to another.
+``csrc/fused_stencil_stream.cu`` for ``swc_stream`` at any depth,
+``csrc/fused_stencil_tc.cu`` for ``tc`` at any depth (the temporal
+kernel's sweeps with the tensor-core evaluator; it takes the operator
+set's :func:`tc_table` instead of the tap table). A CPU tensor goes to
+the plain version (``ref.fused_stencil`` or, at depth > 1,
+``ref.fused_stencil_steps``, with the φs' ``torch_fn``; their
+``_batched`` forms for an ensemble; on ``tc`` their ``tc=True`` forms);
+a CUDA tensor goes to the kernel, or the wrapper raises — there is no
+fallback from one to the other, nor from one kernel to another.
 
 An ensemble operand (batch, n_f, *padded) (port of ``_fused_batched``,
 the TPU kernel B5) is one launch of the same kernel with the member as
@@ -33,12 +36,18 @@ from repro_torch.core.stencil import OperatorSet
 from repro_torch.kernels import build
 from repro_torch.kernels import ref
 from repro_torch.kernels.phi import DevicePhi, phi_sequence
-from repro_torch.kernels.plan import StencilPlan, is_ensemble
+from repro_torch.kernels.plan import StencilPlan, is_ensemble, tc_axis_groups
 
 KERNEL = "fused_stencil"  # csrc/fused_stencil.cu, depth 1
 TEMPORAL_KERNEL = "fused_stencil_temporal"  # csrc/fused_stencil_temporal.cu
 STREAM_KERNEL = "fused_stencil_stream"  # csrc/fused_stencil_stream.cu
+TC_KERNEL = "fused_stencil_tc"  # csrc/fused_stencil_tc.cu, any depth
 GEOM_LEN = 40  # G_LEN of csrc/stencil_common.cuh
+# DTYPE_* of csrc/stencil_common.cuh.
+DTYPE_CODES = {"float32": 0, "float64": 1, "bfloat16": 2}
+# Group table layout of csrc/fused_stencil_tc.cu.
+TC_ENT_LEN = 8  # axis, rest z/y/x, lone tap, its offset, 2 unused
+TC_COEF_LEN = 9  # c[j + r], j = -r..r, r <= 4
 
 TapTable = tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -72,8 +81,52 @@ def device_tap_table(ops: OperatorSet, device: torch.device) -> TapTable:
     return tuple(t.to(device) for t in tap_table(ops))
 
 
+def tc_table(ops: OperatorSet) -> TapTable:
+    """The operator set's ``tc`` contraction groups for
+    ``csrc/fused_stencil_tc.cu``, on the CPU.
+
+    Returns ``(entries, coeffs, starts)``: int32 (n_groups, 8) rows of
+    (axis lifted to rank 3 — 0 z, 1 y, 2 x —, rest offset (z, y, x), 1
+    for a lone tap, that tap's offset along the axis, 0, 0); float64
+    (n_groups, 9) band coefficients ``c[j + r]`` for j = -r..r (zero
+    where the group has no tap); int32 (n_ops + 1,) start of each
+    operator's groups. Groups follow :func:`~repro_torch.kernels.plan.
+    tc_axis_groups` in sorted ``(axis, rest)`` order — the order the
+    reference sums them — so an operator's groups run axis by axis.
+    """
+    rank = ops.ndim
+    lift = 3 - rank
+    radii = ops.radius_per_axis()
+    entries, coeffs, starts = [], [], [0]
+    for spec in ops.ops:
+        for (axis, rest), taps in sorted(tc_axis_groups(spec, rank).items()):
+            band = [0.0] * TC_COEF_LEN
+            for j, c in taps:
+                band[j + radii[axis]] = c
+            single = len(taps) == 1
+            entries.append(
+                [axis + lift] + [0] * lift + list(rest)
+                + [int(single), taps[0][0] if single else 0, 0, 0]
+            )
+            coeffs.append(band)
+        starts.append(len(entries))
+    return (
+        torch.from_numpy(np.asarray(entries, dtype=np.int32)),
+        torch.from_numpy(np.asarray(coeffs, dtype=np.float64)),
+        torch.from_numpy(np.asarray(starts, dtype=np.int32)),
+    )
+
+
+@functools.lru_cache(maxsize=64)
+def device_tc_table(ops: OperatorSet, device: torch.device) -> TapTable:
+    """:func:`tc_table` uploaded to ``device``, cached per (ops, device)."""
+    return tuple(t.to(device) for t in tc_table(ops))
+
+
 def kernel_name(plan: StencilPlan) -> str:
     """The ``csrc`` source whose kernel runs ``plan``."""
+    if plan.strategy == "tc":
+        return TC_KERNEL
     if plan.stream_axis is not None:
         return STREAM_KERNEL
     return KERNEL if plan.fuse_steps == 1 else TEMPORAL_KERNEL
@@ -115,7 +168,8 @@ def kernel_smem_bytes(plan: StencilPlan) -> int:
     (needs the built library; ``plan.smem_bytes`` must equal it)."""
     name = kernel_name(plan)
     fn = getattr(_lib(name), f"repro_{name}_smem_bytes")
-    return int(fn(_int_ptr(geometry(plan, [0])), int(plan.dtype == "float64")))
+    slots = list(range(plan.n_slots))
+    return int(fn(_int_ptr(geometry(plan, slots)), DTYPE_CODES[plan.dtype]))
 
 
 def _rank3(t: tuple[int, ...], fill: int, stream: bool = False) -> list[int]:
@@ -196,6 +250,16 @@ def _check(f_padded, ops, phi, plan, aux, taps) -> None:
         (8, 0), (8, 8)
     ):
         raise ValueError(f"{phi.kind} needs 8 fields (and 8 aux rows)")
+    if phi.kind != "select" and plan.dtype == "bfloat16":
+        raise NotImplementedError(
+            f"{phi.kind} in bfloat16 is not ported yet: ROADMAP B4b (the "
+            "MHD φ in bfloat16)"
+        )
+    if plan.strategy == "tc" and plan.n_slots != len(phi.operators):
+        raise ValueError(
+            f"tc plan made for {plan.n_slots} operator slot(s), φ reads "
+            f"{len(phi.operators)}"
+        )
     if plan.threads > phi.max_threads:
         raise ValueError(
             f"{phi.kind} keeps its derivative values in registers and "
@@ -228,7 +292,8 @@ def fused_stencil_swc(
     aux: torch.Tensor | None = None,
     taps: TapTable | None = None,
 ) -> torch.Tensor:
-    """Fused φ(A·B) for one ``swc`` plan of depth S = ``plan.fuse_steps``:
+    """Fused φ(A·B) for one ``swc``, ``swc_stream`` or ``tc`` plan of
+    depth S = ``plan.fuse_steps``:
     (n_f, *(n + 2rS)) → (n_out, *n), S sweeps per launch; an ensemble
     (batch, n_f, *(n + 2rS)) → (batch, n_out, *n) in one launch too, aux
     then carrying the same leading axis.
@@ -238,7 +303,8 @@ def fused_stencil_swc(
     ``aux`` (n_aux, *(n + 2r(S-1))) is forwarded to φ (the MHD fused RK
     axpy); at depth > 1 its rows are carried from sweep to sweep.
     ``taps`` is the operator set's :func:`tap_table` on ``f_padded``'s
-    device (a module's buffers); ``None`` uses the per-device cache.
+    device (a module's buffers; ``tc`` ignores it and takes its
+    :func:`tc_table`); ``None`` uses the per-device cache.
     Each kernel launch (one per call, whatever the batch) adds one to
     ``fused_stencil_swc.launches``, to
     ``fused_stencil_swc.launches_by_depth[S]`` and to
@@ -248,16 +314,17 @@ def fused_stencil_swc(
     _check(f_padded, ops, phis[0], plan, aux, taps)
     batched = is_ensemble(plan.rank, f_padded.ndim)
     if f_padded.device.type == "cpu":
+        tc = plan.strategy == "tc"
         if plan.fuse_steps == 1:
             fn = ref.fused_stencil_batched if batched else ref.fused_stencil
-            return fn(f_padded, ops, phis[0].torch_fn, aux=aux)
+            return fn(f_padded, ops, phis[0].torch_fn, aux=aux, tc=tc)
         fn = (
             ref.fused_stencil_steps_batched if batched
             else ref.fused_stencil_steps
         )
         return fn(
             f_padded, ops, [p.torch_fn for p in phis], plan.fuse_steps,
-            aux=aux,
+            aux=aux, tc=tc,
         )
     if f_padded.device.type != "cuda":
         raise ValueError(f"unsupported device {f_padded.device}")
@@ -265,7 +332,9 @@ def fused_stencil_swc(
         aux is not None and not aux.is_contiguous()
     ):
         raise ValueError("f_padded and aux must be contiguous")
-    if taps is None:
+    if plan.strategy == "tc":
+        taps = device_tc_table(ops, f_padded.device)
+    elif taps is None:
         taps = device_tap_table(ops, f_padded.device)
     offsets, coeffs, starts = taps
     slots = [ops.names.index(n) for n in phis[0].operators]
@@ -286,7 +355,7 @@ def fused_stencil_swc(
         offsets.data_ptr(), coeffs.data_ptr(), starts.data_ptr(),
         _int_ptr(geom),
         params.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
-        params.shape[1], phis[0].kind_id, int(plan.dtype == "float64"),
+        params.shape[1], phis[0].kind_id, DTYPE_CODES[plan.dtype],
         f_padded.device.index or 0,
         torch.cuda.current_stream(f_padded.device).cuda_stream,
     )

@@ -1,8 +1,8 @@
 """Dispatch of a fused stencil call to its regime (port of
 ``repro.kernels.ops.fused_stencil_nd``/``plan_for_nd``).
 
-``hwc`` goes to the plain PyTorch version (``ref``); ``swc`` and
-``swc_stream`` go to their CUDA kernels through
+``hwc`` goes to the plain PyTorch version (``ref``); ``swc``,
+``swc_stream`` and ``tc`` go to their CUDA kernels through
 :class:`~repro_torch.kernels.plan.StencilPlan` and
 ``emit.fused_stencil_swc``. Every reference option whose kernel is not
 ported yet raises ``NotImplementedError`` naming its ROADMAP item.
@@ -47,10 +47,13 @@ def fused_stencil_nd(
     (paper Eq. 9).
 
     ``strategy``: ``"hwc"`` (plain PyTorch), ``"swc"`` (the CUDA
-    kernels) or ``"swc_stream"`` (the CUDA kernel that walks the slowest
+    kernels), ``"swc_stream"`` (the CUDA kernel that walks the slowest
     axis — z at rank 3, y at rank 2 — carrying its halo planes from chunk
-    to chunk; ranks 2 and 3, no aux, no unroll); on the CUDA strategies
-    ``phi`` must be a :class:`~repro_torch.kernels.phi.DevicePhi`.
+    to chunk; ranks 2 and 3, no aux, no unroll) or ``"tc"`` (the
+    derivatives as banded contractions on the tensor cores; float32 or
+    bfloat16, no unroll, any rank, depth, batch and aux); on the CUDA
+    strategies ``phi`` must be a
+    :class:`~repro_torch.kernels.phi.DevicePhi`.
     ``block`` is a rank-length tile or ``None`` for the per-rank
     default; on ``swc_stream`` ``block[0]`` is the chunk (planes per
     step of the walk) and ``block[1:]`` the cross-stream tile, and the
@@ -85,7 +88,7 @@ def fused_stencil_nd(
         aux_shape=None if aux is None else tuple(aux.shape),
         strategy=strategy, block=block, dtype=dtype_name(f_padded.dtype),
         unroll=unroll, fuse_steps=fuse_steps,
-        max_threads=_max_threads_of(phi),
+        max_threads=_max_threads_of(phi), n_slots=_slots_of(phi),
     )
     return fused_stencil_swc(f_padded, ops, phi, plan, aux=aux, taps=taps)
 
@@ -102,10 +105,12 @@ def plan_for_nd(
     unroll: int = 1,
     fuse_steps: int = 1,
     max_threads: int = MAX_THREADS,
+    n_slots: int = 1,
 ) -> StencilPlan | None:
     """The :class:`StencilPlan` a :func:`fused_stencil_nd` call with these
     arguments launches; ``None`` for ``strategy="hwc"``. ``max_threads``
-    (the φ kind's limit) bounds the default tile. A (batch, n_f,
+    (the φ kind's limit) bounds the default tile; ``n_slots`` (the
+    operators φ reads) sizes ``tc``'s operator sums. A (batch, n_f,
     *padded) shape plans a batched launch; ``aux_shape`` then has the
     leading member axis too."""
     if strategy == "hwc":
@@ -118,7 +123,7 @@ def plan_for_nd(
     return plan_stencil(
         ops, padded_shape, n_out, strategy=strategy, block=block,
         dtype=dtype, n_aux=n_aux, unroll=unroll, fuse_steps=fuse_steps,
-        max_threads=max_threads,
+        max_threads=max_threads, n_slots=n_slots,
     )
 
 
@@ -128,3 +133,11 @@ def _max_threads_of(phi) -> int:
     if isinstance(phi, (tuple, list)) and phi:
         phi = phi[0]
     return phi.max_threads if isinstance(phi, DevicePhi) else MAX_THREADS
+
+
+def _slots_of(phi) -> int:
+    """Operators the kernel evaluates for ``phi`` (or the first φ of a
+    per-step sequence)."""
+    if isinstance(phi, (tuple, list)) and phi:
+        phi = phi[0]
+    return len(phi.operators) if isinstance(phi, DevicePhi) else 1

@@ -11,13 +11,19 @@ kernel is held against.
 Kinds (the kernels in ``csrc/`` switch on :data:`KIND_IDS`):
 
 * ``select`` — output row k = operator ``operators[0]`` applied to
-  field k (diffusion's ``lambda d: d["step"]``); no parameters.
+  field k (diffusion's ``lambda d: d["step"]``); no parameters; float32,
+  float64 and bfloat16 (on ``tc`` the operator's float32 sum is rounded
+  once to bfloat16 on the store; on ``swc`` every tap rounds in
+  bfloat16, as the reference's elementwise path does).
 * ``mhd_rhs`` — the 8-field MHD right-hand side
   (``csrc/phi_mhd.cuh``); reads the 10 operators of
   :data:`MHD_OPERATORS`.
 * ``mhd_substep`` — one fused-axpy RK substep on top of ``mhd_rhs``:
   with aux = w, ``w' = αw + Δt·rhs``, ``f' = f + βw'``; writes 16 rows
   (f', w').
+
+The MHD kinds run in float32 and float64; bfloat16 raises
+``NotImplementedError`` (ROADMAP B4b), though the reference takes it.
 
 MHD parameters are laid out as :data:`MHD_PARAM_NAMES`: the
 ``MHDParams`` fields in declaration order, the derived ``lnT0``, then
@@ -49,7 +55,7 @@ MAX_PARAMS = 16  # kernel-side parameter array length
 MAX_SLOTS = 16  # kernel-side operator slot array length
 
 NEEDS_DEVICE_PHI = (
-    "strategy='swc' or 'swc_stream' runs a compiled CUDA kernel, which "
+    "strategy='swc', 'swc_stream' or 'tc' runs a compiled CUDA kernel, which "
     "cannot call a Python φ: pass a DevicePhi (repro_torch.kernels.phi), "
     "or use "
     "strategy='hwc' for an arbitrary φ callable"

@@ -1,6 +1,6 @@
 """StencilPlan — the lowering contract between the fusion engine and the
-CUDA kernels (port of ``repro.kernels.plan`` for ``strategy="swc"`` and
-``"swc_stream"``).
+CUDA kernels (port of ``repro.kernels.plan`` for ``strategy="swc"``,
+``"swc_stream"`` and ``"tc"``).
 
 A plan captures what the kernel launch needs: rank, tile (at depth 1
 one CUDA thread per output point of a tile; at depth > 1 and on
@@ -38,20 +38,38 @@ index folded into ``blockIdx.z`` (members × z tiles, or members ×
 stream segments), one block serving one member, so a batched launch
 needs no more shared memory per block than a single member's; the
 member count only multiplies the grid.
+
+``tc`` (the tensor-core regime, ``csrc/fused_stencil_tc.cu`` at every
+depth) follows the reference's rules: float32 or bfloat16, ``unroll ==
+1``, any rank, composing with ``fuse_steps``, ``batch`` and aux. Its
+taps are split by :func:`tc_axis_groups` (the port's copy of the
+reference's), every multi-tap group a banded contraction on the tensor
+cores. Its block is 1-D (:attr:`StencilPlan.threads`, a whole number of
+warps) and loops over the points of each sweep's region, so its tile
+is bounded by shared memory, not by the thread limit: the staged
+windows and the intermediate sweeps of :func:`temporal_smem_bytes` plus
+the f32 operator sums the contractions write between axes
+(:func:`tc_acc_points` per operator φ reads). No band is stored, so the
+reference's ``TC_MAX_TILE`` cap is kept only to plan the same tiles.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Sequence
 
-from repro_torch.core.stencil import OperatorSet
+from repro_torch.core.stencil import OperatorSet, StencilSpec
 
-STRATEGIES = ("swc", "swc_stream")
+STRATEGIES = ("swc", "swc_stream", "tc")
 
 # Strategies of the reference that have no Hopper kernel yet, with the
-# ROADMAP queue item that ports each.
-NOT_PORTED = {
-    "tc": "B4 (_kernel_tc, banded contractions on the tensor cores)",
+# ROADMAP queue item that ports each (none left).
+NOT_PORTED: dict[str, str] = {}
+
+# bfloat16 where the reference takes it and the port has no kernel yet,
+# with the ROADMAP item that adds it.
+BF16_NOT_PORTED = {
+    "temporal": "B2c (bfloat16 in the temporal kernel, swc at fuse_steps > 1)",
+    "swc_stream": "B3c (bfloat16 in the stream kernel)",
 }
 
 # Per-rank default tiles: 1024 threads, one output point each, x a
@@ -75,6 +93,19 @@ DEFAULT_STREAM_BLOCKS: dict[int, tuple[int, ...]] = {
     3: (16, 8, 32),
 }
 
+# tc's default tiles: the block's threads loop over the tile's points,
+# so the tile is sized for shared memory, with x a multiple of the MMA's
+# 8-wide output segment (TC_SEGMENT).
+DEFAULT_TC_BLOCKS: dict[int, tuple[int, ...]] = {
+    1: (512,),
+    2: (32, 64),
+    3: (8, 8, 32),
+}
+TC_MAX_TILE = 512  # the reference's per-axis cap on tc tiles
+TC_SEGMENT = 8  # outputs per MMA segment (mma.sync's n)
+MAX_TC_RADIUS = 4  # 8 + 2r band rows fit the MMA's k = 16
+TC_DTYPES = ("float32", "bfloat16")
+
 MAX_THREADS = 1024  # CUDA threads per block
 ONE_WARP = 32  # the smallest tile the temporal planner shrinks to
 MAX_FUSE_STEPS = 8  # sweeps per launch (rows of the kernels' parameter table)
@@ -88,7 +119,88 @@ MIN_STREAM_BLOCKS = 2 * 132
 STREAM_SEGMENT_HALOS = 8
 MAX_GRID_Z = 65_535  # gridDim.z limit: members x z tiles (or segments)
 
-ITEMSIZE = {"float32": 4, "float64": 8}
+ITEMSIZE = {"float32": 4, "float64": 8, "bfloat16": 2}
+
+
+def tc_axis_groups(
+    spec: StencilSpec, rank: int
+) -> dict[tuple[int, tuple[int, ...]], list[tuple[int, float]]]:
+    """Decompose one stencil's taps into per-axis contraction groups —
+    the lowering contract of the ``tc`` regime (port of the reference's
+    ``tc_axis_groups``).
+
+    Each tap is assigned a contraction axis: the LAST nonzero axis of
+    its offset (x for the center tap), so every arm of a star stencil
+    becomes one dense 1-D contraction along its own axis, and a mixed
+    partial like ∂xy falls apart into one x-contraction per y-offset.
+    The group key is ``(axis, rest)``, ``rest`` being the offset with
+    the contraction-axis component zeroed; the value lists
+    ``(offset_along_axis, coeff)`` taps in table order. Multi-tap groups
+    are banded contractions on the tensor cores; singleton groups stay
+    scalar multiplies.
+    """
+    groups: dict[
+        tuple[int, tuple[int, ...]], list[tuple[int, float]]
+    ] = {}
+    for off, c in zip(spec.offsets, spec.coeffs):
+        nonzero = [a for a in range(rank) if off[a] != 0]
+        axis = nonzero[-1] if nonzero else rank - 1
+        rest = tuple(0 if a == axis else off[a] for a in range(rank))
+        groups.setdefault((axis, rest), []).append(
+            (int(off[axis]), float(c))
+        )
+    return groups
+
+
+def tc_groups_per_axis(ops: OperatorSet) -> tuple[int, ...]:
+    """Number of multi-tap (tensor-core) contraction groups per axis
+    across an operator set."""
+    counts = [0] * ops.ndim
+    for spec in ops.ops:
+        for (axis, _), taps in tc_axis_groups(spec, ops.ndim).items():
+            if len(taps) > 1:
+                counts[axis] += 1
+    return tuple(counts)
+
+
+def _tap_bytes(itemsize: int) -> int:
+    """Bytes of one tap of the shared tap table (``Tap<T>``: the
+    coefficient and an int32 offset, aligned to twice the itemsize)."""
+    return 2 * max(itemsize, 4)
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def _lift3(t: Sequence[int], fill: int) -> tuple[int, ...]:
+    return (fill,) * (3 - len(t)) + tuple(t)
+
+
+def tc_threads(
+    block: Sequence[int], radii: Sequence[int], fuse_steps: int,
+    max_threads: int,
+) -> int:
+    """Threads of a ``tc`` block: sweep 0's points rounded up to whole
+    warps (the MMAs run per warp), at most the φ kind's ``max_threads``."""
+    region = sweep_regions(block, radii, fuse_steps)[0]
+    return min(max_threads, _round_up(_prod(region), 32))
+
+
+def tc_acc_points(
+    block: Sequence[int], radii: Sequence[int], fuse_steps: int,
+    n_slots: int, threads: int,
+) -> int:
+    """Points of each f32 operator-sum tile of the ``tc`` kernel
+    (``acc_points`` of ``csrc/fused_stencil_tc.cu``): sweep 0's region
+    for one slot (select, whose fields are contracted whole); for the
+    MHD kinds one batch of ``threads`` points plus the two planes it may
+    straddle, at most the region."""
+    region = _lift3(sweep_regions(block, radii, fuse_steps)[0], 1)
+    size = _prod(region)
+    if n_slots == 1:
+        return size
+    return min(size, threads + 2 * region[1] * region[2])
 
 
 def default_block(rank: int, max_threads: int = MAX_THREADS) -> tuple[int, ...]:
@@ -137,14 +249,19 @@ def temporal_smem_bytes(
     n_taps: int,
     n_ops: int,
     stage_buffers: int,
+    tc_slots: int = 0,
+    max_threads: int = MAX_THREADS,
 ) -> int:
     """Shared memory of one block of ``csrc/fused_stencil_temporal.cu``
-    (its ``layout``), each buffer padded to 16 B: ``stage_buffers``
-    windows of one field (tile + 2rS); all n_f fields of sweep 0's and,
-    from depth 3, sweep 1's region (the sweeps' outputs go to these two
-    in turn); the n_aux carry rows of those sweeps cut by r; the tap
-    table (coefficient and int32 offset, aligned to twice the itemsize)
-    and the int32 operator starts."""
+    (``temporal_layout`` of ``csrc/temporal_body.cuh``), each buffer
+    padded to 16 B: ``stage_buffers`` windows of one field (tile +
+    2rS); all n_f fields of sweep 0's and, from depth 3, sweep 1's
+    region (the sweeps' outputs go to these two in turn); the n_aux
+    carry rows of those sweeps cut by r; then the derivative
+    evaluator's own: the tap table (coefficient and int32 offset,
+    aligned to twice the itemsize) and the int32 operator starts, or,
+    for ``csrc/fused_stencil_tc.cu`` (``tc_slots`` operators φ reads,
+    any depth), the f32 operator sums (:func:`tc_acc_points` each)."""
     regions = sweep_regions(block, radii, fuse_steps)
     window = tuple(t + 2 * r * fuse_steps for t, r in zip(block, radii))
     total = stage_buffers * _round16(_prod(window) * itemsize)
@@ -153,7 +270,12 @@ def temporal_smem_bytes(
     if n_aux:
         for i in range(min(2, fuse_steps - 1)):
             total += _round16(n_aux * _prod(regions[i + 1]) * itemsize)
-    return total + n_taps * 2 * itemsize + (n_ops + 1) * 4
+    if tc_slots:
+        threads = tc_threads(block, radii, fuse_steps, max_threads)
+        return total + 4 * tc_slots * tc_acc_points(
+            block, radii, fuse_steps, tc_slots, threads
+        )
+    return total + n_taps * _tap_bytes(itemsize) + (n_ops + 1) * 4
 
 
 def stream_smem_bytes(
@@ -179,7 +301,7 @@ def stream_smem_bytes(
     regions = sweep_regions(block, radii, fuse_steps)
     for i in range(min(2, fuse_steps - 1)):
         total += _round16(n_f * _prod(regions[i]) * itemsize)
-    return total + n_taps * 2 * itemsize + (n_ops + 1) * 4
+    return total + n_taps * _tap_bytes(itemsize) + (n_ops + 1) * 4
 
 
 def largest_divisor_leq(n: int, cap: int) -> int:
@@ -219,13 +341,16 @@ class StencilPlan:
             depth > 1, and segments that do not divide the chunks; a
             batch below 1, aux with ``batch > 1`` at depth > 1 (as the
             reference), and a grid whose members × z tiles (or × stream
-            segments) exceed the ``MAX_GRID_Z`` blocks CUDA allows.
+            segments) exceed the ``MAX_GRID_Z`` blocks CUDA allows; on
+            ``tc`` a dtype other than float32/bfloat16 (the reference's
+            rule), ``unroll > 1`` and a radius over ``MAX_TC_RADIUS``.
         NotImplementedError: for a strategy of the reference whose
-            kernel is not ported yet.
+            kernel is not ported yet, and bfloat16 on ``swc`` at depth
+            > 1 or on ``swc_stream`` (``BF16_NOT_PORTED``).
     """
 
     rank: int
-    strategy: str  # "swc" or "swc_stream"
+    strategy: str  # "swc", "swc_stream" or "tc"
     block: tuple[int, ...]  # rank-length tile, x last
     radii: tuple[int, ...]  # halo width per axis
     interior: tuple[int, ...]  # unpadded spatial extents
@@ -241,6 +366,7 @@ class StencilPlan:
     max_threads: int = MAX_THREADS  # the φ kind's threads per block
     segments: int = 1  # swc_stream: pieces of the stream axis
     batch: int = 1  # ensemble members per launch
+    n_slots: int = 1  # tc: operators φ reads (its f32 sum tiles)
 
     def __post_init__(self) -> None:
         if self.strategy in NOT_PORTED:
@@ -253,6 +379,36 @@ class StencilPlan:
                 f"strategy {self.strategy!r} not in {STRATEGIES}"
             )
         stream = self.strategy == "swc_stream"
+        tc = self.strategy == "tc"
+        if tc and self.dtype not in TC_DTYPES:
+            raise ValueError(
+                "strategy='tc' contracts the derivatives on the tensor "
+                "cores with float32 accumulation — dtype must be "
+                "'float32' or 'bfloat16' (bf16 inputs, f32 accumulate); "
+                f"got {self.dtype!r}. For float64 fields use "
+                "strategy='swc' or 'hwc'."
+            )
+        if tc and self.unroll != 1:
+            raise ValueError(
+                "tc lowers each axis to banded contractions per block — "
+                "element-wise unrolling does not compose; use unroll=1 "
+                "with strategy='tc'"
+            )
+        if tc and max(self.radii) > MAX_TC_RADIUS:
+            raise ValueError(
+                f"tc's band of 8 + 2r rows fits the MMA's k = 16 for "
+                f"radius <= {MAX_TC_RADIUS}; got radii {self.radii}"
+            )
+        if self.dtype == "bfloat16" and not tc:
+            item = (
+                "swc_stream" if stream
+                else "temporal" if self.fuse_steps > 1 else None
+            )
+            if item is not None:
+                raise NotImplementedError(
+                    "bfloat16 on this kernel is not ported yet: ROADMAP "
+                    f"{BF16_NOT_PORTED[item]}"
+                )
         if stream and self.rank == 1:
             raise ValueError(
                 "swc_stream walks the slowest spatial axis chunk by chunk "
@@ -272,8 +428,7 @@ class StencilPlan:
             raise ValueError(f"batch must be >= 1, got {self.batch}")
         if self.dtype not in ITEMSIZE:
             raise ValueError(
-                f"dtype {self.dtype!r} not in {tuple(ITEMSIZE)} (bfloat16 "
-                "waits for a later slice)"
+                f"dtype {self.dtype!r} not in {tuple(ITEMSIZE)}"
             )
         for name, t in (
             ("block", self.block),
@@ -356,7 +511,9 @@ class StencilPlan:
                 f"tile {self.block} has {self.threads} points, one CUDA "
                 f"thread each; a block holds at most {MAX_THREADS}"
             )
-        if self.rank == 3 and not stream and self.block[0] > MAX_TILE_Z:
+        if self.rank == 3 and self.strategy == "swc" and (
+            self.block[0] > MAX_TILE_Z
+        ):
             raise ValueError(
                 f"tile z extent {self.block[0]} exceeds blockDim.z "
                 f"limit {MAX_TILE_Z}"
@@ -407,7 +564,12 @@ class StencilPlan:
         ``max_threads`` (the φ kind's limit), at most the points of
         sweep 0's region (of one chunk) — the threads loop over each
         sweep's points, so a tile shrunk to fit shared memory keeps a
-        full block."""
+        full block. ``tc``, at any depth: those points rounded up to
+        whole warps (:func:`tc_threads`)."""
+        if self.strategy == "tc":
+            return tc_threads(
+                self.block, self.radii, self.fuse_steps, self.max_threads
+            )
         if self.fuse_steps == 1 and self.stream_axis is None:
             return _prod(self.block)
         region = sweep_regions(self.block, self.radii, self.fuse_steps)[0]
@@ -442,11 +604,12 @@ class StencilPlan:
     def stage_buffers(self) -> int:
         """Window buffers the kernel stages fields into: two (the next
         field lands while this one is read) at depth 1, and at depth
-        > 1 when there is a next field and two windows fit; else one.
-        ``swc_stream``: its one prefetch buffer of τ₀ planes."""
+        > 1 (and on ``tc`` at any depth) when there is a next field and
+        two windows fit; else one. ``swc_stream``: its one prefetch
+        buffer of τ₀ planes."""
         if self.stream_axis is not None:
             return 1
-        if self.fuse_steps == 1:
+        if self.fuse_steps == 1 and self.strategy != "tc":
             return 2
         if self.n_f > 1 and self._temporal_bytes(2) <= SMEM_PER_BLOCK:
             return 2
@@ -458,6 +621,8 @@ class StencilPlan:
             n_aux=self.n_aux, itemsize=ITEMSIZE.get(self.dtype, 8),
             n_taps=self.n_taps, n_ops=self.n_ops,
             stage_buffers=stage_buffers,
+            tc_slots=self.n_slots if self.strategy == "tc" else 0,
+            max_threads=self.max_threads,
         )
 
     @property
@@ -467,19 +632,23 @@ class StencilPlan:
         (each padded to 16 B; the next field lands while this one is
         read), the tap table (coefficient in the field dtype and int32
         window offset, aligned to twice the itemsize) and the int32
-        operator start table. Depth > 1: :func:`temporal_smem_bytes`.
-        ``swc_stream``: :func:`stream_smem_bytes`."""
+        operator start table. Depth > 1, and ``tc`` at any depth:
+        :func:`temporal_smem_bytes`. ``swc_stream``:
+        :func:`stream_smem_bytes`."""
         if self.stream_axis is not None:
             return stream_smem_bytes(
                 self.block, self.radii, self.fuse_steps, n_f=self.n_f,
                 itemsize=ITEMSIZE.get(self.dtype, 8), n_taps=self.n_taps,
                 n_ops=self.n_ops,
             )
-        if self.fuse_steps > 1:
+        if self.fuse_steps > 1 or self.strategy == "tc":
             return self._temporal_bytes(self.stage_buffers)
         itemsize = ITEMSIZE.get(self.dtype, 8)
         window = _round16(_prod(self.window) * itemsize)
-        return 2 * window + self.n_taps * 2 * itemsize + (self.n_ops + 1) * 4
+        return (
+            2 * window + self.n_taps * _tap_bytes(itemsize)
+            + (self.n_ops + 1) * 4
+        )
 
 
 def plan_stencil(
@@ -496,6 +665,7 @@ def plan_stencil(
     accuracy: int | None = None,
     max_threads: int = MAX_THREADS,
     batch: int | None = None,
+    n_slots: int = 1,
 ) -> StencilPlan:
     """Lower a fused-stencil problem to a :class:`StencilPlan`.
 
@@ -528,6 +698,11 @@ def plan_stencil(
     ``MIN_STREAM_BLOCKS`` blocks while each piece stays
     ``STREAM_SEGMENT_HALOS`` carried halos long, the members counted
     among the blocks.
+
+    ``tc``: ``block=None`` is ``DEFAULT_TC_BLOCKS[rank]``, each axis
+    capped at ``TC_MAX_TILE`` as in the reference; the tile is fitted to
+    shared memory at every depth as the temporal planner fits it, with
+    the f32 sums of the ``n_slots`` operators φ reads counted.
     """
     rank = ops.ndim
     if accuracy is None:
@@ -562,6 +737,8 @@ def plan_stencil(
 
     if block is None and strategy == "swc_stream" and rank > 1:
         block = DEFAULT_STREAM_BLOCKS[rank]
+    elif block is None and strategy == "tc":
+        block = DEFAULT_TC_BLOCKS[rank]
     elif block is None:
         block = default_block(rank, max_threads)
     if isinstance(block, int):
@@ -569,6 +746,8 @@ def plan_stencil(
     block = tuple(int(b) for b in block)
     if len(block) > rank:
         block = block[-rank:]
+    if strategy == "tc":
+        block = tuple(min(b, TC_MAX_TILE) for b in block)
     if len(block) != rank:
         raise ValueError(
             f"block {block} must have {rank} entries (or more, trailing "
@@ -602,11 +781,13 @@ def plan_stencil(
         segments = _stream_segments(
             clamped, interior, radii, fuse_steps, int(batch)
         )
-    elif fuse_steps > 1 and strategy != "swc_stream":
+    elif (fuse_steps > 1 or strategy == "tc") and strategy != "swc_stream":
+        tc = strategy == "tc"
         clamped = _fit_temporal(
             clamped, interior, radii, fuse_steps, n_f=padded_shape[0],
             n_aux=int(n_aux), itemsize=itemsize,
             n_taps=ops.taps_per_point, n_ops=ops.n_s,
+            tc_slots=int(n_slots) if tc else 0, max_threads=max_threads,
         )
 
     return StencilPlan(
@@ -627,6 +808,7 @@ def plan_stencil(
         max_threads=int(max_threads),
         segments=segments,
         batch=int(batch),
+        n_slots=int(n_slots),
     )
 
 
@@ -705,3 +887,55 @@ def _stream_segments(tile, interior, radii, fuse_steps, batch=1) -> int:
         if cross * seg >= MIN_STREAM_BLOCKS:
             break
     return best
+
+
+def tc_issued_macs(
+    plan: StencilPlan, ops: OperatorSet, operators: Sequence[str]
+) -> tuple[int, int]:
+    """Multiply-adds of one ``tc`` launch: ``(issued, needed)``.
+
+    ``issued`` counts what the kernel's MMAs issue for the multi-tap
+    groups of ``operators`` (the ones φ reads), band zeros, the padding
+    of k to 16 and the masked outputs of ragged segments included: per
+    field, per sweep and per box the kernel contracts (the sweep's
+    region for one operator; for several, each batch of ``threads``
+    points widened to its whole planes), ``ceil(row-segments / rows)``
+    tiles of ``rows × 8 × k`` — 16 rows and k = 16 in bf16, 8 rows and
+    k = 4·ceil((8 + 2r) / 4) on the f64 MMA of f32 fields. ``needed``
+    counts one multiply-add per tap of those groups per output point.
+    Both cover every block and member of the launch; lone taps are in
+    neither.
+    """
+    bf16 = plan.dtype == "bfloat16"
+    rows = 16 if bf16 else 8
+    radii = _lift3(plan.radii, 0)
+    specs = [ops.ops[ops.names.index(n)] for n in operators]
+    groups = []  # (lifted axis, taps) of every multi-tap group
+    for spec in specs:
+        for (axis, _), taps in tc_axis_groups(spec, plan.rank).items():
+            if len(taps) > 1:
+                groups.append((axis + 3 - plan.rank, len(taps)))
+    issued = needed = 0
+    regions = sweep_regions(plan.block, plan.radii, plan.fuse_steps)
+    for region in regions:
+        rb = _lift3(region, 1)
+        size, plane = _prod(rb), rb[1] * rb[2]
+        if len(operators) == 1:
+            boxes = [rb]
+        else:
+            boxes = []
+            for p0 in range(0, size, plan.threads):
+                last = min(p0 + plan.threads, size) - 1
+                zlo, zhi = p0 // plane, last // plane
+                boxes.append((zhi - zlo + 1, rb[1], rb[2]))
+        for box in boxes:
+            for axis, n_taps in groups:
+                k = 16 if bf16 else 4 * -(-(TC_SEGMENT + 2 * radii[axis]) // 4)
+                nseg = -(-box[axis] // TC_SEGMENT)
+                segs = nseg * _prod(box) // box[axis]
+                issued += -(-segs // rows) * rows * TC_SEGMENT * k
+        needed += _prod(region) * sum(n for _, n in groups)
+    blocks = plan.batch * _prod(
+        n // t for n, t in zip(plan.interior, plan.block)
+    )
+    return issued * plan.n_f * blocks, needed * plan.n_f * blocks

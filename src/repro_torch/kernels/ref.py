@@ -7,7 +7,14 @@ version every CUDA kernel of the port is held against. Each operator
 accumulates its taps in the reference's order, with each coefficient
 cast to the field dtype BEFORE the multiply (``ref.py:55`` and
 ``emit.py:92`` of the reference), so float32 results round like the
-reference's.
+reference's; in bfloat16 every product and every sum is rounded to
+bfloat16, as the reference's elementwise arithmetic is.
+
+The ``tc`` regime's plain version (:func:`apply_operator_set_tc` and
+the ``fused_stencil_tc*`` forms) rounds as ``_block_derivs_tc`` of the
+reference does: multi-tap groups contracted in float32 with the band in
+the field dtype, lone taps rounded in the field dtype, the groups summed
+in float32 in sorted order and cast back once per operator.
 """
 from __future__ import annotations
 
@@ -16,6 +23,15 @@ from typing import Callable
 import torch
 
 from repro_torch.core.stencil import OperatorSet
+from repro_torch.kernels.plan import tc_axis_groups
+
+
+def _coeff(c: float, dtype: torch.dtype) -> torch.Tensor:
+    """A tap coefficient in ``dtype``, as the kernels cast it
+    (``cast_coef``): bfloat16 through float32."""
+    if dtype == torch.bfloat16:
+        return torch.tensor(c, dtype=torch.float32).to(dtype)
+    return torch.tensor(c, dtype=dtype)
 
 
 def apply_operator_set(
@@ -41,9 +57,56 @@ def apply_operator_set(
                 slice(rad[a] + off[a], rad[a] + off[a] + spatial[a])
                 for a in range(ops.ndim)
             )
-            coeff = torch.tensor(c, dtype=f_padded.dtype)
-            acc = acc + coeff * f_padded[(slice(None),) + sl]
+            acc = acc + _coeff(c, f_padded.dtype) * f_padded[
+                (slice(None),) + sl
+            ]
         out[spec.name] = acc
+    return out
+
+
+def apply_operator_set_tc(
+    f_padded: torch.Tensor, ops: OperatorSet
+) -> dict[str, torch.Tensor]:
+    """:func:`apply_operator_set` as the ``tc`` regime rounds it (port
+    of the reference's ``_block_derivs_tc``).
+
+    Each operator's taps are split by ``tc_axis_groups``; groups are
+    taken in sorted ``(axis, rest)`` order. A multi-tap group is the
+    banded contraction of the window along its axis in float32: each
+    coefficient rounded to the field dtype (the band), window and band
+    widened to float32, the taps' products summed in float32 — the
+    band's zeros add nothing, so this is the contraction without them.
+    A lone tap is ``(c in dtype) × value`` rounded in the field dtype,
+    then widened. The float32 sum over groups is cast to the field
+    dtype once per operator.
+    """
+    rank = ops.ndim
+    rad = ops.radius_per_axis()
+    spatial = tuple(
+        f_padded.shape[1 + a] - 2 * rad[a] for a in range(rank)
+    )
+    dtype = f_padded.dtype
+
+    def window(off):
+        return f_padded[(slice(None),) + tuple(
+            slice(rad[a] + off[a], rad[a] + off[a] + spatial[a])
+            for a in range(rank)
+        )]
+
+    out: dict[str, torch.Tensor] = {}
+    for spec in ops.ops:
+        acc = None
+        for (axis, rest), taps in sorted(tc_axis_groups(spec, rank).items()):
+            term = None
+            for j, c in taps:
+                off = tuple(j if a == axis else rest[a] for a in range(rank))
+                if len(taps) == 1:
+                    term = (_coeff(c, dtype) * window(off)).float()
+                else:
+                    prod = _coeff(c, dtype).float() * window(off).float()
+                    term = prod if term is None else term + prod
+            acc = term if acc is None else acc + term
+        out[spec.name] = acc.to(dtype)
     return out
 
 
@@ -52,13 +115,19 @@ def fused_stencil(
     ops: OperatorSet,
     phi: Callable[..., torch.Tensor],
     aux: torch.Tensor | None = None,
+    *,
+    tc: bool = False,
 ) -> torch.Tensor:
     """The paper's fused φ(A·B) evaluation (Eq. 9), plain form.
 
     ``phi`` maps {op_name: (n_f, *spatial)} (and ``aux``, (n_aux,
-    *spatial), when given) to (n_out, *spatial).
+    *spatial), when given) to (n_out, *spatial). ``tc`` takes the
+    derivatives as the ``tc`` regime rounds them
+    (:func:`apply_operator_set_tc`).
     """
-    derivs = apply_operator_set(f_padded, ops)
+    derivs = (apply_operator_set_tc if tc else apply_operator_set)(
+        f_padded, ops
+    )
     if aux is None:
         return phi(derivs)
     return phi(derivs, aux)
@@ -70,10 +139,12 @@ def fused_stencil_steps(
     phi,
     n_steps: int,
     aux: torch.Tensor | None = None,
+    *,
+    tc: bool = False,
 ) -> torch.Tensor:
     """Sequential reference for temporal fusion: apply the fused op
     ``n_steps`` times, the valid region shrinking by one radius per
-    application.
+    application (``tc``: each with the ``tc`` regime's rounding).
 
     ``f_padded`` is padded by ``radius * n_steps`` per axis; ``aux`` (if
     given) by ``radius * (n_steps - 1)``. ``phi`` is one callable or a
@@ -92,7 +163,7 @@ def fused_stencil_steps(
     n_f = f_padded.shape[0]
     cur, cur_aux = f_padded, aux
     for s, phi_s in enumerate(phis):
-        out = fused_stencil(cur, ops, phi_s, aux=cur_aux)
+        out = fused_stencil(cur, ops, phi_s, aux=cur_aux, tc=tc)
         if s == n_steps - 1:
             break
         cur = out[:n_f]
@@ -114,6 +185,8 @@ def fused_stencil_batched(
     ops: OperatorSet,
     phi: Callable[..., torch.Tensor],
     aux: torch.Tensor | None = None,
+    *,
+    tc: bool = False,
 ) -> torch.Tensor:
     """Batched (ensemble) plain version: :func:`fused_stencil` on each
     member of a leading member axis.
@@ -125,7 +198,8 @@ def fused_stencil_batched(
     """
     return torch.stack([
         fused_stencil(
-            f_padded[m], ops, phi, aux=None if aux is None else aux[m]
+            f_padded[m], ops, phi, aux=None if aux is None else aux[m],
+            tc=tc,
         )
         for m in range(f_padded.shape[0])
     ])
@@ -137,6 +211,8 @@ def fused_stencil_steps_batched(
     phi,
     n_steps: int,
     aux: torch.Tensor | None = None,
+    *,
+    tc: bool = False,
 ) -> torch.Tensor:
     """Batched sequential reference for temporal fusion:
     :func:`fused_stencil_steps` on each member (see
@@ -144,7 +220,24 @@ def fused_stencil_steps_batched(
     return torch.stack([
         fused_stencil_steps(
             f_padded[m], ops, phi, n_steps,
-            aux=None if aux is None else aux[m],
+            aux=None if aux is None else aux[m], tc=tc,
         )
         for m in range(f_padded.shape[0])
     ])
+
+
+def fused_stencil_tc(f_padded, ops, phi, aux=None):
+    """The ``tc`` regime's plain version (:func:`fused_stencil` with
+    ``tc=True``): the oracle of ``csrc/fused_stencil_tc.cu``."""
+    return fused_stencil(f_padded, ops, phi, aux=aux, tc=True)
+
+
+def fused_stencil_tc_steps(f_padded, ops, phi, n_steps, aux=None):
+    """:func:`fused_stencil_steps` with the ``tc`` regime's rounding."""
+    return fused_stencil_steps(f_padded, ops, phi, n_steps, aux=aux, tc=True)
+
+
+def fused_stencil_tc_batched(f_padded, ops, phi, aux=None):
+    """:func:`fused_stencil_batched` with the ``tc`` regime's rounding."""
+    return fused_stencil_batched(f_padded, ops, phi, aux=aux, tc=True)
+

@@ -18,8 +18,8 @@ stencil engine:
   never the queue. Every batch runs under a :class:`RetryPolicy`:
   transient failures retry with backoff; repeated failures degrade the
   bucket down the strategy ladder (``tc → swc_stream → swc → hwc``,
-  rungs whose op does not build for the bucket skipped — ``tc`` always,
-  until ROADMAP B4). On the card the ladder stops above ``hwc``: the
+  rungs whose op does not build for the bucket skipped: ``swc_stream``
+  at rank 1). On the card the ladder stops above ``hwc``: the
   plain PyTorch version never stands in for a failing kernel. A batch
   that fails even at the lowest rung it may take is bisected until the
   poison request is isolated and quarantined (its error lands in
@@ -36,7 +36,8 @@ stencil engine:
 Not ported yet, and raising ``NotImplementedError`` naming the ROADMAP
 item: ``strategy="auto"``, ``block="auto"`` (``--auto-tune``) and
 ``--chaos`` (the tuner, its cache and the chaos plan's tuning faults:
-A9), ``strategy="tc"`` (B4).
+A9). ``strategy="tc"`` serves each bucket through the tensor-core
+kernel, one batched launch per step.
 
 Run:  PYTHONPATH=src python -m repro_torch.launch.serve_sim --smoke
       (on the card; add ``--device cpu`` for the plain PyTorch path)
@@ -69,10 +70,10 @@ log = logging.getLogger("repro_torch.serve")
 BucketKey = tuple[tuple[int, ...], str, int]
 
 # Graceful-degradation order: most specialized caching regime first,
-# the plain PyTorch baseline (which always runs) last. Waiting on ROADMAP
-# items, as in ``ft.faults``' tuning hooks (A9): the ``tc`` rung is never
-# built until B4, and ``RetryPolicy.degrade("auto")`` is reached only
-# once ``strategy="auto"`` is (A9).
+# the plain PyTorch baseline (which always runs) last.
+# ``RetryPolicy.degrade("auto")`` is reached only once
+# ``strategy="auto"`` is ported (ROADMAP A9, as ``ft.faults``' tuning
+# hooks).
 DEGRADATION_LADDER = ("tc", "swc_stream", "swc", "hwc")
 
 # The rung that is the plain PyTorch version, not a kernel: skipped on
@@ -207,7 +208,8 @@ class SimServer:
     server's device and cached for its lifetime (``op_builds`` counts
     builds); requests are stacked on that device to (B, n_f, *spatial)
     and integrated in one batched call per bucket, one kernel launch per
-    step on ``swc``/``swc_stream``. Results stay tensors on the device.
+    step on ``swc``/``swc_stream``/``tc``. Results stay tensors on the
+    device.
 
     Failure domains: every batch executes inside a try/except driven by
     ``retry`` (:class:`RetryPolicy` — retry with backoff, then the
@@ -231,8 +233,8 @@ class SimServer:
     kernels' plain PyTorch versions.
 
     Raises:
-        NotImplementedError: for ``strategy="auto"``, ``block="auto"``
-            (ROADMAP A9) and ``strategy="tc"`` (ROADMAP B4).
+        NotImplementedError: for ``strategy="auto"`` and
+            ``block="auto"`` (ROADMAP A9).
     """
 
     def __init__(
@@ -421,9 +423,9 @@ class SimServer:
 
     def _next_viable(self, strategy: str, key: BucketKey) -> str | None:
         """First rung below ``strategy`` whose op actually builds for
-        this bucket (``swc_stream`` needs rank ≥ 2; ``tc`` is not
-        ported — invalid rungs are skipped, not crashed into). On a
-        CUDA device the plain ``hwc`` rung is skipped too."""
+        this bucket (``swc_stream`` needs rank ≥ 2 — invalid rungs are
+        skipped, not crashed into). On a CUDA device the plain ``hwc``
+        rung is skipped too."""
         nxt = self.retry.degrade(strategy)
         while nxt is not None:
             if nxt == PLAIN_RUNG and self.device.type == "cuda":

@@ -7,7 +7,9 @@ step, any dimensionality, any even accuracy order. On the card each
 step is one launch of the fused-stencil kernel with the ``select`` φ,
 or ``fuse_steps`` steps are one launch of the temporal kernel; with
 ``strategy="swc_stream"`` (ranks 2 and 3) one launch of the stream
-kernel per call at any depth.
+kernel per call at any depth; with ``strategy="tc"`` (float32 or
+bfloat16 fields) one launch of the tensor-core kernel per call at any
+depth.
 """
 from __future__ import annotations
 
@@ -67,7 +69,8 @@ class DiffusionProblem:
         """One forward-Euler step as a fused op (φ selects the merged
         "step" operator). ``strategy="swc"`` runs the CUDA kernel at any
         rank, ``strategy="swc_stream"`` the explicit-streaming kernel
-        (2-D/3-D: it walks the slowest axis, carrying its halo planes);
+        (2-D/3-D: it walks the slowest axis, carrying its halo planes),
+        ``strategy="tc"`` the tensor-core kernel (float32 or bfloat16);
         ``block`` is a rank-length tile or None for the default (on
         ``swc_stream`` ``block[0]`` is the chunk of the walk);
         ``fuse_steps > 1`` advances that many steps per call (one

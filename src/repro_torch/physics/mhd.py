@@ -277,7 +277,10 @@ class MHDSolver:
     f64 until all 8 fields' working set fits shared memory). The
     fused-axpy forms (``fuse_rk_axpy``, ``fuse_rk_pairs``) hand φ the
     carry as aux, which ``swc_stream`` refuses with ``ValueError``, as
-    the reference does.
+    the reference does. ``strategy="tc"`` runs all three forms through
+    the tensor-core kernel (float32; the pair at depth 2); bfloat16
+    fields raise ``NotImplementedError`` on the CUDA strategies (ROADMAP
+    B4b).
     """
 
     shape: tuple[int, int, int]

@@ -250,12 +250,15 @@ def test_cpu_path_counts_no_launch():
 def test_not_ported_options_raise():
     ops = ts.derivative_operator_set(2, 2)
     fp = torch.zeros(1, 10, 10)
-    for kw, item in (
-        (dict(strategy="tc"), "B4"),
-        (dict(block="auto"), "A9"),
-    ):
-        with pytest.raises(NotImplementedError, match=item):
-            fused_stencil_nd(fp, ops, select_phi("val"), 1, **kw)
+    with pytest.raises(NotImplementedError, match="A9"):
+        fused_stencil_nd(fp, ops, select_phi("val"), 1, block="auto")
+    # bf16 waits for the stream kernel (B3c).
+    with pytest.raises(NotImplementedError, match="B3c"):
+        fused_stencil_nd(fp.to(torch.bfloat16), ops, select_phi("val"), 1,
+                         strategy="swc_stream")
+    # The tensor-core regime (B4) is ported.
+    out = fused_stencil_nd(fp, ops, select_phi("val"), 1, strategy="tc")
+    assert out.shape == (1, 8, 8)
     # The ensemble batch axis (B5) is ported: a leading member axis.
     out = fused_stencil_nd(fp[None], ops, select_phi("val"), 1)
     assert out.shape == (1, 1, 8, 8)

@@ -32,8 +32,9 @@ def _env():
 
 def test_port_imports_no_jax_and_no_reference_package():
     """Import every module of the port and run a CPU step of each
-    solver in a fresh interpreter; then neither ``jax*`` nor
-    ``repro``/``repro.*`` may be loaded."""
+    solver (diffusion on ``swc`` and on ``tc`` in f32 and bf16, MHD on
+    ``swc`` and ``tc``) in a fresh interpreter; then neither ``jax*``
+    nor ``repro``/``repro.*`` may be loaded."""
     modules = sorted(
         ".".join(p.relative_to(SRC).with_suffix("").parts)
         for p in PKG.rglob("*.py")
@@ -46,7 +47,12 @@ def test_port_imports_no_jax_and_no_reference_package():
         from repro_torch.physics.mhd import MHDSolver
         p = DiffusionProblem((8, 16))
         simulate(p, p.init_field(device="cpu"), 2, strategy="swc", device="cpu")
+        for dtype in ("float32", "bfloat16"):
+            simulate(p, p.init_field(device="cpu", dtype=dtype), 2,
+                     strategy="tc", fuse_steps=2, device="cpu")
         s = MHDSolver((8, 8, 16), strategy="swc", fuse_rk_axpy=True, device="cpu")
+        s.step(s.init_fields(), 1e-3)
+        s = MHDSolver((8, 8, 16), strategy="tc", fuse_rk_pairs=True, device="cpu")
         s.step(s.init_fields(), 1e-3)
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "repro")]
@@ -125,7 +131,6 @@ def test_swc_refuses_a_bare_callable():
     "kw,item",
     [
         (dict(fuse_steps="auto"), "A9"),
-        (dict(strategy="tc"), "B4"),
         (dict(strategy="auto"), "A9"),
         (dict(block="auto"), "A9"),
         (dict(boundary_weights=True), "A3"),

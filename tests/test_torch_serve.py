@@ -59,7 +59,7 @@ def _server(**kw):
 # --- the port against the JAX server --------------------------------------------
 
 
-@pytest.mark.parametrize("strategy", ("swc", "swc_stream"))
+@pytest.mark.parametrize("strategy", ("swc", "swc_stream", "tc"))
 def test_server_matches_jax_server_per_request(strategy):
     """``--smoke``'s queue (12 requests over (16, 32) and (12, 24), 8
     steps, batches of 4) through both servers: the same buckets, batch
@@ -110,8 +110,7 @@ def test_check_parity_and_member_reference():
 
 @pytest.mark.parametrize(
     "kw,item",
-    [(dict(strategy="auto"), "A9"), (dict(block="auto"), "A9"),
-     (dict(strategy="tc"), "B4")],
+    [(dict(strategy="auto"), "A9"), (dict(block="auto"), "A9")],
 )
 def test_unported_options_name_their_roadmap_item(kw, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -126,15 +125,32 @@ def test_cli_options_of_the_tuner_raise(argv):
 
 
 def test_ladder_skips_the_unported_tc_rung():
-    """The reference skips a rung whose op does not build; ``tc``
-    never builds in the port, nor ``swc_stream`` at rank 1."""
+    """The reference skips a rung whose op does not build: ``swc_stream``
+    at rank 1. The ``tc`` rung builds now (ROADMAP B4 is ported), so it
+    is a rung like the others, at every rank."""
     server = _server()
     assert DEGRADATION_LADDER == ("tc", "swc_stream", "swc", "hwc")
     key2, key1 = ((8, 16), "float32", 2), ((32,), "float32", 2)
     assert server._next_viable("auto", key2) == "swc"
     server.retry = RetryPolicy(ladder=("swc", "tc", "swc_stream", "hwc"))
-    assert server._next_viable("swc", key2) == "swc_stream"
-    assert server._next_viable("swc", key1) == "hwc"
+    assert server._next_viable("swc", key2) == "tc"
+    assert server._next_viable("swc", key1) == "tc"
+    assert server._next_viable("tc", key2) == "swc_stream"
+    assert server._next_viable("tc", key1) == "hwc"
+
+
+def test_tc_server_serves_every_bucket_on_tc():
+    """``SimServer(strategy="tc")``, the ladder's top rung: every batch
+    on ``tc``, every request ``ok``, within 1e-5 of its per-member plain
+    version."""
+    queue = demo_queue([(16, 32), (12, 24), (64,)], 4, 9, device=CPU)
+    by_id = {r.req_id: r for r in queue.snapshot()}
+    server = _server(strategy="tc")
+    results = server.serve(queue)
+    assert sorted(results) == list(range(9))
+    assert {r.strategy for r in server.reports} == {"tc"}
+    assert set(server.request_status.values()) == {"ok"}
+    assert check_parity(server, by_id, results) >= 0.0
 
 
 # --- tests/test_serve_sim.py, ported ----------------------------------------------
@@ -475,7 +491,7 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("strategy", ("swc", "swc_stream"))
+@pytest.mark.parametrize("strategy", ("swc", "swc_stream", "tc"))
 def test_server_on_card_launches_once_per_step(cuda_device, strategy):
     queue = demo_queue([(16, 32), (12, 24)], n_steps=3, requests=8,
                        device=cuda_device)
@@ -507,3 +523,34 @@ def test_server_on_card_quarantines_when_the_kernel_does_not_build(
     assert results == {}
     assert set(server.request_status.values()) == {"quarantined"}
     assert "hwc" not in {rep.strategy for rep in server.reports}
+
+
+@pytest.mark.cuda
+def test_tc_bucket_degrades_to_swc_stream_when_tc_does_not_build(
+    cuda_device, monkeypatch
+):
+    """The tc kernel's build made to fail: the bucket degrades to
+    ``swc_stream`` on the card (every request ``degraded``, served by the
+    stream kernel), never to ``hwc``."""
+    real = emit._lib
+
+    def tc_build_fails(name):
+        if name == emit.TC_KERNEL:
+            raise RuntimeError(f"nvcc failed on {name}.cu")
+        return real(name)
+
+    monkeypatch.setattr(emit, "_lib", tc_build_fails)
+    server = SimServer(strategy="tc", max_batch=4,
+                       retry=RetryPolicy(max_retries=1, backoff_s=0.0))
+    queue = demo_queue([(16, 32)], n_steps=2, requests=4,
+                       device=cuda_device)
+    by_id = {r.req_id: r for r in queue.snapshot()}
+    emit.reset_launch_counts()
+    results = server.serve(queue)
+    assert sorted(results) == [0, 1, 2, 3]
+    assert set(server.request_status.values()) == {"degraded"}
+    assert {rep.strategy for rep in server.reports} == {"swc_stream"}
+    assert set(emit.fused_stencil_swc.launches_by_kernel) == {
+        emit.STREAM_KERNEL
+    }
+    assert check_parity(server, by_id, results) >= 0.0

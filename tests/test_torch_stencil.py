@@ -99,14 +99,19 @@ def test_plan_rejects_what_hopper_cannot_hold():
         )
     with pytest.raises(ValueError, match="thread"):
         tplan.plan_stencil(ops, shape, 8, block=(4, 16, 32))
-    with pytest.raises(NotImplementedError, match="ROADMAP B4"):
-        tplan.plan_stencil(ops, shape, 8, strategy="tc")
+    # tc (B4) is ported; float64 is not a tc type (the reference's rule).
+    with pytest.raises(ValueError, match="float32.*bfloat16"):
+        tplan.plan_stencil(ops, shape, 8, strategy="tc", dtype="float64")
     # swc_stream (B3) is ported, for ranks 2 and 3 only.
     with pytest.raises(ValueError, match="strategy='swc'"):
         tplan.plan_stencil(ts.derivative_operator_set(1, 6), (1, 70), 1,
                            strategy="swc_stream")
     with pytest.raises(ValueError, match="dtype"):
-        tplan.plan_stencil(ops, shape, 8, dtype="bfloat16")
+        tplan.plan_stencil(ops, shape, 8, dtype="float16")
+    # bf16 on swc at depth 1 is B1b (ported); the stream kernel waits.
+    with pytest.raises(NotImplementedError, match="ROADMAP B3c"):
+        tplan.plan_stencil(ops, shape, 8, dtype="bfloat16",
+                           strategy="swc_stream")
 
 
 def test_plan_unroll_and_clamp():
