@@ -35,6 +35,12 @@ Phases (each raises on failure; none is caught):
    ragged, two selected fields, B = 3 (each member equal to its
    unbatched launch), and the MHD RHS, fused substep (aux) and pair on
    a cube and a non-cubic box, the RHS and substep also at B = 3.
+   Then tc beyond radius 4 (orders 10 and 12, f32 and bf16, ranks 1-3),
+   depths 9 and 12 on B2, B3 and B4 at 2-D (order 2, f32), and the B6
+   cross-correlation (``csrc/xcorr1d.cu``) against ``ref.xcorr1d``: each
+   strategy at unroll 4, f32 and f64, radii 0-1024, n = 2^20 + 123 (a
+   ragged last block), each block's threads and shared bytes held to
+   the kernel's own layout.
 3. Main path at full size, through the entry points a user calls, with
    the launch counters (total, per depth and per kernel) zeroed just
    before and read just after each run: MHD 256³ f32 RK3 with the fused
@@ -59,7 +65,10 @@ Phases (each raises on failure; none is caught):
    bf16 on ``swc``, B1b, held to the plain bf16 version), 8192² and
    2^26 f32, each held to f32 ``swc``. The serve phase also runs
    ``SimServer(strategy="tc")``: 8 ``fused_stencil_tc`` launches per
-   batch.
+   batch. The 1-D path: ``step_1d_xcorr`` on diffusion at 2^26, order 6,
+   f32, 5 steps on each B6 strategy, exactly one ``xcorr1d`` launch per
+   step (and no fused-stencil launch), held to ``simulate(...,
+   strategy="swc")`` (B1 at rank 1) within 1e-5.
 4. Times (CUDA events, median after warm-up) of each kernel, its plain
    version and, for diffusion, ``F.conv{1,2,3}d`` with the merged
    stencil as a dense weight (S calls at depth S); the bound is
@@ -79,6 +88,11 @@ Phases (each raises on failure; none is caught):
    (989 TFLOP/s bf16 MMA; 67 TFLOP/s f64 MMA for f32 fields) and print
    the banded multiply-adds the MMAs issue beside the taps' own
    (``plan.tc_issued_macs``); the bf16 rows time ``conv*d`` in bf16.
+   B6 rows: each strategy at n = 2^24 (fig07's size), f32 at radii
+   1-1024 and f64 at r = 1 and 1024, and the 2^26 ``step_1d_xcorr``
+   launch (the kernels line's B6 rows); bound max((2n + 2r + taps) ×
+   itemsize / memory rate, 2 × taps × n / non-tensor rate); library
+   ``F.conv1d`` (cuDNN) with ``cudnn.allow_tf32`` off.
    Each phase prints its seconds.
 
 The line before the last is ``{"kernels": [...]}``; the last is
@@ -107,6 +121,13 @@ BATCH_REPLACES = "src/repro/kernels/emit.py:345"  # _fused_batched (+ _member_ph
 TC_SOURCE = "src/repro_torch/kernels/csrc/fused_stencil_tc.cu"
 TC_REPLACES = "src/repro/kernels/emit.py:233"  # _kernel_tc (+ _block_derivs_tc :153)
 TC = "fused_stencil_tc"
+XCORR_SOURCE = "src/repro_torch/kernels/csrc/xcorr1d.cu"
+# xcorr1d_pallas (+ _kernel_baseline :52, _kernel_elementwise :56, _mac_loop :35)
+XCORR_REPLACES = "src/repro/kernels/stencil1d.py:73"
+# B6's strategies as the paper's Figs. 8-9 run them: unroll 4 (baseline
+# ignores it, as the reference's does).
+XCORR_STRATEGIES = (("baseline", 4), ("pointwise", 4), ("elementwise", 4))
+XCORR_RADII = (0, 1, 5, 32, 200, 1024)
 TOL = {"float32": 1e-5, "float64": 1e-12, "bfloat16": 2e-2}
 # Tensor-core rates of the tc routes (data sheet, SXM): bf16 MMA; the
 # f32 fields contract on the f64 MMA.
@@ -383,6 +404,18 @@ def compare_batched(label, case, dtype):
           "exactly")
 
 
+def xcorr_inputs(n, radius, dtype, device, seed=0):
+    """(f_padded, g) of n outputs at ``radius``: standard normal draws
+    from a seeded CPU generator, moved to ``device``."""
+    import torch
+
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    f = torch.randn(n + 2 * radius, generator=gen, dtype=torch.float64)
+    g = torch.randn(2 * radius + 1, generator=gen, dtype=torch.float64)
+    dt = getattr(torch, dtype)
+    return f.to(device=device, dtype=dt), g.to(device=device, dtype=dt)
+
+
 def phase_card():
     import torch
 
@@ -531,6 +564,54 @@ def phase_parity(dev):
         compare_batched(f"tc {name} (64, 64, 64)",
                         mhd_case((64,) * 3, "float32", dev, substep, batch=3,
                                  strategy="tc"), "float32")
+    print("  -- tc beyond radius 4 (C1): orders 10 and 12, the band of "
+          "8 + 2r rows in more than one k-step")
+    for dtype in ("float32", "bfloat16"):
+        for shape, order in (((30030,), 12), ((512, 400), 10),
+                             ((64, 96, 120), 10), ((64, 96, 120), 12)):
+            compare(f"tc diffusion o{order} {shape}",
+                    diffusion_case(shape, dtype, dev, strategy="tc",
+                                   accuracy=order), dtype)
+    print("  -- depths 9 and 12 (C2): B2, B3 and B4 at 2-D, order 2, the "
+          "phi parameter rows in a device buffer")
+    for depth in (9, 12):
+        for shape in ((64, 64), (512, 400)):
+            for strategy in ("swc", "swc_stream", "tc"):
+                compare(f"{strategy} diffusion o2 {shape}",
+                        diffusion_case(shape, "float32", dev,
+                                       fuse_steps=depth, strategy=strategy,
+                                       accuracy=2), "float32")
+    parity_xcorr(dev)
+
+
+def parity_xcorr(dev):
+    """B6 (``csrc/xcorr1d.cu``) against ``ref.xcorr1d`` for each strategy,
+    f32 and f64, radii 0 to 1024, n = 2^20 + 123 (a ragged last block of
+    the default 2048 outputs), each launch's threads and shared bytes held
+    to the kernel's own layout."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import xcorr1d as kx
+
+    n, block = (1 << 20) + 123, 2048
+    print(f"  -- B6 xcorr1d vs ref.xcorr1d, n = {n}, block_size {block}")
+    for dtype in ("float32", "float64"):
+        for r in XCORR_RADII:
+            f, g = xcorr_inputs(n, r, dtype, dev, seed=r)
+            want = ref.xcorr1d(f, g)
+            for strategy, unroll in XCORR_STRATEGIES:
+                layout = kx.kernel_layout(2 * r + 1, block, strategy, unroll,
+                                          dtype)
+                if layout != (kx.launch_threads(block, strategy, unroll),
+                              kx.smem_bytes(2 * r + 1, block, dtype)):
+                    raise AssertionError(
+                        f"xcorr1d {strategy} r={r}: the kernel's layout "
+                        f"{layout} differs from xcorr1d.py's")
+                got = kops.xcorr1d(f, g, strategy=strategy,
+                                   block_size=block, unroll=unroll)
+                check(f"xcorr1d {strategy} u{unroll} r={r} {layout[0]}thr "
+                      f"{layout[1]}B", got, want, dtype)
+            del f, g, want
 
 
 def counted(fn, kernel=None):
@@ -806,6 +887,64 @@ def phase_main_path_tc(dev, launches):
             del out, fd
         del base, f0
         torch.cuda.empty_cache()
+
+
+def phase_main_path_1d(dev, launches):
+    """The 1-D path: ``step_1d_xcorr`` at 2^26, f32, 5 steps on each B6
+    strategy, every step one ``xcorr1d`` launch (the counters zeroed just
+    before and read just after), held to B1's ``simulate(..., "swc")``."""
+    import torch
+
+    from repro_torch.kernels import emit
+    from repro_torch.kernels import xcorr1d as kx
+    from repro_torch.physics.diffusion import (
+        DiffusionProblem,
+        simulate,
+        step_1d_xcorr,
+    )
+
+    print("== phase 3 (1-D): step_1d_xcorr at 2^26 on B6 (csrc/xcorr1d.cu)")
+    n_steps = 5
+    prob = DiffusionProblem((1 << 26,), accuracy=6)
+    f0 = prob.init_field(seed=0, device=dev)[0]
+    want = simulate(prob, f0[None], n_steps, strategy="swc", device=dev)[0]
+    for strategy, _ in XCORR_STRATEGIES:
+        step_1d_xcorr(f0, prob, strategy=strategy)  # warm-up
+
+        def run(strategy=strategy):
+            f = f0
+            for _ in range(n_steps):
+                f = step_1d_xcorr(f, prob, strategy=strategy)
+            return f
+
+        torch.cuda.synchronize()
+        kx.reset_launch_counts()
+        emit.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        by = dict(kx.xcorr1d_cuda.launches_by_strategy)
+        if by != {strategy: n_steps} or kx.xcorr1d_cuda.launches != n_steps \
+                or emit.fused_stencil_swc.launches:
+            raise AssertionError(
+                f"step_1d_xcorr {strategy}: launches {by}, "
+                f"{emit.fused_stencil_swc.launches} fused-stencil launches; "
+                f"want {n_steps} xcorr1d")
+        if out.shape != f0.shape or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"step_1d_xcorr {strategy}: bad state")
+        launches[f"xcorr {strategy}"] = by[strategy]
+        _, rel = rel_err(out, want)
+        print(f"  diffusion 2^26 f32 order 6 step_1d_xcorr {strategy}: "
+              f"{n_steps} steps, launches {by}, "
+              f"{1e3 * wall / n_steps:.4f} ms/step (host clock); vs swc "
+              f"(B1) rel {rel:.3e}")
+        if rel > TOL["float32"]:
+            raise AssertionError(f"step_1d_xcorr {strategy} disagrees with "
+                                 "swc")
+        del out
+    del want, f0
+    torch.cuda.empty_cache()
 
 
 SERVE_SHAPES = [(256, 256, 256), (4096, 4096)]
@@ -1211,6 +1350,107 @@ def phase_times(dev, smi, launches):
     return rows
 
 
+def phase_times_xcorr(dev, smi, launches):
+    """B6 rows (CUDA events, median): n = 2^24, fig07's full size
+    (``benchmarks/fig07_xcorr_library.py``), f32 at radii 1-1024 and f64
+    at r = 1 and 1024 (the paper's Table 3 cases), each strategy at
+    unroll 4; then the 2^26 ``step_1d_xcorr`` launch of each strategy,
+    whose rows go to the kernels line. The library call is
+    ``F.conv1d(f[None, None], g[None, None])`` (cuDNN, the paper's Fig. 7)
+    timed with ``torch.backends.cudnn.allow_tf32 = False``; the flag is
+    restored after. The port never calls it."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core.stencil import diffusion_kernel_1d
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+    from repro_torch.physics.diffusion import DiffusionProblem
+
+    print("== phase 4 (1-D): B6 xcorr1d times (CUDA events, median)")
+    print(f"  card: {smi}")
+    name = torch.cuda.get_device_name(0)
+    bw, f32_rate, f64_rate = card_rates(name)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    rows = []
+
+    def rows_for(label, f, g, dtype, main=None, reps=10):
+        """One row per strategy on the inputs (f, g); the plain and the
+        library call are timed once for the three."""
+        n_taps = g.shape[0]
+        n = f.shape[0] - n_taps + 1
+        item = f.element_size()
+        want = ref.xcorr1d(f, g)
+        plain_ms = time_ms(lambda: ref.xcorr1d(f, g), 2, warmup=1)
+        x, w = f[None, None], g[None, None]
+        t = time.perf_counter()
+        lib_out = F.conv1d(x, w)[0, 0]
+        torch.cuda.synchronize()
+        slow = time.perf_counter() - t > 0.05
+        _, lib_rel = rel_err(lib_out, want)
+        del lib_out
+        lib_ms = time_ms(lambda: F.conv1d(x, w), 3 if slow else reps,
+                         warmup=1 if slow else 2)
+        t_bytes = (f.numel() + n_taps + n) * item / bw * 1e3
+        t_ops = 2 * n_taps * n / (f64_rate if item == 8 else f32_rate) * 1e3
+        bound = max(t_bytes, t_ops)
+        by = "bytes" if t_bytes >= t_ops else "operations"
+        for strategy, unroll in XCORR_STRATEGIES:
+            got = kops.xcorr1d(f, g, strategy=strategy, unroll=unroll)
+            err, rel = rel_err(got, want)
+            if rel > TOL[dtype]:
+                raise AssertionError(f"{label} {strategy}: rel err {rel:.3e}")
+            del got
+            ms = time_ms(lambda: kops.xcorr1d(f, g, strategy=strategy,
+                                              unroll=unroll), reps)
+            r = {
+                "name": f"xcorr1d[{strategy}, u{unroll}, {label}, {dtype}]",
+                "route": "cuda",
+                "source": XCORR_SOURCE,
+                "replaces": XCORR_REPLACES,
+                "launches": launches[f"{main} {strategy}"] if main else 0,
+                "max_abs_err": err,
+                "ms": ms,
+                "plain_ms": plain_ms,
+                "bound_ms": bound,
+                "bound_by": by,
+                "library_ms": lib_ms,
+            }
+            print(f"  {label:<22} {dtype:<7} {strategy:<11} kernel "
+                  f"{ms:9.4f} ms  plain {plain_ms:10.4f} ms  bound "
+                  f"{bound:7.4f} ms ({by})  conv1d (no TF32) {lib_ms:.4f} "
+                  f"ms  max|err| {err:.3e}  {bound / ms:.1%} of bound")
+            if main:
+                rows.append(r)
+        print(f"    conv1d vs plain rel {lib_rel:.3e}")
+        del want
+
+    try:
+        n = 1 << 24
+        for dtype, radii in (("float32", (1, 4, 16, 64, 256, 1024)),
+                             ("float64", (1, 1024))):
+            for r in radii:
+                f, g = xcorr_inputs(n, r, dtype, dev, seed=r)
+                rows_for(f"n=2^24 r={r}", f, g, dtype)
+                del f, g
+        prob = DiffusionProblem((1 << 26,), accuracy=6)
+        f0 = prob.init_field(seed=0, device=dev)[0]
+        r = prob.radius
+        fp = torch.cat([f0[-r:], f0, f0[:r]])
+        g = torch.as_tensor(
+            diffusion_kernel_1d(prob.accuracy, prob.dt, prob.alpha,
+                                prob.spacing[0]),
+            dtype=fp.dtype, device=dev)
+        rows_for("step_1d_xcorr 2^26 r=3", fp, g, "float32",
+                 main="xcorr")
+        del fp, f0
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main(argv: list[str]) -> int:
     import torch
 
@@ -1238,8 +1478,10 @@ def main(argv: list[str]) -> int:
         return 0
     launches = timed("phase 3", phase_main_path, dev)
     timed("phase 3 (tc)", phase_main_path_tc, dev, launches)
+    timed("phase 3 (1-D)", phase_main_path_1d, dev, launches)
     timed("phase 3b", phase_serve, dev, launches)
     rows = timed("phase 4", phase_times, dev, smi, launches)
+    rows += timed("phase 4 (1-D)", phase_times_xcorr, dev, smi, launches)
     print("chip_smoke: seconds by phase "
           + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     print(f"chip_smoke: all phases in {time.perf_counter() - t0:.1f} s")

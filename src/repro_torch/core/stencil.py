@@ -460,6 +460,31 @@ def derivative_operator_set(
     return OperatorSet(tuple(ops))
 
 
+def xcorr_operator_set(g: np.ndarray, ndim: int = 1) -> OperatorSet:
+    """Single cross-correlation operator from a dense 1-D kernel ``g``
+    (paper Eq. 3) embedded along the last axis."""
+    g = np.asarray(g, dtype=np.float64)
+    r = (len(g) - 1) // 2
+    offsets = []
+    for k in range(len(g)):
+        o = [0] * ndim
+        o[-1] = k - r
+        offsets.append(tuple(o))
+    return OperatorSet(
+        (StencilSpec(tuple(offsets), tuple(float(c) for c in g), "xcorr"),)
+    )
+
+
+def diffusion_kernel_1d(accuracy: int, dt: float, alpha: float,
+                        spacing: float = 1.0) -> np.ndarray:
+    """The paper's Eq. 5: g = c^(1) + Δt·α·c^(2) — identity plus scaled
+    second-derivative coefficients, as a dense 1-D kernel."""
+    c2 = central_difference_coeffs(2, accuracy) / spacing**2
+    g = dt * alpha * c2
+    g[len(g) // 2] += 1.0
+    return g
+
+
 def diffusion_kernel_nd(ndim: int, accuracy: int, dt: float, alpha: float,
                         spacing: Sequence[float] | float = 1.0) -> StencilSpec:
     """The paper's Eq. 7: one merged stencil for f' = f + Δt·α·∇²f."""

@@ -193,7 +193,7 @@ __global__ void __launch_bounds__(KIND == KIND_SELECT ? 1024 : 256)
     // MHD: 80 derivative values per point live in registers, so sub-tiles
     // run one after another (restaging the fields) rather than holding
     // unroll x 80 values.
-    const mhd::Consts<T> c(g.prm[0]);
+    const mhd::Consts<T> c(prm_row(g, 0));
     for (int u = 0; u < g.unroll; ++u) {
       const int du = u * g.t[2];
       T d[mhd::N_SLOTS][mhd::N_FIELDS];
@@ -221,9 +221,9 @@ __global__ void __launch_bounds__(KIND == KIND_SELECT ? 1024 : 256)
         for (int k = 0; k < mhd::N_FIELDS; ++k) out[k * ofield + pt] = rhs[k];
       } else {
         // Fused RK axpy (repro/physics/mhd.py:284-290), aux = w.
-        const T alpha = T(g.prm[0][mhd::P_ALPHA]);
-        const T beta = T(g.prm[0][mhd::P_BETA]);
-        const T dt = T(g.prm[0][mhd::P_DT]);
+        const T alpha = T(prm_row(g, 0)[mhd::P_ALPHA]);
+        const T beta = T(prm_row(g, 0)[mhd::P_BETA]);
+        const T dt = T(prm_row(g, 0)[mhd::P_DT]);
 #pragma unroll
         for (int k = 0; k < mhd::N_FIELDS; ++k) {
           const T w = alpha * aux[k * ofield + apoint + du] + dt * rhs[k];
@@ -263,9 +263,10 @@ cudaError_t launch(const void* f, const void* aux, void* out,
 
 extern "C" {
 
-// Launch the fused stencil on `stream`. `geom` (G_LEN ints) and `params`
-// (n_params doubles) are host arrays; every other pointer is device
-// memory. Returns the cudaError_t of the launch (0 on success).
+// Launch the fused stencil on `stream`. `geom` (G_LEN ints) is a host
+// array; every other pointer, `params` (one row of n_params doubles)
+// included, is device memory. Returns the cudaError_t of the launch (0
+// on success).
 int repro_fused_stencil(const void* f, const void* aux, void* out,
                         const void* tap_off, const void* tap_coef,
                         const void* op_start, const int* geom,

@@ -207,7 +207,7 @@ __global__ void __launch_bounds__(KIND == KIND_SELECT ? 1024 : 256, 1)
       const T* fin = s == 0 ? work : mid(s - 1);
       if (s == S - 1) {
         sweep<T, KIND>(
-            g, fin, src, rb, Eval(g, taps, start), g.prm[s], nullptr,
+            g, fin, src, rb, Eval(g, taps, start), prm_row(g, s), nullptr,
             [&](int j, const Point& q, int, T v) {
               out[obase + j * ofield + (zc + q.z) * osz + (y0 + q.y) * osy +
                   x0 + q.x] = v;
@@ -216,7 +216,7 @@ __global__ void __launch_bounds__(KIND == KIND_SELECT ? 1024 : 256, 1)
       } else {
         T* next = mid(s);
         sweep<T, KIND>(
-            g, fin, src, rb, Eval(g, taps, start), g.prm[s], nullptr,
+            g, fin, src, rb, Eval(g, taps, start), prm_row(g, s), nullptr,
             [&](int j, const Point&, int p, T v) {
               next[j * rb.size() + p] = v;
             },
@@ -266,10 +266,11 @@ cudaError_t launch(const void* f, void* out, const void* tap_off,
 
 extern "C" {
 
-// Launch the stream kernel on `stream`. `geom` (G_LEN ints) and `params`
-// (fuse_steps rows of n_params doubles, one per sweep) are host arrays;
-// every other pointer is device memory (`aux` must be null: swc_stream
-// takes no aux). Returns the cudaError_t of the launch (0 on success).
+// Launch the stream kernel on `stream`. `geom` (G_LEN ints) is a host
+// array; every other pointer, `params` (fuse_steps rows of n_params
+// doubles, one per sweep) included, is device memory (`aux` must be
+// null: swc_stream takes no aux). Returns the cudaError_t of the launch
+// (0 on success).
 int repro_fused_stencil_stream(const void* f, const void* aux, void* out,
                                const void* tap_off, const void* tap_coef,
                                const void* op_start, const int* geom,

@@ -24,13 +24,16 @@
 // (tau + 2r, tau) band per axis, which grows with the tile. Here every
 // contraction is cut into 8-wide output segments along its axis, the n
 // of mma.sync, and all segments share one small band B[k][n] =
-// c[k - n] (k - n in [0, 2r], else 0), 8 + 2r <= 16 rows for r <= 4. The
-// band is generated in registers from the group's 2r + 1 coefficients,
-// so no band lives in memory and the tile is not bounded by it (the
-// reference's TC_MAX_TILE does not apply). The rows of an MMA are
-// row-segments: (position on the other two axes, segment) pairs taken
-// in order, so a rank-1 tile fills the rows with consecutive segments of
-// x and a rank-3 tile with neighbouring (z, y) or (z, x) lines. Window
+// c[k - n] (k - n in [0, 2r], else 0) of 8 + 2r rows, contracted in as
+// many k-steps as it needs: ceil((8 + 2r) / 16) of m16n8k16 in bf16,
+// ceil((8 + 2r) / 4) of m8n8k4 in f64. The band is generated in
+// registers from the group's 2r + 1 coefficients, so no band lives in
+// memory, and neither the tile nor the radius is bounded by it (the
+// reference's TC_MAX_TILE does not apply; shared memory alone bounds
+// both). The rows of an MMA are row-segments: (position on the other two
+// axes, segment) pairs taken in order, so a rank-1 tile fills the rows
+// with consecutive segments of x and a rank-3 tile with neighbouring
+// (z, y) or (z, x) lines. Window
 // values beyond a row's 8 + 2r, or past the staged extent, are masked to
 // zero (band padding and ragged segments), and a masked output is never
 // stored. Each warp owns the same row-segment tiles for every group of
@@ -41,7 +44,8 @@
 // staged one at a time, as in the other kernels, so the 8 MHD fields are
 // never resident together; MHD takes its points in batches of one per
 // thread, each batch's planes contracted per field.
-// - bf16: mma.sync.m16n8k16 bf16 x bf16 -> f32 (16 row-segments a tile).
+// - bf16: mma.sync.m16n8k16 bf16 x bf16 -> f32 (16 row-segments a tile;
+//   the k-steps accumulate in the MMA's f32 C fragment).
 // - f32: not TF32, which keeps about three digits against the
 //   reference's f32 tolerance of 2e-5 (tests/test_tc.py:66). The f32
 //   operands are widened to f64 and contracted with mma.sync.m8n8k4.f64
@@ -52,12 +56,12 @@
 // Bound on an H100 SXM: 3.35 TB/s; tensor cores 989 TFLOP/s bf16, 67
 // TFLOP/s f64. Diffusion is bound by bytes, the MHD RHS by operations.
 // The band's redundant multiply-adds: per 8 outputs a group of t taps
-// needs 8t, and one segment issues 8 x 16 in bf16 (k = 16) or 8 x 4 x
-// ceil((8 + 2r) / 4) in f64, 2.3x the 56 of a 7-tap group at r = 3 (2.7x
-// for a 6-tap arm), more for ragged segments, whose masked outputs are
-// issued all the same; plan.tc_issued_macs counts them. What the design
-// does about them: one band of 8 outputs serves every segment (the
-// reference's band grows as (tau + 2r) x tau, so its waste grows with
+// needs 8t, and one segment issues 8 x 16 x ceil((8 + 2r) / 16) in bf16
+// or 8 x 4 x ceil((8 + 2r) / 4) in f64, 2.3x the 56 of a 7-tap group at
+// r = 3 (2.7x for a 6-tap arm), more for ragged segments, whose masked
+// outputs are issued all the same; plan.tc_issued_macs counts them. What
+// the design does about them: one band of 8 outputs serves every segment
+// (the reference's band grows as (tau + 2r) x tau, so its waste grows with
 // the tile), the band is never staged, lone taps stay scalar, and each
 // window value is read once per tap group from shared memory. wgmma, TMA
 // and a layout that keeps the C fragments in registers through phi are
@@ -79,13 +83,11 @@ using namespace stencil;
 // The wrapper's group table (repro_torch/kernels/emit.py:tc_table): per
 // group ENT_LEN ints (axis lifted to rank 3: 0 z, 1 y, 2 x; the rest
 // offsets z, y, x; 1 for a lone tap; its offset along the axis) and
-// COEF_LEN doubles c[j + r], j = -r..r; per operator the start of its
-// groups.
+// Geometry::coef_len (2 r_max + 1) doubles c[j + r], j = -r..r, r the
+// group axis's radius; per operator the start of its groups.
 constexpr int ENT_LEN = 8;
 constexpr int E_AXIS = 0, E_REST = 1, E_SINGLE = 4, E_J = 5;
-constexpr int COEF_LEN = 9;
-constexpr int MAX_TC_RADIUS = 4;  // 8 + 2r rows of the band fit k = 16
-constexpr int SEG = 8;            // outputs per segment (the MMA's n)
+constexpr int SEG = 8;  // outputs per segment (the MMA's n)
 
 template <typename T>
 __device__ __forceinline__ T from_float(float v);
@@ -259,7 +261,7 @@ struct TcEval {
             const int roff = __ldg(en + E_REST) * sstr[0] +
                              __ldg(en + E_REST + 1) * sstr[1] +
                              __ldg(en + E_REST + 2);
-            const double* cf = coef + e * COEF_LEN;
+            const double* cf = coef + e * g.coef_len;
             if (__ldg(en + E_SINGLE)) {
               // A lone tap: (c in T) x value, rounded in T, widened.
               const T cj = cast_coef<T>(__ldg(cf + __ldg(en + E_J) + ra));
@@ -326,16 +328,20 @@ struct TcEval {
         return (j >= 0 && j <= top) ? cast_coef<__nv_bfloat16>(__ldg(cf + j))
                                     : __float2bfloat16(0.0f);
       };
-      const int k0 = 2 * tig;
-      const uint32_t av[4] = {
-          pack_bf16(a_at(rs[0], k0), a_at(rs[0], k0 + 1)),
-          pack_bf16(a_at(rs[1], k0), a_at(rs[1], k0 + 1)),
-          pack_bf16(a_at(rs[0], k0 + 8), a_at(rs[0], k0 + 9)),
-          pack_bf16(a_at(rs[1], k0 + 8), a_at(rs[1], k0 + 9)),
-      };
+      // k-steps of 16 over the band's 8 + 2r rows (one for r <= 4).
+      const int nks = (SEG + top + 15) / 16;
       float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      mma_bf16(d, av, pack_bf16(b_at(k0), b_at(k0 + 1)),
-               pack_bf16(b_at(k0 + 8), b_at(k0 + 9)));
+      for (int ks = 0; ks < nks; ++ks) {
+        const int k0 = 16 * ks + 2 * tig;
+        const uint32_t av[4] = {
+            pack_bf16(a_at(rs[0], k0), a_at(rs[0], k0 + 1)),
+            pack_bf16(a_at(rs[1], k0), a_at(rs[1], k0 + 1)),
+            pack_bf16(a_at(rs[0], k0 + 8), a_at(rs[0], k0 + 9)),
+            pack_bf16(a_at(rs[1], k0 + 8), a_at(rs[1], k0 + 9)),
+        };
+        mma_bf16(d, av, pack_bf16(b_at(k0), b_at(k0 + 1)),
+                 pack_bf16(b_at(k0 + 8), b_at(k0 + 9)));
+      }
 #pragma unroll
       for (int i = 0; i < 4; ++i) sum[i] += d[i];
     }
@@ -378,7 +384,7 @@ cudaError_t launch(const void* f, const void* aux, void* out,
 
 bool valid_tc(const Geometry& g, int kind) {
   for (int a = 0; a < 3; ++a)
-    if (g.r[a] > MAX_TC_RADIUS) return false;
+    if (2 * g.r[a] + 1 > g.coef_len) return false;  // a band row per group
   return g.unroll == 1 && g.n_buf >= 1 && g.n_buf <= 2 && g.n_thr >= 32 &&
          g.n_thr % 32 == 0 &&
          g.n_thr <= (kind == KIND_SELECT ? 1024 : 256) &&
@@ -391,9 +397,9 @@ extern "C" {
 
 // Launch the tc kernel on `stream`. `tap_off`, `tap_coef` and
 // `op_start` carry the group table (emit.py:tc_table: group ints, band
-// coefficients, operator starts); `geom` (G_LEN ints) and `params`
-// (fuse_steps rows of n_params doubles) are host arrays; every other
-// pointer is device memory. `dtype` is DTYPE_F32 or DTYPE_BF16 (select
+// coefficients, operator starts); `geom` (G_LEN ints) is a host array;
+// every other pointer, `params` (fuse_steps rows of n_params doubles)
+// included, is device memory. `dtype` is DTYPE_F32 or DTYPE_BF16 (select
 // only). Returns the cudaError_t of the launch (0 on success).
 int repro_fused_stencil_tc(const void* f, const void* aux, void* out,
                            const void* tap_off, const void* tap_coef,

@@ -99,9 +99,9 @@ cudaError_t launch(const void* f, const void* aux, void* out,
 
 extern "C" {
 
-// Launch the temporal kernel on `stream`. `geom` (G_LEN ints) and
-// `params` (fuse_steps rows of n_params doubles, one per sweep) are host
-// arrays; every other pointer is device memory. Returns the cudaError_t
+// Launch the temporal kernel on `stream`. `geom` (G_LEN ints) is a host
+// array; every other pointer, `params` (fuse_steps rows of n_params
+// doubles, one per sweep) included, is device memory. Returns the cudaError_t
 // of the launch (0 on success).
 int repro_fused_stencil_temporal(const void* f, const void* aux, void* out,
                                  const void* tap_off, const void* tap_coef,

@@ -17,7 +17,6 @@ constexpr int KIND_MHD_RHS = 1;
 constexpr int KIND_MHD_SUBSTEP = 2;
 constexpr int MAX_SLOTS = 16;
 constexpr int MAX_PARAMS = 16;
-constexpr int MAX_FUSE = 8;  // sweeps per launch (rows of Geometry::prm)
 
 // Element types the wrappers hand over (emit.py:dtype_code).
 constexpr int DTYPE_F32 = 0;
@@ -37,6 +36,7 @@ enum GeomIndex {
   G_NTHR,  // threads per block (depth > 1; depth 1 runs one per tile point)
   G_NSEG,  // swc_stream: segments the stream axis is cut into
   G_NB,    // ensemble members (the outer part of blockIdx.z)
+  G_CLEN,  // tc: doubles per band-coefficient row (2 r_max + 1); else 0
   G_SLOT0,  // MAX_SLOTS operator indices follow
   G_LEN = G_SLOT0 + MAX_SLOTS
 };
@@ -54,18 +54,23 @@ struct Geometry {
   int n_thr;
   int n_seg;
   int n_b;
+  int coef_len;  // tc: doubles per band-coefficient row
   int per_member;  // blocks along z per member (set by fold_members)
   unsigned long long member_mul;  // ceil(2^32 / per_member)
   int slot[MAX_SLOTS];  // operator index read by each phi slot
-  double prm[MAX_FUSE][MAX_PARAMS];  // phi parameters, one row per sweep
+  int n_params;         // doubles per parameter row
+  // phi parameters in device memory, fuse_steps rows of n_params, one per
+  // sweep: a buffer the wrapper passes, so no depth is fixed here.
+  const double* prm;
 };
 
-// Fill `g` from the wrapper's int array and its fuse_steps x n_params
-// parameter rows; false when a count exceeds the kernel's arrays.
+// Fill `g` from the wrapper's int array and its device buffer of
+// fuse_steps x n_params parameter rows; false when a count exceeds the
+// kernel's arrays.
 inline bool read_geometry(const int* geom, const double* params,
                           int n_params, Geometry& g) {
-  if (n_params > MAX_PARAMS || geom[G_NSLOTS] > MAX_SLOTS ||
-      geom[G_FUSE] < 1 || geom[G_FUSE] > MAX_FUSE)
+  if (n_params < 0 || n_params > MAX_PARAMS || geom[G_NSLOTS] > MAX_SLOTS ||
+      geom[G_FUSE] < 1)
     return false;
   g = Geometry{};
   g.n_f = geom[G_NF];
@@ -86,10 +91,16 @@ inline bool read_geometry(const int* geom, const double* params,
   g.n_thr = geom[G_NTHR];
   g.n_seg = geom[G_NSEG];
   g.n_b = geom[G_NB];
+  g.coef_len = geom[G_CLEN];
   for (int s = 0; s < g.n_slots; ++s) g.slot[s] = geom[G_SLOT0 + s];
-  for (int s = 0; s < g.fuse_steps; ++s)
-    for (int i = 0; i < n_params; ++i) g.prm[s][i] = params[s * n_params + i];
+  g.n_params = n_params;
+  g.prm = params;
   return true;
+}
+
+// Sweep s's row of phi parameters (device memory).
+__device__ __forceinline__ const double* prm_row(const Geometry& g, int s) {
+  return g.prm + s * g.n_params;
 }
 
 // Ensemble members: every kernel folds the member into blockIdx.z as

@@ -167,7 +167,7 @@ __device__ __forceinline__ void temporal_body(
       __syncthreads();  // buf(k) read before another window lands there
     }
   } else {
-    const SweepPhi<T> ph(g.prm[0]);
+    const SweepPhi<T> ph(prm_row(g, 0));
     const int plane = r0.y * r0.x;
     for (int p0 = 0; p0 < r0.size(); p0 += nthr) {
       const int p = p0 + tid;
@@ -218,7 +218,7 @@ __device__ __forceinline__ void temporal_body(
     const Box src = region(g, s - 1);
     ev.set_source(src, tid, nthr);
     sweep<T, KIND>(
-        g, mid(s - 1), src, region(g, s), ev, g.prm[s], carry(s - 1),
+        g, mid(s - 1), src, region(g, s), ev, prm_row(g, s), carry(s - 1),
         [&](int j, const Point& q, int p, T v) { store(s, j, q, p, v); }, tid,
         nthr);
   }

@@ -42,12 +42,11 @@ KERNEL = "fused_stencil"  # csrc/fused_stencil.cu, depth 1
 TEMPORAL_KERNEL = "fused_stencil_temporal"  # csrc/fused_stencil_temporal.cu
 STREAM_KERNEL = "fused_stencil_stream"  # csrc/fused_stencil_stream.cu
 TC_KERNEL = "fused_stencil_tc"  # csrc/fused_stencil_tc.cu, any depth
-GEOM_LEN = 40  # G_LEN of csrc/stencil_common.cuh
+GEOM_LEN = 41  # G_LEN of csrc/stencil_common.cuh
 # DTYPE_* of csrc/stencil_common.cuh.
 DTYPE_CODES = {"float32": 0, "float64": 1, "bfloat16": 2}
 # Group table layout of csrc/fused_stencil_tc.cu.
 TC_ENT_LEN = 8  # axis, rest z/y/x, lone tap, its offset, 2 unused
-TC_COEF_LEN = 9  # c[j + r], j = -r..r, r <= 4
 
 TapTable = tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -88,8 +87,9 @@ def tc_table(ops: OperatorSet) -> TapTable:
     Returns ``(entries, coeffs, starts)``: int32 (n_groups, 8) rows of
     (axis lifted to rank 3 — 0 z, 1 y, 2 x —, rest offset (z, y, x), 1
     for a lone tap, that tap's offset along the axis, 0, 0); float64
-    (n_groups, 9) band coefficients ``c[j + r]`` for j = -r..r (zero
-    where the group has no tap); int32 (n_ops + 1,) start of each
+    (n_groups, :func:`tc_coef_len`) band coefficients ``c[j + r]`` for
+    j = -r..r, r the group axis's radius (zero where the group has no
+    tap); int32 (n_ops + 1,) start of each
     operator's groups. Groups follow :func:`~repro_torch.kernels.plan.
     tc_axis_groups` in sorted ``(axis, rest)`` order — the order the
     reference sums them — so an operator's groups run axis by axis.
@@ -98,9 +98,10 @@ def tc_table(ops: OperatorSet) -> TapTable:
     lift = 3 - rank
     radii = ops.radius_per_axis()
     entries, coeffs, starts = [], [], [0]
+    width = tc_coef_len(radii)
     for spec in ops.ops:
         for (axis, rest), taps in sorted(tc_axis_groups(spec, rank).items()):
-            band = [0.0] * TC_COEF_LEN
+            band = [0.0] * width
             for j, c in taps:
                 band[j + radii[axis]] = c
             single = len(taps) == 1
@@ -112,15 +113,35 @@ def tc_table(ops: OperatorSet) -> TapTable:
         starts.append(len(entries))
     return (
         torch.from_numpy(np.asarray(entries, dtype=np.int32)),
-        torch.from_numpy(np.asarray(coeffs, dtype=np.float64)),
+        torch.from_numpy(
+            np.asarray(coeffs, dtype=np.float64).reshape(-1, width)
+        ),
         torch.from_numpy(np.asarray(starts, dtype=np.int32)),
     )
+
+
+def tc_coef_len(radii) -> int:
+    """Doubles per band-coefficient row of :func:`tc_table`: 2·r_max + 1
+    (the kernel reads it from the geometry, ``G_CLEN``)."""
+    return 2 * max(radii) + 1
 
 
 @functools.lru_cache(maxsize=64)
 def device_tc_table(ops: OperatorSet, device: torch.device) -> TapTable:
     """:func:`tc_table` uploaded to ``device``, cached per (ops, device)."""
     return tuple(t.to(device) for t in tc_table(ops))
+
+
+@functools.lru_cache(maxsize=256)
+def device_params(
+    rows: tuple[tuple[float, ...], ...], device: torch.device
+) -> torch.Tensor:
+    """φ's parameter rows, one per sweep, as a float64 (S, n_params)
+    buffer on ``device``, cached per (rows, device). The kernels read
+    sweep s's row at ``s * n_params``, so no depth is fixed in them."""
+    return torch.tensor(rows, dtype=torch.float64, device=device).reshape(
+        len(rows), -1
+    )
 
 
 def kernel_name(plan: StencilPlan) -> str:
@@ -141,8 +162,7 @@ def _lib(name: str) -> ctypes.CDLL:
     vp = ctypes.c_void_p
     launch = getattr(lib, f"repro_{name}")
     launch.argtypes = [
-        vp, vp, vp, vp, vp, vp,
-        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_double),
+        vp, vp, vp, vp, vp, vp, ctypes.POINTER(ctypes.c_int), vp,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, vp,
     ]
     launch.restype = ctypes.c_int
@@ -206,7 +226,8 @@ def geometry(plan: StencilPlan, slots: list[int]) -> np.ndarray:
     g += _rank3(plan.radii, 0, st) + _rank3(plan.block, 1, st)
     g += [plan.unroll, plan.n_ops, plan.n_taps, len(slots)]
     g += [plan.fuse_steps, plan.stage_buffers, plan.threads, plan.segments]
-    g += [plan.batch]
+    g += [plan.batch, tc_coef_len(plan.radii) if plan.strategy == "tc"
+          else 0]
     g += slots + [0] * (GEOM_LEN - len(g) - len(slots))
     return np.asarray(g, dtype=np.int32)
 
@@ -339,8 +360,7 @@ def fused_stencil_swc(
     offsets, coeffs, starts = taps
     slots = [ops.names.index(n) for n in phis[0].operators]
     geom = geometry(plan, slots)
-    # One row of φ parameters per sweep.
-    params = np.asarray([p.params for p in phis], dtype=np.float64)
+    params = device_params(tuple(p.params for p in phis), f_padded.device)
     out = torch.empty(
         (plan.batch,) * batched + (plan.n_out,) + plan.interior,
         dtype=f_padded.dtype,
@@ -354,8 +374,8 @@ def fused_stencil_swc(
         out.data_ptr(),
         offsets.data_ptr(), coeffs.data_ptr(), starts.data_ptr(),
         _int_ptr(geom),
-        params.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
-        params.shape[1], phis[0].kind_id, DTYPE_CODES[plan.dtype],
+        params.data_ptr(), params.shape[1], phis[0].kind_id,
+        DTYPE_CODES[plan.dtype],
         f_padded.device.index or 0,
         torch.cuda.current_stream(f_padded.device).cuda_stream,
     )

@@ -1,10 +1,13 @@
 """Dispatch of a fused stencil call to its regime (port of
-``repro.kernels.ops.fused_stencil_nd``/``plan_for_nd``).
+``repro.kernels.ops.fused_stencil_nd``/``plan_for_nd``), and of the 1-D
+cross-correlation (``repro.kernels.ops.xcorr1d``).
 
 ``hwc`` goes to the plain PyTorch version (``ref``); ``swc``,
 ``swc_stream`` and ``tc`` go to their CUDA kernels through
 :class:`~repro_torch.kernels.plan.StencilPlan` and
-``emit.fused_stencil_swc``. Every reference option whose kernel is not
+``emit.fused_stencil_swc``; the cross-correlation's ``baseline``,
+``pointwise`` and ``elementwise`` go to ``csrc/xcorr1d.cu`` through
+``xcorr1d.xcorr1d_cuda``. Every reference option whose kernel is not
 ported yet raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
@@ -24,10 +27,42 @@ from repro_torch.kernels.plan import (
     is_ensemble,
     plan_stencil,
 )
+from repro_torch.kernels.xcorr1d import xcorr1d_cuda
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet: ROADMAP {item}")
+
+
+def xcorr1d(
+    f_padded: torch.Tensor,
+    g: torch.Tensor,
+    *,
+    strategy: str = "baseline",
+    block_size: int | str = 2048,
+    unroll: int = 4,
+) -> torch.Tensor:
+    """1-D cross-correlation over the valid region (paper Eq. 3):
+    ``f_padded`` (n + 2r,) and ``g`` (2r + 1,) give (n,), f'_i = Σ_j g_j
+    f̂_{i+j}.
+
+    Accepts any n (the kernel masks the ragged last block).
+    ``strategy='hwc'`` is the plain PyTorch version; ``baseline``,
+    ``pointwise`` and ``elementwise`` launch ``csrc/xcorr1d.cu`` on a
+    CUDA tensor (float32 or float64; bfloat16 and float16 raise
+    ``NotImplementedError``, ROADMAP B6b) and take the plain version on
+    a CPU tensor. An unknown strategy, or ``elementwise`` with a
+    ``block_size`` that ``unroll`` does not divide, raises
+    ``ValueError``; ``block_size="auto"`` raises ``NotImplementedError``
+    (the tuner, ROADMAP A9).
+    """
+    if strategy == "hwc":
+        return _ref.xcorr1d(f_padded, g)
+    if block_size == "auto":
+        raise _not_ported("block_size='auto' (the tuner)", "A9")
+    return xcorr1d_cuda(
+        f_padded, g, strategy=strategy, block_size=block_size, unroll=unroll
+    )
 
 
 def fused_stencil_nd(

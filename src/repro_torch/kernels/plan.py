@@ -103,12 +103,10 @@ DEFAULT_TC_BLOCKS: dict[int, tuple[int, ...]] = {
 }
 TC_MAX_TILE = 512  # the reference's per-axis cap on tc tiles
 TC_SEGMENT = 8  # outputs per MMA segment (mma.sync's n)
-MAX_TC_RADIUS = 4  # 8 + 2r band rows fit the MMA's k = 16
 TC_DTYPES = ("float32", "bfloat16")
 
 MAX_THREADS = 1024  # CUDA threads per block
 ONE_WARP = 32  # the smallest tile the temporal planner shrinks to
-MAX_FUSE_STEPS = 8  # sweeps per launch (rows of the kernels' parameter table)
 MAX_TILE_Z = 64  # blockDim.z limit
 SMEM_PER_BLOCK = 232_448  # 227 KB: the most shared memory one Hopper block can use
 # swc_stream cuts its stream axis into segments until the grid has
@@ -332,9 +330,9 @@ class StencilPlan:
     Raises:
         ValueError: from ``__post_init__`` for any inconsistent
             combination — rank, tuple lengths, non-divisible tiles, a
-            tile over the thread limit, a depth beyond
-            ``MAX_FUSE_STEPS``, ``unroll > 1`` or a map that is not a
-            self-map (``n_out != n_f + n_aux``) at depth > 1, or a
+            tile over the thread limit, a depth below 1, ``unroll > 1``
+            or a map that is not a self-map (``n_out != n_f + n_aux``)
+            at depth > 1, or a
             staged working set over the shared-memory limit; on
             ``swc_stream`` also rank 1, aux, ``unroll > 1``, a stream
             extent shorter than the carried halo plus one chunk at
@@ -343,7 +341,9 @@ class StencilPlan:
             reference), and a grid whose members × z tiles (or × stream
             segments) exceed the ``MAX_GRID_Z`` blocks CUDA allows; on
             ``tc`` a dtype other than float32/bfloat16 (the reference's
-            rule), ``unroll > 1`` and a radius over ``MAX_TC_RADIUS``.
+            rule) and ``unroll > 1``. No depth or radius is capped
+            otherwise: the shared-memory fit decides what a block
+            holds.
         NotImplementedError: for a strategy of the reference whose
             kernel is not ported yet, and bfloat16 on ``swc`` at depth
             > 1 or on ``swc_stream`` (``BF16_NOT_PORTED``).
@@ -394,11 +394,6 @@ class StencilPlan:
                 "element-wise unrolling does not compose; use unroll=1 "
                 "with strategy='tc'"
             )
-        if tc and max(self.radii) > MAX_TC_RADIUS:
-            raise ValueError(
-                f"tc's band of 8 + 2r rows fits the MMA's k = 16 for "
-                f"radius <= {MAX_TC_RADIUS}; got radii {self.radii}"
-            )
         if self.dtype == "bfloat16" and not tc:
             item = (
                 "swc_stream" if stream
@@ -448,10 +443,9 @@ class StencilPlan:
                 f"max_threads must be in 1..{MAX_THREADS}, got "
                 f"{self.max_threads}"
             )
-        if not 1 <= self.fuse_steps <= MAX_FUSE_STEPS:
+        if self.fuse_steps < 1:
             raise ValueError(
-                f"fuse_steps must be in 1..{MAX_FUSE_STEPS}, got "
-                f"{self.fuse_steps}"
+                f"fuse_steps must be >= 1, got {self.fuse_steps}"
             )
         if self.batch > 1 and self.n_aux and self.fuse_steps > 1:
             raise ValueError(
@@ -900,9 +894,10 @@ def tc_issued_macs(
     field, per sweep and per box the kernel contracts (the sweep's
     region for one operator; for several, each batch of ``threads``
     points widened to its whole planes), ``ceil(row-segments / rows)``
-    tiles of ``rows × 8 × k`` — 16 rows and k = 16 in bf16, 8 rows and
-    k = 4·ceil((8 + 2r) / 4) on the f64 MMA of f32 fields. ``needed``
-    counts one multiply-add per tap of those groups per output point.
+    tiles of ``rows × 8 × k`` — 16 rows and k = 16·ceil((8 + 2r) / 16)
+    in bf16, 8 rows and k = 4·ceil((8 + 2r) / 4) on the f64 MMA of f32
+    fields (the band's k-steps). ``needed`` counts one multiply-add per
+    tap of those groups per output point.
     Both cover every block and member of the launch; lone taps are in
     neither.
     """
@@ -930,7 +925,8 @@ def tc_issued_macs(
                 boxes.append((zhi - zlo + 1, rb[1], rb[2]))
         for box in boxes:
             for axis, n_taps in groups:
-                k = 16 if bf16 else 4 * -(-(TC_SEGMENT + 2 * radii[axis]) // 4)
+                step = 16 if bf16 else 4
+                k = step * -(-(TC_SEGMENT + 2 * radii[axis]) // step)
                 nseg = -(-box[axis] // TC_SEGMENT)
                 segs = nseg * _prod(box) // box[axis]
                 issued += -(-segs // rows) * rows * TC_SEGMENT * k

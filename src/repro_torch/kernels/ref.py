@@ -15,15 +15,46 @@ the ``fused_stencil_tc*`` forms) rounds as ``_block_derivs_tc`` of the
 reference does: multi-tap groups contracted in float32 with the band in
 the field dtype, lone taps rounded in the field dtype, the groups summed
 in float32 in sorted order and cast back once per operator.
+
+:func:`xcorr1d` is the 1-D cross-correlation's plain version (the
+``hwc`` strategy of ``ops.xcorr1d`` and the oracle of the B6 kernel
+``csrc/xcorr1d.cu``), :func:`xcorr1d_numpy` its float64 numpy oracle.
 """
 from __future__ import annotations
 
 from typing import Callable
 
+import numpy as np
 import torch
 
 from repro_torch.core.stencil import OperatorSet
 from repro_torch.kernels.plan import tc_axis_groups
+
+
+def xcorr1d(f_padded: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """1-D discrete cross-correlation, paper Eq. 3.
+
+    ``f_padded`` has shape (n + 2r,); ``g`` has shape (2r + 1,).
+    Returns (n,): f'_i = Σ_j g_j · f̂_{i+j}, the taps summed in order,
+    each coefficient cast to the field dtype before the multiply.
+    """
+    n = f_padded.shape[0] - (g.shape[0] - 1)
+    g = g.to(f_padded.dtype)
+    acc = torch.zeros((n,), dtype=f_padded.dtype, device=f_padded.device)
+    for k in range(g.shape[0]):
+        acc = acc + g[k] * f_padded[k : k + n]
+    return acc
+
+
+def xcorr1d_numpy(f_padded: np.ndarray, g: np.ndarray) -> np.ndarray:
+    """Float64 numpy oracle-of-the-oracle (used by property tests)."""
+    f_padded = np.asarray(f_padded, dtype=np.float64)
+    g = np.asarray(g, dtype=np.float64)
+    n = f_padded.shape[0] - (g.shape[0] - 1)
+    out = np.zeros(n)
+    for k in range(g.shape[0]):
+        out += g[k] * f_padded[k : k + n]
+    return out
 
 
 def _coeff(c: float, dtype: torch.dtype) -> torch.Tensor:

@@ -9,11 +9,13 @@ or ``fuse_steps`` steps are one launch of the temporal kernel; with
 ``strategy="swc_stream"`` (ranks 2 and 3) one launch of the stream
 kernel per call at any depth; with ``strategy="tc"`` (float32 or
 bfloat16 fields) one launch of the tensor-core kernel per call at any
-depth.
+depth. At rank 1, :func:`step_1d_xcorr` takes one step as the paper's
+cross-correlation (Eq. 5): one launch of ``csrc/xcorr1d.cu``.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Sequence
 
 import numpy as np
@@ -21,7 +23,12 @@ import torch
 
 from repro_torch import as_dtype, resolve_device
 from repro_torch.core.fusion import FusedStencilOp, integrate
-from repro_torch.core.stencil import OperatorSet, diffusion_kernel_nd
+from repro_torch.core.stencil import (
+    OperatorSet,
+    diffusion_kernel_1d,
+    diffusion_kernel_nd,
+)
+from repro_torch.kernels import ops as kops
 from repro_torch.kernels.phi import select_phi
 
 
@@ -126,6 +133,38 @@ class DiffusionProblem:
 
     def analytic_decay(self, k: Sequence[int], t: float) -> float:
         return float(np.exp(-self.alpha * sum(ki * ki for ki in k) * t))
+
+
+@functools.lru_cache(maxsize=64)
+def _xcorr_taps(
+    accuracy: int, dt: float, alpha: float, spacing: float,
+    dtype: torch.dtype, device: torch.device,
+) -> torch.Tensor:
+    """The merged 1-D kernel g of Eq. 5 in ``dtype`` on ``device``, made
+    once per problem, dtype and device."""
+    g = diffusion_kernel_1d(accuracy, dt, alpha, spacing)
+    return torch.as_tensor(g, dtype=dtype, device=device)
+
+
+def step_1d_xcorr(
+    f: torch.Tensor,
+    problem: DiffusionProblem,
+    *,
+    strategy: str = "hwc",
+    block_size: int = 2048,
+) -> torch.Tensor:
+    """1-D diffusion step via the cross-correlation kernel path (the
+    paper's cuDNN/MIOpen-comparable formulation): pad periodically, then
+    f' = g ⋆ f̂ with the merged kernel of Eq. 5. ``f`` is (n,) on the
+    device the step runs on; on ``baseline``, ``pointwise`` and
+    ``elementwise`` a CUDA tensor takes one launch of the B6 kernel."""
+    g = _xcorr_taps(
+        problem.accuracy, problem.dt, problem.alpha, problem.spacing[0],
+        f.dtype, f.device,
+    )
+    r = problem.radius
+    fp = torch.cat([f[-r:], f, f[:r]])
+    return kops.xcorr1d(fp, g, strategy=strategy, block_size=block_size)
 
 
 def simulate(

@@ -186,12 +186,15 @@ def test_geometry_layout():
     assert len(g) == emit.GEOM_LEN and g.dtype == np.int32
     # n_f n_out n_aux | interior | padded | radii | tile | u ops taps
     # n_slots | fuse_steps stage_buffers threads segments | members |
-    # slots
-    assert g[:25].tolist() == [
+    # tc's band-row length (0 off tc) | slots
+    assert g[:26].tolist() == [
         8, 8, 0, 1, 16, 64, 1, 22, 70, 0, 3, 3, 1, 4, 16, 2,
-        ops.n_s, ops.taps_per_point, 2, 1, 2, 64, 1, 1, 0,
+        ops.n_s, ops.taps_per_point, 2, 1, 2, 64, 1, 1, 0, 0,
     ]
-    assert g[25] == 3 and not g[26:].any()
+    assert g[26] == 3 and not g[27:].any()
+    # On tc the band rows hold 2·r_max + 1 coefficients.
+    tc = plan_for_nd(ops, (8, 22, 70), 8, strategy="tc")
+    assert emit.geometry(tc, [0])[24] == 7
     # A batched operand's members follow the segments.
     batched = plan_for_nd(ops, (5, 8, 22, 70), 8, block=(4, 16), unroll=2)
     assert emit.geometry(batched, [0, 3])[23] == 5

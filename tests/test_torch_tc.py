@@ -38,6 +38,7 @@ from repro_torch.convert import fields_from_numpy  # noqa: E402
 from repro_torch.core.boundary import pad  # noqa: E402
 from repro_torch.core import stencil as ts  # noqa: E402
 from repro_torch.core.fusion import FusedStencilOp  # noqa: E402
+from repro_torch.core.fusion import integrate as tintegrate  # noqa: E402
 from repro_torch.kernels import emit, ref  # noqa: E402
 from repro_torch.kernels import plan as tplan  # noqa: E402
 from repro_torch.kernels.ops import fused_stencil_nd, plan_for_nd  # noqa: E402
@@ -96,6 +97,24 @@ def test_tc_simulate_matches_jax_with_a_remainder():
                        fuse_steps=2)
     got = td.simulate(td.DiffusionProblem(shape), np.asarray(f0), 5,
                       strategy="tc", fuse_steps=2, device=CPU)
+    assert _rel(got.numpy(), want) <= TOL["float32"]
+
+
+@pytest.mark.parametrize("shape,order,n_steps", (
+    ((16, 32), 10, 3),  # the reference's tc:o10 (ROADMAP C1's case)
+    ((8, 8, 16), 12, 2),
+))
+def test_tc_beyond_radius_4_matches_jax(shape, order, n_steps):
+    """Radius 5 and 6: the band of 8 + 2r rows takes more than one
+    k-step on the card; the reference runs both, and so does the port."""
+    jp = jd.DiffusionProblem(shape, accuracy=order)
+    f0 = jp.init_field(seed=5)
+    want = jintegrate(jp.step_op("tc"), f0, n_steps)
+    tp = td.DiffusionProblem(shape, accuracy=order)
+    op = tp.step_op("tc", device=CPU)
+    got = tintegrate(op, torch.from_numpy(np.array(f0)), n_steps)
+    assert op.radius_per_axis == (order // 2,) * len(shape)
+    assert got.shape == (1,) + shape
     assert _rel(got.numpy(), want) <= TOL["float32"]
 
 
@@ -191,7 +210,10 @@ def test_tc_table_lifts_axes_and_lays_out_the_band():
     ops = ts.derivative_operator_set(2, 6, 0.3)
     entries, coeffs, starts = emit.tc_table(ops)
     assert entries.shape[1] == emit.TC_ENT_LEN
-    assert coeffs.shape[1] == emit.TC_COEF_LEN
+    # a row of 2·r_max + 1 coefficients (7 at order 6), any radius
+    assert coeffs.shape[1] == emit.tc_coef_len(ops.radius_per_axis()) == 7
+    wide = emit.tc_table(ts.derivative_operator_set(2, 12, 0.3))[1]
+    assert wide.shape[1] == 13
     assert int(starts[-1]) == entries.shape[0]
     dx = ops.ops[ops.names.index("dx")]
     i = int(starts[ops.names.index("dx")])
@@ -217,9 +239,14 @@ def test_tc_plan_rules_follow_the_reference():
     with pytest.raises(ValueError, match="aux"):
         tplan.plan_stencil(ops, (3, 1, 44, 76), 2, strategy="tc", n_aux=1,
                            fuse_steps=2)
-    with pytest.raises(ValueError, match="radius"):
-        tplan.plan_stencil(ts.derivative_operator_set(2, 10), (1, 42, 74), 1,
-                           strategy="tc")
+    # radius 5 (order 10) is planned, as the reference plans tc:o10
+    o10 = tplan.plan_stencil(ts.derivative_operator_set(2, 10), (1, 42, 74),
+                             1, strategy="tc")
+    j10 = jplan.plan_stencil(js.derivative_operator_set(2, 10), (1, 42, 74),
+                             1, strategy="tc")
+    assert o10.radii == j10.radii == (5, 5)
+    assert j10.strategy_id == "tc:o10"
+    assert o10.smem_bytes <= tplan.SMEM_PER_BLOCK
     # the reference agrees on the first three
     jops_ = js.derivative_operator_set(2, 6)
     with pytest.raises(ValueError, match="float32.*bfloat16"):
@@ -276,6 +303,16 @@ def test_tc_issued_macs_count_the_band():
         blocks = 512 ** 3 // 2048
         assert issued == 3 * 256 // 8 * 8 * 8 * 16 * blocks
         assert needed == 19 * 512 ** 3
+    # Order 10 at rank 1, tile 512: 64 row-segments, a band of 18 rows:
+    # bf16 two k-steps of 16 (k = 32), f32 k = 4·ceil(18 / 4) = 20.
+    o10 = td.DiffusionProblem((4096,), accuracy=10).step_op(
+        "hwc", device=CPU).ops
+    for dtype, rows, k in (("bfloat16", 16, 32), ("float32", 8, 20)):
+        p = tplan.plan_stencil(o10, (1, 4106), 1, strategy="tc", dtype=dtype)
+        issued, needed = tplan.tc_issued_macs(p, o10, ["step"])
+        assert p.block == (512,)
+        assert issued == 64 // rows * rows * 8 * k * 8
+        assert needed == 11 * 4096
 
 
 # --- what waits for a ROADMAP item -------------------------------------------------
@@ -376,6 +413,26 @@ def test_tc_kernel_matches_plain_on_card(cuda_device, ndim, fuse, dtype):
                  spatial_axes=range(1, f.ndim))
     want = ref.fused_stencil_tc_steps(padded, op.ops, op.phi.torch_fn, fuse)
     assert got.dtype == f.dtype
+    assert _rel(_f32(got.cpu()), _f32(want.cpu())) <= CARD_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+@pytest.mark.parametrize("shape,order", (((64, 96), 10), ((16, 24, 40), 12),
+                                         ((30030,), 12)))
+def test_tc_kernel_beyond_radius_4_matches_plain_on_card(cuda_device, shape,
+                                                          order, dtype):
+    p = td.DiffusionProblem(shape, accuracy=order)
+    op = p.step_op("tc", device=cuda_device)
+    f = p.init_field(seed=3, device=cuda_device, dtype=dtype)
+    emit.reset_launch_counts()
+    got = op(f)
+    assert emit.fused_stencil_swc.launches_by_kernel == {
+        "fused_stencil_tc": 1
+    }
+    padded = pad(f, op.radius_per_axis, "periodic",
+                 spatial_axes=range(1, f.ndim))
+    want = ref.fused_stencil_tc(padded, op.ops, op.phi.torch_fn)
     assert _rel(_f32(got.cpu()), _f32(want.cpu())) <= CARD_TOL[dtype]
 
 

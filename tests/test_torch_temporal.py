@@ -26,12 +26,14 @@ import torch  # noqa: E402
 
 from repro.core import stencil as js  # noqa: E402
 from repro.core import trafficmodel as jtm  # noqa: E402
+from repro.core.fusion import integrate as jintegrate  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.physics import diffusion as jd  # noqa: E402
 from repro.physics import mhd as jm  # noqa: E402
 from repro_torch.core import stencil as ts  # noqa: E402
 from repro_torch.core import trafficmodel as ttm  # noqa: E402
 from repro_torch.core.boundary import pad  # noqa: E402
+from repro_torch.core.fusion import integrate as tintegrate  # noqa: E402
 from repro_torch.kernels import emit, ref  # noqa: E402
 from repro_torch.kernels.ops import fused_stencil_nd, plan_for_nd  # noqa: E402
 from repro_torch.kernels.phi import phi_sequence, select_phi  # noqa: E402
@@ -181,9 +183,51 @@ def test_plan_rejects_non_self_map_and_unroll():
         plan_stencil(ops, (2, 20, 32), 3, fuse_steps=2)
     with pytest.raises(ValueError, match="unroll"):
         plan_stencil(ops, (1, 20, 40), 1, fuse_steps=2, unroll=2)
+    # No depth is fixed in the kernels: depth 9 is planned (ROADMAP C2),
+    # and only a depth below 1 is refused.
+    deep = StencilPlan(2, "swc", (4, 8), (2, 2), (12, 24), 1, 1, "float32",
+                       fuse_steps=9)
+    assert deep.halo == (18, 18) and deep.window == (40, 44)
     with pytest.raises(ValueError, match="fuse_steps"):
         StencilPlan(2, "swc", (4, 8), (2, 2), (12, 24), 1, 1, "float32",
-                    fuse_steps=9)
+                    fuse_steps=0)
+
+
+@pytest.mark.parametrize("fuse_steps", (9, 12))
+@pytest.mark.parametrize("strategy", ("swc", "swc_stream", "tc"))
+def test_depth_beyond_8_matches_jax(strategy, fuse_steps):
+    """ROADMAP C2's case: 2-D (64, 64), order 2, f32, one call of depth
+    9 or 12; the reference plans swc:f9:o2, swc_stream:sy:f9:o2 and
+    tc:f9:o2 (and f12) and runs them in interpret mode."""
+    shape = (64, 64)
+    jp = jd.DiffusionProblem(shape, accuracy=2)
+    f0 = jp.init_field(seed=6)
+    jop = jp.step_op(strategy, fuse_steps=fuse_steps)
+    want = jintegrate(jop, f0, fuse_steps)
+    jplan = jops.plan_for_nd(jop.ops, (1,) + tuple(n + 2 * fuse_steps
+                                                   for n in shape),
+                             1, strategy=strategy, fuse_steps=fuse_steps)
+    sy = ":sy" if strategy == "swc_stream" else ""
+    assert jplan.strategy_id == f"{strategy}{sy}:f{fuse_steps}:o2"
+    op = td.DiffusionProblem(shape, accuracy=2).step_op(
+        strategy, fuse_steps=fuse_steps, device=CPU)
+    plan = plan_for_nd(op.ops, (1,) + tuple(n + 2 * fuse_steps for n in shape),
+                       1, strategy=strategy, fuse_steps=fuse_steps)
+    assert plan.fuse_steps == fuse_steps
+    assert plan.smem_bytes <= SMEM_PER_BLOCK
+    got = tintegrate(op, torch.from_numpy(np.array(f0)), fuse_steps)
+    assert got.shape == (1,) + shape
+    assert _rel(got.numpy(), want) <= TOL["float32"]
+
+
+@pytest.mark.parametrize("strategy", ("swc", "swc_stream", "tc"))
+def test_a_depth_that_fits_no_tile_raises_the_fit_error(strategy):
+    """Rank 3, order 6, depth 9: a halo of 27 points a side (54 per
+    axis) leaves no tile that fits 227 KB; the planner says so."""
+    ops = td.DiffusionProblem((64,) * 3).step_op(strategy, device=CPU).ops
+    with pytest.raises(ValueError, match="no (swc_stream )?tile fits"):
+        plan_stencil(ops, (1,) + (64 + 54,) * 3, 1, strategy=strategy,
+                     fuse_steps=9)
 
 
 def test_smem_bytes_is_the_temporal_layout():
@@ -341,3 +385,21 @@ def test_temporal_kernel_mhd_pair_matches_plain_on_card(cuda_device, dtype):
     want = ref.fused_stencil_steps(fp, solver.operator_set,
                                    [p.torch_fn for p in phis], 2, aux=w)
     assert _rel(got.cpu().numpy(), want.cpu().numpy()) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strategy", ("swc", "swc_stream", "tc"))
+def test_depth_9_kernel_matches_plain_on_card(cuda_device, strategy):
+    """ROADMAP C2's case on the card: one launch of depth 9, the φ
+    parameter rows read from the wrapper's device buffer."""
+    p = td.DiffusionProblem((64, 64), accuracy=2)
+    op = p.step_op(strategy, fuse_steps=9, device=cuda_device)
+    f = p.init_field(seed=6, device=cuda_device)
+    emit.reset_launch_counts()
+    got = op(f)
+    assert emit.fused_stencil_swc.launches_by_depth == {9: 1}
+    fp = pad(f, [9 * r for r in op.radius_per_axis], "periodic",
+             spatial_axes=(1, 2))
+    want = ref.fused_stencil_steps(fp, op.ops, op.phi.torch_fn, 9,
+                                   tc=strategy == "tc")
+    assert _rel(got.cpu().numpy(), want.cpu().numpy()) <= TOL["float32"]
