@@ -40,7 +40,13 @@ Phases (each raises on failure; none is caught):
    cross-correlation (``csrc/xcorr1d.cu``) against ``ref.xcorr1d``: each
    strategy at unroll 4, f32 and f64, radii 0-1024, n = 2^20 + 123 (a
    ragged last block), each block's threads and shared bytes held to
-   the kernel's own layout.
+   the kernel's own layout. Then B7 (``csrc/conv1d_depthwise.cu``)
+   against ``ref.conv1d_depthwise``: the reference's sweep shapes
+   (1,64,8,4), (3,100,16,4), (2,257,32,7), mamba2-780m's prefill launch
+   (4, 8192, 3328) k = 4, a ragged s = 8193, and the strided xBC view of
+   the (4, 8192, 6448) in-projection (bf16 two channels per thread, and
+   one on a view starting on 2 bytes), f32 and bf16, activation none
+   and silu, each block's threads held to the kernel's own.
 3. Main path at full size, through the entry points a user calls, with
    the launch counters (total, per depth and per kernel) zeroed just
    before and read just after each run: MHD 256³ f32 RK3 with the fused
@@ -69,6 +75,17 @@ Phases (each raises on failure; none is caught):
    f32, 5 steps on each B6 strategy, exactly one ``xcorr1d`` launch per
    step (and no fused-stencil launch), held to ``simulate(...,
    strategy="swc")`` (B1 at rank 1) within 1e-5.
+   The mamba2 phase: mamba2-780m at full width (48 layers, d_model
+   1536, random init from a seeded generator on the card) through
+   ``repro_torch.launch.steps``: the prefill (4, 8192) in bf16 with
+   exactly 48 B7 launches and no fused-stencil or xcorr1d launch, its
+   last logits held to the same prefill with ``use_pallas_conv=False``
+   within 2e-2 of the largest |logit|; ``forward`` (with B7) against
+   step-by-step ``decode_step`` from an empty cache in f32 on (2, 512)
+   (two SSD chunks) within 2.2e-3 absolute (``DECODE_TOL`` says why not
+   the reduced test's 5e-4); the
+   serve loop of ``launch/serve.py`` at batch 4, 32 steps; prefill ms
+   and tokens/s on the host clock after a warm-up.
 4. Times (CUDA events, median after warm-up) of each kernel, its plain
    version and, for diffusion, ``F.conv{1,2,3}d`` with the merged
    stencil as a dense weight (S calls at depth S); the bound is
@@ -93,6 +110,12 @@ Phases (each raises on failure; none is caught):
    launch (the kernels line's B6 rows); bound max((2n + 2r + taps) ×
    itemsize / memory rate, 2 × taps × n / non-tensor rate); library
    ``F.conv1d`` (cuDNN) with ``cudnn.allow_tf32`` off.
+   B7 rows (the kernels line's): the strided xBC view at the prefill
+   launch (4, 8192, 3328), k = 4, bf16 and f32, with launches per
+   prefill; bound max(((b(s+k-1) + k)c + bsc) × itemsize / memory
+   rate, 2kbsc / non-tensor f32 rate); library ``F.conv1d(groups=c,
+   padding=k-1)`` (cuDNN, TF32 off) on a contiguous (b, c, s) copy,
+   whose copy time is printed apart.
    Each phase prints its seconds.
 
 The line before the last is ``{"kernels": [...]}``; the last is
@@ -128,6 +151,24 @@ XCORR_REPLACES = "src/repro/kernels/stencil1d.py:73"
 # ignores it, as the reference's does).
 XCORR_STRATEGIES = (("baseline", 4), ("pointwise", 4), ("elementwise", 4))
 XCORR_RADII = (0, 1, 5, 32, 200, 1024)
+CONV_SOURCE = "src/repro_torch/kernels/csrc/conv1d_depthwise.cu"
+# conv1d_depthwise_pallas (+ _kernel :26)
+CONV_REPLACES = "src/repro/kernels/conv1d_depthwise.py:36"
+# mamba2-780m's prefill at the cut size (registry prefill_32k is (32, 32768))
+# and the decode-consistency prompt (two SSD chunks of 256).
+PREFILL_SHAPE = (4, 8192)
+DECODE_SHAPE = (2, 512)
+LM_BATCH, LM_STEPS = 4, 32  # launch/serve.py's defaults
+# Decode against forward at full width in f32, max |err| (absolute).
+# tests/test_system.py:85 holds 5e-4 at the reduced config (4 layers,
+# chunk 16); at 48 layers and chunk 256 the chunked form's f32
+# exp(A_cs_i - A_cs_j) rounds unlike the recurrence and depth amplifies
+# it (the reference's JAX code too: tools/mamba2_drift.py decode). On the
+# H100, tools/mamba2_decode_limit.py reads 8.395e-4 to 1.110e-3 over four
+# seeds, and 2.902e-1 to 7.523 with a fault planted in the decode path
+# (conv window frozen, state decaying twice, state in bf16): the limit
+# is twice the largest sound reading.
+DECODE_TOL = 2.2e-3
 TOL = {"float32": 1e-5, "float64": 1e-12, "bfloat16": 2e-2}
 # Tensor-core rates of the tc routes (data sheet, SXM): bf16 MMA; the
 # f32 fields contract on the f64 MMA.
@@ -582,6 +623,66 @@ def phase_parity(dev):
                                        fuse_steps=depth, strategy=strategy,
                                        accuracy=2), "float32")
     parity_xcorr(dev)
+    parity_conv1d(dev)
+
+
+def conv_inputs(shape, k, dtype, device, seed=0, row=None, offset=0):
+    """(x, w): x (b, s, c) standard normal, w (k, c); with ``row``, x is
+    the column view ``[..., offset:offset + c]`` of a (b, s, row) tensor
+    (mamba2's xBC inside its in-projection)."""
+    import torch
+
+    b, s, c = shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+    dt = getattr(torch, dtype)
+    full = torch.randn((b, s, row or c), generator=gen, device=device)
+    x = full.to(dt)[..., offset:offset + c]
+    w = torch.randn((k, c), generator=gen, device=device).to(dt)
+    return x, w
+
+
+def parity_conv1d(dev):
+    """B7 (``csrc/conv1d_depthwise.cu``) against ``ref.conv1d_depthwise``:
+    the reference's sweep shapes, mamba2-780m's prefill launch (4, 8192,
+    3328) with k = 4, a ragged s, and the strided xBC view of the
+    (4, 8192, 6448) in-projection (bf16 two channels per thread, and one
+    when the view starts on 2 bytes), f32 and bf16, activation none and
+    silu; each block's threads held to the kernel's own layout. "=" marks
+    an output equal to the plain version's bit for bit, "~" one within
+    the tolerance only."""
+    import torch
+
+    from repro_torch.kernels import conv1d_depthwise as kc
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+
+    print("  -- B7 conv1d_depthwise vs ref.conv1d_depthwise")
+    b, s = PREFILL_SHAPE
+    cases = [((1, 64, 8), 4, 128, {}), ((3, 100, 16), 4, 128, {}),
+             ((2, 257, 32), 7, 128, {}),
+             ((b, s, 3328), 4, 512, {}), ((b, s + 1, 3328), 4, 512, {}),
+             ((b, s, 3328), 4, 512, dict(row=6448, offset=3072)),
+             ((b, s, 3328), 4, 512, dict(row=6448, offset=3073))]
+    for dtype in ("float32", "bfloat16"):
+        for i, (shape, k, block_seq, view) in enumerate(cases):
+            x, w = conv_inputs(shape, k, dtype, dev, seed=i, **view)
+            vec = kc.vector_width(x, w)
+            grid, threads = kc.launch_layout(*shape, block_seq, vec)
+            if kc.kernel_threads(shape[2], vec) != threads:
+                raise AssertionError(
+                    f"conv1d {shape}: the kernel's threads differ from "
+                    "conv1d_depthwise.py's")
+            for act in ("none", "silu"):
+                got = kops.conv1d_depthwise(x, w, activation=act,
+                                            block_seq=block_seq)
+                want = ref.conv1d_depthwise(x, w, act)
+                tag = f" view row {view['row']} +{view['offset']}" \
+                    if view else ""
+                same = "=" if torch.equal(got, want) else "~"
+                check(f"conv1d {shape} k={k} {act}{tag} vec{vec} "
+                      f"grid{grid} {same}", got, want, dtype)
+                del got, want
+            del x, w
 
 
 def parity_xcorr(dev):
@@ -944,6 +1045,144 @@ def phase_main_path_1d(dev, launches):
                                  "swc")
         del out
     del want, f0
+    torch.cuda.empty_cache()
+
+
+def _reset_all_counts():
+    from repro_torch.kernels import conv1d_depthwise as kc
+    from repro_torch.kernels import emit
+    from repro_torch.kernels import xcorr1d as kx
+
+    emit.reset_launch_counts()
+    kx.reset_launch_counts()
+    kc.reset_launch_counts()
+
+
+def _all_counts() -> tuple[int, int, int]:
+    """(B7, fused-stencil, xcorr1d) launches since the last reset."""
+    from repro_torch.kernels import conv1d_depthwise as kc
+    from repro_torch.kernels import emit
+    from repro_torch.kernels import xcorr1d as kx
+
+    return (kc.conv1d_depthwise_cuda.launches,
+            emit.fused_stencil_swc.launches, kx.xcorr1d_cuda.launches)
+
+
+def phase_main_path_ssm(dev, smi, launches):
+    """mamba2-780m at full width (48 layers, d_model 1536, state 128,
+    vocab 50280), random init from a seeded generator on the card,
+    through ``repro_torch.launch.steps`` and ``launch.serve``: the
+    prefill (4, 8192) in bf16 with 48 B7 launches (counters zeroed just
+    before, read just after) held to the same prefill with the plain conv;
+    forward (with B7) against step-by-step decode in f32 on (2, 512); the
+    serve loop at batch 4, 32 steps."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import ssm
+
+    print("== phase 3 (mamba2): mamba2-780m prefill and decode on B7 "
+          "(csrc/conv1d_depthwise.cu)")
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 matmuls in f32
+    cfg = get_config("mamba2-780m")
+    params = ssm.init_params(cfg, seed=0, device=dev)
+    n_par = sum(v.numel() for t in (params, params["blocks"])
+                for v in t.values() if torch.is_tensor(v))
+    print(f"  {cfg.arch_id}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"conv channels {cfg.d_inner + 2 * cfg.ssm_n_groups * cfg.ssm_state}"
+          f", {n_par} parameters (config: {cfg.n_params():.0f}), {cfg.dtype}")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    b, s = PREFILL_SHAPE
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=dev)
+    prefill = make_prefill_step(cfg, device=dev)
+    plain_prefill = make_prefill_step(cfg, device=dev, use_pallas_conv=False)
+    batch = {"tokens": tokens}
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        _reset_all_counts()
+        out = prefill(params, batch)
+        torch.cuda.synchronize()
+        conv_n, stencil_n, xcorr_n = _all_counts()
+        if (conv_n, stencil_n, xcorr_n) != (cfg.n_layers, 0, 0):
+            raise AssertionError(
+                f"prefill: {conv_n} B7, {stencil_n} fused-stencil and "
+                f"{xcorr_n} xcorr1d launches; want {cfg.n_layers}, 0, 0")
+        launches["conv1d prefill"] = conv_n
+        if out.shape != (b, cfg.vocab) or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"prefill: bad logits {tuple(out.shape)}")
+        _reset_all_counts()
+        want = plain_prefill(params, batch)
+        if _all_counts() != (0, 0, 0):
+            raise AssertionError("the plain-conv prefill launched a kernel")
+        err, rel = rel_err(out, want)
+        print(f"  prefill {PREFILL_SHAPE} {cfg.dtype}: launches B7 {conv_n}, "
+              f"fused-stencil {stencil_n}, xcorr1d {xcorr_n}; last logits vs "
+              f"use_pallas_conv=False max|err| {err:.3e} rel {rel:.3e} "
+              f"(tol {TOL['bfloat16']:.0e}) "
+              f"{'ok' if rel <= TOL['bfloat16'] else 'FAIL'}")
+        if rel > TOL["bfloat16"]:
+            raise AssertionError(f"prefill: rel err {rel:.3e} vs plain conv")
+        del out, want
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prefill(params, batch)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        prefill_ms = statistics.median(times)
+        print(f"  prefill {PREFILL_SHAPE} {cfg.dtype}: {prefill_ms:.1f} ms "
+              f"(host clock, median of {len(times)} after the "
+              f"warm-up; {b * s / prefill_ms * 1e3:.0f} tokens/s) on {smi}")
+        print(f"  peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del tokens, batch
+
+        # Decode consistency (tests/test_system.py:67) at full width, f32.
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        b2, s2 = DECODE_SHAPE
+        toks = torch.randint(0, cfg.vocab, (b2, s2), generator=gen,
+                             device=dev)
+        _reset_all_counts()
+        full, _ = ssm.forward(params, cfg32, toks)
+        torch.cuda.synchronize()
+        counts = _all_counts()
+        if counts != (cfg.n_layers, 0, 0):
+            raise AssertionError(f"f32 forward: launches {counts}")
+        launches["conv1d f32 forward"] = counts[0]
+        step = make_serve_step(cfg32, device=dev)
+        cache = ssm.init_decode_cache(cfg32, b2, s2, device=dev)
+        errs = torch.empty(s2, device=dev)
+        for t in range(s2):
+            lg, cache = step(params, cache, {"tokens": toks[:, t:t + 1]})
+            errs[t] = (lg - full[:, t]).abs().max()
+        worst = float(errs.max())
+        rel = worst / float(full.abs().max())
+        print(f"  decode vs forward (B7) {DECODE_SHAPE} f32, {s2} steps from "
+              f"an empty cache: max|err| {worst:.3e} (tol {DECODE_TOL:.1e}; "
+              f"rel {rel:.3e}; worst step {int(errs.argmax())}) "
+              f"{'ok' if worst <= DECODE_TOL else 'FAIL'}")
+        if not worst <= DECODE_TOL:
+            raise AssertionError(f"decode vs forward: max|err| {worst:.3e}")
+        del full, cache, toks, errs
+
+    # The serve loop of launch/serve.py, after a two-step warm-up.
+    serve(cfg, batch=LM_BATCH, steps=2, device=dev, params=params)
+    gen_tokens, secs = serve(cfg, batch=LM_BATCH, steps=LM_STEPS,
+                             device=dev, params=params)
+    if gen_tokens.shape != (LM_BATCH, LM_STEPS + 1) or \
+            int(gen_tokens.min()) < 0 or int(gen_tokens.max()) >= cfg.vocab:
+        raise AssertionError(f"serve: bad tokens {tuple(gen_tokens.shape)}")
+    print(f"  serve batch {LM_BATCH}, {LM_STEPS} steps {cfg.dtype}: "
+          f"{LM_BATCH * LM_STEPS / secs:.1f} tokens/s, "
+          f"{1e3 * secs / LM_STEPS:.2f} ms per decode step (host clock) "
+          f"on {smi}")
+    print("  first row: " + " ".join(map(str, gen_tokens[0, :12].tolist())))
+    del params
     torch.cuda.empty_cache()
 
 
@@ -1451,6 +1690,92 @@ def phase_times_xcorr(dev, smi, launches):
     return rows
 
 
+def phase_times_conv1d(dev, smi, launches):
+    """B7 rows (CUDA events, median) at mamba2-780m's prefill launch: the
+    strided xBC view (4, 8192, 3328) of a (4, 8192, 6448) in-projection,
+    k = 4, bf16 (the main path's dtype, 48 launches per prefill) and f32
+    (the f32 forward's, also 48). Bound: bytes = ((b·(s+k-1) + k)·c +
+    b·s·c) values (the padded input and the taps read once, the output
+    written once) over the memory rate, against 2·k·b·s·c FLOPs at the
+    non-tensor f32 rate. The library call is ``F.conv1d(groups=c,
+    padding=k-1)`` (cuDNN, TF32 off) on a contiguous (b, c, s) copy; the
+    copy's time is printed apart. The port never calls it."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import conv1d_depthwise as kc
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+
+    print("== phase 4 (mamba2): B7 conv1d_depthwise times (CUDA events, "
+          "median)")
+    print(f"  card: {smi}")
+    bw, f32_rate, _ = card_rates(torch.cuda.get_device_name(0))
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    b, s = PREFILL_SHAPE
+    c, k, row = 3328, 4, 6448
+    rows = []
+    try:
+        for dtype, key in (("bfloat16", "conv1d prefill"),
+                           ("float32", "conv1d f32 forward")):
+            x, w = conv_inputs((b, s, c), k, dtype, dev, seed=11, row=row,
+                               offset=3072)
+            item = x.element_size()
+            want = ref.conv1d_depthwise(x, w)
+            got = kops.conv1d_depthwise(x, w)
+            err, rel = rel_err(got, want)
+            if rel > TOL[dtype]:
+                raise AssertionError(f"conv1d {dtype}: rel err {rel:.3e}")
+            del got
+            ms = time_ms(lambda: kops.conv1d_depthwise(x, w), 20)
+            xc = x.contiguous()
+            ms_contig = time_ms(lambda: kops.conv1d_depthwise(xc, w), 20)
+            del xc
+            plain_ms = time_ms(lambda: ref.conv1d_depthwise(x, w), 5)
+            copy_ms = time_ms(lambda: x.transpose(1, 2).contiguous(), 10)
+            xt = x.transpose(1, 2).contiguous()  # (b, c, s)
+            wt = w.t().contiguous()[:, None, :]  # (c, 1, k)
+            lib = F.conv1d(xt, wt, padding=k - 1, groups=c)[..., :s]
+            _, lib_rel = rel_err(lib.transpose(1, 2), want)
+            del lib, want
+            lib_ms = time_ms(
+                lambda: F.conv1d(xt, wt, padding=k - 1, groups=c), 20)
+            del xt
+            values = (b * (s + k - 1) + k) * c + b * s * c
+            t_bytes = values * item / bw * 1e3
+            t_ops = 2 * k * b * s * c / f32_rate * 1e3
+            bound = max(t_bytes, t_ops)
+            by = "bytes" if t_bytes >= t_ops else "operations"
+            rows.append({
+                "name": f"conv1d_depthwise[mamba2 prefill xBC {b}x{s}x{c} "
+                        f"k={k}, {dtype}]",
+                "route": "cuda",
+                "source": CONV_SOURCE,
+                "replaces": CONV_REPLACES,
+                "launches": launches[key],
+                "max_abs_err": err,
+                "ms": ms,
+                "plain_ms": plain_ms,
+                "bound_ms": bound,
+                "bound_by": by,
+                "library_ms": lib_ms,
+            })
+            print(f"  xBC view {b}x{s}x{c} k={k} {dtype:<8} vec"
+                  f"{kc.vector_width(x, w)}: kernel {ms:.4f} ms (contiguous "
+                  f"input {ms_contig:.4f})  plain {plain_ms:.4f} ms  bound "
+                  f"{bound:.4f} ms ({by}, {values * item / 1e6:.1f} MB)  "
+                  f"conv1d (groups=c, no TF32) {lib_ms:.4f} ms + transpose "
+                  f"copy {copy_ms:.4f} ms  max|err| {err:.3e}  "
+                  f"{bound / ms:.1%} of bound  launches/prefill "
+                  f"{launches[key]}; conv1d vs plain rel {lib_rel:.3e}")
+            del x, w
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main(argv: list[str]) -> int:
     import torch
 
@@ -1479,9 +1804,11 @@ def main(argv: list[str]) -> int:
     launches = timed("phase 3", phase_main_path, dev)
     timed("phase 3 (tc)", phase_main_path_tc, dev, launches)
     timed("phase 3 (1-D)", phase_main_path_1d, dev, launches)
+    timed("phase 3 (mamba2)", phase_main_path_ssm, dev, smi, launches)
     timed("phase 3b", phase_serve, dev, launches)
     rows = timed("phase 4", phase_times, dev, smi, launches)
     rows += timed("phase 4 (1-D)", phase_times_xcorr, dev, smi, launches)
+    rows += timed("phase 4 (mamba2)", phase_times_conv1d, dev, smi, launches)
     print("chip_smoke: seconds by phase "
           + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     print(f"chip_smoke: all phases in {time.perf_counter() - t0:.1f} s")

@@ -1,15 +1,17 @@
 """Carry the reference's state across to the port.
 
-The system has no learned weights: its state is the operator tap tables
-(offsets and coefficients), the MHD parameters, and the field stacks.
-These helpers rebuild each from plain numpy/dict data, so an object of
-the JAX package (an ``OperatorSet``, ``MHDParams``, a jax array) can be
-handed to the port through ``dataclasses.asdict``/``numpy`` without the
-port importing the JAX package.
+The stencil engine has no learned weights: its state is the operator
+tap tables (offsets and coefficients), the MHD parameters, and the field
+stacks. mamba2's state is its parameter tree. These helpers rebuild each
+from plain numpy/dict data, so an object of the JAX package (an
+``OperatorSet``, ``MHDParams``, a jax array, the nested dict of
+``repro.models.ssm.init_params``) can be handed to the port through
+``dataclasses.asdict``/``numpy`` without the port importing the JAX
+package.
 """
 from __future__ import annotations
 
-from typing import Mapping, Sequence
+from typing import Any, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -76,3 +78,21 @@ def fields_from_numpy(
         t = t.to(torch.bfloat16)
     dt = as_dtype(dtype) if dtype is not None else t.dtype
     return t.to(device=resolve_device(device), dtype=dt)
+
+
+def ssm_params_from_numpy(
+    tree: Mapping[str, Any],
+    device: str | torch.device | None = None,
+) -> dict[str, Any]:
+    """mamba2's parameter tree (nested dicts of arrays, e.g. the JAX
+    ``init_params`` output with every leaf through ``np.asarray``) as
+    the same nested dicts of tensors on ``device`` (the card by
+    default), each leaf in its own dtype, copied exactly."""
+    dev = resolve_device(device)
+
+    def one(leaf):
+        if isinstance(leaf, Mapping):
+            return {k: one(v) for k, v in leaf.items()}
+        return fields_from_numpy(leaf, device=dev)
+
+    return one(tree)

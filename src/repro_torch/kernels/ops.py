@@ -7,8 +7,11 @@ cross-correlation (``repro.kernels.ops.xcorr1d``).
 :class:`~repro_torch.kernels.plan.StencilPlan` and
 ``emit.fused_stencil_swc``; the cross-correlation's ``baseline``,
 ``pointwise`` and ``elementwise`` go to ``csrc/xcorr1d.cu`` through
-``xcorr1d.xcorr1d_cuda``. Every reference option whose kernel is not
-ported yet raises ``NotImplementedError`` naming its ROADMAP item.
+``xcorr1d.xcorr1d_cuda``; mamba2's depthwise causal conv goes to
+``csrc/conv1d_depthwise.cu`` through
+``conv1d_depthwise.conv1d_depthwise_cuda``. Every reference option whose
+kernel is not ported yet raises ``NotImplementedError`` naming its
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -19,6 +22,10 @@ import torch
 from repro_torch import dtype_name
 from repro_torch.core.stencil import OperatorSet
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.conv1d_depthwise import (
+    DEFAULT_BLOCK_SEQ,
+    conv1d_depthwise_cuda,
+)
 from repro_torch.kernels.emit import TapTable, fused_stencil_swc
 from repro_torch.kernels.phi import DevicePhi
 from repro_torch.kernels.plan import (
@@ -62,6 +69,32 @@ def xcorr1d(
         raise _not_ported("block_size='auto' (the tuner)", "A9")
     return xcorr1d_cuda(
         f_padded, g, strategy=strategy, block_size=block_size, unroll=unroll
+    )
+
+
+def conv1d_depthwise(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    activation: str = "none",
+    block_seq: int | str | None = None,
+) -> torch.Tensor:
+    """Fused depthwise causal conv1d (+ SiLU) — mamba2 frontend stencil:
+    ``x`` (b, s, c) and ``w`` (k, c) give (b, s, c).
+
+    Any s (the kernel masks the ragged last run). ``block_seq=None``
+    (model call sites) is 512, the reference's default; ``"auto"``
+    raises ``NotImplementedError`` (the tuner, ROADMAP A9). On a CUDA
+    tensor it launches ``csrc/conv1d_depthwise.cu`` (float32 or
+    bfloat16, up to 8 taps; others raise ``NotImplementedError``,
+    ROADMAP B7b); on a CPU tensor it takes the plain version.
+    """
+    if block_seq == "auto":
+        raise _not_ported("block_seq='auto' (the tuner)", "A9")
+    if block_seq is None:
+        block_seq = DEFAULT_BLOCK_SEQ
+    return conv1d_depthwise_cuda(
+        x, w, activation=activation, block_seq=block_seq
     )
 
 

@@ -19,6 +19,10 @@ in float32 in sorted order and cast back once per operator.
 :func:`xcorr1d` is the 1-D cross-correlation's plain version (the
 ``hwc`` strategy of ``ops.xcorr1d`` and the oracle of the B6 kernel
 ``csrc/xcorr1d.cu``), :func:`xcorr1d_numpy` its float64 numpy oracle.
+:func:`conv1d_depthwise_causal` is mamba2's depthwise causal conv (the
+reference's ``conv1d_depthwise_causal``), and :func:`conv1d_depthwise`
+that conv with the optional SiLU: the plain version of the B7 kernel
+``csrc/conv1d_depthwise.cu``.
 """
 from __future__ import annotations
 
@@ -55,6 +59,38 @@ def xcorr1d_numpy(f_padded: np.ndarray, g: np.ndarray) -> np.ndarray:
     for k in range(g.shape[0]):
         out += g[k] * f_padded[k : k + n]
     return out
+
+
+def conv1d_depthwise_causal(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal 1-D convolution (mamba2 frontend stencil).
+
+    ``x``: (batch, seq, channels), any strides; ``w``: (k, channels).
+    Output (b, s, c), contiguous: y[b, t, c] = Σ_{j<k} w[j, c] ·
+    x[b, t - (k-1) + j, c], zero-padded left; the k terms are summed in
+    that order in ``x.dtype`` (each product and each sum rounded to it),
+    ``w`` cast to ``x.dtype`` first.
+    """
+    k = w.shape[0]
+    xp = torch.nn.functional.pad(x, (0, 0, k - 1, 0))
+    seq = x.shape[1]
+    acc = torch.zeros(x.shape, dtype=x.dtype, device=x.device)
+    for j in range(k):
+        acc = acc + w[j][None, None, :].to(x.dtype) * xp[:, j : j + seq, :]
+    return acc
+
+
+def conv1d_depthwise(
+    x: torch.Tensor, w: torch.Tensor, activation: str = "none"
+) -> torch.Tensor:
+    """:func:`conv1d_depthwise_causal`, then ``y * sigmoid(y)`` in
+    ``x.dtype`` when ``activation="silu"`` (the TPU kernel's fused gate,
+    ``repro/kernels/conv1d_depthwise.py:_kernel``)."""
+    if activation not in ("none", "silu"):
+        raise ValueError(f"activation {activation!r} not in ('none', 'silu')")
+    y = conv1d_depthwise_causal(x, w)
+    if activation == "silu":
+        y = y * torch.sigmoid(y)
+    return y
 
 
 def _coeff(c: float, dtype: torch.dtype) -> torch.Tensor:

@@ -33,7 +33,8 @@ def _env():
 def test_port_imports_no_jax_and_no_reference_package():
     """Import every module of the port and run a CPU step of each
     solver (diffusion on ``swc`` and on ``tc`` in f32 and bf16, MHD on
-    ``swc`` and ``tc``) in a fresh interpreter; then neither ``jax*``
+    ``swc`` and ``tc``) and of the reduced mamba2 (a prefill, a decode
+    step, the serve loop) in a fresh interpreter; then neither ``jax*``
     nor ``repro``/``repro.*`` may be loaded."""
     modules = sorted(
         ".".join(p.relative_to(SRC).with_suffix("").parts)
@@ -54,6 +55,19 @@ def test_port_imports_no_jax_and_no_reference_package():
         s.step(s.init_fields(), 1e-3)
         s = MHDSolver((8, 8, 16), strategy="tc", fuse_rk_pairs=True, device="cpu")
         s.step(s.init_fields(), 1e-3)
+        import torch
+        from repro_torch.configs.registry import get_config, reduced_config
+        from repro_torch.launch.serve import serve
+        from repro_torch.launch.steps import make_prefill_step, make_serve_step
+        from repro_torch.models import ssm
+        cfg = reduced_config(get_config("mamba2-780m"))
+        prm = ssm.init_params(cfg, device="cpu")
+        tok = torch.zeros((1, 16), dtype=torch.long)
+        make_prefill_step(cfg, device="cpu")(prm, {{"tokens": tok}})
+        make_serve_step(cfg, device="cpu")(
+            prm, ssm.init_decode_cache(cfg, 1, 16, device="cpu"),
+            {{"tokens": tok[:, :1]}})
+        serve(cfg, batch=1, steps=2, device="cpu", params=prm)
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "repro")]
         print(json.dumps(bad))
@@ -117,6 +131,37 @@ def test_server_needs_the_card_unless_asked_for_cpu():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert SimServer(device="cpu").device == torch.device("cpu")
+
+
+def test_mamba2_entry_points_need_the_card_unless_asked_for_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    from repro_torch.configs.registry import get_config, reduced_config
+    from repro_torch.launch.serve import main, serve
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import ssm
+
+    cfg = reduced_config(get_config("mamba2-780m"))
+    for call in (
+        lambda: ssm.init_params(cfg),
+        lambda: ssm.init_params(cfg, device="cuda"),
+        lambda: ssm.init_decode_cache(cfg, 1, 8),
+        lambda: make_prefill_step(cfg),
+        lambda: make_serve_step(cfg),
+        lambda: serve(cfg, batch=1, steps=1),
+        lambda: main(["--reduced", "--steps", "1"]),
+    ):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    # ...a step refuses tokens that are not on its device...
+    prm = ssm.init_params(cfg, device="cpu")
+    step = make_prefill_step(cfg, device="meta")
+    with pytest.raises(ValueError, match="this step runs on meta"):
+        step(prm, {"tokens": torch.zeros((1, 4), dtype=torch.long)})
+    # ...and the CPU runs when asked for.
+    assert make_prefill_step(cfg, device="cpu")(
+        prm, {"tokens": torch.zeros((1, 4), dtype=torch.long)}
+    ).shape == (1, cfg.vocab)
 
 
 def test_swc_refuses_a_bare_callable():
