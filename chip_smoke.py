@@ -34,7 +34,9 @@ Phases (each raises on failure; none is caught):
    f32 and bf16 at depth 1 and 2, on tiles whose last 8-wide segment is
    ragged, two selected fields, B = 3 (each member equal to its
    unbatched launch), and the MHD RHS, fused substep (aux) and pair on
-   a cube and a non-cubic box, the RHS and substep also at B = 3.
+   a cube and a non-cubic box, the RHS and substep also at B = 3. Each
+   tc case prints its launch: persistent grid, ring stages, staging
+   route, registers.
    Then tc beyond radius 4 (orders 10 and 12, f32 and bf16, ranks 1-3),
    depths 9 and 12 on B2, B3 and B4 at 2-D (order 2, f32), and the B6
    cross-correlation (``csrc/xcorr1d.cu``) against ``ref.xcorr1d``: each
@@ -104,7 +106,10 @@ Phases (each raises on failure; none is caught):
    256³, pair 128³) take their bound at the route's tensor-core rate
    (989 TFLOP/s bf16 MMA; 67 TFLOP/s f64 MMA for f32 fields) and print
    the banded multiply-adds the MMAs issue beside the taps' own
-   (``plan.tc_issued_macs``); the bf16 rows time ``conv*d`` in bf16.
+   (``plan.tc_issued_macs``) and, at depth 1, the persistent grid (the
+   kernel's occupancy times the SMs), the ring's stages, the staging
+   route (16-byte ``cp.async``) and the registers from ptxas; the bf16
+   rows time ``conv*d`` in bf16.
    B6 rows: each strategy at n = 2^24 (fig07's size), f32 at radii
    1-1024 and f64 at r = 1 and 1024, and the 2^26 ``step_1d_xcorr``
    launch (the kernels line's B6 rows); bound max((2n + 2r + taps) ×
@@ -296,11 +301,12 @@ def select_case(shape, dtype, device, fuse_steps, seed=0, strategy="swc",
     return fp, ops, select_phi("dxx"), plan, None
 
 
-def mhd_case(shape, dtype, device, substep, block=(1, 8, 32), unroll=1,
+def mhd_case(shape, dtype, device, substep, block=None, unroll=1,
              smooth=True, seed=0, strategy="swc", batch=None):
     """(f_padded, ops, phi, plan, aux) of one MHD RHS or RK substep;
     ``batch`` members (seeds ``seed``, ``seed + 1``, ...) make an
-    ensemble, aux then (batch, 8, *shape)."""
+    ensemble, aux then (batch, 8, *shape). ``block`` defaults to the
+    solver's: the planner's on ``tc``, else ``MHDSolver.block``."""
     import torch
 
     from repro_torch.core.boundary import pad
@@ -308,6 +314,8 @@ def mhd_case(shape, dtype, device, substep, block=(1, 8, 32), unroll=1,
     from repro_torch.physics import mhd
 
     solver = mhd.MHDSolver(tuple(shape), strategy="swc", device=device)
+    if block is None and strategy != "tc":
+        block = solver.block
     init = solver.init_smooth if smooth else solver.init_fields
     kw = dict(amplitude=1e-2) if smooth else {}
     if batch is None:
@@ -388,6 +396,43 @@ def mhd_rhs_twice_case(shape, dtype, device, seed=0):
             plan, None)
 
 
+def ptxas_registers(name: str) -> dict[str, int]:
+    """Registers per kernel entry (mangled name) of ``csrc/<name>.cu``'s
+    last build, from nvcc's ``-Xptxas -v`` report."""
+    from repro_torch.kernels import build
+
+    regs, entry = {}, None
+    for line in build.ptxas_report(name).splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "registers" in line and entry is not None:
+            regs[entry] = int(line.split("Used")[1].split()[0])
+            entry = None
+    return regs
+
+
+def tc_launch_info(plan, phi) -> str:
+    """The depth-1 tc launch of ``plan``: its persistent grid (the
+    kernel's occupancy), ring stages, staging route and registers."""
+    import torch
+
+    from repro_torch.kernels import emit
+
+    if not plan.tc_depth1:
+        return f"temporal body (depth {plan.fuse_steps}), grid of tiles"
+    grid = emit.tc_launch_grid(plan, phi.kind_id,
+                               torch.cuda.current_device())
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    t = "f" if plan.dtype == "float32" else "13__nv_bfloat16"
+    key = f"tc_d1_kernelI{t}Li{phi.kind_id}E"
+    regs = [v for k, v in ptxas_registers(TC).items() if key in k]
+    return (f"persistent grid {grid} ({grid / sms:.2f} per SM, "
+            f"{plan.tc_items} steps of {plan.tc_step.extent}), "
+            f"{plan.stage_buffers}-stage ring of {plan.tc_step.buffer_bytes} "
+            f"B windows, 16-byte cp.async staging, {plan.threads} threads, "
+            f"{regs[0] if regs else '?'} registers")
+
+
 def plain(case):
     """The plain PyTorch version of a case's launch."""
     from repro_torch.kernels import ref
@@ -415,6 +460,8 @@ def compare(label, case, dtype):
             f"{label}: plan.smem_bytes {plan.smem_bytes} != the kernel's "
             f"layout {layout}")
     got = emit.fused_stencil_swc(fp, ops, phi, plan, aux=aux)
+    if plan.strategy == "tc":
+        print(f"    tc: {tc_launch_info(plan, phi)}")
     seg = f" seg{plan.segments}" if plan.segments > 1 else ""
     check(f"{label} {dtype} S{plan.fuse_steps} tile{plan.block}"
           f"u{plan.unroll}{seg} {plan.smem_bytes}B", got, plain(case), dtype)
@@ -1344,9 +1391,9 @@ def phase_times(dev, smi, launches):
                 phi, depth)[0].operators)
             name_, source, replaces = (f"{TC}[{kind}, S={depth}, {dtype}",
                                        TC_SOURCE, TC_REPLACES)
-            print(f"    tc: tile {plan.block}, {plan.threads} threads, "
-                  f"{plan.smem_bytes} B shared, {plan.stage_buffers} window "
-                  f"buffer(s); banded MACs issued {issued:.6e} against "
+            print(f"    tc: tile {plan.block}, {plan.smem_bytes} B shared; "
+                  f"{tc_launch_info(plan, phi_sequence(phi, depth)[0])}; "
+                  f"banded MACs issued {issued:.6e} against "
                   f"{needed:.6e} for the multi-tap groups' taps "
                   f"({issued / needed:.3f}x)")
         elif stream:

@@ -5,12 +5,16 @@
 // with _block_derivs_tc (line 153), _tc_band (line 123) and _contract
 // (line 98), launched by fused_stencil_pallas through pl.pallas_call
 // (line 565); at depth S > 1 the reference runs _kernel_temporal with
-// derivs_fn=_block_derivs_tc (emit.py:549-554), and so does this kernel:
-// the sweeps, the staging of sweep 0 and the aux carry are
-// temporal_body.cuh's, shared with fused_stencil_temporal.cu, and only
-// the derivative evaluator differs (TcEval below, ScalarEval there).
+// derivs_fn=_block_derivs_tc (emit.py:549-554).
 //
-// What it computes. The taps of every operator are split as the
+// Two bodies. Depth 1 is tc_body.cuh: persistent blocks walking the
+// output tiles with windows in flight, the band as ready MMA fragments,
+// operator sums in registers (its header says how and why). Depth S > 1
+// runs the sweeps of temporal_body.cuh, shared with
+// fused_stencil_temporal.cu, with the tensor-core evaluator TcEval below
+// in place of the tap table.
+//
+// What both compute. The taps of every operator are split as the
 // reference's tc_axis_groups splits them (repro_torch/kernels/plan.py,
 // the wrapper hands over the groups in sorted (axis, rest) order): a
 // group gathers the taps whose last nonzero offset axis is `axis`, the
@@ -19,53 +23,32 @@
 // field type (as _tc_band builds it); a lone tap is (c in T) x value,
 // rounded in T, then widened to f32. Groups are summed in f32 in sorted
 // order and the sum is cast to T once per operator, then phi runs.
-//
-// Design. The TPU contracted the whole staged window against one
-// (tau + 2r, tau) band per axis, which grows with the tile. Here every
-// contraction is cut into 8-wide output segments along its axis, the n
-// of mma.sync, and all segments share one small band B[k][n] =
-// c[k - n] (k - n in [0, 2r], else 0) of 8 + 2r rows, contracted in as
-// many k-steps as it needs: ceil((8 + 2r) / 16) of m16n8k16 in bf16,
-// ceil((8 + 2r) / 4) of m8n8k4 in f64. The band is generated in
-// registers from the group's 2r + 1 coefficients, so no band lives in
-// memory, and neither the tile nor the radius is bounded by it (the
-// reference's TC_MAX_TILE does not apply; shared memory alone bounds
-// both). The rows of an MMA are row-segments: (position on the other two
-// axes, segment) pairs taken in order, so a rank-1 tile fills the rows
-// with consecutive segments of x and a rank-3 tile with neighbouring
-// (z, y) or (z, x) lines. Window
-// values beyond a row's 8 + 2r, or past the staged extent, are masked to
-// zero (band padding and ragged segments), and a masked output is never
-// stored. Each warp owns the same row-segment tiles for every group of
-// one axis, so it sums those groups in registers; the block writes the
-// per-operator f32 sums into a shared-memory tile between axes (the C
-// fragments of an x and a z contraction land on different lanes for one
-// point) and phi's thread reads its point's slots from it. Fields are
-// staged one at a time, as in the other kernels, so the 8 MHD fields are
-// never resident together; MHD takes its points in batches of one per
-// thread, each batch's planes contracted per field.
-// - bf16: mma.sync.m16n8k16 bf16 x bf16 -> f32 (16 row-segments a tile;
-//   the k-steps accumulate in the MMA's f32 C fragment).
+// - bf16: mma.sync.m16n8k16 bf16 x bf16 -> f32.
 // - f32: not TF32, which keeps about three digits against the
 //   reference's f32 tolerance of 2e-5 (tests/test_tc.py:66). The f32
-//   operands are widened to f64 and contracted with mma.sync.m8n8k4.f64
-//   (8 row-segments a tile): every product of two f32 values is exact in
-//   f64 and the sum is rounded to f32 once per group, closer to the exact
-//   sum than the plain f32 version (chip_smoke.py prints the error).
+//   operands are widened to f64 and contracted with mma.sync.m8n8k4.f64:
+//   every product of two f32 values is exact in f64 and the sum is
+//   rounded to f32 once per group, closer to the exact sum than the plain
+//   f32 version (chip_smoke.py prints the error).
+//
+// TcEval (depth > 1). Every contraction is cut into 8-wide output
+// segments along its axis, the n of mma.sync, and all segments share one
+// band B[k][n] = c[k - n] (k - n in [0, 2r], else 0) of 8 + 2r rows,
+// contracted in ceil((8 + 2r) / 16) bf16 or ceil((8 + 2r) / 4) f64
+// k-steps, generated in registers from the group's 2r + 1 coefficients.
+// The rows of an MMA are row-segments: (position on the other two axes,
+// segment) pairs taken in order. Window values beyond a row's 8 + 2r, or
+// past the staged extent, are masked to zero, and a masked output is never
+// stored. Each warp owns the same row-segment tiles for every group of one
+// axis and sums those groups in registers; the block writes the
+// per-operator f32 sums into a shared-memory tile between axes and phi's
+// thread reads its point's slots from it. MHD takes its points in batches
+// of one per thread, each batch's planes contracted per field.
 //
 // Bound on an H100 SXM: 3.35 TB/s; tensor cores 989 TFLOP/s bf16, 67
 // TFLOP/s f64. Diffusion is bound by bytes, the MHD RHS by operations.
-// The band's redundant multiply-adds: per 8 outputs a group of t taps
-// needs 8t, and one segment issues 8 x 16 x ceil((8 + 2r) / 16) in bf16
-// or 8 x 4 x ceil((8 + 2r) / 4) in f64, 2.3x the 56 of a 7-tap group at
-// r = 3 (2.7x for a 6-tap arm), more for ragged segments, whose masked
-// outputs are issued all the same; plan.tc_issued_macs counts them. What
-// the design does about them: one band of 8 outputs serves every segment
-// (the reference's band grows as (tau + 2r) x tau, so its waste grows with
-// the tile), the band is never staged, lone taps stay scalar, and each
-// window value is read once per tap group from shared memory. wgmma, TMA
-// and a layout that keeps the C fragments in registers through phi are
-// later work.
+// plan.tc_issued_macs counts the band's multiply-adds the MMAs issue
+// against the taps'.
 #include <cuda_bf16.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -74,57 +57,20 @@
 #include "phi_mhd.cuh"
 #include "stencil_common.cuh"
 #include "stencil_sweep.cuh"
+#include "tc_body.cuh"
 #include "temporal_body.cuh"
 
 namespace {
 
 using namespace stencil;
+using namespace stencil::tc;
 
 // The wrapper's group table (repro_torch/kernels/emit.py:tc_table): per
 // group ENT_LEN ints (axis lifted to rank 3: 0 z, 1 y, 2 x; the rest
 // offsets z, y, x; 1 for a lone tap; its offset along the axis) and
 // Geometry::coef_len (2 r_max + 1) doubles c[j + r], j = -r..r, r the
-// group axis's radius; per operator the start of its groups.
-constexpr int ENT_LEN = 8;
-constexpr int E_AXIS = 0, E_REST = 1, E_SINGLE = 4, E_J = 5;
-constexpr int SEG = 8;  // outputs per segment (the MMA's n)
-
-template <typename T>
-__device__ __forceinline__ T from_float(float v);
-template <>
-__device__ __forceinline__ float from_float<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  return uint32_t(__bfloat16_as_ushort(lo)) |
-         (uint32_t(__bfloat16_as_ushort(hi)) << 16);
-}
-
-// D = A B + D, A 8x4 (row), B 4x8 (col), f64.
-__device__ __forceinline__ void mma_f64(double& d0, double& d1, double a,
-                                        double b) {
-  asm volatile(
-      "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0,%1}, {%2}, {%3}, "
-      "{%0,%1};\n"
-      : "+d"(d0), "+d"(d1)
-      : "d"(a), "d"(b));
-}
-
-// D = A B + D, A 16x16 bf16 (row), B 16x8 bf16 (col), f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// group axis's radius; per operator the start of its groups (ENT_LEN and
+// the E_* columns are tc_body.cuh's).
 
 // Points of the f32 sum tiles, per operator slot: sweep 0's region for
 // select (its fields are contracted whole), one batch of n_thr points
@@ -339,7 +285,8 @@ struct TcEval {
             pack_bf16(a_at(rs[0], k0 + 8), a_at(rs[0], k0 + 9)),
             pack_bf16(a_at(rs[1], k0 + 8), a_at(rs[1], k0 + 9)),
         };
-        mma_bf16(d, av, pack_bf16(b_at(k0), b_at(k0 + 1)),
+        mma_bf16(d, av[0], av[1], av[2], av[3],
+                 pack_bf16(b_at(k0), b_at(k0 + 1)),
                  pack_bf16(b_at(k0 + 8), b_at(k0 + 9)));
       }
 #pragma unroll
@@ -358,6 +305,20 @@ __global__ void __launch_bounds__(KIND == KIND_SELECT ? 1024 : 256, 1)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   temporal_body<T, KIND, TcEval<T>>(f, aux, out, ent, coef, estart, g,
                                     smem_raw);
+}
+
+// Depth 1: persistent blocks (tc_body.cuh). select runs 8 warps with at
+// most 128 registers (two blocks resident per SM at least); MHD 16 warps,
+// one block per SM holding 512 points' phi inputs.
+template <typename T, int KIND>
+__global__ void __launch_bounds__(
+    KIND == KIND_SELECT ? THREADS_SELECT : THREADS_MHD,
+    KIND == KIND_SELECT ? 2 : 1)
+    tc_d1_kernel(const T* __restrict__ f, const T* __restrict__ aux,
+                 T* __restrict__ out, const int* __restrict__ table,
+                 const __grid_constant__ Geometry g) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  tc_body<T, KIND>(f, aux, out, table, g, smem_raw);
 }
 
 template <typename T, int KIND>
@@ -382,53 +343,153 @@ cudaError_t launch(const void* f, const void* aux, void* out,
   return cudaGetLastError();
 }
 
+// The depth-1 grid: the kernel's resident blocks per SM (the occupancy of
+// its registers, threads and shared memory) times the SMs, at most the
+// steps of the launch. Also sets the kernel's
+// dynamic shared-memory limit, which the occupancy needs.
+template <typename T, int KIND>
+cudaError_t d1_grid(const Geometry& g, int device, long long& grid) {
+  auto kernel = tc_d1_kernel<T, KIND>;
+  const size_t smem = tc_layout<T>(g).total;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return err;
+  const Shape s = tc_shape<T>(g);
+  const long long items = (long long)(g.n[2] / s.tx) * (g.n[1] / s.ty) *
+                          (g.n[0] / s.tz) * g.n_b;
+  // The occupancy and the SM count per (device, shared memory), cached:
+  // a serving loop launches the same shapes again and again.
+  static int last_dev = -1, last_per_sm = 0, last_sms = 0;
+  static size_t last_smem = 0;
+  if (device != last_dev || smem != last_smem) {
+    int per_sm = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        g.n_thr, smem);
+    if (err != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    last_dev = device;
+    last_smem = smem;
+    last_per_sm = per_sm;
+    last_sms = sms;
+  }
+  const long long full = (long long)last_per_sm * last_sms;
+  grid = items < full ? items : full;
+  if (grid < 1) grid = 1;
+  return cudaSuccess;
+}
+
+template <typename T, int KIND>
+cudaError_t launch_d1(const void* f, const void* aux, void* out,
+                      const void* table, Geometry g, int device,
+                      cudaStream_t stream) {
+  long long grid = 0;
+  const cudaError_t err = d1_grid<T, KIND>(g, device, grid);
+  if (err != cudaSuccess) return err;
+  const size_t smem = tc_layout<T>(g).total;
+  tc_d1_kernel<T, KIND><<<unsigned(grid), g.n_thr, smem, stream>>>(
+      static_cast<const T*>(f), static_cast<const T*>(aux),
+      static_cast<T*>(out), static_cast<const int*>(table), g);
+  return cudaGetLastError();
+}
+
 bool valid_tc(const Geometry& g, int kind) {
   for (int a = 0; a < 3; ++a)
     if (2 * g.r[a] + 1 > g.coef_len) return false;  // a band row per group
-  return g.unroll == 1 && g.n_buf >= 1 && g.n_buf <= 2 && g.n_thr >= 32 &&
-         g.n_thr % 32 == 0 &&
-         g.n_thr <= (kind == KIND_SELECT ? 1024 : 256) &&
-         (kind == KIND_SELECT) == (g.n_slots == 1);
+  if ((kind == KIND_SELECT) != (g.n_slots == 1) || g.unroll != 1)
+    return false;
+  if (g.fuse_steps == 1) {
+    const int tx = g.t[2] * g.tps;
+    return (g.n_buf == 2 || g.n_buf == 3) && g.tps >= 1 && tx > 0 &&
+           g.n[2] % tx == 0 && g.table_words >= 0 &&
+           g.n_thr == (kind == KIND_SELECT ? THREADS_SELECT : THREADS_MHD) &&
+           (kind == KIND_SELECT ||
+            (g.n_f == mhd::N_FIELDS && g.n_slots == mhd::N_SLOTS));
+  }
+  return g.n_buf >= 1 && g.n_buf <= 2 && g.n_thr >= 32 &&
+         g.n_thr % 32 == 0 && g.n_thr <= (kind == KIND_SELECT ? 1024 : 256);
+}
+
+// One launch (grid == nullptr) or one depth-1 grid query of (kind,
+// dtype): f64 is not a tc type, and bf16 MHD waits for ROADMAP B4b.
+template <typename T, int KIND>
+cudaError_t run(const void* f, const void* aux, void* out, const void* ent,
+                const void* coef, const void* estart, const void* table,
+                const Geometry& g, int device, cudaStream_t stream,
+                long long* grid) {
+  if (grid) return d1_grid<T, KIND>(g, device, *grid);
+  if (g.fuse_steps == 1)
+    return launch_d1<T, KIND>(f, aux, out, table, g, device, stream);
+  return launch<T, KIND>(f, aux, out, ent, coef, estart, g, stream);
+}
+
+cudaError_t dispatch(int kind, int dtype, const void* f, const void* aux,
+                     void* out, const void* ent, const void* coef,
+                     const void* estart, const void* table, const Geometry& g,
+                     int device, cudaStream_t stream, long long* grid) {
+  switch (kind * 3 + dtype) {
+    case KIND_SELECT * 3 + DTYPE_F32:
+      return run<float, KIND_SELECT>(f, aux, out, ent, coef, estart, table, g,
+                                     device, stream, grid);
+    case KIND_SELECT * 3 + DTYPE_BF16:
+      return run<__nv_bfloat16, KIND_SELECT>(f, aux, out, ent, coef, estart,
+                                             table, g, device, stream, grid);
+    case KIND_MHD_RHS * 3 + DTYPE_F32:
+      return run<float, KIND_MHD_RHS>(f, aux, out, ent, coef, estart, table,
+                                      g, device, stream, grid);
+    case KIND_MHD_SUBSTEP * 3 + DTYPE_F32:
+      return run<float, KIND_MHD_SUBSTEP>(f, aux, out, ent, coef, estart,
+                                          table, g, device, stream, grid);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launch the tc kernel on `stream`. `tap_off`, `tap_coef` and
-// `op_start` carry the group table (emit.py:tc_table: group ints, band
-// coefficients, operator starts); `geom` (G_LEN ints) is a host array;
-// every other pointer, `params` (fuse_steps rows of n_params doubles)
-// included, is device memory. `dtype` is DTYPE_F32 or DTYPE_BF16 (select
-// only). Returns the cudaError_t of the launch (0 on success).
+// Launch the tc kernel on `stream`. `tap_off`, `tap_coef`, `op_start` and
+// `table` carry the group table (emit.py:tc_table: group ints, band
+// coefficients, operator starts; depth 1 reads `table` alone, the starts,
+// group ints and each group's data, the band's MMA fragments among
+// them); `geom` (G_LEN
+// ints) is a host array; every other pointer, `params` (fuse_steps rows
+// of n_params doubles) included, is device memory. `dtype` is DTYPE_F32
+// or DTYPE_BF16 (select only). Returns the cudaError_t of the launch (0
+// on success).
 int repro_fused_stencil_tc(const void* f, const void* aux, void* out,
                            const void* tap_off, const void* tap_coef,
-                           const void* op_start, const int* geom,
-                           const double* params, int n_params, int kind,
-                           int dtype, int device, void* stream) {
+                           const void* op_start, const void* table,
+                           const int* geom, const double* params,
+                           int n_params, int kind, int dtype, int device,
+                           void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
   Geometry g;
   if (!read_geometry(geom, params, n_params, g) || !valid_tc(g, kind))
     return int(cudaErrorInvalidValue);
+  return int(dispatch(kind, dtype, f, aux, out, tap_off, tap_coef, op_start,
+                      table, g, device, static_cast<cudaStream_t>(stream),
+                      nullptr));
+}
 
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (kind * 3 + dtype) {
-    case KIND_SELECT * 3 + DTYPE_F32:
-      return int(launch<float, KIND_SELECT>(f, aux, out, tap_off, tap_coef,
-                                            op_start, g, st));
-    case KIND_SELECT * 3 + DTYPE_BF16:
-      return int(launch<__nv_bfloat16, KIND_SELECT>(f, aux, out, tap_off,
-                                                    tap_coef, op_start, g, st));
-    case KIND_MHD_RHS * 3 + DTYPE_F32:
-      return int(launch<float, KIND_MHD_RHS>(f, aux, out, tap_off, tap_coef,
-                                             op_start, g, st));
-    case KIND_MHD_SUBSTEP * 3 + DTYPE_F32:
-      return int(launch<float, KIND_MHD_SUBSTEP>(f, aux, out, tap_off,
-                                                 tap_coef, op_start, g, st));
-    default:  // f64 is not a tc type; bf16 MHD waits for ROADMAP B4b
-      return int(cudaErrorInvalidValue);
-  }
+// The blocks a depth-1 launch of `geom` takes (d1_grid), or a negative
+// cudaError_t.
+long long repro_fused_stencil_tc_grid(const int* geom, int kind, int dtype,
+                                      int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return -(long long)err;
+  Geometry g;
+  if (!read_geometry(geom, nullptr, 0, g) || g.fuse_steps != 1 ||
+      !valid_tc(g, kind))
+    return -(long long)cudaErrorInvalidValue;
+  long long grid = 0;
+  err = dispatch(kind, dtype, nullptr, nullptr, nullptr, nullptr, nullptr,
+                 nullptr, nullptr, g, device, nullptr, &grid);
+  return err == cudaSuccess ? grid : -(long long)err;
 }
 
 const char* repro_cuda_error_string(int err) {
@@ -440,12 +501,15 @@ const char* repro_cuda_error_string(int err) {
 long long repro_fused_stencil_tc_smem_bytes(const int* geom, int dtype) {
   Geometry g;
   if (!read_geometry(geom, nullptr, 0, g)) return -1;
+  const bool d1 = g.fuse_steps == 1;
   switch (dtype) {
     case DTYPE_F32:
-      return (long long)temporal_layout<float, TcEval<float>>(g).total;
+      return d1 ? (long long)tc_layout<float>(g).total
+                : (long long)temporal_layout<float, TcEval<float>>(g).total;
     case DTYPE_BF16:
-      return (long long)temporal_layout<__nv_bfloat16,
-                                        TcEval<__nv_bfloat16>>(g).total;
+      return d1 ? (long long)tc_layout<__nv_bfloat16>(g).total
+                : (long long)temporal_layout<__nv_bfloat16,
+                                             TcEval<__nv_bfloat16>>(g).total;
     default:
       return -1;
   }

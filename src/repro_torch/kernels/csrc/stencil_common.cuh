@@ -38,7 +38,9 @@ enum GeomIndex {
   G_NB,    // ensemble members (the outer part of blockIdx.z)
   G_CLEN,  // tc: doubles per band-coefficient row (2 r_max + 1); else 0
   G_SLOT0,  // MAX_SLOTS operator indices follow
-  G_LEN = G_SLOT0 + MAX_SLOTS
+  G_TPS = G_SLOT0 + MAX_SLOTS,  // tc depth 1: tiles per step (0 off tc)
+  G_TABW,   // tc depth 1: words of its table (group rows, fragments)
+  G_LEN
 };
 
 struct Geometry {
@@ -55,6 +57,8 @@ struct Geometry {
   int n_seg;
   int n_b;
   int coef_len;  // tc: doubles per band-coefficient row
+  int tps;         // tc depth 1: tiles per step along x
+  int table_words;  // tc depth 1: 32-bit words of its table
   int per_member;  // blocks along z per member (set by fold_members)
   unsigned long long member_mul;  // ceil(2^32 / per_member)
   int slot[MAX_SLOTS];  // operator index read by each phi slot
@@ -92,6 +96,8 @@ inline bool read_geometry(const int* geom, const double* params,
   g.n_seg = geom[G_NSEG];
   g.n_b = geom[G_NB];
   g.coef_len = geom[G_CLEN];
+  g.tps = geom[G_TPS];
+  g.table_words = geom[G_TABW];
   for (int s = 0; s < g.n_slots; ++s) g.slot[s] = geom[G_SLOT0 + s];
   g.n_params = n_params;
   g.prm = params;

@@ -8,9 +8,10 @@ launches on PyTorch's current stream the plan's kernel
 (:func:`kernel_name`): ``csrc/fused_stencil.cu`` for ``swc`` at depth 1,
 ``csrc/fused_stencil_temporal.cu`` for ``swc`` at depth > 1,
 ``csrc/fused_stencil_stream.cu`` for ``swc_stream`` at any depth,
-``csrc/fused_stencil_tc.cu`` for ``tc`` at any depth (the temporal
-kernel's sweeps with the tensor-core evaluator; it takes the operator
-set's :func:`tc_table` instead of the tap table). A CPU tensor goes to
+``csrc/fused_stencil_tc.cu`` for ``tc`` at any depth (at depth 1 a
+persistent kernel, ``csrc/tc_body.cuh``; deeper, the temporal kernel's
+sweeps with the tensor-core evaluator; it takes the operator set's
+:func:`tc_table` instead of the tap table). A CPU tensor goes to
 the plain version (``ref.fused_stencil`` or, at depth > 1,
 ``ref.fused_stencil_steps``, with the φs' ``torch_fn``; their
 ``_batched`` forms for an ensemble; on ``tc`` their ``tc=True`` forms);
@@ -36,19 +37,27 @@ from repro_torch.core.stencil import OperatorSet
 from repro_torch.kernels import build
 from repro_torch.kernels import ref
 from repro_torch.kernels.phi import DevicePhi, phi_sequence
-from repro_torch.kernels.plan import StencilPlan, is_ensemble, tc_axis_groups
+from repro_torch.kernels.plan import (
+    TC_LANES,
+    StencilPlan,
+    is_ensemble,
+    tc_axis_groups,
+    tc_band_ksteps,
+    tc_table_header_words,
+)
 
 KERNEL = "fused_stencil"  # csrc/fused_stencil.cu, depth 1
 TEMPORAL_KERNEL = "fused_stencil_temporal"  # csrc/fused_stencil_temporal.cu
 STREAM_KERNEL = "fused_stencil_stream"  # csrc/fused_stencil_stream.cu
 TC_KERNEL = "fused_stencil_tc"  # csrc/fused_stencil_tc.cu, any depth
-GEOM_LEN = 41  # G_LEN of csrc/stencil_common.cuh
+GEOM_LEN = 43  # G_LEN of csrc/stencil_common.cuh
+MAX_SLOTS = 16  # MAX_SLOTS of csrc/stencil_common.cuh
 # DTYPE_* of csrc/stencil_common.cuh.
 DTYPE_CODES = {"float32": 0, "float64": 1, "bfloat16": 2}
 # Group table layout of csrc/fused_stencil_tc.cu.
-TC_ENT_LEN = 8  # axis, rest z/y/x, lone tap, its offset, 2 unused
+TC_ENT_LEN = 8  # axis, rest z/y/x, lone tap, its offset, data offset, 0
 
-TapTable = tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+TapTable = tuple[torch.Tensor, ...]
 
 
 def tap_table(ops: OperatorSet) -> TapTable:
@@ -80,44 +89,134 @@ def device_tap_table(ops: OperatorSet, device: torch.device) -> TapTable:
     return tuple(t.to(device) for t in tap_table(ops))
 
 
-def tc_table(ops: OperatorSet) -> TapTable:
+def tc_table(ops: OperatorSet, dtype: str = "float32") -> TapTable:
     """The operator set's ``tc`` contraction groups for
-    ``csrc/fused_stencil_tc.cu``, on the CPU.
+    ``csrc/fused_stencil_tc.cu``, on the CPU, for fields of ``dtype``.
 
-    Returns ``(entries, coeffs, starts)``: int32 (n_groups, 8) rows of
-    (axis lifted to rank 3 — 0 z, 1 y, 2 x —, rest offset (z, y, x), 1
-    for a lone tap, that tap's offset along the axis, 0, 0); float64
-    (n_groups, :func:`tc_coef_len`) band coefficients ``c[j + r]`` for
-    j = -r..r, r the group axis's radius (zero where the group has no
-    tap); int32 (n_ops + 1,) start of each
-    operator's groups. Groups follow :func:`~repro_torch.kernels.plan.
-    tc_axis_groups` in sorted ``(axis, rest)`` order — the order the
-    reference sums them — so an operator's groups run axis by axis.
+    Returns ``(entries, coeffs, starts, table)``: int32 (n_groups, 8)
+    rows of (axis lifted to rank 3 — 0 z, 1 y, 2 x —, rest offset (z, y,
+    x), 1 for a lone tap, that tap's offset along the axis, the word
+    offset of the group's data in ``table``, 0); float64 (n_groups,
+    :func:`tc_coef_len`) band coefficients ``c[j + r]`` for j = -r..r, r
+    the group axis's radius (zero where the group has no tap); int32
+    (n_ops + 1,) start of each operator's groups; and the int32 table
+    the depth-1 kernel keeps in shared memory: ``starts`` padded to 16
+    bytes, the ``entries`` rows
+    (:func:`~repro_torch.kernels.plan.tc_table_header_words`), then each
+    group's data in group order (:func:`~repro_torch.kernels.plan.
+    tc_group_words`): a lone tap's coefficient rounded to ``dtype`` (a
+    double), a z arm's band rounded to ``dtype`` (2r + 1 doubles), a y
+    or x contraction's band as ready MMA fragments (:func:`tc_fragments`).
+    Groups follow :func:`~repro_torch.kernels.plan.tc_axis_groups` in
+    sorted ``(axis, rest)`` order — the order the reference sums them —
+    so each operator's groups form one contiguous run per axis, z before
+    y before x.
     """
     rank = ops.ndim
     lift = 3 - rank
     radii = ops.radius_per_axis()
-    entries, coeffs, starts = [], [], [0]
+    entries, coeffs, starts, data = [], [], [0], []
     width = tc_coef_len(radii)
+    n_words = tc_table_header_words(ops)
     for spec in ops.ops:
         for (axis, rest), taps in sorted(tc_axis_groups(spec, rank).items()):
             band = [0.0] * width
             for j, c in taps:
                 band[j + radii[axis]] = c
             single = len(taps) == 1
+            a = axis + lift
+            own = band[:2 * radii[axis] + 1]
+            if single:
+                words = _band_in([taps[0][1]], dtype).view(np.uint32)
+            elif a == 0:
+                words = _band_in(own, dtype).view(np.uint32)
+            else:
+                words = tc_fragments(own, dtype, "y" if a == 1 else "x")
+            words = np.concatenate(
+                [words, np.zeros(-words.size % 4, np.uint32)])
             entries.append(
-                [axis + lift] + [0] * lift + list(rest)
-                + [int(single), taps[0][0] if single else 0, 0, 0]
+                [a] + [0] * lift + list(rest)
+                + [int(single), taps[0][0] if single else 0, n_words, 0]
             )
+            data.append(words)
+            n_words += words.size
             coeffs.append(band)
         starts.append(len(entries))
+    head = np.zeros(tc_table_header_words(ops) - 8 * len(entries), np.uint32)
+    head[:len(starts)] = starts
+    rows = np.asarray(entries, np.int64).reshape(-1).astype(np.uint32)
+    table = np.concatenate([head, rows] + data)
     return (
         torch.from_numpy(np.asarray(entries, dtype=np.int32)),
         torch.from_numpy(
             np.asarray(coeffs, dtype=np.float64).reshape(-1, width)
         ),
         torch.from_numpy(np.asarray(starts, dtype=np.int32)),
+        torch.from_numpy(table).view(torch.int32),
     )
+
+
+def _band_in(band: list[float], dtype: str) -> np.ndarray:
+    """The band's coefficients rounded to the field dtype, as the kernel's
+    ``cast_coef`` rounds them (bfloat16 through float32), in float64."""
+    c32 = torch.tensor(band, dtype=torch.float64).to(torch.float32)
+    if dtype == "bfloat16":
+        c32 = c32.to(torch.bfloat16).to(torch.float32)
+    return c32.double().numpy()
+
+
+def _bf16_bits(values: np.ndarray) -> np.ndarray:
+    """bfloat16 bit patterns (uint32) of values that are bfloat16."""
+    t = torch.from_numpy(np.ascontiguousarray(values, np.float32))
+    return t.to(torch.bfloat16).view(torch.int16).numpy().astype(
+        np.uint32) & 0xFFFF
+
+
+def tc_fragments(band: list[float], dtype: str, axis: str) -> np.ndarray:
+    """One group's band ``B[k][n] = c[k - n]`` (k - n in [0, 2r], else 0)
+    as the words each lane holds per k-step of the depth-1 ``tc``
+    kernel's MMAs, uint32, laid out [k-step][lane][word].
+
+    Lane l has group id g = l // 4 and thread in group t = l % 4.
+    - float32 fields (f64 ``m8n8k4``): per k-step s one double,
+      ``c[4s + t - g]``: B[k=4s+t][n=g] of the x contraction (window ·
+      band) and A[m=g][k=4s+t] of bandᵀ in the y contraction (bandᵀ ·
+      window), the same value; two words (low, high).
+    - bfloat16 along x (B of ``m16n8k16``): ``{B[k][g], B[k+1][g]}`` for
+      k = 16s + 2t and 16s + 2t + 8, each pair packed low first.
+    - bfloat16 along y (A = bandᵀ, 16 × 16): ``{A[g][k], A[g][k+1]}``,
+      ``{A[g+8][k], ..}``, ``{A[g][k+8], ..}``, ``{A[g+8][k+8], ..}`` for
+      k = 16s + 2t, with A[m][k] = c[k - m].
+    """
+    c = _band_in(band, dtype)
+    top = len(band) - 1  # 2r
+    r = top // 2
+    steps = tc_band_ksteps(r, dtype, axis)
+    lanes = np.arange(TC_LANES)
+    g, t = lanes // 4, lanes % 4
+
+    def at(idx):
+        ok = (idx >= 0) & (idx <= top)
+        return np.where(ok, c[np.clip(idx, 0, top)], 0.0)
+
+    out = []
+    for s in range(steps):
+        if dtype != "bfloat16":
+            v = at(4 * s + t - g).astype(np.float64)
+            out.append(v.view(np.uint32).reshape(TC_LANES, 2))
+            continue
+        k = 16 * s + 2 * t
+
+        def pair(idx):
+            return _bf16_bits(at(idx)) | (_bf16_bits(at(idx + 1)) << 16)
+
+        if axis == "x":
+            words = [pair(k - g), pair(k + 8 - g)]
+        else:
+            words = [pair(k - g), pair(k - g - 8), pair(k + 8 - g),
+                     pair(k - g)]
+        out.append(np.stack(words, axis=1).astype(np.uint32))
+    return np.concatenate(out).reshape(-1)
 
 
 def tc_coef_len(radii) -> int:
@@ -127,9 +226,12 @@ def tc_coef_len(radii) -> int:
 
 
 @functools.lru_cache(maxsize=64)
-def device_tc_table(ops: OperatorSet, device: torch.device) -> TapTable:
-    """:func:`tc_table` uploaded to ``device``, cached per (ops, device)."""
-    return tuple(t.to(device) for t in tc_table(ops))
+def device_tc_table(
+    ops: OperatorSet, dtype: str, device: torch.device
+) -> TapTable:
+    """:func:`tc_table` uploaded to ``device``, cached per (ops, dtype,
+    device)."""
+    return tuple(t.to(device) for t in tc_table(ops, dtype))
 
 
 @functools.lru_cache(maxsize=256)
@@ -160,12 +262,18 @@ def _lib(name: str) -> ctypes.CDLL:
     ``repro_<name>_smem_bytes``, ``repro_<name>_geometry_len``."""
     lib = build.load(name)
     vp = ctypes.c_void_p
+    geom = ctypes.POINTER(ctypes.c_int)
     launch = getattr(lib, f"repro_{name}")
+    tables = [vp] * (4 if name == TC_KERNEL else 3)  # tc: + its table
     launch.argtypes = [
-        vp, vp, vp, vp, vp, vp, ctypes.POINTER(ctypes.c_int), vp,
+        vp, vp, vp, *tables, geom, vp,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, vp,
     ]
     launch.restype = ctypes.c_int
+    if name == TC_KERNEL:
+        grid = lib.repro_fused_stencil_tc_grid
+        grid.argtypes = [geom, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+        grid.restype = ctypes.c_longlong
     smem = getattr(lib, f"repro_{name}_smem_bytes")
     smem.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
     smem.restype = ctypes.c_longlong
@@ -190,6 +298,18 @@ def kernel_smem_bytes(plan: StencilPlan) -> int:
     fn = getattr(_lib(name), f"repro_{name}_smem_bytes")
     slots = list(range(plan.n_slots))
     return int(fn(_int_ptr(geometry(plan, slots)), DTYPE_CODES[plan.dtype]))
+
+
+def tc_launch_grid(plan: StencilPlan, kind_id: int, device: int = 0) -> int:
+    """Blocks the depth-1 ``tc`` kernel launches for ``plan`` with the φ
+    kind ``kind_id``: the persistent grid, the kernel's resident blocks
+    per SM (its occupancy) times the SMs, at most ``plan.tc_items``
+    (needs the built library and the card)."""
+    slots = list(range(plan.n_slots))
+    return int(_lib(TC_KERNEL).repro_fused_stencil_tc_grid(
+        _int_ptr(geometry(plan, slots)), kind_id, DTYPE_CODES[plan.dtype],
+        device,
+    ))
 
 
 def _rank3(t: tuple[int, ...], fill: int, stream: bool = False) -> list[int]:
@@ -226,9 +346,12 @@ def geometry(plan: StencilPlan, slots: list[int]) -> np.ndarray:
     g += _rank3(plan.radii, 0, st) + _rank3(plan.block, 1, st)
     g += [plan.unroll, plan.n_ops, plan.n_taps, len(slots)]
     g += [plan.fuse_steps, plan.stage_buffers, plan.threads, plan.segments]
-    g += [plan.batch, tc_coef_len(plan.radii) if plan.strategy == "tc"
-          else 0]
-    g += slots + [0] * (GEOM_LEN - len(g) - len(slots))
+    tc = plan.strategy == "tc"
+    g += [plan.batch, tc_coef_len(plan.radii) if tc else 0]
+    g += slots + [0] * (MAX_SLOTS - len(slots))
+    # tc: tiles per depth-1 step and the words of the depth-1 table; 0
+    # elsewhere.
+    g += [plan.tiles_per_step, plan.tc_table_words] if tc else [0, 0]
     return np.asarray(g, dtype=np.int32)
 
 
@@ -281,7 +404,7 @@ def _check(f_padded, ops, phi, plan, aux, taps) -> None:
             f"tc plan made for {plan.n_slots} operator slot(s), φ reads "
             f"{len(phi.operators)}"
         )
-    if plan.threads > phi.max_threads:
+    if plan.threads > phi.max_threads and not plan.tc_depth1:
         raise ValueError(
             f"{phi.kind} keeps its derivative values in registers and "
             f"takes tiles of at most {phi.max_threads} points; tile "
@@ -354,10 +477,14 @@ def fused_stencil_swc(
     ):
         raise ValueError("f_padded and aux must be contiguous")
     if plan.strategy == "tc":
-        taps = device_tc_table(ops, f_padded.device)
+        taps = device_tc_table(ops, plan.dtype, f_padded.device)
+        if plan.tc_depth1 and taps[3].numel() != plan.tc_table_words:
+            raise ValueError(
+                f"tc plan made for a table of {plan.tc_table_words} words, "
+                f"the operator set's has {taps[3].numel()}"
+            )
     elif taps is None:
         taps = device_tap_table(ops, f_padded.device)
-    offsets, coeffs, starts = taps
     slots = [ops.names.index(n) for n in phis[0].operators]
     geom = geometry(plan, slots)
     params = device_params(tuple(p.params for p in phis), f_padded.device)
@@ -372,7 +499,7 @@ def fused_stencil_swc(
         f_padded.data_ptr(),
         None if aux is None else aux.data_ptr(),
         out.data_ptr(),
-        offsets.data_ptr(), coeffs.data_ptr(), starts.data_ptr(),
+        *(t.data_ptr() for t in taps),
         _int_ptr(geom),
         params.data_ptr(), params.shape[1], phis[0].kind_id,
         DTYPE_CODES[plan.dtype],

@@ -44,13 +44,20 @@ depth) follows the reference's rules: float32 or bfloat16, ``unroll ==
 1``, any rank, composing with ``fuse_steps``, ``batch`` and aux. Its
 taps are split by :func:`tc_axis_groups` (the port's copy of the
 reference's), every multi-tap group a banded contraction on the tensor
-cores. Its block is 1-D (:attr:`StencilPlan.threads`, a whole number of
-warps) and loops over the points of each sweep's region, so its tile
-is bounded by shared memory, not by the thread limit: the staged
-windows and the intermediate sweeps of :func:`temporal_smem_bytes` plus
-the f32 operator sums the contractions write between axes
-(:func:`tc_acc_points` per operator φ reads). No band is stored, so the
-reference's ``TC_MAX_TILE`` cap is kept only to plan the same tiles.
+cores. At depth 1 the kernel is persistent: ``threads`` is the φ
+kind's (:data:`TC_THREADS`), the launch walks the steps of
+:func:`tc_step` (a tile, at rank 1 several consecutive tiles) with a
+ring of ``stage_buffers`` windows in flight, and shared memory holds
+the ring, the group table with the band's MMA fragments
+(``tc_table_words``) and, for the MHD kinds, φ's f32 inputs
+(:func:`tc_smem_bytes`). At depth > 1 its block
+is 1-D (:attr:`StencilPlan.threads`, a whole number of warps) and loops
+over the points of each sweep's region, so its tile is bounded by
+shared memory, not by the thread limit: the staged windows and the
+intermediate sweeps of :func:`temporal_smem_bytes` plus the f32
+operator sums the contractions write between axes (:func:`tc_acc_points`
+per operator φ reads). The reference's ``TC_MAX_TILE`` cap is kept to
+plan the same tiles.
 """
 from __future__ import annotations
 
@@ -104,6 +111,28 @@ DEFAULT_TC_BLOCKS: dict[int, tuple[int, ...]] = {
 TC_MAX_TILE = 512  # the reference's per-axis cap on tc tiles
 TC_SEGMENT = 8  # outputs per MMA segment (mma.sync's n)
 TC_DTYPES = ("float32", "bfloat16")
+# Depth 1 on tc (the persistent kernel). MMA rows (lines of a patch):
+# 8 on the f64 m8n8k4 that f32 fields take, 16 on bf16 m16n8k16. bf16
+# rank-3 tiles are 16 rows deep in y so that no patch row is idle.
+TC_MMA_ROWS = {"float32": 8, "bfloat16": 16}
+DEFAULT_TC_BF16_BLOCK3 = (4, 16, 32)
+# Threads of a depth-1 block: select contracts with 8 warps; the MHD kinds
+# run one point per thread through φ, 512 points a tile (TC_MHD_BLOCK),
+# its 80 f32 inputs in shared memory.
+TC_THREADS = {"select": 256, "mhd": 512}
+# Patches a warp of the depth-1 kernel contracts at once (PB of
+# csrc/tc_body.cuh): 4 for f32 select, 2 for bf16 select and MHD. A last
+# batch short of patches repeats the last one, issued and not stored.
+TC_PATCH_BATCH = {("select", "float32"): 4, ("select", "bfloat16"): 2,
+                  ("mhd", "float32"): 2, ("mhd", "bfloat16"): 2}
+TC_MHD_BLOCK = (4, 8, 16)
+# At rank 1 a step takes consecutive tiles up to this many points, so that
+# a step gives every warp MMAs (a 512-point tile is 8 f64 patches).
+TC_STEP_POINTS = 4096
+TC_VECTOR_BYTES = 16  # cp.async copy width of the staging
+TC_LANES = 32
+SMEM_PER_SM = 233_472  # 228 KB per SM, shared by its resident blocks
+SMEM_BLOCK_RESERVED = 1_024  # the runtime's own per resident block
 
 MAX_THREADS = 1024  # CUDA threads per block
 ONE_WARP = 32  # the smallest tile the temporal planner shrinks to
@@ -167,8 +196,12 @@ def _tap_bytes(itemsize: int) -> int:
     return 2 * max(itemsize, 4)
 
 
+def _cdiv(n: int, m: int) -> int:
+    return -(-n // m)
+
+
 def _round_up(n: int, m: int) -> int:
-    return -(-n // m) * m
+    return _cdiv(n, m) * m
 
 
 def _lift3(t: Sequence[int], fill: int) -> tuple[int, ...]:
@@ -199,6 +232,162 @@ def tc_acc_points(
     if n_slots == 1:
         return size
     return min(size, threads + 2 * region[1] * region[2])
+
+
+def tc_band_ksteps(radius: int, dtype: str, axis: str) -> int:
+    """k-steps of one banded contraction of the depth-1 ``tc`` kernel
+    along ``axis`` ("y" or "x"): the f64 m8n8k4 takes the band of
+    8 + 2r rows in steps of 4 on either axis; bf16 m16n8k16 in steps of
+    16 — 8 + 2r rows along x (8 outputs, the MMA's n), 16 + 2r along y
+    (16 outputs, the MMA's m)."""
+    if dtype == "bfloat16":
+        width = (TC_MMA_ROWS[dtype] if axis == "y" else TC_SEGMENT) + 2 * radius
+        return _cdiv(width, 16)
+    return _cdiv(TC_SEGMENT + 2 * radius, 4)
+
+
+def tc_k_extent(radius: int, dtype: str, axis: str) -> int:
+    """Window lines one contraction reads: its k-steps times their k."""
+    return tc_band_ksteps(radius, dtype, axis) * (
+        16 if dtype == "bfloat16" else 4
+    )
+
+
+def tc_fragment_words(radius: int, dtype: str, axis: str) -> int:
+    """32-bit words of one group's band as ready MMA fragments
+    (``emit.tc_table``): per k-step and lane one double (f64 B or A
+    fragment), two bf16 pairs (bf16 B fragment, x) or four (bf16 A
+    fragment, y)."""
+    per_lane = 4 if (dtype == "bfloat16" and axis == "y") else 2
+    return tc_band_ksteps(radius, dtype, axis) * TC_LANES * per_lane
+
+
+def tc_table_header_words(ops: OperatorSet) -> int:
+    """Words before the groups' data in the depth-1 ``tc`` kernel's
+    table: the operator starts (n_ops + 1, padded to 16 bytes) and 8 per
+    contraction group."""
+    groups = sum(len(tc_axis_groups(spec, ops.ndim)) for spec in ops.ops)
+    return _round_up(ops.n_s + 1, 4) + 8 * groups
+
+
+def tc_group_words(n_taps: int, lifted_axis: int, radius: int,
+                   dtype: str) -> int:
+    """Words of one group's data in the depth-1 table: a lone tap's
+    coefficient in the field dtype (one double, padded to 16 bytes); a z
+    arm's 2r + 1 (doubles, padded); a y or x contraction's fragments
+    (:func:`tc_fragment_words`)."""
+    if n_taps == 1:
+        return 4
+    if lifted_axis == 0:
+        return _round_up(2 * (2 * radius + 1), 4)
+    return tc_fragment_words(radius, dtype, "y" if lifted_axis == 1 else "x")
+
+
+def tc_table_words(ops: OperatorSet, dtype: str) -> int:
+    """Words of ``emit.tc_table(ops, dtype)``'s table, which a depth-1
+    ``tc`` block keeps in shared memory: :func:`tc_table_header_words`,
+    then every group's data (:func:`tc_group_words`)."""
+    rank = ops.ndim
+    radii = _lift3(ops.radius_per_axis(), 0)
+    words = tc_table_header_words(ops)
+    for spec in ops.ops:
+        for (axis, _), taps in tc_axis_groups(spec, rank).items():
+            lifted = axis + 3 - rank
+            words += tc_group_words(len(taps), lifted, radii[lifted], dtype)
+    return words
+
+
+@dataclasses.dataclass(frozen=True)
+class TcStep:
+    """One step of the depth-1 ``tc`` kernel (``tc_shape`` of
+    ``csrc/tc_body.cuh``): the outputs it covers, its window in shared
+    memory, and its MMA patches.
+
+    A patch is ``rows`` lines × 8 outputs. At rank 1 (``line1d``) the
+    lines are consecutive 8-point segments of x; otherwise they are
+    consecutive y rows of one z plane and the patch is rows (y) × 8 (x),
+    so that the x contraction (window · band) and the y contraction
+    (bandᵀ · window) land on the same C fragment. The window buffer is
+    ``window[0]`` planes × ``rows_padded`` rows of ``pitch`` elements: rows and
+    columns past the staged window (the k-steps' padding and ragged
+    patches) are zero-filled, and each row keeps its global alignment
+    modulo 16 bytes (up to ``16 / itemsize - 1`` elements of shift)."""
+
+    line1d: bool
+    rows: int  # MMA rows: lines per patch
+    extent: tuple[int, int, int]  # outputs (z, y, x) of a step
+    window: tuple[int, int, int]  # staged extents (z, y, x)
+    rows_padded: int  # window rows per plane in the buffer
+    pitch: int  # elements per buffer row
+    patches: int
+    buffer_bytes: int
+
+    @property
+    def points(self) -> int:
+        return _prod(self.extent)
+
+
+def tc_step(
+    block: Sequence[int], radii: Sequence[int], tiles_per_step: int,
+    dtype: str,
+) -> TcStep:
+    """The :class:`TcStep` of a depth-1 ``tc`` plan."""
+    tz, ty, tx = _lift3(block, 1)
+    tx *= tiles_per_step
+    rz, ry, rx = _lift3(radii, 0)
+    rows = TC_MMA_ROWS[dtype]
+    item = ITEMSIZE[dtype]
+    vec = TC_VECTOR_BYTES // item
+    kx = tc_k_extent(rx, dtype, "x")
+    line1d = tz == 1 and ty == 1 and rz == 0 and ry == 0
+    if line1d:
+        patches = _cdiv(_cdiv(tx, TC_SEGMENT), rows)
+        rows_padded = 1
+        width = max((patches * rows - 1) * TC_SEGMENT + kx,
+                    patches * rows * TC_SEGMENT + 2 * rx)
+    else:
+        segy, segx = _cdiv(ty, rows), _cdiv(tx, TC_SEGMENT)
+        patches = tz * segy * segx
+        rows_padded = (segy - 1) * rows + tc_k_extent(ry, dtype, "y")
+        width = max((segx - 1) * TC_SEGMENT + kx,
+                    segx * TC_SEGMENT + 2 * rx)
+    pitch = _round_up(width + vec - 1, vec)
+    window = (tz + 2 * rz, ty + 2 * ry, tx + 2 * rx)
+    return TcStep(
+        line1d=line1d, rows=rows, extent=(tz, ty, tx), window=window,
+        rows_padded=rows_padded, pitch=pitch, patches=patches,
+        buffer_bytes=_round16(window[0] * rows_padded * pitch * item),
+    )
+
+
+def tc_smem_bytes(
+    step: TcStep, stages: int, table_words: int, n_slots: int, n_f: int
+) -> int:
+    """Shared memory of one depth-1 ``tc`` block (``tc_layout`` of
+    ``csrc/tc_body.cuh``): the ring of ``stages`` window buffers, the
+    group table with the fragments (padded to 16 B) and, for φ kinds that
+    read several operators (MHD), the f32 operator sums of every slot and
+    field at every point of a step."""
+    total = stages * step.buffer_bytes + _round16(4 * table_words)
+    if n_slots > 1:
+        total += 4 * n_slots * n_f * step.points
+    return total
+
+
+def tc_tiles_per_step(block: Sequence[int], interior: Sequence[int]) -> int:
+    """Consecutive tiles one depth-1 step takes: at rank 1 as many as
+    divide the tile count within ``TC_STEP_POINTS`` points, else 1."""
+    if len(block) != 1:
+        return 1
+    cap = max(1, TC_STEP_POINTS // block[0])
+    return largest_divisor_leq(interior[0] // block[0], cap)
+
+
+def tc_blocks_per_sm(smem_bytes: int, threads: int) -> int:
+    """Resident blocks per SM that shared memory and threads allow (the
+    kernel's registers may allow fewer: the launch asks the occupancy)."""
+    by_smem = SMEM_PER_SM // (smem_bytes + SMEM_BLOCK_RESERVED)
+    return max(1, min(by_smem, 2048 // threads))
 
 
 def default_block(rank: int, max_threads: int = MAX_THREADS) -> tuple[int, ...]:
@@ -367,6 +556,7 @@ class StencilPlan:
     segments: int = 1  # swc_stream: pieces of the stream axis
     batch: int = 1  # ensemble members per launch
     n_slots: int = 1  # tc: operators φ reads (its f32 sum tiles)
+    tc_table_words: int = 0  # tc depth 1: words of its table (fragments)
 
     def __post_init__(self) -> None:
         if self.strategy in NOT_PORTED:
@@ -493,7 +683,7 @@ class StencilPlan:
             )
         if self.segments > 1 and not stream:
             raise ValueError("segments cut the stream axis of swc_stream")
-        if self.grid_z > MAX_GRID_Z:
+        if not self.tc_depth1 and self.grid_z > MAX_GRID_Z:
             raise ValueError(
                 f"{self.batch} members x {self.grid_z // self.batch} "
                 f"{'stream segments' if stream else 'z tiles'} = "
@@ -520,6 +710,34 @@ class StencilPlan:
                 f"the {SMEM_PER_BLOCK} B of shared memory a Hopper block "
                 "can use — shrink the tile"
             )
+
+    @property
+    def tc_depth1(self) -> bool:
+        """Whether the persistent depth-1 ``tc`` kernel runs the plan."""
+        return self.strategy == "tc" and self.fuse_steps == 1
+
+    @property
+    def tiles_per_step(self) -> int:
+        """Consecutive tiles one step of the depth-1 ``tc`` kernel takes
+        (:func:`tc_tiles_per_step`); 1 elsewhere."""
+        if not self.tc_depth1:
+            return 1
+        return tc_tiles_per_step(self.block, self.interior)
+
+    @property
+    def tc_step(self) -> TcStep:
+        """The depth-1 ``tc`` kernel's step (:func:`tc_step`)."""
+        return tc_step(self.block, self.radii, self.tiles_per_step,
+                       self.dtype)
+
+    @property
+    def tc_items(self) -> int:
+        """Steps of one depth-1 ``tc`` launch: members × z × y tiles ×
+        x steps, the order the persistent blocks walk them in."""
+        tiles = self.batch * _prod(
+            n // t for n, t in zip(self.interior, self.block)
+        )
+        return tiles // self.tiles_per_step
 
     @property
     def x_step(self) -> int:
@@ -558,8 +776,11 @@ class StencilPlan:
         ``max_threads`` (the φ kind's limit), at most the points of
         sweep 0's region (of one chunk) — the threads loop over each
         sweep's points, so a tile shrunk to fit shared memory keeps a
-        full block. ``tc``, at any depth: those points rounded up to
-        whole warps (:func:`tc_threads`)."""
+        full block. ``tc`` at depth 1: the persistent kernel's
+        (:data:`TC_THREADS`); deeper: those points rounded up to whole
+        warps (:func:`tc_threads`)."""
+        if self.tc_depth1:
+            return TC_THREADS["select" if self.n_slots == 1 else "mhd"]
         if self.strategy == "tc":
             return tc_threads(
                 self.block, self.radii, self.fuse_steps, self.max_threads
@@ -598,16 +819,33 @@ class StencilPlan:
     def stage_buffers(self) -> int:
         """Window buffers the kernel stages fields into: two (the next
         field lands while this one is read) at depth 1, and at depth
-        > 1 (and on ``tc`` at any depth) when there is a next field and
-        two windows fit; else one. ``swc_stream``: its one prefetch
-        buffer of τ₀ planes."""
+        > 1 (``tc`` too) when there is a next field and two windows fit;
+        else one. ``tc`` at depth 1: the persistent kernel's ring
+        (:meth:`_tc_stages`). ``swc_stream``: its one prefetch buffer of
+        τ₀ planes."""
         if self.stream_axis is not None:
             return 1
+        if self.tc_depth1:
+            return self._tc_stages()
         if self.fuse_steps == 1 and self.strategy != "tc":
             return 2
         if self.n_f > 1 and self._temporal_bytes(2) <= SMEM_PER_BLOCK:
             return 2
         return 1
+
+    def _tc_stages(self) -> int:
+        """Window buffers of the depth-1 ``tc`` ring: three (two steps in
+        flight while one is contracted) where that keeps two select blocks
+        resident per SM, else two."""
+        if self.n_slots == 1:
+            three = self._tc_bytes(3)
+            if tc_blocks_per_sm(three, self.threads) >= 2:
+                return 3
+        return 2
+
+    def _tc_bytes(self, stages: int) -> int:
+        return tc_smem_bytes(self.tc_step, stages, self.tc_table_words,
+                             self.n_slots, self.n_f)
 
     def _temporal_bytes(self, stage_buffers: int) -> int:
         return temporal_smem_bytes(
@@ -626,9 +864,11 @@ class StencilPlan:
         (each padded to 16 B; the next field lands while this one is
         read), the tap table (coefficient in the field dtype and int32
         window offset, aligned to twice the itemsize) and the int32
-        operator start table. Depth > 1, and ``tc`` at any depth:
-        :func:`temporal_smem_bytes`. ``swc_stream``:
-        :func:`stream_smem_bytes`."""
+        operator start table. ``tc`` at depth 1: :func:`tc_smem_bytes`.
+        Depth > 1 (``tc`` too): :func:`temporal_smem_bytes`.
+        ``swc_stream``: :func:`stream_smem_bytes`."""
+        if self.tc_depth1:
+            return self._tc_bytes(self.stage_buffers)
         if self.stream_axis is not None:
             return stream_smem_bytes(
                 self.block, self.radii, self.fuse_steps, n_f=self.n_f,
@@ -693,10 +933,14 @@ def plan_stencil(
     ``STREAM_SEGMENT_HALOS`` carried halos long, the members counted
     among the blocks.
 
-    ``tc``: ``block=None`` is ``DEFAULT_TC_BLOCKS[rank]``, each axis
-    capped at ``TC_MAX_TILE`` as in the reference; the tile is fitted to
-    shared memory at every depth as the temporal planner fits it, with
-    the f32 sums of the ``n_slots`` operators φ reads counted.
+    ``tc``: ``block=None`` is ``DEFAULT_TC_BLOCKS[rank]`` (at depth 1
+    and rank 3 ``DEFAULT_TC_BF16_BLOCK3`` in bfloat16 and
+    ``TC_MHD_BLOCK`` for a φ of several operators), each axis capped at
+    ``TC_MAX_TILE`` as in the reference. At depth 1 the tile is halved
+    until the persistent kernel's ring of two windows, its table and
+    (MHD) φ's f32 inputs fit shared memory (``_fit_tc``); deeper it is
+    fitted as the temporal planner fits it, with the f32 sums of the
+    ``n_slots`` operators φ reads counted.
     """
     rank = ops.ndim
     if accuracy is None:
@@ -733,6 +977,11 @@ def plan_stencil(
         block = DEFAULT_STREAM_BLOCKS[rank]
     elif block is None and strategy == "tc":
         block = DEFAULT_TC_BLOCKS[rank]
+        if fuse_steps == 1 and rank == 3:
+            if n_slots > 1:
+                block = TC_MHD_BLOCK
+            elif dtype == "bfloat16":
+                block = DEFAULT_TC_BF16_BLOCK3
     elif block is None:
         block = default_block(rank, max_threads)
     if isinstance(block, int):
@@ -767,6 +1016,7 @@ def plan_stencil(
     clamped.append(tx)
     itemsize = ITEMSIZE.get(str(dtype), 8)
     segments = 1
+    table_words = 0
     if stream and unroll == 1:
         clamped = _fit_stream(
             clamped, interior, radii, fuse_steps, n_f=padded_shape[0],
@@ -775,7 +1025,12 @@ def plan_stencil(
         segments = _stream_segments(
             clamped, interior, radii, fuse_steps, int(batch)
         )
-    elif (fuse_steps > 1 or strategy == "tc") and strategy != "swc_stream":
+    elif strategy == "tc" and fuse_steps == 1:
+        table_words = tc_table_words(ops, str(dtype))
+        clamped = _fit_tc(clamped, interior, radii, dtype=str(dtype),
+                          table_words=table_words, n_slots=int(n_slots),
+                          n_f=padded_shape[0])
+    elif fuse_steps > 1 and strategy != "swc_stream":
         tc = strategy == "tc"
         clamped = _fit_temporal(
             clamped, interior, radii, fuse_steps, n_f=padded_shape[0],
@@ -803,6 +1058,7 @@ def plan_stencil(
         segments=segments,
         batch=int(batch),
         n_slots=int(n_slots),
+        tc_table_words=table_words,
     )
 
 
@@ -823,6 +1079,30 @@ def _fit_temporal(tile, interior, radii, fuse_steps, **layout) -> list[int]:
                 f"tile {tuple(tile)} needs {need} B of the "
                 f"{SMEM_PER_BLOCK} B a Hopper block can use (one warp is "
                 "the smallest tile the planner tries)"
+            )
+        a = next(i for i, t in enumerate(tile) if t > 1)
+        tile[a] = largest_divisor_leq(interior[a], tile[a] // 2)
+
+
+def _fit_tc(tile, interior, radii, *, dtype, table_words, n_slots,
+            n_f) -> list[int]:
+    """Halve ``tile``'s slowest axis of extent > 1 (clamped to a divisor
+    of the interior) until the depth-1 ``tc`` layout with a ring of two
+    fits shared memory; raise once a one-warp tile does not."""
+    tile = list(tile)
+    if dtype not in TC_DTYPES:
+        return tile  # StencilPlan raises with the tc dtype rule
+    while True:
+        tps = tc_tiles_per_step(tile, interior)
+        need = tc_smem_bytes(tc_step(tile, radii, tps, dtype), 2,
+                             table_words, n_slots, n_f)
+        if need <= SMEM_PER_BLOCK:
+            return tile
+        if _prod(tile) <= ONE_WARP:
+            raise ValueError(
+                f"no tc tile fits shared memory: tile {tuple(tile)} needs "
+                f"{need} B of the {SMEM_PER_BLOCK} B a Hopper block can use "
+                "(one warp is the smallest tile the planner tries)"
             )
         a = next(i for i, t in enumerate(tile) if t > 1)
         tile[a] = largest_divisor_leq(interior[a], tile[a] // 2)
@@ -900,7 +1180,17 @@ def tc_issued_macs(
     tap of those groups per output point.
     Both cover every block and member of the launch; lone taps are in
     neither.
+
+    At depth 1 (the persistent kernel, :func:`tc_step`) every patch of
+    ``rows`` lines × 8 outputs issues, per field, for each group of each
+    operator φ reads: along y or x ``rows × 8 × k`` on the MMA (k the
+    window lines of :func:`tc_k_extent`), along z its taps × ``rows × 8``
+    FMAs (the z arm), ragged patches' masked outputs included, and a
+    last batch of patches (``TC_PATCH_BATCH``) short of patches filled
+    with repeats.
     """
+    if plan.tc_depth1:
+        return _tc_depth1_macs(plan, ops, operators)
     bf16 = plan.dtype == "bfloat16"
     rows = 16 if bf16 else 8
     radii = _lift3(plan.radii, 0)
@@ -935,3 +1225,55 @@ def tc_issued_macs(
         n // t for n, t in zip(plan.interior, plan.block)
     )
     return issued * plan.n_f * blocks, needed * plan.n_f * blocks
+
+
+def _tc_depth1_macs(
+    plan: StencilPlan, ops: OperatorSet, operators: Sequence[str]
+) -> tuple[int, int]:
+    step = plan.tc_step
+    radii = _lift3(plan.radii, 0)
+    lift = 3 - plan.rank
+    per_patch = needed_taps = 0
+    for name in operators:
+        spec = ops.ops[ops.names.index(name)]
+        for (axis, _), taps in tc_axis_groups(spec, plan.rank).items():
+            if len(taps) == 1:
+                continue
+            lifted = axis + lift
+            needed_taps += len(taps)
+            outputs = step.rows * TC_SEGMENT
+            if lifted == 0:
+                per_patch += len(taps) * outputs
+            else:
+                per_patch += outputs * tc_k_extent(
+                    radii[lifted], plan.dtype, "y" if lifted == 1 else "x"
+                )
+    items = plan.tc_items
+    batch = TC_PATCH_BATCH[
+        "select" if plan.n_slots == 1 else "mhd", plan.dtype]
+    issued = per_patch * _round_up(step.patches, batch) * plan.n_f * items
+    needed = needed_taps * step.points * plan.n_f * items
+    return issued, needed
+
+
+def tc_walk(plan: StencilPlan, grid: int) -> list[list[tuple[int, ...]]]:
+    """The persistent walk of the depth-1 ``tc`` kernel, mirrored: for
+    each of ``grid`` blocks, the (member, z0, y0, x0) output origin of
+    every step it takes, in order. Block b takes steps b, b + grid, ...;
+    step i is x fastest, then y, z, member (B5's order), its x extent
+    ``block[-1] × tiles_per_step`` (``tc_walk_origin`` of
+    ``csrc/fused_stencil_tc.cu``)."""
+    tz, ty, tx = _lift3(plan.block, 1)
+    tx *= plan.tiles_per_step
+    nz, ny, nx = (n // t for n, t in zip(_lift3(plan.interior, 1),
+                                          (tz, ty, tx)))
+    walks = []
+    for b in range(grid):
+        steps = []
+        for i in range(b, plan.tc_items, grid):
+            ix, rest = i % nx, i // nx
+            iy, rest = rest % ny, rest // ny
+            iz, member = rest % nz, rest // nz
+            steps.append((member, iz * tz, iy * ty, ix * tx))
+        walks.append(steps)
+    return walks

@@ -208,7 +208,7 @@ def test_tc_groups_of_the_main_path_sets():
 
 def test_tc_table_lifts_axes_and_lays_out_the_band():
     ops = ts.derivative_operator_set(2, 6, 0.3)
-    entries, coeffs, starts = emit.tc_table(ops)
+    entries, coeffs, starts, _ = emit.tc_table(ops)
     assert entries.shape[1] == emit.TC_ENT_LEN
     # a row of 2·r_max + 1 coefficients (7 at order 6), any radius
     assert coeffs.shape[1] == emit.tc_coef_len(ops.radius_per_axis()) == 7
@@ -224,6 +224,160 @@ def test_tc_table_lifts_axes_and_lays_out_the_band():
     for o in range(ops.n_s):
         axes = entries[int(starts[o]):int(starts[o + 1]), 0].tolist()
         assert axes == sorted(axes)
+
+
+def _band(order: int, dtype: str):
+    """(band c[j + r] of the x arm of the order-``order`` 1-D second
+    derivative rounded to ``dtype``, r)."""
+    spec = ts.derivative_operator_set(1, order, 0.3).ops[0]
+    r = order // 2
+    c = np.zeros(2 * r + 1)
+    for off, v in zip(spec.offsets, spec.coeffs):
+        c[off[0] + r] = v
+    return emit._band_in(list(c), dtype), r
+
+
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+@pytest.mark.parametrize("order", (2, 4, 6, 8, 10, 12))
+def test_tc_fragments_hold_the_band(order, dtype):
+    """The words of ``emit.tc_fragments`` rebuilt into the MMA operands by
+    the lane layouts of mma.sync (groupID = lane / 4, thread in group =
+    lane % 4) equal a numpy band B[k][n] = c[k - n] (x: B, k over the
+    window line; y: A = Bᵀ over 16 or 8 outputs), k-step by k-step: one
+    k-step of 16 up to r = 4 along x in bf16, two beyond."""
+    c, r = _band(order, dtype)
+
+    def band(k, n):
+        return c[k - n] if 0 <= k - n <= 2 * r else 0.0
+
+    lanes = np.arange(32)
+    g, t = lanes // 4, lanes % 4
+    for axis in ("x", "y"):
+        words = emit.tc_fragments(list(c), dtype, axis)
+        steps = tplan.tc_band_ksteps(r, dtype, axis)
+        if dtype == "float32":
+            assert steps == -(-(8 + 2 * r) // 4)
+            vals = words.view(np.float64).reshape(steps, 32)
+            for s_ in range(steps):
+                for lane in lanes:
+                    # B[k=4s+t][n=g] for x; A[m=g][k=4s+t] = c[k - m] for y
+                    assert vals[s_, lane] == band(4 * s_ + t[lane], g[lane])
+            continue
+        per = 2 if axis == "x" else 4
+        assert steps == -(-((8 if axis == "x" else 16) + 2 * r) // 16)
+        if axis == "x":
+            assert steps == (1 if r <= 4 else 2)
+        w = words.reshape(steps, 32, per)
+        lo = torch.from_numpy((w & 0xFFFF).astype(np.int16)).view(
+            torch.bfloat16).float().numpy()
+        hi = torch.from_numpy((w >> 16).astype(np.int16)).view(
+            torch.bfloat16).float().numpy()
+        for s_ in range(steps):
+            for lane in lanes:
+                k = 16 * s_ + 2 * t[lane]
+                if axis == "x":  # b0 = B[k, k+1][g], b1 = B[k+8, k+9][g]
+                    want = [(band(k, g[lane]), band(k + 1, g[lane])),
+                            (band(k + 8, g[lane]), band(k + 9, g[lane]))]
+                else:  # A[m][k] = c[k - m]: rows g, g + 8; cols k, k + 8
+                    want = [(band(k + i0, g[lane] + m),
+                             band(k + i0 + 1, g[lane] + m))
+                            for m, i0 in ((0, 0), (8, 0), (0, 8), (8, 8))]
+                got = [(lo[s_, lane, j], hi[s_, lane, j]) for j in range(per)]
+                assert got == want
+
+
+def test_tc_table_runs_follow_the_reference_order():
+    """Each operator's groups form one run per axis (z, y, x), in the
+    reference's sorted (axis, rest) order; the depth-1 table holds the
+    starts and the rows, then every group's own data in group order,
+    16-byte aligned: a lone tap's and a z arm's coefficients rounded to
+    the field dtype, a y or x contraction's fragments."""
+    for ndim, order in ((1, 6), (2, 8), (3, 6)):
+        ops = ts.derivative_operator_set(ndim, order, 0.3)
+        for dtype in ("float32", "bfloat16"):
+            entries, coeffs, starts, table = emit.tc_table(ops, dtype)
+            lift = 3 - ndim
+            radii = (0,) * lift + ops.radius_per_axis()
+            n = len(starts)
+            head = -(-n // 4) * 4
+            assert table[:n].tolist() == starts.tolist()
+            assert table[head:head + entries.numel()].tolist() == (
+                entries.reshape(-1).tolist())
+            offset = tplan.tc_table_header_words(ops)
+            assert offset == head + entries.numel()
+            for o, spec in enumerate(ops.ops):
+                first = int(starts[o])
+                rows = entries[first:int(starts[o + 1])].tolist()
+                keys = sorted(tplan.tc_axis_groups(spec, ndim).items())
+                assert [r[0] for r in rows] == sorted(r[0] for r in rows)
+                assert len(rows) == len(keys)
+                for e, (row, ((axis, rest), taps)) in enumerate(
+                        zip(rows, keys), first):
+                    assert row[0] == axis + lift
+                    assert tuple(row[1 + lift:4]) == rest
+                    assert row[6] == offset and row[6] % 4 == 0
+                    r = radii[row[0]]
+                    words = tplan.tc_group_words(len(taps), row[0], r, dtype)
+                    if len(taps) == 1 or row[0] == 0:  # coefficients in T
+                        want = [taps[0][1]] if len(taps) == 1 else (
+                            coeffs[e, :2 * r + 1].tolist())
+                        got = table[offset:offset + words].numpy().view(
+                            np.float64)[:len(want)]
+                        assert np.array_equal(got, emit._band_in(want, dtype))
+                    offset += words
+            assert table.numel() == offset == tplan.tc_table_words(ops, dtype)
+
+
+@pytest.mark.parametrize("shape,block,batch,grid", (
+    ((48, 40), (16, 8), 3, 7),        # 45 steps on 7 blocks
+    ((8, 12, 40), (4, 4, 8), 2, 13),  # 90 steps on 13 blocks
+    ((6144,), (512,), 5, 4),          # rank 1: 4 tiles a step, 15 steps
+))
+def test_tc_persistent_walk_covers_every_tile_once(shape, block, batch, grid):
+    """The mirror of the depth-1 kernel's walk: block b takes steps b, b +
+    grid, ...; together the blocks cover every (member, z, y, x) tile once
+    even when the steps are no multiple of the grid."""
+    ops = ts.derivative_operator_set(len(shape), 2, 0.3)
+    padded = (batch, 1) + tuple(n + 2 for n in shape)
+    plan = tplan.plan_stencil(ops, padded, 1, strategy="tc", block=block)
+    assert plan.block == block and plan.tc_items % grid
+    walks = tplan.tc_walk(plan, grid)
+    tz, ty, tx = tplan._lift3(block, 1)
+    seen = []
+    for steps in walks:
+        for member, z0, y0, x0 in steps:
+            for i in range(plan.tiles_per_step):
+                seen.append((member, z0, y0, x0 + i * tx))
+    nz, ny, nx = (n // t for n, t in zip(tplan._lift3(shape, 1), (tz, ty, tx)))
+    want = [(m, iz * tz, iy * ty, ix * tx) for m in range(batch)
+            for iz in range(nz) for iy in range(ny) for ix in range(nx)]
+    assert sorted(seen) == want
+    assert len(seen) == len(set(seen))
+    assert max(map(len, walks)) - min(map(len, walks)) == 1
+
+
+def test_mhd_tc_tile_is_the_planners():
+    """MHDSolver leaves the depth-1 tc kernel's tile to its planner
+    (TC_MHD_BLOCK: 8 rows along y and 16 along x for the MMA patches, 4
+    planes, 512 points); the pair at depth 2 keeps ``block``."""
+    solver = tm.MHDSolver((16, 16, 32), strategy="tc", device=CPU)
+    assert solver.rhs_op().block is None
+    assert solver._fused_substep_op(0.0, 1.0, 1e-3).block is None
+    pair = tm.MHDSolver((16, 16, 32), strategy="tc", fuse_rk_pairs=True,
+                        device=CPU)
+    assert pair._fused_pair_op(1e-3).block == pair.block == (1, 8, 32)
+    assert tm.MHDSolver((16, 16, 32), device=CPU).rhs_op().block == (
+        1, 8, 32)  # swc keeps the solver's block
+    plan = plan_for_nd(solver.operator_set, (8, 22, 22, 38), 8,
+                       strategy="tc", max_threads=256, n_slots=10)
+    assert plan.block == tplan.TC_MHD_BLOCK == (4, 8, 16)
+    assert tplan.tc_step(plan.block, plan.radii, 1, "float32").points == (
+        plan.threads)
+    # no z contraction issues 8 outputs for 1: the z arm runs on FMAs,
+    # and every patch is full (8 rows of y, 8 columns of x)
+    issued, needed = tplan.tc_issued_macs(plan, solver.operator_set,
+                                          list(solver.operator_set.names))
+    assert issued / needed < 2.6
 
 
 # --- plan rules ---------------------------------------------------------------------
@@ -263,27 +417,47 @@ def test_tc_plan_rules_follow_the_reference():
 
 
 def test_tc_threads_and_smem_are_the_kernel_layout():
-    """Counted by hand from csrc/temporal_body.cuh's layout and
+    """Counted by hand from csrc/tc_body.cuh's layout (depth 1: a ring of
+    window buffers, rows of a 16-byte multiple holding the window plus 3
+    (f32) or 7 (bf16) elements of shift, the band's fragments, the MHD
+    sums) and, at depth 2, csrc/temporal_body.cuh's and
     csrc/fused_stencil_tc.cu's sum tiles."""
     diff = td.DiffusionProblem((512,) * 3).step_op("hwc", device=CPU).ops
     p = tplan.plan_stencil(diff, (1, 518, 518, 518), 1, strategy="tc")
-    assert p.block == (8, 8, 32) and p.threads == 1024
-    assert p.stage_buffers == 1  # one field, no next window to overlap
-    window = 14 * 14 * 38 * 4
-    assert p.smem_bytes == window + 8 * 8 * 32 * 4
+    assert p.block == (8, 8, 32) and p.threads == 256
+    # window 14 x 14 x 38; rows padded to the y MMA's k (8 + 16 - 8 = 16)
+    # and to 40 columns (the x MMA's k), pitch 44 (40 + 3, 16 bytes)
+    assert p.tc_step.rows_padded == 16 and p.tc_step.pitch == 44
+    assert p.stage_buffers == 2  # three would leave one block per SM
+    # the table: 2 starts (4 words) and 3 group rows, the z arm's 7
+    # doubles (16 words), the y and x groups' fragments: 4 k-steps, 32
+    # lanes, 1 double
+    table = 4 + 24 + 16 + 2 * 4 * 32 * 2
+    assert p.tc_table_words == table
+    assert p.smem_bytes == 2 * 14 * 16 * 44 * 4 + 4 * table
     bf = tplan.plan_stencil(diff, (1, 518, 518, 518), 1, strategy="tc",
                             dtype="bfloat16")
-    assert bf.smem_bytes == 14 * 14 * 38 * 2 + 8 * 8 * 32 * 4
-    mhd = tm.MHDSolver((256,) * 3, device=CPU).operator_set
-    rhs = plan_for_nd(mhd, (8, 262, 262, 262), 8, strategy="tc",
-                      block=(1, 8, 32), max_threads=256, n_slots=10)
-    assert rhs.threads == 256 and rhs.stage_buffers == 2
-    assert rhs.smem_bytes == 2 * (7 * 14 * 38 * 4) + 10 * 256 * 4
-    pair = plan_for_nd(mhd, (8, 140, 140, 140), 16,
+    assert bf.block == (4, 16, 32) and bf.stage_buffers == 3
+    # y: 2 k-steps of 16 x 4 words; x: 1 of 16 x 2 words
+    assert bf.tc_table_words == 4 + 24 + 16 + 2 * 32 * 4 + 32 * 2
+    assert bf.smem_bytes == 3 * 10 * 32 * 48 * 2 + 4 * bf.tc_table_words
+    ops = tm.MHDSolver((256,) * 3, device=CPU).operator_set
+    rhs = plan_for_nd(ops, (8, 262, 262, 262), 8, strategy="tc",
+                      max_threads=256, n_slots=10)
+    assert rhs.block == (4, 8, 16) and rhs.threads == 512
+    assert rhs.stage_buffers == 2
+    # 11 starts (12 words) and 27 group rows, 3 lone taps (4 words
+    # each), 2 z arms (16), 22 y/x groups of 4 f64 k-steps; sums of 10
+    # slots x 8 fields x 512 points
+    assert rhs.tc_table_words == (12 + 27 * 8 + 3 * 4 + 2 * 16
+                                  + 22 * 4 * 32 * 2)
+    assert rhs.smem_bytes == (2 * 10 * 16 * 28 * 4 + 4 * rhs.tc_table_words
+                              + 10 * 8 * 512 * 4)
+    pair = plan_for_nd(ops, (8, 140, 140, 140), 16,
                        aux_shape=(8, 134, 134, 134), strategy="tc",
                        block=(1, 8, 32), fuse_steps=2, max_threads=256,
                        n_slots=10)
-    assert pair.smem_bytes <= tplan.SMEM_PER_BLOCK
+    assert pair.smem_bytes <= tplan.SMEM_PER_BLOCK and pair.threads == 256
     r0 = (1 + 6) * (pair.block[1] + 6) * (pair.block[2] + 6)
     plane = (pair.block[1] + 6) * (pair.block[2] + 6)
     assert tplan.tc_acc_points(pair.block, pair.radii, 2, 10,
@@ -291,28 +465,41 @@ def test_tc_threads_and_smem_are_the_kernel_layout():
 
 
 def test_tc_issued_macs_count_the_band():
-    """Diffusion 512³ order 6 at (8, 8, 32): per block and axis 256
-    row-segments of 8 outputs; f32 issues 8 × 8 × 16 per 8 row-segments
-    (k = 4·ceil(14 / 4)), bf16 16 × 8 × 16 per 16: 2048 × 8 × 8 per
-    field-axis-block either way, against the taps' 7 + 6 + 6 per point."""
+    """Diffusion 512³ order 6 at (8, 8, 32), depth 1: 32 patches of 8 × 8
+    outputs per tile; per patch the y and x contractions issue 8 × 8 × 16
+    (k = 4·ceil(14 / 4)) on the f64 MMA and the z arm its 6 taps × 64
+    FMAs; bf16 at (4, 16, 32): 16 patches of 16 × 8, y 16 × 8 × 32
+    (16 + 6 rows in two k-steps), x 16 × 8 × 16; against the taps' 19 per
+    point."""
     diff = td.DiffusionProblem((512,) * 3).step_op("hwc", device=CPU).ops
-    for dtype in ("float32", "bfloat16"):
+    z_taps = 6  # the center tap is x's
+    for dtype, patches, rows, ky, kx in (("float32", 32, 8, 16, 16),
+                                         ("bfloat16", 16, 16, 32, 16)):
         p = tplan.plan_stencil(diff, (1, 518, 518, 518), 1, strategy="tc",
                                dtype=dtype)
         issued, needed = tplan.tc_issued_macs(p, diff, ["step"])
-        blocks = 512 ** 3 // 2048
-        assert issued == 3 * 256 // 8 * 8 * 8 * 16 * blocks
+        steps = 512 ** 3 // tplan._prod(p.block)
+        per_patch = rows * 8 * (ky + kx + z_taps)
+        assert p.tc_step.patches == patches
+        assert issued == per_patch * patches * steps
         assert needed == 19 * 512 ** 3
-    # Order 10 at rank 1, tile 512: 64 row-segments, a band of 18 rows:
-    # bf16 two k-steps of 16 (k = 32), f32 k = 4·ceil(18 / 4) = 20.
+    # Order 10 at rank 1, tile 512, 8 tiles a step: 64 patches of 8
+    # segments (f32) or 32 of 16 (bf16), a band of 18 rows: f32 k =
+    # 4·ceil(18 / 4) = 20, bf16 two k-steps of 16 (k = 32).
     o10 = td.DiffusionProblem((4096,), accuracy=10).step_op(
         "hwc", device=CPU).ops
     for dtype, rows, k in (("bfloat16", 16, 32), ("float32", 8, 20)):
         p = tplan.plan_stencil(o10, (1, 4106), 1, strategy="tc", dtype=dtype)
         issued, needed = tplan.tc_issued_macs(p, o10, ["step"])
-        assert p.block == (512,)
-        assert issued == 64 // rows * rows * 8 * k * 8
+        assert p.block == (512,) and p.tiles_per_step == 8
+        assert issued == 4096 // (rows * 8) * rows * 8 * k
         assert needed == 11 * 4096
+    # Depth 2 keeps the temporal evaluator's count: the regions, 8
+    # row-segments a tile, the band in k-steps of 4.
+    p2 = tplan.plan_stencil(diff, (1, 524, 524, 524), 1, strategy="tc",
+                            fuse_steps=2)
+    issued, _ = tplan.tc_issued_macs(p2, diff, ["step"])
+    assert issued > 0 and not p2.tc_depth1
 
 
 # --- what waits for a ROADMAP item -------------------------------------------------
@@ -446,3 +633,127 @@ def test_tc_mhd_kernel_matches_plain_on_card(cuda_device, form):
     f = cpu.init_smooth(seed=1, amplitude=1e-2, dtype=torch.float32)
     got = card.step(f.to(cuda_device), 1e-3)
     assert _rel(got.cpu().numpy(), cpu.step(f, 1e-3).numpy()) <= MHD_TOL
+
+
+def _launch_vs_plain(fp, ops, phi, plan, aux=None):
+    """(kernel output, plain output) of one launch of ``plan``."""
+    got = emit.fused_stencil_swc(fp, ops, phi, plan, aux=aux)
+    fn = ref.fused_stencil_tc_batched if fp.ndim == plan.rank + 2 else (
+        ref.fused_stencil_tc)
+    return got, fn(fp, ops, phi.torch_fn, aux=aux)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+@pytest.mark.parametrize("shape,block,order", (
+    ((30030,), None, 6),          # 2002-point tiles: a ragged last segment
+    ((50, 70), (10, 14), 6),      # y and x tiles off 8 and 16
+    ((9, 22, 30), (3, 11, 15), 6),
+    ((6, 20, 36), None, 10),
+    ((40, 56), None, 12),
+))
+def test_tc_depth1_ragged_tiles_match_plain_on_card(cuda_device, shape,
+                                                    block, order, dtype):
+    """The persistent depth-1 kernel on extents and tiles that are no
+    multiple of 8, 16 or the default tile, at orders 6, 10 and 12."""
+    ops = ts.derivative_operator_set(len(shape), order, 0.3)
+    r = order // 2
+    g = torch.Generator().manual_seed(7)
+    fp = torch.rand((2,) + tuple(n + 2 * r for n in shape), generator=g,
+                    dtype=torch.float64).to(cuda_device, getattr(torch, dtype))
+    plan = plan_for_nd(ops, tuple(fp.shape), 2, strategy="tc", block=block,
+                       dtype=dtype)
+    assert plan.tc_depth1 and emit.kernel_smem_bytes(plan) == plan.smem_bytes
+    got, want = _launch_vs_plain(fp, ops, select_phi("dxx"), plan)
+    assert _rel(_f32(got.cpu()), _f32(want.cpu())) <= CARD_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+@pytest.mark.parametrize("shape", ((48, 64, 120), (40, 1000), (1000, 1000)))
+def test_tc_depth1_grid_walks_every_step_on_card(cuda_device, shape,
+                                                 dtype):
+    """The persistent grid against the steps it walks: fewer steps than
+    blocks the card can hold (idle blocks), and more steps than blocks,
+    no multiple of them (blocks taking one step more than others)."""
+    p = td.DiffusionProblem(shape, accuracy=6)
+    op = p.step_op("tc", device=cuda_device)
+    f = p.init_field(seed=3, device=cuda_device, dtype=dtype)
+    fp = pad(f, op.radius_per_axis, "periodic",
+             spatial_axes=range(1, f.ndim))
+    plan = plan_for_nd(op.ops, tuple(fp.shape), 1, strategy="tc", dtype=dtype)
+    grid = emit.tc_launch_grid(plan, op.phi.kind_id, cuda_device.index or 0)
+    assert 1 <= grid <= plan.tc_items
+    got = emit.fused_stencil_swc(fp, op.ops, op.phi, plan)
+    plain = ref.fused_stencil_tc(fp, op.ops, op.phi.torch_fn)
+    assert _rel(_f32(got.cpu()), _f32(plain.cpu())) <= CARD_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ("diffusion f32", "diffusion bf16",
+                                  "mhd_rhs", "mhd_substep"))
+def test_tc_depth1_members_equal_their_launch_on_card(cuda_device, case):
+    """B = 3 members in one launch: each equal to its unbatched launch
+    bit for bit, and the stack within tolerance of the batched plain
+    version."""
+    import dataclasses
+
+    if case.startswith("diffusion"):
+        dtype = "float32" if case.endswith("f32") else "bfloat16"
+        ops = ts.derivative_operator_set(3, 6, 0.3)
+        g = torch.Generator().manual_seed(11)
+        fp = torch.rand((3, 1, 22, 28, 46), generator=g,
+                        dtype=torch.float64).to(cuda_device,
+                                                getattr(torch, dtype))
+        phi, aux, tol = select_phi("dxx"), None, CARD_TOL[dtype]
+        plan = plan_for_nd(ops, tuple(fp.shape), 1, strategy="tc",
+                           dtype=dtype)
+    else:
+        solver = tm.MHDSolver((12, 24, 48), strategy="tc",
+                              device=cuda_device)
+        ops = solver.operator_set
+        f = torch.stack([solver.init_smooth(seed=s, amplitude=1e-2,
+                                            dtype=torch.float32)
+                         for s in range(3)])
+        fp = pad(f, 3, "periodic", spatial_axes=(2, 3, 4))
+        if case == "mhd_rhs":
+            phi, aux = tm.mhd_rhs_device_phi(solver.params), None
+        else:
+            phi = tm.mhd_substep_device_phi(solver.params, tm.RK3_ALPHA[1],
+                                            tm.RK3_BETA[1], 1e-3)
+            aux = 1e-3 * torch.rand_like(f)
+        tol = MHD_TOL
+        plan = plan_for_nd(ops, tuple(fp.shape), phi.n_out(8),
+                           aux_shape=None if aux is None else tuple(aux.shape),
+                           strategy="tc", max_threads=phi.max_threads,
+                           n_slots=len(phi.operators))
+    assert plan.batch == 3 and plan.tc_depth1
+    got, want = _launch_vs_plain(fp, ops, phi, plan, aux)
+    assert _rel(_f32(got.cpu()), _f32(want.cpu())) <= tol
+    solo = dataclasses.replace(plan, batch=1)
+    for m in range(3):
+        one = emit.fused_stencil_swc(fp[m], ops, phi, solo,
+                                     aux=None if aux is None else aux[m])
+        assert torch.equal(got[m], one)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ("rhs", "plain", "fuse_rk_axpy",
+                                  "fuse_rk_pairs"))
+def test_tc_depth1_mhd_forms_match_plain_on_card(cuda_device, form):
+    """The three RK3 forms and the RHS on a non-cubic box whose z extent
+    is no multiple of the tile's 4 planes' default (12 = 3 tiles), with
+    the solver's own tc tile."""
+    shape = (12, 24, 48)
+    kw = {} if form in ("rhs", "plain") else {form: True}
+    card = tm.MHDSolver(shape, strategy="tc", device=cuda_device, **kw)
+    cpu = tm.MHDSolver(shape, strategy="tc", device=CPU, **kw)
+    f = cpu.init_smooth(seed=4, amplitude=1e-2, dtype=torch.float32)
+    emit.reset_launch_counts()
+    if form == "rhs":
+        got, want = card.rhs(f.to(cuda_device)), cpu.rhs(f)
+    else:
+        got, want = card.step(f.to(cuda_device), 1e-3), cpu.step(f, 1e-3)
+    assert set(emit.fused_stencil_swc.launches_by_kernel) == {
+        "fused_stencil_tc"}
+    assert _rel(got.cpu().numpy(), want.numpy()) <= MHD_TOL
