@@ -15,7 +15,11 @@ Phases (each raises on failure; none is caught):
    with each plan's shared-memory bytes held to the kernel's own
    layout: the depth-1 kernel against ``ref.fused_stencil`` —
    diffusion at ranks 1-3, the MHD RHS and fused RK substep on a cube
-   and a non-cubic box; the temporal kernel against
+   and a non-cubic box, and a ragged case (padded rows of 41 elements,
+   one round short of threads) in f32, f64 and bf16, each printing
+   its persistent launch (grid, ring, threads x outputs per thread,
+   registers, spills); bf16 must equal its plain version bit for bit;
+   the temporal kernel against
    ``ref.fused_stencil_steps`` — diffusion at depth 2 and 3, ranks 1-3,
    two selected fields, and the MHD pair (two RK3 substep φs, aux w);
    the stream kernel (``swc_stream``) against ``ref.fused_stencil`` /
@@ -58,7 +62,9 @@ Phases (each raises on failure; none is caught):
    must raise there); 3-D diffusion at 512³ at depth 1, 2 and 3 (and 7
    steps at depth 3: a depth-1 remainder) on ``swc`` and on
    ``swc_stream``, 2-D diffusion at 8192² on ``swc_stream``, each held
-   to ``swc`` at depth 1; an f64 Fourier mode checked against its exact
+   to ``swc`` at depth 1 (the ``swc`` runs at 8192² and 2^26 of the tc
+   phase are counted too: one ``fused_stencil`` launch per step); an
+   f64 Fourier mode checked against its exact
    discrete and analytic decay. Then ensemble serving
    (``repro_torch.launch.serve_sim.SimServer`` at its defaults: order 2,
    alpha 1, f32) on ``swc`` and on ``swc_stream``: after a warm-up batch
@@ -109,7 +115,10 @@ Phases (each raises on failure; none is caught):
    (``plan.tc_issued_macs``) and, at depth 1, the persistent grid (the
    kernel's occupancy times the SMs), the ring's stages, the staging
    route (16-byte ``cp.async``) and the registers from ptxas; the bf16
-   rows time ``conv*d`` in bf16.
+   rows time ``conv*d`` in bf16. Depth-1 ``swc`` rows (B1) print their
+   persistent grid (blocks per SM x SMs), ring stages, threads, outputs
+   per thread, registers and spills; its 2^26 and 8192² rows join the
+   kernels line with their main-path launch counts.
    B6 rows: each strategy at n = 2^24 (fig07's size), f32 at radii
    1-1024 and f64 at r = 1 and 1024, and the 2^26 ``step_1d_xcorr``
    launch (the kernels line's B6 rows); bound max((2n + 2r + taps) ×
@@ -306,7 +315,8 @@ def mhd_case(shape, dtype, device, substep, block=None, unroll=1,
     """(f_padded, ops, phi, plan, aux) of one MHD RHS or RK substep;
     ``batch`` members (seeds ``seed``, ``seed + 1``, ...) make an
     ensemble, aux then (batch, 8, *shape). ``block`` defaults to the
-    solver's: the planner's on ``tc``, else ``MHDSolver.block``."""
+    solver's: the planner's on ``swc`` and ``tc`` (depth 1), else
+    ``MHDSolver.block``."""
     import torch
 
     from repro_torch.core.boundary import pad
@@ -314,7 +324,7 @@ def mhd_case(shape, dtype, device, substep, block=None, unroll=1,
     from repro_torch.physics import mhd
 
     solver = mhd.MHDSolver(tuple(shape), strategy="swc", device=device)
-    if block is None and strategy != "tc":
+    if block is None and strategy == "swc_stream":
         block = solver.block
     init = solver.init_smooth if smooth else solver.init_fields
     kw = dict(amplitude=1e-2) if smooth else {}
@@ -396,19 +406,30 @@ def mhd_rhs_twice_case(shape, dtype, device, seed=0):
             plan, None)
 
 
-def ptxas_registers(name: str) -> dict[str, int]:
-    """Registers per kernel entry (mangled name) of ``csrc/<name>.cu``'s
-    last build, from nvcc's ``-Xptxas -v`` report."""
+def ptxas_usage(name: str) -> dict[str, tuple[int, int]]:
+    """(registers, bytes of spill stores) per kernel entry (mangled name)
+    of ``csrc/<name>.cu``'s last build, from nvcc's ``-Xptxas -v``
+    report."""
     from repro_torch.kernels import build
 
-    regs, entry = {}, None
+    usage, entry, spill = {}, None, 0
     for line in build.ptxas_report(name).splitlines():
         if "Compiling entry function" in line:
-            entry = line.split("'")[1]
+            entry, spill = line.split("'")[1], 0
+        elif "spill stores" in line and entry is not None:
+            spill = int(line.split("bytes spill stores")[0].split(",")[-1])
         elif "registers" in line and entry is not None:
-            regs[entry] = int(line.split("Used")[1].split()[0])
+            usage[entry] = (int(line.split("Used")[1].split()[0]), spill)
             entry = None
-    return regs
+    return usage
+
+
+def _usage_of(name: str, key: str) -> str:
+    found = [v for k, v in ptxas_usage(name).items() if key in k]
+    if not found:
+        return "? registers"
+    regs, spill = found[0]
+    return f"{regs} registers, {spill} B spilled"
 
 
 def tc_launch_info(plan, phi) -> str:
@@ -420,17 +441,38 @@ def tc_launch_info(plan, phi) -> str:
 
     if not plan.tc_depth1:
         return f"temporal body (depth {plan.fuse_steps}), grid of tiles"
-    grid = emit.tc_launch_grid(plan, phi.kind_id,
-                               torch.cuda.current_device())
+    grid = emit.launch_grid(plan, phi.kind_id,
+                            torch.cuda.current_device())
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     t = "f" if plan.dtype == "float32" else "13__nv_bfloat16"
     key = f"tc_d1_kernelI{t}Li{phi.kind_id}E"
-    regs = [v for k, v in ptxas_registers(TC).items() if key in k]
     return (f"persistent grid {grid} ({grid / sms:.2f} per SM, "
-            f"{plan.tc_items} steps of {plan.tc_step.extent}), "
+            f"{plan.walk_items} steps of {plan.tc_step.extent}), "
             f"{plan.stage_buffers}-stage ring of {plan.tc_step.buffer_bytes} "
             f"B windows, 16-byte cp.async staging, {plan.threads} threads, "
-            f"{regs[0] if regs else '?'} registers")
+            f"{_usage_of(TC, key)}")
+
+
+SWC_TYPE_KEYS = {"float32": "f", "float64": "d", "bfloat16": "13__nv_bfloat16"}
+
+
+def swc_launch_info(plan, phi) -> str:
+    """The depth-1 swc launch of ``plan`` (B1): its persistent grid (the
+    kernel's resident blocks per SM times the SMs), ring stages, threads,
+    outputs per thread, registers and spills."""
+    import torch
+
+    from repro_torch.kernels import emit
+
+    grid = emit.launch_grid(plan, phi.kind_id, torch.cuda.current_device())
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    key = f"fused_stencil_kernelI{SWC_TYPE_KEYS[plan.dtype]}Li{phi.kind_id}E"
+    return (f"persistent grid {grid} ({grid / sms:.2f} per SM x {sms} SMs, "
+            f"{plan.walk_items} steps of {plan.swc_step.extent}), "
+            f"{plan.stage_buffers}-stage ring of "
+            f"{plan.swc_step.buffer_bytes} B windows, {plan.threads} "
+            f"threads x {plan.outputs_per_thread} outputs, "
+            f"{_usage_of('fused_stencil', key)}")
 
 
 def plain(case):
@@ -453,6 +495,8 @@ def plain(case):
 def compare(label, case, dtype):
     from repro_torch.kernels import emit
 
+    import torch
+
     fp, ops, phi, plan, aux = case
     layout = emit.kernel_smem_bytes(plan)
     if layout != plan.smem_bytes:
@@ -462,9 +506,16 @@ def compare(label, case, dtype):
     got = emit.fused_stencil_swc(fp, ops, phi, plan, aux=aux)
     if plan.strategy == "tc":
         print(f"    tc: {tc_launch_info(plan, phi)}")
+    elif plan.swc_depth1:
+        print(f"    swc: {swc_launch_info(plan, phi)}")
     seg = f" seg{plan.segments}" if plan.segments > 1 else ""
+    want = plain(case)
     check(f"{label} {dtype} S{plan.fuse_steps} tile{plan.block}"
-          f"u{plan.unroll}{seg} {plan.smem_bytes}B", got, plain(case), dtype)
+          f"u{plan.unroll}{seg} {plan.smem_bytes}B", got, want, dtype)
+    if plan.swc_depth1 and dtype == "bfloat16" and not torch.equal(got, want):
+        raise AssertionError(f"{label}: bf16 swc differs from its plain "
+                             "version (it rounds each product and sum as "
+                             "the plain version does)")
     return got
 
 
@@ -620,6 +671,12 @@ def phase_parity(dev):
     compare_batched("diffusion (64, 96, 128)",
                     diffusion_case((64, 96, 128), "bfloat16", dev, batch=3),
                     "bfloat16")
+    print("  -- depth-1 swc at a ragged row pitch (41 elements, unroll 5, a "
+          "step of 210 points for 1024 thread outputs)")
+    for dtype in ("float32", "float64", "bfloat16"):
+        compare("diffusion (12, 18, 35)",
+                diffusion_case((12, 18, 35), dtype, dev, block=(2, 3, 7),
+                               unroll=5), dtype)
     print("  -- tc kernel vs ref.fused_stencil_tc[_steps] (f32 on the f64 "
           "MMA, bf16 on the bf16 MMA)")
     for dtype in ("float32", "bfloat16"):
@@ -998,8 +1055,23 @@ def phase_main_path_tc(dev, launches):
     ):
         prob = DiffusionProblem(shape)
         f0 = prob.init_field(seed=0, device=dev)
-        base = {n: simulate(prob, f0, n, strategy="swc", device=dev)
-                for n in {c[2] for c in cases}}
+        base = {}
+        for n in sorted({c[2] for c in cases}):
+            # The swc run each case is held to: B1 on the main path too,
+            # one fused_stencil launch per step.
+            base[n], wall, by_depth = counted(
+                lambda: simulate(prob, f0, n, strategy="swc", device=dev),
+                kernel="fused_stencil")
+            if by_depth != {1: n} or not bool(torch.isfinite(base[n]).all()):
+                raise AssertionError(f"diffusion {shape} swc: launches "
+                                     f"{by_depth}, want {n}, or bad state")
+            if len(shape) < 3:
+                key = f"select {'8192^2' if len(shape) == 2 else '2^26'}"
+                launches[key] = by_depth[1]
+                print(f"  diffusion {'x'.join(map(str, shape))} float32 swc: "
+                      f"{n} steps, launches by depth {by_depth} (all "
+                      f"fused_stencil), {1e3 * wall / n:.2f} ms/step (host "
+                      "clock)")
         for strategy, depth, n, dtype, key in cases:
             kernel = TC if strategy == "tc" else "fused_stencil"
             fd = f0.to(getattr(torch, dtype))
@@ -1404,6 +1476,8 @@ def phase_times(dev, smi, launches):
                                        KERNEL_SOURCE, REPLACES)
             if item == 2:
                 name_ += ", bf16"
+            print(f"    swc: tile {plan.block}, {plan.smem_bytes} B shared; "
+                  f"{swc_launch_info(plan, phi)}")
         else:
             name_, source, replaces = (
                 f"fused_stencil_temporal[{kind}, S={depth}",
@@ -1504,10 +1578,11 @@ def phase_times(dev, smi, launches):
         row(f"diffusion 256^3 S={depth} (library: {depth} convs)", "select",
             case, "float64", 0, conv_of(case))
         del case
-    for shape in ((1 << 26,), (8192, 8192)):
+    for shape, key in (((1 << 26,), "select 2^26"),
+                       ((8192, 8192), "select 8192^2")):
         case = diffusion_case(shape, "float32", dev)
-        row(f"diffusion {shape}", "select", case, "float32", 0,
-            conv_of(case))
+        row(f"diffusion {shape}", key, case, "float32", 0, conv_of(case),
+            main=key)
         del case
     case = diffusion_case((256,) * 3, "float64", dev)
     row("diffusion 256^3", "select", case, "float64", 0, conv_of(case))

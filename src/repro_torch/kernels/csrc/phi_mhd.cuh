@@ -21,6 +21,23 @@ enum Param {
   P_HEAT, P_COOL, P_LNT0, P_ALPHA, P_BETA, P_DT, N_PARAMS
 };
 
+// The fields whose operator slot `slot` phi reads, bit k for field k
+// (read off rhs below): 62 (slot, field) pairs of 80 for the RHS, 65 for
+// the fused substep, which also reads every field's value. A kernel that
+// evaluates slots one at a time skips the others.
+__host__ __device__ constexpr unsigned fields_read(int slot, bool substep) {
+  switch (slot) {
+    case VAL: return substep ? 0xFF : 0x1F;  // lnrho, u, ss
+    case DX: return 0xDF;   // all but ax
+    case DY: return 0xBF;   // all but ay
+    case DZ: return 0x7F;   // all but az
+    case DXY: return 0x66;  // ux, uy, ax, ay
+    case DXZ: return 0xAA;  // ux, uz, ax, az
+    case DYZ: return 0xCC;  // uy, uz, ay, az
+    default: return 0xFF;   // DXX, DYY, DZZ: every Laplacian
+  }
+}
+
 // Arithmetic operations of mhd_rhs per point (exp and division counted
 // once each), for the compute bound; the stencil's own multiply-adds
 // are counted from the tap table.

@@ -33,13 +33,14 @@ enum GeomIndex {
   G_UNROLL, G_NOPS, G_NTAPS, G_NSLOTS,
   G_FUSE,  // sweeps per launch
   G_NBUF,  // staged window buffers (1 or 2)
-  G_NTHR,  // threads per block (depth > 1; depth 1 runs one per tile point)
+  G_NTHR,  // threads per block
   G_NSEG,  // swc_stream: segments the stream axis is cut into
   G_NB,    // ensemble members (the outer part of blockIdx.z)
   G_CLEN,  // tc: doubles per band-coefficient row (2 r_max + 1); else 0
   G_SLOT0,  // MAX_SLOTS operator indices follow
-  G_TPS = G_SLOT0 + MAX_SLOTS,  // tc depth 1: tiles per step (0 off tc)
+  G_TPS = G_SLOT0 + MAX_SLOTS,  // depth 1 (swc, tc): tiles per step; else 0
   G_TABW,   // tc depth 1: words of its table (group rows, fragments)
+  G_UOUT,   // swc depth 1: outputs per thread; else 0
   G_LEN
 };
 
@@ -57,8 +58,9 @@ struct Geometry {
   int n_seg;
   int n_b;
   int coef_len;  // tc: doubles per band-coefficient row
-  int tps;         // tc depth 1: tiles per step along x
+  int tps;         // depth 1 (swc, tc): tiles per step along x
   int table_words;  // tc depth 1: 32-bit words of its table
+  int u_out;        // swc depth 1: outputs per thread
   int per_member;  // blocks along z per member (set by fold_members)
   unsigned long long member_mul;  // ceil(2^32 / per_member)
   int slot[MAX_SLOTS];  // operator index read by each phi slot
@@ -98,6 +100,7 @@ inline bool read_geometry(const int* geom, const double* params,
   g.coef_len = geom[G_CLEN];
   g.tps = geom[G_TPS];
   g.table_words = geom[G_TABW];
+  g.u_out = geom[G_UOUT];
   for (int s = 0; s < g.n_slots; ++s) g.slot[s] = geom[G_SLOT0 + s];
   g.n_params = n_params;
   g.prm = params;

@@ -5,7 +5,8 @@ kernels (port of ``repro.kernels.emit.fused_stencil_pallas`` and
 :func:`fused_stencil_swc` checks its operands against the plan, uploads
 the operator set's tap table (once per operator set and device), and
 launches on PyTorch's current stream the plan's kernel
-(:func:`kernel_name`): ``csrc/fused_stencil.cu`` for ``swc`` at depth 1,
+(:func:`kernel_name`): ``csrc/fused_stencil.cu`` for ``swc`` at depth 1
+(a persistent kernel, ``csrc/swc_body.cuh``),
 ``csrc/fused_stencil_temporal.cu`` for ``swc`` at depth > 1,
 ``csrc/fused_stencil_stream.cu`` for ``swc_stream`` at any depth,
 ``csrc/fused_stencil_tc.cu`` for ``tc`` at any depth (at depth 1 a
@@ -20,8 +21,9 @@ fallback from one to the other, nor from one kernel to another.
 
 An ensemble operand (batch, n_f, *padded) (port of ``_fused_batched``,
 the TPU kernel B5) is one launch of the same kernel with the member as
-an outer grid index: each block serves one member
-(``StencilPlan.batch``, ``grid_z``).
+an outer index: of the grid (``StencilPlan.batch``, ``grid_z``) or, in
+the persistent depth-1 kernels, of the steps the blocks walk; each step
+or block serves one member.
 """
 from __future__ import annotations
 
@@ -50,7 +52,7 @@ KERNEL = "fused_stencil"  # csrc/fused_stencil.cu, depth 1
 TEMPORAL_KERNEL = "fused_stencil_temporal"  # csrc/fused_stencil_temporal.cu
 STREAM_KERNEL = "fused_stencil_stream"  # csrc/fused_stencil_stream.cu
 TC_KERNEL = "fused_stencil_tc"  # csrc/fused_stencil_tc.cu, any depth
-GEOM_LEN = 43  # G_LEN of csrc/stencil_common.cuh
+GEOM_LEN = 44  # G_LEN of csrc/stencil_common.cuh
 MAX_SLOTS = 16  # MAX_SLOTS of csrc/stencil_common.cuh
 # DTYPE_* of csrc/stencil_common.cuh.
 DTYPE_CODES = {"float32": 0, "float64": 1, "bfloat16": 2}
@@ -270,8 +272,8 @@ def _lib(name: str) -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, vp,
     ]
     launch.restype = ctypes.c_int
-    if name == TC_KERNEL:
-        grid = lib.repro_fused_stencil_tc_grid
+    if name in (KERNEL, TC_KERNEL):  # the persistent grid
+        grid = getattr(lib, f"repro_{name}_grid")
         grid.argtypes = [geom, ctypes.c_int, ctypes.c_int, ctypes.c_int]
         grid.restype = ctypes.c_longlong
     smem = getattr(lib, f"repro_{name}_smem_bytes")
@@ -300,16 +302,22 @@ def kernel_smem_bytes(plan: StencilPlan) -> int:
     return int(fn(_int_ptr(geometry(plan, slots)), DTYPE_CODES[plan.dtype]))
 
 
-def tc_launch_grid(plan: StencilPlan, kind_id: int, device: int = 0) -> int:
-    """Blocks the depth-1 ``tc`` kernel launches for ``plan`` with the φ
-    kind ``kind_id``: the persistent grid, the kernel's resident blocks
-    per SM (its occupancy) times the SMs, at most ``plan.tc_items``
-    (needs the built library and the card)."""
+def launch_grid(plan: StencilPlan, kind_id: int, device: int = 0) -> int:
+    """Blocks a persistent (depth-1 ``swc`` or ``tc``) kernel launches for
+    ``plan`` with the φ kind ``kind_id``: the kernel's resident blocks per
+    SM (its occupancy) times the SMs, at most ``plan.walk_items`` (needs
+    the built library and the card)."""
+    if not plan.persistent:
+        raise ValueError("only a depth-1 swc or tc plan has a persistent grid")
+    name = kernel_name(plan)
     slots = list(range(plan.n_slots))
-    return int(_lib(TC_KERNEL).repro_fused_stencil_tc_grid(
+    grid = int(getattr(_lib(name), f"repro_{name}_grid")(
         _int_ptr(geometry(plan, slots)), kind_id, DTYPE_CODES[plan.dtype],
         device,
     ))
+    if grid < 0:
+        raise RuntimeError(f"{name} grid query failed: CUDA error {-grid}")
+    return grid
 
 
 def _rank3(t: tuple[int, ...], fill: int, stream: bool = False) -> list[int]:
@@ -349,9 +357,13 @@ def geometry(plan: StencilPlan, slots: list[int]) -> np.ndarray:
     tc = plan.strategy == "tc"
     g += [plan.batch, tc_coef_len(plan.radii) if tc else 0]
     g += slots + [0] * (MAX_SLOTS - len(slots))
-    # tc: tiles per depth-1 step and the words of the depth-1 table; 0
-    # elsewhere.
-    g += [plan.tiles_per_step, plan.tc_table_words] if tc else [0, 0]
+    # Depth 1 (persistent): tiles per step, tc's table words and swc's
+    # outputs per thread; 0 elsewhere.
+    if plan.persistent:
+        g += [plan.tiles_per_step, plan.tc_table_words,
+              plan.outputs_per_thread if plan.swc_depth1 else 0]
+    else:
+        g += [0, 0, 0]
     return np.asarray(g, dtype=np.int32)
 
 
@@ -400,11 +412,8 @@ def _check(f_padded, ops, phi, plan, aux, taps) -> None:
             "MHD φ in bfloat16)"
         )
     if plan.strategy == "tc" and plan.n_slots != len(phi.operators):
-        raise ValueError(
-            f"tc plan made for {plan.n_slots} operator slot(s), φ reads "
-            f"{len(phi.operators)}"
-        )
-    if plan.threads > phi.max_threads and not plan.tc_depth1:
+        _slots_mismatch(plan, phi)
+    if plan.threads > phi.max_threads and not plan.persistent:
         raise ValueError(
             f"{phi.kind} keeps its derivative values in registers and "
             f"takes tiles of at most {phi.max_threads} points; tile "
@@ -425,6 +434,13 @@ def _check(f_padded, ops, phi, plan, aux, taps) -> None:
                 "them to the field dtype); move an op with .to(device) "
                 "only"
             )
+
+
+def _slots_mismatch(plan: StencilPlan, phi: DevicePhi) -> None:
+    raise ValueError(
+        f"{plan.strategy} plan made for {plan.n_slots} operator slot(s), φ "
+        f"reads {len(phi.operators)}"
+    )
 
 
 def fused_stencil_swc(
@@ -472,6 +488,8 @@ def fused_stencil_swc(
         )
     if f_padded.device.type != "cuda":
         raise ValueError(f"unsupported device {f_padded.device}")
+    if plan.swc_depth1 and plan.n_slots != len(phis[0].operators):
+        _slots_mismatch(plan, phis[0])  # the kernel's layout follows them
     if not f_padded.is_contiguous() or (
         aux is not None and not aux.is_contiguous()
     ):

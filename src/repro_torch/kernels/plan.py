@@ -2,10 +2,11 @@
 CUDA kernels (port of ``repro.kernels.plan`` for ``strategy="swc"``,
 ``"swc_stream"`` and ``"tc"``).
 
-A plan captures what the kernel launch needs: rank, tile (at depth 1
-one CUDA thread per output point of a tile; at depth > 1 and on
-``swc_stream`` the φ kind's thread count, looping over each sweep's
-points), element-wise unroll along x, temporal depth, halo radii,
+A plan captures what the kernel launch needs: rank, tile (at depth 1 a
+step of the persistent kernel's walk, its threads computing several
+outputs each; at depth > 1 and on ``swc_stream`` the φ kind's thread
+count, looping over each sweep's points), element-wise unroll along x,
+temporal depth, halo radii,
 field/output/aux counts, dtype, the size of the tap table the block
 stages beside its halo window and, on ``swc_stream``, the segments the
 stream axis is cut into.
@@ -21,23 +22,25 @@ Array-axis convention (matches ``repro_torch.core.stencil``): spatial
 axes are ordered slowest→fastest, x always last and contiguous; tiles
 follow the same order, e.g. (τz, τy, τx) at rank 3.
 
-Hopper limits replace the TPU's: a tile is one thread block, so its
-point count is bounded by 1024 threads, and the staged working set —
-at depth 1 two buffers of ONE field's halo window plus the tap table,
-since the kernel stages fields one at a time; at temporal depth S > 1
-also every intermediate sweep's fields (:func:`temporal_smem_bytes`) —
-must fit the 227 KB of shared memory a block can use. At depth S the
+Hopper limits replace the TPU's: the staged working set — at depth 1
+on ``swc`` a ring of ONE field's halo windows, the tap table and, for
+MHD, φ's inputs (:func:`swc_smem_bytes`; the kernel stages fields one
+at a time); at temporal depth S > 1 also every intermediate sweep's
+fields (:func:`temporal_smem_bytes`) — must fit the 227 KB of shared
+memory a block can use. At depth S the
 halo is ``radii * S`` and the planner halves a tile that does not fit.
 A stream block keeps every field's working set resident
 (:func:`stream_smem_bytes`); its planner halves the chunk, then the
 cross tile, until it fits.
 
 ``batch`` is the ensemble's member count (port of the reference's
-``StencilPlan.batch``): every kernel takes the member as an outer grid
+``StencilPlan.batch``): the kernels take the member as an outer grid
 index folded into ``blockIdx.z`` (members × z tiles, or members ×
 stream segments), one block serving one member, so a batched launch
 needs no more shared memory per block than a single member's; the
-member count only multiplies the grid.
+member count only multiplies the grid. The persistent depth-1 kernels
+(``swc`` and ``tc``) take it as the outermost index of the steps their
+blocks walk (:func:`persistent_walk`), which no grid limit bounds.
 
 ``tc`` (the tensor-core regime, ``csrc/fused_stencil_tc.cu`` at every
 depth) follows the reference's rules: float32 or bfloat16, ``unroll ==
@@ -131,12 +134,36 @@ TC_MHD_BLOCK = (4, 8, 16)
 TC_STEP_POINTS = 4096
 TC_VECTOR_BYTES = 16  # cp.async copy width of the staging
 TC_LANES = 32
+# Depth 1 on swc (the persistent kernel, csrc/swc_body.cuh), by φ kind
+# ("select", or "mhd" for φs that read several operators) and dtype:
+# threads per block, and the outputs each thread computes per round of a
+# step (each tap read once for that many multiply-adds; the kernel is
+# built for these and refuses others). The MHD kinds run φ one point per
+# thread with its inputs in shared memory: 512 threads in f32 (at most
+# 128 registers each), 256 in f64 (its φ takes ~210).
+SWC_THREADS = {"select": 256, "mhd": 512, ("mhd", "float64"): 256}
+SWC_OUTPUTS = {"select": 4, "mhd": 1}
+# Default tiles of depth-1 swc (select): larger than DEFAULT_BLOCKS, whose
+# tile is one thread per point, so that a window's halo adds less (at
+# order 6 an (8, 16, 32) window holds 2.86 times its outputs, a (4, 8,
+# 32) one 5.2); f64 at rank 3 keeps (4, 8, 32), whose ring of two still
+# lets two blocks share an SM. MHD: φ's n_slots x n_f inputs (80 values)
+# of every point of a step sit in shared memory beside the ring.
+DEFAULT_SWC_BLOCKS = {1: (1024,), 2: (64, 64), 3: (8, 16, 32)}
+DEFAULT_SWC_F64_BLOCK3 = (4, 8, 32)
+SWC_MHD_BLOCK = {"float32": (2, 8, 32), "float64": (1, 8, 32)}
+# Window buffers of the depth-1 swc ring (the kernel takes 2 or 3):
+# select keeps two units in flight while one is read where that leaves two
+# blocks resident per SM (else one), MHD one.
+SWC_STAGES = {"select": 3, "mhd": 2}
+# At rank 1 a depth-1 swc step takes consecutive tiles up to this many
+# points, so that each window copy stays long.
+SWC_STEP_POINTS = 4096
 SMEM_PER_SM = 233_472  # 228 KB per SM, shared by its resident blocks
 SMEM_BLOCK_RESERVED = 1_024  # the runtime's own per resident block
 
 MAX_THREADS = 1024  # CUDA threads per block
 ONE_WARP = 32  # the smallest tile the temporal planner shrinks to
-MAX_TILE_Z = 64  # blockDim.z limit
 SMEM_PER_BLOCK = 232_448  # 227 KB: the most shared memory one Hopper block can use
 # swc_stream cuts its stream axis into segments until the grid has
 # MIN_STREAM_BLOCKS blocks (two for each of an H100's 132 SMs), keeping
@@ -388,6 +415,97 @@ def tc_blocks_per_sm(smem_bytes: int, threads: int) -> int:
     kernel's registers may allow fewer: the launch asks the occupancy)."""
     by_smem = SMEM_PER_SM // (smem_bytes + SMEM_BLOCK_RESERVED)
     return max(1, min(by_smem, 2048 // threads))
+
+
+def swc_kind(n_slots: int) -> str:
+    """The φ kind the depth-1 ``swc`` kernel runs for ``n_slots``
+    operators: "select" (one) or "mhd"."""
+    return "select" if n_slots == 1 else "mhd"
+
+
+def swc_launch(n_slots: int, dtype: str) -> tuple[int, int]:
+    """(threads per block, outputs per thread) of the depth-1 ``swc``
+    kernel (:data:`SWC_THREADS`, :data:`SWC_OUTPUTS`)."""
+    kind = swc_kind(n_slots)
+    threads = SWC_THREADS.get((kind, dtype), SWC_THREADS[kind])
+    return threads, SWC_OUTPUTS[kind]
+
+
+def _congruent_up(n: int, m: int, v: int) -> int:
+    """Smallest n' >= n with n' = m (mod v)."""
+    return n + (m - n) % v
+
+
+@dataclasses.dataclass(frozen=True)
+class SwcStep:
+    """One step of the depth-1 ``swc`` kernel (``swc_shape`` of
+    ``csrc/swc_body.cuh``): the outputs it covers (its x extent the tile's
+    times ``unroll`` times the tiles per step) and its window buffer.
+
+    A buffer row holds ``pitch`` elements and a plane ``plane``, each
+    congruent to the padded field's row and plane pitch modulo 16 bytes,
+    so every global 16 bytes lands on 16 shared bytes and a tap sits at
+    one linear offset from every point; a row's copies reach up to ``16 /
+    itemsize - 1`` elements either side of it, so the pitch leaves that
+    much room."""
+
+    extent: tuple[int, int, int]  # outputs (z, y, x) of a step
+    window: tuple[int, int, int]  # staged extents (z, y, x)
+    pitch: int  # buffer elements per row
+    plane: int  # buffer elements per plane
+    buffer_bytes: int
+
+    @property
+    def points(self) -> int:
+        return _prod(self.extent)
+
+
+def swc_step(
+    block: Sequence[int], radii: Sequence[int], padded: Sequence[int],
+    x_tiles: int, dtype: str,
+) -> SwcStep:
+    """The :class:`SwcStep` of a depth-1 ``swc`` plan: ``block`` the tile,
+    ``padded`` the padded spatial extents, ``x_tiles`` the tile's x
+    extents a step takes (``unroll`` times the tiles per step)."""
+    tz, ty, tx = _lift3(block, 1)
+    tx *= x_tiles
+    rz, ry, rx = _lift3(radii, 0)
+    _, py, px = _lift3(padded, 1)
+    v = TC_VECTOR_BYTES // ITEMSIZE[dtype]
+    wz, wy, wx = tz + 2 * rz, ty + 2 * ry, tx + 2 * rx
+    pitch = _congruent_up(wx + v - 1, px % v, v)
+    plane = _congruent_up(wy * pitch, (py * px) % v, v)
+    elements = _cdiv(v - 1 + (wz - 1) * plane + (wy - 1) * pitch + wx, v) * v
+    return SwcStep(extent=(tz, ty, tx), window=(wz, wy, wx), pitch=pitch,
+                   plane=plane, buffer_bytes=elements * ITEMSIZE[dtype])
+
+
+def swc_smem_bytes(
+    step: SwcStep, stages: int, *, n_taps: int, n_ops: int, n_slots: int,
+    n_f: int, itemsize: int,
+) -> int:
+    """Shared memory of one depth-1 ``swc`` block (``swc_layout`` of
+    ``csrc/swc_body.cuh``): the ring of ``stages`` window buffers, the tap
+    table (coefficient in the field dtype and int32 linear offset, aligned
+    to twice the itemsize), the int32 operator starts and, for φ kinds
+    that read several operators (MHD), from a 16-byte boundary φ's
+    ``n_slots × n_f`` inputs in the field dtype at every point of a
+    step."""
+    total = (stages * step.buffer_bytes + n_taps * _tap_bytes(itemsize)
+             + (n_ops + 1) * 4)
+    if n_slots > 1:
+        total = _round16(total) + n_slots * n_f * step.points * itemsize
+    return total
+
+
+def swc_tiles_per_step(x_step: int, interior: Sequence[int]) -> int:
+    """Consecutive tiles (each ``x_step`` long) one depth-1 ``swc`` step
+    takes: at rank 1 as many as divide the tile count within
+    ``SWC_STEP_POINTS`` points, else 1."""
+    if len(interior) != 1:
+        return 1
+    cap = max(1, SWC_STEP_POINTS // x_step)
+    return largest_divisor_leq(interior[0] // x_step, cap)
 
 
 def default_block(rank: int, max_threads: int = MAX_THREADS) -> tuple[int, ...]:
@@ -683,7 +801,7 @@ class StencilPlan:
             )
         if self.segments > 1 and not stream:
             raise ValueError("segments cut the stream axis of swc_stream")
-        if not self.tc_depth1 and self.grid_z > MAX_GRID_Z:
+        if not self.persistent and self.grid_z > MAX_GRID_Z:
             raise ValueError(
                 f"{self.batch} members x {self.grid_z // self.batch} "
                 f"{'stream segments' if stream else 'z tiles'} = "
@@ -694,13 +812,6 @@ class StencilPlan:
             raise ValueError(
                 f"tile {self.block} has {self.threads} points, one CUDA "
                 f"thread each; a block holds at most {MAX_THREADS}"
-            )
-        if self.rank == 3 and self.strategy == "swc" and (
-            self.block[0] > MAX_TILE_Z
-        ):
-            raise ValueError(
-                f"tile z extent {self.block[0]} exceeds blockDim.z "
-                f"limit {MAX_TILE_Z}"
             )
         if self.smem_bytes > SMEM_PER_BLOCK:
             raise ValueError(
@@ -717,12 +828,42 @@ class StencilPlan:
         return self.strategy == "tc" and self.fuse_steps == 1
 
     @property
+    def swc_depth1(self) -> bool:
+        """Whether the persistent depth-1 ``swc`` kernel runs the plan."""
+        return self.strategy == "swc" and self.fuse_steps == 1
+
+    @property
+    def persistent(self) -> bool:
+        """Whether a persistent kernel runs the plan (depth 1 on ``swc``
+        or ``tc``): a grid of resident blocks walks the steps, so neither
+        ``gridDim.z`` nor the tile's point count binds it."""
+        return self.tc_depth1 or self.swc_depth1
+
+    @property
     def tiles_per_step(self) -> int:
-        """Consecutive tiles one step of the depth-1 ``tc`` kernel takes
-        (:func:`tc_tiles_per_step`); 1 elsewhere."""
-        if not self.tc_depth1:
+        """Consecutive tiles one step of a depth-1 kernel takes
+        (:func:`tc_tiles_per_step`, :func:`swc_tiles_per_step`); 1
+        elsewhere."""
+        if self.tc_depth1:
+            return tc_tiles_per_step(self.block, self.interior)
+        if self.swc_depth1:
+            return swc_tiles_per_step(self.x_step, self.interior)
+        return 1
+
+    @property
+    def swc_step(self) -> SwcStep:
+        """The depth-1 ``swc`` kernel's step (:func:`swc_step`)."""
+        padded = tuple(n + 2 * r for n, r in zip(self.interior, self.radii))
+        return swc_step(self.block, self.radii, padded,
+                        self.unroll * self.tiles_per_step, self.dtype)
+
+    @property
+    def outputs_per_thread(self) -> int:
+        """Outputs a thread of the depth-1 ``swc`` kernel computes per
+        round of a step (:func:`swc_launch`); 1 elsewhere."""
+        if not self.swc_depth1:
             return 1
-        return tc_tiles_per_step(self.block, self.interior)
+        return swc_launch(self.n_slots, self.dtype)[1]
 
     @property
     def tc_step(self) -> TcStep:
@@ -731,11 +872,12 @@ class StencilPlan:
                        self.dtype)
 
     @property
-    def tc_items(self) -> int:
-        """Steps of one depth-1 ``tc`` launch: members × z × y tiles ×
-        x steps, the order the persistent blocks walk them in."""
+    def walk_items(self) -> int:
+        """Steps of one persistent (depth-1) launch: members × z × y tiles
+        × x steps, the order the persistent blocks walk them in."""
         tiles = self.batch * _prod(
-            n // t for n, t in zip(self.interior, self.block)
+            n // t for n, t in zip(self.interior,
+                                   self.block[:-1] + (self.x_step,))
         )
         return tiles // self.tiles_per_step
 
@@ -771,22 +913,22 @@ class StencilPlan:
 
     @property
     def threads(self) -> int:
-        """CUDA threads per block. Depth 1 on ``swc``: one per point of
-        one sub-tile. Depth > 1, and ``swc_stream`` at any depth:
+        """CUDA threads per block. Depth > 1, and ``swc_stream`` at any depth:
         ``max_threads`` (the φ kind's limit), at most the points of
         sweep 0's region (of one chunk) — the threads loop over each
         sweep's points, so a tile shrunk to fit shared memory keeps a
         full block. ``tc`` at depth 1: the persistent kernel's
         (:data:`TC_THREADS`); deeper: those points rounded up to whole
-        warps (:func:`tc_threads`)."""
+        warps (:func:`tc_threads`). ``swc`` at depth 1: the persistent
+        kernel's (:func:`swc_launch`)."""
         if self.tc_depth1:
             return TC_THREADS["select" if self.n_slots == 1 else "mhd"]
+        if self.swc_depth1:
+            return swc_launch(self.n_slots, self.dtype)[0]
         if self.strategy == "tc":
             return tc_threads(
                 self.block, self.radii, self.fuse_steps, self.max_threads
             )
-        if self.fuse_steps == 1 and self.stream_axis is None:
-            return _prod(self.block)
         region = sweep_regions(self.block, self.radii, self.fuse_steps)[0]
         return min(self.max_threads, _prod(region))
 
@@ -817,18 +959,17 @@ class StencilPlan:
 
     @property
     def stage_buffers(self) -> int:
-        """Window buffers the kernel stages fields into: two (the next
-        field lands while this one is read) at depth 1, and at depth
-        > 1 (``tc`` too) when there is a next field and two windows fit;
-        else one. ``tc`` at depth 1: the persistent kernel's ring
-        (:meth:`_tc_stages`). ``swc_stream``: its one prefetch buffer of
-        τ₀ planes."""
+        """Window buffers the kernel stages fields into: at depth > 1
+        (``swc`` and ``tc``) two when there is a next field and two
+        windows fit, else one. At depth 1 the persistent kernels' rings
+        (:meth:`_tc_stages`, :meth:`_swc_stages`). ``swc_stream``: its one
+        prefetch buffer of τ₀ planes."""
         if self.stream_axis is not None:
             return 1
         if self.tc_depth1:
             return self._tc_stages()
-        if self.fuse_steps == 1 and self.strategy != "tc":
-            return 2
+        if self.swc_depth1:
+            return self._swc_stages()
         if self.n_f > 1 and self._temporal_bytes(2) <= SMEM_PER_BLOCK:
             return 2
         return 1
@@ -842,6 +983,23 @@ class StencilPlan:
             if tc_blocks_per_sm(three, self.threads) >= 2:
                 return 3
         return 2
+
+    def _swc_stages(self) -> int:
+        """Window buffers of the depth-1 ``swc`` ring: the φ kind's
+        (:data:`SWC_STAGES`), fewer (down to two) where more would leave
+        fewer than two blocks resident per SM."""
+        stages = SWC_STAGES[swc_kind(self.n_slots)]
+        while stages > 2 and tc_blocks_per_sm(
+            self._swc_bytes(stages), self.threads
+        ) < 2:
+            stages -= 1
+        return stages
+
+    def _swc_bytes(self, stages: int) -> int:
+        return swc_smem_bytes(
+            self.swc_step, stages, n_taps=self.n_taps, n_ops=self.n_ops,
+            n_slots=self.n_slots, n_f=self.n_f,
+            itemsize=ITEMSIZE[self.dtype])
 
     def _tc_bytes(self, stages: int) -> int:
         return tc_smem_bytes(self.tc_step, stages, self.tc_table_words,
@@ -859,30 +1017,21 @@ class StencilPlan:
 
     @property
     def smem_bytes(self) -> int:
-        """Shared memory one block uses. Depth 1, the layout of
-        ``csrc/fused_stencil.cu``: two buffers of one field's window
-        (each padded to 16 B; the next field lands while this one is
-        read), the tap table (coefficient in the field dtype and int32
-        window offset, aligned to twice the itemsize) and the int32
-        operator start table. ``tc`` at depth 1: :func:`tc_smem_bytes`.
-        Depth > 1 (``tc`` too): :func:`temporal_smem_bytes`.
-        ``swc_stream``: :func:`stream_smem_bytes`."""
+        """Shared memory one block uses. Depth 1: :func:`swc_smem_bytes`
+        (``swc``) and :func:`tc_smem_bytes` (``tc``). Depth > 1 (``tc``
+        too): :func:`temporal_smem_bytes`. ``swc_stream``:
+        :func:`stream_smem_bytes`."""
         if self.tc_depth1:
             return self._tc_bytes(self.stage_buffers)
+        if self.swc_depth1:
+            return self._swc_bytes(self.stage_buffers)
         if self.stream_axis is not None:
             return stream_smem_bytes(
                 self.block, self.radii, self.fuse_steps, n_f=self.n_f,
                 itemsize=ITEMSIZE.get(self.dtype, 8), n_taps=self.n_taps,
                 n_ops=self.n_ops,
             )
-        if self.fuse_steps > 1 or self.strategy == "tc":
-            return self._temporal_bytes(self.stage_buffers)
-        itemsize = ITEMSIZE.get(self.dtype, 8)
-        window = _round16(_prod(self.window) * itemsize)
-        return (
-            2 * window + self.n_taps * _tap_bytes(itemsize)
-            + (self.n_ops + 1) * 4
-        )
+        return self._temporal_bytes(self.stage_buffers)
 
 
 def plan_stencil(
@@ -933,6 +1082,12 @@ def plan_stencil(
     ``STREAM_SEGMENT_HALOS`` carried halos long, the members counted
     among the blocks.
 
+    ``swc`` at depth 1: ``block=None`` is ``DEFAULT_SWC_BLOCKS[rank]``
+    (``DEFAULT_SWC_F64_BLOCK3`` for float64 at rank 3, ``SWC_MHD_BLOCK``
+    for a φ of several operators), halved until the persistent kernel's
+    ring of two, tap table and (MHD) φ's inputs fit shared memory
+    (``_fit_swc``); an explicit tile that does not fit raises.
+
     ``tc``: ``block=None`` is ``DEFAULT_TC_BLOCKS[rank]`` (at depth 1
     and rank 3 ``DEFAULT_TC_BF16_BLOCK3`` in bfloat16 and
     ``TC_MHD_BLOCK`` for a φ of several operators), each axis capped at
@@ -973,6 +1128,7 @@ def plan_stencil(
             f"{radii} at fuse_steps={fuse_steps}"
         )
 
+    planner_tile = block is None
     if block is None and strategy == "swc_stream" and rank > 1:
         block = DEFAULT_STREAM_BLOCKS[rank]
     elif block is None and strategy == "tc":
@@ -982,6 +1138,12 @@ def plan_stencil(
                 block = TC_MHD_BLOCK
             elif dtype == "bfloat16":
                 block = DEFAULT_TC_BF16_BLOCK3
+    elif block is None and strategy == "swc" and fuse_steps == 1:
+        block = DEFAULT_SWC_BLOCKS[rank]
+        if rank == 3 and n_slots > 1:
+            block = SWC_MHD_BLOCK.get(str(dtype), SWC_MHD_BLOCK["float32"])
+        elif rank == 3 and dtype == "float64":
+            block = DEFAULT_SWC_F64_BLOCK3
     elif block is None:
         block = default_block(rank, max_threads)
     if isinstance(block, int):
@@ -1030,6 +1192,13 @@ def plan_stencil(
         clamped = _fit_tc(clamped, interior, radii, dtype=str(dtype),
                           table_words=table_words, n_slots=int(n_slots),
                           n_f=padded_shape[0])
+    elif strategy == "swc" and fuse_steps == 1 and planner_tile and (
+        dtype in ITEMSIZE
+    ):
+        clamped = _fit_swc(clamped, interior, radii, unroll=unroll,
+                           dtype=str(dtype), n_taps=ops.taps_per_point,
+                           n_ops=ops.n_s, n_slots=int(n_slots),
+                           n_f=padded_shape[0])
     elif fuse_steps > 1 and strategy != "swc_stream":
         tc = strategy == "tc"
         clamped = _fit_temporal(
@@ -1106,6 +1275,31 @@ def _fit_tc(tile, interior, radii, *, dtype, table_words, n_slots,
             )
         a = next(i for i, t in enumerate(tile) if t > 1)
         tile[a] = largest_divisor_leq(interior[a], tile[a] // 2)
+
+
+def _fit_swc(tile, interior, radii, *, unroll, dtype, n_slots,
+             **layout) -> list[int]:
+    """Halve ``tile``'s slowest axis of extent > 1 (clamped to a divisor
+    of the interior) until the depth-1 ``swc`` layout with a ring of two
+    fits shared memory; raise once a one-warp tile does not."""
+    tile = list(tile)
+    padded = [n + 2 * r for n, r in zip(interior, radii)]
+    while True:
+        x_tiles = unroll * swc_tiles_per_step(tile[-1] * unroll, interior)
+        need = swc_smem_bytes(
+            swc_step(tile, radii, padded, x_tiles, dtype), 2,
+            n_slots=n_slots, itemsize=ITEMSIZE[dtype], **layout)
+        if need <= SMEM_PER_BLOCK:
+            return tile
+        if _prod(tile) <= ONE_WARP:
+            raise ValueError(
+                f"no swc tile fits shared memory: tile {tuple(tile)} needs "
+                f"{need} B of the {SMEM_PER_BLOCK} B a Hopper block can use "
+                "(one warp is the smallest tile the planner tries)"
+            )
+        a = next(i for i, t in enumerate(tile) if t > 1)
+        extent = interior[a] // (unroll if a == len(tile) - 1 else 1)
+        tile[a] = largest_divisor_leq(extent, tile[a] // 2)
 
 
 def _fit_stream(tile, interior, radii, fuse_steps, **layout) -> list[int]:
@@ -1248,7 +1442,7 @@ def _tc_depth1_macs(
                 per_patch += outputs * tc_k_extent(
                     radii[lifted], plan.dtype, "y" if lifted == 1 else "x"
                 )
-    items = plan.tc_items
+    items = plan.walk_items
     batch = TC_PATCH_BATCH[
         "select" if plan.n_slots == 1 else "mhd", plan.dtype]
     issued = per_patch * _round_up(step.patches, batch) * plan.n_f * items
@@ -1256,21 +1450,23 @@ def _tc_depth1_macs(
     return issued, needed
 
 
-def tc_walk(plan: StencilPlan, grid: int) -> list[list[tuple[int, ...]]]:
-    """The persistent walk of the depth-1 ``tc`` kernel, mirrored: for
-    each of ``grid`` blocks, the (member, z0, y0, x0) output origin of
-    every step it takes, in order. Block b takes steps b, b + grid, ...;
-    step i is x fastest, then y, z, member (B5's order), its x extent
-    ``block[-1] × tiles_per_step`` (``tc_walk_origin`` of
-    ``csrc/fused_stencil_tc.cu``)."""
-    tz, ty, tx = _lift3(plan.block, 1)
+def persistent_walk(
+    plan: StencilPlan, grid: int
+) -> list[list[tuple[int, ...]]]:
+    """The walk of a persistent depth-1 kernel (``swc`` or ``tc``),
+    mirrored: for each of ``grid`` blocks, the (member, z0, y0, x0)
+    output origin of every step it takes, in order. Block b takes steps
+    b, b + grid, ...; step i is x fastest, then y, z, member (B5's
+    order), its x extent ``x_step × tiles_per_step`` (``Walker`` of
+    ``csrc/persistent.cuh``)."""
+    tz, ty, tx = _lift3(plan.block[:-1] + (plan.x_step,), 1)
     tx *= plan.tiles_per_step
     nz, ny, nx = (n // t for n, t in zip(_lift3(plan.interior, 1),
                                           (tz, ty, tx)))
     walks = []
     for b in range(grid):
         steps = []
-        for i in range(b, plan.tc_items, grid):
+        for i in range(b, plan.walk_items, grid):
             ix, rest = i % nx, i // nx
             iy, rest = rest % ny, rest // ny
             iz, member = rest % nz, rest // nz

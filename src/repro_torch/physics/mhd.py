@@ -267,12 +267,13 @@ class MHDSolver:
 
     ``device`` defaults to the card (raising without one); pass
     ``device="cpu"`` for the plain PyTorch path. ``block`` is the
-    kernel tile: the MHD kernel keeps 80 derivative values per point in
-    registers, so a tile holds at most 256 points (the temporal pair's
-    planner halves it further until its shared memory fits). On ``tc`` at
-    depth 1 the kernel holds φ's inputs in shared memory and takes its
-    planner's tile (``plan.TC_MHD_BLOCK``); the pair at depth 2 keeps
-    ``block``.
+    kernel tile at depth > 1 and on ``swc_stream``: those kernels keep 80
+    derivative values per point in registers, so a tile holds at most
+    256 points (the temporal pair's planner halves it further until its
+    shared memory fits). At depth 1 on ``swc`` and ``tc`` the kernels
+    hold φ's inputs in shared memory and take their planner's tile
+    (``plan.SWC_MHD_BLOCK``, ``plan.TC_MHD_BLOCK``); the pair at depth 2
+    keeps ``block``.
 
     ``strategy="swc_stream"`` runs the plain RK3 form through the
     stream kernel (``rhs_op``, three launches per step; ``block[0]`` is
@@ -320,7 +321,7 @@ class MHDSolver:
             n_out=n_out,
             boundary_mode="periodic",
             strategy=self.strategy,
-            block=(None if self.strategy == "tc" and fuse_steps == 1
+            block=(None if self.strategy in ("swc", "tc") and fuse_steps == 1
                    else self.block),
             fuse_steps=fuse_steps,
             device=self.device,

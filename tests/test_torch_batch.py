@@ -267,6 +267,13 @@ def test_grid_z_folds_members_and_raises_past_the_cuda_limit(
     assert plan.grid_z == per_member
     batch = MAX_GRID_Z // per_member
     assert dataclasses.replace(plan, batch=batch).grid_z <= MAX_GRID_Z
+    if plan.persistent:
+        # Depth 1 on swc is a persistent kernel: its blocks walk the
+        # members, so gridDim.z does not bind it; the temporal kernel,
+        # which folds the member into blockIdx.z, is bound.
+        assert dataclasses.replace(plan, batch=batch + 1).walk_items == (
+            (batch + 1) * plan.walk_items)
+        plan = dataclasses.replace(plan, fuse_steps=2)
     with pytest.raises(ValueError, match="gridDim.z"):
         dataclasses.replace(plan, batch=batch + 1)
 

@@ -186,12 +186,15 @@ def test_geometry_layout():
     assert len(g) == emit.GEOM_LEN and g.dtype == np.int32
     # n_f n_out n_aux | interior | padded | radii | tile | u ops taps
     # n_slots | fuse_steps stage_buffers threads segments | members |
-    # tc's band-row length (0 off tc) | slots
+    # tc's band-row length (0 off tc) | slots | tiles per step, tc's
+    # table words, outputs per thread (depth 1)
+    assert (plan.stage_buffers, plan.threads) == (3, 256)
     assert g[:26].tolist() == [
         8, 8, 0, 1, 16, 64, 1, 22, 70, 0, 3, 3, 1, 4, 16, 2,
-        ops.n_s, ops.taps_per_point, 2, 1, 2, 64, 1, 1, 0, 0,
+        ops.n_s, ops.taps_per_point, 2, 1, 3, 256, 1, 1, 0, 0,
     ]
-    assert g[26] == 3 and not g[27:].any()
+    assert g[26] == 3 and not g[27:41].any()
+    assert g[41:].tolist() == [1, 0, plan.outputs_per_thread]
     # On tc the band rows hold 2·r_max + 1 coefficients.
     tc = plan_for_nd(ops, (8, 22, 70), 8, strategy="tc")
     assert emit.geometry(tc, [0])[24] == 7
@@ -210,9 +213,16 @@ def test_wrapper_checks_operands():
     ops = ts.derivative_operator_set(3, 6)
     fp = torch.zeros(8, 14, 14, 38)
     rhs = tmhd.mhd_rhs_device_phi(tmhd.MHDParams())
-    plan = plan_for_nd(ops, tuple(fp.shape), 8, block=(2, 8, 32))
+    # The kernels that keep φ's 80 inputs in registers (swc_stream, depth
+    # > 1) take tiles of at most 256 points; depth 1 on swc keeps them in
+    # shared memory and takes a 512-point tile.
+    plan = plan_for_nd(ops, tuple(fp.shape), 8, block=(2, 8, 32),
+                       strategy="swc_stream")
     with pytest.raises(ValueError, match="registers"):
         emit.fused_stencil_swc(fp, ops, rhs, plan)
+    plan = plan_for_nd(ops, tuple(fp.shape), 8, block=(2, 8, 32),
+                       n_slots=10)
+    assert emit.fused_stencil_swc(fp, ops, rhs, plan).shape == (8, 8, 8, 32)
     plan = plan_for_nd(ops, tuple(fp.shape), 8, block=(1, 8, 32))
     with pytest.raises(ValueError, match="shape"):
         emit.fused_stencil_swc(fp[:, 1:], ops, rhs, plan)

@@ -97,8 +97,13 @@ def test_plan_rejects_what_hopper_cannot_hold():
         tplan.plan_stencil(
             ops, shape, 8, block=(1, 16, 64), unroll=4, dtype="float64"
         )
-    with pytest.raises(ValueError, match="thread"):
-        tplan.plan_stencil(ops, shape, 8, block=(4, 16, 32))
+    # Depth 1 on swc is persistent: a 2048-point tile runs on the kernel's
+    # own threads, several outputs each (no longer one thread per point).
+    big = tplan.plan_stencil(ops, shape, 8, block=(4, 16, 32))
+    assert big.block == (4, 16, 32) and big.persistent
+    assert (big.threads, big.outputs_per_thread) == tplan.swc_launch(
+        1, "float32")
+    assert big.threads * big.outputs_per_thread < 2048
     # tc (B4) is ported; float64 is not a tc type (the reference's rule).
     with pytest.raises(ValueError, match="float32.*bfloat16"):
         tplan.plan_stencil(ops, shape, 8, strategy="tc", dtype="float64")

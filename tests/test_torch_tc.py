@@ -340,8 +340,8 @@ def test_tc_persistent_walk_covers_every_tile_once(shape, block, batch, grid):
     ops = ts.derivative_operator_set(len(shape), 2, 0.3)
     padded = (batch, 1) + tuple(n + 2 for n in shape)
     plan = tplan.plan_stencil(ops, padded, 1, strategy="tc", block=block)
-    assert plan.block == block and plan.tc_items % grid
-    walks = tplan.tc_walk(plan, grid)
+    assert plan.block == block and plan.walk_items % grid
+    walks = tplan.persistent_walk(plan, grid)
     tz, ty, tx = tplan._lift3(block, 1)
     seen = []
     for steps in walks:
@@ -682,8 +682,8 @@ def test_tc_depth1_grid_walks_every_step_on_card(cuda_device, shape,
     fp = pad(f, op.radius_per_axis, "periodic",
              spatial_axes=range(1, f.ndim))
     plan = plan_for_nd(op.ops, tuple(fp.shape), 1, strategy="tc", dtype=dtype)
-    grid = emit.tc_launch_grid(plan, op.phi.kind_id, cuda_device.index or 0)
-    assert 1 <= grid <= plan.tc_items
+    grid = emit.launch_grid(plan, op.phi.kind_id, cuda_device.index or 0)
+    assert 1 <= grid <= plan.walk_items
     got = emit.fused_stencil_swc(fp, op.ops, op.phi, plan)
     plain = ref.fused_stencil_tc(fp, op.ops, op.phi.torch_fn)
     assert _rel(_f32(got.cpu()), _f32(plain.cpu())) <= CARD_TOL[dtype]
