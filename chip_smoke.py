@@ -26,7 +26,12 @@ Phases (each raises on failure; none is caught):
    ``ref.fused_stencil_steps`` — diffusion at ranks 2 and 3, depth 1-3,
    on stream extents of many chunks and x extents off the default tile,
    two selected fields at depth 2, the MHD RHS on a cube and a
-   non-cubic box, and stream axes cut into segments. Then the ensemble
+   non-cubic box, and stream axes cut into segments; at depth 1 (the
+   ring body, ``csrc/stream_body.cuh``) also a ragged row pitch (41
+   elements, chunks of 21 points) and stream extents of many ring
+   passes, each depth-1 case printing its launch (grid, chunk and cross
+   tile, the ring, threads x outputs per thread, registers, spills).
+   Then the ensemble
    batch (B5, the member as an outer grid index of each kernel): B1 at
    B = 1, 3, 8 on ranks 1-3, B2 at depth 2 and 3, B3 at ranks 2-3 and
    depth 1-2 (a cut stream among them), the MHD RHS and fused substep
@@ -118,7 +123,10 @@ Phases (each raises on failure; none is caught):
    rows time ``conv*d`` in bf16. Depth-1 ``swc`` rows (B1) print their
    persistent grid (blocks per SM x SMs), ring stages, threads, outputs
    per thread, registers and spills; its 2^26 and 8192² rows join the
-   kernels line with their main-path launch counts.
+   kernels line with their main-path launch counts. Depth-1
+   ``swc_stream`` rows (B3) print their grid, chunk and cross tile, the
+   ring (chunks, plane slots, bytes) or the one-buffer body, threads x
+   outputs per thread, registers and spills.
    B6 rows: each strategy at n = 2^24 (fig07's size), f32 at radii
    1-1024 and f64 at r = 1 and 1024, and the 2^26 ``step_1d_xcorr``
    launch (the kernels line's B6 rows); bound max((2n + 2r + taps) ×
@@ -475,6 +483,36 @@ def swc_launch_info(plan, phi) -> str:
             f"{_usage_of('fused_stencil', key)}")
 
 
+def stream_launch_info(plan, phi) -> str:
+    """The ``swc_stream`` launch of ``plan`` (B3): its grid (cross tiles x
+    members x segments), chunk and cross tile, the ring on the depth-1
+    body (chunks it holds, plane slots, bytes) or the one-buffer body,
+    threads x outputs per thread, registers and spills."""
+    import torch
+
+    kind, t = phi.kind_id, SWC_TYPE_KEYS[plan.dtype]
+    tiles = 1
+    for n, b in zip(plan.interior[1:], plan.block[1:]):
+        tiles *= n // b
+    grid = tiles * plan.batch * plan.segments
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    head = (f"grid {grid} ({grid / sms:.2f} per SM: {tiles} cross tiles x "
+            f"{plan.batch} member(s) x {plan.segments} segment(s)), chunk "
+            f"{plan.block[0]}, cross tile {plan.block[1:]}")
+    if getattr(plan, "stream_depth1", False):
+        ring = plan.stream_ring
+        u = plan.outputs_per_thread
+        key = f"stream_d1_kernelI{t}Li{kind}ELi{u}E"
+        return (f"{head}, ring body: {plan.stage_buffers} chunk(s) in a ring "
+                f"of {ring.period} plane slots ({ring.ring_bytes} B, "
+                f"{plan.smem_bytes} B shared), 16-byte cp.async, "
+                f"{plan.threads} threads x {u} outputs, "
+                f"{_usage_of(STREAM, key)}")
+    key = f"stream_kernelI{t}Li{kind}E"
+    return (f"{head}, one-buffer body ({plan.smem_bytes} B shared), "
+            f"{plan.threads} threads x 1 output, {_usage_of(STREAM, key)}")
+
+
 def plain(case):
     """The plain PyTorch version of a case's launch."""
     from repro_torch.kernels import ref
@@ -508,6 +546,8 @@ def compare(label, case, dtype):
         print(f"    tc: {tc_launch_info(plan, phi)}")
     elif plan.swc_depth1:
         print(f"    swc: {swc_launch_info(plan, phi)}")
+    elif plan.stream_axis is not None and plan.fuse_steps == 1:
+        print(f"    stream: {stream_launch_info(plan, phi)}")
     seg = f" seg{plan.segments}" if plan.segments > 1 else ""
     want = plain(case)
     check(f"{label} {dtype} S{plan.fuse_steps} tile{plan.block}"
@@ -632,6 +672,19 @@ def phase_parity(dev):
                     diffusion_case(shape, dtype, dev, fuse_steps=depth,
                                    strategy="swc_stream", segments=seg),
                     dtype)
+    print("  -- depth-1 stream ring body at a ragged row pitch (x 35 of a "
+          "41-element row, chunks of 21 points for 1024 thread outputs), "
+          "stream extents of many ring passes")
+    for dtype in ("float32", "float64"):
+        compare("stream diffusion (48, 18, 35)",
+                diffusion_case((48, 18, 35), dtype, dev, block=(2, 3, 7),
+                               strategy="swc_stream"), dtype)
+        compare("stream diffusion (2048, 35)",
+                diffusion_case((2048, 35), dtype, dev, block=(3, 35),
+                               strategy="swc_stream", accuracy=2), dtype)
+        compare("stream diffusion (4096, 256)",
+                diffusion_case((4096, 256), dtype, dev, strategy="swc_stream",
+                               segments=2), dtype)
     print("  -- ensemble batch (B5): batched kernel vs batched plain version, "
           "each member vs its unbatched launch")
     for dtype in ("float32", "float64"):
@@ -1471,6 +1524,8 @@ def phase_times(dev, smi, launches):
         elif stream:
             name_, source, replaces = (f"{STREAM}[{kind}, S={depth}",
                                        STREAM_SOURCE, STREAM_REPLACES)
+            if depth == 1:
+                print(f"    stream: {stream_launch_info(plan, phi)}")
         elif depth == 1:
             name_, source, replaces = (f"fused_stencil_swc[{kind}",
                                        KERNEL_SOURCE, REPLACES)

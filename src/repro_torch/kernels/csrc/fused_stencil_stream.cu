@@ -13,10 +13,19 @@
 // operator over the tile widened by r * (S - 1 - s) on every axis,
 // including the stream axis, and applies phi_s.
 //
-// Design. One block per cross-stream tile and stream segment, a 1-D
-// block of the phi kind's thread count (at most sweep 0's points of one
-// chunk, StencilPlan.threads) looping over each sweep's points. Shared
-// memory holds:
+// Two bodies. Depth 1 (the geometry's outputs per thread G_UOUT > 0:
+// select in f32 and f64, the MHD RHS in f32) runs stream_body.cuh, whose
+// header says how and why: a ring of planes per field filled chunks ahead
+// by 16-byte cp.async and read where they land, a tap table with one row
+// per ring slot, several outputs per thread, and the MHD phi's inputs in
+// shared memory. Every other launch (depth S > 1, and the MHD RHS in f64,
+// whose eight fields' ring and phi's inputs fit no tile with a thread per
+// point) runs stream_kernel below.
+//
+// stream_kernel. One block per cross-stream tile and stream segment, a
+// 1-D block of the phi kind's thread count (at most sweep 0's points of
+// one chunk, StencilPlan.threads) looping over each sweep's points.
+// Shared memory holds:
 //   work  n_f x (tau0 + 2h0) planes of the cross window, contiguous, so
 //         the tap table's linear offsets hold as in the other kernels;
 //   pf    n_f x tau0 planes, where cp.async lands the next chunk's fresh
@@ -29,11 +38,9 @@
 // chunk's output to device memory), then copy the last 2h0 planes of work
 // to its front (tau0 planes at a time, since source and destination
 // overlap when tau0 < 2h0). The reference copies the carried planes the
-// same way (emit.py:680). A ring of planes would save the two copies but
-// break the contiguous window the tap offsets assume: every tap would
-// take its z offset modulo the ring, in the tap loop that already limits
-// the MHD kind (PERF.md). The copies cost one shared-memory load and
-// store per element and (tau0 + 2h0) / tau0 per fresh plane.
+// same way (emit.py:680). The copies cost one shared-memory load and
+// store per element and (tau0 + 2h0) / tau0 per fresh plane; at depth
+// S > 1 the intermediate sweeps' regions would need rings of their own.
 // Where the port departs from the reference's single walk: the stream
 // axis may be cut into segments (blockIdx.z, StencilPlan.segments), each
 // staging its own leading 2h0 planes, so that a grid of few cross tiles
@@ -62,19 +69,20 @@
 // outside the tensor cores): diffusion is bound by bytes; streaming
 // reads each plane of a column once (plus the cross-axis halo), where
 // the depth-1 kernel fetches the stream-axis halo again for every tile,
-// and the block overlaps the next chunk's copy with this chunk's
+// and the block overlaps the next chunks' copies with this chunk's
 // arithmetic. The MHD RHS is bound by operations (2,368 stencil FLOP
 // plus ~246 for phi per point); all 8 fields stay resident, so no
-// window is staged twice, but the tap loop is the depth-1 kernel's.
+// window is staged twice.
 // At S > 1 every chunk recomputes its widened z margin (as the reference
 // does); keeping each sweep's planes rolling along z instead is later
-// work (ROADMAP B3b).
+// work (ROADMAP B3d).
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include "phi_mhd.cuh"
 #include "stencil_common.cuh"
 #include "stencil_sweep.cuh"
+#include "stream_body.cuh"
 
 namespace {
 
@@ -240,12 +248,69 @@ __global__ void __launch_bounds__(KIND == KIND_SELECT ? 1024 : 256, 1)
   }
 }
 
+// The depth-1 body (stream_body.cuh), U outputs a thread: at most 128
+// registers a thread (select 256 threads x 2 blocks an SM, MHD 512 x 1).
+template <typename T, int KIND, int U>
+__global__ void __launch_bounds__(stream::max_threads<KIND>(),
+                                  stream::min_blocks<KIND>())
+    stream_d1_kernel(const T* __restrict__ f, T* __restrict__ out,
+                     const int* __restrict__ tap_off,
+                     const double* __restrict__ tap_coef,
+                     const int* __restrict__ op_start,
+                     const __grid_constant__ Geometry g) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  stream::stream_body<T, KIND, U>(f, out, tap_off, tap_coef, op_start, g,
+                                  smem_raw);
+}
+
+// The kinds the depth-1 body takes: select, and the MHD RHS in f32 (in
+// f64 its ring and phi's inputs leave a tile of 64 points, under the
+// one-buffer body's 128 threads).
+template <typename T, int KIND>
+constexpr bool takes_ring() {
+  return KIND == KIND_SELECT || sizeof(T) == 4;
+}
+
+// Whether a launch runs the depth-1 body: depth 1 with outputs per thread
+// in the geometry (emit.geometry sets them for the kinds the body takes).
+inline bool ring_body(const Geometry& g) {
+  return g.fuse_steps == 1 && g.u_out > 0;
+}
+
+template <typename T>
+size_t smem_bytes(const Geometry& g) {
+  return ring_body(g) ? stream::ring_layout<T>(g).total
+                      : layout<T>(g).total;
+}
+
 template <typename T, int KIND>
 cudaError_t launch(const void* f, void* out, const void* tap_off,
                    const void* tap_coef, const void* op_start,
                    Geometry g, cudaStream_t stream) {
-  const size_t smem = layout<T>(g).total;
+  const size_t smem = smem_bytes<T>(g);
+  const bool ring = ring_body(g);
   auto kernel = stream_kernel<T, KIND>;
+  if (ring) {
+    // The body's threads, outputs per thread and ring (select reads a
+    // chunk while 1-2 are in flight; MHD fetches during phi).
+    const int min_buf = KIND == KIND_SELECT ? 2 : 1;
+    if (!stream::built_for<KIND>(g.u_out) || g.n_thr % 32 ||
+        g.n_thr > stream::max_threads<KIND>() || g.n_buf < min_buf ||
+        g.n_buf > min_buf + 2 ||
+        (g.u_out > 1 && g.t[1] * g.t[2] % (32 * g.u_out) != 0))
+      return cudaErrorInvalidValue;
+    if constexpr (!takes_ring<T, KIND>()) {
+      return cudaErrorInvalidValue;
+    } else if constexpr (KIND == KIND_SELECT) {
+      kernel = g.u_out == 4   ? stream_d1_kernel<T, KIND, 4>
+               : g.u_out == 2 ? stream_d1_kernel<T, KIND, 2>
+                              : stream_d1_kernel<T, KIND, 1>;
+    } else {
+      kernel = stream_d1_kernel<T, KIND, 1>;
+    }
+  } else if (g.n_thr > (KIND == KIND_SELECT ? 1024 : 256)) {
+    return cudaErrorInvalidValue;
+  }
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
@@ -280,8 +345,7 @@ int repro_fused_stencil_stream(const void* f, const void* aux, void* out,
   if (err != cudaSuccess) return int(err);
   Geometry g;
   if (!read_geometry(geom, params, n_params, g) || aux != nullptr ||
-      g.n_aux != 0 || g.unroll != 1 || g.n_thr < 1 ||
-      g.n_thr > (kind == KIND_SELECT ? 1024 : 256) || g.n_seg < 1 ||
+      g.n_aux != 0 || g.unroll != 1 || g.n_thr < 1 || g.n_seg < 1 ||
       g.t[0] < 1 || g.n[0] % (g.t[0] * g.n_seg) != 0 ||
       g.n[1] % g.t[1] != 0 || g.n[2] % g.t[2] != 0)
     return int(cudaErrorInvalidValue);
@@ -318,8 +382,8 @@ long long repro_fused_stencil_stream_smem_bytes(const int* geom,
   Geometry g;
   if (!read_geometry(geom, nullptr, 0, g)) return -1;
   if (dtype != DTYPE_F32 && dtype != DTYPE_F64) return -1;
-  return dtype == DTYPE_F64 ? (long long)layout<double>(g).total
-                   : (long long)layout<float>(g).total;
+  return dtype == DTYPE_F64 ? (long long)smem_bytes<double>(g)
+                            : (long long)smem_bytes<float>(g);
 }
 
 int repro_fused_stencil_stream_geometry_len(void) { return G_LEN; }

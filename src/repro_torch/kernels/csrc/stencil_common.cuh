@@ -1,8 +1,8 @@
 // What the fused-stencil kernels share: fused_stencil.cu (depth 1),
 // fused_stencil_temporal.cu (depth > 1) and fused_stencil_stream.cu
-// (swc_stream). The geometry the wrapper
-// (repro_torch/kernels/emit.py) hands over, its host-side reading, the
-// tap table kept in shared memory, and one operator evaluated at one
+// (swc_stream, its depth-1 body in stream_body.cuh). The geometry the
+// wrapper (repro_torch/kernels/emit.py) hands over, its host-side reading,
+// the tap table kept in shared memory, and one operator evaluated at one
 // point.
 #pragma once
 
@@ -32,7 +32,8 @@ enum GeomIndex {
   G_T0, G_T1, G_T2,  // tile
   G_UNROLL, G_NOPS, G_NTAPS, G_NSLOTS,
   G_FUSE,  // sweeps per launch
-  G_NBUF,  // staged window buffers (1 or 2)
+  G_NBUF,  // staged window buffers (depth > 1: 1 or 2); depth-1 rings:
+           // windows (swc, tc: 2 or 3) or chunks (swc_stream: 1-4)
   G_NTHR,  // threads per block
   G_NSEG,  // swc_stream: segments the stream axis is cut into
   G_NB,    // ensemble members (the outer part of blockIdx.z)
@@ -40,7 +41,8 @@ enum GeomIndex {
   G_SLOT0,  // MAX_SLOTS operator indices follow
   G_TPS = G_SLOT0 + MAX_SLOTS,  // depth 1 (swc, tc): tiles per step; else 0
   G_TABW,   // tc depth 1: words of its table (group rows, fragments)
-  G_UOUT,   // swc depth 1: outputs per thread; else 0
+  G_UOUT,   // depth 1, swc and swc_stream's ring body: outputs per
+            // thread; else 0
   G_LEN
 };
 
@@ -60,7 +62,7 @@ struct Geometry {
   int coef_len;  // tc: doubles per band-coefficient row
   int tps;         // depth 1 (swc, tc): tiles per step along x
   int table_words;  // tc depth 1: 32-bit words of its table
-  int u_out;        // swc depth 1: outputs per thread
+  int u_out;        // depth 1 (swc, swc_stream's ring): outputs per thread
   int per_member;  // blocks along z per member (set by fold_members)
   unsigned long long member_mul;  // ceil(2^32 / per_member)
   int slot[MAX_SLOTS];  // operator index read by each phi slot

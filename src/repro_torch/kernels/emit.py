@@ -8,7 +8,9 @@ launches on PyTorch's current stream the plan's kernel
 (:func:`kernel_name`): ``csrc/fused_stencil.cu`` for ``swc`` at depth 1
 (a persistent kernel, ``csrc/swc_body.cuh``),
 ``csrc/fused_stencil_temporal.cu`` for ``swc`` at depth > 1,
-``csrc/fused_stencil_stream.cu`` for ``swc_stream`` at any depth,
+``csrc/fused_stencil_stream.cu`` for ``swc_stream`` at any depth (at
+depth 1 its ring body, ``csrc/stream_body.cuh``, for the kinds
+:func:`~repro_torch.kernels.plan.stream_ring_kind` takes),
 ``csrc/fused_stencil_tc.cu`` for ``tc`` at any depth (at depth 1 a
 persistent kernel, ``csrc/tc_body.cuh``; deeper, the temporal kernel's
 sweeps with the tensor-core evaluator; it takes the operator set's
@@ -357,13 +359,14 @@ def geometry(plan: StencilPlan, slots: list[int]) -> np.ndarray:
     tc = plan.strategy == "tc"
     g += [plan.batch, tc_coef_len(plan.radii) if tc else 0]
     g += slots + [0] * (MAX_SLOTS - len(slots))
-    # Depth 1 (persistent): tiles per step, tc's table words and swc's
-    # outputs per thread; 0 elsewhere.
+    # Depth 1: tiles per step and tc's table words (persistent), outputs
+    # per thread (swc, and swc_stream on its ring body, which a nonzero
+    # count selects); 0 elsewhere.
     if plan.persistent:
         g += [plan.tiles_per_step, plan.tc_table_words,
               plan.outputs_per_thread if plan.swc_depth1 else 0]
     else:
-        g += [0, 0, 0]
+        g += [0, 0, plan.outputs_per_thread if plan.stream_depth1 else 0]
     return np.asarray(g, dtype=np.int32)
 
 
@@ -411,9 +414,13 @@ def _check(f_padded, ops, phi, plan, aux, taps) -> None:
             f"{phi.kind} in bfloat16 is not ported yet: ROADMAP B4b (the "
             "MHD φ in bfloat16)"
         )
-    if plan.strategy == "tc" and plan.n_slots != len(phi.operators):
-        _slots_mismatch(plan, phi)
-    if plan.threads > phi.max_threads and not plan.persistent:
+    if (
+        plan.strategy == "tc" or plan.swc_depth1 or plan.stream_depth1
+    ) and plan.n_slots != len(phi.operators):
+        _slots_mismatch(plan, phi)  # the kernel's layout follows them
+    if plan.threads > phi.max_threads and not (
+        plan.persistent or plan.stream_depth1
+    ):
         raise ValueError(
             f"{phi.kind} keeps its derivative values in registers and "
             f"takes tiles of at most {phi.max_threads} points; tile "
@@ -488,8 +495,6 @@ def fused_stencil_swc(
         )
     if f_padded.device.type != "cuda":
         raise ValueError(f"unsupported device {f_padded.device}")
-    if plan.swc_depth1 and plan.n_slots != len(phis[0].operators):
-        _slots_mismatch(plan, phis[0])  # the kernel's layout follows them
     if not f_padded.is_contiguous() or (
         aux is not None and not aux.is_contiguous()
     ):

@@ -29,7 +29,11 @@ at a time); at temporal depth S > 1 also every intermediate sweep's
 fields (:func:`temporal_smem_bytes`) — must fit the 227 KB of shared
 memory a block can use. At depth S the
 halo is ``radii * S`` and the planner halves a tile that does not fit.
-A stream block keeps every field's working set resident
+A stream block keeps every field's working set resident: at depth 1
+(select, and the MHD RHS in float32) a ring of plane slots per field
+filled chunks ahead, with a tap row per slot (:func:`stream_ring`,
+:func:`stream_ring_smem_bytes`; its threads each compute
+:func:`stream_outputs` points a round), deeper the one-buffer layout
 (:func:`stream_smem_bytes`); its planner halves the chunk, then the
 cross tile, until it fits.
 
@@ -92,16 +96,41 @@ DEFAULT_BLOCKS: dict[int, tuple[int, ...]] = {
     3: (4, 8, 32),
 }
 
-# swc_stream's default (chunk, *cross tile): its threads loop over a
-# chunk's points, so the thread limit does not bound the chunk τ₀; a long
-# chunk spreads each chunk's fixed cost (barriers, the landing and carry
-# copies, the wait for the next chunk) and, at depth > 1, its recomputed
-# z margin over more outputs. The fit halves τ₀ to what shared memory
-# holds.
+# swc_stream's default (chunk, *cross tile) at depth > 1: its threads
+# loop over a chunk's points, so the thread limit does not bound the chunk
+# τ₀; a long chunk spreads each chunk's fixed cost (barriers, the landing
+# and carry copies, the wait for the next chunk) and its recomputed z
+# margin over more outputs. The fit halves τ₀ to what shared memory holds.
 DEFAULT_STREAM_BLOCKS: dict[int, tuple[int, ...]] = {
     2: (64, 64),
     3: (16, 8, 32),
 }
+# Depth 1 on swc_stream (csrc/stream_body.cuh, a ring of planes read where
+# they land), by φ kind ("select", or "mhd" for the MHD RHS in the dtypes
+# of STREAM_RING_MHD_DTYPES: :func:`stream_ring_kind`):
+# - threads per block: MHD 512, two fields of a plane a round for the
+#   taps, one thread a point for φ;
+# - outputs per thread, halved to fit the tile (:func:`stream_outputs`;
+#   the kernel is built for 1, 2 or 4 on select and 1 on MHD);
+# - chunks the ring holds: select 3, one read while two are in flight
+#   (fewer where more would leave under two blocks an SM); MHD 1, the next
+#   fetched while φ runs, since eight fields' planes and φ's inputs fill
+#   the block.
+# Default tiles: a plane of a multiple of a warp's 32 x 4 outputs, so that
+# a thread's outputs share one tap row (f64 at rank 3 a narrower cross
+# tile, whose ring of two still lets two blocks share an SM; rank 2 128
+# wide, measured faster than 64 in tools/stream_times.py); MHD one plane
+# of 8 x 32 points.
+STREAM_THREADS = {"select": 256, "mhd": 512}
+STREAM_RING_MHD_DTYPES = ("float32",)
+STREAM_OUTPUTS = {"select": 4, "mhd": 1}
+STREAM_STAGES = {"select": 3, "mhd": 1}
+DEFAULT_STREAM_D1_BLOCKS: dict[int, tuple[int, ...]] = {
+    2: (32, 128),
+    3: (8, 16, 32),
+}
+DEFAULT_STREAM_D1_F64_BLOCK3 = (8, 8, 32)
+STREAM_MHD_BLOCK = (1, 8, 32)
 
 # tc's default tiles: the block's threads loop over the tile's points,
 # so the tile is sized for shared memory, with x a multiple of the MMA's
@@ -609,6 +638,165 @@ def stream_smem_bytes(
     return total + n_taps * _tap_bytes(itemsize) + (n_ops + 1) * 4
 
 
+def stream_ring_kind(n_slots: int, dtype: str) -> bool:
+    """Whether the depth-1 stream body (``csrc/stream_body.cuh``) takes the
+    φ kind of ``n_slots`` operators in ``dtype``: select (one operator) in
+    any dtype the stream kernel takes, the MHD RHS in float32. In float64
+    the MHD ring and φ's inputs leave a 64-point tile, so the one-buffer
+    body (:func:`stream_smem_bytes`) keeps it."""
+    return n_slots == 1 or dtype in STREAM_RING_MHD_DTYPES
+
+
+def stream_outputs(block: Sequence[int], n_slots: int) -> int:
+    """Outputs a thread of the depth-1 stream body computes per round: the
+    φ kind's (:data:`STREAM_OUTPUTS`), halved until a plane's points (the
+    cross tile's y × x) are a multiple of a warp's 32 × U, so that each
+    warp's run of points lies in one plane and a thread's outputs share
+    one tap row (the kernel refuses other tiles)."""
+    u = STREAM_OUTPUTS[swc_kind(n_slots)]
+    _, ty, tx = _stream3(block, 1)
+    while u > 1 and (ty * tx) % (32 * u):
+        u //= 2
+    return u
+
+
+def _stream3(t: Sequence[int], fill: int) -> tuple[int, int, int]:
+    """``t`` lifted to rank 3 as the stream kernel sees it: at rank 2 a
+    unit y inserted, so the stream axis stays z (``emit._rank3``)."""
+    t = tuple(t)
+    return (t[0], fill, t[1]) if len(t) == 2 else t
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamRing:
+    """The ring of the depth-1 stream body (``ring_shape`` of
+    ``csrc/stream_body.cuh``): per field ``period`` plane slots of the
+    cross window, plane j of a segment in slot j mod ``period``.
+
+    A slot's rows hold ``pitch`` elements and a slot ``plane``, each
+    congruent to the padded field's row and plane pitch modulo 16 bytes
+    (and ``period × plane`` a multiple of 16 bytes), so every global 16
+    bytes land on 16 shared bytes in every pass of the ring; fields are
+    ``field_stride`` elements apart, congruent to the padded field's size.
+    ``period`` holds the chunks resident at once and the 2h₀ leading
+    planes: at least ``stages × τ₀ + 2h₀``."""
+
+    chunk: tuple[int, int, int]  # outputs (τ₀, y, x) of a chunk
+    window: tuple[int, int]  # the cross window (y, x)
+    lead: int  # carried planes, 2h₀
+    pitch: int  # buffer elements per row
+    plane: int  # buffer elements per plane slot
+    period: int  # plane slots
+    field_stride: int  # buffer elements per field
+    ring_bytes: int  # all fields, padded to 16 B
+
+    @property
+    def points(self) -> int:
+        return _prod(self.chunk)
+
+
+def stream_ring(
+    block: Sequence[int], radii: Sequence[int], padded: Sequence[int],
+    n_f: int, stages: int, dtype: str,
+) -> StreamRing:
+    """The :class:`StreamRing` of a depth-1 stream plan: ``block`` the
+    chunk and cross tile, ``padded`` the padded spatial extents,
+    ``stages`` the chunks resident at once."""
+    tz, ty, tx = _stream3(block, 1)
+    rz, ry, rx = _stream3(radii, 0)
+    pz, py, px = _stream3(padded, 1)
+    item = ITEMSIZE[dtype]
+    v = TC_VECTOR_BYTES // item
+    wy, wx = ty + 2 * ry, tx + 2 * rx
+    pitch = _congruent_up(wx + v - 1, px % v, v)
+    plane = _congruent_up(wy * pitch, (py * px) % v, v)
+    period = stages * tz + 2 * rz
+    while period * plane % v:
+        period += 1
+    elements = _cdiv(v - 1 + (period - 1) * plane + (wy - 1) * pitch + wx,
+                     v) * v
+    stride = _congruent_up(elements, (pz * py * px) % v, v)
+    return StreamRing(
+        chunk=(tz, ty, tx), window=(wy, wx), lead=2 * rz, pitch=pitch,
+        plane=plane, period=period, field_stride=stride,
+        ring_bytes=_round16(n_f * stride * item),
+    )
+
+
+def stream_ring_smem_bytes(
+    ring: StreamRing, *, n_taps: int, n_ops: int, n_slots: int, n_f: int,
+    itemsize: int,
+) -> int:
+    """Shared memory of one block of the depth-1 stream body
+    (``ring_layout`` of ``csrc/stream_body.cuh``): the ring of all fields,
+    the tap table with one row per plane slot (coefficient in the field
+    dtype and int32 offset, aligned to twice the itemsize), the int32
+    operator starts and, for the MHD kind, from a 16-byte boundary φ's
+    ``n_slots × n_f`` inputs in the field dtype at every point of a
+    chunk."""
+    total = (ring.ring_bytes + ring.period * n_taps * _tap_bytes(itemsize)
+             + (n_ops + 1) * 4)
+    if n_slots > 1:
+        total = _round16(total) + n_slots * n_f * ring.points * itemsize
+    return total
+
+
+def stream_tap_rows(
+    ring: StreamRing, radii: Sequence[int], offsets: Sequence[Sequence[int]]
+) -> list[list[int]]:
+    """The depth-1 stream body's tap table, mirrored: for each plane slot q
+    of the ring, each tap's offset in the ring from a point whose plane
+    sits in slot q, ``((q + dz) mod period − q) × plane + dy × pitch +
+    dx``. ``offsets`` are the (dz, dy, dx) rows of ``emit.tap_table``; at
+    rank 2 these are (0, dy, dx) with dy along the stream axis, which the
+    kernel, lifting (Y, X) to (Y, 1, X), reads as dz (no radius along its
+    y)."""
+    lifted_y = _stream3(radii, 0)[1] == 0
+    rows = []
+    for q in range(ring.period):
+        row = []
+        for dz, dy, dx in offsets:
+            if lifted_y:
+                dz, dy = dz + dy, 0
+            slot = (q + dz) % ring.period
+            row.append((slot - q) * ring.plane + dy * ring.pitch + dx)
+        rows.append(row)
+    return rows
+
+
+def stream_schedule(plan: "StencilPlan") -> list[tuple]:
+    """The depth-1 stream body's walk of one column segment, mirrored: its
+    events in program order, ``("fetch", i, ((j, slot), ...))`` when the
+    planes of chunk i not yet staged are issued (plane j of the segment's
+    window to ``slot``; the first chunk brings the 2h₀ leading planes)
+    and ``("read", i, q0)`` when chunk i is read, its window's first
+    plane in slot ``q0``. Select issues chunk i + stages − 1 before
+    reading chunk i (that fetch is in flight while chunk i is read); MHD
+    issues chunk i + stages after it."""
+    ring = plan.stream_ring
+    tz, lead, period = ring.chunk[0], ring.lead, ring.period
+    chunks = plan.n_chunks // plan.segments
+    stages = plan.stage_buffers
+    select = plan.n_slots == 1
+
+    def fetch(i):
+        planes = range(tz + lead) if i == 0 else range(i * tz + lead,
+                                                       (i + 1) * tz + lead)
+        return ("fetch", i, tuple((j, j % period) for j in planes))
+
+    ahead = stages - 1 if select else stages
+    events = [fetch(i) for i in range(min(ahead, chunks))]
+    q0 = 0
+    for i in range(chunks):
+        if select and i + stages - 1 < chunks:
+            events.append(fetch(i + stages - 1))
+        events.append(("read", i, q0))
+        if not select and i + stages < chunks:
+            events.append(fetch(i + stages))
+        q0 = (q0 + tz) % period
+    return events
+
+
 def largest_divisor_leq(n: int, cap: int) -> int:
     """Largest divisor of ``n`` that is ≤ ``cap`` (≥ 1)."""
     for t in range(min(cap, n), 0, -1):
@@ -833,6 +1021,24 @@ class StencilPlan:
         return self.strategy == "swc" and self.fuse_steps == 1
 
     @property
+    def stream_depth1(self) -> bool:
+        """Whether the depth-1 stream body (``csrc/stream_body.cuh``: a
+        ring of planes read where they land) runs the plan: ``swc_stream``
+        at depth 1 for the kinds :func:`stream_ring_kind` takes."""
+        return (self.strategy == "swc_stream" and self.fuse_steps == 1
+                and stream_ring_kind(self.n_slots, self.dtype))
+
+    @property
+    def stream_ring(self) -> StreamRing:
+        """The depth-1 stream body's ring (:func:`stream_ring`)."""
+        return self._stream_ring(self.stage_buffers)
+
+    def _stream_ring(self, stages: int) -> StreamRing:
+        padded = tuple(n + 2 * h for n, h in zip(self.interior, self.halo))
+        return stream_ring(self.block, self.radii, padded, self.n_f, stages,
+                           self.dtype)
+
+    @property
     def persistent(self) -> bool:
         """Whether a persistent kernel runs the plan (depth 1 on ``swc``
         or ``tc``): a grid of resident blocks walks the steps, so neither
@@ -860,7 +1066,10 @@ class StencilPlan:
     @property
     def outputs_per_thread(self) -> int:
         """Outputs a thread of the depth-1 ``swc`` kernel computes per
-        round of a step (:func:`swc_launch`); 1 elsewhere."""
+        round of a step (:func:`swc_launch`), or of the depth-1 stream body
+        per round of a chunk (:func:`stream_outputs`); 1 elsewhere."""
+        if self.stream_depth1:
+            return stream_outputs(self.block, self.n_slots)
         if not self.swc_depth1:
             return 1
         return swc_launch(self.n_slots, self.dtype)[1]
@@ -920,7 +1129,10 @@ class StencilPlan:
         full block. ``tc`` at depth 1: the persistent kernel's
         (:data:`TC_THREADS`); deeper: those points rounded up to whole
         warps (:func:`tc_threads`). ``swc`` at depth 1: the persistent
-        kernel's (:func:`swc_launch`)."""
+        kernel's (:func:`swc_launch`). ``swc_stream`` at depth 1 on the ring
+        body: its kind's (:data:`STREAM_THREADS`)."""
+        if self.stream_depth1:
+            return STREAM_THREADS[swc_kind(self.n_slots)]
         if self.tc_depth1:
             return TC_THREADS["select" if self.n_slots == 1 else "mhd"]
         if self.swc_depth1:
@@ -962,8 +1174,11 @@ class StencilPlan:
         """Window buffers the kernel stages fields into: at depth > 1
         (``swc`` and ``tc``) two when there is a next field and two
         windows fit, else one. At depth 1 the persistent kernels' rings
-        (:meth:`_tc_stages`, :meth:`_swc_stages`). ``swc_stream``: its one
-        prefetch buffer of τ₀ planes."""
+        (:meth:`_tc_stages`, :meth:`_swc_stages`). ``swc_stream``: on the
+        depth-1 ring body the chunks its ring holds (:meth:`_stream_stages`),
+        else its one prefetch buffer of τ₀ planes."""
+        if self.stream_depth1:
+            return self._stream_stages()
         if self.stream_axis is not None:
             return 1
         if self.tc_depth1:
@@ -995,6 +1210,26 @@ class StencilPlan:
             stages -= 1
         return stages
 
+    def _stream_stages(self) -> int:
+        """Chunks the depth-1 stream ring holds: the φ kind's
+        (:data:`STREAM_STAGES`), fewer (down to two for select) where more
+        would leave fewer than two blocks resident per SM or not fit."""
+        kind = swc_kind(self.n_slots)
+        stages = STREAM_STAGES[kind]
+        least = 2 if kind == "select" else 1
+        while stages > least and (
+            self._stream_bytes(stages) > SMEM_PER_BLOCK
+            or tc_blocks_per_sm(self._stream_bytes(stages), self.threads) < 2
+        ):
+            stages -= 1
+        return stages
+
+    def _stream_bytes(self, stages: int) -> int:
+        return stream_ring_smem_bytes(
+            self._stream_ring(stages), n_taps=self.n_taps, n_ops=self.n_ops,
+            n_slots=self.n_slots, n_f=self.n_f,
+            itemsize=ITEMSIZE[self.dtype])
+
     def _swc_bytes(self, stages: int) -> int:
         return swc_smem_bytes(
             self.swc_step, stages, n_taps=self.n_taps, n_ops=self.n_ops,
@@ -1020,7 +1255,10 @@ class StencilPlan:
         """Shared memory one block uses. Depth 1: :func:`swc_smem_bytes`
         (``swc``) and :func:`tc_smem_bytes` (``tc``). Depth > 1 (``tc``
         too): :func:`temporal_smem_bytes`. ``swc_stream``:
+        :func:`stream_ring_smem_bytes` on the depth-1 ring body, else
         :func:`stream_smem_bytes`."""
+        if self.stream_depth1:
+            return self._stream_bytes(self.stage_buffers)
         if self.tc_depth1:
             return self._tc_bytes(self.stage_buffers)
         if self.swc_depth1:
@@ -1129,7 +1367,15 @@ def plan_stencil(
         )
 
     planner_tile = block is None
-    if block is None and strategy == "swc_stream" and rank > 1:
+    ring = (strategy == "swc_stream" and fuse_steps == 1
+            and stream_ring_kind(int(n_slots), str(dtype)))
+    if block is None and ring and rank > 1:
+        block = DEFAULT_STREAM_D1_BLOCKS[rank]
+        if n_slots > 1:
+            block = STREAM_MHD_BLOCK
+        elif rank == 3 and dtype == "float64":
+            block = DEFAULT_STREAM_D1_F64_BLOCK3
+    elif block is None and strategy == "swc_stream" and rank > 1:
         block = DEFAULT_STREAM_BLOCKS[rank]
     elif block is None and strategy == "tc":
         block = DEFAULT_TC_BLOCKS[rank]
@@ -1180,10 +1426,24 @@ def plan_stencil(
     segments = 1
     table_words = 0
     if stream and unroll == 1:
-        clamped = _fit_stream(
-            clamped, interior, radii, fuse_steps, n_f=padded_shape[0],
-            itemsize=itemsize, n_taps=ops.taps_per_point, n_ops=ops.n_s,
-        )
+        layout = dict(n_f=padded_shape[0], n_taps=ops.taps_per_point,
+                      n_ops=ops.n_s)
+        if ring and dtype in ITEMSIZE:
+            # The ring of the fewest chunks the kind takes: two for select,
+            # one for MHD.
+            padded = [n + 2 * r for n, r in zip(interior, radii)]
+
+            def need(tile):
+                ring_ = stream_ring(tile, radii, padded, layout["n_f"],
+                                    2 if n_slots == 1 else 1, str(dtype))
+                return stream_ring_smem_bytes(
+                    ring_, n_slots=int(n_slots),
+                    itemsize=ITEMSIZE[str(dtype)], **layout)
+        else:
+            def need(tile):
+                return stream_smem_bytes(tile, radii, fuse_steps,
+                                         itemsize=itemsize, **layout)
+        clamped = _fit_stream(clamped, interior, fuse_steps, need)
         segments = _stream_segments(
             clamped, interior, radii, fuse_steps, int(batch)
         )
@@ -1302,15 +1562,16 @@ def _fit_swc(tile, interior, radii, *, unroll, dtype, n_slots,
         tile[a] = largest_divisor_leq(extent, tile[a] // 2)
 
 
-def _fit_stream(tile, interior, radii, fuse_steps, **layout) -> list[int]:
+def _fit_stream(tile, interior, fuse_steps, need) -> list[int]:
     """Halve the chunk ``tile[0]``, then the cross tile's slowest axis of
     extent > 1 (x last; each clamped to a divisor of the interior),
-    until the stream layout fits shared memory; raise once one plane
-    of a one-warp cross tile does not."""
+    until the stream layout (``need(tile)`` bytes: the depth-1 ring
+    body's or the one-buffer body's) fits shared memory; raise once one
+    plane of a one-warp cross tile does not."""
     tile = list(tile)
     while True:
-        need = stream_smem_bytes(tile, radii, fuse_steps, **layout)
-        if need <= SMEM_PER_BLOCK:
+        need_ = need(tile)
+        if need_ <= SMEM_PER_BLOCK:
             return tile
         if tile[0] > 1:
             tile[0] = largest_divisor_leq(interior[0], tile[0] // 2)
@@ -1319,7 +1580,7 @@ def _fit_stream(tile, interior, radii, fuse_steps, **layout) -> list[int]:
             raise ValueError(
                 f"no swc_stream tile fits shared memory at fuse_steps="
                 f"{fuse_steps}: chunk and cross tile {tuple(tile)} need "
-                f"{need} B of the {SMEM_PER_BLOCK} B a Hopper block can use "
+                f"{need_} B of the {SMEM_PER_BLOCK} B a Hopper block can use "
                 "(one plane of a one-warp cross tile is the smallest the "
                 "planner tries) — use strategy='swc'"
             )

@@ -277,8 +277,12 @@ class MHDSolver:
 
     ``strategy="swc_stream"`` runs the plain RK3 form through the
     stream kernel (``rhs_op``, three launches per step; ``block[0]`` is
-    the chunk of the walk along z, the planner halves the cross tile in
-    f64 until all 8 fields' working set fits shared memory). The
+    the chunk of the walk along z). In float32 its depth-1 ring body
+    (``csrc/stream_body.cuh``) holds φ's inputs in shared memory beside
+    all 8 fields' planes, 512 threads on the (1, 8, 32) tile
+    (``plan.STREAM_MHD_BLOCK``); in float64 the one-buffer body keeps
+    them in registers, the planner halving the cross tile until the 8
+    fields' working set fits shared memory. The
     fused-axpy forms (``fuse_rk_axpy``, ``fuse_rk_pairs``) hand φ the
     carry as aux, which ``swc_stream`` refuses with ``ValueError``, as
     the reference does. ``strategy="tc"`` runs all three forms through

@@ -213,12 +213,20 @@ def test_wrapper_checks_operands():
     ops = ts.derivative_operator_set(3, 6)
     fp = torch.zeros(8, 14, 14, 38)
     rhs = tmhd.mhd_rhs_device_phi(tmhd.MHDParams())
-    # The kernels that keep φ's 80 inputs in registers (swc_stream, depth
-    # > 1) take tiles of at most 256 points; depth 1 on swc keeps them in
-    # shared memory and takes a 512-point tile.
+    # The kernels that keep φ's 80 inputs in registers (depth > 1, and
+    # swc_stream in f64) take tiles of at most 256 points; depth 1 on swc
+    # (and swc_stream's ring body in f32) keeps them in shared memory and
+    # takes a 512-point tile.
+    deep = torch.zeros(8, 14, 20, 44)
+    plan = plan_for_nd(ops, tuple(deep.shape), 8, block=(2, 8, 32),
+                       fuse_steps=2)
+    with pytest.raises(ValueError, match="registers"):
+        emit.fused_stencil_swc(deep, ops, rhs, plan)
+    # A depth-1 plan made for one φ kind refuses another: its layout
+    # follows the operators φ reads.
     plan = plan_for_nd(ops, tuple(fp.shape), 8, block=(2, 8, 32),
                        strategy="swc_stream")
-    with pytest.raises(ValueError, match="registers"):
+    with pytest.raises(ValueError, match="operator slot"):
         emit.fused_stencil_swc(fp, ops, rhs, plan)
     plan = plan_for_nd(ops, tuple(fp.shape), 8, block=(2, 8, 32),
                        n_slots=10)

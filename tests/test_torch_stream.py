@@ -208,15 +208,28 @@ def test_mhd_fused_axpy_forms_raise_on_stream(form):
 
 
 def test_stream_smem_bytes_is_the_kernel_layout():
-    """Counted by hand from csrc/fused_stencil_stream.cu's layout."""
+    """Counted by hand from csrc/fused_stencil_stream.cu's layouts: the
+    depth-1 ring body's (stream_body.cuh) for the MHD RHS in f32, the
+    one-buffer body's at depth 3."""
     ops = ts.derivative_operator_set(3, 6)  # 10 operators, 148 taps
     rhs = plan_for_nd(ops, (8, 262, 262, 262), 8, strategy="swc_stream",
-                      block=(1, 8, 32), max_threads=256)
-    work = 8 * (7 * 14 * 38) * 4  # 8 fields, τ₀ + 2h₀ planes
-    pf = 8 * (1 * 14 * 38) * 4  # the next chunk's τ₀ planes
-    taps = 148 * 8 + 11 * 4
-    assert rhs.block == (1, 8, 32) and rhs.threads == 256
-    assert rhs.smem_bytes == work + pf + taps == 137_420
+                      block=(1, 8, 32), max_threads=256, n_slots=10)
+    # Window 14 x 38; a row of 38 + 3 elements congruent to 262 = 2 (mod
+    # 4): pitch 42; plane 14 x 42 = 588 = 262^2 (mod 4); the ring holds
+    # one chunk and the 6 carried planes, 7 slots (7 x 588 = 0 mod 4); a
+    # field reaches element 3 + 6 x 588 + 13 x 42 + 38 = 4115, 4116
+    # elements (= 262^3 mod 4).
+    ring = rhs.stream_ring
+    assert (ring.pitch, ring.plane, ring.period, ring.field_stride) == (
+        42, 588, 7, 4116)
+    work = 8 * 4116 * 4  # 8 fields' rings
+    taps = 7 * 148 * 8 + 11 * 4  # one tap row per slot, the starts
+    sums = 10 * 8 * 256 * 4  # φ's inputs, from a 16-byte boundary
+    # 512 threads: two fields of the 256-point plane a round, one point
+    # each for φ.
+    assert rhs.block == (1, 8, 32) and rhs.threads == 512
+    assert rhs.stream_depth1 and rhs.stage_buffers == 1
+    assert rhs.smem_bytes == -(-(work + taps) // 16) * 16 + sums == 221_968
     diff = td.DiffusionProblem((512,) * 3).step_op("swc", device=CPU).ops
     deep = plan_stencil(diff, (1,) + (512 + 18,) * 3, 1,
                         strategy="swc_stream", fuse_steps=3)
@@ -228,7 +241,9 @@ def test_stream_smem_bytes_is_the_kernel_layout():
 def test_stream_fit_halves_chunk_then_cross_tile_and_raises():
     ops = ts.derivative_operator_set(3, 6)
     f64 = plan_stencil(ops, (8, 262, 262, 262), 8, strategy="swc_stream",
-                       block=(4, 8, 32), dtype="float64", max_threads=256)
+                       block=(4, 8, 32), dtype="float64", max_threads=256,
+                       n_slots=10)
+    assert not f64.stream_depth1  # the f64 MHD RHS keeps the one-buffer body
     assert f64.block == (1, 4, 32)  # chunk to 1, then y halved
     assert f64.smem_bytes <= SMEM_PER_BLOCK and f64.threads == 128
     diff = td.DiffusionProblem((64,) * 3).step_op("swc", device=CPU).ops
