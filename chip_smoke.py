@@ -50,7 +50,15 @@ Phases (each raises on failure; none is caught):
    unbatched launch), and the MHD RHS, fused substep (aux) and pair on
    a cube and a non-cubic box, the RHS and substep also at B = 3. Each
    tc case prints its launch: persistent grid, ring stages, staging
-   route, registers.
+   route, registers. The walks at depth > 1: ``tc`` on
+   ``csrc/tc_walk_body.cuh`` at depth 2 and 3 (f32 and bf16, ragged
+   patches at ranks 2 and 3, segments forced to 1 and 4, two fields at
+   B = 3, the MHD RHS twice, the pair at 256³) and ``swc_stream`` on the
+   temporal walk body (f32 and f64, a ragged row pitch, segments forced
+   to 1 and 4), each printing its walk line (persistent grid, columns,
+   step and cross tile, rings, threads x outputs or patches a warp,
+   registers, spills, evaluations per output-step; tc: banded MACs issued
+   against the taps').
    Then tc beyond radius 4 (orders 10 and 12, f32 and bf16, ranks 1-3),
    depths 9 and 12 on B2, B3 and B4 at 2-D (order 2, f32), and the B6
    cross-correlation (``csrc/xcorr1d.cu``) against ``ref.xcorr1d``: each
@@ -82,12 +90,12 @@ Phases (each raises on failure; none is caught):
    4096² members, batches of 8; every request ``ok`` on the strategy asked
    for, 8 launches of that strategy's kernel per batch, each request
    held to its per-member plain version on the card.
-   The tc phase (``strategy="tc"``): MHD 256³ f32 plain and fused-axpy
-   RK3 (3 ``fused_stencil_tc`` launches per step) and ``fuse_rk_pairs``
-   at 128³ (one depth-2 and one depth-1 launch per step), each held to
-   ``swc``; diffusion 512³ f32 at depth 1 and 2, bf16 at depth 1 (and
-   bf16 on ``swc``, B1b, held to the plain bf16 version), 8192² and
-   2^26 f32, each held to f32 ``swc``. The serve phase also runs
+   The tc phase (``strategy="tc"``): MHD 256³ f32 plain, fused-axpy RK3
+   (3 ``fused_stencil_tc`` launches per step) and ``fuse_rk_pairs`` (one
+   depth-2 and one depth-1 launch per step, the pair on the tc walk),
+   each held to ``swc`` within 1e-5; diffusion 512³ f32 at depth 1, 2
+   and 3, bf16 at depth 1 and 2 (and bf16 on ``swc``, B1b, held to the
+   plain bf16 version), 8192² and 2^26 f32, each held to f32 ``swc``. The serve phase also runs
    ``SimServer(strategy="tc")``: 8 ``fused_stencil_tc`` launches per
    batch. The 1-D path: ``step_1d_xcorr`` on diffusion at 2^26, order 6,
    f32, 5 steps on each B6 strategy, exactly one ``xcorr1d`` launch per
@@ -111,9 +119,11 @@ Phases (each raises on failure; none is caught):
    data sheet. Temporal rows (B2) also print their launch (the walk's
    persistent grid, columns, step and cross tile, rings, threads x
    outputs, registers and spills, or the one-tile body's grid of tiles)
-   and the evaluations per output-step; stream rows the tile, its shared
-   memory, the modelled bytes per step and the redundant work
-   (``repro_torch.core.trafficmodel``). Batched rows
+   and the evaluations per output-step; stream rows their launch (at
+   depth > 1 the walk's line), the tile, its shared memory, the
+   modelled bytes per step (``repro_torch.core.trafficmodel``) and the
+   redundant work (the walk: its evaluations per output-step). Batched
+   rows
    (B members in one launch) also time B unbatched launches of the same
    members in the same call (on ``swc_stream`` each cut into the
    segments the planner gives one member); their library is ``conv{2,3}d``
@@ -121,8 +131,10 @@ Phases (each raises on failure; none is caught):
    The serve phase's batches (order 2, B = 8, 256³ and 4096², on
    ``swc``, ``swc_stream`` and ``tc``) get rows of their own, each
    carrying its bucket's launch count from the serve phase. tc rows
-   (diffusion 512³ f32 S=1, 2 and bf16, 8192², 2^26; MHD RHS and substep
-   256³, pair 128³) take their bound at the route's tensor-core rate
+   (diffusion 512³ f32 S=1, 2, 3 and bf16 S=1, 2, 8192², 2^26; MHD RHS
+   and substep 256³, the pair at 128³ and 256³, the walk's rows also
+   printing their walk line) take their bound at the route's tensor-core
+   rate
    (989 TFLOP/s bf16 MMA; 67 TFLOP/s f64 MMA for f32 fields) and print
    the banded multiply-adds the MMAs issue beside the taps' own
    (``plan.tc_issued_macs``) and, at depth 1, the persistent grid (the
@@ -175,6 +187,9 @@ BATCH_REPLACES = "src/repro/kernels/emit.py:345"  # _fused_batched (+ _member_ph
 TC_SOURCE = "src/repro_torch/kernels/csrc/fused_stencil_tc.cu"
 TC_REPLACES = "src/repro/kernels/emit.py:233"  # _kernel_tc (+ _block_derivs_tc :153)
 TC = "fused_stencil_tc"
+# At depth > 1 the reference runs _kernel_temporal with
+# derivs_fn=_block_derivs_tc (emit.py:549-554).
+TC_TEMPORAL_REPLACES = "src/repro/kernels/emit.py:271"
 XCORR_SOURCE = "src/repro_torch/kernels/csrc/xcorr1d.cu"
 # xcorr1d_pallas (+ _kernel_baseline :52, _kernel_elementwise :56, _mac_loop :35)
 XCORR_REPLACES = "src/repro/kernels/stencil1d.py:73"
@@ -377,8 +392,8 @@ def mhd_pair_case(shape, dtype, device, substeps=(1, 2), block=None,
     """(f_padded, ops, phis, plan, aux) of two fused-axpy RK3 substeps
     in one depth-2 launch, aux = w. Substeps (1, 2), both with α ≠ 0,
     read the carried w in both sweeps; the solver's pair is (0, 1).
-    ``block`` defaults to the solver's: the planner's on ``swc``, (1, 8,
-    32) on ``tc``."""
+    ``block`` defaults to the solver's: the planner's (on ``swc`` and
+    ``tc`` the walk's)."""
     import torch
 
     from repro_torch.core.boundary import pad
@@ -402,15 +417,13 @@ def mhd_pair_case(shape, dtype, device, substeps=(1, 2), block=None,
     w = (1e-3 * torch.rand(f.shape, generator=g, dtype=torch.float64)
          ).to(device=device, dtype=f.dtype)
     aux = pad(w, 3, "periodic", spatial_axes=(1, 2, 3))
-    if block is None and strategy == "tc":
-        block = solver.block
     plan = plan_for_nd(ops, tuple(fp.shape), 16, aux_shape=tuple(aux.shape),
                        strategy=strategy, block=block, dtype=dtype,
                        fuse_steps=2, max_threads=256, n_slots=10)
     return fp, ops, phis, plan, aux
 
 
-def mhd_rhs_twice_case(shape, dtype, device, seed=0):
+def mhd_rhs_twice_case(shape, dtype, device, seed=0, strategy="swc"):
     """(f_padded, ops, phi, plan, aux) of the MHD RHS applied twice in
     one depth-2 launch (a self-map without aux)."""
     from repro_torch.core.boundary import pad
@@ -421,8 +434,8 @@ def mhd_rhs_twice_case(shape, dtype, device, seed=0):
     f = solver.init_smooth(seed, amplitude=1e-2, dtype=dtype)
     fp = pad(f, 6, "periodic", spatial_axes=(1, 2, 3))
     plan = plan_for_nd(solver.operator_set, tuple(fp.shape), 8,
-                       dtype=dtype, fuse_steps=2, max_threads=256,
-                       n_slots=10)
+                       strategy=strategy, dtype=dtype, fuse_steps=2,
+                       max_threads=256, n_slots=10)
     return (fp, solver.operator_set, mhd.mhd_rhs_device_phi(solver.params),
             plan, None)
 
@@ -453,15 +466,23 @@ def _usage_of(name: str, key: str) -> str:
     return f"{regs} registers, {spill} B spilled"
 
 
-def tc_launch_info(plan, phi) -> str:
-    """The depth-1 tc launch of ``plan``: its persistent grid (the
-    kernel's occupancy), ring stages, staging route and registers."""
+def tc_launch_info(plan, phi, ops=None) -> str:
+    """The tc launch of ``plan``: at depth 1 its persistent grid (the
+    kernel's occupancy), ring stages, staging route and registers; at
+    depth > 1 the walk's (``walk_launch_info``) or the one-tile body's
+    grid of tiles."""
     import torch
 
     from repro_torch.kernels import emit
 
+    if getattr(plan, "tc_walk", False):
+        return walk_launch_info(plan, phi, ops)
     if not plan.tc_depth1:
-        return f"temporal body (depth {plan.fuse_steps}), grid of tiles"
+        tiles = plan.batch
+        for n, b in zip(plan.interior, plan.block):
+            tiles *= n // b
+        return (f"one-tile body with TcEval (depth {plan.fuse_steps}), "
+                f"grid of {tiles} tiles")
     grid = emit.launch_grid(plan, phi.kind_id,
                             torch.cuda.current_device())
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -498,16 +519,9 @@ def swc_launch_info(plan, phi) -> str:
 
 def temporal_launch_info(plan, phi) -> str:
     """The ``swc`` launch of ``plan`` at depth > 1 (B2). On the walk
-    (``csrc/temporal_walk_body.cuh``): its persistent grid (the kernel's
-    resident blocks per SM times the SMs), its columns (members x
-    segments of the slowest axis x cross tiles), the step and cross tile,
-    the input ring and the intermediate rings, threads x outputs per
-    thread, registers and spills. On the one-tile body: its grid of
-    tiles, threads, window buffers, registers and spills."""
-    import torch
-
-    from repro_torch.kernels import emit
-
+    (``csrc/temporal_walk_body.cuh``): ``walk_launch_info``. On the
+    one-tile body: its grid of tiles, threads, window buffers, registers
+    and spills."""
     t = SWC_TYPE_KEYS[plan.dtype]
     if not plan.temporal_walk:
         tiles = plan.batch
@@ -518,10 +532,46 @@ def temporal_launch_info(plan, phi) -> str:
                 f"{plan.threads} threads, {plan.stage_buffers} window "
                 f"buffer(s), {plan.smem_bytes} B shared, "
                 f"{_usage_of(TEMPORAL, key)}")
+    return walk_launch_info(plan, phi)
+
+
+def walk_launch_info(plan, phi, ops=None) -> str:
+    """A walk launch of ``plan`` at depth > 1 (B2 ``swc``, B3 ``swc_stream``
+    on ``csrc/temporal_walk_body.cuh``; B4 ``tc`` on
+    ``csrc/tc_walk_body.cuh``): its persistent grid (the kernel's resident
+    blocks per SM times the SMs), its columns (members x segments of the
+    slowest axis x cross tiles), the step and cross tile, the input ring
+    and the intermediate (and carry) rings, threads x outputs per thread
+    (tc: patches a warp contracts at once), registers and spills,
+    evaluations per output-step and, on tc given ``ops``, the banded
+    multiply-adds issued against the taps'."""
+    import torch
+
+    from repro_torch.kernels import emit
+
+    t = SWC_TYPE_KEYS[plan.dtype]
     grid = emit.launch_grid(plan, phi.kind_id, torch.cuda.current_device())
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    ring, u = plan.walk_ring, plan.outputs_per_thread
-    key = f"walk_kernelI{t}Li{phi.kind_id}E"
+    ring = plan.walk_ring
+    tail = ""
+    if plan.strategy == "tc":
+        from repro_torch.kernels.plan import (
+            TC_MMA_ROWS, TC_PATCH_BATCH, tc_issued_macs)
+
+        kind = "select" if plan.n_slots == 1 else "mhd"
+        per = (f"{TC_PATCH_BATCH[kind, plan.dtype]} patches of "
+               f"{TC_MMA_ROWS[plan.dtype]} x 8 a warp")
+        usage = _usage_of(TC, f"tc_walk_kernelI{t}Li{phi.kind_id}E")
+        if ops is not None:
+            issued, needed = tc_issued_macs(plan, ops, list(phi.operators))
+            tail = (f"; banded MACs issued {issued:.6e} against "
+                    f"{needed:.6e} ({issued / needed:.3f}x)")
+    elif plan.strategy == "swc_stream":
+        per = f"{plan.outputs_per_thread} outputs"
+        usage = _usage_of(STREAM, f"stream_walk_kernelI{t}E")
+    else:
+        per = f"{plan.outputs_per_thread} outputs"
+        usage = _usage_of(TEMPORAL, f"walk_kernelI{t}Li{phi.kind_id}E")
     return (f"walk: persistent grid {grid} ({grid / sms:.2f} per SM x {sms} "
             f"SMs), {plan.walk_items} columns ({plan.batch} member(s) x "
             f"{plan.segments} segment(s) of {plan.interior[0] // plan.segments}"
@@ -532,17 +582,21 @@ def temporal_launch_info(plan, phi) -> str:
             f"{ring.mid_slots} slots ({sum(ring.mid_bytes)} B), "
             + (f"carry rings of {ring.carry_slots} slots "
                f"({sum(ring.carry_bytes)} B), " if plan.n_aux else "")
-            + f"{plan.smem_bytes} B shared, {plan.threads} threads x {u} "
-            f"outputs, {_usage_of(TEMPORAL, key)}")
+            + f"{plan.smem_bytes} B shared, {plan.threads} threads x {per}, "
+            f"{usage}; evaluations per output-step "
+            f"{plan.evaluations_per_output_step:.4f}{tail}")
 
 
 def stream_launch_info(plan, phi) -> str:
-    """The ``swc_stream`` launch of ``plan`` (B3): its grid (cross tiles x
-    members x segments), chunk and cross tile, the ring on the depth-1
-    body (chunks it holds, plane slots, bytes) or the one-buffer body,
-    threads x outputs per thread, registers and spills."""
+    """The ``swc_stream`` launch of ``plan`` (B3): at depth > 1 the walk's
+    (``walk_launch_info``); else its grid (cross tiles x members x
+    segments), chunk and cross tile, the ring on the depth-1 body (chunks
+    it holds, plane slots, bytes) or the one-buffer body, threads x
+    outputs per thread, registers and spills."""
     import torch
 
+    if getattr(plan, "stream_walk", False):
+        return walk_launch_info(plan, phi)
     kind, t = phi.kind_id, SWC_TYPE_KEYS[plan.dtype]
     tiles = 1
     for n, b in zip(plan.interior[1:], plan.block[1:]):
@@ -561,7 +615,7 @@ def stream_launch_info(plan, phi) -> str:
                 f"{plan.smem_bytes} B shared), 16-byte cp.async, "
                 f"{plan.threads} threads x {u} outputs, "
                 f"{_usage_of(STREAM, key)}")
-    key = f"stream_kernelI{t}Li{kind}E"
+    key = f"stream_kernelI{t}E"  # depth 1, the f64 MHD RHS only
     return (f"{head}, one-buffer body ({plan.smem_bytes} B shared), "
             f"{plan.threads} threads x 1 output, {_usage_of(STREAM, key)}")
 
@@ -595,14 +649,14 @@ def compare(label, case, dtype):
             f"{label}: plan.smem_bytes {plan.smem_bytes} != the kernel's "
             f"layout {layout}")
     got = emit.fused_stencil_swc(fp, ops, phi, plan, aux=aux)
+    first = phi[0] if isinstance(phi, tuple) else phi
     if plan.strategy == "tc":
-        print(f"    tc: {tc_launch_info(plan, phi)}")
+        print(f"    tc: {tc_launch_info(plan, first, ops)}")
     elif plan.swc_depth1:
         print(f"    swc: {swc_launch_info(plan, phi)}")
-    elif plan.stream_axis is not None and plan.fuse_steps == 1:
+    elif plan.stream_axis is not None:
         print(f"    stream: {stream_launch_info(plan, phi)}")
     elif plan.temporal_walk:
-        first = phi[0] if isinstance(phi, tuple) else phi
         print(f"    temporal: {temporal_launch_info(plan, first)}")
     seg = f" seg{plan.segments}" if plan.segments > 1 else ""
     want = plain(case)
@@ -804,7 +858,7 @@ def phase_parity(dev):
     print("  -- tc kernel vs ref.fused_stencil_tc[_steps] (f32 on the f64 "
           "MMA, bf16 on the bf16 MMA)")
     for dtype in ("float32", "bfloat16"):
-        for depth in (1, 2):
+        for depth in (1, 2, 3):
             # Tiles off the 8-wide segment: x tiles 2002 (of 30030), 50
             # (of 400) and 30 (of 120), so the last segment is ragged.
             for shape in ((65536,), (30030,), (512, 400), (64, 96, 120)):
@@ -833,6 +887,47 @@ def phase_parity(dev):
         compare_batched(f"tc {name} (64, 64, 64)",
                         mhd_case((64,) * 3, "float32", dev, substep, batch=3,
                                  strategy="tc"), "float32")
+    print("  -- tc walk at depth > 1 (csrc/tc_walk_body.cuh): ragged patches "
+          "(regions of 37 + 2r columns, rows of one line at rank 2), "
+          "segments forced to 1 and 4, B = 3, the MHD RHS twice and the "
+          "pair at 256^3's launch")
+    for dtype in ("float32", "bfloat16"):
+        for depth in (2, 3):
+            compare("tc diffusion (48, 18, 37)",
+                    diffusion_case((48, 18, 37), dtype, dev, block=(2, 6, 37),
+                                   fuse_steps=depth, strategy="tc"), dtype)
+            compare("tc diffusion (1024, 37)",
+                    diffusion_case((1024, 37), dtype, dev, block=(4, 37),
+                                   fuse_steps=depth, accuracy=4,
+                                   strategy="tc"), dtype)
+            for seg in (1, 4):
+                compare("tc diffusion (192, 64, 120)",
+                        diffusion_case((192, 64, 120), dtype, dev,
+                                       fuse_steps=depth, segments=seg,
+                                       strategy="tc"), dtype)
+        compare_batched("tc select dxx, 2 fields (48, 64, 80)",
+                        select_case((48, 64, 80), dtype, dev, 3, batch=3,
+                                    strategy="tc"), dtype)
+    compare("tc mhd_rhs twice (48, 64, 80)",
+            mhd_rhs_twice_case((48, 64, 80), "float32", dev, strategy="tc"),
+            "float32")
+    compare("tc mhd_substep pair (256, 256, 256)",
+            mhd_pair_case((256,) * 3, "float32", dev, strategy="tc"),
+            "float32")
+    print("  -- stream walk at depth > 1 (swc_stream on "
+          "csrc/temporal_walk_body.cuh): a ragged row pitch, segments forced "
+          "to 1 and 4")
+    for dtype in ("float32", "float64"):
+        for depth in (2, 3):
+            compare("stream diffusion (48, 18, 37)",
+                    diffusion_case((48, 18, 37), dtype, dev, block=(2, 6, 37),
+                                   fuse_steps=depth, strategy="swc_stream"),
+                    dtype)
+            for seg in (1, 4):
+                compare("stream diffusion (192, 64, 120)",
+                        diffusion_case((192, 64, 120), dtype, dev,
+                                       fuse_steps=depth, segments=seg,
+                                       strategy="swc_stream"), dtype)
     print("  -- tc beyond radius 4 (C1): orders 10 and 12, the band of "
           "8 + 2r rows in more than one k-step")
     for dtype in ("float32", "bfloat16"):
@@ -1138,7 +1233,7 @@ def phase_main_path_tc(dev, launches):
     for kind, n, form, want in (
         ("tc mhd_substep", 256, dict(fuse_rk_axpy=True), {1: 3 * n_steps}),
         ("tc mhd_rhs", 256, {}, {1: 3 * n_steps}),
-        ("tc mhd pair", 128, dict(fuse_rk_pairs=True),
+        ("tc mhd pair", 256, dict(fuse_rk_pairs=True),
          {2: n_steps, 1: n_steps}),
     ):
         solver = MHDSolver((n,) * 3, strategy="tc", device=dev, **form)
@@ -1172,7 +1267,9 @@ def phase_main_path_tc(dev, launches):
     for shape, cases in (
         ((512,) * 3, (("tc", 1, 5, "float32", "tc select S=1"),
                       ("tc", 2, 6, "float32", "tc select S=2"),
+                      ("tc", 3, 6, "float32", "tc select S=3"),
                       ("tc", 1, 5, "bfloat16", "tc select bf16"),
+                      ("tc", 2, 6, "bfloat16", "tc select bf16 S=2"),
                       ("swc", 1, 5, "bfloat16", "select bf16"))),
         ((8192, 8192), (("tc", 1, 5, "float32", "tc select 8192^2"),)),
         ((1 << 26,), (("tc", 1, 5, "float32", "tc select 2^26"),)),
@@ -1593,18 +1690,20 @@ def phase_times(dev, smi, launches):
         if tc:
             issued, needed = tc_issued_macs(plan, ops, phi_sequence(
                 phi, depth)[0].operators)
-            name_, source, replaces = (f"{TC}[{kind}, S={depth}, {dtype}",
-                                       TC_SOURCE, TC_REPLACES)
+            name_, source, replaces = (
+                f"{TC}[{kind}, S={depth}, {dtype}", TC_SOURCE,
+                TC_REPLACES if depth == 1 else TC_TEMPORAL_REPLACES)
             print(f"    tc: tile {plan.block}, {plan.smem_bytes} B shared; "
                   f"{tc_launch_info(plan, phi_sequence(phi, depth)[0])}; "
                   f"banded MACs issued {issued:.6e} against "
                   f"{needed:.6e} for the multi-tap groups' taps "
                   f"({issued / needed:.3f}x)")
+            if depth > 1:
+                print(f"    S={depth}: {ms / depth:.4f} ms per step")
         elif stream:
             name_, source, replaces = (f"{STREAM}[{kind}, S={depth}",
                                        STREAM_SOURCE, STREAM_REPLACES)
-            if depth == 1:
-                print(f"    stream: {stream_launch_info(plan, phi)}")
+            print(f"    stream: {stream_launch_info(plan, phi)}")
         elif depth == 1:
             name_, source, replaces = (f"fused_stencil_swc[{kind}",
                                        KERNEL_SOURCE, REPLACES)
@@ -1652,19 +1751,20 @@ def phase_times(dev, smi, launches):
                 **model, segments=plan.segments)
             one = stencil_stream_hbm_bytes_per_step(**model)
             swc = stencil_hbm_bytes_per_step(**model)
-            redundant = stencil_redundant_compute_fraction(
-                plan.block, plan.radii, depth)
+            work = (f"evaluations per output-step "
+                    f"{plan.evaluations_per_output_step:.4f}"
+                    if getattr(plan, "walk", False) else
+                    "redundant work {:.4f}".format(
+                        stencil_redundant_compute_fraction(
+                            plan.block, plan.radii, depth)))
             print(f"    stream S={depth}: {ms / depth:.4f} ms per step; "
                   f"chunk and cross tile {plan.block}, {plan.segments} "
                   f"segment(s), {plan.threads} threads, {plan.smem_bytes} B "
                   f"shared; modelled {walk:.6e} B/step (one walk "
-                  f"{one:.6e}; swc at this tile {swc:.6e}), redundant work "
-                  f"{redundant:.4f}")
+                  f"{one:.6e}; swc at this tile {swc:.6e}), {work}")
         elif depth > 1 and plan.temporal_walk:
             print(f"    S={depth}: {ms / depth:.4f} ms per step; "
-                  f"{temporal_launch_info(plan, phi_sequence(phi, depth)[0])}"
-                  f"; evaluations per output-step "
-                  f"{plan.evaluations_per_output_step:.4f}")
+                  f"{temporal_launch_info(plan, phi_sequence(phi, depth)[0])}")
         elif depth > 1 and not tc:
             traffic = [
                 stencil_hbm_bytes_per_step(
@@ -1808,7 +1908,9 @@ def phase_times(dev, smi, launches):
     for shape, depth, dtype, strategy, main in (
         ((512,) * 3, 1, "float32", "tc", "tc select S=1"),
         ((512,) * 3, 2, "float32", "tc", "tc select S=2"),
+        ((512,) * 3, 3, "float32", "tc", "tc select S=3"),
         ((512,) * 3, 1, "bfloat16", "tc", "tc select bf16"),
+        ((512,) * 3, 2, "bfloat16", "tc", "tc select bf16 S=2"),
         ((512,) * 3, 1, "bfloat16", "swc", "select bf16"),
         ((8192, 8192), 1, "float32", "tc", "tc select 8192^2"),
         ((1 << 26,), 1, "float32", "tc", "tc select 2^26"),
@@ -1831,11 +1933,13 @@ def phase_times(dev, smi, launches):
             main=f"tc {kind}", reps=5, plain_reps=2)
         del case
         torch.cuda.empty_cache()
-    case = mhd_pair_case((128,) * 3, "float32", dev, substeps=(0, 1),
-                         smooth=False, strategy="tc")
-    row("tc MHD pair 128^3", "mhd_substep", case, "float32",
-        mhd.SUBSTEP_PHI_FLOPS, main="tc mhd pair", reps=3, plain_reps=1)
-    del case
+    for n, main in ((128, None), (256, "tc mhd pair")):
+        case = mhd_pair_case((n,) * 3, "float32", dev, substeps=(0, 1),
+                             smooth=False, strategy="tc")
+        row(f"tc MHD pair {n}^3", "mhd_substep", case, "float32",
+            mhd.SUBSTEP_PHI_FLOPS, main=main, reps=3, plain_reps=1)
+        del case
+        torch.cuda.empty_cache()
     for shape in SERVE_SHAPES:
         bucket = "x".join(map(str, shape))
         case = diffusion_case(shape, "float32", dev, batch=SERVE_BATCH,

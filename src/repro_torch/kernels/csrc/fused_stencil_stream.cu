@@ -13,34 +13,39 @@
 // operator over the tile widened by r * (S - 1 - s) on every axis,
 // including the stream axis, and applies phi_s.
 //
-// Two bodies. Depth 1 (the geometry's outputs per thread G_UOUT > 0:
-// select in f32 and f64, the MHD RHS in f32) runs stream_body.cuh, whose
-// header says how and why: a ring of planes per field filled chunks ahead
-// by 16-byte cp.async and read where they land, a tap table with one row
-// per ring slot, several outputs per thread, and the MHD phi's inputs in
-// shared memory. Every other launch (depth S > 1, and the MHD RHS in f64,
-// whose eight fields' ring and phi's inputs fit no tile with a thread per
-// point) runs stream_kernel below.
+// Three bodies, chosen by the geometry's outputs per thread G_UOUT > 0
+// and the depth. Depth 1 (select in f32 and f64, the MHD RHS in f32) runs
+// stream_body.cuh, whose header says how and why: a ring of planes per
+// field filled chunks ahead by 16-byte cp.async and read where they land,
+// a tap table with one row per ring slot, several outputs per thread, and
+// the MHD phi's inputs in shared memory. Depth S > 1 (select in f32 and
+// f64, ranks 2 and 3) runs the temporal kernel's walk body
+// (temporal_walk_body.cuh) under this kernel's name: the chunk is the
+// walk's step tau, the cross tile its cross tile, the segments
+// (StencilPlan.segments) its column segments and the member the outermost
+// index of the columns its persistent blocks walk. Each sweep keeps its
+// planes in a ring of its own, so no chunk recomputes its widened z
+// margin. The one launch left to stream_kernel below is the MHD RHS in f64
+// at depth 1 (its eight fields' ring and phi's inputs fit no tile with a
+// thread per point); the planner refuses the MHD kinds at depth S > 1,
+// which fit no tile here (use swc).
 //
-// stream_kernel. One block per cross-stream tile and stream segment, a
-// 1-D block of the phi kind's thread count (at most sweep 0's points of
-// one chunk, StencilPlan.threads) looping over each sweep's points.
-// Shared memory holds:
-//   work  n_f x (tau0 + 2h0) planes of the cross window, contiguous, so
+// stream_kernel (depth 1, the f64 MHD RHS). One block per cross-stream
+// tile and stream segment, a 1-D block of the phi kind's thread count (at
+// most the points of one chunk, StencilPlan.threads) looping over the
+// chunk's points. Shared memory holds:
+//   work  n_f x (tau0 + 2r0) planes of the cross window, contiguous, so
 //         the tap table's linear offsets hold as in the other kernels;
 //   pf    n_f x tau0 planes, where cp.async lands the next chunk's fresh
 //         planes while this chunk is computed;
-//   mid   the n_f fields of the intermediate sweeps (depth > 1), the two
-//         buffers of fused_stencil_temporal.cu used in turn;
 //   the tap table and operator starts.
 // Per chunk: wait for pf, copy it behind the carried halo in work, start
-// the next chunk's copy into pf, run the sweeps (the last writes the
-// chunk's output to device memory), then copy the last 2h0 planes of work
-// to its front (tau0 planes at a time, since source and destination
-// overlap when tau0 < 2h0). The reference copies the carried planes the
-// same way (emit.py:680). The copies cost one shared-memory load and
-// store per element and (tau0 + 2h0) / tau0 per fresh plane; at depth
-// S > 1 the intermediate sweeps' regions would need rings of their own.
+// the next chunk's copy into pf, run the sweep (it writes the chunk's
+// output to device memory), then copy the last 2r0 planes of work to its
+// front (tau0 planes at a time, since source and destination overlap when
+// tau0 < 2r0). The reference copies the carried planes the same way
+// (emit.py:680). The copies cost one shared-memory load and store per
+// element and (tau0 + 2r0) / tau0 per fresh plane.
 // Where the port departs from the reference's single walk: the stream
 // axis may be cut into segments (blockIdx.z, StencilPlan.segments), each
 // staging its own leading 2h0 planes, so that a grid of few cross tiles
@@ -73,16 +78,15 @@
 // arithmetic. The MHD RHS is bound by operations (2,368 stencil FLOP
 // plus ~246 for phi per point); all 8 fields stay resident, so no
 // window is staged twice.
-// At S > 1 every chunk recomputes its widened z margin (as the reference
-// does); keeping each sweep's planes rolling along z instead is later
-// work (ROADMAP B3d).
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
+#include "persistent.cuh"
 #include "phi_mhd.cuh"
 #include "stencil_common.cuh"
 #include "stencil_sweep.cuh"
 #include "stream_body.cuh"
+#include "temporal_walk_body.cuh"
 
 namespace {
 
@@ -94,13 +98,11 @@ __host__ __device__ inline Box fresh_box(const Geometry& g) {
   return {g.t[0], w.y, w.x};
 }
 
-// Byte offsets of the shared-memory layout: work | pf | mid[0], mid[1]
-// (all n_f fields of the sweeps s = 0, 2, ... and s = 1, 3, ... before
-// the last; sized for s = 0 and s = 1) | taps | op starts; every buffer
-// padded to 16 bytes. repro_torch/kernels/plan.py:stream_smem_bytes
-// mirrors it.
+// Byte offsets of stream_kernel's shared-memory layout: work | pf | taps |
+// op starts; every buffer but the last padded to 16 bytes.
+// repro_torch/kernels/plan.py:stream_smem_bytes mirrors it.
 struct Layout {
-  size_t work, pf, mid[2], taps, starts, total;
+  size_t work, pf, taps, starts, total;
 };
 
 template <typename T>
@@ -111,11 +113,6 @@ __host__ __device__ inline Layout layout(const Geometry& g) {
   off += round_up16(size_t(g.n_f) * region(g, -1).size() * sizeof(T));
   L.pf = off;
   off += round_up16(size_t(g.n_f) * fresh_box(g).size() * sizeof(T));
-  for (int i = 0; i < 2; ++i) {
-    L.mid[i] = off;
-    if (i < g.fuse_steps - 1)
-      off += round_up16(size_t(g.n_f) * region(g, i).size() * sizeof(T));
-  }
   L.taps = off;
   off += size_t(g.n_taps) * sizeof(Tap<T>);
   L.starts = off;
@@ -124,33 +121,30 @@ __host__ __device__ inline Layout layout(const Geometry& g) {
   return L;
 }
 
-// Shared memory allows one block per SM at the planner's MHD tiles, so
-// the MHD kind may use up to 255 registers a thread.
-template <typename T, int KIND>
-__global__ void __launch_bounds__(KIND == KIND_SELECT ? 1024 : 256, 1)
+// Depth 1, the MHD RHS (in f64: the one launch the planner gives it).
+// Shared memory allows one block per SM at the planner's MHD tiles, so it
+// may use up to 255 registers a thread.
+template <typename T>
+__global__ void __launch_bounds__(256, 1)
     stream_kernel(const T* __restrict__ f, T* __restrict__ out,
                   const int* __restrict__ tap_off,
                   const double* __restrict__ tap_coef,
                   const int* __restrict__ op_start,
                   const __grid_constant__ Geometry g) {
+  constexpr int KIND = KIND_MHD_RHS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const Layout L = layout<T>(g);
-  const int S = g.fuse_steps;
   const Box wbox = region(g, -1);
+  const Box rb = region(g, 0);
   const Box fbox = fresh_box(g);
   const int plane = wbox.y * wbox.x;
-  const int carried = 2 * g.r[0] * S;  // planes carried chunk to chunk
+  const int carried = 2 * g.r[0];  // planes carried chunk to chunk
   T* work = reinterpret_cast<T*>(smem_raw + L.work);
   T* pf = reinterpret_cast<T*>(smem_raw + L.pf);
-  // Buffers by parity of the sweep, chosen without indexing L at run
-  // time (which would put L in local memory).
-  auto mid = [&](int s) {
-    return reinterpret_cast<T*>(smem_raw + ((s & 1) ? L.mid[1] : L.mid[0]));
-  };
   Tap<T>* taps = reinterpret_cast<Tap<T>*>(smem_raw + L.taps);
   int* start = reinterpret_cast<int*>(smem_raw + L.starts);
 
-  using Eval = ScalarEval<T, KIND == KIND_SELECT>;
+  using Eval = ScalarEval<T, false>;
   const int tid = threadIdx.x;
   const int nthr = blockDim.x;
   for (int i = tid; i < g.n_taps; i += nthr)
@@ -191,7 +185,7 @@ __global__ void __launch_bounds__(KIND == KIND_SELECT ? 1024 : 256, 1)
   stage((long long)first * g.t[0], work, Box{carried, wbox.y, wbox.x},
         wbox.size());
   stage((long long)first * g.t[0] + carried, pf, fbox, fbox.size());
-  if (S == 1) set_tap_offsets(taps, tap_off, g.n_taps, wbox, tid, nthr);
+  set_tap_offsets(taps, tap_off, g.n_taps, wbox, tid, nthr);
 
   for (int c = first; c < last; ++c) {
     // Land this chunk's fresh planes behind the carried halo; the
@@ -208,34 +202,18 @@ __global__ void __launch_bounds__(KIND == KIND_SELECT ? 1024 : 256, 1)
       stage((long long)(c + 1) * g.t[0] + carried, pf, fbox, fbox.size());
 
     const long long zc = (long long)c * g.t[0];
-    for (int s = 0; s < S; ++s) {
-      const Box src = region(g, s - 1);
-      const Box rb = region(g, s);
-      if (S > 1) set_tap_offsets(taps, tap_off, g.n_taps, src, tid, nthr);
-      const T* fin = s == 0 ? work : mid(s - 1);
-      if (s == S - 1) {
-        sweep<T, KIND>(
-            g, fin, src, rb, Eval(g, taps, start), prm_row(g, s), nullptr,
-            [&](int j, const Point& q, int, T v) {
-              out[obase + j * ofield + (zc + q.z) * osz + (y0 + q.y) * osy +
-                  x0 + q.x] = v;
-            },
-            tid, nthr);
-      } else {
-        T* next = mid(s);
-        sweep<T, KIND>(
-            g, fin, src, rb, Eval(g, taps, start), prm_row(g, s), nullptr,
-            [&](int j, const Point&, int p, T v) {
-              next[j * rb.size() + p] = v;
-            },
-            tid, nthr);
-      }
-    }
+    sweep<T, KIND>(
+        g, work, wbox, rb, Eval(g, taps, start), prm_row(g, 0), nullptr,
+        [&](int j, const Point& q, int, T v) {
+          out[obase + j * ofield + (zc + q.z) * osz + (y0 + q.y) * osy + x0 +
+              q.x] = v;
+        },
+        tid, nthr);
 
-    // Carry: the last 2h0 planes of work become the next chunk's leading
+    // Carry: the last 2r0 planes of work become the next chunk's leading
     // halo, tau0 planes at a time so no copy reads a plane already
     // overwritten (the last batch ends at the next chunk's barrier).
-    __syncthreads();  // every sweep has read work
+    __syncthreads();  // the sweep has read work
     for (int b0 = 0; b0 < carried; b0 += g.t[0]) {
       const int n = min(g.t[0], carried - b0) * plane;
       for (int i = tid; i < g.n_f * n; i += nthr) {
@@ -263,54 +241,86 @@ __global__ void __launch_bounds__(stream::max_threads<KIND>(),
                                   smem_raw);
 }
 
-// The kinds the depth-1 body takes: select, and the MHD RHS in f32 (in
-// f64 its ring and phi's inputs leave a tile of 64 points, under the
-// one-buffer body's 128 threads).
-template <typename T, int KIND>
-constexpr bool takes_ring() {
-  return KIND == KIND_SELECT || sizeof(T) == 4;
-}
-
 // Whether a launch runs the depth-1 body: depth 1 with outputs per thread
 // in the geometry (emit.geometry sets them for the kinds the body takes).
 inline bool ring_body(const Geometry& g) {
   return g.fuse_steps == 1 && g.u_out > 0;
 }
 
+// Whether a launch runs the walk body: depth > 1 with outputs per thread
+// in the geometry (emit.geometry sets them for the stream walk).
+inline bool walk_launch(const Geometry& g) {
+  return g.fuse_steps > 1 && g.u_out > 0;
+}
+
 template <typename T>
 size_t smem_bytes(const Geometry& g) {
+  if (walk_launch(g)) return walk::walk_layout<T>(g).total;
   return ring_body(g) ? stream::ring_layout<T>(g).total
                       : layout<T>(g).total;
 }
 
-template <typename T, int KIND>
-cudaError_t launch(const void* f, void* out, const void* tap_off,
-                   const void* tap_coef, const void* op_start,
-                   Geometry g, cudaStream_t stream) {
-  const size_t smem = smem_bytes<T>(g);
-  const bool ring = ring_body(g);
-  auto kernel = stream_kernel<T, KIND>;
-  if (ring) {
-    // The body's threads, outputs per thread and ring (select reads a
-    // chunk while 1-2 are in flight; MHD fetches during phi).
-    const int min_buf = KIND == KIND_SELECT ? 2 : 1;
-    if (!stream::built_for<KIND>(g.u_out) || g.n_thr % 32 ||
-        g.n_thr > stream::max_threads<KIND>() || g.n_buf < min_buf ||
-        g.n_buf > min_buf + 2 ||
-        (g.u_out > 1 && g.t[1] * g.t[2] % (32 * g.u_out) != 0))
-      return cudaErrorInvalidValue;
-    if constexpr (!takes_ring<T, KIND>()) {
-      return cudaErrorInvalidValue;
-    } else if constexpr (KIND == KIND_SELECT) {
-      kernel = g.u_out == 4   ? stream_d1_kernel<T, KIND, 4>
-               : g.u_out == 2 ? stream_d1_kernel<T, KIND, 2>
-                              : stream_d1_kernel<T, KIND, 1>;
-    } else {
-      kernel = stream_d1_kernel<T, KIND, 1>;
-    }
-  } else if (g.n_thr > (KIND == KIND_SELECT ? 1024 : 256)) {
-    return cudaErrorInvalidValue;
+// The walk body at depth > 1, select only: at most 128 registers a thread
+// (512 threads x 1 block an SM in f32, 256 x 2 in f64).
+template <typename T>
+__global__ void __launch_bounds__(walk::MAX_THREADS, 1)
+    stream_walk_kernel(const T* __restrict__ f, T* __restrict__ out,
+                       const int* __restrict__ tap_off,
+                       const double* __restrict__ tap_coef,
+                       const int* __restrict__ op_start,
+                       const __grid_constant__ Geometry g) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  walk::walk_body<T, KIND_SELECT, walk::outputs<KIND_SELECT>()>(
+      f, nullptr, out, tap_off, tap_coef, op_start, g, smem_raw);
+}
+
+// One walk launch, or (grid != nullptr) the grid a launch would take:
+// persistent.cuh's persistent_grid over the launch's columns.
+template <typename T>
+cudaError_t walk_run(const void* f, void* out, const void* tap_off,
+                     const void* tap_coef, const void* op_start,
+                     const Geometry& g, int device, cudaStream_t stream,
+                     long long* grid) {
+  const size_t smem = walk::walk_layout<T>(g).total;
+  const long long items = (long long)(g.n[2] / g.t[2]) * (g.n[1] / g.t[1]) *
+                          g.n_seg * g.n_b;
+  long long blocks = 0;
+  const cudaError_t err = persistent_grid<stream_walk_kernel<T>>(
+      g.n_thr, smem, device, items, blocks);
+  if (err != cudaSuccess || grid) {
+    if (grid) *grid = blocks;
+    return err;
   }
+  stream_walk_kernel<T><<<unsigned(blocks), g.n_thr, smem, stream>>>(
+      static_cast<const T*>(f), static_cast<T*>(out),
+      static_cast<const int*>(tap_off), static_cast<const double*>(tap_coef),
+      static_cast<const int*>(op_start), g);
+  return cudaGetLastError();
+}
+
+// The walk's launch or grid query: the select kind in f32 or f64.
+cudaError_t walk_dispatch(int kind, int dtype, const void* f, void* out,
+                          const void* tap_off, const void* tap_coef,
+                          const void* op_start, const Geometry& g,
+                          int device, cudaStream_t st, long long* grid) {
+  if (kind != KIND_SELECT || !walk::valid(g, KIND_SELECT))
+    return cudaErrorInvalidValue;
+  if (dtype == DTYPE_F32)
+    return walk_run<float>(f, out, tap_off, tap_coef, op_start, g, device,
+                           st, grid);
+  if (dtype == DTYPE_F64)
+    return walk_run<double>(f, out, tap_off, tap_coef, op_start, g, device,
+                            st, grid);
+  return cudaErrorInvalidValue;
+}
+
+// One launch of `kernel` on a grid of (x tiles, y tiles, members x
+// segments) blocks of g.n_thr threads and `smem` bytes of shared memory.
+template <typename T, typename Kernel>
+cudaError_t grid_launch(Kernel kernel, const void* f, void* out,
+                        const void* tap_off, const void* tap_coef,
+                        const void* op_start, Geometry g, size_t smem,
+                        cudaStream_t stream) {
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
@@ -325,6 +335,40 @@ cudaError_t launch(const void* f, void* out, const void* tap_off,
       static_cast<const int*>(tap_off), static_cast<const double*>(tap_coef),
       static_cast<const int*>(op_start), g);
   return cudaGetLastError();
+}
+
+// One launch of the depth-1 ring body (select, or the MHD RHS in f32).
+template <typename T, int KIND>
+cudaError_t ring_launch(const void* f, void* out, const void* tap_off,
+                        const void* tap_coef, const void* op_start,
+                        const Geometry& g, cudaStream_t stream) {
+  // The body's threads, outputs per thread and ring (select reads a chunk
+  // while 1-2 are in flight; MHD fetches during phi).
+  const int min_buf = KIND == KIND_SELECT ? 2 : 1;
+  if (!stream::built_for<KIND>(g.u_out) || g.n_thr % 32 ||
+      g.n_thr > stream::max_threads<KIND>() || g.n_buf < min_buf ||
+      g.n_buf > min_buf + 2 ||
+      (g.u_out > 1 && g.t[1] * g.t[2] % (32 * g.u_out) != 0))
+    return cudaErrorInvalidValue;
+  auto kernel = stream_d1_kernel<T, KIND, 1>;
+  if constexpr (KIND == KIND_SELECT)
+    kernel = g.u_out == 4   ? stream_d1_kernel<T, KIND, 4>
+             : g.u_out == 2 ? stream_d1_kernel<T, KIND, 2>
+                            : stream_d1_kernel<T, KIND, 1>;
+  return grid_launch<T>(kernel, f, out, tap_off, tap_coef, op_start, g,
+                        stream::ring_layout<T>(g).total, stream);
+}
+
+// One launch of stream_kernel: depth 1, the MHD RHS in f64.
+cudaError_t buffer_launch(const void* f, void* out, const void* tap_off,
+                          const void* tap_coef, const void* op_start,
+                          const Geometry& g, cudaStream_t stream) {
+  if (g.fuse_steps != 1 || g.n_thr > 256 || g.n_f != mhd::N_FIELDS ||
+      g.n_slots != mhd::N_SLOTS)
+    return cudaErrorInvalidValue;
+  return grid_launch<double>(stream_kernel<double>, f, out, tap_off,
+                             tap_coef, op_start, g, layout<double>(g).total,
+                             stream);
 }
 
 }  // namespace
@@ -353,26 +397,47 @@ int repro_fused_stencil_stream(const void* f, const void* aux, void* out,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype != DTYPE_F32 && dtype != DTYPE_F64)  // bf16 waits for B3c
     return int(cudaErrorInvalidValue);
+  if (walk_launch(g))
+    return int(walk_dispatch(kind, dtype, f, out, tap_off, tap_coef,
+                             op_start, g, device, st, nullptr));
+  if (!ring_body(g)) {
+    if (kind != KIND_MHD_RHS || dtype != DTYPE_F64)
+      return int(cudaErrorInvalidValue);
+    return int(buffer_launch(f, out, tap_off, tap_coef, op_start, g, st));
+  }
   switch (kind * 2 + (dtype == DTYPE_F64 ? 1 : 0)) {
     case KIND_SELECT * 2:
-      return int(launch<float, KIND_SELECT>(f, out, tap_off, tap_coef,
-                                            op_start, g, st));
+      return int(ring_launch<float, KIND_SELECT>(f, out, tap_off, tap_coef,
+                                                 op_start, g, st));
     case KIND_SELECT * 2 + 1:
-      return int(launch<double, KIND_SELECT>(f, out, tap_off, tap_coef,
-                                             op_start, g, st));
+      return int(ring_launch<double, KIND_SELECT>(f, out, tap_off, tap_coef,
+                                                  op_start, g, st));
     case KIND_MHD_RHS * 2:
-      return int(launch<float, KIND_MHD_RHS>(f, out, tap_off, tap_coef,
-                                             op_start, g, st));
-    case KIND_MHD_RHS * 2 + 1:
-      return int(launch<double, KIND_MHD_RHS>(f, out, tap_off, tap_coef,
-                                              op_start, g, st));
-    default:  // mhd_substep needs aux, which swc_stream refuses
+      return int(ring_launch<float, KIND_MHD_RHS>(f, out, tap_off, tap_coef,
+                                                  op_start, g, st));
+    default:  // mhd_substep needs aux, which swc_stream refuses; the f64
+              // MHD RHS takes the one-buffer body
       return int(cudaErrorInvalidValue);
   }
 }
 
 const char* repro_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// The blocks a walk launch of `geom` takes (the persistent grid), or a
+// negative cudaError_t (the other bodies have no persistent grid).
+long long repro_fused_stencil_stream_grid(const int* geom, int kind,
+                                          int dtype, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return -(long long)err;
+  Geometry g;
+  if (!read_geometry(geom, nullptr, 0, g) || !walk_launch(g))
+    return -(long long)cudaErrorInvalidValue;
+  long long grid = 0;
+  err = walk_dispatch(kind, dtype, nullptr, nullptr, nullptr, nullptr,
+                      nullptr, g, device, nullptr, &grid);
+  return err == cudaSuccess ? grid : -(long long)err;
 }
 
 // Shared memory one block of this kernel uses for `geom` (the plan's

@@ -7,12 +7,17 @@
 // (line 565); at depth S > 1 the reference runs _kernel_temporal with
 // derivs_fn=_block_derivs_tc (emit.py:549-554).
 //
-// Two bodies. Depth 1 is tc_body.cuh: persistent blocks walking the
+// Three bodies. Depth 1 is tc_body.cuh: persistent blocks walking the
 // output tiles with windows in flight, the band as ready MMA fragments,
 // operator sums in registers (its header says how and why). Depth S > 1
-// runs the sweeps of temporal_body.cuh, shared with
-// fused_stencil_temporal.cu, with the tensor-core evaluator TcEval below
-// in place of the tap table.
+// (the geometry's table words G_TABW > 0: select in f32 and bf16 at ranks
+// 2 and 3, the MHD kinds in f32) is tc_walk_body.cuh: the column walk of
+// temporal_walk_body.cuh, rings of planes per sweep read where they land,
+// with tc_body.cuh's patch contraction. Rank 1 at depth S > 1 (select
+// only, tiles of 512 points, little margin to save) keeps the sweeps of
+// temporal_body.cuh, shared with fused_stencil_temporal.cu, with the
+// tensor-core evaluator TcEval below in place of the tap table; a depth
+// S > 1 launch of an MHD kind without the walk's table is refused.
 //
 // What both compute. The taps of every operator are split as the
 // reference's tc_axis_groups splits them (repro_torch/kernels/plan.py,
@@ -31,7 +36,7 @@
 //   rounded to f32 once per group, closer to the exact sum than the plain
 //   f32 version (chip_smoke.py prints the error).
 //
-// TcEval (depth > 1). Every contraction is cut into 8-wide output
+// TcEval (depth > 1, rank 1, select only). Every contraction is cut into 8-wide output
 // segments along its axis, the n of mma.sync, and all segments share one
 // band B[k][n] = c[k - n] (k - n in [0, 2r], else 0) of 8 + 2r rows,
 // contracted in ceil((8 + 2r) / 16) bf16 or ceil((8 + 2r) / 4) f64
@@ -40,10 +45,9 @@
 // segment) pairs taken in order. Window values beyond a row's 8 + 2r, or
 // past the staged extent, are masked to zero, and a masked output is never
 // stored. Each warp owns the same row-segment tiles for every group of one
-// axis and sums those groups in registers; the block writes the
-// per-operator f32 sums into a shared-memory tile between axes and phi's
-// thread reads its point's slots from it. MHD takes its points in batches
-// of one per thread, each batch's planes contracted per field.
+// axis and sums those groups in registers; the block writes the operator's
+// f32 sums into a shared-memory tile between axes and phi's thread reads
+// its point's sum from it.
 //
 // Bound on an H100 SXM: 3.35 TB/s; tensor cores 989 TFLOP/s bf16, 67
 // TFLOP/s f64. Diffusion is bound by bytes, the MHD RHS by operations.
@@ -58,6 +62,7 @@
 #include "stencil_common.cuh"
 #include "stencil_sweep.cuh"
 #include "tc_body.cuh"
+#include "tc_walk_body.cuh"
 #include "temporal_body.cuh"
 
 namespace {
@@ -72,14 +77,10 @@ using namespace stencil::tc;
 // group axis's radius; per operator the start of its groups (ENT_LEN and
 // the E_* columns are tc_body.cuh's).
 
-// Points of the f32 sum tiles, per operator slot: sweep 0's region for
-// select (its fields are contracted whole), one batch of n_thr points
-// and the two planes it may straddle for MHD.
+// Points of the f32 sum tile: sweep 0's region (a select field is
+// contracted whole).
 __host__ __device__ inline int acc_points(const Geometry& g) {
-  const Box r0 = region(g, 0);
-  if (g.n_slots == 1) return r0.size();
-  const int cap = g.n_thr + 2 * r0.y * r0.x;
-  return cap < r0.size() ? cap : r0.size();
+  return region(g, 0).size();
 }
 
 // One row-segment of a contraction along axis a: its first window index
@@ -92,8 +93,9 @@ struct RowSeg {
   int local;  // box index of output n = 0
 };
 
-// The tensor-core derivative evaluator (see stencil_sweep.cuh for the
-// interface). T is float (f64 MMA) or __nv_bfloat16 (bf16 MMA).
+// The tensor-core derivative evaluator of the select kind (see
+// stencil_sweep.cuh for the interface; it reads slot 0's operator). T is
+// float (f64 MMA) or __nv_bfloat16 (bf16 MMA).
 template <typename T>
 struct TcEval {
   static constexpr bool kCooperative = true;
@@ -102,23 +104,20 @@ struct TcEval {
   const int* __restrict__ ent;
   const double* __restrict__ coef;
   const int* __restrict__ estart;
-  float* acc;  // n_slots x cap f32 sums
-  int cap;
-  int axes;  // bit a: some slot's operator has a group on axis a
+  float* acc;  // the operator's f32 sums over sweep 0's region
+  int axes;    // bit a: the operator has a group on axis a
 
   __host__ __device__ static size_t smem_bytes(const Geometry& g) {
-    return size_t(g.n_slots) * acc_points(g) * sizeof(float);
+    return size_t(acc_points(g)) * sizeof(float);
   }
 
   __device__ TcEval(const Geometry& g, unsigned char* smem, const int* e,
                     const double* c, const int* s, int, int)
       : ent(e), coef(c), estart(s), acc(reinterpret_cast<float*>(smem)),
-        cap(acc_points(g)), axes(0) {
-    for (int sl = 0; sl < g.n_slots; ++sl) {
-      const int op = g.slot[sl];
-      for (int i = __ldg(estart + op); i < __ldg(estart + op + 1); ++i)
-        axes |= 1 << __ldg(ent + i * ENT_LEN + E_AXIS);
-    }
+        axes(0) {
+    const int op = g.slot[0];
+    for (int i = __ldg(estart + op); i < __ldg(estart + op + 1); ++i)
+      axes |= 1 << __ldg(ent + i * ENT_LEN + E_AXIS);
   }
 
   __device__ void set_source(const Box&, int, int) const {
@@ -127,15 +126,13 @@ struct TcEval {
   __device__ void done() const {
     __syncthreads();  // every thread has read the sums
   }
-  __device__ T value(const Geometry&, int sl, const T*, int,
-                     int local) const {
-    return from_float<T>(acc[sl * cap + local]);
+  __device__ T value(const Geometry&, int, const T*, int, int local) const {
+    return from_float<T>(acc[local]);
   }
 
-  // The f32 sums of every slot's operator at every point of planes
-  // [zlo, zhi] of region rb, from one field `fld` of extents src whose
-  // first plane is region plane zsrc - r. Ends with the sums visible to
-  // the block.
+  // The f32 sums of slot 0's operator at every point of planes [zlo, zhi]
+  // of region rb, from one field `fld` of extents src whose first plane is
+  // region plane zsrc - r. Ends with the sums visible to the block.
   __device__ void prepare(const Geometry& g, const T* __restrict__ fld,
                           const Box& src, const Box& rb, int zlo, int zhi,
                           int zsrc, int tid, int nthr) const {
@@ -188,14 +185,10 @@ struct TcEval {
           ok[i] = r.valid && r.seg0 + n < ta;
           loc[i] = r.local + n * ostr[a];
         }
-        for (int sl = 0; sl < g.n_slots; ++sl) {
-          const int op = g.slot[sl];
+        {
+          const int op = g.slot[0];
           const int eb = __ldg(estart + op), ee = __ldg(estart + op + 1);
-          bool any = false;
-          for (int e = eb; e < ee; ++e)
-            any |= __ldg(ent + e * ENT_LEN + E_AXIS) == a;
-          if (!any) continue;
-          float* out = acc + sl * cap;
+          float* out = acc;
           const bool first = __ldg(ent + eb * ENT_LEN + E_AXIS) == a;
           float sum[ROWS / 4];
 #pragma unroll
@@ -295,16 +288,16 @@ struct TcEval {
   }
 };
 
-template <typename T, int KIND>
-__global__ void __launch_bounds__(KIND == KIND_SELECT ? 1024 : 256, 1)
-    tc_kernel(const T* __restrict__ f, const T* __restrict__ aux,
-              T* __restrict__ out, const int* __restrict__ ent,
-              const double* __restrict__ coef,
+// Depth S > 1 at rank 1, select only: one tile per block.
+template <typename T>
+__global__ void __launch_bounds__(1024, 1)
+    tc_kernel(const T* __restrict__ f, T* __restrict__ out,
+              const int* __restrict__ ent, const double* __restrict__ coef,
               const int* __restrict__ estart,
               const __grid_constant__ Geometry g) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  temporal_body<T, KIND, TcEval<T>>(f, aux, out, ent, coef, estart, g,
-                                    smem_raw);
+  temporal_body<T, KIND_SELECT, TcEval<T>>(f, nullptr, out, ent, coef,
+                                           estart, g, smem_raw);
 }
 
 // Depth 1: persistent blocks (tc_body.cuh). select runs 8 warps with at
@@ -321,12 +314,51 @@ __global__ void __launch_bounds__(
   tc_body<T, KIND>(f, aux, out, table, g, smem_raw);
 }
 
+// Depth S > 1 on the walk (tc_walk_body.cuh): 16 warps, at most 128
+// registers a thread, one block an SM.
 template <typename T, int KIND>
-cudaError_t launch(const void* f, const void* aux, void* out,
-                   const void* ent, const void* coef, const void* estart,
-                   Geometry g, cudaStream_t stream) {
+__global__ void __launch_bounds__(tcwalk::THREADS, 1)
+    tc_walk_kernel(const T* __restrict__ f, const T* __restrict__ aux,
+                   T* __restrict__ out, const int* __restrict__ table,
+                   const __grid_constant__ Geometry g) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  tcwalk::tc_walk_body<T, KIND>(f, aux, out, table, g, smem_raw);
+}
+
+// Whether a launch runs the walk: depth > 1 with the depth-1 table in the
+// geometry (emit.geometry hands it over for the plans that walk).
+inline bool walk_launch(const Geometry& g) {
+  return g.fuse_steps > 1 && g.table_words > 0;
+}
+
+// One walk launch, or (grid != nullptr) the grid a launch would take:
+// persistent.cuh's persistent_grid over the launch's columns.
+template <typename T, int KIND>
+cudaError_t walk_run(const void* f, const void* aux, void* out,
+                     const void* table, const Geometry& g, int device,
+                     cudaStream_t stream, long long* grid) {
+  const size_t smem = tcwalk::tc_walk_layout<T>(g).total;
+  const long long items = (long long)(g.n[2] / g.t[2]) * (g.n[1] / g.t[1]) *
+                          g.n_seg * g.n_b;
+  long long blocks = 0;
+  const cudaError_t err = persistent_grid<tc_walk_kernel<T, KIND>>(
+      g.n_thr, smem, device, items, blocks);
+  if (err != cudaSuccess || grid) {
+    if (grid) *grid = blocks;
+    return err;
+  }
+  tc_walk_kernel<T, KIND><<<unsigned(blocks), g.n_thr, smem, stream>>>(
+      static_cast<const T*>(f), static_cast<const T*>(aux),
+      static_cast<T*>(out), static_cast<const int*>(table), g);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch(const void* f, void* out, const void* ent,
+                   const void* coef, const void* estart, Geometry g,
+                   cudaStream_t stream) {
   const size_t smem = temporal_layout<T, TcEval<T>>(g).total;
-  auto kernel = tc_kernel<T, KIND>;
+  auto kernel = tc_kernel<T>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
@@ -337,9 +369,9 @@ cudaError_t launch(const void* f, const void* aux, void* out,
   const dim3 block(g.n_thr);
   const dim3 grid(g.n[2] / g.t[2], g.n[1] / g.t[1], gz);
   kernel<<<grid, block, smem, stream>>>(
-      static_cast<const T*>(f), static_cast<const T*>(aux),
-      static_cast<T*>(out), static_cast<const int*>(ent),
-      static_cast<const double*>(coef), static_cast<const int*>(estart), g);
+      static_cast<const T*>(f), static_cast<T*>(out),
+      static_cast<const int*>(ent), static_cast<const double*>(coef),
+      static_cast<const int*>(estart), g);
   return cudaGetLastError();
 }
 
@@ -373,6 +405,20 @@ bool valid_tc(const Geometry& g, int kind) {
     if (2 * g.r[a] + 1 > g.coef_len) return false;  // a band row per group
   if ((kind == KIND_SELECT) != (g.n_slots == 1) || g.unroll != 1)
     return false;
+  if (walk_launch(g)) {
+    // The walk's threads and ring, the slots and aux of its kind, tiles
+    // and segments that divide.
+    const int n_aux = kind == KIND_MHD_SUBSTEP ? mhd::N_FIELDS : 0;
+    if ((kind != KIND_SELECT &&
+         (g.n_f != mhd::N_FIELDS || g.n_slots != mhd::N_SLOTS)) ||
+        g.n_aux != n_aux || g.n_thr != tcwalk::THREADS || g.n_buf < 1 ||
+        g.n_buf > 2 || g.n_seg < 1 || g.n_b < 1 || (n_aux && g.n_b != 1) ||
+        g.n[0] % g.n_seg || g.n_ops < 1)
+      return false;
+    for (int a = 0; a < 3; ++a)
+      if (g.t[a] < 1 || g.n[a] % g.t[a]) return false;
+    return g.t[0] <= g.n[0] / g.n_seg;
+  }
   if (g.fuse_steps == 1) {
     const int tx = g.t[2] * g.tps;
     return (g.n_buf == 2 || g.n_buf == 3) && g.tps >= 1 && tx > 0 &&
@@ -381,21 +427,28 @@ bool valid_tc(const Geometry& g, int kind) {
            (kind == KIND_SELECT ||
             (g.n_f == mhd::N_FIELDS && g.n_slots == mhd::N_SLOTS));
   }
-  return g.n_buf >= 1 && g.n_buf <= 2 && g.n_thr >= 32 &&
-         g.n_thr % 32 == 0 && g.n_thr <= (kind == KIND_SELECT ? 1024 : 256);
+  // Depth S > 1 without the walk: rank 1, select only.
+  return kind == KIND_SELECT && g.n_aux == 0 && g.n_buf >= 1 &&
+         g.n_buf <= 2 && g.n_thr >= 32 && g.n_thr % 32 == 0 &&
+         g.n_thr <= 1024;
 }
 
-// One launch (grid == nullptr) or one depth-1 grid query of (kind,
-// dtype): f64 is not a tc type, and bf16 MHD waits for ROADMAP B4b.
+// One launch (grid == nullptr) or one grid query (depth 1 or the walk) of
+// (kind, dtype): f64 is not a tc type, and bf16 MHD waits for ROADMAP B4b.
+// The one-tile body at depth > 1 takes the select kind only (valid_tc).
 template <typename T, int KIND>
 cudaError_t run(const void* f, const void* aux, void* out, const void* ent,
                 const void* coef, const void* estart, const void* table,
                 const Geometry& g, int device, cudaStream_t stream,
                 long long* grid) {
+  if (walk_launch(g))
+    return walk_run<T, KIND>(f, aux, out, table, g, device, stream, grid);
   if (grid) return d1_grid<T, KIND>(g, device, *grid);
   if (g.fuse_steps == 1)
     return launch_d1<T, KIND>(f, aux, out, table, g, device, stream);
-  return launch<T, KIND>(f, aux, out, ent, coef, estart, g, stream);
+  if constexpr (KIND == KIND_SELECT)
+    return launch<T>(f, out, ent, coef, estart, g, stream);
+  return cudaErrorInvalidValue;
 }
 
 cudaError_t dispatch(int kind, int dtype, const void* f, const void* aux,
@@ -449,15 +502,15 @@ int repro_fused_stencil_tc(const void* f, const void* aux, void* out,
                       nullptr));
 }
 
-// The blocks a depth-1 launch of `geom` takes (d1_grid), or a negative
-// cudaError_t.
+// The blocks a depth-1 or walk launch of `geom` takes (d1_grid, the walk's
+// persistent grid), or a negative cudaError_t.
 long long repro_fused_stencil_tc_grid(const int* geom, int kind, int dtype,
                                       int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return -(long long)err;
   Geometry g;
-  if (!read_geometry(geom, nullptr, 0, g) || g.fuse_steps != 1 ||
-      !valid_tc(g, kind))
+  if (!read_geometry(geom, nullptr, 0, g) ||
+      (g.fuse_steps != 1 && !walk_launch(g)) || !valid_tc(g, kind))
     return -(long long)cudaErrorInvalidValue;
   long long grid = 0;
   err = dispatch(kind, dtype, nullptr, nullptr, nullptr, nullptr, nullptr,
@@ -475,6 +528,16 @@ long long repro_fused_stencil_tc_smem_bytes(const int* geom, int dtype) {
   Geometry g;
   if (!read_geometry(geom, nullptr, 0, g)) return -1;
   const bool d1 = g.fuse_steps == 1;
+  if (walk_launch(g)) {
+    switch (dtype) {
+      case DTYPE_F32:
+        return (long long)tcwalk::tc_walk_layout<float>(g).total;
+      case DTYPE_BF16:
+        return (long long)tcwalk::tc_walk_layout<__nv_bfloat16>(g).total;
+      default:
+        return -1;
+    }
+  }
   switch (dtype) {
     case DTYPE_F32:
       return d1 ? (long long)tc_layout<float>(g).total

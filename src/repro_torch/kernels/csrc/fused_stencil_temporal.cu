@@ -124,27 +124,6 @@ __global__ void __launch_bounds__(walk::MAX_THREADS, 1)
 // (emit.geometry sets them for the plans that take it).
 inline bool walk_launch(const Geometry& g) { return g.u_out > 0; }
 
-// The walk's rules: the select kind (one operator, no aux) or an MHD kind
-// (8 fields, 10 slots, the substep's 8 aux rows), the threads, outputs and
-// ring it is built for, tiles and segments that divide.
-inline bool walk_valid(const Geometry& g, int kind) {
-  const bool select = kind == KIND_SELECT;
-  const int n_aux = kind == KIND_MHD_SUBSTEP ? mhd::N_FIELDS : 0;
-  if (select ? g.n_slots != 1
-             : g.n_f != mhd::N_FIELDS || g.n_slots != mhd::N_SLOTS)
-    return false;
-  const int outputs = select ? walk::outputs<KIND_SELECT>()
-                             : walk::outputs<KIND_MHD_RHS>();
-  if (g.n_aux != n_aux || g.u_out != outputs || g.n_thr < 32 || g.n_thr % 32 ||
-      g.n_thr > walk::MAX_THREADS || g.n_buf < 1 || g.n_buf > 2 ||
-      g.n_seg < 1 || g.n_b < 1 || (n_aux && g.n_b != 1) ||
-      g.n[0] % g.n_seg)
-    return false;
-  for (int a = 0; a < 3; ++a)
-    if (g.t[a] < 1 || g.n[a] % g.t[a]) return false;
-  return g.t[0] <= g.n[0] / g.n_seg;
-}
-
 // One walk launch, or (grid != nullptr) the grid a launch would take:
 // persistent.cuh's persistent_grid over the launch's columns.
 template <typename T, int KIND>
@@ -218,7 +197,7 @@ int repro_fused_stencil_temporal(const void* f, const void* aux, void* out,
     return int(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (walk_launch(g)) {
-    if (!walk_valid(g, kind) || (aux != nullptr) != (g.n_aux > 0))
+    if (!walk::valid(g, kind) || (aux != nullptr) != (g.n_aux > 0))
       return int(cudaErrorInvalidValue);
     return int(walk_dispatch(kind, dtype, f, aux, out, tap_off, tap_coef,
                              op_start, g, device, st, nullptr));
@@ -258,7 +237,7 @@ long long repro_fused_stencil_temporal_grid(const int* geom, int kind,
   if (err != cudaSuccess) return -(long long)err;
   Geometry g;
   if (!read_geometry(geom, nullptr, 0, g) || !walk_launch(g) ||
-      !walk_valid(g, kind))
+      !walk::valid(g, kind))
     return -(long long)cudaErrorInvalidValue;
   long long grid = 0;
   err = walk_dispatch(kind, dtype, nullptr, nullptr, nullptr, nullptr,

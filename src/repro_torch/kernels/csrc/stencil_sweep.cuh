@@ -122,7 +122,8 @@ __device__ __forceinline__ void mhd_phi(
 // A derivative evaluator: how a sweep gets the value of operator slot
 // `sl` of one field at one point. Two exist: ScalarEval (below: the
 // tap table, point by point, for swc) and TcEval (fused_stencil_tc.cu:
-// banded contractions on the tensor cores, for tc). An evaluator with
+// banded contractions on the tensor cores, for tc at rank 1, select
+// only). An evaluator with
 // kCooperative set first computes a box of points with the whole block
 // (prepare), then hands out values by the point's index in that box
 // (value), and wants the block to have read them before the next
@@ -201,8 +202,7 @@ struct ScalarEval {
 // - select: each output row reads one field, so the threads loop over
 //   (field, point) pairs (a cooperative evaluator: field by field).
 // - MHD: phi reads 10 operators x 8 fields per point, kept in registers;
-//   the threads loop over points (a cooperative evaluator: in batches of
-//   one point per thread, each batch's planes evaluated field by field).
+//   the threads loop over points (a point-by-point evaluator only).
 template <typename T, int KIND, class Eval, typename Store>
 __device__ __forceinline__ void sweep(const Geometry& g,
                                       const T* __restrict__ fin,
@@ -210,6 +210,8 @@ __device__ __forceinline__ void sweep(const Geometry& g,
                                       const Eval& ev, const double* prm,
                                       const T* cin, Store store, int tid,
                                       int nthr) {
+  static_assert(KIND == KIND_SELECT || !Eval::kCooperative,
+                "a cooperative evaluator runs the select kind only");
   if constexpr (KIND == KIND_SELECT && !Eval::kCooperative) {
     for (int i = tid; i < g.n_f * rb.size(); i += nthr) {
       const int k = i / rb.size();
@@ -231,7 +233,7 @@ __device__ __forceinline__ void sweep(const Geometry& g,
       }
       ev.done();
     }
-  } else if constexpr (!Eval::kCooperative) {
+  } else {
     const SweepPhi<T> ph(prm);
     for (int p = tid; p < rb.size(); p += nthr) {
       const Point q = unflatten(p, rb);
@@ -246,33 +248,6 @@ __device__ __forceinline__ void sweep(const Geometry& g,
       const T* a = KIND == KIND_MHD_SUBSTEP ? cin + p : nullptr;
       mhd_phi<T, KIND>(d, ph, a, rb.size(),
                        [&](int j, T v) { store(j, q, p, v); });
-    }
-  } else {
-    const SweepPhi<T> ph(prm);
-    const int plane = rb.y * rb.x;
-    for (int p0 = 0; p0 < rb.size(); p0 += nthr) {
-      const int p = p0 + tid;
-      const bool live = p < rb.size();
-      const Point q = unflatten(live ? p : p0, rb);
-      const int zlo = p0 / plane;
-      const int zhi = (min(p0 + nthr, rb.size()) - 1) / plane;
-      const int center = index_in(q, g.r[0], g.r[1], g.r[2], src);
-      const int local = (live ? p : p0) - zlo * plane;
-      T d[mhd::N_SLOTS][mhd::N_FIELDS];
-#pragma unroll
-      for (int k = 0; k < mhd::N_FIELDS; ++k) {
-        const T* fk = fin + k * src.size();
-        ev.prepare(g, fk, src, rb, zlo, zhi, 0, tid, nthr);
-#pragma unroll
-        for (int sl = 0; sl < mhd::N_SLOTS; ++sl)
-          d[sl][k] = ev.value(g, sl, fk, center, local);
-        ev.done();
-      }
-      if (live) {
-        const T* a = KIND == KIND_MHD_SUBSTEP ? cin + p : nullptr;
-        mhd_phi<T, KIND>(d, ph, a, rb.size(),
-                         [&](int j, T v) { store(j, q, p, v); });
-      }
     }
   }
 }

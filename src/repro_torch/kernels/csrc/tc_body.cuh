@@ -9,8 +9,9 @@
 // a banded contraction accumulated in f32 with the band in the field
 // type, a lone tap (c in T) x value rounded in T, the groups summed in f32
 // in sorted (axis, rest) order (z, then y, then x), the sum cast to T once
-// per operator, then phi. Depth > 1 stays on temporal_body.cuh with
-// TcEval.
+// per operator, then phi. Depth > 1 walks tile columns with this body's
+// patch contraction (tc_walk_body.cuh); rank 1 there keeps
+// temporal_body.cuh with TcEval.
 //
 // Design, on an H100 (132 SMs, 228 KB of shared memory each; 3.35 TB/s;
 // 67 TFLOP/s on the f64 MMA, 989 on bf16). Diffusion is bound by bytes,

@@ -1,9 +1,10 @@
 // The body of a launch of S >= 1 fused sweeps on one staged tile, shared
-// by fused_stencil_temporal.cu (swc at depth > 1, the tap-table
-// evaluator) and fused_stencil_tc.cu (tc at every depth, the
-// tensor-core evaluator): one source of truth for the sweep arithmetic
-// (the shrinking regions, the staging of sweep 0, the intermediate
-// fields and the aux carry) whatever evaluates the derivatives.
+// by fused_stencil_temporal.cu (swc at depth > 1 where it does not walk,
+// the tap-table evaluator) and fused_stencil_tc.cu (tc at depth > 1 at
+// rank 1, select only, the tensor-core evaluator): one source of truth
+// for the sweep arithmetic (the shrinking regions, the staging of sweep 0,
+// the intermediate fields and the aux carry) whatever evaluates the
+// derivatives.
 //
 // Sweep s evaluates every operator over the tile widened by r*(S-1-s)
 // and applies phi_s. Rows [0, n_f) of an intermediate sweep are the next

@@ -4,6 +4,13 @@
 // keeping its planes in a ring of its own, so the widened z margin of every
 // sweep is evaluated once per column segment instead of once per tile.
 //
+// The walk of the columns (walk_columns: fetches, steps, sweeps, ring
+// offsets) is shared with tc_walk_body.cuh, which contracts each sweep's
+// planes on the tensor cores instead. phi's stores stay each body's own:
+// here the ring and carry offsets and the aux strides are set once a
+// sweep or a block (a shared store function that set them per point cost
+// the f32 MHD pair 2%, PERF.md).
+//
 // Design, on an H100 (132 SMs, 228 KB of shared memory each; 3.35 TB/s).
 // Diffusion is bound by bytes. What held the one-tile body
 // (temporal_body.cuh) back was the redundant work of its 3-D tiles (sweep
@@ -191,64 +198,74 @@ __host__ __device__ inline Layout walk_layout(const Geometry& g) {
   return L;
 }
 
-template <typename T, int KIND, int U>
-__device__ __forceinline__ void walk_body(
-    const T* __restrict__ f, const T* __restrict__ aux, T* __restrict__ out,
-    const int* __restrict__ tap_off, const double* __restrict__ tap_coef,
-    const int* __restrict__ op_start, const Geometry& g,
-    unsigned char* smem) {
+// The walk's rules (the temporal and the stream kernel ask them): the
+// select kind (one operator, no aux) or an MHD kind (8 fields, 10 slots,
+// the substep's 8 aux rows), the threads, outputs and ring it is built for,
+// tiles and segments that divide.
+inline bool valid(const Geometry& g, int kind) {
+  const bool select = kind == KIND_SELECT;
+  const int n_aux = kind == KIND_MHD_SUBSTEP ? mhd::N_FIELDS : 0;
+  if (select ? g.n_slots != 1
+             : g.n_f != mhd::N_FIELDS || g.n_slots != mhd::N_SLOTS)
+    return false;
+  const int u = select ? outputs<KIND_SELECT>() : outputs<KIND_MHD_RHS>();
+  if (g.n_aux != n_aux || g.u_out != u || g.n_thr < 32 || g.n_thr % 32 ||
+      g.n_thr > MAX_THREADS || g.n_buf < 1 || g.n_buf > 2 || g.n_seg < 1 ||
+      g.n_b < 1 || (n_aux && g.n_b != 1) || g.n[0] % g.n_seg)
+    return false;
+  for (int a = 0; a < 3; ++a)
+    if (g.t[a] < 1 || g.n[a] % g.t[a]) return false;
+  return g.t[0] <= g.n[0] / g.n_seg;
+}
+
+// One sweep's planes at one step of a column, as walk_columns hands them
+// to a body: sweep s computes its planes [lo, hi) (numbered from its
+// region's first, rz(S-1-s) before the segment's first output plane) over
+// its region (wy, wx). It reads src: element (field k, slot c, row y,
+// column x) at src + k sf + c ss + y sp + x, the input ring (s = 0) or
+// ring s - 1, whose plane z + rz of sweep s - 1 is sweep s's plane z's
+// centre (slot = centre(z)); it writes ring s (dst: field k's plane z at
+// (k q + z mod q) wy wx) or, in the last sweep, the column's outputs
+// (ocol). The substep's carry: cin (ring s - 1), cout (ring s).
+template <typename T>
+struct SweepAt {
+  int s, lo, hi;
+  bool last;
+  int wy, wx;
+  const T* src;
+  int sp, ss, sf, per;
+  T* dst;
+  const T* cin;
+  T* cout;
+  T* ocol;
+  int z0, y0, x0;  // the column's origin (first output plane, row, x)
+  __device__ int centre(int z, int rz) const { return (z + rz) % per; }
+};
+
+// The walk of tile columns that both walk bodies share (this one and
+// tc_walk_body.cuh): persistent blocks over (member, segment, y, x)
+// columns (Walker); per column the input ring filled by 16-byte cp.async
+// into rows and slots congruent to the padded field's modulo 16 bytes,
+// step i's planes fetched NB - 1 steps ahead (with one stage once sweep 0
+// has read the ring); per step every sweep's planes that the landed planes
+// allow, handed to body(SweepAt) with a barrier between sweeps.
+// plan.walk_schedule mirrors it.
+template <typename T, typename Body>
+__device__ __forceinline__ void walk_columns(const T* __restrict__ f,
+                                             T* __restrict__ out,
+                                             const Geometry& g,
+                                             const Shape& sh, size_t mid,
+                                             size_t carry,
+                                             unsigned char* smem,
+                                             Body&& body) {
   constexpr int V = 16 / sizeof(T);
-  constexpr bool kSelect = KIND == KIND_SELECT;
-  const Shape sh = walk_shape<T>(g);
-  const Layout L = walk_layout<T>(g);
-  const int S = g.fuse_steps, nf = g.n_f, nt = g.n_taps;
-  const int P = sh.period, Q = sh.q, C = sh.cq;
-  const int rz = g.r[0], ry = g.r[1], rx = g.r[2];
+  const int S = g.fuse_steps, nf = g.n_f;
+  const int P = sh.period, Q = sh.q;
+  const int rx = g.r[2], ry = g.r[1];
   T* ring = reinterpret_cast<T*>(smem);
-  FastDiv* div = reinterpret_cast<FastDiv*>(smem + L.div);
-  Tap<T>* taps = reinterpret_cast<Tap<T>*>(smem + L.taps);
-  T* sums = reinterpret_cast<T*>(smem + L.sums);
   const int tid = threadIdx.x, nthr = blockDim.x;
-
-  // Once per block: each sweep's divisors (its region's x, and its runs
-  // of 32 U points per plane for select, its points per plane for MHD)
-  // and the tap rows of every ring.
-  for (int s = tid; s < S; s += nthr) {
-    const int wx = region_x(g, s), pts = region_y(g, s) * wx;
-    div[2 * s] = FastDiv(wx);
-    div[2 * s + 1] = FastDiv(kSelect ? cdiv(pts, 32 * U) : pts);
-  }
-  const int rows = P + (S - 1) * Q;
-  for (int i = tid; i < rows * nt; i += nthr) {
-    const int row = i / nt, t = i - row * nt;
-    int per = P, c = row, pitch = sh.pitch, plane = sh.plane;
-    if (row >= P) {  // ring s's row c
-      const int s = (row - P) / Q;
-      c = row - P - s * Q;
-      per = Q;
-      pitch = region_x(g, s);
-      plane = region_y(g, s) * pitch;
-    }
-    int dz = tap_off[3 * t], dy = tap_off[3 * t + 1];
-    if (ry == 0) {  // rank 2 lifted: dy runs along the walk
-      dz += dy;
-      dy = 0;
-    }
-    int zc = c + dz;
-    zc += zc < 0 ? per : 0;
-    zc -= zc >= per ? per : 0;
-    taps[i].coef = cast_coef<T>(tap_coef[t]);  // cast before the multiply
-    taps[i].offset = (zc - c) * plane + dy * pitch + tap_off[3 * t + 2];
-  }
-  const int b0 = op_start[g.slot[0]], e0 = op_start[g.slot[0] + 1];
-
   const long long psy = g.p[2], psz = psy * g.p[1], pfield = psz * g.p[0];
   const long long osy = g.n[2], osz = osy * g.n[1], ofield = osz * g.n[0];
-  // The substep's aux w, padded by r (S - 1), read by sweep 0 (no batch:
-  // the planner refuses a batched aux at depth > 1).
-  const long long asy = g.n[2] + 2 * rx * (S - 1);
-  const long long asz = asy * (g.n[1] + 2 * ry * (S - 1));
-  const long long afield = asz * (g.n[0] + 2 * rz * (S - 1));
   const unsigned usz = unsigned(psz), usy = unsigned(psy),
                  uf = unsigned(pfield);
   Walker wk;
@@ -273,21 +290,19 @@ __device__ __forceinline__ void walk_body(
   const int planes = sh.seg + sh.lead * S;
   const int steps = cdiv(sh.seg + sh.lead * (S - 1), sh.tau);
   const int cq = cdiv(sh.wx + V - 1, V);  // most chunks a row covers
-  const FastDiv by_cq(cq), by_wy(sh.wy), by_nf(nf), by_P(P), by_Q(Q),
-      by_C(C);
-  const int lane = tid & 31, warp = tid >> 5, warps = nthr >> 5;
+  const FastDiv by_cq(cq), by_wy(sh.wy), by_P(P);
 
   Walk w = wk.at(blockIdx.x);
   for (long long it = blockIdx.x; it < items; it += gridDim.x) {
-    const long long z0 = (long long)w.iz * sh.seg;
-    const long long y0 = (long long)w.iy * sh.ty;
-    const long long x0 = (long long)w.ix * sh.tx;
+    SweepAt<T> sa{0, 0, 0, false, 0, 0, nullptr, 0, 0, 0, 0, nullptr,
+                 nullptr, nullptr, nullptr, w.iz * sh.seg, w.iy * sh.ty,
+                 w.ix * sh.tx};
     // The column's window starts at padded plane z0 (its first output
     // plane's window) and padded row and column (y0, x0).
-    const T* column = f + (long long)w.m * nf * pfield + z0 * psz +
-                      y0 * psy + x0;
-    T* ocol = out + (long long)w.m * g.n_out * ofield + z0 * osz +
-              y0 * osy + x0;
+    const T* column = f + (long long)w.m * nf * pfield + sa.z0 * psz +
+                      sa.y0 * psy + sa.x0;
+    sa.ocol = out + (long long)w.m * g.n_out * ofield + sa.z0 * osz +
+              sa.y0 * osy + sa.x0;
     const unsigned sb = unsigned(reinterpret_cast<uintptr_t>(column) /
                                  sizeof(T));
     const int s0 = int(sb & (V - 1));
@@ -342,165 +357,40 @@ __device__ __forceinline__ void walk_body(
         fetch_step(i + NB - 1);
         cp_async_commit();
       }
-      size_t src_at = 0, dst_at = L.mid;  // rings read and written
-      size_t cin_at = 0, cout_at = L.carry;  // carry rings likewise
+      size_t src_at = 0, dst_at = mid;  // rings read and written
+      size_t cin_at = 0, cout_at = carry;  // carry rings likewise
       for (int s = 0; s < S; ++s) {
-        const int m = S - 1 - s;
-        const int wy = region_y(g, s), wx = region_x(g, s), pts = wy * wx;
+        sa.s = s;
+        sa.wy = region_y(g, s);
+        sa.wx = region_x(g, s);
         // Sweep s's planes (numbered from its region's first) that the
         // planes landed so far allow and it has not computed yet.
-        const int K = sh.seg + sh.lead * m;
-        const int hi = min(K, (i + 1) * sh.tau - sh.lead * s);
-        const int lo = max(0, min(K, i * sh.tau - sh.lead * s));
-        const bool last = s == S - 1;
-        if (hi > lo) {
+        const int K = sh.seg + sh.lead * (S - 1 - s);
+        sa.hi = min(K, (i + 1) * sh.tau - sh.lead * s);
+        sa.lo = max(0, min(K, i * sh.tau - sh.lead * s));
+        sa.last = s == S - 1;
+        if (sa.hi > sa.lo) {
           // Where sweep s reads: the input ring, or ring s - 1 (its
           // region one radius wider than sweep s's on every side).
-          const T* src;
-          int sp, ss, sf, row0;
           if (s == 0) {
-            src = ring + s0;
-            sp = sh.pitch;
-            ss = sh.plane;
-            sf = sh.fstride;
-            row0 = 0;
+            sa.src = ring + s0;
+            sa.sp = sh.pitch;
+            sa.ss = sh.plane;
+            sa.sf = sh.fstride;
+            sa.per = P;
           } else {
-            src = reinterpret_cast<const T*>(smem + src_at);
-            sp = wx + 2 * rx;
-            ss = (wy + 2 * ry) * sp;
-            sf = Q * ss;
-            row0 = P + (s - 1) * Q;
+            sa.src = reinterpret_cast<const T*>(smem + src_at);
+            sa.sp = sa.wx + 2 * rx;
+            sa.ss = (sa.wy + 2 * ry) * sa.sp;
+            sa.sf = Q * sa.ss;
+            sa.per = Q;
           }
-          T* dst = reinterpret_cast<T*>(smem + dst_at);
-          const FastDiv by_wx = div[2 * s], by_2 = div[2 * s + 1];
-          // Sweep s's plane z: its centre plane's slot in the source ring.
-          auto centre = [&](int z) {
-            const int c = z + rz;
-            return c - (s == 0 ? by_P(c) * P : by_Q(c) * Q);
-          };
-          if constexpr (kSelect) {
-            const int R = cdiv(pts, 32 * U);
-            const int runs = (hi - lo) * nf * R;
-            for (int j = warp; j < runs; j += warps) {
-              const int pf = by_2(j), r = j - pf * R;
-              const int pl = by_nf(pf), k = pf - pl * nf;
-              const int z = lo + pl;  // sweep s's plane
-              const int c = centre(z);
-              const T* __restrict__ wsrc =
-                  src + k * sf + c * ss + ry * sp + rx;
-              const Tap<T>* __restrict__ trow = taps + (row0 + c) * nt;
-              int cen[U], at[U];
-              bool live[U];
-#pragma unroll
-              for (int u = 0; u < U; ++u) {
-                const int p = r * 32 * U + lane + 32 * u;
-                live[u] = p < pts;
-                const int pp = live[u] ? p : pts - 1;
-                const int y = by_wx(pp), x = pp - y * wx;
-                cen[u] = y * sp + x;
-                at[u] = last ? int(y * osy) + x : pp;
-              }
-              // out[k] = op_slot0(f[k]): its taps, in table order, into U
-              // sums, one tap read for U multiply-adds.
-              T acc[U];
-#pragma unroll
-              for (int u = 0; u < U; ++u) acc[u] = T(0);
-#pragma unroll 4
-              for (int t = b0; t < e0; ++t) {
-                const Tap<T> tap = trow[t];
-#pragma unroll
-                for (int u = 0; u < U; ++u)
-                  acc[u] = swc::mac(tap.coef, wsrc[cen[u] + tap.offset],
-                                    acc[u]);
-              }
-              T* o = last ? ocol + k * ofield + z * osz
-                          : dst + (k * Q + z - by_Q(z) * Q) * pts;
-#pragma unroll
-              for (int u = 0; u < U; ++u)
-                if (live[u]) o[at[u]] = acc[u];
-            }
-          } else {
-            // MHD, in batches of MHD_BATCH points of the step's planes:
-            // one (field, point) item a thread evaluates the slots phi
-            // reads on its field, one at a time, into the shared tile;
-            // then one thread a point runs phi.
-            constexpr bool kSub = KIND == KIND_MHD_SUBSTEP;
-            const SweepPhi<T> ph(prm_row(g, s));
-            const int wy1 = wy - 2 * ry, wx1 = wx - 2 * rx;  // region s+1
-            const T* cin = reinterpret_cast<const T*>(smem + cin_at);
-            T* cout = reinterpret_cast<T*>(smem + cout_at);
-            const int total = (hi - lo) * pts;
-            for (int p0 = 0; p0 < total; p0 += MHD_BATCH) {
-              const int nb = min(MHD_BATCH, total - p0);
-              for (int it2 = tid; it2 < nf * MHD_BATCH; it2 += nthr) {
-                const int k = it2 / MHD_BATCH, j = it2 - k * MHD_BATCH;
-                if (j >= nb) continue;
-                const int p = p0 + j, pl = by_2(p), q = p - pl * pts;
-                const int y = by_wx(q), x = q - y * wx;
-                const int c = centre(lo + pl);
-                const T* __restrict__ wsrc =
-                    src + k * sf + c * ss + (y + ry) * sp + x + rx;
-                const Tap<T>* __restrict__ trow = taps + (row0 + c) * nt;
-                for (int sl = 0; sl < mhd::N_SLOTS; ++sl) {
-                  if (!((mhd::fields_read(sl, kSub) >> k) & 1u)) continue;
-                  const int op = g.slot[sl];
-                  T acc = T(0);
-                  const int e = op_start[op + 1];
-#pragma unroll 4
-                  for (int t = op_start[op]; t < e; ++t) {
-                    const Tap<T> tap = trow[t];
-                    acc = swc::mac(tap.coef, wsrc[tap.offset], acc);
-                  }
-                  sums[(sl * mhd::N_FIELDS + k) * MHD_BATCH + j] = acc;
-                }
-              }
-              __syncthreads();  // every field's sums are in
-              for (int j = tid; j < nb; j += nthr) {
-                const int p = p0 + j, pl = by_2(p), q = p - pl * pts;
-                const int y = by_wx(q), x = q - y * wx;
-                const int z = lo + pl;
-                // (The loads of the pairs phi does not read are never
-                // made.)
-                T d[mhd::N_SLOTS][mhd::N_FIELDS];
-#pragma unroll
-                for (int sl = 0; sl < mhd::N_SLOTS; ++sl)
-#pragma unroll
-                  for (int kk = 0; kk < mhd::N_FIELDS; ++kk)
-                    d[sl][kk] = sums[(sl * mhd::N_FIELDS + kk) * MHD_BATCH +
-                                     j];
-                // The substep's w at the point: aux in sweep 0, else the
-                // carry sweep s - 1 wrote (its plane z + rz).
-                const T* a = nullptr;
-                long long astride = 0;
-                if constexpr (kSub) {
-                  if (s == 0) {
-                    a = aux + (z0 + z) * asz + (y0 + y) * asy + x0 + x;
-                    astride = afield;
-                  } else {
-                    const int cz = z + rz - by_C(z + rz) * C;
-                    a = cin + cz * pts + y * wx + x;
-                    astride = (long long)C * pts;
-                  }
-                }
-                const int zq = z - by_Q(z) * Q, zc = z - by_C(z) * C;
-                const int cy = y - ry, cx = x - rx;
-                const bool cut = cy >= 0 && cy < wy1 && cx >= 0 && cx < wx1;
-                mhd_phi<T, KIND>(d, ph, a, astride, [&](int jr, T v) {
-                  if (last) {
-                    ocol[jr * ofield + z * osz + y * osy + x] = v;
-                  } else if (jr < nf) {
-                    dst[(jr * Q + zq) * pts + y * wx + x] = v;
-                  } else if (cut) {  // w', cut to sweep s + 1's region
-                    cout[((jr - nf) * C + zc) * wy1 * wx1 + cy * wx1 + cx] =
-                        v;
-                  }
-                });
-              }
-              __syncthreads();  // the tile is read before the next batch
-            }
-          }
+          sa.dst = reinterpret_cast<T*>(smem + dst_at);
+          sa.cin = reinterpret_cast<const T*>(smem + cin_at);
+          sa.cout = reinterpret_cast<T*>(smem + cout_at);
+          body(static_cast<const SweepAt<T>&>(sa));
         }
-        if (!last) {
+        if (!sa.last) {
           __syncthreads();  // sweep s's planes are in for sweep s + 1
           if (s == 0 && NB == 1) {  // sweep 0 has read the input ring
             fetch_step(i + 1);
@@ -515,6 +405,198 @@ __device__ __forceinline__ void walk_body(
     }
     wk.next(w);
   }
+}
+
+template <typename T, int KIND, int U>
+__device__ __forceinline__ void walk_body(
+    const T* __restrict__ f, const T* __restrict__ aux, T* __restrict__ out,
+    const int* __restrict__ tap_off, const double* __restrict__ tap_coef,
+    const int* __restrict__ op_start, const Geometry& g,
+    unsigned char* smem) {
+  constexpr bool kSelect = KIND == KIND_SELECT;
+  const Shape sh = walk_shape<T>(g);
+  const Layout L = walk_layout<T>(g);
+  const int S = g.fuse_steps, nf = g.n_f, nt = g.n_taps;
+  const int P = sh.period, Q = sh.q;
+  const int rz = g.r[0], ry = g.r[1], rx = g.r[2];
+  FastDiv* div = reinterpret_cast<FastDiv*>(smem + L.div);
+  Tap<T>* taps = reinterpret_cast<Tap<T>*>(smem + L.taps);
+  T* sums = reinterpret_cast<T*>(smem + L.sums);
+  const int tid = threadIdx.x, nthr = blockDim.x;
+
+  // Once per block: each sweep's divisors (its region's x, and its runs
+  // of 32 U points per plane for select, its points per plane for MHD)
+  // and the tap rows of every ring.
+  for (int s = tid; s < S; s += nthr) {
+    const int wx = region_x(g, s), pts = region_y(g, s) * wx;
+    div[2 * s] = FastDiv(wx);
+    div[2 * s + 1] = FastDiv(kSelect ? cdiv(pts, 32 * U) : pts);
+  }
+  const int rows = P + (S - 1) * Q;
+  for (int i = tid; i < rows * nt; i += nthr) {
+    const int row = i / nt, t = i - row * nt;
+    int per = P, c = row, pitch = sh.pitch, plane = sh.plane;
+    if (row >= P) {  // ring s's row c
+      const int s = (row - P) / Q;
+      c = row - P - s * Q;
+      per = Q;
+      pitch = region_x(g, s);
+      plane = region_y(g, s) * pitch;
+    }
+    int dz = tap_off[3 * t], dy = tap_off[3 * t + 1];
+    if (ry == 0) {  // rank 2 lifted: dy runs along the walk
+      dz += dy;
+      dy = 0;
+    }
+    int zc = c + dz;
+    zc += zc < 0 ? per : 0;
+    zc -= zc >= per ? per : 0;
+    taps[i].coef = cast_coef<T>(tap_coef[t]);  // cast before the multiply
+    taps[i].offset = (zc - c) * plane + dy * pitch + tap_off[3 * t + 2];
+  }
+  const int b0 = op_start[g.slot[0]], e0 = op_start[g.slot[0] + 1];
+  const long long osy = g.n[2], osz = osy * g.n[1], ofield = osz * g.n[0];
+  // The substep's aux w, padded by r (S - 1), read by sweep 0 (no batch:
+  // the planner refuses a batched aux at depth > 1).
+  const long long asy = g.n[2] + 2 * rx * (S - 1);
+  const long long asz = asy * (g.n[1] + 2 * ry * (S - 1));
+  const long long afield = asz * (g.n[0] + 2 * rz * (S - 1));
+  const FastDiv by_nf(nf), by_P(P), by_Q(Q), by_C(sh.cq);
+  const int lane = tid & 31, warp = tid >> 5, warps = nthr >> 5;
+
+  walk_columns<T>(f, out, g, sh, L.mid, L.carry, smem,
+                  [&](const SweepAt<T>& a) {
+    const int s = a.s, wy = a.wy, wx = a.wx, pts = wy * wx;
+    const int sp = a.sp, ss = a.ss, sf = a.sf;
+    const int row0 = s == 0 ? 0 : P + (s - 1) * Q;  // its tap rows
+    const FastDiv by_wx = div[2 * s], by_2 = div[2 * s + 1];
+    // Sweep s's plane z: its centre plane's slot in the source ring.
+    auto centre = [&](int z) {
+      const int c = z + rz;
+      return c - (s == 0 ? by_P(c) * P : by_Q(c) * Q);
+    };
+    if constexpr (kSelect) {
+      const int R = cdiv(pts, 32 * U);
+      const int runs = (a.hi - a.lo) * nf * R;
+      for (int j = warp; j < runs; j += warps) {
+        const int pf = by_2(j), r = j - pf * R;
+        const int pl = by_nf(pf), k = pf - pl * nf;
+        const int z = a.lo + pl;  // sweep s's plane
+        const int c = centre(z);
+        const T* __restrict__ wsrc = a.src + k * sf + c * ss + ry * sp + rx;
+        const Tap<T>* __restrict__ trow = taps + (row0 + c) * nt;
+        int cen[U], at[U];
+        bool live[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int p = r * 32 * U + lane + 32 * u;
+          live[u] = p < pts;
+          const int pp = live[u] ? p : pts - 1;
+          const int y = by_wx(pp), x = pp - y * wx;
+          cen[u] = y * sp + x;
+          at[u] = a.last ? int(y * osy) + x : pp;
+        }
+        // out[k] = op_slot0(f[k]): its taps, in table order, into U sums,
+        // one tap read for U multiply-adds.
+        T acc[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) acc[u] = T(0);
+#pragma unroll 4
+        for (int t = b0; t < e0; ++t) {
+          const Tap<T> tap = trow[t];
+#pragma unroll
+          for (int u = 0; u < U; ++u)
+            acc[u] = swc::mac(tap.coef, wsrc[cen[u] + tap.offset], acc[u]);
+        }
+        T* o = a.last ? a.ocol + k * ofield + z * osz
+                      : a.dst + (k * Q + z - by_Q(z) * Q) * pts;
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+          if (live[u]) o[at[u]] = acc[u];
+      }
+    } else {
+      // MHD, in batches of MHD_BATCH points of the step's planes: one
+      // (field, point) item a thread evaluates the slots phi reads on its
+      // field, one at a time, into the shared tile; then one thread a
+      // point runs phi.
+      constexpr bool kSub = KIND == KIND_MHD_SUBSTEP;
+      const SweepPhi<T> ph(prm_row(g, s));
+      const int total = (a.hi - a.lo) * pts;
+      const int wy1 = wy - 2 * ry, wx1 = wx - 2 * rx;  // region s + 1
+      const int C = sh.cq;  // carry slots
+      const T* cin = a.cin;
+      T* cout = a.cout;
+      T* dst = a.dst;
+      T* ocol = a.ocol;
+      const bool last = a.last;
+      const long long z0 = a.z0, y0 = a.y0, x0 = a.x0;
+      for (int p0 = 0; p0 < total; p0 += MHD_BATCH) {
+        const int nb = min(MHD_BATCH, total - p0);
+        for (int it2 = tid; it2 < nf * MHD_BATCH; it2 += nthr) {
+          const int k = it2 / MHD_BATCH, j = it2 - k * MHD_BATCH;
+          if (j >= nb) continue;
+          const int p = p0 + j, pl = by_2(p), q = p - pl * pts;
+          const int y = by_wx(q), x = q - y * wx;
+          const int c = centre(a.lo + pl);
+          const T* __restrict__ wsrc =
+              a.src + k * sf + c * ss + (y + ry) * sp + x + rx;
+          const Tap<T>* __restrict__ trow = taps + (row0 + c) * nt;
+          for (int sl = 0; sl < mhd::N_SLOTS; ++sl) {
+            if (!((mhd::fields_read(sl, kSub) >> k) & 1u)) continue;
+            const int op = g.slot[sl];
+            T acc = T(0);
+            const int e = op_start[op + 1];
+#pragma unroll 4
+            for (int t = op_start[op]; t < e; ++t) {
+              const Tap<T> tap = trow[t];
+              acc = swc::mac(tap.coef, wsrc[tap.offset], acc);
+            }
+            sums[(sl * mhd::N_FIELDS + k) * MHD_BATCH + j] = acc;
+          }
+        }
+        __syncthreads();  // every field's sums are in
+        for (int j = tid; j < nb; j += nthr) {
+          const int p = p0 + j, pl = by_2(p), q = p - pl * pts;
+          const int y = by_wx(q), x = q - y * wx;
+          // (The loads of the pairs phi does not read are never made.)
+          T d[mhd::N_SLOTS][mhd::N_FIELDS];
+#pragma unroll
+          for (int sl = 0; sl < mhd::N_SLOTS; ++sl)
+#pragma unroll
+            for (int kk = 0; kk < mhd::N_FIELDS; ++kk)
+              d[sl][kk] = sums[(sl * mhd::N_FIELDS + kk) * MHD_BATCH + j];
+          const int z = a.lo + pl;
+          // The substep's w at the point: aux in sweep 0, else the carry
+          // sweep s - 1 wrote (its plane z + rz).
+          const T* aw = nullptr;
+          long long astride = 0;
+          if constexpr (kSub) {
+            if (s == 0) {
+              aw = aux + (z0 + z) * asz + (y0 + y) * asy + x0 + x;
+              astride = afield;
+            } else {
+              const int cz = z + rz - by_C(z + rz) * C;
+              aw = cin + cz * pts + y * wx + x;
+              astride = (long long)C * pts;
+            }
+          }
+          const int zq = z - by_Q(z) * Q, zc = z - by_C(z) * C;
+          const int cy = y - ry, cx = x - rx;
+          const bool cut = cy >= 0 && cy < wy1 && cx >= 0 && cx < wx1;
+          mhd_phi<T, KIND>(d, ph, aw, astride, [&](int jr, T v) {
+            if (last) {
+              ocol[jr * ofield + z * osz + y * osy + x] = v;
+            } else if (jr < nf) {
+              dst[(jr * Q + zq) * pts + y * wx + x] = v;
+            } else if (cut) {  // w', cut to sweep s + 1's region
+              cout[((jr - nf) * C + zc) * wy1 * wx1 + cy * wx1 + cx] = v;
+            }
+          });
+        }
+        __syncthreads();  // the tile is read before the next batch
+      }
+    }
+  });
 }
 
 }  // namespace walk

@@ -12,10 +12,14 @@ kinds :func:`~repro_torch.kernels.plan.walk_kind` takes a persistent walk
 of tile columns, ``csrc/temporal_walk_body.cuh``),
 ``csrc/fused_stencil_stream.cu`` for ``swc_stream`` at any depth (at
 depth 1 its ring body, ``csrc/stream_body.cuh``, for the kinds
-:func:`~repro_torch.kernels.plan.stream_ring_kind` takes),
+:func:`~repro_torch.kernels.plan.stream_ring_kind` takes; deeper, for
+the kinds :func:`~repro_torch.kernels.plan.walk_kind` takes, the temporal
+kernel's walk body under the stream kernel's name),
 ``csrc/fused_stencil_tc.cu`` for ``tc`` at any depth (at depth 1 a
-persistent kernel, ``csrc/tc_body.cuh``; deeper, the temporal kernel's
-sweeps with the tensor-core evaluator; it takes the operator set's
+persistent kernel, ``csrc/tc_body.cuh``; deeper, for the kinds
+:func:`~repro_torch.kernels.plan.walk_kind` takes, a walk of tile columns,
+``csrc/tc_walk_body.cuh``, and at rank 1 the temporal kernel's sweeps
+with the tensor-core evaluator; it takes the operator set's
 :func:`tc_table` instead of the tap table). A CPU tensor goes to
 the plain version (``ref.fused_stencil`` or, at depth > 1,
 ``ref.fused_stencil_steps``, with the φs' ``torch_fn``; their
@@ -49,6 +53,7 @@ from repro_torch.kernels.plan import (
     is_ensemble,
     tc_axis_groups,
     tc_band_ksteps,
+    tc_lifted_axes,
     tc_table_header_words,
 )
 
@@ -95,9 +100,13 @@ def device_tap_table(ops: OperatorSet, device: torch.device) -> TapTable:
     return tuple(t.to(device) for t in tap_table(ops))
 
 
-def tc_table(ops: OperatorSet, dtype: str = "float32") -> TapTable:
+def tc_table(ops: OperatorSet, dtype: str = "float32",
+             walk: bool = False) -> TapTable:
     """The operator set's ``tc`` contraction groups for
-    ``csrc/fused_stencil_tc.cu``, on the CPU, for fields of ``dtype``.
+    ``csrc/fused_stencil_tc.cu``, on the CPU, for fields of ``dtype``;
+    with ``walk``, axes lifted as the tc walk lifts them
+    (:func:`~repro_torch.kernels.plan.tc_lifted_axes`: at rank 2 (Y, X)
+    as (Y, 1, X), Y's groups z arms).
 
     Returns ``(entries, coeffs, starts, table)``: int32 (n_groups, 8)
     rows of (axis lifted to rank 3 — 0 z, 1 y, 2 x —, rest offset (z, y,
@@ -119,7 +128,7 @@ def tc_table(ops: OperatorSet, dtype: str = "float32") -> TapTable:
     y before x.
     """
     rank = ops.ndim
-    lift = 3 - rank
+    axes = tc_lifted_axes(rank, walk)
     radii = ops.radius_per_axis()
     entries, coeffs, starts, data = [], [], [0], []
     width = tc_coef_len(radii)
@@ -130,7 +139,7 @@ def tc_table(ops: OperatorSet, dtype: str = "float32") -> TapTable:
             for j, c in taps:
                 band[j + radii[axis]] = c
             single = len(taps) == 1
-            a = axis + lift
+            a = axes[axis]
             own = band[:2 * radii[axis] + 1]
             if single:
                 words = _band_in([taps[0][1]], dtype).view(np.uint32)
@@ -140,8 +149,11 @@ def tc_table(ops: OperatorSet, dtype: str = "float32") -> TapTable:
                 words = tc_fragments(own, dtype, "y" if a == 1 else "x")
             words = np.concatenate(
                 [words, np.zeros(-words.size % 4, np.uint32)])
+            rest3 = [0, 0, 0]
+            for b, off in zip(axes, rest):
+                rest3[b] = off
             entries.append(
-                [a] + [0] * lift + list(rest)
+                [a] + rest3
                 + [int(single), taps[0][0] if single else 0, n_words, 0]
             )
             data.append(words)
@@ -233,11 +245,11 @@ def tc_coef_len(radii) -> int:
 
 @functools.lru_cache(maxsize=64)
 def device_tc_table(
-    ops: OperatorSet, dtype: str, device: torch.device
+    ops: OperatorSet, dtype: str, device: torch.device, walk: bool = False
 ) -> TapTable:
     """:func:`tc_table` uploaded to ``device``, cached per (ops, dtype,
-    device)."""
-    return tuple(t.to(device) for t in tc_table(ops, dtype))
+    device, walk)."""
+    return tuple(t.to(device) for t in tc_table(ops, dtype, walk))
 
 
 @functools.lru_cache(maxsize=256)
@@ -276,7 +288,8 @@ def _lib(name: str) -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, vp,
     ]
     launch.restype = ctypes.c_int
-    if name in (KERNEL, TC_KERNEL, TEMPORAL_KERNEL):  # the persistent grid
+    if name in (KERNEL, TC_KERNEL, TEMPORAL_KERNEL, STREAM_KERNEL):
+        # the persistent grid
         grid = getattr(lib, f"repro_{name}_grid")
         grid.argtypes = [geom, ctypes.c_int, ctypes.c_int, ctypes.c_int]
         grid.restype = ctypes.c_longlong
@@ -307,13 +320,13 @@ def kernel_smem_bytes(plan: StencilPlan) -> int:
 
 
 def launch_grid(plan: StencilPlan, kind_id: int, device: int = 0) -> int:
-    """Blocks a persistent (depth-1 ``swc`` or ``tc``, or the temporal
-    walk) kernel launches for ``plan`` with the φ kind ``kind_id``: the
-    kernel's resident blocks per SM (its occupancy) times the SMs, at most
+    """Blocks a persistent (depth-1 ``swc`` or ``tc``, or a walk) kernel
+    launches for ``plan`` with the φ kind ``kind_id``: the kernel's
+    resident blocks per SM (its occupancy) times the SMs, at most
     ``plan.walk_items`` (needs the built library and the card)."""
     if not plan.persistent:
-        raise ValueError("only a depth-1 swc or tc plan, or the temporal "
-                         "walk, has a persistent grid")
+        raise ValueError("only a depth-1 swc or tc plan, or a walk, has a "
+                         "persistent grid")
     name = kernel_name(plan)
     slots = list(range(plan.n_slots))
     grid = int(getattr(_lib(name), f"repro_{name}_grid")(
@@ -349,12 +362,12 @@ def _aux_shape(plan: StencilPlan) -> tuple[int, ...]:
 def geometry(plan: StencilPlan, slots: list[int]) -> np.ndarray:
     """The kernel's int geometry array (``GeomIndex`` of
     ``csrc/stencil_common.cuh``): ranks 1/2 lifted to rank 3 with unit
-    extents and zero radii — leading, or on ``swc_stream`` and the
-    temporal walk at rank 2 as y, the walked axis (y) becoming the
-    kernel's z. The tap table's rank-2 offsets (0, dy, dx) need no change
-    for that: with a y extent of 1 they land on the linear offset of (dy,
-    0, dx)."""
-    st = plan.stream_axis is not None or plan.temporal_walk
+    extents and zero radii — leading, or on ``swc_stream`` and the walks
+    at rank 2 as y, the walked axis (y) becoming the kernel's z. The tap
+    table's rank-2 offsets (0, dy, dx) need no change for that: with a y
+    extent of 1 they land on the linear offset of (dy, 0, dx); the tc
+    walk's table is lifted so (``tc_table(..., walk=True)``)."""
+    st = plan.stream_axis is not None or plan.walk
     g = [plan.n_f, plan.n_out, plan.n_aux]
     g += _rank3(plan.interior, 1, st) + _rank3(_padded(plan), 1, st)
     g += _rank3(plan.radii, 0, st) + _rank3(plan.block, 1, st)
@@ -363,10 +376,12 @@ def geometry(plan: StencilPlan, slots: list[int]) -> np.ndarray:
     tc = plan.strategy == "tc"
     g += [plan.batch, tc_coef_len(plan.radii) if tc else 0]
     g += slots + [0] * (MAX_SLOTS - len(slots))
-    # Depth 1: tiles per step and tc's table words (persistent); outputs
-    # per thread on depth-1 swc, and on the bodies a nonzero count selects
-    # (swc_stream's ring body, the temporal walk); 0 elsewhere.
-    u = plan.swc_depth1 or plan.stream_depth1 or plan.temporal_walk
+    # Depth 1: tiles per step and tc's table words (persistent; at depth >
+    # 1 a nonzero count selects the tc walk); outputs per thread on
+    # depth-1 swc, and on the bodies a nonzero count selects (swc_stream's
+    # ring body, the temporal and stream walks); 0 elsewhere.
+    u = (plan.swc_depth1 or plan.stream_depth1 or plan.temporal_walk
+         or plan.stream_walk)
     g += [plan.tiles_per_step if plan.persistent else 0, plan.tc_table_words,
           plan.outputs_per_thread if u else 0]
     return np.asarray(g, dtype=np.int32)
@@ -502,8 +517,10 @@ def fused_stencil_swc(
     ):
         raise ValueError("f_padded and aux must be contiguous")
     if plan.strategy == "tc":
-        taps = device_tc_table(ops, plan.dtype, f_padded.device)
-        if plan.tc_depth1 and taps[3].numel() != plan.tc_table_words:
+        taps = device_tc_table(ops, plan.dtype, f_padded.device,
+                               plan.tc_walk)
+        if (plan.tc_depth1 or plan.tc_walk) and (
+                taps[3].numel() != plan.tc_table_words):
             raise ValueError(
                 f"tc plan made for a table of {plan.tc_table_words} words, "
                 f"the operator set's has {taps[3].numel()}"

@@ -33,9 +33,10 @@ A stream block keeps every field's working set resident: at depth 1
 (select, and the MHD RHS in float32) a ring of plane slots per field
 filled chunks ahead, with a tap row per slot (:func:`stream_ring`,
 :func:`stream_ring_smem_bytes`; its threads each compute
-:func:`stream_outputs` points a round), deeper the one-buffer layout
-(:func:`stream_smem_bytes`); its planner halves the chunk, then the
-cross tile, until it fits.
+:func:`stream_outputs` points a round), the MHD RHS in float64 the
+one-buffer layout (:func:`stream_smem_bytes`), deeper the walk of
+``swc`` (select only: the MHD kinds are refused there); its planner
+halves the chunk, then the cross tile, until it fits.
 
 ``batch`` is the ensemble's member count (port of the reference's
 ``StencilPlan.batch``): the kernels take the member as an outer grid
@@ -57,14 +58,18 @@ kind's (:data:`TC_THREADS`), the launch walks the steps of
 ring of ``stage_buffers`` windows in flight, and shared memory holds
 the ring, the group table with the band's MMA fragments
 (``tc_table_words``) and, for the MHD kinds, φ's f32 inputs
-(:func:`tc_smem_bytes`). At depth > 1 its block
-is 1-D (:attr:`StencilPlan.threads`, a whole number of warps) and loops
-over the points of each sweep's region, so its tile is bounded by
-shared memory, not by the thread limit: the staged windows and the
-intermediate sweeps of :func:`temporal_smem_bytes` plus the f32
-operator sums the contractions write between axes (:func:`tc_acc_points`
-per operator φ reads). The reference's ``TC_MAX_TILE`` cap is kept to
-plan the same tiles.
+(:func:`tc_smem_bytes`). At depth > 1 (select at ranks 2 and 3, the
+f32 MHD kinds) it walks tile columns as ``swc``'s walk does, its planes
+cut into MMA patches (:func:`tc_walk_smem_bytes`, :func:`tc_walk_patches`);
+at rank 1 (select only; a depth > 1 MHD plan that does not walk is
+refused) its block is 1-D (:attr:`StencilPlan.threads`, a whole number
+of warps) and loops over the points of each sweep's region, so its tile
+is bounded by shared memory, not by the thread limit: the staged windows
+and the intermediate sweeps of :func:`temporal_smem_bytes` plus the f32
+operator sums the contractions write between axes
+(:func:`tc_acc_points`). The reference's ``TC_MAX_TILE`` cap is kept to
+plan the same tiles. ``swc_stream`` at depth > 1 walks as ``swc`` does
+(:attr:`StencilPlan.stream_walk`).
 """
 from __future__ import annotations
 
@@ -224,6 +229,23 @@ DEFAULT_WALK_BLOCK2 = (4, 256)
 DEFAULT_WALK_MHD_BLOCK = (1, 4, 16)
 MIN_WALK_X = 8  # the narrowest cross tile the walk's fit tries
 MIN_WALK_ITEMS = 4 * 132
+# swc_stream at depth > 1 runs the same walk body under the stream
+# kernel's name for the select kind (f32, f64, ranks 2 and 3): its chunk is
+# the walk's step, with swc's threads, outputs, stages and default tiles.
+# tc at depth > 1 (csrc/tc_walk_body.cuh) walks the same columns with
+# the same rings, the derivatives contracted in patches of TC_MMA_ROWS
+# lines x 8 outputs as at depth 1 (the band as ready fragments of the
+# depth-1 table): select in f32 and bf16 at ranks 2 and 3, the MHD kinds
+# in f32 at rank 3. Threads per block (the kernel is built for them: 16
+# warps, at most 128 registers each, one block an SM), swc's WALK_STAGES and
+# WALK_MHD_DTYPES, and for MHD the patches whose f32 φ inputs sit in shared
+# memory at once (TC_WALK_MHD_PATCHES x 64 points). Tiles from tools/tc_times.py: select
+# swc's f32 walk tiles in both dtypes; MHD one plane of (8, 8), whose
+# regions fill 8 x 8 patches better than (4, 16) and whose rings fit
+# beside the table and φ's inputs.
+TC_WALK_THREADS = 512
+TC_WALK_MHD_PATCHES = 2
+DEFAULT_TC_WALK_MHD_BLOCK = (1, 8, 8)
 SMEM_PER_SM = 233_472  # 228 KB per SM, shared by its resident blocks
 SMEM_BLOCK_RESERVED = 1_024  # the runtime's own per resident block
 
@@ -312,18 +334,12 @@ def tc_threads(
 
 def tc_acc_points(
     block: Sequence[int], radii: Sequence[int], fuse_steps: int,
-    n_slots: int, threads: int,
 ) -> int:
-    """Points of each f32 operator-sum tile of the ``tc`` kernel
-    (``acc_points`` of ``csrc/fused_stencil_tc.cu``): sweep 0's region
-    for one slot (select, whose fields are contracted whole); for the
-    MHD kinds one batch of ``threads`` points plus the two planes it may
-    straddle, at most the region."""
-    region = _lift3(sweep_regions(block, radii, fuse_steps)[0], 1)
-    size = _prod(region)
-    if n_slots == 1:
-        return size
-    return min(size, threads + 2 * region[1] * region[2])
+    """Points of the f32 operator-sum tile of the ``tc`` kernel's one-tile
+    body at depth > 1 (``acc_points`` of ``csrc/fused_stencil_tc.cu``;
+    rank 1, select only): sweep 0's region, whose fields are contracted
+    whole."""
+    return _prod(sweep_regions(block, radii, fuse_steps)[0])
 
 
 def tc_band_ksteps(radius: int, dtype: str, axis: str) -> int:
@@ -375,16 +391,30 @@ def tc_group_words(n_taps: int, lifted_axis: int, radius: int,
     return tc_fragment_words(radius, dtype, "y" if lifted_axis == 1 else "x")
 
 
-def tc_table_words(ops: OperatorSet, dtype: str) -> int:
-    """Words of ``emit.tc_table(ops, dtype)``'s table, which a depth-1
-    ``tc`` block keeps in shared memory: :func:`tc_table_header_words`,
-    then every group's data (:func:`tc_group_words`)."""
+def tc_lifted_axes(rank: int, walk: bool = False) -> tuple[int, ...]:
+    """The kernel axis (0 z, 1 y, 2 x) of each of a rank's axes in
+    ``emit.tc_table``: the leading axes lifted, or for the walk at rank 2
+    (``walk``) (Y, X) as (Y, 1, X), Y the walked axis: its groups become z
+    arms."""
+    if walk and rank == 2:
+        return (0, 2)
+    return tuple(a + 3 - rank for a in range(rank))
+
+
+def tc_table_words(ops: OperatorSet, dtype: str, walk: bool = False) -> int:
+    """Words of ``emit.tc_table(ops, dtype, walk)``'s table, which a
+    depth-1 ``tc`` block and the tc walk keep in shared memory:
+    :func:`tc_table_header_words`, then every group's data
+    (:func:`tc_group_words`)."""
     rank = ops.ndim
-    radii = _lift3(ops.radius_per_axis(), 0)
+    axes = tc_lifted_axes(rank, walk)
+    radii = [0, 0, 0]
+    for a, r in zip(axes, ops.radius_per_axis()):
+        radii[a] = r
     words = tc_table_header_words(ops)
     for spec in ops.ops:
         for (axis, _), taps in tc_axis_groups(spec, rank).items():
-            lifted = axis + 3 - rank
+            lifted = axes[axis]
             words += tc_group_words(len(taps), lifted, radii[lifted], dtype)
     return words
 
@@ -619,8 +649,7 @@ def temporal_smem_bytes(
     n_taps: int,
     n_ops: int,
     stage_buffers: int,
-    tc_slots: int = 0,
-    max_threads: int = MAX_THREADS,
+    tc: bool = False,
 ) -> int:
     """Shared memory of one block of ``csrc/fused_stencil_temporal.cu``
     (``temporal_layout`` of ``csrc/temporal_body.cuh``), each buffer
@@ -630,8 +659,8 @@ def temporal_smem_bytes(
     carry rows of those sweeps cut by r; then the derivative
     evaluator's own: the tap table (coefficient and int32 offset,
     aligned to twice the itemsize) and the int32 operator starts, or,
-    for ``csrc/fused_stencil_tc.cu`` (``tc_slots`` operators φ reads,
-    any depth), the f32 operator sums (:func:`tc_acc_points` each)."""
+    for ``csrc/fused_stencil_tc.cu`` (``tc``: rank 1 at depth > 1, select
+    only), the f32 operator sums (:func:`tc_acc_points`)."""
     regions = sweep_regions(block, radii, fuse_steps)
     window = tuple(t + 2 * r * fuse_steps for t, r in zip(block, radii))
     total = stage_buffers * _round16(_prod(window) * itemsize)
@@ -640,37 +669,29 @@ def temporal_smem_bytes(
     if n_aux:
         for i in range(min(2, fuse_steps - 1)):
             total += _round16(n_aux * _prod(regions[i + 1]) * itemsize)
-    if tc_slots:
-        threads = tc_threads(block, radii, fuse_steps, max_threads)
-        return total + 4 * tc_slots * tc_acc_points(
-            block, radii, fuse_steps, tc_slots, threads
-        )
+    if tc:
+        return total + 4 * tc_acc_points(block, radii, fuse_steps)
     return total + n_taps * _tap_bytes(itemsize) + (n_ops + 1) * 4
 
 
 def stream_smem_bytes(
     block: Sequence[int],
     radii: Sequence[int],
-    fuse_steps: int,
     *,
     n_f: int,
     itemsize: int,
     n_taps: int,
     n_ops: int,
 ) -> int:
-    """Shared memory of one block of ``csrc/fused_stencil_stream.cu``
-    (its ``layout``), each buffer padded to 16 B: the working set (all
-    n_f fields of τ₀ + 2h₀ planes of the cross window, h = r·S); the
-    prefetch buffer (n_f fields of τ₀ planes); from depth 2 all n_f
-    fields of sweep 0's and, from depth 3, sweep 1's region; the tap
-    table (coefficient and int32 offset, aligned to twice the itemsize)
-    and the int32 operator starts."""
-    window = tuple(t + 2 * r * fuse_steps for t, r in zip(block, radii))
+    """Shared memory of one block of ``csrc/fused_stencil_stream.cu``'s
+    one-buffer body (its ``layout``; depth 1, the f64 MHD RHS), each
+    buffer padded to 16 B: the working set (all n_f fields of τ₀ + 2r₀
+    planes of the cross window); the prefetch buffer (n_f fields of τ₀
+    planes); the tap table (coefficient and int32 offset, aligned to
+    twice the itemsize) and the int32 operator starts."""
+    window = tuple(t + 2 * r for t, r in zip(block, radii))
     total = _round16(n_f * _prod(window) * itemsize)
     total += _round16(n_f * block[0] * _prod(window[1:]) * itemsize)
-    regions = sweep_regions(block, radii, fuse_steps)
-    for i in range(min(2, fuse_steps - 1)):
-        total += _round16(n_f * _prod(regions[i]) * itemsize)
     return total + n_taps * _tap_bytes(itemsize) + (n_ops + 1) * 4
 
 
@@ -833,17 +854,30 @@ def stream_schedule(plan: "StencilPlan") -> list[tuple]:
     return events
 
 
-def walk_kind(rank: int, n_slots: int, n_aux: int, dtype: str) -> bool:
-    """Whether the temporal kernel's walk body
-    (``csrc/temporal_walk_body.cuh``) takes a depth > 1 ``swc`` plan: the
-    select kind (one operator, no aux) at ranks 2 and 3 in float32 or
-    float64, and the MHD kinds (the RHS applied twice, the substep pair
-    with its aux carry) at rank 3 in float32. The MHD kinds in float64
-    and rank 1 (tiles of 1024 points, 1.01-1.02 evaluations per
-    output-step already) keep the one-tile body
-    (:func:`temporal_smem_bytes`). A plan with aux rows or several
-    operator slots is an MHD plan (the wrapper holds its slots to φ's)."""
-    if n_slots > 1 or n_aux:
+def walk_kind(rank: int, n_slots: int, n_aux: int, dtype: str,
+              strategy: str = "swc") -> bool:
+    """Whether a depth > 1 plan of ``strategy`` walks tile columns
+    (``csrc/temporal_walk_body.cuh``; on ``tc`` ``csrc/tc_walk_body.cuh``).
+    ``swc``: the select kind (one operator, no aux) at ranks 2 and 3 in
+    float32 or float64, and the MHD kinds (the RHS applied twice, the
+    substep pair with its aux carry) at rank 3 in float32. ``swc_stream``:
+    the select kind at ranks 2 and 3 in float32 or float64. ``tc``: the
+    select kind at ranks 2 and 3 in float32 or bfloat16, the MHD kinds at
+    rank 3 in float32. Rank 1 (tiles of 1024 points, 1.01-1.02 evaluations
+    per output-step already) and, on ``swc``, the MHD kinds in float64
+    keep the one-tile body (:func:`temporal_smem_bytes`; ``tc`` at rank 1
+    with its TcEval, select only). An MHD plan at depth > 1 that does not
+    walk is refused on ``tc`` and ``swc_stream`` (:class:`StencilPlan`).
+    A plan with aux rows or several operator slots is an MHD plan (the
+    wrapper holds its slots to φ's)."""
+    mhd = n_slots > 1 or n_aux
+    if strategy == "swc_stream":
+        return not mhd and rank > 1 and dtype in WALK_DTYPES
+    if strategy == "tc":
+        if mhd:
+            return rank == 3 and dtype in WALK_MHD_DTYPES
+        return rank > 1 and dtype in TC_DTYPES
+    if mhd:
         return rank == 3 and dtype in WALK_MHD_DTYPES
     return rank > 1 and dtype in WALK_DTYPES
 
@@ -910,6 +944,22 @@ def walk_smem_bytes(ring: WalkRing, *, n_taps: int, itemsize: int,
              + rows * n_taps * _tap_bytes(itemsize))
     if n_slots > 1:
         total = _round16(total) + n_slots * n_f * WALK_MHD_BATCH * itemsize
+    return total
+
+
+def tc_walk_smem_bytes(ring: WalkRing, *, table_words: int,
+                       n_slots: int = 1, n_f: int = 1) -> int:
+    """Shared memory of one block of the tc walk (``tc_walk_layout`` of
+    ``csrc/tc_walk_body.cuh``): the input ring, the intermediate rings, the
+    carry rings, two 8-byte divisors per sweep, the depth-1 group table
+    with the band's fragments (padded to 16 B) and, for the MHD kinds, φ's
+    ``n_slots × n_f`` f32 inputs for ``TC_WALK_MHD_PATCHES`` patches of
+    8 × 8 points."""
+    sweeps = len(ring.regions)
+    total = (ring.inp.ring_bytes + sum(ring.mid_bytes)
+             + sum(ring.carry_bytes) + 16 * sweeps + _round16(4 * table_words))
+    if n_slots > 1:
+        total += 4 * n_slots * n_f * TC_WALK_MHD_PATCHES * 64
     return total
 
 
@@ -1018,7 +1068,7 @@ class StencilPlan:
     segments: int = 1  # swc_stream: pieces of the stream axis
     batch: int = 1  # ensemble members per launch
     n_slots: int = 1  # tc: operators φ reads (its f32 sum tiles)
-    tc_table_words: int = 0  # tc depth 1: words of its table (fragments)
+    tc_table_words: int = 0  # tc depth 1 and walk: its table's words
 
     def __post_init__(self) -> None:
         if self.strategy in NOT_PORTED:
@@ -1130,6 +1180,20 @@ class StencilPlan:
                     "shrink fuse_steps or block[0], grow the domain, or "
                     "use strategy='swc'"
                 )
+        mhd = self.n_slots > 1 or self.n_aux
+        if (stream or tc) and self.fuse_steps > 1 and mhd and not self.walk:
+            if stream:
+                raise ValueError(
+                    "swc_stream at fuse_steps > 1 runs the select kind on "
+                    "its walk; the MHD kinds there fit no tile of its "
+                    "one-buffer body — use strategy='swc'")
+            if self.dtype == "bfloat16":
+                raise NotImplementedError(
+                    "the MHD kinds in bfloat16 are not ported yet: ROADMAP "
+                    "B4b (the MHD φ in bfloat16)")
+            raise ValueError(
+                "tc at fuse_steps > 1 runs the MHD kinds on its walk only "
+                "(rank 3, float32) — use strategy='swc' otherwise")
         step = self.x_step
         for a in range(self.rank):
             t = self.block[a] if a < self.rank - 1 else step
@@ -1143,10 +1207,10 @@ class StencilPlan:
                 f"segments {self.segments} must be >= 1 and divide the "
                 f"{self.n_chunks} chunks of the stream axis"
             )
-        if self.segments > 1 and not (stream or self.temporal_walk):
+        if self.segments > 1 and not (stream or self.walk):
             raise ValueError(
                 "segments cut the stream axis of swc_stream or the walk "
-                "of swc at depth > 1")
+                "of swc and tc at depth > 1")
         if not self.persistent and self.grid_z > MAX_GRID_Z:
             raise ValueError(
                 f"{self.batch} members x {self.grid_z // self.batch} "
@@ -1183,19 +1247,37 @@ class StencilPlan:
         """Whether the temporal kernel's walk body
         (``csrc/temporal_walk_body.cuh``) runs the plan: ``swc`` at depth >
         1 for the kinds :func:`walk_kind` takes."""
-        return (self.strategy == "swc" and self.fuse_steps > 1
-                and walk_kind(self.rank, self.n_slots, self.n_aux,
-                              self.dtype))
+        return self.strategy == "swc" and self.walk
+
+    @property
+    def stream_walk(self) -> bool:
+        """Whether the stream kernel runs the plan on the walk body
+        (``csrc/temporal_walk_body.cuh``, the chunk its step): ``swc_stream``
+        at depth > 1 for the kinds :func:`walk_kind` takes."""
+        return self.strategy == "swc_stream" and self.walk
+
+    @property
+    def tc_walk(self) -> bool:
+        """Whether the tc kernel runs the plan on its walk body
+        (``csrc/tc_walk_body.cuh``): ``tc`` at depth > 1 for the kinds
+        :func:`walk_kind` takes."""
+        return self.strategy == "tc" and self.walk
+
+    @property
+    def walk(self) -> bool:
+        """Whether the plan walks tile columns (any of the three walks)."""
+        return self.fuse_steps > 1 and walk_kind(
+            self.rank, self.n_slots, self.n_aux, self.dtype, self.strategy)
 
     @property
     def evaluations_per_output_step(self) -> float:
         """Operator evaluations per output point and fused step at depth S
         (1.0 at depth 1): sweep s evaluates its region, tile + 2r(S-1-s)
         (one plus :func:`stencil_redundant_compute_fraction` on the
-        one-tile body); on the temporal walk only across the walk, a
-        column segment of L planes covering L + 2rz(S-1-s) planes of it."""
+        one-tile body); on a walk only across the walk, a column segment
+        of L planes covering L + 2rz(S-1-s) planes of it."""
         depth = self.fuse_steps
-        if self.temporal_walk:
+        if self.walk:
             seg = self.interior[0] // self.segments
             lead = 2 * _stream3(self.radii, 0)[0]
             ring = self.walk_ring
@@ -1207,7 +1289,7 @@ class StencilPlan:
 
     @property
     def walk_ring(self) -> WalkRing:
-        """The walk's rings (:func:`walk_ring`)."""
+        """A walk's rings (:func:`walk_ring`)."""
         return self._walk_ring(self.stage_buffers)
 
     def _walk_ring(self, stages: int) -> WalkRing:
@@ -1236,10 +1318,10 @@ class StencilPlan:
     @property
     def persistent(self) -> bool:
         """Whether a persistent kernel runs the plan (depth 1 on ``swc``
-        or ``tc``, and the temporal walk): a grid of resident blocks walks
-        the steps (the walk: columns), so neither ``gridDim.z`` nor the
+        or ``tc``, and the walks): a grid of resident blocks walks the
+        steps (the walks: columns), so neither ``gridDim.z`` nor the
         tile's point count binds it."""
-        return self.tc_depth1 or self.swc_depth1 or self.temporal_walk
+        return self.tc_depth1 or self.swc_depth1 or self.walk
 
     @property
     def tiles_per_step(self) -> int:
@@ -1264,10 +1346,11 @@ class StencilPlan:
         """Outputs a thread of the depth-1 ``swc`` kernel computes per
         round of a step (:func:`swc_launch`), of the depth-1 stream body
         per round of a chunk (:func:`stream_outputs`), or of the temporal
-        walk per run (:data:`WALK_OUTPUTS`); 1 elsewhere."""
+        and stream walks per run (:data:`WALK_OUTPUTS`); 1 elsewhere (the
+        tc walk contracts patches: :data:`TC_PATCH_BATCH` a warp)."""
         if self.stream_depth1:
             return stream_outputs(self.block, self.n_slots)
-        if self.temporal_walk:
+        if self.temporal_walk or self.stream_walk:
             return WALK_OUTPUTS[swc_kind(self.n_slots)]
         if not self.swc_depth1:
             return 1
@@ -1282,9 +1365,9 @@ class StencilPlan:
     @property
     def walk_items(self) -> int:
         """Steps of one persistent launch: members × z × y tiles × x steps
-        at depth 1, members × segments × cross tiles on the temporal walk
-        (its columns), the order the persistent blocks walk them in."""
-        if self.temporal_walk:
+        at depth 1, members × segments × cross tiles on a walk (its
+        columns), the order the persistent blocks walk them in."""
+        if self.walk:
             return self.batch * self.segments * _prod(
                 n // t for n, t in zip(self.interior[1:], self.block[1:]))
         tiles = self.batch * _prod(
@@ -1333,9 +1416,11 @@ class StencilPlan:
         (:data:`TC_THREADS`); deeper: those points rounded up to whole
         warps (:func:`tc_threads`). ``swc`` at depth 1: the persistent
         kernel's (:func:`swc_launch`). ``swc_stream`` at depth 1 on the ring
-        body: its kind's (:data:`STREAM_THREADS`). The temporal walk:
-        :data:`WALK_THREADS`."""
-        if self.temporal_walk:
+        body: its kind's (:data:`STREAM_THREADS`). The temporal and stream
+        walks: :data:`WALK_THREADS`; the tc walk :data:`TC_WALK_THREADS`."""
+        if self.tc_walk:
+            return TC_WALK_THREADS
+        if self.walk:
             kind = swc_kind(self.n_slots)
             return WALK_THREADS.get((kind, self.dtype), WALK_THREADS[kind])
         if self.stream_depth1:
@@ -1383,9 +1468,9 @@ class StencilPlan:
         windows fit, else one. At depth 1 the persistent kernels' rings
         (:meth:`_tc_stages`, :meth:`_swc_stages`). ``swc_stream``: on the
         depth-1 ring body the chunks its ring holds (:meth:`_stream_stages`),
-        else its one prefetch buffer of τ₀ planes. The temporal walk: the
-        steps of input planes its ring holds (:data:`WALK_STAGES`)."""
-        if self.temporal_walk:
+        else its one prefetch buffer of τ₀ planes. The walks: the steps of
+        input planes the ring holds (:data:`WALK_STAGES`)."""
+        if self.walk:
             return WALK_STAGES[swc_kind(self.n_slots)]
         if self.stream_depth1:
             return self._stream_stages()
@@ -1455,9 +1540,7 @@ class StencilPlan:
             self.block, self.radii, self.fuse_steps, n_f=self.n_f,
             n_aux=self.n_aux, itemsize=ITEMSIZE.get(self.dtype, 8),
             n_taps=self.n_taps, n_ops=self.n_ops,
-            stage_buffers=stage_buffers,
-            tc_slots=self.n_slots if self.strategy == "tc" else 0,
-            max_threads=self.max_threads,
+            stage_buffers=stage_buffers, tc=self.strategy == "tc",
         )
 
     @property
@@ -1466,9 +1549,13 @@ class StencilPlan:
         (``swc``) and :func:`tc_smem_bytes` (``tc``). Depth > 1 (``tc``
         too): :func:`temporal_smem_bytes`. ``swc_stream``:
         :func:`stream_ring_smem_bytes` on the depth-1 ring body, else
-        :func:`stream_smem_bytes`. The temporal walk:
-        :func:`walk_smem_bytes`."""
-        if self.temporal_walk:
+        :func:`stream_smem_bytes`. The temporal and stream walks:
+        :func:`walk_smem_bytes`; the tc walk :func:`tc_walk_smem_bytes`."""
+        if self.tc_walk:
+            return tc_walk_smem_bytes(
+                self.walk_ring, table_words=self.tc_table_words,
+                n_slots=self.n_slots, n_f=self.n_f)
+        if self.walk:
             return walk_smem_bytes(self.walk_ring, n_taps=self.n_taps,
                                    itemsize=ITEMSIZE[self.dtype],
                                    n_slots=self.n_slots, n_f=self.n_f)
@@ -1480,7 +1567,7 @@ class StencilPlan:
             return self._swc_bytes(self.stage_buffers)
         if self.stream_axis is not None:
             return stream_smem_bytes(
-                self.block, self.radii, self.fuse_steps, n_f=self.n_f,
+                self.block, self.radii, n_f=self.n_f,
                 itemsize=ITEMSIZE.get(self.dtype, 8), n_taps=self.n_taps,
                 n_ops=self.n_ops,
             )
@@ -1533,7 +1620,9 @@ def plan_stencil(
     axis into pieces walked by separate blocks: the fewest that give
     ``MIN_STREAM_BLOCKS`` blocks while each piece stays
     ``STREAM_SEGMENT_HALOS`` carried halos long, the members counted
-    among the blocks.
+    among the blocks. At depth > 1 the select kind walks as ``swc`` does
+    (its tiles, ``_fit_walk`` and ``MIN_WALK_ITEMS`` columns), the
+    chunk clamp kept; the MHD kinds there raise ``ValueError``.
 
     ``swc`` at depth 1: ``block=None`` is ``DEFAULT_SWC_BLOCKS[rank]``
     (``DEFAULT_SWC_F64_BLOCK3`` for float64 at rank 3, ``SWC_MHD_BLOCK``
@@ -1546,9 +1635,11 @@ def plan_stencil(
     ``TC_MHD_BLOCK`` for a φ of several operators), each axis capped at
     ``TC_MAX_TILE`` as in the reference. At depth 1 the tile is halved
     until the persistent kernel's ring of two windows, its table and
-    (MHD) φ's f32 inputs fit shared memory (``_fit_tc``); deeper it is
-    fitted as the temporal planner fits it, with the f32 sums of the
-    ``n_slots`` operators φ reads counted.
+    (MHD) φ's f32 inputs fit shared memory (``_fit_tc``); deeper, on the
+    walk, the f32 ``DEFAULT_WALK_BLOCKS3`` (rank 2 ``DEFAULT_WALK_BLOCK2``, MHD
+    ``DEFAULT_TC_WALK_MHD_BLOCK``) fitted by ``_fit_walk`` to
+    :func:`tc_walk_smem_bytes`; at rank 1 (select only) as the temporal
+    planner fits it, with the operator's f32 sums counted.
     """
     rank = ops.ndim
     if accuracy is None:
@@ -1584,13 +1675,16 @@ def plan_stencil(
     planner_tile = block is None
     ring = (strategy == "swc_stream" and fuse_steps == 1
             and stream_ring_kind(int(n_slots), str(dtype)))
-    walk = (strategy == "swc" and fuse_steps > 1
-            and walk_kind(rank, int(n_slots), int(n_aux), str(dtype)))
+    walk = (fuse_steps > 1 and strategy in STRATEGIES and walk_kind(
+        rank, int(n_slots), int(n_aux), str(dtype), strategy))
     if block is None and walk:
+        tc_walk = strategy == "tc"
         if n_slots > 1:
-            block = DEFAULT_WALK_MHD_BLOCK
+            block = (DEFAULT_TC_WALK_MHD_BLOCK if tc_walk
+                     else DEFAULT_WALK_MHD_BLOCK)
         elif rank == 3:
-            block = DEFAULT_WALK_BLOCKS3[str(dtype), min(fuse_steps, 3)]
+            key = "float32" if tc_walk else str(dtype)
+            block = DEFAULT_WALK_BLOCKS3[key, min(fuse_steps, 3)]
         else:
             block = DEFAULT_WALK_BLOCK2
     elif block is None and ring and rank > 1:
@@ -1649,7 +1743,28 @@ def plan_stencil(
     itemsize = ITEMSIZE.get(str(dtype), 8)
     segments = 1
     table_words = 0
-    if stream and unroll == 1:
+    if walk:
+        padded = [n + 2 * r * fuse_steps for n, r in zip(interior, radii)]
+        if strategy == "tc":
+            table_words = tc_table_words(ops, str(dtype), walk=True)
+        stages = WALK_STAGES[swc_kind(int(n_slots))]
+
+        def need(tile):
+            ring_ = walk_ring(tile, radii, padded, padded_shape[0], stages,
+                              fuse_steps, str(dtype), int(n_aux))
+            if strategy == "tc":
+                return tc_walk_smem_bytes(ring_, table_words=table_words,
+                                          n_slots=int(n_slots),
+                                          n_f=padded_shape[0])
+            return walk_smem_bytes(ring_, n_taps=ops.taps_per_point,
+                                   itemsize=ITEMSIZE[str(dtype)],
+                                   n_slots=int(n_slots),
+                                   n_f=padded_shape[0])
+
+        clamped = _fit_walk(clamped, interior, fuse_steps, need)
+        segments = _stream_segments(clamped, interior, radii, fuse_steps,
+                                    int(batch), MIN_WALK_ITEMS)
+    elif stream and unroll == 1 and fuse_steps == 1:
         layout = dict(n_f=padded_shape[0], n_taps=ops.taps_per_point,
                       n_ops=ops.n_s)
         if ring and dtype in ITEMSIZE:
@@ -1665,8 +1780,8 @@ def plan_stencil(
                     itemsize=ITEMSIZE[str(dtype)], **layout)
         else:
             def need(tile):
-                return stream_smem_bytes(tile, radii, fuse_steps,
-                                         itemsize=itemsize, **layout)
+                return stream_smem_bytes(tile, radii, itemsize=itemsize,
+                                         **layout)
         clamped = _fit_stream(clamped, interior, fuse_steps, need)
         segments = _stream_segments(
             clamped, interior, radii, fuse_steps, int(batch)
@@ -1683,28 +1798,11 @@ def plan_stencil(
                            dtype=str(dtype), n_taps=ops.taps_per_point,
                            n_ops=ops.n_s, n_slots=int(n_slots),
                            n_f=padded_shape[0])
-    elif walk:
-        padded = [n + 2 * r * fuse_steps for n, r in zip(interior, radii)]
-
-        def need(tile):
-            ring_ = walk_ring(tile, radii, padded, padded_shape[0],
-                              WALK_STAGES[swc_kind(int(n_slots))],
-                              fuse_steps, str(dtype), int(n_aux))
-            return walk_smem_bytes(ring_, n_taps=ops.taps_per_point,
-                                   itemsize=ITEMSIZE[str(dtype)],
-                                   n_slots=int(n_slots),
-                                   n_f=padded_shape[0])
-
-        clamped = _fit_walk(clamped, interior, fuse_steps, need)
-        segments = _stream_segments(clamped, interior, radii, fuse_steps,
-                                    int(batch), MIN_WALK_ITEMS)
     elif fuse_steps > 1 and strategy != "swc_stream":
-        tc = strategy == "tc"
         clamped = _fit_temporal(
             clamped, interior, radii, fuse_steps, n_f=padded_shape[0],
             n_aux=int(n_aux), itemsize=itemsize,
-            n_taps=ops.taps_per_point, n_ops=ops.n_s,
-            tc_slots=int(n_slots) if tc else 0, max_threads=max_threads,
+            n_taps=ops.taps_per_point, n_ops=ops.n_s, tc=strategy == "tc",
         )
 
     return StencilPlan(
@@ -1910,6 +2008,8 @@ def tc_issued_macs(
     """
     if plan.tc_depth1:
         return _tc_depth1_macs(plan, ops, operators)
+    if plan.tc_walk:
+        return _tc_walk_macs(plan, ops, operators)
     bf16 = plan.dtype == "bfloat16"
     rows = 16 if bf16 else 8
     radii = _lift3(plan.radii, 0)
@@ -1975,6 +2075,66 @@ def _tc_depth1_macs(
     return issued, needed
 
 
+def tc_walk_patches(plan: StencilPlan, sweep: int) -> tuple[bool, int]:
+    """(line patches, patches per plane) of sweep ``sweep`` of the tc walk
+    (``tc_sweep`` of ``csrc/tc_walk_body.cuh``): its region cut into
+    patches of ``TC_MMA_ROWS`` lines × 8 outputs — consecutive y rows of
+    one 8-wide column strip, or, where the walk has no y radius (rank 2
+    lifted), consecutive 8-wide segments of its rows (``line``)."""
+    ry = _stream3(plan.radii, 0)[1]
+    y, x = plan.walk_ring.regions[sweep]
+    rows = TC_MMA_ROWS[plan.dtype]
+    segx = _cdiv(x, TC_SEGMENT)
+    if ry == 0:
+        return True, _cdiv(y * segx, rows)
+    return False, _cdiv(y, rows) * segx
+
+
+def _tc_walk_macs(
+    plan: StencilPlan, ops: OperatorSet, operators: Sequence[str]
+) -> tuple[int, int]:
+    """The tc walk's count (:func:`tc_issued_macs`): per sweep, per plane
+    of its region a column segment computes, per field, its patches (a
+    warp's last batch of :data:`TC_PATCH_BATCH` repeating the last patch;
+    MHD batches run over the step's planes) times each group's
+    multiply-adds per patch as at depth 1 (y and x on the MMA, the z arm
+    on FMAs)."""
+    rows = TC_MMA_ROWS[plan.dtype]
+    axes = tc_lifted_axes(plan.rank, walk=True)
+    radii = [0, 0, 0]
+    for a, r in zip(axes, plan.radii):
+        radii[a] = r
+    per_patch = needed_taps = 0
+    for name in operators:
+        spec = ops.ops[ops.names.index(name)]
+        for (axis, _), taps in tc_axis_groups(spec, plan.rank).items():
+            if len(taps) == 1:
+                continue
+            lifted = axes[axis]
+            needed_taps += len(taps)
+            if lifted == 0:
+                per_patch += len(taps) * rows * TC_SEGMENT
+            else:
+                per_patch += rows * TC_SEGMENT * tc_k_extent(
+                    radii[lifted], plan.dtype, "y" if lifted == 1 else "x")
+    select = plan.n_slots == 1
+    batch = TC_PATCH_BATCH["select" if select else "mhd", plan.dtype]
+    ring = plan.walk_ring
+    patches = points = 0
+    for ev in walk_schedule(plan):
+        if ev[0] != "sweep":
+            continue
+        _, _, s, lo, hi = ev
+        ppp = tc_walk_patches(plan, s)[1]
+        if select:
+            patches += (hi - lo) * _round_up(ppp, batch)
+        else:
+            patches += _round_up((hi - lo) * ppp, batch)
+        points += (hi - lo) * _prod(ring.regions[s])
+    items = plan.walk_items * plan.n_f
+    return (per_patch * patches * items, needed_taps * points * items)
+
+
 def persistent_walk(
     plan: StencilPlan, grid: int
 ) -> list[list[tuple[int, ...]]]:
@@ -1986,7 +2146,7 @@ def persistent_walk(
     ``csrc/persistent.cuh``). A step of the temporal walk is a column: a
     segment of the slowest axis (z0 its first output plane) under a cross
     tile, rank 2 lifted to (Y, 1, X)."""
-    if plan.temporal_walk:
+    if plan.walk:
         _, ty, tx = _stream3(plan.block, 1)
         tz = plan.interior[0] // plan.segments
         extents = _stream3(plan.interior, 1)

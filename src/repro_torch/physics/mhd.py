@@ -267,13 +267,12 @@ class MHDSolver:
 
     ``device`` defaults to the card (raising without one); pass
     ``device="cpu"`` for the plain PyTorch path. ``block`` is the
-    kernel tile on ``swc_stream`` and on ``tc`` at depth 2: those kernels
-    keep 80 derivative values per point in registers, so a tile holds at
-    most 256 points. On ``swc`` the planner picks the tile at every depth
-    (``plan.SWC_MHD_BLOCK`` at depth 1; at depth 2 the temporal walk's
-    ``plan.DEFAULT_WALK_MHD_BLOCK`` in float32, the one-tile body's (1, 8,
-    32) halved until its shared memory fits in float64), and on ``tc`` at
-    depth 1 (``plan.TC_MHD_BLOCK``).
+    kernel tile on ``swc_stream``. On ``swc`` the planner picks the tile at
+    every depth (``plan.SWC_MHD_BLOCK`` at depth 1; at depth 2 the temporal
+    walk's ``plan.DEFAULT_WALK_MHD_BLOCK`` in float32, the one-tile body's
+    (1, 8, 32) halved until its shared memory fits in float64), and on
+    ``tc`` too (``plan.TC_MHD_BLOCK`` at depth 1, the tc walk's
+    ``plan.DEFAULT_TC_WALK_MHD_BLOCK`` at depth 2).
 
     ``strategy="swc_stream"`` runs the plain RK3 form through the
     stream kernel (``rhs_op``, three launches per step; ``block[0]`` is
@@ -286,7 +285,8 @@ class MHDSolver:
     fused-axpy forms (``fuse_rk_axpy``, ``fuse_rk_pairs``) hand φ the
     carry as aux, which ``swc_stream`` refuses with ``ValueError``, as
     the reference does. ``strategy="tc"`` runs all three forms through
-    the tensor-core kernel (float32; the pair at depth 2); bfloat16
+    the tensor-core kernel (float32; the pair at depth 2 on its walk,
+    ``csrc/tc_walk_body.cuh``); bfloat16
     fields raise ``NotImplementedError`` on the CUDA strategies (ROADMAP
     B4b).
     """
@@ -325,9 +325,7 @@ class MHDSolver:
             n_out=n_out,
             boundary_mode="periodic",
             strategy=self.strategy,
-            block=(None if self.strategy == "swc"
-                   or (self.strategy == "tc" and fuse_steps == 1)
-                   else self.block),
+            block=None if self.strategy in ("swc", "tc") else self.block,
             fuse_steps=fuse_steps,
             device=self.device,
         )

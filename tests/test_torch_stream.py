@@ -210,7 +210,8 @@ def test_mhd_fused_axpy_forms_raise_on_stream(form):
 def test_stream_smem_bytes_is_the_kernel_layout():
     """Counted by hand from csrc/fused_stencil_stream.cu's layouts: the
     depth-1 ring body's (stream_body.cuh) for the MHD RHS in f32, the
-    one-buffer body's at depth 3."""
+    one-buffer body's for the MHD RHS in f64 (its one remaining launch;
+    depth > 1 walks, test_torch_temporal_walk.py counts that layout)."""
     ops = ts.derivative_operator_set(3, 6)  # 10 operators, 148 taps
     rhs = plan_for_nd(ops, (8, 262, 262, 262), 8, strategy="swc_stream",
                       block=(1, 8, 32), max_threads=256, n_slots=10)
@@ -230,12 +231,15 @@ def test_stream_smem_bytes_is_the_kernel_layout():
     assert rhs.block == (1, 8, 32) and rhs.threads == 512
     assert rhs.stream_depth1 and rhs.stage_buffers == 1
     assert rhs.smem_bytes == -(-(work + taps) // 16) * 16 + sums == 221_968
-    diff = td.DiffusionProblem((512,) * 3).step_op("swc", device=CPU).ops
-    deep = plan_stencil(diff, (1,) + (512 + 18,) * 3, 1,
-                        strategy="swc_stream", fuse_steps=3)
-    assert deep.block == (4, 8, 32) and deep.threads == 1024
-    sizes = [22 * 26 * 50, 4 * 26 * 50, 16 * 20 * 44, 10 * 14 * 38]
-    assert deep.smem_bytes == 4 * sum(sizes) + 19 * 8 + 2 * 4 == 212_960
+    # f64 on (1, 4, 32): the working set (1 + 6 planes of the 10 x 38
+    # window) and the prefetch buffer (one plane) of 8 fields, 148 taps of
+    # 16 bytes, the 11 starts.
+    f64 = plan_for_nd(ops, (8, 262, 262, 262), 8, strategy="swc_stream",
+                      block=(1, 4, 32), dtype="float64", max_threads=256,
+                      n_slots=10)
+    assert not f64.stream_depth1 and not f64.walk and f64.threads == 128
+    sizes = [8 * 7 * 10 * 38, 8 * 1 * 10 * 38]
+    assert f64.smem_bytes == 8 * sum(sizes) + 148 * 16 + 11 * 4 == 196_972
 
 
 def test_stream_fit_halves_chunk_then_cross_tile_and_raises():
@@ -250,9 +254,17 @@ def test_stream_fit_halves_chunk_then_cross_tile_and_raises():
     deep = plan_stencil(diff, (1,) + (64 + 18,) * 3, 1, dtype="float64",
                         strategy="swc_stream", fuse_steps=3)
     assert deep.block[0] < 4 and deep.smem_bytes <= SMEM_PER_BLOCK
+    # Eight fields at depth 2 once fit no tile of the one-buffer body;
+    # depth > 1 walks now, and its fit narrows the cross tile instead.
+    eight = plan_stencil(ops, (8,) + (268,) * 3, 8, strategy="swc_stream",
+                         block=(1, 8, 32), fuse_steps=2, max_threads=256)
+    assert eight.stream_walk and eight.smem_bytes <= SMEM_PER_BLOCK
+    # The one-buffer body (the f64 MHD RHS) at order 12: one plane of a
+    # one-warp cross tile does not fit.
     with pytest.raises(ValueError, match="no swc_stream tile fits"):
-        plan_stencil(ops, (8,) + (268,) * 3, 8, strategy="swc_stream",
-                     block=(1, 8, 32), fuse_steps=2, max_threads=256)
+        plan_stencil(ts.derivative_operator_set(3, 12), (8,) + (268,) * 3,
+                     8, strategy="swc_stream", block=(1, 8, 32),
+                     dtype="float64", max_threads=256, n_slots=10)
 
 
 @pytest.mark.parametrize(

@@ -289,8 +289,9 @@ def test_ring_staging_keeps_rows_congruent_at_a_ragged_pitch(dtype, rank):
 def test_depth1_stream_plan_rules():
     """Depth 1 on swc_stream runs the ring body for select (f32, f64) and
     the f32 MHD RHS, with its kind's threads, outputs per thread and ring;
-    the f64 MHD RHS and depth > 1 keep the one-buffer body as it was; the
-    geometry carries the outputs per thread, which select the body."""
+    the f64 MHD RHS keeps the one-buffer body as it was (depth > 1 walks:
+    test_torch_temporal_walk.py); the geometry carries the outputs per
+    thread, which select the body."""
     _, sel = _plan((64, 64, 64), 6)
     assert sel.stream_depth1 and not sel.persistent
     assert (sel.threads, sel.outputs_per_thread) == (
@@ -318,10 +319,10 @@ def test_depth1_stream_plan_rules():
                              max_threads=256)
     assert not f64.stream_depth1 and f64.stage_buffers == 1
     assert emit.geometry(f64, list(range(10)))[43] == 0
-    deep = tplan.plan_stencil(ops, (1, 76, 76, 76), 1, strategy="swc_stream",
-                              fuse_steps=2)
+    deep = tplan.plan_stencil(ops, (8, 70, 70, 70), 8, strategy="swc_stream",
+                              n_slots=10, dtype="float64", max_threads=256)
     assert not deep.stream_depth1 and deep.outputs_per_thread == 1
-    assert deep.block == (16, 8, 32)[:1] + deep.block[1:]  # as before
+    assert not deep.walk and deep.block == (1, 4, 32)  # as before
     # A plan made for one φ kind refuses another (its layout follows it).
     with pytest.raises(ValueError, match="operator slot"):
         emit._slots_mismatch(sel, tmhd.mhd_rhs_device_phi(tmhd.MHDParams()))

@@ -68,7 +68,7 @@ def _f32(x) -> np.ndarray:
 
 
 @pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
-@pytest.mark.parametrize("fuse", (1, 2))
+@pytest.mark.parametrize("fuse", (1, 2, 3))
 @pytest.mark.parametrize("ndim", (1, 2, 3))
 def test_tc_diffusion_matches_jax(ndim, fuse, dtype):
     """``step_op("tc", fuse_steps)`` at every rank and both dtypes equals
@@ -359,13 +359,13 @@ def test_tc_persistent_walk_covers_every_tile_once(shape, block, batch, grid):
 def test_mhd_tc_tile_is_the_planners():
     """MHDSolver leaves the depth-1 tc kernel's tile to its planner
     (TC_MHD_BLOCK: 8 rows along y and 16 along x for the MMA patches, 4
-    planes, 512 points); the pair at depth 2 keeps ``block``."""
+    planes, 512 points), and the pair's at depth 2 (the walk's)."""
     solver = tm.MHDSolver((16, 16, 32), strategy="tc", device=CPU)
     assert solver.rhs_op().block is None
     assert solver._fused_substep_op(0.0, 1.0, 1e-3).block is None
     pair = tm.MHDSolver((16, 16, 32), strategy="tc", fuse_rk_pairs=True,
                         device=CPU)
-    assert pair._fused_pair_op(1e-3).block == pair.block == (1, 8, 32)
+    assert pair._fused_pair_op(1e-3).block is None
     assert tm.MHDSolver((16, 16, 32), device=CPU).rhs_op().block == (
         1, 8, 32)  # swc keeps the solver's block
     plan = plan_for_nd(solver.operator_set, (8, 22, 22, 38), 8,
@@ -420,7 +420,8 @@ def test_tc_threads_and_smem_are_the_kernel_layout():
     """Counted by hand from csrc/tc_body.cuh's layout (depth 1: a ring of
     window buffers, rows of a 16-byte multiple holding the window plus 3
     (f32) or 7 (bf16) elements of shift, the band's fragments, the MHD
-    sums) and, at depth 2, csrc/temporal_body.cuh's and
+    sums) and, at depth 2 on rank 1 (the one-tile body with TcEval; ranks
+    2-3 walk: test_torch_tc_walk.py), csrc/temporal_body.cuh's and
     csrc/fused_stencil_tc.cu's sum tiles."""
     diff = td.DiffusionProblem((512,) * 3).step_op("hwc", device=CPU).ops
     p = tplan.plan_stencil(diff, (1, 518, 518, 518), 1, strategy="tc")
@@ -453,15 +454,15 @@ def test_tc_threads_and_smem_are_the_kernel_layout():
                                   + 22 * 4 * 32 * 2)
     assert rhs.smem_bytes == (2 * 10 * 16 * 28 * 4 + 4 * rhs.tc_table_words
                               + 10 * 8 * 512 * 4)
-    pair = plan_for_nd(ops, (8, 140, 140, 140), 16,
-                       aux_shape=(8, 134, 134, 134), strategy="tc",
-                       block=(1, 8, 32), fuse_steps=2, max_threads=256,
-                       n_slots=10)
-    assert pair.smem_bytes <= tplan.SMEM_PER_BLOCK and pair.threads == 256
-    r0 = (1 + 6) * (pair.block[1] + 6) * (pair.block[2] + 6)
-    plane = (pair.block[1] + 6) * (pair.block[2] + 6)
-    assert tplan.tc_acc_points(pair.block, pair.radii, 2, 10,
-                               pair.threads) == min(r0, 256 + 2 * plane)
+    # Rank 1 at depth 2 on (512,): one window of 524 values, sweep 0's
+    # 518 (padded to 16 bytes), the f32 sums of one slot over sweep 0's
+    # region; 518 points rounded up to 544 threads.
+    d1 = td.DiffusionProblem((4096,)).step_op("hwc", device=CPU).ops
+    deep = tplan.plan_stencil(d1, (1, 4096 + 12), 1, strategy="tc",
+                              fuse_steps=2)
+    assert not deep.tc_walk and deep.block == (512,) and deep.threads == 544
+    assert tplan.tc_acc_points(deep.block, deep.radii, 2) == 518
+    assert deep.smem_bytes == 524 * 4 + 2080 + 518 * 4 == 6248
 
 
 def test_tc_issued_macs_count_the_band():
@@ -494,12 +495,18 @@ def test_tc_issued_macs_count_the_band():
         assert p.block == (512,) and p.tiles_per_step == 8
         assert issued == 4096 // (rows * 8) * rows * 8 * k
         assert needed == 11 * 4096
-    # Depth 2 keeps the temporal evaluator's count: the regions, 8
-    # row-segments a tile, the band in k-steps of 4.
-    p2 = tplan.plan_stencil(diff, (1, 524, 524, 524), 1, strategy="tc",
+    # Rank 1 at depth 2 keeps the temporal evaluator's count: the
+    # regions, 8 row-segments a tile, the band in k-steps of 4 (the walk's
+    # count: test_torch_tc_walk.py).
+    o6 = td.DiffusionProblem((4096,)).step_op("hwc", device=CPU).ops
+    p2 = tplan.plan_stencil(o6, (1, 4096 + 12), 1, strategy="tc",
                             fuse_steps=2)
-    issued, _ = tplan.tc_issued_macs(p2, diff, ["step"])
-    assert issued > 0 and not p2.tc_depth1
+    issued, _ = tplan.tc_issued_macs(p2, o6, ["step"])
+    assert not p2.tc_depth1 and not p2.tc_walk
+    k = 4 * -(-(8 + 6) // 4)
+    tiles = 4096 // 512
+    assert issued == tiles * sum(-(-(-(-n // 8)) // 8) * 8 * 8 * k
+                                 for n in (518, 512))
 
 
 # --- what waits for a ROADMAP item -------------------------------------------------

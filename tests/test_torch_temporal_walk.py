@@ -1,5 +1,6 @@
 """The temporal kernel's walk body (B2 at depth > 1, select kind, ranks 2
-and 3: ``csrc/temporal_walk_body.cuh``): its host side on the CPU — the
+and 3: ``csrc/temporal_walk_body.cuh``; the stream kernel runs the same
+body at depth > 1, B3's walk): its host side on the CPU — the
 walk of the columns, the fetch and sweep schedule, the rings, the tap rows
 per ring slot, the staging into rows congruent to the padded field's
 modulo 16 bytes, the shared-memory layout, the planner's rules — and, on
@@ -44,9 +45,10 @@ def _rel(a, b) -> float:
 
 
 def _plan(shape, order, depth, *, n_f=1, batch=None, dtype="float32",
-          block=None, segments=None):
-    """A walk plan for diffusion's operator (order ``order``) or, with
-    ``n_f`` > 1, the derivative set's ``dxx``."""
+          block=None, segments=None, strategy="swc"):
+    """A walk plan (``swc``, or ``swc_stream``) for diffusion's operator
+    (order ``order``) or, with ``n_f`` > 1, the derivative set's
+    ``dxx``."""
     if n_f == 1:
         ops = DiffusionProblem(shape, accuracy=order).step_op(
             "swc", device=CPU).ops
@@ -56,10 +58,11 @@ def _plan(shape, order, depth, *, n_f=1, batch=None, dtype="float32",
     lead = (n_f,) if batch is None else (batch, n_f)
     padded = lead + tuple(n + 2 * q * depth for n, q in zip(shape, r))
     plan = tplan.plan_stencil(ops, padded, n_f, block=block, dtype=dtype,
-                              fuse_steps=depth)
+                              fuse_steps=depth, strategy=strategy)
     if segments is not None:
         plan = dataclasses.replace(plan, segments=segments)
-    assert plan.temporal_walk
+    assert plan.walk and plan.temporal_walk == (strategy == "swc")
+    assert plan.stream_walk == (strategy == "swc_stream")
     return ops, plan, padded
 
 
@@ -305,6 +308,36 @@ def test_replay_equals_the_plain_version(shape, order, depth, kw, dtype,
     assert _rel(got, want.numpy()) <= 1e-12
 
 
+@pytest.mark.parametrize("strategy", ("swc", "swc_stream"))
+@pytest.mark.parametrize("dtype", ("float32", "float64"))
+@pytest.mark.parametrize("shape,order,depth,kw", (
+    ((24, 37), 4, 3, dict(block=(2, 37), segments=2, batch=2)),
+    ((24, 4, 8), 6, 3, dict(block=(2, 2, 8), segments=2, n_f=2)),
+    ((20, 6, 12), 2, 2, dict(block=(4, 3, 12), batch=3)),
+))
+def test_replay_of_both_strategies_equals_the_plain_version(
+        shape, order, depth, kw, dtype, strategy):
+    """``swc`` and ``swc_stream`` at depth > 1 walk the same columns with
+    the same body: the same geometry (the stream kernel's chunk the walk's
+    step, its cross tile and segments the walk's), the same layout, and
+    the replay over every column gives the plain version's outputs."""
+    ops, plan, padded = _plan(shape, order, depth, dtype=dtype,
+                              strategy=strategy, **kw)
+    other = dataclasses.replace(plan, strategy="swc" if strategy != "swc"
+                                else "swc_stream")
+    assert other.walk and other.smem_bytes == plan.smem_bytes
+    assert emit.geometry(other, [0]).tolist() == emit.geometry(
+        plan, [0]).tolist()
+    assert other.walk_items == plan.walk_items
+    fp = np.random.default_rng(3).standard_normal(padded)
+    name = "dxx" if plan.n_f > 1 else ops.names[0]
+    got = _replay(plan, ops, fp, ops.names.index(name))
+    step = (ref.fused_stencil_steps_batched if plan.batch > 1
+            else ref.fused_stencil_steps)
+    want = step(torch.from_numpy(fp), ops, lambda d: d[name], depth)
+    assert _rel(got, want.numpy()) <= 1e-12
+
+
 # --- the layout ---------------------------------------------------------------
 
 
@@ -503,6 +536,34 @@ def test_walk_select_matches_plain_on_card(cuda_device, shape, depth,
     assert emit.fused_stencil_swc.launches_by_depth == {depth: 1}
     want = ref.fused_stencil_steps(fp, ops, phi.torch_fn, depth)
     assert _rel(got.cpu(), want.cpu()) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strategy", ("swc", "swc_stream"))
+@pytest.mark.parametrize("dtype", ("float32", "float64"))
+@pytest.mark.parametrize("shape", ((96, 120), (24, 40, 56)))
+@pytest.mark.parametrize("depth", (2, 3))
+def test_walk_of_both_strategies_matches_plain_on_card(
+        cuda_device, shape, depth, dtype, strategy):
+    """Each strategy's walk launch within its tolerance of the plain
+    version, under its own kernel's name and count, and the two launches
+    equal bit for bit (one body)."""
+    ops, plan, padded = _plan(shape, 6, depth, dtype=dtype,
+                              strategy=strategy)
+    assert emit.kernel_smem_bytes(plan) == plan.smem_bytes
+    g = torch.Generator().manual_seed(4)
+    fp = torch.rand(padded, generator=g, dtype=torch.float64).to(
+        cuda_device, getattr(torch, dtype))
+    phi = select_phi(ops.names[0])
+    emit.reset_launch_counts()
+    got = emit.fused_stencil_swc(fp, ops, phi, plan)
+    assert emit.fused_stencil_swc.launches_by_kernel == {
+        emit.kernel_name(plan): 1}
+    want = ref.fused_stencil_steps(fp, ops, phi.torch_fn, depth)
+    assert _rel(got.cpu(), want.cpu()) <= TOL[dtype]
+    other = dataclasses.replace(plan, strategy="swc" if strategy != "swc"
+                                else "swc_stream")
+    assert torch.equal(got, emit.fused_stencil_swc(fp, ops, phi, other))
 
 
 @pytest.mark.cuda

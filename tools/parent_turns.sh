@@ -11,8 +11,10 @@
 # between the trees is read against the spread of the same tree's two
 # runs on the same card. Then `tools/port_digest.py` on each tree's
 # package and a diff of the two digests (lines that differ are printed;
-# the tc lines may, the swc and swc_stream lines must not). Every log
-# goes to OUT_DIR (default build/turns/). Needs one CUDA card.
+# the tc lines may, the swc and swc_stream lines must not), and the
+# planner's rows of `tools/tc_times.py` and `tools/stream_times.py`
+# (`--default`) on each tree's package, parent first. Every log goes to
+# OUT_DIR (default build/turns/). Needs one CUDA card.
 set -euo pipefail
 parent=$(cd "$1" && pwd)
 here=$(cd "$(dirname "$0")/.." && pwd)
@@ -36,3 +38,12 @@ PYTHONPATH="$here/src" python3 "$here/tools/port_digest.py" \
 echo "digest lines: $(wc -l < "$out/digest_change.txt"); differing:"
 diff "$out/digest_parent.txt" "$out/digest_change.txt" | grep '^>' \
   | cut -d: -f1 || true
+for tool in tc_times stream_times; do
+  for tree in parent change; do
+    src=$here/src
+    [ "$tree" = parent ] && src=$parent/src
+    PYTHONPATH="$src" python3 "$here/tools/$tool.py" --default \
+      > "$out/${tool}_$tree.log" 2>&1
+    echo "$tool ($tree): $out/${tool}_$tree.log"
+  done
+done

@@ -3,17 +3,21 @@
 trees can be shown to give the same outputs bit for bit.
 
     PYTHONPATH=src python3 tools/port_digest.py > digest.txt
+    PYTHONPATH=src python3 tools/port_digest.py --errors  # and errors
 
 Runs a fixed set of launches, with inputs made from seeds, through
 ``repro_torch`` as the import path finds it (point ``PYTHONPATH`` at
 another tree's ``src`` to digest that tree's kernels, built into that
 tree's ``build/``): diffusion on ``tc`` at orders 2-8, ranks 1-3, depth 1
-and 2, in float32 and bfloat16; diffusion on ``swc`` at depth 1-3 and on
-``swc_stream`` at depth 1-2, in float32 and float64; one MHD RK3 step on
+and 2, in float32 and bfloat16; diffusion on ``swc`` and ``swc_stream``
+at depth 1-3, in float32 and float64; one MHD RK3 step on
 ``swc`` (plain, fused axpy, ``fuse_rk_pairs``), ``swc_stream`` (plain)
 and ``tc`` (all three), whose φ reads its parameter rows. It prints one
-line per case: the label and the sha256 of the output's bytes. Compare
-two trees' files with ``diff``. Needs a CUDA card; exits 2 without one.
+line per case: the label and the sha256 of the output's bytes (with
+``--errors`` also its max |err| over max |plain| against the plain
+version, the same case on the CPU, where the wrapper takes it). Compare
+two trees' files (without ``--errors``) with ``diff``. Needs a CUDA card;
+exits 2 without one.
 """
 from __future__ import annotations
 
@@ -30,11 +34,17 @@ def _digest(t) -> str:
 
 
 def cases(dev):
-    """(label, output) of every case, in a fixed order."""
+    """(label, run) of every case, in a fixed order: ``run(device)`` gives
+    the case's output on ``device`` from the same inputs (made on the card,
+    moved there)."""
     import torch
 
     from repro_torch.physics.diffusion import DiffusionProblem
     from repro_torch.physics.mhd import MHDSolver
+
+    def stepper(p, strategy, depth, f):
+        return lambda device: p.step_op(strategy, fuse_steps=depth,
+                                        device=device)(f.to(device))
 
     shapes = ((65536,), (512, 400), (64, 96, 120))
     for order in (2, 4, 6, 8):
@@ -43,16 +53,16 @@ def cases(dev):
             for dtype in ("float32", "bfloat16"):
                 f = p.init_field(seed=order, device=dev, dtype=dtype)
                 for depth in (1, 2):
-                    op = p.step_op("tc", fuse_steps=depth, device=dev)
-                    yield f"tc o{order} {shape} {dtype} S{depth}", op(f)
-    for strategy, depths in (("swc", (1, 2, 3)), ("swc_stream", (1, 2))):
+                    yield (f"tc o{order} {shape} {dtype} S{depth}",
+                           stepper(p, "tc", depth, f))
+    for strategy, depths in (("swc", (1, 2, 3)), ("swc_stream", (1, 2, 3))):
         for shape in shapes[1:]:
             p = DiffusionProblem(shape, accuracy=6)
             for dtype in ("float32", "float64"):
                 f = p.init_field(seed=1, device=dev, dtype=dtype)
                 for depth in depths:
-                    op = p.step_op(strategy, fuse_steps=depth, device=dev)
-                    yield f"{strategy} {shape} {dtype} S{depth}", op(f)
+                    yield (f"{strategy} {shape} {dtype} S{depth}",
+                           stepper(p, strategy, depth, f))
     forms = (("plain", {}), ("fuse_rk_axpy", {"fuse_rk_axpy": True}),
              ("fuse_rk_pairs", {"fuse_rk_pairs": True}))
     for strategy, names in (("swc", ("plain", "fuse_rk_axpy", "fuse_rk_pairs")),
@@ -65,11 +75,17 @@ def cases(dev):
                                **kw)
             f = solver.init_fields(seed=2, dtype="float32")
             dt = float(solver.cfl_dt(f))
-            yield f"mhd {strategy} {name}", solver.step(f, dt)
+
+            def run(device, kw=kw, strategy=strategy, f=f, dt=dt):
+                s = MHDSolver((32, 32, 64), strategy=strategy, device=device,
+                              **kw)
+                return s.step(f.to(device), dt)
+
+            yield f"mhd {strategy} {name}", run
     torch.cuda.synchronize()
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -79,12 +95,18 @@ def main() -> int:
 
     build.build_all()  # one nvcc per source, all at once
     dev = torch.device("cuda", torch.cuda.current_device())
-    for label, out in cases(dev):
+    for label, run in cases(dev):
+        out = run(dev)
         if not bool(torch.isfinite(out.float()).all()):
             raise AssertionError(f"{label}: non-finite output")
-        print(f"{label}: {_digest(out)}")
+        line = f"{label}: {_digest(out)}"
+        if "--errors" in argv:  # against the plain version (the CPU path)
+            plain = run("cpu").float()
+            err = float((out.float().cpu() - plain).abs().max())
+            line += f"  rel {err / max(float(plain.abs().max()), 1e-300):.3e}"
+        print(line, flush=True)
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

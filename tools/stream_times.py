@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Time the ``swc_stream`` kernel at depth 1 (B3,
-``csrc/fused_stencil_stream.cu`` and its ring body
-``csrc/stream_body.cuh``) on the card at the main
-path's shapes, in the planner's launch and in variants of it, each held
-to its plain version first.
+"""Time the ``swc_stream`` kernel (B3, ``csrc/fused_stencil_stream.cu``:
+at depth 1 its ring body ``csrc/stream_body.cuh``, deeper the walk body
+``csrc/temporal_walk_body.cuh``) on the card at the main path's shapes,
+in the planner's launch and in variants of it, each held to its plain
+version first.
 
     PYTHONPATH=src python3 tools/stream_times.py            # every row
     PYTHONPATH=src python3 tools/stream_times.py --default  # planner's only
@@ -16,18 +16,20 @@ call on one card.
 Rows (CUDA events, median of 10 after 2 warm-ups, per launch; the MHD
 rows of 5): diffusion 512³ f32 (order 6), 8192² f32 (the y-stream), 256³
 f64, the serve launches (order 2, B = 8) at 4096² and 256³, the MHD RHS
-at 256³ f32 and 128³ f64, each on the planner's tile. A variant sets the
+at 256³ f32 and 128³ f64, and diffusion 512³ f32 at depth 2 and 3 (the
+walk), each on the planner's tile. A variant sets the
 ring's chunks, the outputs per thread or the threads
 (``plan.STREAM_STAGES``, ``STREAM_OUTPUTS``, ``STREAM_THREADS``), the
-tile (chunk and cross tile), the segments, or (``ring=False``) sends the
-MHD RHS to the one-buffer body. Each row prints the grid, chunk and cross
+tile (chunk and cross tile) or the segments. Each row prints the grid, chunk and cross
 tile, the ring, threads x outputs per thread, registers and spills
-(``chip_smoke.stream_launch_info``).
+(``chip_smoke.stream_launch_info``; the walk's columns, rings and
+evaluations per output-step at depth > 1).
 Prints the card's name and power limit first. Needs a CUDA card.
 """
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
 import sys
 from pathlib import Path
 
@@ -47,12 +49,15 @@ VARIANTS = {
     "diffusion 256^3 f64": ({}, {"stages": 3}, {"block": (8, 16, 32)},
                             {"block": (4, 16, 32)}, {"block": (8, 8, 64)},
                             {}),
-    "MHD rhs 256^3 f32": ({}, {"ring": False}, {"threads": 256},
-                          {"block": (1, 4, 32)}, {}),
+    "MHD rhs 256^3 f32": ({}, {"threads": 256}, {"block": (1, 4, 32)},
+                          {}),
     "MHD rhs 128^3 f64": ({},),
+    "diffusion 512^3 f32 S=2": ({}, {"block": (2, 32, 32)},
+                                {"block": (4, 16, 32)}, {"segments": 1}),
+    "diffusion 512^3 f32 S=3": ({}, {"block": (4, 32, 32)},
+                                {"block": (2, 16, 32)}, {"segments": 1}),
 }
-_KNOBS = ("STREAM_STAGES", "STREAM_OUTPUTS", "STREAM_THREADS",
-          "STREAM_RING_MHD_DTYPES")
+_KNOBS = ("STREAM_STAGES", "STREAM_OUTPUTS", "STREAM_THREADS")
 
 
 def _apply(plan_mod, variant, kind):
@@ -66,8 +71,6 @@ def _apply(plan_mod, variant, kind):
                       ("threads", "STREAM_THREADS")):
         if key in variant:
             setattr(plan_mod, knob, {**old[knob], kind: variant[key]})
-    if variant.get("ring") is False:
-        plan_mod.STREAM_RING_MHD_DTYPES = ()
     return old
 
 
@@ -83,8 +86,10 @@ def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("stream_times: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT))
-    import chip_smoke as cs
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
     from repro_torch.kernels import build
     from repro_torch.kernels import plan as plan_mod
     from repro_torch.kernels.emit import fused_stencil_swc
@@ -112,6 +117,12 @@ def main(argv: list[str]) -> int:
             strategy=stream),
         "MHD rhs 128^3 f64": lambda b: cs.mhd_case(
             (128,) * 3, "float64", dev, False, block=b, smooth=False,
+            strategy=stream),
+        "diffusion 512^3 f32 S=2": lambda b: cs.diffusion_case(
+            (512,) * 3, "float32", dev, block=b, fuse_steps=2,
+            strategy=stream),
+        "diffusion 512^3 f32 S=3": lambda b: cs.diffusion_case(
+            (512,) * 3, "float32", dev, block=b, fuse_steps=3,
             strategy=stream),
     }
     for label, make in makers.items():
