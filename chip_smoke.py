@@ -62,15 +62,20 @@ Phases (each raises on failure; none is caught):
    Then tc beyond radius 4 (orders 10 and 12, f32 and bf16, ranks 1-3),
    depths 9 and 12 on B2, B3 and B4 at 2-D (order 2, f32), and the B6
    cross-correlation (``csrc/xcorr1d.cu``) against ``ref.xcorr1d``: each
-   strategy at unroll 4, f32 and f64, radii 0-1024, n = 2^20 + 123 (a
-   ragged last block), each block's threads and shared bytes held to
-   the kernel's own layout. Then B7 (``csrc/conv1d_depthwise.cu``)
+   strategy at unroll 4 and elementwise at 8 and 16, f32 and f64, radii
+   0-1024, n = 2^20 + 123 (a ragged last tile), and odd register tilings
+   (``XCORR_ODD``) at r = 3 (the one-tile launch) and 1024 (elementwise
+   on the ring) on an f aligned to 16 bytes and on one an element past
+   (the ring's element staging), each launch's threads, shared bytes and
+   grid (tiles, or the ring's persistent grid) held to the kernel's own
+   layout. Then B7 (``csrc/conv1d_depthwise.cu``)
    against ``ref.conv1d_depthwise``: the reference's sweep shapes
    (1,64,8,4), (3,100,16,4), (2,257,32,7), mamba2-780m's prefill launch
    (4, 8192, 3328) k = 4, a ragged s = 8193, and the strided xBC view of
-   the (4, 8192, 6448) in-projection (bf16 two channels per thread, and
-   one on a view starting on 2 bytes), f32 and bf16, activation none
-   and silu, each block's threads held to the kernel's own.
+   the (4, 8192, 6448) in-projection (16-byte lanes at offset 3072, bf16
+   pairs at 3074, single channels at 3073), f32 and bf16, activation
+   none and silu, each launch's threads and grid held to the kernel's
+   own.
 3. Main path at full size, through the entry points a user calls, with
    the launch counters (total, per depth and per kernel) zeroed just
    before and read just after each run: MHD 256³ f32 RK3 with the fused
@@ -148,8 +153,12 @@ Phases (each raises on failure; none is caught):
    ring (chunks, plane slots, bytes) or the one-buffer body, threads x
    outputs per thread, registers and spills.
    B6 rows: each strategy at n = 2^24 (fig07's size), f32 at radii
-   1-1024 and f64 at r = 1 and 1024, and the 2^26 ``step_1d_xcorr``
-   launch (the kernels line's B6 rows); bound max((2n + 2r + taps) ×
+   1-1024 (``XCORR_TIME_RADII``: r = 8 and 10 on each side of the
+   elementwise ring's first radius) and f64 at r = 1, 10 and 1024,
+   elementwise also at unroll 8 and 16 (Fig. 9's sweep) for f32 r >= 64
+   and f64 r = 1024, each row naming its launch (one-tile or ring), and
+   the 2^26 ``step_1d_xcorr`` launch (the kernels line's B6 rows); bound
+   max((2n + 2r + taps) ×
    itemsize / memory rate, 2 × taps × n / non-tensor rate); library
    ``F.conv1d`` (cuDNN) with ``cudnn.allow_tf32`` off.
    B7 rows (the kernels line's): the strided xBC view at the prefill
@@ -197,6 +206,19 @@ XCORR_REPLACES = "src/repro/kernels/stencil1d.py:73"
 # ignores it, as the reference's does).
 XCORR_STRATEGIES = (("baseline", 4), ("pointwise", 4), ("elementwise", 4))
 XCORR_RADII = (0, 1, 5, 32, 200, 1024)
+# Phase 4's f32 radii at n = 2^24: r = 8 (17 taps) is elementwise's last
+# one-tile launch, r = 10 (21 taps, RING_MIN_TAPS of xcorr1d.cu) its
+# first on the ring.
+XCORR_TIME_RADII = (1, 4, 8, 10, 16, 64, 256, 1024)
+# Fig. 9's unroll sweep on elementwise (register tiling: U / 4 float4 in
+# f32, U / 2 double2 in f64): phase 2's parity and phase 4's rows.
+XCORR_UNROLLS = (("elementwise", 8), ("elementwise", 16))
+# Odd tiles of the register tiling (V = 1, 2 or 4 elements a vector, the
+# empty-slot layout or none), block_size 1536, on an f aligned to 16
+# bytes and on one a single element past that (staged element by
+# element): phase 2.
+XCORR_ODD = (("elementwise", 3), ("elementwise", 6), ("elementwise", 12),
+             ("pointwise", 7), ("baseline", 1))
 CONV_SOURCE = "src/repro_torch/kernels/csrc/conv1d_depthwise.cu"
 # conv1d_depthwise_pallas (+ _kernel :26)
 CONV_REPLACES = "src/repro/kernels/conv1d_depthwise.py:36"
@@ -968,11 +990,11 @@ def parity_conv1d(dev):
     """B7 (``csrc/conv1d_depthwise.cu``) against ``ref.conv1d_depthwise``:
     the reference's sweep shapes, mamba2-780m's prefill launch (4, 8192,
     3328) with k = 4, a ragged s, and the strided xBC view of the
-    (4, 8192, 6448) in-projection (bf16 two channels per thread, and one
-    when the view starts on 2 bytes), f32 and bf16, activation none and
-    silu; each block's threads held to the kernel's own layout. "=" marks
-    an output equal to the plain version's bit for bit, "~" one within
-    the tolerance only."""
+    (4, 8192, 6448) in-projection (16-byte lanes at offset 3072, bf16
+    pairs at 3074, single channels at 3073), f32 and bf16, activation
+    none and silu; each launch's threads and grid held to the kernel's
+    own layout. "=" marks an output equal to the plain version's bit for
+    bit, "~" one within the tolerance only."""
     import torch
 
     from repro_torch.kernels import conv1d_depthwise as kc
@@ -985,17 +1007,22 @@ def parity_conv1d(dev):
              ((2, 257, 32), 7, 128, {}),
              ((b, s, 3328), 4, 512, {}), ((b, s + 1, 3328), 4, 512, {}),
              ((b, s, 3328), 4, 512, dict(row=6448, offset=3072)),
+             ((b, s, 3328), 4, 512, dict(row=6448, offset=3074)),
              ((b, s, 3328), 4, 512, dict(row=6448, offset=3073))]
+    if kc.kernel_threads() != kc.THREADS:
+        raise AssertionError("conv1d: the kernel's threads differ from "
+                             "conv1d_depthwise.py's")
     for dtype in ("float32", "bfloat16"):
         for i, (shape, k, block_seq, view) in enumerate(cases):
             x, w = conv_inputs(shape, k, dtype, dev, seed=i, **view)
             vec = kc.vector_width(x, w)
-            grid, threads = kc.launch_layout(*shape, block_seq, vec)
-            if kc.kernel_threads(shape[2], vec) != threads:
-                raise AssertionError(
-                    f"conv1d {shape}: the kernel's threads differ from "
-                    "conv1d_depthwise.py's")
             for act in ("none", "silu"):
+                resident = kc.kernel_grid(0, 0, 0, k, act, dtype, vec)
+                grid, _ = kc.launch_layout(*shape, vec, resident)
+                if kc.kernel_grid(*shape, k, act, dtype, vec) != grid:
+                    raise AssertionError(
+                        f"conv1d {shape} {act}: the kernel's grid differs "
+                        "from conv1d_depthwise.py's")
                 got = kops.conv1d_depthwise(x, w, activation=act,
                                             block_seq=block_seq)
                 want = ref.conv1d_depthwise(x, w, act)
@@ -1003,16 +1030,43 @@ def parity_conv1d(dev):
                     if view else ""
                 same = "=" if torch.equal(got, want) else "~"
                 check(f"conv1d {shape} k={k} {act}{tag} vec{vec} "
-                      f"grid{grid} {same}", got, want, dtype)
+                      f"grid {grid} ({resident} resident) {same}", got, want,
+                      dtype)
                 del got, want
             del x, w
 
 
+def _xcorr_layout_check(label, n, n_taps, block, strategy, unroll, dtype):
+    """Hold the launch's threads, shared bytes and grid to the kernel's
+    own; returns them and the launch's name ("ring" with its windows, or
+    "one-tile")."""
+    from repro_torch.kernels import xcorr1d as kx
+
+    layout = kx.kernel_layout(n_taps, block, strategy, unroll, dtype)
+    want = (kx.launch_threads(block, strategy, unroll, n_taps),
+            kx.smem_bytes(n_taps, block, dtype, strategy, unroll))
+    resident = kx.kernel_grid(0, n_taps, block, strategy, unroll, dtype)
+    grid = kx.kernel_grid(n, n_taps, block, strategy, unroll, dtype)
+    want_grid = kx.launch_grid(n, n_taps, block, strategy, unroll, resident)
+    if layout != want or grid != want_grid:
+        raise AssertionError(
+            f"{label}: the kernel's layout {layout}, grid {grid} differ "
+            f"from xcorr1d.py's {want}, {want_grid}")
+    route = "one-tile"
+    if kx.ring_route(strategy, kx.kernel_unroll(strategy, unroll), n_taps):
+        stages = kx.ring_stages(n_taps, block, dtype, strategy, unroll)
+        route = f"ring of {stages}"
+    return layout, route, grid
+
+
 def parity_xcorr(dev):
     """B6 (``csrc/xcorr1d.cu``) against ``ref.xcorr1d`` for each strategy,
-    f32 and f64, radii 0 to 1024, n = 2^20 + 123 (a ragged last block of
-    the default 2048 outputs), each launch's threads and shared bytes held
-    to the kernel's own layout."""
+    elementwise also at unroll 8 and 16, f32 and f64, radii 0 to 1024,
+    n = 2^20 + 123 (a ragged last tile of the default 2048 outputs); then
+    odd register tilings (``XCORR_ODD``, block_size 1536) at r = 3 and
+    1024 on an aligned f and on one an element past 16 bytes (element
+    staging). Each launch's threads, shared bytes and grid are held to
+    the kernel's own layout."""
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ref
     from repro_torch.kernels import xcorr1d as kx
@@ -1023,19 +1077,36 @@ def parity_xcorr(dev):
         for r in XCORR_RADII:
             f, g = xcorr_inputs(n, r, dtype, dev, seed=r)
             want = ref.xcorr1d(f, g)
-            for strategy, unroll in XCORR_STRATEGIES:
-                layout = kx.kernel_layout(2 * r + 1, block, strategy, unroll,
-                                          dtype)
-                if layout != (kx.launch_threads(block, strategy, unroll),
-                              kx.smem_bytes(2 * r + 1, block, dtype)):
-                    raise AssertionError(
-                        f"xcorr1d {strategy} r={r}: the kernel's layout "
-                        f"{layout} differs from xcorr1d.py's")
+            for strategy, unroll in XCORR_STRATEGIES + XCORR_UNROLLS:
+                label = f"xcorr1d {strategy} u{unroll} r={r}"
+                layout, route, grid = _xcorr_layout_check(
+                    label, n, 2 * r + 1, block, strategy, unroll, dtype)
                 got = kops.xcorr1d(f, g, strategy=strategy,
                                    block_size=block, unroll=unroll)
-                check(f"xcorr1d {strategy} u{unroll} r={r} {layout[0]}thr "
-                      f"{layout[1]}B", got, want, dtype)
+                check(f"{label} {route} {layout[0]}thr {layout[1]}B "
+                      f"grid {grid}", got, want, dtype)
             del f, g, want
+    block = 1536
+    for dtype in ("float32", "float64"):
+        for r in (3, 1024):
+            f, g = xcorr_inputs(n + 1, r, dtype, dev, seed=r + 1)
+            for offset in (0, 1):
+                fo = f[offset:offset + n + 2 * r]
+                want = ref.xcorr1d(fo, g)
+                for strategy, unroll in XCORR_ODD:
+                    label = (f"xcorr1d {strategy} u{unroll} r={r} block "
+                             f"{block} f+{offset}")
+                    layout, route, grid = _xcorr_layout_check(
+                        label, n, 2 * r + 1, block, strategy, unroll, dtype)
+                    got = kops.xcorr1d(fo, g, strategy=strategy,
+                                       block_size=block, unroll=unroll)
+                    wide = (route != "one-tile"
+                            and kx.wide_staging(fo, block))
+                    staging = "16-byte" if wide else "element"
+                    check(f"{label} {route}, {staging} staging", got, want,
+                          dtype)
+                del want
+            del f, g
 
 
 def counted(fn, kernel=None):
@@ -1953,10 +2024,12 @@ def phase_times(dev, smi, launches):
 
 def phase_times_xcorr(dev, smi, launches):
     """B6 rows (CUDA events, median): n = 2^24, fig07's full size
-    (``benchmarks/fig07_xcorr_library.py``), f32 at radii 1-1024 and f64
-    at r = 1 and 1024 (the paper's Table 3 cases), each strategy at
-    unroll 4; then the 2^26 ``step_1d_xcorr`` launch of each strategy,
-    whose rows go to the kernels line. The library call is
+    (``benchmarks/fig07_xcorr_library.py``), f32 at radii 1-1024
+    (``XCORR_TIME_RADII``) and f64 at r = 1, 10 and 1024 (r = 1 and 1024
+    the paper's Table 3 cases), each strategy at unroll 4, and elementwise
+    at unroll 8 and 16 (Fig. 9's sweep) for f32 r >= 64 and f64 r = 1024;
+    then the 2^26 ``step_1d_xcorr`` launch of each strategy, whose rows
+    go to the kernels line. The library call is
     ``F.conv1d(f[None, None], g[None, None])`` (cuDNN, the paper's Fig. 7)
     timed with ``torch.backends.cudnn.allow_tf32 = False``; the flag is
     restored after. The port never calls it."""
@@ -1966,6 +2039,7 @@ def phase_times_xcorr(dev, smi, launches):
     from repro_torch.core.stencil import diffusion_kernel_1d
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ref
+    from repro_torch.kernels import xcorr1d as kx
     from repro_torch.physics.diffusion import DiffusionProblem
 
     print("== phase 4 (1-D): B6 xcorr1d times (CUDA events, median)")
@@ -1976,9 +2050,10 @@ def phase_times_xcorr(dev, smi, launches):
     torch.backends.cudnn.allow_tf32 = False
     rows = []
 
-    def rows_for(label, f, g, dtype, main=None, reps=10):
-        """One row per strategy on the inputs (f, g); the plain and the
-        library call are timed once for the three."""
+    def rows_for(label, f, g, dtype, main=None, reps=10, extra=()):
+        """One row per strategy on the inputs (f, g), then one per
+        (strategy, unroll) of ``extra``; the plain and the library call
+        are timed once for all."""
         n_taps = g.shape[0]
         n = f.shape[0] - n_taps + 1
         item = f.element_size()
@@ -1997,7 +2072,9 @@ def phase_times_xcorr(dev, smi, launches):
         t_ops = 2 * n_taps * n / (f64_rate if item == 8 else f32_rate) * 1e3
         bound = max(t_bytes, t_ops)
         by = "bytes" if t_bytes >= t_ops else "operations"
-        for strategy, unroll in XCORR_STRATEGIES:
+        for strategy, unroll in XCORR_STRATEGIES + tuple(extra):
+            launch = ("ring" if kx.ring_route(strategy, unroll, n_taps)
+                      else "one-tile")
             got = kops.xcorr1d(f, g, strategy=strategy, unroll=unroll)
             err, rel = rel_err(got, want)
             if rel > TOL[dtype]:
@@ -2018,22 +2095,25 @@ def phase_times_xcorr(dev, smi, launches):
                 "bound_by": by,
                 "library_ms": lib_ms,
             }
-            print(f"  {label:<22} {dtype:<7} {strategy:<11} kernel "
+            print(f"  {label:<22} {dtype:<7} {strategy:<11} u{unroll:<2} "
+                  f"{launch:<8} kernel "
                   f"{ms:9.4f} ms  plain {plain_ms:10.4f} ms  bound "
                   f"{bound:7.4f} ms ({by})  conv1d (no TF32) {lib_ms:.4f} "
                   f"ms  max|err| {err:.3e}  {bound / ms:.1%} of bound")
-            if main:
+            if main and (strategy, unroll) in XCORR_STRATEGIES:
                 rows.append(r)
         print(f"    conv1d vs plain rel {lib_rel:.3e}")
         del want
 
     try:
         n = 1 << 24
-        for dtype, radii in (("float32", (1, 4, 16, 64, 256, 1024)),
-                             ("float64", (1, 1024))):
+        for dtype, radii in (("float32", XCORR_TIME_RADII),
+                             ("float64", (1, 10, 1024))):
             for r in radii:
                 f, g = xcorr_inputs(n, r, dtype, dev, seed=r)
-                rows_for(f"n=2^24 r={r}", f, g, dtype)
+                sweep = r >= (64 if dtype == "float32" else 1024)
+                rows_for(f"n=2^24 r={r}", f, g, dtype,
+                         extra=XCORR_UNROLLS if sweep else ())
                 del f, g
         prob = DiffusionProblem((1 << 26,), accuracy=6)
         f0 = prob.init_field(seed=0, device=dev)[0]

@@ -7,9 +7,11 @@ x[b, t-(k-1)+j, c] with zeros left of each sequence, then optionally
 ``y * sigmoid(y)`` (``activation="silu"``): (b, s, c) and (k, c) give
 (b, s, c) (``csrc/conv1d_depthwise.cu``). ``x`` may be strided along its
 batch and sequence axes (mamba2's xBC is a column slice of the
-in-projection); its channels must be adjacent. One thread walks a run of
-``block_seq`` positions of one channel (f32) or of two (bf16, when
-:func:`vector_width` allows), and the runs need not divide the sequence.
+in-projection); its channels must be adjacent. Each lane of a warp takes
+:func:`vector_width` channels (16 bytes when the shapes, strides and
+pointers allow); a persistent grid (:func:`launch_layout`) gives each
+warp one contiguous run of the (warp column, batch, position) space
+(:func:`warp_runs`), which it walks along the sequence.
 
 A CPU tensor goes to the plain version (``ref.conv1d_depthwise``); a
 CUDA tensor goes to the kernel, or the wrapper raises — there is no
@@ -30,8 +32,9 @@ KERNEL = "conv1d_depthwise"  # csrc/conv1d_depthwise.cu
 ACTIVATIONS = ("none", "silu")  # ACT_* of conv1d_depthwise.cu
 KERNEL_DTYPES = ("float32", "bfloat16")
 MAX_K = 8  # the tap counts conv1d_depthwise.cu instantiates: 1..8
-MAX_THREADS = 128  # threads per block (whole warps, at most this)
-MAX_GRID_YZ = 65_535  # CUDA's limit on gridDim.y and gridDim.z
+THREADS = 256  # threads per block (8 warps)
+WARPS = THREADS // 32
+MIN_WARP_POSITIONS = 32  # the grid gives each warp at least this many
 DEFAULT_BLOCK_SEQ = 512  # the reference's block_seq
 
 
@@ -46,8 +49,9 @@ def _not_ported(what: str) -> NotImplementedError:
 def check_launch(b: int, s: int, c: int, k: int, block_seq: int,
                  dtype: str) -> None:
     """What the card's kernel takes: float32 or bfloat16, 1 to ``MAX_K``
-    taps, and a grid within CUDA's limits (``ceil(s / block_seq)`` runs
-    and ``b`` sequences, each at most 65,535)."""
+    taps, and a positive int ``block_seq`` (the reference's run length;
+    the kernel's persistent grid splits the sequence its own way, so any
+    ``b`` and ``s`` fit)."""
     if dtype not in KERNEL_DTYPES:
         raise _not_ported(f"conv1d_depthwise in {dtype}")
     if k > MAX_K:
@@ -56,34 +60,62 @@ def check_launch(b: int, s: int, c: int, k: int, block_seq: int,
         raise ValueError(f"need at least one tap, got k={k}")
     if not isinstance(block_seq, int) or block_seq < 1:
         raise ValueError(f"block_seq must be a positive int, got {block_seq!r}")
-    runs = -(-s // block_seq)
-    if runs > MAX_GRID_YZ or b > MAX_GRID_YZ:
-        raise ValueError(
-            f"{b} sequences of {runs} runs of {block_seq} exceed CUDA's "
-            f"grid limit of {MAX_GRID_YZ} — use a larger block_seq"
-        )
 
 
 def vector_width(x: torch.Tensor, w: torch.Tensor) -> int:
-    """Channels per thread: 2 for bf16 when the channel count and both of
-    ``x``'s outer strides are even and ``x`` and ``w`` start on 4 bytes
-    (so a ``__nv_bfloat162`` access is aligned), else 1."""
-    if x.dtype != torch.bfloat16:
-        return 1
-    even = x.shape[2] % 2 == 0 and x.stride(0) % 2 == 0 \
-        and x.stride(1) % 2 == 0
-    aligned = x.data_ptr() % 4 == 0 and w.data_ptr() % 4 == 0
-    return 2 if even and aligned else 1
+    """Channels per lane: 16 bytes (8 bf16, 4 f32) when the channel count
+    and both of ``x``'s outer strides are multiples of it and ``x`` and
+    ``w`` start on 16 bytes; else, in bf16, 2 when they are even and
+    both start on 4 bytes (a ``__nv_bfloat162`` access); else 1."""
+    c = x.shape[2]
+
+    def fits(vec: int, align: int) -> bool:
+        return (c % vec == 0 and x.stride(0) % vec == 0
+                and x.stride(1) % vec == 0 and x.data_ptr() % align == 0
+                and w.data_ptr() % align == 0)
+
+    wide = 16 // x.element_size()
+    if fits(wide, 16):
+        return wide
+    if x.dtype == torch.bfloat16 and fits(2, 4):
+        return 2
+    return 1
 
 
-def launch_layout(b: int, s: int, c: int, block_seq: int,
-                  vec: int) -> tuple[tuple[int, int, int], int]:
-    """(grid, threads) of a launch: ``ceil(c / vec)`` lanes in whole warps
-    of at most ``MAX_THREADS`` threads along x, ``ceil(s / block_seq)``
-    runs along y, the batch along z."""
+def positions(b: int, s: int, c: int, vec: int) -> int:
+    """Positions of the (warp column, batch, position) space: a warp
+    column is 32 lanes of ``vec`` channels."""
     lanes = -(-c // vec)
-    threads = min(-(-lanes // 32) * 32, MAX_THREADS)
-    return (-(-lanes // threads), -(-s // block_seq), b), threads
+    return -(-lanes // 32) * b * s
+
+
+def launch_layout(b: int, s: int, c: int, vec: int,
+                  resident: int) -> tuple[int, int]:
+    """(grid, threads) of a launch: ``THREADS`` threads, and blocks
+    enough for one warp per ``MIN_WARP_POSITIONS`` positions, at least 1
+    and at most ``resident`` (the kernel's resident blocks per SM times
+    the SMs, :func:`kernel_grid` with ``b = 0``)."""
+    per_block = WARPS * MIN_WARP_POSITIONS
+    work = max(1, -(-positions(b, s, c, vec) // per_block))
+    return min(work, resident), THREADS
+
+
+def warp_runs(b: int, s: int, c: int, vec: int, grid: int):
+    """The runs the kernel's warps walk, in the kernel's order: (warp,
+    column, batch, t0, t1). Warp w of W = ``grid`` x 8 takes positions
+    [w P / W, (w + 1) P / W) of the (column, batch, position) space,
+    positions fastest, cut where a sequence ends."""
+    seq = b * s
+    total = positions(b, s, c, vec)
+    n_warps = grid * WARPS
+    for warp in range(n_warps):
+        p, p_end = warp * total // n_warps, (warp + 1) * total // n_warps
+        while p < p_end:
+            col, rem = divmod(p, seq)
+            bi, t0 = divmod(rem, s)
+            t1 = min(s, t0 + (p_end - p))
+            yield warp, col, bi, t0, t1
+            p += t1 - t0
 
 
 @functools.lru_cache(maxsize=None)
@@ -93,20 +125,35 @@ def _lib() -> ctypes.CDLL:
     lib = build.load(KERNEL)
     vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.repro_conv1d_depthwise.argtypes = [
-        vp, vp, vp, ci, ci, ci, ci, ll, ll, ci, ci, ci, ci, ci, vp,
+        vp, vp, vp, ci, ci, ci, ci, ll, ll, ci, ci, ci, ci, vp,
     ]
     lib.repro_conv1d_depthwise.restype = ci
-    lib.repro_conv1d_depthwise_threads.argtypes = [ci, ci]
+    lib.repro_conv1d_depthwise_threads.argtypes = []
     lib.repro_conv1d_depthwise_threads.restype = ci
+    lib.repro_conv1d_depthwise_grid.argtypes = [ci] * 8
+    lib.repro_conv1d_depthwise_grid.restype = ll
     lib.repro_cuda_error_string.argtypes = [ci]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def kernel_threads(c: int, vec: int) -> int:
+def kernel_threads() -> int:
     """Threads per block by the kernel's own layout (needs the built
-    library; :func:`launch_layout` must equal it)."""
-    return int(_lib().repro_conv1d_depthwise_threads(c, vec))
+    library; ``THREADS`` must equal it)."""
+    return int(_lib().repro_conv1d_depthwise_threads())
+
+
+def kernel_grid(b: int, s: int, c: int, k: int, activation: str,
+                dtype: str, vec: int, device: int = 0) -> int:
+    """Blocks the kernel launches for (b, s, c) by its own occupancy
+    (needs the built library and the card; :func:`launch_layout` must
+    equal it); ``b = 0`` gives its resident blocks alone."""
+    grid = int(_lib().repro_conv1d_depthwise_grid(
+        b, s, c, k, ACTIVATIONS.index(activation), DTYPE_CODES[dtype], vec,
+        device))
+    if grid < 0:
+        raise RuntimeError(f"{KERNEL} grid query failed: CUDA error {-grid}")
+    return grid
 
 
 def conv1d_depthwise_cuda(
@@ -121,8 +168,9 @@ def conv1d_depthwise_cuda(
     ``"silu"``); returns a contiguous (b, s, c) tensor.
 
     On a CUDA tensor: one launch of ``csrc/conv1d_depthwise.cu`` on the
-    current stream, adding one to ``conv1d_depthwise_cuda.launches``. On
-    a CPU tensor: the plain version, ``ref.conv1d_depthwise``.
+    current stream, adding one to ``conv1d_depthwise_cuda.launches``, at
+    :func:`vector_width` channels per lane. On a CPU tensor: the plain
+    version, ``ref.conv1d_depthwise``.
     """
     if activation not in ACTIVATIONS:
         raise ValueError(f"activation {activation!r} not in {ACTIVATIONS}")
@@ -153,7 +201,7 @@ def conv1d_depthwise_cuda(
     lib = _lib()
     err = lib.repro_conv1d_depthwise(
         x.data_ptr(), w.data_ptr(), y.data_ptr(), b, s, c, k,
-        x.stride(0), x.stride(1), block_seq, ACTIVATIONS.index(activation),
+        x.stride(0), x.stride(1), ACTIVATIONS.index(activation),
         DTYPE_CODES[dtype], vector_width(x, w), x.device.index or 0,
         torch.cuda.current_stream(x.device).cuda_stream,
     )

@@ -14,33 +14,49 @@
 // 436 MB at mamba2's prefill launch (4, 8192, 3328) in bf16: 0.130 ms of
 // memory, 0.013 ms of f32 arithmetic.
 //
-// Design. Channels lie across the threads of a warp, so every load and
-// store is one coalesced row segment: f32 one channel per thread, bf16
-// two per thread as __nv_bfloat162 (4-byte accesses) when the channels
-// and strides allow it, else one. Each thread walks a run of block_seq
-// positions of its channel(s) (grid y: runs along the sequence; grid z:
-// the batch; grid x: channel blocks). The last k-1 inputs stay in
-// registers as a sliding window, so each input is read once, plus k-1
-// halo values at the start of a run; the k taps sit in registers. U
-// positions are loaded before any of them is used, so a thread keeps U
-// loads in flight. The causal zeros come from the index (t < 0 reads 0)
-// and the ragged last run is masked: x is read in place, through its
-// batch and row strides, so mamba2's xBC (a column slice of the
-// in-projection, rows 2 d_inner + 2 g n + h apart) needs no copy.
+// Design. Channels lie across the lanes of a warp, VEC channels a lane:
+// 16-byte accesses (8 bf16 or 4 f32 channels) when the channel count,
+// both outer strides of x and the pointers allow it (mamba2's xBC: c =
+// 3328, rows 6448 apart, offset 3072), else bf16 pairs (__nv_bfloat162)
+// or single channels. So every load and store of a warp is one coalesced
+// row segment of 32 lanes. A warp column is 32 lanes of channels; the
+// work is the (column, batch, position) space, positions fastest, and a
+// persistent grid (the kernel's resident blocks per SM times the SMs)
+// splits it into one contiguous range of positions per warp, equal to
+// within one position, so every SM gets the same share in one wave. A
+// warp walks its range along the sequence (a new column or batch member
+// restarts the walk). The k taps sit in registers; the last k-1 inputs
+// stay in registers as a sliding window, so each input is read once,
+// plus k-1 halo values at the start of a range. Loads are in flight while
+// earlier positions are computed: U positions (4 at 16 bytes, else 8) are
+// computed from registers while the next U are loading (a register double
+// buffer). The causal zeros come from the index (t < 0 reads 0), and x is
+// read in place through its batch and row strides, so mamba2's xBC (a
+// column slice of the in-projection) needs no copy. No shared memory.
 //
 // Rounding. The sum is taken as the TPU kernel's body takes it, in the
 // input type, term by term in tap order (term = w_j x_j; acc = acc +
-// term): each product and each partial sum is rounded to T (in f32 with
-// __fmul_rn/__fadd_rn, so no FMA contraction), and SiLU as y * sigmoid(y)
-// with sigmoid(y) rounded to T. So the kernel equals its plain version
-// (ref.conv1d_depthwise) bit for bit. A kernel that summed in f32 and
+// term): each product and each partial sum is rounded to T, and SiLU as y
+// * sigmoid(y) with sigmoid(y) rounded to T. f32 uses __fmul_rn/__fadd_rn
+// (no FMA contraction). bf16 uses the packed mul.rn.bf16x2 and
+// add.rn.bf16x2 of sm_90, two channels an instruction: the product of two
+// bf16 values is exact in f32 and f32 has 24 >= 2 x 8 + 2 significand
+// bits, so rounding once to bf16 gives the bits of rounding to f32 and
+// then to bf16, as the plain version does (the explicit .rn also keeps the
+// compiler from fusing them). So the kernel equals its plain version
+// (ref.conv1d_depthwise) bit for bit; the SiLU runs in f32 with bf16
+// roundings, as the plain version's. A kernel that summed in f32 and
 // rounded once would be closer to exact, but random-init mamba2 in bf16
 // amplifies any change of rounding: on a 48-layer, 256-wide model it
 // moved the last logits by 57% of their largest value (CPU,
 // tools/mamba2_drift.py rounding), where the card's prefill check allows
-// 2e-2. Wider vectors and TMA are later work.
+// 2e-2. TMA for the rows is not used: a warp's 512-byte row segments
+// already coalesce, and the registers hold the window.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
+
+#include "persistent.cuh"
 
 namespace {
 
@@ -49,125 +65,222 @@ constexpr int DTYPE_BF16 = 2;
 constexpr int ACT_NONE = 0;
 constexpr int ACT_SILU = 1;
 constexpr int MAX_K = 8;       // taps instantiated: 1..8
-constexpr int MAX_THREADS = 128;
-constexpr int U = 8;           // positions loaded ahead by each thread
-constexpr int MAX_GRID_YZ = 65535;
+constexpr int THREADS = 256;   // conv1d_depthwise.py:THREADS
+constexpr int WARPS = THREADS / 32;
+// The grid gives each warp at least this many positions
+// (conv1d_depthwise.py:MIN_WARP_POSITIONS).
+constexpr int MIN_WARP_POSITIONS = 32;
 
-// Threads of one block: one lane per VEC channels, whole warps, at most
-// MAX_THREADS (conv1d_depthwise.py:launch_layout must equal it).
-inline int launch_threads(int c, int vec) {
-  const int lanes = (c + vec - 1) / vec;
-  const int warps = (lanes + 31) / 32;
-  return warps * 32 < MAX_THREADS ? warps * 32 : MAX_THREADS;
+// Positions of the (warp column, batch, position) space: 32 lanes of vec
+// channels a column (conv1d_depthwise.py:positions).
+__host__ __device__ inline long long positions(int b, int s, int c, int vec) {
+  const long long lanes = (c + vec - 1) / vec;
+  return (lanes + 31) / 32 * b * (long long)s;
 }
 
-// v rounded to T and back (what a T-typed op of the plain version keeps).
-template <typename T>
-__device__ inline float round_to(float v);
-template <>
-__device__ inline float round_to<float>(float v) { return v; }
-template <>
-__device__ inline float round_to<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
+__device__ inline unsigned bf16x2_mul(unsigned a, unsigned b) {
+  unsigned d;
+  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ inline unsigned bf16x2_add(unsigned a, unsigned b) {
+  unsigned d;
+  asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
 }
 
+// VEC channels of one lane in registers, with the plain version's
+// arithmetic in T.
 template <typename T, int VEC>
-struct Io;
+struct Lanes;
 
-template <>
-struct Io<float, 1> {
-  __device__ static void load(const float* p, float (&v)[1]) { v[0] = *p; }
-  __device__ static void store(float* p, const float (&v)[1]) { *p = v[0]; }
-};
-
-template <>
-struct Io<__nv_bfloat16, 1> {
-  __device__ static void load(const __nv_bfloat16* p, float (&v)[1]) {
-    v[0] = __bfloat162float(*p);
+template <int VEC>
+struct Lanes<float, VEC> {
+  static_assert(VEC == 1 || VEC == 4, "f32: 1 or 4 channels a lane");
+  float v[VEC];
+  __device__ void load(const float* p) {
+    if constexpr (VEC == 4) {
+      const float4 q = *reinterpret_cast<const float4*>(p);
+      v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+    } else {
+      v[0] = *p;
+    }
   }
-  __device__ static void store(__nv_bfloat16* p, const float (&v)[1]) {
-    *p = __float2bfloat16_rn(v[0]);
+  __device__ void store(float* p) const {
+    if constexpr (VEC == 4) {
+      *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+      *p = v[0];
+    }
   }
-};
-
-template <>
-struct Io<__nv_bfloat16, 2> {
-  __device__ static void load(const __nv_bfloat16* p, float (&v)[2]) {
-    const float2 f =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-    v[0] = f.x;
-    v[1] = f.y;
-  }
-  __device__ static void store(__nv_bfloat16* p, const float (&v)[2]) {
-    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v[0], v[1]);
-  }
-};
-
-template <typename T, int VEC, int K, int ACT>
-__global__ void __launch_bounds__(MAX_THREADS)
-    conv1d_depthwise_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                            T* __restrict__ y, int s, int c,
-                            long long x_stride_b, long long x_stride_s,
-                            int block_seq) {
-  using IO = Io<T, VEC>;
-  const int ch = (blockIdx.x * blockDim.x + threadIdx.x) * VEC;
-  if (ch >= c) return;
-  const int t0 = blockIdx.y * block_seq;
-  const int t1 = min(t0 + block_seq, s);
-  const T* xb = x + (long long)blockIdx.z * x_stride_b + ch;
-  T* yb = y + ((long long)blockIdx.z * s) * c + ch;
-
-  float taps[K][VEC];
+  __device__ void zero() {
 #pragma unroll
-  for (int j = 0; j < K; ++j) IO::load(w + (long long)j * c + ch, taps[j]);
+    for (int i = 0; i < VEC; ++i) v[i] = 0.f;
+  }
+  __device__ static Lanes mul(const Lanes& a, const Lanes& b) {
+    Lanes r;
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) r.v[i] = __fmul_rn(a.v[i], b.v[i]);
+    return r;
+  }
+  __device__ static Lanes add(const Lanes& a, const Lanes& b) {
+    Lanes r;
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) r.v[i] = __fadd_rn(a.v[i], b.v[i]);
+    return r;
+  }
+  __device__ void silu() {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i)
+      v[i] = __fmul_rn(v[i], 1.f / (1.f + expf(-v[i])));
+  }
+};
 
-  // win[0..K-2]: the inputs t-(K-1) .. t-1; win[K-1]: input t.
-  float win[K][VEC];
+// bf16 as packed pairs; one channel a lane keeps it in the low half (the
+// high half stays 0).
+template <int VEC>
+struct Lanes<__nv_bfloat16, VEC> {
+  static_assert(VEC == 1 || VEC == 2 || VEC == 8,
+                "bf16: 1, 2 or 8 channels a lane");
+  static constexpr int P = VEC > 1 ? VEC / 2 : 1;
+  unsigned h[P];
+  __device__ void load(const __nv_bfloat16* p) {
+    if constexpr (VEC == 8) {
+      const uint4 q = *reinterpret_cast<const uint4*>(p);
+      h[0] = q.x, h[1] = q.y, h[2] = q.z, h[3] = q.w;
+    } else if constexpr (VEC == 2) {
+      h[0] = *reinterpret_cast<const unsigned*>(p);
+    } else {
+      h[0] = *reinterpret_cast<const unsigned short*>(p);
+    }
+  }
+  __device__ void store(__nv_bfloat16* p) const {
+    if constexpr (VEC == 8) {
+      *reinterpret_cast<uint4*>(p) = make_uint4(h[0], h[1], h[2], h[3]);
+    } else if constexpr (VEC == 2) {
+      *reinterpret_cast<unsigned*>(p) = h[0];
+    } else {
+      *reinterpret_cast<unsigned short*>(p) = (unsigned short)(h[0] & 0xffffu);
+    }
+  }
+  __device__ void zero() {
+#pragma unroll
+    for (int i = 0; i < P; ++i) h[i] = 0u;
+  }
+  __device__ static Lanes mul(const Lanes& a, const Lanes& b) {
+    Lanes r;
+#pragma unroll
+    for (int i = 0; i < P; ++i) r.h[i] = bf16x2_mul(a.h[i], b.h[i]);
+    return r;
+  }
+  __device__ static Lanes add(const Lanes& a, const Lanes& b) {
+    Lanes r;
+#pragma unroll
+    for (int i = 0; i < P; ++i) r.h[i] = bf16x2_add(a.h[i], b.h[i]);
+    return r;
+  }
+  // y * sigmoid(y) in f32, sigmoid(y) rounded to bf16, the product rounded
+  // to bf16 (the plain version's roundings).
+  __device__ void silu() {
+#pragma unroll
+    for (int i = 0; i < P; ++i) {
+      const float2 f =
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&h[i]));
+      const float s0 =
+          __bfloat162float(__float2bfloat16_rn(1.f / (1.f + expf(-f.x))));
+      const float s1 =
+          __bfloat162float(__float2bfloat16_rn(1.f / (1.f + expf(-f.y))));
+      const __nv_bfloat162 r =
+          __floats2bfloat162_rn(__fmul_rn(f.x, s0), __fmul_rn(f.y, s1));
+      h[i] = *reinterpret_cast<const unsigned*>(&r);
+    }
+  }
+};
+
+// One warp's run of positions [t0, t1) of one sequence, this lane's
+// channels: xb and yb point at the lane's first channel of position 0.
+template <typename T, int VEC, int K, int ACT>
+__device__ __forceinline__ void run(const T* __restrict__ xb,
+                                    const T* __restrict__ wc,
+                                    T* __restrict__ yb, int c,
+                                    long long x_stride_s, int t0, int t1) {
+  using L = Lanes<T, VEC>;
+  constexpr int U = VEC * int(sizeof(T)) == 16 ? 4 : 8;
+  L taps[K];
+#pragma unroll
+  for (int j = 0; j < K; ++j) taps[j].load(wc + (long long)j * c);
+  // xs[0..K-2]: inputs t-(K-1) .. t-1; xs[K-1+u]: input t+u.
+  L xs[K - 1 + U];
 #pragma unroll
   for (int j = 0; j < K - 1; ++j) {
     const int t = t0 - (K - 1) + j;
-    if (t >= 0) {
-      IO::load(xb + t * x_stride_s, win[j]);
-    } else {
-#pragma unroll
-      for (int v = 0; v < VEC; ++v) win[j][v] = 0.f;
-    }
+    if (t >= 0)
+      xs[j].load(xb + t * x_stride_s);
+    else
+      xs[j].zero();
   }
-
+  L nx[U];  // the next U inputs, in flight while the current U compute
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    if (t0 + u < t1)
+      nx[u].load(xb + (t0 + u) * x_stride_s);
+    else
+      nx[u].zero();
+  }
   for (int t = t0; t < t1; t += U) {
-    float nx[U][VEC];
+#pragma unroll
+    for (int u = 0; u < U; ++u) xs[K - 1 + u] = nx[u];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      if (t + u < t1) {
-        IO::load(xb + (t + u) * x_stride_s, nx[u]);
-      } else {
-#pragma unroll
-        for (int v = 0; v < VEC; ++v) nx[u][v] = 0.f;
-      }
+      const int tn = t + U + u;
+      if (tn < t1)
+        nx[u].load(xb + tn * x_stride_s);
+      else
+        nx[u].zero();
     }
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      float acc[VEC];
+      L acc = L::mul(taps[0], xs[u]);
 #pragma unroll
-      for (int v = 0; v < VEC; ++v) {
-        win[K - 1][v] = nx[u][v];
-        acc[v] = round_to<T>(__fmul_rn(taps[0][v], win[0][v]));
-#pragma unroll
-        for (int j = 1; j < K; ++j)
-          acc[v] = round_to<T>(__fadd_rn(
-              acc[v], round_to<T>(__fmul_rn(taps[j][v], win[j][v]))));
-        if constexpr (ACT == ACT_SILU) {
-          const float sig = round_to<T>(1.f / (1.f + expf(-acc[v])));
-          acc[v] = __fmul_rn(acc[v], sig);
-        }
-      }
-      if (t + u < t1) IO::store(yb + (long long)(t + u) * c, acc);
-#pragma unroll
-      for (int j = 0; j < K - 1; ++j) {
-#pragma unroll
-        for (int v = 0; v < VEC; ++v) win[j][v] = win[j + 1][v];
-      }
+      for (int j = 1; j < K; ++j) acc = L::add(acc, L::mul(taps[j], xs[u + j]));
+      if constexpr (ACT == ACT_SILU) acc.silu();
+      if (t + u < t1) acc.store(yb + (long long)(t + u) * c);
     }
+#pragma unroll
+    for (int j = 0; j < K - 1; ++j) xs[j] = xs[U + j];
+  }
+}
+
+// Warp w of W takes positions [w P / W, (w + 1) P / W) of the (column,
+// batch, position) space (conv1d_depthwise.py:warp_runs mirrors it). Up to
+// 4 taps, at least 3 blocks an SM in f32 (80 registers) and 2 in bf16 (a
+// cap of 80 spilled there and ran slower); more taps take what they need.
+template <typename T, int VEC, int K, int ACT>
+__global__ void __launch_bounds__(THREADS,
+                                  K > 4 ? 1 : (sizeof(T) == 4 ? 3 : 2))
+    conv1d_depthwise_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                            T* __restrict__ y, int b, int s, int c,
+                            long long x_stride_b, long long x_stride_s) {
+  const int lane = threadIdx.x & 31;
+  const long long warp = (long long)blockIdx.x * WARPS + (threadIdx.x >> 5);
+  const long long n_warps = (long long)gridDim.x * WARPS;
+  const long long seq = (long long)b * s;
+  const long long total = positions(b, s, c, VEC);
+  long long p = warp * total / n_warps;
+  const long long p_end = (warp + 1) * total / n_warps;
+  while (p < p_end) {
+    const long long col = p / seq;
+    const long long rem = p - col * seq;
+    const int bi = int(rem / s);
+    const int t0 = int(rem - (long long)bi * s);
+    const long long left = p_end - p;
+    const int t1 = left < s - t0 ? t0 + int(left) : s;
+    const int ch = (int(col) * 32 + lane) * VEC;
+    if (ch < c)
+      run<T, VEC, K, ACT>(x + bi * x_stride_b + ch, w + ch,
+                          y + (long long)bi * s * c + ch, c, x_stride_s, t0,
+                          t1);
+    p += t1 - t0;
   }
 }
 
@@ -177,44 +290,69 @@ struct Args {
   void* y;
   int b, s, c, k;
   long long x_stride_b, x_stride_s;
-  int block_seq;
+  long long items;  // blocks the work could use (at least 1)
+  int device;
+  bool launch;      // false: only the grid
   cudaStream_t stream;
 };
 
 template <typename T, int VEC, int K, int ACT>
-cudaError_t launch(const Args& a) {
-  const int threads = launch_threads(a.c, VEC);
-  const int lanes = (a.c + VEC - 1) / VEC;
-  const dim3 grid((lanes + threads - 1) / threads,
-                  (a.s + a.block_seq - 1) / a.block_seq, a.b);
-  conv1d_depthwise_kernel<T, VEC, K, ACT><<<grid, threads, 0, a.stream>>>(
+cudaError_t launch(const Args& a, long long& grid) {
+  constexpr auto kernel = conv1d_depthwise_kernel<T, VEC, K, ACT>;
+  cudaError_t err =
+      stencil::persistent_grid<kernel>(THREADS, 0, a.device, a.items, grid);
+  if (err != cudaSuccess || !a.launch) return err;
+  kernel<<<unsigned(grid), THREADS, 0, a.stream>>>(
       static_cast<const T*>(a.x), static_cast<const T*>(a.w),
-      static_cast<T*>(a.y), a.s, a.c, a.x_stride_b, a.x_stride_s,
-      a.block_seq);
+      static_cast<T*>(a.y), a.b, a.s, a.c, a.x_stride_b, a.x_stride_s);
   return cudaGetLastError();
 }
 
 // The launch of the instantiated K equal to a.k (1..MAX_K).
 template <typename T, int VEC, int ACT, int K = 1>
-cudaError_t launch_k(const Args& a) {
+cudaError_t launch_k(const Args& a, long long& grid) {
   if constexpr (K > MAX_K) {
     return cudaErrorInvalidValue;
   } else {
-    if (a.k == K) return launch<T, VEC, K, ACT>(a);
-    return launch_k<T, VEC, ACT, K + 1>(a);
+    if (a.k == K) return launch<T, VEC, K, ACT>(a, grid);
+    return launch_k<T, VEC, ACT, K + 1>(a, grid);
   }
 }
 
 template <typename T, int VEC>
-cudaError_t launch_act(int activation, const Args& a) {
+cudaError_t launch_act(int activation, const Args& a, long long& grid) {
   switch (activation) {
     case ACT_NONE:
-      return launch_k<T, VEC, ACT_NONE>(a);
+      return launch_k<T, VEC, ACT_NONE>(a, grid);
     case ACT_SILU:
-      return launch_k<T, VEC, ACT_SILU>(a);
+      return launch_k<T, VEC, ACT_SILU>(a, grid);
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+cudaError_t dispatch(int activation, int dtype, int vec, const Args& a,
+                     long long& grid) {
+  if (a.k < 1 || a.k > MAX_K) return cudaErrorInvalidValue;
+  if (dtype == DTYPE_F32 && vec == 1)
+    return launch_act<float, 1>(activation, a, grid);
+  if (dtype == DTYPE_F32 && vec == 4)
+    return launch_act<float, 4>(activation, a, grid);
+  if (dtype == DTYPE_BF16 && vec == 1)
+    return launch_act<__nv_bfloat16, 1>(activation, a, grid);
+  if (dtype == DTYPE_BF16 && vec == 2)
+    return launch_act<__nv_bfloat16, 2>(activation, a, grid);
+  if (dtype == DTYPE_BF16 && vec == 8)
+    return launch_act<__nv_bfloat16, 8>(activation, a, grid);
+  return cudaErrorInvalidValue;  // other types wait for ROADMAP B7b
+}
+
+// Blocks the work of (b, s, c) could use: one warp per
+// MIN_WARP_POSITIONS positions (conv1d_depthwise.py:launch_layout).
+inline long long work_blocks(int b, int s, int c, int vec) {
+  const long long per_block = (long long)WARPS * MIN_WARP_POSITIONS;
+  const long long n = (positions(b, s, c, vec) + per_block - 1) / per_block;
+  return n > 0 ? n : 1;
 }
 
 }  // namespace
@@ -224,43 +362,56 @@ extern "C" {
 // Launch the depthwise causal conv on `stream`. `x` is (b, s, c) with
 // element strides (x_stride_b, x_stride_s, 1); `w` is (k, c) and `y`
 // (b, s, c), both contiguous; all of element type `dtype` (DTYPE_F32 or
-// DTYPE_BF16). `vec` is the channels per thread: 1, or 2 in bf16 (then c
-// and both strides are even, x and w 4-byte aligned). `activation` is 0
-// (none) or 1 (SiLU). Returns the cudaError_t of the launch (0 on
-// success).
+// DTYPE_BF16). `vec` is the channels per lane: 4 (f32) or 8 (bf16) for
+// 16-byte accesses, 2 for bf16 pairs, or 1; with vec > 1, c and both
+// strides are multiples of vec and x, w and y are aligned to vec
+// elements. `activation` is 0 (none) or 1 (SiLU). Returns the cudaError_t
+// of the launch (0 on success).
 int repro_conv1d_depthwise(const void* x, const void* w, void* y, int b,
                            int s, int c, int k, long long x_stride_b,
-                           long long x_stride_s, int block_seq,
-                           int activation, int dtype, int vec, int device,
-                           void* stream) {
+                           long long x_stride_s, int activation, int dtype,
+                           int vec, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
-  if (b < 1 || s < 1 || c < 1 || k < 1 || k > MAX_K || block_seq < 1 ||
-      b > MAX_GRID_YZ || (s + block_seq - 1) / block_seq > MAX_GRID_YZ)
-    return int(cudaErrorInvalidValue);
-  const Args a{x, w, y, b, s, c, k, x_stride_b, x_stride_s, block_seq,
-               static_cast<cudaStream_t>(stream)};
-  if (dtype == DTYPE_F32 && vec == 1)
-    return int(launch_act<float, 1>(activation, a));
-  if (dtype == DTYPE_BF16 && vec == 1)
-    return int(launch_act<__nv_bfloat16, 1>(activation, a));
-  if (dtype == DTYPE_BF16 && vec == 2) {
-    if (c % 2 || x_stride_b % 2 || x_stride_s % 2 ||
-        reinterpret_cast<unsigned long long>(x) % 4 ||
-        reinterpret_cast<unsigned long long>(w) % 4)
+  if (b < 1 || s < 1 || c < 1 || vec < 1) return int(cudaErrorInvalidValue);
+  if (vec > 1) {
+    const unsigned long long align =
+        (unsigned long long)vec * (dtype == DTYPE_F32 ? 4 : 2);
+    if (c % vec || x_stride_b % vec || x_stride_s % vec ||
+        reinterpret_cast<unsigned long long>(x) % align ||
+        reinterpret_cast<unsigned long long>(w) % align ||
+        reinterpret_cast<unsigned long long>(y) % align)
       return int(cudaErrorInvalidValue);
-    return int(launch_act<__nv_bfloat16, 2>(activation, a));
   }
-  return int(cudaErrorInvalidValue);  // other types wait for ROADMAP B7b
+  const Args a{x, w, y, b, s, c, k, x_stride_b, x_stride_s,
+               work_blocks(b, s, c, vec), device, true,
+               static_cast<cudaStream_t>(stream)};
+  long long grid = 0;
+  return int(dispatch(activation, dtype, vec, a, grid));
 }
 
 const char* repro_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Threads of one block (conv1d_depthwise.py:launch_layout must equal it).
-int repro_conv1d_depthwise_threads(int c, int vec) {
-  return launch_threads(c, vec);
+// Threads of one block (conv1d_depthwise.py:THREADS must equal it).
+int repro_conv1d_depthwise_threads() { return THREADS; }
+
+// Blocks a launch of (b, s, c) runs: the kernel's resident blocks per SM
+// times the SMs, at most the work's blocks (conv1d_depthwise.py:
+// launch_layout must equal it); with b = 0 the resident blocks alone.
+// Negative: a CUDA error.
+long long repro_conv1d_depthwise_grid(int b, int s, int c, int k,
+                                      int activation, int dtype, int vec,
+                                      int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return -(long long)err;
+  const long long items = b > 0 ? work_blocks(b, s, c, vec) : LLONG_MAX;
+  const Args a{nullptr, nullptr, nullptr, b, s, c, k, 0, 0, items, device,
+               false, nullptr};
+  long long grid = 0;
+  err = dispatch(activation, dtype, vec, a, grid);
+  return err == cudaSuccess ? grid : -(long long)err;
 }
 
 }  // extern "C"

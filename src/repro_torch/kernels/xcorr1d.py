@@ -8,13 +8,25 @@ strategies (``csrc/xcorr1d.cu``):
 
 * ``baseline``: one output per thread per pass, the tap loop rolled;
 * ``pointwise``: the tap loop unrolled by ``unroll``, the tail exact;
-* ``elementwise``: ``unroll`` outputs per thread, one in each of
-  ``unroll`` adjacent sub-blocks, from one load of each coefficient.
+* ``elementwise``: ``unroll`` outputs per thread from one load of each
+  coefficient. From ``RING_MIN_TAPS`` taps at ``unroll`` > 1, unlike the
+  reference, whose thread takes one output in each of ``unroll``
+  sub-blocks (a TPU lane layout), a thread's outputs are consecutive, so
+  its window slides through registers (register tiling); with fewer
+  taps, or ``unroll`` = 1, a thread keeps the reference's sub-blocks.
+  Each output sums its taps in the reference's order either way.
 
-``block_size`` is outputs per CUDA block; the threads per block follow
-from it (:func:`launch_threads`) and the block's shared memory holds its
-window of ``block_size + 2r`` inputs and the taps (:func:`smem_bytes`).
-Any n is taken: the kernel masks the ragged last block.
+``block_size`` is outputs per tile; the threads per block follow from it
+(:func:`launch_threads`). The launch follows from the strategy and the
+taps (:func:`ring_route`): baseline, pointwise and elementwise below
+``RING_MIN_TAPS`` taps (or at ``unroll`` = 1) run one block a tile, its
+window of ``block_size + 2r`` inputs staged element by element before
+any compute; register-tiled elementwise runs persistent blocks
+(:func:`launch_grid`) that walk the tiles with a ring of window buffers
+in shared memory (:func:`ring_stages`), beside the taps
+(:func:`smem_bytes`), staged by 16-byte copies where f and the tiles are
+aligned (:func:`wide_staging`). Any n is taken: the kernel masks the
+ragged last tile.
 
 A CPU tensor goes to the plain version (``ref.xcorr1d``); a CUDA tensor
 goes to the kernel, or the wrapper raises — there is no fallback from
@@ -25,6 +37,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -37,6 +50,9 @@ STRATEGIES = ("baseline", "pointwise", "elementwise")
 MODES = {s: i for i, s in enumerate(STRATEGIES)}  # MODE_* of xcorr1d.cu
 KERNEL = "xcorr1d"  # csrc/xcorr1d.cu
 MAX_UNROLL = 16  # the unroll factors xcorr1d.cu instantiates: 1..16
+# Taps from which elementwise at unroll > 1 runs the persistent ring
+# (RING_MIN_TAPS of xcorr1d.cu); with fewer, the one-tile launch.
+RING_MIN_TAPS = 21
 KERNEL_DTYPES = ("float32", "float64")
 
 
@@ -53,22 +69,131 @@ def kernel_unroll(strategy: str, unroll: int) -> int:
     return 1 if strategy == "baseline" else unroll
 
 
-def launch_threads(block_size: int, strategy: str, unroll: int) -> int:
+def ring_route(strategy: str, unroll: int, n_taps: int) -> bool:
+    """Which launch the kernel runs (``ring_route`` of
+    ``csrc/xcorr1d.cu``): the persistent ring with register tiling on
+    ``elementwise`` at ``unroll`` > 1 from ``RING_MIN_TAPS`` taps on;
+    else one block a tile. Baseline and pointwise are held back by two
+    shared-memory loads per FMA, which a ring does not cut, and at few
+    taps register tiling took longer than the reference's sub-blocks on
+    an H100."""
+    return (strategy == "elementwise" and unroll > 1
+            and n_taps >= RING_MIN_TAPS)
+
+
+def launch_threads(block_size: int, strategy: str, unroll: int,
+                   n_taps: int) -> int:
     """Threads per block (``launch_threads`` of ``csrc/xcorr1d.cu``):
     ``min(block_size / U_e, 1024)``, U_e = ``unroll`` on ``elementwise``
     (a thread's U outputs) and 1 otherwise (one output per thread per
-    pass); a thread loops over its outputs when the block has more."""
-    lanes = block_size // unroll if strategy == "elementwise" else block_size
-    return min(lanes, MAX_THREADS)
+    pass); on the ring (:func:`ring_route`) at most 512 past U = 8 (its
+    registers). A thread loops over its outputs when the tile has more."""
+    elementwise = strategy == "elementwise"
+    lanes = block_size // unroll if elementwise else block_size
+    most = (MAX_THREADS // 2 if ring_route(strategy, unroll, n_taps)
+            and unroll > 8 else MAX_THREADS)
+    return min(lanes, most)
 
 
-def smem_bytes(n_taps: int, block_size: int, dtype: str) -> int:
-    """Shared memory of one block (``smem_bytes`` of ``csrc/xcorr1d.cu``):
-    the window of ``block_size + n_taps - 1`` inputs padded to 16 B, then
-    the ``n_taps`` taps."""
+def window_pad(strategy: str, unroll: int, dtype: str) -> int:
+    """The empty-slot period of a ring window (``window_pad`` of
+    ``csrc/xcorr1d.cu``): on ``elementwise``, a thread's U outputs are U /
+    V vectors of V = gcd(U, 16 B / itemsize) elements; when V fills 16
+    bytes and U / V is even, one 16-byte slot stays empty after every U /
+    V vectors (so a quarter warp's vector loads hit distinct banks), and
+    the period is U / V; else 0 (the window in order)."""
+    vmax = 16 // ITEMSIZE[dtype]
+    v = math.gcd(unroll, vmax)
+    if strategy == "elementwise" and v == vmax and (unroll // v) % 2 == 0:
+        return unroll // v
+    return 0
+
+
+def window_bytes(n_taps: int, block_size: int, dtype: str,
+                 strategy: str = "baseline", unroll: int = 1) -> int:
+    """One window buffer: ``block_size + n_taps - 1`` inputs padded to 16
+    bytes, q slots of 16 bytes, and with a period p
+    (:func:`window_pad`) (q - 1) // p empty slots more."""
     item = ITEMSIZE[dtype]
-    window = -(-(block_size + n_taps - 1) * item // 16) * 16
-    return window + n_taps * item
+    q = -(-(block_size + n_taps - 1) * item // 16)
+    pad = window_pad(strategy, unroll, dtype)
+    return 16 * (q + (q - 1) // pad if pad else q)
+
+
+def warp_scratch_bytes(strategy: str, unroll: int, dtype: str) -> int:
+    """One warp's output scratch (``warp_scratch_bytes`` of
+    ``csrc/xcorr1d.cu``): on ``elementwise``, where a thread's U outputs
+    are more than one vector of V = gcd(U, 16 B / itemsize) elements, the
+    warp's 32 U outputs pass through shared memory to be stored contiguous
+    across the warp: 32 x (U / V + 1) slots of 16 bytes with the window's
+    empty slots (:func:`window_pad`), else 32 U elements; 0 otherwise."""
+    item = ITEMSIZE[dtype]
+    v = math.gcd(unroll, 16 // item)
+    if strategy != "elementwise" or unroll == v:
+        return 0
+    if window_pad(strategy, unroll, dtype):
+        return 32 * (unroll // v + 1) * 16
+    return 32 * unroll * item
+
+
+def ring_smem_bytes(n_taps: int, block_size: int, dtype: str,
+                    strategy: str, unroll: int, stages: int) -> int:
+    """Shared memory of a ring block with ``stages`` window buffers
+    (:func:`window_bytes`): the buffers, each warp's output scratch
+    (:func:`warp_scratch_bytes`), then the ``n_taps`` taps."""
+    u = kernel_unroll(strategy, unroll)
+    warps = -(-launch_threads(block_size, strategy, u, n_taps) // 32)
+    return (stages * window_bytes(n_taps, block_size, dtype, strategy, u)
+            + warps * warp_scratch_bytes(strategy, u, dtype)
+            + n_taps * ITEMSIZE[dtype])
+
+
+def ring_stages(n_taps: int, block_size: int, dtype: str, strategy: str,
+                unroll: int) -> int:
+    """Window buffers of a ring block (``ring_stages`` of
+    ``csrc/xcorr1d.cu``): 2 (one tile computing while the next lands)
+    when two fit 227 KB beside the scratch and taps, else 1."""
+    fits = ring_smem_bytes(n_taps, block_size, dtype, strategy, unroll,
+                           2) <= SMEM_PER_BLOCK
+    return 2 if fits else 1
+
+
+@functools.lru_cache(maxsize=256)
+def smem_bytes(n_taps: int, block_size: int, dtype: str,
+               strategy: str = "baseline", unroll: int = 1) -> int:
+    """Shared memory of one block (``smem_bytes`` of ``csrc/xcorr1d.cu``):
+    on the ring (:func:`ring_route`) its :func:`ring_stages` buffers,
+    scratch and taps (:func:`ring_smem_bytes`); on the one-tile launch the
+    window of ``block_size + n_taps - 1`` inputs padded to 16 bytes, then
+    the taps. Cached: every launch's check asks it."""
+    if ring_route(strategy, kernel_unroll(strategy, unroll), n_taps):
+        return ring_smem_bytes(
+            n_taps, block_size, dtype, strategy, unroll,
+            ring_stages(n_taps, block_size, dtype, strategy, unroll))
+    item = ITEMSIZE[dtype]
+    return -(-(block_size + n_taps - 1) * item // 16) * 16 + n_taps * item
+
+
+def wide_staging(f_padded: torch.Tensor, block_size: int) -> bool:
+    """Whether the ring's windows stage with 16-byte copies (the kernel's
+    own test): ``f_padded`` starts on 16 bytes and every tile starts
+    ``block_size`` x itemsize bytes, a multiple of 16, after the last;
+    else element by element, as the one-tile launch always does."""
+    return (f_padded.data_ptr() % 16 == 0
+            and block_size * f_padded.element_size() % 16 == 0)
+
+
+def launch_grid(n: int, n_taps: int, block_size: int, strategy: str,
+                unroll: int, resident: int) -> int:
+    """Blocks of a launch: the ``ceil(n / block_size)`` tiles on the
+    one-tile launch; on the ring (:func:`ring_route`) the kernel's
+    resident blocks (its occupancy times the SMs, :func:`kernel_grid`
+    with ``n = 0``), at most the tiles, block b taking tiles b, b + grid,
+    ..."""
+    tiles = -(-n // block_size)
+    if ring_route(strategy, kernel_unroll(strategy, unroll), n_taps):
+        return max(1, min(resident, tiles))
+    return tiles
 
 
 def check_args(strategy: str, block_size, unroll: int) -> None:
@@ -90,14 +215,14 @@ def check_launch(n_taps: int, block_size: int, strategy: str, unroll: int,
                  dtype: str) -> None:
     """What the card's kernel takes beyond the reference's rules: float32
     or float64, an unroll factor it instantiates, and a block whose
-    window and taps fit 227 KB of shared memory."""
+    shared memory (:func:`smem_bytes`) fits 227 KB."""
     if dtype in ("bfloat16", "float16"):
         raise _not_ported(f"xcorr1d in {dtype}")
     if dtype not in KERNEL_DTYPES:
         raise ValueError(f"xcorr1d takes float32 or float64, got {dtype}")
     if kernel_unroll(strategy, unroll) > MAX_UNROLL:
         raise _not_ported(f"unroll={unroll}")
-    need = smem_bytes(n_taps, block_size, dtype)
+    need = smem_bytes(n_taps, block_size, dtype, strategy, unroll)
     if need > SMEM_PER_BLOCK:
         raise ValueError(
             f"block_size {block_size} with {n_taps} taps needs {need} B of "
@@ -110,15 +235,17 @@ def check_launch(n_taps: int, block_size: int, strategy: str, unroll: int,
 def _lib() -> ctypes.CDLL:
     """Build/load ``csrc/xcorr1d.cu`` and declare its C signatures."""
     lib = build.load(KERNEL)
-    vp, ci = ctypes.c_void_p, ctypes.c_int
+    vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.repro_xcorr1d.argtypes = [
-        vp, vp, vp, ctypes.c_longlong, ci, ci, ci, ci, ci, ci, vp,
+        vp, vp, vp, ll, ci, ci, ci, ci, ci, ci, vp,
     ]
     lib.repro_xcorr1d.restype = ci
-    lib.repro_xcorr1d_smem_bytes.argtypes = [ci, ci, ci]
-    lib.repro_xcorr1d_smem_bytes.restype = ctypes.c_longlong
-    lib.repro_xcorr1d_threads.argtypes = [ci, ci, ci]
+    lib.repro_xcorr1d_smem_bytes.argtypes = [ci] * 5
+    lib.repro_xcorr1d_smem_bytes.restype = ll
+    lib.repro_xcorr1d_threads.argtypes = [ci] * 4
     lib.repro_xcorr1d_threads.restype = ci
+    lib.repro_xcorr1d_grid.argtypes = [ll] + [ci] * 6
+    lib.repro_xcorr1d_grid.restype = ll
     lib.repro_cuda_error_string.argtypes = [ci]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -132,10 +259,25 @@ def kernel_layout(n_taps: int, block_size: int, strategy: str, unroll: int,
     lib = _lib()
     u = kernel_unroll(strategy, unroll)
     return (
-        int(lib.repro_xcorr1d_threads(block_size, MODES[strategy], u)),
+        int(lib.repro_xcorr1d_threads(n_taps, block_size, MODES[strategy],
+                                      u)),
         int(lib.repro_xcorr1d_smem_bytes(n_taps, block_size,
+                                         MODES[strategy], u,
                                          DTYPE_CODES[dtype])),
     )
+
+
+def kernel_grid(n: int, n_taps: int, block_size: int, strategy: str,
+                unroll: int, dtype: str, device: int = 0) -> int:
+    """Blocks the kernel launches for n outputs by its own occupancy
+    (needs the built library and the card; :func:`launch_grid` must equal
+    it); on the ring ``n = 0`` gives its resident blocks alone."""
+    grid = int(_lib().repro_xcorr1d_grid(
+        n, n_taps, block_size, MODES[strategy],
+        kernel_unroll(strategy, unroll), DTYPE_CODES[dtype], device))
+    if grid < 0:
+        raise RuntimeError(f"{KERNEL} grid query failed: CUDA error {-grid}")
+    return grid
 
 
 def xcorr1d_cuda(
@@ -151,8 +293,9 @@ def xcorr1d_cuda(
 
     On a CUDA tensor: one launch of ``csrc/xcorr1d.cu`` on the current
     stream, adding one to ``xcorr1d_cuda.launches`` and to
-    ``xcorr1d_cuda.launches_by_strategy[strategy]``. On a CPU tensor:
-    the plain version, ``ref.xcorr1d``.
+    ``xcorr1d_cuda.launches_by_strategy[strategy]``; the kernel picks its
+    launch from the strategy and the taps (:func:`ring_route`). On a CPU
+    tensor: the plain version, ``ref.xcorr1d``.
     """
     check_args(strategy, block_size, unroll)
     if f_padded.ndim != 1 or g.ndim != 1:

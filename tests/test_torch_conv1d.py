@@ -118,10 +118,13 @@ def test_rules_name_their_roadmap_items():
     with pytest.raises(NotImplementedError, match="B7b"):
         kc.check_launch(1, 8, 4, kc.MAX_K + 1, 512, "float32")
     kc.check_launch(1, 8, 4, kc.MAX_K, 512, "bfloat16")
-    # 65,535 runs of one position fit the grid; one more does not.
+    # The persistent grid splits the positions itself, so runs of one
+    # position past CUDA's 65,535 grid rows fit; block_seq must be a
+    # positive int.
     kc.check_launch(1, 65_535, 4, 4, 1, "float32")
-    with pytest.raises(ValueError, match="grid"):
-        kc.check_launch(1, 65_536, 4, 4, 1, "float32")
+    kc.check_launch(70_000, 65_536, 4, 4, 1, "float32")
+    with pytest.raises(ValueError, match="block_seq"):
+        kc.check_launch(1, 8, 4, 4, 0, "float32")
     # None is the reference's 512; the CPU takes any float dtype (the
     # plain version), as the reference does.
     x64 = torch.randn(1, 8, 4, dtype=torch.float64)
@@ -132,24 +135,110 @@ def test_rules_name_their_roadmap_items():
 
 def test_launch_layout_by_hand():
     """Grid and threads, counted by hand from ``csrc/conv1d_depthwise.cu``:
-    ceil(c / vec) lanes in whole warps of at most 128 threads along x,
-    ceil(s / block_seq) runs along y, the batch along z."""
+    256 threads (8 warps); the (warp column, batch, position) space of
+    ceil(ceil(c / vec) / 32) columns, b sequences and s positions; blocks
+    for one warp per 32 positions, at least 1, at most the resident
+    blocks (132 SMs x 3 here)."""
     L = kc.launch_layout
-    # mamba2-780m's prefill launch: c = 3072 + 2·128 = 3328 channels.
-    assert L(4, 8192, 3328, 512, 2) == ((13, 16, 4), 128)  # bf16 pairs
-    assert L(4, 8192, 3328, 512, 1) == ((26, 16, 4), 128)  # f32
-    assert L(4, 8193, 3328, 512, 2) == ((13, 17, 4), 128)  # ragged run
-    assert L(1, 64, 8, 128, 1) == ((1, 1, 1), 32)
-    assert L(3, 100, 16, 128, 2) == ((1, 1, 3), 32)
-    assert L(2, 257, 33, 128, 1) == ((1, 3, 2), 64)
-    assert L(2, 512, 160, 512, 1) == ((2, 1, 2), 128)  # reduced mamba2
+    resident = 132 * 3
+    # mamba2-780m's prefill launch: c = 3072 + 2·128 = 3328 channels,
+    # 416 lanes of 8 bf16 (13 columns) or 832 of 4 f32 (26).
+    assert kc.positions(4, 8192, 3328, 8) == 13 * 4 * 8192
+    assert L(4, 8192, 3328, 8, resident) == (resident, 256)  # bf16 lanes
+    assert L(4, 8192, 3328, 4, resident) == (resident, 256)  # f32
+    assert kc.positions(4, 8192, 3328, 2) == 52 * 4 * 8192  # bf16 pairs
+    assert L(1, 64, 8, 1, resident) == (1, 256)  # 64 positions: 1 block
+    assert L(3, 100, 16, 2, resident) == (2, 256)  # 300 positions
+    assert L(2, 257, 33, 1, resident) == (5, 256)  # 2 columns, 1028
+    assert L(2, 512, 160, 4, resident) == (8, 256)  # reduced: 2 columns
+    assert L(2, 512, 160, 4, 3) == (3, 256)  # at most the resident blocks
+    assert kc.THREADS == 256 and kc.WARPS == 8
     V = kc.vector_width
     proj = torch.zeros(4, 16, 6448, dtype=torch.bfloat16)
     w = torch.zeros(4, 3328, dtype=torch.bfloat16)
-    assert V(proj[..., 3072:6400], w) == 2  # xBC: rows 6448 apart
+    assert V(proj[..., 3072:6400], w) == 8  # xBC: rows 6448 apart
+    assert V(proj[..., 3074:6402], w) == 2  # starts on 4, not 16, bytes
     assert V(proj[..., 3073:6401], w) == 1  # starts on 2 bytes
+    assert V(proj[..., 3072:6398], w[:, :3326]) == 2  # c % 8 = 6
     assert V(proj[..., 3072:6399], w[:, :3327]) == 1  # odd channel count
-    assert V(proj.float()[..., 3072:6400], w.float()) == 1  # f32
+    assert V(proj.float()[..., 3072:6400], w.float()) == 4  # f32
+    assert V(proj.float()[..., 3074:6402], w.float()) == 1  # 8-byte start
+
+
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+@pytest.mark.parametrize("row,offset,c,widths", [
+    (6448, 3072, 3328, (4, 8)),  # the xBC view: 16-byte lanes
+    (6447, 3072, 3328, (1, 1)),  # odd row stride
+    (6448, 3076, 3328, (4, 2)),  # starts on 16 B in f32, on 8 B in bf16
+    (6448, 3072, 3320, (4, 8)),  # c a multiple of 8, not of 32 lanes x 8
+    (6448, 3072, 3322, (1, 2)),  # c % 8 = 2 (c % 4 = 2)
+])
+def test_vector_width_on_xbc_like_views(dtype, row, offset, c, widths):
+    """The 16-byte choice needs c and both outer strides to be multiples
+    of 16 bytes' channels and x and w to start on 16 bytes; bf16 falls to
+    pairs where they are even and 4-byte aligned, else to one channel, as
+    before. ``widths`` is (float32, bfloat16)."""
+    dt = getattr(torch, dtype)
+    x = torch.zeros(2, 5, row, dtype=dt)[..., offset:offset + c]
+    w = torch.zeros(4, c, dtype=dt)
+    assert x.data_ptr() % 16 == (offset * x.element_size()) % 16
+    assert kc.vector_width(x, w) == widths[dtype == "bfloat16"]
+
+
+def _replay(x, w, vec, grid):
+    """The kernel's walk replayed with the plain version's arithmetic:
+    each warp's runs (``kc.warp_runs``), each lane's ``vec`` channels, a
+    halo of k - 1 inputs before each run (zeros before the sequence).
+    Returns the output and how often each (b, t, c) was written."""
+    b, s, c = x.shape
+    k = w.shape[0]
+    y = torch.zeros((b, s, c), dtype=x.dtype)
+    writes = torch.zeros((b, s, c), dtype=torch.int32)
+    for _, col, bi, t0, t1 in kc.warp_runs(b, s, c, vec, grid):
+        lo = col * 32 * vec
+        hi = min(c, lo + 32 * vec)
+        if lo >= c:
+            continue
+        pad = torch.zeros((k - 1, hi - lo), dtype=x.dtype)
+        xs = torch.cat([pad, x[bi, :, lo:hi]])[t0:t1 + k - 1]
+        acc = w[0, lo:hi] * xs[0:t1 - t0]
+        for j in range(1, k):
+            acc = acc + w[j, lo:hi] * xs[j:j + t1 - t0]
+        y[bi, t0:t1, lo:hi] = acc
+        writes[bi, t0:t1, lo:hi] += 1
+    return y, writes
+
+
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+@pytest.mark.parametrize("shape,k,row,offset,resident", [
+    ((2, 300, 264), 4, 520, 256, 7),   # strided view, grid at the resident cap
+    ((3, 77, 100), 7, None, 0, 50),    # c % 8 != 0
+    ((1, 2000, 33), 1, 34, 1, 3),      # odd c, 3 blocks: runs past sequences
+    ((4, 40, 512), 8, None, 0, 1000),  # more warps than 32 positions each
+])
+def test_warp_runs_cover_each_output_once(dtype, shape, k, row, offset,
+                                          resident):
+    """The persistent split covers every (b, t, c) exactly once, each
+    warp's share within one position of the others', and the replayed
+    walk (a halo before each run) equals the plain version bit for
+    bit."""
+    b, s, c = shape
+    rng = np.random.default_rng(s)
+    dt = TDT[dtype]
+    full = torch.from_numpy(rng.standard_normal((b, s, row or c))).to(dt)
+    x = full[..., offset:offset + c]
+    w = torch.from_numpy(rng.standard_normal((k, c))).to(dt)
+    vec = kc.vector_width(x, w)
+    grid, threads = kc.launch_layout(b, s, c, vec, resident)
+    shares = {}
+    for warp, _, _, t0, t1 in kc.warp_runs(b, s, c, vec, grid):
+        shares[warp] = shares.get(warp, 0) + t1 - t0
+    assert sum(shares.values()) == kc.positions(b, s, c, vec)
+    assert max(shares.values()) - min(shares.values(), default=0) <= 1 \
+        or len(shares) < grid * threads // 32
+    y, writes = _replay(x, w, vec, grid)
+    assert bool((writes == 1).all())
+    assert torch.equal(y, ref.conv1d_depthwise(x, w))
 
 
 # --- on the card ---------------------------------------------------------------
@@ -190,7 +279,7 @@ def test_kernel_matches_plain_on_card(cuda_device, dtype, bsck, activation):
 def test_kernel_on_strided_view_matches_plain_on_card(cuda_device, dtype):
     g = torch.Generator().manual_seed(7)
     proj = torch.randn(2, 300, 6448, generator=g).to(cuda_device, TDT[dtype])
-    for lo in (3072, 3073):  # bf16: two channels per thread, then one
+    for lo in (3072, 3074, 3073):  # 16-byte lanes, bf16 pairs, single
         xbc = proj[..., lo : lo + 3328]
         w = torch.randn(4, 3328, generator=g).to(cuda_device, TDT[dtype])
         got = tops.conv1d_depthwise(xbc, w)
@@ -200,8 +289,13 @@ def test_kernel_on_strided_view_matches_plain_on_card(cuda_device, dtype):
 
 @pytest.mark.cuda
 def test_kernel_threads_are_the_python_formula(cuda_device):
-    for c, vec in ((3328, 2), (3328, 1), (8, 1), (33, 1), (130, 2)):
-        assert kc.kernel_threads(c, vec) == kc.launch_layout(1, 1, c, 1, vec)[1]
+    assert kc.kernel_threads() == kc.THREADS
+    for b, s, c, vec in ((4, 8192, 3328, 8), (4, 8192, 3328, 4),
+                         (1, 64, 8, 1), (2, 257, 33, 1), (3, 100, 130, 2)):
+        dtype = "float32" if vec == 4 else "bfloat16"
+        resident = kc.kernel_grid(0, 0, 0, 4, "none", dtype, vec)
+        assert kc.kernel_grid(b, s, c, 4, "none", dtype, vec) == \
+            kc.launch_layout(b, s, c, vec, resident)[0]
     with pytest.raises(NotImplementedError, match="B7b"):
         tops.conv1d_depthwise(torch.zeros(1, 8, 4, device=cuda_device,
                                           dtype=torch.float16),

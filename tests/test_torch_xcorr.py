@@ -18,6 +18,8 @@ rounds twice, a few float32 roundings at most (2.4e-7 was the largest
 seen). On the card the kernel sums with FMAs: 1e-5 and 1e-12 there, as
 for the other kernels.
 """
+import math
+
 import jax
 
 jax.config.update("jax_enable_x64", True)
@@ -180,14 +182,15 @@ def test_launch_layout_by_hand():
     """Threads and shared bytes of one block, counted by hand from
     ``csrc/xcorr1d.cu``: min(block_size / U_e, 1024) threads (U_e the
     unroll on elementwise, else 1); the window of block_size + 2r inputs
-    padded to 16 B, then 2r + 1 taps."""
+    padded to 16 B, then 2r + 1 taps (the one-tile launch, which every
+    strategy but register-tiled elementwise runs)."""
     L = xcorr1d.launch_threads
-    assert L(2048, "baseline", 4) == 1024  # two passes
-    assert L(512, "baseline", 1) == 512
-    assert L(512, "pointwise", 7) == 512  # unroll is along the taps
-    assert L(2048, "elementwise", 4) == 512
-    assert L(4096, "elementwise", 2) == 1024  # 2048 lanes: two passes
-    assert L(100, "elementwise", 5) == 20
+    assert L(2048, "baseline", 4, 3) == 1024  # two passes
+    assert L(512, "baseline", 1, 3) == 512
+    assert L(512, "pointwise", 7, 3) == 512  # unroll is along the taps
+    assert L(2048, "elementwise", 4, 3) == 512
+    assert L(4096, "elementwise", 2, 3) == 1024  # 2048 lanes: two passes
+    assert L(100, "elementwise", 5, 3) == 20
     S = xcorr1d.smem_bytes
     assert S(3, 2048, "float32") == 8208 + 3 * 4  # 2050 x 4 B -> 8208
     assert S(3, 2044, "float32") == 8192 + 3 * 4  # 2046 x 4 B -> 8192
@@ -206,6 +209,286 @@ def test_launch_layout_by_hand():
     with pytest.raises(NotImplementedError, match="B6b"):
         xcorr1d.check_launch(3, 256, "pointwise", 17, "float32")
     xcorr1d.check_launch(3, 256, "baseline", 17, "float32")  # runs U = 1
+
+
+def test_ring_layout_by_hand():
+    """The ring's layout, counted by hand from ``csrc/xcorr1d.cu``: the
+    empty-slot period (elementwise, U / V even with V filling 16 bytes),
+    a window's bytes, the ring's stages (2 when two windows and the taps
+    fit 227 KB), 16-byte staging (f on 16 bytes, tiles a multiple of 16
+    bytes apart) and the persistent grid (at most the tiles); the route:
+    the ring on elementwise at U > 1 from ``RING_MIN_TAPS`` taps, else
+    the one-tile launch, a block a tile."""
+    P = xcorr1d.window_pad
+    assert [P("elementwise", u, "float32") for u in (1, 2, 4, 8, 12, 16)] \
+        == [0, 0, 0, 2, 0, 4]
+    assert [P("elementwise", u, "float64") for u in (1, 2, 4, 6, 8, 16)] \
+        == [0, 0, 2, 0, 4, 8]
+    assert P("pointwise", 8, "float32") == P("baseline", 16, "float64") == 0
+    W = xcorr1d.window_bytes
+    # r = 1024 f32 at block 2048: 4096 inputs, 1024 slots; U = 8 leaves
+    # one empty after every 2 (511 more), U = 16 after every 4 (255).
+    assert W(2049, 2048, "float32") == 16_384
+    assert W(2049, 2048, "float32", "elementwise", 4) == 16_384
+    assert W(2049, 2048, "float32", "elementwise", 8) == 16 * (1024 + 511)
+    assert W(2049, 2048, "float32", "elementwise", 16) == 16 * (1024 + 255)
+    assert W(2049, 2048, "float64", "elementwise", 8) == 16 * (2048 + 511)
+    R = xcorr1d.ring_smem_bytes
+    assert R(7, 2048, "float32", "elementwise", 4, 2) == 2 * 8224 + 28
+    # U = 8: 256 threads, 8 warps of scratch, 32 x 3 slots each.
+    assert R(2049, 2048, "float32", "elementwise", 8, 2) \
+        == 2 * 24_560 + 8 * 32 * 3 * 16 + 2049 * 4
+    assert xcorr1d.smem_bytes(2049, 2048, "float32", "elementwise", 8) \
+        == R(2049, 2048, "float32", "elementwise", 8, 2)
+    X = xcorr1d.warp_scratch_bytes
+    assert [X("elementwise", u, "float32") for u in (1, 2, 3, 4, 6, 8, 16)] \
+        == [0, 0, 32 * 3 * 4, 0, 32 * 6 * 4, 32 * 3 * 16, 32 * 5 * 16]
+    assert [X("elementwise", u, "float64") for u in (1, 2, 3, 4, 12)] \
+        == [0, 0, 32 * 3 * 8, 32 * 3 * 16, 32 * 7 * 16]
+    assert X("pointwise", 8, "float32") == X("baseline", 1, "float64") == 0
+    D = xcorr1d.ring_stages
+    assert D(7, 2048, "float32", "elementwise", 4) == 2
+    assert D(2049, 2048, "float64", "elementwise", 16) == 2
+    assert D(2049, 24958, "float64", "baseline", 1) == 1  # one fits only
+    # The register tiling's threads: at most 512 past U = 8 (the ring).
+    L = xcorr1d.launch_threads
+    assert L(16384, "elementwise", 8, 21) == 1024
+    assert L(16384, "elementwise", 16, 21) == 512
+    assert L(2048, "elementwise", 16, 21) == 128
+    G = xcorr1d.launch_grid
+    assert G(1 << 24, 21, 2048, "elementwise", 8, 132 * 4) == 528
+    assert G(5000, 21, 2048, "elementwise", 8, 528) == 3
+    assert G(1, 21, 2048, "elementwise", 8, 528) == 1
+    # The ring is elementwise's at U > 1 from RING_MIN_TAPS = 21 taps;
+    # else the one-tile launch: up to 1024 threads, one window and the
+    # taps, a block a tile.
+    assert xcorr1d.RING_MIN_TAPS == 21
+    route = xcorr1d.ring_route
+    assert [route("elementwise", 4, t) for t in (1, 7, 19, 20, 21, 2049)] \
+        == [False, False, False, False, True, True]
+    assert not route("elementwise", 1, 2049)
+    assert not route("baseline", 1, 2049)
+    assert not route("pointwise", 4, 2049)
+    assert L(16384, "elementwise", 16, 19) == 1024
+    assert L(16384, "elementwise", 1, 2049) == 1024
+    assert xcorr1d.smem_bytes(19, 2048, "float32", "elementwise", 8) \
+        == 8272 + 19 * 4  # 2066 x 4 B -> 8272
+    assert xcorr1d.smem_bytes(2049, 2048, "float32", "pointwise", 8) \
+        == 16_384 + 2049 * 4
+    assert G(1 << 24, 19, 2048, "elementwise", 8, 528) == 8192
+    assert G(1 << 24, 2049, 2048, "baseline", 1, 528) == 8192
+    f = torch.zeros(100, dtype=torch.float64)
+    assert xcorr1d.wide_staging(f, 2048)
+    assert not xcorr1d.wide_staging(f[1:], 2048)  # 8 bytes past 16
+    assert not xcorr1d.wide_staging(f, 1001)  # tiles 8008 bytes apart
+    assert xcorr1d.wide_staging(f.float(), 1000)  # 4000 bytes apart
+
+
+def _slot(q, pad):
+    return q + q // pad if pad else q
+
+
+def _replay_elementwise(f, g, n, block_size, unroll, dtype):
+    """``csrc/xcorr1d.cu``'s elementwise body replayed in numpy over all
+    lanes of each tile at once: the window staged into its layout (16-byte
+    slots, an empty one after every U / V vectors where the layout asks,
+    past the tile's inputs zero, unstaged slots NaN), each lane's ring of U
+    / V + 1 vectors loaded and read as the kernel does (the main loop of R
+    groups, then the guarded last groups and the partial one), float64
+    arithmetic, then the stores (:func:`_replay_stores`). Checks that every
+    multiply-add of an output reads window element o + k for its tap k,
+    taps in table order, and returns the outputs and how often each was
+    written."""
+    item = xcorr1d.ITEMSIZE[dtype]
+    vmax = 16 // item
+    v = math.gcd(unroll, vmax)
+    nv, u = unroll // v, unroll
+    ring_n = nv + 1
+    pad = xcorr1d.window_pad("elementwise", u, dtype)
+    n_taps = g.shape[0]
+    win = block_size + n_taps - 1
+    units = -(-win // vmax)
+    q_end = -(-win // v)
+    buf_len = xcorr1d.window_bytes(n_taps, block_size, dtype, "elementwise",
+                                   u) // item
+    out = np.full(n, np.nan)
+    writes = np.zeros(n, np.int64)
+    for tile in range(-(-n // block_size)):
+        base = tile * block_size
+        nout = min(n - base, block_size)
+        avail = nout + n_taps - 1
+        buf = np.full(buf_len, np.nan)
+        i = np.arange(units * vmax)
+        vals = np.zeros(units * vmax)
+        vals[:avail] = f[base:base + avail]
+        buf[_slot(i // vmax, pad) * vmax + i % vmax] = vals
+        lanes = np.arange(block_size // u)
+        lanes = lanes[lanes * u < nout]
+        q0 = lanes * nv
+        lw = lanes * (pad + 1) if pad else q0  # in V-element vectors
+
+        def at(c):
+            """(values, window element indices) of vector q0 + c."""
+            idx = (lw + _slot(c, pad))[:, None] * v + np.arange(v)
+            return buf[idx], (q0 + c)[:, None] * v + np.arange(v)
+
+        ring = [None] * ring_n
+        for j in range(nv):
+            ring[j] = at(j)
+        ring[nv] = (np.full((len(lanes), v), np.nan),
+                    np.full((len(lanes), v), -1))
+        acc = np.zeros((len(lanes), u))
+        next_tap = np.zeros((len(lanes), u), np.int64)
+        outs = lanes[:, None] * u + np.arange(u)
+
+        def group(r, c, live):
+            k0 = (c + r) * v
+            for j in range(min(live, v)):
+                k = k0 + j
+                p = np.arange(u) + j
+                vals = np.stack([ring[(r + pe // v) % ring_n][0][:, pe % v]
+                                 for pe in p], axis=1)
+                els = np.stack([ring[(r + pe // v) % ring_n][1][:, pe % v]
+                                for pe in p], axis=1)
+                assert (els == outs + k).all(), (r, c, j)
+                assert (next_tap == k).all()
+                next_tap[:] += 1
+                acc[:] = acc + g[k] * vals
+
+        c = 0
+        while (c + ring_n) * v <= n_taps:
+            for r in range(ring_n):
+                ring[(r + nv) % ring_n] = at(c + r + nv)
+                group(r, c, v)
+            c += ring_n
+        for r in range(ring_n):
+            k0 = (c + r) * v
+            if k0 < n_taps:
+                keep = (q0 + c + r + nv) < q_end
+                new_vals, new_els = at(np.minimum(c + r + nv,
+                                                  q_end - 1 - q0))
+                old_vals, old_els = ring[(r + nv) % ring_n]
+                ring[(r + nv) % ring_n] = (
+                    np.where(keep[:, None], new_vals, old_vals),
+                    np.where(keep[:, None], new_els, old_els))
+                group(r, c, n_taps - k0)
+        assert (next_tap == n_taps).all()
+        _replay_stores(out, writes, base, nout, lanes, acc, block_size, u,
+                       v, pad, vmax)
+    return out, writes
+
+
+def _replay_stores(out, writes, base, nout, live_lanes, acc, block_size, u,
+                   v, pad, vmax):
+    """The kernel's stores of one tile: a lane's U outputs as one vector
+    when U = V, else each warp's 32 U outputs through its scratch (a
+    lane's vectors at lane (U/V + 1) + i with the empty slots, lane U/V +
+    i without) and read back in output order, element e at slot(e / VMAX)
+    VMAX + e % VMAX, by each lane of the warp (fewer than 32 in a part
+    warp), 16 bytes at a time where the warp's first output sits on 16
+    bytes, else element by element; past nout nothing is stored."""
+    nv = u // v
+    # the ring's threads (the register tiling runs on the ring only)
+    threads = xcorr1d.launch_threads(block_size, "elementwise", u,
+                                     xcorr1d.RING_MIN_TAPS)
+    lanes = block_size // u
+    vals = np.zeros((lanes, u))
+    vals[live_lanes] = acc
+    for l0 in range(0, lanes, threads):
+        for warp0 in range(0, threads, 32):
+            lane_ids = np.arange(l0 + warp0,
+                                 l0 + warp0 + min(32, threads - warp0))
+            if nv == 1:
+                for l in lane_ids[(lane_ids < lanes)
+                                  & (lane_ids * u < nout)]:
+                    o = l * u + np.arange(u)
+                    o = o[o < nout]
+                    out[base + o] = vals[l, :len(o)]
+                    np.add.at(writes, base + o, 1)
+                continue
+            per = 32 * (nv + 1 if pad else nv) * v
+            scratch = np.full(per + vmax, np.nan)
+            for lane, l in enumerate(lane_ids):
+                if l < lanes and l * u < nout:
+                    first = lane * (pad + 1) if pad else lane * nv
+                    scratch[first * v:(first + nv) * v] = vals[l]
+            w0 = (l0 + warp0) * u
+            warp_lanes = len(lane_ids)
+            end = min(nout, w0 + warp_lanes * u)
+            aligned = (base + w0) * (16 // vmax) % 16 == 0
+            for lane in range(warp_lanes):
+                # each lane's stores, striding by the warp's lanes
+                if aligned:
+                    q = lane
+                    while w0 + q * vmax < end:
+                        e = q * vmax + np.arange(vmax)
+                        e = e[w0 + e < end]
+                        got = scratch[_slot(q, pad) * vmax + e % vmax]
+                        assert not np.isnan(got).any()
+                        out[base + w0 + e] = got
+                        np.add.at(writes, base + w0 + e, 1)
+                        q += warp_lanes
+                else:
+                    e = np.arange(lane, max(end - w0, 0), warp_lanes)
+                    got = scratch[_slot(e // vmax, pad) * vmax + e % vmax]
+                    assert not np.isnan(got).any()
+                    out[base + w0 + e] = got
+                    np.add.at(writes, base + w0 + e, 1)
+
+
+@pytest.mark.parametrize("dtype", ("float32", "float64"))
+@pytest.mark.parametrize("radius", (0, 1, 3, 64, 1024))
+@pytest.mark.parametrize("unroll", range(1, 17))
+def test_register_tiling_replay(dtype, radius, unroll):
+    """Every output written once, its taps summed in table order, each
+    from window element o + k: the replay equals a plain float64 sum in
+    tap order bit for bit, at a sampled block_size (a multiple of U; 1100
+    lanes take the threads two or three passes, 37 leave a part warp) and
+    a ragged n of two and a half tiles."""
+    rng = np.random.default_rng(100 * unroll + radius)
+    block = unroll * int(rng.choice((3, 8, 37, 64, 1100)))
+    n = 2 * block + block // 2 + 1
+    f = rng.standard_normal(n + 2 * radius)
+    g = rng.standard_normal(2 * radius + 1)
+    got, writes = _replay_elementwise(f, g, n, block, unroll, dtype)
+    assert (writes == 1).all()
+    want = np.zeros(n)
+    for k in range(g.shape[0]):
+        want = want + g[k] * f[k:k + n]
+    np.testing.assert_array_equal(got, want)
+
+
+def _conflict_free(addresses, width):
+    """Whether one shared-memory load of ``width`` bytes a thread at these
+    32 byte addresses takes the fewest wavefronts: threads go in groups of
+    128 / width, and each group's 4-byte banks are all distinct."""
+    per = 128 // width
+    for lo in range(0, 32, per):
+        banks = [(a // 4 + b) % 32 for a in addresses[lo:lo + per]
+                 for b in range(max(width // 4, 1))]
+        if len(set(banks)) != len(banks):
+            return False
+    return True
+
+
+@pytest.mark.parametrize("dtype", ("float32", "float64"))
+@pytest.mark.parametrize("unroll", range(1, 17))
+def test_register_tiling_loads_are_conflict_free(dtype, unroll):
+    """Each window-vector load of a warp (its lanes' vector q0 + c, for
+    every c a tap loop reaches) hits distinct banks, so a warp's V-element
+    load takes the fewest wavefronts; without the empty slots, U = 8 and
+    16 in f32 and even U / 2 in f64 would not."""
+    item = xcorr1d.ITEMSIZE[dtype]
+    v = math.gcd(unroll, 16 // item)
+    nv = unroll // v
+    pad = xcorr1d.window_pad("elementwise", unroll, dtype)
+    lanes = np.arange(32)
+    lw = lanes * (pad + 1) if pad else lanes * nv
+    for c in range(4 * (nv + 1) + 3):
+        addresses = ((lw + _slot(c, pad)) * v * item).tolist()
+        assert _conflict_free(addresses, v * item), c
+    plain = (lanes * nv * v * item).tolist()
+    assert _conflict_free(plain, v * item) == (pad == 0)
 
 
 # --- on the card ---------------------------------------------------------------
@@ -240,12 +523,13 @@ def test_kernel_layout_is_the_python_formula(cuda_device):
     for n_taps, bs, strategy, u, dtype in (
         (3, 2048, "baseline", 4, "float32"),
         (2049, 4096, "elementwise", 4, "float64"),
+        (2049, 2048, "elementwise", 8, "float32"),
         (401, 100, "elementwise", 5, "float32"),
         (65, 1000, "pointwise", 7, "float64"),
     ):
         assert xcorr1d.kernel_layout(n_taps, bs, strategy, u, dtype) == (
-            xcorr1d.launch_threads(bs, strategy, u),
-            xcorr1d.smem_bytes(n_taps, bs, dtype),
+            xcorr1d.launch_threads(bs, strategy, u, n_taps),
+            xcorr1d.smem_bytes(n_taps, bs, dtype, strategy, u),
         )
 
 

@@ -11,10 +11,11 @@
 # between the trees is read against the spread of the same tree's two
 # runs on the same card. Then `tools/port_digest.py` on each tree's
 # package and a diff of the two digests (lines that differ are printed;
-# the tc lines may, the swc and swc_stream lines must not), and the
-# planner's rows of `tools/tc_times.py` and `tools/stream_times.py`
-# (`--default`) on each tree's package, parent first. Every log goes to
-# OUT_DIR (default build/turns/). Needs one CUDA card.
+# the tc lines may, the swc, swc_stream, xcorr1d and conv1d lines must
+# not), and the default rows (`--default`) of tools/tc_times.py,
+# stream_times.py, xcorr_times.py and conv1d_times.py on each tree's
+# package, in the same turns: parent, change, change, parent. Every log
+# goes to OUT_DIR (default build/turns/). Needs one CUDA card.
 set -euo pipefail
 parent=$(cd "$1" && pwd)
 here=$(cd "$(dirname "$0")/.." && pwd)
@@ -38,12 +39,14 @@ PYTHONPATH="$here/src" python3 "$here/tools/port_digest.py" \
 echo "digest lines: $(wc -l < "$out/digest_change.txt"); differing:"
 diff "$out/digest_parent.txt" "$out/digest_change.txt" | grep '^>' \
   | cut -d: -f1 || true
-for tool in tc_times stream_times; do
-  for tree in parent change; do
+for tool in tc_times stream_times xcorr_times conv1d_times; do
+  turn=0
+  for tree in parent change change parent; do
+    turn=$((turn + 1))
     src=$here/src
     [ "$tree" = parent ] && src=$parent/src
-    PYTHONPATH="$src" python3 "$here/tools/$tool.py" --default \
-      > "$out/${tool}_$tree.log" 2>&1
-    echo "$tool ($tree): $out/${tool}_$tree.log"
+    log="$out/${tool}_turn${turn}_$tree.log"
+    PYTHONPATH="$src" python3 "$here/tools/$tool.py" --default > "$log" 2>&1
+    echo "$tool turn $turn ($tree): $log"
   done
 done

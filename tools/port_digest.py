@@ -12,12 +12,22 @@ tree's ``build/``): diffusion on ``tc`` at orders 2-8, ranks 1-3, depth 1
 and 2, in float32 and bfloat16; diffusion on ``swc`` and ``swc_stream``
 at depth 1-3, in float32 and float64; one MHD RK3 step on
 ``swc`` (plain, fused axpy, ``fuse_rk_pairs``), ``swc_stream`` (plain)
-and ``tc`` (all three), whose φ reads its parameter rows. It prints one
+and ``tc`` (all three), whose φ reads its parameter rows; the B6
+cross-correlation (``ops.xcorr1d``) on baseline and on pointwise and
+elementwise at U = 1, 4, 8, 16, r = 0, 3, 10, 64, 1024 (r = 10 the
+first radius of elementwise's ring), float32 and float64,
+n = 2^20 + 123 (a ragged last tile); the B7 conv (``ops.conv1d_depthwise``)
+on mamba2's xBC view (2, 1024, 3328) of a (2, 1024, 6448) in-projection,
+k = 4, bfloat16 and float32, none and silu. It prints one
 line per case: the label and the sha256 of the output's bytes (with
 ``--errors`` also its max |err| over max |plain| against the plain
 version, the same case on the CPU, where the wrapper takes it). Compare
-two trees' files (without ``--errors``) with ``diff``. Needs a CUDA card;
-exits 2 without one.
+two trees' files (without ``--errors``) with ``diff``. The ``swc``,
+``swc_stream``, ``xcorr1d`` and ``conv1d`` lines must not differ between
+a change that keeps these kernels' arithmetic and its parent: each sums
+in a fixed order (B6 one FMA a tap in tap order, B7 each product and sum
+rounded to the input type), whatever the kernel's loop shape. Needs a
+CUDA card; exits 2 without one.
 """
 from __future__ import annotations
 
@@ -82,6 +92,34 @@ def cases(dev):
                 return s.step(f.to(device), dt)
 
             yield f"mhd {strategy} {name}", run
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    n = (1 << 20) + 123
+    for dtype in (torch.float32, torch.float64):
+        for r in (0, 3, 10, 64, 1024):
+            f = torch.randn(n + 2 * r, generator=gen, dtype=torch.float64)
+            g = torch.randn(2 * r + 1, generator=gen, dtype=torch.float64)
+            f, g = f.to(dev, dtype), g.to(dev, dtype)
+            for strategy, unrolls in (("baseline", (1,)),
+                                      ("pointwise", (1, 4, 8, 16)),
+                                      ("elementwise", (1, 4, 8, 16))):
+                for u in unrolls:
+                    def run(device, f=f, g=g, strategy=strategy, u=u):
+                        return ops.xcorr1d(f.to(device), g.to(device),
+                                           strategy=strategy, unroll=u)
+
+                    yield (f"xcorr1d {strategy} u{u} r={r} "
+                           f"{str(dtype)[6:]}", run)
+    for dtype in (torch.bfloat16, torch.float32):
+        proj = torch.randn((2, 1024, 6448), generator=gen).to(dev, dtype)
+        w = torch.randn((4, 3328), generator=gen).to(dev, dtype)
+        for act in ("none", "silu"):
+            def run(device, proj=proj, w=w, act=act):
+                x = proj.to(device)[..., 3072:3072 + 3328]
+                return ops.conv1d_depthwise(x, w.to(device), activation=act)
+
+            yield f"conv1d xBC (2, 1024, 3328) {str(dtype)[6:]} {act}", run
     torch.cuda.synchronize()
 
 
