@@ -38,8 +38,11 @@ A fused stencil operation is the paper's chain φ(γ(ψ(f))) (Sec. 3.3):
   ============  =========  =================================================
 
 The operator set's tap table is a buffer of the module, so ``.to(device)``
-moves it with the module. The reference's other regimes, ``"auto"``
-resolution, sharding and ``boundary_weights`` raise
+moves it with the module. ``boundary_weights=True`` replaces the ghost
+fill's values within ``r`` cells of every non-periodic face by
+boundary-modified weight rows (``core.boundary.apply_operator_set_bc``)
+after the launch, evaluating only those wall slabs. The reference's
+other regimes, ``"auto"`` resolution and sharding raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
@@ -90,7 +93,12 @@ class FusedStencilOp(nn.Module):
             the temporal kernel, on ``swc_stream`` one launch of the
             stream kernel, on ``tc`` one launch of the tc kernel;
             periodic boundaries only).
-        boundary_weights: not ported yet (must be False).
+        boundary_weights: replace the ghost-cell values within ``r``
+            cells of every non-periodic face by boundary-MODIFIED weight
+            rows (offset stencils of the full interior order), written
+            over the kernel's output after the launch; needs generated
+            operators (OperatorSpec metadata) and, on non-periodic
+            axes, depth 1; nothing is blended on all-periodic axes.
         device: where the tap-table buffers live (``None``: the card,
             raising without one; pass ``"cpu"`` for the plain path;
             move with ``.to(device)``).
@@ -98,7 +106,8 @@ class FusedStencilOp(nn.Module):
     Raises:
         ValueError: on an invalid strategy, boundary mode, block,
             depth, a φ the chosen regime cannot run (a CUDA strategy
-            with a bare callable), or ``swc_stream`` on a rank-1 set.
+            with a bare callable), ``swc_stream`` on a rank-1 set, or
+            ``boundary_weights`` on operators without OperatorSpec.
         NotImplementedError: for a reference option not ported yet.
     """
 
@@ -126,14 +135,15 @@ class FusedStencilOp(nn.Module):
         self.strategy = strategy
         self.block = None if block is None else tuple(block)
         self.fuse_steps = fuse_steps
-        self._validate(boundary_weights)
+        self.boundary_weights = bool(boundary_weights)
+        self._validate()
         device = resolve_device(device)
         offsets, coeffs, starts = device_tap_table(ops, device)
         self.register_buffer("tap_offsets", offsets)
         self.register_buffer("tap_coeffs", coeffs)
         self.register_buffer("tap_starts", starts)
 
-    def _validate(self, boundary_weights: bool) -> None:
+    def _validate(self) -> None:
         if self.strategy in NOT_PORTED:
             raise NotImplementedError(
                 f"strategy {self.strategy!r} is not ported yet: ROADMAP "
@@ -150,11 +160,16 @@ class FusedStencilOp(nn.Module):
                 "strategy='swc'"
             )
         modes = self.boundary_modes  # validates names and count
-        if boundary_weights:
-            raise NotImplementedError(
-                "boundary_weights (boundary-modified weight rows) is not "
-                "ported yet: ROADMAP A3"
-            )
+        if self.boundary_weights:
+            missing = [s.name for s in self.ops.ops if s.spec is None]
+            if missing:
+                raise ValueError(
+                    "boundary_weights=True needs OperatorSpec metadata "
+                    "(derivative, accuracy, spacing) on every operator "
+                    "to build the offset weight rows — missing on "
+                    f"{missing}; build the set with axis_stencil/"
+                    "laplacian_stencil/derivative_operator_set"
+                )
         if isinstance(self.fuse_steps, str):
             raise NotImplementedError(
                 "fuse_steps='auto' (the tuner) is not ported yet: ROADMAP A9"
@@ -241,13 +256,65 @@ class FusedStencilOp(nn.Module):
                 aux, [r * (depth - 1) for r in rads], modes,
                 spatial_axes=range(lead, aux.ndim),
             )
-        return self.apply_padded(fp, aux=aux)
+        out = self.apply_padded(fp, aux=aux)
+        if self.boundary_weights and any(m != "periodic" for m in modes):
+            out = self.blend_boundary_weights(f, out, aux)
+        return out
+
+    def blend_boundary_weights(
+        self,
+        f: torch.Tensor,
+        out: torch.Tensor,
+        aux: torch.Tensor | None = None,
+    ) -> torch.Tensor:
+        """Overwrite, in place, the cells of ``out`` within ``r`` of a
+        non-periodic face with φ of the boundary-accurate derivatives
+        of ``f`` (the post-pass of ``boundary_weights=True``, depth 1:
+        ``_validate`` pins non-periodic ops there); returns ``out``.
+
+        Every other cell keeps the kernel's value bit for bit. The
+        reference evaluates the whole domain with dense matrices and
+        masks; this evaluates only the wall slabs: for each non-periodic
+        axis the r planes at each face, through D's rows for those
+        planes along that axis and the whole D along the others. A cell
+        in two slabs gets the same value from either, up to summation
+        order. A batched (batch, n_f, …) stack is blended member by
+        member, as the reference's ``vmap`` does. Both faces of an axis
+        go through one evaluation.
+        """
+        phi = self.phi[0] if isinstance(self.phi, (tuple, list)) else self.phi
+        lead = out.ndim - self.ops.ndim
+        members = (
+            [(f[m], out[m], None if aux is None else aux[m])
+             for m in range(f.shape[0])]
+            if lead == 2 else [(f, out, aux)]
+        )
+        modes = self.boundary_modes
+        for a, (r, mode) in enumerate(zip(self.radius_per_axis, modes)):
+            n = f.shape[lead + a]
+            if mode == "periodic" or r == 0:
+                continue
+            picked = tuple(range(r)) + tuple(range(n - r, n))
+            index = boundary.device_index(picked, out.device)
+            for fm, om, am in members:
+                derivs = boundary.apply_operator_set_bc(
+                    fm, self.ops, modes,
+                    spatial_axes=tuple(range(1, fm.ndim)),
+                    rows=(a, picked),
+                )
+                if am is None:
+                    slab = phi(derivs)
+                else:
+                    slab = phi(derivs, am.index_select(1 + a, index))
+                om.index_copy_(1 + a, index, slab.to(om.dtype))
+        return out
 
     def with_depth(self, fuse_steps: int) -> "FusedStencilOp":
         """The same op at another depth, buffers on the same device."""
         return FusedStencilOp(
             self.ops, self.phi, self.n_out, self.boundary_mode,
             self.strategy, self.block, fuse_steps,
+            boundary_weights=self.boundary_weights,
             device=self.tap_offsets.device,
         )
 

@@ -99,6 +99,7 @@ def test_entry_points_need_the_card_unless_asked_for_cpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")
     from repro_torch.kernels.phi import select_phi
+    from repro_torch.verify import manufactured_solution, run_convergence
 
     p = DiffusionProblem((8,))
     ops = derivative_operator_set(1, 2)
@@ -110,6 +111,9 @@ def test_entry_points_need_the_card_unless_asked_for_cpu():
         lambda: p.fourier_mode((1,)),
         lambda: p.step_op("swc"),
         lambda: simulate(p, torch.zeros(1, 8), 1),
+        lambda: manufactured_solution(1, "periodic", 12),
+        lambda: manufactured_solution(1, "periodic", 12, device="cuda"),
+        lambda: run_convergence(1, 2),
     )
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -178,7 +182,6 @@ def test_swc_refuses_a_bare_callable():
         (dict(fuse_steps="auto"), "A9"),
         (dict(strategy="auto"), "A9"),
         (dict(block="auto"), "A9"),
-        (dict(boundary_weights=True), "A3"),
     ],
 )
 def test_fused_op_names_the_roadmap_item_it_lacks(kw, item):
