@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # every phase; needs one CUDA card
     python3 chip_smoke.py --quick    # build + kernel-vs-plain checks only
     python3 chip_smoke.py --verify   # build + phase 3 (verify) only
+    python3 chip_smoke.py --tune     # build + phase 3 (tune) only
 
 Phases (each raises on failure; none is caught):
 
@@ -139,6 +140,22 @@ Phases (each raises on failure; none is caught):
    each strategy: held to the plain version with the blend, the interior
    equal to the unblended launch bit for bit, kernel, blend and step
    times (CUDA events, median) and the blend's share of the step.
+   Phase 3 (tune), after it: the tuner (``repro_torch.tuning``) on a
+   fresh cache under ``build/tune-cache`` (``tune_calls``):
+   ``block="auto"`` (512³ ``swc``), ``fuse_steps="auto"`` (512³
+   ``swc``), ``strategy="auto"`` with ``fuse_steps="auto"`` (diffusion
+   512³, 8192², 2^26), the MHD RHS's ``strategy="auto"`` (256³ f32), B6's
+   ``block_size="auto"`` (2^24, r = 1024, elementwise U = 4),
+   ``SimServer(strategy="auto")`` on phase 3b's queue and ``serve_sim
+   --smoke --auto-tune``. Every record must be measured (CUDA events)
+   with no failed row; each record's timing table is printed, and each
+   case's winner beside the planner's own tiles; each tuned launch is
+   held to its plain version (1e-5 f32); at these sizes no
+   ``strategy="auto"`` may resolve to ``hwc``. A subprocess replays
+   every call: 0 measurements, the same decisions, the cache file
+   unchanged. Then ``serve_sim --smoke --chaos`` on a cache of its own
+   (its contract: poison quarantined, transient retried, the candidate
+   fault a ``failed`` row, the garbled cache quarantined and rebuilt).
 4. Times (CUDA events, median after warm-up) of each kernel, its plain
    version and, for diffusion, ``F.conv{1,2,3}d`` with the merged
    stencil as a dense weight (S calls at depth S); the bound is
@@ -1949,6 +1966,247 @@ def phase_verify(dev, smi):
     torch.cuda.empty_cache()
 
 
+# Phase 3 (tune): the tuner's "auto" forms at the main path's sizes, on a
+# fresh cache under build/ (chaos on a cache of its own beside it).
+TUNE_CACHE = ROOT / "build" / "tune-cache"
+TUNE_DIFFUSION = ((512, 512, 512), (8192, 8192), (1 << 26,))
+TUNE_MHD = (256, 256, 256)
+TUNE_XCORR = (1 << 24, 1024, "elementwise", 4)  # n, r, strategy, unroll
+
+
+def tune_calls(dev) -> tuple[dict, list, object, dict]:
+    """Every tuning call of phase 3 (tune), in order: ``block="auto"``
+    (512³ ``swc``), ``fuse_steps="auto"`` (512³ ``swc``),
+    ``strategy="auto"`` with ``fuse_steps="auto"`` (diffusion 512³,
+    8192², 2^26), the MHD RHS's ``strategy="auto"`` (256³ f32), B6's
+    ``block_size="auto"`` (2^24, r = 1024), then ``SimServer(strategy=
+    "auto")`` on phase 3b's queue and ``serve_sim --smoke --auto-tune``.
+    Returns ({case: decision}, cases, the server, its results); a case is
+    (name, tuned launch, plain version, dtype, its record, the labels of
+    the planner's own tiles) — the launches are not run here, so a
+    replay in another process re-derives the decisions alone."""
+    import torch
+
+    from repro_torch.core import boundary
+    from repro_torch.core.fusion import integrate
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+    from repro_torch.launch import serve_sim
+    from repro_torch.launch.serve_sim import SimServer, demo_queue
+    from repro_torch.physics.diffusion import DiffusionProblem
+    from repro_torch.physics.mhd import MHDSolver
+    from repro_torch.tuning import TuningKey, current_backend, session
+    from repro_torch.tuning.cache import candidate_label
+    from repro_torch.tuning.session import lookup_fused_nd, phi_traits
+
+    decisions, cases = {}, []
+
+    def defaults(op, shape, strategies, depths):
+        """Labels of the planner's own tiles, one per (strategy, depth)."""
+        traits = phi_traits(op.phi)
+        out = []
+        for strategy in strategies:
+            for depth in depths:
+                padded = (shape[0],) + tuple(
+                    n + 2 * r * depth
+                    for n, r in zip(shape[1:], op.ops.radius_per_axis()))
+                try:
+                    plan = kops.plan_for_nd(
+                        op.ops, padded, op.n_out, strategy=strategy,
+                        fuse_steps=depth, max_threads=traits["max_threads"],
+                        n_slots=traits["n_slots"])
+                except (ValueError, NotImplementedError):
+                    continue
+                out.append(candidate_label(
+                    plan.block, depth, strategy == "swc_stream", strategy))
+        return out
+
+    p = DiffusionProblem(TUNE_DIFFUSION[0])
+    f = p.init_field(device=dev)
+    base = p.step_op("hwc", device=dev)
+    swc = p.step_op("swc", device=dev)
+    fp = boundary.pad(f, [p.radius] * 3, "periodic", spatial_axes=(1, 2, 3))
+    block = session.auto_block_nd(fp, swc.ops, swc.phi, 1, strategy="swc")
+    name = "block=auto 512^3 swc"
+    decisions[name] = block
+    cases.append((name, lambda: p.step_op("swc", block, device=dev)(f),
+                  lambda: base(f), "float32",
+                  lambda: lookup_fused_nd(f, base.ops, 1, "swc"),
+                  defaults(swc, f.shape, ("swc",), (1,))))
+    rop = p.step_op("swc", block="auto", fuse_steps="auto",
+                    device=dev).resolved(f)
+    name = "fuse_steps=auto 512^3 swc"
+    decisions[name] = (rop.block, rop.fuse_steps)
+    cases.append((name, lambda: rop(f),
+                  lambda: integrate(base, f, rop.fuse_steps), "float32",
+                  lambda: lookup_fused_nd(f, base.ops, 1, "swc",
+                                          fuse_steps="auto"),
+                  defaults(swc, f.shape, ("swc",), (1, 2, 3, 4))))
+    for shape in TUNE_DIFFUSION:
+        q = DiffusionProblem(shape)
+        fq = f if shape == TUNE_DIFFUSION[0] else q.init_field(device=dev)
+        r_ = q.step_op("auto", fuse_steps="auto", device=dev).resolved(fq)
+        name = f"strategy=auto {'x'.join(map(str, shape))}"
+        decisions[name] = (r_.strategy, r_.block, r_.fuse_steps)
+        plain = q.step_op("hwc", device=dev)
+        strategies = ("swc", "tc") + (("swc_stream",) if len(shape) > 1
+                                      else ())
+        cases.append((
+            name, lambda r_=r_, fq=fq: r_(fq),
+            lambda plain=plain, r_=r_, fq=fq: integrate(
+                plain, fq, r_.fuse_steps), "float32",
+            lambda fq=fq, plain=plain: lookup_fused_nd(
+                fq, plain.ops, 1, "auto", fuse_steps="auto"),
+            defaults(q.step_op("swc", device=dev), fq.shape, strategies,
+                     (1, 2, 3, 4))))
+    solver = MHDSolver(TUNE_MHD, strategy="auto", device=dev)
+    fm = solver.init_fields()
+    rhs = solver.rhs_op()
+    r_m = rhs.resolved(fm)
+    name = "strategy=auto MHD rhs 256^3"
+    decisions[name] = (r_m.strategy, r_m.block, r_m.fuse_steps)
+    plain_m = MHDSolver(TUNE_MHD, strategy="hwc", device=dev)
+    cases.append((name, lambda: r_m(fm), lambda: plain_m.rhs(fm), "float32",
+                  lambda: lookup_fused_nd(fm, rhs.ops, 8, "auto"),
+                  defaults(rhs, fm.shape, ("swc", "swc_stream", "tc"),
+                           (1,))))
+    n, r, xs, xu = TUNE_XCORR
+    fx, gx = xcorr_inputs(n, r, "float32", dev)
+    bs = session.auto_block_xcorr1d(fx, gx, strategy=xs, unroll=xu)
+    name = f"block_size=auto xcorr 2^24 r={r}"
+    decisions[name] = bs
+    xkey = TuningKey("xcorr1d", f"{xs}:u{xu}", (n,), (2 * r,), 1, 1,
+                     "float32", current_backend(dev))
+    cases.append((name,
+                  lambda: kops.xcorr1d(fx, gx, strategy=xs, block_size=bs,
+                                       unroll=xu),
+                  lambda: ref.xcorr1d(fx, gx), "float32",
+                  lambda: session.default_session().cache.get(xkey),
+                  [str(session.XCORR_DEFAULT_BLOCK)]))
+    server = SimServer(strategy="auto", max_batch=SERVE_BATCH, device=dev)
+    results = server.serve(demo_queue(SERVE_SHAPES, SERVE_STEPS,
+                                      SERVE_REQUESTS, device=dev))
+    decisions["SimServer(strategy=auto)"] = sorted(
+        (c.strategy, c.block, c.fuse_steps) for op in server._ops.values()
+        for c in op._resolved.values())
+    decisions["SimServer(strategy=auto) statuses"] = sorted(
+        set(server.request_status.values()))
+    serve_sim.main(["--smoke", "--auto-tune", "--device", str(dev)])
+    torch.cuda.synchronize()
+    return decisions, cases, server, results
+
+
+def phase_tune(dev, smi):
+    """The tuner on the card: each ``"auto"`` form of ``tune_calls`` on a
+    fresh cache; every record measured with no failed row; each tuned
+    launch held to its plain version; each case's winner printed beside
+    the planner's own tiles (the hand-set choice) and every record's
+    timing table; ``serve_sim --chaos`` on a cache of its own; a
+    subprocess replays every call with no measurement."""
+    import os
+    import shutil
+
+    import torch
+
+    from repro_torch.launch import serve_sim
+    from repro_torch.launch.serve_sim import check_parity, demo_queue
+    from repro_torch.tuning import TuningCache, session
+    from repro_torch.tuning.cache import ENV_VAR
+
+    print("== phase 3 (tune): block, fuse_steps and strategy='auto' "
+          "measured on the card")
+    shutil.rmtree(TUNE_CACHE, ignore_errors=True)
+    os.environ[ENV_VAR] = str(TUNE_CACHE)
+    t0 = time.perf_counter()
+    decisions, cases, server, results = tune_calls(dev)
+    print(f"  tuning calls: {time.perf_counter() - t0:.1f} s, "
+          f"{session.MEASURE_COUNT} measurements")
+    records = TuningCache().items()
+    for key, rec in sorted(records.items()):
+        if rec.source != "measured" or rec.failed:
+            raise AssertionError(f"{key}: source {rec.source}, failed "
+                                 f"{rec.failed}")
+        win = rec.winner_label
+        print(f"  {key}: winner {win} {rec.timings_us[win]:.1f} us")
+        for label, us in sorted(rec.timings_us.items(), key=lambda kv: kv[1]):
+            print(f"    {label:>22s} {us:12.1f} us"
+                  + ("  <-- winner" if label == win else ""))
+    for name, tuned, plain, dtype, record, labels in cases:
+        rec = record()
+        win = rec.winner_label
+        hand = ", ".join(f"{x} {rec.timings_us[x]:.1f} us" for x in labels
+                         if x in rec.timings_us)
+        print(f"  {name}: winner {win} {rec.timings_us[win]:.1f} us; "
+              f"planner's tile {hand}")
+        got, want = tuned(), plain()
+        check(f"tuned {name}", got, want, dtype)
+        del got, want
+        if name.startswith("strategy=auto") and decisions[name][0] == "hwc":
+            raise AssertionError(f"{name}: the plain version won")
+    served = decisions["SimServer(strategy=auto)"]
+    if any(d[0] == "hwc" for d in served) or decisions[
+            "SimServer(strategy=auto) statuses"] != ["ok"]:
+        raise AssertionError(f"SimServer(strategy='auto'): {served}, "
+                             f"{decisions['SimServer(strategy=auto) statuses']}")
+    by_id = {r.req_id: r for r in demo_queue(
+        SERVE_SHAPES, SERVE_STEPS, SERVE_REQUESTS, device=dev).snapshot()}
+    err = check_parity(server, by_id, results)
+    print(f"  SimServer(strategy='auto'): {served}, every request ok, vs "
+          f"per-member plain version max|err| {err:.3e}")
+    # What "auto" adds to a served batch once its bucket is warm: the
+    # op's resolution by lookup (host clock, no launch).
+    for op in server._ops.values():
+        for sig in list(op._resolved):
+            x = torch.empty(sig[0], dtype=sig[1], device=sig[2])
+            t1 = time.perf_counter()
+            for _ in range(1000):
+                op.resolved(x)
+            us = (time.perf_counter() - t1) * 1e3
+            print(f"  warm resolution of strategy='auto' at "
+                  f"{'x'.join(map(str, sig[0]))}: {us:.2f} us per batch")
+    del server, results, cases
+    torch.cuda.empty_cache()
+    # The replay: the same calls in a fresh process, nothing measured,
+    # the same decisions, the cache file untouched.
+    before = (TUNE_CACHE / "cache.json").read_bytes()
+    code = ("import json, sys; sys.path.insert(0, sys.argv[1]); "
+            "sys.path.insert(0, sys.argv[1] + '/src'); "
+            "import chip_smoke, repro_torch; "
+            "from repro_torch.tuning import session; "
+            "d = chip_smoke.tune_calls(repro_torch.default_device())[0]; "
+            "print('REPLAY', session.MEASURE_COUNT, "
+            "json.dumps({k: repr(v) for k, v in d.items()}))")
+    t1 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", code, str(ROOT)],
+                         capture_output=True, text=True,
+                         env={**os.environ, ENV_VAR: str(TUNE_CACHE)})
+    if out.returncode:
+        raise AssertionError(f"replay failed: {out.stderr[-2000:]}")
+    line = next(x for x in out.stdout.splitlines() if x.startswith("REPLAY"))
+    _, count, blob = line.split(" ", 2)
+    replayed = json.loads(blob)
+    if int(count) != 0 or replayed != {k: repr(v)
+                                        for k, v in decisions.items()}:
+        raise AssertionError(f"replay measured {count} or differs: "
+                             f"{replayed}")
+    if (TUNE_CACHE / "cache.json").read_bytes() != before:
+        raise AssertionError("the replay wrote to the cache")
+    print(f"  replay in a subprocess: {len(replayed)} decisions equal, "
+          f"0 measurements, cache unchanged "
+          f"({time.perf_counter() - t1:.1f} s)")
+    # The chaos plan, on a cache of its own beside the phase's.
+    chaos = TUNE_CACHE.with_name("tune-cache-chaos")
+    shutil.rmtree(chaos, ignore_errors=True)
+    os.environ[ENV_VAR] = str(chaos)
+    try:
+        serve_sim.main(["--smoke", "--chaos", "--device", str(dev)])
+    finally:
+        os.environ[ENV_VAR] = str(TUNE_CACHE)
+    failed = {k: r.failed for k, r in TuningCache(chaos).items().items()
+              if r.failed}
+    print(f"  serve_sim --chaos: failed rows {failed}")
+
+
 def phase_times(dev, smi, launches):
     import dataclasses
 
@@ -2521,6 +2779,9 @@ def main(argv: list[str]) -> int:
     if "--verify" in argv:
         timed("phase 3 (verify)", phase_verify, dev, smi)
         return 0
+    if "--tune" in argv:
+        timed("phase 3 (tune)", phase_tune, dev, smi)
+        return 0
     timed("phase 2", phase_parity, dev)
     if "--quick" in argv:
         return 0
@@ -2530,6 +2791,7 @@ def main(argv: list[str]) -> int:
     timed("phase 3 (mamba2)", phase_main_path_ssm, dev, smi, launches)
     timed("phase 3b", phase_serve, dev, launches)
     timed("phase 3 (verify)", phase_verify, dev, smi)
+    timed("phase 3 (tune)", phase_tune, dev, smi)
     rows = timed("phase 4", phase_times, dev, smi, launches)
     rows += timed("phase 4 (1-D)", phase_times_xcorr, dev, smi, launches)
     rows += timed("phase 4 (mamba2)", phase_times_conv1d, dev, smi, launches)

@@ -37,13 +37,24 @@ A fused stencil operation is the paper's chain φ(γ(ψ(f))) (Sec. 3.3):
                            per call at any depth
   ============  =========  =================================================
 
+``strategy="auto"`` closes the loop over the regimes themselves (the
+paper's "no single caching regime wins everywhere"): the tuner's
+cross-strategy search (``repro_torch.tuning.session.auto_strategy_nd``)
+ranks ``hwc``, ``swc``, ``swc_stream`` and ``tc`` launches jointly over
+(tile, depth) with the Hopper cost model, times the best of them on the
+card (the model decides for a CPU tensor), and persists the decision in
+one record, replayed on every later call. It owns the block (``None`` is
+read as ``"auto"``) and composes with ``fuse_steps`` an int (the search
+at that depth) or ``"auto"``. ``block="auto"`` alone tunes the tile of a
+fixed strategy and depth; ``fuse_steps="auto"`` the tile and depth
+jointly.
+
 The operator set's tap table is a buffer of the module, so ``.to(device)``
 moves it with the module. ``boundary_weights=True`` replaces the ghost
 fill's values within ``r`` cells of every non-periodic face by
 boundary-modified weight rows (``core.boundary.apply_operator_set_bc``)
-after the launch, evaluating only those wall slabs. The reference's
-other regimes, ``"auto"`` resolution and sharding raise
-``NotImplementedError`` naming their ROADMAP item.
+after the launch, evaluating only those wall slabs. Sharding raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -63,10 +74,10 @@ from repro_torch.kernels.phi import phi_sequence
 Phi = Callable[[Mapping[str, torch.Tensor]], torch.Tensor]
 PhiLike = Union[Phi, tuple]
 
-STRATEGIES = ("hwc", "swc", "swc_stream", "tc")
+STRATEGIES = ("hwc", "swc", "swc_stream", "tc", "auto")
 DEVICE_STRATEGIES = ("swc", "swc_stream", "tc")  # the CUDA kernels
 # Reference strategies not ported yet → ROADMAP item.
-NOT_PORTED = {**kplan.NOT_PORTED, "auto": "A9 (cross-strategy tuning)"}
+NOT_PORTED = dict(kplan.NOT_PORTED)
 
 
 class FusedStencilOp(nn.Module):
@@ -85,14 +96,18 @@ class FusedStencilOp(nn.Module):
         n_out: number of output fields φ produces.
         boundary_mode: ψ — how ghost cells are filled ("periodic", …);
             scalar or one mode per spatial axis.
-        strategy: ``"hwc"``, ``"swc"``, ``"swc_stream"`` or ``"tc"``
-            (see the module docstring).
-        block: rank-length tile (x last) or None (per-rank default); on
+        strategy: ``"hwc"``, ``"swc"``, ``"swc_stream"``, ``"tc"`` or
+            ``"auto"`` (see the module docstring).
+        block: rank-length tile (x last), ``"auto"`` (the tuner), or
+            None (per-rank default; ``"auto"`` under
+            ``strategy="auto"``, which owns the block); on
             ``swc_stream`` ``block[0]`` is the chunk of the walk.
         fuse_steps: applications per call (on ``swc`` one launch of
             the temporal kernel, on ``swc_stream`` one launch of the
             stream kernel, on ``tc`` one launch of the tc kernel;
-            periodic boundaries only).
+            periodic boundaries only), or ``"auto"`` (the joint tile
+            and depth search; needs ``block="auto"`` and a CUDA
+            strategy or ``"auto"``).
         boundary_weights: replace the ghost-cell values within ``r``
             cells of every non-periodic face by boundary-MODIFIED weight
             rows (offset stencils of the full interior order), written
@@ -106,8 +121,10 @@ class FusedStencilOp(nn.Module):
     Raises:
         ValueError: on an invalid strategy, boundary mode, block,
             depth, a φ the chosen regime cannot run (a CUDA strategy
-            with a bare callable), ``swc_stream`` on a rank-1 set, or
-            ``boundary_weights`` on operators without OperatorSpec.
+            with a bare callable), ``swc_stream`` on a rank-1 set,
+            ``boundary_weights`` on operators without OperatorSpec, an
+            explicit tile under ``strategy="auto"``, or
+            ``fuse_steps="auto"`` without ``block="auto"``.
         NotImplementedError: for a reference option not ported yet.
     """
 
@@ -118,25 +135,27 @@ class FusedStencilOp(nn.Module):
         n_out: int,
         boundary_mode: str | tuple[str, ...] = "periodic",
         strategy: str = "hwc",
-        block: tuple[int, ...] | None = None,
-        fuse_steps: int = 1,
+        block: tuple[int, ...] | str | None = None,
+        fuse_steps: int | str = 1,
         boundary_weights: bool = False,
         device: str | torch.device | None = None,
     ):
         super().__init__()
-        if isinstance(block, str):
-            raise NotImplementedError(
-                f"block={block!r} (the tuner) is not ported yet: ROADMAP A9"
-            )
+        if strategy == "auto" and block is None:
+            block = "auto"  # the cross-strategy search owns the block
         self.ops = ops
         self.phi = phi
         self.n_out = int(n_out)
         self.boundary_mode = boundary_mode
         self.strategy = strategy
-        self.block = None if block is None else tuple(block)
+        self.block = block if block is None or isinstance(block, str) else (
+            tuple(block))
         self.fuse_steps = fuse_steps
         self.boundary_weights = bool(boundary_weights)
         self._validate()
+        # Concrete ops resolved per operand (shape, dtype, device, aux
+        # shape): a later call on such an operand resolves by lookup.
+        self._resolved: dict[tuple, FusedStencilOp] = {}
         device = resolve_device(device)
         offsets, coeffs, starts = device_tap_table(ops, device)
         self.register_buffer("tap_offsets", offsets)
@@ -170,15 +189,36 @@ class FusedStencilOp(nn.Module):
                     f"{missing}; build the set with axis_stencil/"
                     "laplacian_stencil/derivative_operator_set"
                 )
-        if isinstance(self.fuse_steps, str):
-            raise NotImplementedError(
-                "fuse_steps='auto' (the tuner) is not ported yet: ROADMAP A9"
+        if self.strategy == "auto" and self.block != "auto":
+            raise ValueError(
+                "strategy='auto' resolves the block through the "
+                "cross-strategy tuning search — pass block='auto' "
+                f"(or None), not {self.block!r}"
             )
-        if self.fuse_steps < 1:
+        if isinstance(self.block, str) and self.block != "auto":
+            raise ValueError(
+                f"block must be a rank-length tuple, 'auto', or None, "
+                f"got {self.block!r}"
+            )
+        if isinstance(self.fuse_steps, str):
+            if self.fuse_steps != "auto":
+                raise ValueError(
+                    f"fuse_steps must be an int >= 1 or 'auto', got "
+                    f"{self.fuse_steps!r}"
+                )
+            if self.strategy == "hwc" or self.block != "auto":
+                raise ValueError(
+                    "fuse_steps='auto' resolves through the joint "
+                    "(block, depth) tuning search — it requires "
+                    "strategy='swc', 'swc_stream', 'tc' or 'auto' and "
+                    "block='auto'"
+                )
+        elif self.fuse_steps < 1:
             raise ValueError(
                 f"fuse_steps must be >= 1, got {self.fuse_steps}"
             )
-        if self.fuse_steps > 1:
+        depth = self._depth_or_none()
+        if depth != 1:
             if any(m != "periodic" for m in modes):
                 raise ValueError(
                     "temporal fusion requires boundary_mode='periodic' "
@@ -187,15 +227,91 @@ class FusedStencilOp(nn.Module):
                     "boundary, which only composes exactly for the "
                     f"periodic wrap (got {self.boundary_mode!r})"
                 )
-        if isinstance(self.phi, (tuple, list)) and len(self.phi) != (
-            self.fuse_steps
-        ):
-            raise ValueError(
-                f"phi sequence has {len(self.phi)} entries for "
-                f"fuse_steps={self.fuse_steps}"
-            )
+        if isinstance(self.phi, (tuple, list)):
+            if depth is None:
+                raise ValueError(
+                    "a per-step phi sequence pins the fusion depth to "
+                    f"len(phi) = {len(self.phi)} — pass that as "
+                    "fuse_steps instead of 'auto'"
+                )
+            if len(self.phi) != depth:
+                raise ValueError(
+                    f"phi sequence has {len(self.phi)} entries for "
+                    f"fuse_steps={depth}"
+                )
         if self.strategy in DEVICE_STRATEGIES:
-            phi_sequence(self.phi, self.fuse_steps)  # DevicePhis, one kind
+            phi_sequence(self.phi, depth or 1)  # DevicePhis, one kind
+
+    def _depth_or_none(self) -> int | None:
+        """The concrete fusion depth, or None while it is tuned."""
+        return None if self.fuse_steps == "auto" else int(self.fuse_steps)
+
+    @property
+    def needs_resolution(self) -> bool:
+        """Whether a launch decision (strategy, depth, or a kernel's
+        tile) is still ``"auto"``: :meth:`resolved` turns such an op
+        concrete."""
+        return (self.strategy == "auto" or self.fuse_steps == "auto"
+                or (self.block == "auto"
+                    and self.strategy in DEVICE_STRATEGIES))
+
+    def resolved(
+        self, f: torch.Tensor, aux: torch.Tensor | None = None
+    ) -> "FusedStencilOp":
+        """An equivalent, concrete op for the UNPADDED stack ``f`` (and
+        its ``aux``): itself when nothing is ``"auto"``; with
+        ``strategy="auto"`` the cross-strategy search's (strategy,
+        block, depth), with ``fuse_steps="auto"`` the joint (block,
+        depth) search's, with only ``block="auto"`` the tile search's at
+        the fixed strategy and depth (on ``f`` padded as :meth:`forward`
+        pads it). Timed on the card on a cache miss, the model's on a
+        CPU tensor, replayed from the persistent record after that — so
+        the op is the same on every call. The concrete op is kept per
+        operand signature, so a later call resolves by a dict lookup,
+        its tap tables on this op's device."""
+        if not self.needs_resolution:
+            return self
+        sig = (tuple(f.shape), f.dtype, f.device,
+               None if aux is None else tuple(aux.shape))
+        if sig in self._resolved:
+            return self._resolved[sig]
+        from repro_torch.tuning import session
+
+        if self.strategy == "auto":
+            strategy, block, depth = session.auto_strategy_nd(
+                f, self.ops, self.phi, self.n_out, aux=aux,
+                fuse_steps=self.fuse_steps,
+            )
+        elif self.fuse_steps == "auto":
+            strategy = self.strategy
+            block, depth = session.auto_fuse_nd(
+                f, self.ops, self.phi, self.n_out, aux=aux,
+                strategy=self.strategy,
+            )
+        else:
+            strategy, depth = self.strategy, int(self.fuse_steps)
+            fp, aux_p = self._pad(f, aux)
+            block = session.auto_block_nd(
+                fp, self.ops, self.phi, self.n_out, aux=aux_p,
+                strategy=strategy, fuse_steps=depth,
+                taps=(self.tap_offsets, self.tap_coeffs, self.tap_starts),
+            )
+        self._resolved[sig] = self._replace(
+            strategy=strategy, block=tuple(block), fuse_steps=int(depth))
+        return self._resolved[sig]
+
+    def _replace(self, **changes) -> "FusedStencilOp":
+        """A copy with ``changes`` to its constructor arguments, its tap
+        tables on this op's device."""
+        args = dict(
+            ops=self.ops, phi=self.phi, n_out=self.n_out,
+            boundary_mode=self.boundary_mode, strategy=self.strategy,
+            block=self.block, fuse_steps=self.fuse_steps,
+            boundary_weights=self.boundary_weights,
+            device=self.tap_offsets.device,
+        )
+        args.update(changes)
+        return FusedStencilOp(**args)
 
     @property
     def radius_per_axis(self) -> tuple[int, ...]:
@@ -215,7 +331,15 @@ class FusedStencilOp(nn.Module):
         padded by ``radius * (fuse_steps - 1)``, is forwarded to φ (the
         fused RK axpy carry). A batched (batch, n_f, *padded) stack, and
         its (batch, n_aux, …) aux, pass through as they are: the
-        dispatch detects the member axis by rank."""
+        dispatch detects the member axis by rank. Needs a concrete
+        strategy and depth (the ghost-cell width depends on them):
+        resolve an ``"auto"`` op first."""
+        if self.needs_resolution:
+            raise ValueError(
+                "apply_padded needs a concrete strategy and fuse_steps "
+                "(the kernel and its ghost-cell width depend on them) "
+                "— resolve via op.resolved(f)(f) or call the op"
+            )
         if self.strategy in DEVICE_STRATEGIES:
             return kops.fused_stencil_nd(
                 f_padded, self.ops, self.phi, self.n_out, aux=aux,
@@ -237,7 +361,21 @@ class FusedStencilOp(nn.Module):
         ``f`` is (n_f, *spatial), or (batch, n_f, *spatial) for an
         ensemble: the member axis is detected by rank, only the spatial
         axes are padded, and ``aux`` then carries the same leading
-        axis."""
+        axis. An ``"auto"`` op resolves first (:meth:`resolved`)."""
+        if self.needs_resolution:
+            return self.resolved(f, aux)(f, aux)
+        fp, aux_p = self._pad(f, aux)
+        out = self.apply_padded(fp, aux=aux_p)
+        if self.boundary_weights and any(
+                m != "periodic" for m in self.boundary_modes):
+            out = self.blend_boundary_weights(f, out, aux_p)
+        return out
+
+    def _pad(
+        self, f: torch.Tensor, aux: torch.Tensor | None
+    ) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """``f`` padded by ``radius * fuse_steps`` ghost cells with the
+        boundary function, ``aux`` by ``radius * (fuse_steps - 1)``."""
         lead = 2 if kplan.is_ensemble(self.ops.ndim, f.ndim) else 1
         if f.ndim != self.ops.ndim + lead:
             raise ValueError(
@@ -256,10 +394,7 @@ class FusedStencilOp(nn.Module):
                 aux, [r * (depth - 1) for r in rads], modes,
                 spatial_axes=range(lead, aux.ndim),
             )
-        out = self.apply_padded(fp, aux=aux)
-        if self.boundary_weights and any(m != "periodic" for m in modes):
-            out = self.blend_boundary_weights(f, out, aux)
-        return out
+        return fp, aux
 
     def blend_boundary_weights(
         self,
@@ -311,12 +446,7 @@ class FusedStencilOp(nn.Module):
 
     def with_depth(self, fuse_steps: int) -> "FusedStencilOp":
         """The same op at another depth, buffers on the same device."""
-        return FusedStencilOp(
-            self.ops, self.phi, self.n_out, self.boundary_mode,
-            self.strategy, self.block, fuse_steps,
-            boundary_weights=self.boundary_weights,
-            device=self.tap_offsets.device,
-        )
+        return self._replace(fuse_steps=fuse_steps)
 
     def apply_sharded(self, *args, **kwargs):
         """Not ported yet (ROADMAP A11: halos over torch.distributed)."""
@@ -332,11 +462,16 @@ def integrate(
 
     Each call of the op advances ``op.fuse_steps`` steps; a remainder
     ``n_steps % fuse_steps`` is finished with a shallower op so the step
-    count is exact.
+    count is exact. An ``"auto"`` strategy or depth is resolved once, up
+    front, against ``f0``; the remainder does not reuse a block tuned
+    for the full depth: when the caller asked for ``block="auto"`` it
+    resolves under its own depth's key (an explicit block is reused).
 
     Raises:
         ValueError: when ``op.phi`` is a per-step sequence at depth > 1.
     """
+    requested_block = op.block  # before resolution makes it concrete
+    op = op.resolved(f0)
     depth = op.fuse_steps
     if depth > 1 and isinstance(op.phi, (tuple, list)):
         raise ValueError(
@@ -348,5 +483,6 @@ def integrate(
     for _ in range(full):
         f = op(f)
     if rem:
-        f = op.with_depth(rem)(f)
+        block = "auto" if requested_block == "auto" else op.block
+        f = op._replace(fuse_steps=rem, block=block)(f)
     return f

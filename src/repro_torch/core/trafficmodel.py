@@ -8,7 +8,9 @@ steps; its intermediate sweeps recompute the halo shells the unfused
 schedule would have read back. A streaming launch reads each column's
 stream extent once, carrying the stream-axis halo on chip.
 ``chip_smoke.py`` prints these figures beside the temporal and stream
-kernel rows.
+kernel rows; the tuner's Hopper cost model (``repro_torch.tuning.
+costmodel``) scores tiles with them over the card's data-sheet rates
+(:data:`CARD_RATES`, :data:`TC_RATES`, :func:`card_rates`).
 """
 from __future__ import annotations
 
@@ -88,6 +90,69 @@ def stencil_stream_hbm_bytes_per_step(
     return (read + write) * itemsize / fuse_steps
 
 
+def stencil_batched_hbm_bytes_per_member_step(
+    domain: Sequence[int],
+    block: Sequence[int],
+    radii: Sequence[int],
+    n_f: int,
+    n_out: int,
+    itemsize: int,
+    *,
+    batch: int = 1,
+    fuse_steps: int = 1,
+    stream: bool = False,
+    segments: int = 1,
+) -> float:
+    """Modeled device-memory bytes per ENSEMBLE MEMBER per time step of
+    a batched launch serving ``batch`` members (port of the reference's).
+
+    The field and halo traffic is per member (the byte functions above).
+    The reference's TPU-calibrated per-launch constant does not carry
+    over and no launch cost is modeled, so the per-member bytes equal
+    the unbatched ones. ``stream`` selects the streaming model, with its
+    ``segments``.
+    """
+    if batch < 1:
+        raise ValueError(f"batch must be >= 1, got {batch}")
+    if stream:
+        member = stencil_stream_hbm_bytes_per_step(
+            domain, block, radii, n_f, n_out, itemsize, fuse_steps,
+            segments=segments,
+        )
+    else:
+        member = stencil_hbm_bytes_per_step(
+            domain, block, radii, n_f, n_out, itemsize, fuse_steps
+        )
+    return member
+
+
+def stencil_traffic_reduction(
+    domain: Sequence[int],
+    radii: Sequence[int],
+    n_f: int,
+    n_out: int,
+    itemsize: int,
+    *,
+    block_base: Sequence[int],
+    block_fused: Sequence[int],
+    fuse_steps: int,
+    stream: bool = False,
+) -> float:
+    """Modeled per-step traffic reduction of a fused configuration over
+    its depth-1 baseline (> 1: the fused plan moves less); ``stream``
+    models both sides with the streaming byte function."""
+    bytes_fn = (
+        stencil_stream_hbm_bytes_per_step
+        if stream
+        else stencil_hbm_bytes_per_step
+    )
+    base = bytes_fn(domain, block_base, radii, n_f, n_out, itemsize, 1)
+    fused = bytes_fn(
+        domain, block_fused, radii, n_f, n_out, itemsize, fuse_steps
+    )
+    return base / fused
+
+
 def stencil_redundant_compute_fraction(
     block: Sequence[int],
     radii: Sequence[int],
@@ -109,3 +174,32 @@ def stencil_redundant_compute_fraction(
             vol *= t + 2 * r * (fuse_steps - 1 - s)
         total += vol
     return total / (fuse_steps * tile) - 1.0
+
+
+# Data-sheet rates of the cards, keyed by a substring of
+# ``torch.cuda.get_device_name()`` (the first match wins, so the
+# specific names come first): (memory bytes/s, non-tensor f32 FLOP/s,
+# non-tensor f64 FLOP/s). Copied from ``chip_smoke.py``'s table; each
+# is the vendor's data-sheet figure, not a measurement.
+CARD_RATES: dict[str, tuple[float, float, float]] = {
+    "H100 PCIe": (2.0e12, 51e12, 26e12),
+    "H100 NVL": (3.9e12, 60e12, 30e12),
+    "H100": (3.35e12, 67e12, 34e12),  # SXM5
+    "H200": (4.8e12, 67e12, 34e12),
+}
+# Tensor-core data-sheet rates of the tc routes (SXM): the bf16 MMA; f32
+# fields contract on the f64 MMA.
+TC_RATES: dict[str, float] = {"bfloat16": 989e12, "float32": 67e12}
+# The rates a backend without an entry is modeled at (the CPU's model-
+# only resolution, an unlisted card): the H100 SXM5's, so the ranking of
+# a CPU run is the one the card's model would give.
+DEFAULT_CARD = "H100"
+
+
+def card_rates(backend: str | None = None) -> tuple[float, float, float]:
+    """(memory B/s, f32 FLOP/s, f64 FLOP/s) of ``backend`` (a device
+    name, ``"cpu"`` or None: :data:`DEFAULT_CARD`'s)."""
+    for key, rates in CARD_RATES.items():
+        if backend and key in backend:
+            return rates
+    return CARD_RATES[DEFAULT_CARD]

@@ -36,15 +36,14 @@ site               kinds                      fires in
 =================  =========================  ==============================
 
 The serving side receives the injector explicitly
-(``SimServer(faults=...)``). The tuner and its cache are not ported yet
-(ROADMAP A9), so the two tuning sites have no caller in the port: the
-specs validate and :meth:`FaultInjector.on_candidate` /
-:meth:`FaultInjector.corrupt_cache` fire as in the reference, but the
-module-level active injector the reference's tuning session consults,
-and with it ``serve_sim --chaos``, wait for A9.
+(``SimServer(faults=...)``); the tuning session, deep below any call
+site, consults the module-level active injector instead
+(:func:`activate`, :func:`active`, :func:`maybe_fail_candidate`), which
+``serve_sim --chaos`` scopes around a serve.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import random
@@ -243,6 +242,43 @@ class FaultInjector:
             path.parent.mkdir(parents=True, exist_ok=True)
             path.write_text("{garbage: definitely, not json\x00")
         return True
+
+
+# ---------------------------------------------------------------------------
+# Module-level active injector — the tuning session's consultation point.
+# ---------------------------------------------------------------------------
+
+_ACTIVE: FaultInjector | None = None
+
+
+def activate(injector: FaultInjector | None) -> None:
+    """Install ``injector`` as the process-wide active injector (the
+    one deep tuning call sites consult); ``None`` deactivates."""
+    global _ACTIVE
+    _ACTIVE = injector
+
+
+def get_active() -> FaultInjector | None:
+    return _ACTIVE
+
+
+@contextlib.contextmanager
+def active(injector: FaultInjector):
+    """Scope ``injector`` as the active one (always deactivated on
+    exit, even when the body raises)."""
+    activate(injector)
+    try:
+        yield injector
+    finally:
+        activate(None)
+
+
+def maybe_fail_candidate(label: str) -> None:
+    """Tuning-session seam: raise the active injector's fault for this
+    candidate label, or do nothing when no injector is active (one
+    ``None`` check on the production path)."""
+    if _ACTIVE is not None:
+        _ACTIVE.on_candidate(label)
 
 
 # ---------------------------------------------------------------------------

@@ -12,6 +12,11 @@ cross-correlation (``repro.kernels.ops.xcorr1d``).
 ``conv1d_depthwise.conv1d_depthwise_cuda``. Every reference option whose
 kernel is not ported yet raises ``NotImplementedError`` naming its
 ROADMAP item.
+
+Block parameters accept ``"auto"``, resolved through the tuner
+(``repro_torch.tuning.session``): the persistent per-device cache on a
+hit; on a miss the Hopper cost model's candidates, timed on the card
+(the model's winner for a CPU tensor), the winner persisted.
 """
 from __future__ import annotations
 
@@ -37,10 +42,6 @@ from repro_torch.kernels.plan import (
 from repro_torch.kernels.xcorr1d import xcorr1d_cuda
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: ROADMAP {item}")
-
-
 def xcorr1d(
     f_padded: torch.Tensor,
     g: torch.Tensor,
@@ -60,13 +61,17 @@ def xcorr1d(
     ``NotImplementedError``, ROADMAP B6b) and take the plain version on
     a CPU tensor. An unknown strategy, or ``elementwise`` with a
     ``block_size`` that ``unroll`` does not divide, raises
-    ``ValueError``; ``block_size="auto"`` raises ``NotImplementedError``
-    (the tuner, ROADMAP A9).
+    ``ValueError``; ``block_size="auto"`` resolves through the tuner
+    (``tuning.session.auto_block_xcorr1d``).
     """
     if strategy == "hwc":
         return _ref.xcorr1d(f_padded, g)
     if block_size == "auto":
-        raise _not_ported("block_size='auto' (the tuner)", "A9")
+        from repro_torch.tuning.session import auto_block_xcorr1d
+
+        block_size = auto_block_xcorr1d(
+            f_padded, g, strategy=strategy, unroll=unroll
+        )
     return xcorr1d_cuda(
         f_padded, g, strategy=strategy, block_size=block_size, unroll=unroll
     )
@@ -83,16 +88,22 @@ def conv1d_depthwise(
     ``x`` (b, s, c) and ``w`` (k, c) give (b, s, c).
 
     Any s (the kernel masks the ragged last run). ``block_seq=None``
-    (model call sites) is 512, the reference's default; ``"auto"``
-    raises ``NotImplementedError`` (the tuner, ROADMAP A9). On a CUDA
-    tensor it launches ``csrc/conv1d_depthwise.cu`` (float32 or
-    bfloat16, up to 8 taps; others raise ``NotImplementedError``,
-    ROADMAP B7b); on a CPU tensor it takes the plain version.
+    (model call sites) is 512, the reference's default, unless the tuner
+    is globally enabled (``tuning.session.enable_auto()``, the serve
+    drivers' ``--auto-tune``): then it resolves like ``"auto"``, through
+    ``tuning.session.auto_block_conv1d``. On a CUDA tensor it launches
+    ``csrc/conv1d_depthwise.cu`` (float32 or bfloat16, up to 8 taps;
+    others raise ``NotImplementedError``, ROADMAP B7b); on a CPU tensor
+    it takes the plain version.
     """
-    if block_seq == "auto":
-        raise _not_ported("block_seq='auto' (the tuner)", "A9")
     if block_seq is None:
-        block_seq = DEFAULT_BLOCK_SEQ
+        from repro_torch.tuning import session
+
+        block_seq = "auto" if session.AUTO_ENABLED else DEFAULT_BLOCK_SEQ
+    if block_seq == "auto":
+        from repro_torch.tuning.session import auto_block_conv1d
+
+        block_seq = auto_block_conv1d(x, w, activation=activation)
     return conv1d_depthwise_cuda(
         x, w, activation=activation, block_seq=block_seq
     )
@@ -106,7 +117,7 @@ def fused_stencil_nd(
     *,
     aux: torch.Tensor | None = None,
     strategy: str = "swc",
-    block: tuple[int, ...] | None = None,
+    block: tuple[int, ...] | str | None = None,
     unroll: int = 1,
     fuse_steps: int = 1,
     taps: TapTable | None = None,
@@ -122,10 +133,11 @@ def fused_stencil_nd(
     bfloat16, no unroll, any rank, depth, batch and aux); on the CUDA
     strategies ``phi`` must be a
     :class:`~repro_torch.kernels.phi.DevicePhi`.
-    ``block`` is a rank-length tile or ``None`` for the per-rank
-    default; on ``swc_stream`` ``block[0]`` is the chunk (planes per
-    step of the walk) and ``block[1:]`` the cross-stream tile, and the
-    planner shrinks both until the working set fits shared memory.
+    ``block`` is a rank-length tile, ``None`` for the per-rank
+    default, or ``"auto"`` (the tuner: ``tuning.session.auto_block_nd``);
+    on ``swc_stream`` ``block[0]`` is the chunk (planes per step of the
+    walk) and ``block[1:]`` the cross-stream tile, and the planner
+    shrinks both until the working set fits shared memory.
 
     ``fuse_steps`` is the temporal depth: ``f_padded`` is padded by
     ``radius * fuse_steps`` (and ``aux``, if any, by ``radius *
@@ -150,6 +162,13 @@ def fused_stencil_nd(
             return _ref.fused_stencil(f_padded, ops, phi, aux=aux)
         return _ref.fused_stencil_steps(
             f_padded, ops, phi, fuse_steps, aux=aux
+        )
+    if block == "auto":
+        from repro_torch.tuning.session import auto_block_nd
+
+        block = auto_block_nd(
+            f_padded, ops, phi, n_out, aux=aux, strategy=strategy,
+            unroll=unroll, fuse_steps=fuse_steps, taps=taps,
         )
     plan = plan_for_nd(
         ops, tuple(f_padded.shape), n_out,
@@ -180,11 +199,15 @@ def plan_for_nd(
     (the φ kind's limit) bounds the default tile; ``n_slots`` (the
     operators φ reads) sizes ``tc``'s operator sums. A (batch, n_f,
     *padded) shape plans a batched launch; ``aux_shape`` then has the
-    leading member axis too."""
+    leading member axis too. ``block="auto"`` raises ``ValueError``:
+    resolve it through the tuner first."""
     if strategy == "hwc":
         return None
     if block == "auto":
-        raise _not_ported("block='auto' (the tuner)", "A9")
+        raise ValueError(
+            "plan_for_nd needs a concrete block — resolve 'auto' through "
+            "repro_torch.tuning first"
+        )
     n_aux = 0
     if aux_shape is not None:
         n_aux = aux_shape[1 if is_ensemble(ops.ndim, len(padded_shape)) else 0]

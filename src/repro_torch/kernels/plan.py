@@ -81,6 +81,63 @@ from repro_torch.core.trafficmodel import stencil_redundant_compute_fraction
 
 STRATEGIES = ("swc", "swc_stream", "tc")
 
+# Axis names by rank, slowest first (the stream axis letter of a key).
+AXIS_LETTERS: dict[int, tuple[str, ...]] = {
+    1: ("x",),
+    2: ("y", "x"),
+    3: ("z", "y", "x"),
+}
+
+# The paper's fixed operator order: accuracy-6 plans key UNMARKED; any
+# other generated order joins the key as ``:o{A}``. 0 means "unknown"
+# (hand-built taps without OperatorSpec metadata) and keys unmarked too.
+DEFAULT_ACCURACY = 6
+
+
+def strategy_sid(
+    strategy: str,
+    rank: int,
+    unroll: int = 1,
+    fuse_steps: int | str = 1,
+    batch: int = 1,
+    accuracy: int = 0,
+    n_aux: int = 0,
+) -> str:
+    """Canonical strategy-id derivation (the reference's, suffix for
+    suffix) — the ONE place the stream axis, unroll factor, temporal
+    depth, ensemble batch extent, aux count and operator order join the
+    tuning key, shared by :attr:`StencilPlan.strategy_id` and
+    ``repro_torch.tuning.session.fused_nd_key``.
+
+    ``swc_stream`` appends ``:s{axis}`` (``:sz`` at rank 3, ``:sy`` at
+    rank 2); ``"auto"`` (the cross-strategy search, which owns the
+    stream decision) ``:sauto``; ``unroll != 1`` ``:u{N}``;
+    ``fuse_steps`` ``:f{S}`` for S > 1 or ``:fauto`` for the joint
+    block/depth search; ``batch > 1`` ``:b{B}``; ``n_aux > 0``
+    ``:a{N}``; an accuracy other than 0 or :data:`DEFAULT_ACCURACY`
+    ``:o{A}``. ``tc`` needs no marker of its own: the bare name
+    distinguishes it and the suffixes compose (``tc:f2:b4``).
+    """
+    sid = strategy
+    if strategy == "swc_stream":
+        sid += f":s{AXIS_LETTERS[rank][0]}"
+    elif strategy == "auto":
+        sid += ":sauto"
+    if unroll != 1:
+        sid += f":u{unroll}"
+    if fuse_steps == "auto":
+        sid += ":fauto"
+    elif fuse_steps != 1:
+        sid += f":f{fuse_steps}"
+    if batch != 1:
+        sid += f":b{batch}"
+    if n_aux:
+        sid += f":a{n_aux}"
+    if accuracy not in (0, DEFAULT_ACCURACY):
+        sid += f":o{accuracy}"
+    return sid
+
+
 # Strategies of the reference that have no Hopper kernel yet, with the
 # ROADMAP queue item that ports each (none left).
 NOT_PORTED: dict[str, str] = {}
@@ -1233,6 +1290,33 @@ class StencilPlan:
             )
 
     @property
+    def strategy_id(self) -> str:
+        """Strategy component of the tuning key (:func:`strategy_sid`):
+        the stream axis, unroll, depth, batch, aux count and operator
+        order are launch configuration, so they join the key."""
+        return strategy_sid(
+            self.strategy, self.rank, self.unroll, self.fuse_steps,
+            self.batch, self.accuracy, self.n_aux,
+        )
+
+    def tuning_key(self, backend: str | None = None):
+        """The persistent-cache key of this plan's problem identity (the
+        block excluded: it is the tuned value); ``backend`` defaults to
+        the port's device (``tuning.cache.current_backend``)."""
+        from repro_torch.tuning.cache import TuningKey, current_backend
+
+        return TuningKey(
+            kernel=f"fused_stencil{self.rank}d",
+            strategy=self.strategy_id,
+            domain=self.interior,
+            radii=self.radii,
+            n_f=self.n_f,
+            n_out=self.n_out,
+            dtype=self.dtype,
+            backend=backend if backend is not None else current_backend(),
+        )
+
+    @property
     def tc_depth1(self) -> bool:
         """Whether the persistent depth-1 ``tc`` kernel runs the plan."""
         return self.strategy == "tc" and self.fuse_steps == 1
@@ -1825,6 +1909,43 @@ def plan_stencil(
         batch=int(batch),
         n_slots=int(n_slots),
         tc_table_words=table_words,
+    )
+
+
+def plan_from_record(
+    ops: OperatorSet,
+    interior_shape: Sequence[int],
+    n_out: int,
+    record,
+    *,
+    dtype: str = "float32",
+    n_aux: int = 0,
+    max_threads: int = MAX_THREADS,
+    n_slots: int = 1,
+) -> StencilPlan | None:
+    """The :class:`StencilPlan` a resolved tuning record launches (port
+    of the reference's): ``interior_shape`` is the UNPADDED (n_f,
+    *spatial) or batched (batch, n_f, *spatial) operand shape, and
+    ``record`` a ``tuning.cache.TuningRecord`` whose resolved strategy,
+    block, depth and unroll were persisted by the search. ``None`` for a
+    record resolved to ``hwc`` (the plain version has no plan). The
+    plan is built as the dispatch builds it, so its ``strategy_id`` and
+    ``tuning_key()`` round-trip the decision; ``max_threads`` and
+    ``n_slots`` are the φ kind's (``kernels.ops``)."""
+    strategy = record.resolved_strategy
+    if strategy == "hwc":
+        return None
+    depth = int(record.fuse_steps)
+    radii = ops.radius_per_axis()
+    lead = len(tuple(interior_shape)) - ops.ndim  # 1, or 2 when batched
+    padded = tuple(interior_shape[:lead]) + tuple(
+        n + 2 * r * depth for n, r in zip(interior_shape[lead:], radii)
+    )
+    return plan_stencil(
+        ops, padded, n_out, strategy=strategy,
+        block=tuple(record.block), dtype=dtype, n_aux=n_aux,
+        unroll=int(record.unroll), fuse_steps=depth,
+        max_threads=max_threads, n_slots=n_slots,
     )
 
 

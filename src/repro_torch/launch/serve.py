@@ -66,18 +66,26 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--max-len", type=int, default=128)
     ap.add_argument("--temperature", type=float, default=1.0)
     ap.add_argument("--auto-tune", action="store_true",
-                    help="not ported: the tuner is ROADMAP A9")
+                    help="resolve kernel blocks through the tuner "
+                         "(repro_torch.tuning.enable_auto; the decode "
+                         "loop launches no stencil kernel, so it only "
+                         "arms 'auto'; stencil serving, where tuning is "
+                         "load-bearing, is serve_sim --auto-tune)")
     ap.add_argument("--device", default=None,
                     help="the card by default; 'cpu' for the plain path")
     args = ap.parse_args(argv)
 
-    if args.auto_tune:
-        raise NotImplementedError(
-            "--auto-tune is not ported yet: ROADMAP A9 (the tuner)"
-        )
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced_config(cfg)
+    if args.auto_tune:
+        from repro_torch import tuning
+
+        tuning.enable_auto()
+        # Decode runs the recurrent form, never the conv kernel, so
+        # there is nothing to pre-measure: the flag arms "auto".
+        print(f"auto-tune: enabled; cache at {tuning.default_cache_dir()} "
+              "(the decode path has no kernel to warm)")
     if cfg.is_encdec:
         raise SystemExit(
             "repro_torch.launch.serve is decoder-only LM serving; stencil "

@@ -31,19 +31,25 @@ stencil engine:
   times feed the trailing-median monitor; a slow batch is flagged in its
   report.
 * ``repro_torch.ft.faults`` — the seeded deterministic fault-injection
-  layer (``SimServer(faults=...)``).
-
-Not ported yet, and raising ``NotImplementedError`` naming the ROADMAP
-item: ``strategy="auto"``, ``block="auto"`` (``--auto-tune``) and
-``--chaos`` (the tuner, its cache and the chaos plan's tuning faults:
-A9). ``strategy="tc"`` serves each bucket through the tensor-core
-kernel, one batched launch per step.
+  layer (``SimServer(faults=...)``); ``--chaos`` drives the standard
+  seeded fault plan through a live serve and asserts the recovery
+  contract.
+* ``block="auto"`` (``--auto-tune``) and ``strategy="auto"`` resolve
+  through the tuner (``repro_torch.tuning``): the first batch of each
+  bucket runs once before its timed region, so a cache miss measures
+  (on the card) and persists a ``:b{B}``-keyed record there, and the
+  straggler monitor never sees a tuning batch; later batches replay it.
+  ``strategy="tc"`` serves each bucket through the tensor-core kernel,
+  one batched launch per step.
 
 Run:  PYTHONPATH=src python -m repro_torch.launch.serve_sim --smoke
       (on the card; add ``--device cpu`` for the plain PyTorch path)
 
 ``--smoke`` serves a small mixed-shape queue and checks every request
 against the per-member plain version (:func:`member_reference`).
+``--chaos`` also injects the seeded fault plan (a poison request, a
+transient build failure, a slow batch, a failing tuning candidate, a
+garbled ``cache.json``) with the tuning cache in a temporary directory.
 """
 from __future__ import annotations
 
@@ -51,6 +57,8 @@ import argparse
 import collections
 import dataclasses
 import logging
+import os
+import tempfile
 import time
 from typing import Callable
 
@@ -59,6 +67,7 @@ import torch
 
 from repro_torch import dtype_name, resolve_device
 from repro_torch.core.fusion import NOT_PORTED, FusedStencilOp, integrate
+from repro_torch.ft import faults as ftfaults
 from repro_torch.ft.faults import FaultInjector
 from repro_torch.ft.supervisor import StragglerMonitor
 from repro_torch.physics.diffusion import DiffusionProblem
@@ -70,10 +79,8 @@ log = logging.getLogger("repro_torch.serve")
 BucketKey = tuple[tuple[int, ...], str, int]
 
 # Graceful-degradation order: most specialized caching regime first,
-# the plain PyTorch baseline (which always runs) last.
-# ``RetryPolicy.degrade("auto")`` is reached only once
-# ``strategy="auto"`` is ported (ROADMAP A9, as ``ft.faults``' tuning
-# hooks).
+# the plain PyTorch baseline (which always runs) last; ``"auto"``
+# re-enters at ``swc`` (``RetryPolicy.degrade``).
 DEGRADATION_LADDER = ("tc", "swc_stream", "swc", "hwc")
 
 # The rung that is the plain PyTorch version, not a kernel: skipped on
@@ -232,9 +239,10 @@ class SimServer:
     ``"cuda"``) is the card, raising without one; ``"cpu"`` takes the
     kernels' plain PyTorch versions.
 
-    Raises:
-        NotImplementedError: for ``strategy="auto"`` and
-            ``block="auto"`` (ROADMAP A9).
+    ``block="auto"`` and ``strategy="auto"`` resolve through the tuner:
+    the first batch of each (bucket, batch size, strategy) runs once
+    outside its timed region, so the tuning (timed on the card on a
+    cache miss) never counts as the batch's seconds.
     """
 
     def __init__(
@@ -254,8 +262,6 @@ class SimServer:
     ):
         if strategy in NOT_PORTED:
             raise _not_ported(f"strategy={strategy!r}", NOT_PORTED[strategy])
-        if block == "auto":
-            raise _not_ported("block='auto' (the tuner)", "A9")
         self.device = resolve_device(device)
         self.strategy = strategy
         self.block = block
@@ -272,6 +278,7 @@ class SimServer:
         self.request_status: dict[int, str] = {}
         self.error_reports: dict[int, dict] = {}
         self._ops: dict[tuple, FusedStencilOp] = {}
+        self._warmed: set = set()
         # Current degradation rung per bucket (absent = configured
         # strategy). Written when a batch only completes after
         # degrading; cleared when a quarantine re-attributes the
@@ -401,11 +408,23 @@ class SimServer:
 
     def _run_batch(self, key: BucketKey, reqs: list, strategy: str):
         """One batched integrate under ``strategy``: stack the requests
-        on the device, fire injected batch faults inside the timed
-        region (which ends once the card is done), and return
-        ``(output stack, seconds)``."""
+        on the device, warm the tuning cache if needed (outside the timed
+        region), fire injected batch faults inside the timed region
+        (which ends once the card is done), and return ``(output stack,
+        seconds)``."""
         op = self._op_for(key, strategy)
         fb = torch.stack([r.f0.to(self.device) for r in reqs])
+        warm_key = (key[0], key[1], len(reqs), strategy)
+        if (
+            (self.block == "auto" or strategy == "auto")
+            and strategy != "hwc"
+            and warm_key not in self._warmed
+        ):
+            # A cache miss runs the rank-then-measure search here and
+            # persists the :b{B} record; the timed batch replays it.
+            op(fb)
+            self._sync()
+            self._warmed.add(warm_key)
         index = len(self.reports)
         req_ids = [r.req_id for r in reqs]
         self._sync()
@@ -543,6 +562,56 @@ def check_parity(server, by_id, results, tol: float = 1e-5) -> float:
     return max_err
 
 
+def assert_chaos_contract(server, injector, plan, by_id, results, cache):
+    """The chaos acceptance contract (the reference's): every healthy
+    request completed, exactly the poison request is quarantined, the
+    transient failure was retried to completion, the slow batch's fault
+    fired, the garbled ``cache.json`` was quarantined aside and rebuilt
+    — and, on the card, where ``"auto"`` times candidates, a candidate
+    really failed (a ``failed`` row of a record) while ``"auto"`` still
+    resolved. On the CPU no candidate is launched, so that fault stays
+    unfired."""
+    quarantined = set(server.error_reports)
+    poison = plan["poison"]
+    if quarantined != {poison}:
+        raise AssertionError(
+            f"expected exactly the poison request {poison} quarantined, "
+            f"got {quarantined}")
+    if server.request_status[poison] != "quarantined" or poison in results:
+        raise AssertionError(f"poison request {poison} was served")
+    healthy = set(by_id) - {poison}
+    if set(results) != healthy:
+        raise AssertionError(
+            f"missing healthy results: {healthy - set(results)}")
+    if server.request_status.get(plan["transient"]) != "retried":
+        raise AssertionError(
+            f"transient failure not retried: {plan}, "
+            f"{server.request_status}")
+    sites = [site for site, _, _ in injector.fired]
+    if not any(s == "serve.batch" and k == "slow"
+               for s, k, _ in injector.fired):
+        raise AssertionError(f"slow-batch fault never fired: {sites}")
+    from repro_torch.tuning.cache import TuningCache
+
+    records = TuningCache(cache.dir).items()
+    if server.device.type == "cuda":
+        if "tune.candidate" not in sites:
+            raise AssertionError(
+                f"tune.candidate fault never fired: {injector.fired}")
+        if not any(rec.failed for rec in records.values()):
+            raise AssertionError("no failed row in any tuning record")
+    corpses = list(cache.file.parent.glob(cache.file.name + ".corrupt*"))
+    if not corpses:
+        raise AssertionError("corrupt cache.json was not quarantined aside")
+    if not (cache.file.exists() and records):
+        raise AssertionError("tuning cache was not rebuilt after quarantine")
+    print(
+        f"chaos contract OK: {len(injector.fired)} fault(s) fired, "
+        f"request {poison} quarantined, request {plan['transient']} "
+        f"retried, cache quarantined to {corpses[0].name}"
+    )
+
+
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser(
         description="Batched stencil-simulation serving loop"
@@ -555,37 +624,69 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--strategy", default="swc",
                     choices=("hwc", "swc", "swc_stream", "tc", "auto"))
     ap.add_argument("--auto-tune", action="store_true",
-                    help="block='auto' (not ported yet: ROADMAP A9)")
+                    help="resolve the batched kernel's block through the "
+                         "tuner (block='auto': the first batch of each "
+                         "bucket tunes and persists a :b{B}-keyed record, "
+                         "later batches replay it)")
     ap.add_argument("--smoke", action="store_true",
                     help="small mixed-shape queue + batched-vs-member "
                          "parity check")
     ap.add_argument("--chaos", action="store_true",
-                    help="the seeded fault plan (not ported yet: "
-                         "ROADMAP A9)")
+                    help="inject the seeded fault plan "
+                         "(repro_torch.ft.faults.chaos_specs) and assert "
+                         "the recovery contract; forces strategy='auto' "
+                         "and block='auto', the tuning cache in a "
+                         "temporary directory unless "
+                         "$REPRO_TORCH_TUNE_CACHE is set")
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="seed of the --chaos fault plan")
     ap.add_argument("--device", default=None,
                     help="'cuda' (default: the card) or 'cpu'")
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.WARNING)
-    if args.chaos:
-        raise _not_ported(
-            "--chaos (its plan fails a tuning candidate and garbles the "
-            "tuning cache)", "A9",
-        )
 
     shapes = [(16, 32), (12, 24)] if args.smoke else [(32, 64), (24, 48)]
-    server = SimServer(
-        strategy=args.strategy, block="auto" if args.auto_tune else None,
-        max_batch=args.max_batch, device=args.device,
-    )
-    queue = demo_queue(shapes, args.steps, args.requests,
-                       device=server.device)
+    strategy = args.strategy
+    block = "auto" if (args.auto_tune or strategy == "auto") else None
+    if args.chaos:
+        strategy, block = "auto", "auto"
+    device = resolve_device(args.device)
+    queue = demo_queue(shapes, args.steps, args.requests, device=device)
     by_id = {r.req_id: r for r in queue.snapshot()}
 
+    injector = plan = cache = None
+    if args.chaos:
+        from repro_torch.tuning.cache import ENV_VAR, TuningCache
+
+        # Chaos garbles cache.json on purpose: never the user's cache.
+        if ENV_VAR not in os.environ:
+            os.environ[ENV_VAR] = tempfile.mkdtemp(
+                prefix="repro-torch-chaos-cache-")
+            print(f"chaos: tuning cache redirected to {os.environ[ENV_VAR]}")
+        specs, plan = ftfaults.chaos_specs(args.fault_seed, list(by_id))
+        injector = FaultInjector(specs, slow_s=0.3)
+        # Crashed-writer stand-in: garble cache.json BEFORE serving, so
+        # the first tuning read must quarantine and rebuild it.
+        cache = TuningCache()
+        injector.corrupt_cache(cache.file)
+        print(f"chaos plan (seed {args.fault_seed}): {plan}")
+
+    server = SimServer(
+        strategy=strategy, block=block, max_batch=args.max_batch,
+        faults=injector, device=device,
+    )
     t0 = time.perf_counter()
-    results = server.serve(queue)
+    if injector is not None:
+        with ftfaults.active(injector):
+            results = server.serve(queue)
+    else:
+        results = server.serve(queue)
     wall = time.perf_counter() - t0
 
-    if server.error_reports or set(results) != set(by_id):
+    quarantined = set(server.error_reports)
+    if set(results) != set(by_id) - quarantined or (
+        quarantined and not args.chaos
+    ):
         raise AssertionError(f"quarantined: {server.error_reports}")
     members = sum(rep.batch for rep in server.reports)
     stragglers = sum(rep.straggler for rep in server.reports)
@@ -601,9 +702,11 @@ def main(argv: list[str] | None = None) -> None:
         + ", ".join(f"{k}={v}" for k, v in sorted(status_counts.items()))
         + ")"
     )
-    if args.smoke:
+    if args.smoke or args.chaos:
         max_err = check_parity(server, by_id, results)
         print(f"batched-vs-member parity OK (max abs err {max_err:.2e})")
+    if args.chaos:
+        assert_chaos_contract(server, injector, plan, by_id, results, cache)
     print("serve_sim OK")
 
 

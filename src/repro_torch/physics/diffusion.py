@@ -69,21 +69,23 @@ class DiffusionProblem:
     def step_op(
         self,
         strategy: str = "hwc",
-        block: tuple[int, ...] | None = None,
-        fuse_steps: int = 1,
+        block: tuple[int, ...] | str | None = None,
+        fuse_steps: int | str = 1,
         device: str | torch.device | None = None,
     ) -> FusedStencilOp:
         """One forward-Euler step as a fused op (φ selects the merged
         "step" operator). ``strategy="swc"`` runs the CUDA kernel at any
         rank, ``strategy="swc_stream"`` the explicit-streaming kernel
         (2-D/3-D: it walks the slowest axis, carrying its halo planes),
-        ``strategy="tc"`` the tensor-core kernel (float32 or bfloat16);
-        ``block`` is a rank-length tile or None for the default (on
-        ``swc_stream`` ``block[0]`` is the chunk of the walk);
+        ``strategy="tc"`` the tensor-core kernel (float32 or bfloat16),
+        ``strategy="auto"`` whichever the tuner's cross-strategy search
+        picks (``block`` then defaults to ``"auto"``); ``block`` is a
+        rank-length tile, ``"auto"`` (the tuner) or None for the default
+        (on ``swc_stream`` ``block[0]`` is the chunk of the walk);
         ``fuse_steps > 1`` advances that many steps per call (one
         launch, of the temporal kernel on ``swc``, of the stream kernel
-        on ``swc_stream``). ``device`` (the card by default) holds the
-        op's tap table."""
+        on ``swc_stream``), ``"auto"`` tunes it with the block.
+        ``device`` (the card by default) holds the op's tap table."""
         device = resolve_device(device)
         spec = dataclasses.replace(self.merged_stencil(), name="step")
         return FusedStencilOp(
@@ -173,8 +175,8 @@ def simulate(
     n_steps: int,
     *,
     strategy: str = "hwc",
-    block: tuple[int, ...] | None = None,
-    fuse_steps: int = 1,
+    block: tuple[int, ...] | str | None = None,
+    fuse_steps: int | str = 1,
     device: str | torch.device | None = None,
 ) -> torch.Tensor:
     """Run ``n_steps`` of forward-Euler diffusion with the fused engine

@@ -274,6 +274,13 @@ class MHDSolver:
     ``tc`` too (``plan.TC_MHD_BLOCK`` at depth 1, the tc walk's
     ``plan.DEFAULT_TC_WALK_MHD_BLOCK`` at depth 2).
 
+    ``strategy="auto"`` hands the regime (``hwc``, ``swc``,
+    ``swc_stream`` or ``tc``) and the tile to the tuner's cross-strategy
+    search (:attr:`op_block` is then ``"auto"``: the search owns the
+    block). The RHS op maps the fields to themselves but is not a time
+    step, so its depth stays 1; the ``fuse_rk_pairs`` pair searches at
+    its pinned depth 2.
+
     ``strategy="swc_stream"`` runs the plain RK3 form through the
     stream kernel (``rhs_op``, three launches per step; ``block[0]`` is
     the chunk of the walk along z). In float32 its depth-1 ring body
@@ -315,6 +322,15 @@ class MHDSolver:
     def operator_set(self) -> OperatorSet:
         return derivative_operator_set(3, self.accuracy, self.spacing)
 
+    @property
+    def op_block(self) -> tuple[int, int, int] | str | None:
+        """Block forwarded to the fused ops: ``"auto"`` under
+        ``strategy="auto"`` (the search owns the block), the planner's
+        own tile on ``swc`` and ``tc`` (None), else :attr:`block`."""
+        if self.strategy == "auto":
+            return "auto"
+        return None if self.strategy in ("swc", "tc") else self.block
+
     def _op(
         self, phi: DevicePhi | tuple[DevicePhi, ...], n_out: int,
         fuse_steps: int = 1,
@@ -325,7 +341,7 @@ class MHDSolver:
             n_out=n_out,
             boundary_mode="periodic",
             strategy=self.strategy,
-            block=None if self.strategy in ("swc", "tc") else self.block,
+            block=self.op_block,
             fuse_steps=fuse_steps,
             device=self.device,
         )

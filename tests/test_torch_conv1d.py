@@ -104,10 +104,14 @@ def test_strided_xbc_view_matches_a_contiguous_copy():
 # --- rules and layout ----------------------------------------------------------
 
 
-def test_rules_name_their_roadmap_items():
+def test_rules_name_their_roadmap_items(tmp_path, monkeypatch):
     x, w = torch.zeros(1, 8, 4), torch.zeros(4, 4)
-    with pytest.raises(NotImplementedError, match="A9"):
-        tops.conv1d_depthwise(x, w, block_seq="auto")
+    # block_seq="auto" (the tuner, ROADMAP A9, ported) resolves to the
+    # default, B7's launch not depending on it, and equals it.
+    monkeypatch.setenv("REPRO_TORCH_TUNE_CACHE", str(tmp_path))
+    xr = torch.randn(1, 8, 4, generator=torch.Generator().manual_seed(1))
+    assert torch.equal(tops.conv1d_depthwise(xr, w + 1, block_seq="auto"),
+                       tops.conv1d_depthwise(xr, w + 1))
     with pytest.raises(ValueError, match="activation"):
         tops.conv1d_depthwise(x, w, activation="gelu")
     with pytest.raises(ValueError, match=r"\(k, c\)"):

@@ -270,11 +270,16 @@ def test_cpu_path_counts_no_launch():
     assert emit.fused_stencil_swc.launches == before
 
 
-def test_not_ported_options_raise():
+def test_not_ported_options_raise(tmp_path, monkeypatch):
+    monkeypatch.setenv("REPRO_TORCH_TUNE_CACHE", str(tmp_path))
     ops = ts.derivative_operator_set(2, 2)
     fp = torch.zeros(1, 10, 10)
-    with pytest.raises(NotImplementedError, match="A9"):
-        fused_stencil_nd(fp, ops, select_phi("val"), 1, block="auto")
+    # block="auto" (the tuner, ROADMAP A9) resolves: on the CPU by the
+    # model, the launch equal to the explicit one.
+    fr = torch.randn(1, 10, 10, generator=torch.Generator().manual_seed(2))
+    assert torch.equal(
+        fused_stencil_nd(fr, ops, select_phi("val"), 1, block="auto"),
+        fused_stencil_nd(fr, ops, select_phi("val"), 1))
     # bf16 waits for the stream kernel (B3c).
     with pytest.raises(NotImplementedError, match="B3c"):
         fused_stencil_nd(fp.to(torch.bfloat16), ops, select_phi("val"), 1,

@@ -179,17 +179,35 @@ def test_swc_refuses_a_bare_callable():
 @pytest.mark.parametrize(
     "kw,item",
     [
-        (dict(fuse_steps="auto"), "A9"),
+        (dict(strategy="swc", block="auto", fuse_steps="auto"), "A9"),
         (dict(strategy="auto"), "A9"),
-        (dict(block="auto"), "A9"),
+        (dict(strategy="swc", block="auto"), "A9"),
     ],
 )
-def test_fused_op_names_the_roadmap_item_it_lacks(kw, item):
+def test_fused_op_names_the_roadmap_item_it_lacks(kw, item, tmp_path,
+                                                 monkeypatch):
+    """The tuner's options (ROADMAP ``item``, ported) resolve on the CPU
+    by the model alone, into records under the ``cpu`` backend, and the
+    op equals the explicit launch of the strategy and depth they
+    resolved to."""
     from repro_torch.kernels.phi import select_phi
+    from repro_torch.tuning import TuningCache, session
 
+    monkeypatch.setenv("REPRO_TORCH_TUNE_CACHE", str(tmp_path))
     ops = derivative_operator_set(2, 2)
-    with pytest.raises(NotImplementedError, match=item):
-        FusedStencilOp(ops, select_phi("val"), 1, **kw)
+    f = torch.randn(1, 16, 32, generator=torch.Generator().manual_seed(0))
+    op = FusedStencilOp(ops, select_phi("val"), 1, device="cpu", **kw)
+    before = session.MEASURE_COUNT
+    rop = op.resolved(f)
+    assert not rop.needs_resolution
+    explicit = FusedStencilOp(ops, select_phi("val"), 1,
+                              strategy=rop.strategy,
+                              fuse_steps=rop.fuse_steps, device="cpu")
+    assert torch.equal(op(f), explicit(f))
+    records = TuningCache().items()
+    assert records and session.MEASURE_COUNT == before
+    assert all(r.source == "model" and k.endswith("|cpu")
+               for k, r in records.items())
 
 
 def test_chip_smoke_prints_no_result_without_card_or_repo(tmp_path):

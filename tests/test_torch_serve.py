@@ -4,9 +4,8 @@ against the JAX ``SimServer`` on the same seeded queue, and the
 reference's serving and fault tests (``tests/test_serve_sim.py``,
 ``tests/test_faults.py``) run against the port.
 
-Left out: the reference's tuning-cache test (``block="auto"``), the
-``Supervisor`` tests and the chaos plan's tuning faults — the tuner and
-the trainer are not ported yet (ROADMAP A9, A13). Tolerance: 1e-5
+Left out: the ``Supervisor`` tests — the trainer is not ported yet
+(ROADMAP A13). Tolerance: 1e-5
 relative per request, the f32 workload's (the two packages round the
 same taps' f32 arithmetic independently).
 """
@@ -105,23 +104,47 @@ def test_check_parity_and_member_reference():
         check_parity(server, by_id, results)
 
 
-# --- what waits for a ROADMAP item ----------------------------------------------
+# --- the tuner's options (ROADMAP A9, ported) -------------------------------------
 
 
 @pytest.mark.parametrize(
     "kw,item",
     [(dict(strategy="auto"), "A9"), (dict(block="auto"), "A9")],
 )
-def test_unported_options_name_their_roadmap_item(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        SimServer(device=CPU, **kw)
+def test_unported_options_name_their_roadmap_item(kw, item, tmp_path,
+                                                  monkeypatch):
+    """The options ROADMAP ``item`` ported: ``SimServer`` with
+    ``strategy="auto"`` or ``block="auto"`` serves the queue, each
+    bucket's first batch resolving (by the model, on the CPU) outside
+    its timed region, every request equal to the explicit ``swc``
+    server's."""
+    monkeypatch.setenv("REPRO_TORCH_TUNE_CACHE", str(tmp_path))
+    queue = demo_queue([(16, 32), (12, 24)], 4, 8, device=CPU)
+    by_id = {r.req_id: r for r in queue.snapshot()}
+    server = SimServer(device=CPU, max_batch=4, **kw)
+    results = server.serve(queue)
+    assert sorted(results) == sorted(by_id) and not server.error_reports
+    assert len(server._warmed) == 2  # one tuning call per bucket
+    explicit = SimServer(device=CPU, max_batch=4).serve(
+        demo_queue([(16, 32), (12, 24)], 4, 8, device=CPU))
+    for rid, out in results.items():
+        assert torch.equal(out, explicit[rid])
+    assert check_parity(server, by_id, results) <= 1e-5
 
 
 @pytest.mark.parametrize("argv", (["--chaos"], ["--auto-tune"],
                                   ["--strategy", "auto"]))
-def test_cli_options_of_the_tuner_raise(argv):
-    with pytest.raises(NotImplementedError, match="A9"):
-        main(argv + ["--device", "cpu"])
+def test_cli_options_of_the_tuner_raise(argv, tmp_path, monkeypatch, capsys):
+    """The tuner's CLI options run on the CPU (the name is kept from
+    before they were ported): ``--chaos`` with its cache in a temporary
+    directory, its contract asserted."""
+    monkeypatch.setenv("REPRO_TORCH_TUNE_CACHE", str(tmp_path))
+    main(argv + ["--device", "cpu", "--smoke"])
+    out = capsys.readouterr().out
+    assert "serve_sim OK" in out
+    if argv == ["--chaos"]:
+        assert "chaos contract OK" in out
+        assert list(tmp_path.glob("cache.json.corrupt*"))
 
 
 def test_ladder_skips_the_unported_tc_rung():

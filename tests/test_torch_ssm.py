@@ -267,7 +267,8 @@ def test_prefill_and_serve_steps():
     assert int(cache.length) == 1
 
 
-def test_serve_runs_on_the_cpu_and_refuses_what_it_lacks():
+def test_serve_runs_on_the_cpu_and_refuses_what_it_lacks(
+        tmp_path, monkeypatch, capsys):
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--reduced",
          "--device", "cpu", "--batch", "2", "--steps", "4"],
@@ -276,8 +277,16 @@ def test_serve_runs_on_the_cpu_and_refuses_what_it_lacks():
     )
     assert out.returncode == 0, out.stderr
     assert "generated (2, 5) tokens" in out.stdout
-    with pytest.raises(NotImplementedError, match="A9"):
-        tserve.main(["--reduced", "--device", "cpu", "--auto-tune"])
+    # --auto-tune (the tuner, ROADMAP A9, ported) arms "auto" for the
+    # model's kernel call sites; the flag is restored after the test.
+    from repro_torch.tuning import session as tsession
+
+    monkeypatch.setenv("REPRO_TORCH_TUNE_CACHE", str(tmp_path))
+    monkeypatch.setattr(tsession, "AUTO_ENABLED", False)
+    tserve.main(["--reduced", "--device", "cpu", "--auto-tune",
+                 "--batch", "2", "--steps", "4"])
+    assert tsession.AUTO_ENABLED
+    assert "generated (2, 5) tokens" in capsys.readouterr().out
     with pytest.raises(NotImplementedError, match="A13"):
         tserve.main(["--arch", "whisper-small", "--device", "cpu"])
     _, tcfg = _cfgs()

@@ -145,7 +145,8 @@ def test_step_1d_xcorr_equals_the_fused_step(strategy):
 # --- the rules -----------------------------------------------------------------
 
 
-def test_xcorr1d_rules_follow_the_reference():
+def test_xcorr1d_rules_follow_the_reference(tmp_path, monkeypatch):
+    monkeypatch.setenv("REPRO_TORCH_TUNE_CACHE", str(tmp_path))
     f, g = (torch.from_numpy(a) for a in _inputs(64, 2, "float32"))
     jf, jg = jnp.asarray(f.numpy()), jnp.asarray(g.numpy())
     with pytest.raises(ValueError, match="strategy"):
@@ -157,8 +158,10 @@ def test_xcorr1d_rules_follow_the_reference():
     with pytest.raises(ValueError, match="divide by unroll"):
         jops.xcorr1d(jf, jg, strategy="elementwise", block_size=30, unroll=4,
                      interpret=True)
-    with pytest.raises(NotImplementedError, match="A9"):
-        tops.xcorr1d(f, g, block_size="auto")
+    # block_size="auto" (the tuner, ROADMAP A9) resolves and equals the
+    # explicit launch.
+    assert torch.equal(tops.xcorr1d(f, g, block_size="auto"),
+                       tops.xcorr1d(f, g))
     with pytest.raises(ValueError, match="1-D"):
         tops.xcorr1d(f[None], g)
     with pytest.raises(ValueError, match="no output"):
