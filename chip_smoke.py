@@ -5,6 +5,7 @@
     python3 chip_smoke.py --quick    # build + kernel-vs-plain checks only
     python3 chip_smoke.py --verify   # build + phase 3 (verify) only
     python3 chip_smoke.py --tune     # build + phase 3 (tune) only
+    python3 chip_smoke.py --sharded  # build + phase 3 (sharded) only
 
 Phases (each raises on failure; none is caught):
 
@@ -156,6 +157,28 @@ Phases (each raises on failure; none is caught):
    unchanged. Then ``serve_sim --smoke --chaos`` on a cache of its own
    (its contract: poison quarantined, transient retried, the candidate
    fault a ``failed`` row, the garbled cache quarantined and rebuilt).
+   Phase 3 (sharded), after it: ``FusedStencilOp.apply_sharded`` on
+   meshes of processes that share this card over gloo (halos staged
+   through pinned host memory; ``launch.mesh.run_on_mesh``, one spawn
+   per mesh, the kernels built before), periodic random fields from one
+   generator seed on every rank (``SHARDED_CASES``): diffusion 512³ f32
+   order 6 on (2,) over z (B1), on (2,) over y (B3, depth 1), on (2, 2)
+   over (z, y) at depth 1 (B1), 2 (B2's walk, halo 6) and on ``tc``
+   (B4); MHD 256³ f32 on (2,) over z: the RHS on B1 and B4, the
+   fused-axpy substep with its aux (B1), the ``fuse_rk_pairs`` pair
+   (B2's walk, its carry exchanged at r·1); each with overlap off and
+   on. Every rank holds its padded block from ``exchange_halos_nd`` to
+   its window of the globally padded field (bit for bit) and its output
+   to its block of the unsharded kernel's (bit-for-bit equality
+   reported) and of the unsharded plain version (1e-5 of its largest
+   |value|, the worst over ranks by ``all_reduce(MAX)``); launches
+   counted per sharded step (1, or 1 + 2 x sharded axes with overlap).
+   Rank 0 prints each case's bytes per exchange, the exchange's ms
+   alone, the sharded step's ms with overlap off and on and the
+   unsharded step's (host clock after a barrier, ending in a
+   synchronize; median of 5), and a kernels-line row per case (the
+   shard's launch on CUDA events, its plain version, bound and, for
+   diffusion, the dense ``conv3d``) carrying the case's launches.
 4. Times (CUDA events, median after warm-up) of each kernel, its plain
    version and, for diffusion, ``F.conv{1,2,3}d`` with the merged
    stencil as a dense weight (S calls at depth S); the bound is
@@ -2207,6 +2230,350 @@ def phase_tune(dev, smi):
     print(f"  serve_sim --chaos: failed rows {failed}")
 
 
+SHARDED_DIFFUSION = (512, 512, 512)
+SHARDED_MHD = (256, 256, 256)
+# Per mesh (its shape; dimensions named p, q): (problem, strategy, depth,
+# mesh_axes) of each case, each run with overlap off and on.
+SHARDED_CASES = {
+    (2,): (
+        ("diffusion", "swc", 1, ("p", None, None)),
+        ("diffusion", "swc_stream", 1, (None, "p", None)),
+        ("mhd_rhs", "swc", 1, ("p", None, None)),
+        ("mhd_rhs", "tc", 1, ("p", None, None)),
+        ("mhd_substep", "swc", 1, ("p", None, None)),
+        ("mhd pair", "swc", 2, ("p", None, None)),
+    ),
+    (2, 2): (
+        ("diffusion", "swc", 1, ("p", "q", None)),
+        ("diffusion", "swc", 2, ("p", "q", None)),
+        ("diffusion", "tc", 1, ("p", "q", None)),
+    ),
+}
+SHARDED_KERNEL = {  # strategy, depth > 1 -> launch counter key, source
+    ("swc", False): ("fused_stencil", KERNEL_SOURCE, REPLACES),
+    ("swc", True): (TEMPORAL, TEMPORAL_SOURCE, TEMPORAL_REPLACES),
+    ("swc_stream", False): (STREAM, STREAM_SOURCE, STREAM_REPLACES),
+    ("tc", False): (TC, TC_SOURCE, TC_REPLACES),
+}
+SHARDED_REPS = 5
+
+
+def sharded_case_op(problem, strategy, depth, shape, dev, seed):
+    """(op, global field, global aux or None, φ FLOPs per point) of one
+    sharded case: periodic, random in (-1e-5, 1e-5] (paper Table B2; the
+    carry w in (0, 1e-3)) from one generator seed, the same on every
+    rank."""
+    import torch
+
+    from repro_torch.physics import mhd
+    from repro_torch.physics.diffusion import DiffusionProblem
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(n_f, scale=2e-5, shift=1e-5):
+        return torch.rand((n_f,) + tuple(shape), generator=gen,
+                          device=dev) * scale - shift
+
+    if problem == "diffusion":
+        op = DiffusionProblem(tuple(shape)).step_op(
+            strategy, fuse_steps=depth, device=dev)
+        return op, draw(1), None, 0
+    solver = mhd.MHDSolver(tuple(shape), strategy=strategy, device=dev)
+    f = draw(mhd.N_FIELDS)
+    if problem == "mhd_rhs":
+        return solver.rhs_op(), f, None, mhd.RHS_PHI_FLOPS
+    aux = draw(mhd.N_FIELDS, 1e-3, 0.0)
+    if problem == "mhd_substep":
+        op = solver._fused_substep_op(mhd.RK3_ALPHA[1], mhd.RK3_BETA[1], 1e-4)
+    else:
+        op = solver._fused_pair_op(1e-4)
+    return op, f, aux, mhd.SUBSTEP_PHI_FLOPS
+
+
+def _plain_padded(op, fp, aux_p):
+    """The plain PyTorch version of ``op``'s launch on a padded stack."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.phi import phi_sequence
+
+    depth = op.fuse_steps
+    phis = phi_sequence(op.phi, depth)
+    tc = op.strategy == "tc"
+    if depth == 1:
+        return ref.fused_stencil(fp, op.ops, phis[0].torch_fn, aux=aux_p,
+                                 tc=tc)
+    return ref.fused_stencil_steps(fp, op.ops, [p.torch_fn for p in phis],
+                                   depth, aux=aux_p, tc=tc)
+
+
+def sharded_rank(mesh, cases, shapes, seed0):
+    """One rank of phase 3 (sharded): every case of this mesh on its
+    block, held to the unsharded kernel and plain version on the whole
+    field; rank 0 prints each case and returns the kernels line's rows
+    and the launches by kernel, the others None."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import boundary, halo
+    from repro_torch.kernels import emit
+    from repro_torch.launch.mesh import local_block
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rank = dist.get_rank()
+    names = mesh.mesh_dim_names
+    bw, f32_rate, _ = card_rates(torch.cuda.get_device_name(0))
+    sync = torch.cuda.synchronize
+
+    def stepped(fn):
+        """Median host ms of ``fn()`` after a barrier, ending in a
+        synchronize and a barrier (the slowest rank's step)."""
+        times = []
+        for _ in range(SHARDED_REPS):
+            dist.barrier()
+            t = time.perf_counter()
+            fn()
+            sync()
+            dist.barrier()
+            times.append(1e3 * (time.perf_counter() - t))
+        return statistics.median(times)
+
+    def worst(x):
+        t = torch.tensor([float(x)], dtype=torch.float64)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        return float(t)
+
+    def total(x):
+        t = torch.tensor([float(x)], dtype=torch.float64)
+        dist.all_reduce(t)
+        return float(t)
+
+    out_rows, by_kernel = [], {}
+    for i, (problem, strategy, depth, axes) in enumerate(cases):
+        shape = shapes[problem.split()[0].split("_")[0]]
+        op, g, aux_g, phi_flops = sharded_case_op(
+            problem, strategy, depth, shape, dev, seed0 + i)
+        spatial = tuple(range(1, g.ndim))
+        wrads = [r * depth for r in op.radius_per_axis]
+        arads = [r * (depth - 1) for r in op.radius_per_axis]
+        gp = boundary.pad(g, wrads, "periodic", spatial_axes=spatial)
+        aux_gp = aux_g
+        if aux_g is not None and depth > 1:
+            aux_gp = boundary.pad(aux_g, arads, "periodic",
+                                  spatial_axes=spatial)
+        want_kernel = op.apply_padded(gp, aux=aux_gp)
+        want_plain = _plain_padded(op, gp, aux_gp)
+        # this rank's window of the globally padded field
+        window = [slice(None)]
+        for a, name in enumerate(axes):
+            if name is None:
+                window.append(slice(None))
+                continue
+            k, c = mesh.size(names.index(name)), mesh.get_local_rank(name)
+            n = shape[a] // k
+            window.append(slice(c * n, (c + 1) * n + 2 * wrads[a]))
+        want_pad = gp[tuple(window)]
+        del gp, aux_gp
+        fl = local_block(g, mesh, axes).contiguous()
+        al = None if aux_g is None else local_block(
+            aux_g, mesh, axes).contiguous()
+        del g, aux_g
+        block_k = local_block(want_kernel, mesh, axes)
+        block_p = local_block(want_plain, mesh, axes)
+
+        halo.reset_counts()
+        fp = halo.exchange_halos_nd(fl, wrads, axes, spatial_axes=spatial,
+                                    mesh=mesh, staging=op._staging)
+        sync()
+        sent = halo.counts["bytes"]
+        if not torch.equal(fp, want_pad):
+            raise AssertionError(
+                f"rank {rank}: {problem} {strategy}: the exchanged block "
+                "differs from its window of the padded field")
+        del want_pad
+        al_p = al
+        if al is not None and depth > 1:
+            al_p = halo.exchange_halos_nd(
+                al, arads, axes, spatial_axes=spatial, mesh=mesh,
+                staging=op._staging)
+        sharded = sum(name is not None for name in axes)
+        result = {}
+        for overlap in (False, True):
+            dist.barrier()
+            sync()
+            emit.reset_launch_counts()
+            out = op.apply_sharded(fl, axes, al, overlap=overlap, mesh=mesh)
+            sync()
+            counts = dict(emit.fused_stencil_swc.launches_by_kernel)
+            want_n = 1 + 2 * sharded if overlap else 1
+            if sum(counts.values()) != want_n or len(counts) != 1:
+                raise AssertionError(
+                    f"rank {rank}: {problem} {strategy} overlap={overlap}: "
+                    f"launches {counts}, want {want_n} of one kernel")
+            for key, n in counts.items():
+                by_kernel[key] = by_kernel.get(key, 0) + n
+            if not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"{problem}: non-finite output")
+            err_k = float((out - block_k).abs().max())
+            err_p, rel_p = rel_err(out, block_p)
+            result[overlap] = dict(
+                launches=want_n, err_k=worst(err_k), err_p=worst(err_p),
+                rel=worst(rel_p),
+                equal_all=worst(0.0 if torch.equal(out, block_k) else 1.0)
+                == 0.0,
+                ms=stepped(lambda: op.apply_sharded(
+                    fl, axes, al, overlap=overlap, mesh=mesh)),
+            )
+            del out
+        exchange_ms = stepped(lambda: halo.exchange_halos_nd(
+            fl, wrads, axes, spatial_axes=spatial, mesh=mesh,
+            staging=op._staging))
+        whole_ms = None
+        if rank == 0:  # the unsharded step on the whole field, alone
+            g, aux_g = sharded_case_op(problem, strategy, depth, shape, dev,
+                                       seed0 + i)[1:3]
+            whole = []
+            for _ in range(SHARDED_REPS + 1):
+                sync()
+                t = time.perf_counter()
+                op(g, aux_g)
+                sync()
+                whole.append(1e3 * (time.perf_counter() - t))
+            whole_ms = statistics.median(whole[1:])
+            del g, aux_g
+        dist.barrier()
+        sent_all = total(sent)
+        kernel, source, replaces = SHARDED_KERNEL[strategy, depth > 1]
+        mesh_txt = f"{tuple(mesh.mesh.shape)} over {axes}"
+        if rank == 0:
+            for overlap, r in result.items():
+                if r["rel"] > TOL["float32"]:
+                    raise AssertionError(
+                        f"{problem} {strategy} S={depth} {mesh_txt} "
+                        f"overlap={overlap}: rel err {r['rel']:.3e} against "
+                        "the unsharded plain version")
+            off, on = result[False], result[True]
+            print(f"  {problem} {tuple(shape)} {strategy} S={depth} on "
+                  f"{mesh_txt}: shard {tuple(fl.shape[1:])}, padded "
+                  f"{tuple(fp.shape[1:])} equal to its window of the padded "
+                  f"field; exchange {sent} B sent by rank 0 ({sent_all:.0f} "
+                  f"B by all ranks), {exchange_ms:.3f} ms alone; sharded "
+                  f"step {off['ms']:.3f} ms (overlap off, {off['launches']} "
+                  f"launch) / {on['ms']:.3f} ms (on, {on['launches']} "
+                  f"launches); unsharded step {whole_ms:.3f} ms; vs "
+                  f"unsharded kernel max|err| {off['err_k']:.3e} / "
+                  f"{on['err_k']:.3e} (bit for bit on every rank: "
+                  f"{off['equal_all']} / {on['equal_all']}); vs plain "
+                  f"rel {off['rel']:.3e} / {on['rel']:.3e} (tol 1e-05)")
+        out_rows += _sharded_row(
+            rank, op, fp, al_p, phi_flops, kernel, source, replaces,
+            f"{problem}, S={depth}, sharded {mesh_txt}, shard "
+            f"{'x'.join(map(str, fl.shape[1:]))}",
+            sum(r["launches"] for r in result.values()),
+            max(result[False]["err_p"], result[True]["err_p"]),
+            problem == "diffusion", bw, f32_rate)
+        del fl, al, fp, al_p, want_kernel, want_plain, block_k, block_p, op
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return (out_rows, by_kernel) if rank == 0 else None
+
+
+def _sharded_row(rank, op, fp, aux_p, phi_flops, kernel, source, replaces,
+                 label, launches, err, library, bw, f32_rate):
+    """The kernels line's row of one sharded case, timed on rank 0
+    while the other ranks wait: the shard's own launch (CUDA events),
+    its plain version and, for diffusion, the dense convolution."""
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    row = []
+    if rank == 0:
+        ms = time_ms(lambda: op.apply_padded(fp, aux=aux_p), 10)
+        plain_ms = time_ms(lambda: _plain_padded(op, fp, aux_p), 3,
+                           warmup=1)
+        lib_ms = None
+        if library:
+            rad = op.radius_per_axis
+            spec = op.ops.ops[0]
+            w = torch.zeros(tuple(2 * r + 1 for r in rad),
+                            dtype=torch.float64)
+            for off, c in zip(spec.offsets, spec.coeffs):
+                w[tuple(o + r for o, r in zip(off, rad))] = c
+            w = w.to(device=fp.device, dtype=fp.dtype)[None, None]
+
+            def conv():
+                y = fp[None]
+                for _ in range(op.fuse_steps):
+                    y = F.conv3d(y, w)
+                return y
+
+            lib_ms = time_ms(conv, 3, warmup=1)
+        depth = op.fuse_steps
+        out_numel = op.n_out
+        for n, r in zip(fp.shape[1:], op.radius_per_axis):
+            out_numel *= n - 2 * r * depth
+        item = fp.element_size()
+        nbytes = (fp.numel() + out_numel
+                  + (0 if aux_p is None else aux_p.numel())) * item
+        points = out_numel // op.n_out
+        flops = depth * (op.ops.flops_per_point(fp.shape[0]) + phi_flops) * (
+            points)
+        rate = TC_RATES["float32"] if op.strategy == "tc" else f32_rate
+        t_bytes, t_ops = nbytes / bw * 1e3, flops / rate * 1e3
+        bound = max(t_bytes, t_ops)
+        row.append({
+            "name": f"{kernel}[{label}]",
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": launches,
+            "max_abs_err": err,
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": lib_ms,
+        })
+        print(f"    row {kernel}[{label}]: kernel {ms:.4f} ms  plain "
+              f"{plain_ms:.4f} ms  bound {bound:.4f} ms  library "
+              f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}  "
+              f"{bound / ms:.1%} of bound")
+    dist.barrier()
+    return row
+
+
+def phase_sharded(dev, smi):
+    """Phase 3 (sharded): the distribution layer on the card. Every
+    mesh's ranks are processes sharing this card over gloo (halos staged
+    through pinned host memory), spawned by ``launch.mesh.run_on_mesh``
+    once per mesh; the kernels are built before they start."""
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import run_on_mesh
+
+    print("== phase 3 (sharded): apply_sharded over gloo, the ranks "
+          "sharing one card")
+    print(f"  card: {smi}")
+    build.build_all()  # no rank waits on nvcc
+    torch.cuda.empty_cache()
+    shapes = {"diffusion": SHARDED_DIFFUSION, "mhd": SHARDED_MHD}
+    out_rows, launches = [], {}
+    for seed0, (mesh_shape, cases) in enumerate(SHARDED_CASES.items()):
+        axes = ("p", "q")[:len(mesh_shape)]
+        results = run_on_mesh(
+            sharded_rank, mesh_shape, axes, backend="gloo", device=dev,
+            args=(cases, shapes, 100 * seed0), timeout=600)
+        mesh_rows, by_kernel = results[0]
+        out_rows += mesh_rows
+        for key, n in by_kernel.items():
+            launches[key] = launches.get(key, 0) + n
+    print(f"  launches on rank 0 by kernel, all sharded steps: {launches}")
+    for key in ("fused_stencil", TEMPORAL, STREAM, TC):
+        if not launches.get(key):
+            raise AssertionError(f"no {key} launch in the sharded phase")
+    return out_rows
+
+
 def phase_times(dev, smi, launches):
     import dataclasses
 
@@ -2782,6 +3149,9 @@ def main(argv: list[str]) -> int:
     if "--tune" in argv:
         timed("phase 3 (tune)", phase_tune, dev, smi)
         return 0
+    if "--sharded" in argv:
+        timed("phase 3 (sharded)", phase_sharded, dev, smi)
+        return 0
     timed("phase 2", phase_parity, dev)
     if "--quick" in argv:
         return 0
@@ -2792,9 +3162,11 @@ def main(argv: list[str]) -> int:
     timed("phase 3b", phase_serve, dev, launches)
     timed("phase 3 (verify)", phase_verify, dev, smi)
     timed("phase 3 (tune)", phase_tune, dev, smi)
+    sharded_rows = timed("phase 3 (sharded)", phase_sharded, dev, smi)
     rows = timed("phase 4", phase_times, dev, smi, launches)
     rows += timed("phase 4 (1-D)", phase_times_xcorr, dev, smi, launches)
     rows += timed("phase 4 (mamba2)", phase_times_conv1d, dev, smi, launches)
+    rows += sharded_rows
     print("chip_smoke: seconds by phase "
           + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     print(f"chip_smoke: all phases in {time.perf_counter() - t0:.1f} s")

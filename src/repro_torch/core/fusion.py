@@ -53,18 +53,25 @@ The operator set's tap table is a buffer of the module, so ``.to(device)``
 moves it with the module. ``boundary_weights=True`` replaces the ghost
 fill's values within ``r`` cells of every non-periodic face by
 boundary-modified weight rows (``core.boundary.apply_operator_set_bc``)
-after the launch, evaluating only those wall slabs. Sharding raises
-``NotImplementedError`` naming its ROADMAP item.
+after the launch, evaluating only those wall slabs.
+
+:meth:`FusedStencilOp.apply_sharded` runs the op on one rank's block of
+a field sharded over a ``torch.distributed`` mesh (``launch.mesh``): the
+halos travel by ring exchange (``core.halo``), the launch is the op's
+own, and with ``overlap=True`` the halo-independent interior launches
+while the exchange is in flight.
 """
 from __future__ import annotations
 
+import collections
 from typing import Callable, Mapping, Union
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from repro_torch import resolve_device
-from repro_torch.core import boundary
+from repro_torch.core import boundary, halo
 from repro_torch.core.stencil import OperatorSet
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import plan as kplan
@@ -76,8 +83,15 @@ PhiLike = Union[Phi, tuple]
 
 STRATEGIES = ("hwc", "swc", "swc_stream", "tc", "auto")
 DEVICE_STRATEGIES = ("swc", "swc_stream", "tc")  # the CUDA kernels
-# Reference strategies not ported yet → ROADMAP item.
-NOT_PORTED = dict(kplan.NOT_PORTED)
+# Sharded applications since the last reset_sharded_counts(), by path:
+# "overlap" (the interior-first decomposition engaged) or "plain"
+# (exchange, then one launch).
+sharded_counts: collections.Counter = collections.Counter()
+
+
+def reset_sharded_counts() -> None:
+    """Zero :data:`sharded_counts`."""
+    sharded_counts.clear()
 
 
 class FusedStencilOp(nn.Module):
@@ -125,7 +139,6 @@ class FusedStencilOp(nn.Module):
             ``boundary_weights`` on operators without OperatorSpec, an
             explicit tile under ``strategy="auto"``, or
             ``fuse_steps="auto"`` without ``block="auto"``.
-        NotImplementedError: for a reference option not ported yet.
     """
 
     def __init__(
@@ -156,6 +169,8 @@ class FusedStencilOp(nn.Module):
         # Concrete ops resolved per operand (shape, dtype, device, aux
         # shape): a later call on such an operand resolves by lookup.
         self._resolved: dict[tuple, FusedStencilOp] = {}
+        # Pinned host buffers of the sharded path's gloo exchanges.
+        self._staging = halo.Staging()
         device = resolve_device(device)
         offsets, coeffs, starts = device_tap_table(ops, device)
         self.register_buffer("tap_offsets", offsets)
@@ -163,11 +178,6 @@ class FusedStencilOp(nn.Module):
         self.register_buffer("tap_starts", starts)
 
     def _validate(self) -> None:
-        if self.strategy in NOT_PORTED:
-            raise NotImplementedError(
-                f"strategy {self.strategy!r} is not ported yet: ROADMAP "
-                f"{NOT_PORTED[self.strategy]}"
-            )
         if self.strategy not in STRATEGIES:
             raise ValueError(
                 f"strategy {self.strategy!r} not in {STRATEGIES}"
@@ -448,11 +458,205 @@ class FusedStencilOp(nn.Module):
         """The same op at another depth, buffers on the same device."""
         return self._replace(fuse_steps=fuse_steps)
 
-    def apply_sharded(self, *args, **kwargs):
-        """Not ported yet (ROADMAP A11: halos over torch.distributed)."""
-        raise NotImplementedError(
-            "apply_sharded is not ported yet: ROADMAP A11"
+    # -- distributed --------------------------------------------------------
+
+    def apply_sharded(
+        self,
+        f_local: torch.Tensor,
+        mesh_axes,
+        aux: torch.Tensor | None = None,
+        *,
+        overlap: bool = False,
+        mesh=None,
+    ) -> torch.Tensor:
+        """Exchange halos over the mesh dimensions assigned to each
+        spatial axis, then run the local fused launch on this rank's
+        block (on the card: the kernel the strategy names).
+
+        Args:
+            f_local: this rank's (n_f, *local_spatial) block
+                (``launch.mesh.local_block``).
+            mesh_axes: one entry per spatial axis — the name of the mesh
+                dimension sharding it, or None (local periodic wrap).
+            aux: optional (n_aux, *local_spatial) point-wise inputs
+                forwarded to φ (exchanged at ``radius·(fuse_steps-1)``
+                when depth > 1).
+            overlap: post the exchange, launch the halo-independent
+                interior from local data, then wait and launch the
+                ``2 x (sharded axes)`` edge slabs from the exchanged
+                array; numerics unchanged.
+            mesh: the :class:`~torch.distributed.device_mesh.DeviceMesh`
+                whose dimensions ``mesh_axes`` names (``shard_map``'s
+                scope carries it in the reference; here it is passed).
+
+        Returns:
+            The (n_out, *local_spatial) update for this rank's block.
+
+        Raises:
+            ValueError: when ``mesh_axes`` does not have exactly one
+                entry per spatial dimension, or names an axis without a
+                ``mesh``.
+            NotImplementedError: for non-periodic boundary modes.
+
+        Periodic boundaries compose exactly with the ring exchange: the
+        wrap-around neighbour IS the periodic image. At depth S the
+        exchanged halo is ``radius * S`` per sharded axis: one exchange
+        buys S time steps. An ``"auto"`` op resolves on the mesh's first
+        rank and broadcasts the (strategy, block, depth) it chose to
+        every rank, so all ranks run one plan (and only one process
+        tunes the shared card and writes the tuning cache).
+        """
+        n_spatial = f_local.ndim - 1
+        if len(mesh_axes) != n_spatial:
+            raise ValueError(
+                f"mesh_axes has {len(mesh_axes)} entries but the field "
+                f"stack has {n_spatial} spatial dims — pass one mesh-axis "
+                "name (or None) per spatial dimension"
+            )
+        if any(m != "periodic" for m in self.boundary_modes):
+            raise NotImplementedError(
+                "sharded stencils currently support periodic boundaries "
+                "(the paper's simulation setup)"
+            )
+        if self.needs_resolution:
+            return self._resolved_on_mesh(f_local, aux, mesh).apply_sharded(
+                f_local, mesh_axes, aux, overlap=overlap, mesh=mesh)
+        if overlap:
+            out = self._apply_sharded_overlap(f_local, mesh_axes, aux, mesh)
+            if out is not None:
+                sharded_counts["overlap"] += 1
+                return out
+        sharded_counts["plain"] += 1
+        depth = int(self.fuse_steps)
+        fp = halo.exchange_halos_nd(
+            f_local, [r * depth for r in self.radius_per_axis], mesh_axes,
+            spatial_axes=tuple(range(1, f_local.ndim)), mesh=mesh,
+            staging=self._staging,
         )
+        if aux is not None and depth > 1:
+            aux = halo.exchange_halos_nd(
+                aux, [r * (depth - 1) for r in self.radius_per_axis],
+                mesh_axes, spatial_axes=tuple(range(1, aux.ndim)),
+                mesh=mesh, staging=self._staging,
+            )
+        return self.apply_padded(fp, aux=aux)
+
+    def _resolved_on_mesh(self, f_local, aux, mesh) -> "FusedStencilOp":
+        """:meth:`resolved` on the mesh's first rank, its (strategy,
+        block, depth) broadcast to every rank and kept under the same
+        operand signature there. The mesh must hold every rank of the
+        process group (``launch.mesh.make_mesh`` builds such meshes)."""
+        if mesh is None:
+            return self.resolved(f_local, aux)
+        sig = (tuple(f_local.shape), f_local.dtype, f_local.device,
+               None if aux is None else tuple(aux.shape))
+        if sig in self._resolved:
+            return self._resolved[sig]
+        if mesh.mesh.numel() != dist.get_world_size():
+            raise ValueError(
+                "an 'auto' op resolves on a mesh that holds every rank of "
+                f"the process group ({dist.get_world_size()}); this mesh "
+                f"holds {mesh.mesh.numel()}"
+            )
+        src = int(mesh.mesh.flatten()[0])
+        plan = [None]
+        if dist.get_rank() == src:
+            op = self.resolved(f_local, aux)
+            plan = [(op.strategy, op.block, op.fuse_steps)]
+        dist.broadcast_object_list(plan, src=src)
+        strategy, block, depth = plan[0]
+        if dist.get_rank() != src:
+            self._resolved[sig] = self._replace(
+                strategy=strategy, block=tuple(block), fuse_steps=int(depth))
+        return self._resolved[sig]
+
+    def _apply_sharded_overlap(
+        self, f_local: torch.Tensor, mesh_axes, aux, mesh
+    ) -> torch.Tensor | None:
+        """The compute/communication overlap decomposition at depth
+        ``S = fuse_steps``: the halo every output point consumes is
+        ``radius·S`` per sharded axis, so the halo-independent interior
+        shrinks by that much per side and the dependent edge slabs are
+        that wide; the carry ``aux`` is consumed at ``radius·(S-1)``
+        ghost cells, so it is exchanged at that width and every launch
+        slices its aligned aux window.
+
+        Returns None when the decomposition doesn't apply (no sharded
+        axis, or a local extent too small to hold an interior); the
+        caller then takes the plain exchange-then-apply path.
+        """
+        depth = int(self.fuse_steps)
+        rads = self.radius_per_axis
+        wrads = [r * depth for r in rads]  # halo consumed per output
+        arads = [r * (depth - 1) for r in rads]  # aux ghost width
+        spatial_axes = tuple(range(1, f_local.ndim))
+        sharded = [
+            (ax, w)
+            for ax, w, name in zip(spatial_axes, wrads, mesh_axes)
+            if name is not None and w > 0
+        ]
+        if not sharded:
+            return None  # nothing to overlap with
+        if any(f_local.shape[ax] <= 2 * w for ax, w in sharded):
+            return None  # no interior: every point depends on halos
+
+        # Post the exchange FIRST: its sends read only edge planes, the
+        # interior launch below only local data.
+        pending = halo.post_halos_nd(
+            f_local, wrads, mesh_axes, spatial_axes=spatial_axes,
+            mesh=mesh, staging=self._staging,
+        )
+        # Interior: along each sharded axis the local block IS the
+        # interior plus its (not-yet-arrived) halo, so it only needs the
+        # local periodic wrap on the unsharded axes; its aux window lies
+        # inside the local aux (radius·S >= radius·(S-1)).
+        unsharded = [0 if name is not None else w
+                     for w, name in zip(wrads, mesh_axes)]
+        f_interior_padded = boundary.pad(
+            f_local, unsharded, "periodic", spatial_axes=spatial_axes
+        ).contiguous()
+        int_sl = [slice(None)] * f_local.ndim
+        aux_sl = [slice(None)] * f_local.ndim
+        for ax, w in sharded:
+            a = arads[ax - 1]
+            int_sl[ax] = slice(w, f_local.shape[ax] - w)
+            aux_sl[ax] = slice(w - a, f_local.shape[ax] - w + a)
+        aux_int = None
+        if aux is not None:
+            aux_int = boundary.pad(
+                aux, [0 if name is not None else a
+                      for a, name in zip(arads, mesh_axes)],
+                "periodic", spatial_axes=spatial_axes,
+            )[tuple(aux_sl)].contiguous()
+        try:
+            out_interior = self.apply_padded(f_interior_padded, aux=aux_int)
+        finally:  # complete the exchange even if the launch raised
+            fp = pending.wait()
+        aux_p = None
+        if aux is not None:
+            aux_p = halo.exchange_halos_nd(
+                aux, arads, mesh_axes, spatial_axes=spatial_axes,
+                mesh=mesh, staging=self._staging,
+            )
+        out = out_interior.new_empty((self.n_out,) + f_local.shape[1:])
+        out[tuple(int_sl)] = out_interior
+        # Edge slabs depend on the exchanged halos: each from the padded
+        # array. Slabs span the full extent of the other axes, so corner
+        # regions are (idempotently) covered.
+        _, edges = halo.interior_first(
+            f_local, [w for _, w in sharded], [ax for ax, _ in sharded])
+        for ax, sl in edges:
+            s = sl.start or 0
+            e = f_local.shape[ax] if sl.stop is None else sl.stop
+            w_ax, a_ax = wrads[ax - 1], arads[ax - 1]
+            # The kernels read contiguous stacks: each slab is copied out.
+            slab_aux = None
+            if aux_p is not None:
+                slab_aux = aux_p.narrow(ax, s, e - s + 2 * a_ax).contiguous()
+            slab_out = self.apply_padded(
+                fp.narrow(ax, s, e - s + 2 * w_ax).contiguous(), aux=slab_aux)
+            out.narrow(ax, s, e - s).copy_(slab_out)
+        return out
 
 
 def integrate(

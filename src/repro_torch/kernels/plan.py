@@ -138,10 +138,6 @@ def strategy_sid(
     return sid
 
 
-# Strategies of the reference that have no Hopper kernel yet, with the
-# ROADMAP queue item that ports each (none left).
-NOT_PORTED: dict[str, str] = {}
-
 # bfloat16 where the reference takes it and the port has no kernel yet,
 # with the ROADMAP item that adds it.
 BF16_NOT_PORTED = {
@@ -1102,9 +1098,8 @@ class StencilPlan:
             rule) and ``unroll > 1``. No depth or radius is capped
             otherwise: the shared-memory fit decides what a block
             holds.
-        NotImplementedError: for a strategy of the reference whose
-            kernel is not ported yet, and bfloat16 on ``swc`` at depth
-            > 1 or on ``swc_stream`` (``BF16_NOT_PORTED``).
+        NotImplementedError: for bfloat16 on ``swc`` at depth > 1 or
+            on ``swc_stream`` (``BF16_NOT_PORTED``).
     """
 
     rank: int
@@ -1128,11 +1123,6 @@ class StencilPlan:
     tc_table_words: int = 0  # tc depth 1 and walk: its table's words
 
     def __post_init__(self) -> None:
-        if self.strategy in NOT_PORTED:
-            raise NotImplementedError(
-                f"strategy {self.strategy!r} has no Hopper kernel yet: "
-                f"ROADMAP {NOT_PORTED[self.strategy]}"
-            )
         if self.strategy not in STRATEGIES:
             raise ValueError(
                 f"strategy {self.strategy!r} not in {STRATEGIES}"

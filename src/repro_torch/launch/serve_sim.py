@@ -66,7 +66,7 @@ import numpy as np
 import torch
 
 from repro_torch import dtype_name, resolve_device
-from repro_torch.core.fusion import NOT_PORTED, FusedStencilOp, integrate
+from repro_torch.core.fusion import FusedStencilOp, integrate
 from repro_torch.ft import faults as ftfaults
 from repro_torch.ft.faults import FaultInjector
 from repro_torch.ft.supervisor import StragglerMonitor
@@ -90,10 +90,6 @@ PLAIN_RUNG = "hwc"
 # Per-request status severity: a request that was ever quarantined
 # stays quarantined; degraded beats retried beats ok.
 _SEVERITY = {"ok": 0, "retried": 1, "degraded": 2, "quarantined": 3}
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: ROADMAP {item}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -260,8 +256,6 @@ class SimServer:
         validate_output: bool = True,
         device: str | torch.device | None = None,
     ):
-        if strategy in NOT_PORTED:
-            raise _not_ported(f"strategy={strategy!r}", NOT_PORTED[strategy])
         self.device = resolve_device(device)
         self.strategy = strategy
         self.block = block
