@@ -6,6 +6,7 @@
     python3 chip_smoke.py --verify   # build + phase 3 (verify) only
     python3 chip_smoke.py --tune     # build + phase 3 (tune) only
     python3 chip_smoke.py --sharded  # build + phase 3 (sharded) only
+    python3 chip_smoke.py --audit    # build + phase 3 (audit) only
 
 Phases (each raises on failure; none is caught):
 
@@ -179,6 +180,22 @@ Phases (each raises on failure; none is caught):
    synchronize; median of 5), and a kernels-line row per case (the
    shard's launch on CUDA events, its plain version, bound and, for
    diffusion, the dense ``conv3d``) carrying the case's launches.
+   Phase 3 (audit), run last (also after phase 4): the static auditor
+   (``repro_torch.analysis``) at full extents over ``AUDIT_SHAPES``, the
+   tuner's candidate spaces and every plan and B6/B7 launch the earlier
+   phases made (``emit.launched_plans()``, the wrappers' ``launched``
+   sets): unaudited 0, findings 0, counts by body and by the ROADMAP item
+   of what is not ported, and the mutation harness (11 mutants, each
+   caught with its class); each audited plan's layout fields from the
+   library (``repro_<name>_layout``), the kernel's shared bytes and the
+   auditor's equal field by field, persistent grids in [1, walk_items];
+   guard-band launches of every body, dtype and φ kind (B = 3 with
+   segments, PR 24's odd tiles, tuner winners off the planner, a 244-plane
+   slab), each input a view at offset 0 and 1 element past 16 bytes
+   inside 4 KiB of NaN each side, the output's interior NaN too: guards
+   intact, no NaN out, equal to the ordinary launch bit for bit and to the
+   plain version within TOL. memcheck is left out (``compute-sanitizer``
+   does not support this machine's card). Each step prints its seconds.
 4. Times (CUDA events, median after warm-up) of each kernel, its plain
    version and, for diffusion, ``F.conv{1,2,3}d`` with the merged
    stencil as a dense weight (S calls at depth S); the bound is
@@ -2574,6 +2591,376 @@ def phase_sharded(dev, smi):
     return out_rows
 
 
+# Phase 3 (audit): each guard band of NaN around a view is this many bytes.
+AUDIT_GUARD_BYTES = 4096
+
+
+def _nan_like(shape, dtype, device, offset):
+    """(flat, view): ``shape`` of ``dtype`` as a view ``offset`` elements
+    past the start of AUDIT_GUARD_BYTES of NaN, with as much NaN after it,
+    in one flat allocation of NaN."""
+    import math as _m
+
+    import torch
+
+    g = AUDIT_GUARD_BYTES // torch.empty((), dtype=dtype).element_size()
+    n = _m.prod(shape)
+    flat = torch.full((2 * g + offset + n,), float("nan"), dtype=dtype,
+                      device=device)
+    return flat, flat[g + offset:g + offset + n].view(shape)
+
+
+def _guards_intact(flat, view) -> bool:
+    """Every element of ``flat`` outside ``view`` still holds the NaN bits
+    it was filled with."""
+    import torch
+
+    ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}[
+        flat.element_size()]
+    bits = flat.view(ints)
+    lo = (view.data_ptr() - flat.data_ptr()) // flat.element_size()
+    hi = lo + view.numel()
+    nan = bits[0]
+    return bool((bits[:lo] == nan).all() and (bits[hi:] == nan).all())
+
+
+def guard_launch(label, launch, inputs, want, dtype):
+    """One guard-band case: ``launch(inputs, out)`` on ordinary tensors,
+    then on views of each input placed at offset 0 and 1 element past a
+    16-byte boundary inside NaN guards, into an output view 16-byte
+    aligned (B7's 16-byte and paired lanes store whole vectors, and
+    ``conv1d_depthwise.cu:380-386`` refuses an output off their alignment)
+    whose interior is NaN too. Each time: the guards hold their NaN bits
+    (nothing stored outside the output, no input written), the output holds
+    no NaN (every point written; a read outside the staged window would
+    pull NaN in) and equals the ordinary launch bit for bit; the ordinary
+    launch within TOL of the plain version."""
+    import torch
+
+    ordinary = launch(inputs, None)
+    for off in (0, 1):
+        views = {}
+        flats = []
+        for k, t in inputs.items():
+            if t is None:
+                views[k] = None
+                continue
+            flat, view = _nan_like(tuple(t.shape), t.dtype, t.device, off)
+            view.copy_(t)
+            views[k] = view
+            flats.append((k, flat, view, t))
+        oflat, oview = _nan_like(tuple(ordinary.shape), ordinary.dtype,
+                                 ordinary.device, 0)
+        got = launch(views, oview)
+        torch.cuda.synchronize()
+        if got.data_ptr() != oview.data_ptr():
+            raise AssertionError(f"{label}: the launch did not store into out")
+        if not _guards_intact(oflat, oview):
+            raise AssertionError(f"{label} offset {off}: a store outside "
+                                 "the output changed its guard band")
+        for k, flat, view, t in flats:
+            if not _guards_intact(flat, view) or not torch.equal(view, t):
+                raise AssertionError(f"{label} offset {off}: input {k} or "
+                                     "its guard band was written")
+        if bool(torch.isnan(oview).any()):
+            raise AssertionError(f"{label} offset {off}: NaN in the output "
+                                 "(a point unwritten or a read outside the "
+                                 "staged window)")
+        if not torch.equal(oview, ordinary):
+            raise AssertionError(f"{label} offset {off}: differs from the "
+                                 "launch on ordinary tensors")
+    check(f"{label} (guards, offsets 0/1)", ordinary, want, dtype)
+
+
+def guard_cases(dev):
+    """(label, launch, inputs, plain, dtype) of phase 3 (audit)'s guard-band
+    launches: every body of B1-B7 (the depth-1 swc, the column walks of
+    swc, swc_stream and tc, the one-tile temporal body, the stream ring
+    and one-buffer bodies, tc at depth 1, B6's one-tile and ring launches,
+    B7), each dtype and φ kind it takes, B = 3 with segments, the odd
+    tiles (4, 5, 20), (5, 5, 20), (4, 6, 12), (6, 6, 12) and (12,), the
+    tuner's off-planner winners (32, 256) at S = 4 and (2, 32, 64) at
+    S = 2, and a (4, 4, 32) tile on a 244-plane slab."""
+    from repro_torch.kernels import emit, ref
+    from repro_torch.kernels.conv1d_depthwise import conv1d_depthwise_cuda
+    from repro_torch.kernels.xcorr1d import xcorr1d_cuda
+
+    F, D, H = "float32", "float64", "bfloat16"
+    fused = (
+        ("B1 swc (4,5,20) f32", diffusion_case((16, 20, 40), F, dev,
+                                               block=(4, 5, 20))),
+        ("B1 swc (5,5,20) f64", diffusion_case((10, 10, 40), D, dev,
+                                               block=(5, 5, 20))),
+        ("B1 swc (4,6,12) f32", diffusion_case((8, 12, 24), F, dev,
+                                               block=(4, 6, 12))),
+        ("B1 swc (6,6,12) bf16", diffusion_case((12, 12, 24), H, dev,
+                                                block=(6, 6, 12))),
+        ("B1 swc (12,) f32", diffusion_case((1200,), F, dev, block=(12,))),
+        ("B1 swc rank 2 bf16", diffusion_case((40, 96), H, dev)),
+        ("B1 swc MHD RHS f32", mhd_case((8, 8, 32), F, dev, False)),
+        ("B1 swc MHD substep f32", mhd_case((8, 8, 32), F, dev, True)),
+        ("B1 swc MHD RHS f64", mhd_case((8, 8, 16), D, dev, False)),
+        ("B1 swc MHD substep f64", mhd_case((8, 8, 16), D, dev, True)),
+        ("B5 swc B=3 f32", diffusion_case((8, 16, 32), F, dev, batch=3)),
+        ("B2 walk S=2 f32", diffusion_case((16, 16, 32), F, dev,
+                                           fuse_steps=2)),
+        ("B2 walk S=3 f64 rank 2", diffusion_case((48, 64), D, dev,
+                                                  fuse_steps=3)),
+        ("B2 walk B=3 seg 4", diffusion_case((32, 16, 32), F, dev,
+                                             fuse_steps=2, batch=3,
+                                             segments=4)),
+        ("B2 walk (32,256) S=4", diffusion_case((128, 512), F, dev,
+                                                block=(32, 256),
+                                                fuse_steps=4)),
+        ("B2 walk (2,32,64) S=2", diffusion_case((16, 64, 128), F, dev,
+                                                 block=(2, 32, 64),
+                                                 fuse_steps=2)),
+        ("B2 walk (4,4,32) 244-plane slab", diffusion_case(
+            (244, 8, 64), F, dev, block=(4, 4, 32), fuse_steps=2)),
+        ("B2 walk MHD pair f32", mhd_pair_case((8, 8, 32), F, dev)),
+        ("B2 walk MHD RHS twice f32", mhd_rhs_twice_case((8, 8, 32), F,
+                                                         dev)),
+        ("B2 one-tile rank 1 S=2", diffusion_case((4096,), F, dev,
+                                                  fuse_steps=2)),
+        ("B2 one-tile rank 1 S=3 f64", diffusion_case((2048,), D, dev,
+                                                     fuse_steps=3)),
+        ("B2 one-tile MHD pair f64", mhd_pair_case((8, 8, 16), D, dev)),
+        ("B2 one-tile MHD RHS twice f64", mhd_rhs_twice_case((8, 8, 16), D,
+                                                             dev)),
+        ("B3 ring rank 2 f32", diffusion_case((64, 128), F, dev,
+                                              strategy="swc_stream")),
+        ("B3 ring rank 3 f64", diffusion_case((16, 16, 32), D, dev,
+                                              strategy="swc_stream")),
+        ("B3 ring B=3 seg 4", diffusion_case((64, 16, 32), F, dev,
+                                             strategy="swc_stream", batch=3,
+                                             segments=4)),
+        ("B3 ring MHD RHS f32", mhd_case((8, 8, 32), F, dev, False,
+                                         strategy="swc_stream")),
+        ("B3 one-buffer MHD RHS f64", mhd_case((8, 8, 32), D, dev, False,
+                                               strategy="swc_stream")),
+        ("B3 walk S=2 f32", diffusion_case((24, 16, 32), F, dev,
+                                           strategy="swc_stream",
+                                           fuse_steps=2)),
+        ("B3 walk S=2 f64 rank 2", diffusion_case((48, 64), D, dev,
+                                                  strategy="swc_stream",
+                                                  fuse_steps=2)),
+        ("B4 tc f32 rank 3", diffusion_case((8, 16, 32), F, dev,
+                                            strategy="tc")),
+        ("B4 tc bf16 rank 2", diffusion_case((32, 64), H, dev,
+                                             strategy="tc")),
+        ("B4 tc f32 rank 1", diffusion_case((4096,), F, dev, strategy="tc")),
+        ("B4 tc B=3", diffusion_case((8, 16, 32), F, dev, strategy="tc",
+                                     batch=3)),
+        ("B4 tc MHD RHS f32", mhd_case((8, 8, 16), F, dev, False,
+                                       strategy="tc")),
+        ("B4 tc MHD substep f32", mhd_case((8, 8, 16), F, dev, True,
+                                           strategy="tc")),
+        ("B4 tc walk S=2 f32", diffusion_case((16, 16, 32), F, dev,
+                                              strategy="tc", fuse_steps=2)),
+        ("B4 tc walk S=2 bf16 rank 2", diffusion_case(
+            (48, 64), H, dev, strategy="tc", fuse_steps=2)),
+        ("B4 tc walk MHD pair f32", mhd_pair_case((8, 8, 16), F, dev,
+                                                  strategy="tc")),
+        ("B4 tc walk MHD RHS twice f32", mhd_rhs_twice_case(
+            (8, 8, 16), F, dev, strategy="tc")),
+        ("B4 tc walk B=3 seg 2", diffusion_case((32, 16, 32), F, dev,
+                                                strategy="tc", fuse_steps=2,
+                                                batch=3, segments=2)),
+        ("B4 tc rank 1 S=2", diffusion_case((4096,), F, dev, strategy="tc",
+                                            fuse_steps=2)),
+        ("B4 tc rank 1 S=2 bf16", diffusion_case((4096,), H, dev,
+                                                 strategy="tc",
+                                                 fuse_steps=2)),
+    )
+    cases = []
+    for label, case in fused:
+        fp, ops, phi, plan, aux = case
+
+        def launch(t, out, ops=ops, phi=phi, plan=plan):
+            return emit.fused_stencil_swc(t["f"], ops, phi, plan,
+                                          aux=t["aux"], out=out)
+
+        cases.append((f"{label} {emit.kernel_name(plan)}", launch,
+                      {"f": fp, "aux": aux}, lambda c=case: plain(c),
+                      plan.dtype))
+    for strategy, u, r, dt in (("baseline", 4, 1, F), ("pointwise", 4, 10, D),
+                               ("elementwise", 4, 1, F),
+                               ("elementwise", 4, 10, F),
+                               ("elementwise", 8, 64, D),
+                               ("elementwise", 16, 64, F)):
+        f, g = xcorr_inputs(5000 + 123, r, dt, dev)
+
+        def launch(t, out, s=strategy, u=u):
+            return xcorr1d_cuda(t["f"], t["g"], strategy=s, block_size=1024,
+                                unroll=u, out=out)
+
+        cases.append((f"B6 {strategy} u{u} r{r} {dt}", launch,
+                      {"f": f, "g": g}, lambda f=f, g=g: ref.xcorr1d(f, g),
+                      dt))
+    for shape, k, dt, act in (((2, 257, 32), 4, F, "silu"),
+                              ((2, 257, 40), 7, H, "none"),
+                              ((3, 100, 16), 4, H, "silu")):
+        x, w = conv_inputs(shape, k, dt, dev)
+
+        def launch(t, out, act=act):
+            return conv1d_depthwise_cuda(t["x"], t["w"], activation=act,
+                                         out=out)
+
+        cases.append((f"B7 {shape} k{k} {dt} {act}", launch,
+                      {"x": x.contiguous(), "w": w},
+                      lambda x=x, w=w, act=act: ref.conv1d_depthwise(
+                          x, w, act), dt))
+    return cases
+
+
+def _layout_checks(results) -> tuple[int, int]:
+    """Phase 3 (audit) step (b): for every audited plan and launch, the
+    library's ``repro_<name>_layout`` fields and body, the kernel's shared
+    bytes and the auditor's equal field by field, and a persistent plan's
+    grid within [1, walk_items]. Host calls only: no launch. Returns
+    (layouts compared, grids checked)."""
+    from repro_torch.analysis.bodies import Conv1dLaunch, XcorrLaunch
+    from repro_torch.kernels import conv1d_depthwise as kc
+    from repro_torch.kernels import emit
+    from repro_torch.kernels import xcorr1d as kx
+    from repro_torch.kernels.phi import KIND_IDS
+    from repro_torch.kernels.plan import StencilPlan
+
+    n_layouts = n_grids = 0
+    bad = []
+    for key, res in results:
+        if isinstance(key, StencilPlan):
+            body, fields = emit.layout_fields(key)
+            smem = emit.kernel_smem_bytes(key)
+        elif isinstance(key, XcorrLaunch):
+            body, fields = kx.layout_fields(key.n_taps, key.block_size,
+                                            key.strategy, key.unroll,
+                                            key.dtype)
+            smem = fields["total"]
+        else:
+            body, fields = kc.layout_fields(key.b, key.s, key.c, key.vec)
+            smem = fields["total"]
+        if body != res.body or fields != res.layout or \
+                smem != res.measured_smem:
+            bad.append(f"{res.sid}: library {body} {fields} {smem} B, "
+                       f"auditor {res.body} {res.layout} "
+                       f"{res.measured_smem} B")
+        n_layouts += 1
+        if isinstance(key, StencilPlan) and key.persistent:
+            kind = ("select" if key.n_slots == 1 and not key.n_aux else
+                    "mhd_substep" if key.n_aux == 8 else
+                    "mhd_rhs" if key.n_slots == 10 and key.n_f == 8 else None)
+            if kind is None:
+                continue  # a planner-only plan no φ kind launches
+            grid = emit.launch_grid(key, KIND_IDS[kind])
+            if not 1 <= grid <= key.walk_items:
+                bad.append(f"{res.sid}: grid {grid} outside [1, "
+                           f"{key.walk_items}]")
+            n_grids += 1
+    for line in bad[:20]:
+        print(f"    MISMATCH {line}")
+    if bad:
+        raise AssertionError(f"{len(bad)} layouts differ from the auditor's")
+    return n_layouts, n_grids
+
+
+def phase_audit(dev, smi):
+    """Phase 3 (audit): the static auditor (``repro_torch.analysis``) and
+    the guard-band launches, run last.
+
+    (a) The full audit: ``AUDIT_SHAPES`` at their full extents, the
+    tuner's candidate spaces (whole at the smoke extents, the timed
+    candidates at the main path's full extents) and every plan and B6/B7
+    launch this run's earlier phases made; unaudited and findings must be
+    0; then the mutation harness (every mutant caught with its class).
+    (b) Layouts: every audited plan's library layout fields, the kernel's
+    shared bytes and the auditor's equal; persistent grids in [1,
+    walk_items]. (c) Guard-band launches (:func:`guard_cases`,
+    :func:`guard_launch`). (d) memcheck is left out: on this machine
+    ``compute-sanitizer`` is installed but reports "Device not supported"
+    and the program's first cudaMalloc under it fails (PERF.md section 6).
+    Prints each step's seconds."""
+    from repro_torch.analysis.bodies import Conv1dLaunch, XcorrLaunch
+    from repro_torch.analysis.driver import run_audit, run_mutants
+    from repro_torch.kernels import conv1d_depthwise as kc
+    from repro_torch.kernels import emit
+    from repro_torch.kernels import xcorr1d as kx
+
+    print(f"== phase 3 (audit): {smi}")
+    t = time.perf_counter()
+    launched = emit.launched_plans()
+    launched_1d = [XcorrLaunch(*k) for k in kx.xcorr1d_cuda.launched] + [
+        Conv1dLaunch(b, s, c, k, dt, vec, sb, ss)
+        for b, s, c, k, dt, vec, sb, ss in
+        kc.conv1d_depthwise_cuda.launched]
+    report = run_audit(full=True, launched=launched, launched_1d=launched_1d)
+    c = report["counts"]
+    print(f"  (a) registry {c['registry']}, candidates {c['candidates']}, "
+          f"launched {c['launched']} ({len(launched)} fused plans, "
+          f"{len(launched_1d)} B6/B7 launches), audited {c['audited']} "
+          f"({c['classes']} tile and column classes), unaudited "
+          f"{c['unaudited']}, findings {c['findings']}, sid combos "
+          f"{c['sid_combos']}, record round trips {c['record_roundtrips']}")
+    print("      bodies: " + ", ".join(f"{k} {v}" for k, v in
+                                      report["bodies"].items()))
+    print("      not ported: " + (", ".join(
+        f"{k} {v}" for k, v in report["not_ported"].items()) or "none")
+          + "; refused by the planner: " + (", ".join(
+              f"{k} {v}" for k, v in report["refused"].items()) or "none"))
+    for f in report["findings"][:20]:
+        print(f"      [{f['cls']}] {f['plan']}: {f['detail']}")
+    if c["unaudited"] or c["findings"]:
+        raise AssertionError(f"audit: {c['unaudited']} unaudited, "
+                             f"{c['findings']} findings")
+    mut = run_mutants()
+    print(f"      mutants: {len(mut['mutants']) - 1} seeded, undetected "
+          f"{mut['undetected'] or 'none'}")
+    if mut["undetected"]:
+        raise AssertionError(f"mutants missed: {mut['undetected']}")
+    t_a = time.perf_counter() - t
+    print(f"  [(a) audit: {t_a:.1f} s (the audit itself "
+          f"{report['seconds']:.1f} s)]")
+    t = time.perf_counter()
+    aud = report["_auditor"]
+    n_layouts, n_grids = _layout_checks(aud.results.items())
+    print(f"  (b) {n_layouts} layouts equal field by field (library, "
+          f"kernel shared bytes, auditor); {n_grids} persistent grids in "
+          "[1, walk_items]")
+    print(f"  [(b) layouts: {time.perf_counter() - t:.1f} s]")
+    t = time.perf_counter()
+    cases = guard_cases(dev)
+    for label, launch, inputs, want, dtype in cases:
+        guard_launch(label, launch, inputs, want(), dtype)
+    print(f"  (c) {len(cases)} guard-band cases x 2 input offsets: guards "
+          "intact, no NaN, equal to the ordinary launch bit for bit")
+    # The guard cases' own plans and launches, audited and their layouts
+    # held to the library's like (a) and (b)'s.
+    new = [(p, o) for p, o in emit.launched_plans() if p not in aud.results]
+    new_1d = [lc for lc in (
+        [XcorrLaunch(*k) for k in kx.xcorr1d_cuda.launched] + [
+            Conv1dLaunch(b, s, c, k, dt, vec, sb, ss)
+            for b, s, c, k, dt, vec, sb, ss in
+            kc.conv1d_depthwise_cuda.launched]) if lc not in aud.results]
+    for p, o in new:
+        aud.plan(p, o)
+    for lc in new_1d:
+        aud.launch(lc)
+    found = [f for k in [p for p, _ in new] + new_1d
+             for f in aud.results[k].findings]
+    for f in found[:20]:
+        print(f"      [{f.cls}] {f.plan}: {f.detail}")
+    n_more, _ = _layout_checks((k, aud.results[k]) for k in
+                               [p for p, _ in new] + new_1d)
+    print(f"      their {len(new)} plans and {len(new_1d)} B6/B7 launches "
+          f"audited after: findings {len(found)}, {n_more} layouts equal")
+    if found:
+        raise AssertionError(f"guard cases: {len(found)} findings")
+    print(f"  [(c) guard bands: {time.perf_counter() - t:.1f} s]")
+    print("  (d) memcheck: left out (compute-sanitizer: Device not "
+          "supported on this machine)")
+    return report
+
+
 def phase_times(dev, smi, launches):
     import dataclasses
 
@@ -3152,6 +3539,9 @@ def main(argv: list[str]) -> int:
     if "--sharded" in argv:
         timed("phase 3 (sharded)", phase_sharded, dev, smi)
         return 0
+    if "--audit" in argv:
+        timed("phase 3 (audit)", phase_audit, dev, smi)
+        return 0
     timed("phase 2", phase_parity, dev)
     if "--quick" in argv:
         return 0
@@ -3167,6 +3557,7 @@ def main(argv: list[str]) -> int:
     rows += timed("phase 4 (1-D)", phase_times_xcorr, dev, smi, launches)
     rows += timed("phase 4 (mamba2)", phase_times_conv1d, dev, smi, launches)
     rows += sharded_rows
+    timed("phase 3 (audit)", phase_audit, dev, smi)
     print("chip_smoke: seconds by phase "
           + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     print(f"chip_smoke: all phases in {time.perf_counter() - t0:.1f} s")

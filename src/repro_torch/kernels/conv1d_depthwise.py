@@ -26,7 +26,7 @@ import torch
 
 from repro_torch import dtype_name
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.emit import DTYPE_CODES
+from repro_torch.kernels.emit import DTYPE_CODES, check_out, decode_layout
 
 KERNEL = "conv1d_depthwise"  # csrc/conv1d_depthwise.cu
 ACTIVATIONS = ("none", "silu")  # ACT_* of conv1d_depthwise.cu
@@ -132,9 +132,23 @@ def _lib() -> ctypes.CDLL:
     lib.repro_conv1d_depthwise_threads.restype = ci
     lib.repro_conv1d_depthwise_grid.argtypes = [ci] * 8
     lib.repro_conv1d_depthwise_grid.restype = ll
+    lib.repro_conv1d_depthwise_layout.argtypes = [ci] * 4 + [
+        ctypes.POINTER(ctypes.c_longlong)]
+    lib.repro_conv1d_depthwise_layout.restype = ci
     lib.repro_cuda_error_string.argtypes = [ci]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def layout_fields(b: int, s: int, c: int, vec: int
+                  ) -> tuple[str, dict[str, int]]:
+    """(body, fields) of a launch by the kernel's own
+    ``repro_conv1d_depthwise_layout`` (needs the built library; host
+    only): threads, vec, positions, the work's blocks, shared bytes,
+    which ``repro_torch.analysis.bodies.conv1d_depthwise`` mirrors."""
+    out = (ctypes.c_longlong * 16)()
+    n = _lib().repro_conv1d_depthwise_layout(b, s, c, vec, out)
+    return decode_layout(out[:n])
 
 
 def kernel_threads() -> int:
@@ -162,15 +176,20 @@ def conv1d_depthwise_cuda(
     *,
     activation: str = "none",
     block_seq: int = DEFAULT_BLOCK_SEQ,
+    out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Causal depthwise conv of ``x`` (b, s, c) with ``w`` (k, c), ``w``
     cast to ``x``'s dtype, then ``activation`` (``"none"`` or
-    ``"silu"``); returns a contiguous (b, s, c) tensor.
+    ``"silu"``); returns a contiguous (b, s, c) tensor, ``out`` when
+    given (contiguous, the result's shape, dtype and device:
+    ``emit.check_out``; with 16-byte or paired lanes, aligned as ``x``).
 
     On a CUDA tensor: one launch of ``csrc/conv1d_depthwise.cu`` on the
     current stream, adding one to ``conv1d_depthwise_cuda.launches``, at
-    :func:`vector_width` channels per lane. On a CPU tensor: the plain
-    version, ``ref.conv1d_depthwise``.
+    :func:`vector_width` channels per lane, and recording (b, s, c, k,
+    dtype, vec, strides) in ``conv1d_depthwise_cuda.launched`` (kept
+    across :func:`reset_launch_counts`, for the static auditor). On a CPU
+    tensor: the plain version, ``ref.conv1d_depthwise``.
     """
     if activation not in ACTIVATIONS:
         raise ValueError(f"activation {activation!r} not in {ACTIVATIONS}")
@@ -181,8 +200,11 @@ def conv1d_depthwise_cuda(
         )
     if w.device != x.device:
         raise ValueError(f"w is on {w.device}, x on {x.device}")
+    if out is not None:
+        check_out(out, tuple(x.shape), x)
     if x.device.type == "cpu":
-        return ref.conv1d_depthwise(x, w, activation)
+        res = ref.conv1d_depthwise(x, w, activation)
+        return res if out is None else out.copy_(res)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     b, s, c = x.shape
@@ -195,14 +217,16 @@ def conv1d_depthwise_cuda(
             f"{x.stride()}"
         )
     w = w.to(x.dtype).contiguous()
-    y = torch.empty((b, s, c), dtype=x.dtype, device=x.device)
+    y = out if out is not None else torch.empty(
+        (b, s, c), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
     lib = _lib()
+    vec = vector_width(x, w)
     err = lib.repro_conv1d_depthwise(
         x.data_ptr(), w.data_ptr(), y.data_ptr(), b, s, c, k,
         x.stride(0), x.stride(1), ACTIVATIONS.index(activation),
-        DTYPE_CODES[dtype], vector_width(x, w), x.device.index or 0,
+        DTYPE_CODES[dtype], vec, x.device.index or 0,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err:
@@ -211,10 +235,13 @@ def conv1d_depthwise_cuda(
             f"({lib.repro_cuda_error_string(err).decode()})"
         )
     conv1d_depthwise_cuda.launches += 1
+    conv1d_depthwise_cuda.launched.add(
+        (b, s, c, k, dtype, vec, x.stride(0), x.stride(1)))
     return y
 
 
 conv1d_depthwise_cuda.launches = 0
+conv1d_depthwise_cuda.launched = set()
 
 
 def reset_launch_counts() -> None:

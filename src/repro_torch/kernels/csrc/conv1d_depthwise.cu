@@ -414,4 +414,15 @@ long long repro_conv1d_depthwise_grid(int b, int s, int c, int k,
   return err == cudaSuccess ? grid : -(long long)err;
 }
 
+// The layout of a launch of (b, s, c) at `vec` channels a lane (body code
+// 9, analysis/bodies.py:conv1d_depthwise mirrors it): out[0] 9, then the
+// threads, vec, the positions, the work's blocks and the shared bytes
+// (none). Returns the count written. Host only: no launch.
+int repro_conv1d_depthwise_layout(int b, int s, int c, int vec,
+                                  long long* out) {
+  const long long v[] = {9, THREADS, vec, positions(b, s, c, vec),
+                         work_blocks(b, s, c, vec), 0};
+  return stencil::put_fields(v, out);
+}
+
 }  // extern "C"

@@ -137,6 +137,19 @@ cudaError_t dispatch(int kind, int dtype, const void* f, const void* aux,
   }
 }
 
+// The depth-1 body's Shape and Layout fields (body code 1,
+// analysis/bodies.py:swc_body mirrors them).
+template <typename T>
+int layout_fields(const Geometry& g, long long* out) {
+  const swc::Shape s = swc::swc_shape<T>(g);
+  const swc::Layout L = swc::swc_layout<T>(g);
+  const long long v[] = {1, s.tz, s.ty, s.tx, s.wz, s.wy, s.wx, s.pitch,
+                         s.plane, s.points, (long long)s.buf,
+                         (long long)L.taps, (long long)L.starts,
+                         (long long)L.sums, (long long)L.total};
+  return put_fields(v, out);
+}
+
 }  // namespace
 
 extern "C" {
@@ -194,5 +207,20 @@ long long repro_fused_stencil_smem_bytes(const int* geom, int dtype) {
 }
 
 int repro_fused_stencil_geometry_len(void) { return G_LEN; }
+
+// The body's layout for `geom`: out[0] its code, then the fields of its
+// Shape and Layout (emit.py:layout_fields names them). Returns the count
+// written (at most 32), or -1. Host only: no launch.
+int repro_fused_stencil_layout(const int* geom, int dtype,
+                               long long* out) {
+  Geometry g;
+  if (!read_geometry(geom, nullptr, 0, g)) return -1;
+  switch (dtype) {
+    case DTYPE_F32: return layout_fields<float>(g, out);
+    case DTYPE_F64: return layout_fields<double>(g, out);
+    case DTYPE_BF16: return layout_fields<__nv_bfloat16>(g, out);
+    default: return -1;
+  }
+}
 
 }  // extern "C"

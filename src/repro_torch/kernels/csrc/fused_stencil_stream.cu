@@ -371,6 +371,37 @@ cudaError_t buffer_launch(const void* f, void* out, const void* tap_off,
                              stream);
 }
 
+// The fields of the body a launch of `g` runs: the walk (body code 4,
+// analysis/bodies.py:walk_body), the depth-1 ring (2, stream_body) or the
+// one-buffer body (3, stream_buffer).
+template <typename T>
+int layout_fields(const Geometry& g, long long* out) {
+  if (walk_launch(g)) {
+    const walk::Shape s = walk::walk_shape<T>(g);
+    const walk::Layout L = walk::walk_layout<T>(g);
+    const long long v[] = {4, s.tau, s.ty, s.tx, s.wy, s.wx, s.lead,
+                           s.pitch, s.plane, s.period, s.fstride, s.q, s.cq,
+                           s.seg, (long long)L.mid, (long long)L.carry,
+                           (long long)L.div, (long long)L.taps,
+                           (long long)L.sums, (long long)L.total};
+    return put_fields(v, out);
+  }
+  if (ring_body(g)) {
+    const stream::Ring s = stream::ring_shape<T>(g);
+    const stream::Layout L = stream::ring_layout<T>(g);
+    const long long v[] = {2, s.tz, s.ty, s.tx, s.wy, s.wx, s.lead, s.pitch,
+                           s.plane, s.period, s.fstride, (long long)L.taps,
+                           (long long)L.starts, (long long)L.sums,
+                           (long long)L.total};
+    return put_fields(v, out);
+  }
+  const Layout L = layout<T>(g);
+  const long long v[] = {3, (long long)L.work, (long long)L.pf,
+                         (long long)L.taps, (long long)L.starts,
+                         (long long)L.total};
+  return put_fields(v, out);
+}
+
 }  // namespace
 
 extern "C" {
@@ -452,5 +483,19 @@ long long repro_fused_stencil_stream_smem_bytes(const int* geom,
 }
 
 int repro_fused_stencil_stream_geometry_len(void) { return G_LEN; }
+
+// The body's layout for `geom`: out[0] its code, then its fields
+// (emit.py:layout_fields names them). Returns the count written, or -1.
+// Host only: no launch.
+int repro_fused_stencil_stream_layout(const int* geom, int dtype,
+                                      long long* out) {
+  Geometry g;
+  if (!read_geometry(geom, nullptr, 0, g)) return -1;
+  switch (dtype) {
+    case DTYPE_F32: return layout_fields<float>(g, out);
+    case DTYPE_F64: return layout_fields<double>(g, out);
+    default: return -1;
+  }
+}
 
 }  // extern "C"

@@ -473,6 +473,38 @@ cudaError_t dispatch(int kind, int dtype, const void* f, const void* aux,
   }
 }
 
+// The fields of the body a launch of `g` runs: the tc walk (body code 5,
+// analysis/bodies.py:tc_walk_body), the depth-1 body (6, tc_body) or the
+// one-tile body with TcEval (7, temporal_body).
+template <typename T>
+int layout_fields(const Geometry& g, long long* out) {
+  if (walk_launch(g)) {
+    const walk::Shape s = walk::walk_shape<T>(g);
+    const tcwalk::Layout L = tcwalk::tc_walk_layout<T>(g);
+    const long long v[] = {5, s.tau, s.ty, s.tx, s.wy, s.wx, s.lead,
+                           s.pitch, s.plane, s.period, s.fstride, s.q, s.cq,
+                           s.seg, (long long)L.mid, (long long)L.carry,
+                           (long long)L.div, (long long)L.table,
+                           (long long)L.sums, (long long)L.total};
+    return put_fields(v, out);
+  }
+  if (g.fuse_steps == 1) {
+    const tc::Shape s = tc_shape<T>(g);
+    const tc::Layout L = tc_layout<T>(g);
+    const long long v[] = {6, s.tz, s.ty, s.tx, s.wz, s.wy, s.wx, s.wyp,
+                           s.pitch, s.patches, (long long)s.buf,
+                           (long long)L.table, (long long)L.sums,
+                           (long long)L.total};
+    return put_fields(v, out);
+  }
+  const stencil::Layout L = temporal_layout<T, TcEval<T>>(g);
+  const long long v[] = {7, (long long)L.win, (long long)L.mid[0],
+                         (long long)L.mid[1], (long long)L.carry[0],
+                         (long long)L.carry[1], (long long)L.eval,
+                         (long long)L.total};
+  return put_fields(v, out);
+}
+
 }  // namespace
 
 extern "C" {
@@ -552,5 +584,19 @@ long long repro_fused_stencil_tc_smem_bytes(const int* geom, int dtype) {
 }
 
 int repro_fused_stencil_tc_geometry_len(void) { return G_LEN; }
+
+// The body's layout for `geom`: out[0] its code, then its fields
+// (emit.py:layout_fields names them). Returns the count written, or -1.
+// Host only: no launch.
+int repro_fused_stencil_tc_layout(const int* geom, int dtype,
+                                  long long* out) {
+  Geometry g;
+  if (!read_geometry(geom, nullptr, 0, g)) return -1;
+  switch (dtype) {
+    case DTYPE_F32: return layout_fields<float>(g, out);
+    case DTYPE_BF16: return layout_fields<__nv_bfloat16>(g, out);
+    default: return -1;
+  }
+}
 
 }  // extern "C"

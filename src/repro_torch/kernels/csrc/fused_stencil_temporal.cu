@@ -176,6 +176,32 @@ cudaError_t walk_dispatch(int kind, int dtype, const void* f, const void* aux,
   }
 }
 
+// The walk's Shape and Layout fields (body code 4,
+// analysis/bodies.py:walk_body mirrors them).
+template <typename T>
+int walk_fields(const Geometry& g, long long* out) {
+  const walk::Shape s = walk::walk_shape<T>(g);
+  const walk::Layout L = walk::walk_layout<T>(g);
+  const long long v[] = {4, s.tau, s.ty, s.tx, s.wy, s.wx, s.lead, s.pitch,
+                         s.plane, s.period, s.fstride, s.q, s.cq, s.seg,
+                         (long long)L.mid, (long long)L.carry,
+                         (long long)L.div, (long long)L.taps,
+                         (long long)L.sums, (long long)L.total};
+  return put_fields(v, out);
+}
+
+// The one-tile body's Layout fields (body code 7,
+// analysis/bodies.py:temporal_body mirrors them).
+template <typename T, class Eval>
+int tile_fields(const Geometry& g, long long* out) {
+  const Layout L = temporal_layout<T, Eval>(g);
+  const long long v[] = {7, (long long)L.win, (long long)L.mid[0],
+                         (long long)L.mid[1], (long long)L.carry[0],
+                         (long long)L.carry[1], (long long)L.eval,
+                         (long long)L.total};
+  return put_fields(v, out);
+}
+
 }  // namespace
 
 extern "C" {
@@ -271,5 +297,25 @@ long long repro_fused_stencil_temporal_smem_bytes(const int* geom,
 }
 
 int repro_fused_stencil_temporal_geometry_len(void) { return G_LEN; }
+
+// The body's layout for `geom`: out[0] its code (4 the walk, 7 the
+// one-tile body), then its fields (emit.py:layout_fields names them).
+// Returns the count written, or -1. Host only: no launch.
+int repro_fused_stencil_temporal_layout(const int* geom, int dtype,
+                                        long long* out) {
+  Geometry g;
+  if (!read_geometry(geom, nullptr, 0, g)) return -1;
+  const bool w = walk_launch(g);
+  switch (dtype) {
+    case DTYPE_F32:
+      return w ? walk_fields<float>(g, out)
+               : tile_fields<float, ScalarEval<float, true>>(g, out);
+    case DTYPE_F64:
+      return w ? walk_fields<double>(g, out)
+               : tile_fields<double, ScalarEval<double, true>>(g, out);
+    default:
+      return -1;
+  }
+}
 
 }  // extern "C"

@@ -84,6 +84,15 @@ struct Walker {
   }
 };
 
+// Copy a body's layout fields to the host's array (the layout exports of
+// each .cu; repro_torch/analysis/bodies.py mirrors every field); returns
+// their count.
+template <int N>
+inline int put_fields(const long long (&v)[N], long long* out) {
+  for (int i = 0; i < N; ++i) out[i] = v[i];
+  return N;
+}
+
 // The persistent grid of Kernel: its resident blocks per SM (the
 // occupancy of its registers, `threads` and `smem`) times the SMs, at most
 // the launch's `items` (at least 1). Also sets the kernel's dynamic

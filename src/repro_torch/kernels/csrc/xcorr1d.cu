@@ -687,4 +687,25 @@ long long repro_xcorr1d_grid(long long n, int n_taps, int block_size,
   return err == cudaSuccess ? grid : -(long long)err;
 }
 
+// The layout of a launch (body code 8, analysis/bodies.py:xcorr1d mirrors
+// it): out[0] 8, then the route (1 the ring), threads, the window's
+// empty-slot period, one window's bytes, a warp's scratch bytes, the
+// ring's stages (0 on the one-tile launch) and the shared bytes. Returns
+// the count written, or -1. Host only: no launch.
+int repro_xcorr1d_layout(int n_taps, int block_size, int mode, int unroll,
+                         int dtype, long long* out) {
+  if (dtype != DTYPE_F32 && dtype != DTYPE_F64) return -1;
+  const int item = dtype == DTYPE_F64 ? 8 : 4;
+  const bool ring = ring_route(mode, unroll, n_taps);
+  const int pad = ring ? window_pad(mode, unroll, item) : 0;
+  const long long v[] = {
+      8, ring ? 1 : 0, launch_threads(block_size, mode, unroll, n_taps), pad,
+      ring ? (long long)window_bytes(n_taps, block_size, item, pad)
+           : (long long)round_up16(size_t(block_size + n_taps - 1) * item),
+      ring ? warp_scratch_bytes(mode, unroll, item) : 0,
+      ring ? ring_stages(n_taps, block_size, item, mode, unroll) : 0,
+      (long long)smem_bytes(n_taps, block_size, item, mode, unroll)};
+  return stencil::put_fields(v, out);
+}
+
 }  // extern "C"

@@ -70,6 +70,37 @@ TC_ENT_LEN = 8  # axis, rest z/y/x, lone tap, its offset, data offset, 0
 
 TapTable = tuple[torch.Tensor, ...]
 
+# The bodies' layout exports (``repro_<name>_layout`` of each .cu): body
+# code → (body, fields after the code), the fields of its Shape / Ring /
+# Layout structs in the order the export writes them
+# (``repro_torch.analysis.bodies`` mirrors each).
+_WALK = ("tau", "ty", "tx", "wy", "wx", "lead", "pitch", "plane", "period",
+         "fstride", "q", "cq", "seg", "mid", "carry", "div")
+LAYOUT_FIELDS = {
+    1: ("swc_body", ("tz", "ty", "tx", "wz", "wy", "wx", "pitch", "plane",
+                     "points", "buf", "taps", "starts", "sums", "total")),
+    2: ("stream_body", ("tz", "ty", "tx", "wy", "wx", "lead", "pitch",
+                        "plane", "period", "fstride", "taps", "starts",
+                        "sums", "total")),
+    3: ("stream_buffer", ("work", "pf", "taps", "starts", "total")),
+    4: ("temporal_walk_body", _WALK + ("taps", "sums", "total")),
+    5: ("tc_walk_body", _WALK + ("table", "sums", "total")),
+    6: ("tc_body", ("tz", "ty", "tx", "wz", "wy", "wx", "wyp", "pitch",
+                    "patches", "buf", "table", "sums", "total")),
+    7: ("temporal_body", ("win", "mid0", "mid1", "carry0", "carry1", "eval",
+                          "total")),
+    8: ("xcorr1d", ("route", "threads", "pad", "window_bytes", "scratch",
+                    "stages", "total")),
+    9: ("conv1d_depthwise", ("threads", "vec", "positions", "work_blocks",
+                             "total")),
+}
+
+
+def decode_layout(values) -> tuple[str, dict[str, int]]:
+    """(body, fields) of a layout export's array."""
+    body, names = LAYOUT_FIELDS[int(values[0])]
+    return body, dict(zip(names, (int(v) for v in values[1:])))
+
 
 def tap_table(ops: OperatorSet) -> TapTable:
     """The operator set flattened for the kernel, on the CPU.
@@ -293,6 +324,9 @@ def _lib(name: str) -> ctypes.CDLL:
         grid = getattr(lib, f"repro_{name}_grid")
         grid.argtypes = [geom, ctypes.c_int, ctypes.c_int, ctypes.c_int]
         grid.restype = ctypes.c_longlong
+    layout = getattr(lib, f"repro_{name}_layout")
+    layout.argtypes = [geom, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
+    layout.restype = ctypes.c_int
     smem = getattr(lib, f"repro_{name}_smem_bytes")
     smem.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
     smem.restype = ctypes.c_longlong
@@ -317,6 +351,21 @@ def kernel_smem_bytes(plan: StencilPlan) -> int:
     fn = getattr(_lib(name), f"repro_{name}_smem_bytes")
     slots = list(range(plan.n_slots))
     return int(fn(_int_ptr(geometry(plan, slots)), DTYPE_CODES[plan.dtype]))
+
+
+def layout_fields(plan: StencilPlan) -> tuple[str, dict[str, int]]:
+    """(body, fields) of the body the kernel runs for ``plan``, by the
+    kernel's own ``repro_<name>_layout`` (needs the built library; host
+    only, no launch): its Shape / Ring / Layout struct fields, which
+    ``repro_torch.analysis.bodies`` mirrors field by field."""
+    name = kernel_name(plan)
+    out = (ctypes.c_longlong * 32)()
+    n = getattr(_lib(name), f"repro_{name}_layout")(
+        _int_ptr(geometry(plan, list(range(plan.n_slots)))),
+        DTYPE_CODES[plan.dtype], out)
+    if n < 1:
+        raise RuntimeError(f"{name} layout query failed for {plan}")
+    return decode_layout(out[:n])
 
 
 def launch_grid(plan: StencilPlan, kind_id: int, device: int = 0) -> int:
@@ -475,6 +524,7 @@ def fused_stencil_swc(
     *,
     aux: torch.Tensor | None = None,
     taps: TapTable | None = None,
+    out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Fused φ(A·B) for one ``swc``, ``swc_stream`` or ``tc`` plan of
     depth S = ``plan.fuse_steps``:
@@ -497,19 +547,24 @@ def fused_stencil_swc(
     phis = phi_sequence(phi, plan.fuse_steps)
     _check(f_padded, ops, phis[0], plan, aux, taps)
     batched = is_ensemble(plan.rank, f_padded.ndim)
+    shape = (plan.batch,) * batched + (plan.n_out,) + plan.interior
+    if out is not None:
+        check_out(out, shape, f_padded)
     if f_padded.device.type == "cpu":
         tc = plan.strategy == "tc"
         if plan.fuse_steps == 1:
             fn = ref.fused_stencil_batched if batched else ref.fused_stencil
-            return fn(f_padded, ops, phis[0].torch_fn, aux=aux, tc=tc)
-        fn = (
-            ref.fused_stencil_steps_batched if batched
-            else ref.fused_stencil_steps
-        )
-        return fn(
-            f_padded, ops, [p.torch_fn for p in phis], plan.fuse_steps,
-            aux=aux, tc=tc,
-        )
+            res = fn(f_padded, ops, phis[0].torch_fn, aux=aux, tc=tc)
+        else:
+            fn = (
+                ref.fused_stencil_steps_batched if batched
+                else ref.fused_stencil_steps
+            )
+            res = fn(
+                f_padded, ops, [p.torch_fn for p in phis], plan.fuse_steps,
+                aux=aux, tc=tc,
+            )
+        return res if out is None else out.copy_(res)
     if f_padded.device.type != "cuda":
         raise ValueError(f"unsupported device {f_padded.device}")
     if not f_padded.is_contiguous() or (
@@ -530,11 +585,9 @@ def fused_stencil_swc(
     slots = [ops.names.index(n) for n in phis[0].operators]
     geom = geometry(plan, slots)
     params = device_params(tuple(p.params for p in phis), f_padded.device)
-    out = torch.empty(
-        (plan.batch,) * batched + (plan.n_out,) + plan.interior,
-        dtype=f_padded.dtype,
-        device=f_padded.device,
-    )
+    if out is None:
+        out = torch.empty(shape, dtype=f_padded.dtype,
+                          device=f_padded.device)
     name = kernel_name(plan)
     lib = _lib(name)
     err = getattr(lib, f"repro_{name}")(
@@ -556,12 +609,34 @@ def fused_stencil_swc(
     fused_stencil_swc.launches += 1
     fused_stencil_swc.launches_by_depth[plan.fuse_steps] += 1
     fused_stencil_swc.launches_by_kernel[name] += 1
+    _LAUNCHED.setdefault(plan, ops)
     return out
 
 
 fused_stencil_swc.launches = 0
 fused_stencil_swc.launches_by_depth = collections.Counter()
 fused_stencil_swc.launches_by_kernel = collections.Counter()
+# The distinct plans launched on the card, with their operator sets (kept
+# across reset_launch_counts: the static auditor proves them).
+_LAUNCHED: dict[StencilPlan, OperatorSet] = {}
+
+
+def launched_plans() -> list[tuple[StencilPlan, OperatorSet]]:
+    """Every distinct plan this process launched, with its operator set."""
+    return list(_LAUNCHED.items())
+
+
+def check_out(out: torch.Tensor, shape, like: torch.Tensor) -> None:
+    """An ``out`` tensor must have the result's shape, ``like``'s dtype and
+    device, and be contiguous (the kernels store through its pointer)."""
+    if tuple(out.shape) != tuple(shape):
+        raise ValueError(f"out has shape {tuple(out.shape)}, the result "
+                         f"{tuple(shape)}")
+    if out.dtype != like.dtype or out.device != like.device:
+        raise ValueError(f"out is {out.dtype} on {out.device}, the result "
+                         f"{like.dtype} on {like.device}")
+    if not out.is_contiguous():
+        raise ValueError("out must be contiguous")
 
 
 def reset_launch_counts() -> None:

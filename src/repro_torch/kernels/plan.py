@@ -74,6 +74,7 @@ plan the same tiles. ``swc_stream`` at depth > 1 walks as ``swc`` does
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Sequence
 
 from repro_torch.core.stencil import OperatorSet, StencilSpec
@@ -454,6 +455,7 @@ def tc_lifted_axes(rank: int, walk: bool = False) -> tuple[int, ...]:
     return tuple(a + 3 - rank for a in range(rank))
 
 
+@functools.lru_cache(maxsize=256)
 def tc_table_words(ops: OperatorSet, dtype: str, walk: bool = False) -> int:
     """Words of ``emit.tc_table(ops, dtype, walk)``'s table, which a
     depth-1 ``tc`` block and the tc walk keep in shared memory:

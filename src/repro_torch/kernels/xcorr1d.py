@@ -43,7 +43,7 @@ import torch
 
 from repro_torch import dtype_name
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.emit import DTYPE_CODES
+from repro_torch.kernels.emit import DTYPE_CODES, check_out, decode_layout
 from repro_torch.kernels.plan import ITEMSIZE, MAX_THREADS, SMEM_PER_BLOCK
 
 STRATEGIES = ("baseline", "pointwise", "elementwise")
@@ -246,9 +246,28 @@ def _lib() -> ctypes.CDLL:
     lib.repro_xcorr1d_threads.restype = ci
     lib.repro_xcorr1d_grid.argtypes = [ll] + [ci] * 6
     lib.repro_xcorr1d_grid.restype = ll
+    lib.repro_xcorr1d_layout.argtypes = [ci] * 5 + [
+        ctypes.POINTER(ctypes.c_longlong)]
+    lib.repro_xcorr1d_layout.restype = ci
     lib.repro_cuda_error_string.argtypes = [ci]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def layout_fields(n_taps: int, block_size: int, strategy: str, unroll: int,
+                  dtype: str) -> tuple[str, dict[str, int]]:
+    """(body, fields) of a launch by the kernel's own
+    ``repro_xcorr1d_layout`` (needs the built library; host only): the
+    route, threads, empty-slot period, window and scratch bytes, stages
+    and shared bytes, which ``repro_torch.analysis.bodies.xcorr1d``
+    mirrors."""
+    out = (ctypes.c_longlong * 16)()
+    n = _lib().repro_xcorr1d_layout(
+        n_taps, block_size, MODES[strategy], kernel_unroll(strategy, unroll),
+        DTYPE_CODES[dtype], out)
+    if n < 1:
+        raise RuntimeError(f"{KERNEL} layout query failed")
+    return decode_layout(out[:n])
 
 
 def kernel_layout(n_taps: int, block_size: int, strategy: str, unroll: int,
@@ -287,14 +306,20 @@ def xcorr1d_cuda(
     strategy: str = "baseline",
     block_size: int = 2048,
     unroll: int = 4,
+    out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """f'_i = Σ_j g_j f̂_{i+j} over the valid region of ``f_padded``:
-    (n + 2r,) and (2r + 1,) → (n,), ``g`` cast to ``f_padded``'s dtype.
+    (n + 2r,) and (2r + 1,) → (n,), ``g`` cast to ``f_padded``'s dtype;
+    into ``out`` when given (contiguous, the result's shape, dtype and
+    device: ``emit.check_out``).
 
     On a CUDA tensor: one launch of ``csrc/xcorr1d.cu`` on the current
     stream, adding one to ``xcorr1d_cuda.launches`` and to
     ``xcorr1d_cuda.launches_by_strategy[strategy]``; the kernel picks its
-    launch from the strategy and the taps (:func:`ring_route`). On a CPU
+    launch from the strategy and the taps (:func:`ring_route`), and
+    recording the launch in ``xcorr1d_cuda.launched`` (n, taps, block,
+    strategy, unroll, dtype, 16-byte staging; kept across
+    :func:`reset_launch_counts`, for the static auditor). On a CPU
     tensor: the plain version, ``ref.xcorr1d``.
     """
     check_args(strategy, block_size, unroll)
@@ -314,8 +339,11 @@ def xcorr1d_cuda(
         raise ValueError(
             f"g is on {g.device}, f_padded on {f_padded.device}"
         )
+    if out is not None:
+        check_out(out, (n,), f_padded)
     if f_padded.device.type == "cpu":
-        return ref.xcorr1d(f_padded, g)
+        res = ref.xcorr1d(f_padded, g)
+        return res if out is None else out.copy_(res)
     if f_padded.device.type != "cuda":
         raise ValueError(f"unsupported device {f_padded.device}")
     dtype = dtype_name(f_padded.dtype)
@@ -323,7 +351,8 @@ def xcorr1d_cuda(
     if not f_padded.is_contiguous():
         raise ValueError("f_padded must be contiguous")
     g = g.to(f_padded.dtype).contiguous()
-    out = torch.empty((n,), dtype=f_padded.dtype, device=f_padded.device)
+    if out is None:
+        out = torch.empty((n,), dtype=f_padded.dtype, device=f_padded.device)
     lib = _lib()
     err = lib.repro_xcorr1d(
         f_padded.data_ptr(), g.data_ptr(), out.data_ptr(), n, n_taps,
@@ -338,11 +367,14 @@ def xcorr1d_cuda(
         )
     xcorr1d_cuda.launches += 1
     xcorr1d_cuda.launches_by_strategy[strategy] += 1
+    xcorr1d_cuda.launched.add((n, n_taps, block_size, strategy, unroll,
+                               dtype, wide_staging(f_padded, block_size)))
     return out
 
 
 xcorr1d_cuda.launches = 0
 xcorr1d_cuda.launches_by_strategy = collections.Counter()
+xcorr1d_cuda.launched = set()
 
 
 def reset_launch_counts() -> None:

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.analysis import audit_plan
 from repro_torch.core import stencil as ts
 from repro_torch.core.boundary import pad
 from repro_torch.kernels import emit, ref
@@ -89,6 +90,7 @@ def test_ring_schedule_lands_every_plane_once_and_reads_each_window(
     tap's dz names."""
     ops, plan = _plan(shape, order, **kw)
     assert plan.stream_depth1
+    assert audit_plan(plan, ops).findings == []  # the static auditor too
     ring = plan.stream_ring
     tz, lead, period = ring.chunk[0], ring.lead, ring.period
     r0 = lead // 2
@@ -276,6 +278,7 @@ def test_ring_staging_keeps_rows_congruent_at_a_ragged_pitch(dtype, rank):
     plan = tplan.plan_stencil(ops, padded, 2, strategy="swc_stream",
                               block=block, dtype=dtype)
     assert plan.block == block and plan.stream_depth1
+    assert audit_plan(plan, ops).findings == []  # the static auditor too
     field = np.arange(int(np.prod(padded))).reshape(padded)
     tiles = [c for c in _columns(plan) if c[0] == 1]  # member 1
     for column in (tiles[0], tiles[-1]):

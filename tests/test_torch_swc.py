@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.analysis import audit_plan
 from repro_torch.core import stencil as ts
 from repro_torch.core.boundary import pad
 from repro_torch.kernels import emit, ref
@@ -48,6 +49,7 @@ def test_swc_walk_covers_every_tile_once(shape, block, unroll, batch, grid):
     padded = (batch, 1) + tuple(n + 2 for n in shape)
     plan = tplan.plan_stencil(ops, padded, 1, block=block, unroll=unroll)
     assert plan.block == block and plan.persistent
+    assert audit_plan(plan, ops).findings == []  # the static auditor too
     assert plan.walk_items % grid
     walks = tplan.persistent_walk(plan, grid)
     tz, ty, tx = tplan._lift3(block[:-1] + (plan.x_step,), 1)

@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.analysis import audit_plan
 from repro_torch.core import stencil as ts
 from repro_torch.core.boundary import pad
 from repro_torch.kernels import emit, ref
@@ -338,6 +339,7 @@ def test_replay_equals_the_plain_version(shape, order, depth, kw, dtype):
     version's (the band rounded to f32: 1e-6 of float64's) and the tc
     plain version's."""
     ops, plan, padded = _plan(shape, order, depth, dtype=dtype, **kw)
+    assert audit_plan(plan, ops).findings == []  # the static auditor too
     fp = _fields(padded, dtype)
     name = "dxx" if plan.n_f > 1 else ops.names[0]
     phi = select_phi(name)

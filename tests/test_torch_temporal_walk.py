@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.analysis import audit_plan
 from repro_torch.core import stencil as ts
 from repro_torch.core.boundary import pad
 from repro_torch.kernels import emit, ref
@@ -198,8 +199,9 @@ def test_walk_schedule_lands_every_plane_once_and_feeds_each_sweep(
     sweep's planes are the segment's outputs. The columns of all blocks
     cover members x segments x cross tiles once."""
     monkeypatch.setitem(tplan.WALK_STAGES, "select", stages)
-    _, plan, _ = _plan(shape, order, depth, **kw)
+    ops, plan, _ = _plan(shape, order, depth, **kw)
     assert plan.stage_buffers == stages
+    assert audit_plan(plan, ops).findings == []  # the static auditor too
     ring = plan.walk_ring
     tau, lead = plan.block[0], ring.inp.lead
     seg = plan.interior[0] // plan.segments
@@ -257,6 +259,7 @@ def test_mhd_walk_schedule_feeds_the_carry(block):
                        n_slots=10)
     assert plan.temporal_walk and plan.block == block
     assert plan.stage_buffers == 1
+    assert audit_plan(plan, ops).findings == []  # the static auditor too
     ring = plan.walk_ring
     assert ring.carry_slots == block[0] + 3
     assert ring.inp.period >= block[0] + ring.inp.lead
