@@ -7,6 +7,7 @@
     python3 chip_smoke.py --tune     # build + phase 3 (tune) only
     python3 chip_smoke.py --sharded  # build + phase 3 (sharded) only
     python3 chip_smoke.py --audit    # build + phase 3 (audit) only
+    python3 chip_smoke.py --train    # build + phase 3 (train) only
 
 Phases (each raises on failure; none is caught):
 
@@ -121,6 +122,25 @@ Phases (each raises on failure; none is caught):
    the reduced test's 5e-4); the
    serve loop of ``launch/serve.py`` at batch 4, 32 steps; prefill ms
    and tokens/s on the host clock after a warm-up.
+   Phase 3 (train), after the mamba2 phase (also alone with
+   ``--train``): mamba2-780m's train step at full width (bf16 compute
+   on f32 master parameters, selective remat, chunk 256) on
+   ``MarkovLMDataset`` batches at (2, 4096), ``train_4k``'s sequence at
+   a batch cut from 256 to 2. B7 under autograd (``Conv1dDepthwise``)
+   against the plain version's autograd at the training xBC view
+   (2, 4096, 3328) of the (2, 4096, 6448) in-projection, bf16 and f32:
+   the output and the gradients of x and w within TOL ("=" when bit
+   for bit); one gradient step (``make_grad_step``) on B7 (96 launches:
+   the forward and remat's recompute, a layer each) against one with
+   ``use_pallas_conv=False`` (none): loss and each gradient leaf
+   (relative L2) within 2e-2; then 4 AdamW steps through
+   ``make_train_step`` with the counters zeroed just before and read
+   just after, each printing loss, grad_norm, lr, ms (synchronised),
+   tokens/s, its B7 launches and peak memory; the reduced train CLI
+   (``python -m repro_torch.launch.train``) on the card with a failure
+   injected at step 5, restarting once from its step-3 checkpoint; and
+   B7's time at the training view (the kernels line's training row:
+   launches of the 4 steps, bound, plain, ``F.conv1d``).
    Phase 3 (verify), after the serve phase: the verification layer
    (``repro_torch.verify.mms``, ``physics.spectral``,
    ``boundary_weights``) through B1 (``swc``), B3 (``swc_stream``) and
@@ -1674,6 +1694,293 @@ def phase_main_path_ssm(dev, smi, launches):
     print("  first row: " + " ".join(map(str, gen_tokens[0, :12].tolist())))
     del params
     torch.cuda.empty_cache()
+
+
+# mamba2-780m's training at full width: train_4k's sequence (registry
+# SHAPES["train_4k"] is (256, 4096)) at a global batch cut from 256 to 2
+# to fit one card; AdamW steps on the B7 path after the parity step.
+TRAIN_SHAPE = (2, 4096)
+TRAIN_STEPS = 4
+# The reduced train CLI on the card: checkpoints at steps 3 and 6, an
+# injected failure at step 5, so it restarts once from step 3.
+TRAIN_CLI = ["--reduced", "--steps", "8", "--global-batch", "2",
+             "--seq-len", "64", "--ckpt-every", "3",
+             "--simulate-failure-at", "5", "--log-every", "1"]
+
+
+def _rel_l2(a, b) -> float:
+    """‖a − b‖ / ‖b‖ in float64."""
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm().clamp_min(1e-300))
+
+
+def train_conv_parity(dev, b, s, c, row, offset):
+    """B7 under autograd (``Conv1dDepthwise``) against the plain
+    version's autograd at the training xBC view: the (b, s, c) columns
+    at ``offset`` of a (b, s, row) leaf that requires a gradient, bf16
+    and f32: the output and the gradients of the leaf and of the taps,
+    each within TOL and printed with "=" when equal bit for bit."""
+    import torch
+
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+
+    for dtype in ("bfloat16", "float32"):
+        gen = torch.Generator(device=dev).manual_seed(21)
+        dt = getattr(torch, dtype)
+        base = torch.randn((b, s, row), generator=gen, device=dev).to(dt)
+        w = torch.randn((4, c), generator=gen, device=dev).to(dt)
+        gy = torch.randn((b, s, c), generator=gen, device=dev).to(dt)
+        base.requires_grad_()
+        w.requires_grad_()
+        _reset_all_counts()
+        y = kops.conv1d_depthwise(base[..., offset:offset + c], w)
+        if type(y.grad_fn).__name__ != "Conv1dDepthwiseBackward":
+            raise AssertionError(f"B7 under autograd: grad_fn {y.grad_fn}")
+        got = (y.detach(), *torch.autograd.grad(y, (base, w), gy))
+        torch.cuda.synchronize()
+        if _all_counts() != (1, 0, 0):
+            raise AssertionError(f"B7 under autograd: launches "
+                                 f"{_all_counts()}, want (1, 0, 0)")
+        plain = ref.conv1d_depthwise(base[..., offset:offset + c], w)
+        want = (plain.detach(), *torch.autograd.grad(plain, (base, w), gy))
+        parts = []
+        for name, g, wv in zip(("y", "d/dx", "d/dw"), got, want):
+            err, rel = rel_err(g, wv)
+            if not rel <= TOL[dtype]:
+                raise AssertionError(f"B7 autograd {dtype} {name}: rel "
+                                     f"{rel:.3e}")
+            parts.append(f"{name} {'=' if torch.equal(g, wv) else ''}"
+                         f"{err:.3e}")
+        print(f"  B7 autograd vs plain autograd, xBC view {b}x{s}x{c} of "
+              f"{row} {dtype}: " + ", ".join(parts)
+              + f" (max|err|, tol {TOL[dtype]:.0e} relative; 1 launch, "
+              "the backward the plain version's gradient)")
+        del base, w, gy, got, want, y, plain
+
+
+def train_step_parity(cfg, params, batch, dev):
+    """One gradient step (``make_grad_step``) on the B7 path against one
+    on the plain conv from the same parameters and batch: B7 launched
+    twice a layer (the forward and remat's recompute), nothing on the
+    plain path; the loss and each gradient leaf (relative L2) within
+    the bf16 limit."""
+    import torch
+
+    from repro_torch.launch.steps import make_grad_step
+    from repro_torch.tree import tree_leaves_with_path
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all_counts()
+    t0 = time.perf_counter()
+    loss_k, _, grads_k = make_grad_step(cfg, device=dev)(params, batch)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = _all_counts()
+    want = (2 * cfg.n_layers, 0, 0)
+    if counts != want:
+        raise AssertionError(f"train step: launches {counts}, want {want}")
+    peak = torch.cuda.max_memory_allocated()
+    _reset_all_counts()
+    loss_p, _, grads_p = make_grad_step(cfg, device=dev,
+                                        use_pallas_conv=False)(params, batch)
+    torch.cuda.synchronize()
+    if _all_counts() != (0, 0, 0):
+        raise AssertionError("the plain-conv train step launched a kernel")
+    loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    worst, equal, rows = 0.0, 0, []
+    for (path, gk), (_, gp) in zip(tree_leaves_with_path(grads_k),
+                                   tree_leaves_with_path(grads_p)):
+        if not bool(torch.isfinite(gk).all()):
+            raise AssertionError(f"train step: non-finite grad {path}")
+        rel = _rel_l2(gk, gp)
+        equal += bool(torch.equal(gk, gp))
+        rows.append((rel, "/".join(path)))
+        worst = max(worst, rel)
+    rows.sort(reverse=True)
+    ok = loss_rel <= TOL["bfloat16"] and worst <= TOL["bfloat16"]
+    print(f"  step 0 grad (B7, {secs * 1e3:.1f} ms, peak "
+          f"{peak / 2**30:.2f} GiB) vs use_pallas_conv=False: loss "
+          f"{float(loss_k):.6f} vs {float(loss_p):.6f} (rel "
+          f"{loss_rel:.3e}); gradients rel L2 worst {worst:.3e} "
+          f"({rows[0][1]}), {equal} of {len(rows)} leaves bit-equal (tol "
+          f"{TOL['bfloat16']:.0e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"train step vs plain conv: loss rel "
+                             f"{loss_rel:.3e}, grads {rows[:3]}")
+    return counts[0]
+
+
+def train_cli_on_card():
+    """``python -m repro_torch.launch.train`` with ``TRAIN_CLI`` on the
+    card, its checkpoints in a temporary directory: rc 0, one restart
+    from step 3, a finite final loss, B7 launched."""
+    import os
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = [sys.executable, "-m", "repro_torch.launch.train",
+               *TRAIN_CLI, "--ckpt-dir", tmp]
+        t0 = time.perf_counter()
+        out = subprocess.run(cmd, capture_output=True, text=True,
+                             timeout=600, cwd=ROOT,
+                             env={**os.environ,
+                                  "PYTHONPATH": str(ROOT / "src")})
+        secs = time.perf_counter() - t0
+        steps = sorted(os.listdir(tmp))
+    if out.returncode:
+        raise AssertionError(f"train CLI rc {out.returncode}: "
+                             f"{out.stderr[-2000:]}")
+    done = next(x for x in out.stdout.splitlines() if x.startswith("done:"))
+    final = float(done.split("final loss")[1].split()[0])
+    launches = int(done.split("launches=")[1].split()[0])
+    if ("restarts=1" not in done or "device=cuda" not in done
+            or not math.isfinite(final) or launches <= 0
+            or "restored at step 3" not in out.stderr):
+        raise AssertionError(f"train CLI: {done!r} / {out.stderr[-500:]}")
+    print(f"  python -m repro_torch.launch.train {' '.join(TRAIN_CLI)}: "
+          f"rc 0 in {secs:.1f} s, restored at step 3, checkpoints {steps}")
+    print(f"    {done}")
+
+
+def phase_train(dev, smi, launches):
+    """mamba2-780m's train step at full width (48 layers, d_model 1536,
+    state 128, vocab 50280, chunk 256; bf16 compute on f32 master
+    parameters, selective remat), random init from a seeded generator
+    on the card, on ``MarkovLMDataset`` batches at ``TRAIN_SHAPE``: B7
+    under autograd against the plain version at the training view; one
+    gradient step on B7 against one on the plain conv; then
+    ``TRAIN_STEPS`` AdamW steps through ``make_train_step`` with the
+    launch counters zeroed just before and read just after (96 B7
+    launches a step); the reduced train CLI on the card with a restart.
+    Returns the B7 row at the training view (the kernels line's)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import BatchIterator, MarkovLMDataset
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import ssm
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    print("== phase 3 (train): mamba2-780m's train step at full width, B7 "
+          "(csrc/conv1d_depthwise.cu) under autograd")
+    print(f"  card: {smi}")
+    cfg = get_config("mamba2-780m")
+    if cfg.remat != "selective" or cfg.dtype != "bfloat16":
+        raise AssertionError(f"config remat {cfg.remat}, dtype {cfg.dtype}")
+    b, s = TRAIN_SHAPE
+    dv, h, _, g, n, c = ssm._dims(cfg)
+    row = 2 * dv + 2 * g * n + h  # the in-projection: z, xBC, dt
+    train_conv_parity(dev, b, s, c, row, dv)
+
+    params = ssm.init_params(cfg, seed=0, device=dev)
+    n_par = sum(v.numel() for t in (params, params["blocks"])
+                for v in t.values() if torch.is_tensor(v))
+    dataset = MarkovLMDataset(cfg.vocab, s, branching=4)
+    print(f"  {cfg.arch_id}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{n_par} parameters (f32 master), {cfg.dtype} compute, remat "
+          f"{cfg.remat}; MarkovLMDataset batch {b} x seq {s} (train_4k's "
+          f"seq; its batch 256 cut to {b})")
+    it = BatchIterator(dataset, b, start_step=0)
+    batches = [it.next_global(dev) for _ in range(TRAIN_STEPS)]
+    train_step_parity(cfg, params, batches[0], dev)
+
+    opt_cfg = AdamWConfig(lr_peak=3e-4, warmup_steps=1,
+                          total_steps=TRAIN_STEPS)
+    step_fn = make_train_step(cfg, opt_cfg, device=dev)
+    opt = adamw_init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all_counts()
+    step_ms = []
+    for i, batch in enumerate(batches):
+        before = _all_counts()[0]
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        loss, gnorm, lr = (float(m[k]) for k in ("loss", "grad_norm", "lr"))
+        per = _all_counts()[0] - before
+        step_ms.append(ms)
+        print(f"  step {i}: loss {loss:.4f}  grad_norm {gnorm:.4f}  lr "
+              f"{lr:.3e}  {ms:.1f} ms  {b * s / ms * 1e3:.0f} tokens/s  B7 "
+              f"launches {per}  peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if not (math.isfinite(loss) and math.isfinite(gnorm)):
+            raise AssertionError(f"train step {i}: loss {loss}, "
+                                 f"grad_norm {gnorm}")
+        if per != 2 * cfg.n_layers:
+            raise AssertionError(f"train step {i}: {per} B7 launches")
+    counts = _all_counts()
+    if counts != (2 * cfg.n_layers * TRAIN_STEPS, 0, 0):
+        raise AssertionError(f"train steps: launches {counts}")
+    launches["conv1d train"] = counts[0]
+    peak = torch.cuda.max_memory_allocated()
+    steady = statistics.median(step_ms[1:])
+    print(f"  {TRAIN_STEPS} train steps {b}x{s} {cfg.dtype}: "
+          f"{steady:.1f} ms a step (host clock, median of steps 1-"
+          f"{TRAIN_STEPS - 1}; step 0 {step_ms[0]:.1f}), "
+          f"{b * s / steady * 1e3:.0f} tokens/s, peak device memory "
+          f"{peak / 2**30:.2f} GiB, B7 launches {counts[0]} "
+          f"({counts[0] // TRAIN_STEPS} a step), fused-stencil "
+          f"{counts[1]}, xcorr1d {counts[2]} on {smi}")
+    del params, opt, batches, m
+    torch.cuda.empty_cache()
+
+    train_cli_on_card()
+
+    # B7 at the training view alone (no gradient: the bare launch the
+    # Function's forward makes), the kernels line's row.
+    bw, f32_rate, _ = card_rates(torch.cuda.get_device_name(0))
+    k = cfg.ssm_conv_kernel
+    x, w = conv_inputs((b, s, c), k, "bfloat16", dev, seed=23, row=row,
+                       offset=dv)
+    want = ref.conv1d_depthwise(x, w)
+    err, rel = rel_err(kops.conv1d_depthwise(x, w), want)
+    if rel > TOL["bfloat16"]:
+        raise AssertionError(f"conv1d train view: rel err {rel:.3e}")
+    ms = time_ms(lambda: kops.conv1d_depthwise(x, w), 20)
+    plain_ms = time_ms(lambda: ref.conv1d_depthwise(x, w), 5)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        xt = x.transpose(1, 2).contiguous()  # (b, c, s)
+        wt = w.t().contiguous()[:, None, :]  # (c, 1, k)
+        lib_ms = time_ms(
+            lambda: F.conv1d(xt, wt, padding=k - 1, groups=c), 20)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    values = (b * (s + k - 1) + k) * c + b * s * c
+    t_bytes = values * x.element_size() / bw * 1e3
+    t_ops = 2 * k * b * s * c / f32_rate * 1e3
+    bound = max(t_bytes, t_ops)
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    per_step = 2 * cfg.n_layers
+    print(f"  B7 at the training view {b}x{s}x{c} k={k} bf16: kernel "
+          f"{ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound:.4f} ms "
+          f"({by})  conv1d (groups=c, no TF32) {lib_ms:.4f} ms  max|err| "
+          f"{err:.3e}; {per_step} launches a step = {per_step * ms:.2f} ms "
+          f"of a {steady:.1f} ms step ({per_step * ms / steady:.2%})")
+    del x, w, want, xt, wt
+    torch.cuda.empty_cache()
+    return [{
+        "name": f"conv1d_depthwise[mamba2 train xBC {b}x{s}x{c} k={k}, "
+                "bfloat16, forward + remat recompute]",
+        "route": "cuda",
+        "source": CONV_SOURCE,
+        "replaces": CONV_REPLACES,
+        "launches": launches["conv1d train"],
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound,
+        "bound_by": by,
+        "library_ms": lib_ms,
+    }]
 
 
 SERVE_SHAPES = [(256, 256, 256), (4096, 4096)]
@@ -3542,6 +3849,9 @@ def main(argv: list[str]) -> int:
     if "--audit" in argv:
         timed("phase 3 (audit)", phase_audit, dev, smi)
         return 0
+    if "--train" in argv:
+        timed("phase 3 (train)", phase_train, dev, smi, {})
+        return 0
     timed("phase 2", phase_parity, dev)
     if "--quick" in argv:
         return 0
@@ -3549,6 +3859,7 @@ def main(argv: list[str]) -> int:
     timed("phase 3 (tc)", phase_main_path_tc, dev, launches)
     timed("phase 3 (1-D)", phase_main_path_1d, dev, launches)
     timed("phase 3 (mamba2)", phase_main_path_ssm, dev, smi, launches)
+    train_rows = timed("phase 3 (train)", phase_train, dev, smi, launches)
     timed("phase 3b", phase_serve, dev, launches)
     timed("phase 3 (verify)", phase_verify, dev, smi)
     timed("phase 3 (tune)", phase_tune, dev, smi)
@@ -3556,7 +3867,7 @@ def main(argv: list[str]) -> int:
     rows = timed("phase 4", phase_times, dev, smi, launches)
     rows += timed("phase 4 (1-D)", phase_times_xcorr, dev, smi, launches)
     rows += timed("phase 4 (mamba2)", phase_times_conv1d, dev, smi, launches)
-    rows += sharded_rows
+    rows += train_rows + sharded_rows
     timed("phase 3 (audit)", phase_audit, dev, smi)
     print("chip_smoke: seconds by phase "
           + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))

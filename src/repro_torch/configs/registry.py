@@ -2,8 +2,7 @@
 input-shape grid, reduced smoke-test configs and the model API.
 
 Only mamba2-780m is ported; the reference's other nine architectures
-raise ``NotImplementedError`` naming ROADMAP A13. The model API has no
-``lm_loss``: training waits for A13 too.
+raise ``NotImplementedError`` naming ROADMAP A13.
 """
 from __future__ import annotations
 
@@ -79,6 +78,7 @@ def reduced_config(cfg: ModelConfig) -> ModelConfig:
 
 class ModelAPI(NamedTuple):
     init_params: Callable
+    lm_loss: Callable
     forward: Callable
     init_decode_cache: Callable
     decode_step: Callable
@@ -89,6 +89,7 @@ def get_model(cfg: ModelConfig) -> ModelAPI:
         from repro_torch.models import ssm as m
 
         return ModelAPI(
-            m.init_params, m.forward, m.init_decode_cache, m.decode_step,
+            m.init_params, m.lm_loss, m.forward,
+            m.init_decode_cache, m.decode_step,
         )
     raise _not_ported(f"the {cfg.family!r} family ({cfg.arch_id})")

@@ -2,7 +2,8 @@
 
 The stencil engine has no learned weights: its state is the operator
 tap tables (offsets and coefficients), the MHD parameters, and the field
-stacks. mamba2's state is its parameter tree. These helpers rebuild each
+stacks. mamba2's state is its parameter tree and, in training, its AdamW state.
+These helpers rebuild each
 from plain numpy/dict data, so an object of the JAX package (an
 ``OperatorSet``, ``MHDParams``, a jax array, the nested dict of
 ``repro.models.ssm.init_params``) can be handed to the port through
@@ -18,6 +19,7 @@ import torch
 
 from repro_torch import as_dtype, resolve_device
 from repro_torch.core.stencil import OperatorSet, StencilSpec
+from repro_torch.optim import OptState
 from repro_torch.physics.mhd import MHDParams
 
 
@@ -96,3 +98,20 @@ def ssm_params_from_numpy(
         return fields_from_numpy(leaf, device=dev)
 
     return one(tree)
+
+
+def opt_state_from_numpy(
+    state: Any,
+    device: str | torch.device | None = None,
+) -> OptState:
+    """The reference's AdamW ``OptState`` (step, mu, nu; e.g. through
+    ``jax.tree.map(np.asarray, ...)``, which keeps the NamedTuple) as
+    the port's :class:`~repro_torch.optim.OptState` on ``device`` (the
+    card by default): the step an int32 scalar, the moments as
+    :func:`ssm_params_from_numpy` carries a parameter tree, exactly."""
+    dev = resolve_device(device)
+    return OptState(
+        step=fields_from_numpy(state.step, device=dev),
+        mu=ssm_params_from_numpy(state.mu, device=dev),
+        nu=ssm_params_from_numpy(state.nu, device=dev),
+    )

@@ -1,8 +1,7 @@
-"""Fault tolerance of the serving loop (port of ``repro.ft``): the
-straggler monitor and the seeded deterministic fault-injection layer
-the serving failure domains are tested against. The training
-``Supervisor`` and ``SimulatedFailure`` are not ported yet (they belong
-to the model zoo, ROADMAP A13)."""
+"""Fault tolerance (port of ``repro.ft``): the training ``Supervisor``
+with ``SimulatedFailure``, the straggler monitor, and the seeded
+deterministic fault-injection layer the serving failure domains are
+tested against."""
 from repro_torch.ft.faults import (  # noqa: F401
     FaultInjector,
     FaultSpec,
@@ -11,4 +10,8 @@ from repro_torch.ft.faults import (  # noqa: F401
     InjectedResourceExhausted,
     chaos_specs,
 )
-from repro_torch.ft.supervisor import StragglerMonitor  # noqa: F401
+from repro_torch.ft.supervisor import (  # noqa: F401
+    SimulatedFailure,
+    StragglerMonitor,
+    Supervisor,
+)

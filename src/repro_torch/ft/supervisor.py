@@ -1,19 +1,38 @@
-"""Straggler monitoring (port of ``StragglerMonitor`` from
-``repro.ft.supervisor``, a copy: the port imports nothing of ``repro``).
+"""Fault-tolerant training supervision and straggler monitoring (port
+of ``repro.ft.supervisor``, a copy: the port imports nothing of
+``repro``).
 
-``StragglerMonitor`` tracks per-step (or per-batch) wall times; a step
-slower than ``factor ×`` the trailing median is flagged as a straggler,
-logged, counted and handed to the optional ``on_straggler`` callback.
-The serving loop (``repro_torch.launch.serve_sim``) feeds it each
-batch's seconds.
+The failure model: a host dies mid-step, the job restarts, and training
+resumes from the last durable step with bit-identical data order.
+
+* ``Supervisor.run`` drives the step loop, checkpoints every
+  ``ckpt_every`` steps, and on failure restores the last checkpoint and
+  REPLAYS from its step — with the deterministic data pipeline
+  (``repro_torch.data.pipeline``) the recovery is exact.
+* ``SimulatedFailure`` + ``failure_at`` inject crashes for tests and the
+  train CLI's ``--simulate-failure-at`` (the stand-in for a node loss).
+  ``Supervisor.recoverable`` widens the restore trigger to real runtime
+  errors (``torch.cuda.OutOfMemoryError``, ``OSError``);
+  ``SimulatedFailure`` is only the default.
+* ``StragglerMonitor`` tracks per-step (or per-batch) wall times; a step
+  slower than ``factor ×`` the trailing median is flagged as a
+  straggler, logged, counted and handed to the optional
+  ``on_straggler`` callback. The serving loop
+  (``repro_torch.launch.serve_sim``) feeds it each batch's seconds, the
+  supervisor each step's.
 """
 from __future__ import annotations
 
 import dataclasses
 import logging
-from typing import Callable
+import time
+from typing import Any, Callable
 
 log = logging.getLogger("repro_torch.ft")
+
+
+class SimulatedFailure(RuntimeError):
+    """Injected node failure (tests, ``--simulate-failure-at``)."""
 
 
 @dataclasses.dataclass
@@ -39,3 +58,77 @@ class StragglerMonitor:
                     self.on_straggler(step, seconds, med)
                 return True
         return False
+
+
+@dataclasses.dataclass
+class Supervisor:
+    """Restart-on-failure loop around a step function.
+
+    ``step_fn(state, step) -> state`` must be side-effect-free w.r.t.
+    recovery (all persistent state in ``state`` + the step counter).
+    """
+
+    ckpt_manager: Any
+    ckpt_every: int = 50
+    max_restarts: int = 3
+    straggler: StragglerMonitor = dataclasses.field(
+        default_factory=StragglerMonitor
+    )
+    # Exception types that trigger checkpoint-restore instead of
+    # propagating: only the injected failure by default; a deployment
+    # widens it (e.g. ``(SimulatedFailure, OSError)``) so a flaky
+    # filesystem also restarts from the last durable step.
+    # KeyboardInterrupt/SystemExit are never caught.
+    recoverable: tuple[type[BaseException], ...] = (SimulatedFailure,)
+
+    def run(
+        self,
+        state: Any,
+        step_fn: Callable[[Any, int], Any],
+        n_steps: int,
+        *,
+        start_step: int = 0,
+        failure_at: int | None = None,
+        restore_fn: Callable[[Any, int | None], tuple[Any, int]] | None = None,
+        save_filter: Callable[[Any], Any] | None = None,
+    ) -> tuple[Any, dict]:
+        """Run to ``n_steps`` with checkpoint/restart. Returns
+        (final_state, report). ``restore_fn(state_template, step)`` must
+        rebuild the state from the checkpoint (``step`` None: none was
+        written yet). ``save_filter`` maps state → the checkpointable
+        subtree."""
+        restarts = 0
+        step = start_step
+        report = {"restarts": 0, "stragglers": 0, "failed_steps": []}
+        injected = failure_at
+        while step < n_steps:
+            try:
+                t0 = time.perf_counter()
+                if injected is not None and step == injected:
+                    injected = None  # fire once
+                    raise SimulatedFailure(f"injected failure at step {step}")
+                state = step_fn(state, step)
+                dt = time.perf_counter() - t0
+                if self.straggler.record(step, dt):
+                    report["stragglers"] += 1
+                step += 1
+                if step % self.ckpt_every == 0 or step == n_steps:
+                    to_save = save_filter(state) if save_filter else state
+                    self.ckpt_manager.save(step, to_save)
+            except self.recoverable as e:
+                restarts += 1
+                report["restarts"] = restarts
+                report["failed_steps"].append(step)
+                log.warning("failure at step %d: %s", step, e)
+                if restarts > self.max_restarts:
+                    raise RuntimeError(
+                        f"exceeded max_restarts={self.max_restarts}"
+                    ) from e
+                if restore_fn is None:
+                    raise
+                self.ckpt_manager.wait()
+                last = self.ckpt_manager.latest_step()
+                state, step = restore_fn(state, last)
+                log.warning("restored at step %d, resuming", step)
+        self.ckpt_manager.wait()
+        return state, report

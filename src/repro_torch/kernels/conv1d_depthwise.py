@@ -15,7 +15,9 @@ warp one contiguous run of the (warp column, batch, position) space
 
 A CPU tensor goes to the plain version (``ref.conv1d_depthwise``); a
 CUDA tensor goes to the kernel, or the wrapper raises — there is no
-fallback from one to the other.
+fallback from one to the other. Under autograd (training) the call goes
+through :class:`Conv1dDepthwise`: the kernel forward, the plain
+version's gradient backward.
 """
 from __future__ import annotations
 
@@ -190,6 +192,12 @@ def conv1d_depthwise_cuda(
     dtype, vec, strides) in ``conv1d_depthwise_cuda.launched`` (kept
     across :func:`reset_launch_counts`, for the static auditor). On a CPU
     tensor: the plain version, ``ref.conv1d_depthwise``.
+
+    When a gradient is wanted (grad mode on and ``x`` or ``w`` requiring
+    one), the call goes through :class:`Conv1dDepthwise`: the same
+    forward (the launch on the card), the plain version's gradient
+    backward. Otherwise (serving under ``no_grad``) it is the bare
+    forward, with no graph.
     """
     if activation not in ACTIVATIONS:
         raise ValueError(f"activation {activation!r} not in {ACTIVATIONS}")
@@ -200,6 +208,18 @@ def conv1d_depthwise_cuda(
         )
     if w.device != x.device:
         raise ValueError(f"w is on {w.device}, x on {x.device}")
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        if out is not None:
+            raise ValueError("out= takes no gradient; call under no_grad")
+        return Conv1dDepthwise.apply(x, w, activation, block_seq)
+    return _forward(x, w, activation, block_seq, out)
+
+
+def _forward(x: torch.Tensor, w: torch.Tensor, activation: str,
+             block_seq: int, out: torch.Tensor | None = None) -> torch.Tensor:
+    """The forward of :func:`conv1d_depthwise_cuda` on checked shapes:
+    the plain version on a CPU tensor, the kernel's launch on a CUDA
+    one (raising on what the kernel does not take)."""
     if out is not None:
         check_out(out, tuple(x.shape), x)
     if x.device.type == "cpu":
@@ -238,6 +258,41 @@ def conv1d_depthwise_cuda(
     conv1d_depthwise_cuda.launched.add(
         (b, s, c, k, dtype, vec, x.stride(0), x.stride(1)))
     return y
+
+
+class Conv1dDepthwise(torch.autograd.Function):
+    """B7 under autograd: ``apply(x, w, activation, block_seq)``.
+
+    Forward: :func:`_forward`, the kernel's launch on a CUDA tensor (a
+    shape or dtype it refuses raises, as without a gradient; nothing
+    drops to the plain forward) and the plain version on a CPU one.
+    Backward: the plain version's gradient, ``ref.conv1d_depthwise``
+    run again on the saved ``x`` and ``w`` under ``enable_grad`` and
+    differentiated with ``torch.autograd.grad``. The TPU kernel has no
+    backward kernel (the reference differentiates its plain conv), so
+    this has none either; the forward rounds as the plain version does,
+    so the gradient is that of the function the kernel computed.
+    """
+
+    @staticmethod
+    def forward(ctx, x, w, activation, block_seq):
+        ctx.activation = activation
+        ctx.save_for_backward(x, w)
+        return _forward(x, w, activation, block_seq)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        need_x, need_w = ctx.needs_input_grad[:2]
+        with torch.enable_grad():
+            xd = x.detach().requires_grad_(need_x)
+            wd = w.detach().requires_grad_(need_w)
+            y = ref.conv1d_depthwise(xd, wd, ctx.activation)
+            wanted = [t for t in (xd, wd) if t.requires_grad]
+            grads = iter(torch.autograd.grad(y, wanted, gy))
+        gx = next(grads) if need_x else None
+        gw = next(grads) if need_w else None
+        return gx, gw, None, None
 
 
 conv1d_depthwise_cuda.launches = 0

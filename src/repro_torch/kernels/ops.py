@@ -94,7 +94,9 @@ def conv1d_depthwise(
     ``tuning.session.auto_block_conv1d``. On a CUDA tensor it launches
     ``csrc/conv1d_depthwise.cu`` (float32 or bfloat16, up to 8 taps;
     others raise ``NotImplementedError``, ROADMAP B7b); on a CPU tensor
-    it takes the plain version.
+    it takes the plain version. When a gradient is wanted it goes
+    through ``conv1d_depthwise.Conv1dDepthwise`` (the same forward, the
+    plain version's gradient).
     """
     if block_seq is None:
         from repro_torch.tuning import session

@@ -7,8 +7,9 @@ paper-technique stencil; on the card the B7 kernel
 form (intra-chunk quadratic attention-like matmuls + inter-chunk linear
 recurrence) → gated RMSNorm → out_proj.
 
-Both the chunked-parallel form (prefill) and the O(1)-state recurrent
-form (decode) are here, with the reference's casts: the compute dtype
+Both the chunked-parallel form (prefill and training, with ``lm_loss``
+and the reference's selective remat) and the O(1)-state recurrent form
+(decode) are here, with the reference's casts: the compute dtype
 for matmul weights and activations, float32 for the norms, gates, the
 SSD sums and the decode cache. Parameters are nested dicts of tensors,
 blocks stacked along a leading layer axis, as in the reference; the
@@ -16,10 +17,16 @@ reference's sharding constraints have no counterpart on one card.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch import as_dtype, resolve_device
 from repro_torch.kernels import ops as kops
@@ -132,10 +139,14 @@ def ssd_chunked(
     # (b, nc, h, c), contiguous so that the (b, nc, h, i, j) decay is laid
     # out as the batched matmul below reads it (no 4-byte-strided copy).
     At = A_cs.permute(0, 1, 3, 2).contiguous()
-    decay = (At[..., :, None] - At[..., None, :]).exp_()
+    # Masked before exp, out of place: above the diagonal A_cs_i − A_cs_j
+    # is positive and overflows exp at a chunk of 256, and the
+    # reference's exp-then-zero form then gives 0·inf = NaN gradients
+    # (ROADMAP section C); exp(-inf) is an exact 0 with a zero gradient.
     causal = torch.ones((chunk, chunk), dtype=torch.bool,
                         device=x.device).tril()
-    decay = decay.masked_fill_(~causal, 0.0)
+    decay = (At[..., :, None] - At[..., None, :]).masked_fill(
+        ~causal, float("-inf")).exp()
     # Each head times its group's C·B (the reference repeats CB per head).
     M = (decay.view(b, nc, g, hg, chunk, chunk)
          * CB[:, :, :, None]).view(b, nc, h, chunk, chunk)
@@ -231,6 +242,16 @@ def ssm_block(x: torch.Tensor, blk: Params, cfg: ModelConfig,
     return y @ blk["out_proj"]
 
 
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective remat's policy: keep the outputs of plain matrix
+    products (``aten.mm``: the in- and out-projections), recompute the
+    rest. The reference's ``dots_with_no_batch_dims_saveable``; the
+    SSD's einsums are batched (``bmm``) and recomputed, as there."""
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             use_pallas_conv: bool | None = None):
     """Logits (b, s, vocab) in ``cfg.dtype`` and a zero aux loss.
@@ -238,22 +259,50 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     ``use_pallas_conv=None`` takes the B7 kernel when the tokens lie on
     the card and the plain conv on the CPU (the reference decides by
     backend, ``jax.default_backend() == "tpu"``).
+
+    With ``cfg.remat`` other than ``"none"`` and grad mode on, each
+    layer runs under ``torch.utils.checkpoint`` (non-reentrant) with
+    :func:`_save_dots` as its selective policy: the backward recomputes
+    a layer from its input and its saved projections (B7 launches
+    again there), as the reference's ``jax.checkpoint`` does. Under
+    ``no_grad`` (serving) the layers run as they are.
     """
     dtype = as_dtype(cfg.dtype)
     if use_pallas_conv is None:
         use_pallas_conv = tokens.device.type == "cuda"
     x = params["embed"][tokens].to(dtype)
 
-    def body(xc, blk):
+    def block(xc, blk):
         blk = cast_params(blk, dtype)
-        out = xc + ssm_block(L.rms_norm(xc, blk["ln1"], cfg.norm_eps), blk,
-                             cfg, use_pallas_conv)
-        return out, 0.0
+        return xc + ssm_block(L.rms_norm(xc, blk["ln1"], cfg.norm_eps), blk,
+                              cfg, use_pallas_conv)
+
+    if cfg.remat != "none" and torch.is_grad_enabled():
+        context = functools.partial(create_selective_checkpoint_contexts,
+                                    _save_dots)
+
+        def body(xc, blk):
+            return checkpoint(block, xc, blk, use_reentrant=False,
+                              context_fn=context), 0.0
+    else:
+        def body(xc, blk):
+            return block(xc, blk), 0.0
 
     x, _ = scan_layers(body, x, params["blocks"])
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = x @ params["unembed"].to(dtype)
     return logits, torch.zeros((), dtype=f32, device=logits.device)
+
+
+def lm_loss(params: Params, cfg: ModelConfig, batch: dict, *,
+            use_pallas_conv: bool | None = None):
+    """(mean next-token cross-entropy of ``batch["tokens"]`` against
+    ``batch["labels"]`` under the optional ``batch["loss_mask"]``,
+    {"xent": the same}); ``use_pallas_conv`` goes to :func:`forward`."""
+    logits, _ = forward(params, cfg, batch["tokens"],
+                        use_pallas_conv=use_pallas_conv)
+    loss = L.token_xent(logits, batch["labels"], batch.get("loss_mask"))
+    return loss, {"xent": loss}
 
 
 # --- decode ------------------------------------------------------------------

@@ -12,6 +12,11 @@ from typing import Any, Callable
 import torch
 
 from repro_torch import as_dtype
+from repro_torch.tree import (
+    tree_leaves_with_path,
+    tree_map,
+    tree_map_with_path,
+)
 
 Params = dict[str, Any]
 
@@ -34,33 +39,21 @@ def cast_params(tree: Params, dtype: str | torch.dtype) -> Params:
     return {k: one(k, v) for k, v in tree.items()}
 
 
-def tree_map(fn: Callable, *trees):
-    """``fn`` over the leaves of dicts, tuples, lists and NamedTuples of
-    the same structure."""
-    t = trees[0]
-    if isinstance(t, dict):
-        return {k: tree_map(fn, *(x[k] for x in trees)) for k in t}
-    if isinstance(t, tuple) and hasattr(t, "_fields"):
-        return type(t)(*(tree_map(fn, *xs) for xs in zip(*trees)))
-    if isinstance(t, (tuple, list)):
-        return type(t)(tree_map(fn, *xs) for xs in zip(*trees))
-    return fn(*trees)
-
-
-def _first_leaf(tree):
-    while isinstance(tree, (dict, tuple, list)):
-        tree = next(iter(tree.values())) if isinstance(tree, dict) else tree[0]
-    return tree
-
-
 def scan_layers(body: Callable, x, stacked):
     """The reference's ``lax.scan`` over stacked layer params as a loop
     over the layer index: ``x, y_i = body(x, stacked[i])``; returns
-    ``x`` and the ``y_i`` stacked along a new leading axis."""
-    n = _first_leaf(stacked).shape[0]
+    ``x`` and the ``y_i`` stacked along a new leading axis.
+
+    Each stacked leaf is cut into its layers once (``unbind``), so under
+    autograd its gradient is stacked once from the layers' gradients, as
+    the scan's cotangent is; indexing each layer apart would add a
+    full-size zero-filled gradient into it once a layer."""
+    leaves = tree_leaves_with_path(stacked)
+    layers = {path: leaf.unbind(0) for path, leaf in leaves}
     ys = []
-    for i in range(n):
-        x, y = body(x, tree_map(lambda p, i=i: p[i], stacked))
+    for i in range(leaves[0][1].shape[0]):
+        x, y = body(x, tree_map_with_path(lambda path, _: layers[path][i],
+                                          stacked))
         ys.append(y)
     return x, tree_map(
         lambda *leaves: torch.stack([torch.as_tensor(v) for v in leaves]),

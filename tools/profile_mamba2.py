@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
-"""Where mamba2-780m's serving spends the card's time, under
-``torch.profiler``: one prefill at (4, 8192) in bf16 at full width
-(random init from seed 0, as ``chip_smoke.py`` runs it), and 8 decode
-steps at batch 4, each after a warm-up. Prints kernel time by kernel,
-the largest first, with its share of all kernel time, the device's busy
-share of the host-clock window, and B7's (``conv1d_depthwise_kernel``)
-share.
+"""Where mamba2-780m spends the card's time, under ``torch.profiler``:
+one prefill at (4, 8192) in bf16 at full width (random init from seed
+0, as ``chip_smoke.py`` runs it), and 8 decode steps at batch 4, each
+after a warm-up; with ``--train``, one train step at (2, 4096) bf16 with
+selective remat on ``MarkovLMDataset`` batches (``chip_smoke.py`` phase
+3 (train)'s), after a warm-up step, and the step's two halves apart on
+the host clock (gradient, AdamW). Prints kernel time by kernel, the
+largest first, with its share of all kernel time, the device's busy
+share of the host-clock window, B7's (``conv1d_depthwise_kernel``)
+share, and (train) device time by ATen op, inclusive.
 
-    PYTHONPATH=src python3 tools/profile_mamba2.py
+    PYTHONPATH=src python3 tools/profile_mamba2.py [--train]
 
 Needs one CUDA card; builds the kernels at first use.
 """
@@ -22,6 +25,7 @@ import time
 NOT_KERNELS = ("Command Buffer Full",)
 PREFILL_SHAPE = (4, 8192)  # chip_smoke.py's
 DECODE_BATCH, DECODE_STEPS = 4, 8
+TRAIN_SHAPE = (2, 4096)  # chip_smoke.py's phase 3 (train)
 TOP = 20  # kernels listed per window
 
 
@@ -51,6 +55,55 @@ def _report(title: str, prof, wall_ms: float) -> None:
             "window: kernel time is over-counted")
 
 
+def _report_ops(prof, n: int = TOP) -> None:
+    """ATen ops by device time, inclusive of the ops they call (so
+    nested ops count twice: a reading, not a sum)."""
+    ops = [e for e in prof.key_averages()
+           if e.key.startswith("aten::") and e.device_time_total > 0]
+    ops.sort(key=lambda e: e.device_time_total, reverse=True)
+    print("  by ATen op (device time, inclusive):")
+    for e in ops[:n]:
+        print(f"  {e.device_time_total / 1e3:9.3f} ms x{e.count:<6} {e.key}")
+
+
+def train(dev, cfg, activities) -> None:
+    import torch
+    from torch.profiler import profile
+
+    from repro_torch.data import BatchIterator, MarkovLMDataset
+    from repro_torch.launch.steps import make_grad_step, make_train_step
+    from repro_torch.models import ssm
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+
+    b, s = TRAIN_SHAPE
+    opt_cfg = AdamWConfig(lr_peak=3e-4, warmup_steps=1, total_steps=4)
+    params = ssm.init_params(cfg, seed=0, device=dev)
+    opt = adamw_init(params)
+    it = BatchIterator(MarkovLMDataset(cfg.vocab, s), b)
+    batches = [it.next_global(dev) for _ in range(3)]
+    step = make_train_step(cfg, opt_cfg, device=dev)
+    params, opt, _ = step(params, opt, batches[0])  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        params, opt, _ = step(params, opt, batches[1])
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    _report(f"train step {TRAIN_SHAPE} {cfg.dtype} remat {cfg.remat}",
+            prof, wall)
+    _report_ops(prof)
+    del prof
+    t0 = time.perf_counter()
+    _, _, grads = make_grad_step(cfg, device=dev)(params, batches[2])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    adamw_update(opt_cfg, grads, opt, params)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    print(f"  halves (host clock, no profiler): gradient "
+          f"{1e3 * (t1 - t0):.1f} ms, adamw_update {1e3 * (t2 - t1):.1f} ms")
+
+
 def main() -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -76,6 +129,10 @@ def main() -> int:
     prefill = make_prefill_step(cfg, device=dev)
     step = make_serve_step(cfg, device=dev)
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    if "--train" in sys.argv[1:]:
+        del params, tokens
+        train(dev, cfg, activities)
+        return 0
     with torch.no_grad():
         prefill(params, {"tokens": tokens})  # warm-up
         torch.cuda.synchronize()
