@@ -8,6 +8,7 @@
     python3 chip_smoke.py --sharded  # build + phase 3 (sharded) only
     python3 chip_smoke.py --audit    # build + phase 3 (audit) only
     python3 chip_smoke.py --train    # build + phase 3 (train) only
+    python3 chip_smoke.py --dp-train # build + phase 3 (dp train) only
 
 Phases (each raises on failure; none is caught):
 
@@ -141,6 +142,35 @@ Phases (each raises on failure; none is caught):
    injected at step 5, restarting once from its step-3 checkpoint; and
    B7's time at the training view (the kernels line's training row:
    launches of the 4 steps, bound, plain, ``F.conv1d``).
+   Phase 3 (dp train), after phase 3 (train) (also alone with
+   ``--dp-train``): data-parallel training of mamba2-780m at full width
+   and depth, its ranks processes that share this card over gloo
+   (``launch.mesh.run_on_mesh``; no time of this phase is a scaling
+   figure). (a) The yardstick: phase 3 (train)'s one-card B7 step 0 at
+   (2, 4096), its loss and 12 f32 gradient leaves kept on the host and
+   written under ``build/dp-yardstick`` for the ranks (removed after).
+   (b) Mesh (2, 1) of (data, model), the ``dp`` profile, local batch
+   (1, 4096): step 0 through ``make_synced_grad_step``, its loss within
+   2e-2 of (a)'s and each synced gradient leaf within 2e-2 relative L2,
+   96 B7 launches; then 3 steps through ``make_train_step`` with the
+   counters zeroed just before and read just after (96 B7 launches per
+   rank a step), the median ms a step (host clock after a barrier), the
+   bytes a rank sends per step (the ring count), the sync alone on a
+   full f32 tree, peak ``max_memory_allocated`` per rank and the card's
+   memory in use. (c) The same mesh with ``fsdp=True`` (ZeRO): step 0's
+   synced gradients and the parameters after it against (b)'s bit for
+   bit, or the reason printed; one timed step; peak per rank. (d)
+   ``grad_sync`` at full width, 4 ranks on mesh (2, 2) of (pod, data),
+   rank r's tree (a)'s times (1 + r/8): one flat all-reduce,
+   ``hierarchical_psum_tree`` (within 1e-6 of flat) and
+   ``compressed_psum_tree`` (within 2e-2, residuals nonzero), each with
+   its ms and bytes a rank. (e) The reduced train CLI with ``--mesh 2x1
+   --backend gloo`` on the card (the failure at step 5): its logged
+   losses equal phase 3 (train)'s ``--mesh 1x1`` run's to the printed
+   digits, both ranks restored at step 3; its step-8 checkpoint
+   restored on one process for 2 more steps. B7's time at a rank's
+   training view (1, 4096, 3328) joins the kernels line with rank 0's
+   launches of (b)'s timed steps.
    Phase 3 (verify), after the serve phase: the verification layer
    (``repro_torch.verify.mms``, ``physics.spectral``,
    ``boundary_weights``) through B1 (``swc``), B3 (``swc_stream``) and
@@ -1809,7 +1839,10 @@ def train_step_parity(cfg, params, batch, dev):
     if not ok:
         raise AssertionError(f"train step vs plain conv: loss rel "
                              f"{loss_rel:.3e}, grads {rows[:3]}")
-    return counts[0]
+    # Phase 3 (dp train)'s yardstick: the B7 step's loss and gradients.
+    yard = (float(loss_k), {"/".join(path): g.cpu() for path, g in
+                            tree_leaves_with_path(grads_k)})
+    return counts[0], yard
 
 
 def train_cli_on_card():
@@ -1842,6 +1875,7 @@ def train_cli_on_card():
     print(f"  python -m repro_torch.launch.train {' '.join(TRAIN_CLI)}: "
           f"rc 0 in {secs:.1f} s, restored at step 3, checkpoints {steps}")
     print(f"    {done}")
+    return _logged(out.stdout)
 
 
 def phase_train(dev, smi, launches):
@@ -1854,14 +1888,13 @@ def phase_train(dev, smi, launches):
     ``TRAIN_STEPS`` AdamW steps through ``make_train_step`` with the
     launch counters zeroed just before and read just after (96 B7
     launches a step); the reduced train CLI on the card with a restart.
-    Returns the B7 row at the training view (the kernels line's)."""
+    Returns the B7 row at the training view (the kernels line's) and,
+    for phase 3 (dp train), the yardstick (the B7 step 0's loss and
+    gradient leaves on the host) and the train CLI's logged steps."""
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.configs.registry import get_config
     from repro_torch.data import BatchIterator, MarkovLMDataset
-    from repro_torch.kernels import ops as kops
-    from repro_torch.kernels import ref
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import ssm
     from repro_torch.optim import AdamWConfig, adamw_init
@@ -1887,7 +1920,7 @@ def phase_train(dev, smi, launches):
           f"seq; its batch 256 cut to {b})")
     it = BatchIterator(dataset, b, start_step=0)
     batches = [it.next_global(dev) for _ in range(TRAIN_STEPS)]
-    train_step_parity(cfg, params, batches[0], dev)
+    _, yard = train_step_parity(cfg, params, batches[0], dev)
 
     opt_cfg = AdamWConfig(lr_peak=3e-4, warmup_steps=1,
                           total_steps=TRAIN_STEPS)
@@ -1931,10 +1964,28 @@ def phase_train(dev, smi, launches):
     del params, opt, batches, m
     torch.cuda.empty_cache()
 
-    train_cli_on_card()
+    one_cli = train_cli_on_card()
 
-    # B7 at the training view alone (no gradient: the bare launch the
-    # Function's forward makes), the kernels line's row.
+    return [conv1d_train_row(dev, cfg, b, s, launches["conv1d train"],
+                             steady, "forward + remat recompute")], (
+        yard, one_cli)
+
+
+def conv1d_train_row(dev, cfg, b, s, launches, step_ms, what):
+    """B7 alone at a training xBC view (b, s, c) of the (b, s, row)
+    in-projection, bf16 (no gradient: the bare launch the Function's
+    forward makes): held to its plain version, timed beside it and
+    ``F.conv1d(groups=c)``; the kernels line's row, carrying
+    ``launches`` of the path it stands for."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+    from repro_torch.models import ssm
+
+    dv, h, _, g, n, c = ssm._dims(cfg)
+    row = 2 * dv + 2 * g * n + h
     bw, f32_rate, _ = card_rates(torch.cuda.get_device_name(0))
     k = cfg.ssm_conv_kernel
     x, w = conv_inputs((b, s, c), k, "bfloat16", dev, seed=23, row=row,
@@ -1964,23 +2015,479 @@ def phase_train(dev, smi, launches):
           f"{ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound:.4f} ms "
           f"({by})  conv1d (groups=c, no TF32) {lib_ms:.4f} ms  max|err| "
           f"{err:.3e}; {per_step} launches a step = {per_step * ms:.2f} ms "
-          f"of a {steady:.1f} ms step ({per_step * ms / steady:.2%})")
+          f"of a {step_ms:.1f} ms step ({per_step * ms / step_ms:.2%})")
     del x, w, want, xt, wt
     torch.cuda.empty_cache()
-    return [{
+    return {
         "name": f"conv1d_depthwise[mamba2 train xBC {b}x{s}x{c} k={k}, "
-                "bfloat16, forward + remat recompute]",
+                f"bfloat16, {what}]",
         "route": "cuda",
         "source": CONV_SOURCE,
         "replaces": CONV_REPLACES,
-        "launches": launches["conv1d train"],
+        "launches": launches,
         "max_abs_err": err,
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": bound,
         "bound_by": by,
         "library_ms": lib_ms,
-    }]
+    }
+
+
+# Phase 3 (dp train): mamba2-780m data-parallel over ranks that share the
+# card over gloo, at phase 3 (train)'s global batch (2, 4096): mesh (2, 1)
+# of (data, model) under the dp profile, plain (3 timed steps after step
+# 0, then the sync alone) and ZeRO (1 after step 0); grad_sync at full
+# width on (2, 2) of (pod, data); the step-0 yardstick's leaves under
+# build/ meanwhile.
+DP_MESH = ((2, 1), ("data", "model"))
+DP_STEPS = {False: 3, True: 1}  # timed steps after step 0, by fsdp
+DP_SYNC_MESH = ((2, 2), ("pod", "data"))
+DP_YARD_DIR = ROOT / "build" / "dp-yardstick"
+HIER_TOL = 1e-6
+
+
+def _rel_l2_big(a, b) -> float:
+    """‖a − b‖ / ‖b‖ in float64, a chunk of 2^26 values at a time (a
+    leaf holds up to 475M)."""
+    a, b = a.reshape(-1), b.reshape(-1)
+    num = den = 0.0
+    for lo in range(0, b.numel(), 1 << 26):
+        x, y = a[lo:lo + (1 << 26)].double(), b[lo:lo + (1 << 26)].double()
+        num += float((x - y).square().sum())
+        den += float(y.square().sum())
+    return math.sqrt(num / max(den, 1e-300))
+
+
+def _max_rel(a, b) -> float:
+    """max |a − b| / max |b|."""
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def _yard_file(directory, name: str) -> Path:
+    return Path(directory) / (name.replace("/", "__") + ".npy")
+
+
+def _save_yardstick(yard, directory: Path) -> None:
+    """The yardstick's loss and gradient leaves as files the ranks read."""
+    import numpy as np
+
+    loss, grads = yard
+    directory.mkdir(parents=True, exist_ok=True)
+    for name, g in grads.items():
+        np.save(_yard_file(directory, name), g.numpy())
+    (directory / "yardstick.json").write_text(
+        json.dumps({"loss": loss, "leaves": sorted(grads)}))
+
+
+def _load_leaf(directory, name: str, dev):
+    import numpy as np
+    import torch
+
+    return torch.from_numpy(np.load(_yard_file(directory, name))).to(dev)
+
+
+def dp_yardstick(dev, cfg):
+    """Phase 3 (train)'s step 0 alone, for ``--dp-train``: the B7 grad
+    step of ``cfg`` (seed 0) on step 0's ``TRAIN_SHAPE`` batch; the loss
+    and the gradient leaves on the host."""
+    import torch
+
+    from repro_torch.data import BatchIterator, MarkovLMDataset
+    from repro_torch.launch.steps import make_grad_step
+    from repro_torch.models import ssm
+    from repro_torch.tree import tree_leaves_with_path
+
+    b, s = TRAIN_SHAPE
+    params = ssm.init_params(cfg, seed=0, device=dev)
+    batch = BatchIterator(MarkovLMDataset(cfg.vocab, s, branching=4), b,
+                          start_step=0).next_global(dev)
+    loss, _, grads = make_grad_step(cfg, device=dev)(params, batch)
+    yard = (float(loss), {"/".join(path): g.cpu() for path, g in
+                          tree_leaves_with_path(grads)})
+    del params, grads, batch
+    torch.cuda.empty_cache()
+    return yard
+
+
+def dp_train_rank(mesh, cfg, yard_dir: str, b: int, s: int):
+    """One rank of phase 3 (dp train) (b) and (c): ``cfg`` (mamba2-780m
+    at full width) on its rows of ``TRAIN_SHAPE``'s global batch, plain data
+    parallelism, then ZeRO (``fsdp=True``). Step 0 through
+    ``make_synced_grad_step`` (its synced gradient held to the
+    yardstick leaf by leaf), AdamW on it, then ``DP_STEPS`` timed steps
+    through ``make_train_step``; ZeRO's step-0 gradient and updated
+    parameters against plain DP's bit for bit (its gradient held to
+    the yardstick itself where it is not); plain DP's sync alone on a
+    full f32 tree. Returns this rank's numbers."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.data import BatchIterator, MarkovLMDataset
+    from repro_torch.distrib import comm
+    from repro_torch.distrib import sharding as shlib
+    from repro_torch.distrib.grad_sync import sync_grads
+    from repro_torch.kernels import conv1d_depthwise as kc
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.models import ssm
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.tree import tree_leaves_with_path, tree_map
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    meta = json.loads((Path(yard_dir) / "yardstick.json").read_text())
+    dataset = MarkovLMDataset(cfg.vocab, s, branching=4)
+    axes = shlib.dp_axes("dp")
+    host, hosts = shlib.axis_index(mesh, axes), shlib.axes_size(mesh, axes)
+
+    def clock(fn):
+        dist.barrier()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    def named(tree):
+        return {"/".join(p): v for p, v in tree_leaves_with_path(tree)}
+
+    out, kept = {}, {}
+    for fsdp in (False, True):
+        steps = DP_STEPS[fsdp]
+        opt_cfg = AdamWConfig(lr_peak=3e-4, warmup_steps=1,
+                              total_steps=1 + steps)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        p_sh, _ = tsteps.train_shardings(cfg, mesh, profile="dp", fsdp=fsdp)
+        params = shlib.shard_tree(ssm.init_params(cfg, seed=0, device=dev),
+                                  p_sh)
+        opt = adamw_init(params)
+        it = BatchIterator(dataset, b, host_index=host, host_count=hosts)
+        batches = [it.next_global(dev) for _ in range(1 + steps)]
+        synced = tsteps.make_synced_grad_step(cfg, mesh=mesh, profile="dp",
+                                              fsdp=fsdp, device=dev)
+        step_fn = tsteps.make_train_step(cfg, opt_cfg, device=dev,
+                                         mesh=mesh, profile="dp", fsdp=fsdp)
+        rec = {"rows": tuple(batches[0]["tokens"].shape)}
+        kc.reset_launch_counts()
+        (loss, _, grads, norm), rec["step0_ms"] = clock(
+            lambda: synced(params, batches[0]))
+        rec["launches0"] = kc.conv1d_depthwise_cuda.launches
+        rec["loss"] = float(loss)
+        rec["loss_rel"] = abs(rec["loss"] - meta["loss"]) / abs(meta["loss"])
+        full = named(shlib.gather_tree(grads, p_sh) if fsdp else grads)
+        rec["finite"] = all(bool(torch.isfinite(g).all())
+                            for g in full.values())
+        if fsdp:
+            rec["grads_equal"] = sum(torch.equal(g.cpu(), kept["grads"][k])
+                                     for k, g in full.items())
+        if not fsdp or rec["grads_equal"] < len(full):
+            # (c) equal to (b) bit for bit inherits (b)'s comparison
+            rec["grad_rel"] = {
+                k: _rel_l2_big(g, _load_leaf(yard_dir, k, dev))
+                for k, g in full.items()}
+        else:
+            rec["grad_rel"] = dict(kept["grad_rel"])
+        if not fsdp:
+            kept["grads"] = {k: g.cpu() for k, g in full.items()}
+            kept["grad_rel"] = rec["grad_rel"]
+        del full
+        params, opt, m = adamw_update(opt_cfg, grads, opt, params,
+                                      grad_norm=norm)
+        del grads
+        rec["grad_norm0"] = float(m["grad_norm"])
+        full = named(shlib.gather_tree(params, p_sh) if fsdp else params)
+        if not fsdp:
+            kept["params"] = {k: p.cpu() for k, p in full.items()}
+        else:
+            rec["params_equal"] = sum(torch.equal(p.cpu(),
+                                                  kept["params"][k])
+                                      for k, p in full.items())
+        del full
+        rec["leaves"] = len(kept["grads"])
+        torch.cuda.empty_cache()  # the comparisons' blocks
+        # the timed steps: counters zeroed just before, read just after
+        comm.reset_counts()
+        kc.reset_launch_counts()
+        rec["ms"], rec["losses"], rec["launches"] = [], [], []
+        for batch in batches[1:]:
+            before = kc.conv1d_depthwise_cuda.launches
+            (params, opt, m), ms = clock(
+                lambda: step_fn(params, opt, batch))
+            rec["ms"].append(ms)
+            rec["losses"].append(float(m["loss"]))
+            rec["launches"].append(kc.conv1d_depthwise_cuda.launches - before)
+        rec["bytes"] = comm.counts["bytes"] // steps
+        rec["peak"] = torch.cuda.max_memory_allocated(dev)
+        free, total = torch.cuda.mem_get_info(dev)
+        rec["card_used"], rec["card_total"] = total - free, total
+        if not fsdp:  # the sync alone, on a tree of the gradient's size
+            clone = tree_map(lambda t: t.clone(), params)
+            comm.reset_counts()
+            _, rec["sync_ms"] = clock(
+                lambda: sync_grads(clone, p_sh, mesh, axes, 1.0))
+            rec["sync_bytes"] = comm.counts["bytes"]
+            del clone
+        del params, opt, batches, synced, step_fn, m
+        out["zero" if fsdp else "dp"] = rec
+    return out
+
+
+def dp_sync_rank(mesh, yard_dir: str):
+    """One rank of phase 3 (dp train) (d): the yardstick's gradient tree
+    scaled by (1 + rank/8), summed over (pod, data) by one flat
+    all-reduce, by ``hierarchical_psum_tree`` (fast ``data``, slow
+    ``pod``) and by ``compressed_psum_tree``, a leaf at a time; each
+    timed (host clock after a barrier, ending in a synchronize) with the
+    bytes this rank sent, and held to the flat sum."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distrib import comm, grad_sync
+    from repro_torch.distrib import sharding as shlib
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rank = dist.get_rank()
+    meta = json.loads((Path(yard_dir) / "yardstick.json").read_text())
+    scale = 1 + rank / 8
+    total = sum(1 + r / 8 for r in range(dist.get_world_size()))
+    tree = {k: _load_leaf(yard_dir, k, dev).mul_(scale)
+            for k in meta["leaves"]}
+    both = ("pod", "data")
+
+    def clock(fn):
+        dist.barrier()
+        torch.cuda.synchronize(dev)
+        comm.reset_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        return out, 1e3 * (time.perf_counter() - t0), comm.counts["bytes"]
+
+    rec = {"values": sum(t.numel() for t in tree.values())}
+    flat = {k: v.clone() for k, v in tree.items()}
+    _, rec["flat_ms"], rec["flat_bytes"] = clock(
+        lambda: comm.all_reduce_(list(flat.values()),
+                                 shlib.axis_group(mesh, both)))
+    rec["flat_err"] = max(_max_rel(flat[k], tree[k] * (total / scale))
+                          for k in tree)
+    rec.update(hier_err=0.0, hier_ms=0.0, hier_bytes=0, comp_err=0.0,
+               comp_ms=0.0, comp_bytes=0)
+    rec["resid_nonzero"] = 0  # leaves whose bf16 residual is not all zero
+    for k, g in tree.items():
+        h, ms, by = clock(lambda: grad_sync.hierarchical_psum_tree(
+            {k: g}, mesh, "data", "pod"))
+        rec["hier_ms"] += ms
+        rec["hier_bytes"] += by
+        rec["hier_err"] = max(rec["hier_err"], _max_rel(h[k], flat[k]))
+        del h
+        (c, resid), ms, by = clock(lambda: grad_sync.compressed_psum_tree(
+            {k: g}, mesh, both))
+        rec["comp_ms"] += ms
+        rec["comp_bytes"] += by
+        rec["comp_err"] = max(rec["comp_err"], _max_rel(c[k], flat[k]))
+        rec["resid_nonzero"] += bool(resid[k].abs().max() > 0)
+        del c, resid
+    rec["peak"] = torch.cuda.max_memory_allocated(dev)
+    return rec
+
+
+def dp_cli_on_card(dev, one=None):
+    """The train CLI with ``TRAIN_CLI`` on the card over ``--mesh 2x1
+    --backend gloo`` (two ranks sharing it, restarting once), its logged
+    losses equal to ``--mesh 1x1``'s (``one``, phase 3 (train)'s run;
+    run here when None) to the printed digits; then its last checkpoint
+    restored onto one process (no mesh) for 2 more steps."""
+    import os
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs.registry import get_config, reduced_config
+    from repro_torch.data import BatchIterator, MarkovLMDataset
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import ssm
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    def cli(*args):
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", *args],
+            capture_output=True, text=True, timeout=600, cwd=ROOT,
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        if out.returncode:
+            raise AssertionError(f"train CLI {' '.join(args)}: rc "
+                                 f"{out.returncode}: {out.stderr[-2000:]}")
+        return out, _logged(out.stdout), time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        if one is None:
+            _, one, _ = cli(*TRAIN_CLI, "--ckpt-dir", f"{tmp}/one")
+        out, two, secs = cli(*TRAIN_CLI, "--mesh", "2x1", "--backend",
+                             "gloo", "--ckpt-dir", f"{tmp}/two")
+        done = next(x for x in out.stdout.splitlines()
+                    if x.startswith("done:"))
+        if (two != one or "restarts=1" not in done
+                or "device=cuda" not in done
+                or out.stderr.count("restored at step 3") != 2):
+            raise AssertionError(f"train CLI 2x1: {two} vs 1x1 {one}; {done}")
+        print(f"  python -m repro_torch.launch.train {' '.join(TRAIN_CLI)} "
+              f"--mesh 2x1 --backend gloo: rc 0 in {secs:.1f} s, its "
+              f"{len(two)} logged step lines equal --mesh 1x1's to the "
+              "printed digits, both ranks restored at step 3")
+        print(f"    {done}")
+        # its last checkpoint on one process: the reduced config, the
+        # CLI's data and schedule (2 steps past its 8)
+        cfg = reduced_config(get_config("mamba2-780m"))
+        mgr = CheckpointManager(f"{tmp}/two")
+        params = ssm.init_params(cfg, seed=0, device=dev)
+        (state, at) = mgr.restore({"params": params,
+                                   "opt": adamw_init(params)})
+        step_fn = make_train_step(cfg, AdamWConfig(
+            lr_peak=1e-3, warmup_steps=1, total_steps=at + 2), device=dev)
+        data = MarkovLMDataset(cfg.vocab, 64, branching=4)
+        params, opt, losses = state["params"], state["opt"], []
+        for i in range(at, at + 2):
+            batch = BatchIterator(data, 2, start_step=i).next_global(dev)
+            params, opt, m = step_fn(params, opt, batch)
+            losses.append(float(m["loss"]))
+        if at != 8 or int(opt.step) != at + 2 or not all(
+                map(math.isfinite, losses)):
+            raise AssertionError(f"restore onto 1x1: step {at}, {losses}")
+        del params, opt, state
+        torch.cuda.empty_cache()
+    print(f"  its step-{at} checkpoint (whole leaves) restored on one "
+          f"process without a mesh: steps {at}, {at + 1} loss "
+          + ", ".join(f"{x:.4f}" for x in losses))
+
+
+def _logged(stdout: str) -> list[list[str]]:
+    """The train CLI's step lines, split: ["step", n, "loss", value]."""
+    return [x.split()[:4] for x in stdout.splitlines()
+            if x.startswith("step ")]
+
+
+def phase_dp_train(dev, smi, launches, yard=None, one_cli=None):
+    """Phase 3 (dp train): the data-parallel train step of mamba2-780m
+    at full width and depth on ranks sharing this card
+    over gloo (``launch.mesh.run_on_mesh``; none of its times is a
+    scaling figure), held to phase 3 (train)'s one-card step 0 (the
+    yardstick ``yard``; made here when the phase runs alone); grad_sync
+    at full width; the train CLI over a mesh against phase 3 (train)'s
+    ``--mesh 1x1`` run (``one_cli``, its logged step lines; run here
+    when None). Returns the B7 row at a rank's training view."""
+    import shutil
+
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import run_on_mesh
+
+    print("== phase 3 (dp train): mamba2-780m data-parallel and ZeRO over "
+          "gloo ranks sharing one card, grad_sync at full width")
+    print(f"  card: {smi}")
+    build.build_all()  # no rank waits on nvcc
+    cfg = get_config("mamba2-780m")
+    b, s = TRAIN_SHAPE
+    if yard is None:
+        yard = dp_yardstick(dev, cfg)
+    t0 = time.perf_counter()
+    shutil.rmtree(DP_YARD_DIR, ignore_errors=True)
+    _save_yardstick(yard, DP_YARD_DIR)
+    loss_a, leaves = yard[0], len(yard[1])
+    n_values = sum(g.numel() for g in yard[1].values())
+    del yard
+    print(f"  (a) yardstick: phase 3 (train)'s one-card B7 step 0 at {b}x{s}:"
+          f" loss {loss_a:.6f}, {leaves} f32 gradient leaves, {n_values} "
+          f"values, written for the ranks in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    try:
+        ranks = run_on_mesh(dp_train_rank, *DP_MESH, backend="gloo",
+                            device=dev, args=(cfg, str(DP_YARD_DIR), b, s),
+                            timeout=900)
+        sync = run_on_mesh(dp_sync_rank, *DP_SYNC_MESH, backend="gloo",
+                           device=dev, args=(str(DP_YARD_DIR),), timeout=900)
+    finally:
+        shutil.rmtree(DP_YARD_DIR, ignore_errors=True)
+    tol = TOL["bfloat16"]
+    per_step = 2 * cfg.n_layers
+    for label, key in (("(b) mesh (2, 1) dp profile", "dp"),
+                       ("(c) the same mesh, fsdp=True (ZeRO)", "zero")):
+        recs = [r[key] for r in ranks]
+        print(f"  {label}: local batch {recs[0]['rows']} per rank")
+        for rank, r in enumerate(recs):
+            worst = max(r["grad_rel"].items(), key=lambda kv: kv[1])
+            print(f"    rank {rank}: step 0 loss {r['loss']:.6f} vs "
+                  f"(a) {loss_a:.6f} (rel {r['loss_rel']:.3e}), synced "
+                  f"gradient rel L2 worst {worst[1]:.3e} ({worst[0]}) of "
+                  f"{len(r['grad_rel'])} leaves (tol {tol:.0e}); grad_norm "
+                  f"{r['grad_norm0']:.6f}; B7 launches step 0 "
+                  f"{r['launches0']}, then {r['launches']}; steps "
+                  f"{', '.join(f'{ms:.1f}' for ms in r['ms'])} ms, losses "
+                  f"{', '.join(f'{x:.4f}' for x in r['losses'])}; peak "
+                  f"{r['peak'] / 2**30:.2f} GiB")
+            if not (r["finite"] and r["loss_rel"] <= tol
+                    and worst[1] <= tol):
+                raise AssertionError(f"{label} rank {rank}: loss rel "
+                                     f"{r['loss_rel']:.3e}, {worst}")
+            if r["launches0"] != per_step or any(
+                    n != per_step for n in r["launches"]):
+                raise AssertionError(f"{label} rank {rank}: B7 launches "
+                                     f"{r['launches0']}, {r['launches']}")
+            if r["losses"] != recs[0]["losses"]:
+                raise AssertionError(f"{label}: ranks' losses differ")
+        r = recs[0]
+        med = statistics.median(r["ms"])
+        peaks = ", ".join(f"{x['peak'] / 2**30:.2f}" for x in recs)
+        alone = (f"; the sync alone {r['sync_ms']:.1f} ms, "
+                 f"{r['sync_bytes']} bytes" if "sync_ms" in r else "")
+        print(f"    {len(r['ms'])} timed step(s): {med:.1f} ms a step "
+              f"(median, host clock after a barrier), {b * s / med * 1e3:.0f}"
+              f" tokens/s over both ranks{alone}; bytes a rank sends per "
+              f"step {r['bytes']} (ring count); peak per rank {peaks} GiB;"
+              f" the card {r['card_used'] / 2**30:.2f} of "
+              f"{r['card_total'] / 2**30:.2f} GiB in use after the steps")
+    dp, zero = ranks[0]["dp"], ranks[0]["zero"]
+    n_leaves = dp["leaves"]
+    if zero["grads_equal"] == n_leaves and zero["params_equal"] == n_leaves:
+        print(f"    ZeRO vs DP: step 0's synced gradients ({n_leaves} of "
+              f"{n_leaves} leaves) and the parameters after it equal bit for"
+              " bit")
+    else:
+        why = ("the synced gradients differ: the sums ran in another order"
+               if zero["grads_equal"] != n_leaves else
+               f"the gradients are equal, but the clip's global norm sums "
+               f"the blocks' squares in another order ({zero['grad_norm0']!r}"
+               f" vs {dp['grad_norm0']!r}), so AdamW's scale differs")
+        print(f"    ZeRO vs DP: gradients {zero['grads_equal']} of {n_leaves}"
+              f" leaves equal bit for bit, parameters after step 0 "
+              f"{zero['params_equal']} of {n_leaves}: {why}")
+    print(f"  (d) grad_sync at full width, mesh (2, 2) of (pod, data), 4 ranks"
+          f" on the card, rank r's tree = (a) x (1 + r/8), "
+          f"{sync[0]['values']} values:")
+    for rank, r in enumerate(sync):
+        if not (r["hier_err"] <= HIER_TOL and r["comp_err"] <= tol
+                and r["flat_err"] <= HIER_TOL and r["resid_nonzero"]):
+            raise AssertionError(f"grad_sync rank {rank}: {r}")
+    r = sync[0]
+    peaks = ", ".join(f"{x['peak'] / 2**30:.2f}" for x in sync)
+    print(f"    flat all_reduce {r['flat_ms']:.1f} ms, {r['flat_bytes']} bytes"
+          f" a rank (max rel {r['flat_err']:.3e} from 4.75 x (a)); "
+          f"hierarchical_psum_tree {r['hier_ms']:.1f} ms, "
+          f"{r['hier_bytes']} bytes (max rel {r['hier_err']:.3e} from flat, "
+          f"tol {HIER_TOL:.0e}); compressed_psum_tree {r['comp_ms']:.1f} ms,"
+          f" {r['comp_bytes']} bytes (max rel {r['comp_err']:.3e}, tol "
+          f"{tol:.0e}, residuals nonzero in {r['resid_nonzero']} of "
+          f"{leaves} leaves); peak per rank {peaks} GiB; all"
+          " ranks within tolerance")
+    dp_cli_on_card(dev, one_cli)
+    launches["conv1d dp train"] = sum(dp["launches"])
+    return [conv1d_train_row(dev, cfg, b // 2, s,
+                             launches["conv1d dp train"],
+                             statistics.median(dp["ms"]),
+                             "data-parallel rank 0 of 2, forward + remat "
+                             "recompute")]
 
 
 SERVE_SHAPES = [(256, 256, 256), (4096, 4096)]
@@ -3852,6 +4359,9 @@ def main(argv: list[str]) -> int:
     if "--train" in argv:
         timed("phase 3 (train)", phase_train, dev, smi, {})
         return 0
+    if "--dp-train" in argv:
+        timed("phase 3 (dp train)", phase_dp_train, dev, smi, {})
+        return 0
     timed("phase 2", phase_parity, dev)
     if "--quick" in argv:
         return 0
@@ -3859,7 +4369,11 @@ def main(argv: list[str]) -> int:
     timed("phase 3 (tc)", phase_main_path_tc, dev, launches)
     timed("phase 3 (1-D)", phase_main_path_1d, dev, launches)
     timed("phase 3 (mamba2)", phase_main_path_ssm, dev, smi, launches)
-    train_rows = timed("phase 3 (train)", phase_train, dev, smi, launches)
+    train_rows, (yard, one_cli) = timed("phase 3 (train)", phase_train,
+                                        dev, smi, launches)
+    train_rows += timed("phase 3 (dp train)", phase_dp_train, dev, smi,
+                        launches, yard, one_cli)
+    del yard
     timed("phase 3b", phase_serve, dev, launches)
     timed("phase 3 (verify)", phase_verify, dev, smi)
     timed("phase 3 (tune)", phase_tune, dev, smi)

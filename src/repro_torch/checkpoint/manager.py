@@ -21,7 +21,14 @@ A leaf's path is its keys joined by "/" as the reference spells them
   file I/O on a background thread so the train loop isn't blocked;
 * **keep-k**    — bounded disk usage with the newest k checkpoints;
 * **restore**   — each leaf lands on its target leaf's device, in the
-  dtype it was saved in.
+  dtype it was saved in;
+* **elastic**   — leaves are stored whole. ``save(..., shardings=)``
+  from a sharded state (``distrib.sharding.NamedSharding`` leaves, a
+  collective: every rank calls it) gathers each leaf to its full shape;
+  rank 0 writes and the others wait at a barrier until the step is on
+  disk. ``restore(..., shardings=)`` cuts each stored leaf to this
+  rank's block under the shardings of the mesh it runs on now, so a
+  checkpoint taken on one mesh continues on another.
 
 Leaves are float32, float64, integer or bool tensors: numpy has no
 bfloat16, so a bfloat16 leaf raises at ``save`` (the trainer keeps
@@ -39,6 +46,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.tree import (
     path_str,
@@ -79,8 +87,15 @@ class CheckpointManager:
 
     # -- save -----------------------------------------------------------------
 
-    def save(self, step: int, tree: Any, *, blocking: bool = False) -> None:
-        """Snapshot to host memory now; write to disk (a)synchronously."""
+    def save(self, step: int, tree: Any, *, blocking: bool = False,
+             shardings: Any = None) -> None:
+        """Snapshot to host memory now; write to disk (a)synchronously.
+        With ``shardings`` (the tree's, of a sharded run) every leaf is
+        gathered whole, rank 0 writes it and every rank returns once the
+        step is on disk."""
+        if shardings is not None:
+            self._save_sharded(step, tree, shardings)
+            return
         host_leaves = [(path_str(path), _to_host(leaf))
                        for path, leaf in tree_leaves_with_path(tree)]
         self.wait()  # one in-flight save at a time
@@ -92,6 +107,21 @@ class CheckpointManager:
         self._thread = worker
         if blocking:
             self.wait()
+
+    def _save_sharded(self, step: int, tree: Any, shardings: Any) -> None:
+        by_path = dict(tree_leaves_with_path(shardings))
+        writer = dist.get_rank() == 0
+        host_leaves = []
+        for path, leaf in tree_leaves_with_path(tree):
+            sh = by_path[path]
+            full = leaf if sh.replicated else sh.gather(leaf)
+            if writer:
+                host_leaves.append((path_str(path), _to_host(full)))
+            del full
+        if writer:
+            self.wait()
+            self._write(step, host_leaves, _structure(tree))
+        dist.barrier()
 
     def _write(self, step: int, host_leaves, treedef_repr: str) -> None:
         final = os.path.join(self.dir, f"step_{step:08d}")
@@ -144,12 +174,14 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, target_tree: Any, step: int | None = None
-                ) -> tuple[Any, int]:
+    def restore(self, target_tree: Any, step: int | None = None, *,
+                shardings: Any = None) -> tuple[Any, int]:
         """Load into the structure of ``target_tree`` (the latest step
         when ``step`` is None) → (tree, step). Each leaf comes back as a
         tensor on its target leaf's device, in the dtype it was saved
-        in; a missing leaf or another shape raises."""
+        in; a missing leaf or another shape raises. With ``shardings``
+        (``target_tree``'s, on this run's mesh) each stored full leaf is
+        cut to this rank's block first: the elastic path."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -158,18 +190,22 @@ class CheckpointManager:
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
         by_path = {e["path"]: e for e in manifest["leaves"]}
+        sh_by_path = (dict(tree_leaves_with_path(shardings))
+                      if shardings is not None else {})
 
         def load(path, ref_leaf):
             name = path_str(path)
             entry = by_path.get(name)
             if entry is None:
                 raise KeyError(f"checkpoint step {step} missing leaf {name}")
-            arr = np.load(os.path.join(d, entry["file"]))
-            if tuple(arr.shape) != tuple(ref_leaf.shape):
+            t = torch.from_numpy(np.load(os.path.join(d, entry["file"])))
+            if path in sh_by_path:
+                t = sh_by_path[path].shard(t).contiguous()
+            if tuple(t.shape) != tuple(ref_leaf.shape):
                 raise ValueError(
-                    f"shape mismatch for {name}: "
-                    f"ckpt {arr.shape} vs model {tuple(ref_leaf.shape)}"
+                    f"shape mismatch for {name}: ckpt {tuple(t.shape)} "
+                    f"vs model {tuple(ref_leaf.shape)}"
                 )
-            return torch.from_numpy(arr).to(ref_leaf.device)
+            return t.to(ref_leaf.device)
 
         return tree_map_with_path(load, target_tree), step

@@ -82,6 +82,7 @@ class ModelAPI(NamedTuple):
     forward: Callable
     init_decode_cache: Callable
     decode_step: Callable
+    abstract_params: Callable
 
 
 def get_model(cfg: ModelConfig) -> ModelAPI:
@@ -90,6 +91,6 @@ def get_model(cfg: ModelConfig) -> ModelAPI:
 
         return ModelAPI(
             m.init_params, m.lm_loss, m.forward,
-            m.init_decode_cache, m.decode_step,
+            m.init_decode_cache, m.decode_step, m.abstract_params,
         )
     raise _not_ported(f"the {cfg.family!r} family ({cfg.arch_id})")

@@ -48,6 +48,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core import boundary
+from repro_torch.distrib import comm
 
 # Tags of the two directions: a message travelling to the right (a
 # rank's right edge, its neighbour's left halo) and one travelling left.
@@ -70,43 +71,24 @@ def axis_size(mesh, axis_name: str) -> int:
 
 
 class Staging:
-    """Pinned host buffers and a side stream for the gloo route of CUDA
-    tensors. A buffer is allocated once per (role, shape, dtype) and
-    reused by every later exchange of that shape; the exchanges of one
-    :class:`Staging` must not run concurrently (one op's exchanges run
-    one after another)."""
+    """Pinned host buffers (a ``distrib.comm.PinnedPool`` of its own) and
+    a side stream for the gloo route of CUDA tensors. An exchange's
+    roles name the field's shape and axis, so each buffer is allocated
+    once per (role, shape, dtype) and reused by every later exchange of
+    that shape; the exchanges of one :class:`Staging` must not run
+    concurrently (one op's exchanges run one after another)."""
 
     def __init__(self):
-        self._buffers: dict[tuple, torch.Tensor] = {}
+        self._pool = comm.PinnedPool()
         self._streams: dict[torch.device, torch.cuda.Stream] = {}
 
     def buffer(self, role: str, shape, dtype: torch.dtype) -> torch.Tensor:
-        key = (role, tuple(shape), dtype)
-        if key not in self._buffers:
-            self._buffers[key] = torch.empty(
-                tuple(shape), dtype=dtype, pin_memory=True)
-        return self._buffers[key]
+        return self._pool.buffer(role, shape, dtype)
 
     def stream(self, device: torch.device) -> torch.cuda.Stream:
         if device not in self._streams:
             self._streams[device] = torch.cuda.Stream(device=device)
         return self._streams[device]
-
-
-def _route(group, f: torch.Tensor) -> str:
-    """``"direct"`` or ``"staged"`` for this group's backend and ``f``'s
-    device; raises for a pairing neither route covers."""
-    backend = dist.get_backend(group)
-    cuda = f.device.type == "cuda"
-    if backend == "gloo":
-        return "staged" if cuda else "direct"
-    if backend == "nccl" and cuda:
-        return "direct"
-    raise ValueError(
-        f"no halo route for backend {backend!r} and a tensor on "
-        f"{f.device}: use gloo (CPU or CUDA tensors, CUDA staged through "
-        "pinned host memory) or nccl (CUDA tensors)"
-    )
 
 
 class _Exchange1D:
@@ -128,7 +110,7 @@ class _Exchange1D:
         i = mesh.get_local_rank(axis_name)
         right = dist.get_global_rank(group, (i + 1) % n)
         left = dist.get_global_rank(group, (i - 1) % n)
-        self.staged = _route(group, f) == "staged"
+        self.staged = comm.route(group, f) == "staged"
         right_edge = f.narrow(axis, n_ax - radius, radius)  # goes right
         left_edge = f.narrow(axis, 0, radius)  # goes left
         shape = list(f.shape)

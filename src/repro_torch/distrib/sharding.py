@@ -1,0 +1,488 @@
+"""Sharding rules: parameter specs, batch specs and their placement on a
+process mesh (port of ``repro.distrib.sharding``; the tables are copies:
+the port imports nothing of ``repro``).
+
+Mesh contract (``launch/mesh.py``): dimensions ``("pod", "data",
+"model")`` multi-pod or ``("data", "model")`` single-pod. Parallelism
+mapping, as in the reference:
+
+* **DP**    — batch over ``(pod, data)`` (all three under the ``dp``
+              profile); gradients summed over those ranks
+              (``grad_sync``).
+* **TP**    — attention heads / FFN hidden over ``model``: the ``tp``
+              profile's rules below. Not ported: a leaf the ``tp``
+              profile cuts over a ``model`` axis of more than one rank
+              raises (:func:`refuse_tensor_parallel`, ROADMAP A13-TP).
+* **FSDP**  — parameters (and their AdamW moments) additionally cut over
+              the data-parallel ranks, ZeRO-style (``fsdp=True``).
+
+A spec is a plain tuple with one entry per dim: None, an axis name, or a
+tuple of axis names (their product), with trailing Nones stripped as
+``PartitionSpec`` strips them. Rules are *divisibility-safe*: a dim is
+only cut if the named axes' product divides it, as in the reference.
+
+:class:`NamedSharding` pairs a spec with a
+:class:`~torch.distributed.device_mesh.DeviceMesh`: which dims are cut
+over which mesh dimensions (:meth:`NamedSharding.cuts`) and this rank's
+slice of a full tensor (:func:`local_shard`). :func:`axis_group` is the
+process group of a mesh axis or of a tuple of axes (their product).
+
+``set_rules``, ``rules_context`` and ``constrain`` keep the reference's
+activation-annotation hook. ``constrain`` annotates for GSPMD's
+partitioner, and eager PyTorch has none: each rank already holds its
+activations' block, so it stays the identity, as the reference's is
+without an installed rule set.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import math
+import re
+import threading
+from typing import Any, Mapping
+
+import torch
+
+from repro_torch.distrib import comm
+from repro_torch.tree import path_str, tree_leaves_with_path, tree_map_with_path
+
+_STATE = threading.local()
+
+# Activation rules: logical name -> tuple of (axis names or None) per dim,
+# or a LIST of such tuples (candidates tried in order; first one whose every
+# requested axis divides wins — e.g. EP vs expert-TP for MoE tensors).
+DEFAULT_ACT_RULES: dict[str, tuple | list] = {
+    "tokens_bs": (("pod", "data"), None),
+    # Megatron-style TP baseline: the residual stream is replicated over
+    # `model` between blocks (one all-reduce after attention + one after
+    # MLP). Sequence parallelism (seq over `model`, rule below) trades
+    # those all-reduces for all-gather/reduce-scatter pairs + sharded
+    # norms — evaluated as a §Perf iteration, not the baseline.
+    "act_bsd": (("pod", "data"), None, None),
+    "act_bsd_sp": (("pod", "data"), "model", None),  # sequence-parallel
+    "act_bshd": (("pod", "data"), None, "model", None),  # heads TP
+    "logits_bsv": (("pod", "data"), None, "model"),  # vocab TP
+    "decode_bd": (("pod", "data"), None),
+    # unembedding weight AFTER dtype cast: the convert breaks GSPMD's
+    # propagation from the parameter sharding, and an unconstrained
+    # (d, V) operand lets the partitioner pick a d-sharded dot with a
+    # full-vocab f32 all-reduce (40 GiB at qwen vocab; §Perf cell 2).
+    "unembed_dv": (None, "model"),
+    # decode KV cache (b, L, g, dh): head TP, else sequence-sharded
+    "cache_blgd": [
+        (("pod", "data"), None, "model", None),
+        (("pod", "data"), "model", None, None),
+    ],
+    "moe_gecd": [
+        (("pod", "data"), "model", None, None),  # EP: experts sharded
+        (("pod", "data"), None, None, None),
+    ],
+    "moe_gecf": [
+        (("pod", "data"), "model", None, None),  # EP
+        (("pod", "data"), None, None, "model"),  # expert-TP (E < mesh)
+    ],
+}
+
+
+def mesh_axis_sizes(mesh) -> dict[str, int]:
+    """{axis name: size} of a ``DeviceMesh``, or of a mapping of names to
+    sizes (the rules need no process group)."""
+    if isinstance(mesh, Mapping):
+        return {str(k): int(v) for k, v in mesh.items()}
+    return dict(zip(mesh.mesh_dim_names, (int(n) for n in mesh.mesh.shape)))
+
+
+def _axes_size(axes, sizes: Mapping[str, int]) -> int:
+    if axes is None:
+        return 1
+    if isinstance(axes, str):
+        return sizes.get(axes, 1)
+    return math.prod(sizes.get(a, 1) for a in axes)
+
+
+def _filter_axes(axes, sizes):
+    """Drop axes missing from the mesh (e.g. 'pod' on single-pod)."""
+    if axes is None:
+        return None
+    if isinstance(axes, str):
+        return axes if axes in sizes else None
+    kept = tuple(a for a in axes if a in sizes)
+    if not kept:
+        return None
+    return kept if len(kept) > 1 else kept[0]
+
+
+def _spec_dims(shape, wanted, sizes) -> tuple[list, bool]:
+    """Per-dim axes after divisibility filtering + whether every
+    *requested* (mesh-present) axis survived."""
+    dims, complete = [], True
+    for dim, axes in zip(shape, wanted):
+        axes = _filter_axes(axes, sizes)
+        n = _axes_size(axes, sizes)
+        if n > 1 and dim % n == 0:
+            dims.append(axes)
+        else:
+            dims.append(None)
+            if axes is not None:
+                complete = False
+    return dims, complete
+
+
+def safe_spec(shape: tuple[int, ...], wanted: tuple | list, mesh) -> tuple:
+    """A spec from desired per-dim axes, dropping any assignment whose
+    axis product does not divide the dim size. ``wanted`` may be a list
+    of candidates — the first fully-satisfiable one wins."""
+    sizes = mesh_axis_sizes(mesh)
+    candidates = wanted if isinstance(wanted, list) else [wanted]
+    chosen = None
+    for cand in candidates:
+        dims, complete = _spec_dims(shape, cand, sizes)
+        if chosen is None:
+            chosen = dims
+        if complete:
+            chosen = dims
+            break
+    dims = chosen or []
+    while dims and dims[-1] is None:
+        dims.pop()
+    return tuple(dims)
+
+
+# --- parameter sharding ------------------------------------------------------
+
+# path regex -> wanted axes per dim (leading layer-stack dim always None).
+# FSDP adds ("data",) to the first matching non-TP dim (see param_spec).
+PARAM_RULES: list[tuple[str, tuple]] = [
+    (r"embed$", ("model", None)),  # vocab-parallel embedding
+    (r"unembed$", (None, "model")),
+    (r"blocks/(wq|wk|wv)$", (None, None, "model")),
+    (r"blocks/(bq|bk|bv)$", (None, "model")),
+    (r"blocks/wo$", (None, "model", None)),
+    (r"blocks/(w_gate|w_up)$", (None, None, "model")),
+    (r"blocks/w_down$", (None, "model", None)),
+    (r"blocks/moe/router$", (None, None, None)),
+    # experts over model (EP) when E ≥ mesh; else expert-TP on d_ff.
+    (r"blocks/moe/(w_gate|w_up)$", [
+        (None, "model", None, None),
+        (None, None, None, "model"),
+    ]),
+    (r"blocks/moe/w_down$", [
+        (None, "model", None, None),
+        (None, None, "model", None),
+    ]),
+    # recurrentgemma RG-LRU block
+    (r"blocks_rec/(w_x|w_gate_in)$", (None, None, "model")),
+    (r"blocks_rec/w_out$", (None, "model", None)),
+    (r"blocks_rec/(w_a_gate|w_i_gate|a_param|conv_w|conv_b|gate_bias)", (None, "model")),
+    (r"blocks_rec/(w_g|w_u)$", (None, None, "model")),
+    (r"blocks_rec/w_d$", (None, "model", None)),
+    # mamba2
+    (r"blocks/in_proj$", (None, None, "model")),
+    (r"blocks/out_proj$", (None, "model", None)),
+    (r"blocks/(conv_w|conv_b|ssm_norm)$", (None, "model")),
+    (r"blocks/(A_log|D|dt_bias)$", (None, "model")),
+    # whisper encoder/decoder extra mats
+    (r"(enc_blocks|blocks)/(wq_x|wk_x|wv_x)$", (None, None, "model")),
+    (r"(enc_blocks|blocks)/wo_x$", (None, "model", None)),
+    (r"(enc_blocks|blocks)/(w_in)$", (None, None, "model")),
+    (r"(enc_blocks|blocks)/(w_out)$", (None, "model", None)),
+]
+
+_FSDP_ELIGIBLE = re.compile(
+    r"(wq|wk|wv|wo|w_gate|w_up|w_down|in_proj|out_proj|w_in|w_out|embed|unembed)$"
+)
+
+
+def _pick_candidate(shape, wanted, sizes) -> tuple:
+    if isinstance(wanted, list):
+        for cand in wanted:
+            _, complete = _spec_dims(shape, cand, sizes)
+            if complete:
+                return cand
+        return wanted[0]
+    return wanted
+
+
+def param_spec(
+    path: str, shape: tuple[int, ...], mesh, *, fsdp: bool = False,
+    profile: str = "tp",
+) -> tuple:
+    """The spec of the parameter at ``path`` (keys joined by "/") of
+    ``shape`` on ``mesh`` (a ``DeviceMesh`` or {axis name: size})."""
+    if profile == "dp":
+        if fsdp:  # ZeRO over the whole device set
+            n = math.prod(mesh_axis_sizes(mesh).values())
+            for i, dim in enumerate(shape):
+                if dim % n == 0 and dim > 1:
+                    wanted = [None] * len(shape)
+                    wanted[i] = ("pod", "data", "model")
+                    return safe_spec(shape, tuple(wanted), mesh)
+        return ()
+    wanted: tuple | list | None = None
+    for pat, rule in PARAM_RULES:
+        if re.search(pat, path):
+            wanted = rule
+            break
+    if wanted is None:
+        wanted = (None,) * len(shape)
+    wanted = _pick_candidate(shape, wanted, mesh_axis_sizes(mesh))
+    wanted = tuple(wanted[: len(shape)]) + (None,) * (len(shape) - len(wanted))
+    if fsdp and _FSDP_ELIGIBLE.search(path):
+        # Shard the largest still-unsharded dim over data (ZeRO-3 style).
+        sizes = mesh_axis_sizes(mesh)
+        n = sizes.get("data", 1)
+        best, best_dim = None, 0
+        for i, (dim, axes) in enumerate(zip(shape, wanted)):
+            if axes is None and dim % n == 0 and dim > best_dim:
+                best, best_dim = i, dim
+        if best is not None:
+            wanted = tuple(
+                "data" if i == best else a for i, a in enumerate(wanted)
+            )
+    return safe_spec(shape, wanted, mesh)
+
+
+def param_shardings(params_shape: Any, mesh, *, fsdp: bool = False,
+                    profile: str = "tp") -> Any:
+    """The tree of :class:`NamedSharding` on ``mesh`` (a ``DeviceMesh``)
+    matching a tree of (possibly meta) tensors."""
+    return tree_map_with_path(
+        lambda path, leaf: NamedSharding(mesh, param_spec(
+            path_str(path), tuple(leaf.shape), mesh, fsdp=fsdp,
+            profile=profile)),
+        params_shape)
+
+
+def dp_axes(profile: str = "tp") -> tuple[str, ...]:
+    """The mesh axes the batch is cut over: ``(pod, data)``, or every
+    axis under the pure-DP profile."""
+    if profile not in PROFILES:
+        raise ValueError(f"profile {profile!r}; want one of {sorted(PROFILES)}")
+    return ("pod", "data", "model") if profile == "dp" else ("pod", "data")
+
+
+def batch_spec(name: str, shape: tuple[int, ...], mesh,
+               profile: str = "tp") -> tuple:
+    """A batch entry's spec (the reference's ``batch_shardings`` rule,
+    ``repro.launch.steps:22``): leading batch over the DP axes;
+    ``positions`` (3, b, s) carries batch on dim 1."""
+    dp = dp_axes(profile)
+    if name == "positions":
+        wanted = (None, dp, None)
+    else:
+        wanted = (dp,) + (None,) * (len(shape) - 1)
+    return safe_spec(tuple(shape), wanted, mesh)
+
+
+def refuse_tensor_parallel(params_shape: Any, mesh, *, profile: str = "tp",
+                           fsdp: bool = False) -> None:
+    """Raise ``NotImplementedError`` when the ``tp`` profile cuts any
+    leaf of ``params_shape`` over a ``model`` axis of more than one rank
+    (``mesh``: a ``DeviceMesh`` or {axis name: size})."""
+    sizes = mesh_axis_sizes(mesh)
+    if profile != "tp" or sizes.get("model", 1) == 1:
+        return
+    for path, leaf in tree_leaves_with_path(params_shape):
+        spec = param_spec(path_str(path), tuple(leaf.shape), mesh,
+                          fsdp=fsdp, profile=profile)
+        if any("model" in _axes_tuple(a) for a in spec):
+            raise NotImplementedError(
+                f"the tp profile cuts {path_str(path)} {tuple(leaf.shape)} "
+                f"as {spec} over a model axis of {sizes['model']} ranks: "
+                "tensor parallelism is not ported yet (ROADMAP A13-TP, the "
+                "tp profile's model axis, queued with the dense "
+                "transformer); use profile='dp', or a mesh whose model "
+                "axis is 1"
+            )
+
+
+# --- placement on a DeviceMesh ---------------------------------------------------
+
+
+def _axes_tuple(axes) -> tuple[str, ...]:
+    if axes is None:
+        return ()
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+@dataclasses.dataclass(frozen=True)
+class Cut:
+    """Dim ``dim`` of a tensor cut into ``parts`` equal blocks over the
+    mesh axes ``axes``; this rank holds block ``index``."""
+
+    dim: int
+    axes: tuple[str, ...]
+    parts: int
+    index: int
+
+
+def axis_group(mesh, axes):
+    """The process group of this rank over the mesh axes ``axes`` (a name
+    or a tuple of names, in the mesh's order): the dimension's group
+    for one name, the group over their product (ranks ordered as the
+    axes' coordinates, row-major) for several. Axes missing from the
+    mesh are dropped; None when no axis is left."""
+    names = list(mesh.mesh_dim_names)
+    axes = tuple(a for a in _axes_tuple(axes) if a in names)
+    if not axes:
+        return None
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    dims = [names.index(a) for a in axes]
+    if dims != sorted(dims):
+        raise ValueError(f"axes {axes} are not in the mesh's order {names}")
+    # Built once per mesh (a collective: every rank of the mesh makes
+    # every group, in one order) and kept on the mesh.
+    groups = mesh.__dict__.setdefault("_product_groups", {})
+    if axes not in groups:
+        ranks = mesh.mesh.movedim(dims, list(range(len(dims))))
+        ranks = ranks.reshape(math.prod(ranks.shape[:len(dims)]), -1).t()
+        groups[axes], _ = torch.distributed.new_subgroups_by_enumeration(
+            [[int(r) for r in row] for row in ranks])
+    return groups[axes]
+
+
+def axis_index(mesh, axes) -> int:
+    """This rank's position along the product of the mesh axes ``axes``
+    (row-major in their order); 0 when none is in the mesh."""
+    sizes = mesh_axis_sizes(mesh)
+    index = 0
+    for a in _axes_tuple(axes):
+        if a in sizes:
+            index = index * sizes[a] + mesh.get_local_rank(a)
+    return index
+
+
+def axes_size(mesh, axes) -> int:
+    """Ranks along the product of the mesh axes ``axes``."""
+    return _axes_size(_axes_tuple(axes), mesh_axis_sizes(mesh))
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A spec placed on a ``DeviceMesh`` (the reference's
+    ``jax.sharding.NamedSharding``). A frozen dataclass, not a tuple, so
+    that a tree of them has them as leaves."""
+
+    mesh: Any
+    spec: tuple
+
+    def cuts(self) -> list[Cut]:
+        """The dims the spec cuts, with their axes, parts and this
+        rank's block."""
+        return [Cut(d, _axes_tuple(a), axes_size(self.mesh, a),
+                    axis_index(self.mesh, a))
+                for d, a in enumerate(self.spec) if a is not None]
+
+    @property
+    def replicated(self) -> bool:
+        return not any(a is not None for a in self.spec)
+
+    def shard(self, full: torch.Tensor) -> torch.Tensor:
+        """This rank's block of ``full`` (a view)."""
+        return local_shard(full, self.spec, self.mesh)
+
+    def gather(self, shard: torch.Tensor) -> torch.Tensor:
+        """The full tensor from every rank's ``shard`` (a collective: each
+        rank of the cut axes' groups calls it)."""
+        full = shard
+        for cut in reversed(self.cuts()):
+            group = axis_group(self.mesh, cut.axes)
+            moved = full.movedim(cut.dim, 0).contiguous()
+            full = comm.all_gather(moved, group).movedim(0, cut.dim)
+        return full.contiguous()
+
+
+def local_shard(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    """This rank's block of the full tensor ``t`` under ``spec`` on the
+    ``DeviceMesh`` ``mesh``: each cut dim narrowed to its block (a
+    view)."""
+    if len(spec) > t.ndim:
+        raise ValueError(f"spec {spec} has more entries than {tuple(t.shape)}")
+    for cut in NamedSharding(mesh, tuple(spec)).cuts():
+        extent = t.shape[cut.dim]
+        if extent % cut.parts:
+            raise ValueError(
+                f"dim {cut.dim} of {tuple(t.shape)} does not split into "
+                f"{cut.parts} equal blocks over {cut.axes}")
+        width = extent // cut.parts
+        t = t.narrow(cut.dim, cut.index * width, width)
+    return t
+
+
+def shard_tree(tree: Any, shardings: Any) -> Any:
+    """Each leaf of ``tree`` (full tensors) cut to this rank's block, as a
+    contiguous copy where it is cut (so the full tensor can be freed)."""
+    by_path = dict(tree_leaves_with_path(shardings))
+
+    def one(path, leaf):
+        sh = by_path[path]
+        return leaf if sh.replicated else sh.shard(leaf).contiguous()
+
+    return tree_map_with_path(one, tree)
+
+
+def gather_tree(tree: Any, shardings: Any) -> Any:
+    """Each leaf of ``tree`` (this rank's blocks) gathered to its full
+    shape (a collective)."""
+    by_path = dict(tree_leaves_with_path(shardings))
+
+    def one(path, leaf):
+        sh = by_path[path]
+        return leaf if sh.replicated else sh.gather(leaf)
+
+    return tree_map_with_path(one, tree)
+
+
+# --- activation constraints --------------------------------------------------
+
+
+# Pure data-parallel profile: the `model` axis joins the batch axes and
+# parameters replicate. Right for models whose per-chip matmuls are too
+# small to amortize TP collectives (mamba2-780m: d=1536 → Megatron ARs
+# dominate; §Perf cell 3). Gradient sync cost moves to the optimizer
+# all-reduce, which overlaps with backward.
+_DPM = ("pod", "data", "model")
+DP_ACT_RULES: dict[str, tuple | list] = {
+    "tokens_bs": (_DPM, None),
+    "act_bsd": (_DPM, None, None),
+    "act_bshd": (_DPM, None, None, None),
+    "logits_bsv": (_DPM, None, None),
+    "decode_bd": (_DPM, None),
+    "cache_blgd": (_DPM, None, None, None),
+    "unembed_dv": (None, None),
+    "moe_gecd": (_DPM, None, None, None),
+    "moe_gecf": (_DPM, None, None, None),
+}
+
+PROFILES = {"tp": DEFAULT_ACT_RULES, "dp": DP_ACT_RULES}
+
+
+def profile_act_rules(profile: str):
+    return PROFILES[profile]
+
+
+def set_rules(mesh, rules: Mapping[str, tuple] | None = None):
+    _STATE.mesh = mesh
+    _STATE.rules = dict(rules or DEFAULT_ACT_RULES)
+
+
+@contextlib.contextmanager
+def rules_context(mesh, rules: Mapping[str, tuple] | None = None):
+    prev = (getattr(_STATE, "mesh", None), getattr(_STATE, "rules", None))
+    set_rules(mesh, rules)
+    try:
+        yield
+    finally:
+        _STATE.mesh, _STATE.rules = prev
+
+
+def constrain(x: torch.Tensor, kind: str) -> torch.Tensor:
+    """The reference's activation annotation. It asks GSPMD's
+    partitioner to lay ``x`` out by the installed rule for ``kind``;
+    eager PyTorch has no partitioner and each rank already computes on
+    its own block of the batch, so ``x`` comes back as it is, with or
+    without a rule set."""
+    del kind
+    return x

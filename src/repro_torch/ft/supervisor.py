@@ -16,10 +16,18 @@ resumes from the last durable step with bit-identical data order.
   ``SimulatedFailure`` is only the default.
 * ``StragglerMonitor`` tracks per-step (or per-batch) wall times; a step
   slower than ``factor ×`` the trailing median is flagged as a
-  straggler, logged, counted and handed to the optional
-  ``on_straggler`` callback. The serving loop
+  straggler, logged with its ``rank``, counted and handed to the
+  optional ``on_straggler`` callback. The serving loop
   (``repro_torch.launch.serve_sim``) feeds it each batch's seconds, the
-  supervisor each step's.
+  supervisor each step's; in a data-parallel run each rank keeps its
+  own.
+* Over the ranks of an initialized ``torch.distributed`` group the
+  supervisor runs in lockstep: every rank fails at ``failure_at``, a
+  barrier lets rank 0's last checkpoint land before any rank reads the
+  latest step, all restore the same step, and a barrier follows the
+  restore. ``shardings`` (the checkpointed subtree's) makes each save
+  the manager's sharded save (gathered leaves, rank 0 writes, a
+  barrier).
 """
 from __future__ import annotations
 
@@ -28,7 +36,16 @@ import logging
 import time
 from typing import Any, Callable
 
+import torch.distributed as dist
+
 log = logging.getLogger("repro_torch.ft")
+
+
+def _barrier() -> None:
+    """A barrier over the initialized group; nothing on a single
+    process."""
+    if dist.is_available() and dist.is_initialized():
+        dist.barrier()
 
 
 class SimulatedFailure(RuntimeError):
@@ -40,6 +57,7 @@ class StragglerMonitor:
     factor: float = 1.5
     window: int = 20
     on_straggler: Callable[[int, float, float], None] | None = None
+    rank: int = 0
     _times: list = dataclasses.field(default_factory=list)
     flagged: list = dataclasses.field(default_factory=list)
 
@@ -51,8 +69,8 @@ class StragglerMonitor:
             if seconds > self.factor * med:
                 self.flagged.append((step, seconds, med))
                 log.warning(
-                    "straggler at step %d: %.3fs vs median %.3fs",
-                    step, seconds, med,
+                    "straggler at step %d on rank %d: %.3fs vs median "
+                    "%.3fs", step, self.rank, seconds, med,
                 )
                 if self.on_straggler:
                     self.on_straggler(step, seconds, med)
@@ -80,6 +98,9 @@ class Supervisor:
     # filesystem also restarts from the last durable step.
     # KeyboardInterrupt/SystemExit are never caught.
     recoverable: tuple[type[BaseException], ...] = (SimulatedFailure,)
+    # The checkpointed subtree's shardings in a sharded run (None: each
+    # save writes this process's tree as it is).
+    shardings: Any = None
 
     def run(
         self,
@@ -114,7 +135,11 @@ class Supervisor:
                 step += 1
                 if step % self.ckpt_every == 0 or step == n_steps:
                     to_save = save_filter(state) if save_filter else state
-                    self.ckpt_manager.save(step, to_save)
+                    if self.shardings is None:
+                        self.ckpt_manager.save(step, to_save)
+                    else:
+                        self.ckpt_manager.save(step, to_save,
+                                               shardings=self.shardings)
             except self.recoverable as e:
                 restarts += 1
                 report["restarts"] = restarts
@@ -127,8 +152,10 @@ class Supervisor:
                 if restore_fn is None:
                     raise
                 self.ckpt_manager.wait()
+                _barrier()
                 last = self.ckpt_manager.latest_step()
                 state, step = restore_fn(state, last)
+                _barrier()
                 log.warning("restored at step %d, resuming", step)
         self.ckpt_manager.wait()
         return state, report

@@ -1,4 +1,5 @@
-"""Process meshes for the sharded stencil (port of ``repro.launch.mesh``).
+"""Process meshes for the sharded stencil and data-parallel training
+(port of ``repro.launch.mesh``).
 
 JAX's single controller names mesh axes for ``shard_map``; here every
 rank is a process of an initialized ``torch.distributed`` group, and
@@ -18,8 +19,11 @@ The caller names the backend: ``gloo`` (CPU tensors, or CUDA tensors
 staged through host memory, several ranks on one card) or ``nccl``
 (one card per rank).
 
-The reference's ``make_production_mesh`` (a 16 x 16 TPU pod) is not
-ported here: it belongs with the dry run (ROADMAP A13).
+:func:`make_production_mesh` is the reference's production layout,
+``(data=16, model=16)`` or ``(pod=2, data=16, model=16)`` with ``pod``
+outermost, over a group of exactly 256 or 512 ranks; :func:`parse_mesh`
+reads the train CLI's ``--mesh DxM`` / ``PxDxM`` into a shape and axis
+names (each rank then builds the mesh itself, in :func:`run_on_mesh`).
 """
 from __future__ import annotations
 
@@ -69,6 +73,57 @@ def make_mesh(shape, axes, *, device=None):
         device.type, torch.arange(world).reshape(shape),
         mesh_dim_names=axes,
     )
+
+
+# The reference's production meshes (``repro.launch.mesh:30``).
+PRODUCTION_MESHES = {
+    False: ((16, 16), ("data", "model")),
+    True: ((2, 16, 16), ("pod", "data", "model")),
+}
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None):
+    """The production mesh over the initialized group: ``(data=16,
+    model=16)``, or ``(pod=2, data=16, model=16)`` with ``multi_pod``.
+
+    Raises:
+        RuntimeError: without an initialized process group.
+        ValueError: when the group does not hold exactly its 256 (512)
+            ranks.
+    """
+    shape, axes = PRODUCTION_MESHES[bool(multi_pod)]
+    if not dist.is_initialized():
+        raise RuntimeError(
+            "make_production_mesh needs an initialized torch.distributed "
+            "process group of one rank per chip"
+        )
+    world = dist.get_world_size()
+    if world != math.prod(shape):
+        raise ValueError(
+            f"the production mesh {dict(zip(axes, shape))} holds "
+            f"{math.prod(shape)} ranks; this group has {world} (use "
+            "make_mesh for any other layout)"
+        )
+    return make_mesh(shape, axes, device=device)
+
+
+def parse_mesh(s: str) -> tuple[tuple[int, ...], tuple[str, ...]]:
+    """``"DxM"`` → ((D, M), ("data", "model")); ``"PxDxM"`` → ((P, D, M),
+    ("pod", "data", "model")): the reference's ``--mesh`` grammar
+    (``repro.launch.train:32``), as a shape and axis names.
+
+    Raises:
+        ValueError: for any other form, or a size below 1.
+    """
+    try:
+        dims = tuple(int(x) for x in s.lower().split("x"))
+    except ValueError:
+        dims = ()
+    if len(dims) not in (2, 3) or min(dims) < 1:
+        raise ValueError(
+            f"--mesh {s!r}: want DxM or PxDxM with sizes of at least 1")
+    axes = ("data", "model") if len(dims) == 2 else ("pod", "data", "model")
+    return dims, axes
 
 
 def mesh_chip_count(mesh) -> int:

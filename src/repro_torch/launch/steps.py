@@ -1,12 +1,17 @@
 """Step makers (port of ``repro.launch.steps``): ``make_train_step``
-(with its gradient half, ``make_grad_step``), ``make_prefill_step`` and
-``make_serve_step``.
+(with its gradient half, ``make_grad_step``, and over a mesh
+``make_synced_grad_step``), ``train_shardings``, ``make_prefill_step``
+and ``make_serve_step``.
 
-PyTorch runs eagerly, so there is no jit, donation or sharding
-assembly; the data-parallel train step waits for the next slice of
-ROADMAP A13. Each maker fixes the device its step runs on (the card by
-default; it raises without one unless the caller passes
-``device="cpu"``) and refuses tokens elsewhere.
+PyTorch runs eagerly, so there is no jit or donation. ``jit_train_step``'s
+semantics (GSPMD over a mesh with the reference's shardings) become
+``make_train_step(..., mesh=...)``: every rank of a
+``torch.distributed`` mesh (``launch.mesh``) takes its rows of the
+global batch, computes its gradient and joins the data-parallel sum
+(``distrib.grad_sync``); with ``fsdp=True`` it holds the leaves
+``param_spec`` cuts as its own blocks, ZeRO-style. Each maker fixes the
+device its step runs on (the card by default; it raises without one
+unless the caller passes ``device="cpu"``) and refuses tokens elsewhere.
 """
 from __future__ import annotations
 
@@ -14,9 +19,12 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.registry import get_model
+from repro_torch.distrib import comm
+from repro_torch.distrib import sharding as shlib
+from repro_torch.distrib.grad_sync import global_norm, sync_grads
 from repro_torch.models.config import ModelConfig
-from repro_torch.optim import AdamWConfig, adamw_update
-from repro_torch.tree import tree_map
+from repro_torch.optim import AdamWConfig, OptState, adamw_update
+from repro_torch.tree import tree_leaves, tree_map
 
 
 def _tokens_on(batch: dict, device: torch.device) -> torch.Tensor:
@@ -53,23 +61,110 @@ def make_grad_step(cfg: ModelConfig, *,
     return grad_step
 
 
+def train_shardings(cfg: ModelConfig, mesh, *, profile: str = "tp",
+                    fsdp: bool = False):
+    """(param shardings, optimizer-state shardings) of the train step on
+    ``mesh``, as the reference's ``jit_train_step`` returns them: trees
+    of ``distrib.sharding.NamedSharding`` from ``param_spec`` over the
+    model's abstract parameters; the moments mirror the parameters, the
+    step count is replicated.
+
+    Raises:
+        NotImplementedError: when the ``tp`` profile cuts a leaf over a
+            ``model`` axis of more than one rank (ROADMAP A13-TP).
+    """
+    abstract = get_model(cfg).abstract_params(cfg)
+    shlib.refuse_tensor_parallel(abstract, mesh, profile=profile, fsdp=fsdp)
+    p_sh = shlib.param_shardings(abstract, mesh, fsdp=fsdp, profile=profile)
+    return p_sh, OptState(step=shlib.NamedSharding(mesh, ()), mu=p_sh,
+                          nu=p_sh)
+
+
+def make_synced_grad_step(cfg: ModelConfig, *, mesh, profile: str = "tp",
+                          fsdp: bool = False,
+                          device: str | torch.device | None = None):
+    """``synced_grad_step(params, batch)`` → (loss, metrics, grads,
+    grad_norm) on one rank of ``mesh``: ``batch`` is this rank's rows of
+    the global batch (``batch_spec``: ``BatchIterator(host_index=
+    dp_index, host_count=dp_size)`` makes them); ``params`` are full, or
+    under ``fsdp`` this rank's blocks (``sharding.shard_tree``), which
+    are all-gathered before the forward.
+
+    The gradient of ``lm_loss`` (:func:`make_grad_step`) is weighted by
+    this rank's share of the global batch's tokens and summed over the
+    data-parallel ranks (``grad_sync.sync_grads``: a flat bucketed f32
+    all-reduce, or a reduce-scatter to this rank's block under
+    ``fsdp``), which gives the reference's global-batch mean; the loss
+    is the global mean too. ``grad_norm`` is the global norm of a
+    sharded tree (None when every leaf is full: AdamW takes it from the
+    tree)."""
+    grad_step = make_grad_step(cfg, device=device)
+    p_sh, _ = train_shardings(cfg, mesh, profile=profile, fsdp=fsdp)
+    axes = shlib.dp_axes(profile)
+    group = shlib.axis_group(mesh, axes)
+    sharded = any(not sh.replicated for sh in tree_leaves(p_sh))
+
+    def synced_grad_step(params, batch):
+        full = shlib.gather_tree(params, p_sh) if sharded else params
+        loss, metrics, grads = grad_step(full, batch)
+        del full
+        mask = batch.get("loss_mask")
+        count = (mask.double().sum() if mask is not None else
+                 torch.tensor(float(batch["labels"].numel()),
+                              dtype=torch.float64, device=loss.device))
+        stats = torch.stack([count, loss.double() * count])
+        comm.all_reduce_([stats], group)
+        weight = (count / stats[0]).float()
+        loss = (stats[1] / stats[0]).float()
+        grads = sync_grads(grads, p_sh, mesh, axes, weight)
+        norm = global_norm(grads, p_sh, mesh) if sharded else None
+        return loss, dict(metrics, xent=loss), grads, norm
+
+    return synced_grad_step
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
-                    device: str | torch.device | None = None):
+                    device: str | torch.device | None = None,
+                    mesh=None, profile: str = "tp", fsdp: bool = False):
     """``train_step(params, opt_state, batch)`` → (params, opt_state,
     metrics): the gradient of ``lm_loss`` (:func:`make_grad_step`; the
     B7 kernel on the card), then one ``adamw_update``; metrics ``xent``,
     ``loss``, ``grad_norm`` and ``lr`` (tensors on the device, read by
-    the caller when it wants)."""
-    grad_step = make_grad_step(cfg, device=device)
+    the caller when it wants).
 
-    def train_step(params, opt_state, batch):
-        loss, metrics, grads = grad_step(params, batch)
+    With ``mesh`` (a ``DeviceMesh`` over an initialized group) each rank
+    runs the data-parallel step of :func:`make_synced_grad_step`:
+    ``profile`` ``"dp"`` cuts the batch over every mesh axis, ``"tp"``
+    over ``(pod, data)``; ``fsdp`` holds the leaves ``param_spec`` cuts,
+    and their moments, as this rank's blocks (``train_shardings`` gives
+    the layout; ``sharding.shard_tree`` cuts a full tree to it), and
+    AdamW updates the blocks, clipped by the global norm. Metrics are
+    global and equal on every rank."""
+    if mesh is None:
+        if fsdp:
+            raise ValueError("fsdp=True needs a mesh")
+        grad_step = make_grad_step(cfg, device=device)
+
+        def train_step(params, opt_state, batch):
+            loss, metrics, grads = grad_step(params, batch)
+            params, opt_state, opt_metrics = adamw_update(
+                opt_cfg, grads, opt_state, params
+            )
+            return params, opt_state, dict(metrics, loss=loss, **opt_metrics)
+
+        return train_step
+
+    synced = make_synced_grad_step(cfg, mesh=mesh, profile=profile,
+                                   fsdp=fsdp, device=device)
+
+    def dp_train_step(params, opt_state, batch):
+        loss, metrics, grads, norm = synced(params, batch)
         params, opt_state, opt_metrics = adamw_update(
-            opt_cfg, grads, opt_state, params
+            opt_cfg, grads, opt_state, params, grad_norm=norm
         )
         return params, opt_state, dict(metrics, loss=loss, **opt_metrics)
 
-    return train_step
+    return dp_train_step
 
 
 def make_prefill_step(cfg: ModelConfig, *,

@@ -1,5 +1,5 @@
-"""Training entry point (port of ``repro.launch.train``): mamba2 on one card,
-fault-tolerant.
+"""Training entry point (port of ``repro.launch.train``): mamba2 on one card
+or data-parallel over a mesh of ranks, fault-tolerant.
 
     PYTHONPATH=src python -m repro_torch.launch.train --reduced \\
         --steps 50 --global-batch 8 --seq-len 64 [--device cpu]
@@ -8,16 +8,30 @@ fault-tolerant.
     PYTHONPATH=src python -m repro_torch.launch.train --reduced \\
         --steps 60 --simulate-failure-at 25
 
+    # data-parallel over two CPU ranks (gloo):
+    PYTHONPATH=src python -m repro_torch.launch.train --reduced \\
+        --device cpu --backend gloo --mesh 2x1
+
 The loop is the reference's: ``MarkovLMDataset`` batches by step number
 (``BatchIterator``), ``make_train_step`` (``lm_loss``'s gradient, with
 the B7 kernel on the card, then AdamW), ``Supervisor`` checkpointing
 every ``--ckpt-every`` steps through ``CheckpointManager`` and replaying
-from the last checkpoint after a failure. Only ``--mesh 1x1`` runs: the
-data-parallel mesh is the next slice of ROADMAP A13.
+from the last checkpoint after a failure.
+
+``--mesh DxM`` / ``PxDxM`` (``launch.mesh.parse_mesh``) above one rank
+starts one process per rank (``launch.mesh.run_on_mesh``) over
+``--backend`` ``nccl`` (the default: one card per rank; it raises with
+fewer cards) or ``gloo`` (CPU ranks with ``--device cpu``, or several
+ranks sharing a card). Each rank takes its rows of every global batch
+(the reference's ``tp`` profile: the batch over ``(pod, data)``) and
+joins the gradient sum; checkpoints hold whole leaves. Rank 0 prints. A
+``model`` axis above 1 raises ``NotImplementedError``: tensor
+parallelism is ROADMAP A13-TP.
 """
 from __future__ import annotations
 
 import argparse
+import math
 import os
 import tempfile
 import time
@@ -28,13 +42,15 @@ from repro_torch import resolve_device
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.registry import get_config, get_model, reduced_config
 from repro_torch.data import BatchIterator, MarkovLMDataset
-from repro_torch.ft import Supervisor
+from repro_torch.distrib import sharding as shlib
+from repro_torch.ft import StragglerMonitor, Supervisor
 from repro_torch.kernels import conv1d_depthwise as kc
-from repro_torch.launch.steps import make_train_step
+from repro_torch.launch.mesh import parse_mesh, run_on_mesh
+from repro_torch.launch.steps import make_train_step, train_shardings
 from repro_torch.optim import AdamWConfig, adamw_init
 
 
-def main(argv: list[str] | None = None) -> None:
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="mamba2-780m")
     ap.add_argument("--reduced", action="store_true",
@@ -42,7 +58,10 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--global-batch", type=int, default=8)
     ap.add_argument("--seq-len", type=int, default=64)
-    ap.add_argument("--mesh", default="1x1")
+    ap.add_argument("--mesh", default="1x1",
+                    help="DxM or PxDxM ranks (data, model; pod outermost)")
+    ap.add_argument("--backend", default="nccl", choices=("nccl", "gloo"),
+                    help="process-group backend of a mesh above one rank")
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--ckpt-dir",
                     default=os.path.join(tempfile.gettempdir(),
@@ -56,18 +75,55 @@ def main(argv: list[str] | None = None) -> None:
                          "run's shape before the first step")
     ap.add_argument("--device", default=None,
                     help="the card by default; 'cpu' for the plain path")
-    args = ap.parse_args(argv)
+    return ap
 
-    if args.mesh != "1x1":
-        raise NotImplementedError(
-            f"--mesh {args.mesh} is not ported yet: ROADMAP A13's next "
-            "slice (data-parallel training: distrib/grad_sync.py, "
-            "distrib/sharding.py, make_production_mesh, --mesh)"
-        )
-    dev = resolve_device(args.device)
+
+def _config(args):
     cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = reduced_config(cfg)
+    return reduced_config(cfg) if args.reduced else cfg
+
+
+def main(argv: list[str] | None = None) -> None:
+    args = _parser().parse_args(argv)
+    shape, axes = parse_mesh(args.mesh)
+    world = math.prod(shape)
+    cfg = _config(args)
+    shlib.refuse_tensor_parallel(get_model(cfg).abstract_params(cfg),
+                                 dict(zip(axes, shape)))
+    if world == 1:
+        _train(None, vars(args))
+        return
+    if args.backend == "nccl":
+        cards = torch.cuda.device_count()
+        cpu = args.device is not None and torch.device(args.device).type == "cpu"
+        if cpu or cards < world:
+            raise RuntimeError(
+                f"--backend nccl needs one card per rank: --mesh {args.mesh} "
+                f"has {world} ranks and there are "
+                f"{0 if cpu else cards} cards for them; use --backend gloo "
+                "(CPU ranks with --device cpu, or ranks sharing a card)"
+            )
+    # By the module's import name, which a spawned rank can load even
+    # when this file runs as ``__main__``.
+    from repro_torch.launch import train as this
+
+    run_on_mesh(this._train, shape, axes, backend=args.backend,
+                device=args.device, args=(vars(args),), timeout=24 * 3600)
+
+
+def _train(mesh, opts: dict) -> None:
+    """The training loop on one rank of ``mesh`` (None: one process)."""
+    args = argparse.Namespace(**opts)
+    rank = 0 if mesh is None else torch.distributed.get_rank()
+    dev = (resolve_device(args.device) if mesh is None else
+           torch.device("cpu") if args.device == "cpu" else
+           torch.device("cuda", torch.cuda.current_device()))
+
+    def say(*a, **kw):
+        if rank == 0:
+            print(*a, **kw, flush=True)
+
+    cfg = _config(args)
     if args.auto_tune:
         from repro_torch import tuning
 
@@ -75,8 +131,8 @@ def main(argv: list[str] | None = None) -> None:
         warmed = tuning.warm_model_kernels(
             cfg, args.global_batch, args.seq_len, device=dev
         )
-        print(f"auto-tune: {warmed} kernel shape(s) warmed; cache at "
-              f"{tuning.default_cache_dir()}")
+        say(f"auto-tune: {warmed} kernel shape(s) warmed; cache at "
+            f"{tuning.default_cache_dir()}")
 
     api = get_model(cfg)
     opt_cfg = AdamWConfig(
@@ -86,20 +142,32 @@ def main(argv: list[str] | None = None) -> None:
     dataset = MarkovLMDataset(
         vocab=cfg.vocab, seq_len=args.seq_len, branching=4
     )
-    print(f"dataset entropy rate: {dataset.entropy_rate:.3f} nats/token")
-    step_fn = make_train_step(cfg, opt_cfg, device=dev)
+    say(f"dataset entropy rate: {dataset.entropy_rate:.3f} nats/token")
+    if mesh is None:
+        step_fn = make_train_step(cfg, opt_cfg, device=dev)
+        shardings, host, hosts = None, 0, 1
+    else:
+        step_fn = make_train_step(cfg, opt_cfg, device=dev, mesh=mesh)
+        p_sh, o_sh = train_shardings(cfg, mesh)
+        shardings = {"params": p_sh, "opt": o_sh}
+        host = shlib.axis_index(mesh, shlib.dp_axes())
+        hosts = shlib.axes_size(mesh, shlib.dp_axes())
+        say(f"mesh {shlib.mesh_axis_sizes(mesh)}: {hosts} data-parallel "
+            f"ranks, {args.global_batch // hosts} rows each")
 
-    params = api.init_params(cfg, seed=0, device=dev)
-    opt_state = adamw_init(params)
+    def fresh():
+        params = api.init_params(cfg, seed=0, device=dev)
+        return {"params": params, "opt": adamw_init(params)}
+
     ckpt = CheckpointManager(args.ckpt_dir, keep=3)
-    sup = Supervisor(ckpt, ckpt_every=args.ckpt_every)
-
-    state = {"params": params, "opt": opt_state}
+    sup = Supervisor(ckpt, ckpt_every=args.ckpt_every,
+                     straggler=StragglerMonitor(rank=rank),
+                     shardings=shardings)
     losses: list[float] = []
 
     def one_step(state, step):
         it = BatchIterator(
-            dataset, args.global_batch, host_index=0, host_count=1,
+            dataset, args.global_batch, host_index=host, host_count=hosts,
             start_step=step,
         )
         params, opt, metrics = step_fn(state["params"], state["opt"],
@@ -107,24 +175,22 @@ def main(argv: list[str] | None = None) -> None:
         loss = float(metrics["loss"])
         losses.append(loss)
         if step % args.log_every == 0 or step == args.steps - 1:
-            print(
+            say(
                 f"step {step:5d}  loss {loss:.4f}  "
                 f"lr {float(metrics['lr']):.2e}  "
                 f"gnorm {float(metrics['grad_norm']):.3f}",
-                flush=True,
             )
         return {"params": params, "opt": opt}
 
     def restore(state, step):
         if step is None:  # no checkpoint yet: replay from the seeded init
-            params = api.init_params(cfg, seed=0, device=dev)
-            return {"params": params, "opt": adamw_init(params)}, 0
-        return ckpt.restore(state, step)
+            return fresh(), 0
+        return ckpt.restore(state, step, shardings=shardings)
 
     kc.reset_launch_counts()
     t0 = time.time()
     state, report = sup.run(
-        state, one_step, args.steps,
+        fresh(), one_step, args.steps,
         failure_at=args.simulate_failure_at,
         restore_fn=restore,
         save_filter=lambda s: s,
@@ -132,11 +198,13 @@ def main(argv: list[str] | None = None) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.time() - t0
-    print(
+    final = f"{losses[-1]:.4f}" if losses else "n/a"
+    say(
         f"\ndone: {args.steps} steps in {dt:.1f}s  "
-        f"final loss {losses[-1]:.4f}  (entropy rate "
+        f"final loss {final}  (entropy rate "
         f"{dataset.entropy_rate:.3f})  restarts={report['restarts']} "
         f"stragglers={report['stragglers']}  device={dev}  "
+        f"mesh={args.mesh}  "
         f"conv1d_depthwise launches={kc.conv1d_depthwise_cuda.launches}"
     )
 

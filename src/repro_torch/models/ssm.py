@@ -55,26 +55,42 @@ def _dims(cfg: ModelConfig):
     return dv, h, p, g, n, conv_ch
 
 
-def init_block_params(cfg: ModelConfig, gen: torch.Generator,
-                      n_layers: int) -> Params:
+def _block_shapes(cfg: ModelConfig, n_layers: int) -> dict[str, tuple]:
+    """Each stacked block leaf's shape."""
     d = cfg.d_model
     dv, h, p, g, n, conv_ch = _dims(cfg)
     in_dim = 2 * dv + 2 * g * n + h  # z, xBC, dt
+    return {
+        "ln1": (n_layers, d),
+        "in_proj": (n_layers, d, in_dim),
+        "conv_w": (n_layers, cfg.ssm_conv_kernel, conv_ch),
+        "conv_b": (n_layers, conv_ch),
+        "A_log": (n_layers, h),
+        "D": (n_layers, h),
+        "dt_bias": (n_layers, h),
+        "ssm_norm": (n_layers, dv),
+        "out_proj": (n_layers, dv, d),
+    }
+
+
+def init_block_params(cfg: ModelConfig, gen: torch.Generator,
+                      n_layers: int) -> Params:
+    shapes = _block_shapes(cfg, n_layers)
     dev = gen.device
 
-    def zeros(*shape):
-        return torch.zeros(shape, device=dev)
+    def zeros(name):
+        return torch.zeros(shapes[name], device=dev)
 
     return {
-        "ln1": zeros(n_layers, d),
-        "in_proj": L.dense_init(gen, (n_layers, d, in_dim)),
-        "conv_w": L.dense_init(gen, (n_layers, cfg.ssm_conv_kernel, conv_ch)),
-        "conv_b": zeros(n_layers, conv_ch),
-        "A_log": zeros(n_layers, h),  # A = -exp(A_log) = -1
-        "D": torch.ones((n_layers, h), device=dev),
-        "dt_bias": zeros(n_layers, h),
-        "ssm_norm": zeros(n_layers, dv),
-        "out_proj": L.dense_init(gen, (n_layers, dv, d)),
+        "ln1": zeros("ln1"),
+        "in_proj": L.dense_init(gen, shapes["in_proj"]),
+        "conv_w": L.dense_init(gen, shapes["conv_w"]),
+        "conv_b": zeros("conv_b"),
+        "A_log": zeros("A_log"),  # A = -exp(A_log) = -1
+        "D": torch.ones(shapes["D"], device=dev),
+        "dt_bias": zeros("dt_bias"),
+        "ssm_norm": zeros("ssm_norm"),
+        "out_proj": L.dense_init(gen, shapes["out_proj"]),
     }
 
 
@@ -93,6 +109,23 @@ def init_params(cfg: ModelConfig, seed: int = 0,
         "blocks": init_block_params(cfg, gen, cfg.n_layers),
         "final_norm": torch.zeros((cfg.d_model,), device=dev),
         "unembed": L.dense_init(gen, (cfg.d_model, cfg.vocab)),
+    }
+
+
+def abstract_params(cfg: ModelConfig) -> Params:
+    """The tree :func:`init_params` makes, as float32 tensors on the
+    ``meta`` device (shapes, no storage): the reference's
+    ``launch.specs.abstract_params``, which the sharding rules read."""
+
+    def meta(shape):
+        return torch.empty(shape, dtype=f32, device="meta")
+
+    return {
+        "embed": meta((cfg.vocab, cfg.d_model)),
+        "blocks": {k: meta(s) for k, s in
+                   _block_shapes(cfg, cfg.n_layers).items()},
+        "final_norm": meta((cfg.d_model,)),
+        "unembed": meta((cfg.d_model, cfg.vocab)),
     }
 
 

@@ -77,13 +77,16 @@ def adamw_init(params: Any) -> OptState:
     )
 
 
-def clip_by_global_norm(grads: Any, max_norm: float):
+def clip_by_global_norm(grads: Any, max_norm: float,
+                        norm: torch.Tensor | None = None):
     """(grads scaled so that their global L2 norm is at most
     ``max_norm``, each in its own dtype; the norm before scaling, a
     float32 scalar). The squares are summed leaf by leaf in the
-    reference's leaf order."""
-    sq = sum(g.float().square().sum() for g in tree_leaves(grads))
-    norm = torch.sqrt(sq)
+    reference's leaf order, unless the caller gives ``norm`` (a tree
+    of shards whose norm spans every rank's)."""
+    if norm is None:
+        norm = torch.sqrt(
+            sum(g.float().square().sum() for g in tree_leaves(grads)))
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
     return tree_map(lambda g: (g * scale).to(g.dtype), grads), norm
 
@@ -102,12 +105,16 @@ def _decays(path: tuple[str, ...]) -> bool:
 
 @torch.no_grad()
 def adamw_update(
-    cfg: AdamWConfig, grads: Any, state: OptState, params: Any
+    cfg: AdamWConfig, grads: Any, state: OptState, params: Any, *,
+    grad_norm: torch.Tensor | None = None,
 ) -> tuple[Any, OptState, dict[str, torch.Tensor]]:
     """One AdamW step → (new_params, new_state, metrics {"grad_norm",
     "lr"}): the gradients clipped to ``cfg.clip_norm``, the step
-    counted, the learning rate from :func:`cosine_schedule`."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    counted, the learning rate from :func:`cosine_schedule`.
+    ``grad_norm``, when given, is the global norm clipping uses (the
+    ZeRO step's, whose ``grads`` and ``params`` are this rank's
+    shards)."""
+    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, grad_norm)
     step = state.step + 1
     lr = cosine_schedule(cfg, step)
     b1, b2 = cfg.b1, cfg.b2

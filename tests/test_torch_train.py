@@ -594,11 +594,11 @@ def test_train_cli_imports_no_jax_and_refuses_a_mesh(tmp_path):
                     "--global-batch", "2", "--seq-len", "16",
                     "--ckpt-every", "1", "--ckpt-dir", {str(tmp_path)!r}])
         try:
-            train.main(["--reduced", "--device", "cpu", "--mesh", "2x1"])
+            train.main(["--reduced", "--device", "cpu", "--mesh", "1x2"])
         except NotImplementedError as e:
-            assert "A13" in str(e), e
+            assert "A13-TP" in str(e), e
         else:
-            raise AssertionError("--mesh 2x1 ran")
+            raise AssertionError("--mesh 1x2 (tensor parallel) ran")
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "repro")]
         print(json.dumps(bad))
