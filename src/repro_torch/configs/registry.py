@@ -1,14 +1,16 @@
 """Registry (port of ``repro.configs.registry``): arch lookup, the
 input-shape grid, reduced smoke-test configs and the model API.
 
-Only mamba2-780m is ported; the reference's other nine architectures
-raise ``NotImplementedError`` naming ROADMAP A13.
+Ported: the dense transformers (qwen2.5-3b, qwen2.5-14b, gemma-2b,
+llama3-8b), the VLM qwen2-vl-7b and mamba2-780m. The MoE, hybrid and
+encoder-decoder architectures raise ``NotImplementedError`` naming
+their ROADMAP A13 item.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Callable, NamedTuple
+from typing import Any, Callable, NamedTuple
 
 from repro_torch.models.config import ModelConfig
 
@@ -19,7 +21,23 @@ ARCH_IDS = (
     "whisper-small", "mamba2-780m",
 )
 # Those the port has, with their module under ``repro_torch.configs``.
-ARCH_MODULES = {"mamba2-780m": "mamba2_780m"}
+ARCH_MODULES = {
+    "qwen2.5-3b": "qwen2_5_3b",
+    "qwen2.5-14b": "qwen2_5_14b",
+    "gemma-2b": "gemma_2b",
+    "llama3-8b": "llama3_8b",
+    "qwen2-vl-7b": "qwen2_vl_7b",
+    "mamba2-780m": "mamba2_780m",
+}
+# The families not ported yet, with their ROADMAP item.
+NOT_PORTED = {
+    "moe": "ROADMAP A13 (models/moe.py)",
+    "hybrid": "ROADMAP A13 (models/hybrid.py)",
+    "audio": "ROADMAP A13 (models/encdec.py)",
+}
+# The architectures of those families (their configs are not ported).
+_ARCH_FAMILY = {"mixtral-8x7b": "moe", "qwen3-moe-30b-a3b": "moe",
+                "recurrentgemma-9b": "hybrid", "whisper-small": "audio"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,42 +56,60 @@ SHAPES = {
 }
 
 
-def _not_ported(arch_id: str) -> NotImplementedError:
+def _not_ported(what: str, family: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{arch_id} is not ported yet: ROADMAP A13 (the dense, MoE, "
-        "hybrid and encoder-decoder models); the port has "
+        f"{what} is not ported yet: {NOT_PORTED[family]}; the port has "
         f"{sorted(ARCH_MODULES)}"
     )
 
 
-def get_config(arch_id: str) -> ModelConfig:
+def _module(arch_id: str):
     if arch_id not in ARCH_IDS:
         raise KeyError(f"unknown arch {arch_id!r}; want one of {ARCH_IDS}")
     if arch_id not in ARCH_MODULES:
-        raise _not_ported(arch_id)
-    mod = importlib.import_module(
-        f"repro_torch.configs.{ARCH_MODULES[arch_id]}"
-    )
-    return mod.CONFIG
+        raise _not_ported(arch_id, _ARCH_FAMILY[arch_id])
+    return importlib.import_module(
+        f"repro_torch.configs.{ARCH_MODULES[arch_id]}")
+
+
+def get_config(arch_id: str) -> ModelConfig:
+    return _module(arch_id).CONFIG
+
+
+def uses_fsdp(arch_id: str) -> bool:
+    return getattr(_module(arch_id), "FSDP", False)
 
 
 def reduced_config(cfg: ModelConfig) -> ModelConfig:
     """Same family/topology, toy sizes: a few layers, narrow width, tiny
-    vocab (the reference's rules for the ssm family; the other families'
-    come with their ROADMAP A13 slices)."""
-    if cfg.family != "ssm":
-        raise _not_ported(f"reduced_config for {cfg.arch_id}")
-    return dataclasses.replace(
-        cfg,
+    vocab (the reference's rules for the ported families)."""
+    if cfg.family in NOT_PORTED:
+        raise _not_ported(f"reduced_config for {cfg.arch_id}", cfg.family)
+    kw: dict[str, Any] = dict(
         n_layers=min(cfg.n_layers, 4),
         d_model=64,
         vocab=512,
         dtype="float32",
         remat="none",
-        ssm_state=16,
-        ssm_head_dim=8,
-        ssm_chunk=16,
     )
+    if cfg.n_heads:
+        ratio = max(1, cfg.n_heads // max(cfg.n_kv_heads, 1))
+        kw["n_heads"] = min(cfg.n_heads, 4)
+        kw["n_kv_heads"] = max(1, kw["n_heads"] // ratio)
+        kw["head_dim"] = 16
+    if cfg.d_ff:
+        kw["d_ff"] = 128
+    if cfg.family == "ssm":
+        kw["ssm_state"] = 16
+        kw["ssm_head_dim"] = 8
+        kw["ssm_chunk"] = 16
+    if cfg.sliding_window:
+        kw["sliding_window"] = 16
+    if cfg.n_patches:
+        kw["n_patches"] = 8
+    if cfg.rope_style == "mrope":
+        kw["mrope_sections"] = (2, 3, 3)  # sums to head_dim // 2 = 8
+    return dataclasses.replace(cfg, **kw)
 
 
 class ModelAPI(NamedTuple):
@@ -86,11 +122,16 @@ class ModelAPI(NamedTuple):
 
 
 def get_model(cfg: ModelConfig) -> ModelAPI:
-    if cfg.family == "ssm":
+    if cfg.family in ("dense", "vlm"):
+        from repro_torch.models import transformer as m
+    elif cfg.family == "ssm":
         from repro_torch.models import ssm as m
-
-        return ModelAPI(
-            m.init_params, m.lm_loss, m.forward,
-            m.init_decode_cache, m.decode_step, m.abstract_params,
-        )
-    raise _not_ported(f"the {cfg.family!r} family ({cfg.arch_id})")
+    elif cfg.family in NOT_PORTED:
+        raise _not_ported(f"the {cfg.family!r} family ({cfg.arch_id})",
+                          cfg.family)
+    else:
+        raise ValueError(cfg.family)
+    return ModelAPI(
+        m.init_params, m.lm_loss, m.forward,
+        m.init_decode_cache, m.decode_step, m.abstract_params,
+    )

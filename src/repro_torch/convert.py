@@ -2,11 +2,11 @@
 
 The stencil engine has no learned weights: its state is the operator
 tap tables (offsets and coefficients), the MHD parameters, and the field
-stacks. mamba2's state is its parameter tree and, in training, its AdamW state.
-These helpers rebuild each
-from plain numpy/dict data, so an object of the JAX package (an
-``OperatorSet``, ``MHDParams``, a jax array, the nested dict of
-``repro.models.ssm.init_params``) can be handed to the port through
+stacks. A language model's state is its parameter tree and, in
+training, its AdamW state. These helpers rebuild each from plain
+numpy/dict data, so an object of the JAX package (an ``OperatorSet``,
+``MHDParams``, a jax array, the nested dict of a model's
+``init_params``) can be handed to the port through
 ``dataclasses.asdict``/``numpy`` without the port importing the JAX
 package.
 """
@@ -82,14 +82,14 @@ def fields_from_numpy(
     return t.to(device=resolve_device(device), dtype=dt)
 
 
-def ssm_params_from_numpy(
+def model_params_from_numpy(
     tree: Mapping[str, Any],
     device: str | torch.device | None = None,
 ) -> dict[str, Any]:
-    """mamba2's parameter tree (nested dicts of arrays, e.g. the JAX
-    ``init_params`` output with every leaf through ``np.asarray``) as
-    the same nested dicts of tensors on ``device`` (the card by
-    default), each leaf in its own dtype, copied exactly."""
+    """Any model family's parameter tree (nested dicts of arrays, e.g.
+    the JAX ``init_params`` output with every leaf through
+    ``np.asarray``) as the same nested dicts of tensors on ``device``
+    (the card by default), each leaf in its own dtype, copied exactly."""
     dev = resolve_device(device)
 
     def one(leaf):
@@ -100,6 +100,10 @@ def ssm_params_from_numpy(
     return one(tree)
 
 
+# mamba2's name for it, from before the other families were ported.
+ssm_params_from_numpy = model_params_from_numpy
+
+
 def opt_state_from_numpy(
     state: Any,
     device: str | torch.device | None = None,
@@ -108,10 +112,10 @@ def opt_state_from_numpy(
     ``jax.tree.map(np.asarray, ...)``, which keeps the NamedTuple) as
     the port's :class:`~repro_torch.optim.OptState` on ``device`` (the
     card by default): the step an int32 scalar, the moments as
-    :func:`ssm_params_from_numpy` carries a parameter tree, exactly."""
+    :func:`model_params_from_numpy` carries a parameter tree, exactly."""
     dev = resolve_device(device)
     return OptState(
         step=fields_from_numpy(state.step, device=dev),
-        mu=ssm_params_from_numpy(state.mu, device=dev),
-        nu=ssm_params_from_numpy(state.nu, device=dev),
+        mu=model_params_from_numpy(state.mu, device=dev),
+        nu=model_params_from_numpy(state.nu, device=dev),
     )

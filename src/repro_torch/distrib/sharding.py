@@ -291,9 +291,9 @@ def refuse_tensor_parallel(params_shape: Any, mesh, *, profile: str = "tp",
                 f"the tp profile cuts {path_str(path)} {tuple(leaf.shape)} "
                 f"as {spec} over a model axis of {sizes['model']} ranks: "
                 "tensor parallelism is not ported yet (ROADMAP A13-TP, the "
-                "tp profile's model axis, queued with the dense "
-                "transformer); use profile='dp', or a mesh whose model "
-                "axis is 1"
+                "tp profile's model axis, the next slice after the "
+                "dense transformer); use profile='dp', or a mesh whose "
+                "model axis is 1"
             )
 
 

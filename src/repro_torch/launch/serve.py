@@ -1,8 +1,11 @@
 """LM serving entry point (port of ``repro.launch.serve``): batched decode
-from a recurrent cache, on the card by default.
+from a model's cache (mamba2's recurrent state, the transformers' KV
+cache), on the card by default.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \\
         --reduced --batch 4 --steps 32 [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \\
+        --reduced --device cpu
 
 Decode-only, as the reference's; the parameters are a random init from
 a seeded ``torch.Generator`` (the repository holds no trained weights),

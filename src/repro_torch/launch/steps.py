@@ -36,6 +36,14 @@ def _tokens_on(batch: dict, device: torch.device) -> torch.Tensor:
     return tokens
 
 
+def _conv_switch(use_pallas_conv: bool | None) -> dict:
+    """The keyword for mamba2's conv switch when the caller set it: a
+    model without one (the transformer) then refuses it with a
+    ``TypeError`` instead of ignoring it."""
+    return {} if use_pallas_conv is None else {
+        "use_pallas_conv": use_pallas_conv}
+
+
 def make_grad_step(cfg: ModelConfig, *,
                    device: str | torch.device | None = None,
                    use_pallas_conv: bool | None = None):
@@ -43,16 +51,17 @@ def make_grad_step(cfg: ModelConfig, *,
     reference's ``jax.value_and_grad(api.lm_loss, has_aux=True)``. The
     gradients (float32 for the float32 master parameters) come from one
     ``backward`` through leaves that alias ``params``; ``params`` is
-    left as it was. ``use_pallas_conv`` goes to ``lm_loss`` (None: the
-    B7 kernel on the card, the plain conv on the CPU)."""
+    left as it was. ``use_pallas_conv``, when set, goes to mamba2's
+    ``lm_loss`` (unset: the B7 kernel on the card, the plain conv on the
+    CPU)."""
     api = get_model(cfg)
     dev = resolve_device(device)
+    conv = _conv_switch(use_pallas_conv)
 
     def grad_step(params, batch):
         _tokens_on(batch, dev)
         leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
-        loss, metrics = api.lm_loss(leaves, cfg, batch,
-                                    use_pallas_conv=use_pallas_conv)
+        loss, metrics = api.lm_loss(leaves, cfg, batch, **conv)
         loss.backward()
         grads = tree_map(lambda p: p.grad, leaves)
         return (loss.detach(),
@@ -125,12 +134,17 @@ def make_synced_grad_step(cfg: ModelConfig, *, mesh, profile: str = "tp",
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
                     device: str | torch.device | None = None,
-                    mesh=None, profile: str = "tp", fsdp: bool = False):
+                    mesh=None, profile: str = "tp", fsdp: bool = False,
+                    donate: bool = False):
     """``train_step(params, opt_state, batch)`` → (params, opt_state,
-    metrics): the gradient of ``lm_loss`` (:func:`make_grad_step`; the
-    B7 kernel on the card), then one ``adamw_update``; metrics ``xent``,
-    ``loss``, ``grad_norm`` and ``lr`` (tensors on the device, read by
-    the caller when it wants).
+    metrics): the gradient of ``lm_loss`` (:func:`make_grad_step`; for
+    mamba2 the B7 kernel on the card), then one ``adamw_update``;
+    metrics ``xent``, ``loss``, ``grad_norm`` and ``lr`` (and the
+    transformer's ``aux``; tensors on the device, read by the caller
+    when it wants). With ``donate`` (the reference's ``jit_train_step``
+    donates its parameters and optimizer state) the update is written
+    into the given ``params`` and ``opt_state``'s moments, so a step
+    holds one copy of them: the caller must not read the old values.
 
     With ``mesh`` (a ``DeviceMesh`` over an initialized group) each rank
     runs the data-parallel step of :func:`make_synced_grad_step`:
@@ -148,7 +162,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
         def train_step(params, opt_state, batch):
             loss, metrics, grads = grad_step(params, batch)
             params, opt_state, opt_metrics = adamw_update(
-                opt_cfg, grads, opt_state, params
+                opt_cfg, grads, opt_state, params, donate=donate
             )
             return params, opt_state, dict(metrics, loss=loss, **opt_metrics)
 
@@ -160,7 +174,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
     def dp_train_step(params, opt_state, batch):
         loss, metrics, grads, norm = synced(params, batch)
         params, opt_state, opt_metrics = adamw_update(
-            opt_cfg, grads, opt_state, params, grad_norm=norm
+            opt_cfg, grads, opt_state, params, grad_norm=norm, donate=donate
         )
         return params, opt_state, dict(metrics, loss=loss, **opt_metrics)
 
@@ -171,16 +185,19 @@ def make_prefill_step(cfg: ModelConfig, *,
                       device: str | torch.device | None = None,
                       use_pallas_conv: bool | None = None):
     """``prefill_step(params, batch)`` → the last position's logits
-    (b, vocab) in float32. ``use_pallas_conv`` goes to ``forward``
-    (None: the B7 kernel on the card, the plain conv on the CPU)."""
+    (b, vocab) in float32; ``batch`` may carry the VLM's ``positions``
+    and ``patch_embeds``. ``use_pallas_conv``, when set, goes to
+    mamba2's ``forward`` (unset: the B7 kernel on the card, the plain
+    conv on the CPU)."""
     api = get_model(cfg)
     dev = resolve_device(device)
+    conv = _conv_switch(use_pallas_conv)
 
     def prefill_step(params, batch):
-        logits, _ = api.forward(
-            params, cfg, _tokens_on(batch, dev),
-            use_pallas_conv=use_pallas_conv,
-        )
+        extra = {k: batch[k] for k in ("positions", "patch_embeds")
+                 if k in batch}
+        logits, _ = api.forward(params, cfg, _tokens_on(batch, dev),
+                                **extra, **conv)
         return logits[:, -1].float()
 
     return prefill_step

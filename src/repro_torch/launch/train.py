@@ -1,8 +1,13 @@
-"""Training entry point (port of ``repro.launch.train``): mamba2 on one card
-or data-parallel over a mesh of ranks, fault-tolerant.
+"""Training entry point (port of ``repro.launch.train``): a language
+model of the registry (mamba2-780m by default; the dense transformers
+and the VLM with ``--arch``) on one card or data-parallel over a mesh
+of ranks, fault-tolerant.
 
     PYTHONPATH=src python -m repro_torch.launch.train --reduced \\
         --steps 50 --global-batch 8 --seq-len 64 [--device cpu]
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \\
+        --reduced --steps 50 --global-batch 8 --seq-len 64 --device cpu
 
     # fault injection + restart (the ft path exercised end to end):
     PYTHONPATH=src python -m repro_torch.launch.train --reduced \\
@@ -13,10 +18,10 @@ or data-parallel over a mesh of ranks, fault-tolerant.
         --device cpu --backend gloo --mesh 2x1
 
 The loop is the reference's: ``MarkovLMDataset`` batches by step number
-(``BatchIterator``), ``make_train_step`` (``lm_loss``'s gradient, with
-the B7 kernel on the card, then AdamW), ``Supervisor`` checkpointing
-every ``--ckpt-every`` steps through ``CheckpointManager`` and replaying
-from the last checkpoint after a failure.
+(``BatchIterator``), ``make_train_step`` (``lm_loss``'s gradient, for
+mamba2 with the B7 kernel on the card, then AdamW), ``Supervisor``
+checkpointing every ``--ckpt-every`` steps through ``CheckpointManager``
+and replaying from the last checkpoint after a failure.
 
 ``--mesh DxM`` / ``PxDxM`` (``launch.mesh.parse_mesh``) above one rank
 starts one process per rank (``launch.mesh.run_on_mesh``) over
@@ -199,13 +204,15 @@ def _train(mesh, opts: dict) -> None:
         torch.cuda.synchronize(dev)
     dt = time.time() - t0
     final = f"{losses[-1]:.4f}" if losses else "n/a"
+    conv = (f"  conv1d_depthwise launches="
+            f"{kc.conv1d_depthwise_cuda.launches}" if cfg.family == "ssm"
+            else "")
     say(
         f"\ndone: {args.steps} steps in {dt:.1f}s  "
         f"final loss {final}  (entropy rate "
         f"{dataset.entropy_rate:.3f})  restarts={report['restarts']} "
         f"stragglers={report['stragglers']}  device={dev}  "
-        f"mesh={args.mesh}  "
-        f"conv1d_depthwise launches={kc.conv1d_depthwise_cuda.launches}"
+        f"mesh={args.mesh}  arch={cfg.arch_id}{conv}"
     )
 
 

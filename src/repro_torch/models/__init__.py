@@ -1,2 +1,3 @@
-"""Language models of the port: the configuration dataclass, the layer
-helpers mamba2 needs, and mamba2 itself (``ssm``)."""
+"""Language models of the port: the configuration dataclass, the layers,
+the decoder-only transformer (dense and VLM, ``transformer``) and
+mamba2 (``ssm``)."""

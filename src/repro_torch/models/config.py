@@ -2,7 +2,7 @@
 reference's dataclass, copied field for field so a configuration and
 its derived sizes (``d_inner``, ``ssm_n_heads``, ``n_params``) read the
 same in both packages. Per-arch instances live in
-:mod:`repro_torch.configs`; only mamba2-780m is ported so far."""
+:mod:`repro_torch.configs`: the dense, VLM and SSM families so far."""
 from __future__ import annotations
 
 import dataclasses

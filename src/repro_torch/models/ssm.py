@@ -17,23 +17,21 @@ reference's sharding constraints have no counterpart on one card.
 """
 from __future__ import annotations
 
-import functools
 from typing import Any, NamedTuple
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import (
-    CheckpointPolicy,
-    checkpoint,
-    create_selective_checkpoint_contexts,
-)
 
 from repro_torch import as_dtype, resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import cast_params, scan_layers
+from repro_torch.models.transformer import (
+    cast_params,
+    remat_body,
+    scan_layers,
+)
 
 Params = dict[str, Any]
 f32 = torch.float32
@@ -275,16 +273,6 @@ def ssm_block(x: torch.Tensor, blk: Params, cfg: ModelConfig,
     return y @ blk["out_proj"]
 
 
-def _save_dots(ctx, op, *args, **kwargs):
-    """Selective remat's policy: keep the outputs of plain matrix
-    products (``aten.mm``: the in- and out-projections), recompute the
-    rest. The reference's ``dots_with_no_batch_dims_saveable``; the
-    SSD's einsums are batched (``bmm``) and recomputed, as there."""
-    if op is torch.ops.aten.mm.default:
-        return CheckpointPolicy.MUST_SAVE
-    return CheckpointPolicy.PREFER_RECOMPUTE
-
-
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             use_pallas_conv: bool | None = None):
     """Logits (b, s, vocab) in ``cfg.dtype`` and a zero aux loss.
@@ -293,12 +281,12 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     the card and the plain conv on the CPU (the reference decides by
     backend, ``jax.default_backend() == "tpu"``).
 
-    With ``cfg.remat`` other than ``"none"`` and grad mode on, each
-    layer runs under ``torch.utils.checkpoint`` (non-reentrant) with
-    :func:`_save_dots` as its selective policy: the backward recomputes
-    a layer from its input and its saved projections (B7 launches
-    again there), as the reference's ``jax.checkpoint`` does. Under
-    ``no_grad`` (serving) the layers run as they are.
+    Under ``cfg.remat`` each layer runs through
+    ``transformer.remat_body``: with grad mode on, the backward
+    recomputes a layer from its input (``"selective"``: and its saved
+    projections; B7 launches again there), as the reference's
+    ``jax.checkpoint`` does. Under ``no_grad`` (serving) the layers run
+    as they are.
     """
     dtype = as_dtype(cfg.dtype)
     if use_pallas_conv is None:
@@ -310,16 +298,10 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
         return xc + ssm_block(L.rms_norm(xc, blk["ln1"], cfg.norm_eps), blk,
                               cfg, use_pallas_conv)
 
-    if cfg.remat != "none" and torch.is_grad_enabled():
-        context = functools.partial(create_selective_checkpoint_contexts,
-                                    _save_dots)
+    layer = remat_body(block, cfg.remat)
 
-        def body(xc, blk):
-            return checkpoint(block, xc, blk, use_reentrant=False,
-                              context_fn=context), 0.0
-    else:
-        def body(xc, blk):
-            return block(xc, blk), 0.0
+    def body(xc, blk):
+        return layer(xc, blk), 0.0
 
     x, _ = scan_layers(body, x, params["blocks"])
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)

@@ -4,7 +4,10 @@ nothing of ``repro``).
 
 Functional, on the port's trees (nested dicts of tensors): each moment
 has its parameter's shape, in float32; ``adamw_update`` returns new
-trees and leaves its arguments as they were. Not ``torch.optim.AdamW``:
+trees and leaves its arguments as they were, unless the caller donates
+them (the reference's ``donate_argnums``): then the new values are
+written into the given parameters and moments, leaf by leaf, so a step
+holds no second copy of them. Not ``torch.optim.AdamW``:
 that scales the parameter by ``1 - lr·wd`` in a multiply of its own
 before the moment step (other roundings than the reference's
 ``p - lr·(m̂/(√v̂ + ε) + wd·p)``) and decays every tensor of a group,
@@ -77,6 +80,17 @@ def adamw_init(params: Any) -> OptState:
     )
 
 
+def _clip_scale(grads: Any, max_norm: float,
+                norm: torch.Tensor | None = None):
+    """(the factor that scales ``grads`` to a global L2 norm of at most
+    ``max_norm``, the norm before scaling): see
+    :func:`clip_by_global_norm`."""
+    if norm is None:
+        norm = torch.sqrt(
+            sum(g.float().square().sum() for g in tree_leaves(grads)))
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0), norm
+
+
 def clip_by_global_norm(grads: Any, max_norm: float,
                         norm: torch.Tensor | None = None):
     """(grads scaled so that their global L2 norm is at most
@@ -84,10 +98,7 @@ def clip_by_global_norm(grads: Any, max_norm: float,
     float32 scalar). The squares are summed leaf by leaf in the
     reference's leaf order, unless the caller gives ``norm`` (a tree
     of shards whose norm spans every rank's)."""
-    if norm is None:
-        norm = torch.sqrt(
-            sum(g.float().square().sum() for g in tree_leaves(grads)))
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
+    scale, norm = _clip_scale(grads, max_norm, norm)
     return tree_map(lambda g: (g * scale).to(g.dtype), grads), norm
 
 
@@ -106,15 +117,17 @@ def _decays(path: tuple[str, ...]) -> bool:
 @torch.no_grad()
 def adamw_update(
     cfg: AdamWConfig, grads: Any, state: OptState, params: Any, *,
-    grad_norm: torch.Tensor | None = None,
+    grad_norm: torch.Tensor | None = None, donate: bool = False,
 ) -> tuple[Any, OptState, dict[str, torch.Tensor]]:
     """One AdamW step → (new_params, new_state, metrics {"grad_norm",
-    "lr"}): the gradients clipped to ``cfg.clip_norm``, the step
-    counted, the learning rate from :func:`cosine_schedule`.
-    ``grad_norm``, when given, is the global norm clipping uses (the
-    ZeRO step's, whose ``grads`` and ``params`` are this rank's
-    shards)."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, grad_norm)
+    "lr"}): the gradients clipped to ``cfg.clip_norm`` (leaf by leaf,
+    as :func:`clip_by_global_norm` scales them), the step counted, the
+    learning rate from :func:`cosine_schedule`. ``grad_norm``, when
+    given, is the global norm clipping uses (the ZeRO step's, whose
+    ``grads`` and ``params`` are this rank's shards). With ``donate``
+    the new parameters and moments are written into ``params`` and
+    ``state``'s moments (the same values), which come back."""
+    scale, gnorm = _clip_scale(grads, cfg.clip_norm, grad_norm)
     step = state.step + 1
     lr = cosine_schedule(cfg, step)
     b1, b2 = cfg.b1, cfg.b2
@@ -126,14 +139,20 @@ def adamw_update(
     new_m, new_v = {}, {}
 
     def upd(path, p):
-        gf = g_by_path[path].float()
-        m_new = b1 * m_by_path[path] + (1.0 - b1) * gf
-        v_new = b2 * v_by_path[path] + (1.0 - b2) * gf.square()
+        g = g_by_path[path]
+        gf = (g * scale).to(g.dtype).float()
+        m, v = m_by_path[path], v_by_path[path]
+        m_new = b1 * m + (1.0 - b1) * gf
+        v_new = b2 * v + (1.0 - b2) * gf.square()
         delta = (m_new / bc1) / (torch.sqrt(v_new / bc2) + cfg.eps)
         if _decays(path):
             delta = delta + cfg.weight_decay * p.float()
+        p_new = (p.float() - lr * delta).to(p.dtype)
+        if donate:
+            m_new, v_new, p_new = m.copy_(m_new), v.copy_(v_new), p.copy_(
+                p_new)
         new_m[path], new_v[path] = m_new, v_new
-        return (p.float() - lr * delta).to(p.dtype)
+        return p_new
 
     new_params = tree_map_with_path(upd, params)
     return (

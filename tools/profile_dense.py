@@ -1,0 +1,128 @@
+#!/usr/bin/env python3
+"""Where the dense transformer family spends the card's time, under
+``torch.profiler``, as ``chip_smoke.py`` phase 3 (dense) runs it (random
+init from seed 0 at full width): llama3-8b's prefill at (1, 8192) in
+bf16 and 8 decode steps at batch 4 in bf16, each after a warm-up; with
+``--train``, one qwen2.5-3b train step at (1, 4096) bf16 with selective
+remat and donation on ``MarkovLMDataset`` batches, after a warm-up
+step, and the step's two halves apart on the host clock (gradient,
+AdamW). Prints kernel time by kernel, the largest first, with its share
+of all kernel time, the device's busy share of the host-clock window,
+and device time by ATen op, inclusive.
+
+    PYTHONPATH=src python3 tools/profile_dense.py [--train]
+
+Needs one CUDA card.
+"""
+from __future__ import annotations
+
+import subprocess
+import sys
+import time
+
+from profile_mamba2 import _report, _report_ops
+
+PREFILL_SHAPE = (1, 8192)  # chip_smoke.py's DENSE_PREFILL
+DECODE_BATCH, DECODE_STEPS = 4, 8
+TRAIN_SHAPE = (1, 4096)  # chip_smoke.py's DENSE_TRAIN_SHAPE
+
+
+def train(dev, activities) -> None:
+    import torch
+    from torch.profiler import profile
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import BatchIterator, MarkovLMDataset
+    from repro_torch.launch.steps import make_grad_step, make_train_step
+    from repro_torch.models import transformer as tr
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+
+    cfg = get_config("qwen2.5-3b")
+    b, s = TRAIN_SHAPE
+    opt_cfg = AdamWConfig(lr_peak=3e-4, warmup_steps=1, total_steps=4)
+    params = tr.init_params(cfg, seed=0, device=dev)
+    opt = adamw_init(params)
+    it = BatchIterator(MarkovLMDataset(cfg.vocab, s), b)
+    batches = [it.next_global(dev) for _ in range(3)]
+    step = make_train_step(cfg, opt_cfg, device=dev, donate=True)
+    params, opt, _ = step(params, opt, batches[0])  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        params, opt, _ = step(params, opt, batches[1])
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    _report(f"{cfg.arch_id} train step {TRAIN_SHAPE} {cfg.dtype} remat "
+            f"{cfg.remat}", prof, wall)
+    _report_ops(prof)
+    del prof
+    t0 = time.perf_counter()
+    _, _, grads = make_grad_step(cfg, device=dev)(params, batches[2])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    adamw_update(opt_cfg, grads, opt, params, donate=True)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    print(f"  halves (host clock, no profiler): gradient "
+          f"{1e3 * (t1 - t0):.1f} ms, adamw_update {1e3 * (t2 - t1):.1f} ms")
+
+
+def main() -> int:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import transformer as tr
+
+    if not torch.cuda.is_available():
+        print("profile_dense: no CUDA device", file=sys.stderr)
+        return 2
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+    ).stdout.strip()
+    print(f"card: {smi}")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    if "--train" in sys.argv[1:]:
+        train(dev, activities)
+        return 0
+    cfg = get_config("llama3-8b")
+    params = tr.init_params(cfg, seed=0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, PREFILL_SHAPE, generator=gen,
+                           device=dev)
+    prefill = make_prefill_step(cfg, device=dev)
+    step = make_serve_step(cfg, device=dev)
+    with torch.no_grad():
+        prefill(params, {"tokens": tokens})  # warm-up
+        torch.cuda.synchronize()
+        with profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            prefill(params, {"tokens": tokens})
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+        _report(f"{cfg.arch_id} prefill {PREFILL_SHAPE} {cfg.dtype}", prof,
+                wall)
+        _report_ops(prof)
+        del tokens, prof
+        cache = tr.init_decode_cache(cfg, DECODE_BATCH, DECODE_STEPS + 1,
+                                     device=dev)
+        tok = torch.zeros((DECODE_BATCH, 1), dtype=torch.long, device=dev)
+        _, cache = step(params, cache, {"tokens": tok})  # warm-up
+        torch.cuda.synchronize()
+        with profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            for _ in range(DECODE_STEPS):
+                _, cache = step(params, cache, {"tokens": tok})
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+        _report(f"{cfg.arch_id} decode, {DECODE_STEPS} steps at batch "
+                f"{DECODE_BATCH} {cfg.dtype}", prof, wall)
+        _report_ops(prof)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
