@@ -10,6 +10,7 @@
     python3 chip_smoke.py --train    # build + phase 3 (train) only
     python3 chip_smoke.py --dp-train # build + phase 3 (dp train) only
     python3 chip_smoke.py --dense    # build + phase 3 (dense) only
+    python3 chip_smoke.py --tp       # build + phase 3 (tp) only
 
 Phases (each raises on failure; none is caught):
 
@@ -198,6 +199,32 @@ Phases (each raises on failure; none is caught):
    the softmax's shift invariance nearly cancels, within its own bf16
    rounding on the CPU, against its f32 gradient, where that is larger),
    TF32 off.
+   Phase 3 (tp), after phase 3 (dense) (also alone with ``--tp``): the
+   ``tp`` profile's ``model`` axis (explicit Megatron tensor
+   parallelism) for the dense family at full width, ranks sharing the
+   card over gloo (``run_on_mesh``; no time of theirs is a scaling
+   figure), each rank drawing the seeded parameters leaf by leaf and
+   keeping its blocks, each part held to a one-rank yardstick run just
+   before in this process (its results kept on the host, its model
+   freed). The B1-B7 counters, zeroed before each part and read after,
+   read 0. (a) llama3-8b's prefill (1, 8192) bf16 on (1, 2): the last
+   position's logits within 2e-2 of the yardstick's max |logit|; ms
+   (median of 3 after a warm-up, host clock after a barrier), tokens/s,
+   bytes a rank sends, peak per rank and the card's memory in use.
+   (b) llama3-8b's bf16 serve step on (1, 2), batch 4, 32 teacher-forced
+   steps from an empty cache cut by KV heads: each step's logits within
+   2e-2; ms and bytes a step. (c) gemma-2b in f32 on (2, 2), where the
+   single KV head and the batch cut over data cut the cache by sequence
+   (the reference's rule cuts by sequence only over a data axis above
+   one rank) and its KV leaves are cut mid-head: 32 decode steps at
+   batch 2 within 1e-3, the forward (1, 2048) within 1e-4. (d)
+   qwen2.5-3b's train step on (1, 2) at ``train_4k``'s seq, global
+   batch 1, bf16, selective remat, donated AdamW: step 0's loss and
+   global gradient norm within 2e-2 of the yardstick's, then 3 timed
+   steps (ms, tokens/s, bytes a rank sends, peak per rank beside the
+   card's). (e) the reduced train CLI ``--arch qwen2.5-3b --mesh 2x2
+   --backend gloo`` on the card, failing at step 5: its logged losses
+   equal ``--mesh 1x1``'s to the printed digits.
    Phase 3 (verify), after the serve phase: the verification layer
    (``repro_torch.verify.mms``, ``physics.spectral``,
    ``boundary_weights``) through B1 (``swc``), B3 (``swc_stream``) and
@@ -2861,6 +2888,508 @@ def phase_dense(dev, smi):
     dense_card_vs_cpu(dev)
 
 
+# Tensor parallelism at full width (phase 3 (tp)): ranks sharing the card
+# over gloo against a one-rank yardstick run just before in this process.
+TP_MESH = ((1, 2), ("data", "model"))
+# gemma-2b's single KV head: the reference's rule cuts the cache by
+# sequence only where the batch is cut over a data axis above one rank.
+TP_SEQ_MESH = ((2, 2), ("data", "model"))
+TP_PREFILL = (1, 8192)
+TP_DECODE = (4, 32)  # batch, teacher-forced steps from an empty cache
+TP_GEMMA_DECODE = (2, 32)
+TP_GEMMA_FORWARD = (1, 2048)
+TP_TRAIN_SHAPE = (1, 4096)  # train_4k's seq at a global batch of 1
+TP_TRAIN_STEPS = 3  # timed, after step 0
+# limits, relative to the yardstick's max |logit| (losses and the norm
+# relative); the row-parallel partial products are summed in f32
+TP_BF16_TOL = 2e-2
+# (b)'s bf16 decode: a correct one-rank bf16 program that sums one product
+# in another order lies 2.26e-2 of max |logit| from the yardstick here, so
+# 2e-2 cannot tell programs apart; the decode is held instead, as the bf16
+# gradients are on the CPU, to TP_BF16_MULTIPLE times the one-rank bf16
+# decode's own distance from the one-rank f32 decode.
+TP_BF16_MULTIPLE = 1.5
+TP_F32_DECODE_TOL = 1e-3
+TP_F32_FORWARD_TOL = 1e-4
+TP_YARD_DIR = ROOT / "build" / "tp-yardstick"
+TP_CLI = ["--arch", "qwen2.5-3b", "--reduced", "--steps", "8",
+          "--global-batch", "2", "--seq-len", "64", "--ckpt-every", "3",
+          "--simulate-failure-at", "5", "--log-every", "1"]
+
+
+def _tp_tokens(cfg, shape, seed, dev):
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(0, cfg.vocab, shape, generator=gen, device=dev)
+
+
+def _tp_decode(step, params, cache, tokens):
+    """Teacher-forced decode steps of ``tokens`` (b, steps): every step's
+    float32 logits (steps, b, vocab) and the host ms a step."""
+    import torch
+
+    out = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for t in range(tokens.shape[1]):
+            lg, cache = step(params, cache, {"tokens": tokens[:, t:t + 1]})
+            out.append(lg)
+    torch.cuda.synchronize()
+    return torch.stack(out), 1e3 * (time.perf_counter() - t0) / len(out)
+
+
+def tp_yardstick(dev, directory: Path) -> dict:
+    """The one-rank runs phase 3 (tp) holds its ranks to, written to
+    ``directory`` as numpy arrays: llama3-8b's bf16 prefill logits at
+    ``TP_PREFILL`` and its bf16 serve steps at ``TP_DECODE``; gemma-2b's
+    f32 forward at ``TP_GEMMA_FORWARD`` and decode steps at
+    ``TP_GEMMA_DECODE``; qwen2.5-3b's step-0 loss and gradient norm.
+    Each model is freed before the next; returns the host times."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import BatchIterator, MarkovLMDataset
+    from repro_torch.launch.steps import (
+        make_prefill_step,
+        make_serve_step,
+        make_train_step,
+    )
+    from repro_torch.models import transformer as tr
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    directory.mkdir(parents=True, exist_ok=True)
+    out = {}
+    cfg = get_config("llama3-8b")
+    params = tr.init_params(cfg, seed=0, device=dev)
+    tokens = _tp_tokens(cfg, TP_PREFILL, 1, dev)
+    prefill = make_prefill_step(cfg, device=dev)
+    with torch.no_grad():
+        prefill(params, {"tokens": tokens})  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+    out["prefill_ms"] = 1e3 * (time.perf_counter() - t0)
+    np.save(directory / "prefill.npy", logits.cpu().numpy())
+    b, steps = TP_DECODE
+    cache = tr.init_decode_cache(cfg, b, steps, device=dev)
+    logits, out["decode_ms"] = _tp_decode(
+        make_serve_step(cfg, device=dev), params, cache,
+        _tp_tokens(cfg, TP_DECODE, 2, dev))
+    np.save(directory / "decode.npy", logits.cpu().numpy())
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    cache = tr.init_decode_cache(cfg32, b, steps, device=dev)
+    f32, _ = _tp_decode(make_serve_step(cfg32, device=dev), params, cache,
+                        _tp_tokens(cfg, TP_DECODE, 2, dev))
+    np.save(directory / "decode_f32.npy", f32.cpu().numpy())
+    out["decode_bf16_vs_f32"] = _tp_worst(logits, f32.cpu().numpy())
+    del params, cache, logits, f32, prefill
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(get_config("gemma-2b"), dtype="float32")
+    params = tr.init_params(cfg, seed=0, device=dev)
+    with torch.no_grad():
+        logits, _ = tr.forward(params, cfg,
+                               _tp_tokens(cfg, TP_GEMMA_FORWARD, 3, dev))
+    np.save(directory / "gemma_forward.npy", logits.float().cpu().numpy())
+    del logits
+    b, steps = TP_GEMMA_DECODE
+    cache = tr.init_decode_cache(cfg, b, steps, device=dev)
+    logits, out["gemma_decode_ms"] = _tp_decode(
+        make_serve_step(cfg, device=dev), params, cache,
+        _tp_tokens(cfg, TP_GEMMA_DECODE, 4, dev))
+    np.save(directory / "gemma_decode.npy", logits.cpu().numpy())
+    del params, cache, logits
+    torch.cuda.empty_cache()
+
+    cfg = get_config("qwen2.5-3b")
+    b, s = TP_TRAIN_SHAPE
+    torch.cuda.reset_peak_memory_stats()
+    params = tr.init_params(cfg, seed=0, device=dev)
+    batch = BatchIterator(MarkovLMDataset(cfg.vocab, s, branching=4),
+                          b).next_global(dev)
+    step = make_train_step(cfg, AdamWConfig(lr_peak=3e-4, warmup_steps=1,
+                                            total_steps=1 + TP_TRAIN_STEPS),
+                           device=dev, donate=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, opt, m = step(params, adamw_init(params), batch)
+    torch.cuda.synchronize()
+    out["train_ms"] = 1e3 * (time.perf_counter() - t0)
+    out["loss"], out["grad_norm"] = float(m["loss"]), float(m["grad_norm"])
+    out["train_peak"] = torch.cuda.max_memory_allocated()
+    del params, opt, m, batch, step
+    torch.cuda.empty_cache()
+    (directory / "yardstick.json").write_text(json.dumps(out))
+    return out
+
+
+def _tp_clock(dev, fn):
+    import torch
+    import torch.distributed as dist
+
+    dist.barrier()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize(dev)
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def _tp_held(dev) -> dict:
+    import torch
+
+    free, total = torch.cuda.mem_get_info(dev)
+    return {"peak": torch.cuda.max_memory_allocated(dev),
+            "card_used": total - free, "card_total": total}
+
+
+def _tp_err(got, want) -> float:
+    """max |got − want| over max |want| (float64 on the host)."""
+    import numpy as np
+
+    got = got.detach().double().cpu().numpy()
+    want = np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def _tp_worst(got, want) -> float:
+    """The worst step of (steps, b, vocab) logits by :func:`_tp_err`."""
+    return max(_tp_err(got[t], want[t]) for t in range(len(want)))
+
+
+def tp_llama_rank(mesh, yard_dir: str):
+    """One rank of phase 3 (tp) (a) and (b): llama3-8b's blocks drawn leaf
+    by leaf from the seeded generator; the prefill through
+    ``make_prefill_step(mesh=)`` (a warm-up, then 3 timed) and the bf16
+    serve steps through ``make_serve_step(mesh=)`` from an empty cache
+    block, each held to the yardstick on the host."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distrib import comm
+    from repro_torch.distrib import sharding as shlib
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import transformer as tr
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = get_config("llama3-8b")
+    yard = Path(yard_dir)
+    torch.cuda.reset_peak_memory_stats(dev)
+    p_sh = shlib.param_shardings(tr.abstract_params(cfg), mesh)
+    params = tr.init_params(cfg, seed=0, device=dev, shardings=p_sh)
+    rec = {"held_gib": sum(v.numel() * v.element_size() for t in
+                           (params, params["blocks"]) for v in t.values()
+                           if torch.is_tensor(v)) / 2**30}
+    tokens = _tp_tokens(cfg, TP_PREFILL, 1, dev)
+    prefill = make_prefill_step(cfg, mesh=mesh, device=dev)
+    _reset_all_counts()
+    with torch.no_grad():
+        logits = prefill(params, {"tokens": tokens})
+        times = []
+        comm.reset_counts()
+        for _ in range(3):
+            logits, ms = _tp_clock(dev, lambda: prefill(
+                params, {"tokens": tokens}))
+            times.append(ms)
+    rec["prefill_bytes"] = comm.counts["bytes"] // 3
+    rec["prefill_calls"] = {k: v // 3 for k, v in comm.counts.items()
+                            if k != "bytes"}
+    rec["prefill_ms"] = times
+    rec["prefill_err"] = _tp_err(logits, np.load(yard / "prefill.npy"))
+    rec["prefill_shape"] = tuple(logits.shape)
+    rec.update({f"prefill_{k}": v for k, v in _tp_held(dev).items()})
+    del logits
+    b, steps = TP_DECODE
+    with shlib.rules_context(mesh):
+        cache = tr.init_decode_cache(cfg, b, steps, device=dev)
+    rec["cache_block"] = tuple(cache.k.shape)
+    comm.reset_counts()
+    torch.distributed.barrier()
+    logits, rec["decode_ms"] = _tp_decode(
+        make_serve_step(cfg, mesh=mesh, device=dev), params, cache,
+        _tp_tokens(cfg, TP_DECODE, 2, dev))
+    rec["decode_bytes"] = comm.counts["bytes"] // steps
+    rec["decode_err"] = _tp_worst(logits, np.load(yard / "decode.npy"))
+    rec["decode_f32_err"] = _tp_worst(logits,
+                                      np.load(yard / "decode_f32.npy"))
+    rec["counts"] = _all_counts()
+    return rec
+
+
+def tp_gemma_rank(mesh, yard_dir: str):
+    """One rank of phase 3 (tp) (c): gemma-2b in f32 (TF32 off) on its
+    rows: ``TP_GEMMA_DECODE``'s decode steps from an empty cache block
+    cut by sequence, then the forward at ``TP_GEMMA_FORWARD`` (its
+    vocab columns), each held to the yardstick."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distrib import comm
+    from repro_torch.distrib import sharding as shlib
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import transformer as tr
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = dataclasses.replace(get_config("gemma-2b"), dtype="float32")
+    yard = Path(yard_dir)
+    p_sh = shlib.param_shardings(tr.abstract_params(cfg), mesh)
+    params = tr.init_params(cfg, seed=0, device=dev, shardings=p_sh)
+    data = shlib.axis_index(mesh, shlib.dp_axes())
+    b, steps = TP_GEMMA_DECODE
+    rows = slice(data * b // 2, (data + 1) * b // 2)
+    rec = {}
+    _reset_all_counts()
+    with shlib.rules_context(mesh):
+        cache = tr.init_decode_cache(cfg, b, steps, device=dev)
+    rec["cache_block"] = tuple(cache.k.shape)
+    rec["slots"] = (int(cache.slots[0]), int(cache.slots[-1]))
+    comm.reset_counts()
+    torch.distributed.barrier()
+    logits, rec["decode_ms"] = _tp_decode(
+        make_serve_step(cfg, mesh=mesh, device=dev), params, cache,
+        _tp_tokens(cfg, TP_GEMMA_DECODE, 4, dev)[rows])
+    rec["decode_bytes"] = comm.counts["bytes"] // steps
+    rec["decode_err"] = _tp_worst(
+        logits, np.load(yard / "gemma_decode.npy")[:, rows])
+    del logits, cache
+    tokens = _tp_tokens(cfg, TP_GEMMA_FORWARD, 3, dev)
+    with torch.no_grad(), shlib.rules_context(mesh):
+        logits, _ = tr.forward(params, cfg, tokens)
+    width = logits.shape[-1]
+    lo = mesh.get_local_rank("model") * width
+    want = np.load(yard / "gemma_forward.npy", mmap_mode="r")
+    mine = torch.from_numpy(np.ascontiguousarray(want[..., lo:lo + width]))
+    rec["forward_num"] = float((logits - mine.to(dev)).abs().max())
+    rec["forward_den"] = float(np.abs(want).max())
+    del mine
+    rec["forward_shape"] = tuple(logits.shape)
+    rec["counts"] = _all_counts()
+    rec.update(_tp_held(dev))
+    return rec
+
+
+def tp_train_rank(mesh, yard_dir: str):
+    """One rank of phase 3 (tp) (d): qwen2.5-3b's blocks drawn leaf by
+    leaf, its AdamW state, ``make_train_step(mesh=, donate=True)`` on
+    ``TP_TRAIN_SHAPE``'s batch (the same rows on both ranks): step 0,
+    then ``TP_TRAIN_STEPS`` timed steps."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import BatchIterator, MarkovLMDataset
+    from repro_torch.distrib import comm
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.models import transformer as tr
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = get_config("qwen2.5-3b")
+    b, s = TP_TRAIN_SHAPE
+    torch.cuda.reset_peak_memory_stats(dev)
+    p_sh, _ = tsteps.train_shardings(cfg, mesh)
+    params = tr.init_params(cfg, seed=0, device=dev, shardings=p_sh)
+    opt = adamw_init(params)
+    rec = {"state_gib": torch.cuda.memory_allocated(dev) / 2**30}
+    # every rank the whole batch: the ranks differ only in model
+    it = BatchIterator(MarkovLMDataset(cfg.vocab, s, branching=4), b,
+                       host_index=0, host_count=1)
+    batches = [it.next_global(dev) for _ in range(1 + TP_TRAIN_STEPS)]
+    step = tsteps.make_train_step(
+        cfg, AdamWConfig(lr_peak=3e-4, warmup_steps=1,
+                         total_steps=1 + TP_TRAIN_STEPS),
+        device=dev, mesh=mesh, donate=True)
+    _reset_all_counts()
+    (params, opt, m), rec["step0_ms"] = _tp_clock(
+        dev, lambda: step(params, opt, batches[0]))
+    rec["loss0"], rec["grad_norm0"] = float(m["loss"]), float(m["grad_norm"])
+    rec["ms"], rec["losses"] = [], []
+    comm.reset_counts()
+    for batch in batches[1:]:
+        (params, opt, m), ms = _tp_clock(dev, lambda: step(params, opt,
+                                                           batch))
+        rec["ms"].append(ms)
+        rec["losses"].append(float(m["loss"]))
+    rec["bytes"] = comm.counts["bytes"] // TP_TRAIN_STEPS
+    rec["counts"] = _all_counts()
+    rec.update(_tp_held(dev))
+    return rec
+
+
+def tp_cli_on_card():
+    """(e): the train CLI ``TP_CLI`` on the card over ``--mesh 2x2
+    --backend gloo`` (four ranks sharing it, restarting once) against
+    ``--mesh 1x1``: the same logged step lines."""
+    import os
+    import tempfile
+
+    def cli(*args):
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", *args],
+            capture_output=True, text=True, timeout=600, cwd=ROOT,
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        if out.returncode:
+            raise AssertionError(f"train CLI {' '.join(args)}: rc "
+                                 f"{out.returncode}: {out.stderr[-2000:]}")
+        return out, _logged(out.stdout), time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        _, one, _ = cli(*TP_CLI, "--ckpt-dir", f"{tmp}/one")
+        out, four, secs = cli(*TP_CLI, "--mesh", "2x2", "--backend", "gloo",
+                              "--ckpt-dir", f"{tmp}/four")
+    done = next(x for x in out.stdout.splitlines() if x.startswith("done:"))
+    if (four != one or "restarts=1" not in done or "device=cuda" not in done
+            or out.stderr.count("restored at step 3") != 4):
+        raise AssertionError(f"train CLI 2x2: {four} vs 1x1 {one}; {done}")
+    print(f"  (e) python -m repro_torch.launch.train {' '.join(TP_CLI)} "
+          f"--mesh 2x2 --backend gloo: rc 0 in {secs:.1f} s, its "
+          f"{len(four)} logged step lines equal --mesh 1x1's to the printed "
+          "digits, all four ranks restored at step 3")
+    print(f"    {done}")
+
+
+def phase_tp(dev, smi):
+    """Phase 3 (tp): the tp profile's model axis at full width over gloo
+    ranks sharing this card, each part against a one-rank yardstick
+    (``tp_yardstick``) run first in this process; plain PyTorch and
+    collectives (the reference's TP is GSPMD over plain ``jnp``): the
+    B1-B7 counters read 0 on every rank."""
+    import os
+    import shutil
+
+    import torch
+
+    from repro_torch.launch.mesh import run_on_mesh
+
+    print("== phase 3 (tp): tensor parallelism (the tp profile's model "
+          "axis) at full width, gloo ranks sharing one card")
+    print(f"  card: {smi}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.empty_cache()
+    shutil.rmtree(TP_YARD_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    try:
+        yard = tp_yardstick(dev, TP_YARD_DIR)
+        print(f"  yardstick (one rank, this process, {time.perf_counter() - t0:.1f}"
+              f" s): llama3-8b prefill {yard['prefill_ms']:.1f} ms, bf16 "
+              f"decode {yard['decode_ms']:.2f} ms a step; gemma-2b f32 decode "
+              f"{yard['gemma_decode_ms']:.2f} ms a step; qwen2.5-3b step 0 loss "
+              f"{yard['loss']:.4f}, grad_norm {yard['grad_norm']:.4f}, "
+              f"{yard['train_ms']:.1f} ms, peak "
+              f"{yard['train_peak'] / 2**30:.2f} GiB")
+        torch.cuda.empty_cache()
+        llama = run_on_mesh(tp_llama_rank, *TP_MESH, backend="gloo",
+                            device=dev, args=(str(TP_YARD_DIR),),
+                            timeout=900)
+        gemma = run_on_mesh(tp_gemma_rank, *TP_SEQ_MESH, backend="gloo",
+                            device=dev, args=(str(TP_YARD_DIR),),
+                            timeout=900)
+        # two training ranks fill the card (a 32 GiB peak each): their
+        # allocators map memory as it grows rather than caching segments
+        alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        try:
+            train = run_on_mesh(tp_train_rank, *TP_MESH, backend="gloo",
+                                device=dev, args=(str(TP_YARD_DIR),),
+                                timeout=900)
+        finally:
+            if alloc is None:
+                del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+            else:
+                os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+    finally:
+        shutil.rmtree(TP_YARD_DIR, ignore_errors=True)
+    for label, recs in (("llama3-8b", llama), ("gemma-2b", gemma),
+                        ("qwen2.5-3b", train)):
+        for rank, r in enumerate(recs):
+            if tuple(r["counts"]) != (0, 0, 0):
+                raise AssertionError(f"{label} rank {rank}: launches (B7, "
+                                     f"fused-stencil, xcorr1d) {r['counts']}")
+    b, s = TP_PREFILL
+    for rank, r in enumerate(llama):
+        med = statistics.median(r["prefill_ms"])
+        print(f"  (a) llama3-8b prefill {TP_PREFILL} bf16 on mesh (1, 2), "
+              f"rank {rank}: {r['held_gib']:.2f} GiB of f32 blocks; last "
+              f"logits {r['prefill_shape']} within {r['prefill_err']:.3e} of "
+              f"max |logit| (limit {TP_BF16_TOL:.0e}); {med:.1f} ms (host "
+              f"clock after a barrier, median of "
+              f"{', '.join(f'{t:.1f}' for t in r['prefill_ms'])}; one rank "
+              f"{yard['prefill_ms']:.1f}), {b * s / med * 1e3:.0f} tokens/s; "
+              f"{r['prefill_bytes']} bytes sent a prefill ({r['prefill_calls']}"
+              f"); peak {r['prefill_peak'] / 2**30:.2f} GiB, the card "
+              f"{r['prefill_card_used'] / 2**30:.2f} of "
+              f"{r['prefill_card_total'] / 2**30:.2f} GiB in use")
+        if not r["prefill_err"] <= TP_BF16_TOL:
+            raise AssertionError(f"tp prefill rank {rank}: {r['prefill_err']}")
+    b, steps = TP_DECODE
+    own = yard["decode_bf16_vs_f32"]
+    for rank, r in enumerate(llama):
+        print(f"  (b) llama3-8b bf16 serve step on (1, 2), rank {rank}: cache "
+              f"block {r['cache_block']} (KV heads cut), {steps} "
+              f"teacher-forced steps at batch {b}: worst step from the "
+              f"one-rank f32 decode {r['decode_f32_err']:.3e} of max |logit|,"
+              f" {r['decode_f32_err'] / own:.3f}x the one-rank bf16 decode's "
+              f"own {own:.3e} (limit {TP_BF16_MULTIPLE}x); from the one-rank "
+              f"bf16 decode {r['decode_err']:.3e}; {r['decode_ms']:.2f} ms a "
+              f"step (one rank {yard['decode_ms']:.2f}), {r['decode_bytes']} "
+              "bytes sent a step")
+        if not r["decode_f32_err"] <= TP_BF16_MULTIPLE * own:
+            raise AssertionError(f"tp decode rank {rank}: "
+                                 f"{r['decode_f32_err']} vs {own}")
+    b, steps = TP_GEMMA_DECODE
+    for rank, r in enumerate(gemma):
+        fwd = r["forward_num"] / r["forward_den"]
+        print(f"  (c) gemma-2b f32 on (2, 2), rank {rank}: cache block "
+              f"{r['cache_block']}, slots {r['slots'][0]}-{r['slots'][1]} "
+              f"(cut by sequence); {steps} decode steps, worst within "
+              f"{r['decode_err']:.3e} (limit {TP_F32_DECODE_TOL:.0e}), "
+              f"{r['decode_ms']:.2f} ms a step (one rank "
+              f"{yard['gemma_decode_ms']:.2f}), {r['decode_bytes']} bytes a "
+              f"step; forward {TP_GEMMA_FORWARD} logits {r['forward_shape']} "
+              f"within {fwd:.3e} (limit {TP_F32_FORWARD_TOL:.0e}); peak "
+              f"{r['peak'] / 2**30:.2f} GiB")
+        if not (r["decode_err"] <= TP_F32_DECODE_TOL
+                and fwd <= TP_F32_FORWARD_TOL):
+            raise AssertionError(f"tp gemma rank {rank}: {r}")
+    b, s = TP_TRAIN_SHAPE
+    for rank, r in enumerate(train):
+        loss_rel = abs(r["loss0"] - yard["loss"]) / abs(yard["loss"])
+        norm_rel = (abs(r["grad_norm0"] - yard["grad_norm"])
+                    / abs(yard["grad_norm"]))
+        med = statistics.median(r["ms"])
+        print(f"  (d) qwen2.5-3b train step on (1, 2) {b}x{s} bf16, selective "
+              f"remat, donated AdamW, rank {rank}: parameters and moments "
+              f"{r['state_gib']:.2f} GiB; step 0 loss {r['loss0']:.4f} vs "
+              f"{yard['loss']:.4f} (rel {loss_rel:.3e}), grad_norm "
+              f"{r['grad_norm0']:.4f} vs {yard['grad_norm']:.4f} (rel "
+              f"{norm_rel:.3e}; limit {TP_BF16_TOL:.0e}); steps "
+              f"{', '.join(f'{t:.1f}' for t in r['ms'])} ms (step 0 "
+              f"{r['step0_ms']:.1f}; one rank {yard['train_ms']:.1f}), "
+              f"{b * s / med * 1e3:.0f} tokens/s, losses "
+              f"{', '.join(f'{x:.4f}' for x in r['losses'])}; "
+              f"{r['bytes']} bytes sent a step; peak {r['peak'] / 2**30:.2f} "
+              f"GiB, the card {r['card_used'] / 2**30:.2f} of "
+              f"{r['card_total'] / 2**30:.2f} GiB in use")
+        if not (loss_rel <= TP_BF16_TOL and norm_rel <= TP_BF16_TOL
+                and all(map(math.isfinite, r["losses"]))):
+            raise AssertionError(f"tp train rank {rank}: {r}")
+        if r["losses"] != train[0]["losses"]:
+            raise AssertionError("tp train: the ranks' losses differ")
+    tp_cli_on_card()
+    print("  B1-B7 launches on every rank of every part: (0, 0, 0)")
+
+
 def phase_serve(dev, launches):
     """Ensemble serving through ``SimServer`` on each CUDA strategy: a
     warm-up queue of the same size (so the allocator holds full-batch
@@ -4732,6 +5261,9 @@ def main(argv: list[str]) -> int:
     if "--dense" in argv:
         timed("phase 3 (dense)", phase_dense, dev, smi)
         return 0
+    if "--tp" in argv:
+        timed("phase 3 (tp)", phase_tp, dev, smi)
+        return 0
     timed("phase 2", phase_parity, dev)
     if "--quick" in argv:
         return 0
@@ -4745,6 +5277,7 @@ def main(argv: list[str]) -> int:
                         launches, yard, one_cli)
     del yard
     timed("phase 3 (dense)", phase_dense, dev, smi)
+    timed("phase 3 (tp)", phase_tp, dev, smi)
     timed("phase 3b", phase_serve, dev, launches)
     timed("phase 3 (verify)", phase_verify, dev, smi)
     timed("phase 3 (tune)", phase_tune, dev, smi)

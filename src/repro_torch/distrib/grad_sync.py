@@ -17,8 +17,9 @@ for the group over their product (``sharding.axis_group``).
 * ``sync_grads`` and ``global_norm`` — the data-parallel train step's
   sync (``launch.steps.make_train_step`` with a mesh): the gradient's
   weighted sum over the data-parallel ranks, a flat bucketed f32
-  all-reduce for replicated leaves and a reduce-scatter for leaves held
-  as shards (ZeRO); and the global L2 norm over a tree of such leaves.
+  all-reduce for leaves not cut over them (whole, or a tensor-parallel
+  ``model`` block) and a reduce-scatter for leaves held as shards
+  (ZeRO); and the global L2 norm over a tree of such leaves.
 
 The collectives and their routes (gloo stages CUDA tensors through
 pinned host memory) are ``distrib.comm``'s.
@@ -111,36 +112,47 @@ def accumulate_grads(
 # --- the data-parallel train step's sync --------------------------------------------
 
 
+def _dp_cuts(sh, dp_axes, path) -> list:
+    """The cuts of the sharding ``sh`` over data-parallel axes; a cut
+    over other axes (``model``: a tensor-parallel block) is left out,
+    one over both raises."""
+    cuts = []
+    for cut in sh.cuts():
+        if set(cut.axes) <= set(dp_axes):
+            cuts.append(cut)
+        elif set(cut.axes) & set(dp_axes):
+            raise ValueError(
+                f"{'/'.join(path)} is cut over {cut.axes}, across the "
+                f"data-parallel axes {tuple(dp_axes)} and others")
+    return cuts
+
+
 def sync_grads(grads: Any, shardings: Any, mesh, dp_axes, weight: float
                ) -> Any:
     """The data-parallel gradient: ``weight`` times each rank's
-    gradient, summed over the ranks of ``dp_axes``. ``grads`` are full
-    float32 tensors (overwritten); a leaf whose sharding is replicated
-    comes back full, summed by a flat bucketed all-reduce; a leaf cut
-    over data-parallel axes (ZeRO) comes back as this rank's block,
-    reduce-scattered over the cut's axes and all-reduced over the rest
-    of ``dp_axes``."""
+    gradient, summed over the ranks of ``dp_axes``. ``grads`` are float32
+    tensors (overwritten), full over ``dp_axes`` (a tensor-parallel
+    leaf is this rank's ``model`` block, summed as the block): a leaf
+    not cut over ``dp_axes`` comes back as it is, summed by a flat
+    bucketed all-reduce; a leaf cut over them (ZeRO) comes back as this
+    rank's block, reduce-scattered over the cut's axes and all-reduced
+    over the rest of ``dp_axes``."""
     for g in tree_leaves(grads):
         g.mul_(weight)
     dp_group = axis_group(mesh, dp_axes)
-    by_path = dict(tree_leaves_with_path(shardings))
-    flat = [g for path, g in tree_leaves_with_path(grads)
-            if by_path[path].replicated]
+    cuts = {path: _dp_cuts(sh, dp_axes, path)
+            for path, sh in tree_leaves_with_path(shardings)}
+    flat = [g for path, g in tree_leaves_with_path(grads) if not cuts[path]]
     comm.all_reduce_(flat, dp_group)
 
     def one(path, g):
-        sh = by_path[path]
-        if sh.replicated:
+        if not cuts[path]:
             return g
-        for cut in sh.cuts():
-            if not set(cut.axes) <= set(dp_axes):
-                raise ValueError(
-                    f"{'/'.join(path)} is cut over {cut.axes}, outside the "
-                    f"data-parallel axes {tuple(dp_axes)}")
+        for cut in cuts[path]:
             moved = g.movedim(cut.dim, 0).contiguous()
             g = comm.reduce_scatter(moved, axis_group(mesh, cut.axes))
             g = g.movedim(0, cut.dim).contiguous()
-        cut_axes = {a for cut in sh.cuts() for a in cut.axes}
+        cut_axes = {a for cut in cuts[path] for a in cut.axes}
         rest = tuple(a for a in dp_axes if a not in cut_axes)
         comm.all_reduce_([g], axis_group(mesh, rest))
         return g
@@ -151,8 +163,10 @@ def sync_grads(grads: Any, shardings: Any, mesh, dp_axes, weight: float
 def global_norm(grads: Any, shardings: Any, mesh) -> torch.Tensor:
     """The L2 norm of the full gradient tree, from leaves that are full
     (replicated) or this rank's blocks: the blocks' squared sums are
-    summed over their cut axes' group, the replicated leaves' added
-    once. A float32 scalar, equal on every rank."""
+    summed over their cut axes' group (data, model, or both), the
+    replicated leaves' added once. A float32 scalar, equal on every
+    rank."""
+    names = list(mesh.mesh_dim_names)
     by_path = dict(tree_leaves_with_path(shardings))
     leaves = tree_leaves_with_path(grads)
     dev = leaves[0][1].device
@@ -164,7 +178,8 @@ def global_norm(grads: Any, shardings: Any, mesh) -> torch.Tensor:
         if sh.replicated:
             full = full + sq
         else:
-            axes = tuple(a for cut in sh.cuts() for a in cut.axes)
+            axes = tuple(sorted({a for cut in sh.cuts() for a in cut.axes},
+                                key=names.index))
             parts[axes] = parts.get(axes, torch.zeros_like(full)) + sq
     for axes, sq in parts.items():
         sq = sq.reshape(1).contiguous()

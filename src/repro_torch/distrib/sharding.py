@@ -9,10 +9,16 @@ mapping, as in the reference:
 * **DP**    — batch over ``(pod, data)`` (all three under the ``dp``
               profile); gradients summed over those ranks
               (``grad_sync``).
-* **TP**    — attention heads / FFN hidden over ``model``: the ``tp``
-              profile's rules below. Not ported: a leaf the ``tp``
-              profile cuts over a ``model`` axis of more than one rank
-              raises (:func:`refuse_tensor_parallel`, ROADMAP A13-TP).
+* **TP**    — attention heads / FFN hidden / vocab over ``model``: the
+              ``tp`` profile's rules below, as explicit Megatron tensor
+              parallelism for the dense and VLM families
+              (``models/transformer.py``): the model code reads the
+              installed rule set (:func:`model_axis`, :func:`leaf_cut`,
+              :func:`kv_cache_spec`) and calls the region operators
+              (:func:`into_region`, :func:`out_of_region`,
+              :func:`gather_for_compute`). Other families under ``tp``
+              with a ``model`` axis above one rank raise
+              (:func:`refuse_tensor_parallel`, ROADMAP A13-TP (ssm)).
 * **FSDP**  — parameters (and their AdamW moments) additionally cut over
               the data-parallel ranks, ZeRO-style (``fsdp=True``).
 
@@ -29,9 +35,10 @@ process group of a mesh axis or of a tuple of axes (their product).
 
 ``set_rules``, ``rules_context`` and ``constrain`` keep the reference's
 activation-annotation hook. ``constrain`` annotates for GSPMD's
-partitioner, and eager PyTorch has none: each rank already holds its
-activations' block, so it stays the identity, as the reference's is
-without an installed rule set.
+partitioner, and eager PyTorch has none: the collectives that GSPMD
+derives from the annotations are explicit here (the region operators),
+so it stays the identity, as the reference's is without an installed
+rule set.
 """
 from __future__ import annotations
 
@@ -275,25 +282,36 @@ def batch_spec(name: str, shape: tuple[int, ...], mesh,
     return safe_spec(tuple(shape), wanted, mesh)
 
 
+# The leaves the port cuts over ``model`` under the tp profile: the dense
+# and VLM transformer's (models/transformer.py).
+_TP_PORTED = re.compile(
+    r"^(embed|unembed|blocks/(wq|wk|wv|bq|bk|bv|wo|w_gate|w_up|w_down))$")
+
+
 def refuse_tensor_parallel(params_shape: Any, mesh, *, profile: str = "tp",
                            fsdp: bool = False) -> None:
-    """Raise ``NotImplementedError`` when the ``tp`` profile cuts any
-    leaf of ``params_shape`` over a ``model`` axis of more than one rank
-    (``mesh``: a ``DeviceMesh`` or {axis name: size})."""
+    """Raise ``NotImplementedError`` when the ``tp`` profile cuts a leaf
+    of ``params_shape`` over a ``model`` axis of more than one rank and
+    the port has no tensor-parallel form for it (``mesh``: a
+    ``DeviceMesh`` or {axis name: size}). The dense and VLM families'
+    leaves have one; mamba2's fused ``in_proj`` columns do not (ROADMAP
+    A13-TP (ssm)); the MoE, hybrid and audio families are refused by
+    the registry before they get here."""
     sizes = mesh_axis_sizes(mesh)
     if profile != "tp" or sizes.get("model", 1) == 1:
         return
     for path, leaf in tree_leaves_with_path(params_shape):
-        spec = param_spec(path_str(path), tuple(leaf.shape), mesh,
-                          fsdp=fsdp, profile=profile)
-        if any("model" in _axes_tuple(a) for a in spec):
+        name = path_str(path)
+        spec = param_spec(name, tuple(leaf.shape), mesh, fsdp=fsdp,
+                          profile=profile)
+        if (any("model" in _axes_tuple(a) for a in spec)
+                and not _TP_PORTED.match(name)):
             raise NotImplementedError(
-                f"the tp profile cuts {path_str(path)} {tuple(leaf.shape)} "
-                f"as {spec} over a model axis of {sizes['model']} ranks: "
-                "tensor parallelism is not ported yet (ROADMAP A13-TP, the "
-                "tp profile's model axis, the next slice after the "
-                "dense transformer); use profile='dp', or a mesh whose "
-                "model axis is 1"
+                f"the tp profile cuts {name} {tuple(leaf.shape)} as {spec} "
+                f"over a model axis of {sizes['model']} ranks: tensor "
+                "parallelism is ported for the dense and VLM families only; "
+                "this model's is ROADMAP A13-TP (ssm); use profile='dp', or "
+                "a mesh whose model axis is 1"
             )
 
 
@@ -383,11 +401,14 @@ class NamedSharding:
         """This rank's block of ``full`` (a view)."""
         return local_shard(full, self.spec, self.mesh)
 
-    def gather(self, shard: torch.Tensor) -> torch.Tensor:
+    def gather(self, shard: torch.Tensor, axes=None) -> torch.Tensor:
         """The full tensor from every rank's ``shard`` (a collective: each
-        rank of the cut axes' groups calls it)."""
+        rank of the cut axes' groups calls it); with ``axes`` (a tuple of
+        mesh axis names) only the cuts over those axes are gathered."""
         full = shard
         for cut in reversed(self.cuts()):
+            if axes is not None and not set(cut.axes) <= set(axes):
+                continue
             group = axis_group(self.mesh, cut.axes)
             moved = full.movedim(cut.dim, 0).contiguous()
             full = comm.all_gather(moved, group).movedim(0, cut.dim)
@@ -423,14 +444,16 @@ def shard_tree(tree: Any, shardings: Any) -> Any:
     return tree_map_with_path(one, tree)
 
 
-def gather_tree(tree: Any, shardings: Any) -> Any:
+def gather_tree(tree: Any, shardings: Any, axes=None) -> Any:
     """Each leaf of ``tree`` (this rank's blocks) gathered to its full
-    shape (a collective)."""
+    shape (a collective); with ``axes``, only its cuts over those mesh
+    axes (the tensor-parallel step gathers the ZeRO cuts and keeps the
+    ``model`` blocks)."""
     by_path = dict(tree_leaves_with_path(shardings))
 
     def one(path, leaf):
         sh = by_path[path]
-        return leaf if sh.replicated else sh.gather(leaf)
+        return leaf if sh.replicated else sh.gather(leaf, axes)
 
     return tree_map_with_path(one, tree)
 
@@ -480,9 +503,168 @@ def rules_context(mesh, rules: Mapping[str, tuple] | None = None):
 
 def constrain(x: torch.Tensor, kind: str) -> torch.Tensor:
     """The reference's activation annotation. It asks GSPMD's
-    partitioner to lay ``x`` out by the installed rule for ``kind``;
-    eager PyTorch has no partitioner and each rank already computes on
-    its own block of the batch, so ``x`` comes back as it is, with or
-    without a rule set."""
+    partitioner to lay ``x`` out by the installed rule for ``kind`` and
+    to insert the collectives that layout needs; eager PyTorch has no
+    partitioner, and the port's model code makes those collectives
+    itself (the region operators below), so ``x`` comes back as it is,
+    with or without a rule set."""
     del kind
     return x
+
+
+# --- tensor parallelism: the tp profile's model axis ---------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelAxis:
+    """The installed mesh's ``model`` axis as the model code uses it:
+    its process group, its ranks and this rank's position."""
+
+    mesh: Any
+    group: Any
+    size: int
+    index: int
+
+
+def model_axis() -> ModelAxis | None:
+    """The ``model`` axis of the installed rule set (``set_rules`` /
+    ``rules_context``) when it cuts attention heads over more than one
+    rank (the ``tp`` profile on a ``DeviceMesh``); else None, and the
+    model runs as on one card (no rule set, a mapping of sizes, a model
+    axis of 1, or the ``dp`` profile, where ``model`` joins the batch
+    axes)."""
+    mesh = getattr(_STATE, "mesh", None)
+    rules = getattr(_STATE, "rules", None)
+    if mesh is None or isinstance(mesh, Mapping) or not rules:
+        return None
+    size = mesh_axis_sizes(mesh).get("model", 1)
+    heads = rules.get("act_bshd", ())
+    if size == 1 or len(heads) < 3 or "model" not in _axes_tuple(heads[2]):
+        return None
+    cached = mesh.__dict__.get("_model_axis")
+    if cached is None:
+        cached = ModelAxis(mesh, axis_group(mesh, "model"), size,
+                           mesh.get_local_rank("model"))
+        mesh.__dict__["_model_axis"] = cached
+    return cached
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafCut:
+    """How the tp profile lays a parameter over ``model``: ``dim`` is the
+    dim cut over it (None: whole on every rank) and ``on_units`` whether
+    each block holds whole units (heads of ``unit`` columns)."""
+
+    dim: int | None
+    on_units: bool
+
+
+def leaf_cut(path: str, shape: tuple[int, ...], unit: int = 1) -> LeafCut:
+    """The installed mesh's tp cut of the parameter at ``path`` (its full
+    ``shape``) over ``model``: ``param_spec``'s (the reference's
+    ``PARAM_RULES`` through ``safe_spec``), whatever ``fsdp`` adds over
+    ``data``."""
+    mesh = getattr(_STATE, "mesh", None)
+    size = mesh_axis_sizes(mesh).get("model", 1)
+    for d, axes in enumerate(param_spec(path, shape, mesh, profile="tp")):
+        if "model" in _axes_tuple(axes):
+            return LeafCut(d, (shape[d] // size) % unit == 0)
+    return LeafCut(None, True)
+
+
+def kv_cache_spec(shape: tuple[int, ...], mesh) -> tuple:
+    """The spec of a stacked KV cache leaf ``(n_layers, b, L, g, dh)``:
+    the reference's ``cache_shardings`` rule (``repro.launch.steps:47``),
+    the tp profile's ``cache_blgd`` candidates behind the layer axis:
+    KV heads over ``model``, else the sequence. As in the reference, a
+    candidate counts only where every axis it names is above one rank
+    and divides its dim, so on a mesh whose data axis is 1 the cache is
+    cut by heads or not at all."""
+    return safe_spec(shape, [(None,) + tuple(c)
+                             for c in DEFAULT_ACT_RULES["cache_blgd"]], mesh)
+
+
+def block_shape(shape: tuple[int, ...], spec: tuple, mesh) -> tuple:
+    """The shape of this rank's block of a ``shape`` tensor under
+    ``spec``."""
+    sizes = mesh_axis_sizes(mesh)
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    return tuple(n // _axes_size(_axes_tuple(a), sizes)
+                 for n, a in zip(shape, spec))
+
+
+class _IntoRegion(torch.autograd.Function):
+    """Identity forward; the gradient summed over ``model`` backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone(memory_format=torch.contiguous_format)
+        comm.all_reduce_([grad], ctx.group)
+        return grad, None
+
+
+class _OutOfRegion(torch.autograd.Function):
+    """The ranks' partial sums added over ``model`` forward; identity
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        x = x.clone(memory_format=torch.contiguous_format)
+        comm.all_reduce_([x], group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _GatherForCompute(torch.autograd.Function):
+    """The ranks' blocks joined along ``dim`` forward (all-gather); the
+    full gradient's sum over ``model`` cut back to this rank's block
+    backward (reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        moved = x.movedim(dim, 0).contiguous()
+        return comm.all_gather(moved, group).movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        moved = grad.movedim(ctx.dim, 0).contiguous()
+        out = comm.reduce_scatter(moved, ctx.group).movedim(0, ctx.dim)
+        return out, None, None
+
+
+def into_region(x: torch.Tensor, axis: ModelAxis) -> torch.Tensor:
+    """Megatron's *f*: ``x`` (whole on every rank) enters a region where
+    each rank computes a part; its gradient, partial on each rank, is
+    all-reduced over ``model``."""
+    return _IntoRegion.apply(x, axis.group)
+
+
+def out_of_region(x: torch.Tensor, axis: ModelAxis) -> torch.Tensor:
+    """Megatron's *g*: the ranks' partial ``x`` summed over ``model`` (an
+    all-reduce in ``x``'s dtype); the gradient passes as it is."""
+    return _OutOfRegion.apply(x, axis.group)
+
+
+def gather_for_compute(x: torch.Tensor, axis: ModelAxis, dim: int
+                       ) -> torch.Tensor:
+    """``x``, this rank's block of a tensor cut along ``dim`` over
+    ``model``, joined whole for the computation (all-gather); its
+    gradient reduce-scattered back into the block."""
+    return _GatherForCompute.apply(x, axis.group, dim % x.dim())
+
+
+def model_max(x: torch.Tensor, axis: ModelAxis) -> torch.Tensor:
+    """The elementwise max of every rank's ``x`` over ``model`` (no
+    gradient: a softmax's shift)."""
+    rows = comm.all_gather(x.detach().reshape(1, -1).contiguous(),
+                           axis.group)
+    return rows.amax(0).view_as(x)

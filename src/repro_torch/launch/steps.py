@@ -1,19 +1,29 @@
 """Step makers (port of ``repro.launch.steps``): ``make_train_step``
 (with its gradient half, ``make_grad_step``, and over a mesh
-``make_synced_grad_step``), ``train_shardings``, ``make_prefill_step``
-and ``make_serve_step``.
+``make_synced_grad_step``), ``train_shardings``, ``cache_shardings``,
+``make_prefill_step`` and ``make_serve_step``.
 
-PyTorch runs eagerly, so there is no jit or donation. ``jit_train_step``'s
+PyTorch runs eagerly, so there is no jit. ``jit_train_step``'s
 semantics (GSPMD over a mesh with the reference's shardings) become
 ``make_train_step(..., mesh=...)``: every rank of a
-``torch.distributed`` mesh (``launch.mesh``) takes its rows of the
-global batch, computes its gradient and joins the data-parallel sum
-(``distrib.grad_sync``); with ``fsdp=True`` it holds the leaves
-``param_spec`` cuts as its own blocks, ZeRO-style. Each maker fixes the
-device its step runs on (the card by default; it raises without one
-unless the caller passes ``device="cpu"``) and refuses tokens elsewhere.
+``torch.distributed`` mesh (``launch.mesh``) holds its blocks of the
+parameters (``train_shardings``: the ``tp`` profile cuts heads, FFN
+hidden and vocab over ``model``, ``fsdp=True`` adds ZeRO cuts over
+``data``), takes its rows of the global batch (ranks that differ only
+in ``model`` take the same rows), computes its gradient under the
+profile's rule set (tensor parallelism inside the model, ``models/
+transformer.py``) and joins the data-parallel sum (``distrib.
+grad_sync``). ``make_prefill_step(..., mesh=)`` and
+``make_serve_step(..., mesh=)`` are ``jit_prefill_step`` and
+``jit_serve_step``: this rank's parameter blocks (and cache block, by
+``cache_shardings``) in, the whole vocab's float32 logits of its rows
+out. Each maker fixes the device its step runs on (the card by
+default; it raises without one unless the caller passes
+``device="cpu"``) and refuses tokens elsewhere.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -23,6 +33,7 @@ from repro_torch.distrib import comm
 from repro_torch.distrib import sharding as shlib
 from repro_torch.distrib.grad_sync import global_norm, sync_grads
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import KVCache
 from repro_torch.optim import AdamWConfig, OptState, adamw_update
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -79,8 +90,9 @@ def train_shardings(cfg: ModelConfig, mesh, *, profile: str = "tp",
     step count is replicated.
 
     Raises:
-        NotImplementedError: when the ``tp`` profile cuts a leaf over a
-            ``model`` axis of more than one rank (ROADMAP A13-TP).
+        NotImplementedError: when the ``tp`` profile cuts a leaf of a
+            family without tensor parallelism (mamba2: ROADMAP A13-TP
+            (ssm)) over a ``model`` axis of more than one rank.
     """
     abstract = get_model(cfg).abstract_params(cfg)
     shlib.refuse_tensor_parallel(abstract, mesh, profile=profile, fsdp=fsdp)
@@ -89,24 +101,68 @@ def train_shardings(cfg: ModelConfig, mesh, *, profile: str = "tp",
                           nu=p_sh)
 
 
+def cache_shardings(cache, mesh) -> KVCache:
+    """The decode cache's shardings on ``mesh`` (the reference's
+    ``cache_shardings``, ``repro.launch.steps:47``): the KV cache's k
+    and v by KV heads over ``model``, else by sequence
+    (``sharding.kv_cache_spec``), the batch over ``(pod, data)``; the
+    length replicated. ``cache`` may hold meta tensors.
+
+    Raises:
+        NotImplementedError: for the SSM, hybrid and encoder-decoder
+            caches (ROADMAP A13-TP (ssm), A13's ``models/hybrid.py`` and
+            ``models/encdec.py``).
+    """
+    if not isinstance(cache, KVCache):
+        raise NotImplementedError(
+            f"cache_shardings for {type(cache).__name__}: the port cuts the "
+            "KV cache only; mamba2's SSMCache is ROADMAP A13-TP (ssm), the "
+            "hybrid and encoder-decoder caches come with their families "
+            "(ROADMAP A13: models/hybrid.py, models/encdec.py)")
+    kv = shlib.NamedSharding(mesh, shlib.kv_cache_spec(
+        tuple(cache.k.shape), mesh))
+    return KVCache(k=kv, v=kv, length=shlib.NamedSharding(mesh, ()))
+
+
+def _rule_set(mesh, profile: str = "tp"):
+    """The profile's rule set installed on ``mesh`` for a step's call
+    (nothing without a mesh)."""
+    if mesh is None:
+        return contextlib.nullcontext()
+    return shlib.rules_context(mesh, shlib.profile_act_rules(profile))
+
+
+def _whole_vocab(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
+    """``logits`` (b, vocab or this rank's vocab columns) float32, joined
+    over ``model`` where they are cut (inside the step's rule set)."""
+    logits = logits.float()
+    if logits.shape[-1] == cfg.vocab:
+        return logits
+    return shlib.gather_for_compute(logits, shlib.model_axis(), -1)
+
+
 def make_synced_grad_step(cfg: ModelConfig, *, mesh, profile: str = "tp",
                           fsdp: bool = False,
                           device: str | torch.device | None = None):
     """``synced_grad_step(params, batch)`` → (loss, metrics, grads,
     grad_norm) on one rank of ``mesh``: ``batch`` is this rank's rows of
     the global batch (``batch_spec``: ``BatchIterator(host_index=
-    dp_index, host_count=dp_size)`` makes them); ``params`` are full, or
-    under ``fsdp`` this rank's blocks (``sharding.shard_tree``), which
-    are all-gathered before the forward.
+    dp_index, host_count=dp_size)`` makes them; ranks that differ only
+    in ``model`` take the same rows); ``params`` are this rank's blocks
+    (``sharding.shard_tree`` of ``train_shardings``): under ``fsdp``
+    the cuts over the data-parallel axes are all-gathered before the
+    forward, the ``tp`` profile's cuts over ``model`` stay blocks, and
+    the gradient runs under the profile's rule set (tensor parallelism
+    in the model).
 
     The gradient of ``lm_loss`` (:func:`make_grad_step`) is weighted by
     this rank's share of the global batch's tokens and summed over the
     data-parallel ranks (``grad_sync.sync_grads``: a flat bucketed f32
     all-reduce, or a reduce-scatter to this rank's block under
-    ``fsdp``), which gives the reference's global-batch mean; the loss
-    is the global mean too. ``grad_norm`` is the global norm of a
-    sharded tree (None when every leaf is full: AdamW takes it from the
-    tree)."""
+    ``fsdp``; a ``model`` block is summed as the block), which gives
+    the reference's global-batch mean; the loss is the global mean too.
+    ``grad_norm`` is the global norm of a sharded tree (None when every
+    leaf is full: AdamW takes it from the tree)."""
     grad_step = make_grad_step(cfg, device=device)
     p_sh, _ = train_shardings(cfg, mesh, profile=profile, fsdp=fsdp)
     axes = shlib.dp_axes(profile)
@@ -114,8 +170,9 @@ def make_synced_grad_step(cfg: ModelConfig, *, mesh, profile: str = "tp",
     sharded = any(not sh.replicated for sh in tree_leaves(p_sh))
 
     def synced_grad_step(params, batch):
-        full = shlib.gather_tree(params, p_sh) if sharded else params
-        loss, metrics, grads = grad_step(full, batch)
+        full = shlib.gather_tree(params, p_sh, axes) if sharded else params
+        with _rule_set(mesh, profile):
+            loss, metrics, grads = grad_step(full, batch)
         del full
         mask = batch.get("loss_mask")
         count = (mask.double().sum() if mask is not None else
@@ -147,13 +204,13 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
     holds one copy of them: the caller must not read the old values.
 
     With ``mesh`` (a ``DeviceMesh`` over an initialized group) each rank
-    runs the data-parallel step of :func:`make_synced_grad_step`:
-    ``profile`` ``"dp"`` cuts the batch over every mesh axis, ``"tp"``
-    over ``(pod, data)``; ``fsdp`` holds the leaves ``param_spec`` cuts,
-    and their moments, as this rank's blocks (``train_shardings`` gives
-    the layout; ``sharding.shard_tree`` cuts a full tree to it), and
-    AdamW updates the blocks, clipped by the global norm. Metrics are
-    global and equal on every rank."""
+    runs the step of :func:`make_synced_grad_step`: ``profile`` ``"dp"``
+    cuts the batch over every mesh axis, ``"tp"`` over ``(pod, data)``
+    and the heads, FFN hidden and vocab over ``model``; ``fsdp`` adds
+    the ZeRO cuts. The parameters and their moments are this rank's
+    blocks (``train_shardings`` gives the layout; ``sharding.shard_tree``
+    cuts a full tree to it), and AdamW updates the blocks, clipped by
+    the global norm. Metrics are global and equal on every rank."""
     if mesh is None:
         if fsdp:
             raise ValueError("fsdp=True needs a mesh")
@@ -181,39 +238,66 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
     return dp_train_step
 
 
-def make_prefill_step(cfg: ModelConfig, *,
+def make_prefill_step(cfg: ModelConfig, *, mesh=None,
                       device: str | torch.device | None = None,
                       use_pallas_conv: bool | None = None):
     """``prefill_step(params, batch)`` → the last position's logits
     (b, vocab) in float32; ``batch`` may carry the VLM's ``positions``
     and ``patch_embeds``. ``use_pallas_conv``, when set, goes to
     mamba2's ``forward`` (unset: the B7 kernel on the card, the plain
-    conv on the CPU)."""
+    conv on the CPU).
+
+    With ``mesh`` (``jit_prefill_step``): ``params`` are this rank's
+    blocks (``shard_tree`` of ``param_shardings``, the ``tp`` profile),
+    ``batch`` its rows, and the forward runs under the ``tp`` rule set;
+    the last position's logits are gathered over ``model`` once, so
+    every rank returns its rows' whole-vocab logits.
+
+    Raises:
+        NotImplementedError: for mamba2 with a ``model`` axis above one
+            rank (ROADMAP A13-TP (ssm)).
+    """
     api = get_model(cfg)
     dev = resolve_device(device)
     conv = _conv_switch(use_pallas_conv)
+    if mesh is not None:
+        shlib.refuse_tensor_parallel(api.abstract_params(cfg), mesh)
 
     def prefill_step(params, batch):
         extra = {k: batch[k] for k in ("positions", "patch_embeds")
                  if k in batch}
-        logits, _ = api.forward(params, cfg, _tokens_on(batch, dev),
-                                **extra, **conv)
-        return logits[:, -1].float()
+        with _rule_set(mesh):
+            logits, _ = api.forward(params, cfg, _tokens_on(batch, dev),
+                                    **extra, **conv)
+            return _whole_vocab(cfg, logits[:, -1])
 
     return prefill_step
 
 
-def make_serve_step(cfg: ModelConfig, *,
+def make_serve_step(cfg: ModelConfig, *, mesh=None,
                     device: str | torch.device | None = None):
     """``serve_step(params, cache, batch)`` → (logits (b, vocab) float32,
-    next cache): one decode step of ``batch["tokens"]`` (b, 1)."""
+    next cache): one decode step of ``batch["tokens"]`` (b, 1).
+
+    With ``mesh`` (``jit_serve_step``): ``params`` are this rank's
+    blocks, ``cache`` its block (``init_decode_cache`` under the ``tp``
+    rule set, or ``shard_tree`` of :func:`cache_shardings`), ``batch``
+    its rows; the logits are gathered over ``model`` once, at the end.
+
+    Raises:
+        NotImplementedError: for mamba2 with a ``model`` axis above one
+            rank (ROADMAP A13-TP (ssm)).
+    """
     api = get_model(cfg)
     dev = resolve_device(device)
+    if mesh is not None:
+        shlib.refuse_tensor_parallel(api.abstract_params(cfg), mesh)
 
     def serve_step(params, cache, batch):
-        logits, cache = api.decode_step(
-            params, cfg, _tokens_on(batch, dev), cache
-        )
-        return logits.float(), cache
+        with _rule_set(mesh):
+            logits, cache = api.decode_step(
+                params, cfg, _tokens_on(batch, dev), cache
+            )
+            return _whole_vocab(cfg, logits), cache
 
     return serve_step

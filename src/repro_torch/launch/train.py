@@ -17,6 +17,13 @@ of ranks, fault-tolerant.
     PYTHONPATH=src python -m repro_torch.launch.train --reduced \\
         --device cpu --backend gloo --mesh 2x1
 
+    # tensor-parallel (the tp profile's model axis) over two CPU ranks,
+    # and tensor x data parallel over four:
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \\
+        --reduced --device cpu --backend gloo --mesh 1x2
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \\
+        --reduced --device cpu --backend gloo --mesh 2x2
+
 The loop is the reference's: ``MarkovLMDataset`` batches by step number
 (``BatchIterator``), ``make_train_step`` (``lm_loss``'s gradient, for
 mamba2 with the B7 kernel on the card, then AdamW), ``Supervisor``
@@ -27,11 +34,15 @@ and replaying from the last checkpoint after a failure.
 starts one process per rank (``launch.mesh.run_on_mesh``) over
 ``--backend`` ``nccl`` (the default: one card per rank; it raises with
 fewer cards) or ``gloo`` (CPU ranks with ``--device cpu``, or several
-ranks sharing a card). Each rank takes its rows of every global batch
-(the reference's ``tp`` profile: the batch over ``(pod, data)``) and
-joins the gradient sum; checkpoints hold whole leaves. Rank 0 prints. A
-``model`` axis above 1 raises ``NotImplementedError``: tensor
-parallelism is ROADMAP A13-TP.
+ranks sharing a card: correctness and costs, never a scaling figure).
+The step runs the reference's ``tp`` profile: each rank takes its rows
+of every global batch (the batch over ``(pod, data)``), and a ``model``
+axis above 1 cuts the dense and VLM archs' heads, FFN hidden and vocab
+over its ranks (tensor parallelism; each rank keeps its blocks of the
+seeded parameters); the ranks join the gradient sum over ``(pod,
+data)``. Checkpoints hold whole leaves. Rank 0 prints. mamba2 with a
+``model`` axis above 1 raises ``NotImplementedError`` (ROADMAP A13-TP
+(ssm)).
 """
 from __future__ import annotations
 
@@ -150,7 +161,7 @@ def _train(mesh, opts: dict) -> None:
     say(f"dataset entropy rate: {dataset.entropy_rate:.3f} nats/token")
     if mesh is None:
         step_fn = make_train_step(cfg, opt_cfg, device=dev)
-        shardings, host, hosts = None, 0, 1
+        shardings, p_sh, host, hosts = None, None, 0, 1
     else:
         step_fn = make_train_step(cfg, opt_cfg, device=dev, mesh=mesh)
         p_sh, o_sh = train_shardings(cfg, mesh)
@@ -162,6 +173,8 @@ def _train(mesh, opts: dict) -> None:
 
     def fresh():
         params = api.init_params(cfg, seed=0, device=dev)
+        if p_sh is not None:  # this rank's blocks of the seeded tree
+            params = shlib.shard_tree(params, p_sh)
         return {"params": params, "opt": adamw_init(params)}
 
     ckpt = CheckpointManager(args.ckpt_dir, keep=3)

@@ -6,9 +6,12 @@ training loss.
 Plain functions on tensors with the reference's dtype casts step for
 step (f32 statistics, angles, logits and softmax; matmuls in the
 inputs' dtype), so the numbers follow the reference's. The reference's
-sharding annotations (``constrain``) have no counterpart on one card.
-Attention is the reference's materialised or streaming form, not
-``F.scaled_dot_product_attention``.
+sharding annotations (``constrain``) become explicit collectives under
+tensor parallelism: ``token_xent`` on logits cut by vocab over
+``model`` and ``decode_attention`` on a cache cut by sequence reduce
+their statistics over that axis (``distrib.sharding``'s
+``ModelAxis``). Attention is the reference's materialised or streaming
+form, not ``F.scaled_dot_product_attention``.
 """
 from __future__ import annotations
 
@@ -17,6 +20,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from repro_torch.distrib import comm
+from repro_torch.distrib import sharding as shlib
 
 f32 = torch.float32
 
@@ -209,30 +215,49 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cache_len, *,
                      window: int | None = None,
-                     softmax_scale: float | None = None) -> torch.Tensor:
+                     softmax_scale: float | None = None,
+                     slots: torch.Tensor | None = None,
+                     seq_axis: shlib.ModelAxis | None = None
+                     ) -> torch.Tensor:
     """Single-token decode against a KV cache: q (b, 1, h, dh); caches
     (b, L, g, dh); ``cache_len`` (an int or a scalar tensor) the number
-    of valid cache entries INCLUDING the current token."""
+    of valid cache entries INCLUDING the current token.
+
+    Under a cache cut by sequence over ``seq_axis`` the caches are this
+    rank's slots, ``slots`` their global positions, and ``q`` holds
+    every head: each rank scores its slots, the row max is taken over
+    the axis first, then the exponentials' sums and the weighted values
+    (float32) are summed over it and divided."""
     b, _, h, dh = q.shape
     scale = softmax_scale or dh**-0.5
     kf = expand_kv(k_cache, h)
     vf = expand_kv(v_cache, h)
     logits = torch.einsum("bshd,bthd->bhst", (q * scale).float(), kf.float())
-    kpos = torch.arange(k_cache.shape[1], device=q.device)
+    kpos = (torch.arange(k_cache.shape[1], device=q.device) if slots is None
+            else slots)
     mask = kpos < cache_len
     if window is not None:
         mask &= kpos > cache_len - 1 - window
     logits = torch.where(mask[None, None, None], logits, -1e30)
-    p = torch.softmax(logits, dim=-1)
-    return torch.einsum("bhst,bthd->bshd", p.to(vf.dtype), vf)
+    if seq_axis is None:
+        p = torch.softmax(logits, dim=-1)
+        return torch.einsum("bhst,bthd->bshd", p.to(vf.dtype), vf)
+    m = shlib.model_max(logits.amax(dim=-1, keepdim=True), seq_axis)
+    p = torch.exp(logits - m)
+    den = p.sum(dim=-1, keepdim=True)  # (b, h, 1, 1)
+    acc = torch.einsum("bhst,bthd->bhsd", p, vf.float())
+    sums = torch.cat([den, acc], dim=-1)
+    comm.all_reduce_([sums], seq_axis.group)
+    out = sums[..., 1:] / sums[..., :1]
+    return out.transpose(1, 2).to(vf.dtype)
 
 
 # --- MLPs --------------------------------------------------------------------
 
 
-def gated_mlp(x, w_gate, w_up, w_down, kind: str = "swiglu"):
-    """(act(x·W_gate) ⊙ x·W_up)·W_down, the activation in float32:
-    ``swiglu`` SiLU, ``geglu`` the tanh GELU."""
+def gated_hidden(x, w_gate, w_up, kind: str = "swiglu"):
+    """act(x·W_gate) ⊙ x·W_up, the activation in float32: ``swiglu``
+    SiLU, ``geglu`` the tanh GELU."""
     gate = x @ w_gate
     up = x @ w_up
     if kind == "swiglu":
@@ -241,7 +266,12 @@ def gated_mlp(x, w_gate, w_up, w_down, kind: str = "swiglu"):
         act = F.gelu(gate.float(), approximate="tanh").to(x.dtype)
     else:
         raise ValueError(kind)
-    return (act * up) @ w_down
+    return act * up
+
+
+def gated_mlp(x, w_gate, w_up, w_down, kind: str = "swiglu"):
+    """(act(x·W_gate) ⊙ x·W_up)·W_down (:func:`gated_hidden`)."""
+    return gated_hidden(x, w_gate, w_up, kind) @ w_down
 
 
 def gelu_mlp(x, w_in, b_in, w_out, b_out):
@@ -267,26 +297,49 @@ def dense_init(
 
 
 class KVCache(NamedTuple):
-    """Per-layer-stacked decode cache."""
+    """Per-layer-stacked decode cache. Under tensor parallelism a rank
+    holds its block (``launch.steps.cache_shardings``); where the block
+    is cut by sequence, ``slots`` holds its slots' global positions
+    (None: every slot)."""
 
     k: torch.Tensor  # (L, b, max_len, g, dh)
     v: torch.Tensor
     length: torch.Tensor  # () int32: valid entries
+    slots: torch.Tensor | None = None  # (max_len / model,) int64
 
 
 def token_xent(
     logits: torch.Tensor,
     labels: torch.Tensor,
     mask: torch.Tensor | None = None,
+    *,
+    vocab_axis: shlib.ModelAxis | None = None,
 ) -> torch.Tensor:
     """Mean next-token cross-entropy over the positions ``mask`` keeps
     (all when None): logsumexp of the float32 logits minus the gold
-    logit. The gold logit is a ``gather``; the reference's iota compare
-    and masked sum exist only to keep vocab-sharded logits sharded under
-    GSPMD, and the port's logits lie whole on one card."""
+    logit.
+
+    With ``vocab_axis`` the logits are this rank's block of the vocab
+    (block ``index`` of ``size`` over ``model``), as the reference's
+    iota compare and masked sum keep them under GSPMD: the row max is
+    taken over the axis, then the sums of exponentials and the gold
+    logit (zero on the ranks that do not hold it) are summed over it, so
+    the float32 logits and their gradient stay cut. Without it the gold
+    logit is a ``gather`` of whole logits."""
     lf = logits.float()
-    lse = torch.logsumexp(lf, dim=-1)
-    gold = lf.gather(-1, labels.long()[..., None])[..., 0]
+    if vocab_axis is None:
+        lse = torch.logsumexp(lf, dim=-1)
+        gold = lf.gather(-1, labels.long()[..., None])[..., 0]
+    else:
+        width = lf.shape[-1]
+        m = shlib.model_max(lf.amax(dim=-1), vocab_axis)
+        local = labels.long() - vocab_axis.index * width
+        held = (local >= 0) & (local < width)
+        mine = lf.gather(-1, local.clamp(0, width - 1)[..., None])[..., 0]
+        parts = torch.stack([torch.exp(lf - m[..., None]).sum(dim=-1),
+                             torch.where(held, mine, 0.0)])
+        total, gold = shlib.out_of_region(parts, vocab_axis).unbind(0)
+        lse = m + torch.log(total)
     if mask is None:
         mask = torch.ones_like(lse)
     mask = mask.float()

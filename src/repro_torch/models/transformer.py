@@ -8,13 +8,30 @@ the remat policy (:func:`remat_body`).
 
 Parameters are plain nested dicts of tensors whose blocks are stacked
 along a leading layer axis, as in the reference; the layer loop is
-:func:`scan_layers`. The reference's sharding constraints have no
-counterpart on one card. Every op runs in plain PyTorch: the reference
+:func:`scan_layers`. Every op runs in plain PyTorch: the reference
 computes attention, RoPE and the MLPs in ``jnp``, outside any Pallas
 kernel, so this path launches none of the port's CUDA kernels.
+
+Tensor parallelism (the ``tp`` profile's ``model`` axis, installed by
+``distrib.sharding.set_rules`` / ``rules_context`` on a mesh): where the
+reference's GSPMD partitions by its annotations, each rank holds its
+blocks of the parameters (``param_spec``) and computes Megatron-style:
+the vocab-parallel embedding, then per layer the attention on this
+rank's whole q heads (q head ``h`` reading KV head ``h // (H/G)``) and
+the MLP on its hidden columns, each a region entered by
+``into_region`` and left by ``out_of_region`` (one all-reduce of the
+row-parallel ``wo``/``w_down`` partial products, in float32, rounded
+once to the activation dtype after the sum);
+vocab-cut logits, reduced by ``layers.token_xent``. A leaf cut
+mid-head is gathered for the layer (its gradient reduce-scattered
+back); a leaf whole on every rank but used inside a region has its
+gradient summed over ``model``. Where ``H`` does not split into whole
+heads per rank, every rank computes every head and takes ``wo``'s rows
+from the result. :func:`_tp_plan` holds these choices.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Any, Callable
 
@@ -26,9 +43,11 @@ from torch.utils.checkpoint import (
 )
 
 from repro_torch import as_dtype, resolve_device
+from repro_torch.distrib import sharding as shlib
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.tree import (
+    path_str,
     tree_leaves_with_path,
     tree_map,
     tree_map_with_path,
@@ -140,35 +159,60 @@ def _moe_not_ported() -> NotImplementedError:
         "the MoE FFN is not ported yet: ROADMAP A13 (models/moe.py)")
 
 
+def _keeper(shardings) -> Callable:
+    """``keep(path, leaf)``: the leaf, or with ``shardings`` (a tree of
+    ``NamedSharding``) a copy of this rank's block of it alone, so that
+    the full leaf can be freed before the next is drawn."""
+    if shardings is None:
+        return lambda path, leaf: leaf
+    by_path = dict(tree_leaves_with_path(shardings))
+
+    def keep(path, leaf):
+        sh = by_path[path]
+        return leaf if sh.replicated else sh.shard(leaf).clone(
+            memory_format=torch.contiguous_format)
+
+    return keep
+
+
 def init_block_params(cfg: ModelConfig, gen: torch.Generator,
-                      n_layers: int) -> Params:
+                      n_layers: int, keep: Callable | None = None) -> Params:
     """Stacked block params with leading (n_layers,) axis: the
-    projections from ``dense_init``, norms and biases zero."""
+    projections from ``dense_init``, norms and biases zero; each leaf
+    through ``keep(("blocks", name), leaf)`` as it is made."""
+    keep = keep or _keeper(None)
     return {
-        k: (L.dense_init(gen, s) if k in _DRAWN
-            else torch.zeros(s, device=gen.device))
+        k: keep(("blocks", k), L.dense_init(gen, s) if k in _DRAWN
+                else torch.zeros(s, device=gen.device))
         for k, s in _block_shapes(cfg, n_layers).items()
     }
 
 
 def init_params(cfg: ModelConfig, seed: int = 0,
-                device: str | torch.device | None = None) -> Params:
+                device: str | torch.device | None = None,
+                shardings: Any = None) -> Params:
     """Random init (the reference's shapes, scales and optional leaves:
     ``bq/bk/bv``, ``q_norm/k_norm``, no ``unembed`` when tied) from a
     ``torch.Generator`` seeded with ``seed`` on ``device`` (the card by
     default; it raises without one unless ``device="cpu"``). The draws
     differ from ``jax.random``'s: to compare with the reference, carry
-    its parameters across with ``convert.model_params_from_numpy``."""
+    its parameters across with ``convert.model_params_from_numpy``.
+
+    With ``shardings`` (``param_shardings`` of the mesh) each leaf is
+    cut to this rank's block as soon as it is drawn: the blocks of the
+    one-rank parameters, with one full leaf alive at a time."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
+    keep = _keeper(shardings)
     params: Params = {
-        "embed": L.dense_init(gen, (cfg.vocab, cfg.d_model),
-                              scale=cfg.d_model**-0.5),
-        "blocks": init_block_params(cfg, gen, cfg.n_layers),
+        "embed": keep(("embed",), L.dense_init(
+            gen, (cfg.vocab, cfg.d_model), scale=cfg.d_model**-0.5)),
+        "blocks": init_block_params(cfg, gen, cfg.n_layers, keep),
         "final_norm": torch.zeros((cfg.d_model,), device=dev),
     }
     if not cfg.tie_embeddings:
-        params["unembed"] = L.dense_init(gen, (cfg.d_model, cfg.vocab))
+        params["unembed"] = keep(("unembed",), L.dense_init(
+            gen, (cfg.d_model, cfg.vocab)))
     return params
 
 
@@ -189,6 +233,135 @@ def abstract_params(cfg: ModelConfig) -> Params:
     if not cfg.tie_embeddings:
         params["unembed"] = meta((cfg.d_model, cfg.vocab))
     return params
+
+
+# --- tensor parallelism --------------------------------------------------------
+
+# The leaves cut by heads (their unit: one head's columns or rows).
+_HEAD_LEAVES = ("wq", "wk", "wv", "bq", "bk", "bv", "wo")
+
+
+@dataclasses.dataclass(frozen=True)
+class _TP:
+    """This rank's part of the model on the installed mesh's ``model``
+    axis. ``leaf[name]`` is ``"cut"`` (this rank's block of whole units),
+    ``"gather"`` (cut mid-head: joined for the layer) or ``"whole"``
+    (the same on every rank); ``attn`` / ``mlp`` / ``vocab`` say whether
+    ``wo`` / ``w_down`` / the embedding is cut, which makes the
+    attention, the MLP and the vocab Megatron regions; ``q`` is the
+    global q heads this rank computes, ``kv_map`` the KV head of each;
+    ``unembed_rows`` that an untied ``unembed`` is cut on d_model (the
+    reference's ``embed$`` rule matches it first)."""
+
+    axis: shlib.ModelAxis
+    leaf: dict
+    attn: bool
+    mlp: bool
+    vocab: bool
+    q: tuple[int, int]
+    kv_map: tuple[int, ...]
+    unembed_rows: bool
+
+    @property
+    def kv(self) -> tuple[int, int]:
+        """The KV heads this rank's q heads read."""
+        return self.kv_map[0], self.kv_map[-1] + 1
+
+
+def _tp_plan(cfg: ModelConfig) -> _TP | None:
+    """The installed rule set's tensor-parallel plan for ``cfg``, from the
+    reference's ``PARAM_RULES`` on the mesh (``sharding.leaf_cut``); None
+    without a ``tp`` rule set on a ``model`` axis above one rank."""
+    axis = shlib.model_axis()
+    if axis is None:
+        return None
+    plans = axis.mesh.__dict__.setdefault("_tp_plans", {})
+    if cfg in plans:
+        return plans[cfg]
+    shapes = {path_str(p): tuple(v.shape)
+              for p, v in tree_leaves_with_path(abstract_params(cfg))}
+    leaf, dims = {}, {}
+    for path, shape in shapes.items():
+        name = path.split("/")[-1]
+        cut = shlib.leaf_cut(path, shape,
+                             cfg.hd if name in _HEAD_LEAVES else 1)
+        leaf[name] = ("whole" if cut.dim is None else
+                      "cut" if cut.on_units else "gather")
+        dims[name] = cut.dim
+    h, g, m, r = cfg.n_heads, cfg.n_kv_heads, axis.size, axis.index
+    attn = leaf["wo"] != "whole"
+    q = (r * h // m, (r + 1) * h // m) if leaf["wq"] == "cut" else (0, h)
+    plans[cfg] = _TP(axis, leaf, attn, leaf["w_down"] != "whole",
+                     leaf["embed"] != "whole", q,
+                     tuple(i // (h // g) for i in range(*q)),
+                     dims.get("unembed") == 0)
+    return plans[cfg]
+
+
+def _heads_of(tp: _TP, w: torch.Tensor, name: str, n: int, heads, hd: int):
+    """The last-dim columns of ``heads`` (a global [lo, hi)) of the
+    per-layer leaf ``name`` (``n`` heads of ``hd``): from this rank's
+    block where it holds them, else from the whole leaf (gathered when
+    cut mid-head; summed over ``model`` in the backward when whole)."""
+    first = 0
+    if tp.leaf[name] == "cut":
+        first = tp.axis.index * (n // tp.axis.size)
+    elif tp.leaf[name] == "gather":
+        w = shlib.gather_for_compute(w, tp.axis, -1)
+    else:
+        w = shlib.into_region(w, tp.axis)
+    lo, hi = heads
+    return w.narrow(-1, (lo - first) * hd, (hi - lo) * hd)
+
+
+def _qkv_tp(x, blk, cfg: ModelConfig, tp: _TP, kv: tuple[int, int]):
+    """q for this rank's q heads and k, v for the KV heads ``kv``, inside
+    the attention region."""
+    b, s, _ = x.shape
+    x = shlib.into_region(x, tp.axis)
+    h, g, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = x @ _heads_of(tp, blk["wq"], "wq", h, tp.q, hd)
+    k = x @ _heads_of(tp, blk["wk"], "wk", g, kv, hd)
+    v = x @ _heads_of(tp, blk["wv"], "wv", g, kv, hd)
+    if cfg.qkv_bias:
+        q = q + _heads_of(tp, blk["bq"], "bq", h, tp.q, hd)
+        k = k + _heads_of(tp, blk["bk"], "bk", g, kv, hd)
+        v = v + _heads_of(tp, blk["bv"], "bv", g, kv, hd)
+    q = q.reshape(b, s, -1, hd)
+    k = k.reshape(b, s, -1, hd)
+    v = v.reshape(b, s, -1, hd)
+    if cfg.qk_norm:
+        q = L.rms_norm(q, shlib.into_region(blk["q_norm"], tp.axis),
+                       cfg.norm_eps)
+        k = L.rms_norm(k, shlib.into_region(blk["k_norm"], tp.axis),
+                       cfg.norm_eps)
+    return q, k, v
+
+
+def _kv_for_q(tp: _TP, t: torch.Tensor, first: int) -> torch.Tensor:
+    """``t`` (b, L, g', dh) holding KV heads from ``first`` on, as one
+    head per q head of this rank (dim 2 indexed by ``kv_map``)."""
+    index = torch.tensor([i - first for i in tp.kv_map], device=t.device)
+    return t.index_select(2, index)
+
+
+def _row_parallel(x: torch.Tensor, w: torch.Tensor, tp: _TP) -> torch.Tensor:
+    """``x @ w`` where ``w`` is this rank's block of rows and ``x`` their
+    columns: each rank's partial product with a float32 result, summed
+    over ``model`` in float32 and rounded once to ``x``'s dtype, as one
+    card's product rounds its float32 accumulator once (bf16 partial
+    sums, each rounded before the sum, drift over the layers)."""
+    return shlib.out_of_region(x.float() @ w.float(), tp.axis).to(x.dtype)
+
+
+def _wo_rows(tp: _TP, cfg: ModelConfig, out: torch.Tensor, first: int,
+             wo: torch.Tensor) -> torch.Tensor:
+    """``wo``'s row-parallel product, summed over ``model``: ``out`` (b,
+    s, heads x dh) holds heads from ``first`` on; this rank's block of
+    ``wo`` takes its rows' columns of it."""
+    width = cfg.n_heads * cfg.hd // tp.axis.size
+    part = out.narrow(-1, tp.axis.index * width - first * cfg.hd, width)
+    return _row_parallel(part, wo, tp)
 
 
 # --- attention sub-block -----------------------------------------------------
@@ -213,12 +386,18 @@ def _qkv(x, blk, cfg: ModelConfig):
 
 
 def attention_block(x: torch.Tensor, blk: Params, cfg: ModelConfig,
-                    cos, sin) -> torch.Tensor:
+                    cos, sin, tp: _TP | None = None) -> torch.Tensor:
     """Training/prefill self-attention with RoPE and GQA, dispatched as
     the reference's: materialised at s ≤ 2048; above it the streaming
     form on chunks of 1024, or banded (KV chunk = window) when a
-    sliding window divides s."""
-    q, k, v = _qkv(x, blk, cfg)
+    sliding window divides s. Under ``tp``'s attention region, this
+    rank's q heads, then ``wo``'s rows summed over ``model``."""
+    region = tp is not None and tp.attn
+    if region:
+        q, k, v = _qkv_tp(x, blk, cfg, tp, tp.kv)
+        k, v = (_kv_for_q(tp, t, tp.kv[0]) for t in (k, v))
+    else:
+        q, k, v = _qkv(x, blk, cfg)
     if cfg.rope_style != "none":
         q = L.apply_rope(q, cos, sin)
         k = L.apply_rope(k, cos, sin)
@@ -237,21 +416,32 @@ def attention_block(x: torch.Tensor, blk: Params, cfg: ModelConfig,
         )
     else:
         out = L.attention(q, k, v, causal=True, window=win)
-    return out.reshape(b, s, cfg.n_heads * cfg.hd) @ blk["wo"]
+    out = out.reshape(b, s, -1)
+    if region:
+        return _wo_rows(tp, cfg, out, tp.q[0], blk["wo"])
+    return out @ blk["wo"]
 
 
-def ffn_block(x, blk, cfg: ModelConfig):
-    """(the FFN's output, its aux loss: zero for the dense MLP)."""
+def ffn_block(x, blk, cfg: ModelConfig, tp: _TP | None = None):
+    """(the FFN's output, its aux loss: zero for the dense MLP). Under
+    ``tp``'s MLP region ``w_gate``/``w_up`` are this rank's columns and
+    ``w_down`` its rows, the product summed over ``model``."""
     if cfg.family == "moe":
         raise _moe_not_ported()
+    aux = torch.zeros((), dtype=f32, device=x.device)
+    if tp is not None and tp.mlp:
+        x = shlib.into_region(x, tp.axis)
+        hidden = L.gated_hidden(x, blk["w_gate"], blk["w_up"], cfg.mlp)
+        return _row_parallel(hidden, blk["w_down"], tp), aux
     return L.gated_mlp(x, blk["w_gate"], blk["w_up"], blk["w_down"],
-                       cfg.mlp), torch.zeros((), dtype=f32, device=x.device)
+                       cfg.mlp), aux
 
 
-def decoder_block(x, blk, cfg: ModelConfig, cos, sin):
+def decoder_block(x, blk, cfg: ModelConfig, cos, sin, tp: _TP | None = None):
     h = x + attention_block(L.rms_norm(x, blk["ln1"], cfg.norm_eps), blk,
-                            cfg, cos, sin)
-    ff, aux = ffn_block(L.rms_norm(h, blk["ln2"], cfg.norm_eps), blk, cfg)
+                            cfg, cos, sin, tp)
+    ff, aux = ffn_block(L.rms_norm(h, blk["ln2"], cfg.norm_eps), blk, cfg,
+                        tp)
     return h + ff, aux
 
 
@@ -273,13 +463,24 @@ def _rope_tables(cfg: ModelConfig, positions: torch.Tensor | None, b: int,
 
 
 def embed_inputs(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                 patch_embeds: torch.Tensor | None = None) -> torch.Tensor:
+                 patch_embeds: torch.Tensor | None = None,
+                 tp: _TP | None = None) -> torch.Tensor:
     """Token embedding in ``cfg.dtype``; for the VLM family the stubbed
     vision frontend's ``patch_embeds`` (b, n_patches, d) REPLACE the
     first n_patches positions; gemma scales by √d (in the compute
-    dtype)."""
+    dtype). Under ``tp``'s vocab cut each rank looks up the ids in its
+    rows (zero elsewhere) and the rows are summed over ``model`` (exact:
+    one rank holds each id) before the patches and the scale."""
     dtype = as_dtype(cfg.dtype)
-    x = params["embed"][tokens].to(dtype)
+    embed = params["embed"]
+    if tp is not None and tp.vocab:
+        rows = embed.shape[0]
+        local = tokens - tp.axis.index * rows
+        held = (local >= 0) & (local < rows)
+        x = embed[local.clamp(0, rows - 1)] * held[..., None]
+        x = shlib.out_of_region(x.to(dtype), tp.axis)
+    else:
+        x = embed[tokens].to(dtype)
     if cfg.family == "vlm" and patch_embeds is not None:
         n_p = patch_embeds.shape[1]
         x = torch.cat([patch_embeds.to(dtype), x[:, n_p:]], dim=1)
@@ -288,12 +489,33 @@ def embed_inputs(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     return x
 
 
-def _unembed(params: Params, cfg: ModelConfig, x: torch.Tensor):
+def _unembed(params: Params, cfg: ModelConfig, x: torch.Tensor,
+             tp: _TP | None = None):
+    """The logits. Under ``tp`` where the vocab can be cut, this rank's
+    vocab columns of them: tied models use their rows of ``embed``,
+    transposed; an ``unembed`` cut on d_model is gathered for the
+    product (its gradient reduce-scattered back: one rank's columns
+    each, so exact in any dtype). With fewer tokens than d_model
+    (decode), or a vocab that does not split, that ``unembed`` is
+    row-parallel instead: this rank's d_model slice of ``x`` times its
+    rows, summed over ``model`` into whole logits."""
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    unembed = params.get("unembed")
+    unembed, name = params.get("unembed"), "unembed"
     if unembed is None:
-        unembed = params["embed"].T
-    return x @ unembed.to(x.dtype)
+        unembed, name = params["embed"].T, "embed"
+    if tp is None or tp.leaf[name] == "whole":
+        return x @ unembed.to(x.dtype)
+    x = shlib.into_region(x, tp.axis)
+    w = unembed.to(x.dtype)
+    if name == "unembed" and tp.unembed_rows:
+        rows, vocab = w.shape
+        m = tp.axis.size
+        if vocab % m or x.shape[0] * x.shape[1] < rows * m:
+            part = x.narrow(-1, tp.axis.index * rows, rows)
+            return _row_parallel(part, w, tp)
+        w = shlib.gather_for_compute(w, tp.axis, 0).narrow(
+            1, tp.axis.index * (vocab // m), vocab // m)
+    return x @ w
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
@@ -302,28 +524,34 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     """Full forward pass → (logits (b, s, vocab) in ``cfg.dtype``, the
     summed MoE aux loss: zero here). ``positions`` (b, s), or (3, b, s)
     for M-RoPE, default to 0..s-1. Under ``cfg.remat`` each layer runs
-    through :func:`remat_body`."""
+    through :func:`remat_body`. Under an installed ``tp`` rule set
+    ``params`` are this rank's blocks and the logits its vocab columns
+    where the vocab is cut."""
     dtype = as_dtype(cfg.dtype)
     b, s = tokens.shape
-    x = embed_inputs(params, cfg, tokens, patch_embeds)
+    tp = _tp_plan(cfg)
+    x = embed_inputs(params, cfg, tokens, patch_embeds, tp)
     cos, sin = _rope_tables(cfg, positions, b, s, tokens.device)
 
     def block(xc, blk):
-        return decoder_block(xc, cast_params(blk, dtype), cfg, cos, sin)
+        return decoder_block(xc, cast_params(blk, dtype), cfg, cos, sin, tp)
 
     x, auxes = scan_layers(remat_body(block, cfg.remat), x, params["blocks"])
-    return _unembed(params, cfg, x), auxes.sum()
+    return _unembed(params, cfg, x, tp), auxes.sum()
 
 
 def lm_loss(params: Params, cfg: ModelConfig, batch: dict):
     """(next-token cross-entropy of ``batch["tokens"]`` against
     ``batch["labels"]`` under the optional ``loss_mask``, plus the
     router's weighted aux loss; {"xent", "aux"}). ``batch`` may carry
-    ``positions`` and ``patch_embeds``."""
+    ``positions`` and ``patch_embeds``. Under ``tp`` the cross-entropy
+    is vocab-parallel where the logits are cut."""
     logits, aux = forward(params, cfg, batch["tokens"],
                           positions=batch.get("positions"),
                           patch_embeds=batch.get("patch_embeds"))
-    xent = L.token_xent(logits, batch["labels"], batch.get("loss_mask"))
+    cut = logits.shape[-1] < cfg.vocab
+    xent = L.token_xent(logits, batch["labels"], batch.get("loss_mask"),
+                        vocab_axis=_tp_plan(cfg).axis if cut else None)
     loss = xent + cfg.router_aux_weight * aux
     return loss, {"xent": xent, "aux": aux}
 
@@ -337,16 +565,29 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
                       ) -> L.KVCache:
     """An empty KV cache on ``device`` (the card by default), bf16 for a
     bf16 config; sliding-window configs get a ring of ``sliding_window``
-    slots, so decode stays O(w) at any context."""
+    slots, so decode stays O(w) at any context. Under an installed
+    ``tp`` rule set, this rank's block of the (``batch``, ``max_len``)
+    cache by the reference's ``cache_shardings`` rule
+    (``sharding.kv_cache_spec``): KV heads over ``model``, else the
+    sequence (``slots`` then holds the block's global positions)."""
     dev = resolve_device(device)
     dt = as_dtype(dtype or cfg.dtype)
     cache_len = (min(cfg.sliding_window, max_len) if cfg.sliding_window
                  else max_len)
     shape = (cfg.n_layers, batch, cache_len, cfg.n_kv_heads, cfg.hd)
+    slots = None
+    axis = shlib.model_axis()
+    if axis is not None:
+        spec = shlib.kv_cache_spec(shape, axis.mesh)
+        shape = shlib.block_shape(shape, spec, axis.mesh)
+        if len(spec) > 2 and spec[2] == "model":  # cut by sequence
+            slots = (torch.arange(shape[2], device=dev)
+                     + axis.index * shape[2])
     return L.KVCache(
         k=torch.zeros(shape, dtype=dt, device=dev),
         v=torch.zeros(shape, dtype=dt, device=dev),
         length=torch.zeros((), dtype=torch.int32, device=dev),
+        slots=slots,
     )
 
 
@@ -357,37 +598,86 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     else ``length``, held to the last slot when full as the reference's
     ``dynamic_update_slice`` is), attended against the valid entries →
     (logits (b, vocab) in ``cfg.dtype``, the next cache). Runs on the
-    device without reading the length back to the host."""
+    device without reading the length back to the host.
+
+    Under an installed ``tp`` rule set ``params`` and ``cache`` are
+    this rank's blocks and the logits its vocab columns. A cache cut by
+    heads holds this rank's KV heads; one cut by sequence (``slots``)
+    holds every KV head of its slots: the rank that owns the token's
+    slot writes it, q is gathered for every head, and the softmax is
+    merged over ``model`` (``layers.decode_attention``)."""
     dtype = as_dtype(cfg.dtype)
     b = tokens.shape[0]
-    x = embed_inputs(params, cfg, tokens)
+    tp = _tp_plan(cfg)
+    x = embed_inputs(params, cfg, tokens, tp=tp)
     length = cache.length.long()
     cos, sin = _rope_tables(cfg, length.expand(b, 1), b, 1, tokens.device)
 
-    size = cache.k.shape[2]
+    held = cache.k.shape[2]
+    seq = cache.slots is not None
+    size = held * tp.axis.size if seq else held
     ring = cfg.sliding_window is not None and size <= cfg.sliding_window
     slot = (length % size if ring else length.clamp(max=size - 1)).view(1)
     valid = length.clamp(max=size - 1) + 1 if ring else length + 1
+    owned = None
+    if seq:
+        slot = slot - cache.slots[0]
+        owned = (slot >= 0) & (slot < held)
+        slot = slot.clamp(0, held - 1)
+    # the KV heads this rank's cache block holds
+    kv = ((0, cfg.n_kv_heads) if cache.k.shape[3] == cfg.n_kv_heads
+          else tp.kv)
+    window = None if ring else cfg.sliding_window
+
+    def write(c, new):
+        new = new.to(c.dtype)
+        if owned is not None:
+            new = torch.where(owned, new, c.index_select(1, slot))
+        return c.index_copy(1, slot, new)
 
     def body(carry, scanned):
         (xc,) = carry
         blk, k_cache, v_cache = scanned
         blk = cast_params(blk, dtype)
-        q, k, v = _qkv(L.rms_norm(xc, blk["ln1"], cfg.norm_eps), blk, cfg)
+        xin = L.rms_norm(xc, blk["ln1"], cfg.norm_eps)
+        region = tp is not None and tp.attn
+        if region:
+            q, k, v = _qkv_tp(xin, blk, cfg, tp, kv)
+            first = tp.q[0]
+        else:
+            q, k, v = _qkv(xin, blk, cfg)
+            first = 0
         if cfg.rope_style != "none":
             q = L.apply_rope(q, cos, sin)
             k = L.apply_rope(k, cos, sin)
-        k_cache = k_cache.index_copy(1, slot, k.to(k_cache.dtype))
-        v_cache = v_cache.index_copy(1, slot, v.to(v_cache.dtype))
+        k_cache = write(k_cache, k)
+        v_cache = write(v_cache, v)
         # Ring eviction already enforces the window; absolute RoPE keeps
         # scores position-correct regardless of slot order.
-        out = L.decode_attention(q, k_cache, v_cache, valid,
-                                 window=None if ring else cfg.sliding_window)
-        h = xc + out.reshape(b, 1, cfg.n_heads * cfg.hd) @ blk["wo"]
-        ff, _ = ffn_block(L.rms_norm(h, blk["ln2"], cfg.norm_eps), blk, cfg)
+        if seq:
+            if q.shape[2] != cfg.n_heads:
+                q, first = shlib.gather_for_compute(q, tp.axis, 2), 0
+            out = L.decode_attention(q, k_cache, v_cache, valid,
+                                     window=window, slots=cache.slots,
+                                     seq_axis=tp.axis)
+        elif region:
+            out = L.decode_attention(q, _kv_for_q(tp, k_cache, kv[0]),
+                                     _kv_for_q(tp, v_cache, kv[0]), valid,
+                                     window=window)
+        else:
+            out = L.decode_attention(q, k_cache, v_cache, valid,
+                                     window=window)
+        out = out.reshape(b, 1, -1)
+        if region:
+            h = xc + _wo_rows(tp, cfg, out, first, blk["wo"])
+        else:
+            h = xc + out @ blk["wo"]
+        ff, _ = ffn_block(L.rms_norm(h, blk["ln2"], cfg.norm_eps), blk, cfg,
+                          tp)
         return (h + ff,), (k_cache, v_cache)
 
     (x,), (k_new, v_new) = scan_layers(
         body, (x,), (params["blocks"], cache.k, cache.v))
-    logits = _unembed(params, cfg, x)
-    return logits[:, 0], L.KVCache(k_new, v_new, cache.length + 1)
+    logits = _unembed(params, cfg, x, tp)
+    return logits[:, 0], L.KVCache(k_new, v_new, cache.length + 1,
+                                   cache.slots)

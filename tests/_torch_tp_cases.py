@@ -1,0 +1,149 @@
+"""Rank functions of the port's tensor-parallel tests
+(``tests/test_torch_tp.py``), run in processes spawned by
+``repro_torch.launch.mesh.run_on_mesh`` on CPU ranks over gloo.
+
+This module imports torch and the port only (no JAX), so each spawned
+rank starts light. Every rank builds the full parameters from the numpy
+tree it is given and keeps its blocks (``shard_tree``), takes its rows
+of the batch and returns numpy arrays: the whole-vocab logits of its
+rows, its cache block's shape and the cache gathered whole, the step's
+metrics and the gradients and parameters gathered whole.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch import convert
+from repro_torch.configs.registry import get_config, reduced_config
+from repro_torch.distrib import sharding as shlib
+from repro_torch.launch import steps
+from repro_torch.models import transformer as tr
+from repro_torch.optim import AdamWConfig, adamw_init
+from repro_torch.tree import tree_leaves_with_path
+
+AXES = ("data", "model")
+# the batch (b, s), decode steps from an empty cache of MAX_LEN slots
+# (a length every model axis here divides), AdamW of the one step
+BATCH, SEQ, DECODE_STEPS, MAX_LEN = 4, 16, 8, 8
+OPT = dict(lr_peak=3e-3, warmup_steps=1, total_steps=2)
+
+# mesh shape -> {case: (arch, fields replaced on its reduced config,
+# parts run, fsdp)}; each case's comment says which rule it reaches.
+MESHES = {
+    (1, 2): {
+        # QKV bias, tied: wk/wv/bk/bv cut mid-head (1 KV head of 16)
+        "qwen2.5-3b": ("qwen2.5-3b", {}, ("serve", "train"), False),
+        # untied: unembed cut on d_model (the embed$ rule matches it)
+        "llama3-8b": ("llama3-8b", {}, ("serve", "train"), False),
+        # GeGLU, sqrt(d) after the vocab-parallel sum
+        "gemma-2b": ("gemma-2b", {}, ("serve", "train"), False),
+        # patches after the vocab-parallel sum, M-RoPE
+        "qwen2-vl-7b": ("qwen2-vl-7b", {}, ("serve", "train"), False),
+        # 2 KV heads: every leaf on head boundaries, the cache by heads
+        "llama3-8b-kv2": ("llama3-8b", {"n_kv_heads": 2},
+                          ("serve", "train"), False),
+    },
+    (1, 4): {
+        # 6 heads on 4 ranks: wq cut mid-head, every rank computes every
+        # head and wo's rows slice them; the cache whole (data axis 1)
+        "llama3-8b-h6": ("llama3-8b", {"n_heads": 6, "n_kv_heads": 2},
+                         ("serve", "train"), False),
+        # head_dim 18: wk (18 columns) does not split over 4, so it is
+        # whole on every rank inside the attention region
+        "llama3-8b-hd18": ("llama3-8b", {"head_dim": 18},
+                           ("serve", "train"), False),
+    },
+    (2, 2): {
+        # tp x fsdp, as the reference shards qwen2.5-14b (FSDP = True)
+        "qwen2.5-14b": ("qwen2.5-14b", {}, ("train",), True),
+        # 1 KV head, batch over data: the cache cut by sequence
+        "gemma-2b-seq": ("gemma-2b", {}, ("serve",), False),
+    },
+}
+
+
+def config(arch: str, fields: dict):
+    """The port's reduced ``arch`` with ``fields`` replaced (float32)."""
+    return dataclasses.replace(reduced_config(get_config(arch)), **fields)
+
+
+def flat(tree) -> dict[str, np.ndarray]:
+    return {"/".join(p): v.detach().double().numpy()
+            for p, v in tree_leaves_with_path(tree)}
+
+
+def _rows(mesh, batch: dict) -> dict:
+    """This rank's rows of ``batch`` (numpy) by ``batch_spec``."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        out[k] = shlib.local_shard(
+            t, shlib.batch_spec(k, t.shape, mesh), mesh).contiguous()
+    return out
+
+
+def _serve(mesh, cfg, full, rows) -> dict:
+    """The prefill, then ``DECODE_STEPS`` decode steps of the rows'
+    tokens from an empty cache, on this rank's blocks."""
+    p_sh = shlib.param_shardings(tr.abstract_params(cfg), mesh)
+    params = shlib.shard_tree(full, p_sh)
+    rec = {"prefill": steps.make_prefill_step(cfg, mesh=mesh, device="cpu")(
+        params, rows).numpy()}
+    with shlib.rules_context(mesh):
+        cache = tr.init_decode_cache(cfg, BATCH, MAX_LEN, device="cpu")
+    meta = tr.init_decode_cache(cfg, BATCH, MAX_LEN, device="meta")
+    c_sh = steps.cache_shardings(meta, mesh)
+    rec["cache_spec"] = c_sh.k.spec
+    rec["cache_block"] = tuple(cache.k.shape)
+    rec["slots"] = None if cache.slots is None else cache.slots.tolist()
+    serve = steps.make_serve_step(cfg, mesh=mesh, device="cpu")
+    logits = []
+    with torch.no_grad():
+        for t in range(DECODE_STEPS):
+            lg, cache = serve(params, cache,
+                              {"tokens": rows["tokens"][:, t:t + 1]})
+            logits.append(lg)
+    rec["decode"] = torch.stack(logits, 1).numpy()
+    rec["cache_k"] = c_sh.k.gather(cache.k).double().numpy()
+    rec["length"] = int(cache.length)
+    return rec
+
+
+def _train(mesh, cfg, full, rows, fsdp: bool) -> dict:
+    """Step 0's synced gradient (gathered whole), then one AdamW step:
+    its metrics and the parameters (gathered whole)."""
+    p_sh, _ = steps.train_shardings(cfg, mesh, fsdp=fsdp)
+    params = shlib.shard_tree(full, p_sh)
+    loss, _, grads, _ = steps.make_synced_grad_step(
+        cfg, mesh=mesh, fsdp=fsdp, device="cpu")(params, rows)
+    rec = {"loss0": float(loss),
+           "grads": flat(shlib.gather_tree(grads, p_sh)),
+           "shard_shapes": {k: v.shape for k, v in flat(params).items()}}
+    step = steps.make_train_step(cfg, AdamWConfig(**OPT), device="cpu",
+                                 mesh=mesh, fsdp=fsdp)
+    params, _, m = step(params, adamw_init(params), rows)
+    rec.update(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+               params=flat(shlib.gather_tree(params, p_sh)))
+    return rec
+
+
+def tp_rank(mesh, cases: dict, inputs: dict):
+    """Each case of ``cases`` (``MESHES[shape]``) on this rank, from its
+    numpy parameters and batch in ``inputs``."""
+    torch.set_num_threads(1)
+    out = {}
+    for name, (arch, fields, parts, fsdp) in cases.items():
+        cfg = config(arch, fields)
+        params_np, batch = inputs[name]
+        full = convert.model_params_from_numpy(params_np, device="cpu")
+        rows = _rows(mesh, batch)
+        rec = {}
+        if "serve" in parts:
+            rec.update(_serve(mesh, cfg, full, rows))
+        if "train" in parts:
+            rec.update(_train(mesh, cfg, full, rows, fsdp))
+        out[name] = rec
+    return out
