@@ -11,6 +11,7 @@
     python3 chip_smoke.py --dp-train # build + phase 3 (dp train) only
     python3 chip_smoke.py --dense    # build + phase 3 (dense) only
     python3 chip_smoke.py --tp       # build + phase 3 (tp) only
+    python3 chip_smoke.py --moe      # build + phase 3 (moe) only
 
 Phases (each raises on failure; none is caught):
 
@@ -201,7 +202,9 @@ Phases (each raises on failure; none is caught):
    TF32 off.
    Phase 3 (tp), after phase 3 (dense) (also alone with ``--tp``): the
    ``tp`` profile's ``model`` axis (explicit Megatron tensor
-   parallelism) for the dense family at full width, ranks sharing the
+   parallelism) for the dense family at full width (llama3-8b cut to 16
+   of its 32 layers, qwen2.5-3b to 18 of 36, to keep the whole script
+   inside its time limit), ranks sharing the
    card over gloo (``run_on_mesh``; no time of theirs is a scaling
    figure), each rank drawing the seeded parameters leaf by leaf and
    keeping its blocks, each part held to a one-rank yardstick run just
@@ -225,6 +228,42 @@ Phases (each raises on failure; none is caught):
    card's). (e) the reduced train CLI ``--arch qwen2.5-3b --mesh 2x2
    --backend gloo`` on the card, failing at step 5: its logged losses
    equal ``--mesh 1x1``'s to the printed digits.
+   Phase 3 (moe), after phase 3 (tp) (also alone with ``--moe``): the
+   MoE family at full width, random init from seeded generators on the
+   card, plain PyTorch (the reference computes the router, the dispatch
+   and the experts in ``jnp``, outside any Pallas kernel, so the B1-B7
+   counters, zeroed before each part and read after, read 0). (a)
+   qwen3-moe-30b-a3b (d_model 2048, 32/4 heads of 128, QK-norm, 128
+   experts top-8 of width 768, vocab 151936) at 16 of its 48 layers
+   (39.5 GiB of f32 parameters): the prefill (1, 8192) in bf16 through
+   ``make_prefill_step`` (``prefill_32k``'s sequence, cut as llama3-8b's
+   is), the chunked attention (1024/1024) in every layer, ms (median of
+   2 after a warm-up), tokens/s, peak memory and the (token, choice)
+   pairs dropped by capacity, in all and by layer; the serve loop of
+   ``launch/serve.py`` at batch 4, 32 steps, its ms a step and drops
+   (each decode step groups its 4 new tokens alone: a capacity of 1 a
+   expert, as the reference's; decode is not held to the forward). (b)
+   mixtral-8x7b (d_model 4096, 32/8 heads, 8 experts top-2 of width
+   14336, vocab 32000, window 4096) at 4 of 32 layers (22.6 GiB): the
+   same, its prefill through the banded attention (1024/4096) and its
+   decode on the ring cache. (c) The card against the CPU on both
+   reduced configs: the prefill's and the forward's logits, 8 decode
+   steps (mixtral's window a ring past its 4 slots), the loss and every
+   ``lm_loss`` gradient leaf, relative L2 within 1e-4 in f32; in bf16,
+   where a near-tie in the router can flip an expert between the
+   devices, each within 1.5x the CPU's own bf16-to-f32 distance; the
+   flipped routes counted. (d) qwen3-moe's train step at 4 of 48 layers
+   (46.4 GiB of parameters, gradients and AdamW moments), (1, 4096)
+   bf16, selective remat, donated AdamW: step 0's cross-entropy within
+   1.0 of ln(151936) and its aux above 0, the others timed (ms,
+   tokens/s, peak). (e) EP: qwen3-moe at 4 layers in f32 on mesh (1, 2)
+   of gloo ranks sharing the card (64 whole experts a rank), against a
+   one-rank yardstick run first in this process: 8 decode steps at batch
+   4 within 1e-3 of max |logit|; the prefill (1, 8192), whose routing at
+   random init is chaotic, within 2x the distance of the yardstick's own
+   prefill with the embedding one ulp away, and its differing routes by
+   layer within 2x that run's plus 8; bytes a rank sends, ms, peak; no
+   scaling figure.
    Phase 3 (verify), after the serve phase: the verification layer
    (``repro_torch.verify.mms``, ``physics.spectral``,
    ``boundary_weights``) through B1 (``swc``), B3 (``swc_stream``) and
@@ -2895,6 +2934,10 @@ TP_MESH = ((1, 2), ("data", "model"))
 # sequence only where the batch is cut over a data axis above one rank.
 TP_SEQ_MESH = ((2, 2), ("data", "model"))
 TP_PREFILL = (1, 8192)
+# Depth cut to keep the whole script inside its time limit (full width;
+# llama3-8b has 32 layers, qwen2.5-3b 36): llama3-8b in (a) and (b),
+# qwen2.5-3b in (d), the yardstick and the ranks alike.
+TP_LAYERS = {"llama3-8b": 16, "qwen2.5-3b": 18}
 TP_DECODE = (4, 32)  # batch, teacher-forced steps from an empty cache
 TP_GEMMA_DECODE = (2, 32)
 TP_GEMMA_FORWARD = (1, 2048)
@@ -2915,6 +2958,15 @@ TP_YARD_DIR = ROOT / "build" / "tp-yardstick"
 TP_CLI = ["--arch", "qwen2.5-3b", "--reduced", "--steps", "8",
           "--global-batch", "2", "--seq-len", "64", "--ckpt-every", "3",
           "--simulate-failure-at", "5", "--log-every", "1"]
+
+
+def _tp_cfg(arch: str):
+    """``arch``'s config at phase 3 (tp)'s depth (``TP_LAYERS``)."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+
+    return dataclasses.replace(get_config(arch), n_layers=TP_LAYERS[arch])
 
 
 def _tp_tokens(cfg, shape, seed, dev):
@@ -2964,7 +3016,7 @@ def tp_yardstick(dev, directory: Path) -> dict:
 
     directory.mkdir(parents=True, exist_ok=True)
     out = {}
-    cfg = get_config("llama3-8b")
+    cfg = _tp_cfg("llama3-8b")
     params = tr.init_params(cfg, seed=0, device=dev)
     tokens = _tp_tokens(cfg, TP_PREFILL, 1, dev)
     prefill = make_prefill_step(cfg, device=dev)
@@ -3007,7 +3059,7 @@ def tp_yardstick(dev, directory: Path) -> dict:
     del params, cache, logits
     torch.cuda.empty_cache()
 
-    cfg = get_config("qwen2.5-3b")
+    cfg = _tp_cfg("qwen2.5-3b")
     b, s = TP_TRAIN_SHAPE
     torch.cuda.reset_peak_memory_stats()
     params = tr.init_params(cfg, seed=0, device=dev)
@@ -3072,14 +3124,13 @@ def tp_llama_rank(mesh, yard_dir: str):
     import numpy as np
     import torch
 
-    from repro_torch.configs.registry import get_config
     from repro_torch.distrib import comm
     from repro_torch.distrib import sharding as shlib
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models import transformer as tr
 
     dev = torch.device("cuda", torch.cuda.current_device())
-    cfg = get_config("llama3-8b")
+    cfg = _tp_cfg("llama3-8b")
     yard = Path(yard_dir)
     torch.cuda.reset_peak_memory_stats(dev)
     p_sh = shlib.param_shardings(tr.abstract_params(cfg), mesh)
@@ -3186,7 +3237,6 @@ def tp_train_rank(mesh, yard_dir: str):
     then ``TP_TRAIN_STEPS`` timed steps."""
     import torch
 
-    from repro_torch.configs.registry import get_config
     from repro_torch.data import BatchIterator, MarkovLMDataset
     from repro_torch.distrib import comm
     from repro_torch.launch import steps as tsteps
@@ -3194,7 +3244,7 @@ def tp_train_rank(mesh, yard_dir: str):
     from repro_torch.optim import AdamWConfig, adamw_init
 
     dev = torch.device("cuda", torch.cuda.current_device())
-    cfg = get_config("qwen2.5-3b")
+    cfg = _tp_cfg("qwen2.5-3b")
     b, s = TP_TRAIN_SHAPE
     torch.cuda.reset_peak_memory_stats(dev)
     p_sh, _ = tsteps.train_shardings(cfg, mesh)
@@ -3275,6 +3325,8 @@ def phase_tp(dev, smi):
     print("== phase 3 (tp): tensor parallelism (the tp profile's model "
           "axis) at full width, gloo ranks sharing one card")
     print(f"  card: {smi}")
+    print("  depth cut (full width): " + ", ".join(
+        f"{a} {n} layers" for a, n in TP_LAYERS.items()))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.cuda.empty_cache()
     shutil.rmtree(TP_YARD_DIR, ignore_errors=True)
@@ -3388,6 +3440,544 @@ def phase_tp(dev, smi):
             raise AssertionError("tp train: the ranks' losses differ")
     tp_cli_on_card()
     print("  B1-B7 launches on every rank of every part: (0, 0, 0)")
+
+
+# The MoE family at full width (phase 3 (moe)): qwen3-moe-30b-a3b and
+# mixtral-8x7b served, qwen3-moe trained, the card against the CPU on the
+# reduced configs, and EP over gloo ranks sharing the card. Depths are cut
+# to fit one card beside the f32 weights (qwen3-moe's 48 layers would need
+# 113.7 GiB, mixtral's 32 layers 173.9 GiB).
+MOE_QWEN_LAYERS = 16  # 39.5 GiB of f32 parameters
+MOE_MIXTRAL_LAYERS = 4  # 22.6 GiB
+MOE_PREFILL = (1, 8192)  # prefill_32k's sequence cut as llama3-8b's is
+# qwen3-moe's train step at train_4k's seq, its batch 256 cut to 1, 4 of
+# 48 layers (46.4 GiB of parameters, gradients and AdamW moments): step
+# 0, then the others timed.
+MOE_TRAIN_LAYERS = 4
+MOE_TRAIN_SHAPE = (1, 4096)
+MOE_TRAIN_STEPS = 3
+# The card against the CPU on the reduced configs: f32 logits, loss,
+# decode and gradient leaves within MOE_CPU_TOL relative L2 (TF32 off).
+# In bf16 a near-tie in the router can flip an expert between the
+# devices, so each bf16 quantity (the logits, the decode steps, the
+# gradient as one vector) is held to MOE_BF16_MULTIPLE times the CPU's
+# own bf16-to-f32 distance of it (fixed before the first run, as phase 3
+# (tp) holds its bf16 decode).
+MOE_CPU_TOL = 1e-4
+MOE_BF16_MULTIPLE = 1.5
+MOE_CPU_SHAPE = (2, 64)
+MOE_CPU_DECODE = 8
+# EP over two gloo ranks sharing the card: qwen3-moe at 4 layers on mesh
+# (1, 2) (64 of the 128 experts a rank), f32 with TF32 off, against the
+# one-rank yardstick. The teacher-forced decode steps (batch, steps)
+# MOE_EP_DECODE within MOE_EP_DECODE_TOL of max |logit|. The prefill's
+# routing at random init is chaotic: 24-88% of (token, choice) pairs are
+# dropped by capacity, so a route that flips at a near-tie moves other
+# tokens across the capacity line, and attention carries that to every
+# later token. The yardstick measures it: the same prefill with every
+# embedding value one ulp away. A rank's last logits are held within
+# MOE_EP_NUDGE_MULTIPLE times that run's distance, and its routes that
+# differ from the yardstick's, layer by layer, within MOE_EP_NUDGE_MULTIPLE
+# times that run's plus MOE_EP_TIES (near-ties of the first layer).
+MOE_EP_MESH = ((1, 2), ("data", "model"))
+MOE_EP_LAYERS = 4
+MOE_EP_DECODE = (4, 8)
+MOE_EP_DECODE_TOL = 1e-3
+MOE_EP_NUDGE_MULTIPLE = 2.0
+MOE_EP_TIES = 8
+MOE_YARD_DIR = ROOT / "build" / "moe-yardstick"
+
+
+def _moe_cfg(arch: str, layers: int, **kw):
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+
+    return dataclasses.replace(get_config(arch), n_layers=layers, **kw)
+
+
+def _n_params(params) -> int:
+    from repro_torch.tree import tree_leaves
+
+    return sum(v.numel() for v in tree_leaves(params))
+
+
+def _dropped(rec) -> str:
+    """The dropped share of a ``moe.recording`` dict's (token, choice)
+    pairs, as printed."""
+    routed, kept = int(rec["routed"]), int(rec["kept"])
+    return (f"{routed - kept} of {routed} (token, choice) pairs dropped by "
+            f"capacity ({(routed - kept) / max(routed, 1):.2%})")
+
+
+def moe_serving(dev, smi, arch: str, layers: int, want_calls):
+    """``arch`` at full width, ``layers`` deep, random init from a seeded
+    generator on the card: the prefill ``MOE_PREFILL`` in bf16 through
+    ``make_prefill_step`` (``want_calls``: the chunked attention's
+    (q_chunk, kv_chunk), one call a layer), a warm-up then 2 timed; the
+    serve loop of ``launch/serve.py`` at batch ``LM_BATCH``, ``LM_STEPS``
+    steps; the (token, choice) pairs dropped by capacity in each; the
+    B1-B7 counters zeroed before each part and read after, 0."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tr
+
+    cfg = _moe_cfg(arch, layers)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = tr.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_par = _n_params(params)
+    print(f"  {arch}: {layers} of {get_config(arch).n_layers} layers, "
+          f"d_model {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} of "
+          f"{cfg.hd}, qk_norm {cfg.qk_norm}, window {cfg.sliding_window}, "
+          f"{cfg.n_experts} experts top-{cfg.top_k} of width "
+          f"{cfg.d_ff_expert}, vocab {cfg.vocab}; {n_par} parameters "
+          f"(config: {cfg.n_params():.0f}), {n_par * 4 / 2**30:.2f} GiB f32, "
+          f"init {time.perf_counter() - t0:.1f} s; {cfg.dtype} compute")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    b, s = MOE_PREFILL
+    batch = {"tokens": torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                                     device=dev)}
+    prefill = make_prefill_step(cfg, device=dev)
+    calls, restore = _counting_chunked()
+    try:
+        with torch.no_grad(), moe.recording() as rec:
+            torch.cuda.synchronize()
+            _reset_all_counts()
+            out = prefill(params, batch)
+            torch.cuda.synchronize()
+            counts = _no_kernel(f"{arch} prefill")
+    finally:
+        restore()
+    if calls != [want_calls] * layers:
+        raise AssertionError(f"{arch} prefill: chunked attention {calls}")
+    if out.shape != (b, cfg.vocab) or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"{arch} prefill: bad logits {tuple(out.shape)}")
+    times = []
+    with torch.no_grad():
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prefill(params, batch)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+    ms = statistics.median(times)
+    by_layer = [1 - int(k) / int(r) for r, k in rec["calls"]]
+    print(f"  prefill {MOE_PREFILL} {cfg.dtype}: {ms:.1f} ms (host clock, "
+          f"after a warm-up: {', '.join(f'{t:.1f}' for t in times)}), "
+          f"{b * s / ms * 1e3:.0f} tokens/s, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; chunked "
+          f"attention {want_calls} in {len(calls)} of {layers} layers; "
+          f"{_dropped(rec)}, by layer "
+          f"{', '.join(f'{x:.1%}' for x in by_layer)}; launches (B7, "
+          f"fused-stencil, xcorr1d) {counts} on {smi}")
+    del out, batch
+    serve(cfg, batch=LM_BATCH, steps=2, device=dev, params=params)
+    _reset_all_counts()
+    with moe.recording() as rec:
+        gen_tokens, secs = serve(cfg, batch=LM_BATCH, steps=LM_STEPS,
+                                 device=dev, params=params)
+    counts = _no_kernel(f"{arch} serve")
+    if gen_tokens.shape != (LM_BATCH, LM_STEPS + 1) or \
+            int(gen_tokens.min()) < 0 or int(gen_tokens.max()) >= cfg.vocab:
+        raise AssertionError(f"serve: bad tokens {tuple(gen_tokens.shape)}")
+    print(f"  serve (launch/serve.py) batch {LM_BATCH}, {LM_STEPS} decode "
+          f"steps {cfg.dtype}: {LM_BATCH * LM_STEPS / secs:.1f} tokens/s, "
+          f"{1e3 * secs / LM_STEPS:.2f} ms a step (host clock); each step "
+          f"groups its {LM_BATCH} new tokens alone (capacity "
+          f"{max(int(LM_BATCH * cfg.top_k / cfg.n_experts * cfg.capacity_factor), 1)}"
+          f" a expert): {_dropped(rec)}; peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+          f"{counts}")
+    print("  first row: " + " ".join(map(str, gen_tokens[0, :12].tolist())))
+    del params, prefill
+    torch.cuda.empty_cache()
+
+
+def moe_training(dev, smi):
+    """qwen3-moe-30b-a3b's train step at full width, ``MOE_TRAIN_LAYERS``
+    deep (bf16 compute on f32 master parameters, selective remat; the
+    router's aux in the loss) on ``MarkovLMDataset`` batches at
+    ``MOE_TRAIN_SHAPE`` through ``make_train_step(donate=True)``: step
+    0's cross-entropy within 1.0 of ln(vocab) and its aux above 0, the
+    others timed; the B1-B7 counters 0."""
+    import torch
+
+    from repro_torch.data import BatchIterator, MarkovLMDataset
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as tr
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    cfg = _moe_cfg("qwen3-moe-30b-a3b", MOE_TRAIN_LAYERS)
+    if cfg.remat != "selective" or cfg.dtype != "bfloat16":
+        raise AssertionError(f"config remat {cfg.remat}, dtype {cfg.dtype}")
+    b, s = MOE_TRAIN_SHAPE
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = tr.init_params(cfg, seed=0, device=dev)
+    opt = adamw_init(params)
+    state = torch.cuda.memory_allocated()
+    card = torch.cuda.get_device_properties(dev).total_memory
+    print(f"  {cfg.arch_id} train, {MOE_TRAIN_LAYERS} of 48 layers: "
+          f"{_n_params(params)} parameters; parameters and moments "
+          f"{state / 2**30:.2f} GiB (with gradients "
+          f"{state * 4 / 3 / 2**30:.2f}); batch {b} x seq {s} (train_4k's "
+          f"seq, its batch 256 cut to {b}), {cfg.dtype} on f32 master "
+          f"weights, remat {cfg.remat}, aux weight {cfg.router_aux_weight}")
+    it = BatchIterator(MarkovLMDataset(cfg.vocab, s, branching=4), b)
+    batches = [it.next_global(dev) for _ in range(MOE_TRAIN_STEPS)]
+    step_fn = make_train_step(
+        cfg, AdamWConfig(lr_peak=3e-4, warmup_steps=1,
+                         total_steps=MOE_TRAIN_STEPS),
+        device=dev, donate=True)
+    _reset_all_counts()
+    step_ms, first = [], None
+    for i, batch in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        vals = {k: float(m[k]) for k in ("loss", "xent", "aux", "grad_norm",
+                                          "lr")}
+        first = first or vals
+        step_ms.append(ms)
+        print(f"  step {i}: loss {vals['loss']:.4f}  xent {vals['xent']:.4f} "
+              f" aux {vals['aux']:.4f}  grad_norm {vals['grad_norm']:.4f}  "
+              f"lr {vals['lr']:.3e}  {ms:.1f} ms  {b * s / ms * 1e3:.0f} "
+              f"tokens/s  peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if not all(map(math.isfinite, vals.values())):
+            raise AssertionError(f"moe train step {i}: {vals}")
+    counts = _no_kernel("qwen3-moe train steps")
+    ln_v = math.log(cfg.vocab)
+    if not (abs(first["xent"] - ln_v) <= 1.0 and first["aux"] > 0):
+        raise AssertionError(f"step 0: {first}, ln(vocab) {ln_v:.4f}")
+    steady = statistics.median(step_ms[1:])
+    print(f"  {MOE_TRAIN_STEPS} train steps {b}x{s} {cfg.dtype}: step-0 xent "
+          f"{first['xent']:.4f} (ln {cfg.vocab} = {ln_v:.4f}), aux "
+          f"{first['aux']:.4f} over {MOE_TRAIN_LAYERS} layers; "
+          f"{steady:.1f} ms a step (host clock, median of steps 1-"
+          f"{MOE_TRAIN_STEPS - 1}; step 0 {step_ms[0]:.1f}), "
+          f"{b * s / steady * 1e3:.0f} tokens/s, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB of the "
+          f"card's {card / 2**30:.2f}; launches {counts} on {smi}")
+    del params, opt, batches, m
+    torch.cuda.empty_cache()
+
+
+def _flips(a: list, b: list) -> int:
+    """(token, choice) routes that differ between two recordings."""
+    return sum(int((x.cpu() != y.cpu()).sum()) for x, y in zip(a, b,
+                                                               strict=True))
+
+
+def moe_card_vs_cpu(dev):
+    """Reduced qwen3-moe-30b-a3b and mixtral-8x7b (8 experts top-2 of 96,
+    mixtral's window 16 made a ring by ``MOE_CPU_DECODE`` steps past a
+    cache of 4): the card's ``make_prefill_step`` logits, ``forward``
+    logits, ``MOE_CPU_DECODE`` decode steps, the loss and every
+    ``lm_loss`` gradient leaf against the CPU's on the same parameters;
+    f32 within ``MOE_CPU_TOL`` relative L2; bf16 within
+    ``MOE_BF16_MULTIPLE`` times the CPU's own bf16-to-f32 distance; the
+    flipped (token, choice) routes between the devices counted."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.registry import get_config, reduced_config
+    from repro_torch.launch.steps import make_grad_step, make_prefill_step
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tr
+    from repro_torch.tree import tree_leaves_with_path, tree_map
+
+    def run(cfg, params, batch, device, max_len):
+        """(prefill logits, forward logits, decode logits, loss, grads as
+        one flat vector and by leaf, forward routes) on ``device``."""
+        with torch.no_grad():
+            pre = make_prefill_step(cfg, device=device)(
+                params, {"tokens": batch["tokens"]})
+            with moe.recording(keep_routes=True) as rec:
+                fwd, _ = tr.forward(params, cfg, batch["tokens"])
+            cache = tr.init_decode_cache(cfg, batch["tokens"].shape[0],
+                                         max_len, device=device)
+            dec = []
+            for t in range(MOE_CPU_DECODE):
+                lg, cache = tr.decode_step(params, cfg,
+                                           batch["tokens"][:, t:t + 1], cache)
+                dec.append(lg)
+        loss, _, grads = make_grad_step(cfg, device=device)(params, batch)
+        leaves = {"/".join(p): g.float().cpu()
+                  for p, g in tree_leaves_with_path(grads)}
+        flat = torch.cat([g.flatten() for g in leaves.values()])
+        return (pre.float().cpu(), fwd.float().cpu(),
+                torch.stack(dec).float().cpu(), float(loss), flat, leaves,
+                [r.cpu() for r in rec["routes"]])
+
+    for arch in ("qwen3-moe-30b-a3b", "mixtral-8x7b"):
+        base = reduced_config(get_config(arch))
+        params = tr.init_params(base, seed=0, device="cpu")
+        gen = torch.Generator().manual_seed(3)
+        b, s = MOE_CPU_SHAPE
+        tokens = torch.randint(0, base.vocab, (b, s), generator=gen)
+        batch = {"tokens": tokens, "labels": tokens.roll(-1, 1)}
+        on_card = tree_map(lambda v: v.to(dev), params)
+        batch_card = {k: v.to(dev) for k, v in batch.items()}
+        max_len = 4 if base.sliding_window else MOE_CPU_DECODE
+        cpu = {}
+        for dtype in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(base, dtype=dtype)
+            _reset_all_counts()
+            want = run(cfg, params, batch, "cpu", max_len)
+            got = run(cfg, on_card, batch_card, dev, max_len)
+            _no_kernel(f"{arch} {dtype} card vs CPU")
+            cpu[dtype] = want
+            names = ("prefill", "forward", "decode")
+            errs = {n: _rel_l2(g, w) for n, g, w in zip(names, got, want)}
+            errs["loss"] = abs(got[3] - want[3]) / abs(want[3])
+            errs["gradient"] = _rel_l2(got[4], want[4])
+            leaf = max((_rel_l2(got[5][k], want[5][k]), k) for k in want[5])
+            flips = _flips(got[6], want[6])
+            routes = sum(r.numel() for r in want[6])
+            if dtype == "float32":
+                limits = {k: MOE_CPU_TOL for k in errs}
+                leaf_ok = leaf[0] <= MOE_CPU_TOL
+                held = f"limit {MOE_CPU_TOL:.0e}"
+            else:
+                f32 = cpu["float32"]
+                own = {n: _rel_l2(w, f) for n, w, f in
+                       zip(names, want, f32)}
+                own["loss"] = abs(want[3] - f32[3]) / abs(f32[3])
+                own["gradient"] = _rel_l2(want[4], f32[4])
+                errs = {n: _rel_l2(g, f) for n, g, f in zip(names, got, f32)}
+                errs["loss"] = abs(got[3] - f32[3]) / abs(f32[3])
+                errs["gradient"] = _rel_l2(got[4], f32[4])
+                limits = {k: MOE_BF16_MULTIPLE * max(own[k], 1e-30)
+                          for k in errs}
+                leaf_ok = True
+                held = (f"from the CPU's f32, limit {MOE_BF16_MULTIPLE}x the "
+                        f"CPU bf16's own: " + ", ".join(
+                            f"{k} {own[k]:.3e}" for k in own)
+                        + f"; flips against the CPU's f32 routes "
+                          f"{_flips(want[6], f32[6])} (CPU bf16), "
+                          f"{_flips(got[6], f32[6])} (card bf16)")
+            ok = leaf_ok and all(errs[k] <= limits[k] for k in errs)
+            print(f"  {arch} reduced {dtype}, card vs CPU (TF32 off): "
+                  + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+                  + f" rel L2; worst gradient leaf {leaf[0]:.3e} ({leaf[1]}) "
+                  f"against the CPU {dtype}; {flips} of {routes} forward "
+                  f"routes flipped between the devices; {held} "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{arch} {dtype} card vs CPU: {errs} vs "
+                                     f"{limits}, leaf {leaf}")
+
+
+def _layer_flips(a, b) -> list[int]:
+    """The (token, choice) routes that differ, by layer, between two
+    stacked recordings (layers, G, Tg, K)."""
+    return [int(n) for n in (a != b).reshape(len(a), -1).sum(1)]
+
+
+def moe_ep_yardstick(dev, directory: Path) -> dict:
+    """The one-rank run (e) holds its ranks to: qwen3-moe at
+    ``MOE_EP_LAYERS`` layers in f32, the prefill's last logits at
+    ``MOE_PREFILL`` and its routes, and ``MOE_EP_DECODE``'s teacher-forced
+    decode steps, written to ``directory``; returns the host times."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tr
+
+    directory.mkdir(parents=True, exist_ok=True)
+    cfg = _moe_cfg("qwen3-moe-30b-a3b", MOE_EP_LAYERS, dtype="float32")
+    params = tr.init_params(cfg, seed=0, device=dev)
+    tokens = _tp_tokens(cfg, MOE_PREFILL, 5, dev)
+    prefill = make_prefill_step(cfg, device=dev)
+    out = {}
+    with torch.no_grad():
+        prefill(params, {"tokens": tokens})  # warm-up
+        with moe.recording(keep_routes=True) as rec:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = prefill(params, {"tokens": tokens})
+            torch.cuda.synchronize()
+    out["prefill_ms"] = 1e3 * (time.perf_counter() - t0)
+    np.save(directory / "prefill.npy", logits.cpu().numpy())
+    routes = torch.stack(rec["routes"]).cpu().numpy()
+    np.save(directory / "routes.npy", routes)
+    # the same prefill with every embedding value one ulp away (seeded
+    # signs): how far a change at f32's rounding carries at this depth
+    gen = torch.Generator(device=dev).manual_seed(7)
+    up = torch.rand(params["embed"].shape, generator=gen, device=dev) < 0.5
+    nudged = dict(params, embed=torch.nextafter(
+        params["embed"], torch.where(up, math.inf, -math.inf)))
+    del up
+    with torch.no_grad(), moe.recording(keep_routes=True) as rec:
+        other = prefill(nudged, {"tokens": tokens})
+    del nudged
+    out["nudged_err"] = _tp_err(other, logits.cpu().numpy())
+    out["nudged_flips"] = _layer_flips(
+        torch.stack(rec["routes"]).cpu().numpy(), routes)
+    del other
+    b, steps = MOE_EP_DECODE
+    cache = tr.init_decode_cache(cfg, b, steps, device=dev)
+    logits, out["decode_ms"] = _tp_decode(
+        make_serve_step(cfg, device=dev), params, cache,
+        _tp_tokens(cfg, MOE_EP_DECODE, 6, dev))
+    np.save(directory / "decode.npy", logits.cpu().numpy())
+    del params, cache, logits, prefill
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_ep_rank(mesh, yard_dir: str):
+    """One rank of (e): qwen3-moe's blocks drawn leaf by leaf (64 whole
+    experts of 128 a rank, EP), the prefill through
+    ``make_prefill_step(mesh=)`` (a warm-up, then one timed) and
+    ``MOE_EP_DECODE``'s f32 decode steps through ``make_serve_step(mesh=)``,
+    each held to the yardstick on the host."""
+    import numpy as np
+    import torch
+
+    from repro_torch.distrib import comm
+    from repro_torch.distrib import sharding as shlib
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tr
+    from repro_torch.tree import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = _moe_cfg("qwen3-moe-30b-a3b", MOE_EP_LAYERS, dtype="float32")
+    yard = Path(yard_dir)
+    torch.cuda.reset_peak_memory_stats(dev)
+    p_sh = shlib.param_shardings(tr.abstract_params(cfg), mesh)
+    params = tr.init_params(cfg, seed=0, device=dev, shardings=p_sh)
+    rec = {"held_gib": sum(v.numel() * v.element_size()
+                           for v in tree_leaves(params)) / 2**30,
+           "experts": tuple(params["blocks"]["moe"]["w_gate"].shape)}
+    tokens = _tp_tokens(cfg, MOE_PREFILL, 5, dev)
+    prefill = make_prefill_step(cfg, mesh=mesh, device=dev)
+    _reset_all_counts()
+    with torch.no_grad():
+        prefill(params, {"tokens": tokens})
+        comm.reset_counts()
+        with moe.recording(keep_routes=True) as routes:
+            logits, rec["prefill_ms"] = _tp_clock(
+                dev, lambda: prefill(params, {"tokens": tokens}))
+    rec["prefill_bytes"] = comm.counts["bytes"]
+    rec["prefill_calls"] = {k: v for k, v in comm.counts.items()
+                            if k != "bytes"}
+    rec["prefill_err"] = _tp_err(logits, np.load(yard / "prefill.npy"))
+    mine = torch.stack(routes["routes"]).cpu().numpy()
+    rec["flips"] = _layer_flips(mine, np.load(yard / "routes.npy"))
+    rec["routes"] = int(mine.size)
+    rec.update({f"prefill_{k}": v for k, v in _tp_held(dev).items()})
+    del logits
+    b, steps = MOE_EP_DECODE
+    with shlib.rules_context(mesh):
+        cache = tr.init_decode_cache(cfg, b, steps, device=dev)
+    comm.reset_counts()
+    torch.distributed.barrier()
+    logits, rec["decode_ms"] = _tp_decode(
+        make_serve_step(cfg, mesh=mesh, device=dev), params, cache,
+        _tp_tokens(cfg, MOE_EP_DECODE, 6, dev))
+    rec["decode_bytes"] = comm.counts["bytes"] // steps
+    rec["decode_err"] = _tp_worst(logits, np.load(yard / "decode.npy"))
+    rec["counts"] = _all_counts()
+    return rec
+
+
+def moe_ep(dev, smi):
+    """(e): EP over ``MOE_EP_MESH``'s two gloo ranks sharing the card,
+    against the one-rank yardstick run first in this process."""
+    import shutil
+
+    import torch
+
+    from repro_torch.launch.mesh import run_on_mesh
+
+    shutil.rmtree(MOE_YARD_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    try:
+        yard = moe_ep_yardstick(dev, MOE_YARD_DIR)
+        print(f"  (e) yardstick (one rank, this process, "
+              f"{time.perf_counter() - t0:.1f} s): qwen3-moe {MOE_EP_LAYERS} "
+              f"layers f32 prefill {MOE_PREFILL} {yard['prefill_ms']:.1f} ms, "
+              f"decode {yard['decode_ms']:.2f} ms a step; with the "
+              f"embedding one ulp away the prefill's last logits lie "
+              f"{yard['nudged_err']:.3e} of max |logit| from it, routes "
+              f"differing by layer {yard['nudged_flips']}")
+        torch.cuda.empty_cache()
+        ranks = run_on_mesh(moe_ep_rank, *MOE_EP_MESH, backend="gloo",
+                            device=dev, args=(str(MOE_YARD_DIR),),
+                            timeout=900)
+    finally:
+        shutil.rmtree(MOE_YARD_DIR, ignore_errors=True)
+    b, steps = MOE_EP_DECODE
+    for rank, r in enumerate(ranks):
+        if tuple(r["counts"]) != (0, 0, 0):
+            raise AssertionError(f"moe EP rank {rank}: launches {r['counts']}")
+        print(f"  (e) qwen3-moe EP on mesh (1, 2), rank {rank}: expert blocks "
+              f"{r['experts']} (layers, experts, d, f), {r['held_gib']:.2f} "
+              f"GiB of f32 blocks; prefill {MOE_PREFILL} f32 last logits "
+              f"within {r['prefill_err']:.3e} of max |logit| (limit "
+              f"{MOE_EP_NUDGE_MULTIPLE}x the nudged run's "
+              f"{yard['nudged_err']:.3e}), routes differing from one rank's "
+              f"by layer {r['flips']} of {r['routes']}; "
+              f"{r['prefill_ms']:.1f} ms (host "
+              f"clock after a barrier; one rank {yard['prefill_ms']:.1f}); "
+              f"{r['prefill_bytes']} bytes sent a prefill "
+              f"({r['prefill_calls']}); {steps} decode steps at batch {b} "
+              f"within {r['decode_err']:.3e} (limit "
+              f"{MOE_EP_DECODE_TOL:.0e}), {r['decode_ms']:.2f} ms a step (one "
+              f"rank {yard['decode_ms']:.2f}), {r['decode_bytes']} bytes sent "
+              f"a step; peak {r['prefill_peak'] / 2**30:.2f} GiB, the card "
+              f"{r['prefill_card_used'] / 2**30:.2f} of "
+              f"{r['prefill_card_total'] / 2**30:.2f} GiB in use")
+        flips_ok = all(
+            n <= MOE_EP_NUDGE_MULTIPLE * m + MOE_EP_TIES
+            for n, m in zip(r["flips"], yard["nudged_flips"], strict=True))
+        if not (r["prefill_err"] <= MOE_EP_NUDGE_MULTIPLE * yard["nudged_err"]
+                and flips_ok and r["decode_err"] <= MOE_EP_DECODE_TOL):
+            raise AssertionError(f"moe EP rank {rank}: {r}")
+
+
+def phase_moe(dev, smi):
+    """Phase 3 (moe): the MoE family at full width on the card, plain
+    PyTorch (the reference computes the router, the dispatch and the
+    experts in ``jnp``, outside any Pallas kernel): (a) qwen3-moe-30b-a3b
+    serving, (b) mixtral-8x7b serving (the banded window-4096 attention
+    and the ring cache), (c) the card against the CPU on both reduced
+    configs, (d) qwen3-moe's train step, (e) EP over two gloo ranks; the
+    B1-B7 counters read 0 throughout."""
+    import torch
+
+    print("== phase 3 (moe): qwen3-moe-30b-a3b and mixtral-8x7b served, "
+          "qwen3-moe trained, at full width (plain PyTorch; no kernel of "
+          "B1-B7)")
+    print(f"  card: {smi}")
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 matmuls in f32
+    torch.cuda.empty_cache()
+    print("  (a)")
+    moe_serving(dev, smi, "qwen3-moe-30b-a3b", MOE_QWEN_LAYERS, (1024, 1024))
+    print("  (b)")
+    moe_serving(dev, smi, "mixtral-8x7b", MOE_MIXTRAL_LAYERS, (1024, 4096))
+    print("  (c)")
+    moe_card_vs_cpu(dev)
+    print("  (d)")
+    moe_training(dev, smi)
+    moe_ep(dev, smi)
+    print("  B1-B7 launches in every part: (0, 0, 0)")
 
 
 def phase_serve(dev, launches):
@@ -5264,6 +5854,9 @@ def main(argv: list[str]) -> int:
     if "--tp" in argv:
         timed("phase 3 (tp)", phase_tp, dev, smi)
         return 0
+    if "--moe" in argv:
+        timed("phase 3 (moe)", phase_moe, dev, smi)
+        return 0
     timed("phase 2", phase_parity, dev)
     if "--quick" in argv:
         return 0
@@ -5278,6 +5871,7 @@ def main(argv: list[str]) -> int:
     del yard
     timed("phase 3 (dense)", phase_dense, dev, smi)
     timed("phase 3 (tp)", phase_tp, dev, smi)
+    timed("phase 3 (moe)", phase_moe, dev, smi)
     timed("phase 3b", phase_serve, dev, launches)
     timed("phase 3 (verify)", phase_verify, dev, smi)
     timed("phase 3 (tune)", phase_tune, dev, smi)

@@ -2,9 +2,10 @@
 input-shape grid, reduced smoke-test configs and the model API.
 
 Ported: the dense transformers (qwen2.5-3b, qwen2.5-14b, gemma-2b,
-llama3-8b), the VLM qwen2-vl-7b and mamba2-780m. The MoE, hybrid and
-encoder-decoder architectures raise ``NotImplementedError`` naming
-their ROADMAP A13 item.
+llama3-8b), the MoE transformers (mixtral-8x7b, qwen3-moe-30b-a3b), the
+VLM qwen2-vl-7b and mamba2-780m. The hybrid and encoder-decoder
+architectures raise ``NotImplementedError`` naming their ROADMAP A13
+item.
 """
 from __future__ import annotations
 
@@ -26,18 +27,18 @@ ARCH_MODULES = {
     "qwen2.5-14b": "qwen2_5_14b",
     "gemma-2b": "gemma_2b",
     "llama3-8b": "llama3_8b",
+    "mixtral-8x7b": "mixtral_8x7b",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
     "qwen2-vl-7b": "qwen2_vl_7b",
     "mamba2-780m": "mamba2_780m",
 }
 # The families not ported yet, with their ROADMAP item.
 NOT_PORTED = {
-    "moe": "ROADMAP A13 (models/moe.py)",
     "hybrid": "ROADMAP A13 (models/hybrid.py)",
     "audio": "ROADMAP A13 (models/encdec.py)",
 }
 # The architectures of those families (their configs are not ported).
-_ARCH_FAMILY = {"mixtral-8x7b": "moe", "qwen3-moe-30b-a3b": "moe",
-                "recurrentgemma-9b": "hybrid", "whisper-small": "audio"}
+_ARCH_FAMILY = {"recurrentgemma-9b": "hybrid", "whisper-small": "audio"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,6 +100,10 @@ def reduced_config(cfg: ModelConfig) -> ModelConfig:
         kw["head_dim"] = 16
     if cfg.d_ff:
         kw["d_ff"] = 128
+    if cfg.family == "moe":
+        kw["n_experts"] = min(cfg.n_experts, 8)
+        kw["top_k"] = min(cfg.top_k, 2)
+        kw["d_ff_expert"] = 96
     if cfg.family == "ssm":
         kw["ssm_state"] = 16
         kw["ssm_head_dim"] = 8
@@ -122,7 +127,7 @@ class ModelAPI(NamedTuple):
 
 
 def get_model(cfg: ModelConfig) -> ModelAPI:
-    if cfg.family in ("dense", "vlm"):
+    if cfg.family in ("dense", "moe", "vlm"):
         from repro_torch.models import transformer as m
     elif cfg.family == "ssm":
         from repro_torch.models import ssm as m

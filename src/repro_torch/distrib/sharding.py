@@ -11,14 +11,19 @@ mapping, as in the reference:
               (``grad_sync``).
 * **TP**    — attention heads / FFN hidden / vocab over ``model``: the
               ``tp`` profile's rules below, as explicit Megatron tensor
-              parallelism for the dense and VLM families
-              (``models/transformer.py``): the model code reads the
-              installed rule set (:func:`model_axis`, :func:`leaf_cut`,
+              parallelism for the dense, MoE and VLM families
+              (``models/transformer.py``; the MoE's experts over
+              ``model``, EP, or their hidden width, expert-TP, in
+              ``models/moe.py``): the model code reads the installed
+              rule set (:func:`model_axis`, :func:`leaf_cut`,
               :func:`kv_cache_spec`) and calls the region operators
               (:func:`into_region`, :func:`out_of_region`,
               :func:`gather_for_compute`). Other families under ``tp``
               with a ``model`` axis above one rank raise
               (:func:`refuse_tensor_parallel`, ROADMAP A13-TP (ssm)).
+              The MoE's groups are GSPMD's over the global batch: where
+              one would span data-parallel ranks the FFN raises
+              (:func:`batch_ranks`).
 * **FSDP**  — parameters (and their AdamW moments) additionally cut over
               the data-parallel ranks, ZeRO-style (``fsdp=True``).
 
@@ -282,10 +287,11 @@ def batch_spec(name: str, shape: tuple[int, ...], mesh,
     return safe_spec(tuple(shape), wanted, mesh)
 
 
-# The leaves the port cuts over ``model`` under the tp profile: the dense
-# and VLM transformer's (models/transformer.py).
+# The leaves the port cuts over ``model`` under the tp profile: the dense,
+# MoE and VLM transformer's (models/transformer.py, models/moe.py).
 _TP_PORTED = re.compile(
-    r"^(embed|unembed|blocks/(wq|wk|wv|bq|bk|bv|wo|w_gate|w_up|w_down))$")
+    r"^(embed|unembed|blocks/(wq|wk|wv|bq|bk|bv|wo|w_gate|w_up|w_down"
+    r"|moe/(router|w_gate|w_up|w_down)))$")
 
 
 def refuse_tensor_parallel(params_shape: Any, mesh, *, profile: str = "tp",
@@ -293,9 +299,9 @@ def refuse_tensor_parallel(params_shape: Any, mesh, *, profile: str = "tp",
     """Raise ``NotImplementedError`` when the ``tp`` profile cuts a leaf
     of ``params_shape`` over a ``model`` axis of more than one rank and
     the port has no tensor-parallel form for it (``mesh``: a
-    ``DeviceMesh`` or {axis name: size}). The dense and VLM families'
-    leaves have one; mamba2's fused ``in_proj`` columns do not (ROADMAP
-    A13-TP (ssm)); the MoE, hybrid and audio families are refused by
+    ``DeviceMesh`` or {axis name: size}). The dense, MoE and VLM
+    families' leaves have one; mamba2's fused ``in_proj`` columns do not
+    (ROADMAP A13-TP (ssm)); the hybrid and audio families are refused by
     the registry before they get here."""
     sizes = mesh_axis_sizes(mesh)
     if profile != "tp" or sizes.get("model", 1) == 1:
@@ -309,8 +315,9 @@ def refuse_tensor_parallel(params_shape: Any, mesh, *, profile: str = "tp",
             raise NotImplementedError(
                 f"the tp profile cuts {name} {tuple(leaf.shape)} as {spec} "
                 f"over a model axis of {sizes['model']} ranks: tensor "
-                "parallelism is ported for the dense and VLM families only; "
-                "this model's is ROADMAP A13-TP (ssm); use profile='dp', or "
+                "parallelism is ported for the dense, MoE and VLM families "
+                "only; this model's is ROADMAP A13-TP (ssm); use "
+                "profile='dp', or "
                 "a mesh whose model axis is 1"
             )
 
@@ -524,6 +531,18 @@ class ModelAxis:
     group: Any
     size: int
     index: int
+
+
+def batch_ranks() -> int:
+    """The ranks the installed rule set cuts the batch over (its
+    ``tokens_bs`` rule's batch axes on the mesh: ``(pod, data)``, every
+    axis under the ``dp`` profile); 1 without a rule set."""
+    mesh = getattr(_STATE, "mesh", None)
+    rules = getattr(_STATE, "rules", None)
+    if mesh is None or not rules:
+        return 1
+    return _axes_size(_axes_tuple(rules["tokens_bs"][0]),
+                      mesh_axis_sizes(mesh))
 
 
 def model_axis() -> ModelAxis | None:

@@ -178,13 +178,15 @@ def make_synced_grad_step(cfg: ModelConfig, *, mesh, profile: str = "tp",
         count = (mask.double().sum() if mask is not None else
                  torch.tensor(float(batch["labels"].numel()),
                               dtype=torch.float64, device=loss.device))
-        stats = torch.stack([count, loss.double() * count])
+        names = sorted(metrics)
+        stats = torch.stack([count] + [v.double() * count for v in
+                                       [loss] + [metrics[k] for k in names]])
         comm.all_reduce_([stats], group)
         weight = (count / stats[0]).float()
-        loss = (stats[1] / stats[0]).float()
+        loss, *means = (stats[1:] / stats[0]).float().unbind()
         grads = sync_grads(grads, p_sh, mesh, axes, weight)
         norm = global_norm(grads, p_sh, mesh) if sharded else None
-        return loss, dict(metrics, xent=loss), grads, norm
+        return loss, dict(zip(names, means)), grads, norm
 
     return synced_grad_step
 

@@ -1,7 +1,8 @@
-"""Decoder-only transformer, dense and VLM families (port of
-``repro.models.transformer``): qwen2.5-3b/14b, gemma-2b, llama3-8b and
-qwen2-vl-7b (M-RoPE, the vision frontend stubbed by ``patch_embeds``).
-The MoE FFN (``models/moe.py``) is not ported yet (ROADMAP A13).
+"""Decoder-only transformer, dense, MoE and VLM families (port of
+``repro.models.transformer``): qwen2.5-3b/14b, gemma-2b, llama3-8b,
+mixtral-8x7b and qwen3-moe-30b-a3b (the MoE FFN of :mod:`.moe`, its aux
+loss summed over the layers) and qwen2-vl-7b (M-RoPE, the vision
+frontend stubbed by ``patch_embeds``).
 
 Also the helpers mamba2 shares: ``cast_params``, ``scan_layers`` and
 the remat policy (:func:`remat_body`).
@@ -18,7 +19,8 @@ reference's GSPMD partitions by its annotations, each rank holds its
 blocks of the parameters (``param_spec``) and computes Megatron-style:
 the vocab-parallel embedding, then per layer the attention on this
 rank's whole q heads (q head ``h`` reading KV head ``h // (H/G)``) and
-the MLP on its hidden columns, each a region entered by
+the MLP on its hidden columns (the MoE FFN on its experts, or on its
+columns of every expert: :func:`.moe.moe_ffn`), each a region entered by
 ``into_region`` and left by ``out_of_region`` (one all-reduce of the
 row-parallel ``wo``/``w_down`` partial products, in float32, rounded
 once to the activation dtype after the sum);
@@ -45,6 +47,7 @@ from torch.utils.checkpoint import (
 from repro_torch import as_dtype, resolve_device
 from repro_torch.distrib import sharding as shlib
 from repro_torch.models import layers as L
+from repro_torch.models import moe
 from repro_torch.models.config import ModelConfig
 from repro_torch.tree import (
     path_str,
@@ -145,18 +148,15 @@ def _block_shapes(cfg: ModelConfig, n_layers: int) -> dict[str, tuple]:
     if cfg.qk_norm:
         shapes.update(q_norm=(n_layers, hd), k_norm=(n_layers, hd))
     if cfg.family == "moe":
-        raise _moe_not_ported()
-    shapes.update(w_gate=(n_layers, d, cfg.d_ff), w_up=(n_layers, d, cfg.d_ff),
-                  w_down=(n_layers, cfg.d_ff, d))
+        shapes["moe"] = moe.moe_shapes(cfg, n_layers)
+    else:
+        shapes.update(w_gate=(n_layers, d, cfg.d_ff),
+                      w_up=(n_layers, d, cfg.d_ff),
+                      w_down=(n_layers, cfg.d_ff, d))
     return shapes
 
 
-_DRAWN = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
-
-
-def _moe_not_ported() -> NotImplementedError:
-    return NotImplementedError(
-        "the MoE FFN is not ported yet: ROADMAP A13 (models/moe.py)")
+_DRAWN = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "router")
 
 
 def _keeper(shardings) -> Callable:
@@ -178,14 +178,18 @@ def _keeper(shardings) -> Callable:
 def init_block_params(cfg: ModelConfig, gen: torch.Generator,
                       n_layers: int, keep: Callable | None = None) -> Params:
     """Stacked block params with leading (n_layers,) axis: the
-    projections from ``dense_init``, norms and biases zero; each leaf
-    through ``keep(("blocks", name), leaf)`` as it is made."""
+    projections (the MoE's router and experts too) from ``dense_init``,
+    norms and biases zero; each leaf through ``keep(path, leaf)`` as it
+    is made (``("blocks", name)``, ``("blocks", "moe", name)``)."""
     keep = keep or _keeper(None)
-    return {
-        k: keep(("blocks", k), L.dense_init(gen, s) if k in _DRAWN
-                else torch.zeros(s, device=gen.device))
-        for k, s in _block_shapes(cfg, n_layers).items()
-    }
+
+    def make(path, shapes):
+        if isinstance(shapes, dict):
+            return {k: make(path + (k,), s) for k, s in shapes.items()}
+        return keep(path, L.dense_init(gen, shapes) if path[-1] in _DRAWN
+                    else torch.zeros(shapes, device=gen.device))
+
+    return make(("blocks",), _block_shapes(cfg, n_layers))
 
 
 def init_params(cfg: ModelConfig, seed: int = 0,
@@ -222,12 +226,13 @@ def abstract_params(cfg: ModelConfig) -> Params:
     ``launch.specs.abstract_params``, which the sharding rules read."""
 
     def meta(shape):
+        if isinstance(shape, dict):
+            return {k: meta(s) for k, s in shape.items()}
         return torch.empty(shape, dtype=f32, device="meta")
 
     params: Params = {
         "embed": meta((cfg.vocab, cfg.d_model)),
-        "blocks": {k: meta(s) for k, s in
-                   _block_shapes(cfg, cfg.n_layers).items()},
+        "blocks": meta(_block_shapes(cfg, cfg.n_layers)),
         "final_norm": meta((cfg.d_model,)),
     }
     if not cfg.tie_embeddings:
@@ -244,12 +249,15 @@ _HEAD_LEAVES = ("wq", "wk", "wv", "bq", "bk", "bv", "wo")
 @dataclasses.dataclass(frozen=True)
 class _TP:
     """This rank's part of the model on the installed mesh's ``model``
-    axis. ``leaf[name]`` is ``"cut"`` (this rank's block of whole units),
-    ``"gather"`` (cut mid-head: joined for the layer) or ``"whole"``
-    (the same on every rank); ``attn`` / ``mlp`` / ``vocab`` say whether
-    ``wo`` / ``w_down`` / the embedding is cut, which makes the
-    attention, the MLP and the vocab Megatron regions; ``q`` is the
-    global q heads this rank computes, ``kv_map`` the KV head of each;
+    axis. ``leaf[name]`` (``name`` the leaf's path under ``blocks``:
+    ``wq``, ``moe/w_gate``; or ``embed``, ``unembed``) is ``"cut"``
+    (this rank's block of whole units), ``"gather"`` (cut mid-head:
+    joined for the layer) or ``"whole"`` (the same on every rank);
+    ``attn`` / ``mlp`` / ``vocab`` say whether ``wo`` / ``w_down`` / the
+    embedding is cut, which makes the attention, the MLP and the vocab
+    Megatron regions; ``moe`` how the experts are cut (``"experts"``:
+    EP, ``"hidden"``: expert-TP, None: whole); ``q`` is the global q
+    heads this rank computes, ``kv_map`` the KV head of each;
     ``unembed_rows`` that an untied ``unembed`` is cut on d_model (the
     reference's ``embed$`` rule matches it first)."""
 
@@ -261,6 +269,7 @@ class _TP:
     q: tuple[int, int]
     kv_map: tuple[int, ...]
     unembed_rows: bool
+    moe: str | None = None
 
     @property
     def kv(self) -> tuple[int, int]:
@@ -282,7 +291,7 @@ def _tp_plan(cfg: ModelConfig) -> _TP | None:
               for p, v in tree_leaves_with_path(abstract_params(cfg))}
     leaf, dims = {}, {}
     for path, shape in shapes.items():
-        name = path.split("/")[-1]
+        name = path.removeprefix("blocks/")
         cut = shlib.leaf_cut(path, shape,
                              cfg.hd if name in _HEAD_LEAVES else 1)
         leaf[name] = ("whole" if cut.dim is None else
@@ -291,10 +300,13 @@ def _tp_plan(cfg: ModelConfig) -> _TP | None:
     h, g, m, r = cfg.n_heads, cfg.n_kv_heads, axis.size, axis.index
     attn = leaf["wo"] != "whole"
     q = (r * h // m, (r + 1) * h // m) if leaf["wq"] == "cut" else (0, h)
-    plans[cfg] = _TP(axis, leaf, attn, leaf["w_down"] != "whole",
+    # EP cuts the experts (dim 1 of every expert leaf), expert-TP their
+    # hidden width (w_gate/w_up's columns, w_down's rows)
+    experts = {1: "experts", 3: "hidden"}.get(dims.get("moe/w_gate"))
+    plans[cfg] = _TP(axis, leaf, attn, leaf.get("w_down", "whole") != "whole",
                      leaf["embed"] != "whole", q,
                      tuple(i // (h // g) for i in range(*q)),
-                     dims.get("unembed") == 0)
+                     dims.get("unembed") == 0, experts)
     return plans[cfg]
 
 
@@ -423,11 +435,15 @@ def attention_block(x: torch.Tensor, blk: Params, cfg: ModelConfig,
 
 
 def ffn_block(x, blk, cfg: ModelConfig, tp: _TP | None = None):
-    """(the FFN's output, its aux loss: zero for the dense MLP). Under
-    ``tp``'s MLP region ``w_gate``/``w_up`` are this rank's columns and
-    ``w_down`` its rows, the product summed over ``model``."""
+    """(the FFN's output, its aux loss: the MoE router's, zero for the
+    dense MLP). Under ``tp``'s MLP region ``w_gate``/``w_up`` are this
+    rank's columns and ``w_down`` its rows, the product summed over
+    ``model``; the MoE FFN runs on this rank's experts or expert columns
+    (``tp.moe``)."""
     if cfg.family == "moe":
-        raise _moe_not_ported()
+        if tp is not None and tp.moe is not None:
+            return moe.moe_ffn(x, blk["moe"], cfg, axis=tp.axis, cut=tp.moe)
+        return moe.moe_ffn(x, blk["moe"], cfg)
     aux = torch.zeros((), dtype=f32, device=x.device)
     if tp is not None and tp.mlp:
         x = shlib.into_region(x, tp.axis)
@@ -522,11 +538,11 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             positions: torch.Tensor | None = None,
             patch_embeds: torch.Tensor | None = None):
     """Full forward pass → (logits (b, s, vocab) in ``cfg.dtype``, the
-    summed MoE aux loss: zero here). ``positions`` (b, s), or (3, b, s)
-    for M-RoPE, default to 0..s-1. Under ``cfg.remat`` each layer runs
-    through :func:`remat_body`. Under an installed ``tp`` rule set
-    ``params`` are this rank's blocks and the logits its vocab columns
-    where the vocab is cut."""
+    MoE aux loss summed over the layers: zero for the dense FFN).
+    ``positions`` (b, s), or (3, b, s) for M-RoPE, default to 0..s-1.
+    Under ``cfg.remat`` each layer runs through :func:`remat_body`.
+    Under an installed ``tp`` rule set ``params`` are this rank's blocks
+    and the logits its vocab columns where the vocab is cut."""
     dtype = as_dtype(cfg.dtype)
     b, s = tokens.shape
     tp = _tp_plan(cfg)

@@ -45,6 +45,8 @@ MESHES = {
         # 2 KV heads: every leaf on head boundaries, the cache by heads
         "llama3-8b-kv2": ("llama3-8b", {"n_kv_heads": 2},
                           ("serve", "train"), False),
+        # MoE, 8 experts on 2 ranks: EP (4 whole experts a rank), QK-norm
+        "qwen3-moe-ep": ("qwen3-moe-30b-a3b", {}, ("serve", "train"), False),
     },
     (1, 4): {
         # 6 heads on 4 ranks: wq cut mid-head, every rank computes every
@@ -55,12 +57,20 @@ MESHES = {
         # whole on every rank inside the attention region
         "llama3-8b-hd18": ("llama3-8b", {"head_dim": 18},
                            ("serve", "train"), False),
+        # MoE, 2 experts top-1 on 4 ranks: E < m, so expert-TP (24 of the
+        # 96 columns of every expert a rank, w_down's rows)
+        "qwen3-moe-etp": ("qwen3-moe-30b-a3b", {"n_experts": 2, "top_k": 1},
+                          ("serve", "train"), False),
     },
     (2, 2): {
         # tp x fsdp, as the reference shards qwen2.5-14b (FSDP = True)
         "qwen2.5-14b": ("qwen2.5-14b", {}, ("train",), True),
         # 1 KV head, batch over data: the cache cut by sequence
         "gemma-2b-seq": ("gemma-2b", {}, ("serve",), False),
+        # MoE with the batch over 2 data ranks: GSPMD's groups are the
+        # global batch's (64 tokens, 4 at decode), each spanning both
+        # data ranks, so prefill, decode and training raise
+        "mixtral-span": ("mixtral-8x7b", {}, ("refuse",), False),
     },
 }
 
@@ -130,6 +140,33 @@ def _train(mesh, cfg, full, rows, fsdp: bool) -> dict:
     return rec
 
 
+def _refusals(mesh, cfg, full, rows) -> dict:
+    """The message each of the prefill, a decode step and a train step
+    raises (None where it ran)."""
+    p_sh = shlib.param_shardings(tr.abstract_params(cfg), mesh)
+    params = shlib.shard_tree(full, p_sh)
+    with shlib.rules_context(mesh):
+        cache = tr.init_decode_cache(cfg, BATCH, MAX_LEN, device="cpu")
+    prompt = {k: v for k, v in rows.items() if k != "labels"}
+    runs = {
+        "prefill": lambda: steps.make_prefill_step(
+            cfg, mesh=mesh, device="cpu")(params, prompt),
+        "decode": lambda: steps.make_serve_step(
+            cfg, mesh=mesh, device="cpu")(
+                params, cache, {"tokens": rows["tokens"][:, :1]}),
+        "train": lambda: steps.make_synced_grad_step(
+            cfg, mesh=mesh, device="cpu")(params, rows),
+    }
+    out = {}
+    for name, run in runs.items():
+        try:
+            run()
+            out[name] = None
+        except NotImplementedError as e:
+            out[name] = str(e)
+    return {"refused": out}
+
+
 def tp_rank(mesh, cases: dict, inputs: dict):
     """Each case of ``cases`` (``MESHES[shape]``) on this rank, from its
     numpy parameters and batch in ``inputs``."""
@@ -145,5 +182,7 @@ def tp_rank(mesh, cases: dict, inputs: dict):
             rec.update(_serve(mesh, cfg, full, rows))
         if "train" in parts:
             rec.update(_train(mesh, cfg, full, rows, fsdp))
+        if "refuse" in parts:
+            rec.update(_refusals(mesh, cfg, full, rows))
         out[name] = rec
     return out

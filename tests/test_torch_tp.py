@@ -2,9 +2,11 @@
 against the JAX package's GSPMD steps on the same meshes, and against
 the port's own one-rank steps.
 
-The dense and VLM families' reduced configs (4 layers, d_model 64, vocab
-512, float32; fields replaced per case, ``tests/_torch_tp_cases.py``
-says which rule each reaches) from the reference's ``init_params``
+The dense, MoE and VLM families' reduced configs (4 layers, d_model 64,
+vocab 512, float32; fields replaced per case, ``tests/_torch_tp_cases.py``
+says which rule each reaches: the MoE's experts over ``model`` (EP) on
+(1, 2), their hidden width (expert-TP) on (1, 4), and on (2, 2) groups
+that span the data ranks, which the port refuses) from the reference's ``init_params``
 (carried across with ``convert``), a Markov batch of 4 x 16 tokens. On
 meshes (1, 2), (1, 4) and (2, 2) of ``("data", "model")``: the port's
 ranks are CPU processes over gloo, spawned by ``launch.mesh.
@@ -359,7 +361,16 @@ def test_every_rank_holds_its_blocks(results, shape, name):
         for path, want in full.items():
             spec = shlib.param_spec(path, want, sizes, fsdp=fsdp)
             assert held[path] == shlib.block_shape(want, spec, sizes), path
-        assert held["blocks/w_gate"][2] == cfg.d_ff // shape[1]
+        if cfg.family == "moe":  # EP where E splits, else expert-TP
+            m = shape[1]
+            ep = cfg.n_experts % m == 0
+            assert held["blocks/moe/w_gate"][1] == (
+                cfg.n_experts // m if ep else cfg.n_experts)
+            assert held["blocks/moe/w_down"][2] == (
+                cfg.d_ff_expert if ep else cfg.d_ff_expert // m)
+            assert held["blocks/moe/router"] == full["blocks/moe/router"]
+        else:
+            assert held["blocks/w_gate"][2] == cfg.d_ff // shape[1]
         assert held["blocks/ln1"] == full["blocks/ln1"]
 
 
@@ -388,6 +399,39 @@ def test_tp_plan_answers_each_leafs_cut():
         None, "data", "model")
     assert shlib.kv_cache_spec((4, 4, 8, 2, 16), {"data": 1, "model": 2}) == (
         None, None, None, "model")
+    # the MoE leaves, keyed by their path under blocks (moe/w_gate is not
+    # the dense w_gate): experts cut on dim 1 (EP) where E splits, else
+    # the hidden width (expert-TP), the router whole
+    moe = cases.config("qwen3-moe-30b-a3b", {})
+    for sizes, dims in (({"data": 1, "model": 2}, (1, 1, 1)),
+                        ({"data": 1, "model": 16}, (3, 3, 2)),
+                        ({"data": 1, "model": 5}, (None, None, None))):
+        with shlib.rules_context(sizes):
+            cut = {k.removeprefix("blocks/moe/"): shlib.leaf_cut(k, s)
+                   for k, s in (("/".join(p), tuple(v.shape)) for p, v in
+                                tree_leaves_with_path(
+                                    ttr.abstract_params(moe)))
+                   if k.startswith("blocks/moe/")}
+        assert cut["router"] == shlib.LeafCut(None, True)
+        assert tuple(cut[k].dim for k in ("w_gate", "w_up", "w_down")) == dims
+
+
+def test_groups_spanning_data_ranks_are_refused(results):
+    """mixtral on (2, 2): the batch's 4 rows over 2 data ranks, so each
+    of GSPMD's MoE groups (the global 64 tokens at prefill and in
+    training, the 4 new tokens at decode) spans both data ranks; the
+    prefill, the decode step and the train step raise on every rank
+    naming the case, instead of grouping each rank's tokens alone (a
+    capacity of 10 per expert instead of GSPMD's 20)."""
+    ranks, _, _ = results[(2, 2), "mixtral-span"]
+    assert len(ranks) == 4
+    for r in ranks:
+        assert set(r["refused"]) == {"prefill", "decode", "train"}
+        for part, msg in r["refused"].items():
+            assert msg is not None, part
+            assert "span the 2 data-parallel ranks" in msg, msg
+        assert "of the global 64" in r["refused"]["prefill"]
+        assert "of the global 4" in r["refused"]["decode"]
 
 
 def test_mamba2_and_other_caches_still_raise_naming_a13_tp():

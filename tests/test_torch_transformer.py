@@ -53,6 +53,7 @@ TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 DECODE_TOL = 5e-4
 DENSE = ("qwen2.5-3b", "qwen2.5-14b", "gemma-2b", "llama3-8b",
          "qwen2-vl-7b")
+MOE = ("mixtral-8x7b", "qwen3-moe-30b-a3b")
 
 
 @pytest.fixture(autouse=True)
@@ -256,7 +257,7 @@ def test_gelu_mlp_and_layer_norm_match_reference():
 
 def test_registry_matches_the_reference():
     assert treg.ARCH_IDS == jreg.ARCH_IDS
-    assert set(treg.ARCH_MODULES) == set(DENSE) | {"mamba2-780m"}
+    assert set(treg.ARCH_MODULES) == set(DENSE) | set(MOE) | {"mamba2-780m"}
     for arch in treg.ARCH_MODULES:
         j, t = jreg.get_config(arch), treg.get_config(arch)
         assert dataclasses.asdict(j) == dataclasses.asdict(t), arch
@@ -270,7 +271,6 @@ def test_registry_matches_the_reference():
 
 
 @pytest.mark.parametrize("arch,item", (
-    ("mixtral-8x7b", "moe.py"), ("qwen3-moe-30b-a3b", "moe.py"),
     ("recurrentgemma-9b", "hybrid.py"), ("whisper-small", "encdec.py")))
 def test_unported_families_raise_naming_their_roadmap_item(arch, item):
     match = f"ROADMAP A13 \\(models/{item}"
@@ -285,13 +285,39 @@ def test_unported_families_raise_naming_their_roadmap_item(arch, item):
         treg.reduced_config(jcfg)
 
 
-def test_ffn_block_refuses_the_moe_family():
-    _, cfg = _cfgs("qwen2.5-3b")
-    moe = dataclasses.replace(cfg, family="moe")
-    with pytest.raises(NotImplementedError, match="models/moe.py"):
-        ttr.ffn_block(torch.zeros((1, 2, cfg.d_model)), {}, moe)
-    with pytest.raises(NotImplementedError, match="models/moe.py"):
-        ttr.abstract_params(moe)
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_configs_and_model_api_match_the_reference(arch):
+    """The MoE archs (refused before their port): ``get_config`` and
+    ``reduced_config`` equal the reference's field for field, and
+    ``get_model`` gives the transformer's API, as the reference's
+    registry does for the ``moe`` family."""
+    j, t = jreg.get_config(arch), treg.get_config(arch)
+    assert dataclasses.asdict(j) == dataclasses.asdict(t)
+    assert t.n_params() == j.n_params()
+    assert t.n_active_params() == j.n_active_params()
+    assert dataclasses.asdict(treg.reduced_config(t)) == \
+        dataclasses.asdict(jreg.reduced_config(j))
+    small = treg.reduced_config(t)
+    assert (small.n_experts, small.top_k, small.d_ff_expert) == (8, 2, 96)
+    api = treg.get_model(t)
+    assert api.forward is ttr.forward and api.lm_loss is ttr.lm_loss
+    assert treg.uses_fsdp(arch) == jreg.uses_fsdp(arch)
+
+
+def test_ffn_block_on_the_moe_family_returns_the_reference_aux():
+    """``ffn_block`` of an MoE config runs ``moe_ffn`` on ``blk["moe"]``:
+    the output and the router's aux loss equal the reference's."""
+    jcfg, tcfg = _cfgs("mixtral-8x7b")
+    jp, tp = _params(jcfg, seed=5)
+    jblk = jax.tree.map(lambda v: v[0], jp["blocks"])
+    tblk = {"moe": {k: v[0] for k, v in tp["blocks"]["moe"].items()}}
+    x = np.random.default_rng(5).standard_normal(
+        (2, 10, tcfg.d_model)).astype(np.float32)
+    want, jaux = jtr.ffn_block(jnp.asarray(x), jblk, jcfg)
+    got, aux = ttr.ffn_block(torch.from_numpy(x), tblk, tcfg)
+    assert _rel(got, want) <= TOL["float32"]
+    assert abs(float(aux) - float(jaux)) <= 1e-6 * float(jaux)
+    assert float(aux) > 0
 
 
 @pytest.mark.parametrize("arch", DENSE)

@@ -1,21 +1,29 @@
 #!/usr/bin/env python3
-"""Where the dense transformer family spends the card's time, under
-``torch.profiler``, as ``chip_smoke.py`` phase 3 (dense) runs it (random
-init from seed 0 at full width): llama3-8b's prefill at (1, 8192) in
-bf16 and 8 decode steps at batch 4 in bf16, each after a warm-up; with
-``--train``, one qwen2.5-3b train step at (1, 4096) bf16 with selective
-remat and donation on ``MarkovLMDataset`` batches, after a warm-up
-step, and the step's two halves apart on the host clock (gradient,
-AdamW). Prints kernel time by kernel, the largest first, with its share
-of all kernel time, the device's busy share of the host-clock window,
-and device time by ATen op, inclusive.
+"""Where the dense and MoE transformer families spend the card's time,
+under ``torch.profiler``, as ``chip_smoke.py`` phases 3 (dense) and 3
+(moe) run them (random init from seed 0 at full width): the prefill at
+(1, 8192) in bf16 and 8 decode steps at batch 4 in bf16, each after a
+warm-up, of llama3-8b, or with ``--arch`` another transformer arch
+(``--layers`` cuts its depth: qwen3-moe-30b-a3b defaults to 16 of 48
+layers, mixtral-8x7b to 4 of 32, as phase 3 (moe) cuts them to fit one
+card); with ``--train``, one qwen2.5-3b train step at (1, 4096) bf16
+with selective remat and donation on ``MarkovLMDataset`` batches, after
+a warm-up step, and the step's two halves apart on the host clock
+(gradient, AdamW). Prints kernel time by kernel, the largest first,
+with its share of all kernel time, the device's busy share of the
+host-clock window, and device time by ATen op, inclusive; for an MoE
+arch also the device time under each of ``models/moe.py``'s ranges
+(``moe.route``, ``moe.dispatch``, ``moe.experts``, ``moe.combine``):
+the dispatch and combine einsums against the expert GEMMs.
 
     PYTHONPATH=src python3 tools/profile_dense.py [--train]
+    PYTHONPATH=src python3 tools/profile_dense.py --arch qwen3-moe-30b-a3b
 
 Needs one CUDA card.
 """
 from __future__ import annotations
 
+import dataclasses
 import subprocess
 import sys
 import time
@@ -25,6 +33,29 @@ from profile_mamba2 import _report, _report_ops
 PREFILL_SHAPE = (1, 8192)  # chip_smoke.py's DENSE_PREFILL
 DECODE_BATCH, DECODE_STEPS = 4, 8
 TRAIN_SHAPE = (1, 4096)  # chip_smoke.py's DENSE_TRAIN_SHAPE
+# chip_smoke.py's MOE_QWEN_LAYERS and MOE_MIXTRAL_LAYERS
+DEFAULT_LAYERS = {"qwen3-moe-30b-a3b": 16, "mixtral-8x7b": 4}
+MOE_RANGES = ("moe.route", "moe.dispatch", "moe.experts", "moe.combine")
+
+
+def _report_moe(prof) -> None:
+    """Device time under each of ``models/moe.py``'s profiler ranges,
+    as the profiler reports each range: on the host's annotation, the
+    kernels its ops launched; on the device's, its span on the device's
+    timeline."""
+    rows = [e for e in prof.key_averages() if e.key in MOE_RANGES]
+    if not rows:
+        return
+    print("  by MoE range (device time, inclusive):")
+    for e in sorted(rows, key=lambda e: (MOE_RANGES.index(e.key),
+                                         str(e.device_type))):
+        print(f"  {e.device_time_total / 1e3:9.3f} ms x{e.count:<6} "
+              f"{e.key} ({e.device_type})")
+
+
+def _option(name: str, default=None):
+    argv = sys.argv[1:]
+    return argv[argv.index(name) + 1] if name in argv else default
 
 
 def train(dev, activities) -> None:
@@ -88,7 +119,10 @@ def main() -> int:
     if "--train" in sys.argv[1:]:
         train(dev, activities)
         return 0
-    cfg = get_config("llama3-8b")
+    arch = _option("--arch", "llama3-8b")
+    cfg = get_config(arch)
+    layers = int(_option("--layers", DEFAULT_LAYERS.get(arch, cfg.n_layers)))
+    cfg = dataclasses.replace(cfg, n_layers=layers)
     params = tr.init_params(cfg, seed=0, device=dev)
     gen = torch.Generator(device=dev).manual_seed(1)
     tokens = torch.randint(0, cfg.vocab, PREFILL_SHAPE, generator=gen,
@@ -103,9 +137,10 @@ def main() -> int:
             prefill(params, {"tokens": tokens})
             torch.cuda.synchronize()
             wall = 1e3 * (time.perf_counter() - t0)
-        _report(f"{cfg.arch_id} prefill {PREFILL_SHAPE} {cfg.dtype}", prof,
-                wall)
+        _report(f"{cfg.arch_id} ({layers} layers) prefill {PREFILL_SHAPE} "
+                f"{cfg.dtype}", prof, wall, MOE_RANGES)
         _report_ops(prof)
+        _report_moe(prof)
         del tokens, prof
         cache = tr.init_decode_cache(cfg, DECODE_BATCH, DECODE_STEPS + 1,
                                      device=dev)
@@ -118,9 +153,11 @@ def main() -> int:
                 _, cache = step(params, cache, {"tokens": tok})
             torch.cuda.synchronize()
             wall = 1e3 * (time.perf_counter() - t0)
-        _report(f"{cfg.arch_id} decode, {DECODE_STEPS} steps at batch "
-                f"{DECODE_BATCH} {cfg.dtype}", prof, wall)
+        _report(f"{cfg.arch_id} ({layers} layers) decode, {DECODE_STEPS} "
+                f"steps at batch {DECODE_BATCH} {cfg.dtype}", prof, wall,
+                MOE_RANGES)
         _report_ops(prof)
+        _report_moe(prof)
     return 0
 
 

@@ -29,12 +29,15 @@ TRAIN_SHAPE = (2, 4096)  # chip_smoke.py's phase 3 (train)
 TOP = 20  # kernels listed per window
 
 
-def _report(title: str, prof, wall_ms: float) -> None:
+def _report(title: str, prof, wall_ms: float, ranges=()) -> None:
+    """Kernel time by kernel; ``ranges`` names ``record_function``
+    ranges, whose device-side spans are not kernels."""
     from torch.autograd import DeviceType
 
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA
-               and e.key not in NOT_KERNELS and e.self_device_time_total > 0]
+               and e.key not in NOT_KERNELS and e.key not in ranges
+               and e.self_device_time_total > 0]
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
     total = sum(e.self_device_time_total for e in kernels) / 1e3  # ms
     print(f"{title}: {wall_ms:.1f} ms host clock under the profiler, "
