@@ -12,6 +12,8 @@
     python3 chip_smoke.py --dense    # build + phase 3 (dense) only
     python3 chip_smoke.py --tp       # build + phase 3 (tp) only
     python3 chip_smoke.py --moe      # build + phase 3 (moe) only
+    python3 chip_smoke.py --hybrid   # build + phase 3 (hybrid) only
+    python3 chip_smoke.py --encdec   # build + phase 3 (encdec) only
 
 Phases (each raises on failure; none is caught):
 
@@ -264,6 +266,48 @@ Phases (each raises on failure; none is caught):
    prefill with the embedding one ulp away, and its differing routes by
    layer within 2x that run's plus 8; bytes a rank sends, ms, peak; no
    scaling figure.
+   Phase 3 (hybrid), after phase 3 (moe) (also alone with ``--hybrid``):
+   recurrentgemma-9b, plain PyTorch (the reference computes the RG-LRU
+   with ``lax.associative_scan``, its temporal conv with the plain
+   ``kref`` conv and the rest in ``jnp``, outside any Pallas kernel, so
+   the B1-B7 counters, zeroed before each part and read after, read 0).
+   (a) At full width and depth (38 layers: 12 (rec, rec, att)
+   super-blocks and 2 tail recurrent blocks; d_model 4096, 16 heads of
+   256 over one KV head, LRU width 4096, d_ff 12288, vocab 256000; 35.7
+   GiB of f32 parameters): the prefill (1, 8192) in bf16 through
+   ``make_prefill_step``, the banded attention (1024/2048) in 12 of 12
+   attention layers and the log-depth scan in 26 of 26 recurrent
+   layers, ms (median of 2 after a warm-up), tokens/s, peak; the serve
+   loop of ``launch/serve.py`` at batch 4, 32 steps; the decode cache's
+   bytes at max_len 64, 2048 (the window) and 524288, the last two
+   equal. (b) The card against the CPU on the reduced config: the
+   forward's logits, the loss and every ``lm_loss`` gradient leaf within
+   1e-4 in f32 (logits of max |logit|, the rest relative L2); in bf16
+   the logits, each token's cross-entropy and the gradient within 1.5x
+   the CPU's own bf16-to-f32 distance; 40 decode steps in f32 through the ring (window 16, so it
+   wraps twice) against the teacher-forced forward on the card, within
+   1e-3 of max |logit|. (c) The train step at full width and the
+   reference's reduced depth of 5 layers (one super-block, two tail
+   blocks; 46.0 GiB of parameters, gradients and AdamW moments; all 38
+   layers would need 142.6), (1, 4096) bf16, selective remat, donated
+   AdamW: step 0's cross-entropy within 1.0 of ln(256000), the others
+   timed (ms, tokens/s, peak); then the reduced train CLI (failing at
+   step 5, restarting from its step-3 checkpoint) and serve CLI on the
+   card, at once.
+   Phase 3 (encdec), after phase 3 (hybrid) (also alone with
+   ``--encdec``): whisper-small (12 encoder and 12 decoder layers,
+   d_model 768, 12 heads, d_ff 3072, vocab 51865, tied), plain PyTorch,
+   the B1-B7 counters 0. (a) At full size in bf16: ``encode`` on frames
+   (4, 1500, 768); the teacher-forced prefill through
+   ``make_prefill_step`` at tokens (4, 448) with the frames;
+   ``init_decode_cache`` from the encoder's output, then 447 greedy
+   decode steps through ``make_serve_step`` to the contract's 448
+   tokens; ms and peak for each. (b) The card against the CPU on the
+   reduced config at (b)'s limits above, its decode over every one of
+   the ``max_target_len`` steps. (c) The train step at full size,
+   tokens (8, 448) and frames (8, 1500, 768), bf16, donated AdamW:
+   step 0's cross-entropy within 1.0 of ln(51865), the others timed (ms,
+   peak).
    Phase 3 (verify), after the serve phase: the verification layer
    (``repro_torch.verify.mms``, ``physics.spectral``,
    ``boundary_weights``) through B1 (``swc``), B3 (``swc_stream``) and
@@ -3980,6 +4024,620 @@ def phase_moe(dev, smi):
     print("  B1-B7 launches in every part: (0, 0, 0)")
 
 
+# The hybrid family (phase 3 (hybrid)): recurrentgemma-9b served at full
+# width and depth (35.7 GiB of f32 parameters), trained at the
+# reference's reduced depth (all 38 layers' parameters, gradients and
+# AdamW moments would need 142.6 GiB), and the card against the CPU on
+# the reduced config.
+HYBRID_PREFILL = (1, 8192)  # prefill_32k's sequence, cut as llama3-8b's
+HYBRID_CACHE_LENS = (64, 2048, 524288)  # below, at and past the window
+HYBRID_TRAIN_LAYERS = 5  # one super-block and two tail blocks
+HYBRID_TRAIN_SHAPE = (1, 4096)  # train_4k's seq at a global batch of 1
+HYBRID_TRAIN_STEPS = 3
+# The card against the CPU (TF32 off): f32 within CARD_CPU_TOL (logits of
+# max |logit|, loss and gradients relative); bf16 within BF16_MULTIPLE
+# times the CPU's own bf16-to-f32 distance (phase 3 (moe)'s rule); the
+# f32 decode against the teacher-forced forward on the card within
+# CARD_DECODE_TOL of max |logit| (phase 3 (dense)'s limit).
+CARD_CPU_TOL = 1e-4
+BF16_MULTIPLE = 1.5
+CARD_DECODE_TOL = 1e-3
+HYBRID_CPU_SHAPE = (2, 64)
+HYBRID_CPU_DECODE = 40  # the reduced window of 16 wraps twice
+HYBRID_TRAIN_CLI = ["--arch", "recurrentgemma-9b", "--reduced", "--steps",
+                    "8", "--global-batch", "2", "--seq-len", "64",
+                    "--ckpt-every", "3", "--simulate-failure-at", "5",
+                    "--log-every", "1"]
+HYBRID_SERVE_CLI = ["--arch", "recurrentgemma-9b", "--reduced", "--batch",
+                    "4", "--steps", "40", "--max-len", "16"]
+# The encoder-decoder (phase 3 (encdec)): whisper-small at full size.
+ENCDEC_BATCH = 4
+ENCDEC_TRAIN_BATCH = 8
+ENCDEC_TRAIN_STEPS = 3
+
+
+def _counting(module, name: str):
+    """Wrap ``module.name`` to record each call's args; returns (the list
+    of calls, a function that restores it)."""
+    calls, plain = [], getattr(module, name)
+
+    def counting(*a, **kw):
+        calls.append((a, kw))
+        return plain(*a, **kw)
+
+    setattr(module, name, counting)
+
+    def restore():
+        setattr(module, name, plain)
+
+    return calls, restore
+
+
+def _bytes(tree) -> int:
+    from repro_torch.tree import tree_leaves
+
+    return sum(v.numel() * v.element_size() for v in tree_leaves(tree))
+
+
+def _timed_runs(fn, n: int) -> tuple[float, list[float]]:
+    """(median ms, each ms) of ``n`` calls of ``fn`` on the host clock,
+    each ending in a synchronize."""
+    import torch
+
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times), times
+
+
+def hybrid_serving(dev, smi):
+    """(a): recurrentgemma-9b at full width and depth, random init from a
+    seeded generator on the card: the prefill ``HYBRID_PREFILL`` in bf16
+    through ``make_prefill_step`` (the banded attention in every
+    attention layer, the log-depth scan in every recurrent one), a
+    warm-up then 2 timed; the serve loop at batch ``LM_BATCH``; the
+    cache's bytes at ``HYBRID_CACHE_LENS``."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import hybrid
+
+    cfg = get_config("recurrentgemma-9b")
+    n_super, n_tail, n_att = hybrid.split_layers(cfg.n_layers,
+                                                 cfg.hybrid_pattern)
+    n_rec = 2 * n_super + n_tail
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = hybrid.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_par = _n_params(params)
+    print(f"  {cfg.arch_id}: {cfg.n_layers} layers ({n_super} (rec, rec, "
+          f"att) super-blocks, {n_tail} tail rec), d_model {cfg.d_model}, "
+          f"heads {cfg.n_heads}/{cfg.n_kv_heads} of {cfg.hd}, LRU width "
+          f"{cfg.lru_width}, d_ff {cfg.d_ff}, window {cfg.local_window}, "
+          f"vocab {cfg.vocab}; {n_par} parameters (config: "
+          f"{cfg.n_params():.0f}), {n_par * 4 / 2**30:.2f} GiB f32, init "
+          f"{time.perf_counter() - t0:.1f} s; {cfg.dtype} compute")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    b, s = HYBRID_PREFILL
+    batch = {"tokens": torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                                     device=dev)}
+    prefill = make_prefill_step(cfg, device=dev)
+    calls, restore = _counting_chunked()
+    scans, restore_scan = _counting(hybrid, "rg_lru_scan")
+    try:
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            _reset_all_counts()
+            out = prefill(params, batch)
+            torch.cuda.synchronize()
+            counts = _no_kernel("recurrentgemma-9b prefill")
+    finally:
+        restore()
+        restore_scan()
+    lengths = {a[0].shape[1] for a, _ in scans}
+    if calls != [(1024, 2048)] * n_att or len(scans) != n_rec or \
+            lengths != {s}:
+        raise AssertionError(f"prefill: banded attention {calls}, scans "
+                             f"{len(scans)} of length {lengths}")
+    if out.shape != (b, cfg.vocab) or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"prefill: bad logits {tuple(out.shape)}")
+    with torch.no_grad():
+        ms, times = _timed_runs(lambda: prefill(params, batch), 2)
+    print(f"  prefill {HYBRID_PREFILL} {cfg.dtype}: {ms:.1f} ms (host "
+          f"clock, after a warm-up: {', '.join(f'{t:.1f}' for t in times)}"
+          f"), {b * s / ms * 1e3:.0f} tokens/s, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; banded "
+          f"attention (1024/2048) in {len(calls)} of {n_att} attention "
+          f"layers; rg_lru_scan in {len(scans)} of {n_rec} recurrent layers, "
+          f"each {math.ceil(math.log2(s))} doubling rounds over (b, l, w) = "
+          f"({b}, {s}, {cfg.lru_width}); launches (B7, fused-stencil, "
+          f"xcorr1d) {counts} on {smi}")
+    del out, batch
+    serve(cfg, batch=LM_BATCH, steps=2, device=dev, params=params)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all_counts()
+    gen_tokens, secs = serve(cfg, batch=LM_BATCH, steps=LM_STEPS,
+                             device=dev, params=params)
+    counts = _no_kernel("recurrentgemma-9b serve")
+    if gen_tokens.shape != (LM_BATCH, LM_STEPS + 1) or \
+            int(gen_tokens.min()) < 0 or int(gen_tokens.max()) >= cfg.vocab:
+        raise AssertionError(f"serve: bad tokens {tuple(gen_tokens.shape)}")
+    print(f"  serve (launch/serve.py) batch {LM_BATCH}, {LM_STEPS} decode "
+          f"steps {cfg.dtype}: {LM_BATCH * LM_STEPS / secs:.1f} tokens/s, "
+          f"{1e3 * secs / LM_STEPS:.2f} ms a step (host clock); peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+          f"{counts}")
+    print("  first row: " + " ".join(map(str, gen_tokens[0, :12].tolist())))
+    sizes = {}
+    for n in HYBRID_CACHE_LENS:
+        cache = hybrid.init_decode_cache(cfg, LM_BATCH, n, device=dev)
+        sizes[n] = _bytes(cache)
+        del cache
+    print(f"  decode cache at batch {LM_BATCH} by max_len: " + ", ".join(
+        f"{n}: {v} bytes" for n, v in sizes.items())
+          + f" (the ring stops at the window of {cfg.local_window})")
+    if not sizes[64] < sizes[2048] == sizes[524288]:
+        raise AssertionError(f"hybrid cache grows with max_len: {sizes}")
+    del params, prefill
+    torch.cuda.empty_cache()
+
+
+def _card_vs_cpu(label, cfg, params, batch, on_card, batch_card, dev,
+                 forward, decode):
+    """The card against the CPU on one reduced config: in f32 the
+    forward's logits (of max |logit|), the loss and every gradient leaf
+    (relative) within ``CARD_CPU_TOL``; in bf16 the logits, each token's
+    cross-entropy and the gradient, each as one vector, within
+    ``BF16_MULTIPLE`` times the CPU's own bf16-to-f32 distance (the
+    scalar loss, their mean, is printed: its own bf16 error is one sum
+    of signed terms, which can land near 0 by chance);
+    ``decode(cfg, params, batch)`` in f32 on the card (its worst step's
+    max |err| against the forward, of max |logit|) within
+    ``CARD_DECODE_TOL``."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.launch.steps import make_grad_step
+    from repro_torch.tree import tree_leaves_with_path
+
+    def run(cfg, params, batch, device):
+        with torch.no_grad():
+            logits = forward(params, cfg, batch).float()
+            xent = (torch.logsumexp(logits, -1) - logits.gather(
+                -1, batch["labels"].long()[..., None])[..., 0]).cpu()
+        loss, _, grads = make_grad_step(cfg, device=device)(params, batch)
+        leaves = {"/".join(p): g.float().cpu()
+                  for p, g in tree_leaves_with_path(grads)}
+        return logits.cpu(), float(loss), leaves, torch.cat(
+            [g.flatten() for g in leaves.values()]), xent
+
+    cpu = {}
+    for dtype in ("float32", "bfloat16"):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        _reset_all_counts()
+        want = run(c, params, batch, "cpu")
+        got = run(c, on_card, batch_card, dev)
+        _no_kernel(f"{label} {dtype} card vs CPU")
+        cpu[dtype] = want
+        if dtype == "float32":
+            errs = {"logits": float((got[0] - want[0]).abs().max()
+                                    / want[0].abs().max()),
+                    "loss": abs(got[1] - want[1]) / abs(want[1]),
+                    "gradient": max(_rel_l2(got[2][k], want[2][k])
+                                    for k in want[2])}
+            limits = {k: CARD_CPU_TOL for k in errs}
+            held = f"limit {CARD_CPU_TOL:.0e} (gradient: the worst leaf)"
+        else:
+            f32 = cpu["float32"]
+            own = {"logits": _rel_l2(want[0], f32[0]),
+                   "token xent": _rel_l2(want[4], f32[4]),
+                   "gradient": _rel_l2(want[3], f32[3])}
+            errs = {"logits": _rel_l2(got[0], f32[0]),
+                    "token xent": _rel_l2(got[4], f32[4]),
+                    "gradient": _rel_l2(got[3], f32[3])}
+            limits = {k: BF16_MULTIPLE * max(own[k], 1e-30) for k in errs}
+            held = (f"from the CPU's f32, limit {BF16_MULTIPLE}x the CPU "
+                    "bf16's own: " + ", ".join(f"{k} {v:.3e}"
+                                               for k, v in own.items())
+                    + f"; the loss {abs(got[1] - f32[1]) / abs(f32[1]):.3e} "
+                    f"(the CPU bf16's {abs(want[1] - f32[1]) / abs(f32[1]):.3e})")
+        ok = all(errs[k] <= limits[k] for k in errs)
+        print(f"  {label} reduced {dtype}, card vs CPU (TF32 off): "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + f"; {held} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{label} {dtype} card vs CPU: {errs} vs "
+                                 f"{limits}")
+    _reset_all_counts()
+    steps, worst = decode(dataclasses.replace(cfg, dtype="float32"),
+                          on_card, batch_card)
+    counts = _no_kernel(f"{label} decode vs forward")
+    print(f"  {label} reduced f32 on the card: {steps} decode steps against "
+          f"the teacher-forced forward, worst max |err| {worst:.3e} of max "
+          f"|logit| (limit {CARD_DECODE_TOL:.0e}); launches {counts} "
+          f"{'ok' if worst <= CARD_DECODE_TOL else 'FAIL'}")
+    if not worst <= CARD_DECODE_TOL:
+        raise AssertionError(f"{label} decode vs forward: {worst:.3e}")
+
+
+def _decode_worst(full, step_logits) -> float:
+    """The worst step's max |err| against the forward, of max |logit|."""
+    errs = [(lg - full[:, t]).abs().max() for t, lg in enumerate(step_logits)]
+    return float(max(errs) / full.abs().max())
+
+
+def hybrid_card_vs_cpu(dev):
+    """(b): the reduced recurrentgemma-9b, card against CPU."""
+    import torch
+
+    from repro_torch.configs.registry import get_config, reduced_config
+    from repro_torch.models import hybrid
+    from repro_torch.tree import tree_map
+
+    cfg = reduced_config(get_config("recurrentgemma-9b"))
+    params = hybrid.init_params(cfg, seed=0, device="cpu")
+    gen = torch.Generator().manual_seed(4)
+    tokens = torch.randint(0, cfg.vocab, HYBRID_CPU_SHAPE, generator=gen)
+    batch = {"tokens": tokens, "labels": tokens.roll(-1, 1)}
+
+    def forward(p, c, bt):
+        return hybrid.forward(p, c, bt["tokens"])[0]
+
+    def decode(c, p, bt):
+        toks = bt["tokens"][:, :HYBRID_CPU_DECODE]
+        cache = hybrid.init_decode_cache(c, toks.shape[0], 64,
+                                         device=toks.device)
+        if cache.k.shape[2] * 2 >= HYBRID_CPU_DECODE:
+            raise AssertionError(f"the ring of {cache.k.shape[2]} slots does "
+                                 f"not wrap twice in {HYBRID_CPU_DECODE}")
+        with torch.no_grad():
+            full, _ = hybrid.forward(p, c, toks)
+            out = []
+            for t in range(HYBRID_CPU_DECODE):
+                lg, cache = hybrid.decode_step(p, c, toks[:, t:t + 1], cache)
+                out.append(lg)
+        return HYBRID_CPU_DECODE, _decode_worst(full, out)
+
+    _card_vs_cpu("recurrentgemma-9b", cfg, params, batch,
+                 tree_map(lambda v: v.to(dev), params),
+                 {k: v.to(dev) for k, v in batch.items()}, dev, forward,
+                 decode)
+
+
+def _train_steps(label, cfg, params, batches, dev, smi, note):
+    """``make_train_step(donate=True)`` over ``batches``: each step's
+    loss, grad_norm, lr, ms and peak; step 0's cross-entropy within 1.0
+    of ln(vocab); the B1-B7 counters 0. Returns the steady ms a step."""
+    import torch
+
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    opt = adamw_init(params)
+    state = torch.cuda.memory_allocated()
+    card = torch.cuda.get_device_properties(dev).total_memory
+    b, s = batches[0]["tokens"].shape
+    print(f"  {label} train: {_n_params(params)} parameters; parameters and "
+          f"moments {state / 2**30:.2f} GiB (with gradients "
+          f"{state * 4 / 3 / 2**30:.2f}); batch {b} x seq {s}{note}, "
+          f"{cfg.dtype} on f32 master weights, remat {cfg.remat}")
+    step_fn = make_train_step(
+        cfg, AdamWConfig(lr_peak=3e-4, warmup_steps=1,
+                         total_steps=len(batches)),
+        device=dev, donate=True)
+    _reset_all_counts()
+    step_ms, first = [], None
+    for i, batch in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        vals = {k: float(m[k]) for k in ("loss", "xent", "grad_norm", "lr")}
+        first = first or vals
+        step_ms.append(ms)
+        print(f"  step {i}: loss {vals['loss']:.4f}  grad_norm "
+              f"{vals['grad_norm']:.4f}  lr {vals['lr']:.3e}  {ms:.1f} ms  "
+              f"{b * s / ms * 1e3:.0f} tokens/s  peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if not all(map(math.isfinite, vals.values())):
+            raise AssertionError(f"{label} train step {i}: {vals}")
+    counts = _no_kernel(f"{label} train steps")
+    ln_v = math.log(cfg.vocab)
+    if not abs(first["xent"] - ln_v) <= 1.0:
+        raise AssertionError(f"{label} step-0 xent {first['xent']:.4f}, "
+                             f"ln(vocab) {ln_v:.4f}")
+    steady = statistics.median(step_ms[1:])
+    print(f"  {len(batches)} train steps {b}x{s} {cfg.dtype}: step-0 xent "
+          f"{first['xent']:.4f} (ln {cfg.vocab} = {ln_v:.4f}); "
+          f"{steady:.1f} ms a step (host clock, median of steps 1-"
+          f"{len(batches) - 1}; step 0 {step_ms[0]:.1f}), "
+          f"{b * s / steady * 1e3:.0f} tokens/s, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB of the "
+          f"card's {card / 2**30:.2f}; launches {counts} on {smi}")
+    del params, opt, m
+    torch.cuda.empty_cache()
+    return steady
+
+
+def hybrid_training(dev, smi):
+    """(c): the train step at full width, ``HYBRID_TRAIN_LAYERS`` deep."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import BatchIterator, MarkovLMDataset
+    from repro_torch.models import hybrid
+
+    full = get_config("recurrentgemma-9b")
+    cfg = dataclasses.replace(full, n_layers=HYBRID_TRAIN_LAYERS)
+    if cfg.remat != "selective" or cfg.dtype != "bfloat16":
+        raise AssertionError(f"config remat {cfg.remat}, dtype {cfg.dtype}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = hybrid.init_params(cfg, seed=0, device=dev)
+    b, s = HYBRID_TRAIN_SHAPE
+    it = BatchIterator(MarkovLMDataset(cfg.vocab, s, branching=4), b)
+    batches = [it.next_global(dev) for _ in range(HYBRID_TRAIN_STEPS)]
+    _train_steps("recurrentgemma-9b", cfg, params, batches, dev, smi,
+                 f" (train_4k's seq, its batch 256 cut to {b}); "
+                 f"{HYBRID_TRAIN_LAYERS} of {full.n_layers} layers (all "
+                 f"{full.n_layers}: {full.n_params() * 16 / 2**30:.1f} GiB "
+                 "of parameters, gradients and moments)")
+
+
+def hybrid_clis_on_card():
+    """The reduced train CLI (``HYBRID_TRAIN_CLI``: a failure at step 5,
+    a restart from its step-3 checkpoint) and serve CLI
+    (``HYBRID_SERVE_CLI``) on the card, at once: rc 0 each."""
+    import os
+    import tempfile
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        cmds = {"train": [sys.executable, "-m", "repro_torch.launch.train",
+                          *HYBRID_TRAIN_CLI, "--ckpt-dir", tmp],
+                "serve": [sys.executable, "-m", "repro_torch.launch.serve",
+                          *HYBRID_SERVE_CLI]}
+        procs = {k: subprocess.Popen(c, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True,
+                                     cwd=ROOT, env=env)
+                 for k, c in cmds.items()}
+        outs = {k: p.communicate(timeout=600) for k, p in procs.items()}
+        secs = time.perf_counter() - t0
+    for k, p in procs.items():
+        if p.returncode:
+            raise AssertionError(f"{k} CLI rc {p.returncode}: "
+                                 f"{outs[k][1][-2000:]}")
+    done = next(x for x in outs["train"][0].splitlines()
+                if x.startswith("done:"))
+    final = float(done.split("final loss")[1].split()[0])
+    if ("restarts=1" not in done or "device=cuda" not in done
+            or not math.isfinite(final)
+            or "restored at step 3" not in outs["train"][1]):
+        raise AssertionError(f"train CLI: {done!r} / "
+                             f"{outs['train'][1][-500:]}")
+    generated = next(x for x in outs["serve"][0].splitlines()
+                     if x.startswith("generated"))
+    print(f"  python -m repro_torch.launch.train {' '.join(HYBRID_TRAIN_CLI)}"
+          f" and launch.serve {' '.join(HYBRID_SERVE_CLI)}, at once: rc 0 in "
+          f"{secs:.1f} s, restored at step 3")
+    print(f"    {done}")
+    print(f"    serve: {generated} (the ring of 16 slots wrapped)")
+
+
+def phase_hybrid(dev, smi):
+    """Phase 3 (hybrid): recurrentgemma-9b served at full width and depth
+    (a), the card against the CPU on the reduced config (b), the train
+    step at the reference's reduced depth and the CLIs (c); plain
+    PyTorch, the B1-B7 counters 0 throughout."""
+    import torch
+
+    print("== phase 3 (hybrid): recurrentgemma-9b served at full width and "
+          "depth, trained at 5 layers (plain PyTorch; no kernel of B1-B7)")
+    print(f"  card: {smi}")
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 matmuls in f32
+    torch.cuda.empty_cache()
+    print("  (a)")
+    hybrid_serving(dev, smi)
+    print("  (b)")
+    hybrid_card_vs_cpu(dev)
+    print("  (c)")
+    hybrid_training(dev, smi)
+    hybrid_clis_on_card()
+    print("  B1-B7 launches in every part: (0, 0, 0)")
+
+
+def _frames(cfg, b: int, dev, seed: int):
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn((b, cfg.encoder_seq, cfg.d_model), generator=gen,
+                       device=dev)
+
+
+def encdec_serving(dev, smi):
+    """(a): whisper-small at full size in bf16: ``encode``, the
+    teacher-forced prefill through ``make_prefill_step`` with the frames,
+    then ``init_decode_cache`` from the encoder's output and greedy
+    decode steps through ``make_serve_step`` to ``max_target_len``
+    tokens; ms and peak for each."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import encdec
+
+    cfg = get_config("whisper-small")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = encdec.init_params(cfg, seed=0, device=dev)
+    n_par = _n_params(params)
+    print(f"  {cfg.arch_id}: {cfg.n_encoder_layers} + {cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, {cfg.n_heads} heads, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab} (tied), {cfg.encoder_seq} frames, "
+          f"{cfg.max_target_len} target tokens; {n_par} parameters (config: "
+          f"{cfg.n_params():.0f}), {n_par * 4 / 2**30:.2f} GiB f32; "
+          f"{cfg.dtype} compute")
+    b, t = ENCDEC_BATCH, cfg.max_target_len
+    frames = _frames(cfg, b, dev, 1).to(torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab, (b, t), generator=gen, device=dev)
+    prefill = make_prefill_step(cfg, device=dev)
+    step = make_serve_step(cfg, device=dev)
+    with torch.no_grad():
+        encdec.encode(params, cfg, frames)  # warm-up
+        _reset_all_counts()
+        torch.cuda.reset_peak_memory_stats()
+        enc_ms, enc_times = _timed_runs(
+            lambda: encdec.encode(params, cfg, frames), 2)
+        enc_peak = torch.cuda.max_memory_allocated()
+        batch = {"tokens": tokens, "frames": frames}
+        out = prefill(params, batch)
+        torch.cuda.reset_peak_memory_stats()
+        pre_ms, pre_times = _timed_runs(lambda: prefill(params, batch), 2)
+        pre_peak = torch.cuda.max_memory_allocated()
+        enc = encdec.encode(params, cfg, frames)
+        counts = _no_kernel("whisper-small encode and prefill")
+        if out.shape != (b, cfg.vocab) or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"prefill: bad logits {tuple(out.shape)}")
+        print(f"  encode ({b}, {cfg.encoder_seq}, {cfg.d_model}) {cfg.dtype}: "
+              f"{enc_ms:.1f} ms (host clock, after a warm-up: "
+              f"{', '.join(f'{x:.1f}' for x in enc_times)}), peak "
+              f"{enc_peak / 2**30:.2f} GiB; prefill (encode and the "
+              f"teacher-forced decoder) at tokens ({b}, {t}): {pre_ms:.1f} ms "
+              f"({', '.join(f'{x:.1f}' for x in pre_times)}), peak "
+              f"{pre_peak / 2**30:.2f} GiB; launches {counts} on {smi}")
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache = encdec.init_decode_cache(params, cfg, enc)
+        torch.cuda.synchronize()
+        cache_ms = 1e3 * (time.perf_counter() - t0)
+        cur = tokens[:, :1]
+        seq = [cur]
+        _reset_all_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(t - 1):
+            logits, cache = step(params, cache, {"tokens": cur})
+            cur = logits.argmax(-1, keepdim=True)
+            seq.append(cur)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = _no_kernel("whisper-small decode")
+    seq = torch.cat(seq, 1)
+    if seq.shape != (b, t) or int(cache.length) != t - 1 or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"decode: {tuple(seq.shape)}, length "
+                             f"{int(cache.length)}")
+    print(f"  init_decode_cache (cross K/V of {cfg.n_layers} layers, "
+          f"{_bytes(cache) / 2**20:.1f} MiB with the self-attention cache): "
+          f"{cache_ms:.1f} ms; {t - 1} greedy decode steps at batch {b} to "
+          f"{t} tokens: {1e3 * secs / (t - 1):.2f} ms a step (host clock), "
+          f"{b * (t - 1) / secs:.1f} tokens/s, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+          f"{counts}")
+    print("  first row: " + " ".join(map(str, seq[0, :12].tolist())))
+    del params, cache, enc, prefill, step
+    torch.cuda.empty_cache()
+
+
+def encdec_card_vs_cpu(dev):
+    """(b): the reduced whisper-small, card against CPU; the decode over
+    every one of its ``max_target_len`` steps."""
+    import torch
+
+    from repro_torch.configs.registry import get_config, reduced_config
+    from repro_torch.models import encdec
+    from repro_torch.tree import tree_map
+
+    cfg = reduced_config(get_config("whisper-small"))
+    params = encdec.init_params(cfg, seed=0, device="cpu")
+    gen = torch.Generator().manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab, (2, cfg.max_target_len),
+                           generator=gen)
+    batch = {"tokens": tokens, "labels": tokens.roll(-1, 1),
+             "frames": torch.randn((2, cfg.encoder_seq, cfg.d_model),
+                                   generator=gen)}
+
+    def forward(p, c, bt):
+        return encdec.forward(p, c, bt["tokens"], frames=bt["frames"])[0]
+
+    def decode(c, p, bt):
+        with torch.no_grad():
+            full = forward(p, c, bt)
+            cache = encdec.init_decode_cache(
+                p, c, encdec.encode(p, c, bt["frames"]))
+            out = []
+            for t in range(c.max_target_len):
+                lg, cache = encdec.decode_step(p, c,
+                                               bt["tokens"][:, t:t + 1], cache)
+                out.append(lg)
+        return c.max_target_len, _decode_worst(full, out)
+
+    _card_vs_cpu("whisper-small", cfg, params, batch,
+                 tree_map(lambda v: v.to(dev), params),
+                 {k: v.to(dev) for k, v in batch.items()}, dev, forward,
+                 decode)
+
+
+def encdec_training(dev, smi):
+    """(c): the train step at full size, tokens (``ENCDEC_TRAIN_BATCH``,
+    448) and frames (``ENCDEC_TRAIN_BATCH``, 1500, 768)."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import encdec
+
+    cfg = get_config("whisper-small")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = encdec.init_params(cfg, seed=0, device=dev)
+    b, t = ENCDEC_TRAIN_BATCH, cfg.max_target_len
+    gen = torch.Generator(device=dev).manual_seed(3)
+    batches = []
+    for i in range(ENCDEC_TRAIN_STEPS):
+        tokens = torch.randint(0, cfg.vocab, (b, t), generator=gen,
+                               device=dev)
+        batches.append({"tokens": tokens, "labels": tokens.roll(-1, 1),
+                        "frames": _frames(cfg, b, dev, 10 + i)})
+    _train_steps("whisper-small", cfg, params, batches, dev, smi,
+                 f" and frames ({b}, {cfg.encoder_seq}, {cfg.d_model}), "
+                 "every layer (the reference has no remat here)")
+
+
+def phase_encdec(dev, smi):
+    """Phase 3 (encdec): whisper-small at full size served (a) and
+    trained (c), the card against the CPU on the reduced config (b);
+    plain PyTorch, the B1-B7 counters 0 throughout."""
+    import torch
+
+    print("== phase 3 (encdec): whisper-small served and trained at full "
+          "size (plain PyTorch; no kernel of B1-B7)")
+    print(f"  card: {smi}")
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 matmuls in f32
+    torch.cuda.empty_cache()
+    print("  (a)")
+    encdec_serving(dev, smi)
+    print("  (b)")
+    encdec_card_vs_cpu(dev)
+    print("  (c)")
+    encdec_training(dev, smi)
+    print("  B1-B7 launches in every part: (0, 0, 0)")
+
+
 def phase_serve(dev, launches):
     """Ensemble serving through ``SimServer`` on each CUDA strategy: a
     warm-up queue of the same size (so the allocator holds full-batch
@@ -5857,6 +6515,12 @@ def main(argv: list[str]) -> int:
     if "--moe" in argv:
         timed("phase 3 (moe)", phase_moe, dev, smi)
         return 0
+    if "--hybrid" in argv or "--encdec" in argv:
+        if "--hybrid" in argv:
+            timed("phase 3 (hybrid)", phase_hybrid, dev, smi)
+        if "--encdec" in argv:
+            timed("phase 3 (encdec)", phase_encdec, dev, smi)
+        return 0
     timed("phase 2", phase_parity, dev)
     if "--quick" in argv:
         return 0
@@ -5872,6 +6536,8 @@ def main(argv: list[str]) -> int:
     timed("phase 3 (dense)", phase_dense, dev, smi)
     timed("phase 3 (tp)", phase_tp, dev, smi)
     timed("phase 3 (moe)", phase_moe, dev, smi)
+    timed("phase 3 (hybrid)", phase_hybrid, dev, smi)
+    timed("phase 3 (encdec)", phase_encdec, dev, smi)
     timed("phase 3b", phase_serve, dev, launches)
     timed("phase 3 (verify)", phase_verify, dev, smi)
     timed("phase 3 (tune)", phase_tune, dev, smi)

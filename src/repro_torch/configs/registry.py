@@ -1,11 +1,9 @@
 """Registry (port of ``repro.configs.registry``): arch lookup, the
-input-shape grid, reduced smoke-test configs and the model API.
-
-Ported: the dense transformers (qwen2.5-3b, qwen2.5-14b, gemma-2b,
-llama3-8b), the MoE transformers (mixtral-8x7b, qwen3-moe-30b-a3b), the
-VLM qwen2-vl-7b and mamba2-780m. The hybrid and encoder-decoder
-architectures raise ``NotImplementedError`` naming their ROADMAP A13
-item.
+input-shape grid, reduced smoke-test configs and the model API, for all
+ten of the reference's architectures: the dense transformers
+(qwen2.5-3b, qwen2.5-14b, gemma-2b, llama3-8b), the MoE transformers
+(mixtral-8x7b, qwen3-moe-30b-a3b), the VLM qwen2-vl-7b, mamba2-780m,
+the hybrid recurrentgemma-9b and the encoder-decoder whisper-small.
 """
 from __future__ import annotations
 
@@ -15,13 +13,8 @@ from typing import Any, Callable, NamedTuple
 
 from repro_torch.models.config import ModelConfig
 
-# The reference's architectures (``repro.configs.registry.ARCH_MODULES``).
-ARCH_IDS = (
-    "qwen2.5-3b", "qwen2.5-14b", "gemma-2b", "llama3-8b", "mixtral-8x7b",
-    "qwen3-moe-30b-a3b", "qwen2-vl-7b", "recurrentgemma-9b",
-    "whisper-small", "mamba2-780m",
-)
-# Those the port has, with their module under ``repro_torch.configs``.
+# The reference's architectures, with their module under
+# ``repro_torch.configs`` (``repro.configs.registry.ARCH_MODULES``).
 ARCH_MODULES = {
     "qwen2.5-3b": "qwen2_5_3b",
     "qwen2.5-14b": "qwen2_5_14b",
@@ -30,15 +23,12 @@ ARCH_MODULES = {
     "mixtral-8x7b": "mixtral_8x7b",
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
     "qwen2-vl-7b": "qwen2_vl_7b",
+    "recurrentgemma-9b": "recurrentgemma_9b",
+    "whisper-small": "whisper_small",
     "mamba2-780m": "mamba2_780m",
 }
-# The families not ported yet, with their ROADMAP item.
-NOT_PORTED = {
-    "hybrid": "ROADMAP A13 (models/hybrid.py)",
-    "audio": "ROADMAP A13 (models/encdec.py)",
-}
-# The architectures of those families (their configs are not ported).
-_ARCH_FAMILY = {"recurrentgemma-9b": "hybrid", "whisper-small": "audio"}
+
+ARCH_IDS = tuple(ARCH_MODULES)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,18 +47,9 @@ SHAPES = {
 }
 
 
-def _not_ported(what: str, family: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: {NOT_PORTED[family]}; the port has "
-        f"{sorted(ARCH_MODULES)}"
-    )
-
-
 def _module(arch_id: str):
-    if arch_id not in ARCH_IDS:
-        raise KeyError(f"unknown arch {arch_id!r}; want one of {ARCH_IDS}")
     if arch_id not in ARCH_MODULES:
-        raise _not_ported(arch_id, _ARCH_FAMILY[arch_id])
+        raise KeyError(f"unknown arch {arch_id!r}; want one of {ARCH_IDS}")
     return importlib.import_module(
         f"repro_torch.configs.{ARCH_MODULES[arch_id]}")
 
@@ -83,9 +64,7 @@ def uses_fsdp(arch_id: str) -> bool:
 
 def reduced_config(cfg: ModelConfig) -> ModelConfig:
     """Same family/topology, toy sizes: a few layers, narrow width, tiny
-    vocab (the reference's rules for the ported families)."""
-    if cfg.family in NOT_PORTED:
-        raise _not_ported(f"reduced_config for {cfg.arch_id}", cfg.family)
+    vocab (the reference's rules)."""
     kw: dict[str, Any] = dict(
         n_layers=min(cfg.n_layers, 4),
         d_model=64,
@@ -108,6 +87,15 @@ def reduced_config(cfg: ModelConfig) -> ModelConfig:
         kw["ssm_state"] = 16
         kw["ssm_head_dim"] = 8
         kw["ssm_chunk"] = 16
+    if cfg.hybrid_pattern:
+        kw["n_layers"] = 5  # 1 super-block (rec, rec, att) + 2 tail rec
+        kw["lru_width"] = 64
+        kw["local_window"] = 16
+    if cfg.is_encdec:
+        kw["n_encoder_layers"] = 2
+        kw["n_layers"] = 2
+        kw["encoder_seq"] = 32
+        kw["max_target_len"] = 24
     if cfg.sliding_window:
         kw["sliding_window"] = 16
     if cfg.n_patches:
@@ -131,9 +119,10 @@ def get_model(cfg: ModelConfig) -> ModelAPI:
         from repro_torch.models import transformer as m
     elif cfg.family == "ssm":
         from repro_torch.models import ssm as m
-    elif cfg.family in NOT_PORTED:
-        raise _not_ported(f"the {cfg.family!r} family ({cfg.arch_id})",
-                          cfg.family)
+    elif cfg.family == "hybrid":
+        from repro_torch.models import hybrid as m
+    elif cfg.family == "audio":
+        from repro_torch.models import encdec as m
     else:
         raise ValueError(cfg.family)
     return ModelAPI(

@@ -20,7 +20,8 @@ mapping, as in the reference:
               (:func:`into_region`, :func:`out_of_region`,
               :func:`gather_for_compute`). Other families under ``tp``
               with a ``model`` axis above one rank raise
-              (:func:`refuse_tensor_parallel`, ROADMAP A13-TP (ssm)).
+              (:func:`refuse_tensor_parallel`, ROADMAP A13-TP (ssm), A13-TP
+              (hybrid, audio)).
               The MoE's groups are GSPMD's over the global batch: where
               one would span data-parallel ranks the FFN raises
               (:func:`batch_ranks`).
@@ -292,6 +293,12 @@ def batch_spec(name: str, shape: tuple[int, ...], mesh,
 _TP_PORTED = re.compile(
     r"^(embed|unembed|blocks/(wq|wk|wv|bq|bk|bv|wo|w_gate|w_up|w_down"
     r"|moe/(router|w_gate|w_up|w_down)))$")
+# The top-level keys of the hybrid's and whisper's trees. Their tensor
+# parallelism is not ported (ROADMAP A13-TP (hybrid, audio)): the
+# reference's rules for them name ``blocks_rec/*`` and ``wq_x`` ..
+# ``wo_x``, which no leaf of either tree is called, so they would cut
+# only some of their leaves (``embed``, whisper's ``w_in``/``w_out``).
+_NO_TP_TREES = ("super", "tail_rec", "enc_blocks")
 
 
 def refuse_tensor_parallel(params_shape: Any, mesh, *, profile: str = "tp",
@@ -301,24 +308,26 @@ def refuse_tensor_parallel(params_shape: Any, mesh, *, profile: str = "tp",
     the port has no tensor-parallel form for it (``mesh``: a
     ``DeviceMesh`` or {axis name: size}). The dense, MoE and VLM
     families' leaves have one; mamba2's fused ``in_proj`` columns do not
-    (ROADMAP A13-TP (ssm)); the hybrid and audio families are refused by
-    the registry before they get here."""
+    (ROADMAP A13-TP (ssm)), nor does any leaf of the hybrid's or
+    whisper's trees (ROADMAP A13-TP (hybrid, audio))."""
     sizes = mesh_axis_sizes(mesh)
     if profile != "tp" or sizes.get("model", 1) == 1:
         return
-    for path, leaf in tree_leaves_with_path(params_shape):
+    leaves = tree_leaves_with_path(params_shape)
+    other = any(path[0] in _NO_TP_TREES for path, _ in leaves)
+    for path, leaf in leaves:
         name = path_str(path)
         spec = param_spec(name, tuple(leaf.shape), mesh, fsdp=fsdp,
                           profile=profile)
         if (any("model" in _axes_tuple(a) for a in spec)
-                and not _TP_PORTED.match(name)):
+                and (other or not _TP_PORTED.match(name))):
+            item = "A13-TP (hybrid, audio)" if other else "A13-TP (ssm)"
             raise NotImplementedError(
                 f"the tp profile cuts {name} {tuple(leaf.shape)} as {spec} "
                 f"over a model axis of {sizes['model']} ranks: tensor "
                 "parallelism is ported for the dense, MoE and VLM families "
-                "only; this model's is ROADMAP A13-TP (ssm); use "
-                "profile='dp', or "
-                "a mesh whose model axis is 1"
+                f"only; this model's is ROADMAP {item}; use profile='dp', "
+                "or a mesh whose model axis is 1"
             )
 
 

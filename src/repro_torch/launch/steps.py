@@ -34,6 +34,7 @@ from repro_torch.distrib import sharding as shlib
 from repro_torch.distrib.grad_sync import global_norm, sync_grads
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import KVCache
+from repro_torch.models.ssm import SSMCache
 from repro_torch.optim import AdamWConfig, OptState, adamw_update
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -92,7 +93,8 @@ def train_shardings(cfg: ModelConfig, mesh, *, profile: str = "tp",
     Raises:
         NotImplementedError: when the ``tp`` profile cuts a leaf of a
             family without tensor parallelism (mamba2: ROADMAP A13-TP
-            (ssm)) over a ``model`` axis of more than one rank.
+            (ssm); the hybrid and whisper: ROADMAP A13-TP (hybrid,
+            audio)) over a ``model`` axis of more than one rank.
     """
     abstract = get_model(cfg).abstract_params(cfg)
     shlib.refuse_tensor_parallel(abstract, mesh, profile=profile, fsdp=fsdp)
@@ -109,16 +111,16 @@ def cache_shardings(cache, mesh) -> KVCache:
     length replicated. ``cache`` may hold meta tensors.
 
     Raises:
-        NotImplementedError: for the SSM, hybrid and encoder-decoder
-            caches (ROADMAP A13-TP (ssm), A13's ``models/hybrid.py`` and
-            ``models/encdec.py``).
+        NotImplementedError: for the SSM cache (ROADMAP A13-TP (ssm)) and
+            the hybrid and encoder-decoder caches (ROADMAP A13-TP
+            (hybrid, audio)).
     """
     if not isinstance(cache, KVCache):
+        item = ("A13-TP (ssm)" if isinstance(cache, SSMCache)
+                else "A13-TP (hybrid, audio)")
         raise NotImplementedError(
             f"cache_shardings for {type(cache).__name__}: the port cuts the "
-            "KV cache only; mamba2's SSMCache is ROADMAP A13-TP (ssm), the "
-            "hybrid and encoder-decoder caches come with their families "
-            "(ROADMAP A13: models/hybrid.py, models/encdec.py)")
+            f"transformers' KV cache only; this one is ROADMAP {item}")
     kv = shlib.NamedSharding(mesh, shlib.kv_cache_spec(
         tuple(cache.k.shape), mesh))
     return KVCache(k=kv, v=kv, length=shlib.NamedSharding(mesh, ()))
@@ -245,7 +247,7 @@ def make_prefill_step(cfg: ModelConfig, *, mesh=None,
                       use_pallas_conv: bool | None = None):
     """``prefill_step(params, batch)`` → the last position's logits
     (b, vocab) in float32; ``batch`` may carry the VLM's ``positions``
-    and ``patch_embeds``. ``use_pallas_conv``, when set, goes to
+    and ``patch_embeds``, and carries whisper's ``frames``. ``use_pallas_conv``, when set, goes to
     mamba2's ``forward`` (unset: the B7 kernel on the card, the plain
     conv on the CPU).
 
@@ -256,8 +258,9 @@ def make_prefill_step(cfg: ModelConfig, *, mesh=None,
     every rank returns its rows' whole-vocab logits.
 
     Raises:
-        NotImplementedError: for mamba2 with a ``model`` axis above one
-            rank (ROADMAP A13-TP (ssm)).
+        NotImplementedError: for mamba2 (ROADMAP A13-TP (ssm)), the
+            hybrid and whisper (ROADMAP A13-TP (hybrid, audio)) with a
+            ``model`` axis above one rank.
     """
     api = get_model(cfg)
     dev = resolve_device(device)
@@ -266,7 +269,7 @@ def make_prefill_step(cfg: ModelConfig, *, mesh=None,
         shlib.refuse_tensor_parallel(api.abstract_params(cfg), mesh)
 
     def prefill_step(params, batch):
-        extra = {k: batch[k] for k in ("positions", "patch_embeds")
+        extra = {k: batch[k] for k in ("positions", "patch_embeds", "frames")
                  if k in batch}
         with _rule_set(mesh):
             logits, _ = api.forward(params, cfg, _tokens_on(batch, dev),
@@ -287,8 +290,9 @@ def make_serve_step(cfg: ModelConfig, *, mesh=None,
     its rows; the logits are gathered over ``model`` once, at the end.
 
     Raises:
-        NotImplementedError: for mamba2 with a ``model`` axis above one
-            rank (ROADMAP A13-TP (ssm)).
+        NotImplementedError: for mamba2 (ROADMAP A13-TP (ssm)), the
+            hybrid and whisper (ROADMAP A13-TP (hybrid, audio)) with a
+            ``model`` axis above one rank.
     """
     api = get_model(cfg)
     dev = resolve_device(device)

@@ -1,7 +1,9 @@
 """Training entry point (port of ``repro.launch.train``): a language
-model of the registry (mamba2-780m by default; the dense transformers
-and the VLM with ``--arch``) on one card or data-parallel over a mesh
-of ranks, fault-tolerant.
+model of the registry (mamba2-780m by default; the dense, MoE and
+hybrid transformers and the VLM with ``--arch``) on one card or
+data-parallel over a mesh of ranks, fault-tolerant. The
+encoder-decoder (whisper-small) exits with the reference's
+``SystemExit``.
 
     PYTHONPATH=src python -m repro_torch.launch.train --reduced \\
         --steps 50 --global-batch 8 --seq-len 64 [--device cpu]
@@ -42,7 +44,7 @@ over its ranks (tensor parallelism; each rank keeps its blocks of the
 seeded parameters); the ranks join the gradient sum over ``(pod,
 data)``. Checkpoints hold whole leaves. Rank 0 prints. mamba2 with a
 ``model`` axis above 1 raises ``NotImplementedError`` (ROADMAP A13-TP
-(ssm)).
+(ssm)), and so does the hybrid (ROADMAP A13-TP (hybrid, audio)).
 """
 from __future__ import annotations
 
@@ -104,6 +106,12 @@ def main(argv: list[str] | None = None) -> None:
     shape, axes = parse_mesh(args.mesh)
     world = math.prod(shape)
     cfg = _config(args)
+    if cfg.is_encdec:
+        raise SystemExit(
+            "repro_torch.launch.train trains decoder-only language models; "
+            "an encoder-decoder's batch carries frames: train it through "
+            "repro_torch.launch.steps.make_train_step"
+        )
     shlib.refuse_tensor_parallel(get_model(cfg).abstract_params(cfg),
                                  dict(zip(axes, shape)))
     if world == 1:

@@ -1,5 +1,6 @@
 """Rank functions of the port's data-parallel tests
-(``tests/test_torch_dp_train.py``, ``tests/test_torch_distrib.py``),
+(``tests/test_torch_dp_train.py``, ``tests/test_torch_distrib.py``,
+``tests/test_torch_hybrid.py``),
 run in processes spawned by ``repro_torch.launch.mesh.run_on_mesh`` on
 CPU ranks over gloo.
 
@@ -204,3 +205,24 @@ def mesh_rank(mesh):
     group = shlib.axis_group(mesh, names)
     ranks = torch.distributed.get_process_group_ranks(group)
     return errors, ranks, shlib.axis_index(mesh, names)
+
+
+def hybrid_rank(mesh, params_np, data: dict, opt_kw: dict):
+    """One data-parallel step (the tp profile, a model axis of one) of
+    the reduced recurrentgemma-9b from ``params_np`` through the generic
+    ``make_train_step(mesh=)``: the loss, grad_norm, step 0's synced
+    gradient and the parameters after the step (gathered whole)."""
+    torch.set_num_threads(1)
+    cfg = reduced_config(get_config("recurrentgemma-9b"))
+    p_sh, _ = steps.train_shardings(cfg, mesh)
+    params = shlib.shard_tree(
+        convert.model_params_from_numpy(params_np, device="cpu"), p_sh)
+    batch = _batch_rows(mesh, "tp", data, 0)
+    _, _, grads, _ = steps.make_synced_grad_step(cfg, mesh=mesh,
+                                                 device="cpu")(params, batch)
+    step_fn = steps.make_train_step(cfg, AdamWConfig(**opt_kw), device="cpu",
+                                    mesh=mesh)
+    params, _, m = step_fn(params, adamw_init(params), batch)
+    return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+            "grads0": flat(shlib.gather_tree(grads, p_sh)),
+            "params": flat(shlib.gather_tree(params, p_sh))}

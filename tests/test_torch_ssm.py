@@ -96,13 +96,9 @@ def test_config_and_registry_match_the_reference():
     assert {k: dataclasses.asdict(v) for k, v in treg.SHAPES.items()} == {
         k: dataclasses.asdict(v) for k, v in jreg.SHAPES.items()}
     assert set(treg.ARCH_IDS) == set(jreg.ARCH_IDS)
-    # the MoE, hybrid and encoder-decoder architectures (the dense ones
-    # are held in tests/test_torch_transformer.py)
-    for arch in set(treg.ARCH_IDS) - set(treg.ARCH_MODULES):
-        with pytest.raises(NotImplementedError, match="A13"):
-            treg.get_config(arch)
-        with pytest.raises(NotImplementedError, match="A13"):
-            treg.get_model(jreg.get_config(arch))
+    # every architecture is ported (the others are held in
+    # tests/test_torch_{transformer,moe,hybrid,encdec}.py)
+    assert set(treg.ARCH_MODULES) == set(treg.ARCH_IDS)
 
 
 def test_init_params_has_the_reference_shapes_and_casts():
@@ -289,8 +285,14 @@ def test_serve_runs_on_the_cpu_and_refuses_what_it_lacks(
                  "--batch", "2", "--steps", "4"])
     assert tsession.AUTO_ENABLED
     assert "generated (2, 5) tokens" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="A13"):
+    # the encoder-decoder: the reference's SystemExit, from both CLIs
+    with pytest.raises(SystemExit, match="decoder-only LM serving"):
         tserve.main(["--arch", "whisper-small", "--device", "cpu"])
+    from repro_torch.launch import train as ttrain
+
+    with pytest.raises(SystemExit, match="decoder-only language models"):
+        ttrain.main(["--arch", "whisper-small", "--reduced", "--device",
+                     "cpu"])
     _, tcfg = _cfgs()
     toks, secs = tserve.serve(tcfg, batch=3, steps=2, device="cpu", seed=1)
     assert toks.shape == (3, 3) and secs > 0

@@ -257,7 +257,8 @@ def test_gelu_mlp_and_layer_norm_match_reference():
 
 def test_registry_matches_the_reference():
     assert treg.ARCH_IDS == jreg.ARCH_IDS
-    assert set(treg.ARCH_MODULES) == set(DENSE) | set(MOE) | {"mamba2-780m"}
+    assert set(treg.ARCH_MODULES) == set(DENSE) | set(MOE) | {
+        "mamba2-780m", "recurrentgemma-9b", "whisper-small"}
     for arch in treg.ARCH_MODULES:
         j, t = jreg.get_config(arch), treg.get_config(arch)
         assert dataclasses.asdict(j) == dataclasses.asdict(t), arch
@@ -273,16 +274,25 @@ def test_registry_matches_the_reference():
 @pytest.mark.parametrize("arch,item", (
     ("recurrentgemma-9b", "hybrid.py"), ("whisper-small", "encdec.py")))
 def test_unported_families_raise_naming_their_roadmap_item(arch, item):
-    match = f"ROADMAP A13 \\(models/{item}"
-    with pytest.raises(NotImplementedError, match=match):
-        treg.get_config(arch)
-    with pytest.raises(NotImplementedError, match=match):
-        treg.uses_fsdp(arch)
-    jcfg = jreg.get_config(arch)
-    with pytest.raises(NotImplementedError, match=match):
-        treg.get_model(jcfg)
-    with pytest.raises(NotImplementedError, match=match):
-        treg.reduced_config(jcfg)
+    """The two families the registry refused until their port (the
+    hybrid, ``models/hybrid.py``; the encoder-decoder,
+    ``models/encdec.py``): ``get_config``, ``n_params``, ``uses_fsdp``
+    and ``reduced_config`` equal the reference's, and ``get_model``
+    gives that module's API, as the reference's registry does."""
+    import importlib
+
+    j, t = jreg.get_config(arch), treg.get_config(arch)
+    assert dataclasses.asdict(j) == dataclasses.asdict(t)
+    assert t.n_params() == j.n_params()
+    assert treg.uses_fsdp(arch) == jreg.uses_fsdp(arch)
+    assert dataclasses.asdict(treg.reduced_config(t)) == \
+        dataclasses.asdict(jreg.reduced_config(j))
+    module = importlib.import_module(
+        f"repro_torch.models.{item.removesuffix('.py')}")
+    api, japi = treg.get_model(t), jreg.get_model(j)
+    for name in japi._fields:
+        assert getattr(api, name) is getattr(module, name), name
+    assert api.abstract_params is module.abstract_params
 
 
 @pytest.mark.parametrize("arch", MOE)
