@@ -229,7 +229,28 @@ Phases (each raises on failure; none is caught):
    steps (ms, tokens/s, bytes a rank sends, peak per rank beside the
    card's). (e) the reduced train CLI ``--arch qwen2.5-3b --mesh 2x2
    --backend gloo`` on the card, failing at step 5: its logged losses
-   equal ``--mesh 1x1``'s to the printed digits.
+   equal ``--mesh 1x1``'s to the printed digits. Then the other
+   families on (1, 2), each against its own one-rank yardstick run just
+   before (``TP_LAYERS`` cuts the depth): (f) mamba2-780m at 8 of 48
+   layers: the bf16 prefill (4, 8192), B7 counted on every rank (one
+   launch a layer) and each rank's first launch, on its own strided
+   ``[x of its heads, B, C]`` view of its projection, held to the plain
+   version on that view (bf16 bit for bit, an f32 copy within 1e-5), the
+   last logits held to 1.5x the one-rank bf16 prefill's own distance
+   from the one-rank f32 prefill (as (b)); 32 f32 teacher-forced decode
+   steps at batch 4 from a cache in ``cache_shardings``' blocks (conv
+   window by channels, state by heads) within 1e-3; a bf16 train step
+   (1, 4096), step 0's loss and gradient norm within 2e-2, step 1 timed
+   with two B7 launches a layer (remat's recompute); B7 then timed alone
+   at that view's geometry (the kernels line's tensor-parallel row). (g) recurrentgemma-9b at 8
+   of 38 layers: the bf16 prefill (1, 8192) within 2e-2 and 32 bf16
+   decode steps at batch 4 from the width-cut cache within 2e-2. (h)
+   whisper-small whole in f32: encode (4, 1500, 768) and the prefill at
+   tokens (4, 448) within 1e-4, 32 decode steps from the encoder's
+   cross K/V cut by heads within 1e-3; a bf16 train step at (8, 448)
+   with its frames, step 0 within 2e-2, step 1 timed. Each prints ms,
+   bytes a rank sends and peak per rank; the B1-B6 counters read 0
+   throughout, B7 only in (f)'s prefill and train step.
    Phase 3 (moe), after phase 3 (tp) (also alone with ``--moe``): the
    MoE family at full width, random init from seeded generators on the
    card, plain PyTorch (the reference computes the router, the dispatch
@@ -2979,9 +3000,12 @@ TP_MESH = ((1, 2), ("data", "model"))
 TP_SEQ_MESH = ((2, 2), ("data", "model"))
 TP_PREFILL = (1, 8192)
 # Depth cut to keep the whole script inside its time limit (full width;
-# llama3-8b has 32 layers, qwen2.5-3b 36): llama3-8b in (a) and (b),
-# qwen2.5-3b in (d), the yardstick and the ranks alike.
-TP_LAYERS = {"llama3-8b": 16, "qwen2.5-3b": 18}
+# llama3-8b has 32 layers, qwen2.5-3b 36, mamba2-780m 48,
+# recurrentgemma-9b 38): llama3-8b in (a) and (b), qwen2.5-3b in (d),
+# mamba2-780m in (f), recurrentgemma-9b in (g) (two super-blocks and two
+# tail blocks), the yardsticks and the ranks alike.
+TP_LAYERS = {"llama3-8b": 16, "qwen2.5-3b": 18, "mamba2-780m": 8,
+             "recurrentgemma-9b": 8}
 TP_DECODE = (4, 32)  # batch, teacher-forced steps from an empty cache
 TP_GEMMA_DECODE = (2, 32)
 TP_GEMMA_FORWARD = (1, 2048)
@@ -3353,12 +3377,507 @@ def tp_cli_on_card():
     print(f"    {done}")
 
 
+# Phase 3 (tp) parts (f)-(h): mamba2, the hybrid and whisper on TP_MESH,
+# each against its own one-rank yardstick run just before in this process
+# (kept in TP_YARD_DIR while the ranks run).
+TP_SSM_PREFILL = (4, 8192)  # bf16, the mamba2 phase's prefill
+TP_SSM_DECODE = (4, 32)  # f32, batch, teacher-forced steps
+TP_SSM_TRAIN = (1, 4096)  # bf16, train_4k's seq at a global batch of 1
+TP_HYBRID_PREFILL = (1, 8192)  # bf16
+TP_HYBRID_DECODE = (4, 32)  # bf16
+# whisper-small whole: encode and prefill at ENCDEC_BATCH, the decode
+# steps, in f32 (TF32 off); the train step at (ENCDEC_TRAIN_BATCH, 448)
+# in bf16
+TP_WHISPER_DECODE = 32
+# (f)'s bf16 prefill: at 2e-2 of max |logit| the first run (NVIDIA H100
+# 80GB HBM3, 700.00 W) measured 2.025e-2 from the one-rank bf16 prefill
+# (its other parts within 6.1e-6 in f32, B7 bit for bit on both ranks),
+# bf16's noise through 8 layers of the SSD's long memory. So it is held, as (b)'s bf16 decode is, to
+# TP_BF16_MULTIPLE times the one-rank bf16 prefill's own distance from
+# the one-rank f32 prefill, both against that f32 prefill; its distance
+# from the one-rank bf16 prefill is printed beside.
+
+
+def _tp_model_cfg(arch: str, dtype: str | None = None):
+    """``arch`` at phase 3 (tp)'s depth where ``TP_LAYERS`` cuts it, in
+    ``dtype`` (its own by default)."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config(arch)
+    if arch in TP_LAYERS:
+        cfg = dataclasses.replace(cfg, n_layers=TP_LAYERS[arch])
+    return dataclasses.replace(cfg, dtype=dtype or cfg.dtype)
+
+
+def _tp_family_batches(arch: str, dev):
+    """The inputs of (f)-(h), the same in the yardstick and every rank:
+    {part: batch}."""
+    import torch
+
+    cfg = _tp_model_cfg(arch)
+    if arch == "mamba2-780m":
+        prefill = _tp_tokens(cfg, TP_SSM_PREFILL, 11, dev)
+        decode = _tp_tokens(cfg, TP_SSM_DECODE, 12, dev)
+        train = _tp_tokens(cfg, (TP_SSM_TRAIN[0], TP_SSM_TRAIN[1] + 1), 13,
+                           dev)
+        return {"prefill": {"tokens": prefill}, "decode": decode,
+                "train": {"tokens": train[:, :-1], "labels": train[:, 1:]}}
+    if arch == "recurrentgemma-9b":
+        return {"prefill": {"tokens": _tp_tokens(cfg, TP_HYBRID_PREFILL, 14,
+                                                 dev)},
+                "decode": _tp_tokens(cfg, TP_HYBRID_DECODE, 15, dev)}
+    b, t = ENCDEC_BATCH, cfg.max_target_len
+    frames = _frames(cfg, b, dev, 16)
+    tokens = _tp_tokens(cfg, (b, t), 17, dev)
+    bt = ENCDEC_TRAIN_BATCH
+    train = _tp_tokens(cfg, (bt, t + 1), 18, dev)
+    return {"prefill": {"tokens": tokens, "frames": frames},
+            "decode": tokens[:, :TP_WHISPER_DECODE],
+            "train": {"tokens": train[:, :-1], "labels": train[:, 1:],
+                      "frames": _frames(cfg, bt, dev, 19).to(torch.bfloat16)}}
+
+
+def _tp_family_cache(arch: str, cfg, params, batch, dev):
+    """An empty decode cache for ``batch`` (this rank's block under an
+    installed rule set): whisper's from the encoder's output."""
+    from repro_torch.configs.registry import get_model
+    from repro_torch.models import encdec
+
+    if arch == "whisper-small":
+        return encdec.init_decode_cache(
+            params, cfg, encdec.encode(params, cfg, batch["frames"]))
+    b, steps = (TP_SSM_DECODE if arch == "mamba2-780m" else TP_HYBRID_DECODE)
+    return get_model(cfg).init_decode_cache(cfg, b, steps, device=dev)
+
+
+def tp_family_yardstick(arch: str, dev, directory: Path) -> dict:
+    """The one-rank runs (f)-(h) hold ``arch``'s ranks to, written to
+    ``directory``: the prefill's last logits (whisper: also the encoder's
+    output), the teacher-forced decode steps' logits and (mamba2,
+    whisper) step 0's loss and gradient norm; the model is freed after.
+    Returns the host times."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import get_model
+    from repro_torch.launch.steps import (
+        make_prefill_step,
+        make_serve_step,
+        make_train_step,
+    )
+    from repro_torch.models import encdec
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    directory.mkdir(parents=True, exist_ok=True)
+    serve_dtype = "float32" if arch == "whisper-small" else None
+    cfg = _tp_model_cfg(arch, serve_dtype)
+    api = get_model(cfg)
+    batches = _tp_family_batches(arch, dev)
+    params = api.init_params(cfg, seed=0, device=dev)
+    out = {}
+    with torch.no_grad():
+        prefill = make_prefill_step(cfg, device=dev)
+        prefill(params, batches["prefill"])  # warm-up
+        logits, out["prefill_ms"] = _tp_clock_one(
+            dev, lambda: prefill(params, batches["prefill"]))
+        np.save(directory / f"{arch}-prefill.npy", logits.cpu().numpy())
+        if arch == "mamba2-780m":
+            cfg32 = _tp_model_cfg(arch, "float32")
+            f32 = make_prefill_step(cfg32, device=dev)(params,
+                                                      batches["prefill"])
+            np.save(directory / f"{arch}-prefill_f32.npy", f32.cpu().numpy())
+            out["prefill_bf16_vs_f32"] = _tp_err(logits, f32.cpu().numpy())
+            del f32
+        if arch == "whisper-small":
+            enc, out["encode_ms"] = _tp_clock_one(
+                dev, lambda: encdec.encode(params, cfg,
+                                           batches["prefill"]["frames"]))
+            np.save(directory / f"{arch}-encode.npy", enc.cpu().numpy())
+            del enc
+        del logits
+    dcfg = _tp_model_cfg(arch, "float32") if arch == "mamba2-780m" else cfg
+    cache = _tp_family_cache(arch, dcfg, params, batches["prefill"], dev)
+    logits, out["decode_ms"] = _tp_decode(make_serve_step(dcfg, device=dev),
+                                          params, cache, batches["decode"])
+    np.save(directory / f"{arch}-decode.npy", logits.cpu().numpy())
+    del cache, logits
+    if "train" in batches:
+        tcfg = _tp_model_cfg(arch)
+        torch.cuda.reset_peak_memory_stats(dev)
+        step = make_train_step(tcfg, AdamWConfig(lr_peak=3e-4, warmup_steps=1,
+                                                 total_steps=2),
+                               device=dev, donate=True)
+        opt = adamw_init(params)
+        (params, opt, m), out["step0_ms"] = _tp_clock_one(
+            dev, lambda: step(params, opt, batches["train"]))
+        out["loss"], out["grad_norm"] = (float(m["loss"]),
+                                         float(m["grad_norm"]))
+        (params, opt, m), out["train_ms"] = _tp_clock_one(
+            dev, lambda: step(params, opt, batches["train"]))
+        out["train_peak"] = torch.cuda.max_memory_allocated(dev)
+        del opt
+    del params, batches
+    torch.cuda.empty_cache()
+    (directory / f"{arch}-yardstick.json").write_text(json.dumps(out))
+    return out
+
+
+def _tp_clock_one(dev, fn):
+    """(fn(), ms) on the host clock, one process."""
+    import torch
+
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize(dev)
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def _b7_view_check(x, w) -> dict:
+    """B7 (``ops.conv1d_depthwise``, as the path calls it) on the view
+    ``x`` a rank's prefill gave it, against the plain version on the same
+    view in bf16 (equal bit for bit) and on an f32 copy of the same
+    geometry (1e-5): the view's shape, row stride and offset, each
+    max |err|."""
+    import torch
+
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+
+    base = x._base if x._base is not None else x
+    if not base.is_contiguous():
+        raise AssertionError("B7's view: its base is not contiguous")
+    offset = x.storage_offset() - base.storage_offset()
+    rec = {"shape": tuple(x.shape), "row": x.stride(1), "offset": offset}
+    got, want = kops.conv1d_depthwise(x, w), ref.conv1d_depthwise(x, w)
+    rec["bf16_equal"] = bool(torch.equal(got, want))
+    rec["bf16_err"] = rel_err(got, want)[0]
+    xf = torch.as_strided(base.float(), x.shape, x.stride(), offset)
+    wf = w.float()
+    rec["f32_err"], rec["f32_rel"] = rel_err(kops.conv1d_depthwise(xf, wf),
+                                             ref.conv1d_depthwise(xf, wf))
+    return rec
+
+
+def tp_family_rank(mesh, arch: str, yard_dir: str):
+    """One rank of phase 3 (tp) (f)-(h) for ``arch`` on its blocks (the
+    seeded tree, cut by ``param_shardings``): the prefill through
+    ``make_prefill_step(mesh=)`` (a warm-up, then one timed; mamba2's B7
+    launches counted, its first launch's view kept and checked after),
+    the teacher-forced serve steps through ``make_serve_step(mesh=)``
+    from an empty cache block (whisper: the encoder's output and its
+    cross K/V first), and (mamba2, whisper) step 0 of
+    ``make_train_step(mesh=, donate=True)``, each held to the yardstick
+    on the host."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import get_model
+    from repro_torch.distrib import comm
+    from repro_torch.distrib import sharding as shlib
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.models import encdec
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    yard = Path(yard_dir)
+    serve_dtype = "float32" if arch == "whisper-small" else None
+    cfg = _tp_model_cfg(arch, serve_dtype)
+    api = get_model(cfg)
+    batches = _tp_family_batches(arch, dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    p_sh = shlib.param_shardings(api.abstract_params(cfg), mesh)
+    params = shlib.shard_tree(api.init_params(cfg, seed=0, device=dev), p_sh)
+    torch.cuda.empty_cache()
+    rec = {"held_gib": _bytes(params) / 2**30}
+    views = []
+    kernel = kops.conv1d_depthwise
+
+    def keep_first(x, w, **kw):
+        if not views:
+            views.append((x, w))
+        return kernel(x, w, **kw)
+
+    prefill = tsteps.make_prefill_step(cfg, mesh=mesh, device=dev)
+    with torch.no_grad():
+        kops.conv1d_depthwise = keep_first
+        try:
+            _reset_all_counts()
+            prefill(params, batches["prefill"])
+            rec["prefill_counts"] = _all_counts()
+        finally:
+            kops.conv1d_depthwise = kernel
+        comm.reset_counts()
+        logits, ms = _tp_clock(dev, lambda: prefill(params,
+                                                    batches["prefill"]))
+        rec["prefill_ms"] = ms
+        rec["prefill_bytes"] = comm.counts["bytes"]
+        rec["prefill_err"] = _tp_err(logits,
+                                     np.load(yard / f"{arch}-prefill.npy"))
+        if arch == "mamba2-780m":
+            rec["prefill_f32_err"] = _tp_err(
+                logits, np.load(yard / f"{arch}-prefill_f32.npy"))
+        rec["prefill_shape"] = tuple(logits.shape)
+        del logits
+        if views:
+            rec["view"] = _b7_view_check(*views[0])
+            views.clear()
+        if arch == "whisper-small":
+            with shlib.rules_context(mesh):
+                enc, rec["encode_ms"] = _tp_clock(dev, lambda: encdec.encode(
+                    params, cfg, batches["prefill"]["frames"]))
+            rec["encode_err"] = _tp_err(enc,
+                                        np.load(yard / f"{arch}-encode.npy"))
+            del enc
+    rec["prefill_peak"] = torch.cuda.max_memory_allocated(dev)
+    dcfg = (_tp_model_cfg(arch, "float32") if arch == "mamba2-780m"
+            else cfg)
+    with torch.no_grad(), shlib.rules_context(mesh):
+        cache = _tp_family_cache(arch, dcfg, params, batches["prefill"], dev)
+    rec["cache_block"] = {k: tuple(v.shape) for k, v in
+                          cache._asdict().items() if v.dim() > 0}
+    _reset_all_counts()
+    comm.reset_counts()
+    torch.distributed.barrier()
+    logits, rec["decode_ms"] = _tp_decode(
+        tsteps.make_serve_step(dcfg, mesh=mesh, device=dev), params, cache,
+        batches["decode"])
+    rec["decode_counts"] = _all_counts()
+    steps = batches["decode"].shape[1]
+    rec["decode_bytes"] = comm.counts["bytes"] // steps
+    rec["decode_err"] = _tp_worst(logits,
+                                  np.load(yard / f"{arch}-decode.npy"))
+    del cache, logits
+    if "train" in batches:
+        tcfg = _tp_model_cfg(arch)
+        step = tsteps.make_train_step(
+            tcfg, AdamWConfig(lr_peak=3e-4, warmup_steps=1, total_steps=2),
+            device=dev, mesh=mesh, donate=True)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        opt = adamw_init(params)
+        (params, opt, m), rec["step0_ms"] = _tp_clock(
+            dev, lambda: step(params, opt, batches["train"]))
+        rec["loss"], rec["grad_norm"] = float(m["loss"]), float(m["grad_norm"])
+        _reset_all_counts()
+        comm.reset_counts()
+        (params, opt, m), rec["train_ms"] = _tp_clock(
+            dev, lambda: step(params, opt, batches["train"]))
+        rec["train_counts"] = _all_counts()
+        rec["train_bytes"] = comm.counts["bytes"]
+        rec["train_peak"] = torch.cuda.max_memory_allocated(dev)
+        del opt
+    rec.update(_tp_held(dev))
+    return rec
+
+
+def tp_b7_row(dev, cfg, view: dict, launches: int, smi: str) -> dict:
+    """B7 alone at a tensor-parallel rank's view (its geometry from the
+    rank: ``view``), bf16, in this process with the card to itself:
+    held to its plain version, timed beside it and
+    ``F.conv1d(groups=c)``; the kernels line's row."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+
+    b, s, c = view["shape"]
+    k = cfg.ssm_conv_kernel
+    bw, f32_rate, _ = card_rates(torch.cuda.get_device_name(0))
+    x, w = conv_inputs((b, s, c), k, "bfloat16", dev, seed=29,
+                       row=view["row"], offset=view["offset"])
+    want = ref.conv1d_depthwise(x, w)
+    err, _ = rel_err(kops.conv1d_depthwise(x, w), want)
+    if not torch.equal(kops.conv1d_depthwise(x, w), want):
+        raise AssertionError("B7 at the tp view: not equal to plain")
+    ms = time_ms(lambda: kops.conv1d_depthwise(x, w), 20)
+    plain_ms = time_ms(lambda: ref.conv1d_depthwise(x, w), 5)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        xt = x.transpose(1, 2).contiguous()
+        wt = w.t().contiguous()[:, None, :]
+        lib_ms = time_ms(
+            lambda: F.conv1d(xt, wt, padding=k - 1, groups=c), 20)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    values = (b * (s + k - 1) + k) * c + b * s * c
+    t_bytes = values * x.element_size() / bw * 1e3
+    t_ops = 2 * k * b * s * c / f32_rate * 1e3
+    bound = max(t_bytes, t_ops)
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    print(f"  B7 at a tp rank's view {b}x{s}x{c} (row {view['row']}, "
+          f"offset {view['offset']}) k={k} bf16, the card to itself: kernel "
+          f"{ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound:.4f} ms ({by})"
+          f"  conv1d (groups=c, no TF32) {lib_ms:.4f} ms  max|err| {err:.3e}"
+          f" on {smi}")
+    del x, w, want, xt, wt
+    torch.cuda.empty_cache()
+    return {
+        "name": f"conv1d_depthwise[mamba2 tp rank xBC {b}x{s}x{c} of row "
+                f"{view['row']} k={k}, bfloat16, prefill on (1, 2)]",
+        "route": "cuda",
+        "source": CONV_SOURCE,
+        "replaces": CONV_REPLACES,
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound,
+        "bound_by": by,
+        "library_ms": lib_ms,
+    }
+
+
+def tp_families(dev, smi) -> list[dict]:
+    """(f)-(h) of phase 3 (tp): each family's yardstick, then its ranks on
+    ``TP_MESH``; checks and prints them. Returns the kernels line's B7
+    row."""
+    import shutil
+
+    import torch
+
+    from repro_torch.launch.mesh import run_on_mesh
+
+    out = {}
+    try:
+        for arch in ("mamba2-780m", "recurrentgemma-9b", "whisper-small"):
+            t0 = time.perf_counter()
+            yard = tp_family_yardstick(arch, dev, TP_YARD_DIR)
+            torch.cuda.empty_cache()
+            recs = run_on_mesh(tp_family_rank, *TP_MESH, backend="gloo",
+                               device=dev, args=(arch, str(TP_YARD_DIR)),
+                               timeout=900)
+            out[arch] = (yard, recs, time.perf_counter() - t0)
+    finally:
+        shutil.rmtree(TP_YARD_DIR, ignore_errors=True)
+    row = []
+    for arch, (yard, recs, secs) in out.items():
+        cfg = _tp_model_cfg(arch)
+        part = {"mamba2-780m": "f", "recurrentgemma-9b": "g"}.get(arch, "h")
+        print(f"  ({part}) {arch} at {cfg.n_layers} layers on (1, 2) "
+              f"({secs:.1f} s with its yardstick):")
+        ssm = arch == "mamba2-780m"
+        for rank, r in enumerate(recs):
+            b7 = r["prefill_counts"][0]
+            want_b7 = cfg.n_layers if ssm else 0
+            if r["prefill_counts"] != (want_b7, 0, 0):
+                raise AssertionError(f"{arch} rank {rank} prefill launches "
+                                     f"(B7, fused-stencil, xcorr1d) "
+                                     f"{r['prefill_counts']}")
+            if r["decode_counts"] != (0, 0, 0):
+                raise AssertionError(f"{arch} rank {rank} decode launches "
+                                     f"{r['decode_counts']}")
+            dec_tol = (TP_BF16_TOL if arch == "recurrentgemma-9b"
+                       else TP_F32_DECODE_TOL)
+            pre_tol = (TP_F32_FORWARD_TOL if arch == "whisper-small"
+                       else TP_BF16_TOL)
+            pre_dtype = "f32" if arch == "whisper-small" else "bf16"
+            if ssm:
+                own = yard["prefill_bf16_vs_f32"]
+                held = (f"from the one-rank f32 prefill "
+                        f"{r['prefill_f32_err']:.3e} of max |logit|, "
+                        f"{r['prefill_f32_err'] / own:.3f}x the one-rank bf16 "
+                        f"prefill's own {own:.3e} (limit "
+                        f"{TP_BF16_MULTIPLE}x); from the one-rank bf16 "
+                        f"prefill {r['prefill_err']:.3e}")
+                good = r["prefill_f32_err"] <= TP_BF16_MULTIPLE * own
+            else:
+                held = (f"within {r['prefill_err']:.3e} of max |logit| "
+                        f"(limit {pre_tol:.0e})")
+                good = r["prefill_err"] <= pre_tol
+            print(f"    rank {rank}: {r['held_gib']:.2f} GiB of f32 blocks; "
+                  f"prefill {tuple(_tp_family_shape(arch, cfg))} {pre_dtype} "
+                  f"logits {r['prefill_shape']} {held}; {r['prefill_ms']:.1f}"
+                  f" ms (one rank {yard['prefill_ms']:.1f}), "
+                  f"{r['prefill_bytes']} bytes sent, peak "
+                  f"{r['prefill_peak'] / 2**30:.2f} GiB; B7 launches "
+                  f"{b7} ({b7 // cfg.n_layers if ssm else 0} a layer)")
+            if not good:
+                raise AssertionError(f"{arch} rank {rank} prefill: {r}")
+            if arch == "whisper-small":
+                print(f"      encode ({ENCDEC_BATCH}, {cfg.encoder_seq}, "
+                      f"{cfg.d_model}) f32 within {r['encode_err']:.3e} "
+                      f"(limit {TP_F32_FORWARD_TOL:.0e}), {r['encode_ms']:.1f}"
+                      f" ms (one rank {yard['encode_ms']:.1f})")
+                if not r["encode_err"] <= TP_F32_FORWARD_TOL:
+                    raise AssertionError(f"whisper rank {rank} encode: {r}")
+            if "view" in r:
+                v = r["view"]
+                print(f"      B7 on this rank's view {v['shape']} (row "
+                      f"{v['row']}, offset {v['offset']}): bf16 "
+                      f"{'equal bit for bit' if v['bf16_equal'] else 'DIFFERS'}"
+                      f" to the plain version, f32 copy within "
+                      f"{v['f32_rel']:.3e} (limit {TOL['float32']:.0e})")
+                if not (v["bf16_equal"] and v["f32_rel"] <= TOL["float32"]):
+                    raise AssertionError(f"B7 at rank {rank}'s view: {v}")
+            steps = _tp_family_steps(arch)
+            dec = "f32" if arch != "recurrentgemma-9b" else "bf16"
+            print(f"      {steps} teacher-forced {dec} decode steps, cache "
+                  f"block {r['cache_block']}: worst step within "
+                  f"{r['decode_err']:.3e} (limit {dec_tol:.0e}), "
+                  f"{r['decode_ms']:.2f} ms a step (one rank "
+                  f"{yard['decode_ms']:.2f}), {r['decode_bytes']} bytes sent "
+                  "a step")
+            if not r["decode_err"] <= dec_tol:
+                raise AssertionError(f"{arch} rank {rank} decode: {r}")
+            if "loss" in r:
+                loss_rel = abs(r["loss"] - yard["loss"]) / abs(yard["loss"])
+                norm_rel = (abs(r["grad_norm"] - yard["grad_norm"])
+                            / abs(yard["grad_norm"]))
+                want_b7 = 2 * cfg.n_layers if ssm else 0
+                print(f"      train step {tuple(_tp_family_train(arch))} bf16 "
+                      f"step 0: loss {r['loss']:.4f} vs {yard['loss']:.4f} "
+                      f"(rel {loss_rel:.3e}), grad_norm {r['grad_norm']:.4f} "
+                      f"vs {yard['grad_norm']:.4f} (rel {norm_rel:.3e}; limit "
+                      f"{TP_BF16_TOL:.0e}); step 0 {r['step0_ms']:.1f} ms, "
+                      f"step 1 {r['train_ms']:.1f} ms (one rank "
+                      f"{yard['step0_ms']:.1f}, {yard['train_ms']:.1f}), "
+                      f"{r['train_bytes']} bytes sent in step 1, peak "
+                      f"{r['train_peak'] / 2**30:.2f} GiB (one rank "
+                      f"{yard['train_peak'] / 2**30:.2f}); B7 launches in "
+                      f"step 1 {r['train_counts'][0]}")
+                if not (loss_rel <= TP_BF16_TOL and norm_rel <= TP_BF16_TOL
+                        and r["train_counts"] == (want_b7, 0, 0)):
+                    raise AssertionError(f"{arch} rank {rank} train: {r}")
+            print(f"      the card {r['card_used'] / 2**30:.2f} of "
+                  f"{r['card_total'] / 2**30:.2f} GiB in use at the end")
+        if ssm:
+            row.append(tp_b7_row(dev, cfg, recs[0]["view"],
+                                 recs[0]["prefill_counts"][0], smi))
+    return row
+
+
+def _tp_family_shape(arch: str, cfg):
+    return {"mamba2-780m": TP_SSM_PREFILL,
+            "recurrentgemma-9b": TP_HYBRID_PREFILL}.get(
+                arch, (ENCDEC_BATCH, cfg.max_target_len))
+
+
+def _tp_family_steps(arch: str) -> int:
+    return {"mamba2-780m": TP_SSM_DECODE[1],
+            "recurrentgemma-9b": TP_HYBRID_DECODE[1]}.get(arch,
+                                                          TP_WHISPER_DECODE)
+
+
+def _tp_family_train(arch: str):
+    return TP_SSM_TRAIN if arch == "mamba2-780m" else (
+        ENCDEC_TRAIN_BATCH, 448)
+
+
 def phase_tp(dev, smi):
     """Phase 3 (tp): the tp profile's model axis at full width over gloo
     ranks sharing this card, each part against a one-rank yardstick
-    (``tp_yardstick``) run first in this process; plain PyTorch and
-    collectives (the reference's TP is GSPMD over plain ``jnp``): the
-    B1-B7 counters read 0 on every rank."""
+    (``tp_yardstick``, ``tp_family_yardstick``) run first in this
+    process; plain PyTorch and collectives (the reference's TP is GSPMD
+    over plain ``jnp``): the B1-B7 counters read 0 on every rank of
+    (a)-(e), and B7 alone runs in (f), mamba2's conv. Returns the
+    kernels line's row of B7 under tensor parallelism."""
     import os
     import shutil
 
@@ -3483,7 +4002,11 @@ def phase_tp(dev, smi):
         if r["losses"] != train[0]["losses"]:
             raise AssertionError("tp train: the ranks' losses differ")
     tp_cli_on_card()
-    print("  B1-B7 launches on every rank of every part: (0, 0, 0)")
+    print("  B1-B7 launches on every rank of (a)-(e): (0, 0, 0)")
+    rows = tp_families(dev, smi)
+    print("  B1-B6 launches on every rank of (f)-(h): 0; B7 only in (f)'s "
+          "prefill and train step")
+    return rows
 
 
 # The MoE family at full width (phase 3 (moe)): qwen3-moe-30b-a3b and
@@ -6510,7 +7033,8 @@ def main(argv: list[str]) -> int:
         timed("phase 3 (dense)", phase_dense, dev, smi)
         return 0
     if "--tp" in argv:
-        timed("phase 3 (tp)", phase_tp, dev, smi)
+        rows = timed("phase 3 (tp)", phase_tp, dev, smi)
+        print(json.dumps({"kernels": rows}))
         return 0
     if "--moe" in argv:
         timed("phase 3 (moe)", phase_moe, dev, smi)
@@ -6534,7 +7058,7 @@ def main(argv: list[str]) -> int:
                         launches, yard, one_cli)
     del yard
     timed("phase 3 (dense)", phase_dense, dev, smi)
-    timed("phase 3 (tp)", phase_tp, dev, smi)
+    train_rows += timed("phase 3 (tp)", phase_tp, dev, smi)
     timed("phase 3 (moe)", phase_moe, dev, smi)
     timed("phase 3 (hybrid)", phase_hybrid, dev, smi)
     timed("phase 3 (encdec)", phase_encdec, dev, smi)

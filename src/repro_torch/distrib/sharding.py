@@ -11,17 +11,19 @@ mapping, as in the reference:
               (``grad_sync``).
 * **TP**    — attention heads / FFN hidden / vocab over ``model``: the
               ``tp`` profile's rules below, as explicit Megatron tensor
-              parallelism for the dense, MoE and VLM families
-              (``models/transformer.py``; the MoE's experts over
-              ``model``, EP, or their hidden width, expert-TP, in
-              ``models/moe.py``): the model code reads the installed
-              rule set (:func:`model_axis`, :func:`leaf_cut`,
-              :func:`kv_cache_spec`) and calls the region operators
-              (:func:`into_region`, :func:`out_of_region`,
-              :func:`gather_for_compute`). Other families under ``tp``
-              with a ``model`` axis above one rank raise
-              (:func:`refuse_tensor_parallel`, ROADMAP A13-TP (ssm), A13-TP
-              (hybrid, audio)).
+              parallelism for every family: the dense, MoE and VLM
+              transformers (``models/transformer.py``; the MoE's
+              experts over ``model``, EP, or their hidden width,
+              expert-TP, in ``models/moe.py``), mamba2
+              (``models/ssm.py``), the hybrid (``models/hybrid.py``)
+              and whisper (``models/encdec.py``): the model code reads
+              the installed rule set (:func:`model_axis`,
+              :func:`leaf_held`, :func:`cache_spec`) and calls the
+              region operators (:func:`into_region`,
+              :func:`out_of_region`, :func:`gather_for_compute`,
+              :func:`region_slice`, :func:`row_parallel`). Each family
+              takes the cuts the reference's rules make as they match
+              its leaves, and no others.
               The MoE's groups are GSPMD's over the global batch: where
               one would span data-parallel ranks the FFN raises
               (:func:`batch_ranks`).
@@ -286,49 +288,6 @@ def batch_spec(name: str, shape: tuple[int, ...], mesh,
     else:
         wanted = (dp,) + (None,) * (len(shape) - 1)
     return safe_spec(tuple(shape), wanted, mesh)
-
-
-# The leaves the port cuts over ``model`` under the tp profile: the dense,
-# MoE and VLM transformer's (models/transformer.py, models/moe.py).
-_TP_PORTED = re.compile(
-    r"^(embed|unembed|blocks/(wq|wk|wv|bq|bk|bv|wo|w_gate|w_up|w_down"
-    r"|moe/(router|w_gate|w_up|w_down)))$")
-# The top-level keys of the hybrid's and whisper's trees. Their tensor
-# parallelism is not ported (ROADMAP A13-TP (hybrid, audio)): the
-# reference's rules for them name ``blocks_rec/*`` and ``wq_x`` ..
-# ``wo_x``, which no leaf of either tree is called, so they would cut
-# only some of their leaves (``embed``, whisper's ``w_in``/``w_out``).
-_NO_TP_TREES = ("super", "tail_rec", "enc_blocks")
-
-
-def refuse_tensor_parallel(params_shape: Any, mesh, *, profile: str = "tp",
-                           fsdp: bool = False) -> None:
-    """Raise ``NotImplementedError`` when the ``tp`` profile cuts a leaf
-    of ``params_shape`` over a ``model`` axis of more than one rank and
-    the port has no tensor-parallel form for it (``mesh``: a
-    ``DeviceMesh`` or {axis name: size}). The dense, MoE and VLM
-    families' leaves have one; mamba2's fused ``in_proj`` columns do not
-    (ROADMAP A13-TP (ssm)), nor does any leaf of the hybrid's or
-    whisper's trees (ROADMAP A13-TP (hybrid, audio))."""
-    sizes = mesh_axis_sizes(mesh)
-    if profile != "tp" or sizes.get("model", 1) == 1:
-        return
-    leaves = tree_leaves_with_path(params_shape)
-    other = any(path[0] in _NO_TP_TREES for path, _ in leaves)
-    for path, leaf in leaves:
-        name = path_str(path)
-        spec = param_spec(name, tuple(leaf.shape), mesh, fsdp=fsdp,
-                          profile=profile)
-        if (any("model" in _axes_tuple(a) for a in spec)
-                and (other or not _TP_PORTED.match(name))):
-            item = "A13-TP (hybrid, audio)" if other else "A13-TP (ssm)"
-            raise NotImplementedError(
-                f"the tp profile cuts {name} {tuple(leaf.shape)} as {spec} "
-                f"over a model axis of {sizes['model']} ranks: tensor "
-                "parallelism is ported for the dense, MoE and VLM families "
-                f"only; this model's is ROADMAP {item}; use profile='dp', "
-                "or a mesh whose model axis is 1"
-            )
 
 
 # --- placement on a DeviceMesh ---------------------------------------------------
@@ -600,16 +559,63 @@ def leaf_cut(path: str, shape: tuple[int, ...], unit: int = 1) -> LeafCut:
     return LeafCut(None, True)
 
 
+def leaf_held(path: str, shape: tuple[int, ...], unit: int = 1
+              ) -> tuple[str, int | None]:
+    """How this rank holds the parameter at ``path`` (its full
+    ``shape``) under the installed mesh's tp cut (:func:`leaf_cut`):
+    ``("cut", dim)``, its block of whole units of ``unit``;
+    ``("gather", dim)``, a block that splits a unit (joined whole for
+    the computation); or ``("whole", None)``."""
+    cut = leaf_cut(path, shape, unit)
+    if cut.dim is None:
+        return "whole", None
+    return ("cut" if cut.on_units else "gather"), cut.dim
+
+
+# The decode caches' rules (the reference's ``cache_shardings``,
+# ``repro.launch.steps:47``): wanted axes per dim, behind the layer
+# axis; a list holds candidates, the first one whose every axis divides
+# wins. ``kv``: a transformer's KV cache (b, L, g, dh), KV heads over
+# ``model``, else the sequence; ``heads``: the hybrid's KV ring and
+# whisper's self and cross K/V, by heads only; ``channels``: a conv
+# window (b, k-1, c) by channels (mamba2's xBC, the hybrid's width);
+# ``width``: the hybrid's RG-LRU state (b, w); ``ssm_state``: mamba2's
+# (b, h, n, p) by heads.
+_DP = ("pod", "data")
+CACHE_RULES: dict[str, tuple | list] = {
+    "kv": [(None, _DP, None, "model", None), (None, _DP, "model", None, None)],
+    "heads": (None, _DP, None, "model", None),
+    "channels": (None, _DP, None, "model"),
+    "width": (None, _DP, "model"),
+    "ssm_state": (None, _DP, "model", None, None),
+}
+
+
+def cache_spec(rule: str, shape: tuple[int, ...], mesh) -> tuple:
+    """The spec of a stacked decode-cache leaf of ``shape`` (layer axis
+    first) under :data:`CACHE_RULES`' ``rule``. As in the reference, a
+    candidate counts only where every axis it names is above one rank
+    and divides its dim, so on a mesh whose data axis is 1 a KV cache
+    is cut by heads or not at all."""
+    return safe_spec(shape, CACHE_RULES[rule], mesh)
+
+
 def kv_cache_spec(shape: tuple[int, ...], mesh) -> tuple:
     """The spec of a stacked KV cache leaf ``(n_layers, b, L, g, dh)``:
-    the reference's ``cache_shardings`` rule (``repro.launch.steps:47``),
-    the tp profile's ``cache_blgd`` candidates behind the layer axis:
-    KV heads over ``model``, else the sequence. As in the reference, a
-    candidate counts only where every axis it names is above one rank
-    and divides its dim, so on a mesh whose data axis is 1 the cache is
-    cut by heads or not at all."""
-    return safe_spec(shape, [(None,) + tuple(c)
-                             for c in DEFAULT_ACT_RULES["cache_blgd"]], mesh)
+    KV heads over ``model``, else the sequence (:func:`cache_spec`'s
+    ``kv`` rule, the tp profile's ``cache_blgd`` candidates behind the
+    layer axis)."""
+    return cache_spec("kv", shape, mesh)
+
+
+def cache_block(rule: str, shape: tuple[int, ...]) -> tuple[int, ...]:
+    """This rank's block shape of a ``shape`` cache leaf under ``rule``
+    on the installed mesh where :func:`model_axis` is set (``shape``
+    itself otherwise, as the model then runs as on one card)."""
+    axis = model_axis()
+    if axis is None:
+        return tuple(shape)
+    return block_shape(shape, cache_spec(rule, shape, axis.mesh), axis.mesh)
 
 
 def block_shape(shape: tuple[int, ...], spec: tuple, mesh) -> tuple:
@@ -688,6 +694,49 @@ def gather_for_compute(x: torch.Tensor, axis: ModelAxis, dim: int
     ``model``, joined whole for the computation (all-gather); its
     gradient reduce-scattered back into the block."""
     return _GatherForCompute.apply(x, axis.group, dim % x.dim())
+
+
+def region_whole(w: torch.Tensor, axis: ModelAxis, held: str, dim: int
+                 ) -> torch.Tensor:
+    """A parameter used by each rank for its own part inside a region,
+    whole: gathered along ``dim`` where this rank holds a block (``held``
+    ``"cut"`` or ``"gather"``; its gradient reduce-scattered back), else
+    entered by :func:`into_region` (its gradient, partial on each rank,
+    summed over ``model``)."""
+    if held == "whole":
+        return into_region(w, axis)
+    return gather_for_compute(w, axis, dim)
+
+
+def region_slice(w: torch.Tensor, axis: ModelAxis, held: str, dim: int,
+                 lo: int, n: int) -> torch.Tensor:
+    """``[lo, lo + n)`` along ``dim`` (global positions) of a parameter
+    used inside a region: from this rank's block where ``held`` is
+    ``"cut"`` (the block of equal parts holds the range), else from
+    :func:`region_whole`."""
+    if held == "cut":
+        lo -= axis.index * w.shape[dim]
+    else:
+        w = region_whole(w, axis, held, dim)
+    return w.narrow(dim, lo, n)
+
+
+def row_parallel(x: torch.Tensor, w: torch.Tensor, axis: ModelAxis
+                 ) -> torch.Tensor:
+    """``x @ w`` where ``w`` is this rank's block of rows and ``x`` their
+    columns: each rank's partial product with a float32 result, summed
+    over ``model`` in float32 and rounded once to ``x``'s dtype, as one
+    card's product rounds its float32 accumulator once (bf16 partial
+    sums, each rounded before the sum, drift over the layers)."""
+    return out_of_region(x.float() @ w.float(), axis).to(x.dtype)
+
+
+def model_sum(x: torch.Tensor, axis: ModelAxis) -> torch.Tensor:
+    """The ranks' partial ``x`` summed over ``model`` where every rank
+    goes on with the sum for its own part: all-reduced forward and
+    backward (:func:`out_of_region` after :func:`into_region`), as a
+    norm's sum of squares over a cut width is."""
+    return out_of_region(into_region(x, axis), axis)
 
 
 def model_max(x: torch.Tensor, axis: ModelAxis) -> torch.Tensor:

@@ -7,12 +7,12 @@ PyTorch runs eagerly, so there is no jit. ``jit_train_step``'s
 semantics (GSPMD over a mesh with the reference's shardings) become
 ``make_train_step(..., mesh=...)``: every rank of a
 ``torch.distributed`` mesh (``launch.mesh``) holds its blocks of the
-parameters (``train_shardings``: the ``tp`` profile cuts heads, FFN
-hidden and vocab over ``model``, ``fsdp=True`` adds ZeRO cuts over
-``data``), takes its rows of the global batch (ranks that differ only
-in ``model`` take the same rows), computes its gradient under the
-profile's rule set (tensor parallelism inside the model, ``models/
-transformer.py``) and joins the data-parallel sum (``distrib.
+parameters (``train_shardings``: the ``tp`` profile cuts what the
+reference's rules match over ``model``, ``fsdp=True`` adds ZeRO cuts
+over ``data``), takes its rows of the global batch (ranks that differ
+only in ``model`` take the same rows), computes its gradient under the
+profile's rule set (tensor parallelism inside each family's model
+code) and joins the data-parallel sum (``distrib.
 grad_sync``). ``make_prefill_step(..., mesh=)`` and
 ``make_serve_step(..., mesh=)`` are ``jit_prefill_step`` and
 ``jit_serve_step``: this rank's parameter blocks (and cache block, by
@@ -33,6 +33,8 @@ from repro_torch.distrib import comm
 from repro_torch.distrib import sharding as shlib
 from repro_torch.distrib.grad_sync import global_norm, sync_grads
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.encdec import EncDecCache
+from repro_torch.models.hybrid import HybridCache
 from repro_torch.models.layers import KVCache
 from repro_torch.models.ssm import SSMCache
 from repro_torch.optim import AdamWConfig, OptState, adamw_update
@@ -88,42 +90,43 @@ def train_shardings(cfg: ModelConfig, mesh, *, profile: str = "tp",
     ``mesh``, as the reference's ``jit_train_step`` returns them: trees
     of ``distrib.sharding.NamedSharding`` from ``param_spec`` over the
     model's abstract parameters; the moments mirror the parameters, the
-    step count is replicated.
-
-    Raises:
-        NotImplementedError: when the ``tp`` profile cuts a leaf of a
-            family without tensor parallelism (mamba2: ROADMAP A13-TP
-            (ssm); the hybrid and whisper: ROADMAP A13-TP (hybrid,
-            audio)) over a ``model`` axis of more than one rank.
-    """
+    step count is replicated. Every family has a tensor-parallel form
+    for the ``tp`` profile's cuts over ``model``."""
     abstract = get_model(cfg).abstract_params(cfg)
-    shlib.refuse_tensor_parallel(abstract, mesh, profile=profile, fsdp=fsdp)
     p_sh = shlib.param_shardings(abstract, mesh, fsdp=fsdp, profile=profile)
     return p_sh, OptState(step=shlib.NamedSharding(mesh, ()), mu=p_sh,
                           nu=p_sh)
 
 
-def cache_shardings(cache, mesh) -> KVCache:
+def cache_shardings(cache, mesh):
     """The decode cache's shardings on ``mesh`` (the reference's
-    ``cache_shardings``, ``repro.launch.steps:47``): the KV cache's k
-    and v by KV heads over ``model``, else by sequence
-    (``sharding.kv_cache_spec``), the batch over ``(pod, data)``; the
-    length replicated. ``cache`` may hold meta tensors.
+    ``cache_shardings``, ``repro.launch.steps:47``), a cache of the same
+    type whose leaves are ``NamedSharding``: the batch over ``(pod,
+    data)`` and, over ``model``, a transformer's KV cache by KV heads,
+    else by sequence; mamba2's conv window by channels and its state by
+    heads; the hybrid's RG-LRU state and conv window by width, its KV
+    ring by heads (whole where one KV head does not split); whisper's
+    self and cross K/V by heads (``sharding.CACHE_RULES``). The length
+    is replicated. ``cache`` may hold meta tensors.
 
     Raises:
-        NotImplementedError: for the SSM cache (ROADMAP A13-TP (ssm)) and
-            the hybrid and encoder-decoder caches (ROADMAP A13-TP
-            (hybrid, audio)).
+        TypeError: for a cache of no model family.
     """
-    if not isinstance(cache, KVCache):
-        item = ("A13-TP (ssm)" if isinstance(cache, SSMCache)
-                else "A13-TP (hybrid, audio)")
-        raise NotImplementedError(
-            f"cache_shardings for {type(cache).__name__}: the port cuts the "
-            f"transformers' KV cache only; this one is ROADMAP {item}")
-    kv = shlib.NamedSharding(mesh, shlib.kv_cache_spec(
-        tuple(cache.k.shape), mesh))
-    return KVCache(k=kv, v=kv, length=shlib.NamedSharding(mesh, ()))
+    rules = {
+        KVCache: {"k": "kv", "v": "kv"},
+        SSMCache: {"conv": "channels", "state": "ssm_state"},
+        HybridCache: {"lru_h": "width", "conv": "channels", "k": "heads",
+                      "v": "heads"},
+        EncDecCache: {"k": "heads", "v": "heads", "xk": "heads",
+                      "xv": "heads"},
+    }.get(type(cache))
+    if rules is None:
+        raise TypeError(f"no cache rule for {type(cache).__name__}")
+    return type(cache)(**{
+        name: shlib.NamedSharding(mesh, () if name not in rules else
+                                  shlib.cache_spec(rules[name],
+                                                   tuple(leaf.shape), mesh))
+        for name, leaf in cache._asdict().items() if leaf is not None})
 
 
 def _rule_set(mesh, profile: str = "tp"):
@@ -255,18 +258,13 @@ def make_prefill_step(cfg: ModelConfig, *, mesh=None,
     blocks (``shard_tree`` of ``param_shardings``, the ``tp`` profile),
     ``batch`` its rows, and the forward runs under the ``tp`` rule set;
     the last position's logits are gathered over ``model`` once, so
-    every rank returns its rows' whole-vocab logits.
-
-    Raises:
-        NotImplementedError: for mamba2 (ROADMAP A13-TP (ssm)), the
-            hybrid and whisper (ROADMAP A13-TP (hybrid, audio)) with a
-            ``model`` axis above one rank.
+    every rank returns its rows' whole-vocab logits. Whisper's
+    ``frames`` are this rank's rows too; its encoder runs under the rule
+    set as well.
     """
     api = get_model(cfg)
     dev = resolve_device(device)
     conv = _conv_switch(use_pallas_conv)
-    if mesh is not None:
-        shlib.refuse_tensor_parallel(api.abstract_params(cfg), mesh)
 
     def prefill_step(params, batch):
         extra = {k: batch[k] for k in ("positions", "patch_embeds", "frames")
@@ -288,16 +286,11 @@ def make_serve_step(cfg: ModelConfig, *, mesh=None,
     blocks, ``cache`` its block (``init_decode_cache`` under the ``tp``
     rule set, or ``shard_tree`` of :func:`cache_shardings`), ``batch``
     its rows; the logits are gathered over ``model`` once, at the end.
-
-    Raises:
-        NotImplementedError: for mamba2 (ROADMAP A13-TP (ssm)), the
-            hybrid and whisper (ROADMAP A13-TP (hybrid, audio)) with a
-            ``model`` axis above one rank.
+    Whisper's cache (cross K/V included) is ``encdec.init_decode_cache``
+    of the encoder's output, both under the rule set.
     """
     api = get_model(cfg)
     dev = resolve_device(device)
-    if mesh is not None:
-        shlib.refuse_tensor_parallel(api.abstract_params(cfg), mesh)
 
     def serve_step(params, cache, batch):
         with _rule_set(mesh):

@@ -1,7 +1,7 @@
 """Training entry point (port of ``repro.launch.train``): a language
 model of the registry (mamba2-780m by default; the dense, MoE and
-hybrid transformers and the VLM with ``--arch``) on one card or
-data-parallel over a mesh of ranks, fault-tolerant. The
+hybrid transformers and the VLM with ``--arch``) on one card or data-
+and tensor-parallel over a mesh of ranks, fault-tolerant. The
 encoder-decoder (whisper-small) exits with the reference's
 ``SystemExit``.
 
@@ -20,11 +20,11 @@ encoder-decoder (whisper-small) exits with the reference's
         --device cpu --backend gloo --mesh 2x1
 
     # tensor-parallel (the tp profile's model axis) over two CPU ranks,
-    # and tensor x data parallel over four:
+    # and tensor x data parallel over four (any arch but whisper-small):
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \\
         --reduced --device cpu --backend gloo --mesh 1x2
-    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \\
-        --reduced --device cpu --backend gloo --mesh 2x2
+    PYTHONPATH=src python -m repro_torch.launch.train --reduced \\
+        --device cpu --backend gloo --mesh 2x2
 
 The loop is the reference's: ``MarkovLMDataset`` batches by step number
 (``BatchIterator``), ``make_train_step`` (``lm_loss``'s gradient, for
@@ -39,12 +39,12 @@ fewer cards) or ``gloo`` (CPU ranks with ``--device cpu``, or several
 ranks sharing a card: correctness and costs, never a scaling figure).
 The step runs the reference's ``tp`` profile: each rank takes its rows
 of every global batch (the batch over ``(pod, data)``), and a ``model``
-axis above 1 cuts the dense and VLM archs' heads, FFN hidden and vocab
-over its ranks (tensor parallelism; each rank keeps its blocks of the
-seeded parameters); the ranks join the gradient sum over ``(pod,
-data)``. Checkpoints hold whole leaves. Rank 0 prints. mamba2 with a
-``model`` axis above 1 raises ``NotImplementedError`` (ROADMAP A13-TP
-(ssm)), and so does the hybrid (ROADMAP A13-TP (hybrid, audio)).
+axis above 1 cuts what the reference's rules cut over its ranks
+(tensor parallelism; each rank keeps its blocks of the seeded
+parameters): the dense, MoE and VLM archs' heads, FFN hidden and vocab,
+mamba2's ``in_proj`` columns, conv taps and heads, the hybrid's
+embeddings; the ranks join the gradient sum over ``(pod, data)``.
+Checkpoints hold whole leaves. Rank 0 prints.
 """
 from __future__ import annotations
 
@@ -112,8 +112,6 @@ def main(argv: list[str] | None = None) -> None:
             "an encoder-decoder's batch carries frames: train it through "
             "repro_torch.launch.steps.make_train_step"
         )
-    shlib.refuse_tensor_parallel(get_model(cfg).abstract_params(cfg),
-                                 dict(zip(axes, shape)))
     if world == 1:
         _train(None, vars(args))
         return

@@ -24,6 +24,21 @@ recurrent blocks for ``n_layers % 3``. Every op is plain PyTorch: the
 reference computes this family in ``jnp`` outside any Pallas kernel.
 A recurrent block's conv and RG-LRU (gates and scan) run under the
 ``torch.profiler`` ranges ``hybrid.conv`` and ``hybrid.rg_lru``.
+
+Tensor parallelism (the ``tp`` profile's ``model`` axis, installed by
+``distrib.sharding.set_rules`` / ``rules_context``): the reference's
+``PARAM_RULES`` cut only ``embed`` (by vocab) and ``unembed`` (on
+d_model, as ``embed$`` matches it first) of this tree; its
+``blocks_rec/*`` rules match no leaf, so every ``super/*`` and
+``tail_rec/*`` leaf is whole on every rank. Each rank holds those
+blocks, looks the tokens up vocab-parallel and takes its vocab columns
+of the logits (``transformer.embed_tokens``, ``transformer.tp_logits``),
+and computes every layer whole, as GSPMD does with whole leaves. The
+decode cache stays in the reference's ``cache_shardings`` blocks
+between steps: the RG-LRU state and conv window by width (each step
+gathers a layer's blocks, computes the layer whole and keeps this
+rank's width), the KV ring whole (one KV head does not split; a ring cut
+by heads is gathered the same way).
 """
 from __future__ import annotations
 
@@ -35,6 +50,7 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 
 from repro_torch import as_dtype, resolve_device
+from repro_torch.distrib import sharding as shlib
 from repro_torch.kernels import ref as kref
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as tr
@@ -275,16 +291,44 @@ def att_block(x: torch.Tensor, blk: Params, cfg: ModelConfig, cos, sin
 # --- forward -----------------------------------------------------------------
 
 
-def _embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor):
-    """The embedding in the compute dtype times √d_model (gemma-style)."""
+class _TP(NamedTuple):
+    """The installed ``model`` axis and how this rank holds ``embed`` and
+    ``unembed`` (``sharding.leaf_held``: (how, dim))."""
+
+    axis: shlib.ModelAxis
+    embed: tuple
+    unembed: tuple
+
+
+def _tp_plan(cfg: ModelConfig) -> _TP | None:
+    """None without a ``tp`` rule set on a ``model`` axis above one
+    rank."""
+    axis = shlib.model_axis()
+    if axis is None:
+        return None
+    return _TP(axis, shlib.leaf_held("embed", (cfg.vocab, cfg.d_model)),
+               shlib.leaf_held("unembed", (cfg.d_model, cfg.vocab)))
+
+
+def _embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+           tp: _TP | None = None):
+    """The embedding in the compute dtype times √d_model (gemma-style);
+    vocab-parallel where ``tp`` cuts it."""
     dtype = as_dtype(cfg.dtype)
-    x = params["embed"][tokens].to(dtype)
+    axis = tp.axis if tp is not None and tp.embed[0] != "whole" else None
+    x = tr.embed_tokens(params["embed"], tokens, dtype, axis)
     return x * torch.tensor(cfg.d_model**0.5, dtype=dtype, device=x.device)
 
 
-def _unembed(params: Params, cfg: ModelConfig, x: torch.Tensor):
+def _unembed(params: Params, cfg: ModelConfig, x: torch.Tensor,
+             tp: _TP | None = None):
+    """The final norm, then the logits: this rank's vocab columns where
+    ``tp`` cuts ``unembed`` (``transformer.tp_logits``)."""
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x @ params["unembed"].to(x.dtype)
+    w = params["unembed"].to(x.dtype)
+    if tp is None or tp.unembed[0] == "whole":
+        return x @ w
+    return tr.tp_logits(x, w, tp.axis, rows=tp.unembed[1] == 0)
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor):
@@ -292,10 +336,12 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor):
     aux loss). Each super-block runs through ``transformer.remat_body``
     under ``cfg.remat`` (the reference's ``jax.checkpoint`` with
     ``dots_with_no_batch_dims_saveable``); the tail outside it, as
-    there."""
+    there. Under an installed ``tp`` rule set ``params`` are this rank's
+    blocks and the logits its vocab columns where they are cut."""
     dtype = as_dtype(cfg.dtype)
     b, s = tokens.shape
-    x = _embed(params, cfg, tokens)
+    tp = _tp_plan(cfg)
+    x = _embed(params, cfg, tokens, tp)
     positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
     cos, sin = L.rope_cos_sin(positions, cfg.hd, cfg.rope_theta)
 
@@ -308,7 +354,7 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor):
     x = _layers(tr.remat_body(super_block, cfg.remat), x, params["super"])
     x = _layers(lambda xc, blk: rec_block(xc, tr.cast_params(blk, dtype), cfg),
                 x, params["tail_rec"])
-    logits = _unembed(params, cfg, x)
+    logits = _unembed(params, cfg, x, tp)
     return logits, torch.zeros((), dtype=f32, device=logits.device)
 
 
@@ -323,9 +369,12 @@ def _layers(block, x, stacked):
 
 def lm_loss(params: Params, cfg: ModelConfig, batch: dict):
     """(next-token cross-entropy of ``batch["tokens"]`` against
-    ``batch["labels"]`` under the optional ``loss_mask``, {"xent"})."""
+    ``batch["labels"]`` under the optional ``loss_mask``, {"xent"});
+    vocab-parallel where the logits are cut."""
     logits, _ = forward(params, cfg, batch["tokens"])
-    loss = L.token_xent(logits, batch["labels"], batch.get("loss_mask"))
+    cut = logits.shape[-1] < cfg.vocab
+    loss = L.token_xent(logits, batch["labels"], batch.get("loss_mask"),
+                        vocab_axis=_tp_plan(cfg).axis if cut else None)
     return loss, {"xent": loss}
 
 
@@ -338,22 +387,44 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
     """An empty decode cache on ``device`` (the card by default): the
     recurrent state and conv window in float32, a KV ring of
     ``min(local_window, max_len)`` slots in the compute dtype, so its
-    size stops growing with ``max_len`` at the window."""
+    size stops growing with ``max_len`` at the window. Under an
+    installed ``tp`` rule set, this rank's block by the reference's
+    ``cache_shardings`` rules: the state and conv window by width, the
+    ring by KV heads (whole for one), the batch over the data axes."""
     dev = resolve_device(device)
     n_super, n_tail, n_att = split_layers(cfg.n_layers, cfg.hybrid_pattern)
     n_rec = 2 * n_super + n_tail
     w = cfg.lru_width or cfg.d_model
     window = min(cfg.local_window, max_len)
-    kv = (n_att, batch, window, cfg.n_kv_heads, cfg.hd)
+    kv = shlib.cache_block(
+        "heads", (n_att, batch, window, cfg.n_kv_heads, cfg.hd))
     kv_dtype = as_dtype(cfg.dtype)
     return HybridCache(
-        lru_h=torch.zeros((n_rec, batch, w), dtype=f32, device=dev),
-        conv=torch.zeros((n_rec, batch, cfg.ssm_conv_kernel - 1, w),
-                         dtype=f32, device=dev),
+        lru_h=torch.zeros(shlib.cache_block("width", (n_rec, batch, w)),
+                          dtype=f32, device=dev),
+        conv=torch.zeros(shlib.cache_block(
+            "channels", (n_rec, batch, cfg.ssm_conv_kernel - 1, w)),
+            dtype=f32, device=dev),
         k=torch.zeros(kv, dtype=kv_dtype, device=dev),
         v=torch.zeros(kv, dtype=kv_dtype, device=dev),
         length=torch.zeros((), dtype=torch.int32, device=dev),
     )
+
+
+def _joined(tp: _TP | None, t: torch.Tensor, dim: int, whole: int):
+    """A cache block ``t`` joined whole along ``dim`` (``whole`` entries)
+    where ``tp`` cuts it there; ``t`` itself otherwise."""
+    if tp is None or t.shape[dim] == whole:
+        return t
+    return shlib.gather_for_compute(t, tp.axis, dim)
+
+
+def _mine(tp: _TP | None, t: torch.Tensor, dim: int, held: int):
+    """This rank's block (``held`` entries along ``dim``) of the whole
+    ``t``."""
+    if tp is None or t.shape[dim] == held:
+        return t
+    return t.narrow(dim, tp.axis.index * held, held)
 
 
 def _rec_step(xc, blk, cfg: ModelConfig, lru_h, conv_st):
@@ -400,21 +471,30 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     → (logits (b, vocab) in ``cfg.dtype``, the next cache). The layers
     in the forward's order (each super-block's rec1, rec2, att, then the
     tail), the recurrent state indexed in that order. Runs on the device
-    without reading the length back to the host."""
+    without reading the length back to the host. Under an installed
+    ``tp`` rule set ``params`` and ``cache`` are this rank's blocks: each
+    layer's cache blocks are gathered, the layer computed whole and this
+    rank's blocks kept; the logits are its vocab columns where cut."""
     dtype = as_dtype(cfg.dtype)
     b = tokens.shape[0]
-    x = _embed(params, cfg, tokens)
+    tp = _tp_plan(cfg)
+    x = _embed(params, cfg, tokens, tp)
     length = cache.length.long()
     cos, sin = L.rope_cos_sin(length.expand(b, 1), cfg.hd, cfg.rope_theta)
 
     n_super, n_tail, _ = split_layers(cfg.n_layers, cfg.hybrid_pattern)
     new_h, new_conv, new_k, new_v = [], [], [], []
 
+    w = cfg.lru_width or cfg.d_model
+    g = cfg.n_kv_heads
+
     def rec(x, blk):
         ri = len(new_h)
-        x, h1, c1 = _rec_step(x, blk, cfg, cache.lru_h[ri], cache.conv[ri])
-        new_h.append(h1)
-        new_conv.append(c1)
+        h0, c0 = cache.lru_h[ri], cache.conv[ri]
+        x, h1, c1 = _rec_step(x, blk, cfg, _joined(tp, h0, -1, w),
+                              _joined(tp, c0, -1, w))
+        new_h.append(_mine(tp, h1, -1, h0.shape[-1]))
+        new_conv.append(_mine(tp, c1, -1, c0.shape[-1]))
         return x
 
     for si in range(n_super):
@@ -422,14 +502,16 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                              dtype)
         x = rec(x, sup["rec1"])
         x = rec(x, sup["rec2"])
-        x, k1, v1 = _att_step(x, sup["att"], cfg, cache.k[si], cache.v[si],
-                              length, cos, sin)
-        new_k.append(k1)
-        new_v.append(v1)
+        held = cache.k.shape[3]
+        x, k1, v1 = _att_step(x, sup["att"], cfg,
+                              _joined(tp, cache.k[si], 2, g),
+                              _joined(tp, cache.v[si], 2, g), length, cos, sin)
+        new_k.append(_mine(tp, k1, 2, held))
+        new_v.append(_mine(tp, v1, 2, held))
     for t in range(n_tail):
         x = rec(x, tr.cast_params(
             tree_map(lambda p: p[t], params["tail_rec"]), dtype))
-    logits = _unembed(params, cfg, x)
+    logits = _unembed(params, cfg, x, tp)
     return logits[:, 0], HybridCache(
         lru_h=torch.stack(new_h), conv=torch.stack(new_conv),
         k=torch.stack(new_k), v=torch.stack(new_v),

@@ -292,11 +292,8 @@ def _tp_plan(cfg: ModelConfig) -> _TP | None:
     leaf, dims = {}, {}
     for path, shape in shapes.items():
         name = path.removeprefix("blocks/")
-        cut = shlib.leaf_cut(path, shape,
-                             cfg.hd if name in _HEAD_LEAVES else 1)
-        leaf[name] = ("whole" if cut.dim is None else
-                      "cut" if cut.on_units else "gather")
-        dims[name] = cut.dim
+        leaf[name], dims[name] = shlib.leaf_held(
+            path, shape, cfg.hd if name in _HEAD_LEAVES else 1)
     h, g, m, r = cfg.n_heads, cfg.n_kv_heads, axis.size, axis.index
     attn = leaf["wo"] != "whole"
     q = (r * h // m, (r + 1) * h // m) if leaf["wq"] == "cut" else (0, h)
@@ -310,20 +307,14 @@ def _tp_plan(cfg: ModelConfig) -> _TP | None:
     return plans[cfg]
 
 
-def _heads_of(tp: _TP, w: torch.Tensor, name: str, n: int, heads, hd: int):
+def _heads_of(tp: _TP, w: torch.Tensor, name: str, heads, hd: int):
     """The last-dim columns of ``heads`` (a global [lo, hi)) of the
-    per-layer leaf ``name`` (``n`` heads of ``hd``): from this rank's
-    block where it holds them, else from the whole leaf (gathered when
-    cut mid-head; summed over ``model`` in the backward when whole)."""
-    first = 0
-    if tp.leaf[name] == "cut":
-        first = tp.axis.index * (n // tp.axis.size)
-    elif tp.leaf[name] == "gather":
-        w = shlib.gather_for_compute(w, tp.axis, -1)
-    else:
-        w = shlib.into_region(w, tp.axis)
+    per-layer leaf ``name`` (heads of ``hd``): from this rank's block
+    where it holds them, else from the whole leaf (gathered when cut
+    mid-head; summed over ``model`` in the backward when whole)."""
     lo, hi = heads
-    return w.narrow(-1, (lo - first) * hd, (hi - lo) * hd)
+    return shlib.region_slice(w, tp.axis, tp.leaf[name], -1, lo * hd,
+                              (hi - lo) * hd)
 
 
 def _qkv_tp(x, blk, cfg: ModelConfig, tp: _TP, kv: tuple[int, int]):
@@ -331,14 +322,14 @@ def _qkv_tp(x, blk, cfg: ModelConfig, tp: _TP, kv: tuple[int, int]):
     the attention region."""
     b, s, _ = x.shape
     x = shlib.into_region(x, tp.axis)
-    h, g, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = x @ _heads_of(tp, blk["wq"], "wq", h, tp.q, hd)
-    k = x @ _heads_of(tp, blk["wk"], "wk", g, kv, hd)
-    v = x @ _heads_of(tp, blk["wv"], "wv", g, kv, hd)
+    hd = cfg.hd
+    q = x @ _heads_of(tp, blk["wq"], "wq", tp.q, hd)
+    k = x @ _heads_of(tp, blk["wk"], "wk", kv, hd)
+    v = x @ _heads_of(tp, blk["wv"], "wv", kv, hd)
     if cfg.qkv_bias:
-        q = q + _heads_of(tp, blk["bq"], "bq", h, tp.q, hd)
-        k = k + _heads_of(tp, blk["bk"], "bk", g, kv, hd)
-        v = v + _heads_of(tp, blk["bv"], "bv", g, kv, hd)
+        q = q + _heads_of(tp, blk["bq"], "bq", tp.q, hd)
+        k = k + _heads_of(tp, blk["bk"], "bk", kv, hd)
+        v = v + _heads_of(tp, blk["bv"], "bv", kv, hd)
     q = q.reshape(b, s, -1, hd)
     k = k.reshape(b, s, -1, hd)
     v = v.reshape(b, s, -1, hd)
@@ -357,15 +348,6 @@ def _kv_for_q(tp: _TP, t: torch.Tensor, first: int) -> torch.Tensor:
     return t.index_select(2, index)
 
 
-def _row_parallel(x: torch.Tensor, w: torch.Tensor, tp: _TP) -> torch.Tensor:
-    """``x @ w`` where ``w`` is this rank's block of rows and ``x`` their
-    columns: each rank's partial product with a float32 result, summed
-    over ``model`` in float32 and rounded once to ``x``'s dtype, as one
-    card's product rounds its float32 accumulator once (bf16 partial
-    sums, each rounded before the sum, drift over the layers)."""
-    return shlib.out_of_region(x.float() @ w.float(), tp.axis).to(x.dtype)
-
-
 def _wo_rows(tp: _TP, cfg: ModelConfig, out: torch.Tensor, first: int,
              wo: torch.Tensor) -> torch.Tensor:
     """``wo``'s row-parallel product, summed over ``model``: ``out`` (b,
@@ -373,7 +355,7 @@ def _wo_rows(tp: _TP, cfg: ModelConfig, out: torch.Tensor, first: int,
     ``wo`` takes its rows' columns of it."""
     width = cfg.n_heads * cfg.hd // tp.axis.size
     part = out.narrow(-1, tp.axis.index * width - first * cfg.hd, width)
-    return _row_parallel(part, wo, tp)
+    return shlib.row_parallel(part, wo, tp.axis)
 
 
 # --- attention sub-block -----------------------------------------------------
@@ -448,7 +430,7 @@ def ffn_block(x, blk, cfg: ModelConfig, tp: _TP | None = None):
     if tp is not None and tp.mlp:
         x = shlib.into_region(x, tp.axis)
         hidden = L.gated_hidden(x, blk["w_gate"], blk["w_up"], cfg.mlp)
-        return _row_parallel(hidden, blk["w_down"], tp), aux
+        return shlib.row_parallel(hidden, blk["w_down"], tp.axis), aux
     return L.gated_mlp(x, blk["w_gate"], blk["w_up"], blk["w_down"],
                        cfg.mlp), aux
 
@@ -484,19 +466,11 @@ def embed_inputs(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     """Token embedding in ``cfg.dtype``; for the VLM family the stubbed
     vision frontend's ``patch_embeds`` (b, n_patches, d) REPLACE the
     first n_patches positions; gemma scales by √d (in the compute
-    dtype). Under ``tp``'s vocab cut each rank looks up the ids in its
-    rows (zero elsewhere) and the rows are summed over ``model`` (exact:
-    one rank holds each id) before the patches and the scale."""
+    dtype). Under ``tp``'s vocab cut the lookup is vocab-parallel
+    (:func:`embed_tokens`), before the patches and the scale."""
     dtype = as_dtype(cfg.dtype)
-    embed = params["embed"]
-    if tp is not None and tp.vocab:
-        rows = embed.shape[0]
-        local = tokens - tp.axis.index * rows
-        held = (local >= 0) & (local < rows)
-        x = embed[local.clamp(0, rows - 1)] * held[..., None]
-        x = shlib.out_of_region(x.to(dtype), tp.axis)
-    else:
-        x = embed[tokens].to(dtype)
+    x = embed_tokens(params["embed"], tokens, dtype,
+                     tp.axis if tp is not None and tp.vocab else None)
     if cfg.family == "vlm" and patch_embeds is not None:
         n_p = patch_embeds.shape[1]
         x = torch.cat([patch_embeds.to(dtype), x[:, n_p:]], dim=1)
@@ -508,29 +482,54 @@ def embed_inputs(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 def _unembed(params: Params, cfg: ModelConfig, x: torch.Tensor,
              tp: _TP | None = None):
     """The logits. Under ``tp`` where the vocab can be cut, this rank's
-    vocab columns of them: tied models use their rows of ``embed``,
-    transposed; an ``unembed`` cut on d_model is gathered for the
-    product (its gradient reduce-scattered back: one rank's columns
-    each, so exact in any dtype). With fewer tokens than d_model
-    (decode), or a vocab that does not split, that ``unembed`` is
-    row-parallel instead: this rank's d_model slice of ``x`` times its
-    rows, summed over ``model`` into whole logits."""
+    vocab columns of them (:func:`tp_logits`): tied models use their
+    rows of ``embed``, transposed; an ``unembed`` cut on d_model is
+    gathered for the product, or row-parallel into whole logits."""
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     unembed, name = params.get("unembed"), "unembed"
     if unembed is None:
         unembed, name = params["embed"].T, "embed"
     if tp is None or tp.leaf[name] == "whole":
         return x @ unembed.to(x.dtype)
-    x = shlib.into_region(x, tp.axis)
-    w = unembed.to(x.dtype)
-    if name == "unembed" and tp.unembed_rows:
-        rows, vocab = w.shape
-        m = tp.axis.size
-        if vocab % m or x.shape[0] * x.shape[1] < rows * m:
-            part = x.narrow(-1, tp.axis.index * rows, rows)
-            return _row_parallel(part, w, tp)
-        w = shlib.gather_for_compute(w, tp.axis, 0).narrow(
-            1, tp.axis.index * (vocab // m), vocab // m)
+    return tp_logits(x, unembed.to(x.dtype), tp.axis,
+                     rows=name == "unembed" and tp.unembed_rows)
+
+
+def embed_tokens(embed: torch.Tensor, tokens: torch.Tensor, dtype,
+                 axis: shlib.ModelAxis | None = None) -> torch.Tensor:
+    """``embed[tokens]`` in ``dtype``. With ``axis`` ``embed`` is this
+    rank's block of vocab rows: each rank looks up the ids in its rows
+    (zero elsewhere) and the rows are summed over ``model`` (exact: one
+    rank holds each id)."""
+    if axis is None:
+        return embed[tokens].to(dtype)
+    rows = embed.shape[0]
+    local = tokens - axis.index * rows
+    held = (local >= 0) & (local < rows)
+    x = embed[local.clamp(0, rows - 1)] * held[..., None]
+    return shlib.out_of_region(x.to(dtype), axis)
+
+
+def tp_logits(x: torch.Tensor, w: torch.Tensor, axis: shlib.ModelAxis, *,
+              rows: bool) -> torch.Tensor:
+    """The logits of the whole ``x`` against this rank's block ``w`` of a
+    (d_model, vocab) unembedding: its vocab columns (``rows=False``),
+    which gives this rank's vocab columns of the logits; or its d_model
+    rows (``rows=True``), gathered for the product (its gradient
+    reduce-scattered back: one rank's columns each, so exact in any
+    dtype) into the same vocab columns. With fewer tokens than d_model
+    (decode), or a vocab that does not split, the rows are
+    row-parallel instead: this rank's d_model slice of ``x`` times
+    them, summed over ``model`` into whole logits."""
+    x = shlib.into_region(x, axis)
+    if rows:
+        d_rows, vocab = w.shape
+        m = axis.size
+        if vocab % m or x.shape[0] * x.shape[1] < d_rows * m:
+            part = x.narrow(-1, axis.index * d_rows, d_rows)
+            return shlib.row_parallel(part, w, axis)
+        w = shlib.gather_for_compute(w, axis, 0).narrow(
+            1, axis.index * (vocab // m), vocab // m)
     return x @ w
 
 

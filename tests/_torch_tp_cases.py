@@ -5,9 +5,10 @@
 This module imports torch and the port only (no JAX), so each spawned
 rank starts light. Every rank builds the full parameters from the numpy
 tree it is given and keeps its blocks (``shard_tree``), takes its rows
-of the batch and returns numpy arrays: the whole-vocab logits of its
-rows, its cache block's shape and the cache gathered whole, the step's
-metrics and the gradients and parameters gathered whole.
+of the batch (whisper's ``frames`` too) and returns numpy arrays: the
+whole-vocab logits of its rows, its cache blocks' shapes and the cache
+gathered whole, the step's metrics and the gradients and parameters
+gathered whole.
 """
 from __future__ import annotations
 
@@ -17,9 +18,10 @@ import numpy as np
 import torch
 
 from repro_torch import convert
-from repro_torch.configs.registry import get_config, reduced_config
+from repro_torch.configs.registry import get_config, get_model, reduced_config
 from repro_torch.distrib import sharding as shlib
 from repro_torch.launch import steps
+from repro_torch.models import encdec
 from repro_torch.models import transformer as tr
 from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.tree import tree_leaves_with_path
@@ -47,6 +49,17 @@ MESHES = {
                           ("serve", "train"), False),
         # MoE, 8 experts on 2 ranks: EP (4 whole experts a rank), QK-norm
         "qwen3-moe-ep": ("qwen3-moe-30b-a3b", {}, ("serve", "train"), False),
+        # in_proj's 304 columns in blocks of 152: rank 0 holds z and
+        # xBC[0:24]; conv_w cut on its 4 taps, conv_b on 80 channels;
+        # the conv window cached by channels, the state by heads
+        "mamba2": ("mamba2-780m", {}, ("serve", "train"), False),
+        # embed by vocab, unembed on d_model, every other leaf whole; the
+        # cache's state and conv window by width, its one KV head whole
+        "recurrentgemma-9b": ("recurrentgemma-9b", {}, ("serve", "train"),
+                              False),
+        # embed cut at vocab 512, w_in/w_out by columns/rows, attention on
+        # each rank's 2 heads from whole leaves; the cache by heads
+        "whisper-small": ("whisper-small", {}, ("serve", "train"), False),
     },
     (1, 4): {
         # 6 heads on 4 ranks: wq cut mid-head, every rank computes every
@@ -61,6 +74,12 @@ MESHES = {
         # 96 columns of every expert a rank, w_down's rows)
         "qwen3-moe-etp": ("qwen3-moe-30b-a3b", {"n_experts": 2, "top_k": 1},
                           ("serve", "train"), False),
+        # in_proj in blocks of 76: the first cut falls inside z; conv_w one
+        # tap a rank; 4 of the 16 heads a rank
+        "mamba2-z": ("mamba2-780m", {}, ("serve", "train"), False),
+        # an odd vocab: embed whole, as full whisper's 51865; one head a rank
+        "whisper-v513": ("whisper-small", {"vocab": 513}, ("serve", "train"),
+                         False),
     },
     (2, 2): {
         # tp x fsdp, as the reference shards qwen2.5-14b (FSDP = True)
@@ -71,6 +90,10 @@ MESHES = {
         # global batch's (64 tokens, 4 at decode), each spanning both
         # data ranks, so prefill, decode and training raise
         "mixtral-span": ("mixtral-8x7b", {}, ("refuse",), False),
+        # tp x fsdp: in_proj, out_proj and the embeddings also cut over data
+        "mamba2-fsdp": ("mamba2-780m", {}, ("serve", "train"), True),
+        # the batch over data: each data rank's rows of the width-cut cache
+        "recurrentgemma-serve": ("recurrentgemma-9b", {}, ("serve",), False),
     },
 }
 
@@ -95,20 +118,46 @@ def _rows(mesh, batch: dict) -> dict:
     return out
 
 
+def new_cache(cfg, params, frames=None, device="cpu"):
+    """An empty decode cache of ``BATCH`` rows and ``MAX_LEN`` slots (this
+    rank's block under an installed rule set); whisper's is
+    ``init_decode_cache`` of ``encode(frames)`` (``frames`` this rank's
+    rows)."""
+    if cfg.is_encdec:
+        return encdec.init_decode_cache(
+            params, cfg, encdec.encode(params, cfg, frames))
+    return get_model(cfg).init_decode_cache(cfg, BATCH, MAX_LEN,
+                                            device=device)
+
+
+def cache_leaves(cache) -> dict:
+    """{name: tensor} of a decode cache's per-layer leaves."""
+    return {k: v for k, v in cache._asdict().items()
+            if k not in ("length", "slots") and v is not None}
+
+
 def _serve(mesh, cfg, full, rows) -> dict:
     """The prefill, then ``DECODE_STEPS`` decode steps of the rows'
     tokens from an empty cache, on this rank's blocks."""
-    p_sh = shlib.param_shardings(tr.abstract_params(cfg), mesh)
+    api = get_model(cfg)
+    p_sh = shlib.param_shardings(api.abstract_params(cfg), mesh)
     params = shlib.shard_tree(full, p_sh)
+    prompt = {k: v for k, v in rows.items() if k != "labels"}
     rec = {"prefill": steps.make_prefill_step(cfg, mesh=mesh, device="cpu")(
-        params, rows).numpy()}
-    with shlib.rules_context(mesh):
-        cache = tr.init_decode_cache(cfg, BATCH, MAX_LEN, device="cpu")
-    meta = tr.init_decode_cache(cfg, BATCH, MAX_LEN, device="meta")
-    c_sh = steps.cache_shardings(meta, mesh)
-    rec["cache_spec"] = c_sh.k.spec
-    rec["cache_block"] = tuple(cache.k.shape)
-    rec["slots"] = None if cache.slots is None else cache.slots.tolist()
+        params, prompt).numpy()}
+    with torch.no_grad(), shlib.rules_context(mesh):
+        cache = new_cache(cfg, params, rows.get("frames"))
+    frames = (None if not cfg.is_encdec else
+              torch.empty((BATCH, cfg.encoder_seq, cfg.d_model),
+                          device="meta"))
+    c_sh = steps.cache_shardings(
+        new_cache(cfg, api.abstract_params(cfg), frames, device="meta"), mesh)
+    sh = cache_leaves(c_sh)
+    rec["cache_spec"] = {k: v.spec for k, v in sh.items()}
+    rec["cache_block"] = {k: tuple(v.shape) for k, v in
+                          cache_leaves(cache).items()}
+    slots = getattr(cache, "slots", None)
+    rec["slots"] = None if slots is None else slots.tolist()
     serve = steps.make_serve_step(cfg, mesh=mesh, device="cpu")
     logits = []
     with torch.no_grad():
@@ -117,7 +166,8 @@ def _serve(mesh, cfg, full, rows) -> dict:
                               {"tokens": rows["tokens"][:, t:t + 1]})
             logits.append(lg)
     rec["decode"] = torch.stack(logits, 1).numpy()
-    rec["cache_k"] = c_sh.k.gather(cache.k).double().numpy()
+    rec["cache"] = {k: sh[k].gather(v).double().numpy()
+                    for k, v in cache_leaves(cache).items()}
     rec["length"] = int(cache.length)
     return rec
 

@@ -312,9 +312,10 @@ def test_tensor_parallel_profile_still_raises_for_a_dense_model():
     """Kept under its name from before tensor parallelism was ported:
     the tp profile now builds the dense plan on a model axis above one
     rank (the heads, FFN and vocab cut over ``model``), with and without
-    ZeRO, and only a model without a tensor-parallel form, mamba2,
-    still raises (ROADMAP A13-TP (ssm)); the dp profile and a model
-    axis of 1 pass as before."""
+    ZeRO, and so it does for mamba2 (``in_proj``'s columns, the conv
+    taps, the per-head leaves over ``model``; under ZeRO ``in_proj``
+    also over ``data``), which raised until its tensor parallelism was
+    ported; the dp profile and a model axis of 1 pass as before."""
     _, cfg = _cfgs("llama3-8b")
     for sizes in ({"data": 2, "model": 2}, {"data": 1, "model": 4}):
         for fsdp in (False, True):
@@ -326,8 +327,15 @@ def test_tensor_parallel_profile_still_raises_for_a_dense_model():
             assert specs["embed"][0] == "model"
             assert o_sh.mu is p_sh
     mamba = treg.reduced_config(treg.get_config("mamba2-780m"))
-    with pytest.raises(NotImplementedError, match=r"A13-TP \(ssm\)"):
-        tsteps.train_shardings(mamba, {"data": 2, "model": 2})
+    for fsdp in (False, True):
+        p_sh, _ = tsteps.train_shardings(mamba, {"data": 2, "model": 2},
+                                         fsdp=fsdp)
+        specs = {"/".join(p): sh.spec for p, sh in tree_leaves_with_path(p_sh)}
+        assert specs["blocks/in_proj"] == ((None, "data", "model") if fsdp
+                                           else (None, None, "model"))
+        assert specs["blocks/conv_w"] == (None, "model")
+        assert specs["blocks/A_log"] == (None, "model")
+        assert specs["blocks/ln1"] == ()
     tsteps.train_shardings(cfg, {"data": 1, "model": 2}, profile="dp")
     tsteps.train_shardings(cfg, {"data": 4, "model": 1}, fsdp=True)
 

@@ -35,6 +35,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import types
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -495,15 +496,22 @@ def test_train_cli_mesh_checkpoint_continues_on_one_process(spawned):
 
 
 def test_train_cli_refuses_nccl_without_a_card_per_rank_and_tensor_parallel():
+    """Kept under its name from before mamba2's tensor parallelism was
+    ported: nccl without a card per rank is still refused; the tensor-
+    parallel meshes that raised now train (``--mesh 1x2`` over two gloo
+    CPU ranks, two steps; ``tests/test_torch_tp.py`` holds the losses
+    to ``--mesh 1x1``'s)."""
     with pytest.raises(RuntimeError, match="one card per rank"):
         ttrain.main(["--reduced", "--device", "cpu", "--mesh", "2x1",
                      "--backend", "nccl"])
     if torch.cuda.device_count() < 4:
         with pytest.raises(RuntimeError, match="one card per rank"):
             ttrain.main(["--reduced", "--mesh", "4x1", "--backend", "nccl"])
-    with pytest.raises(NotImplementedError, match="A13-TP"):
-        ttrain.main(["--reduced", "--device", "cpu", "--mesh", "2x2",
-                     "--backend", "gloo"])
-    with pytest.raises(NotImplementedError, match="A13-TP"):
+    with pytest.raises(RuntimeError, match="one card per rank"):
         ttrain.main(["--reduced", "--device", "cpu", "--mesh", "1x2x2",
-                     "--backend", "gloo"])
+                     "--backend", "nccl"])
+    with tempfile.TemporaryDirectory() as ckpt:
+        assert ttrain.main(["--reduced", "--device", "cpu", "--mesh", "1x2",
+                            "--backend", "gloo", "--steps", "2",
+                            "--global-batch", "2", "--seq-len", "16",
+                            "--ckpt-dir", ckpt]) is None

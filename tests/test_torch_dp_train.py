@@ -38,6 +38,7 @@ within half of each tolerance.
 """
 import dataclasses
 import os
+import types
 from concurrent.futures import ThreadPoolExecutor
 
 os.environ.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=8")
@@ -57,10 +58,10 @@ from repro.models import ssm as jssm  # noqa: E402
 from repro.optim import adamw as jadamw  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.data import MarkovLMDataset  # noqa: E402
-from repro_torch.distrib import sharding as shlib  # noqa: E402
 from repro_torch.launch import steps as tsteps  # noqa: E402
 from repro_torch.launch.mesh import run_on_mesh  # noqa: E402
 from repro_torch.optim import AdamWConfig, adamw_init  # noqa: E402
+from repro_torch.tree import tree_leaves, tree_leaves_with_path  # noqa: E402
 
 AXES = ("data", "model")
 DATA = dict(vocab=512, seq=32, batch=4, seed=3, steps=2)
@@ -326,21 +327,41 @@ def test_every_rank_agrees_and_holds_its_shards(ranks, shape, name):
 
 
 def test_tp_profile_with_a_model_axis_raises_naming_the_roadmap_item():
-    """The tp profile cuts mamba2's in_proj over ``model``: with more
-    than one rank there, tensor parallelism, which the port refuses;
-    the dp profile and a model axis of 1 pass."""
+    """Kept under its name from before mamba2's tensor parallelism was
+    ported: the tp profile cuts mamba2's leaves over ``model`` as the
+    reference's ``param_spec`` does (``in_proj``'s columns, the conv
+    taps and bias, the heads, ``out_proj``'s rows; under fsdp the
+    largest whole dim of the eligible leaves over ``data``), where it
+    raised before; the dp profile and a model axis of 1 cut nothing
+    over ``model``; fsdp without a mesh still raises."""
     cfg = cases.config()
     abstract = tsteps.get_model(cfg).abstract_params(cfg)
     for sizes in ({"data": 2, "model": 2}, {"data": 1, "model": 4},
                   {"pod": 2, "data": 2, "model": 2}):
+        fake = types.SimpleNamespace(axis_names=tuple(sizes),
+                                     devices=np.empty(tuple(sizes.values())))
         for fsdp in (False, True):
-            with pytest.raises(NotImplementedError, match="A13-TP"):
-                tsteps.train_shardings(cfg, sizes, profile="tp", fsdp=fsdp)
-            with pytest.raises(NotImplementedError, match="A13-TP"):
-                tsteps.make_train_step(cfg, AdamWConfig(), device="cpu",
-                                       mesh=sizes, fsdp=fsdp)
-            shlib.refuse_tensor_parallel(abstract, sizes, profile="dp",
-                                         fsdp=fsdp)
-    shlib.refuse_tensor_parallel(abstract, {"data": 4, "model": 1})
+            p_sh, o_sh = tsteps.train_shardings(cfg, sizes, profile="tp",
+                                                fsdp=fsdp)
+            assert o_sh.mu is p_sh
+            for path, sh in tree_leaves_with_path(p_sh):
+                name = "/".join(path)
+                want = jshlib.param_spec(name, tuple(
+                    _leaf(abstract, path).shape), fake, fsdp=fsdp)
+                assert sh.spec == tuple(want), name
+            specs = {"/".join(p): sh.spec
+                     for p, sh in tree_leaves_with_path(p_sh)}
+            assert "model" in specs["blocks/in_proj"]
+            assert specs["blocks/conv_w"][1] == "model"
+    for sizes, profile in (({"data": 4, "model": 1}, "tp"),
+                           ({"data": 2, "model": 2}, "dp")):
+        p_sh, _ = tsteps.train_shardings(cfg, sizes, profile=profile)
+        assert all(sh.spec == () for sh in tree_leaves(p_sh))
     with pytest.raises(ValueError, match="fsdp=True needs a mesh"):
         tsteps.make_train_step(cfg, AdamWConfig(), device="cpu", fsdp=True)
+
+
+def _leaf(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree

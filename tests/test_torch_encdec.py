@@ -3,8 +3,9 @@ whisper-small's encoder, teacher-forced decoder, loss, gradients,
 short-form decode and training) against the JAX package, at the
 reference's reduced size (``reduced_config``: 2 encoder and 2 decoder
 layers, d_model 64, 4 heads of 16, d_ff 128, vocab 512, 32 encoder
-frames, 24 target tokens). Also the tensor-parallel refusals of the
-hybrid and encoder-decoder families (ROADMAP A13-TP (hybrid, audio)).
+frames, 24 target tokens). Also the tensor-parallel layouts of the
+hybrid and encoder-decoder families: their parameter and cache specs
+(``tests/test_torch_tp.py`` runs them against GSPMD).
 
 Both packages compute on the same weights: the JAX ``init_params`` tree
 crosses through ``convert.model_params_from_numpy``; the frames (the
@@ -269,26 +270,41 @@ def test_make_train_step_matches_reference():
 
 @pytest.mark.parametrize("arch", ("recurrentgemma-9b", "whisper-small"))
 def test_tensor_parallel_refuses_the_hybrid_and_encdec_families(arch):
-    """Over a model axis above one rank the tp profile's step makers and
-    ``cache_shardings`` raise naming ROADMAP A13-TP (hybrid, audio); the
-    dp profile and a model axis of 1 pass."""
+    """Kept under its name from before their tensor parallelism was
+    ported: over a model axis of 2 the tp profile's step makers now
+    build, ``train_shardings`` cuts what the reference's rules match
+    (the hybrid's ``embed`` by vocab and ``unembed`` on d_model, every
+    other leaf whole; whisper's ``w_in`` by columns and ``w_out`` by
+    rows, its embedding by vocab at 512, every attention leaf whole),
+    and ``cache_shardings`` cuts the hybrid's state and conv window by
+    width with its one-head KV ring whole, and whisper's self and cross
+    K/V by heads. The dp profile cuts nothing."""
     cfg = treg.reduced_config(treg.get_config(arch))
-    api = treg.get_model(cfg)
     sizes = {"data": 1, "model": 2}
-    match = r"A13-TP \(hybrid, audio\)"
     for make in (tsteps.make_prefill_step, tsteps.make_serve_step):
-        with pytest.raises(NotImplementedError, match=match):
-            make(cfg, mesh=sizes, device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        tsteps.train_shardings(cfg, sizes)
-    abstract = api.abstract_params(cfg)
-    tsteps.shlib.refuse_tensor_parallel(abstract, sizes, profile="dp")
-    tsteps.shlib.refuse_tensor_parallel(abstract, {"data": 2, "model": 1})
+        assert callable(make(cfg, mesh=sizes, device="cpu"))
+    p_sh, _ = tsteps.train_shardings(cfg, sizes)
+    specs = {"/".join(p): sh.spec for p, sh in tree_leaves_with_path(p_sh)}
+    cut = {k for k, v in specs.items() if v}
     if cfg.is_encdec:
+        assert cut == {"embed", "enc_blocks/w_in", "enc_blocks/w_out",
+                       "blocks/w_in", "blocks/w_out"}
+        assert specs["blocks/w_in"] == (None, None, "model")
+        assert specs["blocks/w_out"] == (None, "model")
         p = te.init_params(cfg, device="cpu")
         cache = te.init_decode_cache(p, cfg, torch.zeros(
             (2, cfg.encoder_seq, cfg.d_model)))
+        want = dict.fromkeys(("k", "v", "xk", "xv"),
+                             (None, None, None, "model"))
     else:
+        assert cut == {"embed", "unembed"}
         cache = th.init_decode_cache(cfg, 2, 8, device="meta")
-    with pytest.raises(NotImplementedError, match=match):
-        tsteps.cache_shardings(cache, sizes)
+        want = {"lru_h": (None, None, "model"),
+                "conv": (None, None, None, "model"), "k": (), "v": ()}
+    assert specs["embed"] == ("model",)
+    c_sh = tsteps.cache_shardings(cache, sizes)
+    assert {k: getattr(c_sh, k).spec for k in want} == want
+    assert c_sh.length.spec == ()
+    dp, _ = tsteps.train_shardings(cfg, {"data": 1, "model": 2},
+                                   profile="dp")
+    assert all(not sh.spec for _, sh in tree_leaves_with_path(dp))

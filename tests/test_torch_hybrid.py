@@ -500,6 +500,9 @@ def test_train_and_serve_clis_run_the_hybrid(tmp_path, capsys):
     tserve.main(["--arch", ARCH, "--reduced", "--device", "cpu", "--batch",
                  "2", "--steps", "20", "--max-len", "16"])
     assert "generated (2, 21) tokens" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match=r"A13-TP \(hybrid, audio\)"):
-        ttrain.main(["--arch", ARCH, "--reduced", "--device", "cpu",
-                     "--mesh", "1x2", "--backend", "gloo"])
+    # over a model axis of 2 (gloo CPU ranks), which raised before the
+    # hybrid's tensor parallelism was ported
+    assert ttrain.main(["--arch", ARCH, "--reduced", "--device", "cpu",
+                        "--mesh", "1x2", "--backend", "gloo", "--steps", "2",
+                        "--global-batch", "2", "--seq-len", "16",
+                        "--ckpt-dir", str(tmp_path / "tp")]) is None

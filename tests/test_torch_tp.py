@@ -2,11 +2,15 @@
 against the JAX package's GSPMD steps on the same meshes, and against
 the port's own one-rank steps.
 
-The dense, MoE and VLM families' reduced configs (4 layers, d_model 64,
-vocab 512, float32; fields replaced per case, ``tests/_torch_tp_cases.py``
-says which rule each reaches: the MoE's experts over ``model`` (EP) on
-(1, 2), their hidden width (expert-TP) on (1, 4), and on (2, 2) groups
-that span the data ranks, which the port refuses) from the reference's ``init_params``
+Every family's reduced configs (d_model 64, vocab 512, float32; fields
+replaced per case, ``tests/_torch_tp_cases.py`` says which rule each
+reaches: the MoE's experts over ``model`` (EP) on (1, 2), their hidden
+width (expert-TP) on (1, 4), and on (2, 2) groups that span the data
+ranks, which the port refuses; mamba2's ``in_proj`` cut inside xBC on
+(1, 2), inside z on (1, 4), with fsdp on (2, 2); recurrentgemma's
+vocab-parallel embedding and width-cut cache on (1, 2) and (2, 2);
+whisper's embedding cut at vocab 512 on (1, 2) and whole at 513 on
+(1, 4), its batches carrying ``frames``) from the reference's ``init_params``
 (carried across with ``convert``), a Markov batch of 4 x 16 tokens. On
 meshes (1, 2), (1, 4) and (2, 2) of ``("data", "model")``: the port's
 ranks are CPU processes over gloo, spawned by ``launch.mesh.
@@ -16,8 +20,9 @@ the reference's ``jit_prefill_step``, ``jit_serve_step`` (with
 on the same mesh shapes of 8 XLA host devices.
 
 Each serve case runs the prefill and 8 decode steps from an empty cache
-of 8 slots (a length every model axis here divides); each train case
-one step. Tolerances:
+of 8 slots (a length every model axis here divides; whisper's cache is
+``init_decode_cache`` of the encoder's output, its cross K/V included);
+each train case one step. Tolerances:
 * f32 logits within 1e-5 of the reference's max |logit| (the row
   parallel products sum their partial sums in another order);
 * the loss, the gradient norm and every gathered gradient leaf within
@@ -54,15 +59,18 @@ import _torch_tp_cases as cases  # noqa: E402
 from repro.configs import registry as jreg  # noqa: E402
 from repro.distrib import sharding as jshlib  # noqa: E402
 from repro.launch import steps as jsteps  # noqa: E402
-from repro.models import transformer as jtr  # noqa: E402
+from repro.models import encdec as jenc  # noqa: E402
 from repro.optim import adamw as jadamw  # noqa: E402
 from repro_torch import convert  # noqa: E402
-from repro_torch.configs.registry import get_config, reduced_config  # noqa: E402
+from repro_torch.configs.registry import (  # noqa: E402
+    get_config,
+    get_model,
+    reduced_config,
+)
 from repro_torch.data import MarkovLMDataset  # noqa: E402
 from repro_torch.distrib import sharding as shlib  # noqa: E402
 from repro_torch.launch import steps as tsteps  # noqa: E402
 from repro_torch.launch.mesh import run_on_mesh  # noqa: E402
-from repro_torch.models import transformer as ttr  # noqa: E402
 from repro_torch.optim import AdamWConfig, adamw_init  # noqa: E402
 from repro_torch.tree import tree_leaves_with_path  # noqa: E402
 
@@ -88,9 +96,12 @@ def _inputs(shape, name, seed):
     arch, fields, _, _ = cases.MESHES[shape][name]
     jcfg = dataclasses.replace(jreg.reduced_config(jreg.get_config(arch)),
                                **fields)
-    params = jtr.init_params(jcfg, jax.random.PRNGKey(seed))
+    params = jreg.get_model(jcfg).init_params(jcfg, jax.random.PRNGKey(seed))
     batch = MarkovLMDataset(jcfg.vocab, cases.SEQ, seed=seed).batch(
         0, 0, cases.BATCH)
+    if jcfg.is_encdec:
+        batch["frames"] = np.random.default_rng(seed).standard_normal(
+            (cases.BATCH, jcfg.encoder_seq, jcfg.d_model)).astype(np.float32)
     if jcfg.family == "vlm":
         rng = np.random.default_rng(seed)
         t = np.broadcast_to(np.arange(cases.SEQ), (cases.BATCH, cases.SEQ))
@@ -112,6 +123,20 @@ def _abstract(tree):
     return {k: jax.ShapeDtypeStruct(v.shape, v.dtype) for k, v in tree.items()}
 
 
+def _cache_leaves(cache) -> dict:
+    return {k: v for k, v in cache._asdict().items() if k != "length"}
+
+
+def _reference_cache(jcfg, jparams, frames):
+    """The reference's empty decode cache of ``cases.BATCH`` rows and
+    ``cases.MAX_LEN`` slots (whisper's from the encoder's output)."""
+    if jcfg.is_encdec:
+        return jenc.init_decode_cache(
+            jparams, jcfg, jenc.encode(jparams, jcfg, frames))
+    return jreg.get_model(jcfg).init_decode_cache(jcfg, cases.BATCH,
+                                                  cases.MAX_LEN)
+
+
 def _reference(shape, name, jcfg, jparams, batch):
     """The reference's jitted steps on ``shape``: the prefill's logits,
     8 decode steps' logits and last cache, one train step's metrics and
@@ -129,14 +154,15 @@ def _reference(shape, name, jcfg, jparams, batch):
             rec["prefill"] = np.asarray(fn(
                 jax.device_put(jparams, p_sh),
                 {k: jax.device_put(v, b_sh[k]) for k, v in prompt.items()}))
-            cache = jtr.init_decode_cache(jcfg, cases.BATCH, cases.MAX_LEN)
+            cache = _reference_cache(jcfg, jparams, train.get("frames"))
             tok_abs = {"tokens": jax.ShapeDtypeStruct((cases.BATCH, 1),
                                                       jnp.int32)}
             fn, (p_sh, c_sh, b_sh) = jsteps.jit_serve_step(
                 jcfg, mesh, tok_abs, jax.tree.map(
                     lambda x: jax.ShapeDtypeStruct(x.shape, x.dtype), cache),
                 donate_cache=False)
-            rec["cache_spec"] = tuple(c_sh.k.spec)
+            rec["cache_spec"] = {k: tuple(v.spec) for k, v in
+                                 _cache_leaves(c_sh).items()}
             params, cache = (jax.device_put(jparams, p_sh),
                              jax.device_put(cache, c_sh))
             logits = []
@@ -146,7 +172,8 @@ def _reference(shape, name, jcfg, jparams, batch):
                 lg, cache = fn(params, cache, {"tokens": tok})
                 logits.append(np.asarray(lg))
             rec["decode"] = np.stack(logits, 1)
-            rec["cache_k"] = np.asarray(cache.k, np.float64)
+            rec["cache"] = {k: np.asarray(v, np.float64)
+                            for k, v in _cache_leaves(cache).items()}
         if "train" in parts:
             fn, (p_sh, o_sh, b_sh) = jsteps.jit_train_step(
                 jcfg, mesh, _abstract(train), fsdp=fsdp,
@@ -158,9 +185,9 @@ def _reference(shape, name, jcfg, jparams, batch):
             rec.update(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
                        lr=float(m["lr"]), params=_flat(params))
     if "train" in parts:
-        (loss, _), grads = jax.jit(jax.value_and_grad(jtr.lm_loss,
-                                                      has_aux=True),
-                                   static_argnums=1)(jparams, jcfg, train)
+        (loss, _), grads = jax.jit(jax.value_and_grad(
+            jreg.get_model(jcfg).lm_loss, has_aux=True),
+            static_argnums=1)(jparams, jcfg, train)
         rec.update(loss0=float(loss), grads=_flat(grads))
     return rec
 
@@ -179,8 +206,7 @@ def _one_rank(shape, name, params_np, batch):
             rec["prefill"] = tsteps.make_prefill_step(cfg, device="cpu")(
                 params, prompt).numpy()
             serve = tsteps.make_serve_step(cfg, device="cpu")
-            cache = ttr.init_decode_cache(cfg, cases.BATCH, cases.MAX_LEN,
-                                          device="cpu")
+            cache = cases.new_cache(cfg, params, tb.get("frames"))
             logits = []
             for t in range(cases.DECODE_STEPS):
                 lg, cache = serve(params, cache,
@@ -274,8 +300,9 @@ def _close_params(got, want, grads0, tol, what):
 @pytest.mark.parametrize("shape,name", SERVE)
 def test_prefill_matches_reference_and_one_rank(results, shape, name):
     ranks, one, ref = results[shape, name]
+    vocab = cases.config(*cases.MESHES[shape][name][:2]).vocab
     for rank, r in enumerate(ranks):
-        assert r["prefill"].shape == (cases.BATCH // shape[0], 512)
+        assert r["prefill"].shape == (cases.BATCH // shape[0], vocab)
         _close_logits(r["prefill"], _rows(shape, rank, ref["prefill"]),
                       LOGIT_TOL, "prefill vs jit_prefill_step")
         _close_logits(r["prefill"], _rows(shape, rank, one["prefill"]),
@@ -284,8 +311,8 @@ def test_prefill_matches_reference_and_one_rank(results, shape, name):
 
 @pytest.mark.parametrize("shape,name", SERVE)
 def test_decode_matches_reference_and_one_rank(results, shape, name):
-    """8 decode steps' logits on every rank, and the cache after them
-    gathered whole, against ``jit_serve_step``'s."""
+    """8 decode steps' logits on every rank, and every leaf of the cache
+    after them gathered whole, against ``jit_serve_step``'s."""
     ranks, one, ref = results[shape, name]
     for rank, r in enumerate(ranks):
         assert r["length"] == cases.DECODE_STEPS
@@ -293,33 +320,51 @@ def test_decode_matches_reference_and_one_rank(results, shape, name):
                       LOGIT_TOL, "decode vs jit_serve_step")
         _close_logits(r["decode"], _rows(shape, rank, one["decode"]),
                       ONE_RANK_TOL, "decode vs one rank")
-        assert _rel(r["cache_k"], ref["cache_k"]) <= LOGIT_TOL
+        assert set(r["cache"]) == set(ref["cache"])
+        for k, want in ref["cache"].items():
+            assert _rel(r["cache"][k], want) <= LOGIT_TOL, k
 
 
 @pytest.mark.parametrize("shape,name", SERVE)
 def test_decode_cache_block_is_cache_shardings(results, shape, name):
     """Each rank's cache is its block under the reference's
-    ``cache_shardings`` spec: by KV heads, else by sequence (its
-    ``slots`` then its global positions), and the batch over data."""
+    ``cache_shardings`` spec, leaf by leaf: a transformer's KV cache by
+    KV heads, else by sequence (its ``slots`` then its global
+    positions); mamba2's conv window by channels and state by heads;
+    the hybrid's RG-LRU state and conv window by width, its one-head KV
+    ring whole; whisper's self and cross K/V by heads; the batch over
+    data."""
     ranks, _, ref = results[shape, name]
-    arch, fields, _, _ = cases.MESHES[shape][name]
-    cfg = cases.config(arch, fields)
-    full = (cfg.n_layers, cases.BATCH, cases.MAX_LEN, cfg.n_kv_heads, cfg.hd)
+    arch, _, _, _ = cases.MESHES[shape][name]
     sizes = dict(zip(cases.AXES, shape))
-    spec = ref["cache_spec"]
-    want = {"gemma-2b-seq": (None, "data", "model"),
-            "llama3-8b-kv2": (None, None, None, "model")}.get(name, ())
-    assert spec == want
+    data = "data" if shape[0] > 1 else None
+    heads = (None, data, None, "model")
+    family = {
+        "mamba2-780m": {"conv": (None, data, None, "model"),
+                        "state": (None, data, "model")},
+        "recurrentgemma-9b": {"lru_h": (None, data, "model"),
+                              "conv": (None, data, None, "model"),
+                              "k": (None, data), "v": (None, data)},
+        "whisper-small": dict.fromkeys(("k", "v", "xk", "xv"), heads),
+    }
+    kv = {"gemma-2b-seq": (None, "data", "model"),
+          "llama3-8b-kv2": (None, None, None, "model")}.get(name, ())
+    want = family.get(arch, {"k": kv, "v": kv})
+    strip = {k: tuple(v[:max([i + 1 for i, a in enumerate(v) if a] or [0])])
+             for k, v in want.items()}
+    assert ref["cache_spec"] == strip
     for rank, r in enumerate(ranks):
-        assert tuple(r["cache_spec"]) == spec
-        block = list(full)
-        for d, axis in enumerate(spec):
-            if axis is not None:
-                block[d] //= sizes[axis]
-        assert r["cache_block"] == tuple(block)
+        assert {k: tuple(v) for k, v in r["cache_spec"].items()} == strip
+        for k, spec in strip.items():
+            block = list(ref["cache"][k].shape)
+            for d, axis in enumerate(spec):
+                if axis is not None:
+                    block[d] //= sizes[axis]
+            assert r["cache_block"][k] == tuple(block), k
+        spec = strip["k"] if "k" in strip and arch not in family else ()
         if len(spec) > 2 and spec[2] == "model":
-            lo = (rank % shape[1]) * block[2]
-            assert r["slots"] == list(range(lo, lo + block[2]))
+            lo = (rank % shape[1]) * r["cache_block"]["k"][2]
+            assert r["slots"] == list(range(lo, lo + r["cache_block"]["k"][2]))
         else:
             assert r["slots"] is None
 
@@ -348,21 +393,37 @@ def test_train_step_matches_reference_and_one_rank(results, shape, name):
 @pytest.mark.parametrize("shape,name", TRAIN)
 def test_every_rank_holds_its_blocks(results, shape, name):
     """Each rank holds its blocks of the leaves ``param_spec`` cuts (the
-    heads' projections, the FFN and the vocab over ``model``; under
+    heads' projections, the FFN and the vocab over ``model``; mamba2's
+    ``in_proj`` columns and conv taps; the hybrid's embeddings only;
+    whisper's MLP and, where the vocab divides, its embedding; under
     fsdp also over ``data``) and the norms whole."""
     ranks, _, _ = results[shape, name]
     arch, fields, _, fsdp = cases.MESHES[shape][name]
     cfg = cases.config(arch, fields)
     full = {"/".join(p): tuple(v.shape) for p, v in
-            tree_leaves_with_path(ttr.abstract_params(cfg))}
+            tree_leaves_with_path(get_model(cfg).abstract_params(cfg))}
+    m = shape[1]
     sizes = dict(zip(cases.AXES, shape))
     for r in ranks:
         held = r["shard_shapes"]
         for path, want in full.items():
             spec = shlib.param_spec(path, want, sizes, fsdp=fsdp)
             assert held[path] == shlib.block_shape(want, spec, sizes), path
-        if cfg.family == "moe":  # EP where E splits, else expert-TP
-            m = shape[1]
+        if cfg.family == "ssm":
+            assert held["blocks/in_proj"][2] == full["blocks/in_proj"][2] // m
+            assert held["blocks/conv_w"][1] == cfg.ssm_conv_kernel // m
+            assert held["blocks/out_proj"][1] == cfg.d_inner // m
+        elif cfg.family == "hybrid":
+            assert held["unembed"][0] == cfg.d_model // m
+            assert all(held[k] == v for k, v in full.items()
+                       if k.startswith(("super/", "tail_rec/")))
+        elif cfg.family == "audio":
+            assert held["blocks/w_in"][2] == cfg.d_ff // m
+            assert held["enc_blocks/w_out"][1] == cfg.d_ff // m
+            assert held["blocks/attn/wq"] == full["blocks/attn/wq"]
+            assert held["embed"][0] == (cfg.vocab // m if cfg.vocab % m == 0
+                                        else cfg.vocab)
+        elif cfg.family == "moe":  # EP where E splits, else expert-TP
             ep = cfg.n_experts % m == 0
             assert held["blocks/moe/w_gate"][1] == (
                 cfg.n_experts // m if ep else cfg.n_experts)
@@ -370,8 +431,10 @@ def test_every_rank_holds_its_blocks(results, shape, name):
                 cfg.d_ff_expert if ep else cfg.d_ff_expert // m)
             assert held["blocks/moe/router"] == full["blocks/moe/router"]
         else:
-            assert held["blocks/w_gate"][2] == cfg.d_ff // shape[1]
-        assert held["blocks/ln1"] == full["blocks/ln1"]
+            assert held["blocks/w_gate"][2] == cfg.d_ff // m
+        norm = {"hybrid": "super/rec1/ln", "audio": "blocks/ln1_w"}.get(
+            cfg.family, "blocks/ln1")
+        assert held[norm] == full[norm]
 
 
 def test_tp_plan_answers_each_leafs_cut():
@@ -382,7 +445,7 @@ def test_tp_plan_answers_each_leafs_cut():
     reference's rule."""
     cfg = cases.config("qwen2.5-3b", {})
     shapes = {"/".join(p): tuple(v.shape) for p, v in
-              tree_leaves_with_path(ttr.abstract_params(cfg))}
+              tree_leaves_with_path(get_model(cfg).abstract_params(cfg))}
     with shlib.rules_context({"data": 1, "model": 2}):
         cut = {k: shlib.leaf_cut(k, s, cfg.hd) for k, s in shapes.items()}
     assert cut["blocks/wq"] == shlib.LeafCut(2, True)
@@ -410,7 +473,7 @@ def test_tp_plan_answers_each_leafs_cut():
             cut = {k.removeprefix("blocks/moe/"): shlib.leaf_cut(k, s)
                    for k, s in (("/".join(p), tuple(v.shape)) for p, v in
                                 tree_leaves_with_path(
-                                    ttr.abstract_params(moe)))
+                                    get_model(moe).abstract_params(moe)))
                    if k.startswith("blocks/moe/")}
         assert cut["router"] == shlib.LeafCut(None, True)
         assert tuple(cut[k].dim for k in ("w_gate", "w_up", "w_down")) == dims
@@ -435,19 +498,24 @@ def test_groups_spanning_data_ranks_are_refused(results):
 
 
 def test_mamba2_and_other_caches_still_raise_naming_a13_tp():
-    """mamba2 under tp with a model axis above one rank: the step makers
-    raise naming ROADMAP A13-TP (ssm); ``cache_shardings`` refuses the
-    SSM cache."""
+    """Kept under its name from before mamba2's tensor parallelism was
+    ported: the step makers now build for mamba2 over a model axis of 2,
+    and ``cache_shardings`` cuts the SSM cache as the reference does
+    (the conv window by channels, the state by heads, the batch over
+    data), as it does the hybrid's and whisper's."""
     from repro_torch.models import ssm
 
     cfg = reduced_config(get_config("mamba2-780m"))
-    sizes = {"data": 1, "model": 2}
+    sizes = {"data": 2, "model": 2}
     for make in (tsteps.make_prefill_step, tsteps.make_serve_step):
-        with pytest.raises(NotImplementedError, match=r"A13-TP \(ssm\)"):
-            make(cfg, mesh=sizes, device="cpu")
-    cache = ssm.init_decode_cache(cfg, 2, 8, device="meta")
-    with pytest.raises(NotImplementedError, match=r"A13-TP \(ssm\)"):
-        tsteps.cache_shardings(cache, sizes)
+        assert callable(make(cfg, mesh=sizes, device="cpu"))
+    c_sh = tsteps.cache_shardings(
+        ssm.init_decode_cache(cfg, 4, 8, device="meta"), sizes)
+    assert c_sh.conv.spec == (None, "data", None, "model")
+    assert c_sh.state.spec == (None, "data", "model")
+    assert c_sh.length.spec == ()
+    with pytest.raises(TypeError, match="no cache rule"):
+        tsteps.cache_shardings((torch.zeros(1),), sizes)
 
 
 def _logged(stdout: str) -> list[list[str]]:
@@ -455,31 +523,52 @@ def _logged(stdout: str) -> list[list[str]]:
             if line.startswith("step ")]
 
 
+def _cli_losses_match(tmp_path, arch: str, extra: list[str]) -> dict:
+    """The train CLI with ``--arch arch --reduced`` over ``--mesh 1x2``
+    (two gloo CPU ranks, the tp profile's model axis) logs the same
+    losses as ``--mesh 1x1``, both with ``extra``."""
+    common = ["--arch", arch, "--reduced", "--device", "cpu",
+              "--global-batch", "2", "--seq-len", "32", "--log-every", "1",
+              *extra]
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    procs = {
+        name: subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.train", *common,
+             *more, "--ckpt-dir", str(tmp_path / name)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=env)
+        for name, more in (("one", []),
+                           ("tp", ["--mesh", "1x2", "--backend", "gloo"]))}
+    outs = {k: p.communicate(timeout=300) + (p.returncode,)
+            for k, p in procs.items()}
+    for name, (_, err, rc) in outs.items():
+        assert rc == 0, (name, err)
+    one, tp = (_logged(outs[k][0]) for k in ("one", "tp"))
+    assert one and one == tp
+    return outs
+
+
 def test_train_cli_over_a_model_axis_logs_the_one_process_losses(tmp_path):
     """The train CLI with ``--arch qwen2.5-3b --reduced`` over ``--mesh
     1x2`` (two gloo CPU ranks, the tp profile's model axis), restarting
     once from its checkpoint: the same logged losses as ``--mesh
     1x1``."""
-    common = ["--arch", "qwen2.5-3b", "--reduced", "--device", "cpu",
-              "--steps", "5", "--global-batch", "2", "--seq-len", "32",
-              "--ckpt-every", "2", "--simulate-failure-at", "3",
-              "--log-every", "1"]
-    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
-    procs = {
-        name: subprocess.Popen(
-            [sys.executable, "-m", "repro_torch.launch.train", *common,
-             *extra, "--ckpt-dir", str(tmp_path / name)],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-            env=env)
-        for name, extra in (("one", []),
-                            ("tp", ["--mesh", "1x2", "--backend", "gloo"]))}
-    outs = {k: p.communicate(timeout=300) + (p.returncode,)
-            for k, p in procs.items()}
-    for name, (out, err, rc) in outs.items():
-        assert rc == 0, (name, err)
+    outs = _cli_losses_match(tmp_path, "qwen2.5-3b", [
+        "--steps", "5", "--ckpt-every", "2", "--simulate-failure-at", "3"])
+    for out, err, _ in outs.values():
         done = next(x for x in out.splitlines() if x.startswith("done:"))
         assert "restarts=1" in done
         assert re.search("restored at step 2", err)
-    one, tp = (_logged(outs[k][0]) for k in ("one", "tp"))
+    one = _logged(outs["one"][0])
     assert [s[1] for s in one] == ["0", "1", "2", "2", "3", "4"]
-    assert one == tp
+
+
+@pytest.mark.parametrize("arch", ("mamba2-780m", "recurrentgemma-9b"))
+def test_train_cli_runs_mamba2_and_the_hybrid_over_a_model_axis(tmp_path,
+                                                                arch):
+    """``train.py --reduced --device cpu --mesh 1x2 --backend gloo`` for
+    mamba2 and the hybrid: its logged losses equal ``--mesh 1x1``'s to
+    the printed digits."""
+    outs = _cli_losses_match(tmp_path, arch, ["--steps", "3"])
+    assert len(_logged(outs["tp"][0])) == 3
+    assert f"mesh=1x2  arch={arch}" in outs["tp"][0]
