@@ -14,6 +14,8 @@
     python3 chip_smoke.py --moe      # build + phase 3 (moe) only
     python3 chip_smoke.py --hybrid   # build + phase 3 (hybrid) only
     python3 chip_smoke.py --encdec   # build + phase 3 (encdec) only
+    python3 chip_smoke.py --dryrun   # build + phase 3 (dryrun) only
+    python3 chip_smoke.py --examples # build + phase 3 (examples) only
 
 Phases (each raises on failure; none is caught):
 
@@ -286,7 +288,14 @@ Phases (each raises on failure; none is caught):
    random init is chaotic, within 2x the distance of the yardstick's own
    prefill with the embedding one ulp away, and its differing routes by
    layer within 2x that run's plus 8; bytes a rank sends, ms, peak; no
-   scaling figure.
+   scaling figure. (f) MoE groups that span data-parallel ranks:
+   mixtral at (b)'s 4 layers in f32 on meshes (2, 1) and (2, 2) (EP over
+   ``model``) of gloo ranks, the prefill (2, 256) one group of 512
+   tokens and each batch-4 decode step one group of 4, both spanning the
+   two data ranks and gathered over them; against a one-rank yardstick
+   of the same global batch run first: the routes identical, the drop
+   counts equal (printed as shares), the prefill within (e)'s 2x the
+   nudged run's distance, the decode within 1e-3; bytes, ms, peak.
    Phase 3 (hybrid), after phase 3 (moe) (also alone with ``--hybrid``):
    recurrentgemma-9b, plain PyTorch (the reference computes the RG-LRU
    with ``lax.associative_scan``, its temporal conv with the plain
@@ -329,6 +338,25 @@ Phases (each raises on failure; none is caught):
    tokens (8, 448) and frames (8, 1500, 768), bf16, donated AdamW:
    step 0's cross-entropy within 1.0 of ln(51865), the others timed (ms,
    peak).
+   Phase 3 (dryrun), after phase 3 (encdec) (also alone with
+   ``--dryrun``): (a) the eager dry run (``python -m
+   repro_torch.launch.dryrun --all``, no card: meta tensors, rank 0 of
+   the 16 x 16 and 2 x 16 x 16 meshes over a ``fake`` process group),
+   started in a subprocess (``nice`` 19, 2 workers) right after phase 1
+   and read here: every cell's status and dominant roofline term, and
+   all 64 cells with status run ``ok``; (b) mamba2-780m's prefill (4,
+   8192) bf16 (48 B7 launches), llama3-8b's bf16 decode step at batch 4
+   against a 128-slot cache and qwen2.5-3b's train step (1, 4096),
+   each built on the card from a seed and on meta by
+   ``dryrun.build_cell``: FlopCounterMode's count equal on both (B7, a
+   ``ctypes`` launch, is not seen by the counter; meta runs the plain
+   conv, whose elementwise work it does not count either), the step's
+   host-clock time (median of 3) against ``Roofline.bound_s``.
+   Phase 3 (examples), after phase 3 (dryrun) (also alone with
+   ``--examples``): the five ``examples/torch_*.py`` at small arguments
+   on the card, in subprocesses all at once, each exit code 0 and its
+   OK line printed; seconds each, the stencil examples' fused-stencil
+   launches (above 0).
    Phase 3 (verify), after the serve phase: the verification layer
    (``repro_torch.verify.mms``, ``physics.spectral``,
    ``boundary_weights``) through B1 (``swc``), B3 (``swc_stream``) and
@@ -464,6 +492,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -4053,6 +4082,18 @@ MOE_EP_DECODE_TOL = 1e-3
 MOE_EP_NUDGE_MULTIPLE = 2.0
 MOE_EP_TIES = 8
 MOE_YARD_DIR = ROOT / "build" / "moe-yardstick"
+# MoE groups that span data-parallel ranks (f): mixtral-8x7b at phase 3
+# (moe) (b)'s depth, f32 with TF32 off, as gloo ranks sharing the card.
+# The prefill MOE_SPAN_PREFILL puts its 512 tokens in one group that
+# spans the data ranks (256 a rank), gathered over them; so does each of
+# MOE_EP_DECODE's batch-4 decode steps (4 tokens, 2 a rank). Each mesh
+# is held to the one-rank run of the same global batch: the routes
+# identical, the prefill's last logits within MOE_EP_NUDGE_MULTIPLE times
+# the one-ulp-nudged run's distance and the decode within
+# MOE_EP_DECODE_TOL (part (e)'s limits).
+MOE_SPAN_PREFILL = (2, 256)
+MOE_SPAN_MESHES = (((2, 1), ("data", "model")), ((2, 2), ("data", "model")))
+MOE_SPAN_YARD_DIR = ROOT / "build" / "moe-span-yardstick"
 
 
 def _moe_cfg(arch: str, layers: int, **kw):
@@ -4519,14 +4560,205 @@ def moe_ep(dev, smi):
             raise AssertionError(f"moe EP rank {rank}: {r}")
 
 
+def moe_span_yardstick(dev, directory: Path) -> dict:
+    """The one-rank run (f) holds its meshes to: mixtral at
+    ``MOE_MIXTRAL_LAYERS`` layers in f32, the prefill ``MOE_SPAN_PREFILL``'s
+    last logits and routes (and the run with the embedding one ulp away),
+    ``MOE_EP_DECODE``'s teacher-forced decode logits and routes, written to
+    ``directory``; returns the host times and drop counts."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tr
+
+    directory.mkdir(parents=True, exist_ok=True)
+    cfg = _moe_cfg("mixtral-8x7b", MOE_MIXTRAL_LAYERS, dtype="float32")
+    params = tr.init_params(cfg, seed=0, device=dev)
+    tokens = _tp_tokens(cfg, MOE_SPAN_PREFILL, 8, dev)
+    prefill = make_prefill_step(cfg, device=dev)
+    out = {}
+    with torch.no_grad():
+        prefill(params, {"tokens": tokens})  # warm-up
+        with moe.recording(keep_routes=True) as rec:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = prefill(params, {"tokens": tokens})
+            torch.cuda.synchronize()
+    out["prefill_ms"] = 1e3 * (time.perf_counter() - t0)
+    out["prefill_drop"] = _dropped(rec)
+    np.save(directory / "prefill.npy", logits.cpu().numpy())
+    np.save(directory / "routes.npy",
+            torch.stack(rec["routes"]).cpu().numpy())
+    gen = torch.Generator(device=dev).manual_seed(7)
+    up = torch.rand(params["embed"].shape, generator=gen, device=dev) < 0.5
+    nudged = dict(params, embed=torch.nextafter(
+        params["embed"], torch.where(up, math.inf, -math.inf)))
+    del up
+    with torch.no_grad():
+        other = prefill(nudged, {"tokens": tokens})
+    del nudged
+    out["nudged_err"] = _tp_err(other, logits.cpu().numpy())
+    b, steps = MOE_EP_DECODE
+    cache = tr.init_decode_cache(cfg, b, steps, device=dev)
+    with moe.recording(keep_routes=True) as rec:
+        logits, out["decode_ms"] = _tp_decode(
+            make_serve_step(cfg, device=dev), params, cache,
+            _tp_tokens(cfg, MOE_EP_DECODE, 9, dev))
+    out["decode_drop"] = _dropped(rec)
+    np.save(directory / "decode.npy", logits.cpu().numpy())
+    np.save(directory / "decode_routes.npy",
+            torch.stack(rec["routes"]).cpu().numpy())
+    del params, cache, logits, other, prefill
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_span_rank(mesh, yard_dir: str):
+    """One rank of (f): mixtral's blocks (whole on (2, 1), EP over
+    ``model`` on (2, 2)), this rank's rows of the prefill through
+    ``make_prefill_step(mesh=)`` (the group gathered over ``data``) and of
+    ``MOE_EP_DECODE``'s decode steps through ``make_serve_step(mesh=)``,
+    each with its recorded routes, held to the yardstick on the host."""
+    import numpy as np
+    import torch
+
+    from repro_torch.distrib import comm
+    from repro_torch.distrib import sharding as shlib
+    from repro_torch.launch.steps import (
+        cache_shardings,
+        make_prefill_step,
+        make_serve_step,
+    )
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tr
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = _moe_cfg("mixtral-8x7b", MOE_MIXTRAL_LAYERS, dtype="float32")
+    yard = Path(yard_dir)
+    p_sh = shlib.param_shardings(tr.abstract_params(cfg), mesh)
+    params = tr.init_params(cfg, seed=0, device=dev, shardings=p_sh)
+
+    def rows(t):
+        return shlib.local_shard(
+            t, shlib.batch_spec("tokens", tuple(t.shape), mesh),
+            mesh).contiguous()
+
+    lo = shlib.axis_index(mesh, "data")
+    rec = {"experts": tuple(params["blocks"]["moe"]["w_gate"].shape)}
+    tokens = rows(_tp_tokens(cfg, MOE_SPAN_PREFILL, 8, dev))
+    prefill = make_prefill_step(cfg, mesh=mesh, device=dev)
+    _reset_all_counts()
+    with torch.no_grad():
+        prefill(params, {"tokens": tokens})
+        comm.reset_counts()
+        with moe.recording(keep_routes=True) as got:
+            logits, rec["prefill_ms"] = _tp_clock(
+                dev, lambda: prefill(params, {"tokens": tokens}))
+    with shlib.rules_context(mesh):
+        rec["batch_ranks"] = shlib.batch_ranks()
+    rec["prefill_bytes"] = comm.counts["bytes"]
+    rec["prefill_drop"] = _dropped(got)
+    n = tokens.shape[0]
+    rec["prefill_err"] = _tp_err(
+        logits, np.load(yard / "prefill.npy")[lo * n:(lo + 1) * n])
+    rec["prefill_flips"] = _layer_flips(
+        torch.stack(got["routes"]).cpu().numpy(),
+        np.load(yard / "routes.npy"))
+    b, steps = MOE_EP_DECODE
+    cache = tr.init_decode_cache(cfg, b, steps, device=dev)
+    cache = shlib.shard_tree(cache, cache_shardings(cache, mesh))
+    toks = rows(_tp_tokens(cfg, MOE_EP_DECODE, 9, dev))
+    comm.reset_counts()
+    torch.distributed.barrier()
+    with moe.recording(keep_routes=True) as got:
+        logits, rec["decode_ms"] = _tp_decode(
+            make_serve_step(cfg, mesh=mesh, device=dev), params, cache, toks)
+    rec["decode_bytes"] = comm.counts["bytes"] // steps
+    rec["decode_drop"] = _dropped(got)
+    n = toks.shape[0]
+    rec["decode_err"] = _tp_worst(
+        logits, np.load(yard / "decode.npy")[:, lo * n:(lo + 1) * n])
+    rec["decode_flips"] = _layer_flips(
+        torch.stack(got["routes"]).cpu().numpy(),
+        np.load(yard / "decode_routes.npy"))
+    rec["counts"] = _all_counts()
+    rec.update(_tp_held(dev))
+    return rec
+
+
+def moe_span(dev, smi):
+    """(f): mixtral's MoE groups spanning the data ranks of
+    ``MOE_SPAN_MESHES`` (gloo ranks sharing the card), against the
+    one-rank yardstick run first in this process."""
+    import shutil
+
+    import torch
+
+    from repro_torch.launch.mesh import run_on_mesh
+
+    shutil.rmtree(MOE_SPAN_YARD_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    try:
+        yard = moe_span_yardstick(dev, MOE_SPAN_YARD_DIR)
+        print(f"  (f) yardstick (one rank, this process, "
+              f"{time.perf_counter() - t0:.1f} s): mixtral "
+              f"{MOE_MIXTRAL_LAYERS} layers f32 prefill {MOE_SPAN_PREFILL} "
+              f"{yard['prefill_ms']:.1f} ms, {yard['prefill_drop']}; with "
+              f"the embedding one ulp away its last logits lie "
+              f"{yard['nudged_err']:.3e} of max |logit| from it; decode "
+              f"{MOE_EP_DECODE} {yard['decode_ms']:.2f} ms a step, "
+              f"{yard['decode_drop']}")
+        torch.cuda.empty_cache()
+        for shape, axes in MOE_SPAN_MESHES:
+            t1 = time.perf_counter()
+            ranks = run_on_mesh(moe_span_rank, shape, axes, backend="gloo",
+                                device=dev, args=(str(MOE_SPAN_YARD_DIR),),
+                                timeout=900)
+            secs = time.perf_counter() - t1
+            for rank, r in enumerate(ranks):
+                flips = sum(r["prefill_flips"]) + sum(r["decode_flips"])
+                print(f"  (f) mixtral on mesh {shape}, rank {rank} ({secs:.1f}"
+                      f" s for the mesh): batch cut over {r['batch_ranks']} "
+                      f"data ranks, expert blocks {r['experts']}; prefill "
+                      f"{MOE_SPAN_PREFILL} (one group of "
+                      f"{MOE_SPAN_PREFILL[0] * MOE_SPAN_PREFILL[1]} tokens "
+                      f"gathered) last logits within {r['prefill_err']:.3e} "
+                      f"of max |logit| (limit {MOE_EP_NUDGE_MULTIPLE}x "
+                      f"{yard['nudged_err']:.3e}), {r['prefill_drop']}, "
+                      f"{r['prefill_ms']:.1f} ms (one rank "
+                      f"{yard['prefill_ms']:.1f}), {r['prefill_bytes']} bytes "
+                      f"sent; decode {MOE_EP_DECODE} within "
+                      f"{r['decode_err']:.3e} (limit {MOE_EP_DECODE_TOL:.0e}),"
+                      f" {r['decode_drop']}, {r['decode_ms']:.2f} ms a step "
+                      f"(one rank {yard['decode_ms']:.2f}), "
+                      f"{r['decode_bytes']} bytes a step; routes differing "
+                      f"from one rank's: {flips} (prefill by layer "
+                      f"{r['prefill_flips']}, decode {r['decode_flips']}); "
+                      f"peak {r['peak'] / 2**30:.2f} GiB on {smi}")
+                if (tuple(r["counts"]) != (0, 0, 0) or flips
+                        or r["batch_ranks"] != shape[0]
+                        or not r["prefill_err"] <= (MOE_EP_NUDGE_MULTIPLE
+                                                    * yard["nudged_err"])
+                        or not r["decode_err"] <= MOE_EP_DECODE_TOL
+                        or r["prefill_drop"] != yard["prefill_drop"]
+                        or r["decode_drop"] != yard["decode_drop"]):
+                    raise AssertionError(f"moe span {shape} rank {rank}: {r}")
+    finally:
+        shutil.rmtree(MOE_SPAN_YARD_DIR, ignore_errors=True)
+
+
 def phase_moe(dev, smi):
     """Phase 3 (moe): the MoE family at full width on the card, plain
     PyTorch (the reference computes the router, the dispatch and the
     experts in ``jnp``, outside any Pallas kernel): (a) qwen3-moe-30b-a3b
     serving, (b) mixtral-8x7b serving (the banded window-4096 attention
     and the ring cache), (c) the card against the CPU on both reduced
-    configs, (d) qwen3-moe's train step, (e) EP over two gloo ranks; the
-    B1-B7 counters read 0 throughout."""
+    configs, (d) qwen3-moe's train step, (e) EP over two gloo ranks, (f)
+    mixtral's groups spanning the data ranks of (2, 1) and (2, 2),
+    gathered; the B1-B7 counters read 0 throughout."""
     import torch
 
     print("== phase 3 (moe): qwen3-moe-30b-a3b and mixtral-8x7b served, "
@@ -4544,6 +4776,7 @@ def phase_moe(dev, smi):
     print("  (d)")
     moe_training(dev, smi)
     moe_ep(dev, smi)
+    moe_span(dev, smi)
     print("  B1-B7 launches in every part: (0, 0, 0)")
 
 
@@ -6989,6 +7222,244 @@ def phase_times_conv1d(dev, smi, launches):
     return rows
 
 
+# Phase 3 (dryrun): (a) the eager dry run of every cell on both
+# production meshes (``repro_torch.launch.dryrun --all``, meta tensors on
+# a fake process group, no card), started in a subprocess right after
+# phase 1 at the lowest CPU priority and read here; (b) the three model
+# cells the script times elsewhere, each step counted by FlopCounterMode
+# on the card and on meta (equal), timed on the card against its
+# roofline bound (the FLOPs over the bf16 rate, the traffic model's bytes
+# over the memory rate, the larger).
+DRYRUN_JOBS = 2
+DRYRUN_OUT = ROOT / "build" / "dryrun.json"
+DRYRUN_LOG = ROOT / "build" / "dryrun.log"
+DRYRUN_TIMEOUT = 900  # seconds to wait in the phase for the subprocess
+DRYRUN_CELLS = 64  # 32 cells with status run, on two meshes
+DRYRUN_TIMED = 3  # timed steps after a warm-up; the median is kept
+
+
+def dryrun_start():
+    """The dry run's subprocess (``nice`` 19, ``DRYRUN_JOBS`` workers),
+    writing ``DRYRUN_OUT`` and its log ``DRYRUN_LOG``."""
+    import subprocess
+
+    DRYRUN_OUT.parent.mkdir(parents=True, exist_ok=True)
+    DRYRUN_OUT.unlink(missing_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    log = open(DRYRUN_LOG, "w")
+    try:
+        return subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+             "--jobs", str(DRYRUN_JOBS), "--out", str(DRYRUN_OUT)],
+            stdout=log, stderr=subprocess.STDOUT, env=env, cwd=ROOT,
+            start_new_session=True, preexec_fn=lambda: os.nice(19))
+    finally:
+        log.close()
+
+
+def _dryrun_cells(proc) -> dict:
+    """(a): wait for the subprocess, print each cell's status and
+    dominant term, and fail unless every cell with status run is ok."""
+    import collections
+
+    t0 = time.perf_counter()
+    rc = proc.wait(timeout=DRYRUN_TIMEOUT)
+    waited = time.perf_counter() - t0
+    recs = json.loads(DRYRUN_OUT.read_text()) if DRYRUN_OUT.exists() else []
+    by = collections.defaultdict(dict)
+    for r in recs:
+        by[(r["arch"], r["shape"])][r["mesh"]] = r
+    for (arch, shape), meshes in sorted(by.items()):
+        cols = []
+        for mesh in ("single", "multi"):
+            r = meshes.get(mesh, {"status": "missing"})
+            if r["status"] == "ok":
+                cols.append(
+                    f"{mesh} ok {r['dominant']} (compute {r['compute_s']:.3e}"
+                    f" s, memory {r['memory_s']:.3e}, collective "
+                    f"{r['collective_s']:.3e}; roofline share "
+                    f"{r['roofline_fraction']:.3f}, useful FLOPs "
+                    f"{r['useful_flops_ratio']:.3f}, resident "
+                    f"{r['resident_bytes_per_chip'] / 1e9:.2f} GB)")
+            else:
+                cols.append(f"{mesh} {r['status']} {r.get('error', '')}")
+        print(f"  (a) {arch} x {shape}: " + "; ".join(cols))
+    ok = sum(r["status"] == "ok" for r in recs)
+    failed = [r for r in recs if r["status"] not in ("ok",)
+              and not r["status"].startswith("skip")]
+    print(f"  (a) dry run: rc {rc}, {ok} cells ok, "
+          f"{sum(r['status'].startswith('skip') for r in recs)} skipped "
+          f"(documented), {len(failed)} failed, waited {waited:.1f} s here "
+          f"(log: {DRYRUN_LOG.relative_to(ROOT)})")
+    if rc != 0 or failed or ok != DRYRUN_CELLS:
+        print(DRYRUN_LOG.read_text()[-4000:])
+        raise AssertionError(f"dry run: rc {rc}, {ok} ok, failed {failed}")
+    return {(r["arch"], r["shape"], r["mesh"]): r for r in recs}
+
+
+def _dryrun_step(dev, smi, label, cfg, shape, seed=1):
+    """(b) for one cell: the step built on the card (seeded parameters
+    and inputs) and on meta by ``dryrun.build_cell``, counted by
+    FlopCounterMode on both (equal), then timed on the card (a warm-up,
+    ``DRYRUN_TIMED`` steps, the median) against ``Roofline.bound_s``."""
+    import statistics
+
+    import torch
+
+    from repro_torch.core import rooflinelib as rl
+    from repro_torch.core.trafficmodel import modeled_hbm_bytes
+    from repro_torch.launch import dryrun
+
+    run, resident = dryrun.build_cell(cfg, shape, device=dev, seed=seed)
+    _reset_all_counts()
+    card, _ = dryrun.count_flops(run)
+    torch.cuda.synchronize()
+    launches = _all_counts()
+    meta_run, meta_resident = dryrun.build_cell(cfg, shape)
+    meta, _ = dryrun.count_flops(meta_run)
+    times = []
+    for _ in range(DRYRUN_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    secs = statistics.median(times)
+    roof = rl.Roofline(
+        flops=meta, chips=1, collective_wire_bytes=0.0,
+        hbm_bytes=modeled_hbm_bytes(cfg, shape.kind, shape.seq_len,
+                                    shape.global_batch, model_ways=1,
+                                    dp_ways=1))
+    print(f"  (b) {label}: FlopCounterMode {card:.6e} FLOPs on the card, "
+          f"{meta:.6e} on meta ({'equal' if card == meta else 'DIFFER'}); "
+          f"resident {resident / 2**30:.2f} GiB (meta {meta_resident / 2**30:.2f}"
+          f"); launches (B7, fused-stencil, xcorr1d) {launches}, B7's not "
+          f"seen by the counter; step {1e3 * secs:.2f} ms (host clock, median "
+          f"of {DRYRUN_TIMED}: {', '.join(f'{1e3 * t:.2f}' for t in times)})"
+          f" against a bound of {1e3 * roof.bound_s:.3f} ms ({roof.dominant}:"
+          f" compute {1e3 * roof.compute_s:.3f}, memory "
+          f"{1e3 * roof.memory_s:.3f}): {roof.bound_s / secs:.2%} of the "
+          f"bound, on {smi}")
+    if card != meta or card <= 0:
+        raise AssertionError(f"dry run (b) {label}: card {card}, meta {meta}")
+    del run
+    torch.cuda.empty_cache()
+    return {"label": label, "flops": meta, "ms": 1e3 * secs,
+            "bound_ms": 1e3 * roof.bound_s, "launches": launches}
+
+
+def phase_dryrun(dev, smi, proc):
+    """Phase 3 (dryrun): (b) then (a), while the subprocess finishes: (a)
+    every cell of the dry run on both meshes, (b) mamba2-780m's prefill ``PREFILL_SHAPE`` (bf16, 48 B7 launches),
+    llama3-8b's decode step at ``LM_BATCH`` against the serve loop's cache
+    of 128 slots (bf16) and qwen2.5-3b's train step
+    ``DENSE_TRAIN_SHAPE``: the FLOP count on the card equal to meta's, the
+    step's time against its roofline bound."""
+    import torch
+
+    from repro_torch.configs.registry import ShapeSpec, get_config
+
+    print("== phase 3 (dryrun): the eager dry run of the 40-cell matrix "
+          "(launch/dryrun.py) and three model steps against their roofline")
+    print(f"  card: {smi}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = []
+    b, s = PREFILL_SHAPE
+    rows.append(_dryrun_step(dev, smi, f"mamba2-780m prefill ({b}, {s})",
+                             get_config("mamba2-780m"),
+                             ShapeSpec("prefill", s, b, "prefill")))
+    rows.append(_dryrun_step(
+        dev, smi, f"llama3-8b decode at batch {LM_BATCH}, cache 128",
+        get_config("llama3-8b"), ShapeSpec("decode", 128, LM_BATCH,
+                                           "decode")))
+    b, s = DENSE_TRAIN_SHAPE
+    rows.append(_dryrun_step(dev, smi, f"qwen2.5-3b train step ({b}, {s})",
+                             get_config("qwen2.5-3b"),
+                             ShapeSpec("train", s, b, "train")))
+    if rows[0]["launches"][0] != get_config("mamba2-780m").n_layers:
+        raise AssertionError(f"dry run (b) mamba2: launches {rows[0]}")
+    _dryrun_cells(proc)
+    return rows
+
+
+# Phase 3 (examples): the five examples/torch_*.py on the card, each in a
+# subprocess of its own (all at once), at small arguments; each must exit
+# 0 and print its OK line; the stencil examples must launch B1-B5.
+EXAMPLES = {
+    "torch_quickstart": [],
+    "torch_mhd_simulation": ["--n", "32", "--steps", "8"],
+    "torch_serve_ensemble": ["--requests", "8", "--steps", "4",
+                             "--max-batch", "4"],
+    "torch_serve_batched": ["--requests", "8", "--max-new", "12"],
+    "torch_train_lm": ["--steps", "60", "--global-batch", "8",
+                       "--seq-len", "64", "--fail-at", "30"],
+}
+STENCIL_EXAMPLES = ("torch_quickstart", "torch_mhd_simulation",
+                    "torch_serve_ensemble")
+EXAMPLES_TIMEOUT = 600
+
+
+def phase_examples(dev, smi):
+    """Phase 3 (examples): every example at ``EXAMPLES``' arguments on the
+    card (its default device), its exit code checked, its seconds (the
+    five share the card and the host) and, for the stencil examples,
+    their fused-stencil launches printed."""
+    import re
+    import shutil
+    import subprocess
+
+    print("== phase 3 (examples): examples/torch_*.py on the card")
+    cache = ROOT / "build" / "examples-tune"
+    shutil.rmtree(cache, ignore_errors=True)
+    cache.mkdir(parents=True)
+    procs, ends = {}, {}
+    t0 = time.perf_counter()
+    for name, args in EXAMPLES.items():
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                   REPRO_TORCH_TUNE_CACHE=str(cache / name))
+        with open(cache / f"{name}.log", "w") as log:
+            procs[name] = subprocess.Popen(
+                [sys.executable, str(ROOT / "examples" / f"{name}.py"),
+                 *args], stdout=log, stderr=subprocess.STDOUT, env=env,
+                cwd=ROOT)
+    failed = []
+    try:
+        while len(ends) < len(procs):
+            for name, proc in procs.items():
+                if name not in ends and proc.poll() is not None:
+                    ends[name] = time.perf_counter() - t0
+            if time.perf_counter() - t0 > EXAMPLES_TIMEOUT:
+                raise TimeoutError(f"examples still running: "
+                                   f"{sorted(set(procs) - set(ends))}")
+            time.sleep(0.1)
+        for name, proc in procs.items():
+            out = (cache / f"{name}.log").read_text()
+            ok_line = name.removeprefix("torch_") + " OK"
+            found = re.findall(r"fused-stencil launches: (\d+) (\{.*\})", out)
+            launches = int(found[-1][0]) if found else 0
+            line = (f"  {name} {' '.join(EXAMPLES[name])}: rc "
+                    f"{proc.returncode} in {ends[name]:.1f} s")
+            if found:
+                line += f", fused-stencil launches {launches} {found[-1][1]}"
+            print(line + f" on {smi}")
+            for tail in out.strip().splitlines()[-3:]:
+                print(f"    | {tail}")
+            if (proc.returncode != 0 or not out.rstrip().endswith(ok_line)
+                    or (name in STENCIL_EXAMPLES and launches <= 0)):
+                failed.append(name)
+                print(out[-3000:])
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(cache, ignore_errors=True)
+    print(f"  five examples in {time.perf_counter() - t0:.1f} s (at once)")
+    if failed:
+        raise AssertionError(f"examples failed: {failed}")
+
+
 def main(argv: list[str]) -> int:
     import torch
 
@@ -7011,6 +7482,30 @@ def main(argv: list[str]) -> int:
 
     smi = timed("phase 1", phase_card)
     print(smi)
+    dry = None
+    if "--dryrun" in argv or not any(a.startswith("--") for a in argv):
+        dry = dryrun_start()  # no card: runs beside the phases below
+    try:
+        return _phases(argv, dev, smi, timed, seconds, t0, dry)
+    finally:
+        if dry is not None and dry.poll() is None:
+            import signal
+
+            os.killpg(dry.pid, signal.SIGKILL)  # its workers too
+            dry.wait()
+
+
+def _phases(argv, dev, smi, timed, seconds, t0, dry) -> int:
+    """The phases that ``argv`` selects (every one without a flag)."""
+    import torch
+
+    if "--dryrun" in argv:
+        rows = timed("phase 3 (dryrun)", phase_dryrun, dev, smi, dry)
+        print(json.dumps({"dryrun_steps": rows}))
+        return 0
+    if "--examples" in argv:
+        timed("phase 3 (examples)", phase_examples, dev, smi)
+        return 0
     if "--verify" in argv:
         timed("phase 3 (verify)", phase_verify, dev, smi)
         return 0
@@ -7062,6 +7557,8 @@ def main(argv: list[str]) -> int:
     timed("phase 3 (moe)", phase_moe, dev, smi)
     timed("phase 3 (hybrid)", phase_hybrid, dev, smi)
     timed("phase 3 (encdec)", phase_encdec, dev, smi)
+    timed("phase 3 (dryrun)", phase_dryrun, dev, smi, dry)
+    timed("phase 3 (examples)", phase_examples, dev, smi)
     timed("phase 3b", phase_serve, dev, launches)
     timed("phase 3 (verify)", phase_verify, dev, smi)
     timed("phase 3 (tune)", phase_tune, dev, smi)

@@ -1,6 +1,21 @@
-"""Modeled device-memory traffic and redundant work of temporal fusion
-and of slowest-axis streaming (the port's own copy of the stencil half
-of ``repro.core.trafficmodel``; numpy-free, no JAX).
+"""Modeled device-memory traffic (the port's own copy of
+``repro.core.trafficmodel``; numpy-free, no JAX): per-rank bytes of a
+language model's train, prefill and decode step, and the traffic and
+redundant work of the stencil's temporal fusion and slowest-axis
+streaming.
+
+The model half (:func:`modeled_hbm_bytes`) is the reference's analytic
+count of what one fused step moves through device memory per rank,
+term for term: parameters (f32 master read and write, the bf16 cast
+written and read), AdamW's moments, gradients, remat-saved activations
+and logits for training; one bf16 read of the parameters and the
+activations at each layer boundary for prefill; the active parameters
+and the decode cache (read whole, one slot written) for decode.
+Parameters are taken as cut over ``model`` (and over the data ranks
+under FSDP), activations over the data ranks on tokens, their hidden
+dims over ``model`` where the rules cut them. The dry run
+(``launch.dryrun``) reads it as the memory term of each cell's
+roofline.
 
 A ``fuse_steps``-deep launch stages each tile with a ``radii *
 fuse_steps`` halo, writes the interior once and advances that many time
@@ -15,6 +30,120 @@ costmodel``) scores tiles with them over the card's data-sheet rates
 from __future__ import annotations
 
 from typing import Sequence
+
+from repro_torch.models.config import ModelConfig
+
+
+def _act_bytes_per_token_layer(cfg: ModelConfig, model_ways: int) -> float:
+    """Remat-saved bytes per token per layer (bf16), TP-sharded dims ÷M."""
+    d = cfg.d_model
+    m = model_ways
+    if cfg.family == "ssm":
+        dv = cfg.d_inner
+        # in_proj out (2dv+2gn+h)/M, conv out, ssd y, out_proj in
+        per = (2 * dv + 2 * cfg.ssm_n_groups * cfg.ssm_state) / m * 3 + d
+    elif cfg.hybrid_pattern:
+        w = cfg.lru_width or d
+        per = (3 * w / m + d) * 2 / 3 + (  # rec blocks (2 of 3)
+            (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.hd / m + d
+            + 2 * cfg.d_ff / m
+        ) / 3
+    else:
+        ff = cfg.d_ff_expert * cfg.top_k if cfg.family == "moe" else cfg.d_ff
+        per = (
+            (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.hd / m  # qkv
+            + cfg.n_heads * cfg.hd / m  # attn out
+            + 2 * ff / m  # gate/up
+            + 2 * d  # residual stream saves
+        )
+    return per * 2.0  # bf16
+
+
+def modeled_hbm_bytes(
+    cfg: ModelConfig,
+    kind: str,
+    seq: int,
+    global_batch: int,
+    *,
+    model_ways: int,
+    dp_ways: int,
+    fsdp: bool = False,
+) -> float:
+    """Per-rank device-memory bytes for one step of ``kind`` (``"train"``,
+    ``"prefill"`` or ``"decode"``) at ``global_batch`` rows of ``seq``
+    tokens, over ``model_ways`` x ``dp_ways`` ranks."""
+    n_params = cfg.n_params()
+    n_active = cfg.n_active_params()
+    p_shard = n_params / model_ways / (dp_ways if fsdp else 1)
+    eff_seq = cfg.max_target_len if cfg.is_encdec and kind != "prefill" else seq
+    tokens_chip = global_batch * eff_seq / dp_ways / max(
+        1, (model_ways if kind != "decode" else 1)
+    )
+    # sequence is model-sharded (SP) in train/prefill; decode has 1 token.
+    if kind == "decode":
+        tokens_chip = max(global_batch / dp_ways, 1.0)
+
+    n_layers = cfg.n_layers + cfg.n_encoder_layers
+
+    if kind == "train":
+        param_traffic = p_shard * (4 + 4 + 2 + 2)  # f32 r/w + bf16 w/r
+        opt_traffic = p_shard * 4 * 4  # mu, nu r+w
+        grad_traffic = p_shard * 4 * 2
+        act = tokens_chip * n_layers * _act_bytes_per_token_layer(
+            cfg, model_ways
+        ) * 2.0  # write fwd + read bwd
+        logits = tokens_chip * (cfg.vocab / model_ways) * 2 * 3
+        return param_traffic + opt_traffic + grad_traffic + act + logits
+    if kind == "prefill":
+        param_traffic = p_shard * 2  # bf16-equivalent read
+        act = tokens_chip * n_layers * _act_bytes_per_token_layer(
+            cfg, model_ways
+        )
+        return param_traffic + act
+    # decode
+    p_active_shard = n_active / model_ways
+    param_traffic = p_active_shard * 2  # bf16 read per token
+    cache = _decode_cache_bytes(cfg, seq, global_batch, dp_ways, model_ways)
+    return param_traffic + cache
+
+
+def _decode_cache_bytes(
+    cfg: ModelConfig, seq: int, global_batch: int, dp_ways: int,
+    model_ways: int,
+) -> float:
+    b_chip = max(global_batch / dp_ways, 1.0)
+    if cfg.family == "ssm":
+        dv = cfg.d_inner
+        state = (
+            cfg.ssm_n_heads * cfg.ssm_state * cfg.ssm_head_dim
+            + (cfg.ssm_conv_kernel - 1)
+            * (dv + 2 * cfg.ssm_n_groups * cfg.ssm_state)
+        )
+        shard = model_ways  # heads/channels sharded
+        return b_chip * cfg.n_layers * state / shard * 4 * 2  # f32 r+w
+    if cfg.hybrid_pattern:
+        n_rec = cfg.n_layers - cfg.n_layers // cfg.hybrid_pattern
+        n_att = cfg.n_layers // cfg.hybrid_pattern
+        w = cfg.lru_width or cfg.d_model
+        rec = b_chip * n_rec * (
+            w + (cfg.ssm_conv_kernel - 1) * w
+        ) / model_ways * 4 * 2
+        win = min(cfg.local_window, seq)
+        att = b_chip * n_att * win * cfg.n_kv_heads * cfg.hd * 2
+        return rec + att
+    cache_len = (
+        min(cfg.sliding_window, seq) if cfg.sliding_window else seq
+    )
+    kv_shard = model_ways if cfg.n_kv_heads % model_ways == 0 else 1
+    return (
+        b_chip * cfg.n_layers * cache_len * 2  # k and v
+        * cfg.n_kv_heads * cfg.hd / kv_shard * 2  # bf16
+    )
+
+
+# ---------------------------------------------------------------------------
+# Stencil temporal-fusion traffic (the fused-kernel bandwidth lever).
+# ---------------------------------------------------------------------------
 
 
 def _ceil_div(a: int, b: int) -> int:

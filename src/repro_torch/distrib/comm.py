@@ -17,6 +17,9 @@ to another):
 
 * ``gloo`` and a CPU tensor, ``nccl`` and a CUDA tensor: the collective
   runs on the tensors (the flat bucket on their device) as they are.
+* ``fake`` (``torch.testing``'s backend whose collectives move
+  nothing: the dry run's single-process mesh, ``launch.dryrun``), any
+  tensor, meta ones included: the call is made as it is and counted.
 * ``gloo`` and a CUDA tensor: gloo reduces host memory, so each bucket
   is staged through pinned host buffers (:class:`PinnedPool`; the
   collectives share :data:`STAGING`'s two, a send and a receive buffer
@@ -65,12 +68,12 @@ def route(group, t: torch.Tensor) -> str:
     cuda = t.device.type == "cuda"
     if backend == "gloo":
         return "staged" if cuda else "direct"
-    if backend == "nccl" and cuda:
+    if (backend == "nccl" and cuda) or backend == "fake":
         return "direct"
     raise ValueError(
         f"no collective route for backend {backend!r} and a tensor on "
         f"{t.device}: use gloo (CPU or CUDA tensors, CUDA staged through "
-        "pinned host memory) or nccl (CUDA tensors)"
+        "pinned host memory), nccl (CUDA tensors) or fake (a dry run)"
     )
 
 

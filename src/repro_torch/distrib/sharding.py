@@ -25,8 +25,8 @@ mapping, as in the reference:
               takes the cuts the reference's rules make as they match
               its leaves, and no others.
               The MoE's groups are GSPMD's over the global batch: where
-              one would span data-parallel ranks the FFN raises
-              (:func:`batch_ranks`).
+              one spans data-parallel ranks the FFN gathers its rows
+              over them (:func:`batch_cut`, :func:`gather_rows`).
 * **FSDP**  — parameters (and their AdamW moments) additionally cut over
               the data-parallel ranks, ZeRO-style (``fsdp=True``).
 
@@ -461,19 +461,28 @@ def profile_act_rules(profile: str):
     return PROFILES[profile]
 
 
-def set_rules(mesh, rules: Mapping[str, tuple] | None = None):
+def set_rules(mesh, rules: Mapping[str, tuple] | None = None, *,
+              batch_rows: int | None = None):
+    """Install ``rules`` (the ``tp`` profile's by default) on ``mesh`` (a
+    ``DeviceMesh`` or {axis name: size}). ``batch_rows``, where the
+    caller knows it, is the global batch's row count, from which
+    :func:`batch_cut` reads the axes ``batch_spec`` really cuts the
+    batch over."""
     _STATE.mesh = mesh
     _STATE.rules = dict(rules or DEFAULT_ACT_RULES)
+    _STATE.batch_rows = batch_rows
 
 
 @contextlib.contextmanager
-def rules_context(mesh, rules: Mapping[str, tuple] | None = None):
-    prev = (getattr(_STATE, "mesh", None), getattr(_STATE, "rules", None))
-    set_rules(mesh, rules)
+def rules_context(mesh, rules: Mapping[str, tuple] | None = None, *,
+                  batch_rows: int | None = None):
+    prev = (getattr(_STATE, "mesh", None), getattr(_STATE, "rules", None),
+            getattr(_STATE, "batch_rows", None))
+    set_rules(mesh, rules, batch_rows=batch_rows)
     try:
         yield
     finally:
-        _STATE.mesh, _STATE.rules = prev
+        _STATE.mesh, _STATE.rules, _STATE.batch_rows = prev
 
 
 def constrain(x: torch.Tensor, kind: str) -> torch.Tensor:
@@ -501,16 +510,76 @@ class ModelAxis:
     index: int
 
 
-def batch_ranks() -> int:
-    """The ranks the installed rule set cuts the batch over (its
-    ``tokens_bs`` rule's batch axes on the mesh: ``(pod, data)``, every
-    axis under the ``dp`` profile); 1 without a rule set."""
+@dataclasses.dataclass(frozen=True)
+class BatchCut:
+    """The mesh axes that really cut the batch the model sees (``()``
+    where every rank holds it whole), their ranks, this rank's position
+    along their product and their process group (None under a mapping
+    of sizes or where nothing is cut)."""
+
+    axes: tuple[str, ...]
+    ranks: int
+    index: int
+    group: Any
+
+
+def batch_cut() -> BatchCut:
+    """How the installed rule set cuts the batch: over the ``tokens_bs``
+    rule's batch axes (``(pod, data)``, every axis under the ``dp``
+    profile) as ``batch_spec`` cuts it, which is not at all where their
+    ranks do not divide its rows.
+
+    The model sees this rank's rows, not the global batch, so the rows
+    come from the caller (``batch_rows`` of :func:`rules_context`; the
+    step makers pass theirs on). Without them a ``DeviceMesh``'s ranks
+    hold their rows of a batch cut over those axes (as
+    ``BatchIterator`` and ``batch_spec`` cut every batch whose rows the
+    ranks divide), and under a mapping of sizes, where no rank holds
+    other rows, the model holds every row and nothing is cut."""
     mesh = getattr(_STATE, "mesh", None)
     rules = getattr(_STATE, "rules", None)
-    if mesh is None or not rules:
-        return 1
-    return _axes_size(_axes_tuple(rules["tokens_bs"][0]),
-                      mesh_axis_sizes(mesh))
+    rows = getattr(_STATE, "batch_rows", None)
+    if mesh is None or not rules or (rows is None
+                                     and isinstance(mesh, Mapping)):
+        return BatchCut((), 1, 0, None)
+    sizes = mesh_axis_sizes(mesh)
+    wanted = rules["tokens_bs"][0]
+    if rows is not None:
+        spec = safe_spec((int(rows),), (wanted,), mesh)
+        wanted = spec[0] if spec else None
+    axes = tuple(a for a in _axes_tuple(_filter_axes(wanted, sizes))
+                 if sizes[a] > 1)
+    ranks = _axes_size(axes, sizes)
+    if ranks == 1 or isinstance(mesh, Mapping):
+        return BatchCut(axes, ranks, 0, None)
+    return BatchCut(axes, ranks, axis_index(mesh, axes),
+                    axis_group(mesh, axes))
+
+
+def batch_ranks() -> int:
+    """The ranks that really cut the batch (:func:`batch_cut`); 1
+    without a rule set."""
+    return batch_cut().ranks
+
+
+def gather_rows(x: torch.Tensor, cut: BatchCut) -> torch.Tensor:
+    """Every rank's rows ``x`` (dim 0) of the batch cut by ``cut``,
+    stacked in the global batch's order (an all-gather over its
+    group); the gradient summed over those ranks and cut back to this
+    rank's rows (a reduce-scatter).
+
+    Raises:
+        ValueError: under a mapping of axis sizes, which has no ranks
+            to gather from.
+    """
+    if cut.ranks == 1:
+        return x
+    if cut.group is None:
+        raise ValueError(
+            f"the batch is cut over {cut.axes} ({cut.ranks} ranks) on a "
+            "mapping of axis sizes, which has no process group to gather "
+            "its rows over")
+    return _GatherForCompute.apply(x, cut.group, 0)
 
 
 def model_axis() -> ModelAxis | None:

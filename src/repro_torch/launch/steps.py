@@ -77,7 +77,11 @@ def make_grad_step(cfg: ModelConfig, *,
         leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
         loss, metrics = api.lm_loss(leaves, cfg, batch, **conv)
         loss.backward()
-        grads = tree_map(lambda p: p.grad, leaves)
+        # a leaf the loss does not reach (a stack of no layers: the
+        # hybrid's tail at a depth the pattern divides) gets zeros, as
+        # jax.grad gives it
+        grads = tree_map(lambda p: torch.zeros_like(p) if p.grad is None
+                         else p.grad, leaves)
         return (loss.detach(),
                 {k: v.detach() for k, v in metrics.items()}, grads)
 
@@ -129,12 +133,14 @@ def cache_shardings(cache, mesh):
         for name, leaf in cache._asdict().items() if leaf is not None})
 
 
-def _rule_set(mesh, profile: str = "tp"):
+def _rule_set(mesh, profile: str = "tp", batch_rows: int | None = None):
     """The profile's rule set installed on ``mesh`` for a step's call
-    (nothing without a mesh)."""
+    (nothing without a mesh), with the global batch's rows where the
+    caller gave them (``sharding.batch_cut``)."""
     if mesh is None:
         return contextlib.nullcontext()
-    return shlib.rules_context(mesh, shlib.profile_act_rules(profile))
+    return shlib.rules_context(mesh, shlib.profile_act_rules(profile),
+                               batch_rows=batch_rows)
 
 
 def _whole_vocab(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
@@ -148,7 +154,8 @@ def _whole_vocab(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
 
 def make_synced_grad_step(cfg: ModelConfig, *, mesh, profile: str = "tp",
                           fsdp: bool = False,
-                          device: str | torch.device | None = None):
+                          device: str | torch.device | None = None,
+                          batch_rows: int | None = None):
     """``synced_grad_step(params, batch)`` → (loss, metrics, grads,
     grad_norm) on one rank of ``mesh``: ``batch`` is this rank's rows of
     the global batch (``batch_spec``: ``BatchIterator(host_index=
@@ -167,7 +174,18 @@ def make_synced_grad_step(cfg: ModelConfig, *, mesh, profile: str = "tp",
     ``fsdp``; a ``model`` block is summed as the block), which gives
     the reference's global-batch mean; the loss is the global mean too.
     ``grad_norm`` is the global norm of a sharded tree (None when every
-    leaf is full: AdamW takes it from the tree)."""
+    leaf is full: AdamW takes it from the tree). ``batch_rows``, where
+    given, is the global batch's row count: the ranks that cut it are
+    then ``batch_spec``'s (``sharding.batch_cut``; without it every
+    data-parallel rank holds its rows of a cut batch).
+
+    The MoE's groups that span data-parallel ranks are gathered (``models.
+    moe``): the aux loss, computed over the whole batch on every rank,
+    enters the mean once, and its gradient reaches every rank's rows
+    through the gather's reduce-scatter. That sum is taken before this
+    rank's weight, so the gradient is the global batch's where the
+    ranks hold equal token counts (equal loss masks), as the data
+    loader's cuts give them."""
     grad_step = make_grad_step(cfg, device=device)
     p_sh, _ = train_shardings(cfg, mesh, profile=profile, fsdp=fsdp)
     axes = shlib.dp_axes(profile)
@@ -176,7 +194,7 @@ def make_synced_grad_step(cfg: ModelConfig, *, mesh, profile: str = "tp",
 
     def synced_grad_step(params, batch):
         full = shlib.gather_tree(params, p_sh, axes) if sharded else params
-        with _rule_set(mesh, profile):
+        with _rule_set(mesh, profile, batch_rows):
             loss, metrics, grads = grad_step(full, batch)
         del full
         mask = batch.get("loss_mask")
@@ -199,7 +217,7 @@ def make_synced_grad_step(cfg: ModelConfig, *, mesh, profile: str = "tp",
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
                     device: str | torch.device | None = None,
                     mesh=None, profile: str = "tp", fsdp: bool = False,
-                    donate: bool = False):
+                    donate: bool = False, batch_rows: int | None = None):
     """``train_step(params, opt_state, batch)`` → (params, opt_state,
     metrics): the gradient of ``lm_loss`` (:func:`make_grad_step`; for
     mamba2 the B7 kernel on the card), then one ``adamw_update``;
@@ -217,7 +235,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
     the ZeRO cuts. The parameters and their moments are this rank's
     blocks (``train_shardings`` gives the layout; ``sharding.shard_tree``
     cuts a full tree to it), and AdamW updates the blocks, clipped by
-    the global norm. Metrics are global and equal on every rank."""
+    the global norm. Metrics are global and equal on every rank.
+    ``batch_rows`` goes to :func:`make_synced_grad_step`."""
     if mesh is None:
         if fsdp:
             raise ValueError("fsdp=True needs a mesh")
@@ -233,7 +252,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
         return train_step
 
     synced = make_synced_grad_step(cfg, mesh=mesh, profile=profile,
-                                   fsdp=fsdp, device=device)
+                                   fsdp=fsdp, device=device,
+                                   batch_rows=batch_rows)
 
     def dp_train_step(params, opt_state, batch):
         loss, metrics, grads, norm = synced(params, batch)
@@ -247,7 +267,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
 
 def make_prefill_step(cfg: ModelConfig, *, mesh=None,
                       device: str | torch.device | None = None,
-                      use_pallas_conv: bool | None = None):
+                      use_pallas_conv: bool | None = None,
+                      batch_rows: int | None = None):
     """``prefill_step(params, batch)`` → the last position's logits
     (b, vocab) in float32; ``batch`` may carry the VLM's ``positions``
     and ``patch_embeds``, and carries whisper's ``frames``. ``use_pallas_conv``, when set, goes to
@@ -260,7 +281,9 @@ def make_prefill_step(cfg: ModelConfig, *, mesh=None,
     the last position's logits are gathered over ``model`` once, so
     every rank returns its rows' whole-vocab logits. Whisper's
     ``frames`` are this rank's rows too; its encoder runs under the rule
-    set as well.
+    set as well. ``batch_rows``, where given, is the global batch's row
+    count (``sharding.batch_cut``: a batch ``batch_spec`` leaves whole
+    is then held whole by every rank).
     """
     api = get_model(cfg)
     dev = resolve_device(device)
@@ -269,7 +292,7 @@ def make_prefill_step(cfg: ModelConfig, *, mesh=None,
     def prefill_step(params, batch):
         extra = {k: batch[k] for k in ("positions", "patch_embeds", "frames")
                  if k in batch}
-        with _rule_set(mesh):
+        with _rule_set(mesh, batch_rows=batch_rows):
             logits, _ = api.forward(params, cfg, _tokens_on(batch, dev),
                                     **extra, **conv)
             return _whole_vocab(cfg, logits[:, -1])
@@ -278,7 +301,8 @@ def make_prefill_step(cfg: ModelConfig, *, mesh=None,
 
 
 def make_serve_step(cfg: ModelConfig, *, mesh=None,
-                    device: str | torch.device | None = None):
+                    device: str | torch.device | None = None,
+                    batch_rows: int | None = None):
     """``serve_step(params, cache, batch)`` → (logits (b, vocab) float32,
     next cache): one decode step of ``batch["tokens"]`` (b, 1).
 
@@ -287,13 +311,14 @@ def make_serve_step(cfg: ModelConfig, *, mesh=None,
     rule set, or ``shard_tree`` of :func:`cache_shardings`), ``batch``
     its rows; the logits are gathered over ``model`` once, at the end.
     Whisper's cache (cross K/V included) is ``encdec.init_decode_cache``
-    of the encoder's output, both under the rule set.
+    of the encoder's output, both under the rule set. ``batch_rows`` as
+    :func:`make_prefill_step` takes it.
     """
     api = get_model(cfg)
     dev = resolve_device(device)
 
     def serve_step(params, cache, batch):
-        with _rule_set(mesh):
+        with _rule_set(mesh, batch_rows=batch_rows):
             logits, cache = api.decode_step(
                 params, cfg, _tokens_on(batch, dev), cache
             )

@@ -29,6 +29,18 @@ expert and its rows of ``w_down`` (expert-TP, ``cut="hidden"``), and the
 ranks' partial outputs are summed once in float32 and rounded once to
 the compute dtype (``out_of_region``).
 
+The groups are GSPMD's, over the global batch's tokens in order: on a
+mesh whose data-parallel ranks cut the batch (``sharding.batch_cut``),
+the group size is that of the global token count, and where a group
+spans ranks each rank gathers every rank's rows (``sharding.
+gather_rows``: its gradient a reduce-scatter), routes all the global
+groups (so the aux loss is the global batch's, the same on every rank,
+and counted once in the data-parallel mean), runs the dispatch, the
+experts and the combine on the groups that hold its own rows, and keeps
+those rows. This is the correct form, not the fast one: every rank
+routes the whole batch, and the rows move by an all-gather, not an
+all-to-all of the dispatched slots.
+
 Each call's parts run under ``torch.profiler.record_function`` ranges
 (``moe.route``, ``moe.dispatch``, ``moe.experts``, ``moe.combine``), so
 a trace splits the device time between the dispatch and combine
@@ -157,24 +169,33 @@ def moe_ffn(x: torch.Tensor, p: dict, cfg: ModelConfig, *,
     ``w_gate``/``w_up`` (E, d, f) and ``w_down`` (E, f, d), or under
     ``cut`` this rank's block of the experts: ``"experts"`` E/m whole
     experts (EP), ``"hidden"`` f/m columns of each (expert-TP), over
-    ``axis``.
-
-    Raises:
-        NotImplementedError: where the installed rule set cuts the
-            tokens over data-parallel ranks and a group of the global
-            batch would span them (GSPMD groups the global tokens, so
-            capacities and drops would differ).
-    """
+    ``axis``. Where the installed rule set cuts the batch over
+    data-parallel ranks and a group of the global batch spans them,
+    the group's rows are gathered over those ranks first (the module
+    docstring)."""
     if cut not in (None, "experts", "hidden"):
         raise ValueError(f"cut {cut!r}; want None, 'experts' or 'hidden'")
     b, s, d = x.shape
     dtype = x.dtype
-    tg = _global_group(b * s, group_size)
-    xg = x.reshape(b * s // tg, tg, d)
+    t = b * s
+    batch = shlib.batch_cut()
+    tg = group_size_for(t * batch.ranks, group_size)
+    spans = t % tg != 0
+    xt = x.reshape(t, d)
+    if spans:  # route the global batch
+        xt = shlib.gather_rows(xt, batch)
+    xg = xt.reshape(xt.shape[0] // tg, tg, d)
     with record_function("moe.route"):
         r = route(xg, p["router"], cfg, tg)
     _record(r)
     dispatch, gate = r.dispatch, r.gate
+    lo = 0  # this rank's first row in the groups kept below
+    if spans:  # keep the groups that hold this rank's rows
+        lo = batch.index * t
+        g0, g1 = lo // tg, (lo + t - 1) // tg + 1
+        xg, dispatch, gate = (v.narrow(0, g0, g1 - g0)
+                              for v in (xg, dispatch, gate))
+        lo -= g0 * tg
     if cut is not None:
         xg = shlib.into_region(xg, axis)
         gate = shlib.into_region(gate, axis)
@@ -197,24 +218,8 @@ def moe_ffn(x: torch.Tensor, p: dict, cfg: ModelConfig, *,
         else:  # the ranks' partial sums added in float32, rounded once
             y = torch.einsum("gtec,gecd->gtd", combine.float(), ye.float())
             y = shlib.out_of_region(y, axis).to(dtype)
+    y = y.reshape(-1, d).narrow(0, lo, t)
     return y.reshape(b, s, d), r.aux
-
-
-def _global_group(t: int, group_size: int) -> int:
-    """The group size GSPMD takes for ``t`` tokens on this rank: the
-    walk over the global batch's tokens (``t`` times the data-parallel
-    ranks of the installed rule set), which must divide ``t``."""
-    ranks = shlib.batch_ranks()
-    tg = group_size_for(t * ranks, group_size)
-    if t % tg:
-        raise NotImplementedError(
-            f"MoE groups of {tg} tokens span the {ranks} data-parallel "
-            f"ranks (each holds {t} tokens of the global {t * ranks}): "
-            "GSPMD groups the global batch, so each group's capacity and "
-            "drops need its tokens from several ranks, which the port does "
-            "not gather; give each data rank a multiple of "
-            f"{tg} tokens, or a mesh whose data axes are 1")
-    return tg
 
 
 # --- recording the routes (chip_smoke's drop shares and route flips) ----------
@@ -223,8 +228,10 @@ def _global_group(t: int, group_size: int) -> int:
 @contextlib.contextmanager
 def recording(keep_routes: bool = False):
     """Inside, each :func:`moe_ffn` call adds its routed and kept
-    (token, choice) pairs to the yielded dict's ``routed``/``kept``
-    (device tensors, no host sync) and appends the pair of them to
+    (token, choice) pairs (of the whole global batch where its groups
+    span data-parallel ranks, else of this rank's) to the yielded
+    dict's ``routed``/``kept`` (device tensors, no host sync) and
+    appends the pair of them to
     ``calls``; with ``keep_routes`` it appends its choices (G, Tg, K) to
     ``routes``."""
     prev = getattr(_STATE, "rec", None)

@@ -21,7 +21,7 @@ from repro_torch import convert
 from repro_torch.configs.registry import get_config, get_model, reduced_config
 from repro_torch.distrib import sharding as shlib
 from repro_torch.launch import steps
-from repro_torch.models import encdec
+from repro_torch.models import encdec, moe
 from repro_torch.models import transformer as tr
 from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.tree import tree_leaves_with_path
@@ -88,12 +88,17 @@ MESHES = {
         "gemma-2b-seq": ("gemma-2b", {}, ("serve",), False),
         # MoE with the batch over 2 data ranks: GSPMD's groups are the
         # global batch's (64 tokens, 4 at decode), each spanning both
-        # data ranks, so prefill, decode and training raise
-        "mixtral-span": ("mixtral-8x7b", {}, ("refuse",), False),
+        # data ranks, gathered over them; its experts over model (EP)
+        "mixtral-span": ("mixtral-8x7b", {}, ("serve", "train"), False),
         # tp x fsdp: in_proj, out_proj and the embeddings also cut over data
         "mamba2-fsdp": ("mamba2-780m", {}, ("serve", "train"), True),
         # the batch over data: each data rank's rows of the width-cut cache
         "recurrentgemma-serve": ("recurrentgemma-9b", {}, ("serve",), False),
+    },
+    (2, 1): {
+        # MoE data-parallel: each rank's 32 tokens half of the global
+        # group of 64, gathered over data; the aux over the whole group
+        "qwen3-moe-dp": ("qwen3-moe-30b-a3b", {}, ("train",), False),
     },
 }
 
@@ -143,8 +148,12 @@ def _serve(mesh, cfg, full, rows) -> dict:
     p_sh = shlib.param_shardings(api.abstract_params(cfg), mesh)
     params = shlib.shard_tree(full, p_sh)
     prompt = {k: v for k, v in rows.items() if k != "labels"}
-    rec = {"prefill": steps.make_prefill_step(cfg, mesh=mesh, device="cpu")(
-        params, prompt).numpy()}
+    prefill = steps.make_prefill_step(cfg, mesh=mesh, device="cpu")
+    rec = {}
+    routes = moe_routes(lambda: rec.update(prefill=prefill(params,
+                                                           prompt).numpy()))
+    if cfg.family == "moe":
+        rec["prefill_routes"] = routes
     with torch.no_grad(), shlib.rules_context(mesh):
         cache = new_cache(cfg, params, rows.get("frames"))
     frames = (None if not cfg.is_encdec else
@@ -190,31 +199,36 @@ def _train(mesh, cfg, full, rows, fsdp: bool) -> dict:
     return rec
 
 
-def _refusals(mesh, cfg, full, rows) -> dict:
-    """The message each of the prefill, a decode step and a train step
-    raises (None where it ran)."""
-    p_sh = shlib.param_shardings(tr.abstract_params(cfg), mesh)
-    params = shlib.shard_tree(full, p_sh)
-    with shlib.rules_context(mesh):
-        cache = tr.init_decode_cache(cfg, BATCH, MAX_LEN, device="cpu")
-    prompt = {k: v for k, v in rows.items() if k != "labels"}
-    runs = {
-        "prefill": lambda: steps.make_prefill_step(
-            cfg, mesh=mesh, device="cpu")(params, prompt),
-        "decode": lambda: steps.make_serve_step(
-            cfg, mesh=mesh, device="cpu")(
-                params, cache, {"tokens": rows["tokens"][:, :1]}),
-        "train": lambda: steps.make_synced_grad_step(
-            cfg, mesh=mesh, device="cpu")(params, rows),
-    }
+def moe_routes(run) -> dict:
+    """``run()`` under ``moe.recording``: the (token, choice) pairs routed
+    and kept and every layer's choices (numpy)."""
+    with moe.recording(keep_routes=True) as rec:
+        run()
+    return {"routed": int(rec["routed"]), "kept": int(rec["kept"]),
+            "routes": [r.numpy() for r in rec["routes"]]}
+
+
+def span_rank(mesh, arch: str, fields: dict, params_np, tokens):
+    """The forward of this rank's rows of ``tokens`` (numpy, global) under
+    the tp and the dp profile on ``mesh``: {profile: (the ranks that cut
+    the batch, the logits of its rows, the recorded routes)}."""
+    torch.set_num_threads(1)
+    cfg = config(arch, fields)
+    params = convert.model_params_from_numpy(params_np, device="cpu")
+    tokens = torch.from_numpy(tokens)
     out = {}
-    for name, run in runs.items():
-        try:
-            run()
-            out[name] = None
-        except NotImplementedError as e:
-            out[name] = str(e)
-    return {"refused": out}
+    for profile in ("tp", "dp"):
+        rows = shlib.local_shard(
+            tokens, shlib.batch_spec("tokens", tokens.shape, mesh, profile),
+            mesh).contiguous()
+        with torch.no_grad(), shlib.rules_context(
+                mesh, shlib.profile_act_rules(profile)):
+            ranks = shlib.batch_ranks()
+            logits = []
+            routes = moe_routes(lambda: logits.append(
+                tr.forward(params, cfg, rows)[0]))
+        out[profile] = (ranks, logits[0].numpy(), routes)
+    return out
 
 
 def tp_rank(mesh, cases: dict, inputs: dict):
@@ -232,7 +246,5 @@ def tp_rank(mesh, cases: dict, inputs: dict):
             rec.update(_serve(mesh, cfg, full, rows))
         if "train" in parts:
             rec.update(_train(mesh, cfg, full, rows, fsdp))
-        if "refuse" in parts:
-            rec.update(_refusals(mesh, cfg, full, rows))
         out[name] = rec
     return out

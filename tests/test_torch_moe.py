@@ -359,30 +359,78 @@ def test_remat_gives_the_same_loss_and_gradients():
         assert torch.equal(a, b), path
 
 
-def test_groups_spanning_data_ranks_raise_and_whole_groups_run():
-    """Under a rule set that cuts the batch over two data ranks, a rank's
-    tokens must hold whole groups of the global batch: (1, 16) tokens a
-    rank (a global group of 32) raise naming the case, under the tp and
-    the dp profile; (1, 1024) a rank (global groups of 1024) give the
+def test_groups_spanning_data_ranks_gather_and_whole_groups_run():
+    """Groups that span data ranks are gathered: on two gloo CPU ranks
+    (``launch.mesh.run_on_mesh``, mesh (2, 1)), (1, 16) tokens a rank
+    (a global group of 32) under the tp profile (the batch over
+    ``data``) and the dp profile (over ``data`` x ``model``) give each
+    rank the one-rank forward's logits of its row of the global batch,
+    and route the whole group as it does. Under a rule set of axis
+    sizes alone, (1, 1024) tokens (global groups of 1024) give the
     one-rank forward of those rows bit for bit."""
-    _, cfg = _cfgs("qwen3-moe-30b-a3b", n_layers=1)
-    params = ttr.init_params(cfg, seed=6, device="cpu")
-    tokens = torch.randint(0, cfg.vocab, (1, 1024),
+    import _torch_tp_cases as cases
+    from repro_torch.launch.mesh import run_on_mesh
+
+    jcfg, cfg = _cfgs("qwen3-moe-30b-a3b", n_layers=1)
+    jp, params = _params(jcfg, seed=6)
+    tokens = torch.randint(0, cfg.vocab, (2, 1024),
                            generator=torch.Generator().manual_seed(6))
+    span = tokens[:, :16].numpy()
+    ranks = run_on_mesh(cases.span_rank, (2, 1), cases.AXES,
+                        backend="gloo", device="cpu", timeout=300,
+                        args=("qwen3-moe-30b-a3b", {"n_layers": 1},
+                              jax.tree.map(np.asarray, jp), span))
+    with torch.no_grad():
+        one = []
+        routes = cases.moe_routes(lambda: one.append(
+            ttr.forward(params, cfg, torch.from_numpy(span))[0]))
+    for rank, r in enumerate(ranks):
+        for profile in ("tp", "dp"):
+            n, logits, got = r[profile]
+            assert n == 2
+            assert _rel(logits, one[0][rank:rank + 1]) <= TOL["float32"]
+            assert (got["routed"], got["kept"]) == (routes["routed"],
+                                                    routes["kept"])
+            np.testing.assert_array_equal(got["routes"][0],
+                                          routes["routes"][0])
+            assert got["routes"][0].shape == (1, 32, 2)
     for sizes, profile in (({"data": 2, "model": 1}, "tp"),
                            ({"data": 1, "model": 2}, "dp")):
         rules = shlib.profile_act_rules(profile)
-        with shlib.rules_context(sizes, rules):
-            assert shlib.batch_ranks() == 2
-            with pytest.raises(NotImplementedError,
-                               match="span the 2 data-parallel ranks"):
-                ttr.forward(params, cfg, tokens[:, :16])
-            with torch.no_grad():
-                cut, _ = ttr.forward(params, cfg, tokens)
+        with shlib.rules_context(sizes, rules), torch.no_grad():
+            cut, _ = ttr.forward(params, cfg, tokens[:1])
         with torch.no_grad():
-            one, _ = ttr.forward(params, cfg, tokens)
-        assert torch.equal(cut, one)
+            whole, _ = ttr.forward(params, cfg, tokens[:1])
+        assert torch.equal(cut, whole)
     assert shlib.batch_ranks() == 1
+
+
+def test_batch_left_whole_by_batch_spec_is_not_counted_as_cut():
+    """Reduced mixtral, tokens (1, 512) under the tp profile on {data: 2,
+    model: 1}: ``batch_spec`` leaves the one row whole, so the ranks
+    that cut the batch are 1 (declared rows or not) and the forward is
+    the one without a rule set, groups of 512 tokens, not of 1024
+    spanning both data ranks. A declared batch of 2 rows is cut over
+    both."""
+    _, cfg = _cfgs("mixtral-8x7b")
+    params = ttr.init_params(cfg, seed=8, device="cpu")
+    tokens = torch.randint(0, cfg.vocab, (1, 512),
+                           generator=torch.Generator().manual_seed(8))
+    sizes, rules = {"data": 2, "model": 1}, shlib.profile_act_rules("tp")
+    assert shlib.batch_spec("tokens", (1, 512), sizes) == ()
+    with torch.no_grad():
+        want, _ = ttr.forward(params, cfg, tokens)
+    for rows in (None, 1):
+        with shlib.rules_context(sizes, rules, batch_rows=rows):
+            assert shlib.batch_ranks() == 1
+            with torch.no_grad():
+                got, _ = ttr.forward(params, cfg, tokens)
+        assert torch.equal(got, want)
+    with shlib.rules_context(sizes, rules, batch_rows=2):
+        cut = shlib.batch_cut()
+        assert (cut.axes, cut.ranks, cut.group) == (("data",), 2, None)
+        with pytest.raises(ValueError, match="no process group"):
+            ttr.forward(params, cfg, tokens)
 
 
 def test_moe_steps_on_a_model_axis_pass_the_tp_refusal():

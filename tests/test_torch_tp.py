@@ -5,16 +5,16 @@ the port's own one-rank steps.
 Every family's reduced configs (d_model 64, vocab 512, float32; fields
 replaced per case, ``tests/_torch_tp_cases.py`` says which rule each
 reaches: the MoE's experts over ``model`` (EP) on (1, 2), their hidden
-width (expert-TP) on (1, 4), and on (2, 2) groups that span the data
-ranks, which the port refuses; mamba2's ``in_proj`` cut inside xBC on
+width (expert-TP) on (1, 4), and on (2, 2) and (2, 1) groups that
+span the data ranks, gathered over them; mamba2's ``in_proj`` cut inside xBC on
 (1, 2), inside z on (1, 4), with fsdp on (2, 2); recurrentgemma's
 vocab-parallel embedding and width-cut cache on (1, 2) and (2, 2);
 whisper's embedding cut at vocab 512 on (1, 2) and whole at 513 on
 (1, 4), its batches carrying ``frames``) from the reference's ``init_params``
 (carried across with ``convert``), a Markov batch of 4 x 16 tokens. On
-meshes (1, 2), (1, 4) and (2, 2) of ``("data", "model")``: the port's
+meshes (1, 2), (1, 4), (2, 2) and (2, 1) of ``("data", "model")``: the port's
 ranks are CPU processes over gloo, spawned by ``launch.mesh.
-run_on_mesh`` once per mesh for the whole module, the three at once;
+run_on_mesh`` once per mesh for the whole module, all at once;
 the reference's ``jit_prefill_step``, ``jit_serve_step`` (with
 ``cache_shardings``) and ``jit_train_step`` run under ``rules_context``
 on the same mesh shapes of 8 XLA host devices.
@@ -203,8 +203,11 @@ def _one_rank(shape, name, params_np, batch):
     with torch.no_grad():
         if "serve" in parts:
             prompt = {k: v for k, v in tb.items() if k != "labels"}
-            rec["prefill"] = tsteps.make_prefill_step(cfg, device="cpu")(
-                params, prompt).numpy()
+            prefill = tsteps.make_prefill_step(cfg, device="cpu")
+            routes = cases.moe_routes(lambda: rec.update(
+                prefill=prefill(params, prompt).numpy()))
+            if cfg.family == "moe":
+                rec["prefill_routes"] = routes
             serve = tsteps.make_serve_step(cfg, device="cpu")
             cache = cases.new_cache(cfg, params, tb.get("frames"))
             logits = []
@@ -348,6 +351,7 @@ def test_decode_cache_block_is_cache_shardings(results, shape, name):
         "whisper-small": dict.fromkeys(("k", "v", "xk", "xv"), heads),
     }
     kv = {"gemma-2b-seq": (None, "data", "model"),
+          "mixtral-span": (None, "data", "model"),
           "llama3-8b-kv2": (None, None, None, "model")}.get(name, ())
     want = family.get(arch, {"k": kv, "v": kv})
     strip = {k: tuple(v[:max([i + 1 for i, a in enumerate(v) if a] or [0])])
@@ -479,22 +483,30 @@ def test_tp_plan_answers_each_leafs_cut():
         assert tuple(cut[k].dim for k in ("w_gate", "w_up", "w_down")) == dims
 
 
-def test_groups_spanning_data_ranks_are_refused(results):
+def test_groups_spanning_data_ranks_route_as_gspmd(results):
     """mixtral on (2, 2): the batch's 4 rows over 2 data ranks, so each
     of GSPMD's MoE groups (the global 64 tokens at prefill and in
-    training, the 4 new tokens at decode) spans both data ranks; the
-    prefill, the decode step and the train step raise on every rank
-    naming the case, instead of grouping each rank's tokens alone (a
-    capacity of 10 per expert instead of GSPMD's 20)."""
-    ranks, _, _ = results[(2, 2), "mixtral-span"]
+    training, the 4 new tokens at decode) spans both data ranks. Every
+    rank gathers the group's rows and routes the whole group: its
+    recorded choices and its (token, choice) pairs routed and kept are
+    the one-rank prefill's of the global batch, at the global group's
+    capacity of 20 an expert, where each rank's 32 tokens grouped alone
+    would get 10 and keep other pairs. The prefill, decode and train
+    outputs are held to GSPMD's by the parametrized tests above."""
+    ranks, one, _ = results[(2, 2), "mixtral-span"]
     assert len(ranks) == 4
+    want = one["prefill_routes"]
+    assert want["routed"] == 4 * 16 * 2 * 4  # 64 tokens, top-2, 4 layers
     for r in ranks:
-        assert set(r["refused"]) == {"prefill", "decode", "train"}
-        for part, msg in r["refused"].items():
-            assert msg is not None, part
-            assert "span the 2 data-parallel ranks" in msg, msg
-        assert "of the global 64" in r["refused"]["prefill"]
-        assert "of the global 4" in r["refused"]["decode"]
+        got = r["prefill_routes"]
+        assert (got["routed"], got["kept"]) == (want["routed"], want["kept"])
+        assert len(got["routes"]) == len(want["routes"]) == 4
+        for a, b in zip(got["routes"], want["routes"]):
+            assert a.shape == (1, 64, 2)
+            np.testing.assert_array_equal(a, b)
+    cfg = cases.config("mixtral-8x7b", {})
+    assert max(int(64 * 2 / 8 * cfg.capacity_factor), 1) == 20
+    assert max(int(32 * 2 / 8 * cfg.capacity_factor), 1) == 10
 
 
 def test_mamba2_and_other_caches_still_raise_naming_a13_tp():
