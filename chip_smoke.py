@@ -16,6 +16,7 @@
     python3 chip_smoke.py --encdec   # build + phase 3 (encdec) only
     python3 chip_smoke.py --dryrun   # build + phase 3 (dryrun) only
     python3 chip_smoke.py --examples # build + phase 3 (examples) only
+    python3 chip_smoke.py --bf16     # build + phase 3 (bf16) + its rows
 
 Phases (each raises on failure; none is caught):
 
@@ -23,7 +24,9 @@ Phases (each raises on failure; none is caught):
    kernel from ``src/repro_torch/kernels/csrc`` (into ``build/``, one
    ``nvcc`` per source, all at once) and print nvcc's
    register/shared-memory/spill report.
-2. Kernel vs. plain version on the card, on the same inputs, f32
+2. (In the full run inside phase 3 (clis), at the end; with ``--quick``
+   right after phase 1.) Kernel vs. plain version on the card, on the
+   same inputs, f32
    (tolerance 1e-5 relative to the largest |value|) and f64 (1e-12),
    with each plan's shared-memory bytes held to the kernel's own
    layout: the depth-1 kernel against ``ref.fused_stencil`` —
@@ -72,6 +75,16 @@ Phases (each raises on failure; none is caught):
    step and cross tile, rings, threads x outputs or patches a warp,
    registers, spills, evaluations per output-step; tc: banded MACs issued
    against the taps').
+   Then bf16 in B2, B3 and the MHD φ (``parity_bf16``; B2c, B3c,
+   B4b): diffusion at depth 2 and 3 on ranks 1-3 (the walk and the
+   one-tile body), two fields, rows of 41 values (ragged modulo 8),
+   segments forced to 1 and 4, B = 3; the stream kernel at ranks 2-3 and
+   depth 1-3, cut stream axes and many ring passes; each equal to its
+   plain version bit for bit. The MHD RHS and substep on ``swc``,
+   ``swc_stream`` (RHS) and ``tc`` on a cube and a non-cubic box, the
+   pair on both walks, the RHS twice and B = 2, each within 2e-2 of max
+   |plain| with every field row's error printed, and equal to it bit for
+   bit but on ``tc``.
    Then tc beyond radius 4 (orders 10 and 12, f32 and bf16, ranks 1-3),
    depths 9 and 12 on B2, B3 and B4 at 2-D (order 2, f32), and the B6
    cross-correlation (``csrc/xcorr1d.cu``) against ``ref.xcorr1d``: each
@@ -113,7 +126,18 @@ Phases (each raises on failure; none is caught):
    depth-2 and one depth-1 launch per step, the pair on the tc walk),
    each held to ``swc`` within 1e-5; diffusion 512³ f32 at depth 1, 2
    and 3, bf16 at depth 1 and 2 (and bf16 on ``swc``, B1b, held to the
-   plain bf16 version), 8192² and 2^26 f32, each held to f32 ``swc``. The serve phase also runs
+   plain bf16 version), 8192² and 2^26 f32, each held to f32 ``swc``.
+   Phase 3 (bf16), after it (also alone with ``--bf16``; B2c, B3c,
+   B4b): ``MHDSolver`` at 256³ bf16, 3 RK3 steps in each form it takes
+   (plain on ``swc``, ``swc_stream`` and ``tc``, the fused axpy and
+   ``fuse_rk_pairs`` on ``swc`` and ``tc``), launches by depth and
+   kernel, ms a step beside the f32 row's, one step held to the plain
+   bf16 version's (the entry points with the kernel wrapper replaced by
+   its plain version, ``plain_kernels``): equal bit for bit on ``swc``
+   and ``swc_stream``, within 2e-2 on ``tc``; diffusion 512³ bf16 at
+   depth 2 and 3 on ``swc`` and 1-3 on ``swc_stream``, 8192² on
+   ``swc_stream`` and 2^26 at depth 2 on ``swc``'s one-tile body, each
+   equal to the plain bf16 steps bit for bit. The serve phase also runs
    ``SimServer(strategy="tc")``: 8 ``fused_stencil_tc`` launches per
    batch. The 1-D path: ``step_1d_xcorr`` on diffusion at 2^26, order 6,
    f32, 5 steps on each B6 strategy, exactly one ``xcorr1d`` launch per
@@ -151,23 +175,24 @@ Phases (each raises on failure; none is caught):
    launches of the 4 steps, bound, plain, ``F.conv1d``).
    Phase 3 (dp train), after phase 3 (train) (also alone with
    ``--dp-train``): data-parallel training of mamba2-780m at full width
-   and depth, its ranks processes that share this card over gloo
-   (``launch.mesh.run_on_mesh``; no time of this phase is a scaling
-   figure). (a) The yardstick: phase 3 (train)'s one-card B7 step 0 at
-   (2, 4096), its loss and 12 f32 gradient leaves kept on the host and
-   written under ``build/dp-yardstick`` for the ranks (removed after).
+   and ``DP_LAYERS`` of its 48 layers, its ranks processes that share
+   this card over gloo (``launch.mesh.run_on_mesh``; no time of this
+   phase is a scaling figure). (a) The yardstick: the one-card B7 step 0
+   at that depth on phase 3 (train)'s batch (2, 4096), its loss and 12
+   f32 gradient leaves kept on the host and written under
+   ``build/dp-yardstick`` for the ranks (removed after).
    (b) Mesh (2, 1) of (data, model), the ``dp`` profile, local batch
    (1, 4096): step 0 through ``make_synced_grad_step``, its loss within
    2e-2 of (a)'s and each synced gradient leaf within 2e-2 relative L2,
-   96 B7 launches; then 3 steps through ``make_train_step`` with the
-   counters zeroed just before and read just after (96 B7 launches per
-   rank a step), the median ms a step (host clock after a barrier), the
+   two B7 launches a layer; then 3 steps through ``make_train_step``
+   with the counters zeroed just before and read just after (two B7
+   launches a layer per rank a step), the median ms a step (host clock after a barrier), the
    bytes a rank sends per step (the ring count), the sync alone on a
    full f32 tree, peak ``max_memory_allocated`` per rank and the card's
    memory in use. (c) The same mesh with ``fsdp=True`` (ZeRO): step 0's
    synced gradients and the parameters after it against (b)'s bit for
    bit, or the reason printed; one timed step; peak per rank. (d)
-   ``grad_sync`` at full width, 4 ranks on mesh (2, 2) of (pod, data),
+   ``grad_sync`` at (a)'s size, 4 ranks on mesh (2, 2) of (pod, data),
    rank r's tree (a)'s times (1 + r/8): one flat all-reduce,
    ``hierarchical_psum_tree`` (within 1e-6 of flat) and
    ``compressed_psum_tree`` (within 2e-2, residuals nonzero), each with
@@ -206,9 +231,9 @@ Phases (each raises on failure; none is caught):
    TF32 off.
    Phase 3 (tp), after phase 3 (dense) (also alone with ``--tp``): the
    ``tp`` profile's ``model`` axis (explicit Megatron tensor
-   parallelism) for the dense family at full width (llama3-8b cut to 16
-   of its 32 layers, qwen2.5-3b to 18 of 36, to keep the whole script
-   inside its time limit), ranks sharing the
+   parallelism) for the dense family at full width (llama3-8b cut to 4
+   of its 32 layers, gemma-2b to 6 of 18, qwen2.5-3b to 4 of 36, to
+   keep the whole script inside half its time limit), ranks sharing the
    card over gloo (``run_on_mesh``; no time of theirs is a scaling
    figure), each rank drawing the seeded parameters leaf by leaf and
    keeping its blocks, each part held to a one-rank yardstick run just
@@ -232,8 +257,9 @@ Phases (each raises on failure; none is caught):
    card's). (e) the reduced train CLI ``--arch qwen2.5-3b --mesh 2x2
    --backend gloo`` on the card, failing at step 5: its logged losses
    equal ``--mesh 1x1``'s to the printed digits. Then the other
-   families on (1, 2), each against its own one-rank yardstick run just
-   before (``TP_LAYERS`` cuts the depth): (f) mamba2-780m at 8 of 48
+   families on (1, 2), each against its own one-rank yardstick
+   (``TP_LAYERS`` cuts the depth); (a), (b), (d) and (f)-(h) run one
+   after another in one process a rank, after every yardstick: (f) mamba2-780m at 2 of 48
    layers: the bf16 prefill (4, 8192), B7 counted on every rank (one
    launch a layer) and each rank's first launch, on its own strided
    ``[x of its heads, B, C]`` view of its projection, held to the plain
@@ -244,10 +270,11 @@ Phases (each raises on failure; none is caught):
    window by channels, state by heads) within 1e-3; a bf16 train step
    (1, 4096), step 0's loss and gradient norm within 2e-2, step 1 timed
    with two B7 launches a layer (remat's recompute); B7 then timed alone
-   at that view's geometry (the kernels line's tensor-parallel row). (g) recurrentgemma-9b at 8
+   at that view's geometry (the kernels line's tensor-parallel row). (g) recurrentgemma-9b at 4
    of 38 layers: the bf16 prefill (1, 8192) within 2e-2 and 32 bf16
    decode steps at batch 4 from the width-cut cache within 2e-2. (h)
-   whisper-small whole in f32: encode (4, 1500, 768) and the prefill at
+   whisper-small at 4 + 4 of its 12 + 12 layers in f32: encode
+   (4, 1500, 768) and the prefill at
    tokens (4, 448) within 1e-4, 32 decode steps from the encoder's
    cross K/V cut by heads within 1e-3; a bf16 train step at (8, 448)
    with its frames, step 0 within 2e-2, step 1 timed. Each prints ms,
@@ -346,13 +373,13 @@ Phases (each raises on failure; none is caught):
    and read here: every cell's status and dominant roofline term, and
    all 64 cells with status run ``ok``; (b) mamba2-780m's prefill (4,
    8192) bf16 (48 B7 launches), llama3-8b's bf16 decode step at batch 4
-   against a 128-slot cache and qwen2.5-3b's train step (1, 4096),
-   each built on the card from a seed and on meta by
+   against a 128-slot cache and qwen2.5-3b's train step (1, 4096) at
+   12 of its 36 layers, each built on the card from a seed and on meta by
    ``dryrun.build_cell``: FlopCounterMode's count equal on both (B7, a
    ``ctypes`` launch, is not seen by the counter; meta runs the plain
    conv, whose elementwise work it does not count either), the step's
    host-clock time (median of 3) against ``Roofline.bound_s``.
-   Phase 3 (examples), after phase 3 (dryrun) (also alone with
+   Phase 3 (examples), in phase 3 (clis) (also alone with
    ``--examples``): the five ``examples/torch_*.py`` at small arguments
    on the card, in subprocesses all at once, each exit code 0 and its
    OK line printed; seconds each, the stencil examples' fused-stencil
@@ -416,7 +443,15 @@ Phases (each raises on failure; none is caught):
    synchronize; median of 5), and a kernels-line row per case (the
    shard's launch on CUDA events, its plain version, bound and, for
    diffusion, the dense ``conv3d``) carrying the case's launches.
-   Phase 3 (audit), run last (also after phase 4): the static auditor
+   Phase 3 (clis), run last: every command-line run of the phases above
+   (the train CLIs of phase 3 (train), (dp train), (tp) and (hybrid),
+   the hybrid's serve CLI and the five examples), none of which is a
+   measurement, started at once in subprocesses, with phase 2 (which
+   times nothing) and then phase 3 (audit) run in this process
+   meanwhile; each CLI then checked as its own phase checks it when run
+   alone, and the launches those checks make here audited after.
+   Phase 3 (audit), in phase 3 (clis) (also alone with ``--audit``),
+   after phase 4: the static auditor
    (``repro_torch.analysis``) at full extents over ``AUDIT_SHAPES``, the
    tuner's candidate spaces and every plan and B6/B7 launch the earlier
    phases made (``emit.launched_plans()``, the wrappers' ``launched``
@@ -466,7 +501,14 @@ Phases (each raises on failure; none is caught):
    kernels line with their main-path launch counts. Depth-1
    ``swc_stream`` rows (B3) print their grid, chunk and cross tile, the
    ring (chunks, plane slots, bytes) or the one-buffer body, threads x
-   outputs per thread, registers and spills.
+   outputs per thread, registers and spills. The bf16 rows of B2, B3
+   and the MHD φ (``bf16_rows``, also with ``--bf16``): diffusion 512³
+   on B2 S=2/3 and B3 S=1-3, 8192² on B3, 2^26 S=2 on B2's one-tile
+   body (beside the same launch in f32), the MHD RHS and substep 256³
+   on B1, B3 (RHS) and B4, the pair 256³ on B2's and B4's walks; bound
+   at 2 B a value, the taps' bf16 operations outside the tensor cores at
+   the packed pair rate (``BF16_PAIR`` x f32) and φ's at the f32 rate,
+   library ``conv*d`` in bf16 (none for MHD).
    B6 rows: each strategy at n = 2^24 (fig07's size), f32 at radii
    1-1024 (``XCORR_TIME_RADII``: r = 8 and 10 on each side of the
    elementwise ring's first radius) and f64 at r = 1, 10 and 1024,
@@ -490,6 +532,7 @@ prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -554,6 +597,9 @@ LM_BATCH, LM_STEPS = 4, 32  # launch/serve.py's defaults
 # is twice the largest sound reading.
 DECODE_TOL = 2.2e-3
 TOL = {"float32": 1e-5, "float64": 1e-12, "bfloat16": 2e-2}
+# Host ms a step of the f32 main-path runs (phase 3 and its tc phase), by
+# their launch-count keys: the bf16 phase prints each beside its own.
+STEP_MS: dict[str, float] = {}
 # Tensor-core rates of the tc routes (data sheet, SXM): bf16 MMA; the
 # f32 fields contract on the f64 MMA.
 TC_RATES = {"bfloat16": 989e12, "float32": 67e12}
@@ -565,6 +611,9 @@ CARD_RATES = {
     "H100": (3.35e12, 67e12, 34e12),  # SXM5
     "H200": (4.8e12, 67e12, 34e12),
 }
+# Outside the tensor cores bf16 runs as packed pairs (mul.rn.bf16x2,
+# add.rn.bf16x2) at twice the f32 rate (data sheet, SXM5: 133.8 TFLOP/s).
+BF16_PAIR = 2
 
 
 def card_rates(name: str) -> tuple[float, float, float]:
@@ -578,6 +627,66 @@ def run(cmd: list[str]) -> str:
     return subprocess.run(
         cmd, capture_output=True, text=True, check=True
     ).stdout.strip()
+
+
+CLI_TIMEOUT = 600  # seconds for every command of one run_at_once
+
+
+def run_at_once(cmds: dict, logs: Path, during=None) -> dict:
+    """Every command of ``cmds`` ({name: argv, or (argv, extra env)}) in
+    a subprocess of its own from the repo's root with ``src`` on its
+    path, all started together, their output in files under ``logs``;
+    ``during()`` runs here meanwhile. Waits for all (each process
+    started is ended). {name: (returncode, stdout, stderr, seconds)}."""
+    import threading
+    import types
+
+    logs.mkdir(parents=True, exist_ok=True)
+    procs, ends, files = {}, {}, {}
+    t0 = time.perf_counter()
+
+    def wait(name, proc):
+        proc.wait()
+        ends[name] = time.perf_counter() - t0
+
+    try:
+        for name, cmd in cmds.items():
+            argv, extra = cmd if isinstance(cmd, tuple) else (cmd, {})
+            files[name] = (logs / f"{name}.out", logs / f"{name}.err")
+            with open(files[name][0], "w") as out, \
+                    open(files[name][1], "w") as err:
+                procs[name] = subprocess.Popen(
+                    argv, stdout=out, stderr=err, text=True, cwd=ROOT,
+                    env={**os.environ, "PYTHONPATH": str(ROOT / "src"),
+                         **extra})
+            threading.Thread(target=wait, args=(name, procs[name]),
+                             daemon=True).start()
+        if during is not None:
+            during()
+        while len(ends) < len(procs):
+            if time.perf_counter() - t0 > CLI_TIMEOUT:
+                raise TimeoutError(f"still running after {CLI_TIMEOUT} s: "
+                                   f"{sorted(set(procs) - set(ends))}")
+            time.sleep(0.1)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return {name: types.SimpleNamespace(
+        returncode=proc.returncode, stdout=files[name][0].read_text(),
+        stderr=files[name][1].read_text(), seconds=ends[name])
+        for name, proc in procs.items()}
+
+
+def _cli(module: str, *args) -> list[str]:
+    return [sys.executable, "-m", f"repro_torch.launch.{module}", *args]
+
+
+def _cli_ok(label: str, out) -> None:
+    if out.returncode:
+        raise AssertionError(f"{label}: rc {out.returncode}: "
+                             f"{out.stderr[-2000:]}")
 
 
 def rel_err(a, b) -> tuple[float, float]:
@@ -624,6 +733,54 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+# The seeded draws of the cases built inside reuse_draws(), by key; None
+# outside it, where every case draws its own.
+_DRAWS: dict | None = None
+
+
+@contextlib.contextmanager
+def reuse_draws():
+    """Cases built inside draw each field (and aux) of one shape, dtype
+    and seed once: the host's draws of 10^8 values a case would
+    otherwise take most of a row's time. Inside another, the outer's
+    draws are kept."""
+    global _DRAWS
+    if _DRAWS is not None:
+        yield
+        return
+    _DRAWS = {}
+    try:
+        yield
+    finally:
+        _DRAWS = None
+
+
+def drawn(key, make):
+    """``make()``, or inside :func:`reuse_draws` its first result for
+    ``key``."""
+    if _DRAWS is None:
+        return make()
+    if key not in _DRAWS:
+        _DRAWS[key] = make()
+    return _DRAWS[key]
+
+
+def mhd_aux(shape, dtype, device, seed):
+    """The w of an MHD substep: 1e-3 x uniform [0, 1) of (8, *shape),
+    seeded ``seed``."""
+    import torch
+
+    from repro_torch import as_dtype
+
+    def make():
+        g = torch.Generator(device="cpu").manual_seed(seed)
+        return (1e-3 * torch.rand((8,) + tuple(shape), generator=g,
+                                  dtype=torch.float64)
+                ).to(device=device, dtype=as_dtype(dtype))
+
+    return drawn(("mhd aux", tuple(shape), str(dtype), seed), make)
+
+
 def diffusion_case(shape, dtype, device, block=None, unroll=1, seed=0,
                    fuse_steps=1, strategy="swc", segments=None, batch=None,
                    accuracy=6):
@@ -644,7 +801,8 @@ def diffusion_case(shape, dtype, device, block=None, unroll=1, seed=0,
     op = prob.step_op(strategy, block=block, fuse_steps=fuse_steps,
                       device=device)
     if batch is None:
-        f = prob.init_field(seed, device=device, dtype=dtype)
+        f = drawn(("diffusion", tuple(shape), str(dtype), seed),
+                  lambda: prob.init_field(seed, device=device, dtype=dtype))
     else:
         f = torch.stack([prob.init_field(seed + m, device=device, dtype=dtype)
                          for m in range(batch)])
@@ -699,7 +857,8 @@ def mhd_case(shape, dtype, device, substep, block=None, unroll=1,
     init = solver.init_smooth if smooth else solver.init_fields
     kw = dict(amplitude=1e-2) if smooth else {}
     if batch is None:
-        f = init(seed, dtype=dtype, **kw)
+        f = drawn(("mhd", tuple(shape), str(dtype), seed, smooth),
+                  lambda: init(seed, dtype=dtype, **kw))
     else:
         f = torch.stack([init(seed + m, dtype=dtype, **kw)
                          for m in range(batch)])
@@ -711,9 +870,13 @@ def mhd_case(shape, dtype, device, substep, block=None, unroll=1,
         phi = mhd.mhd_substep_device_phi(
             solver.params, mhd.RK3_ALPHA[1], mhd.RK3_BETA[1], dt
         )
-        g = torch.Generator(device="cpu").manual_seed(seed + 1)
-        aux = (1e-3 * torch.rand(f.shape, generator=g, dtype=torch.float64)
-               ).to(device=device, dtype=f.dtype)
+        if batch is None:
+            aux = mhd_aux(shape, dtype, device, seed + 1)
+        else:
+            g = torch.Generator(device="cpu").manual_seed(seed + 1)
+            aux = (1e-3 * torch.rand(f.shape, generator=g,
+                                     dtype=torch.float64)
+                   ).to(device=device, dtype=f.dtype)
     else:
         phi, aux = mhd.mhd_rhs_device_phi(solver.params), None
     plan = plan_for_nd(
@@ -739,10 +902,9 @@ def mhd_pair_case(shape, dtype, device, substeps=(1, 2), block=None,
     from repro_torch.physics import mhd
 
     solver = mhd.MHDSolver(tuple(shape), strategy="swc", device=device)
-    if smooth:
-        f = solver.init_smooth(seed, amplitude=1e-2, dtype=dtype)
-    else:
-        f = solver.init_fields(seed, dtype=dtype)
+    f = drawn(("mhd", tuple(shape), str(dtype), seed, smooth),
+              lambda: solver.init_smooth(seed, amplitude=1e-2, dtype=dtype)
+              if smooth else solver.init_fields(seed, dtype=dtype))
     ops = solver.operator_set
     fp = pad(f, 6, "periodic", spatial_axes=(1, 2, 3))
     dt = float(solver.cfl_dt(f))
@@ -751,10 +913,8 @@ def mhd_pair_case(shape, dtype, device, substeps=(1, 2), block=None,
             solver.params, mhd.RK3_ALPHA[i], mhd.RK3_BETA[i], dt)
         for i in substeps
     )
-    g = torch.Generator(device="cpu").manual_seed(seed + 1)
-    w = (1e-3 * torch.rand(f.shape, generator=g, dtype=torch.float64)
-         ).to(device=device, dtype=f.dtype)
-    aux = pad(w, 3, "periodic", spatial_axes=(1, 2, 3))
+    aux = pad(mhd_aux(shape, dtype, device, seed + 1), 3, "periodic",
+              spatial_axes=(1, 2, 3))
     plan = plan_for_nd(ops, tuple(fp.shape), 16, aux_shape=tuple(aux.shape),
                        strategy=strategy, block=block, dtype=dtype,
                        fuse_steps=2, max_threads=256, n_slots=10)
@@ -1000,10 +1160,18 @@ def compare(label, case, dtype):
     want = plain(case)
     check(f"{label} {dtype} S{plan.fuse_steps} tile{plan.block}"
           f"u{plan.unroll}{seg} {plan.smem_bytes}B", got, want, dtype)
-    if plan.swc_depth1 and dtype == "bfloat16" and not torch.equal(got, want):
-        raise AssertionError(f"{label}: bf16 swc differs from its plain "
-                             "version (it rounds each product and sum as "
-                             "the plain version does)")
+    if (dtype == "bfloat16" and plan.strategy != "tc"
+            and not torch.equal(got, want)):
+        raise AssertionError(f"{label}: bf16 {plan.strategy} differs from its "
+                             "plain version (it rounds each product, sum "
+                             "and φ's operations as the plain version does)")
+    if dtype == "bfloat16" and plan.n_slots > 1:
+        scale = float(want.float().abs().max())
+        rows = (got.float() - want.float()).abs().flatten(-3).amax(-1)
+        rows = rows.reshape(-1, plan.n_out).amax(0) / scale
+        print(f"    per field row, max|err| / max|plain| (limit "
+              f"{TOL[dtype]:.0e}): "
+              + " ".join(f"{float(v):.2e}" for v in rows))
     return got
 
 
@@ -1283,8 +1451,87 @@ def phase_parity(dev):
                         diffusion_case(shape, "float32", dev,
                                        fuse_steps=depth, strategy=strategy,
                                        accuracy=2), "float32")
+    parity_bf16(dev)
     parity_xcorr(dev)
     parity_conv1d(dev)
+
+
+def parity_bf16(dev):
+    """bf16 on B2 (the temporal kernel: its walk at ranks 2 and 3, the
+    one-tile body at rank 1), B3 (the stream kernel: the depth-1 ring and
+    the walk) and the MHD φ on B1, B3's ring, B4 and both walks' pair
+    (B2c, B3c, B4b). Each equals its plain version bit for bit (compare)
+    but the MHD kinds on tc, which are held to 2e-2 of max |plain|; each
+    MHD field row's error is printed."""
+    bf = "bfloat16"
+    print("  -- bf16 in the temporal kernel (B2c): ranks 1-3 at depth 2 and "
+          "3, two fields, rows of 41 bf16 elements (ragged modulo 8), "
+          "segments forced to 1 and 4, B = 3; equal bit for bit")
+    for depth in (2, 3):
+        for shape in ((65536,), (512, 384), (64, 96, 128)):
+            compare(f"diffusion {shape}",
+                    diffusion_case(shape, bf, dev, fuse_steps=depth), bf)
+        compare("select dxx, 2 fields (48, 64, 80)",
+                select_case((48, 64, 80), bf, dev, depth), bf)
+        x = 41 - 6 * depth  # padded rows of 41 elements at order 6
+        compare(f"diffusion (48, 18, {x}) pitch 41",
+                diffusion_case((48, 18, x), bf, dev, block=(2, 6, x),
+                               fuse_steps=depth), bf)
+        compare(f"diffusion (1024, {x}) pitch 41",
+                diffusion_case((1024, x), bf, dev, block=(4, x),
+                               fuse_steps=depth), bf)
+        for seg in (1, 4):
+            compare("diffusion (192, 64, 120)",
+                    diffusion_case((192, 64, 120), bf, dev, fuse_steps=depth,
+                                   segments=seg), bf)
+        compare_batched("diffusion (64, 96, 128)",
+                        diffusion_case((64, 96, 128), bf, dev,
+                                       fuse_steps=depth, batch=3), bf)
+    print("  -- bf16 in the stream kernel (B3c): ranks 2-3 at depth 1-3, cut "
+          "stream axes, many ring passes, rows of 41 elements; equal bit for "
+          "bit")
+    for depth in (1, 2, 3):
+        for shape in ((512, 400), (64, 96, 120)):
+            compare(f"stream diffusion {shape}",
+                    diffusion_case(shape, bf, dev, fuse_steps=depth,
+                                   strategy="swc_stream"), bf)
+    compare("stream select dxx, 2 fields (48, 64, 80)",
+            select_case((48, 64, 80), bf, dev, 2, strategy="swc_stream"), bf)
+    for shape, depth, seg in (((1024, 96), 1, 4), ((192, 64, 120), 2, 4),
+                              ((256, 64, 64), 1, 8), ((192, 64, 120), 3, 1)):
+        compare(f"stream diffusion {shape} in segments",
+                diffusion_case(shape, bf, dev, fuse_steps=depth,
+                               strategy="swc_stream", segments=seg), bf)
+    compare("stream diffusion (48, 18, 35) pitch 41",
+            diffusion_case((48, 18, 35), bf, dev, block=(2, 3, 7),
+                           strategy="swc_stream"), bf)
+    compare("stream diffusion (2048, 35)",
+            diffusion_case((2048, 35), bf, dev, block=(3, 35),
+                           strategy="swc_stream", accuracy=2), bf)
+    compare("stream diffusion (4096, 256)",
+            diffusion_case((4096, 256), bf, dev, strategy="swc_stream",
+                           segments=2), bf)
+    compare_batched("stream diffusion (512, 400)",
+                    diffusion_case((512, 400), bf, dev, fuse_steps=2, batch=3,
+                                   strategy="swc_stream"), bf)
+    print("  -- the MHD φ in bf16 (B4b) on B1, B3's ring (the RHS), B4, and "
+          "the pair on B2's and B4's walks; equal bit for bit but on tc, "
+          "within 2e-2 of max |plain|")
+    for shape in ((64, 64, 64), (48, 64, 80)):
+        for substep in (False, True):
+            name = "mhd_substep" if substep else "mhd_rhs"
+            for strategy in ("swc", "tc") + (() if substep
+                                             else ("swc_stream",)):
+                compare(f"{strategy} {name} {shape}",
+                        mhd_case(shape, bf, dev, substep, strategy=strategy),
+                        bf)
+        for strategy in ("swc", "tc"):
+            compare(f"{strategy} mhd_substep pair {shape}",
+                    mhd_pair_case(shape, bf, dev, strategy=strategy), bf)
+    compare("swc mhd_rhs twice (48, 64, 80)",
+            mhd_rhs_twice_case((48, 64, 80), bf, dev), bf)
+    compare_batched("swc mhd_substep (64, 64, 64)",
+                    mhd_case((64,) * 3, bf, dev, True, batch=2), bf)
 
 
 def conv_inputs(shape, k, dtype, device, seed=0, row=None, offset=0):
@@ -1484,6 +1731,7 @@ def phase_main_path(dev):
         if f.shape != (8, 256, 256, 256) or not bool(torch.isfinite(f).all()):
             raise AssertionError(f"{kind}: bad MHD state")
         launches[kind] = by_depth.get(2, by_depth[1])
+        STEP_MS[kind] = 1e3 * wall / n_steps
         results[kind] = f
         print(f"  MHD 256^3 f32 RK3 {form or 'plain'}: {n_steps} steps "
               f"dt={dt:.4e}, launches by depth {by_depth}, "
@@ -1505,6 +1753,7 @@ def phase_main_path(dev):
     if f.shape != (8, 256, 256, 256) or not bool(torch.isfinite(f).all()):
         raise AssertionError("mhd stream: bad MHD state")
     launches["stream mhd_rhs"] = by_depth[1]
+    STEP_MS["stream mhd_rhs"] = 1e3 * wall / n_steps
     results["mhd_rhs stream"] = f
     print(f"  MHD 256^3 f32 RK3 plain on swc_stream: {n_steps} steps, "
           f"{by_depth[1]} stream launches, {1e3 * wall / n_steps:.2f} "
@@ -1559,6 +1808,7 @@ def phase_main_path(dev):
         if n != 7:
             key = "stream select" if stream else "select"
             launches[f"{key} S={depth}"] = by_depth[depth]
+            STEP_MS[f"{key} S={depth}"] = 1e3 * wall / n
         _, rel = rel_err(out, base[n])
         print(f"  diffusion 512^3 f32 {strategy} fuse_steps={depth}: {n} "
               f"steps, launches by depth {by_depth}, "
@@ -1578,6 +1828,7 @@ def phase_main_path(dev):
     if by_depth != {1: 5}:
         raise AssertionError(f"diffusion 8192^2 stream: launches {by_depth}")
     launches["stream select 8192^2"] = by_depth[1]
+    STEP_MS["stream select 8192^2"] = 1e3 * wall / 5
     _, rel = rel_err(out, want)
     print(f"  diffusion 8192^2 f32 swc_stream (y-stream): 5 steps, "
           f"launches by depth {by_depth}, {1e3 * wall / 5:.2f} ms/step "
@@ -1642,6 +1893,7 @@ def phase_main_path_tc(dev, launches):
             raise AssertionError(f"{kind}: bad MHD state")
         _, rel = rel_err(f, run(swc))
         launches[kind] = by_depth.get(2, by_depth[1])
+        STEP_MS[kind] = 1e3 * wall / n_steps
         print(f"  MHD {n}^3 f32 RK3 on tc {form or 'plain'}: {n_steps} steps, "
               f"launches by depth {by_depth} (all {TC}), "
               f"{1e3 * wall / n_steps:.2f} ms/step (host clock); vs swc "
@@ -1714,6 +1966,147 @@ def phase_main_path_tc(dev, launches):
                                      f"{versus[0]}")
             del out, fd
         del base, f0
+        torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """The fused-stencil wrapper that the entry points call replaced by
+    its plain version (:func:`plain`, ``ref.fused_stencil[_steps]``,
+    launched nowhere): what a solver's step computes without the kernels,
+    on the card, as the oracle of the bf16 phase."""
+    from repro_torch.kernels import ops as kops
+
+    real = kops.fused_stencil_swc
+
+    def plain_swc(f_padded, ops, phi, plan, *, aux=None, taps=None,
+                  out=None):
+        res = plain((f_padded, ops, phi, plan, aux))
+        return res if out is None else out.copy_(res)
+
+    kops.fused_stencil_swc = plain_swc
+    try:
+        yield
+    finally:
+        kops.fused_stencil_swc = real
+
+
+def phase_main_path_bf16(dev, launches):
+    """bf16 through the entry points (B2c, B3c, B4b): ``MHDSolver`` at
+    256^3 in every RK3 form it takes (plain on swc, swc_stream and tc; the
+    fused axpy and fuse_rk_pairs on swc and tc), diffusion 512^3 at depth
+    2 and 3 on swc and 1-3 on swc_stream, 8192^2 on swc_stream and 2^26
+    at depth 2 on swc's one-tile body. Each prints ms a step (host clock)
+    and launches by kernel beside the f32 row of the same case, and is
+    held to the plain bf16 version: an MHD step after one step (equal
+    bit for bit on swc and swc_stream, within 2e-2 on tc, whose plain
+    version sums the contractions in another f32 order), diffusion after
+    its run (equal bit for bit)."""
+    import torch
+
+    from repro_torch.kernels import emit
+    from repro_torch.physics.diffusion import DiffusionProblem, simulate
+    from repro_torch.physics.mhd import MHDSolver
+
+    print("== phase 3 (bf16): bf16 MHD RK3 and diffusion on the main path "
+          "(B2c, B3c, B4b)")
+    bf = torch.bfloat16
+    n_steps = 3
+    f0 = MHDSolver((256,) * 3, device=dev).init_fields(seed=0, dtype=bf)
+    for strategy, form, key, kernel, want in (
+        ("swc", {}, "mhd_rhs", "fused_stencil", {1: 3 * n_steps}),
+        ("swc", dict(fuse_rk_axpy=True), "mhd_substep", "fused_stencil",
+         {1: 3 * n_steps}),
+        ("swc", dict(fuse_rk_pairs=True), "mhd pair", None,
+         {2: n_steps, 1: n_steps}),
+        ("swc_stream", {}, "stream mhd_rhs", STREAM, {1: 3 * n_steps}),
+        ("tc", {}, "tc mhd_rhs", TC, {1: 3 * n_steps}),
+        ("tc", dict(fuse_rk_axpy=True), "tc mhd_substep", TC,
+         {1: 3 * n_steps}),
+        ("tc", dict(fuse_rk_pairs=True), "tc mhd pair", TC,
+         {2: n_steps, 1: n_steps}),
+    ):
+        solver = MHDSolver((256,) * 3, strategy=strategy, device=dev, **form)
+        dt = float(solver.cfl_dt(f0))
+        one = solver.step(f0, dt)  # warm-up, and the step held to plain
+        with plain_kernels():
+            want_one = solver.step(f0, dt)
+        _, rel1 = rel_err(one, want_one)
+        exact = strategy != "tc"
+        if exact and not torch.equal(one, want_one):
+            raise AssertionError(f"bf16 {key} on {strategy}: the step "
+                                 "differs from its plain version")
+        del one, want_one
+
+        def run(solver=solver):
+            f = f0
+            for _ in range(n_steps):
+                f = solver.step(f, dt)
+            return f
+
+        f, wall, by_depth = counted(run, kernel=kernel)
+        by_kernel = dict(emit.fused_stencil_swc.launches_by_kernel)
+        if by_depth != want:
+            raise AssertionError(f"bf16 {key}: launches {by_depth}, want "
+                                 f"{want}")
+        if f.dtype != bf or not bool(torch.isfinite(f).all()):
+            raise AssertionError(f"bf16 {key}: bad MHD state")
+        launches[f"{key} bf16"] = by_depth.get(2, by_depth[1])
+        ms = 1e3 * wall / n_steps
+        print(f"  MHD 256^3 bf16 RK3 on {strategy} {form or 'plain'}: "
+              f"{n_steps} steps, launches by depth {by_depth}, by kernel "
+              f"{by_kernel}, {ms:.2f} ms/step (host clock; f32 "
+              f"{STEP_MS.get(key, float('nan')):.2f}); one step vs the "
+              "plain bf16 version " + ("equal bit for bit" if exact else
+                                        f"rel {rel1:.3e} (limit "
+                                        f"{TOL['bfloat16']})"))
+        if rel1 > TOL["bfloat16"]:
+            raise AssertionError(f"bf16 {key}: the step disagrees with its "
+                                 "plain version")
+        del f, solver
+        torch.cuda.empty_cache()
+    del f0
+
+    for shape, cases in (
+        ((512,) * 3, (("swc", 2, 6, "select S=2"), ("swc", 3, 6, "select S=3"),
+                      ("swc_stream", 1, 5, "stream select S=1"),
+                      ("swc_stream", 2, 6, "stream select S=2"),
+                      ("swc_stream", 3, 6, "stream select S=3"))),
+        ((8192, 8192), (("swc_stream", 1, 5, "stream select 8192^2"),)),
+        ((1 << 26,), (("swc", 2, 6, "select 2^26 S=2"),)),
+    ):
+        prob = DiffusionProblem(shape)
+        f0 = prob.init_field(seed=0, device=dev).to(bf)
+        for strategy, depth, n, key in cases:
+            stream = strategy == "swc_stream"
+            kernel = STREAM if stream else TEMPORAL if depth > 1 else None
+            out, wall, by_depth = counted(
+                lambda: simulate(prob, f0, n, strategy=strategy,
+                                 fuse_steps=depth, device=dev),
+                kernel=kernel)
+            if by_depth != {depth: n // depth}:
+                raise AssertionError(f"bf16 diffusion {shape} {key}: "
+                                     f"launches {by_depth}")
+            if out.dtype != bf or not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"bf16 diffusion {shape} {key}: bad "
+                                     "state")
+            launches[f"{key} bf16"] = by_depth[depth]
+            want = simulate(prob, f0, n, strategy="hwc", device=dev)
+            same = bool(torch.equal(out, want))
+            _, rel = rel_err(out, want)
+            ms = 1e3 * wall / n
+            f32 = STEP_MS.get(key)
+            print(f"  diffusion {'x'.join(map(str, shape))} bf16 {strategy} "
+                  f"fuse_steps={depth}: {n} steps, launches by depth "
+                  f"{by_depth} (all {kernel}), {ms:.2f} ms/step (host clock; "
+                  + ("no f32 row" if f32 is None else f"f32 {f32:.2f}")
+                  + "); vs the plain bf16 version "
+                  + ("equal bit for bit" if same else f"rel {rel:.3e}"))
+            if not same:
+                raise AssertionError(f"bf16 diffusion {key} differs from "
+                                     "the plain bf16 version")
+            del out, want
+        del f0
         torch.cuda.empty_cache()
 
 
@@ -2026,32 +2419,21 @@ def train_step_parity(cfg, params, batch, dev):
     if not ok:
         raise AssertionError(f"train step vs plain conv: loss rel "
                              f"{loss_rel:.3e}, grads {rows[:3]}")
-    # Phase 3 (dp train)'s yardstick: the B7 step's loss and gradients.
-    yard = (float(loss_k), {"/".join(path): g.cpu() for path, g in
-                            tree_leaves_with_path(grads_k)})
-    return counts[0], yard
+    return counts[0]
 
 
-def train_cli_on_card():
-    """``python -m repro_torch.launch.train`` with ``TRAIN_CLI`` on the
-    card, its checkpoints in a temporary directory: rc 0, one restart
-    from step 3, a finite final loss, B7 launched."""
-    import os
-    import tempfile
+def train_cli_cmd(tmp) -> list[str]:
+    """``python -m repro_torch.launch.train`` with ``TRAIN_CLI``, its
+    checkpoints under ``tmp``."""
+    return _cli("train", *TRAIN_CLI, "--ckpt-dir", f"{tmp}/train-one")
 
-    with tempfile.TemporaryDirectory() as tmp:
-        cmd = [sys.executable, "-m", "repro_torch.launch.train",
-               *TRAIN_CLI, "--ckpt-dir", tmp]
-        t0 = time.perf_counter()
-        out = subprocess.run(cmd, capture_output=True, text=True,
-                             timeout=600, cwd=ROOT,
-                             env={**os.environ,
-                                  "PYTHONPATH": str(ROOT / "src")})
-        secs = time.perf_counter() - t0
-        steps = sorted(os.listdir(tmp))
-    if out.returncode:
-        raise AssertionError(f"train CLI rc {out.returncode}: "
-                             f"{out.stderr[-2000:]}")
+
+def train_cli_check(out, tmp) -> list[list[str]]:
+    """Phase 3 (train)'s CLI run (``train_cli_cmd``): rc 0, one restart
+    from step 3, a finite final loss, B7 launched. Returns its logged
+    step lines."""
+    _cli_ok("train CLI", out)
+    steps = sorted(os.listdir(f"{tmp}/train-one"))
     done = next(x for x in out.stdout.splitlines() if x.startswith("done:"))
     final = float(done.split("final loss")[1].split()[0])
     launches = int(done.split("launches=")[1].split()[0])
@@ -2060,12 +2442,23 @@ def train_cli_on_card():
             or "restored at step 3" not in out.stderr):
         raise AssertionError(f"train CLI: {done!r} / {out.stderr[-500:]}")
     print(f"  python -m repro_torch.launch.train {' '.join(TRAIN_CLI)}: "
-          f"rc 0 in {secs:.1f} s, restored at step 3, checkpoints {steps}")
+          f"rc 0 in {out.seconds:.1f} s, restored at step 3, checkpoints "
+          f"{steps}")
     print(f"    {done}")
     return _logged(out.stdout)
 
 
-def phase_train(dev, smi, launches):
+def train_cli_on_card():
+    """The reduced train CLI on the card alone (``train_cli_cmd``), its
+    checkpoints in a temporary directory."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = run_at_once({"train": train_cli_cmd(tmp)}, Path(tmp) / "logs")
+        train_cli_check(out["train"], tmp)
+
+
+def phase_train(dev, smi, launches, cli=True):
     """mamba2-780m's train step at full width (48 layers, d_model 1536,
     state 128, vocab 50280, chunk 256; bf16 compute on f32 master
     parameters, selective remat), random init from a seeded generator
@@ -2074,10 +2467,9 @@ def phase_train(dev, smi, launches):
     gradient step on B7 against one on the plain conv; then
     ``TRAIN_STEPS`` AdamW steps through ``make_train_step`` with the
     launch counters zeroed just before and read just after (96 B7
-    launches a step); the reduced train CLI on the card with a restart.
-    Returns the B7 row at the training view (the kernels line's) and,
-    for phase 3 (dp train), the yardstick (the B7 step 0's loss and
-    gradient leaves on the host) and the train CLI's logged steps."""
+    launches a step); the reduced train CLI on the card with a restart
+    (with ``cli``; else phase 3 (clis) runs it). Returns the B7 row at
+    the training view (the kernels line's)."""
     import torch
 
     from repro_torch.configs.registry import get_config
@@ -2107,7 +2499,7 @@ def phase_train(dev, smi, launches):
           f"seq; its batch 256 cut to {b})")
     it = BatchIterator(dataset, b, start_step=0)
     batches = [it.next_global(dev) for _ in range(TRAIN_STEPS)]
-    _, yard = train_step_parity(cfg, params, batches[0], dev)
+    train_step_parity(cfg, params, batches[0], dev)
 
     opt_cfg = AdamWConfig(lr_peak=3e-4, warmup_steps=1,
                           total_steps=TRAIN_STEPS)
@@ -2151,11 +2543,10 @@ def phase_train(dev, smi, launches):
     del params, opt, batches, m
     torch.cuda.empty_cache()
 
-    one_cli = train_cli_on_card()
-
+    if cli:
+        train_cli_on_card()
     return [conv1d_train_row(dev, cfg, b, s, launches["conv1d train"],
-                             steady, "forward + remat recompute")], (
-        yard, one_cli)
+                             steady, "forward + remat recompute")]
 
 
 def conv1d_train_row(dev, cfg, b, s, launches, step_ms, what):
@@ -2224,9 +2615,14 @@ def conv1d_train_row(dev, cfg, b, s, launches, step_ms, what):
 # Phase 3 (dp train): mamba2-780m data-parallel over ranks that share the
 # card over gloo, at phase 3 (train)'s global batch (2, 4096): mesh (2, 1)
 # of (data, model) under the dp profile, plain (3 timed steps after step
-# 0, then the sync alone) and ZeRO (1 after step 0); grad_sync at full
-# width on (2, 2) of (pod, data); the step-0 yardstick's leaves under
-# build/ meanwhile.
+# 0, then the sync alone) and ZeRO (1 after step 0); grad_sync on the
+# yardstick's tree on (2, 2) of (pod, data); the step-0 yardstick's
+# leaves under build/ meanwhile. Full width, the depth cut to DP_LAYERS
+# of 48 to keep the whole script inside half its time limit: the gloo
+# sums of the full depth's 857M gradient values took 166 s of a 927 s
+# run (NVIDIA H100 80GB HBM3, 700.00 W), and a host whose CPU is shared
+# runs them up to 1.8x slower.
+DP_LAYERS = 8
 DP_MESH = ((2, 1), ("data", "model"))
 DP_STEPS = {False: 3, True: 1}  # timed steps after step 0, by fsdp
 DP_SYNC_MESH = ((2, 2), ("pod", "data"))
@@ -2275,9 +2671,9 @@ def _load_leaf(directory, name: str, dev):
 
 
 def dp_yardstick(dev, cfg):
-    """Phase 3 (train)'s step 0 alone, for ``--dp-train``: the B7 grad
-    step of ``cfg`` (seed 0) on step 0's ``TRAIN_SHAPE`` batch; the loss
-    and the gradient leaves on the host."""
+    """Phase 3 (train)'s step 0 at ``cfg``'s depth: the B7 grad step of
+    ``cfg`` (seed 0) on step 0's ``TRAIN_SHAPE`` batch; the loss and the
+    gradient leaves on the host."""
     import torch
 
     from repro_torch.data import BatchIterator, MarkovLMDataset
@@ -2411,7 +2807,7 @@ def dp_train_rank(mesh, cfg, yard_dir: str, b: int, s: int):
             clone = tree_map(lambda t: t.clone(), params)
             comm.reset_counts()
             _, rec["sync_ms"] = clock(
-                lambda: sync_grads(clone, p_sh, mesh, axes, 1.0))
+                lambda: sync_grads(clone, p_sh, mesh, axes))
             rec["sync_bytes"] = comm.counts["bytes"]
             del clone
         del params, opt, batches, synced, step_fn, m
@@ -2478,15 +2874,20 @@ def dp_sync_rank(mesh, yard_dir: str):
     return rec
 
 
-def dp_cli_on_card(dev, one=None):
-    """The train CLI with ``TRAIN_CLI`` on the card over ``--mesh 2x1
-    --backend gloo`` (two ranks sharing it, restarting once), its logged
-    losses equal to ``--mesh 1x1``'s (``one``, phase 3 (train)'s run;
-    run here when None) to the printed digits; then its last checkpoint
-    restored onto one process (no mesh) for 2 more steps."""
-    import os
-    import tempfile
+def dp_cli_cmd(tmp) -> list[str]:
+    """The train CLI with ``TRAIN_CLI`` over ``--mesh 2x1 --backend
+    gloo`` (two ranks sharing the card, restarting once), its
+    checkpoints under ``tmp``."""
+    return _cli("train", *TRAIN_CLI, "--mesh", "2x1", "--backend", "gloo",
+                "--ckpt-dir", f"{tmp}/dp-two")
 
+
+def dp_cli_check(dev, out, one, tmp):
+    """Phase 3 (dp train)'s CLI run (``dp_cli_cmd``): its logged losses
+    equal to ``--mesh 1x1``'s (``one``, the logged step lines of
+    ``train_cli_cmd``'s run) to the printed digits, both ranks restored
+    at step 3; then its last checkpoint restored onto one process (no
+    mesh) for 2 more steps."""
     import torch
 
     from repro_torch.checkpoint import CheckpointManager
@@ -2496,56 +2897,51 @@ def dp_cli_on_card(dev, one=None):
     from repro_torch.models import ssm
     from repro_torch.optim import AdamWConfig, adamw_init
 
-    def cli(*args):
-        t0 = time.perf_counter()
-        out = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.train", *args],
-            capture_output=True, text=True, timeout=600, cwd=ROOT,
-            env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
-        if out.returncode:
-            raise AssertionError(f"train CLI {' '.join(args)}: rc "
-                                 f"{out.returncode}: {out.stderr[-2000:]}")
-        return out, _logged(out.stdout), time.perf_counter() - t0
-
-    with tempfile.TemporaryDirectory() as tmp:
-        if one is None:
-            _, one, _ = cli(*TRAIN_CLI, "--ckpt-dir", f"{tmp}/one")
-        out, two, secs = cli(*TRAIN_CLI, "--mesh", "2x1", "--backend",
-                             "gloo", "--ckpt-dir", f"{tmp}/two")
-        done = next(x for x in out.stdout.splitlines()
-                    if x.startswith("done:"))
-        if (two != one or "restarts=1" not in done
-                or "device=cuda" not in done
-                or out.stderr.count("restored at step 3") != 2):
-            raise AssertionError(f"train CLI 2x1: {two} vs 1x1 {one}; {done}")
-        print(f"  python -m repro_torch.launch.train {' '.join(TRAIN_CLI)} "
-              f"--mesh 2x1 --backend gloo: rc 0 in {secs:.1f} s, its "
-              f"{len(two)} logged step lines equal --mesh 1x1's to the "
-              "printed digits, both ranks restored at step 3")
-        print(f"    {done}")
-        # its last checkpoint on one process: the reduced config, the
-        # CLI's data and schedule (2 steps past its 8)
-        cfg = reduced_config(get_config("mamba2-780m"))
-        mgr = CheckpointManager(f"{tmp}/two")
-        params = ssm.init_params(cfg, seed=0, device=dev)
-        (state, at) = mgr.restore({"params": params,
-                                   "opt": adamw_init(params)})
-        step_fn = make_train_step(cfg, AdamWConfig(
-            lr_peak=1e-3, warmup_steps=1, total_steps=at + 2), device=dev)
-        data = MarkovLMDataset(cfg.vocab, 64, branching=4)
-        params, opt, losses = state["params"], state["opt"], []
-        for i in range(at, at + 2):
-            batch = BatchIterator(data, 2, start_step=i).next_global(dev)
-            params, opt, m = step_fn(params, opt, batch)
-            losses.append(float(m["loss"]))
-        if at != 8 or int(opt.step) != at + 2 or not all(
-                map(math.isfinite, losses)):
-            raise AssertionError(f"restore onto 1x1: step {at}, {losses}")
-        del params, opt, state
-        torch.cuda.empty_cache()
+    _cli_ok("train CLI 2x1", out)
+    two = _logged(out.stdout)
+    done = next(x for x in out.stdout.splitlines() if x.startswith("done:"))
+    if (two != one or "restarts=1" not in done or "device=cuda" not in done
+            or out.stderr.count("restored at step 3") != 2):
+        raise AssertionError(f"train CLI 2x1: {two} vs 1x1 {one}; {done}")
+    print(f"  python -m repro_torch.launch.train {' '.join(TRAIN_CLI)} "
+          f"--mesh 2x1 --backend gloo: rc 0 in {out.seconds:.1f} s, its "
+          f"{len(two)} logged step lines equal --mesh 1x1's to the "
+          "printed digits, both ranks restored at step 3")
+    print(f"    {done}")
+    # its last checkpoint on one process: the reduced config, the CLI's
+    # data and schedule (2 steps past its 8)
+    cfg = reduced_config(get_config("mamba2-780m"))
+    mgr = CheckpointManager(f"{tmp}/dp-two")
+    params = ssm.init_params(cfg, seed=0, device=dev)
+    (state, at) = mgr.restore({"params": params, "opt": adamw_init(params)})
+    step_fn = make_train_step(cfg, AdamWConfig(
+        lr_peak=1e-3, warmup_steps=1, total_steps=at + 2), device=dev)
+    data = MarkovLMDataset(cfg.vocab, 64, branching=4)
+    params, opt, losses = state["params"], state["opt"], []
+    for i in range(at, at + 2):
+        batch = BatchIterator(data, 2, start_step=i).next_global(dev)
+        params, opt, m = step_fn(params, opt, batch)
+        losses.append(float(m["loss"]))
+    if at != 8 or int(opt.step) != at + 2 or not all(
+            map(math.isfinite, losses)):
+        raise AssertionError(f"restore onto 1x1: step {at}, {losses}")
+    del params, opt, state
+    torch.cuda.empty_cache()
     print(f"  its step-{at} checkpoint (whole leaves) restored on one "
           f"process without a mesh: steps {at}, {at + 1} loss "
           + ", ".join(f"{x:.4f}" for x in losses))
+
+
+def dp_cli_on_card(dev):
+    """``dp_cli_cmd`` and its ``--mesh 1x1`` twin (``train_cli_cmd``) on
+    the card at once, then ``dp_cli_check``."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = run_at_once({"one": train_cli_cmd(tmp), "two": dp_cli_cmd(tmp)},
+                           Path(tmp) / "logs")
+        _cli_ok("train CLI 1x1", outs["one"])
+        dp_cli_check(dev, outs["two"], _logged(outs["one"].stdout), tmp)
 
 
 def _logged(stdout: str) -> list[list[str]]:
@@ -2554,15 +2950,15 @@ def _logged(stdout: str) -> list[list[str]]:
             if x.startswith("step ")]
 
 
-def phase_dp_train(dev, smi, launches, yard=None, one_cli=None):
+def phase_dp_train(dev, smi, launches, cli=True):
     """Phase 3 (dp train): the data-parallel train step of mamba2-780m
-    at full width and depth on ranks sharing this card
+    at full width and ``DP_LAYERS`` layers on ranks sharing this card
     over gloo (``launch.mesh.run_on_mesh``; none of its times is a
-    scaling figure), held to phase 3 (train)'s one-card step 0 (the
-    yardstick ``yard``; made here when the phase runs alone); grad_sync
-    at full width; the train CLI over a mesh against phase 3 (train)'s
-    ``--mesh 1x1`` run (``one_cli``, its logged step lines; run here
-    when None). Returns the B7 row at a rank's training view."""
+    scaling figure), held to the one-card step 0 at that depth (the
+    yardstick); grad_sync on the yardstick's tree; with ``cli``, the
+    train CLI over a mesh against its ``--mesh 1x1`` run (else phase 3
+    (clis) runs them). Returns the B7 row at a rank's training view."""
+    import dataclasses
     import shutil
 
     import torch
@@ -2572,22 +2968,23 @@ def phase_dp_train(dev, smi, launches, yard=None, one_cli=None):
     from repro_torch.launch.mesh import run_on_mesh
 
     print("== phase 3 (dp train): mamba2-780m data-parallel and ZeRO over "
-          "gloo ranks sharing one card, grad_sync at full width")
+          f"gloo ranks sharing one card at {DP_LAYERS} of 48 layers, "
+          "grad_sync")
     print(f"  card: {smi}")
     build.build_all()  # no rank waits on nvcc
-    cfg = get_config("mamba2-780m")
+    cfg = dataclasses.replace(get_config("mamba2-780m"), n_layers=DP_LAYERS)
     b, s = TRAIN_SHAPE
-    if yard is None:
-        yard = dp_yardstick(dev, cfg)
     t0 = time.perf_counter()
+    yard = dp_yardstick(dev, cfg)
     shutil.rmtree(DP_YARD_DIR, ignore_errors=True)
     _save_yardstick(yard, DP_YARD_DIR)
     loss_a, leaves = yard[0], len(yard[1])
     n_values = sum(g.numel() for g in yard[1].values())
     del yard
-    print(f"  (a) yardstick: phase 3 (train)'s one-card B7 step 0 at {b}x{s}:"
-          f" loss {loss_a:.6f}, {leaves} f32 gradient leaves, {n_values} "
-          f"values, written for the ranks in {time.perf_counter() - t0:.1f} s")
+    print(f"  (a) yardstick: the one-card B7 step 0 at {cfg.n_layers} layers, "
+          f"{b}x{s}: loss {loss_a:.6f}, {leaves} f32 gradient leaves, "
+          f"{n_values} values, made and written for the ranks in "
+          f"{time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     try:
         ranks = run_on_mesh(dp_train_rank, *DP_MESH, backend="gloo",
@@ -2650,7 +3047,7 @@ def phase_dp_train(dev, smi, launches, yard=None, one_cli=None):
         print(f"    ZeRO vs DP: gradients {zero['grads_equal']} of {n_leaves}"
               f" leaves equal bit for bit, parameters after step 0 "
               f"{zero['params_equal']} of {n_leaves}: {why}")
-    print(f"  (d) grad_sync at full width, mesh (2, 2) of (pod, data), 4 ranks"
+    print(f"  (d) grad_sync on (a)'s tree, mesh (2, 2) of (pod, data), 4 ranks"
           f" on the card, rank r's tree = (a) x (1 + r/8), "
           f"{sync[0]['values']} values:")
     for rank, r in enumerate(sync):
@@ -2668,7 +3065,8 @@ def phase_dp_train(dev, smi, launches, yard=None, one_cli=None):
           f"{tol:.0e}, residuals nonzero in {r['resid_nonzero']} of "
           f"{leaves} leaves); peak per rank {peaks} GiB; all"
           " ranks within tolerance")
-    dp_cli_on_card(dev, one_cli)
+    if cli:
+        dp_cli_on_card(dev)
     launches["conv1d dp train"] = sum(dp["launches"])
     return [conv1d_train_row(dev, cfg, b // 2, s,
                              launches["conv1d dp train"],
@@ -3028,13 +3426,19 @@ TP_MESH = ((1, 2), ("data", "model"))
 # sequence only where the batch is cut over a data axis above one rank.
 TP_SEQ_MESH = ((2, 2), ("data", "model"))
 TP_PREFILL = (1, 8192)
-# Depth cut to keep the whole script inside its time limit (full width;
-# llama3-8b has 32 layers, qwen2.5-3b 36, mamba2-780m 48,
-# recurrentgemma-9b 38): llama3-8b in (a) and (b), qwen2.5-3b in (d),
-# mamba2-780m in (f), recurrentgemma-9b in (g) (two super-blocks and two
-# tail blocks), the yardsticks and the ranks alike.
-TP_LAYERS = {"llama3-8b": 16, "qwen2.5-3b": 18, "mamba2-780m": 8,
-             "recurrentgemma-9b": 8}
+# Depth cut to keep the whole script inside half its time limit (full
+# width; llama3-8b has 32 layers, qwen2.5-3b 36, gemma-2b 18,
+# mamba2-780m 48, recurrentgemma-9b 38, whisper-small 12 + 12): llama3-8b
+# in (a) and (b), gemma-2b in (c), qwen2.5-3b in (d), mamba2-780m in (f),
+# recurrentgemma-9b in (g) (one super-block of (rec, rec, attn) and one
+# tail block), whisper-small in (h) (its encoder and decoder alike), the
+# yardsticks and the ranks alike. A host whose CPU is
+# shared runs the whole script up to 1.8x slower: on such a host
+# (NVIDIA H100 80GB HBM3, 700.00 W) it took 1152.4 s with this phase at
+# 12, 12, 18, 8 and 8 layers, and another ran past 1200 s at 8, 9, 18,
+# 4 and 4.
+TP_LAYERS = {"llama3-8b": 4, "qwen2.5-3b": 4, "gemma-2b": 6,
+             "mamba2-780m": 2, "recurrentgemma-9b": 4, "whisper-small": 4}
 TP_DECODE = (4, 32)  # batch, teacher-forced steps from an empty cache
 TP_GEMMA_DECODE = (2, 32)
 TP_GEMMA_FORWARD = (1, 2048)
@@ -3140,7 +3544,7 @@ def tp_yardstick(dev, directory: Path) -> dict:
     del params, cache, logits, f32, prefill
     torch.cuda.empty_cache()
 
-    cfg = dataclasses.replace(get_config("gemma-2b"), dtype="float32")
+    cfg = _tp_model_cfg("gemma-2b", "float32")
     params = tr.init_params(cfg, seed=0, device=dev)
     with torch.no_grad():
         logits, _ = tr.forward(params, cfg,
@@ -3289,7 +3693,7 @@ def tp_gemma_rank(mesh, yard_dir: str):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", torch.cuda.current_device())
-    cfg = dataclasses.replace(get_config("gemma-2b"), dtype="float32")
+    cfg = _tp_model_cfg("gemma-2b", "float32")
     yard = Path(yard_dir)
     p_sh = shlib.param_shardings(tr.abstract_params(cfg), mesh)
     params = tr.init_params(cfg, seed=0, device=dev, shardings=p_sh)
@@ -3373,55 +3777,56 @@ def tp_train_rank(mesh, yard_dir: str):
     return rec
 
 
-def tp_cli_on_card():
-    """(e): the train CLI ``TP_CLI`` on the card over ``--mesh 2x2
-    --backend gloo`` (four ranks sharing it, restarting once) against
-    ``--mesh 1x1``: the same logged step lines."""
-    import os
-    import tempfile
+def tp_cli_cmds(tmp) -> dict:
+    """(e)'s commands: the train CLI ``TP_CLI`` on the card over
+    ``--mesh 2x2 --backend gloo`` (four ranks sharing it, restarting
+    once) and over ``--mesh 1x1``."""
+    return {"tp-one": _cli("train", *TP_CLI, "--ckpt-dir", f"{tmp}/tp-one"),
+            "tp-four": _cli("train", *TP_CLI, "--mesh", "2x2", "--backend",
+                            "gloo", "--ckpt-dir", f"{tmp}/tp-four")}
 
-    def cli(*args):
-        t0 = time.perf_counter()
-        out = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.train", *args],
-            capture_output=True, text=True, timeout=600, cwd=ROOT,
-            env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
-        if out.returncode:
-            raise AssertionError(f"train CLI {' '.join(args)}: rc "
-                                 f"{out.returncode}: {out.stderr[-2000:]}")
-        return out, _logged(out.stdout), time.perf_counter() - t0
 
-    with tempfile.TemporaryDirectory() as tmp:
-        _, one, _ = cli(*TP_CLI, "--ckpt-dir", f"{tmp}/one")
-        out, four, secs = cli(*TP_CLI, "--mesh", "2x2", "--backend", "gloo",
-                              "--ckpt-dir", f"{tmp}/four")
+def tp_cli_check(outs):
+    """(e): ``tp_cli_cmds``' runs, the same logged step lines."""
+    _cli_ok("train CLI 1x1", outs["tp-one"])
+    _cli_ok("train CLI 2x2", outs["tp-four"])
+    one, out = _logged(outs["tp-one"].stdout), outs["tp-four"]
+    four = _logged(out.stdout)
     done = next(x for x in out.stdout.splitlines() if x.startswith("done:"))
     if (four != one or "restarts=1" not in done or "device=cuda" not in done
             or out.stderr.count("restored at step 3") != 4):
         raise AssertionError(f"train CLI 2x2: {four} vs 1x1 {one}; {done}")
     print(f"  (e) python -m repro_torch.launch.train {' '.join(TP_CLI)} "
-          f"--mesh 2x2 --backend gloo: rc 0 in {secs:.1f} s, its "
+          f"--mesh 2x2 --backend gloo: rc 0 in {out.seconds:.1f} s, its "
           f"{len(four)} logged step lines equal --mesh 1x1's to the printed "
           "digits, all four ranks restored at step 3")
     print(f"    {done}")
 
 
+def tp_cli_on_card():
+    """(e) alone: ``tp_cli_cmds`` at once, then ``tp_cli_check``."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tp_cli_check(run_at_once(tp_cli_cmds(tmp), Path(tmp) / "logs"))
+
+
 # Phase 3 (tp) parts (f)-(h): mamba2, the hybrid and whisper on TP_MESH,
-# each against its own one-rank yardstick run just before in this process
+# each against its own one-rank yardstick run first in this process
 # (kept in TP_YARD_DIR while the ranks run).
 TP_SSM_PREFILL = (4, 8192)  # bf16, the mamba2 phase's prefill
 TP_SSM_DECODE = (4, 32)  # f32, batch, teacher-forced steps
 TP_SSM_TRAIN = (1, 4096)  # bf16, train_4k's seq at a global batch of 1
 TP_HYBRID_PREFILL = (1, 8192)  # bf16
 TP_HYBRID_DECODE = (4, 32)  # bf16
-# whisper-small whole: encode and prefill at ENCDEC_BATCH, the decode
-# steps, in f32 (TF32 off); the train step at (ENCDEC_TRAIN_BATCH, 448)
-# in bf16
+# whisper-small at TP_LAYERS' depth: encode and prefill at ENCDEC_BATCH,
+# the decode steps, in f32 (TF32 off); the train step at
+# (ENCDEC_TRAIN_BATCH, 448) in bf16
 TP_WHISPER_DECODE = 32
 # (f)'s bf16 prefill: at 2e-2 of max |logit| the first run (NVIDIA H100
 # 80GB HBM3, 700.00 W) measured 2.025e-2 from the one-rank bf16 prefill
 # (its other parts within 6.1e-6 in f32, B7 bit for bit on both ranks),
-# bf16's noise through 8 layers of the SSD's long memory. So it is held, as (b)'s bf16 decode is, to
+# bf16's noise through the SSD's long memory (at 8 layers then). So it is held, as (b)'s bf16 decode is, to
 # TP_BF16_MULTIPLE times the one-rank bf16 prefill's own distance from
 # the one-rank f32 prefill, both against that f32 prefill; its distance
 # from the one-rank bf16 prefill is printed beside.
@@ -3437,6 +3842,8 @@ def _tp_model_cfg(arch: str, dtype: str | None = None):
     cfg = get_config(arch)
     if arch in TP_LAYERS:
         cfg = dataclasses.replace(cfg, n_layers=TP_LAYERS[arch])
+    if cfg.n_encoder_layers:
+        cfg = dataclasses.replace(cfg, n_encoder_layers=cfg.n_layers)
     return dataclasses.replace(cfg, dtype=dtype or cfg.dtype)
 
 
@@ -3763,34 +4170,35 @@ def tp_b7_row(dev, cfg, view: dict, launches: int, smi: str) -> dict:
     }
 
 
-def tp_families(dev, smi) -> list[dict]:
-    """(f)-(h) of phase 3 (tp): each family's yardstick, then its ranks on
-    ``TP_MESH``; checks and prints them. Returns the kernels line's B7
-    row."""
-    import shutil
+TP_FAMILIES = ("mamba2-780m", "recurrentgemma-9b", "whisper-small")
 
+
+def tp_mesh_rank(mesh, yard_dir: str):
+    """One rank of every part of phase 3 (tp) on ``TP_MESH``, in one
+    process (each part's model freed before the next): (a) and (b)
+    (``tp_llama_rank``), (d) (``tp_train_rank``), then (f)-(h)
+    (``tp_family_rank``). Returns {part: this rank's record}."""
     import torch
 
-    from repro_torch.launch.mesh import run_on_mesh
+    out = {"llama": tp_llama_rank(mesh, yard_dir)}
+    torch.cuda.empty_cache()
+    out["train"] = tp_train_rank(mesh, yard_dir)
+    for arch in TP_FAMILIES:
+        torch.cuda.empty_cache()
+        out[arch] = tp_family_rank(mesh, arch, yard_dir)
+    return out
 
-    out = {}
-    try:
-        for arch in ("mamba2-780m", "recurrentgemma-9b", "whisper-small"):
-            t0 = time.perf_counter()
-            yard = tp_family_yardstick(arch, dev, TP_YARD_DIR)
-            torch.cuda.empty_cache()
-            recs = run_on_mesh(tp_family_rank, *TP_MESH, backend="gloo",
-                               device=dev, args=(arch, str(TP_YARD_DIR)),
-                               timeout=900)
-            out[arch] = (yard, recs, time.perf_counter() - t0)
-    finally:
-        shutil.rmtree(TP_YARD_DIR, ignore_errors=True)
+
+def tp_families(dev, smi, out: dict) -> list[dict]:
+    """(f)-(h) of phase 3 (tp): checks and prints each family's ranks
+    against its yardstick (``out``: {arch: (yardstick, ranks' records,
+    the yardstick's seconds)}). Returns the kernels line's B7 row."""
     row = []
     for arch, (yard, recs, secs) in out.items():
         cfg = _tp_model_cfg(arch)
         part = {"mamba2-780m": "f", "recurrentgemma-9b": "g"}.get(arch, "h")
         print(f"  ({part}) {arch} at {cfg.n_layers} layers on (1, 2) "
-              f"({secs:.1f} s with its yardstick):")
+              f"(its yardstick {secs:.1f} s):")
         ssm = arch == "mamba2-780m"
         for rank, r in enumerate(recs):
             b7 = r["prefill_counts"][0]
@@ -3899,14 +4307,15 @@ def _tp_family_train(arch: str):
         ENCDEC_TRAIN_BATCH, 448)
 
 
-def phase_tp(dev, smi):
+def phase_tp(dev, smi, cli=True):
     """Phase 3 (tp): the tp profile's model axis at full width over gloo
     ranks sharing this card, each part against a one-rank yardstick
     (``tp_yardstick``, ``tp_family_yardstick``) run first in this
     process; plain PyTorch and collectives (the reference's TP is GSPMD
     over plain ``jnp``): the B1-B7 counters read 0 on every rank of
-    (a)-(e), and B7 alone runs in (f), mamba2's conv. Returns the
-    kernels line's row of B7 under tensor parallelism."""
+    (a)-(e), and B7 alone runs in (f), mamba2's conv; (e), the CLIs,
+    with ``cli`` (else phase 3 (clis) runs them). Returns the kernels
+    line's row of B7 under tensor parallelism."""
     import os
     import shutil
 
@@ -3932,19 +4341,20 @@ def phase_tp(dev, smi):
               f"{yard['loss']:.4f}, grad_norm {yard['grad_norm']:.4f}, "
               f"{yard['train_ms']:.1f} ms, peak "
               f"{yard['train_peak'] / 2**30:.2f} GiB")
-        torch.cuda.empty_cache()
-        llama = run_on_mesh(tp_llama_rank, *TP_MESH, backend="gloo",
-                            device=dev, args=(str(TP_YARD_DIR),),
-                            timeout=900)
-        gemma = run_on_mesh(tp_gemma_rank, *TP_SEQ_MESH, backend="gloo",
-                            device=dev, args=(str(TP_YARD_DIR),),
-                            timeout=900)
-        # two training ranks fill the card (a 32 GiB peak each): their
-        # allocators map memory as it grows rather than caching segments
+        families = {}
+        for arch in TP_FAMILIES:
+            t1 = time.perf_counter()
+            yard_f = tp_family_yardstick(arch, dev, TP_YARD_DIR)
+            families[arch] = (yard_f, time.perf_counter() - t1)
+            torch.cuda.empty_cache()
+        # one process a rank for every part on TP_MESH; the training
+        # parts fill the card (a 32 GiB peak each): the ranks' allocators
+        # map memory as it grows rather than caching segments
         alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
         os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        t1 = time.perf_counter()
         try:
-            train = run_on_mesh(tp_train_rank, *TP_MESH, backend="gloo",
+            ranks = run_on_mesh(tp_mesh_rank, *TP_MESH, backend="gloo",
                                 device=dev, args=(str(TP_YARD_DIR),),
                                 timeout=900)
         finally:
@@ -3952,8 +4362,17 @@ def phase_tp(dev, smi):
                 del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
             else:
                 os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+        print(f"  (a), (b), (d), (f)-(h): one process a rank on (1, 2), "
+              f"{time.perf_counter() - t1:.1f} s")
+        gemma = run_on_mesh(tp_gemma_rank, *TP_SEQ_MESH, backend="gloo",
+                            device=dev, args=(str(TP_YARD_DIR),),
+                            timeout=900)
     finally:
         shutil.rmtree(TP_YARD_DIR, ignore_errors=True)
+    llama = [r["llama"] for r in ranks]
+    train = [r["train"] for r in ranks]
+    families = {arch: (yard_f, [r[arch] for r in ranks], secs)
+                for arch, (yard_f, secs) in families.items()}
     for label, recs in (("llama3-8b", llama), ("gemma-2b", gemma),
                         ("qwen2.5-3b", train)):
         for rank, r in enumerate(recs):
@@ -4030,9 +4449,10 @@ def phase_tp(dev, smi):
             raise AssertionError(f"tp train rank {rank}: {r}")
         if r["losses"] != train[0]["losses"]:
             raise AssertionError("tp train: the ranks' losses differ")
-    tp_cli_on_card()
-    print("  B1-B7 launches on every rank of (a)-(e): (0, 0, 0)")
-    rows = tp_families(dev, smi)
+    if cli:
+        tp_cli_on_card()
+    print("  B1-B7 launches on every rank of (a)-(d): (0, 0, 0)")
+    rows = tp_families(dev, smi, families)
     print("  B1-B6 launches on every rank of (f)-(h): 0; B7 only in (f)'s "
           "prefill and train step")
     return rows
@@ -5152,52 +5572,54 @@ def hybrid_training(dev, smi):
                  "of parameters, gradients and moments)")
 
 
-def hybrid_clis_on_card():
+def hybrid_cli_cmds(tmp) -> dict:
     """The reduced train CLI (``HYBRID_TRAIN_CLI``: a failure at step 5,
     a restart from its step-3 checkpoint) and serve CLI
-    (``HYBRID_SERVE_CLI``) on the card, at once: rc 0 each."""
-    import os
-    import tempfile
+    (``HYBRID_SERVE_CLI``)."""
+    return {"hybrid-train": _cli("train", *HYBRID_TRAIN_CLI, "--ckpt-dir",
+                                 f"{tmp}/hybrid-train"),
+            "hybrid-serve": _cli("serve", *HYBRID_SERVE_CLI)}
 
-    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        cmds = {"train": [sys.executable, "-m", "repro_torch.launch.train",
-                          *HYBRID_TRAIN_CLI, "--ckpt-dir", tmp],
-                "serve": [sys.executable, "-m", "repro_torch.launch.serve",
-                          *HYBRID_SERVE_CLI]}
-        procs = {k: subprocess.Popen(c, stdout=subprocess.PIPE,
-                                     stderr=subprocess.PIPE, text=True,
-                                     cwd=ROOT, env=env)
-                 for k, c in cmds.items()}
-        outs = {k: p.communicate(timeout=600) for k, p in procs.items()}
-        secs = time.perf_counter() - t0
-    for k, p in procs.items():
-        if p.returncode:
-            raise AssertionError(f"{k} CLI rc {p.returncode}: "
-                                 f"{outs[k][1][-2000:]}")
-    done = next(x for x in outs["train"][0].splitlines()
+
+def hybrid_cli_check(outs):
+    """``hybrid_cli_cmds``' runs: rc 0 each, one restart, a finite final
+    loss, the serve CLI's generated line."""
+    train, serve = outs["hybrid-train"], outs["hybrid-serve"]
+    _cli_ok("train CLI", train)
+    _cli_ok("serve CLI", serve)
+    done = next(x for x in train.stdout.splitlines()
                 if x.startswith("done:"))
     final = float(done.split("final loss")[1].split()[0])
     if ("restarts=1" not in done or "device=cuda" not in done
             or not math.isfinite(final)
-            or "restored at step 3" not in outs["train"][1]):
+            or "restored at step 3" not in train.stderr):
         raise AssertionError(f"train CLI: {done!r} / "
-                             f"{outs['train'][1][-500:]}")
-    generated = next(x for x in outs["serve"][0].splitlines()
+                             f"{train.stderr[-500:]}")
+    generated = next(x for x in serve.stdout.splitlines()
                      if x.startswith("generated"))
     print(f"  python -m repro_torch.launch.train {' '.join(HYBRID_TRAIN_CLI)}"
           f" and launch.serve {' '.join(HYBRID_SERVE_CLI)}, at once: rc 0 in "
-          f"{secs:.1f} s, restored at step 3")
+          f"{max(train.seconds, serve.seconds):.1f} s, restored at step 3")
     print(f"    {done}")
     print(f"    serve: {generated} (the ring of 16 slots wrapped)")
 
 
-def phase_hybrid(dev, smi):
+def hybrid_clis_on_card():
+    """``hybrid_cli_cmds`` on the card at once, then
+    ``hybrid_cli_check``."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        hybrid_cli_check(run_at_once(hybrid_cli_cmds(tmp),
+                                     Path(tmp) / "logs"))
+
+
+def phase_hybrid(dev, smi, cli=True):
     """Phase 3 (hybrid): recurrentgemma-9b served at full width and depth
     (a), the card against the CPU on the reduced config (b), the train
-    step at the reference's reduced depth and the CLIs (c); plain
-    PyTorch, the B1-B7 counters 0 throughout."""
+    step at the reference's reduced depth and, with ``cli`` (else phase 3
+    (clis) runs them), the CLIs (c); plain PyTorch, the B1-B7 counters 0
+    throughout."""
     import torch
 
     print("== phase 3 (hybrid): recurrentgemma-9b served at full width and "
@@ -5211,7 +5633,8 @@ def phase_hybrid(dev, smi):
     hybrid_card_vs_cpu(dev)
     print("  (c)")
     hybrid_training(dev, smi)
-    hybrid_clis_on_card()
+    if cli:
+        hybrid_clis_on_card()
     print("  B1-B7 launches in every part: (0, 0, 0)")
 
 
@@ -6485,6 +6908,27 @@ def guard_cases(dev):
         ("B4 tc rank 1 S=2 bf16", diffusion_case((4096,), H, dev,
                                                  strategy="tc",
                                                  fuse_steps=2)),
+        # bf16 in B2, B3 and the MHD φ (B2c, B3c, B4b)
+        ("B2 walk S=2 bf16", diffusion_case((16, 16, 32), H, dev,
+                                            fuse_steps=2)),
+        ("B2 walk S=3 bf16 rank 2", diffusion_case((48, 64), H, dev,
+                                                   fuse_steps=3)),
+        ("B2 one-tile rank 1 S=2 bf16", diffusion_case((4096,), H, dev,
+                                                       fuse_steps=2)),
+        ("B2 walk MHD pair bf16", mhd_pair_case((8, 8, 32), H, dev)),
+        ("B3 ring rank 3 bf16", diffusion_case((16, 16, 32), H, dev,
+                                               strategy="swc_stream")),
+        ("B3 ring MHD RHS bf16", mhd_case((8, 8, 32), H, dev, False,
+                                          strategy="swc_stream")),
+        ("B3 walk S=2 bf16 rank 2", diffusion_case((48, 64), H, dev,
+                                                   strategy="swc_stream",
+                                                   fuse_steps=2)),
+        ("B1 swc MHD RHS bf16", mhd_case((8, 8, 32), H, dev, False)),
+        ("B1 swc MHD substep bf16", mhd_case((8, 8, 32), H, dev, True)),
+        ("B4 tc MHD substep bf16", mhd_case((8, 8, 16), H, dev, True,
+                                            strategy="tc")),
+        ("B4 tc walk MHD pair bf16", mhd_pair_case((8, 8, 16), H, dev,
+                                                   strategy="tc")),
     )
     cases = []
     for label, case in fused:
@@ -6621,6 +7065,12 @@ def phase_audit(dev, smi):
         f"{k} {v}" for k, v in report["not_ported"].items()) or "none")
           + "; refused by the planner: " + (", ".join(
               f"{k} {v}" for k, v in report["refused"].items()) or "none"))
+    print("      bf16 kernels audited: " + (", ".join(
+        f"{k} {v}" for k, v in report["bf16_items"].items()) or "none"))
+    if set(report["not_ported"]) & {"B2c", "B3c", "B4b"} or set(
+            report["bf16_items"]) != {"B2c", "B3c", "B4b"}:
+        raise AssertionError("audit: B2c, B3c and B4b must be audited, "
+                             "none counted as not ported")
     for f in report["findings"][:20]:
         print(f"      [{f['cls']}] {f['plan']}: {f['detail']}")
     if c["unaudited"] or c["findings"]:
@@ -6675,7 +7125,16 @@ def phase_audit(dev, smi):
     return report
 
 
-def phase_times(dev, smi, launches):
+def phase_times(dev, smi, launches, bf16_only=False):
+    """Phase 4: kernel times (CUDA events, median) at the main path's
+    shapes beside their bounds, plain and library times; ``bf16_only``
+    the bf16 rows alone (``--bf16``). Each field of one shape, dtype and
+    seed is drawn once for the phase."""
+    with reuse_draws():
+        return _phase_times(dev, smi, launches, bf16_only)
+
+
+def _phase_times(dev, smi, launches, bf16_only):
     import dataclasses
 
     import torch
@@ -6733,7 +7192,8 @@ def phase_times(dev, smi, launches):
             solo_ms = time_ms(lambda: [
                 fused_stencil_swc(f, ops, phi, solo, aux=a) for f, a in members
             ], reps)
-        plain_ms = time_ms(lambda: plain(case), plain_reps, warmup=1)
+        # the check's call above was the plain version's warm-up
+        plain_ms = time_ms(lambda: plain(case), plain_reps, warmup=0)
         lib_ms = None
         if library is not None:
             t = time.perf_counter()
@@ -6743,23 +7203,28 @@ def phase_times(dev, smi, launches):
             lerr, _ = rel_err(lib_out.reshape(got.shape), got)
             del lib_out
             # A library call of tens of ms or more is timed over 3 calls
-            # after one warm-up, which keeps the run within its budget.
+            # after the check's call, which keeps the run within its
+            # budget.
             lib_ms = time_ms(library, 3 if slow else reps,
-                             warmup=1 if slow else 2)
+                             warmup=0 if slow else 2)
             print(f"    library conv vs kernel max|err| {lerr:.3e}")
         points = max(batch, 1)
         for n_ in plan.interior:
             points *= n_
         nbytes = (fp.numel() + got.numel()
                   + (0 if aux is None else aux.numel())) * item
-        flops = depth * (ops.flops_per_point(plan.n_f) + phi_flops) * points
+        tap_flops = depth * ops.flops_per_point(plan.n_f) * points
+        phi_ops = depth * phi_flops * points
         t_bytes = nbytes / bw * 1e3
         tc = plan.strategy == "tc"
         if tc:  # the tensor-core route's rate (bf16 MMA, or f64 MMA)
-            rate = TC_RATES[dtype]
-        else:  # outside the tensor cores; bf16 counted at the f32 rate
+            t_ops = (tap_flops + phi_ops) / TC_RATES[dtype] * 1e3
+        elif item == 2:  # the taps' bf16 pairs; φ (exp, /) at the f32 rate
+            t_ops = (tap_flops / (BF16_PAIR * f32_rate)
+                     + phi_ops / f32_rate) * 1e3
+        else:
             rate = f64_rate if item == 8 else f32_rate
-        t_ops = flops / rate * 1e3
+            t_ops = (tap_flops + phi_ops) / rate * 1e3
         bound = max(t_bytes, t_ops)
         stream = plan.stream_axis is not None
         if tc:
@@ -6782,14 +7247,14 @@ def phase_times(dev, smi, launches):
         elif depth == 1:
             name_, source, replaces = (f"fused_stencil_swc[{kind}",
                                        KERNEL_SOURCE, REPLACES)
-            if item == 2:
-                name_ += ", bf16"
             print(f"    swc: tile {plan.block}, {plan.smem_bytes} B shared; "
                   f"{swc_launch_info(plan, phi)}")
         else:
             name_, source, replaces = (
                 f"fused_stencil_temporal[{kind}, S={depth}",
                 TEMPORAL_SOURCE, TEMPORAL_REPLACES)
+        if item == 2 and not tc:
+            name_ += ", bf16"
         if batch:
             name_, replaces = f"{name_}, B={batch}]", BATCH_REPLACES
         else:
@@ -6875,7 +7340,76 @@ def phase_times(dev, smi, launches):
 
         return run
 
+    def bf16_rows():
+        """The bf16 rows of B2, B3 and the MHD φ (B2c, B3c, B4b)."""
+        print("  -- bf16 in B2 and B3 (B2c, B3c) and the MHD φ in bf16 "
+              "(B4b); bound at 2 B a value, the taps' bf16 operations at "
+              "the bf16 pair rate (2x f32), φ's at the f32 rate")
+        bf = "bfloat16"
+        t_bf = time.perf_counter()
+        with reuse_draws():
+            bf16_cases(bf)
+        print(f"    (the bf16 rows: {time.perf_counter() - t_bf:.1f} s)")
+
+    def bf16_cases(bf):
+        lib = {}  # the S convs at depth S, timed once for B2 and B3
+        for strategy, depth in (("swc", 2), ("swc", 3), ("swc_stream", 1),
+                                ("swc_stream", 2), ("swc_stream", 3)):
+            case = diffusion_case((512,) * 3, bf, dev, fuse_steps=depth,
+                                  strategy=strategy)
+            key = "stream select" if strategy == "swc_stream" else "select"
+            r = row(f"{strategy} diffusion 512^3 S={depth} (library: {depth} "
+                    "convs)", "select", case, bf, 0,
+                    None if depth in lib else conv_of(case),
+                    main=f"{key} S={depth} bf16")
+            if depth in lib:
+                r["library_ms"] = lib[depth]
+                print(f"    library: the B2 row's {depth} convs on the same "
+                      f"field, {lib[depth]:.4f} ms")
+            lib.setdefault(depth, r["library_ms"])
+            del case
+        case = diffusion_case((8192, 8192), bf, dev, strategy="swc_stream")
+        row("stream diffusion (8192, 8192)", "select y-stream", case, bf, 0,
+            conv_of(case), main="stream select 8192^2 bf16")
+        del case
+        case = diffusion_case((1 << 26,), bf, dev, fuse_steps=2)
+        row("diffusion (2^26,) S=2 (library: 2 convs)", "select 2^26", case,
+            bf, 0, conv_of(case), main="select 2^26 S=2 bf16")
+        del case
+        case = diffusion_case((1 << 26,), "float32", dev, fuse_steps=2)
+        row("the same in f32 (one-tile body)", "select 2^26", case,
+            "float32", 0, conv_of(case))
+        del case
+        torch.cuda.empty_cache()
+        for strategy, substep, kind, flops, main in (
+            ("swc", False, "mhd_rhs", mhd.RHS_PHI_FLOPS, "mhd_rhs bf16"),
+            ("swc", True, "mhd_substep", mhd.SUBSTEP_PHI_FLOPS,
+             "mhd_substep bf16"),
+            ("swc_stream", False, "mhd_rhs", mhd.RHS_PHI_FLOPS,
+             "stream mhd_rhs bf16"),
+            ("tc", False, "mhd_rhs", mhd.RHS_PHI_FLOPS, "tc mhd_rhs bf16"),
+            ("tc", True, "mhd_substep", mhd.SUBSTEP_PHI_FLOPS,
+             "tc mhd_substep bf16"),
+        ):
+            case = mhd_case((256,) * 3, bf, dev, substep, smooth=False,
+                            strategy=strategy)
+            row(f"{strategy} MHD {kind} 256^3", kind, case, bf, flops,
+                main=main, reps=5, plain_reps=2)
+            del case
+            torch.cuda.empty_cache()
+        for strategy, main in (("swc", "mhd pair bf16"),
+                               ("tc", "tc mhd pair bf16")):
+            case = mhd_pair_case((256,) * 3, bf, dev, substeps=(0, 1),
+                                 smooth=False, strategy=strategy)
+            row(f"{strategy} MHD pair 256^3", "mhd_substep", case, bf,
+                mhd.SUBSTEP_PHI_FLOPS, main=main, reps=3, plain_reps=1)
+            del case
+            torch.cuda.empty_cache()
+
     print(f"  card: {smi}")
+    if bf16_only:
+        bf16_rows()
+        return rows
     case = diffusion_case((512,) * 3, "float32", dev)
     row("diffusion 512^3", "select", case, "float32", 0, conv_of(case),
         main="select")
@@ -7023,6 +7557,8 @@ def phase_times(dev, smi, launches):
             "float32", 0, conv_of(case), main=f"serve tc {bucket}")
         del case
     torch.cuda.empty_cache()
+
+    bf16_rows()
     return rows
 
 
@@ -7236,6 +7772,10 @@ DRYRUN_LOG = ROOT / "build" / "dryrun.log"
 DRYRUN_TIMEOUT = 900  # seconds to wait in the phase for the subprocess
 DRYRUN_CELLS = 64  # 32 cells with status run, on two meshes
 DRYRUN_TIMED = 3  # timed steps after a warm-up; the median is kept
+# (b)'s train cell at 12 of qwen2.5-3b's 36 layers (full width): counting
+# a step's FLOPs op by op costs seconds a layer on the host, twice (the
+# card and meta), and phase 3 (dense) times the full depth.
+DRYRUN_TRAIN_LAYERS = 12
 
 
 def dryrun_start():
@@ -7354,8 +7894,11 @@ def phase_dryrun(dev, smi, proc):
     every cell of the dry run on both meshes, (b) mamba2-780m's prefill ``PREFILL_SHAPE`` (bf16, 48 B7 launches),
     llama3-8b's decode step at ``LM_BATCH`` against the serve loop's cache
     of 128 slots (bf16) and qwen2.5-3b's train step
-    ``DENSE_TRAIN_SHAPE``: the FLOP count on the card equal to meta's, the
-    step's time against its roofline bound."""
+    ``DENSE_TRAIN_SHAPE`` at ``DRYRUN_TRAIN_LAYERS``: the FLOP count on
+    the card equal to meta's, the step's time against its roofline
+    bound."""
+    import dataclasses
+
     import torch
 
     from repro_torch.configs.registry import ShapeSpec, get_config
@@ -7374,9 +7917,12 @@ def phase_dryrun(dev, smi, proc):
         get_config("llama3-8b"), ShapeSpec("decode", 128, LM_BATCH,
                                            "decode")))
     b, s = DENSE_TRAIN_SHAPE
-    rows.append(_dryrun_step(dev, smi, f"qwen2.5-3b train step ({b}, {s})",
-                             get_config("qwen2.5-3b"),
-                             ShapeSpec("train", s, b, "train")))
+    rows.append(_dryrun_step(
+        dev, smi, f"qwen2.5-3b train step ({b}, {s}) at "
+        f"{DRYRUN_TRAIN_LAYERS} of 36 layers",
+        dataclasses.replace(get_config("qwen2.5-3b"),
+                            n_layers=DRYRUN_TRAIN_LAYERS),
+        ShapeSpec("train", s, b, "train")))
     if rows[0]["launches"][0] != get_config("mamba2-780m").n_layers:
         raise AssertionError(f"dry run (b) mamba2: launches {rows[0]}")
     _dryrun_cells(proc)
@@ -7400,64 +7946,135 @@ STENCIL_EXAMPLES = ("torch_quickstart", "torch_mhd_simulation",
 EXAMPLES_TIMEOUT = 600
 
 
-def phase_examples(dev, smi):
-    """Phase 3 (examples): every example at ``EXAMPLES``' arguments on the
-    card (its default device), its exit code checked, its seconds (the
-    five share the card and the host) and, for the stencil examples,
-    their fused-stencil launches printed."""
+def example_cmds(cache: Path) -> dict:
+    """Every example at ``EXAMPLES``' arguments on the card (its default
+    device), each with a tuning cache of its own under ``cache``."""
+    return {name: ([sys.executable, str(ROOT / "examples" / f"{name}.py"),
+                    *args], {"REPRO_TORCH_TUNE_CACHE": str(cache / name)})
+            for name, args in EXAMPLES.items()}
+
+
+def examples_check(outs, smi):
+    """The examples' runs (``example_cmds``): each exit code 0 and its
+    OK line, its seconds (they share the card and the host) and, for the
+    stencil examples, their fused-stencil launches printed."""
     import re
+
+    failed = []
+    for name in EXAMPLES:
+        proc = outs[name]
+        out = proc.stdout + proc.stderr
+        ok_line = name.removeprefix("torch_") + " OK"
+        found = re.findall(r"fused-stencil launches: (\d+) (\{.*\})", out)
+        launches = int(found[-1][0]) if found else 0
+        line = (f"  {name} {' '.join(EXAMPLES[name])}: rc "
+                f"{proc.returncode} in {proc.seconds:.1f} s")
+        if found:
+            line += f", fused-stencil launches {launches} {found[-1][1]}"
+        print(line + f" on {smi}")
+        for tail in proc.stdout.strip().splitlines()[-3:]:
+            print(f"    | {tail}")
+        if (proc.returncode != 0 or not proc.stdout.rstrip().endswith(ok_line)
+                or (name in STENCIL_EXAMPLES and launches <= 0)):
+            failed.append(name)
+            print(out[-3000:])
+    if failed:
+        raise AssertionError(f"examples failed: {failed}")
+
+
+def phase_examples(dev, smi):
+    """Phase 3 (examples): ``example_cmds`` at once, then
+    ``examples_check``."""
     import shutil
-    import subprocess
 
     print("== phase 3 (examples): examples/torch_*.py on the card")
     cache = ROOT / "build" / "examples-tune"
     shutil.rmtree(cache, ignore_errors=True)
-    cache.mkdir(parents=True)
-    procs, ends = {}, {}
-    t0 = time.perf_counter()
-    for name, args in EXAMPLES.items():
-        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
-                   REPRO_TORCH_TUNE_CACHE=str(cache / name))
-        with open(cache / f"{name}.log", "w") as log:
-            procs[name] = subprocess.Popen(
-                [sys.executable, str(ROOT / "examples" / f"{name}.py"),
-                 *args], stdout=log, stderr=subprocess.STDOUT, env=env,
-                cwd=ROOT)
-    failed = []
     try:
-        while len(ends) < len(procs):
-            for name, proc in procs.items():
-                if name not in ends and proc.poll() is not None:
-                    ends[name] = time.perf_counter() - t0
-            if time.perf_counter() - t0 > EXAMPLES_TIMEOUT:
-                raise TimeoutError(f"examples still running: "
-                                   f"{sorted(set(procs) - set(ends))}")
-            time.sleep(0.1)
-        for name, proc in procs.items():
-            out = (cache / f"{name}.log").read_text()
-            ok_line = name.removeprefix("torch_") + " OK"
-            found = re.findall(r"fused-stencil launches: (\d+) (\{.*\})", out)
-            launches = int(found[-1][0]) if found else 0
-            line = (f"  {name} {' '.join(EXAMPLES[name])}: rc "
-                    f"{proc.returncode} in {ends[name]:.1f} s")
-            if found:
-                line += f", fused-stencil launches {launches} {found[-1][1]}"
-            print(line + f" on {smi}")
-            for tail in out.strip().splitlines()[-3:]:
-                print(f"    | {tail}")
-            if (proc.returncode != 0 or not out.rstrip().endswith(ok_line)
-                    or (name in STENCIL_EXAMPLES and launches <= 0)):
-                failed.append(name)
-                print(out[-3000:])
+        t0 = time.perf_counter()
+        outs = run_at_once(example_cmds(cache), cache / "logs")
+        examples_check(outs, smi)
+        print(f"  five examples in {time.perf_counter() - t0:.1f} s (at once)")
     finally:
-        for proc in procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
         shutil.rmtree(cache, ignore_errors=True)
-    print(f"  five examples in {time.perf_counter() - t0:.1f} s (at once)")
-    if failed:
-        raise AssertionError(f"examples failed: {failed}")
+
+
+def phase_clis(dev, smi):
+    """Phase 3 (clis), last in the full run: every command-line check of
+    the earlier phases started at once, as they need no measurement —
+    phase 3 (train)'s reduced train CLI, phase 3 (dp train)'s over
+    ``--mesh 2x1`` with its restore, phase 3 (tp)'s (e) (``--mesh 2x2``
+    and 1x1), phase 3 (hybrid)'s train and serve CLIs and the five
+    examples (phase 3 (examples)) — with phase 2 and then phase 3
+    (audit) run in this process while they run; then each checked as its
+    phase checks it, and the launches the checks made here (the DP
+    restore's B7) audited after."""
+    import shutil
+    import tempfile
+
+    from repro_torch.analysis.bodies import Conv1dLaunch, XcorrLaunch
+    from repro_torch.analysis.driver import run_audit
+    from repro_torch.kernels import conv1d_depthwise as kc
+    from repro_torch.kernels import emit
+    from repro_torch.kernels import xcorr1d as kx
+
+    def launched():
+        return ({p: ops for p, ops in emit.launched_plans()},
+                set(kx.xcorr1d_cuda.launched),
+                set(kc.conv1d_depthwise_cuda.launched))
+
+    print("== phase 3 (clis): the CLIs and the examples at once, phase 2 "
+          "and phase 3 (audit) meanwhile")
+
+    audited = []  # the launches made when the audit is done
+
+    def meanwhile():
+        for name, fn, args in (("phase 2", phase_parity, (dev,)),
+                               ("phase 3 (audit)", phase_audit, (dev, smi))):
+            t = time.perf_counter()
+            fn(*args)
+            print(f"  [{name}: {time.perf_counter() - t:.1f} s, the CLIs "
+                  "running beside it]")
+        audited.append(launched())  # the audit's guard cases audited there
+
+    cache = ROOT / "build" / "examples-tune"
+    shutil.rmtree(cache, ignore_errors=True)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            cmds = {"train": train_cli_cmd(tmp), "dp": dp_cli_cmd(tmp),
+                    **tp_cli_cmds(tmp), **hybrid_cli_cmds(tmp),
+                    **example_cmds(cache)}
+            t0 = time.perf_counter()
+            outs = run_at_once(cmds, Path(tmp) / "logs", during=meanwhile)
+            print(f"  {len(cmds)} commands at once, the last done in "
+                  f"{max(o.seconds for o in outs.values()):.1f} s; phase 2 "
+                  f"and the audit beside them: {time.perf_counter() - t0:.1f}"
+                  " s in all")
+            print("  phase 3 (train)'s CLI:")
+            one = train_cli_check(outs["train"], tmp)
+            print("  phase 3 (dp train)'s CLI:")
+            dp_cli_check(dev, outs["dp"], one, tmp)
+        print("  phase 3 (tp)'s CLIs:")
+        tp_cli_check(outs)
+        print("  phase 3 (hybrid)'s CLIs:")
+        hybrid_cli_check(outs)
+        print("  phase 3 (examples):")
+        examples_check(outs, smi)
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+    now, seen = launched(), audited[0]
+    plans = [(p, ops) for p, ops in now[0].items() if p not in seen[0]]
+    launches_1d = [XcorrLaunch(*k) for k in now[1] - seen[1]] + [
+        Conv1dLaunch(*k) for k in now[2] - seen[2]]
+    report = run_audit(shapes=(), enumerate_candidates=False,
+                       launched=plans, launched_1d=launches_1d)
+    c = report["counts"]
+    print(f"  launches the checks made after the audit: {len(plans)} fused "
+          f"plans, {len(launches_1d)} B6/B7 launches; audited "
+          f"{c['audited']}, unaudited {c['unaudited']}, findings "
+          f"{c['findings']}")
+    if c["unaudited"] or c["findings"]:
+        raise AssertionError(f"audit after the CLIs: {report['findings']}")
 
 
 def main(argv: list[str]) -> int:
@@ -7534,31 +8151,39 @@ def _phases(argv, dev, smi, timed, seconds, t0, dry) -> int:
     if "--moe" in argv:
         timed("phase 3 (moe)", phase_moe, dev, smi)
         return 0
+    if "--bf16" in argv:
+        launches = {}
+        timed("phase 3 (bf16)", phase_main_path_bf16, dev, launches)
+        rows = timed("phase 4 (bf16)", phase_times, dev, smi, launches, True)
+        print(json.dumps({"kernels": rows}))
+        return 0
     if "--hybrid" in argv or "--encdec" in argv:
         if "--hybrid" in argv:
             timed("phase 3 (hybrid)", phase_hybrid, dev, smi)
         if "--encdec" in argv:
             timed("phase 3 (encdec)", phase_encdec, dev, smi)
         return 0
-    timed("phase 2", phase_parity, dev)
     if "--quick" in argv:
+        timed("phase 2", phase_parity, dev)
         return 0
+    # phase 2 runs in phase 3 (clis), beside the CLIs
     launches = timed("phase 3", phase_main_path, dev)
     timed("phase 3 (tc)", phase_main_path_tc, dev, launches)
+    timed("phase 3 (bf16)", phase_main_path_bf16, dev, launches)
     timed("phase 3 (1-D)", phase_main_path_1d, dev, launches)
     timed("phase 3 (mamba2)", phase_main_path_ssm, dev, smi, launches)
-    train_rows, (yard, one_cli) = timed("phase 3 (train)", phase_train,
-                                        dev, smi, launches)
+    # the CLIs and the examples run at the end, all at once (phase 3
+    # (clis))
+    train_rows = timed("phase 3 (train)", phase_train, dev, smi, launches,
+                       False)
     train_rows += timed("phase 3 (dp train)", phase_dp_train, dev, smi,
-                        launches, yard, one_cli)
-    del yard
+                        launches, False)
     timed("phase 3 (dense)", phase_dense, dev, smi)
-    train_rows += timed("phase 3 (tp)", phase_tp, dev, smi)
+    train_rows += timed("phase 3 (tp)", phase_tp, dev, smi, False)
     timed("phase 3 (moe)", phase_moe, dev, smi)
-    timed("phase 3 (hybrid)", phase_hybrid, dev, smi)
+    timed("phase 3 (hybrid)", phase_hybrid, dev, smi, False)
     timed("phase 3 (encdec)", phase_encdec, dev, smi)
     timed("phase 3 (dryrun)", phase_dryrun, dev, smi, dry)
-    timed("phase 3 (examples)", phase_examples, dev, smi)
     timed("phase 3b", phase_serve, dev, launches)
     timed("phase 3 (verify)", phase_verify, dev, smi)
     timed("phase 3 (tune)", phase_tune, dev, smi)
@@ -7567,7 +8192,7 @@ def _phases(argv, dev, smi, timed, seconds, t0, dry) -> int:
     rows += timed("phase 4 (1-D)", phase_times_xcorr, dev, smi, launches)
     rows += timed("phase 4 (mamba2)", phase_times_conv1d, dev, smi, launches)
     rows += train_rows + sharded_rows
-    timed("phase 3 (audit)", phase_audit, dev, smi)
+    timed("phase 3 (clis)", phase_clis, dev, smi)
     print("chip_smoke: seconds by phase "
           + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     print(f"chip_smoke: all phases in {time.perf_counter() - t0:.1f} s")

@@ -30,6 +30,8 @@ def print_report(report: dict) -> None:
                                    for k, v in report["bodies"].items()))
     print("  not ported: " + (", ".join(
         f"{k} {v}" for k, v in report["not_ported"].items()) or "none"))
+    print("  bf16 kernels audited: " + (", ".join(
+        f"{k} {v}" for k, v in report["bf16_items"].items()) or "none"))
     print("  refused by the planner: " + (", ".join(
         f"{k} {v}" for k, v in report["refused"].items()) or "none"))
     for f in report["findings"]:

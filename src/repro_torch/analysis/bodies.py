@@ -729,7 +729,8 @@ def tc_walk_body(plan, ops) -> BodyRun:
     sums = table + _r16(4 * plan.tc_table_words)
     total = sums
     if plan.n_slots > 1:
-        total += 4 * plan.n_slots * plan.n_f * plan_mod.TC_WALK_MHD_PATCHES * 64
+        total += (4 * plan.n_slots * plan.n_f * plan_mod.TC_WALK_MHD_PATCHES
+                  * plan_mod.TC_MMA_ROWS[plan.dtype] * plan_mod.TC_SEGMENT)
     fields = dict(_walk_shape(plan), mid=mid, carry=carry, div=div,
                   table=table, sums=sums, total=total)
     return BodyRun(label, classes, total, fields)

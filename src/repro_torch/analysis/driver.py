@@ -43,6 +43,22 @@ from repro_torch.analysis.smem import (
 )
 
 
+def bf16_item(plan) -> str | None:
+    """The ROADMAP item whose bf16 kernel a stencil plan runs: B4b (an
+    MHD kind), B3c (``swc_stream``), B2c (``swc`` at depth > 1); None
+    for any other plan or launch."""
+    if getattr(plan, "dtype", None) != "bfloat16" or not hasattr(
+            plan, "n_slots"):
+        return None
+    if plan.n_slots > 1 or plan.n_aux:
+        return "B4b"
+    if plan.strategy == "swc_stream":
+        return "B3c"
+    if plan.strategy == "swc" and plan.fuse_steps > 1:
+        return "B2c"
+    return None
+
+
 class Auditor:
     """Audits each distinct plan or launch once, and keeps the results
     (``results[plan] = PlanAudit``) and the counts."""
@@ -259,6 +275,8 @@ def run_audit(
         n_round += 1
     findings = aud.findings() + extra + keyf
     bodies = collections.Counter(r.body for r in aud.results.values())
+    items = collections.Counter(bf16_item(p) for p in aud.results)
+    items.pop(None, None)
     return {
         "schema": 1,
         "mode": "full" if full else "smoke",
@@ -276,6 +294,7 @@ def run_audit(
         },
         "bodies": dict(sorted(bodies.items())),
         "not_ported": dict(sorted(aud.not_ported.items())),
+        "bf16_items": dict(sorted(items.items())),
         "refused": dict(sorted(aud.refused.items())),
         "seconds": round(time.perf_counter() - t0, 3),
         "findings": [f.to_json() for f in findings],

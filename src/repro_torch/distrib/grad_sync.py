@@ -15,8 +15,8 @@ for the group over their product (``sharding.axis_group``).
 * ``accumulate_grads`` — a loop over the leading microbatch axis with
   float32 accumulators, returning the mean loss and mean gradients.
 * ``sync_grads`` and ``global_norm`` — the data-parallel train step's
-  sync (``launch.steps.make_train_step`` with a mesh): the gradient's
-  weighted sum over the data-parallel ranks, a flat bucketed f32
+  sync (``launch.steps.make_train_step`` with a mesh): the sum of the
+  ranks' weighted gradients over the data-parallel ranks, a flat bucketed f32
   all-reduce for leaves not cut over them (whole, or a tensor-parallel
   ``model`` block) and a reduce-scatter for leaves held as shards
   (ZeRO); and the global L2 norm over a tree of such leaves.
@@ -127,18 +127,15 @@ def _dp_cuts(sh, dp_axes, path) -> list:
     return cuts
 
 
-def sync_grads(grads: Any, shardings: Any, mesh, dp_axes, weight: float
-               ) -> Any:
-    """The data-parallel gradient: ``weight`` times each rank's
-    gradient, summed over the ranks of ``dp_axes``. ``grads`` are float32
-    tensors (overwritten), full over ``dp_axes`` (a tensor-parallel
+def sync_grads(grads: Any, shardings: Any, mesh, dp_axes) -> Any:
+    """The data-parallel gradient: each rank's gradient (already weighted
+    by its share), summed over the ranks of ``dp_axes``. ``grads`` are
+    float32 tensors (overwritten), full over ``dp_axes`` (a tensor-parallel
     leaf is this rank's ``model`` block, summed as the block): a leaf
     not cut over ``dp_axes`` comes back as it is, summed by a flat
     bucketed all-reduce; a leaf cut over them (ZeRO) comes back as this
     rank's block, reduce-scattered over the cut's axes and all-reduced
     over the rest of ``dp_axes``."""
-    for g in tree_leaves(grads):
-        g.mul_(weight)
     dp_group = axis_group(mesh, dp_axes)
     cuts = {path: _dp_cuts(sh, dp_axes, path)
             for path, sh in tree_leaves_with_path(shardings)}

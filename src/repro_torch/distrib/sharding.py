@@ -409,14 +409,20 @@ def local_shard(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
 
 def shard_tree(tree: Any, shardings: Any) -> Any:
     """Each leaf of ``tree`` (full tensors) cut to this rank's block, as a
-    contiguous copy where it is cut (so the full tensor can be freed)."""
+    contiguous copy where it is cut (so the full tensor can be freed).
+    A KV cache (a tuple with an empty ``slots``) gets its block's
+    :func:`kv_slots`, as ``init_decode_cache`` under the rule set does."""
     by_path = dict(tree_leaves_with_path(shardings))
 
     def one(path, leaf):
         sh = by_path[path]
         return leaf if sh.replicated else sh.shard(leaf).contiguous()
 
-    return tree_map_with_path(one, tree)
+    out = tree_map_with_path(one, tree)
+    if getattr(out, "slots", False) is None:
+        out = out._replace(slots=kv_slots(shardings.k, out.k.shape[2],
+                                          out.k.device))
+    return out
 
 
 def gather_tree(tree: Any, shardings: Any, axes=None) -> Any:
@@ -677,14 +683,39 @@ def kv_cache_spec(shape: tuple[int, ...], mesh) -> tuple:
     return cache_spec("kv", shape, mesh)
 
 
+def kv_slots(sharding: NamedSharding, width: int,
+             device) -> torch.Tensor | None:
+    """The global positions of the ``width`` slots of a stacked KV cache
+    block ``(n_layers, b, width, g, dh)`` whose leaves ``sharding`` cuts;
+    None where it does not cut the sequence (the block holds every
+    slot)."""
+    for cut in sharding.cuts():
+        if cut.dim == 2 and cut.parts > 1:
+            return torch.arange(width, device=device) + cut.index * width
+    return None
+
+
 def cache_block(rule: str, shape: tuple[int, ...]) -> tuple[int, ...]:
-    """This rank's block shape of a ``shape`` cache leaf under ``rule``
-    on the installed mesh where :func:`model_axis` is set (``shape``
-    itself otherwise, as the model then runs as on one card)."""
+    """This rank's block shape of a ``shape`` cache leaf (layer axis,
+    then the global batch) under ``rule`` on the installed mesh: where
+    :func:`model_axis` is set, :func:`cache_spec`'s block; else the
+    batch cut as :func:`batch_cut` cuts the tokens, the rest whole (the
+    model then runs on its rows as on one card); ``shape`` itself
+    without a rule set.
+
+    Raises:
+        ValueError: where the ranks that cut the batch do not divide
+            the cache's rows.
+    """
     axis = model_axis()
-    if axis is None:
-        return tuple(shape)
-    return block_shape(shape, cache_spec(rule, shape, axis.mesh), axis.mesh)
+    if axis is not None:
+        return block_shape(shape, cache_spec(rule, shape, axis.mesh),
+                           axis.mesh)
+    ranks = batch_cut().ranks
+    if shape[1] % ranks:
+        raise ValueError(f"a cache of {shape[1]} rows does not split over "
+                         f"the {ranks} ranks that cut the batch")
+    return (shape[0], shape[1] // ranks) + tuple(shape[2:])
 
 
 def block_shape(shape: tuple[int, ...], spec: tuple, mesh) -> tuple:

@@ -26,10 +26,12 @@
 // stays one member's, member m of a batched launch is the unbatched
 // launch on member m, bit for bit, and B members cost one launch.
 //
-// bf16 (the select kind only; B1b). The reference's VPU path casts each
-// coefficient to bf16 and rounds every product and every sum to bf16;
-// the body does the same (bf16_mul/bf16_add: the operation in f32, then
-// one rounding, never contracted into an FMA).
+// bf16 (the select kind, B1b; the MHD kinds, B4b). The reference's VPU
+// path casts each coefficient to bf16 and rounds every product and every
+// sum to bf16; the body does the same (mac: the operation in f32, then
+// one rounding, never contracted into an FMA), and phi rounds each of its
+// operations once (phi_mhd.cuh's Bf16). phi's inputs sit in shared memory
+// as bf16: the tap loop has rounded them already, so that is lossless.
 //
 // Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32 / 34 TFLOP/s f64
 // outside the tensor cores): diffusion (one field, 19 taps at order 6)
@@ -132,6 +134,13 @@ cudaError_t dispatch(int kind, int dtype, const void* f, const void* aux,
     case KIND_MHD_SUBSTEP * 3 + DTYPE_F64:
       return run<double, KIND_MHD_SUBSTEP>(f, aux, out, tap_off, tap_coef,
                                            op_start, g, device, st, grid);
+    case KIND_MHD_RHS * 3 + DTYPE_BF16:  // B4b: the MHD phi in bf16
+      return run<__nv_bfloat16, KIND_MHD_RHS>(f, aux, out, tap_off, tap_coef,
+                                              op_start, g, device, st, grid);
+    case KIND_MHD_SUBSTEP * 3 + DTYPE_BF16:
+      return run<__nv_bfloat16, KIND_MHD_SUBSTEP>(f, aux, out, tap_off,
+                                                  tap_coef, op_start, g,
+                                                  device, st, grid);
     default:
       return cudaErrorInvalidValue;
   }

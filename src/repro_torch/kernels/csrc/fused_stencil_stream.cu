@@ -14,12 +14,13 @@
 // including the stream axis, and applies phi_s.
 //
 // Three bodies, chosen by the geometry's outputs per thread G_UOUT > 0
-// and the depth. Depth 1 (select in f32 and f64, the MHD RHS in f32) runs
+// and the depth. Depth 1 (select in f32, f64 and bf16, the MHD RHS in f32
+// and bf16) runs
 // stream_body.cuh, whose header says how and why: a ring of planes per
 // field filled chunks ahead by 16-byte cp.async and read where they land,
 // a tap table with one row per ring slot, several outputs per thread, and
-// the MHD phi's inputs in shared memory. Depth S > 1 (select in f32 and
-// f64, ranks 2 and 3) runs the temporal kernel's walk body
+// the MHD phi's inputs in shared memory. Depth S > 1 (select in f32, f64
+// and bf16, ranks 2 and 3) runs the temporal kernel's walk body
 // (temporal_walk_body.cuh) under this kernel's name: the chunk is the
 // walk's step tau, the cross tile its cross tile, the segments
 // (StencilPlan.segments) its column segments and the member the outermost
@@ -78,6 +79,14 @@
 // arithmetic. The MHD RHS is bound by operations (2,368 stencil FLOP
 // plus ~246 for phi per point); all 8 fields stay resident, so no
 // window is staged twice.
+//
+// bf16 (B3c; B4b for the MHD RHS on the ring). The tap loop rounds every
+// product and sum once to bf16 in table order (swc::mac), phi each of its
+// operations (phi_mhd.cuh's Bf16), as the depth-1 swc kernel does. The
+// ring and the walk stage bf16 with the same 16-byte cp.async into rows
+// and plane slots congruent modulo 16 bytes (8 values), so the next
+// chunks' copies stay asynchronous; only the one-buffer body (the f64
+// MHD RHS) copies element by element.
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
@@ -298,20 +307,26 @@ cudaError_t walk_run(const void* f, void* out, const void* tap_off,
   return cudaGetLastError();
 }
 
-// The walk's launch or grid query: the select kind in f32 or f64.
+// The walk's launch or grid query: the select kind in f32, f64 or bf16.
 cudaError_t walk_dispatch(int kind, int dtype, const void* f, void* out,
                           const void* tap_off, const void* tap_coef,
                           const void* op_start, const Geometry& g,
                           int device, cudaStream_t st, long long* grid) {
   if (kind != KIND_SELECT || !walk::valid(g, KIND_SELECT))
     return cudaErrorInvalidValue;
-  if (dtype == DTYPE_F32)
-    return walk_run<float>(f, out, tap_off, tap_coef, op_start, g, device,
-                           st, grid);
-  if (dtype == DTYPE_F64)
-    return walk_run<double>(f, out, tap_off, tap_coef, op_start, g, device,
-                            st, grid);
-  return cudaErrorInvalidValue;
+  switch (dtype) {
+    case DTYPE_F32:
+      return walk_run<float>(f, out, tap_off, tap_coef, op_start, g, device,
+                             st, grid);
+    case DTYPE_F64:
+      return walk_run<double>(f, out, tap_off, tap_coef, op_start, g, device,
+                              st, grid);
+    case DTYPE_BF16:  // B3c
+      return walk_run<__nv_bfloat16>(f, out, tap_off, tap_coef, op_start, g,
+                                     device, st, grid);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 // One launch of `kernel` on a grid of (x tiles, y tiles, members x
@@ -337,7 +352,8 @@ cudaError_t grid_launch(Kernel kernel, const void* f, void* out,
   return cudaGetLastError();
 }
 
-// One launch of the depth-1 ring body (select, or the MHD RHS in f32).
+// One launch of the depth-1 ring body (select, or the MHD RHS in f32 or
+// bf16).
 template <typename T, int KIND>
 cudaError_t ring_launch(const void* f, void* out, const void* tap_off,
                         const void* tap_coef, const void* op_start,
@@ -426,7 +442,7 @@ int repro_fused_stencil_stream(const void* f, const void* aux, void* out,
     return int(cudaErrorInvalidValue);
 
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype != DTYPE_F32 && dtype != DTYPE_F64)  // bf16 waits for B3c
+  if (dtype < DTYPE_F32 || dtype > DTYPE_BF16)
     return int(cudaErrorInvalidValue);
   if (walk_launch(g))
     return int(walk_dispatch(kind, dtype, f, out, tap_off, tap_coef,
@@ -436,16 +452,23 @@ int repro_fused_stencil_stream(const void* f, const void* aux, void* out,
       return int(cudaErrorInvalidValue);
     return int(buffer_launch(f, out, tap_off, tap_coef, op_start, g, st));
   }
-  switch (kind * 2 + (dtype == DTYPE_F64 ? 1 : 0)) {
-    case KIND_SELECT * 2:
+  using bf16 = __nv_bfloat16;
+  switch (kind * 3 + dtype) {
+    case KIND_SELECT * 3 + DTYPE_F32:
       return int(ring_launch<float, KIND_SELECT>(f, out, tap_off, tap_coef,
                                                  op_start, g, st));
-    case KIND_SELECT * 2 + 1:
+    case KIND_SELECT * 3 + DTYPE_F64:
       return int(ring_launch<double, KIND_SELECT>(f, out, tap_off, tap_coef,
                                                   op_start, g, st));
-    case KIND_MHD_RHS * 2:
+    case KIND_SELECT * 3 + DTYPE_BF16:  // B3c
+      return int(ring_launch<bf16, KIND_SELECT>(f, out, tap_off, tap_coef,
+                                                op_start, g, st));
+    case KIND_MHD_RHS * 3 + DTYPE_F32:
       return int(ring_launch<float, KIND_MHD_RHS>(f, out, tap_off, tap_coef,
                                                   op_start, g, st));
+    case KIND_MHD_RHS * 3 + DTYPE_BF16:  // B4b
+      return int(ring_launch<bf16, KIND_MHD_RHS>(f, out, tap_off, tap_coef,
+                                                 op_start, g, st));
     default:  // mhd_substep needs aux, which swc_stream refuses; the f64
               // MHD RHS takes the one-buffer body
       return int(cudaErrorInvalidValue);
@@ -477,9 +500,12 @@ long long repro_fused_stencil_stream_smem_bytes(const int* geom,
                                                 int dtype) {
   Geometry g;
   if (!read_geometry(geom, nullptr, 0, g)) return -1;
-  if (dtype != DTYPE_F32 && dtype != DTYPE_F64) return -1;
-  return dtype == DTYPE_F64 ? (long long)smem_bytes<double>(g)
-                            : (long long)smem_bytes<float>(g);
+  switch (dtype) {
+    case DTYPE_F32: return (long long)smem_bytes<float>(g);
+    case DTYPE_F64: return (long long)smem_bytes<double>(g);
+    case DTYPE_BF16: return (long long)smem_bytes<__nv_bfloat16>(g);
+    default: return -1;
+  }
 }
 
 int repro_fused_stencil_stream_geometry_len(void) { return G_LEN; }
@@ -494,6 +520,7 @@ int repro_fused_stencil_stream_layout(const int* geom, int dtype,
   switch (dtype) {
     case DTYPE_F32: return layout_fields<float>(g, out);
     case DTYPE_F64: return layout_fields<double>(g, out);
+    case DTYPE_BF16: return layout_fields<__nv_bfloat16>(g, out);
     default: return -1;
   }
 }

@@ -11,7 +11,8 @@
 // output tiles with windows in flight, the band as ready MMA fragments,
 // operator sums in registers (its header says how and why). Depth S > 1
 // (the geometry's table words G_TABW > 0: select in f32 and bf16 at ranks
-// 2 and 3, the MHD kinds in f32) is tc_walk_body.cuh: the column walk of
+// 2 and 3, the MHD kinds in f32 and bf16) is tc_walk_body.cuh: the column
+// walk of
 // temporal_walk_body.cuh, rings of planes per sweep read where they land,
 // with tc_body.cuh's patch contraction. Rank 1 at depth S > 1 (select
 // only, tiles of 512 points, little margin to save) keeps the sweeps of
@@ -28,7 +29,8 @@
 // field type (as _tc_band builds it); a lone tap is (c in T) x value,
 // rounded in T, then widened to f32. Groups are summed in f32 in sorted
 // order and the sum is cast to T once per operator, then phi runs.
-// - bf16: mma.sync.m16n8k16 bf16 x bf16 -> f32.
+// - bf16: mma.sync.m16n8k16 bf16 x bf16 -> f32. The MHD phi (B4b) then
+//   rounds each of its operations once (phi_mhd.cuh's Bf16).
 // - f32: not TF32, which keeps about three digits against the
 //   reference's f32 tolerance of 2e-5 (tests/test_tc.py:66). The f32
 //   operands are widened to f64 and contracted with mma.sync.m8n8k4.f64:
@@ -434,7 +436,7 @@ bool valid_tc(const Geometry& g, int kind) {
 }
 
 // One launch (grid == nullptr) or one grid query (depth 1 or the walk) of
-// (kind, dtype): f64 is not a tc type, and bf16 MHD waits for ROADMAP B4b.
+// (kind, dtype): f64 is not a tc type.
 // The one-tile body at depth > 1 takes the select kind only (valid_tc).
 template <typename T, int KIND>
 cudaError_t run(const void* f, const void* aux, void* out, const void* ent,
@@ -468,6 +470,13 @@ cudaError_t dispatch(int kind, int dtype, const void* f, const void* aux,
     case KIND_MHD_SUBSTEP * 3 + DTYPE_F32:
       return run<float, KIND_MHD_SUBSTEP>(f, aux, out, ent, coef, estart,
                                           table, g, device, stream, grid);
+    case KIND_MHD_RHS * 3 + DTYPE_BF16:  // B4b: the MHD phi in bf16
+      return run<__nv_bfloat16, KIND_MHD_RHS>(f, aux, out, ent, coef, estart,
+                                              table, g, device, stream, grid);
+    case KIND_MHD_SUBSTEP * 3 + DTYPE_BF16:
+      return run<__nv_bfloat16, KIND_MHD_SUBSTEP>(f, aux, out, ent, coef,
+                                                  estart, table, g, device,
+                                                  stream, grid);
     default:
       return cudaErrorInvalidValue;
   }
@@ -516,7 +525,7 @@ extern "C" {
 // them); `geom` (G_LEN
 // ints) is a host array; every other pointer, `params` (fuse_steps rows
 // of n_params doubles) included, is device memory. `dtype` is DTYPE_F32
-// or DTYPE_BF16 (select only). Returns the cudaError_t of the launch (0
+// or DTYPE_BF16. Returns the cudaError_t of the launch (0
 // on success).
 int repro_fused_stencil_tc(const void* f, const void* aux, void* out,
                            const void* tap_off, const void* tap_coef,

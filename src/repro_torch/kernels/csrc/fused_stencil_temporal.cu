@@ -11,7 +11,8 @@
 // sweep's n_out rows reach device memory.
 //
 // Two bodies. The select kind at ranks 2 and 3 and the MHD kinds in f32
-// (the geometry's outputs per thread G_UOUT > 0) run temporal_walk_body.cuh,
+// and bf16 (the geometry's outputs per thread G_UOUT > 0) run
+// temporal_walk_body.cuh,
 // whose header says how and why: persistent blocks walk tile columns along
 // the slowest axis, a ring of input planes filled by 16-byte cp.async and a
 // ring of planes per intermediate sweep, read where they land, several
@@ -31,6 +32,15 @@
 // buffer it reads. Coefficients are cast to the field type before the
 // multiply and taps are summed in table order, as the plain version
 // does.
+//
+// bf16 (B2c, and B4b on the walk's pair). As at depth 1 (fused_stencil.cu):
+// every product and sum of the tap loop rounded once to bf16 in table
+// order (the walk's swc::mac, the one-tile body's apply_op), phi's every
+// operation rounded once (phi_mhd.cuh's Bf16), and each intermediate
+// sweep's rows stored in bf16, as the reference carries cur = val[:n_f]
+// from sweep to sweep. The walk stages bf16 with 16-byte cp.async into
+// rows congruent modulo 16 bytes (8 values); the one-tile body (rank 1)
+// copies 2-byte values through a register (cp.async takes none).
 //
 // Ensemble batch (B5: the TPU's _fused_batched, emit.py:345, with
 // _member_phi, line 318). The reference flattens B members onto the
@@ -149,28 +159,38 @@ cudaError_t walk_run(const void* f, const void* aux, void* out,
   return cudaGetLastError();
 }
 
-// The walk's instantiations: select in f32 and f64; the MHD kinds in f32
-// (in f64 the eight fields' rings fit no tile beside phi's inputs: they
-// keep the one-tile body).
+// The walk's instantiations: select in f32, f64 and bf16; the MHD kinds
+// in f32 and bf16 (in f64 the eight fields' rings fit no tile beside phi's
+// inputs: they keep the one-tile body).
 cudaError_t walk_dispatch(int kind, int dtype, const void* f, const void* aux,
                           void* out, const void* tap_off,
                           const void* tap_coef, const void* op_start,
                           const Geometry& g, int device, cudaStream_t st,
                           long long* grid) {
-  switch (kind * 2 + dtype) {
-    case KIND_SELECT * 2 + DTYPE_F32:
+  using bf16 = __nv_bfloat16;
+  switch (kind * 3 + dtype) {
+    case KIND_SELECT * 3 + DTYPE_F32:
       return walk_run<float, KIND_SELECT>(f, aux, out, tap_off, tap_coef,
                                           op_start, g, device, st, grid);
-    case KIND_SELECT * 2 + DTYPE_F64:
+    case KIND_SELECT * 3 + DTYPE_F64:
       return walk_run<double, KIND_SELECT>(f, aux, out, tap_off, tap_coef,
                                            op_start, g, device, st, grid);
-    case KIND_MHD_RHS * 2 + DTYPE_F32:
+    case KIND_SELECT * 3 + DTYPE_BF16:  // B2c
+      return walk_run<bf16, KIND_SELECT>(f, aux, out, tap_off, tap_coef,
+                                         op_start, g, device, st, grid);
+    case KIND_MHD_RHS * 3 + DTYPE_F32:
       return walk_run<float, KIND_MHD_RHS>(f, aux, out, tap_off, tap_coef,
                                            op_start, g, device, st, grid);
-    case KIND_MHD_SUBSTEP * 2 + DTYPE_F32:
+    case KIND_MHD_SUBSTEP * 3 + DTYPE_F32:
       return walk_run<float, KIND_MHD_SUBSTEP>(f, aux, out, tap_off,
                                                tap_coef, op_start, g, device,
                                                st, grid);
+    case KIND_MHD_RHS * 3 + DTYPE_BF16:  // B4b
+      return walk_run<bf16, KIND_MHD_RHS>(f, aux, out, tap_off, tap_coef,
+                                          op_start, g, device, st, grid);
+    case KIND_MHD_SUBSTEP * 3 + DTYPE_BF16:
+      return walk_run<bf16, KIND_MHD_SUBSTEP>(f, aux, out, tap_off, tap_coef,
+                                              op_start, g, device, st, grid);
     default:
       return cudaErrorInvalidValue;
   }
@@ -219,7 +239,7 @@ int repro_fused_stencil_temporal(const void* f, const void* aux, void* out,
   if (err != cudaSuccess) return int(err);
   Geometry g;
   if (!read_geometry(geom, params, n_params, g) || g.fuse_steps < 2 ||
-      g.unroll != 1 || (dtype != DTYPE_F32 && dtype != DTYPE_F64))
+      g.unroll != 1 || dtype < DTYPE_F32 || dtype > DTYPE_BF16)
     return int(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (walk_launch(g)) {
@@ -233,17 +253,20 @@ int repro_fused_stencil_temporal(const void* f, const void* aux, void* out,
     return int(cudaErrorInvalidValue);
   // The one-tile body: select at rank 1 and the MHD kinds in f64 (the
   // planner sends every other swc plan to the walk).
-  switch (kind * 2 + dtype) {
-    case KIND_SELECT * 2 + DTYPE_F32:
+  switch (kind * 3 + dtype) {
+    case KIND_SELECT * 3 + DTYPE_F32:
       return int(launch<float, KIND_SELECT>(f, aux, out, tap_off, tap_coef,
                                             op_start, g, st));
-    case KIND_SELECT * 2 + DTYPE_F64:
+    case KIND_SELECT * 3 + DTYPE_F64:
       return int(launch<double, KIND_SELECT>(f, aux, out, tap_off, tap_coef,
                                              op_start, g, st));
-    case KIND_MHD_RHS * 2 + DTYPE_F64:
+    case KIND_SELECT * 3 + DTYPE_BF16:  // B2c at rank 1
+      return int(launch<__nv_bfloat16, KIND_SELECT>(
+          f, aux, out, tap_off, tap_coef, op_start, g, st));
+    case KIND_MHD_RHS * 3 + DTYPE_F64:
       return int(launch<double, KIND_MHD_RHS>(f, aux, out, tap_off, tap_coef,
                                               op_start, g, st));
-    case KIND_MHD_SUBSTEP * 2 + DTYPE_F64:
+    case KIND_MHD_SUBSTEP * 3 + DTYPE_F64:
       return int(launch<double, KIND_MHD_SUBSTEP>(f, aux, out, tap_off,
                                                   tap_coef, op_start, g, st));
     default:
@@ -277,10 +300,12 @@ long long repro_fused_stencil_temporal_smem_bytes(const int* geom,
                                                   int dtype) {
   Geometry g;
   if (!read_geometry(geom, nullptr, 0, g)) return -1;
+  using bf16 = __nv_bfloat16;
   if (walk_launch(g)) {
     switch (dtype) {
       case DTYPE_F32: return (long long)walk::walk_layout<float>(g).total;
       case DTYPE_F64: return (long long)walk::walk_layout<double>(g).total;
+      case DTYPE_BF16: return (long long)walk::walk_layout<bf16>(g).total;
       default: return -1;
     }
   }
@@ -290,6 +315,9 @@ long long repro_fused_stencil_temporal_smem_bytes(const int* geom,
           .total;
     case DTYPE_F64:
       return (long long)temporal_layout<double, ScalarEval<double, true>>(g)
+          .total;
+    case DTYPE_BF16:
+      return (long long)temporal_layout<bf16, ScalarEval<bf16, true>>(g)
           .total;
     default:
       return -1;
@@ -313,6 +341,10 @@ int repro_fused_stencil_temporal_layout(const int* geom, int dtype,
     case DTYPE_F64:
       return w ? walk_fields<double>(g, out)
                : tile_fields<double, ScalarEval<double, true>>(g, out);
+    case DTYPE_BF16:
+      return w ? walk_fields<__nv_bfloat16>(g, out)
+               : tile_fields<__nv_bfloat16,
+                             ScalarEval<__nv_bfloat16, true>>(g, out);
     default:
       return -1;
   }

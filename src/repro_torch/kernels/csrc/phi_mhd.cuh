@@ -6,8 +6,20 @@
 // constant is combined in double exactly as the Python side combines
 // it (p.gamma - 1.0, p.gamma / p.cp, 2.0 * p.nu, ...), cast to the
 // field type once, and then used. nvcc contracts a*b+c into FMA, so
-// results agree with the reference to rounding, not bit for bit.
+// f32 and f64 results agree with the reference to rounding, not bit for
+// bit.
+//
+// bf16 (B4b). The plain version computes every product, sum, quotient
+// and exp of bf16 tensors in f32 and rounds it once to bf16, as XLA's
+// elementwise bf16 arithmetic does. Operators on __nv_bfloat16 need not
+// round each step so, and nvcc may contract a product and a sum. So phi
+// runs in bf16 on Bf16 below: a value already rounded to bf16, kept in
+// an f32 register, whose + - * / call __fadd_rn/__fsub_rn/__fmul_rn/
+// __fdiv_rn (never contracted) and round once, and whose exp is expf
+// (no fast math: build.py) rounded once. The one rhs source stays.
 #pragma once
+
+#include <cuda_bf16.h>
 
 namespace mhd {
 
@@ -46,6 +58,64 @@ constexpr int SUBSTEP_EXTRA_FLOPS = 40;  // w' = αw + Δt·rhs, f' = f + βw'
 
 __device__ __forceinline__ float exp_t(float x) { return expf(x); }
 __device__ __forceinline__ double exp_t(double x) { return exp(x); }
+
+// A bf16 value held in an f32 register; each operation is computed in f32
+// and rounded once to bf16 (the header says why).
+struct Bf16 {
+  float v;  // always a bf16 value
+  __device__ static float round(float x) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+  }
+  Bf16() = default;
+  __device__ explicit Bf16(__nv_bfloat16 x) : v(__bfloat162float(x)) {}
+  // A constant combined in double, cast as PyTorch casts a Python float
+  // to bf16: through float, then rounded once.
+  __device__ explicit Bf16(double c) : v(round(float(c))) {}
+  __device__ explicit Bf16(int c) : v(round(float(c))) {}
+  __device__ static Bf16 of(float x) {
+    Bf16 b;
+    b.v = round(x);
+    return b;
+  }
+  __device__ __nv_bfloat16 bits() const { return __float2bfloat16_rn(v); }
+};
+__device__ __forceinline__ Bf16 operator+(Bf16 a, Bf16 b) {
+  return Bf16::of(__fadd_rn(a.v, b.v));
+}
+__device__ __forceinline__ Bf16 operator-(Bf16 a, Bf16 b) {
+  return Bf16::of(__fsub_rn(a.v, b.v));
+}
+__device__ __forceinline__ Bf16 operator*(Bf16 a, Bf16 b) {
+  return Bf16::of(__fmul_rn(a.v, b.v));
+}
+__device__ __forceinline__ Bf16 operator/(Bf16 a, Bf16 b) {
+  return Bf16::of(__fdiv_rn(a.v, b.v));
+}
+__device__ __forceinline__ Bf16 operator-(Bf16 a) {
+  Bf16 b;
+  b.v = -a.v;
+  return b;
+}
+__device__ __forceinline__ Bf16 exp_t(Bf16 x) { return Bf16::of(expf(x.v)); }
+
+// The type phi computes in for field type T: T itself, Bf16 for bf16.
+template <typename T>
+struct PhiType {
+  using type = T;
+};
+template <>
+struct PhiType<__nv_bfloat16> {
+  using type = Bf16;
+};
+
+// A field value in the type phi computes in, and back: identities but
+// for bf16.
+__device__ __forceinline__ float to_phi(float x) { return x; }
+__device__ __forceinline__ double to_phi(double x) { return x; }
+__device__ __forceinline__ Bf16 to_phi(__nv_bfloat16 x) { return Bf16(x); }
+__device__ __forceinline__ float from_phi(float x) { return x; }
+__device__ __forceinline__ double from_phi(double x) { return x; }
+__device__ __forceinline__ __nv_bfloat16 from_phi(Bf16 x) { return x.bits(); }
 
 template <typename T>
 struct Consts {

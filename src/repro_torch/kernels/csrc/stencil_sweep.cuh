@@ -50,13 +50,26 @@ __device__ __forceinline__ int index_in(const Point& q, int dz, int dy,
 // Start copying one field's box w of rows into shared memory with
 // cp.async: rows go to groups of up to 32 threads, each row's x to the
 // threads of its group, so neighbouring threads read neighbouring
-// addresses and no element passes through a register.
+// addresses and no element passes through a register. cp.async takes no
+// 2-byte copy, so bf16 passes through registers, the block's threads
+// taking the box's elements in turn: a window of one row (rank 1) then
+// keeps every thread loading at once, where one warp would wait for
+// each of its loads in turn.
 template <typename T>
 __device__ __forceinline__ void stage_window(const T* __restrict__ src,
                                              T* __restrict__ win,
                                              const Box& w, long long psz,
                                              long long psy, int tid,
                                              int nthr) {
+  if constexpr (sizeof(T) < 4) {
+    for (int i = tid; i < w.size(); i += nthr) {
+      const int row = i / w.x, x = i - row * w.x;
+      const int z = row / w.y, y = row - z * w.y;
+      win[i] = src[z * psz + y * psy + x];
+    }
+    __pipeline_commit();
+    return;
+  }
   const int lanes = nthr < 32 ? nthr : 32;
   const int groups = nthr / lanes;
   const int grp = tid / lanes;
@@ -86,35 +99,45 @@ __device__ __forceinline__ void set_tap_offsets(Tap<T>* taps,
   __syncthreads();
 }
 
-// One sweep's MHD phi constants.
+// One sweep's MHD phi constants, in the type phi computes in
+// (mhd::PhiType: Bf16 for bf16 fields).
 template <typename T>
 struct SweepPhi {
-  mhd::Consts<T> c;
-  T alpha, beta, dt;
+  using P = typename mhd::PhiType<T>::type;
+  mhd::Consts<P> c;
+  P alpha, beta, dt;
   __device__ explicit SweepPhi(const double* p)
       : c(p),
-        alpha(T(p[mhd::P_ALPHA])),
-        beta(T(p[mhd::P_BETA])),
-        dt(T(p[mhd::P_DT])) {}
+        alpha(P(p[mhd::P_ALPHA])),
+        beta(P(p[mhd::P_BETA])),
+        dt(P(p[mhd::P_DT])) {}
 };
 
 // phi of the MHD kinds at one point, row by row into store(j, value):
 // the RHS (mhd_rhs), or f' = f + beta w' and w' = alpha w + dt rhs with
 // w = aux[k * aux_stride] (mhd_substep, repro/physics/mhd.py:284-290).
+// It computes in P (mhd::Bf16 for bf16 fields, each operation rounded
+// once), converting at its edges by mhd::to_phi and mhd::from_phi.
 template <typename T, int KIND, typename Store>
 __device__ __forceinline__ void mhd_phi(
     const T (&d)[mhd::N_SLOTS][mhd::N_FIELDS], const SweepPhi<T>& ph,
     const T* aux, long long aux_stride, Store store) {
-  T rhs[mhd::N_FIELDS];
-  mhd::rhs<T>(d, ph.c, rhs);
+  using P = typename SweepPhi<T>::P;
+  P dp[mhd::N_SLOTS][mhd::N_FIELDS];
+#pragma unroll
+  for (int s = 0; s < mhd::N_SLOTS; ++s)
+#pragma unroll
+    for (int k = 0; k < mhd::N_FIELDS; ++k) dp[s][k] = mhd::to_phi(d[s][k]);
+  P rhs[mhd::N_FIELDS];
+  mhd::rhs<P>(dp, ph.c, rhs);
 #pragma unroll
   for (int k = 0; k < mhd::N_FIELDS; ++k) {
     if constexpr (KIND == KIND_MHD_RHS) {
-      store(k, rhs[k]);
+      store(k, mhd::from_phi(rhs[k]));
     } else {
-      const T w = ph.alpha * aux[k * aux_stride] + ph.dt * rhs[k];
-      store(k, d[mhd::VAL][k] + ph.beta * w);
-      store(mhd::N_FIELDS + k, w);
+      const P w = ph.alpha * mhd::to_phi(aux[k * aux_stride]) + ph.dt * rhs[k];
+      store(k, mhd::from_phi(dp[mhd::VAL][k] + ph.beta * w));
+      store(mhd::N_FIELDS + k, mhd::from_phi(w));
     }
   }
 }

@@ -1,7 +1,8 @@
 // The walk body of the tc kernel (fused_stencil_tc.cu at depth S > 1: the
-// select kind in f32 and bf16 at ranks 2 and 3, the MHD kinds in f32 at
-// rank 3): the column walk of temporal_walk_body.cuh with the derivatives
-// contracted on the tensor cores as tc_body.cuh contracts them at depth 1.
+// select kind in f32 and bf16 at ranks 2 and 3, the MHD kinds in f32 and
+// bf16 at rank 3): the column walk of temporal_walk_body.cuh with the
+// derivatives contracted on the tensor cores as tc_body.cuh contracts them
+// at depth 1.
 //
 // Replaces, at depth S > 1, the TPU kernel repro/kernels/emit.py:
 // _kernel_temporal (line 271) with derivs_fn=_block_derivs_tc
@@ -51,11 +52,13 @@
 //   warps, ...; the PB patches share each group's row and fragments and
 //   give the warp PB independent MMA chains; sums go from registers to the
 //   next ring (rounded to T) or, in the last sweep, to device memory.
-// - MHD (f32): batches of MHD_PATCHES patches of the step's planes; the
-//   warps take the (slot, field) pairs phi reads (mhd::fields_read) in
-//   turn, each contracting the pair's operator on the batch's patches into
-//   a shared tile of f32 sums, n_slots x n_f per point; then one thread a
-//   point runs phi, as tc_body.cuh does. Eight fields' rings, the table
+// - MHD: batches of MHD_PATCHES patches (ROWS x 8 points each: 64 in f32,
+//   128 in bf16) of the step's planes; the warps take the (slot, field)
+//   pairs phi reads (mhd::fields_read) in turn, each contracting the
+//   pair's operator on the batch's patches into a shared tile of f32
+//   sums, n_slots x n_f per point; then one thread a point casts its sums
+//   to T once and runs phi, as tc_body.cuh does (bf16: each operation of
+//   phi rounded once, phi_mhd.cuh's Bf16). Eight fields' rings, the table
 //   and phi's inputs fill the block, so the input ring holds one step
 //   (g.n_buf = 1), the next fetched once sweep 0 has read it.
 // plan.py mirrors the layout (tc_walk_smem_bytes), the patches
@@ -79,9 +82,15 @@ namespace tcwalk {
 // Threads a block takes (plan.py:TC_WALK_THREADS): 16 warps, at most 128
 // registers a thread, one block an SM.
 constexpr int THREADS = 512;
-// MHD: patches of 8 x 8 points whose phi inputs share memory at once
+// MHD: patches of ROWS x 8 points whose phi inputs share memory at once
 // (plan.py:TC_WALK_MHD_PATCHES).
 constexpr int MHD_PATCHES = 2;
+
+// Points of one patch: ROWS lines x 8 outputs.
+template <typename T>
+__host__ __device__ constexpr int patch_points() {
+  return tc::Mma<T>::ROWS * tc::SEG;
+}
 
 // Patches a warp takes at once: 4 for f32 select, 2 where more outputs per
 // lane (bf16) or phi (MHD) hold registers (plan.py:TC_PATCH_BATCH).
@@ -113,7 +122,7 @@ __host__ __device__ inline Sweep tc_sweep(const Geometry& g, int s) {
 // Byte offsets of the shared memory: the input ring (all fields) | the
 // intermediate rings of sweeps 0 .. S-2 | (substep) their carry rings |
 // two FastDiv factors per sweep | the depth-1 table (padded to 16 bytes) |
-// (MHD) phi's f32 inputs, n_slots x n_f values for MHD_PATCHES x 64
+// (MHD) phi's f32 inputs, n_slots x n_f values for MHD_PATCHES patches'
 // points. The rings are temporal_walk_body.cuh's. plan.py:
 // tc_walk_smem_bytes mirrors it.
 struct Layout {
@@ -135,7 +144,8 @@ __host__ __device__ inline Layout tc_walk_layout(const Geometry& g) {
   L.sums = L.table + round_up16(size_t(g.table_words) * 4);
   L.total = L.sums;
   if (g.n_slots > 1)
-    L.total += sizeof(float) * g.n_slots * g.n_f * MHD_PATCHES * 64;
+    L.total += sizeof(float) * g.n_slots * g.n_f * MHD_PATCHES *
+               patch_points<T>();
   return L;
 }
 
@@ -428,8 +438,8 @@ __device__ __forceinline__ void tc_walk_body(const T* __restrict__ f,
   constexpr int ROWS = tc::Mma<T>::ROWS;
   constexpr int NO = ROWS / 4, NR = ROWS / 8;
   constexpr int PB = patch_batch<T, KIND>();
-  static_assert(kSelect || (PB == MHD_PATCHES && ROWS == 8),
-                "MHD batches are MHD_PATCHES f32 patches of 8 x 8 points");
+  static_assert(kSelect || PB == MHD_PATCHES,
+                "MHD batches are the MHD_PATCHES patches a warp contracts");
   const walk::Shape sh = walk::walk_shape<T>(g);
   const Layout L = tc_walk_layout<T>(g);
   const int S = g.fuse_steps, nf = g.n_f, Q = sh.q, rz = g.r[0];
@@ -526,11 +536,11 @@ __device__ __forceinline__ void tc_walk_body(const T* __restrict__ f,
         }
       }
     } else {
-      // MHD (f32, ROWS 8): batches of MHD_PATCHES patches of the step's
-      // planes; the warps take the (slot, field) pairs phi reads in turn
-      // into the shared tile, then one thread a point runs phi.
+      // MHD: batches of MHD_PATCHES patches of ROWS x 8 points of the
+      // step's planes; the warps take the (slot, field) pairs phi reads in
+      // turn into the shared tile, then one thread a point runs phi.
       constexpr bool kSub = KIND == KIND_MHD_SUBSTEP;
-      constexpr int NPT = MHD_PATCHES * 64;
+      constexpr int PP = patch_points<T>(), NPT = MHD_PATCHES * PP;
       const SweepPhi<T> ph(prm_row(g, s));
       const int total = (a.hi - a.lo) * sw.ppp;
       for (int p0 = 0; p0 < total; p0 += MHD_PATCHES) {
@@ -557,19 +567,22 @@ __device__ __forceinline__ void tc_walk_body(const T* __restrict__ f,
                             g, lane, sum);
             float* to = sums + (sl * mhd::N_FIELDS + k) * NPT;
 #pragma unroll
-            for (int b = 0; b < PB; ++b) {
-              to[b * 64 + gid * 8 + 2 * tig] = sum[b][0];
-              to[b * 64 + gid * 8 + 2 * tig + 1] = sum[b][1];
-            }
+            for (int b = 0; b < PB; ++b)
+#pragma unroll
+              for (int h = 0; h < NR; ++h) {
+                float* row = to + b * PP + (gid + 8 * h) * tc::SEG + 2 * tig;
+                row[0] = sum[b][2 * h];
+                row[1] = sum[b][2 * h + 1];
+              }
           }
         }
         __syncthreads();  // every pair's sums are in
         for (int j = tid; j < NPT; j += nthr) {
-          const int pp = p0 + (j >> 6);
+          const int pp = p0 + j / PP;
           if (pp >= total) continue;
           const int pl = by_2(pp);
           int y, x;
-          line(pp - pl * sw.ppp, (j >> 3) & 7, y, x);
+          line(pp - pl * sw.ppp, (j >> 3) % ROWS, y, x);
           x += j & 7;
           if (y >= wy || x >= wx) continue;
           T d[mhd::N_SLOTS][mhd::N_FIELDS];

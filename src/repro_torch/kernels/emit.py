@@ -475,11 +475,6 @@ def _check(f_padded, ops, phi, plan, aux, taps) -> None:
         (8, 0), (8, 8)
     ):
         raise ValueError(f"{phi.kind} needs 8 fields (and 8 aux rows)")
-    if phi.kind != "select" and plan.dtype == "bfloat16":
-        raise NotImplementedError(
-            f"{phi.kind} in bfloat16 is not ported yet: ROADMAP B4b (the "
-            "MHD φ in bfloat16)"
-        )
     if (
         plan.strategy in ("tc", "swc") or plan.stream_depth1
     ) and plan.n_slots != len(phi.operators):

@@ -22,8 +22,9 @@ Kinds (the kernels in ``csrc/`` switch on :data:`KIND_IDS`):
   with aux = w, ``w' = αw + Δt·rhs``, ``f' = f + βw'``; writes 16 rows
   (f', w').
 
-The MHD kinds run in float32 and float64; bfloat16 raises
-``NotImplementedError`` (ROADMAP B4b), though the reference takes it.
+The MHD kinds run in float32, float64 and bfloat16 (in bfloat16 each
+operation of φ is computed in float32 and rounded once, as the plain
+version's bfloat16 tensor arithmetic rounds it).
 
 MHD parameters are laid out as :data:`MHD_PARAM_NAMES`: the
 ``MHDParams`` fields in declaration order, the derived ``lnT0``, then

@@ -139,13 +139,6 @@ def strategy_sid(
     return sid
 
 
-# bfloat16 where the reference takes it and the port has no kernel yet,
-# with the ROADMAP item that adds it.
-BF16_NOT_PORTED = {
-    "temporal": "B2c (bfloat16 in the temporal kernel, swc at fuse_steps > 1)",
-    "swc_stream": "B3c (bfloat16 in the stream kernel)",
-}
-
 # Per-rank default tiles: 1024 threads, one output point each, x a
 # multiple of the 32-thread warp so neighbouring threads read
 # neighbouring addresses. Register-heavy φ kinds (MHD: 80 derivative
@@ -182,7 +175,7 @@ DEFAULT_STREAM_BLOCKS: dict[int, tuple[int, ...]] = {
 # wide, measured faster than 64 in tools/stream_times.py); MHD one plane
 # of 8 x 32 points.
 STREAM_THREADS = {"select": 256, "mhd": 512}
-STREAM_RING_MHD_DTYPES = ("float32",)
+STREAM_RING_MHD_DTYPES = ("float32", "bfloat16")
 STREAM_OUTPUTS = {"select": 4, "mhd": 1}
 STREAM_STAGES = {"select": 3, "mhd": 1}
 DEFAULT_STREAM_D1_BLOCKS: dict[int, tuple[int, ...]] = {
@@ -259,41 +252,44 @@ SWC_STEP_POINTS = 4096
 # read while the next is in flight; MHD holds one, the next fetched once
 # sweep 0 has read it, since eight fields' rings fill the block). MHD's φ
 # inputs sit in shared memory for WALK_MHD_BATCH points at a time (the
-# kernel is built for it), in float32 only (WALK_MHD_DTYPES: in f64 the
-# rings fit no tile beside them). Threads and default tiles, from
+# kernel is built for it), in float32 and bfloat16 (WALK_MHD_DTYPES: in
+# f64 the rings fit no tile beside them). Threads and default tiles, from
 # tools/temporal_times.py (PERF.md section 6): f32 select one 512-thread block
-# an SM on a (32, 32) cross tile, four planes a step at depth 2 and two
-# deeper; f64 two 256-thread blocks on (16, 32), four planes a step at
-# depth 2 and two deeper (halved to fit); rank 2 four rows a step of 256
-# points; MHD one plane of (4, 16). The fit halves the cross tile's y,
-# then the step, then x. The column segments follow swc_stream's rule
-# with MIN_WALK_ITEMS columns.
+# an SM on a (32, 32) cross tile, four planes a step at depth 2 and two deeper
+# (bf16 takes f32's tiles); f64 two 256-thread blocks on (16, 32), four planes
+# a step at depth 2 and two deeper (halved to fit); rank 2 four rows a step of
+# 256 points; MHD one plane of (4, 16). The fit halves the cross tile's y, then
+# the step, then x. The column segments follow swc_stream's rule with
+# MIN_WALK_ITEMS columns.
 WALK_THREADS = {"select": 512, ("select", "float64"): 256, "mhd": 512}
 WALK_OUTPUTS = {"select": 4, "mhd": 1}
 WALK_STAGES = {"select": 2, "mhd": 1}
-WALK_DTYPES = ("float32", "float64")
-WALK_MHD_DTYPES = ("float32",)
+WALK_DTYPES = ("float32", "float64", "bfloat16")
+WALK_MHD_DTYPES = ("float32", "bfloat16")
 WALK_MHD_BATCH = 128
 # Rank-3 select tiles by (dtype, depth 2 or deeper).
 DEFAULT_WALK_BLOCKS3 = {
     ("float32", 2): (4, 32, 32), ("float32", 3): (2, 32, 32),
     ("float64", 2): (4, 16, 32), ("float64", 3): (2, 16, 32),
+    ("bfloat16", 2): (4, 32, 32), ("bfloat16", 3): (2, 32, 32),
 }
 DEFAULT_WALK_BLOCK2 = (4, 256)
 DEFAULT_WALK_MHD_BLOCK = (1, 4, 16)
 MIN_WALK_X = 8  # the narrowest cross tile the walk's fit tries
 MIN_WALK_ITEMS = 4 * 132
 # swc_stream at depth > 1 runs the same walk body under the stream
-# kernel's name for the select kind (f32, f64, ranks 2 and 3): its chunk is
+# kernel's name for the select kind (f32, f64, bf16, ranks 2 and 3): its
+# chunk is
 # the walk's step, with swc's threads, outputs, stages and default tiles.
 # tc at depth > 1 (csrc/tc_walk_body.cuh) walks the same columns with
 # the same rings, the derivatives contracted in patches of TC_MMA_ROWS
 # lines x 8 outputs as at depth 1 (the band as ready fragments of the
 # depth-1 table): select in f32 and bf16 at ranks 2 and 3, the MHD kinds
-# in f32 at rank 3. Threads per block (the kernel is built for them: 16
-# warps, at most 128 registers each, one block an SM), swc's WALK_STAGES and
-# WALK_MHD_DTYPES, and for MHD the patches whose f32 φ inputs sit in shared
-# memory at once (TC_WALK_MHD_PATCHES x 64 points). Tiles from tools/tc_times.py: select
+# in f32 and bf16 at rank 3. Threads per block (the kernel is built for
+# them: 16 warps, at most 128 registers each, one block an SM), swc's
+# WALK_STAGES and WALK_MHD_DTYPES, and for MHD the patches whose f32 φ
+# inputs sit in shared memory at once (TC_WALK_MHD_PATCHES patches of
+# TC_MMA_ROWS x 8 points). Tiles from tools/tc_times.py: select
 # swc's f32 walk tiles in both dtypes; MHD one plane of (8, 8), whose
 # regions fill 8 x 8 patches better than (4, 16) and whose rings fit
 # beside the table and φ's inputs.
@@ -753,7 +749,8 @@ def stream_smem_bytes(
 def stream_ring_kind(n_slots: int, dtype: str) -> bool:
     """Whether the depth-1 stream body (``csrc/stream_body.cuh``) takes the
     φ kind of ``n_slots`` operators in ``dtype``: select (one operator) in
-    any dtype the stream kernel takes, the MHD RHS in float32. In float64
+    any dtype the stream kernel takes, the MHD RHS in float32 or bfloat16.
+    In float64
     the MHD ring and φ's inputs leave a 64-point tile, so the one-buffer
     body (:func:`stream_smem_bytes`) keeps it."""
     return n_slots == 1 or dtype in STREAM_RING_MHD_DTYPES
@@ -914,12 +911,13 @@ def walk_kind(rank: int, n_slots: int, n_aux: int, dtype: str,
     """Whether a depth > 1 plan of ``strategy`` walks tile columns
     (``csrc/temporal_walk_body.cuh``; on ``tc`` ``csrc/tc_walk_body.cuh``).
     ``swc``: the select kind (one operator, no aux) at ranks 2 and 3 in
-    float32 or float64, and the MHD kinds (the RHS applied twice, the
-    substep pair with its aux carry) at rank 3 in float32. ``swc_stream``:
-    the select kind at ranks 2 and 3 in float32 or float64. ``tc``: the
-    select kind at ranks 2 and 3 in float32 or bfloat16, the MHD kinds at
-    rank 3 in float32. Rank 1 (tiles of 1024 points, 1.01-1.02 evaluations
-    per output-step already) and, on ``swc``, the MHD kinds in float64
+    float32, float64 or bfloat16, and the MHD kinds (the RHS applied twice,
+    the substep pair with its aux carry) at rank 3 in float32 or bfloat16.
+    ``swc_stream``: the select kind at ranks 2 and 3 in float32, float64
+    or bfloat16. ``tc``: the select kind at ranks 2 and 3 in float32 or
+    bfloat16, the MHD kinds at rank 3 in float32 or bfloat16. Rank 1
+    (tiles of 1024 points, 1.01-1.02 evaluations per output-step
+    already) and, on ``swc``, the MHD kinds in float64
     keep the one-tile body (:func:`temporal_smem_bytes`; ``tc`` at rank 1
     with its TcEval, select only). An MHD plan at depth > 1 that does not
     walk is refused on ``tc`` and ``swc_stream`` (:class:`StencilPlan`).
@@ -1003,18 +1001,20 @@ def walk_smem_bytes(ring: WalkRing, *, n_taps: int, itemsize: int,
 
 
 def tc_walk_smem_bytes(ring: WalkRing, *, table_words: int,
-                       n_slots: int = 1, n_f: int = 1) -> int:
+                       n_slots: int = 1, n_f: int = 1,
+                       dtype: str = "float32") -> int:
     """Shared memory of one block of the tc walk (``tc_walk_layout`` of
     ``csrc/tc_walk_body.cuh``): the input ring, the intermediate rings, the
     carry rings, two 8-byte divisors per sweep, the depth-1 group table
     with the band's fragments (padded to 16 B) and, for the MHD kinds, φ's
     ``n_slots × n_f`` f32 inputs for ``TC_WALK_MHD_PATCHES`` patches of
-    8 × 8 points."""
+    ``TC_MMA_ROWS[dtype]`` × 8 points."""
     sweeps = len(ring.regions)
     total = (ring.inp.ring_bytes + sum(ring.mid_bytes)
              + sum(ring.carry_bytes) + 16 * sweeps + _round16(4 * table_words))
     if n_slots > 1:
-        total += 4 * n_slots * n_f * TC_WALK_MHD_PATCHES * 64
+        total += (4 * n_slots * n_f * TC_WALK_MHD_PATCHES
+                  * TC_MMA_ROWS[dtype] * TC_SEGMENT)
     return total
 
 
@@ -1100,8 +1100,6 @@ class StencilPlan:
             rule) and ``unroll > 1``. No depth or radius is capped
             otherwise: the shared-memory fit decides what a block
             holds.
-        NotImplementedError: for bfloat16 on ``swc`` at depth > 1 or
-            on ``swc_stream`` (``BF16_NOT_PORTED``).
     """
 
     rank: int
@@ -1145,16 +1143,6 @@ class StencilPlan:
                 "element-wise unrolling does not compose; use unroll=1 "
                 "with strategy='tc'"
             )
-        if self.dtype == "bfloat16" and not tc:
-            item = (
-                "swc_stream" if stream
-                else "temporal" if self.fuse_steps > 1 else None
-            )
-            if item is not None:
-                raise NotImplementedError(
-                    "bfloat16 on this kernel is not ported yet: ROADMAP "
-                    f"{BF16_NOT_PORTED[item]}"
-                )
         if stream and self.rank == 1:
             raise ValueError(
                 "swc_stream walks the slowest spatial axis chunk by chunk "
@@ -1236,13 +1224,10 @@ class StencilPlan:
                     "swc_stream at fuse_steps > 1 runs the select kind on "
                     "its walk; the MHD kinds there fit no tile of its "
                     "one-buffer body — use strategy='swc'")
-            if self.dtype == "bfloat16":
-                raise NotImplementedError(
-                    "the MHD kinds in bfloat16 are not ported yet: ROADMAP "
-                    "B4b (the MHD φ in bfloat16)")
             raise ValueError(
                 "tc at fuse_steps > 1 runs the MHD kinds on its walk only "
-                "(rank 3, float32) — use strategy='swc' otherwise")
+                "(rank 3, float32 or bfloat16) — use strategy='swc' "
+                "otherwise")
         step = self.x_step
         for a in range(self.rank):
             t = self.block[a] if a < self.rank - 1 else step
@@ -1630,7 +1615,7 @@ class StencilPlan:
         if self.tc_walk:
             return tc_walk_smem_bytes(
                 self.walk_ring, table_words=self.tc_table_words,
-                n_slots=self.n_slots, n_f=self.n_f)
+                n_slots=self.n_slots, n_f=self.n_f, dtype=self.dtype)
         if self.walk:
             return walk_smem_bytes(self.walk_ring, n_taps=self.n_taps,
                                    itemsize=ITEMSIZE[self.dtype],
@@ -1831,7 +1816,8 @@ def plan_stencil(
             if strategy == "tc":
                 return tc_walk_smem_bytes(ring_, table_words=table_words,
                                           n_slots=int(n_slots),
-                                          n_f=padded_shape[0])
+                                          n_f=padded_shape[0],
+                                          dtype=str(dtype))
             return walk_smem_bytes(ring_, n_taps=ops.taps_per_point,
                                    itemsize=ITEMSIZE[str(dtype)],
                                    n_slots=int(n_slots),

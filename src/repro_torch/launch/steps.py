@@ -24,6 +24,7 @@ default; it raises without one unless the caller passes
 from __future__ import annotations
 
 import contextlib
+import math
 
 import torch
 
@@ -67,16 +68,27 @@ def make_grad_step(cfg: ModelConfig, *,
     ``backward`` through leaves that alias ``params``; ``params`` is
     left as it was. ``use_pallas_conv``, when set, goes to mamba2's
     ``lm_loss`` (unset: the B7 kernel on the card, the plain conv on the
-    CPU)."""
+    CPU).
+
+    ``weights`` (w_xent, w_aux), where given, makes the gradient that of
+    ``w_xent · xent + w_aux · router_aux_weight · aux`` (the
+    transformer's two terms; the other families' loss is their xent);
+    the returned loss and metrics stay unweighted."""
     api = get_model(cfg)
     dev = resolve_device(device)
     conv = _conv_switch(use_pallas_conv)
 
-    def grad_step(params, batch):
+    def grad_step(params, batch, weights=None):
         _tokens_on(batch, dev)
         leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
         loss, metrics = api.lm_loss(leaves, cfg, batch, **conv)
-        loss.backward()
+        objective = loss
+        if weights is not None:
+            objective = weights[0] * metrics["xent"]
+            if "aux" in metrics:
+                objective = objective + (weights[1] * cfg.router_aux_weight
+                                         * metrics["aux"])
+        objective.backward()
         # a leaf the loss does not reach (a stack of no layers: the
         # hybrid's tail at a depth the pattern divides) gets zeros, as
         # jax.grad gives it
@@ -167,47 +179,56 @@ def make_synced_grad_step(cfg: ModelConfig, *, mesh, profile: str = "tp",
     the gradient runs under the profile's rule set (tensor parallelism
     in the model).
 
-    The gradient of ``lm_loss`` (:func:`make_grad_step`) is weighted by
-    this rank's share of the global batch's tokens and summed over the
-    data-parallel ranks (``grad_sync.sync_grads``: a flat bucketed f32
-    all-reduce, or a reduce-scatter to this rank's block under
-    ``fsdp``; a ``model`` block is summed as the block), which gives
-    the reference's global-batch mean; the loss is the global mean too.
+    The token counts are all-reduced first. Each rank then takes the
+    gradient (:func:`make_grad_step`) of its cross-entropy weighted by
+    its share of the global batch's tokens, plus its aux loss over the
+    R data-parallel ranks' count, and the gradients are summed over
+    those ranks (``grad_sync.sync_grads`` at weight 1: a flat bucketed
+    f32 all-reduce, or a reduce-scatter to this rank's block under
+    ``fsdp``; a ``model`` block is summed as the block). That is the
+    reference's gradient of the global batch's ``xent +
+    router_aux_weight · aux``: the xent is the mean over every rank's
+    tokens, and the aux (a mean over groups) is the mean of the ranks'
+    equal numbers of groups, or the same global value on every rank
+    where the MoE's groups span the ranks (``models.moe`` gathers them;
+    the gather's reduce-scatter then sums the gradients that reach
+    other ranks' rows, already weighted). A rank whose mask keeps no
+    token adds zero to the xent. The loss and metrics are global too.
     ``grad_norm`` is the global norm of a sharded tree (None when every
     leaf is full: AdamW takes it from the tree). ``batch_rows``, where
     given, is the global batch's row count: the ranks that cut it are
     then ``batch_spec``'s (``sharding.batch_cut``; without it every
-    data-parallel rank holds its rows of a cut batch).
-
-    The MoE's groups that span data-parallel ranks are gathered (``models.
-    moe``): the aux loss, computed over the whole batch on every rank,
-    enters the mean once, and its gradient reaches every rank's rows
-    through the gather's reduce-scatter. That sum is taken before this
-    rank's weight, so the gradient is the global batch's where the
-    ranks hold equal token counts (equal loss masks), as the data
-    loader's cuts give them."""
+    data-parallel rank holds its rows of a cut batch)."""
     grad_step = make_grad_step(cfg, device=device)
     p_sh, _ = train_shardings(cfg, mesh, profile=profile, fsdp=fsdp)
     axes = shlib.dp_axes(profile)
     group = shlib.axis_group(mesh, axes)
+    ranks = math.prod(shlib.mesh_axis_sizes(mesh).get(a, 1) for a in axes)
     sharded = any(not sh.replicated for sh in tree_leaves(p_sh))
 
     def synced_grad_step(params, batch):
         full = shlib.gather_tree(params, p_sh, axes) if sharded else params
-        with _rule_set(mesh, profile, batch_rows):
-            loss, metrics, grads = grad_step(full, batch)
-        del full
         mask = batch.get("loss_mask")
+        dev = batch["labels"].device
         count = (mask.double().sum() if mask is not None else
                  torch.tensor(float(batch["labels"].numel()),
-                              dtype=torch.float64, device=loss.device))
+                              dtype=torch.float64, device=dev))
+        total = count.reshape(1).clone()
+        comm.all_reduce_([total], group)
+        w_xent = (count / total[0].clamp_min(1.0)).float()
+        w_aux = 1.0 / ranks
+        with _rule_set(mesh, profile, batch_rows):
+            loss, metrics, grads = grad_step(full, batch, (w_xent, w_aux))
+        del full
         names = sorted(metrics)
-        stats = torch.stack([count] + [v.double() * count for v in
-                                       [loss] + [metrics[k] for k in names]])
+        xent = metrics["xent"]
+        parts = [w_xent * xent + w_aux * (loss - xent)]
+        parts += [(w_aux if k == "aux" else w_xent) * metrics[k]
+                  for k in names]
+        stats = torch.stack([v.double() for v in parts])
         comm.all_reduce_([stats], group)
-        weight = (count / stats[0]).float()
-        loss, *means = (stats[1:] / stats[0]).float().unbind()
-        grads = sync_grads(grads, p_sh, mesh, axes, weight)
+        loss, *means = stats.float().unbind()
+        grads = sync_grads(grads, p_sh, mesh, axes)
         norm = global_norm(grads, p_sh, mesh) if sharded else None
         return loss, dict(zip(names, means)), grads, norm
 

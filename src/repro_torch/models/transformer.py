@@ -584,7 +584,10 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
     ``tp`` rule set, this rank's block of the (``batch``, ``max_len``)
     cache by the reference's ``cache_shardings`` rule
     (``sharding.kv_cache_spec``): KV heads over ``model``, else the
-    sequence (``slots`` then holds the block's global positions)."""
+    sequence (``slots`` then holds the block's global positions,
+    ``sharding.kv_slots``); with
+    no ``model`` axis above one rank, its rows of the batch
+    (``sharding.cache_block``)."""
     dev = resolve_device(device)
     dt = as_dtype(dtype or cfg.dtype)
     cache_len = (min(cfg.sliding_window, max_len) if cfg.sliding_window
@@ -593,11 +596,12 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
     slots = None
     axis = shlib.model_axis()
     if axis is not None:
-        spec = shlib.kv_cache_spec(shape, axis.mesh)
-        shape = shlib.block_shape(shape, spec, axis.mesh)
-        if len(spec) > 2 and spec[2] == "model":  # cut by sequence
-            slots = (torch.arange(shape[2], device=dev)
-                     + axis.index * shape[2])
+        sh = shlib.NamedSharding(axis.mesh,
+                                 shlib.kv_cache_spec(shape, axis.mesh))
+        shape = shlib.block_shape(shape, sh.spec, axis.mesh)
+        slots = shlib.kv_slots(sh, shape[2], dev)
+    else:
+        shape = shlib.cache_block("kv", shape)
     return L.KVCache(
         k=torch.zeros(shape, dtype=dt, device=dev),
         v=torch.zeros(shape, dtype=dt, device=dev),

@@ -292,10 +292,10 @@ class MHDSolver:
     fused-axpy forms (``fuse_rk_axpy``, ``fuse_rk_pairs``) hand φ the
     carry as aux, which ``swc_stream`` refuses with ``ValueError``, as
     the reference does. ``strategy="tc"`` runs all three forms through
-    the tensor-core kernel (float32; the pair at depth 2 on its walk,
-    ``csrc/tc_walk_body.cuh``); bfloat16
-    fields raise ``NotImplementedError`` on the CUDA strategies (ROADMAP
-    B4b).
+    the tensor-core kernel (the pair at depth 2 on its walk,
+    ``csrc/tc_walk_body.cuh``). Every form takes float32 and bfloat16
+    fields on every CUDA strategy (``swc_stream`` the plain form), and
+    float64 on ``swc`` and ``swc_stream``.
     """
 
     shape: tuple[int, int, int]

@@ -278,8 +278,8 @@ def _mhd(name, smoke, full, phi, dtype="float32", strategies=("swc",),
 
 # The reference's eight entries (same names and smoke extents; full the
 # main path's sizes), then the port's own: bf16 and f64 diffusion, the
-# MHD kinds (the RHS twice, the substep with aux and the pair, f32 and
-# f64), the serve buckets (B = 8, order 2), the sharded blocks and the
+# MHD kinds (the RHS twice, the substep with aux and the pair, f32, f64
+# and bf16), the serve buckets (B = 8, order 2), the sharded blocks and the
 # overlap slabs of distribution (diffusion 512³ over (2,) and (2, 2), MHD
 # 256³ over (2,): halo r·S = 3 at depth 1 and 6 at depth 2 per sharded
 # axis), then B6 and B7.
@@ -300,10 +300,13 @@ AUDIT_SHAPES: tuple[AuditShape, ...] = (
     AuditShape("fig07-09/xcorr1d-r32", 1, 0, (1 << 14,), _MAIN_1D,
                strategies=("swc",), unroll=(1, 2)),
     AuditShape("fig11/diffusion2d_bf16", 2, 6, (64, 128), _MAIN_2D,
-               dtype="bfloat16", strategies=("swc", "tc"), fuse=(1, 2)),
+               dtype="bfloat16", strategies=("swc", "swc_stream", "tc"),
+               fuse=(1, 2, 3)),
     AuditShape("fig11/diffusion3d_bf16", 3, 6, (16, 16, 64), _MAIN_3D,
                dtype="bfloat16", strategies=("swc", "swc_stream", "tc"),
-               fuse=(1, 2)),
+               fuse=(1, 2, 3)),
+    AuditShape("fig11/diffusion1d_bf16", 1, 6, (1 << 14,), _MAIN_1D,
+               dtype="bfloat16", strategies=("swc", "tc"), fuse=(1, 2)),
     AuditShape("fig11/diffusion3d_f64", 3, 6, (16, 16, 64), (256,) * 3,
                dtype="float64", strategies=("swc", "swc_stream"),
                fuse=(1, 2, 3)),
@@ -315,6 +318,10 @@ AUDIT_SHAPES: tuple[AuditShape, ...] = (
          strategies=("swc", "swc_stream"), fuse=(1, 2)),
     _mhd("mhd/substep_f64", (16, 16, 64), _MHD, "mhd_substep",
          dtype="float64", fuse=(1, 2)),
+    _mhd("mhd/rhs_bf16", (16, 16, 64), _MHD, "mhd_rhs", dtype="bfloat16",
+         strategies=("swc", "swc_stream", "tc")),
+    _mhd("mhd/substep_bf16", (16, 16, 64), _MHD, "mhd_substep",
+         dtype="bfloat16", strategies=("swc", "tc"), fuse=(1, 2)),
     AuditShape("serve/256^3", 3, 2, (16, 16, 64), (256,) * 3,
                strategies=("swc", "swc_stream", "tc"), batch=(8,)),
     AuditShape("serve/4096^2", 2, 2, (64, 128), (4096, 4096),

@@ -97,10 +97,30 @@ MESHES = {
     },
     (2, 1): {
         # MoE data-parallel: each rank's 32 tokens half of the global
-        # group of 64, gathered over data; the aux over the whole group
+        # group of 64, gathered over data; the aux over the whole group;
+        # unequal loss masks (MASKS), so the ranks' token counts differ
         "qwen3-moe-dp": ("qwen3-moe-30b-a3b", {}, ("train",), False),
+        # no model axis above one rank: the cache built under the rule
+        # set holds this rank's 2 of the 4 rows (the ring of mixtral's
+        # window)
+        "mixtral-dp": ("mixtral-8x7b", {}, ("serve",), False),
     },
 }
+
+# case -> its batch's seed, where it is not the case's index
+SEEDS = {"qwen3-moe-dp": 3}
+
+
+def loss_mask(name: str):
+    """The case's ``loss_mask`` (BATCH, SEQ) float32, or None: for
+    ``qwen3-moe-dp`` ones on rows 0-1 (rank 0) and the first 4
+    positions of rows 2-3 (rank 1)."""
+    if name != "qwen3-moe-dp":
+        return None
+    mask = np.zeros((BATCH, SEQ), np.float32)
+    mask[:2] = 1.0
+    mask[2:, :4] = 1.0
+    return mask
 
 
 def config(arch: str, fields: dict):

@@ -280,10 +280,10 @@ def test_not_ported_options_raise(tmp_path, monkeypatch):
     assert torch.equal(
         fused_stencil_nd(fr, ops, select_phi("val"), 1, block="auto"),
         fused_stencil_nd(fr, ops, select_phi("val"), 1))
-    # bf16 waits for the stream kernel (B3c).
-    with pytest.raises(NotImplementedError, match="B3c"):
-        fused_stencil_nd(fp.to(torch.bfloat16), ops, select_phi("val"), 1,
-                         strategy="swc_stream")
+    # bf16 on the stream kernel (B3c) is ported: the plain version here.
+    out = fused_stencil_nd(fp.to(torch.bfloat16), ops, select_phi("val"), 1,
+                           strategy="swc_stream")
+    assert out.shape == (1, 8, 8) and out.dtype == torch.bfloat16
     # The tensor-core regime (B4) is ported.
     out = fused_stencil_nd(fp, ops, select_phi("val"), 1, strategy="tc")
     assert out.shape == (1, 8, 8)

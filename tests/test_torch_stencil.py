@@ -113,10 +113,10 @@ def test_plan_rejects_what_hopper_cannot_hold():
                            strategy="swc_stream")
     with pytest.raises(ValueError, match="dtype"):
         tplan.plan_stencil(ops, shape, 8, dtype="float16")
-    # bf16 on swc at depth 1 is B1b (ported); the stream kernel waits.
-    with pytest.raises(NotImplementedError, match="ROADMAP B3c"):
-        tplan.plan_stencil(ops, shape, 8, dtype="bfloat16",
-                           strategy="swc_stream")
+    # bf16 on swc at depth 1 is B1b, on the stream kernel B3c (ported).
+    bf = tplan.plan_stencil(ops, shape, 8, dtype="bfloat16",
+                            strategy="swc_stream")
+    assert bf.dtype == "bfloat16" and bf.stream_depth1
 
 
 def test_plan_unroll_and_clamp():

@@ -39,6 +39,7 @@ from repro_torch.core.boundary import pad  # noqa: E402
 from repro_torch.core import stencil as ts  # noqa: E402
 from repro_torch.core.fusion import FusedStencilOp  # noqa: E402
 from repro_torch.core.fusion import integrate as tintegrate  # noqa: E402
+from repro_torch.kernels import conv1d_depthwise, xcorr1d  # noqa: E402
 from repro_torch.kernels import emit, ref  # noqa: E402
 from repro_torch.kernels import plan as tplan  # noqa: E402
 from repro_torch.kernels.ops import fused_stencil_nd, plan_for_nd  # noqa: E402
@@ -513,16 +514,21 @@ def test_tc_issued_macs_count_the_band():
 
 
 def test_bf16_without_a_kernel_names_its_roadmap_item():
+    """B2c, B3c and B4b have their kernels: their bf16 plans build and run
+    (the plain versions here). What still waits, B6b (xcorr1d in bf16) and
+    B7b (conv1d_depthwise in f16), raises naming its item."""
     ops = ts.derivative_operator_set(3, 6)
-    with pytest.raises(NotImplementedError, match="B2c"):
-        tplan.plan_stencil(ops, (1, 28, 28, 44), 1, dtype="bfloat16",
-                           fuse_steps=2)
-    with pytest.raises(NotImplementedError, match="B3c"):
-        tplan.plan_stencil(ops, (1, 22, 22, 38), 1, dtype="bfloat16",
-                           strategy="swc_stream")
+    assert tplan.plan_stencil(ops, (1, 28, 28, 44), 1, dtype="bfloat16",
+                              fuse_steps=2).temporal_walk
+    assert tplan.plan_stencil(ops, (1, 22, 22, 38), 1, dtype="bfloat16",
+                              strategy="swc_stream").stream_depth1
     solver = tm.MHDSolver((8, 8, 16), strategy="tc", device=CPU)
-    with pytest.raises(NotImplementedError, match="B4b"):
-        solver.rhs(solver.init_fields(dtype=torch.bfloat16))
+    assert solver.rhs(solver.init_fields(dtype=torch.bfloat16)).dtype == (
+        torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="B6b"):
+        xcorr1d.check_launch(3, 256, "baseline", 1, "bfloat16")
+    with pytest.raises(NotImplementedError, match="B7b"):
+        conv1d_depthwise.check_launch(1, 64, 8, 4, 512, "float16")
     # the plain regime takes bf16 MHD, as the reference does
     hwc = tm.MHDSolver((8, 8, 16), strategy="hwc", device=CPU)
     assert hwc.rhs(hwc.init_fields(dtype=torch.bfloat16)).dtype == (

@@ -503,7 +503,7 @@ def test_tc_walk_plan_rules():
 @pytest.mark.parametrize("strategy,shape,dtype,n_slots,err,match", (
     ("tc", (64, 128), "float32", 2, ValueError, "walk only"),
     ("tc", (4096,), "float32", 2, ValueError, "walk only"),
-    ("tc", (16, 16, 32), "bfloat16", 10, NotImplementedError, "B4b"),
+    ("tc", (64, 128), "bfloat16", 2, ValueError, "walk only"),
     ("swc_stream", (48, 64, 80), "float32", 10, ValueError,
      "use strategy='swc'"),
     ("swc_stream", (48, 64, 80), "float64", 10, ValueError,
@@ -512,10 +512,11 @@ def test_tc_walk_plan_rules():
 def test_mhd_plans_that_do_not_walk_are_refused(strategy, shape, dtype,
                                                 n_slots, err, match):
     """At depth > 1 ``tc`` runs the MHD kinds on its walk only (rank 3,
-    float32) and ``swc_stream`` the select kind only: an MHD plan (several
-    operator slots) that would take the one-tile or the one-buffer body
-    raises instead, before any tile is fitted (the f32 MHD RHS twice at
-    (48, 64, 80) once fitted a 20-point tile of the one-buffer body)."""
+    float32 or bfloat16) and ``swc_stream`` the select kind only: an MHD
+    plan (several operator slots) that would take the one-tile or the
+    one-buffer body raises instead, before any tile is fitted (the f32
+    MHD RHS twice at (48, 64, 80) once fitted a 20-point tile of the
+    one-buffer body)."""
     if n_slots == 10:
         ops = ts.derivative_operator_set(3, 6)
         padded = (8,) + tuple(n + 12 for n in shape)

@@ -444,9 +444,12 @@ def test_walk_plan_rules():
         assert (mplan.threads, mplan.outputs_per_thread,
                 mplan.stage_buffers) == (512, 1, 1)
         assert emit.geometry(mplan, list(range(10)))[-1] == 1
-    with pytest.raises(NotImplementedError, match="B2c"):
-        tplan.plan_stencil(ops, (1, 76, 76, 76), 1, fuse_steps=2,
-                           dtype="bfloat16")
+    # bf16 walks (B2c), with 2-byte rings
+    bf = tplan.plan_stencil(ops, (1, 76, 76, 76), 1, fuse_steps=2,
+                            dtype="bfloat16")
+    assert bf.temporal_walk and bf.block == (4, 32, 32)
+    assert bf.walk_ring.inp.ring_bytes < tplan.plan_stencil(
+        ops, (1, 76, 76, 76), 1, fuse_steps=2).walk_ring.inp.ring_bytes
     with pytest.raises(ValueError, match="self-map"):
         tplan.plan_stencil(ts.derivative_operator_set(3, 2), (2, 20, 20, 20),
                            3, fuse_steps=2)

@@ -97,8 +97,12 @@ def _inputs(shape, name, seed):
     jcfg = dataclasses.replace(jreg.reduced_config(jreg.get_config(arch)),
                                **fields)
     params = jreg.get_model(jcfg).init_params(jcfg, jax.random.PRNGKey(seed))
+    seed = cases.SEEDS.get(name, seed)
     batch = MarkovLMDataset(jcfg.vocab, cases.SEQ, seed=seed).batch(
         0, 0, cases.BATCH)
+    mask = cases.loss_mask(name)
+    if mask is not None:
+        batch["loss_mask"] = mask
     if jcfg.is_encdec:
         batch["frames"] = np.random.default_rng(seed).standard_normal(
             (cases.BATCH, jcfg.encoder_seq, jcfg.d_model)).astype(np.float32)
@@ -352,6 +356,7 @@ def test_decode_cache_block_is_cache_shardings(results, shape, name):
     }
     kv = {"gemma-2b-seq": (None, "data", "model"),
           "mixtral-span": (None, "data", "model"),
+          "mixtral-dp": (None, "data"),
           "llama3-8b-kv2": (None, None, None, "model")}.get(name, ())
     want = family.get(arch, {"k": kv, "v": kv})
     strip = {k: tuple(v[:max([i + 1 for i, a in enumerate(v) if a] or [0])])

@@ -22,7 +22,7 @@ import dataclasses
 import sys
 
 PREFILL_SHAPE = (1, 8192)  # chip_smoke.py's TP_PREFILL
-DECODE = (4, 32)  # chip_smoke.py's TP_DECODE
+DECODE = (4, 32)  # batch, steps (chip_smoke.py's TP_DECODE cuts them to 8)
 
 
 def main() -> int:
