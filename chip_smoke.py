@@ -17,6 +17,7 @@
     python3 chip_smoke.py --dryrun   # build + phase 3 (dryrun) only
     python3 chip_smoke.py --examples # build + phase 3 (examples) only
     python3 chip_smoke.py --bf16     # build + phase 3 (bf16) + its rows
+    python3 chip_smoke.py --1d       # build + B6/B7's phase 2, 3 (1-D), 4 rows
 
 Phases (each raises on failure; none is caught):
 
@@ -88,20 +89,24 @@ Phases (each raises on failure; none is caught):
    Then tc beyond radius 4 (orders 10 and 12, f32 and bf16, ranks 1-3),
    depths 9 and 12 on B2, B3 and B4 at 2-D (order 2, f32), and the B6
    cross-correlation (``csrc/xcorr1d.cu``) against ``ref.xcorr1d``: each
-   strategy at unroll 4 and elementwise at 8 and 16, f32 and f64, radii
-   0-1024, n = 2^20 + 123 (a ragged last tile), and odd register tilings
-   (``XCORR_ODD``) at r = 3 (the one-tile launch) and 1024 (elementwise
-   on the ring) on an f aligned to 16 bytes and on one an element past
-   (the ring's element staging), each launch's threads, shared bytes and
-   grid (tiles, or the ring's persistent grid) held to the kernel's own
-   layout. Then B7 (``csrc/conv1d_depthwise.cu``)
+   strategy at unroll 4, elementwise at 8 and 16 and (``XCORR_WIDE``,
+   register passes) at 32 and 64, pointwise at 24 and 64, in f32, f64,
+   bf16 and f16 (B6b; the 2-byte types equal to the plain version bit for
+   bit, "="), radii 0-1024, n = 2^20 + 123 (a ragged last tile), and odd
+   register tilings (``XCORR_ODD``) at r = 3 (the one-tile launch) and
+   1024 (elementwise on the ring) on an f aligned to 16 bytes and on one
+   an element past (the ring's element staging), each launch's threads,
+   shared bytes, grid (tiles, or the ring's persistent grid), register
+   width and passes held to the kernel's own layout. Then B7
+   (``csrc/conv1d_depthwise.cu``)
    against ``ref.conv1d_depthwise``: the reference's sweep shapes
-   (1,64,8,4), (3,100,16,4), (2,257,32,7), mamba2-780m's prefill launch
-   (4, 8192, 3328) k = 4, a ragged s = 8193, and the strided xBC view of
-   the (4, 8192, 6448) in-projection (16-byte lanes at offset 3072, bf16
-   pairs at 3074, single channels at 3073), f32 and bf16, activation
-   none and silu, each launch's threads and grid held to the kernel's
-   own.
+   (1,64,8,4), (3,100,16,4), (2,257,32,7) and the same at k = 9, 16 and
+   33 (B7b: k at run time), mamba2-780m's prefill launch (4, 8192, 3328)
+   k = 4, a ragged s = 8193, and the strided xBC view of the (4, 8192,
+   6448) in-projection (16-byte lanes at offset 3072, 2-byte pairs at
+   3074, single channels at 3073), f32, bf16, f16 and f64 (B7b; f16
+   equal bit for bit, f64 within 1e-12), activation none and silu, each
+   launch's threads and grid held to the kernel's own.
 3. Main path at full size, through the entry points a user calls, with
    the launch counters (total, per depth and per kernel) zeroed just
    before and read just after each run: MHD 256³ f32 RK3 with the fused
@@ -140,9 +145,17 @@ Phases (each raises on failure; none is caught):
    equal to the plain bf16 steps bit for bit. The serve phase also runs
    ``SimServer(strategy="tc")``: 8 ``fused_stencil_tc`` launches per
    batch. The 1-D path: ``step_1d_xcorr`` on diffusion at 2^26, order 6,
-   f32, 5 steps on each B6 strategy, exactly one ``xcorr1d`` launch per
-   step (and no fused-stencil launch), held to ``simulate(...,
-   strategy="swc")`` (B1 at rank 1) within 1e-5.
+   f32, bf16 and f16, 5 steps on each B6 strategy, exactly one
+   ``xcorr1d`` launch per step (and no fused-stencil launch), held to
+   ``simulate(..., strategy="swc")`` (B1 at rank 1; bf16 on B1b) within
+   the dtype's limit, the 2-byte steps also to the plain ``hwc`` steps
+   bit for bit (f16 has no B1 until ROADMAP B9); then B7b's path:
+   ``ops.conv1d_depthwise`` under autograd (``Conv1dDepthwise``: the
+   kernel forward, the plain gradient) in f16 and f64 at mamba2-780m's
+   prefill view (4, 8192, 3328) of the (4, 8192, 6448) projection, k =
+   4, and bf16 at k = 16 and 33, one launch each, held to the plain
+   version (f16 and bf16 bit for bit, f64 within 1e-12) and its
+   gradient.
    The mamba2 phase: mamba2-780m at full width (48 layers, d_model
    1536, random init from a seeded generator on the card) through
    ``repro_torch.launch.steps``: the prefill (4, 8192) in bf16 with
@@ -513,17 +526,22 @@ Phases (each raises on failure; none is caught):
    1-1024 (``XCORR_TIME_RADII``: r = 8 and 10 on each side of the
    elementwise ring's first radius) and f64 at r = 1, 10 and 1024,
    elementwise also at unroll 8 and 16 (Fig. 9's sweep) for f32 r >= 64
-   and f64 r = 1024, each row naming its launch (one-tile or ring), and
-   the 2^26 ``step_1d_xcorr`` launch (the kernels line's B6 rows); bound
-   max((2n + 2r + taps) ×
-   itemsize / memory rate, 2 × taps × n / non-tensor rate); library
-   ``F.conv1d`` (cuDNN) with ``cudnn.allow_tf32`` off.
+   and f64 r = 1024, each row naming its launch (one-tile or ring); bf16
+   and f16 at r = 1, 10 and 1024; at r = 1024 in every dtype elementwise
+   at unroll 32 and 64 and pointwise at 24 and 64 (register passes); and
+   the 2^26 ``step_1d_xcorr`` launch in f32, bf16 and f16 (the kernels
+   line's B6 rows); bound max((2n + 2r + taps) × itemsize / memory rate,
+   2 × taps × n / non-tensor rate: f32, f64, or bf16/f16 at the packed
+   pair rate, ``BF16_PAIR`` x f32, of which a multiply and an add each
+   rounded reach half); library ``F.conv1d`` (cuDNN) in the same dtype
+   with ``cudnn.allow_tf32`` off.
    B7 rows (the kernels line's): the strided xBC view at the prefill
    launch (4, 8192, 3328), k = 4, bf16 and f32, with launches per
-   prefill; bound max(((b(s+k-1) + k)c + bsc) × itemsize / memory
-   rate, 2kbsc / non-tensor f32 rate); library ``F.conv1d(groups=c,
-   padding=k-1)`` (cuDNN, TF32 off) on a contiguous (b, c, s) copy,
-   whose copy time is printed apart.
+   prefill, f16 and f64 (B7b's path), and bf16 at k = 16 and 33 (the
+   body with k at run time); bound max(((b(s+k-1) + k)c + bsc) ×
+   itemsize / memory rate, 2kbsc / non-tensor rate as B6's); library
+   ``F.conv1d(groups=c, padding=k-1)`` (cuDNN, TF32 off) on a
+   contiguous (b, c, s) copy, whose copy time is printed apart.
    Each phase prints its seconds.
 
 The line before the last is ``{"kernels": [...]}``; the last is
@@ -576,8 +594,18 @@ XCORR_UNROLLS = (("elementwise", 8), ("elementwise", 16))
 # empty-slot layout or none), block_size 1536, on an f aligned to 16
 # bytes and on one a single element past that (staged element by
 # element): phase 2.
-XCORR_ODD = (("elementwise", 3), ("elementwise", 6), ("elementwise", 12),
-             ("pointwise", 7), ("baseline", 1))
+XCORR_ODD = (("elementwise", 2), ("elementwise", 3), ("elementwise", 6),
+             ("elementwise", 12), ("elementwise", 24), ("pointwise", 7),
+             ("baseline", 1))
+# B6b: unroll factors past the register widths the kernel instantiates
+# (1..16), run as U / U_r passes of U_r (its largest divisor of at most
+# 16): phase 2's parity and phase 4's r = 1024 rows.
+XCORR_WIDE = (("elementwise", 32), ("elementwise", 64), ("pointwise", 24),
+              ("pointwise", 64))
+XCORR_DTYPES = ("float32", "float64", "bfloat16", "float16")
+# B7b: tap counts past the kernel's templated 8 (its body with k at run
+# time), on the reference's sweep shapes.
+CONV_WIDE_TAPS = (9, 16, 33)
 CONV_SOURCE = "src/repro_torch/kernels/csrc/conv1d_depthwise.cu"
 # conv1d_depthwise_pallas (+ _kernel :26)
 CONV_REPLACES = "src/repro/kernels/conv1d_depthwise.py:36"
@@ -596,7 +624,8 @@ LM_BATCH, LM_STEPS = 4, 32  # launch/serve.py's defaults
 # (conv window frozen, state decaying twice, state in bf16): the limit
 # is twice the largest sound reading.
 DECODE_TOL = 2.2e-3
-TOL = {"float32": 1e-5, "float64": 1e-12, "bfloat16": 2e-2}
+TOL = {"float32": 1e-5, "float64": 1e-12, "bfloat16": 2e-2,
+       "float16": 2e-2}
 # Host ms a step of the f32 main-path runs (phase 3 and its tc phase), by
 # their launch-count keys: the bf16 phase prints each beside its own.
 STEP_MS: dict[str, float] = {}
@@ -690,10 +719,8 @@ def _cli_ok(label: str, out) -> None:
 
 
 def rel_err(a, b) -> tuple[float, float]:
-    """(max |a - b|, that over max |b|), bf16 compared in f32."""
-    import torch
-
-    if a.dtype == torch.bfloat16 or b.dtype == torch.bfloat16:
+    """(max |a - b|, that over max |b|), 2-byte types compared in f32."""
+    if a.element_size() < 4 or b.element_size() < 4:
         a, b = a.float(), b.float()
     diff = float((a - b).abs().max())
     return diff, diff / max(float(b.abs().max()), 1e-300)
@@ -713,6 +740,22 @@ def check(label: str, got, want, dtype: str) -> float:
     if not ok:
         raise AssertionError(f"{label}: rel err {rel:.3e} > {TOL[dtype]}")
     return err
+
+
+def check_equal(label: str, got, want) -> float:
+    """Hold a kernel's output to its plain version bit for bit ("=");
+    returns max |err| (0)."""
+    import torch
+
+    if got.shape != want.shape:
+        raise AssertionError(f"{label}: shape {got.shape} != {want.shape}")
+    if not torch.equal(got, want):
+        err, rel = rel_err(got, want)
+        raise AssertionError(f"{label}: differs from the plain version "
+                             f"(max|err| {err:.3e}, rel {rel:.3e}); want "
+                             "bit for bit")
+    print(f"  {label:<44} = (bit for bit)")
+    return 0.0
 
 
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -1452,6 +1495,11 @@ def phase_parity(dev):
                                        fuse_steps=depth, strategy=strategy,
                                        accuracy=2), "float32")
     parity_bf16(dev)
+    phase_parity_1d(dev)
+
+
+def phase_parity_1d(dev):
+    """Phase 2's B6 and B7 cases (also alone: ``--1d``)."""
     parity_xcorr(dev)
     parity_conv1d(dev)
 
@@ -1554,10 +1602,12 @@ def parity_conv1d(dev):
     the reference's sweep shapes, mamba2-780m's prefill launch (4, 8192,
     3328) with k = 4, a ragged s, and the strided xBC view of the
     (4, 8192, 6448) in-projection (16-byte lanes at offset 3072, bf16
-    pairs at 3074, single channels at 3073), f32 and bf16, activation
-    none and silu; each launch's threads and grid held to the kernel's
-    own layout. "=" marks an output equal to the plain version's bit for
-    bit, "~" one within the tolerance only."""
+    pairs at 3074, single channels at 3073), and the sweep shapes at k =
+    9, 16 and 33 (B7b: the body with k at run time), f32, bf16, f16 and
+    f64, activation none and silu; each launch's threads, grid and tap
+    body held to the kernel's own layout. "=" marks an output equal to
+    the plain version's bit for bit, "~" one within the tolerance only;
+    f16 must be "=" (B7b)."""
     import torch
 
     from repro_torch.kernels import conv1d_depthwise as kc
@@ -1572,29 +1622,36 @@ def parity_conv1d(dev):
              ((b, s, 3328), 4, 512, dict(row=6448, offset=3072)),
              ((b, s, 3328), 4, 512, dict(row=6448, offset=3074)),
              ((b, s, 3328), 4, 512, dict(row=6448, offset=3073))]
+    cases += [(shape, k, 128, {}) for k in CONV_WIDE_TAPS
+              for shape in ((1, 64, 8), (3, 100, 16), (2, 257, 32))]
     if kc.kernel_threads() != kc.THREADS:
         raise AssertionError("conv1d: the kernel's threads differ from "
                              "conv1d_depthwise.py's")
-    for dtype in ("float32", "bfloat16"):
+    for dtype in XCORR_DTYPES:
         for i, (shape, k, block_seq, view) in enumerate(cases):
             x, w = conv_inputs(shape, k, dtype, dev, seed=i, **view)
             vec = kc.vector_width(x, w)
             for act in ("none", "silu"):
                 resident = kc.kernel_grid(0, 0, 0, k, act, dtype, vec)
                 grid, _ = kc.launch_layout(*shape, vec, resident)
-                if kc.kernel_grid(*shape, k, act, dtype, vec) != grid:
+                if kc.kernel_grid(*shape, k, act, dtype, vec) != grid or \
+                        kc.layout_fields(*shape, k, vec)[1]["taps"] != \
+                        kc.tap_body(k):
                     raise AssertionError(
-                        f"conv1d {shape} {act}: the kernel's grid differs "
-                        "from conv1d_depthwise.py's")
+                        f"conv1d {shape} {act}: the kernel's grid or tap "
+                        "body differs from conv1d_depthwise.py's")
                 got = kops.conv1d_depthwise(x, w, activation=act,
                                             block_seq=block_seq)
                 want = ref.conv1d_depthwise(x, w, act)
                 tag = f" view row {view['row']} +{view['offset']}" \
                     if view else ""
                 same = "=" if torch.equal(got, want) else "~"
-                check(f"conv1d {shape} k={k} {act}{tag} vec{vec} "
-                      f"grid {grid} ({resident} resident) {same}", got, want,
-                      dtype)
+                label = (f"conv1d {shape} k={k} {act}{tag} vec{vec} grid "
+                         f"{grid} ({resident} resident) {dtype}")
+                if dtype == "float16":
+                    check_equal(label, got, want)
+                else:
+                    check(f"{label} {same}", got, want, dtype)
                 del got, want
             del x, w
 
@@ -1611,46 +1668,66 @@ def _xcorr_layout_check(label, n, n_taps, block, strategy, unroll, dtype):
     resident = kx.kernel_grid(0, n_taps, block, strategy, unroll, dtype)
     grid = kx.kernel_grid(n, n_taps, block, strategy, unroll, dtype)
     want_grid = kx.launch_grid(n, n_taps, block, strategy, unroll, resident)
-    if layout != want or grid != want_grid:
+    _, fields = kx.layout_fields(n_taps, block, strategy, unroll, dtype)
+    u = kx.kernel_unroll(strategy, unroll)
+    ur = kx.register_unroll(u)
+    if layout != want or grid != want_grid or \
+            (fields["unroll"], fields["passes"]) != (ur, u // ur):
         raise AssertionError(
-            f"{label}: the kernel's layout {layout}, grid {grid} differ "
-            f"from xcorr1d.py's {want}, {want_grid}")
+            f"{label}: the kernel's layout {layout}, grid {grid}, U_r "
+            f"{fields['unroll']} x {fields['passes']} differ from "
+            f"xcorr1d.py's {want}, {want_grid}, {ur} x {u // ur}")
     route = "one-tile"
-    if kx.ring_route(strategy, kx.kernel_unroll(strategy, unroll), n_taps):
+    if kx.ring_route(strategy, u, n_taps):
         stages = kx.ring_stages(n_taps, block, dtype, strategy, unroll)
         route = f"ring of {stages}"
+    if u > ur:
+        route += f", {u // ur} passes of U_r {ur}"
     return layout, route, grid
+
+
+def check_xcorr(label, got, want, dtype):
+    """B6 against its plain version: the 2-byte types bit for bit (B6b),
+    f32 and f64 within TOL (FMAs)."""
+    if dtype in ("bfloat16", "float16"):
+        return check_equal(label, got, want)
+    return check(label, got, want, dtype)
 
 
 def parity_xcorr(dev):
     """B6 (``csrc/xcorr1d.cu``) against ``ref.xcorr1d`` for each strategy,
-    elementwise also at unroll 8 and 16, f32 and f64, radii 0 to 1024,
-    n = 2^20 + 123 (a ragged last tile of the default 2048 outputs); then
-    odd register tilings (``XCORR_ODD``, block_size 1536) at r = 3 and
-    1024 on an aligned f and on one an element past 16 bytes (element
-    staging). Each launch's threads, shared bytes and grid are held to
-    the kernel's own layout."""
+    elementwise also at unroll 8 and 16 and (``XCORR_WIDE``) 32 and 64,
+    pointwise at 24 and 64, in f32, f64, bf16 and f16 (B6b: bit for bit),
+    radii 0 to 1024, n = 2^20 + 123 (a ragged last tile of the default
+    2048 outputs); then odd register tilings (``XCORR_ODD``, block_size
+    1536) at r = 3 and 1024 on an aligned f and on one an element past
+    16 bytes (element staging). Each launch's threads, shared bytes, grid,
+    register width and passes are held to the kernel's own layout."""
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ref
     from repro_torch.kernels import xcorr1d as kx
 
     n, block = (1 << 20) + 123, 2048
     print(f"  -- B6 xcorr1d vs ref.xcorr1d, n = {n}, block_size {block}")
-    for dtype in ("float32", "float64"):
+    for dtype in XCORR_DTYPES:
         for r in XCORR_RADII:
             f, g = xcorr_inputs(n, r, dtype, dev, seed=r)
             want = ref.xcorr1d(f, g)
-            for strategy, unroll in XCORR_STRATEGIES + XCORR_UNROLLS:
-                label = f"xcorr1d {strategy} u{unroll} r={r}"
+            for strategy, unroll in (XCORR_STRATEGIES + XCORR_UNROLLS
+                                     + XCORR_WIDE):
+                label = f"xcorr1d {strategy} u{unroll} r={r} {dtype}"
                 layout, route, grid = _xcorr_layout_check(
                     label, n, 2 * r + 1, block, strategy, unroll, dtype)
                 got = kops.xcorr1d(f, g, strategy=strategy,
                                    block_size=block, unroll=unroll)
-                check(f"{label} {route} {layout[0]}thr {layout[1]}B "
-                      f"grid {grid}", got, want, dtype)
+                check_xcorr(f"{label} {route} {layout[0]}thr {layout[1]}B "
+                            f"grid {grid}", got, want, dtype)
             del f, g, want
+    for key in ("ring_kernelIdLi16E", "tile_kernelIdLi2ELi16E"):
+        print(f"  f64 at U = 64 (U_r = 16): {key} "
+              f"{_usage_of('xcorr1d', key)}")
     block = 1536
-    for dtype in ("float32", "float64"):
+    for dtype in XCORR_DTYPES:
         for r in (3, 1024):
             f, g = xcorr_inputs(n + 1, r, dtype, dev, seed=r + 1)
             for offset in (0, 1):
@@ -1663,11 +1740,14 @@ def parity_xcorr(dev):
                         label, n, 2 * r + 1, block, strategy, unroll, dtype)
                     got = kops.xcorr1d(fo, g, strategy=strategy,
                                        block_size=block, unroll=unroll)
-                    wide = (route != "one-tile"
-                            and kx.wide_staging(fo, block))
+                    # the ring stages by 16 bytes where f allows it, and
+                    # so does the one-tile launch in 2-byte types
+                    wide = kx.wide_staging(fo, block) and (
+                        not route.startswith("one-tile")
+                        or fo.element_size() == 2)
                     staging = "16-byte" if wide else "element"
-                    check(f"{label} {route}, {staging} staging", got, want,
-                          dtype)
+                    check_xcorr(f"{label} {dtype} {route}, {staging} "
+                                "staging", got, want, dtype)
                 del want
             del f, g
 
@@ -2111,9 +2191,19 @@ def phase_main_path_bf16(dev, launches):
 
 
 def phase_main_path_1d(dev, launches):
-    """The 1-D path: ``step_1d_xcorr`` at 2^26, f32, 5 steps on each B6
-    strategy, every step one ``xcorr1d`` launch (the counters zeroed just
-    before and read just after), held to B1's ``simulate(..., "swc")``."""
+    """The 1-D path: ``step_1d_xcorr`` at 2^26 in f32, bf16 and f16, 5
+    steps on each B6 strategy, every step one ``xcorr1d`` launch (the
+    counters zeroed just before and read just after), held to B1's
+    ``simulate(..., "swc")`` (bf16: B1b) within the dtype's limit and, in
+    the 2-byte types, to the plain ``hwc`` steps bit for bit (f16 has no
+    B1 until ROADMAP B9); then B7b's path (:func:`b7b_path`)."""
+    print("== phase 3 (1-D): step_1d_xcorr at 2^26 on B6 (csrc/xcorr1d.cu)")
+    for dtype in ("float32", "bfloat16", "float16"):
+        _xcorr_steps(dev, launches, dtype)
+    b7b_path(dev, launches)
+
+
+def _xcorr_steps(dev, launches, dtype):
     import torch
 
     from repro_torch.kernels import emit
@@ -2124,11 +2214,17 @@ def phase_main_path_1d(dev, launches):
         step_1d_xcorr,
     )
 
-    print("== phase 3 (1-D): step_1d_xcorr at 2^26 on B6 (csrc/xcorr1d.cu)")
     n_steps = 5
     prob = DiffusionProblem((1 << 26,), accuracy=6)
-    f0 = prob.init_field(seed=0, device=dev)[0]
-    want = simulate(prob, f0[None], n_steps, strategy="swc", device=dev)[0]
+    f0 = prob.init_field(seed=0, device=dev, dtype=dtype)[0]
+    want = plain = None
+    if dtype != "float16":  # B1 (f32) and B1b (bf16) at rank 1
+        want = simulate(prob, f0[None], n_steps, strategy="swc",
+                        device=dev)[0]
+    if dtype != "float32":
+        plain = f0
+        for _ in range(n_steps):
+            plain = step_1d_xcorr(plain, prob, strategy="hwc")
     for strategy, _ in XCORR_STRATEGIES:
         step_1d_xcorr(f0, prob, strategy=strategy)  # warm-up
 
@@ -2149,22 +2245,92 @@ def phase_main_path_1d(dev, launches):
         if by != {strategy: n_steps} or kx.xcorr1d_cuda.launches != n_steps \
                 or emit.fused_stencil_swc.launches:
             raise AssertionError(
-                f"step_1d_xcorr {strategy}: launches {by}, "
+                f"step_1d_xcorr {strategy} {dtype}: launches {by}, "
                 f"{emit.fused_stencil_swc.launches} fused-stencil launches; "
                 f"want {n_steps} xcorr1d")
-        if out.shape != f0.shape or not bool(torch.isfinite(out).all()):
+        if out.shape != f0.shape or out.dtype != f0.dtype or \
+                not bool(torch.isfinite(out).all()):
             raise AssertionError(f"step_1d_xcorr {strategy}: bad state")
-        launches[f"xcorr {strategy}"] = by[strategy]
-        _, rel = rel_err(out, want)
-        print(f"  diffusion 2^26 f32 order 6 step_1d_xcorr {strategy}: "
+        key = "xcorr" if dtype == "float32" else f"xcorr {dtype}"
+        launches[f"{key} {strategy}"] = by[strategy]
+        held = []
+        if want is not None:
+            _, rel = rel_err(out, want)
+            held.append(f"vs swc ({'B1' if dtype == 'float32' else 'B1b'}) "
+                        f"rel {rel:.3e}")
+            if rel > TOL[dtype]:
+                raise AssertionError(f"step_1d_xcorr {strategy} {dtype} "
+                                     "disagrees with swc")
+        if plain is not None:
+            if not torch.equal(out, plain):
+                raise AssertionError(f"step_1d_xcorr {strategy} {dtype}: "
+                                     "not the plain hwc steps bit for bit")
+            held.append("= the hwc steps (bit for bit)")
+        print(f"  diffusion 2^26 {dtype} order 6 step_1d_xcorr {strategy}: "
               f"{n_steps} steps, launches {by}, "
-              f"{1e3 * wall / n_steps:.4f} ms/step (host clock); vs swc "
-              f"(B1) rel {rel:.3e}")
-        if rel > TOL["float32"]:
-            raise AssertionError(f"step_1d_xcorr {strategy} disagrees with "
-                                 "swc")
+              f"{1e3 * wall / n_steps:.4f} ms/step (host clock); "
+              + "; ".join(held))
         del out
-    del want, f0
+    del want, plain, f0
+    torch.cuda.empty_cache()
+
+
+def b7b_path(dev, launches):
+    """B7b's path: ``ops.conv1d_depthwise`` under autograd (its
+    ``Conv1dDepthwise``: the kernel forward, the plain version's gradient)
+    on mamba2-780m's prefill view (4, 8192, 3328) of the (4, 8192, 6448)
+    projection at offset 3072, in f16 and f64 at k = 4 and in bf16 at k =
+    16 and 33 (the body with k at run time); the counters zeroed just
+    before and read just after each call (one launch, no other kernel);
+    the output held to the plain version (f16 and bf16 bit for bit, f64
+    within 1e-12) and the gradients to the plain version's."""
+    import torch
+
+    from repro_torch.kernels import conv1d_depthwise as kc
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+
+    print("== phase 3 (1-D): B7b, ops.conv1d_depthwise under autograd at "
+          "the prefill view")
+    b, s = PREFILL_SHAPE
+    for dtype, k in (("float16", 4), ("float64", 4), ("bfloat16", 16),
+                     ("bfloat16", 33)):
+        gen = torch.Generator(device=dev).manual_seed(k)
+        dt = getattr(torch, dtype)
+        base = torch.randn((b, s, 6448), generator=gen, device=dev).to(dt)
+        base.requires_grad_(True)
+        x = base[..., 3072:3072 + 3328]
+        w = torch.randn((k, 3328), generator=gen, device=dev).to(dt)
+        w.requires_grad_(True)
+        torch.cuda.synchronize()
+        _reset_all_counts()
+        t0 = time.perf_counter()
+        y = kops.conv1d_depthwise(x, w, activation="silu")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _all_counts()
+        if counts != (1, 0, 0) or \
+                type(y.grad_fn).__name__ != "Conv1dDepthwiseBackward":
+            raise AssertionError(f"B7b {dtype} k={k}: launches (B7, fused, "
+                                 f"xcorr) {counts}, want (1, 0, 0) under "
+                                 "Conv1dDepthwise")
+        launches[f"conv1d {dtype} k={k}"] = counts[0]
+        want = ref.conv1d_depthwise(x, w, "silu")
+        label = (f"B7b {dtype} k={k} silu view (4, 8192, 3328) vec"
+                 f"{kc.vector_width(x, w)}")
+        if dtype == "float64":
+            check(label, y.detach(), want.detach(), dtype)
+        else:
+            check_equal(label, y.detach(), want.detach())
+        gy = torch.randn_like(y)
+        got_g = torch.autograd.grad(y, (base, w), gy)
+        want_g = torch.autograd.grad(want, (base, w), gy)
+        if not all(torch.equal(a, c) for a, c in zip(got_g, want_g)):
+            raise AssertionError(f"{label}: gradients differ from the "
+                                 "plain version's")
+        print(f"    one launch, {1e3 * wall:.4f} ms forward (host clock); "
+              "gradients equal to the plain version's")
+        del base, x, w, y, want, got_g, want_g
     torch.cuda.empty_cache()
 
 
@@ -6822,7 +6988,7 @@ def guard_cases(dev):
     from repro_torch.kernels.conv1d_depthwise import conv1d_depthwise_cuda
     from repro_torch.kernels.xcorr1d import xcorr1d_cuda
 
-    F, D, H = "float32", "float64", "bfloat16"
+    F, D, H, E = "float32", "float64", "bfloat16", "float16"
     fused = (
         ("B1 swc (4,5,20) f32", diffusion_case((16, 20, 40), F, dev,
                                                block=(4, 5, 20))),
@@ -6945,7 +7111,11 @@ def guard_cases(dev):
                                ("elementwise", 4, 1, F),
                                ("elementwise", 4, 10, F),
                                ("elementwise", 8, 64, D),
-                               ("elementwise", 16, 64, F)):
+                               ("elementwise", 16, 64, F),
+                               ("baseline", 4, 1, H),
+                               ("elementwise", 8, 10, E),
+                               ("elementwise", 32, 64, H),
+                               ("pointwise", 24, 64, E)):
         f, g = xcorr_inputs(5000 + 123, r, dt, dev)
 
         def launch(t, out, s=strategy, u=u):
@@ -6957,7 +7127,11 @@ def guard_cases(dev):
                       dt))
     for shape, k, dt, act in (((2, 257, 32), 4, F, "silu"),
                               ((2, 257, 40), 7, H, "none"),
-                              ((3, 100, 16), 4, H, "silu")):
+                              ((3, 100, 16), 4, H, "silu"),
+                              ((2, 257, 40), 4, E, "silu"),
+                              ((2, 257, 32), 4, D, "none"),
+                              ((2, 257, 32), 16, E, "none"),
+                              ((3, 100, 16), 33, D, "silu")):
         x, w = conv_inputs(shape, k, dt, dev)
 
         def launch(t, out, act=act):
@@ -6996,7 +7170,8 @@ def _layout_checks(results) -> tuple[int, int]:
                                             key.dtype)
             smem = fields["total"]
         else:
-            body, fields = kc.layout_fields(key.b, key.s, key.c, key.vec)
+            body, fields = kc.layout_fields(key.b, key.s, key.c, key.k,
+                                            key.vec)
             smem = fields["total"]
         if body != res.body or fields != res.layout or \
                 smem != res.measured_smem:
@@ -7565,17 +7740,21 @@ def _phase_times(dev, smi, launches, bf16_only):
 def phase_times_xcorr(dev, smi, launches):
     """B6 rows (CUDA events, median): n = 2^24, fig07's full size
     (``benchmarks/fig07_xcorr_library.py``), f32 at radii 1-1024
-    (``XCORR_TIME_RADII``) and f64 at r = 1, 10 and 1024 (r = 1 and 1024
-    the paper's Table 3 cases), each strategy at unroll 4, and elementwise
-    at unroll 8 and 16 (Fig. 9's sweep) for f32 r >= 64 and f64 r = 1024;
-    then the 2^26 ``step_1d_xcorr`` launch of each strategy, whose rows
-    go to the kernels line. The library call is
-    ``F.conv1d(f[None, None], g[None, None])`` (cuDNN, the paper's Fig. 7)
-    timed with ``torch.backends.cudnn.allow_tf32 = False``; the flag is
-    restored after. The port never calls it."""
+    (``XCORR_TIME_RADII``), f64, bf16 and f16 at r = 1, 10 and 1024 (r =
+    1 and 1024 the paper's Table 3 cases), each strategy at unroll 4, and
+    elementwise at unroll 8 and 16 (Fig. 9's sweep) for f32 r >= 64 and
+    the other dtypes at r = 1024, and there ``XCORR_WIDE`` (unroll 24-64,
+    register passes) in every dtype; then the 2^26 ``step_1d_xcorr``
+    launch of each strategy in f32, bf16 and f16, whose rows go to the
+    kernels line. The library call is ``F.conv1d(f[None, None], g[None,
+    None])`` in the same dtype (cuDNN, the paper's Fig. 7) timed with
+    ``torch.backends.cudnn.allow_tf32 = False``; the flag is restored
+    after. The port never calls it. Bound: bytes, or the taps'
+    operations at the f32, f64 or (bf16, f16) packed pair rate."""
     import torch
     import torch.nn.functional as F
 
+    from repro_torch import cast
     from repro_torch.core.stencil import diffusion_kernel_1d
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ref
@@ -7609,7 +7788,8 @@ def phase_times_xcorr(dev, smi, launches):
         lib_ms = time_ms(lambda: F.conv1d(x, w), 3 if slow else reps,
                          warmup=1 if slow else 2)
         t_bytes = (f.numel() + n_taps + n) * item / bw * 1e3
-        t_ops = 2 * n_taps * n / (f64_rate if item == 8 else f32_rate) * 1e3
+        rate = {8: f64_rate, 4: f32_rate, 2: BF16_PAIR * f32_rate}[item]
+        t_ops = 2 * n_taps * n / rate * 1e3
         bound = max(t_bytes, t_ops)
         by = "bytes" if t_bytes >= t_ops else "operations"
         for strategy, unroll in XCORR_STRATEGIES + tuple(extra):
@@ -7617,7 +7797,7 @@ def phase_times_xcorr(dev, smi, launches):
                       else "one-tile")
             got = kops.xcorr1d(f, g, strategy=strategy, unroll=unroll)
             err, rel = rel_err(got, want)
-            if rel > TOL[dtype]:
+            if rel > TOL[dtype] or (item == 2 and not torch.equal(got, want)):
                 raise AssertionError(f"{label} {strategy}: rel err {rel:.3e}")
             del got
             ms = time_ms(lambda: kops.xcorr1d(f, g, strategy=strategy,
@@ -7635,7 +7815,7 @@ def phase_times_xcorr(dev, smi, launches):
                 "bound_by": by,
                 "library_ms": lib_ms,
             }
-            print(f"  {label:<22} {dtype:<7} {strategy:<11} u{unroll:<2} "
+            print(f"  {label:<22} {dtype:<8} {strategy:<11} u{unroll:<2} "
                   f"{launch:<8} kernel "
                   f"{ms:9.4f} ms  plain {plain_ms:10.4f} ms  bound "
                   f"{bound:7.4f} ms ({by})  conv1d (no TF32) {lib_ms:.4f} "
@@ -7648,40 +7828,50 @@ def phase_times_xcorr(dev, smi, launches):
     try:
         n = 1 << 24
         for dtype, radii in (("float32", XCORR_TIME_RADII),
-                             ("float64", (1, 10, 1024))):
+                             ("float64", (1, 10, 1024)),
+                             ("bfloat16", (1, 10, 1024)),
+                             ("float16", (1, 10, 1024))):
             for r in radii:
                 f, g = xcorr_inputs(n, r, dtype, dev, seed=r)
                 sweep = r >= (64 if dtype == "float32" else 1024)
+                extra = XCORR_UNROLLS if sweep else ()
                 rows_for(f"n=2^24 r={r}", f, g, dtype,
-                         extra=XCORR_UNROLLS if sweep else ())
+                         extra=extra + (XCORR_WIDE if r == 1024 else ()))
                 del f, g
         prob = DiffusionProblem((1 << 26,), accuracy=6)
-        f0 = prob.init_field(seed=0, device=dev)[0]
-        r = prob.radius
-        fp = torch.cat([f0[-r:], f0, f0[:r]])
-        g = torch.as_tensor(
+        taps = torch.as_tensor(
             diffusion_kernel_1d(prob.accuracy, prob.dt, prob.alpha,
                                 prob.spacing[0]),
-            dtype=fp.dtype, device=dev)
-        rows_for("step_1d_xcorr 2^26 r=3", fp, g, "float32",
-                 main="xcorr")
-        del fp, f0
+            dtype=torch.float64, device=dev)
+        for dtype in ("float32", "bfloat16", "float16"):
+            f0 = prob.init_field(seed=0, device=dev, dtype=dtype)[0]
+            r = prob.radius
+            fp = torch.cat([f0[-r:], f0, f0[:r]])
+            main = "xcorr" if dtype == "float32" else f"xcorr {dtype}"
+            rows_for("step_1d_xcorr 2^26 r=3", fp, cast(taps, fp.dtype),
+                     dtype, main=main)
+            del fp, f0
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
     torch.cuda.empty_cache()
     return rows
 
 
-def phase_times_conv1d(dev, smi, launches):
+def phase_times_conv1d(dev, smi, launches, mamba2=True):
     """B7 rows (CUDA events, median) at mamba2-780m's prefill launch: the
     strided xBC view (4, 8192, 3328) of a (4, 8192, 6448) in-projection,
     k = 4, bf16 (the main path's dtype, 48 launches per prefill) and f32
-    (the f32 forward's, also 48). Bound: bytes = ((b·(s+k-1) + k)·c +
+    (the f32 forward's, also 48), f16 and f64 (B7b's path, one launch
+    each), and bf16 at k = 16 and 33 (the body with k at run time, one
+    launch each on B7b's path). Bound: bytes = ((b·(s+k-1) + k)·c +
     b·s·c) values (the padded input and the taps read once, the output
     written once) over the memory rate, against 2·k·b·s·c FLOPs at the
-    non-tensor f32 rate. The library call is ``F.conv1d(groups=c,
-    padding=k-1)`` (cuDNN, TF32 off) on a contiguous (b, c, s) copy; the
-    copy's time is printed apart. The port never calls it."""
+    non-tensor f32 or f64 rate (bf16, f16: the packed pair rate). The
+    library call is ``F.conv1d(groups=c, padding=k-1)`` in the same dtype
+    (cuDNN, TF32 off) on a contiguous (b, c, s) copy; the copy's time is
+    printed apart. The port never calls it. Without ``mamba2`` (phase 3
+    (mamba2) did not run, so its counts were not taken) the bf16 and f32
+    k = 4 rows are left out."""
     import torch
     import torch.nn.functional as F
 
@@ -7692,23 +7882,33 @@ def phase_times_conv1d(dev, smi, launches):
     print("== phase 4 (mamba2): B7 conv1d_depthwise times (CUDA events, "
           "median)")
     print(f"  card: {smi}")
-    bw, f32_rate, _ = card_rates(torch.cuda.get_device_name(0))
+    bw, f32_rate, f64_rate = card_rates(torch.cuda.get_device_name(0))
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     b, s = PREFILL_SHAPE
-    c, k, row = 3328, 4, 6448
+    c, row = 3328, 6448
     rows = []
     try:
-        for dtype, key in (("bfloat16", "conv1d prefill"),
-                           ("float32", "conv1d f32 forward")):
+        cases = (("bfloat16", "conv1d prefill", 4),
+                 ("float32", "conv1d f32 forward", 4),
+                 ("float16", "conv1d float16 k=4", 4),
+                 ("float64", "conv1d float64 k=4", 4),
+                 ("bfloat16", "conv1d bfloat16 k=16", 16),
+                 ("bfloat16", "conv1d bfloat16 k=33", 33))
+        if not mamba2:
+            print("  (phase 3 (mamba2) not run: its bf16 and f32 k=4 rows "
+                  "are left out)")
+            cases = cases[2:]
+        for dtype, key, k in cases:
             x, w = conv_inputs((b, s, c), k, dtype, dev, seed=11, row=row,
                                offset=3072)
             item = x.element_size()
             want = ref.conv1d_depthwise(x, w)
             got = kops.conv1d_depthwise(x, w)
             err, rel = rel_err(got, want)
-            if rel > TOL[dtype]:
-                raise AssertionError(f"conv1d {dtype}: rel err {rel:.3e}")
+            if rel > TOL[dtype] or (item != 8 and not torch.equal(got, want)):
+                raise AssertionError(f"conv1d {dtype} k={k}: rel err "
+                                     f"{rel:.3e}")
             del got
             ms = time_ms(lambda: kops.conv1d_depthwise(x, w), 20)
             xc = x.contiguous()
@@ -7726,7 +7926,8 @@ def phase_times_conv1d(dev, smi, launches):
             del xt
             values = (b * (s + k - 1) + k) * c + b * s * c
             t_bytes = values * item / bw * 1e3
-            t_ops = 2 * k * b * s * c / f32_rate * 1e3
+            rate = {8: f64_rate, 4: f32_rate, 2: BF16_PAIR * f32_rate}[item]
+            t_ops = 2 * k * b * s * c / rate * 1e3
             bound = max(t_bytes, t_ops)
             by = "bytes" if t_bytes >= t_ops else "operations"
             rows.append({
@@ -7743,14 +7944,15 @@ def phase_times_conv1d(dev, smi, launches):
                 "bound_by": by,
                 "library_ms": lib_ms,
             })
-            print(f"  xBC view {b}x{s}x{c} k={k} {dtype:<8} vec"
+            print(f"  xBC view {b}x{s}x{c} k={k:<2} {dtype:<8} vec"
                   f"{kc.vector_width(x, w)}: kernel {ms:.4f} ms (contiguous "
                   f"input {ms_contig:.4f})  plain {plain_ms:.4f} ms  bound "
                   f"{bound:.4f} ms ({by}, {values * item / 1e6:.1f} MB)  "
                   f"conv1d (groups=c, no TF32) {lib_ms:.4f} ms + transpose "
                   f"copy {copy_ms:.4f} ms  max|err| {err:.3e}  "
-                  f"{bound / ms:.1%} of bound  launches/prefill "
-                  f"{launches[key]}; conv1d vs plain rel {lib_rel:.3e}")
+                  f"{bound / ms:.1%} of bound  launches ({key}) "
+                  f"{launches[key]}; conv1d vs plain rel "
+                  f"{lib_rel:.3e}")
             del x, w
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
@@ -8165,6 +8367,15 @@ def _phases(argv, dev, smi, timed, seconds, t0, dry) -> int:
         return 0
     if "--quick" in argv:
         timed("phase 2", phase_parity, dev)
+        return 0
+    if "--1d" in argv:
+        launches = {}
+        timed("phase 2 (1-D)", phase_parity_1d, dev)
+        timed("phase 3 (1-D)", phase_main_path_1d, dev, launches)
+        rows = timed("phase 4 (1-D)", phase_times_xcorr, dev, smi, launches)
+        rows += timed("phase 4 (mamba2)", phase_times_conv1d, dev, smi,
+                      launches, False)
+        print(json.dumps({"kernels": rows}))
         return 0
     # phase 2 runs in phase 3 (clis), beside the CLIs
     launches = timed("phase 3", phase_main_path, dev)

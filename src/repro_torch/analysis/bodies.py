@@ -1001,8 +1001,10 @@ def xcorr1d(lc: XcorrLaunch) -> BodyRun:
     from repro_torch.kernels import xcorr1d as kx
 
     label = "xcorr1d"
-    item = plan_mod.ITEMSIZE[lc.dtype]
+    item = kx.ITEMSIZE[lc.dtype]
     u = kx.kernel_unroll(lc.strategy, lc.unroll)
+    # The register width the kernel runs U at, in U / U_r passes.
+    ur = kx.register_unroll(u)
     ring = kx.ring_route(lc.strategy, u, lc.n_taps)
     threads = kx.launch_threads(lc.block_size, lc.strategy, u, lc.n_taps)
     tiles = _cdiv(lc.n, lc.block_size)
@@ -1073,7 +1075,7 @@ def xcorr1d(lc: XcorrLaunch) -> BodyRun:
         measured = wbytes + lc.n_taps * item
     fields = dict(route=int(ring), threads=threads, pad=pad,
                   window_bytes=wbytes, scratch=scratch, stages=stages,
-                  total=measured)
+                  total=measured, unroll=ur, passes=u // ur)
     return BodyRun(label, classes, measured, fields)
 
 
@@ -1135,5 +1137,5 @@ def conv1d_depthwise(lc: Conv1dLaunch) -> BodyRun:
             (lc.b - 1) * sb + (lc.s - 1) * ss + lc.c > extent:
         raise AuditError("bounds", f"{label}: a lane's channels pass c")
     fields = dict(threads=kc.THREADS, vec=lc.vec, positions=total,
-                  work_blocks=work, total=0)
+                  work_blocks=work, total=0, taps=kc.tap_body(lc.k))
     return BodyRun(label, classes, 0, fields)

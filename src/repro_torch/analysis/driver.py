@@ -125,11 +125,15 @@ def candidate_plans(entry, domain, timed_only: bool = False
     radii = ops.radius_per_axis()
     max_threads, n_slots = PHI_KINDS[entry.phi]
     for b in entry.batch:
-        cands = enumerate_cross_strategy_nd(
-            ops, domain, entry.n_f, entry.n_out, entry.dtype,
-            fuse_steps_options=_fuse_options(entry), batch=b,
-            n_aux=entry.n_aux, n_slots=n_slots, max_threads=max_threads,
-            backend="audit")
+        try:
+            cands = enumerate_cross_strategy_nd(
+                ops, domain, entry.n_f, entry.n_out, entry.dtype,
+                fuse_steps_options=_fuse_options(entry), batch=b,
+                n_aux=entry.n_aux, n_slots=n_slots, max_threads=max_threads,
+                backend="audit")
+        except NotImplementedError as e:
+            yield "not_ported", not_ported_item(e), f"{entry.name}:cand"
+            continue
         if timed_only:
             cands = _timed(cands, TuningSession.top_k)
         lead = (b,) if b > 1 else ()

@@ -11,7 +11,10 @@ in-projection); its channels must be adjacent. Each lane of a warp takes
 :func:`vector_width` channels (16 bytes when the shapes, strides and
 pointers allow); a persistent grid (:func:`launch_layout`) gives each
 warp one contiguous run of the (warp column, batch, position) space
-(:func:`warp_runs`), which it walks along the sequence.
+(:func:`warp_runs`), which it walks along the sequence. Any float dtype
+(float32, float64, bfloat16, float16) and any k >= 1: up to ``MAX_K``
+taps the kernel holds them and a window of k - 1 inputs in registers;
+more taps run its body with k at run time (:func:`tap_body`).
 
 A CPU tensor goes to the plain version (``ref.conv1d_depthwise``); a
 CUDA tensor goes to the kernel, or the wrapper raises — there is no
@@ -26,13 +29,13 @@ import functools
 
 import torch
 
-from repro_torch import dtype_name
+from repro_torch import ITEMSIZE, cast, dtype_name
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.emit import DTYPE_CODES, check_out, decode_layout
 
 KERNEL = "conv1d_depthwise"  # csrc/conv1d_depthwise.cu
 ACTIVATIONS = ("none", "silu")  # ACT_* of conv1d_depthwise.cu
-KERNEL_DTYPES = ("float32", "bfloat16")
+KERNEL_DTYPES = tuple(ITEMSIZE)  # float32, float64, bfloat16, float16
 MAX_K = 8  # the tap counts conv1d_depthwise.cu instantiates: 1..8
 THREADS = 256  # threads per block (8 warps)
 WARPS = THREADS // 32
@@ -40,24 +43,23 @@ MIN_WARP_POSITIONS = 32  # the grid gives each warp at least this many
 DEFAULT_BLOCK_SEQ = 512  # the reference's block_seq
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: ROADMAP B7b (conv1d_depthwise on the "
-        f"card in dtypes other than float32 and bfloat16, and more than "
-        f"{MAX_K} taps)"
-    )
+def tap_body(k: int) -> int:
+    """The kernel's tap body for k taps (the layout's ``taps`` field):
+    k itself where it is instantiated (1..``MAX_K``: taps and window in
+    registers), else 0 (k at run time, the earlier inputs read again
+    through L1)."""
+    return k if k <= MAX_K else 0
 
 
 def check_launch(b: int, s: int, c: int, k: int, block_seq: int,
                  dtype: str) -> None:
-    """What the card's kernel takes: float32 or bfloat16, 1 to ``MAX_K``
-    taps, and a positive int ``block_seq`` (the reference's run length;
-    the kernel's persistent grid splits the sequence its own way, so any
-    ``b`` and ``s`` fit)."""
+    """What the card's kernel takes: a float dtype (``KERNEL_DTYPES``),
+    at least one tap, and a positive int ``block_seq`` (the reference's
+    run length; the kernel's persistent grid splits the sequence its own
+    way, so any ``b`` and ``s`` fit)."""
     if dtype not in KERNEL_DTYPES:
-        raise _not_ported(f"conv1d_depthwise in {dtype}")
-    if k > MAX_K:
-        raise _not_ported(f"conv1d_depthwise with k={k}")
+        raise ValueError(f"conv1d_depthwise takes {KERNEL_DTYPES}, got "
+                         f"{dtype}")
     if k < 1:
         raise ValueError(f"need at least one tap, got k={k}")
     if not isinstance(block_seq, int) or block_seq < 1:
@@ -65,10 +67,11 @@ def check_launch(b: int, s: int, c: int, k: int, block_seq: int,
 
 
 def vector_width(x: torch.Tensor, w: torch.Tensor) -> int:
-    """Channels per lane: 16 bytes (8 bf16, 4 f32) when the channel count
-    and both of ``x``'s outer strides are multiples of it and ``x`` and
-    ``w`` start on 16 bytes; else, in bf16, 2 when they are even and
-    both start on 4 bytes (a ``__nv_bfloat162`` access); else 1."""
+    """Channels per lane: 16 bytes (8 bf16/f16, 4 f32, 2 f64) when the
+    channel count and both of ``x``'s outer strides are multiples of it
+    and ``x`` and ``w`` start on 16 bytes; else, in a 2-byte type, 2 when
+    they are even and both start on 4 bytes (a ``__nv_bfloat162`` or
+    ``__half2`` access); else 1."""
     c = x.shape[2]
 
     def fits(vec: int, align: int) -> bool:
@@ -79,7 +82,7 @@ def vector_width(x: torch.Tensor, w: torch.Tensor) -> int:
     wide = 16 // x.element_size()
     if fits(wide, 16):
         return wide
-    if x.dtype == torch.bfloat16 and fits(2, 4):
+    if x.element_size() == 2 and fits(2, 4):
         return 2
     return 1
 
@@ -134,7 +137,7 @@ def _lib() -> ctypes.CDLL:
     lib.repro_conv1d_depthwise_threads.restype = ci
     lib.repro_conv1d_depthwise_grid.argtypes = [ci] * 8
     lib.repro_conv1d_depthwise_grid.restype = ll
-    lib.repro_conv1d_depthwise_layout.argtypes = [ci] * 4 + [
+    lib.repro_conv1d_depthwise_layout.argtypes = [ci] * 5 + [
         ctypes.POINTER(ctypes.c_longlong)]
     lib.repro_conv1d_depthwise_layout.restype = ci
     lib.repro_cuda_error_string.argtypes = [ci]
@@ -142,14 +145,15 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def layout_fields(b: int, s: int, c: int, vec: int
+def layout_fields(b: int, s: int, c: int, k: int, vec: int
                   ) -> tuple[str, dict[str, int]]:
     """(body, fields) of a launch by the kernel's own
     ``repro_conv1d_depthwise_layout`` (needs the built library; host
-    only): threads, vec, positions, the work's blocks, shared bytes,
-    which ``repro_torch.analysis.bodies.conv1d_depthwise`` mirrors."""
+    only): threads, vec, positions, the work's blocks, shared bytes and
+    the tap body (:func:`tap_body`), which
+    ``repro_torch.analysis.bodies.conv1d_depthwise`` mirrors."""
     out = (ctypes.c_longlong * 16)()
-    n = _lib().repro_conv1d_depthwise_layout(b, s, c, vec, out)
+    n = _lib().repro_conv1d_depthwise_layout(b, s, c, k, vec, out)
     return decode_layout(out[:n])
 
 
@@ -181,8 +185,8 @@ def conv1d_depthwise_cuda(
     out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Causal depthwise conv of ``x`` (b, s, c) with ``w`` (k, c), ``w``
-    cast to ``x``'s dtype, then ``activation`` (``"none"`` or
-    ``"silu"``); returns a contiguous (b, s, c) tensor, ``out`` when
+    cast to ``x``'s dtype (``repro_torch.cast``), then ``activation``
+    (``"none"`` or ``"silu"``); returns a contiguous (b, s, c) tensor, ``out`` when
     given (contiguous, the result's shape, dtype and device:
     ``emit.check_out``; with 16-byte or paired lanes, aligned as ``x``).
 
@@ -236,7 +240,7 @@ def _forward(x: torch.Tensor, w: torch.Tensor, activation: str,
             f"x's channels must be adjacent (stride 1), got strides "
             f"{x.stride()}"
         )
-    w = w.to(x.dtype).contiguous()
+    w = cast(w, x.dtype).contiguous()
     y = out if out is not None else torch.empty(
         (b, s, c), dtype=x.dtype, device=x.device)
     if y.numel() == 0:

@@ -63,8 +63,9 @@ STREAM_KERNEL = "fused_stencil_stream"  # csrc/fused_stencil_stream.cu
 TC_KERNEL = "fused_stencil_tc"  # csrc/fused_stencil_tc.cu, any depth
 GEOM_LEN = 44  # G_LEN of csrc/stencil_common.cuh
 MAX_SLOTS = 16  # MAX_SLOTS of csrc/stencil_common.cuh
-# DTYPE_* of csrc/stencil_common.cuh.
-DTYPE_CODES = {"float32": 0, "float64": 1, "bfloat16": 2}
+# DTYPE_* of csrc/stencil_common.cuh; float16 (3) only in xcorr1d.cu and
+# conv1d_depthwise.cu: the planner refuses it for B1-B5 (ROADMAP B9).
+DTYPE_CODES = {"float32": 0, "float64": 1, "bfloat16": 2, "float16": 3}
 # Group table layout of csrc/fused_stencil_tc.cu.
 TC_ENT_LEN = 8  # axis, rest z/y/x, lone tap, its offset, data offset, 0
 
@@ -90,9 +91,9 @@ LAYOUT_FIELDS = {
     7: ("temporal_body", ("win", "mid0", "mid1", "carry0", "carry1", "eval",
                           "total")),
     8: ("xcorr1d", ("route", "threads", "pad", "window_bytes", "scratch",
-                    "stages", "total")),
+                    "stages", "total", "unroll", "passes")),
     9: ("conv1d_depthwise", ("threads", "vec", "positions", "work_blocks",
-                             "total")),
+                             "total", "taps")),
 }
 
 

@@ -57,9 +57,8 @@ def xcorr1d(
     Accepts any n (the kernel masks the ragged last block).
     ``strategy='hwc'`` is the plain PyTorch version; ``baseline``,
     ``pointwise`` and ``elementwise`` launch ``csrc/xcorr1d.cu`` on a
-    CUDA tensor (float32 or float64; bfloat16 and float16 raise
-    ``NotImplementedError``, ROADMAP B6b) and take the plain version on
-    a CPU tensor. An unknown strategy, or ``elementwise`` with a
+    CUDA tensor (float32, float64, bfloat16 or float16, any ``unroll``)
+    and take the plain version on a CPU tensor. An unknown strategy, or ``elementwise`` with a
     ``block_size`` that ``unroll`` does not divide, raises
     ``ValueError``; ``block_size="auto"`` resolves through the tuner
     (``tuning.session.auto_block_xcorr1d``).
@@ -92,9 +91,8 @@ def conv1d_depthwise(
     is globally enabled (``tuning.session.enable_auto()``, the serve
     drivers' ``--auto-tune``): then it resolves like ``"auto"``, through
     ``tuning.session.auto_block_conv1d``. On a CUDA tensor it launches
-    ``csrc/conv1d_depthwise.cu`` (float32 or bfloat16, up to 8 taps;
-    others raise ``NotImplementedError``, ROADMAP B7b); on a CPU tensor
-    it takes the plain version. When a gradient is wanted it goes
+    ``csrc/conv1d_depthwise.cu`` (float32, float64, bfloat16 or float16,
+    any k >= 1); on a CPU tensor it takes the plain version. When a gradient is wanted it goes
     through ``conv1d_depthwise.Conv1dDepthwise`` (the same forward, the
     plain version's gradient).
     """

@@ -311,6 +311,14 @@ STREAM_SEGMENT_HALOS = 8
 MAX_GRID_Z = 65_535  # gridDim.z limit: members x z tiles (or segments)
 
 ITEMSIZE = {"float32": 4, "float64": 8, "bfloat16": 2}
+# float16 runs on B6 and B7 (their own item sizes); the fused-stencil
+# kernels have no float16 body yet, and every plan in it raises this
+# (``tc`` first raises the reference's own dtype rule).
+B9_NOT_PORTED = (
+    "float16 in the fused stencil is not ported yet: ROADMAP B9 (float16 "
+    "in B1-B3 (select, the MHD φ)); use float32, float64 or bfloat16, or "
+    "strategy='hwc'"
+)
 
 
 def tc_axis_groups(
@@ -1160,6 +1168,8 @@ class StencilPlan:
             raise ValueError(f"rank must be 1, 2 or 3, got {self.rank}")
         if self.batch < 1:
             raise ValueError(f"batch must be >= 1, got {self.batch}")
+        if self.dtype == "float16":
+            raise NotImplementedError(B9_NOT_PORTED)
         if self.dtype not in ITEMSIZE:
             raise ValueError(
                 f"dtype {self.dtype!r} not in {tuple(ITEMSIZE)}"

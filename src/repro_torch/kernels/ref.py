@@ -31,6 +31,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch import cast
 from repro_torch.core.stencil import OperatorSet
 from repro_torch.kernels.plan import tc_axis_groups
 
@@ -40,10 +41,11 @@ def xcorr1d(f_padded: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
     ``f_padded`` has shape (n + 2r,); ``g`` has shape (2r + 1,).
     Returns (n,): f'_i = Σ_j g_j · f̂_{i+j}, the taps summed in order,
-    each coefficient cast to the field dtype before the multiply.
+    each coefficient cast to the field dtype before the multiply
+    (``repro_torch.cast``: float64 to float16 rounded once).
     """
     n = f_padded.shape[0] - (g.shape[0] - 1)
-    g = g.to(f_padded.dtype)
+    g = cast(g, f_padded.dtype)
     acc = torch.zeros((n,), dtype=f_padded.dtype, device=f_padded.device)
     for k in range(g.shape[0]):
         acc = acc + g[k] * f_padded[k : k + n]
@@ -68,14 +70,15 @@ def conv1d_depthwise_causal(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     Output (b, s, c), contiguous: y[b, t, c] = Σ_{j<k} w[j, c] ·
     x[b, t - (k-1) + j, c], zero-padded left; the k terms are summed in
     that order in ``x.dtype`` (each product and each sum rounded to it),
-    ``w`` cast to ``x.dtype`` first.
+    ``w`` cast to ``x.dtype`` first (``repro_torch.cast``).
     """
     k = w.shape[0]
     xp = torch.nn.functional.pad(x, (0, 0, k - 1, 0))
     seq = x.shape[1]
+    w = cast(w, x.dtype)
     acc = torch.zeros(x.shape, dtype=x.dtype, device=x.device)
     for j in range(k):
-        acc = acc + w[j][None, None, :].to(x.dtype) * xp[:, j : j + seq, :]
+        acc = acc + w[j][None, None, :] * xp[:, j : j + seq, :]
     return acc
 
 

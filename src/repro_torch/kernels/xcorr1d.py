@@ -16,6 +16,13 @@ strategies (``csrc/xcorr1d.cu``):
   taps, or ``unroll`` = 1, a thread keeps the reference's sub-blocks.
   Each output sums its taps in the reference's order either way.
 
+Any float dtype (float32, float64, bfloat16, float16) and any ``unroll``
+the reference takes: the kernel instantiates register widths 1..16 and
+runs ``unroll`` as its largest divisor of at most 16 in passes
+(:func:`register_unroll`). In bfloat16 and float16 each product and each
+sum is rounded to the type, as the plain version rounds them, so the
+kernel equals it bit for bit.
+
 ``block_size`` is outputs per tile; the threads per block follow from it
 (:func:`launch_threads`). The launch follows from the strategy and the
 taps (:func:`ring_route`): baseline, pointwise and elementwise below
@@ -41,26 +48,23 @@ import math
 
 import torch
 
-from repro_torch import dtype_name
+from repro_torch import ITEMSIZE, cast, dtype_name
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.emit import DTYPE_CODES, check_out, decode_layout
-from repro_torch.kernels.plan import ITEMSIZE, MAX_THREADS, SMEM_PER_BLOCK
+from repro_torch.kernels.plan import MAX_THREADS, SMEM_PER_BLOCK
 
 STRATEGIES = ("baseline", "pointwise", "elementwise")
 MODES = {s: i for i, s in enumerate(STRATEGIES)}  # MODE_* of xcorr1d.cu
 KERNEL = "xcorr1d"  # csrc/xcorr1d.cu
-MAX_UNROLL = 16  # the unroll factors xcorr1d.cu instantiates: 1..16
+MAX_UNROLL = 16  # the register widths xcorr1d.cu instantiates: 1..16
 # Taps from which elementwise at unroll > 1 runs the persistent ring
-# (RING_MIN_TAPS of xcorr1d.cu); with fewer, the one-tile launch.
+# (RING_MIN_TAPS of xcorr1d.cu); with fewer, the one-tile launch. Set on
+# f32 and f64; bf16 and f16 cross over between the same radii (both
+# launches timed at r = 5, 10 and 32 by tools/xcorr_times.py: the
+# one-tile launch ahead at 11 taps, the ring from 21), so every dtype
+# shares it.
 RING_MIN_TAPS = 21
-KERNEL_DTYPES = ("float32", "float64")
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: ROADMAP B6b (xcorr1d in bfloat16 and "
-        "float16, and unroll factors above 16, on the card)"
-    )
+KERNEL_DTYPES = tuple(ITEMSIZE)  # float32, float64, bfloat16, float16
 
 
 def kernel_unroll(strategy: str, unroll: int) -> int:
@@ -69,16 +73,27 @@ def kernel_unroll(strategy: str, unroll: int) -> int:
     return 1 if strategy == "baseline" else unroll
 
 
+def register_unroll(unroll: int) -> int:
+    """The register width U_r the kernel runs ``unroll`` at
+    (``register_unroll`` of ``csrc/xcorr1d.cu``): its largest divisor of
+    at most ``MAX_UNROLL``, in ``unroll / U_r`` passes (24 → 12 x 2, 64
+    → 16 x 4, 17 → 1 x 17)."""
+    u = min(unroll, MAX_UNROLL)
+    while unroll % u:
+        u -= 1
+    return u
+
+
 def ring_route(strategy: str, unroll: int, n_taps: int) -> bool:
     """Which launch the kernel runs (``ring_route`` of
     ``csrc/xcorr1d.cu``): the persistent ring with register tiling on
-    ``elementwise`` at ``unroll`` > 1 from ``RING_MIN_TAPS`` taps on;
-    else one block a tile. Baseline and pointwise are held back by two
-    shared-memory loads per FMA, which a ring does not cut, and at few
-    taps register tiling took longer than the reference's sub-blocks on
-    an H100."""
-    return (strategy == "elementwise" and unroll > 1
-            and n_taps >= RING_MIN_TAPS)
+    ``elementwise`` at a register width (:func:`register_unroll`) > 1
+    from ``RING_MIN_TAPS`` taps on; else one block a tile. Baseline and
+    pointwise are held back by two shared-memory loads per FMA, which a
+    ring does not cut, and at few taps register tiling took longer than
+    the reference's sub-blocks on an H100."""
+    can = strategy == "elementwise" and register_unroll(unroll) > 1
+    return can and n_taps >= RING_MIN_TAPS
 
 
 def launch_threads(block_size: int, strategy: str, unroll: int,
@@ -86,22 +101,26 @@ def launch_threads(block_size: int, strategy: str, unroll: int,
     """Threads per block (``launch_threads`` of ``csrc/xcorr1d.cu``):
     ``min(block_size / U_e, 1024)``, U_e = ``unroll`` on ``elementwise``
     (a thread's U outputs) and 1 otherwise (one output per thread per
-    pass); on the ring (:func:`ring_route`) at most 512 past U = 8 (its
-    registers). A thread loops over its outputs when the tile has more."""
+    pass); on the ring (:func:`ring_route`) at most 512 past a register
+    width of 8 (its registers). A thread loops over its outputs when the
+    tile has more (on the ring, above U = 16, over U / U_r lanes of U_r
+    outputs each)."""
     elementwise = strategy == "elementwise"
     lanes = block_size // unroll if elementwise else block_size
     most = (MAX_THREADS // 2 if ring_route(strategy, unroll, n_taps)
-            and unroll > 8 else MAX_THREADS)
+            and register_unroll(unroll) > 8 else MAX_THREADS)
     return min(lanes, most)
 
 
 def window_pad(strategy: str, unroll: int, dtype: str) -> int:
     """The empty-slot period of a ring window (``window_pad`` of
-    ``csrc/xcorr1d.cu``): on ``elementwise``, a thread's U outputs are U /
-    V vectors of V = gcd(U, 16 B / itemsize) elements; when V fills 16
-    bytes and U / V is even, one 16-byte slot stays empty after every U /
-    V vectors (so a quarter warp's vector loads hit distinct banks), and
-    the period is U / V; else 0 (the window in order)."""
+    ``csrc/xcorr1d.cu``): on ``elementwise``, a lane's U outputs (U the
+    register width, :func:`register_unroll`) are U / V vectors of V =
+    gcd(U, 16 B / itemsize) elements; when V fills 16 bytes and U / V is
+    even, one 16-byte slot stays empty after every U / V vectors (so a
+    quarter warp's vector loads hit distinct banks), and the period is U /
+    V; else 0 (the window in order)."""
+    unroll = register_unroll(unroll)
     vmax = 16 // ITEMSIZE[dtype]
     v = math.gcd(unroll, vmax)
     if strategy == "elementwise" and v == vmax and (unroll // v) % 2 == 0:
@@ -126,7 +145,9 @@ def warp_scratch_bytes(strategy: str, unroll: int, dtype: str) -> int:
     are more than one vector of V = gcd(U, 16 B / itemsize) elements, the
     warp's 32 U outputs pass through shared memory to be stored contiguous
     across the warp: 32 x (U / V + 1) slots of 16 bytes with the window's
-    empty slots (:func:`window_pad`), else 32 U elements; 0 otherwise."""
+    empty slots (:func:`window_pad`), else 32 U elements; 0 otherwise (U
+    the register width, :func:`register_unroll`)."""
+    unroll = register_unroll(unroll)
     item = ITEMSIZE[dtype]
     v = math.gcd(unroll, 16 // item)
     if strategy != "elementwise" or unroll == v:
@@ -213,15 +234,12 @@ def check_args(strategy: str, block_size, unroll: int) -> None:
 
 def check_launch(n_taps: int, block_size: int, strategy: str, unroll: int,
                  dtype: str) -> None:
-    """What the card's kernel takes beyond the reference's rules: float32
-    or float64, an unroll factor it instantiates, and a block whose
-    shared memory (:func:`smem_bytes`) fits 227 KB."""
-    if dtype in ("bfloat16", "float16"):
-        raise _not_ported(f"xcorr1d in {dtype}")
+    """What the card's kernel takes beyond the reference's rules: a float
+    dtype (``KERNEL_DTYPES``) and a block whose shared memory
+    (:func:`smem_bytes`) fits 227 KB. Any unroll runs
+    (:func:`register_unroll`)."""
     if dtype not in KERNEL_DTYPES:
-        raise ValueError(f"xcorr1d takes float32 or float64, got {dtype}")
-    if kernel_unroll(strategy, unroll) > MAX_UNROLL:
-        raise _not_ported(f"unroll={unroll}")
+        raise ValueError(f"xcorr1d takes {KERNEL_DTYPES}, got {dtype}")
     need = smem_bytes(n_taps, block_size, dtype, strategy, unroll)
     if need > SMEM_PER_BLOCK:
         raise ValueError(
@@ -258,9 +276,9 @@ def layout_fields(n_taps: int, block_size: int, strategy: str, unroll: int,
                   dtype: str) -> tuple[str, dict[str, int]]:
     """(body, fields) of a launch by the kernel's own
     ``repro_xcorr1d_layout`` (needs the built library; host only): the
-    route, threads, empty-slot period, window and scratch bytes, stages
-    and shared bytes, which ``repro_torch.analysis.bodies.xcorr1d``
-    mirrors."""
+    route, threads, empty-slot period, window and scratch bytes, stages,
+    shared bytes, the register width and its passes, which
+    ``repro_torch.analysis.bodies.xcorr1d`` mirrors."""
     out = (ctypes.c_longlong * 16)()
     n = _lib().repro_xcorr1d_layout(
         n_taps, block_size, MODES[strategy], kernel_unroll(strategy, unroll),
@@ -309,7 +327,8 @@ def xcorr1d_cuda(
     out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """f'_i = Σ_j g_j f̂_{i+j} over the valid region of ``f_padded``:
-    (n + 2r,) and (2r + 1,) → (n,), ``g`` cast to ``f_padded``'s dtype;
+    (n + 2r,) and (2r + 1,) → (n,), ``g`` cast to ``f_padded``'s dtype
+    (``repro_torch.cast``: float64 to float16 rounded once);
     into ``out`` when given (contiguous, the result's shape, dtype and
     device: ``emit.check_out``).
 
@@ -350,7 +369,7 @@ def xcorr1d_cuda(
     check_launch(n_taps, block_size, strategy, unroll, dtype)
     if not f_padded.is_contiguous():
         raise ValueError("f_padded must be contiguous")
-    g = g.to(f_padded.dtype).contiguous()
+    g = cast(g, f_padded.dtype).contiguous()
     if out is None:
         out = torch.empty((n,), dtype=f_padded.dtype, device=f_padded.device)
     lib = _lib()

@@ -21,7 +21,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from repro_torch import as_dtype, resolve_device
+from repro_torch import as_dtype, cast, resolve_device
 from repro_torch.core.fusion import FusedStencilOp, integrate
 from repro_torch.core.stencil import (
     OperatorSet,
@@ -112,7 +112,7 @@ class DiffusionProblem:
         device = resolve_device(device)
         rng = np.random.default_rng(seed)
         f = rng.uniform(-amplitude, amplitude, size=self.shape)
-        return torch.as_tensor(f[None], dtype=as_dtype(dtype), device=device)
+        return cast(torch.from_numpy(f[None]), as_dtype(dtype)).to(device)
 
     def fourier_mode(
         self,
@@ -129,9 +129,8 @@ class DiffusionProblem:
         ]
         grids = np.meshgrid(*axes, indexing="ij")
         phase = sum(ki * gi for ki, gi in zip(k, grids))
-        return torch.as_tensor(
-            np.sin(phase)[None], dtype=as_dtype(dtype), device=device
-        )
+        return cast(torch.from_numpy(np.sin(phase)[None]),
+                    as_dtype(dtype)).to(device)
 
     def analytic_decay(self, k: Sequence[int], t: float) -> float:
         return float(np.exp(-self.alpha * sum(ki * ki for ki in k) * t))
@@ -143,9 +142,11 @@ def _xcorr_taps(
     dtype: torch.dtype, device: torch.device,
 ) -> torch.Tensor:
     """The merged 1-D kernel g of Eq. 5 in ``dtype`` on ``device``, made
-    once per problem, dtype and device."""
+    once per problem, dtype and device; float64 numbers rounded once to
+    ``dtype`` (``repro_torch.cast``), as the reference's ``jnp.asarray``."""
     g = diffusion_kernel_1d(accuracy, dt, alpha, spacing)
-    return torch.as_tensor(g, dtype=dtype, device=device)
+    return cast(torch.as_tensor(g, dtype=torch.float64, device=device),
+                dtype)
 
 
 def step_1d_xcorr(

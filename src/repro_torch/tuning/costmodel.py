@@ -61,6 +61,7 @@ import statistics
 import time
 from typing import Callable, Sequence
 
+from repro_torch import ITEMSIZE
 from repro_torch.core.stencil import OperatorSet
 from repro_torch.core.trafficmodel import (
     TC_RATES,
@@ -379,7 +380,11 @@ def enumerate_cross_strategy_nd(
     launch the planner accepts — the
     reference's rules — plus the ``hwc`` baseline at the smallest depth,
     always present. ``kernels_ok=False`` (a φ the kernels cannot run)
-    leaves the baseline alone."""
+    leaves the baseline alone. float16 has no fused-stencil kernel yet:
+    its space raises the planner's ``NotImplementedError`` (ROADMAP B9)
+    rather than leave ``hwc`` alone in it."""
+    if dtype == "float16" and kernels_ok:
+        raise NotImplementedError(kplan.B9_NOT_PORTED)
     domain = tuple(int(n) for n in domain)
     strategies = ["swc"]
     if len(domain) >= 2 and not n_aux:
@@ -396,13 +401,16 @@ def enumerate_cross_strategy_nd(
         )
     depth = min(fuse_steps_options)
     hwc = hwc_candidate(domain, depth, score=hwc_score(
-        domain, n_f, n_out, kplan.ITEMSIZE[dtype],
+        domain, n_f, n_out, ITEMSIZE[dtype],
         _taps(ops, operators), batch=batch, backend=backend))
     return rank([hwc] + cands)
 
 
 # B6's tile lengths (outputs per tile); the reference's 1-D options.
 OPTIONS_1D = (256, 512, 1024, 2048, 4096, 8192)
+# bf16/f16 taps on the CUDA cores: two values an instruction (bf16x2,
+# f16x2), PERF.md's rate for their bound.
+BF16_PAIR = 2
 
 
 def enumerate_candidates_1d(
@@ -419,13 +427,17 @@ def enumerate_candidates_1d(
     ``unroll`` on elementwise, the window and taps within a block's
     shared memory), scored like :func:`plan_score`: the tiles' windows
     (n + tiles × (taps - 1) inputs) and the outputs over the memory
-    rate, plus 2 × taps FLOPs an output over the CUDA cores' rate
-    stretched by the resident warps, times the wave quantisation of the
-    tiles (or the persistent ring's grid) over 132 SMs."""
+    rate, plus 2 × taps FLOPs an output over the CUDA cores' rate (f32,
+    f64, or bf16/f16 at ``BF16_PAIR`` times f32's) stretched by the
+    resident warps, times the wave quantisation of the tiles (or the
+    persistent ring's grid) over 132 SMs; values of the dtype's size."""
     from repro_torch.kernels import xcorr1d as kx
 
     bw, f32, f64 = card_rates(backend)
-    item = kplan.ITEMSIZE[dtype]
+    item = kx.ITEMSIZE[dtype]
+    # the taps' rate: f64 and f32 on the CUDA cores; bf16/f16 at the
+    # packed pair rate (two values an instruction), as PERF.md bounds them
+    rate = {8: f64, 4: f32, 2: BF16_PAIR * f32}[item]
     out = []
     for b in OPTIONS_1D:
         if b > max(n, OPTIONS_1D[0]):
@@ -444,7 +456,6 @@ def enumerate_candidates_1d(
         hidden = min(1.0, resident * -(-threads // 32) / LATENCY_WARPS)
         slots = SMS * resident
         waves = -(-tiles // slots) * slots / tiles
-        rate = f64 if dtype == "float64" else f32
         score = 1e3 * (nbytes / bw + flops / rate / hidden) * waves
         out.append(Candidate1D(b, smem, score))
     out.sort(key=lambda c: (c.score, c.smem_bytes))

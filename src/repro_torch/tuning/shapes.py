@@ -254,9 +254,9 @@ class AuditShape:
         except NotImplementedError as e:
             yield "not_ported", not_ported_item(e), self.name
             return
-        wide = 16 // (4 if self.dtype == "float32" else 2)
-        for vec in dict.fromkeys((wide, 2 if self.dtype == "bfloat16" else 1,
-                                  1)):
+        item = kc.ITEMSIZE[self.dtype]
+        wide = 16 // item
+        for vec in dict.fromkeys((wide, 2 if item == 2 else 1, 1)):
             if c % vec == 0:
                 yield "launch", Conv1dLaunch(b, s, c, self.taps, self.dtype,
                                              vec)
@@ -282,7 +282,9 @@ def _mhd(name, smoke, full, phi, dtype="float32", strategies=("swc",),
 # and bf16), the serve buckets (B = 8, order 2), the sharded blocks and the
 # overlap slabs of distribution (diffusion 512³ over (2,) and (2, 2), MHD
 # 256³ over (2,): halo r·S = 3 at depth 1 and 6 at depth 2 per sharded
-# axis), then B6 and B7.
+# axis), float16 diffusion (not ported: ROADMAP B9), then B6 (f32/f64 at
+# unroll 4-16; bf16/f16 at 4-64, B6b) and B7 (f32/bf16 at k = 4, 7;
+# f16/f64 at k = 4, 7, 12, B7b).
 AUDIT_SHAPES: tuple[AuditShape, ...] = (
     AuditShape("fig11/diffusion3d", 3, 2, (32, 32, 64), _MAIN_3D,
                strategies=("swc", "swc_stream", "tc"), fuse=(1, 2)),
@@ -356,6 +358,9 @@ AUDIT_SHAPES: tuple[AuditShape, ...] = (
          "mhd_substep", fuse=(2,)),
     _mhd("slab/mhd-pair-edge-d2", (6, 16, 64), (6, 256, 256),
          "mhd_substep", fuse=(2,)),
+    AuditShape("b9/diffusion3d-float16", 3, 6, (32, 32, 64), _MAIN_3D,
+               dtype="float16", strategies=("swc", "swc_stream", "tc"),
+               fuse=(1, 2)),
 ) + tuple(
     AuditShape(f"b6/xcorr1d-r{r}-{dt[5:]}", 1, 0, ((1 << 14) + 123,),
                (1 << 24,), dtype=dt, kernel="xcorr1d", taps=2 * r + 1,
@@ -363,7 +368,17 @@ AUDIT_SHAPES: tuple[AuditShape, ...] = (
                unroll=(4, 8, 16))
     for r in (1, 10, 64, 1024) for dt in ("float32", "float64")
 ) + tuple(
+    AuditShape(f"b6/xcorr1d-r{r}-{dt}", 1, 0, ((1 << 14) + 123,),
+               (1 << 24,), dtype=dt, kernel="xcorr1d", taps=2 * r + 1,
+               strategies=("baseline", "pointwise", "elementwise"),
+               unroll=(4, 8, 16, 32, 64))
+    for r in (1, 10, 64, 1024) for dt in ("bfloat16", "float16")
+) + tuple(
     AuditShape(f"b7/conv1d-k{k}-{dt}", 1, 0, (2, 257, 32), (4, 8192, 3328),
                dtype=dt, kernel="conv1d", taps=k)
     for k in (4, 7) for dt in ("float32", "bfloat16")
+) + tuple(
+    AuditShape(f"b7/conv1d-k{k}-{dt}", 1, 0, (2, 257, 32), (4, 8192, 3328),
+               dtype=dt, kernel="conv1d", taps=k)
+    for k in (4, 7, 12) for dt in ("float16", "float64")
 )

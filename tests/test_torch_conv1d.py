@@ -13,13 +13,17 @@ CUDA kernel to that plain version and skip without a card.
 Tolerances are the reference's own (``test_kernels.py:125``), per
 element as ``assert_allclose(rtol=tol, atol=tol)``: 1e-5 in float32
 (both sum the same k terms in the same order; XLA may fuse a multiply
-and an add), 2e-2 in bfloat16 (XLA on the CPU may keep a sum in float32
-between ops where PyTorch rounds each op to bfloat16). On the card the
-kernel rounds each product and each partial sum to the input type, as
-the plain version does: without the SiLU it equals the plain version bit
-for bit; with it, within 1e-5 relative to the largest |value| in float32
-and 2e-2 in bfloat16 (an ``expf`` may differ by an ulp).
+and an add), 2e-2 in bfloat16 and float16 (XLA on the CPU may keep a sum
+in float32 between ops where PyTorch rounds each op to the type; in
+float16 at k = 4-33 the largest distance seen was 1.3e-3 of the largest
+|value|, at k = 33), 1e-12 in float64 (the same terms in the same
+order; 4e-16 seen). On the card the kernel rounds each
+product and each partial sum to the input type, as the plain version
+does: without the SiLU it equals the plain version bit for bit; with it,
+within 1e-5 relative to the largest |value| in float32, 1e-12 in float64
+and 2e-2 in bfloat16 and float16 (an ``expf`` may differ by an ulp).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -31,29 +35,37 @@ from repro_torch.kernels import conv1d_depthwise as kc
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref
 
-TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+TOL = {"float32": 1e-5, "bfloat16": 2e-2, "float16": 2e-2,
+       "float64": 1e-12}
 SHAPES = [(1, 64, 8, 4), (3, 100, 16, 4), (2, 257, 32, 7)]  # (b, s, c, k)
-JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
-TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16,
+       "float16": jnp.float16, "float64": jnp.float64}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+       "float16": torch.float16, "float64": torch.float64}
+# B7b: float16 and float64, and tap counts past the kernel's templated
+# MAX_K = 8 (its body with k at run time), beside the reference's 4 and 7.
+B7B_TAPS = (4, 7, 9, 16, 33)
 
 
 def _inputs(bsck, dtype, seed=0):
     """(jax x, jax w, torch x, torch w): standard normal draws, the same
-    values (bf16 rounded once, by JAX, then carried across exactly)."""
+    values (rounded once, by JAX, then carried across exactly)."""
     b, s, c, k = bsck
     rng = np.random.default_rng(seed)
     xj = jnp.asarray(rng.standard_normal((b, s, c)), JDT[dtype])
     wj = jnp.asarray(rng.standard_normal((k, c)), JDT[dtype])
 
     def to_torch(a):
-        return torch.from_numpy(np.array(a, np.float32)).to(TDT[dtype])
+        if dtype == "bfloat16":
+            return torch.from_numpy(np.array(a, np.float32)).to(TDT[dtype])
+        return torch.from_numpy(np.array(a))
 
     return xj, wj, to_torch(xj), to_torch(wj)
 
 
 def _close(got: torch.Tensor, want, dtype: str) -> None:
     np.testing.assert_allclose(
-        got.float().numpy(), np.asarray(want, np.float32),
+        got.double().numpy(), np.asarray(want, np.float64),
         rtol=TOL[dtype], atol=TOL[dtype],
     )
 
@@ -83,6 +95,46 @@ def test_ops_matches_jax_interpret(dtype, bsck, activation):
                                 block_seq=128)
     assert got.shape == xt.shape and got.dtype == TDT[dtype]
     _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("activation", ("none", "silu"))
+@pytest.mark.parametrize("k", B7B_TAPS)
+@pytest.mark.parametrize("dtype", ("float16", "float64"))
+def test_b7b_types_and_taps_match_jax_interpret(dtype, k, activation):
+    """float16 and float64 at k = 4-33 (past the kernel's templated 8),
+    with and without the SiLU, against the Pallas kernel in interpret
+    mode: float64 within 1e-12, float16 within 2e-2 (largest distance
+    seen 1.3e-3 of the largest |value|, at k = 33: XLA keeps some sums
+    wider)."""
+    with jax.enable_x64(True):
+        xj, wj, xt, wt = _inputs((2, 100, 16, k), dtype, seed=k)
+        want = jops.conv1d_depthwise(xj, wj, activation=activation,
+                                     interpret=True, block_seq=128)
+        got = tops.conv1d_depthwise(xt, wt, activation=activation,
+                                    block_seq=128)
+        assert got.shape == xt.shape and got.dtype == TDT[dtype]
+        _close(got, want, dtype)
+        _close(ref.conv1d_depthwise_causal(xt, wt),
+               jref.conv1d_depthwise_causal(xj, wj), dtype)
+
+
+def test_float64_weights_round_once_to_float16():
+    """A float64 ``w`` on a float16 ``x`` is rounded once, as JAX's
+    ``astype`` and numpy round it (torch's own cast goes through float32;
+    the seeded draw holds values where the two differ). With x a unit
+    impulse at t = 0, output t is tap 3 - t alone."""
+    rng = np.random.default_rng(11)
+    w64 = rng.standard_normal((4, 50_000))
+    once = w64.astype(np.float16).view(np.uint16)
+    twice = torch.from_numpy(w64).to(torch.float16).numpy().view(np.uint16)
+    assert (twice != once).any()
+    x = torch.zeros(1, 4, 50_000, dtype=torch.float16)
+    x[0, 0] = 1
+    for y in (ref.conv1d_depthwise_causal(x, torch.from_numpy(w64)),
+              tops.conv1d_depthwise(x, torch.from_numpy(w64))):
+        for t in range(4):
+            np.testing.assert_array_equal(y[0, t].numpy().view(np.uint16),
+                                          once[3 - t])
 
 
 def test_strided_xbc_view_matches_a_contiguous_copy():
@@ -116,12 +168,18 @@ def test_rules_name_their_roadmap_items(tmp_path, monkeypatch):
         tops.conv1d_depthwise(x, w, activation="gelu")
     with pytest.raises(ValueError, match=r"\(k, c\)"):
         tops.conv1d_depthwise(x, torch.zeros(4, 5))
+    # B7b is ported: every float dtype and any k >= 1 (past MAX_K the
+    # kernel's body with k at run time).
     for dtype in ("float16", "float64"):
-        with pytest.raises(NotImplementedError, match="B7b"):
-            kc.check_launch(1, 8, 4, 4, 512, dtype)
-    with pytest.raises(NotImplementedError, match="B7b"):
-        kc.check_launch(1, 8, 4, kc.MAX_K + 1, 512, "float32")
+        kc.check_launch(1, 8, 4, 4, 512, dtype)
+    kc.check_launch(1, 8, 4, kc.MAX_K + 1, 512, "float32")
+    kc.check_launch(1, 8, 4, 33, 512, "float16")
     kc.check_launch(1, 8, 4, kc.MAX_K, 512, "bfloat16")
+    assert [kc.tap_body(k) for k in (1, 8, 9, 33)] == [1, 8, 0, 0]
+    with pytest.raises(ValueError, match="int32"):
+        kc.check_launch(1, 8, 4, 4, 512, "int32")
+    with pytest.raises(ValueError, match="tap"):
+        kc.check_launch(1, 8, 4, 0, 512, "float16")
     # The persistent grid splits the positions itself, so runs of one
     # position past CUDA's 65,535 grid rows fit; block_seq must be a
     # positive int.
@@ -167,26 +225,36 @@ def test_launch_layout_by_hand():
     assert V(proj[..., 3072:6399], w[:, :3327]) == 1  # odd channel count
     assert V(proj.float()[..., 3072:6400], w.float()) == 4  # f32
     assert V(proj.float()[..., 3074:6402], w.float()) == 1  # 8-byte start
+    # float16 as bfloat16; float64 two channels a 16-byte lane
+    assert V(proj.half()[..., 3072:6400], w.half()) == 8
+    assert V(proj.half()[..., 3074:6402], w.half()) == 2
+    assert V(proj.half()[..., 3073:6401], w.half()) == 1
+    assert V(proj.double()[..., 3072:6400], w.double()) == 2
+    assert V(proj.double()[..., 3073:6401], w.double()) == 1
+    assert kc.positions(4, 8192, 3328, 2) == 52 * 4 * 8192  # f64 lanes
 
 
-@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16", "float16",
+                                   "float64"))
 @pytest.mark.parametrize("row,offset,c,widths", [
-    (6448, 3072, 3328, (4, 8)),  # the xBC view: 16-byte lanes
-    (6447, 3072, 3328, (1, 1)),  # odd row stride
-    (6448, 3076, 3328, (4, 2)),  # starts on 16 B in f32, on 8 B in bf16
-    (6448, 3072, 3320, (4, 8)),  # c a multiple of 8, not of 32 lanes x 8
-    (6448, 3072, 3322, (1, 2)),  # c % 8 = 2 (c % 4 = 2)
+    (6448, 3072, 3328, (4, 8, 2)),  # the xBC view: 16-byte lanes
+    (6447, 3072, 3328, (1, 1, 1)),  # odd row stride
+    (6448, 3076, 3328, (4, 2, 2)),  # starts on 16 B in f32, on 8 B in bf16
+    (6448, 3072, 3320, (4, 8, 2)),  # c a multiple of 8, not of 32 lanes x 8
+    (6448, 3072, 3322, (1, 2, 2)),  # c % 8 = 2 (c % 4 = 2)
 ])
 def test_vector_width_on_xbc_like_views(dtype, row, offset, c, widths):
     """The 16-byte choice needs c and both outer strides to be multiples
-    of 16 bytes' channels and x and w to start on 16 bytes; bf16 falls to
-    pairs where they are even and 4-byte aligned, else to one channel, as
-    before. ``widths`` is (float32, bfloat16)."""
+    of 16 bytes' channels and x and w to start on 16 bytes; a 2-byte type
+    falls to pairs where they are even and 4-byte aligned, else to one
+    channel, as before. ``widths`` is (float32, bfloat16 and float16,
+    float64)."""
     dt = getattr(torch, dtype)
     x = torch.zeros(2, 5, row, dtype=dt)[..., offset:offset + c]
     w = torch.zeros(4, c, dtype=dt)
     assert x.data_ptr() % 16 == (offset * x.element_size()) % 16
-    assert kc.vector_width(x, w) == widths[dtype == "bfloat16"]
+    which = {"float32": 0, "bfloat16": 1, "float16": 1, "float64": 2}
+    assert kc.vector_width(x, w) == widths[which[dtype]]
 
 
 def _replay(x, w, vec, grid):
@@ -213,12 +281,14 @@ def _replay(x, w, vec, grid):
     return y, writes
 
 
-@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16", "float16",
+                                   "float64"))
 @pytest.mark.parametrize("shape,k,row,offset,resident", [
     ((2, 300, 264), 4, 520, 256, 7),   # strided view, grid at the resident cap
     ((3, 77, 100), 7, None, 0, 50),    # c % 8 != 0
     ((1, 2000, 33), 1, 34, 1, 3),      # odd c, 3 blocks: runs past sequences
     ((4, 40, 512), 8, None, 0, 1000),  # more warps than 32 positions each
+    ((2, 90, 48), 33, None, 0, 5),     # k at run time: halos past the run
 ])
 def test_warp_runs_cover_each_output_once(dtype, shape, k, row, offset,
                                           resident):
@@ -262,8 +332,11 @@ def _rel(got, want) -> float:
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("activation", ("none", "silu"))
-@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
-@pytest.mark.parametrize("bsck", SHAPES + [(2, 1000, 130, 1), (2, 513, 64, 8)])
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16", "float16",
+                                   "float64"))
+@pytest.mark.parametrize("bsck", SHAPES + [(2, 1000, 130, 1), (2, 513, 64, 8),
+                                           (2, 300, 64, 9), (2, 300, 40, 16),
+                                           (2, 300, 72, 33)])
 def test_kernel_matches_plain_on_card(cuda_device, dtype, bsck, activation):
     b, s, c, k = bsck
     g = torch.Generator().manual_seed(s)
@@ -279,13 +352,15 @@ def test_kernel_matches_plain_on_card(cuda_device, dtype, bsck, activation):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
-def test_kernel_on_strided_view_matches_plain_on_card(cuda_device, dtype):
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16", "float16",
+                                   "float64"))
+@pytest.mark.parametrize("k", (4, 16))
+def test_kernel_on_strided_view_matches_plain_on_card(cuda_device, dtype, k):
     g = torch.Generator().manual_seed(7)
     proj = torch.randn(2, 300, 6448, generator=g).to(cuda_device, TDT[dtype])
-    for lo in (3072, 3074, 3073):  # 16-byte lanes, bf16 pairs, single
+    for lo in (3072, 3074, 3073):  # 16-byte lanes, 2-byte pairs, single
         xbc = proj[..., lo : lo + 3328]
-        w = torch.randn(4, 3328, generator=g).to(cuda_device, TDT[dtype])
+        w = torch.randn(k, 3328, generator=g).to(cuda_device, TDT[dtype])
         got = tops.conv1d_depthwise(xbc, w)
         assert torch.equal(got, tops.conv1d_depthwise(xbc.contiguous(), w))
         assert torch.equal(got, ref.conv1d_depthwise(xbc, w))
@@ -300,7 +375,16 @@ def test_kernel_threads_are_the_python_formula(cuda_device):
         resident = kc.kernel_grid(0, 0, 0, 4, "none", dtype, vec)
         assert kc.kernel_grid(b, s, c, 4, "none", dtype, vec) == \
             kc.launch_layout(b, s, c, vec, resident)[0]
-    with pytest.raises(NotImplementedError, match="B7b"):
-        tops.conv1d_depthwise(torch.zeros(1, 8, 4, device=cuda_device,
-                                          dtype=torch.float16),
-                              torch.zeros(4, 4, device=cuda_device))
+    # B7b: float16 (w float32, cast once) and k past MAX_K launch once.
+    kc.reset_launch_counts()
+    x16 = torch.ones(1, 8, 4, device=cuda_device, dtype=torch.float16)
+    got = tops.conv1d_depthwise(x16, torch.ones(12, 4, device=cuda_device))
+    assert kc.conv1d_depthwise_cuda.launches == 1
+    assert torch.equal(got, ref.conv1d_depthwise(
+        x16, torch.ones(12, 4, device=cuda_device)))
+    for b, s, c, k, vec, dtype in ((4, 8192, 3328, 4, 8, "float16"),
+                                   (4, 8192, 3328, 4, 2, "float64"),
+                                   (2, 300, 72, 33, 8, "bfloat16")):
+        resident = kc.kernel_grid(0, 0, 0, k, "none", dtype, vec)
+        assert kc.kernel_grid(b, s, c, k, "none", dtype, vec) == \
+            kc.launch_layout(b, s, c, vec, resident)[0]

@@ -111,12 +111,40 @@ def test_plan_rejects_what_hopper_cannot_hold():
     with pytest.raises(ValueError, match="strategy='swc'"):
         tplan.plan_stencil(ts.derivative_operator_set(1, 6), (1, 70), 1,
                            strategy="swc_stream")
-    with pytest.raises(ValueError, match="dtype"):
+    # float16 in the fused stencil waits for ROADMAP B9 (B6 and B7 take
+    # it); tc refuses it by the reference's own rule.
+    with pytest.raises(NotImplementedError, match="B9"):
         tplan.plan_stencil(ops, shape, 8, dtype="float16")
+    with pytest.raises(ValueError, match="float32.*bfloat16"):
+        tplan.plan_stencil(ops, shape, 8, strategy="tc", dtype="float16")
     # bf16 on swc at depth 1 is B1b, on the stream kernel B3c (ported).
     bf = tplan.plan_stencil(ops, shape, 8, dtype="bfloat16",
                             strategy="swc_stream")
     assert bf.dtype == "bfloat16" and bf.stream_depth1
+
+
+def test_float16_in_the_fused_stencil_names_b9(tmp_path, monkeypatch):
+    """The reference plans float16 on swc and swc_stream (its tc alone
+    refuses it); the port has no float16 fused kernel yet: the planner
+    and ``strategy="auto"`` raise naming ROADMAP B9, and ``hwc`` (the
+    plain path) runs it."""
+    from repro_torch.physics.diffusion import DiffusionProblem, simulate
+
+    g = np.arange(1, 6, dtype=np.float64)
+    for strategy in ("swc", "swc_stream"):
+        jp = jplan.plan_stencil(js.xcorr_operator_set(g, 2), (1, 66, 66), 1,
+                                strategy=strategy, dtype="float16")
+        assert jp.dtype == "float16"
+        with pytest.raises(NotImplementedError, match="ROADMAP B9"):
+            tplan.plan_stencil(ts.xcorr_operator_set(g, 2), (1, 66, 66), 1,
+                               strategy=strategy, dtype="float16")
+    monkeypatch.setenv("REPRO_TORCH_TUNE_CACHE", str(tmp_path))
+    p = DiffusionProblem((8, 16), accuracy=2)
+    f = p.init_field(device="cpu", dtype="float16")
+    assert simulate(p, f, 1, strategy="hwc", device="cpu").dtype == \
+        torch.float16
+    with pytest.raises(NotImplementedError, match="ROADMAP B9"):
+        simulate(p, f, 1, strategy="auto", device="cpu")
 
 
 def test_plan_unroll_and_clamp():

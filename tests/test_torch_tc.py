@@ -515,8 +515,9 @@ def test_tc_issued_macs_count_the_band():
 
 def test_bf16_without_a_kernel_names_its_roadmap_item():
     """B2c, B3c and B4b have their kernels: their bf16 plans build and run
-    (the plain versions here). What still waits, B6b (xcorr1d in bf16) and
-    B7b (conv1d_depthwise in f16), raises naming its item."""
+    (the plain versions here), and so do B6b (xcorr1d in bf16) and B7b
+    (conv1d_depthwise in f16). What still waits, float16 in the fused
+    stencil (B9), raises naming its item."""
     ops = ts.derivative_operator_set(3, 6)
     assert tplan.plan_stencil(ops, (1, 28, 28, 44), 1, dtype="bfloat16",
                               fuse_steps=2).temporal_walk
@@ -525,10 +526,12 @@ def test_bf16_without_a_kernel_names_its_roadmap_item():
     solver = tm.MHDSolver((8, 8, 16), strategy="tc", device=CPU)
     assert solver.rhs(solver.init_fields(dtype=torch.bfloat16)).dtype == (
         torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="B6b"):
-        xcorr1d.check_launch(3, 256, "baseline", 1, "bfloat16")
-    with pytest.raises(NotImplementedError, match="B7b"):
-        conv1d_depthwise.check_launch(1, 64, 8, 4, 512, "float16")
+    xcorr1d.check_launch(3, 256, "baseline", 1, "bfloat16")
+    conv1d_depthwise.check_launch(1, 64, 8, 4, 512, "float16")
+    for strategy in ("swc", "swc_stream"):
+        with pytest.raises(NotImplementedError, match="B9"):
+            tplan.plan_stencil(ops, (1, 22, 22, 38), 1, dtype="float16",
+                               strategy=strategy)
     # the plain regime takes bf16 MHD, as the reference does
     hwc = tm.MHDSolver((8, 8, 16), strategy="hwc", device=CPU)
     assert hwc.rhs(hwc.init_fields(dtype=torch.bfloat16)).dtype == (

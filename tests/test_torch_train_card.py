@@ -75,16 +75,30 @@ def test_conv1d_function_on_card_equals_plain_autograd(cuda_device, dtype,
 
 @pytest.mark.cuda
 def test_conv1d_function_refuses_what_the_kernel_refuses(cuda_device):
-    """B7b's shapes raise under autograd too: nothing drops to the plain
-    forward on a CUDA tensor."""
-    x = torch.randn((1, 16, 8), device=cuda_device, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="B7b"):
-        kops.conv1d_depthwise(x, torch.randn((9, 8), device=cuda_device))
-    x64 = torch.randn((1, 16, 8), device=cuda_device, dtype=torch.float64,
-                      requires_grad=True)
-    with pytest.raises(NotImplementedError, match="B7b"):
-        kops.conv1d_depthwise(x64, torch.randn((4, 8), device=cuda_device,
-                                               dtype=torch.float64))
+    """B7b's shapes (9 taps, float64) run the kernel under autograd too:
+    one launch forward, equal to the plain version, the plain gradient
+    backward. What the kernel still refuses (channels that are not
+    adjacent) raises there as well: nothing drops to the plain forward on
+    a CUDA tensor."""
+    for dtype, k in ((torch.float32, 9), (torch.float64, 4),
+                     (torch.float16, 16)):
+        x = torch.randn((1, 16, 8), device=cuda_device).to(dtype)
+        x.requires_grad_(True)
+        w = torch.randn((k, 8), device=cuda_device).to(dtype)
+        w.requires_grad_(True)
+        kc.reset_launch_counts()
+        y = kops.conv1d_depthwise(x, w)
+        assert kc.conv1d_depthwise_cuda.launches == 1
+        want = ref.conv1d_depthwise(x, w)
+        assert torch.equal(y, want)
+        gy = torch.randn_like(y)
+        assert all(torch.equal(a, b) for a, b in zip(
+            torch.autograd.grad(y, (x, w), gy),
+            torch.autograd.grad(want, (x, w), gy)))
+    xt = torch.randn((1, 8, 16), device=cuda_device).transpose(1, 2)
+    xt.requires_grad_(True)
+    with pytest.raises(ValueError, match="adjacent"):
+        kops.conv1d_depthwise(xt, torch.randn((4, 8), device=cuda_device))
 
 
 @pytest.mark.cuda

@@ -17,7 +17,15 @@ same order; XLA may contract a multiply-add into one FMA where PyTorch
 rounds twice, a few float32 roundings at most (2.4e-7 was the largest
 seen). On the card the kernel sums with FMAs: 1e-5 and 1e-12 there, as
 for the other kernels.
+
+bfloat16 and float16 (B6b): both packages round each product and each
+sum to the type. In bfloat16 the port equals the reference bit for bit;
+in float16 XLA keeps more precision than one rounding per operation, so
+the port is held within 2e-2 of the largest |reference| (the largest
+distance seen here: 2.2e-3, at r = 32). On the card the kernel rounds
+as the plain version does and equals it bit for bit in both.
 """
+import collections
 import math
 
 import jax
@@ -39,11 +47,18 @@ from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref, xcorr1d  # noqa: E402
 from repro_torch.physics import diffusion as td  # noqa: E402
 
-TOL = {"float32": 1e-6, "float64": 1e-12}
-CARD_TOL = {"float32": 1e-5, "float64": 1e-12}
+TOL = {"float32": 1e-6, "float64": 1e-12, "bfloat16": 0.0,
+       "float16": 2e-2}
+CARD_TOL = {"float32": 1e-5, "float64": 1e-12, "bfloat16": 0.0,
+            "float16": 0.0}
 CPU = "cpu"
 STRATEGY_UNROLL = [("baseline", 1), ("pointwise", 4), ("pointwise", 7),
                    ("elementwise", 4)]
+# B6b: unroll factors past the kernel's register widths (1..16), which
+# it runs in passes of their largest divisor of at most 16.
+WIDE_UNROLLS = (24, 32, 64)
+JDT = {"bfloat16": jnp.bfloat16, "float16": jnp.float16}
+TDT = {"bfloat16": torch.bfloat16, "float16": torch.float16}
 
 
 def _rel(a, b) -> float:
@@ -56,6 +71,19 @@ def _inputs(n, radius, dtype, seed=42):
     f = rng.standard_normal(n + 2 * radius).astype(dtype)
     g = rng.standard_normal(2 * radius + 1).astype(dtype)
     return f, g
+
+
+def _inputs_2byte(n, radius, dtype, seed=42):
+    """(jax f, jax g, torch f, torch g) in bfloat16 or float16: standard
+    normal draws rounded once, by JAX, then carried across exactly."""
+    rng = np.random.default_rng(seed)
+    fj = jnp.asarray(rng.standard_normal(n + 2 * radius), JDT[dtype])
+    gj = jnp.asarray(rng.standard_normal(2 * radius + 1), JDT[dtype])
+
+    def to_torch(a):
+        return torch.from_numpy(np.array(a, np.float32)).to(TDT[dtype])
+
+    return fj, gj, to_torch(fj), to_torch(gj)
 
 
 # --- the port against JAX ------------------------------------------------------
@@ -73,6 +101,25 @@ def test_xcorr1d_matches_jax(dtype, radius, strategy, unroll):
                        strategy=strategy, block_size=512, unroll=unroll)
     assert got.shape == (2048,) and got.dtype == getattr(torch, dtype)
     assert _rel(got.numpy(), want) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", ("bfloat16", "float16"))
+@pytest.mark.parametrize("radius", (0, 1, 5, 32))
+@pytest.mark.parametrize("strategy,unroll", [("baseline", 1)] + [
+    (s, u) for s in ("pointwise", "elementwise") for u in (4,) + WIDE_UNROLLS])
+def test_xcorr1d_2byte_matches_jax(dtype, radius, strategy, unroll):
+    """B6b: bfloat16 bit for bit, float16 within 2e-2 of the largest
+    |reference|, on every strategy and at unroll factors past 16, the
+    reference's kernel in interpret mode (block 768, which 24, 32 and 64
+    divide; two tiles)."""
+    fj, gj, ft, gt = _inputs_2byte(1536, radius, dtype, seed=radius + unroll)
+    want = xcorr1d_pallas(fj, gj, strategy=strategy, block_size=768,
+                          unroll=unroll, interpret=True)
+    got = tops.xcorr1d(ft, gt, strategy=strategy, block_size=768,
+                       unroll=unroll)
+    assert got.shape == (1536,) and got.dtype == TDT[dtype]
+    assert _rel(got.float().numpy(), np.asarray(want, np.float32)) \
+        <= TOL[dtype]
 
 
 @pytest.mark.parametrize("strategy", ("hwc", "baseline", "elementwise"))
@@ -129,6 +176,81 @@ def test_step_1d_xcorr_matches_jax(strategy):
     assert _rel(got.numpy(), want) <= TOL["float32"]
 
 
+@pytest.mark.parametrize("dtype", ("bfloat16", "float16"))
+@pytest.mark.parametrize("strategy", ("hwc", "baseline", "pointwise",
+                                      "elementwise"))
+def test_step_1d_xcorr_2byte_matches_jax(dtype, strategy):
+    """B6b's path: three ``step_1d_xcorr`` steps in bfloat16 and float16
+    from the reference's field, against the reference's steps: bfloat16
+    bit for bit, float16 within 2e-2 of the largest |reference| (equal
+    bit for bit here too, but XLA may keep float16 sums wider)."""
+    p_j = jd.DiffusionProblem((3000,), accuracy=6)
+    f0 = np.array(p_j.init_field(seed=2))[0]
+    want = jnp.asarray(f0, JDT[dtype])
+    got = torch.from_numpy(np.array(want, np.float32)).to(TDT[dtype])
+    p_t = td.DiffusionProblem((3000,), accuracy=6)
+    for _ in range(3):
+        want = jd.step_1d_xcorr(want, p_j, strategy=strategy, block_size=512)
+        got = td.step_1d_xcorr(got, p_t, strategy=strategy, block_size=512)
+    assert got.shape == (3000,) and got.dtype == TDT[dtype]
+    assert _rel(got.float().numpy(), np.asarray(want, np.float32)) \
+        <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", ("bfloat16", "float16"))
+@pytest.mark.parametrize("accuracy", (2, 4, 6, 8))
+@pytest.mark.parametrize("dt,spacing", [(1e-3, 0.1), (1e-5, 1 / 300),
+                                        (2.5e-4, 0.02)])
+def test_xcorr_taps_round_as_the_reference(dtype, accuracy, dt, spacing):
+    """The merged taps of Eq. 5 in a 2-byte type are the reference's
+    ``jnp.asarray(diffusion_kernel_1d(...), dtype)`` bit for bit (float64
+    rounded once)."""
+    want = jnp.asarray(js.diffusion_kernel_1d(accuracy, dt, 1.0, spacing),
+                       JDT[dtype])
+    td._xcorr_taps.cache_clear()
+    got = td._xcorr_taps(accuracy, dt, 1.0, spacing, TDT[dtype],
+                         torch.device("cpu"))
+    np.testing.assert_array_equal(
+        got.view(torch.int16).numpy(),
+        np.array(want).view(np.int16))
+
+
+def test_float64_taps_round_once_to_float16():
+    """A float64 ``g`` on a float16 field is rounded once, as numpy and
+    JAX round it: ``repro_torch.cast`` on a seeded draw where torch's own
+    cast (through float32) differs, and ``ref.xcorr1d`` and the wrapper
+    on those values (a unit impulse returns the taps reversed)."""
+    from repro_torch import cast
+
+    rng = np.random.default_rng(5)
+    v = rng.standard_normal(200_000)
+    once = v.astype(np.float16).view(np.uint16)
+    twice = torch.from_numpy(v).to(torch.float16).numpy().view(np.uint16)
+    differ = np.flatnonzero(twice != once)
+    assert differ.size > 0
+    np.testing.assert_array_equal(
+        cast(torch.from_numpy(v), torch.float16).numpy().view(np.uint16),
+        once)
+    g = torch.from_numpy(v[differ])
+    f = torch.zeros(2 * g.shape[0] - 1, dtype=torch.float16)
+    f[g.shape[0] - 1] = 1
+    for got in (ref.xcorr1d(f, g), tops.xcorr1d(f, g, strategy="pointwise")):
+        np.testing.assert_array_equal(got.flip(0).numpy().view(np.uint16),
+                                      once[differ])
+
+
+def test_float64_to_float16_cast_refuses_a_gradient():
+    """``repro_torch.cast`` takes no gradient on its float64 to float16
+    route, so a float64 tensor that wants one is refused there; every
+    other route is ``.to`` and keeps it."""
+    from repro_torch import cast
+
+    w = torch.ones(3, dtype=torch.float64, requires_grad=True)
+    with pytest.raises(ValueError, match="gradient"):
+        cast(w, torch.float16)
+    assert cast(w, torch.float32).requires_grad
+
+
 @pytest.mark.parametrize("strategy", ("hwc", "baseline"))
 def test_step_1d_xcorr_equals_the_fused_step(strategy):
     """As ``tests/test_physics.py:52`` holds the reference: one xcorr
@@ -176,9 +298,13 @@ def test_cpu_calls_take_the_plain_version_and_count_no_launch():
         assert torch.equal(got, ref.xcorr1d(f, g))
     assert xcorr1d.xcorr1d_cuda.launches == 0
     assert not xcorr1d.xcorr1d_cuda.launches_by_strategy
-    # bf16 runs the plain version on the CPU; the card's kernel takes it
-    # not yet (ROADMAP B6b)
+    # bf16 and f16 run the plain version on the CPU (and the kernel on
+    # the card, B6b)
     assert tops.xcorr1d(f.bfloat16(), g).dtype == torch.bfloat16
+    assert torch.equal(tops.xcorr1d(f.half(), g, strategy="elementwise",
+                                    block_size=64, unroll=32),
+                       ref.xcorr1d(f.half(), g))
+    assert xcorr1d.xcorr1d_cuda.launches == 0
 
 
 def test_launch_layout_by_hand():
@@ -207,11 +333,22 @@ def test_launch_layout_by_hand():
     xcorr1d.check_launch(2049, 24958, "baseline", 1, "float64")
     with pytest.raises(ValueError, match="shared memory"):
         xcorr1d.check_launch(2049, 24959, "baseline", 1, "float64")
-    with pytest.raises(NotImplementedError, match="B6b"):
-        xcorr1d.check_launch(3, 256, "baseline", 1, "bfloat16")
-    with pytest.raises(NotImplementedError, match="B6b"):
-        xcorr1d.check_launch(3, 256, "pointwise", 17, "float32")
+    # B6b is ported: bf16 and f16, and any unroll, run; 2-byte windows
+    # take half the bytes.
+    xcorr1d.check_launch(3, 256, "baseline", 1, "bfloat16")
+    xcorr1d.check_launch(3, 256, "pointwise", 17, "float32")
     xcorr1d.check_launch(3, 256, "baseline", 17, "float32")  # runs U = 1
+    xcorr1d.check_launch(65, 2048, "elementwise", 64, "float16")
+    with pytest.raises(ValueError, match="int32"):
+        xcorr1d.check_launch(3, 256, "baseline", 1, "int32")
+    assert S(3, 2048, "bfloat16") == 4112 + 3 * 2  # 2050 x 2 B -> 4112
+    assert S(3, 2048, "float16", "pointwise", 64) == 4112 + 6
+    # Unroll past 16 runs as its largest divisor of at most 16, in passes.
+    R = xcorr1d.register_unroll
+    assert [R(u) for u in (1, 7, 16, 17, 18, 24, 32, 48, 64, 100)] \
+        == [1, 7, 16, 1, 9, 12, 16, 16, 16, 10]
+    assert L(2048, "elementwise", 64, 3) == 32  # 64 outputs a thread
+    assert L(2048, "pointwise", 64, 3) == 1024
 
 
 def test_ring_layout_by_hand():
@@ -280,6 +417,23 @@ def test_ring_layout_by_hand():
         == 16_384 + 2049 * 4
     assert G(1 << 24, 19, 2048, "elementwise", 8, 528) == 8192
     assert G(1 << 24, 2049, 2048, "baseline", 1, 528) == 8192
+    # 2-byte types: V = gcd(U_r, 8); U > 16 takes U_r's layout, its
+    # threads block_size / U (each a few lanes of U_r outputs).
+    assert [P("elementwise", u, "bfloat16") for u in (2, 4, 8, 12, 16)] \
+        == [0, 0, 0, 0, 2]
+    assert [P("elementwise", u, "float16") for u in (24, 32, 64)] \
+        == [0, 2, 2]  # U_r 12, 16, 16
+    assert P("elementwise", 32, "float32") == 4  # U_r 16
+    assert W(2049, 2048, "bfloat16", "elementwise", 16) == 16 * (512 + 255)
+    assert [X("elementwise", u, "float16") for u in (2, 4, 8, 12, 16, 64)] \
+        == [0, 0, 0, 32 * 12 * 2, 32 * 3 * 16, 32 * 3 * 16]
+    assert L(2048, "elementwise", 64, 2049) == 32
+    assert L(65536, "elementwise", 32, 2049) == 512  # the ring's cap
+    assert route("elementwise", 24, 21) and route("elementwise", 64, 2049)
+    assert not route("elementwise", 17, 2049)  # U_r = 1: one-tile
+    assert R(2049, 2048, "float16", "elementwise", 64, 2) \
+        == 2 * 16 * (512 + 255) + 32 * 3 * 16 + 2049 * 2
+    assert xcorr1d.ring_stages(2049, 2048, "bfloat16", "elementwise", 8) == 2
     f = torch.zeros(100, dtype=torch.float64)
     assert xcorr1d.wide_staging(f, 2048)
     assert not xcorr1d.wide_staging(f[1:], 2048)  # 8 bytes past 16
@@ -301,11 +455,17 @@ def _replay_elementwise(f, g, n, block_size, unroll, dtype):
     arithmetic, then the stores (:func:`_replay_stores`). Checks that every
     multiply-add of an output reads window element o + k for its tap k,
     taps in table order, and returns the outputs and how often each was
-    written."""
+    written. U is the register width the kernel runs ``unroll`` at (a
+    lane's outputs, ``register_unroll``; above 16 a thread takes several
+    lanes); 2-byte types read element o + k of a lane's packed pair
+    (o, o + 1) as element p of the group's window, p + 1 beside it (a
+    register, or a byte permute of two), which the replay's element map
+    holds."""
     item = xcorr1d.ITEMSIZE[dtype]
     vmax = 16 // item
-    v = math.gcd(unroll, vmax)
-    nv, u = unroll // v, unroll
+    u = xcorr1d.register_unroll(unroll)
+    v = math.gcd(u, vmax)
+    nv = u // v
     ring_n = nv + 1
     pad = xcorr1d.window_pad("elementwise", u, dtype)
     n_taps = g.shape[0]
@@ -377,12 +537,12 @@ def _replay_elementwise(f, g, n, block_size, unroll, dtype):
                 group(r, c, n_taps - k0)
         assert (next_tap == n_taps).all()
         _replay_stores(out, writes, base, nout, lanes, acc, block_size, u,
-                       v, pad, vmax)
+                       v, pad, vmax, unroll)
     return out, writes
 
 
 def _replay_stores(out, writes, base, nout, live_lanes, acc, block_size, u,
-                   v, pad, vmax):
+                   v, pad, vmax, unroll):
     """The kernel's stores of one tile: a lane's U outputs as one vector
     when U = V, else each warp's 32 U outputs through its scratch (a
     lane's vectors at lane (U/V + 1) + i with the empty slots, lane U/V +
@@ -391,8 +551,9 @@ def _replay_stores(out, writes, base, nout, live_lanes, acc, block_size, u,
     warp), 16 bytes at a time where the warp's first output sits on 16
     bytes, else element by element; past nout nothing is stored."""
     nv = u // v
-    # the ring's threads (the register tiling runs on the ring only)
-    threads = xcorr1d.launch_threads(block_size, "elementwise", u,
+    # the ring's threads (the register tiling runs on the ring only):
+    # block_size / unroll, each taking lanes of u = U_r outputs
+    threads = xcorr1d.launch_threads(block_size, "elementwise", unroll,
                                      xcorr1d.RING_MIN_TAPS)
     lanes = block_size // u
     vals = np.zeros((lanes, u))
@@ -439,15 +600,17 @@ def _replay_stores(out, writes, base, nout, live_lanes, acc, block_size, u,
                     np.add.at(writes, base + w0 + e, 1)
 
 
-@pytest.mark.parametrize("dtype", ("float32", "float64"))
+@pytest.mark.parametrize("dtype", ("float32", "float64", "bfloat16",
+                                   "float16"))
 @pytest.mark.parametrize("radius", (0, 1, 3, 64, 1024))
-@pytest.mark.parametrize("unroll", range(1, 17))
+@pytest.mark.parametrize("unroll", tuple(range(1, 17)) + WIDE_UNROLLS)
 def test_register_tiling_replay(dtype, radius, unroll):
     """Every output written once, its taps summed in table order, each
     from window element o + k: the replay equals a plain float64 sum in
     tap order bit for bit, at a sampled block_size (a multiple of U; 1100
     lanes take the threads two or three passes, 37 leave a part warp) and
-    a ragged n of two and a half tiles."""
+    a ragged n of two and a half tiles; 2-byte types and U past 16 (a
+    thread several lanes of U_r) too."""
     rng = np.random.default_rng(100 * unroll + radius)
     block = unroll * int(rng.choice((3, 8, 37, 64, 1100)))
     n = 2 * block + block // 2 + 1
@@ -461,37 +624,55 @@ def test_register_tiling_replay(dtype, radius, unroll):
     np.testing.assert_array_equal(got, want)
 
 
-def _conflict_free(addresses, width):
-    """Whether one shared-memory load of ``width`` bytes a thread at these
-    32 byte addresses takes the fewest wavefronts: threads go in groups of
-    128 / width, and each group's 4-byte banks are all distinct."""
-    per = 128 // width
+def _wavefronts(addresses, width):
+    """Wavefronts of one shared-memory load of ``width`` bytes a thread at
+    these 32 byte addresses: threads go in groups of 128 / width (all 32
+    below 4 bytes, where threads in one 4-byte word share it), and a group
+    takes as many wavefronts as the most distinct words one of its 4-byte
+    banks holds."""
+    per = min(32, 128 // width)
+    total = 0
     for lo in range(0, 32, per):
-        banks = [(a // 4 + b) % 32 for a in addresses[lo:lo + per]
-                 for b in range(max(width // 4, 1))]
-        if len(set(banks)) != len(banks):
-            return False
-    return True
+        words = {a // 4 + b for a in addresses[lo:lo + per]
+                 for b in range(max(width // 4, 1))}
+        by_bank = collections.Counter(w % 32 for w in words)
+        total += max(by_bank.values())
+    return total
 
 
-@pytest.mark.parametrize("dtype", ("float32", "float64"))
-@pytest.mark.parametrize("unroll", range(1, 17))
+def _conflict_free(addresses, width):
+    """Whether the load takes the fewest wavefronts (one per group)."""
+    return _wavefronts(addresses, width) == -(-32 // min(32, 128 // width))
+
+
+@pytest.mark.parametrize("dtype", ("float32", "float64", "bfloat16",
+                                   "float16"))
+@pytest.mark.parametrize("unroll", tuple(range(1, 17)) + WIDE_UNROLLS)
 def test_register_tiling_loads_are_conflict_free(dtype, unroll):
     """Each window-vector load of a warp (its lanes' vector q0 + c, for
     every c a tap loop reaches) hits distinct banks, so a warp's V-element
     load takes the fewest wavefronts; without the empty slots, U = 8 and
-    16 in f32 and even U / 2 in f64 would not."""
+    16 in f32, even U / 2 in f64 and U = 16 in 2-byte types would not (U
+    the register width; past 16, U_r). 2-byte types at an odd U load one
+    element at a time, U x 2 bytes apart: two wavefronts at most, the one
+    case the layout leaves with conflicts (the packed pairs need an even
+    U)."""
     item = xcorr1d.ITEMSIZE[dtype]
+    unroll = xcorr1d.register_unroll(unroll)
     v = math.gcd(unroll, 16 // item)
     nv = unroll // v
     pad = xcorr1d.window_pad("elementwise", unroll, dtype)
     lanes = np.arange(32)
     lw = lanes * (pad + 1) if pad else lanes * nv
+    odd_2byte = item == 2 and unroll % 2 == 1 and unroll > 1
     for c in range(4 * (nv + 1) + 3):
         addresses = ((lw + _slot(c, pad)) * v * item).tolist()
-        assert _conflict_free(addresses, v * item), c
+        if odd_2byte:
+            assert _wavefronts(addresses, v * item) <= 2, c
+        else:
+            assert _conflict_free(addresses, v * item), c
     plain = (lanes * nv * v * item).tolist()
-    assert _conflict_free(plain, v * item) == (pad == 0)
+    assert _conflict_free(plain, v * item) == (pad == 0 and not odd_2byte)
 
 
 # --- on the card ---------------------------------------------------------------
@@ -505,9 +686,11 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ("float32", "float64"))
+@pytest.mark.parametrize("dtype", ("float32", "float64", "bfloat16",
+                                   "float16"))
 @pytest.mark.parametrize("radius", (0, 1, 5, 32, 200, 1024))
-@pytest.mark.parametrize("strategy,unroll", STRATEGY_UNROLL)
+@pytest.mark.parametrize("strategy,unroll", STRATEGY_UNROLL + [
+    ("elementwise", 16), ("elementwise", 32), ("pointwise", 64)])
 def test_xcorr1d_kernel_matches_plain_on_card(cuda_device, dtype, radius,
                                               strategy, unroll):
     n = (1 << 16) + 123  # a ragged last block
@@ -529,6 +712,9 @@ def test_kernel_layout_is_the_python_formula(cuda_device):
         (2049, 2048, "elementwise", 8, "float32"),
         (401, 100, "elementwise", 5, "float32"),
         (65, 1000, "pointwise", 7, "float64"),
+        (2049, 2048, "elementwise", 64, "bfloat16"),
+        (21, 1536, "elementwise", 24, "float16"),
+        (7, 2048, "pointwise", 32, "float16"),
     ):
         assert xcorr1d.kernel_layout(n_taps, bs, strategy, u, dtype) == (
             xcorr1d.launch_threads(bs, strategy, u, n_taps),
@@ -545,5 +731,9 @@ def test_step_1d_xcorr_is_one_launch_on_card(cuda_device):
     assert xcorr1d.xcorr1d_cuda.launches == 1
     want = td.step_1d_xcorr(f, p, strategy="hwc")
     assert _rel(got.cpu().numpy(), want.cpu().numpy()) <= CARD_TOL["float32"]
-    with pytest.raises(NotImplementedError, match="B6b"):
-        td.step_1d_xcorr(f.bfloat16(), p, strategy="baseline")
+    # B6b: bf16 and f16 steps are one launch each, equal to the plain step
+    for half in (f.bfloat16(), f.half()):
+        xcorr1d.reset_launch_counts()
+        got = td.step_1d_xcorr(half, p, strategy="baseline")
+        assert xcorr1d.xcorr1d_cuda.launches == 1
+        assert torch.equal(got, td.step_1d_xcorr(half, p, strategy="hwc"))

@@ -6,6 +6,7 @@ bit).
 
     PYTHONPATH=src python3 tools/conv1d_times.py            # every row
     PYTHONPATH=src python3 tools/conv1d_times.py --default  # defaults only
+    PYTHONPATH=src python3 tools/conv1d_times.py --dtype float16,float64 --k 4,16,33
     PYTHONPATH=<other tree>/src python3 tools/conv1d_times.py --default
 
 The default rows call ``ops.conv1d_depthwise`` as the model does, so with
@@ -14,10 +15,13 @@ that tree's kernel, and two trees compare within one call on one card.
 
 Rows (CUDA events, median of 20 after 2 warm-ups, per launch): the xBC
 view (4, 8192, 3328) of a (4, 8192, 6448) in-projection at offset 3072
-(the main path's launch) and a contiguous copy of it, k = 4, bf16 and
-f32, activation none; then SiLU on the view. A variant (this tree only)
-starts the view 1 or 2 channels later (offset 3073: single channels;
-3074: bf16 pairs, single f32 channels), which narrows the vector width.
+(the main path's launch) and a contiguous copy of it, in the dtypes
+``--dtype`` lists (a comma list; bf16 and f32 by default) and at the
+tap counts ``--k`` lists (4 by default; past 8 the kernel's body with k
+at run time), activation none; then SiLU on the view. A variant (this
+tree only) starts the view 1 or 2 channels later (offset 3073: single
+channels; 3074: 2-byte pairs, single f32 channels), which narrows the
+vector width.
 Each row prints its bound (chip_smoke.py's: bytes), the share of it
 reached, and (this tree) the channels per lane,
 the grid, and the kernel's registers and spills; a copy (``clone``) of
@@ -34,7 +38,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 # view offsets that narrow the vector width
-NARROWER = {"bfloat16": (3074, 3073), "float32": (3073,)}
+NARROWER = {"bfloat16": (3074, 3073), "float16": (3074, 3073),
+            "float32": (3073,), "float64": (3073,)}
+MANGLED = {"float32": "f", "float64": "d", "bfloat16": "13__nv_bfloat16",
+           "float16": "6__half"}
 
 
 def _launch_info(kc, cs, x, w, act, dtype, vec) -> str:
@@ -44,8 +51,9 @@ def _launch_info(kc, cs, x, w, act, dtype, vec) -> str:
     b, s, c = x.shape
     k = w.shape[0]
     grid = kc.kernel_grid(b, s, c, k, act, dtype, vec)
-    t = "13__nv_bfloat16" if dtype == "bfloat16" else "f"
-    key = (f"conv1d_depthwise_kernelI{t}Li{vec}ELi{k}E"
+    t = MANGLED[dtype]
+    body = kc.tap_body(k) if hasattr(kc, "tap_body") else k
+    key = (f"conv1d_depthwise_kernelI{t}Li{vec}ELi{body}E"
            f"Li{kc.ACTIVATIONS.index(act)}E")
     return (f"  vec {vec}, grid {grid} x {kc.THREADS}, "
             f"{cs._usage_of('conv1d_depthwise', key)}")
@@ -71,9 +79,14 @@ def main(argv: list[str]) -> int:
     dev = torch.device("cuda", torch.cuda.current_device())
     bw, _, _ = cs.card_rates(torch.cuda.get_device_name(0))
     default_only = "--default" in argv
+    dtypes, taps = ("bfloat16", "float32"), (4,)
+    if "--dtype" in argv:
+        dtypes = tuple(argv[argv.index("--dtype") + 1].split(","))
+    if "--k" in argv:
+        taps = tuple(int(k) for k in argv[argv.index("--k") + 1].split(","))
     b, s = cs.PREFILL_SHAPE
-    c, k, row = 3328, 4, 6448
-    for dtype in ("bfloat16", "float32"):
+    c, row = 3328, 6448
+    for dtype, k in ((dt, k) for dt in dtypes for k in taps):
         view, w = cs.conv_inputs((b, s, c), k, dtype, dev, seed=11, row=row,
                                  offset=3072)
         item = view.element_size()

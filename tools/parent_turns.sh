@@ -16,14 +16,22 @@
 # stream_times.py, xcorr_times.py and conv1d_times.py on each tree's
 # package, in the same turns: parent, change, change, parent. Every log
 # goes to OUT_DIR (default build/turns/). Needs one CUDA card.
+#
+# Options, in the environment: ROUNDS=N repeats the tool turns N times (parent, change, change, parent each round; turn numbers
+# run on), TOOLS="xcorr_times conv1d_times" picks the tools, and
+# SMOKE=0 skips the chip_smoke.py turns (the tools then build each tree's
+# kernels on their first call).
 set -euo pipefail
 parent=$(cd "$1" && pwd)
 here=$(cd "$(dirname "$0")/.." && pwd)
 out=${2:-$here/build/turns}
+rounds=${ROUNDS:-1}
+tools=${TOOLS:-tc_times stream_times xcorr_times conv1d_times}
 mkdir -p "$out"
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
 turn=0
 for tree in parent change change parent; do
+  [ "${SMOKE:-1}" = 0 ] && break
   turn=$((turn + 1))
   dir=$here
   [ "$tree" = parent ] && dir=$parent
@@ -39,9 +47,11 @@ PYTHONPATH="$here/src" python3 "$here/tools/port_digest.py" \
 echo "digest lines: $(wc -l < "$out/digest_change.txt"); differing:"
 diff "$out/digest_parent.txt" "$out/digest_change.txt" | grep '^>' \
   | cut -d: -f1 || true
-for tool in tc_times stream_times xcorr_times conv1d_times; do
+order=""
+for _ in $(seq "$rounds"); do order="$order parent change change parent"; done
+for tool in $tools; do
   turn=0
-  for tree in parent change change parent; do
+  for tree in $order; do
     turn=$((turn + 1))
     src=$here/src
     [ "$tree" = parent ] && src=$parent/src
